@@ -1,0 +1,38 @@
+"""LayerNorm with flax's numerics (the port's counterpart of
+flax.linen.LayerNorm as the JAX package uses it).
+
+flax computes the statistics in fp32 with the fast variance
+max(0, E[x^2] - E[x]^2) and eps 1e-5, then (x - mu) * (rsqrt(var + eps) *
+scale) + bias; torch's two-pass layer_norm differs in the last bits, which
+is enough to flip near-tied tokens in a decode. Parameters are ``scale`` and
+``bias`` as in the flax tree, kept in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+
+EPS = 1e-5  # torch nn.LayerNorm's default, as HF BART uses it
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    y = (xf - mu) * (torch.rsqrt(var + EPS) * scale) + bias
+    return y.to(out_dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, self.dtype)

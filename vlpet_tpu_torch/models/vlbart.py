@@ -1,0 +1,200 @@
+"""VLBart: vision-augmented BART seq2seq with PET, eval/decode path, ported
+from vlpet_tpu/models/vlbart.py.
+
+Generation is staged as in the JAX package: ``encode`` once,
+``init_decode`` precomputes what every step reuses (each decoder layer's
+cross-attention K/V with the VPA included, its fused self-attention QKV
+weight, the fp32 LM-head weight), and ``decode_step_topk`` is the
+per-token step driven by vlpet_tpu_torch.models.generate.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from vlpet_tpu_torch.config import VLModelConfig
+from vlpet_tpu_torch.models.bart import BartDecoder, JointEncoder, compute_dtype
+from vlpet_tpu_torch.models.generate import topk_lse
+from vlpet_tpu_torch.pet.modules import PetContext
+
+# PetConfig flags whose code paths the port does not have. Each must be off
+# (False / 0); the freezing and post-init override flags only shape training
+# and weight init, so they do not appear here.
+_UNPORTED_PET_FLAGS = (
+    "use_compacter", "use_lradapter", "use_hyperformer", "use_lora",
+    "encoder_prompt_len", "decoder_prompt_len", "use_attn_prefix",
+    "use_lm_head_adapter",
+    "use_encoder_adapter_up_multihead", "use_encoder_adapter_down_up_multihead",
+    "use_encoder_adapter_down_up_pair_multihead",
+    "use_decoder_adapter_down_multihead",
+    "use_encoder_adapter_gating_large_x", "use_encoder_adapter_gating_small_xy_cat",
+    "use_encoder_adapter_gating_middle_xy_add",
+    "use_encoder_adapter_gating_middle_ia3_add",
+    "use_encoder_adapter_gating_layernorm", "use_encoder_adapter_gating_l2norm",
+    "use_encoder_gating_large_x_lowrank",
+    "use_decoder_enc_attn_key_parallel_adapter_down_dim",
+    "use_decoder_enc_attn_key_value_adapter_down_dim",
+    "use_decoder_enc_attn_adapter_down_dim",
+    "use_decoder_enc_attn_value_sequential_adapter_down_dim",
+    "use_decoder_enc_attn_value_residual_connection",
+    "use_decoder_enc_attn_value_parallel_adapter_down_multihead",
+    "use_decoder_enc_attn_value_parallel_adapter_down_up_pair_multihead",
+    "use_decoder_self_attn_value_parallel_adapter_down_dim",
+    "use_decoder_self_attn_adapter_down_dim", "use_decoder_ff_adapter_down_dim",
+    "use_encoder_attn_value_parallel_adapter_down_dim",
+    "use_decoder_enc_attn_value_ia3", "use_decoder_self_attn_value_ia3",
+    "use_decoder_ff_ia3", "use_encoder_attn_value_ia3",
+)
+_UNPORTED_VIS_FLAGS = ("use_vis_prefix", "expand_vis_embedding",
+                       "use_lowrank_visual_projector", "vis_use_transformer")
+
+
+def check_supported(cfg: VLModelConfig) -> None:
+    """Raise NotImplementedError for any configuration the port's decode
+    slice does not implement, rather than ignoring it.
+
+    Not read by the port: use_pallas_attention / use_fused_ffn /
+    use_fused_ce (TPU kernel routing; on CUDA the port always runs its
+    kernels) and remat (a training memory policy, no effect in eval)."""
+    if cfg.is_t5:
+        raise NotImplementedError("T5 backbones are not ported yet")
+    if cfg.classifier:
+        raise NotImplementedError("the classifier answer head is not ported")
+    if cfg.use_fused_beam:
+        raise NotImplementedError("use_fused_beam (fused beam attend + cache "
+                                  "write) is not ported")
+    if cfg.scan_layers:
+        raise NotImplementedError("scan_layers (stacked layer params) is not "
+                                  "ported; convert an unstacked tree")
+    p, v = cfg.pet, cfg.vis
+    bad = [f for f in _UNPORTED_PET_FLAGS if getattr(p, f)]
+    bad += [f for f in _UNPORTED_VIS_FLAGS if getattr(v, f)]
+    if p.use_adapter and not (p.no_encoder_adapter and p.no_decoder_adapter):
+        bad.append("use_adapter (serial adapters)")
+    if bad:
+        raise NotImplementedError(f"not ported: {', '.join(bad)}")
+
+
+class DecodeConsts(NamedTuple):
+    """The loop-invariant tensors of one generation, built once by
+    ``VLBart.init_decode``: per decoder layer the cross-attention K/V
+    (B, S, H*Dh) and the fused self-attention QKV (weight, bias), and the
+    LM-head weight as fp32."""
+    cross_kvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    self_qkvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    logits_weight: torch.Tensor
+
+
+class VLBartModel(nn.Module):
+    """Encoder-decoder glue: shared embedding, joint encoder, decoder."""
+
+    def __init__(self, cfg: VLModelConfig, device=None):
+        super().__init__()
+        b = cfg.backbone
+        self.cfg = cfg
+        self.shared = nn.Parameter(torch.empty((b.vocab_size, b.d_model),
+                                               device=device))
+        self.encoder = JointEncoder(cfg, device=device)
+        self.decoder = BartDecoder(cfg, device=device)
+
+    def encode(self, input_ids, attention_mask, vis_feats=None, boxes=None,
+               img_order_ids=None, obj_order_ids=None, vis_attention_mask=None,
+               ctx: Optional[PetContext] = None):
+        return self.encoder(input_ids, attention_mask, self.shared,
+                            vis_feats=vis_feats, boxes=boxes,
+                            img_order_ids=img_order_ids,
+                            obj_order_ids=obj_order_ids,
+                            vis_attention_mask=vis_attention_mask,
+                            ctx=ctx or PetContext())
+
+    def decode(self, decoder_input_ids, joint_mask, ctx,
+               consts: DecodeConsts, cache, decode_pos: int, beam_anc=None):
+        return self.decoder(decoder_input_ids, self.shared, joint_mask,
+                            ctx or PetContext(), consts.cross_kvs, cache,
+                            decode_pos, beam_anc, consts.self_qkvs)
+
+    def compute_cross_kvs(self, encoder_hidden_states, ctx: PetContext):
+        return self.decoder.compute_cross_kvs(encoder_hidden_states, ctx)
+
+
+class VLBart(nn.Module):
+    """Seq2seq LM head over VLBartModel: logits tied to the shared
+    embedding plus ``final_logits_bias``."""
+
+    def __init__(self, cfg: VLModelConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        self.model = VLBartModel(cfg, device=device)
+        self.final_logits_bias = nn.Parameter(
+            torch.zeros((1, cfg.backbone.vocab_size), device=device))
+        self.eval()
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "VLBart":
+        """Seeded random init with the JAX package's scheme: normal(0,
+        init_std) for dense kernels and embeddings, zeros for biases, ones
+        for LayerNorm scales."""
+        std = self.cfg.backbone.init_std
+        for name, p in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                p.fill_(1.0)
+            elif leaf.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=generator.device) * std)
+        return self
+
+    def logits_weight(self) -> torch.Tensor:
+        """The tied LM-head weight rounded to the compute dtype, as fp32."""
+        return self.model.shared.to(self.dtype).float()
+
+    def _logits(self, dec_out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """fp32 logits: the compute-dtype operands multiplied in fp32 (the
+        exact value of a bf16 GEMM with fp32 accumulation and output); ``w``
+        is ``logits_weight()``."""
+        return dec_out.float() @ w.t() + self.final_logits_bias
+
+    # --- generation-facing methods ------------------------------------------
+
+    def encode(self, input_ids, attention_mask, vis_feats=None, boxes=None,
+               img_order_ids=None, obj_order_ids=None, vis_attention_mask=None,
+               ctx: Optional[PetContext] = None):
+        return self.model.encode(input_ids, attention_mask, vis_feats, boxes,
+                                 img_order_ids, obj_order_ids,
+                                 vis_attention_mask, ctx)
+
+    def init_decode(self, encoder_hidden_states,
+                    ctx: Optional[PetContext] = None) -> DecodeConsts:
+        """What every decode step reuses: the cross-attention K/V
+        (B, S, H*Dh) of every decoder layer and the other loop invariants."""
+        return DecodeConsts(
+            self.model.compute_cross_kvs(encoder_hidden_states,
+                                         ctx or PetContext()),
+            self.model.decoder.fused_self_qkvs(), self.logits_weight())
+
+    def decode_step(self, decoder_input_ids, joint_mask, consts: DecodeConsts,
+                    cache, decode_pos: int, ctx: Optional[PetContext] = None,
+                    beam_anc=None):
+        """One decode step -> (logits (B, V) f32, cache)."""
+        dec_out, cache = self.model.decode(decoder_input_ids, joint_mask, ctx,
+                                           consts, cache, decode_pos, beam_anc)
+        return self._logits(dec_out[:, -1, :], consts.logits_weight), cache
+
+    def decode_step_topk(self, decoder_input_ids, joint_mask,
+                         consts: DecodeConsts, cache, decode_pos: int, k: int,
+                         ctx: Optional[PetContext] = None, beam_anc=None):
+        """Decode step -> (top_vals (B, k) f32, top_toks (B, k) int32,
+        lse (B,) f32, cache): per-row top-k of the raw logits plus the row
+        logsumexp, through kernel 4 (or its plain twin)."""
+        logits, cache = self.decode_step(decoder_input_ids, joint_mask,
+                                         consts, cache, decode_pos, ctx,
+                                         beam_anc)
+        vals, toks, lse = topk_lse(logits, k)
+        return vals, toks, lse, cache

@@ -1,0 +1,133 @@
+"""Decode-time attention for greedy and reorder-free beam search.
+
+Port of vlpet_tpu/ops/decode.py. The self-attention KV cache is time-major
+(L, B*J, H*Dh) and its rows are never reordered: each beam carries an
+ancestry vector anc[b, k, t], the physical row that holds its KV at slot t,
+and attention reads through it. The cross-attention KV stays at B rows,
+shared by the K beams of a batch element.
+
+beam_decode_attend is kernel 3 (csrc/beam_attend.cu, replacing
+_beam_self_attend_pallas); its plain twin is the einsum form of the JAX
+function's XLA branch. The kernel reads ``anc`` directly: the flat
+(B*K, L*8*J) mask, the 8-row batch blocking and the pad of B to a multiple
+of 8 were TPU sublane artefacts.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from vlpet_tpu_torch.ops import _build
+from vlpet_tpu_torch.ops.attention import fused_attention
+
+NEG_INF = -1.0e9
+
+
+def beam_selection_mask(anc: torch.Tensor, decode_pos: int, cache_len: int,
+                        num_rows: int) -> torch.Tensor:
+    """Additive (B, K, J, L) f32 mask: slot l of row j is attendable by beam
+    k iff l <= decode_pos and anc[b, k, l] == j."""
+    j = torch.arange(num_rows, device=anc.device)[None, None, :, None]
+    l = torch.arange(cache_len, device=anc.device)[None, None, None, :]
+    sel = (anc[:, :, None, :] == j) & (l <= decode_pos)
+    return torch.where(sel, 0.0, NEG_INF).float()
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy decode self-attention over the time-major cache (plain, as in
+    the JAX package). q (B, 1, H, Dh); k, v (L, B, H*Dh); mask additive with
+    trailing L axis, e.g. (1, 1, 1, L). Returns (B, 1, H*Dh)."""
+    H, Dh = q.shape[-2:]
+    L, B = k.shape[:2]
+    kh = k.reshape(L, B, H, Dh)
+    vh = v.reshape(L, B, H, Dh)
+    logits = torch.einsum("bhd,lbhd->bhl", q.reshape(B, H, Dh).float(),
+                          kh.float())
+    if mask is not None:
+        logits = logits + mask.float().reshape(mask.shape[0], 1, L)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhl,lbhd->bhd", probs, vh)
+    return out.reshape(B, 1, H * Dh)
+
+
+def beam_decode_attend_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, anc: torch.Tensor,
+                                 decode_pos: int) -> torch.Tensor:
+    """Plain twin of the beam kernel: the einsum form of
+    vlpet_tpu/ops/decode.py:beam_decode_attend (:409-434), every beam scored
+    against all J rows of its batch element through the ancestry mask."""
+    B, K, _ = anc.shape
+    L = k.shape[0]
+    J = k.shape[1] // B
+    H, Dh = q.shape[-2:]
+    sel = beam_selection_mask(anc, decode_pos, L, J)
+    qb = q.reshape(B, K, H, Dh)
+    kb = k.reshape(L, B, J, H, Dh)
+    vb = v.reshape(L, B, J, H, Dh)
+    logits = torch.einsum("bqhd,lbjhd->bhqjl", qb.float(), kb.float())
+    logits = logits.reshape(B, H, K, J * L) + sel.reshape(B, 1, K, J * L)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqjl,lbjhd->bqhd", probs.reshape(B, H, K, J, L), vb)
+    return out.reshape(B * K, 1, H * Dh)
+
+
+def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       anc: torch.Tensor, decode_pos: int) -> torch.Tensor:
+    """Ancestry-routed self-attention for one beam decode step.
+
+    q (B*K, 1, H, Dh); k, v (L, B*J, H*Dh) time-major cache whose slot
+    ``decode_pos`` already holds this step's KV (the mask is inclusive);
+    anc (B, K, L) integer ancestry with values in [0, J). Returns
+    (B*K, 1, H*Dh). CPU tensors run the plain version; CUDA tensors launch
+    the kernel."""
+    B, K, Lc = anc.shape
+    H, Dh = q.shape[-2:]
+    if k.shape[0] != Lc or k.shape[1] % B or k.shape != v.shape:
+        raise ValueError(f"cache {tuple(k.shape)} does not match ancestry "
+                         f"{tuple(anc.shape)}")
+    if q.shape[0] != B * K or k.shape[2] != H * Dh:
+        raise ValueError(f"q {tuple(q.shape)} does not match cache/ancestry")
+    if not 0 <= decode_pos < Lc:
+        raise ValueError(f"decode_pos {decode_pos} outside the cache [0, {Lc})")
+    if not _build.use_kernel(q, k, v, anc):
+        return beam_decode_attend_reference(q, k, v, anc, decode_pos)
+    J = k.shape[1] // B
+    q2 = q.reshape(B * K, H * Dh)
+    dts = (torch.float32, torch.bfloat16)
+    _build.check(q2, "q", dts, 2)
+    _build.check(k, "k", (q.dtype,), 3)
+    _build.check(v, "v", (q.dtype,), 3)
+    anc32 = anc.to(torch.int32).contiguous()
+    out = torch.empty_like(q2)
+    _build.launch("vlpet_beam_attend", q2.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), anc32.data_ptr(), out.data_ptr(), B, K, J, Lc,
+                  H, Dh, int(decode_pos), int(q.dtype == torch.bfloat16))
+    beam_decode_attend.launches += 1
+    return out.reshape(B * K, 1, H * Dh)
+
+
+beam_decode_attend.launches = 0
+
+
+def beam_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      attend: Callable = fused_attention) -> torch.Tensor:
+    """Cross-attention with beam-shared encoder KV: the K beams of a batch
+    element are a K-long query sequence over its one (S, H*Dh) KV copy,
+    through the fused attention (kernel 1 on CUDA).
+
+    q (B*K, 1, H, Dh); k, v (B, S, H*Dh); mask additive (B, 1, 1, S).
+    ``attend`` is fused_attention or its plain twin. Returns
+    (B*K, 1, H*Dh)."""
+    H, Dh = q.shape[-2:]
+    B, S = k.shape[:2]
+    K = q.shape[0] // B
+    if mask is None:
+        m = torch.zeros((1, 1, 1, S), dtype=torch.float32, device=q.device)
+    else:
+        m = mask.float().reshape(B, 1, 1, S)
+    out = attend(q.reshape(B, K, H * Dh), k, v, m, H)
+    return out.reshape(B * K, 1, H * Dh)
