@@ -1,23 +1,51 @@
 """Smoke run of the PyTorch port (vlpet_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # --profile: device-time breakdowns
 
 Phases (each prints its own lines; any failure raises, so the exit code is
 nonzero and no result line is printed):
   1. environment: torch/CUDA versions, card name and power limit;
   2. build the CUDA kernels from vlpet_tpu_torch/csrc with nvcc (sm_90a);
-  3. every kernel vs its plain PyTorch twin at the decode path's shapes,
+  3. the decode path's kernels vs their plain PyTorch twins at its shapes,
      bf16 and fp32, with median times from CUDA events;
-  4. fp32 end-to-end parity: BART-base + VL-PET-large at full width, seeded
+  3b. the training path's kernels vs their plain twins (the backward ones
+     vs autograd of the plain forward) at its shapes, bf16 and fp32:
+     attention forward + backward at the encoder (B 500, L = S = 56,
+     padding mask), decoder-self (L = S = 10, causal) and cross (L 10,
+     S 56) sites, FFN forward + backward at N 28000 and 5000, dropout +
+     add + LayerNorm forward + backward at N 28000 and 5000, rate 0.1 and
+     0.0 (the fp32 dropout mask held bit for bit against keep_mask);
+  4. fp32 decode parity: BART-base + VL-PET-large at full width, seeded
      random weights, batch 8, beam 5 (then greedy) to length 40, through
      the kernels and through the plain path: the token sequences must be
      identical. (a) all 6+6 layers at the JAX init scale; (b) 1+1 layers
      with weights at a scale that decodes varied tokens;
-  5. the bench shape in bf16: batch 500 (20 text tokens + 36 boxes of
-     2048-d features), beam 5 to length 40; examples/s and launches per
-     kernel.
-The last two lines are the kernels' JSON record and the result line
+  5. the decode bench shape in bf16: batch 500 (20 text tokens + 36 boxes
+     of 2048-d features), beam 5 to length 40; examples/s and launches per
+     kernel (the decode path's main-path run);
+  6. fp32 train-step parity: full width, batch 8, task vqa, dropout 0.1,
+     K = 3 steps through the kernels, then 3 through the plain twins from
+     the same weights and generator seed: per-step loss and gradient norm
+     within 1e-5 relative, trainable parameters within rtol 1e-3, atol
+     1e-5 * max|p| (tests/test_training_parity.py's lockstep tolerance);
+  7. the train bench shape in bf16: batch 500, 20 text + 36 boxes, 10
+     targets, vqa, dropout 0.1, lr 1e-3, clip 5: 3 warm-up steps, then 10
+     timed steps with one sync; examples/s, launches per kernel per step
+     (the training path's main-path run), peak memory.
+The last lines are the card, the kernels' JSON record and the result line
 {"ok": true, "device": {...}}.
+
+Tolerances of the kernel-vs-plain checks: |kernel - plain| <= tol * (1 +
+|plain|), 1e-5 fp32 (the kernels only reorder fp32 sums) and 2e-2 bf16
+(the kernels keep fp32 where the plain path rounds to bf16 between ops:
+probabilities, hidden activations; a few bf16 ulps of O(1) values). The
+backward checks hold |kernel - plain| <= tol * (1 + max|plain|) instead:
+their outputs include column sums over all N rows (db1, db2, dgamma,
+dbeta), whose rounding is set by the magnitudes summed, not by the
+(possibly cancelled) sum, and in bf16 the plain path rounds intermediates
+far larger than an output element (attention's dp = do . v^T, the FFN's
+dh = dy . W2), so the error follows the tensor's scale, not each
+element.
 
 Imports: torch, the standard library and the port (vlpet_tpu_torch) only.
 """
@@ -26,24 +54,26 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
-from vlpet_tpu_torch.config import flagship_cfg
+from vlpet_tpu_torch.config import FLAGSHIP_TASKS, flagship_cfg
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.vlbart import VLBart
-from vlpet_tpu_torch.ops import (_build, attention, decode, ffn, plain_twins,
-                                 topk)
+from vlpet_tpu_torch.ops import (_build, attention, decode, ffn, fused_ln,
+                                 plain_twins, topk)
+from vlpet_tpu_torch.ops.hashdrop import keep_mask
 from vlpet_tpu_torch.pet.modules import PetContext
+from vlpet_tpu_torch.train.freezing import apply_freezing
+from vlpet_tpu_torch.train.optim import build_optimizer
+from vlpet_tpu_torch.train.steps import make_train_step
 
-# Tolerances of the kernel-vs-plain checks: |kernel - plain| <= tol * (1 +
-# |plain|). fp32 kernels only reorder fp32 sums; bf16 kernels keep fp32
-# probabilities / hidden activations where the plain path rounds them to
-# bf16, which bounds the difference by a few bf16 ulps of O(1) values.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOPK_LSE_TOL = 1e-5  # top-k values and indices must match exactly
 # phase 4: at the last beam step at least this share of the cache slots is
@@ -51,14 +81,33 @@ TOPK_LSE_TOL = 1e-5  # top-k values and indices must match exactly
 # phase 4b every row holds at least this many distinct token ids
 MIN_ROUTED_SHARE = 0.5
 MIN_DISTINCT_PER_ROW = 4
+# phase 6: per-step loss and gradient norm, relative; trainable parameters
+TRAIN_METRIC_RTOL = 1e-5
+PARAM_RTOL, PARAM_ATOL_SCALE = 1e-3, 1e-5
 
-SOURCES = {
+# the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): bf16
+# tensor cores, fp32 outside them (the fp32 kernels must not round to TF32)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+# name -> (source, the TPU kernel it replaces, main paths that launch it)
+KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
-                        "vlpet_tpu/ops/attention.py:408"),
-    "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240"),
+                        "vlpet_tpu/ops/attention.py:408", ("decode", "train")),
+    "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
+                            "vlpet_tpu/ops/attention.py:1082", ("train",)),
+    "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
+                  ("decode", "train")),
+    "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
+                      "vlpet_tpu/ops/ffn.py:195", ("train",)),
+    "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
+                             "vlpet_tpu/ops/fused_ln.py:251", ("train",)),
+    "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
+                                 "vlpet_tpu/ops/fused_ln.py:270", ("train",)),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
-                           "vlpet_tpu/ops/decode.py:174"),
-    "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159"),
+                           "vlpet_tpu/ops/decode.py:174", ("decode",)),
+    "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
+                 ("decode",)),
 }
 
 
@@ -86,52 +135,98 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes moved at the memory rate and the operations at the peak
+    rate for the inputs' type."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
+            scaled: bool = False) -> float:
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bound = TOL[dtype] * (1.0 + want.abs())
-    if not torch.isfinite(got).all() or bool((err > bound).any()):
+    tol = TOL[dtype] * (1.0 + (want.abs().max() if scaled else want.abs()))
+    if not torch.isfinite(got).all() or bool((err > tol).any()):
         raise AssertionError(f"{name}: kernel disagrees with plain: max |err| "
                              f"{err.max().item():.3e} (tol {TOL[dtype]})")
     return err.max().item()
 
 
 class Report:
-    def __init__(self):
-        self.err = {k: 0.0 for k in SOURCES}
-        self.ms = {}
-        self.plain_ms = {}
+    """Per kernel: the largest error against the plain twin over all the
+    checks, and the times and bound of the one timed case."""
 
-    def check(self, key, label, kernel_fn, plain_fn, dtype, timed=False):
+    def __init__(self):
+        self.err = {k: 0.0 for k in KERNELS}
+        self.timed = {}
+
+    def check(self, key, label, kernel_fn, plain_fn, dtype, timed=False,
+              work=None, library_fn=None, iters=20, backward=False):
+        """Compare kernel_fn() with plain_fn() (a tensor or a tuple each),
+        then time both (and library_fn, one PyTorch call of the same
+        function, where there is one). ``work`` = (bytes, operations) of
+        the call, for the bound of the timed case; ``backward`` takes the
+        tolerance scaled by max|plain| (module docstring)."""
         got, want = kernel_fn(), plain_fn()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
         torch.cuda.synchronize()
-        err = compare(f"{key} {label}", got, want, dtype)
+        err = max(compare(f"{key} {label}", g, w, dtype, backward)
+                  for g, w in zip(got, want))
         self.err[key] = max(self.err[key], err)
-        ms = cuda_ms(kernel_fn)
-        pms = cuda_ms(plain_fn)
+        ms = cuda_ms(kernel_fn, iters)
+        pms = cuda_ms(plain_fn, iters)
+        lms = cuda_ms(library_fn, iters) if library_fn is not None else None
+        lib = f"  library {lms:.4f} ms" if lms is not None else ""
+        print(f"  {key:24s} {label:34s} max|err| {err:.3e}  kernel "
+              f"{ms:.4f} ms  plain {pms:.4f} ms{lib}", flush=True)
         if timed:
-            self.ms[key], self.plain_ms[key] = ms, pms
-        print(f"  {key:18s} {label:38s} max|err| {err:.3e}  kernel "
-              f"{ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+            bms, by = bound(*work, dtype)
+            self.timed[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                                   bound_ms=bms, bound_by=by)
+
+
+def randn_fn(g, dev="cuda"):
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    return randn
+
+
+def padding_mask(g, B: int, S: int) -> torch.Tensor:
+    mask = torch.where(torch.rand((B, 1, 1, S), generator=g, device="cuda")
+                       < 0.2, -1e9, 0.0)
+    mask[..., 0] = 0.0
+    return mask
+
+
+def sdpa(q, k, v, mask, H):
+    """One PyTorch call of the same attention (the library yardstick; the
+    port never calls it): q pre-scaled, so scale 1."""
+    B, L, inner = q.shape
+    S = k.shape[1]
+    heads = [t.view(B, n, H, inner // H).transpose(1, 2)
+             for t, n in ((q, L), (k, S), (v, S))]
+    return F.scaled_dot_product_attention(*heads, attn_mask=mask.to(q.dtype),
+                                          scale=1.0)
 
 
 def phase_kernels(rep: Report) -> None:
-    dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(0)
+    """The decode path's shapes."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    randn = randn_fn(g)
     H, Dh = 12, 64
     inner = H * Dh
 
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
-
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        main = dtype == torch.bfloat16  # the bench path runs bf16
+        main = dtype == torch.bfloat16  # the bench paths run bf16
+        e = 2 if main else 4
         # attention: encoder self-attention and beam cross-attention
         B, S = 500, 56
-        mask = torch.where(torch.rand((B, 1, 1, S), generator=g, device=dev)
-                           < 0.2, -1e9, 0.0)
-        mask[..., 0] = 0.0
+        mask = padding_mask(g, B, S)
         k = randn(B, S, inner, dtype=dtype)
         v = randn(B, S, inner, dtype=dtype)
         for L in (56, 5):
@@ -140,7 +235,10 @@ def phase_kernels(rep: Report) -> None:
                       lambda: attention.fused_attention(q, k, v, mask, H),
                       lambda: attention.fused_attention_reference(q, k, v,
                                                                   mask, H),
-                      dtype, timed=main and L == 56)
+                      dtype, timed=main and L == 56,
+                      work=(e * 2 * B * (L + S) * inner + 4 * B * S,
+                            4 * B * H * L * S * Dh),
+                      library_fn=lambda: sdpa(q, k, v, mask, H))
         # FFN: encoder rows (B*56) and beam decode rows (B*K)
         D, Fh = 768, 3072
         w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
@@ -152,29 +250,37 @@ def phase_kernels(rep: Report) -> None:
             rep.check("fused_ffn", f"{tag} N{N} D{D} F{Fh} gelu",
                       lambda: ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),
                       lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"),
-                      dtype, timed=main and N == 28000)
+                      dtype, timed=main and N == 28000,
+                      work=(e * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                            4 * N * D * Fh),
+                      iters=20 if main else 3)
         # beam self-attend over the time-major cache
         K = J = 5
         Lc = 40
         qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
         kc = randn(Lc, B * J, inner, dtype=dtype)
         vc = randn(Lc, B * J, inner, dtype=dtype)
-        anc = torch.randint(0, J, (B, K, Lc), generator=g, device=dev)
+        anc = torch.randint(0, J, (B, K, Lc), generator=g, device="cuda")
         for pos in (0, 13, Lc - 1):
+            # cache rows this step's ancestry reads: distinct (b, t, j)
+            rows = F.one_hot(anc[:, :, :pos + 1], J).amax(dim=1).sum().item()
             rep.check("beam_decode_attend",
                       f"{tag} B{B} K{K} L{Lc} pos{pos}",
                       lambda: decode.beam_decode_attend(qb, kc, vc, anc, pos),
                       lambda: decode.beam_decode_attend_reference(
                           qb, kc, vc, anc, pos),
-                      dtype, timed=main and pos == Lc - 1)
+                      dtype, timed=main and pos == Lc - 1,
+                      work=(e * (2 * B * K * inner + 2 * rows * inner)
+                            + 4 * B * K * Lc,
+                            4 * B * K * H * (pos + 1) * Dh))
 
     # top-k + logsumexp on f32 logits, with ties
     R, V = 2500, 50265
     cases = {
-        "randn": torch.randn((R, V), generator=g, device=dev),
+        "randn": torch.randn((R, V), generator=g, device="cuda"),
         # 2000 levels over 50265 entries: every top value is tied ~25 ways
         "ties": torch.randint(-1000, 1000, (R, V), generator=g,
-                              device=dev).float() / 100.0,
+                              device="cuda").float() / 100.0,
     }
     for cname, x in cases.items():
         for kk in (1, 10, 16):
@@ -193,10 +299,131 @@ def phase_kernels(rep: Report) -> None:
             ms = cuda_ms(lambda: topk.topk_lse(x, kk))
             pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
             if cname == "randn" and kk == 10:
-                rep.ms["topk_lse"], rep.plain_ms["topk_lse"] = ms, pms
-            print(f"  {'topk_lse':18s} {f'{cname} R{R} V{V} k{kk}':38s} "
+                bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
+                                torch.float32)
+                rep.timed["topk_lse"] = dict(ms=ms, plain_ms=pms,
+                                             library_ms=None, bound_ms=bms,
+                                             bound_by=by)
+            print(f"  {'topk_lse':24s} {f'{cname} R{R} V{V} k{kk}':34s} "
                   f"indices exact, lse max|err| {err.max().item():.3e}  "
                   f"kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+
+
+def _grads_of(fn, inputs, cot):
+    """A function that returns the gradients of fn(*inputs) for cotangent
+    ``cot`` from one recorded graph (the plain twin of a backward kernel,
+    timed without its forward)."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+
+def phase_train_kernels(rep: Report) -> None:
+    """The training path's shapes: every forward and backward kernel."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    randn = randn_fn(g)
+    H, Dh = 12, 64
+    inner = H * Dh
+    B = 500
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        main = dtype == torch.bfloat16
+        e = 2 if main else 4
+        sites = (("enc", 56, 56, False, padding_mask(g, B, 56)),
+                 ("dec-self", 10, 10, True,
+                  torch.zeros((1, 1, 1, 10), device="cuda")),
+                 ("cross", 10, 56, False, padding_mask(g, B, 56)))
+        for site, L, S, causal, mask in sites:
+            q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+            k = randn(B, S, inner, dtype=dtype)
+            v = randn(B, S, inner, dtype=dtype)
+            do = randn(B, L, inner, dtype=dtype)
+            label = f"{tag} {site} B{B} L{L} S{S}" + (" causal" if causal
+                                                      else "")
+            rep.check("fused_attention", label,
+                      lambda: attention.fused_attention(q, k, v, mask, H,
+                                                        causal),
+                      lambda: attention.fused_attention_reference(
+                          q, k, v, mask, H, causal), dtype)
+            plain_bwd = _grads_of(
+                lambda a, b, c: attention.fused_attention_reference(
+                    a, b, c, mask, H, causal), (q, k, v), do)
+            lib_bwd = None
+            if not causal:
+                lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, mask, H),
+                                    (q, k, v),
+                                    do.view(B, L, H, Dh).transpose(1, 2))
+            rep.check("fused_attention_bwd", label,
+                      lambda: attention.fused_attention_bwd(q, k, v, mask, do,
+                                                            H, causal),
+                      plain_bwd, dtype, timed=main and site == "enc",
+                      work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+                            10 * B * H * L * S * Dh),
+                      library_fn=lib_bwd, backward=True)
+        D, Fh = 768, 3072
+        w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
+                                                              scale=0.02)
+        b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+        for N in (28000, 5000):
+            x = randn(N, D, dtype=dtype)
+            dy = randn(N, D, dtype=dtype)
+            iters = 20 if main else 3
+            if N == 5000:  # N 28000 is phase 3's
+                rep.check("fused_ffn", f"{tag} N{N} D{D} F{Fh} gelu",
+                          lambda: ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),
+                          lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"),
+                          dtype, iters=iters)
+            plain_bwd = _grads_of(
+                lambda a, c, d: ffn.ffn_reference(a, w1, c, w2, d, "gelu"),
+                (x, b1, b2), dy)
+            rep.check("fused_ffn_bwd", f"{tag} N{N} D{D} F{Fh} gelu",
+                      lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu"),
+                      plain_bwd, dtype, timed=main and N == 28000,
+                      work=(e * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                            6 * N * D * Fh), iters=iters, backward=True)
+        for N in (28000, 5000):
+            h, res, dy = (randn(N, D, dtype=dtype) for _ in range(3))
+            gamma, beta = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            for rate in (0.1, 0.0):
+                label = f"{tag} N{N} D{D} rate {rate}"
+                timed = main and N == 28000 and rate > 0
+                rep.check("fused_dropout_add_ln", label,
+                          lambda: fused_ln.fused_dropout_add_ln(
+                              h, res, gamma, beta, seed, rate),
+                          lambda: fused_ln.fused_dropout_add_ln_reference(
+                              h, res, gamma, beta, seed, rate), dtype,
+                          timed=timed,
+                          work=(e * 3 * N * D + 4 * (2 * D + 1), 8 * N * D))
+                plain_bwd = _grads_of(
+                    lambda a, b, c, d: fused_ln.fused_dropout_add_ln_reference(
+                        a, b, c, d, seed, rate), (h, res, gamma, beta), dy)
+                rep.check("fused_dropout_add_ln_bwd", label,
+                          lambda: fused_ln.fused_dropout_add_ln_bwd(
+                              h, res, gamma, seed, dy, rate),
+                          plain_bwd, dtype, timed=timed,
+                          work=(e * 5 * N * D + 4 * (3 * D + 1), 16 * N * D),
+                          backward=True)
+                if not main and rate > 0:
+                    check_ln_mask(h, res, gamma, seed, dy, rate)
+
+
+def check_ln_mask(h, res, gamma, seed, dy, rate) -> None:
+    """fp32: the backward kernel's dropout mask, bit for bit, is keep_mask's
+    (dh = dres * 1/(1-rate) where kept, 0 where dropped)."""
+    dh, dres, _, _ = fused_ln.fused_dropout_add_ln_bwd(h, res, gamma, seed,
+                                                       dy, rate)
+    keep = keep_mask(h.shape, 0, seed, rate)
+    scale = torch.tensor(1.0 / (1.0 - rate), device="cuda")
+    want = torch.where(keep, dres * scale, torch.zeros_like(dres))
+    if not torch.equal(dh, want):
+        bad = (dh != want).sum().item()
+        raise AssertionError(f"fused LN dropout mask differs from keep_mask "
+                             f"in {bad} elements")
+    print(f"  {'fused_dropout_add_ln_bwd':24s} fp32 mask == keep_mask bit for "
+          f"bit ({h.shape[0]}x{h.shape[1]}, kept share "
+          f"{keep.float().mean().item():.4f})", flush=True)
 
 
 def make_batch(B: int, vocab: int, seed: int):
@@ -209,6 +436,18 @@ def make_batch(B: int, vocab: int, seed: int):
     return dict(input_ids=ids, attention_mask=mask,
                 vis_feats=torch.randn((B, 36, 2048), generator=g, device="cuda"),
                 boxes=torch.rand((B, 36, 4), generator=g, device="cuda"))
+
+
+def make_train_batch(B: int, vocab: int, seed: int):
+    """The decode batch plus 10 target tokens (padded with -100 on every
+    third example) and VQA answer scores."""
+    batch = make_batch(B, vocab, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    targets = torch.randint(3, vocab, (B, 10), generator=g, device="cuda")
+    targets[::3, 7:] = -100
+    batch.update(target_ids=targets,
+                 scores=torch.rand((B,), generator=g, device="cuda"))
+    return batch
 
 
 def build_model(dtype: str):
@@ -231,23 +470,30 @@ def spread_weights(model: VLBart, seed: int) -> VLBart:
     return model
 
 
-def counts():
+def wrappers():
     return {"fused_attention": attention.fused_attention,
+            "fused_attention_bwd": attention.fused_attention_bwd,
             "fused_ffn": ffn.fused_ffn,
+            "fused_ffn_bwd": ffn.fused_ffn_bwd,
+            "fused_dropout_add_ln": fused_ln.fused_dropout_add_ln,
+            "fused_dropout_add_ln_bwd": fused_ln.fused_dropout_add_ln_bwd,
             "beam_decode_attend": decode.beam_decode_attend,
             "topk_lse": topk.topk_lse}
 
 
 def reset_counts():
-    for fn in counts().values():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
-def read_counts():
-    got = {k: fn.launches for k, fn in counts().items()}
-    missing = [k for k, n in got.items() if n == 0]
+def read_counts(path: str):
+    """Launch counts since the last reset; raises if a kernel of ``path``
+    ('decode' or 'train') was never launched."""
+    got = {k: fn.launches for k, fn in wrappers().items()}
+    missing = [k for k, (_, _, paths) in KERNELS.items()
+               if path in paths and got[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
     return got
 
@@ -289,10 +535,7 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
         return seq2seq_generate(model, **batch, ctx=ctx, num_beams=5,
                                 max_length=40)
 
-    reset_counts()
     got, routed = routed_share(model, beam5)
-    torch.cuda.synchronize()
-    launched = read_counts()
     with plain_twins():
         want = beam5()
     if not torch.equal(got, want):
@@ -309,7 +552,7 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
     print(f"  {label}: encoder max|kernel - plain| / max|plain| "
           f"{enc_rel:.2e}; beam5 tokens identical (kernel vs plain), "
           f"cache slots read across beams {routed:.3f}, distinct ids per "
-          f"row {per_row}; launches {launched}", flush=True)
+          f"row {per_row}", flush=True)
     print(f"    sample: {got[0].tolist()}", flush=True)
     # greedy: L = 1 cross-attention and k = 1 top-k through the kernels
     got = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1, max_length=40)
@@ -339,7 +582,7 @@ def phase_parity() -> None:
                min_distinct=MIN_DISTINCT_PER_ROW)
 
 
-def phase_bench(card: str):
+def phase_decode_bench(card: str):
     model = build_model("bfloat16")
     V = model.cfg.backbone.vocab_size
     B = 500
@@ -357,7 +600,7 @@ def phase_bench(card: str):
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = read_counts()
+    launched = read_counts("decode")
     if out.shape != (B, 40) or out.dtype != torch.long:
         raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
     if not bool(((out >= 0) & (out < V)).all()) or not bool((out[:, 0] == 2).all()):
@@ -365,14 +608,109 @@ def phase_bench(card: str):
     print(f"  bf16 B{B} beam5 len40: {B / wall:.2f} examples/s, wall "
           f"{wall:.3f} s on {card}; launches {launched}", flush=True)
     if "--profile" in sys.argv:
-        profile_run(run, card)
+        profile_run(run, card, "beam-5 generate")
     return launched
 
 
-def profile_run(run, card: str) -> None:
-    """One more bench-shape generate under torch.profiler: device time by
-    kernel family, the device idle share of the run's wall time, and the
-    top of the per-kernel table."""
+def train_setup(dtype: str, B: int, seed: int):
+    model = build_model(dtype)
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = make_train_batch(B, model.cfg.backbone.vocab_size, seed)
+    return model, trainable, batch
+
+
+def train_run(model, trainable, batch, steps: int, total_steps: int,
+              gen_seed: int, lr: float = 1e-3):
+    """``steps`` train steps (task vqa) with a fresh optimizer; returns the
+    per-step (loss, grad_norm) tensors."""
+    opt = build_optimizer(trainable, lr=lr, total_steps=total_steps)
+    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    return [step(batch, gen, FLAGSHIP_TASKS.index("vqa"))
+            for _ in range(steps)]
+
+
+def phase_train_parity() -> None:
+    K = 3
+    model, trainable, batch = train_setup("float32", 8, seed=21)
+    start = {n: p.detach().clone() for n, p in trainable.items()}
+    reset_counts()
+    got = train_run(model, trainable, batch, K, K + 1, gen_seed=5)
+    torch.cuda.synchronize()
+    launched = read_counts("train")
+    after = {n: p.detach().clone() for n, p in trainable.items()}
+    with torch.no_grad():
+        for n, p in trainable.items():
+            p.copy_(start[n])
+    reset_counts()
+    with plain_twins():
+        want = train_run(model, trainable, batch, K, K + 1, gen_seed=5)
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in wrappers().values()):
+        raise AssertionError("the plain train step launched kernels")
+    rows = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key in ("loss", "grad_norm"):
+            x, y = a[key].item(), b[key].item()
+            if not math.isfinite(x) or abs(x - y) > TRAIN_METRIC_RTOL * abs(y):
+                raise AssertionError(f"train step {i} {key}: kernels {x!r} vs "
+                                     f"plain {y!r}")
+        rows.append(f"{a['loss'].item():.7f}/{b['loss'].item():.7f} "
+                    f"|g| {a['grad_norm'].item():.6f}/"
+                    f"{b['grad_norm'].item():.6f}")
+    worst = 0.0
+    for n, p in trainable.items():
+        want_p = p.detach()
+        tol = PARAM_RTOL * want_p.abs() + PARAM_ATOL_SCALE * want_p.abs().max()
+        diff = (after[n] - want_p).abs()
+        if bool((diff > tol).any()):
+            raise AssertionError(f"trainable {n}: kernels vs plain max |diff| "
+                                 f"{diff.max().item():.3e}")
+        moved = (after[n] - start[n]).abs().max().item()
+        worst = max(worst, (diff.max() / max(moved, 1e-30)).item())
+    print(f"  fp32 B8 vqa dropout 0.1, {K} steps, loss kernel/plain and "
+          f"grad norm: {'; '.join(rows)}", flush=True)
+    print(f"  {len(trainable)} trainable tensors agree (rtol {PARAM_RTOL}, "
+          f"atol {PARAM_ATOL_SCALE} max|p|); largest |kernel - plain| / "
+          f"largest update {worst:.2e}; launches {launched}", flush=True)
+
+
+def phase_train_bench(card: str):
+    B, warm, timed = 500, 3, 10
+    model, trainable, batch = train_setup("bfloat16", B, seed=31)
+    opt = build_optimizer(trainable, lr=1e-3, total_steps=warm + timed + 1)
+    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    task = FLAGSHIP_TASKS.index("vqa")
+    for _ in range(warm):
+        out = step(batch, gen, task)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out = step(batch, gen, task)
+    loss = out["loss"].item()  # the one sync
+    wall = time.perf_counter() - t0
+    launched = read_counts("train")
+    if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
+        raise AssertionError(f"non-finite loss {loss} / grad norm")
+    per_step = {k: n / timed for k, n in launched.items() if n}
+    print(f"  bf16 B{B} vqa train step: {B * timed / wall:.2f} examples/s "
+          f"({wall / timed * 1e3:.2f} ms/step over {timed} steps) on {card}; "
+          f"loss {loss:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"per step {per_step}", flush=True)
+    if "--profile" in sys.argv:
+        profile_run(lambda: step(batch, gen, task)["loss"].item(), card,
+                    "train step")
+    return launched
+
+
+def profile_run(run, card: str, what: str) -> None:
+    """One more run under torch.profiler: device time by kernel family, the
+    device idle share of the run's wall time, and the top of the per-kernel
+    table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -382,10 +720,16 @@ def profile_run(run, card: str) -> None:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"ffn_fwd": "fused_ffn kernel",
-                "attention_fwd": "fused_attention kernel",
-                "beam_attend": "beam_decode_attend kernel",
-                "topk_lse": "topk_lse kernel", "gemm": "cuBLAS GEMMs",
+    families = {"ffn_fwd": "fused_ffn kernel (F1)",
+                "ffn_bwd": "fused_ffn_bwd kernel (F2)",
+                "ffn_bias": "fused_ffn_bwd kernel (F2)",
+                "attention_fwd": "fused_attention kernel (A1)",
+                "attention_bwd": "fused_attention_bwd kernel (A6)",
+                "ln_fwd": "fused LN forward kernel (L1)",
+                "ln_bwd": "fused LN backward kernel (L2)",
+                "ln_col": "fused LN backward kernel (L2)",
+                "beam_attend": "beam_decode_attend kernel (D1)",
+                "topk_lse": "topk_lse kernel (T1)", "gemm": "cuBLAS GEMMs",
                 "sm90": "cuBLAS GEMMs", "cutlass": "cuBLAS GEMMs",
                 "nvjet": "cuBLAS GEMMs"}
     by_family, busy = {}, 0.0
@@ -402,10 +746,11 @@ def profile_run(run, card: str) -> None:
         fam = next((f for pat, f in families.items() if pat in ev.key.lower()),
                    "other kernels and copies")
         by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
-    print(f"  profile on {card}: wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}", flush=True)
+    print(f"  profile of one {what} on {card}: wall {wall_ms:.1f} ms, device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}",
+          flush=True)
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"    {fam:28s} {ms:9.2f} ms  {ms / wall_ms:.3f} of wall")
+        print(f"    {fam:32s} {ms:9.2f} ms  {ms / wall_ms:.3f} of wall")
     print(events.table(sort_by=key, row_limit=25, max_name_column_width=60),
           flush=True)
 
@@ -429,20 +774,36 @@ def main() -> int:
     print(f"  built and loaded {path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    print("phase 3: kernels vs plain", flush=True)
+    print("phase 3: decode-path kernels vs plain", flush=True)
     rep = Report()
     phase_kernels(rep)
+    print("phase 3b: training-path kernels vs plain", flush=True)
+    phase_train_kernels(rep)
 
-    print("phase 4: end-to-end parity, fp32", flush=True)
+    print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
 
-    print("phase 5: bench shape, bf16", flush=True)
-    launched = phase_bench(card)
+    print("phase 5: decode bench shape, bf16", flush=True)
+    launched = {"decode": phase_decode_bench(card)}
 
-    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep_,
-                "launches": launched[k], "max_abs_err": rep.err[k],
-                "ms": rep.ms[k], "plain_ms": rep.plain_ms[k]}
-               for k, (src, rep_) in SOURCES.items()]
+    print("phase 6: train-step parity, fp32", flush=True)
+    phase_train_parity()
+
+    print("phase 7: train bench shape, bf16", flush=True)
+    launched["train"] = phase_train_bench(card)
+
+    missing = [k for k in KERNELS if k not in rep.timed]
+    if missing:
+        raise AssertionError(f"no timed case for {missing}")
+    kernels = []
+    for k, (src, replaces, paths) in KERNELS.items():
+        by_path = {p: launched[p][k] for p in paths}
+        kernels.append({"name": k, "route": "cuda", "source": src,
+                        "replaces": replaces,
+                        "launches": by_path["train" if "train" in paths
+                                            else "decode"],
+                        "launches_by_path": by_path,
+                        "max_abs_err": rep.err[k], **rep.timed[k]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

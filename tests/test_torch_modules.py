@@ -1,6 +1,9 @@
 """The port's modules against their flax counterparts, weights moved by
 vlpet_tpu_torch.convert: VL-PET modules, LayerNorms, the visual embedding
-and a whole encoder layer. CPU, fp32, tolerance 1e-5."""
+and a whole encoder layer. CPU (every port module is built with
+device="cpu"), fp32, tolerance 1e-5."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +13,7 @@ import torch
 
 from vlpet_tpu.config import (BartConfig, PetConfig, VisConfig, VLModelConfig,
                               vlpet_recipe)
+from vlpet_tpu_torch import config as pc
 from vlpet_tpu_torch.convert import flax_to_state_dict, load_flax_params
 
 torch.set_num_threads(2)  # several xdist workers share the host
@@ -23,6 +27,14 @@ def _t(x):
 
 def _init(mod, *args, **kw):
     return jax.device_get(mod.init(jax.random.PRNGKey(0), *args, **kw)["params"])
+
+
+def _port_cfg(jcfg):
+    """The JAX config as the port's own (a dataclasses.asdict round trip)."""
+    d = dataclasses.asdict(jcfg)
+    return pc.VLModelConfig(backbone=pc.BartConfig(**d.pop("backbone")),
+                            vis=pc.VisConfig(**d.pop("vis")),
+                            pet=pc.PetConfig(**d.pop("pet")), **d)
 
 
 def _close(got: torch.Tensor, want):
@@ -42,7 +54,8 @@ def test_multihead_down_adapter(x):
     jmod = JMod(32, 16, 4)  # torch-default init: nonzero biases
     params = _init(jmod, jnp.asarray(x))
     assert params["down_kernel"].shape == (4, 32, 4)
-    port = load_flax_params(MultiheadDownAdapter(32, 16, 4), params)
+    port = load_flax_params(MultiheadDownAdapter(32, 16, 4, device="cpu"),
+                            params)
     assert port.down_kernel.shape == (4, 32, 4)  # per-head shape kept
     _close(port(_t(x)), jmod.apply({"params": params}, jnp.asarray(x)))
 
@@ -53,7 +66,7 @@ def test_gate_large_x_lowrank(x):
 
     jmod = JMod(32, 8)
     params = _init(jmod, jnp.asarray(x))
-    port = load_flax_params(GateLargeXLowRank(32, 8), params)
+    port = load_flax_params(GateLargeXLowRank(32, 8, device="cpu"), params)
     jg, jpre = jmod.apply({"params": params}, jnp.asarray(x),
                           return_pre_sigmoid=True)
     g, pre = port(_t(x), return_pre_sigmoid=True)
@@ -70,13 +83,15 @@ def test_vpa_adapter_controller(x, single):
 
     pet = PetConfig(tasks=("vqa", "gqa", "caption"), use_single_adapter=single)
     spec = pet.down_dim_spec(32, 12, parallel=True)
+    port_spec = pc.PetConfig(**dataclasses.asdict(pet)).down_dim_spec(
+        32, 12, parallel=True)
     y = np.random.default_rng(1).normal(size=x.shape).astype(np.float32)
     jmod = JMod(spec)
     params = _init(jmod, jnp.asarray(x), JCtx(), y=jnp.asarray(y))
     if not single:  # per-task kernels keep their task axis, (T, out, in)
         assert flax_to_state_dict(params)["adapters.down_sampler.weight"].shape \
             == (3, 12, 32)
-    port = load_flax_params(AdapterController(spec), params)
+    port = load_flax_params(AdapterController(port_spec, device="cpu"), params)
     want = jmod.apply({"params": params}, jnp.asarray(x),
                       JCtx(task="caption", task_idx=2), y=jnp.asarray(y))
     _close(port(_t(x), PetContext(task="caption", task_idx=2), y=_t(y)), want)
@@ -94,11 +109,12 @@ def test_layer_norms_match_flax(x):
     params = {"scale": rng.normal(size=(32,)).astype(np.float32),
               "bias": rng.normal(size=(32,)).astype(np.float32)}
     want = nn.LayerNorm(epsilon=1e-5).apply({"params": params}, jnp.asarray(xs))
-    _close(load_flax_params(LayerNorm(32), params)(_t(xs)), want)
+    _close(load_flax_params(LayerNorm(32, device="cpu"), params)(_t(xs)), want)
     res = rng.normal(size=x.shape).astype(np.float32)
     want = JRes(rate=0.1).apply({"params": params}, jnp.asarray(xs),
                                 jnp.asarray(res), True)
-    port = load_flax_params(ResidualDropoutLayerNorm(32, torch.float32), params)
+    port = load_flax_params(
+        ResidualDropoutLayerNorm(32, torch.float32, device="cpu"), params)
     _close(port(_t(xs), _t(res)), want)
 
 
@@ -114,7 +130,9 @@ def test_visual_embedding():
     jmod = JMod(vis, 32)
     params = _init(jmod, jnp.asarray(feats), jnp.asarray(boxes),
                    jnp.asarray(table))
-    port = load_flax_params(VisualEmbedding(vis, 32), params)
+    port = load_flax_params(
+        VisualEmbedding(pc.VisConfig(**dataclasses.asdict(vis)), 32,
+                        device="cpu"), params)
     want = jmod.apply({"params": params}, jnp.asarray(feats),
                       jnp.asarray(boxes), jnp.asarray(table))
     _close(port(_t(feats), _t(boxes), _t(table)), want)
@@ -157,9 +175,11 @@ def test_encoder_layer_vlpet_hooks():
     # move every leaf off its init value so biases and gates matter
     params = jax.tree_util.tree_map(
         lambda a: a + rng.normal(size=a.shape).astype(np.float32) * 0.1, params)
-    port = load_flax_params(BartEncoderLayer(cfg), params)
+    port = load_flax_params(BartEncoderLayer(_port_cfg(cfg), device="cpu"),
+                            params)
     want = jlayer.apply({"params": params}, jnp.asarray(h), jmask, JCtx())
-    got = port(_t(h), expand_mask(_t(m), 1, torch.float32), PetContext())
+    with torch.no_grad():  # the fused FFN's weights are frozen
+        got = port(_t(h), expand_mask(_t(m), 1, torch.float32), PetContext())
     _close(got, want)
 
 
@@ -170,35 +190,36 @@ def test_converter_rejects_mismatched_trees(x):
     params = _init(JMod(32, 8), jnp.asarray(x))
     extra = dict(params, stray={"kernel": np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match="not placed"):
-        load_flax_params(GateLargeXLowRank(32, 8), extra)
+        load_flax_params(GateLargeXLowRank(32, 8, device="cpu"), extra)
     missing = {"down": params["down"]}
     with pytest.raises(ValueError, match="unset"):
-        load_flax_params(GateLargeXLowRank(32, 8), missing)
+        load_flax_params(GateLargeXLowRank(32, 8, device="cpu"), missing)
     with pytest.raises(ValueError, match="shape mismatch"):
-        load_flax_params(GateLargeXLowRank(32, 4), params)
+        load_flax_params(GateLargeXLowRank(32, 4, device="cpu"), params)
 
 
 def test_unported_flags_raise_at_build():
     from vlpet_tpu_torch.models.vlbart import VLBart
 
-    base = VLModelConfig(backbone=BartConfig(vocab_size=64, d_model=32,
+    base = pc.VLModelConfig(backbone=pc.BartConfig(vocab_size=64, d_model=32,
                                              encoder_layers=1, decoder_layers=1,
                                              encoder_attention_heads=4,
                                              decoder_attention_heads=4,
                                              encoder_ffn_dim=64,
                                              decoder_ffn_dim=64),
-                         vis=VisConfig(feat_dim=8, n_boxes=2),
-                         pet=vlpet_recipe("large", r=8, num_heads=4, gate_dim=8))
-    VLBart(base)  # the slice itself builds
-    import dataclasses
+                         vis=pc.VisConfig(feat_dim=8, n_boxes=2),
+                         pet=pc.vlpet_recipe("large", r=8, num_heads=4,
+                                             gate_dim=8))
+    VLBart(base, device="cpu")  # the slice itself builds
 
     for change in (dict(use_fused_beam=True), dict(scan_layers=True),
-                   dict(classifier=True),
+                   dict(classifier=True), dict(use_fused_ce=True),
+                   dict(remat="dots"),
                    dict(pet=dataclasses.replace(base.pet, use_lora=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),
-                   dict(pet=vlpet_recipe("small", r=8, num_heads=4)),
-                   dict(pet=PetConfig(use_adapter=True)),
+                   dict(pet=pc.vlpet_recipe("small", r=8, num_heads=4)),
+                   dict(pet=pc.PetConfig(use_adapter=True)),
                    dict(vis=dataclasses.replace(base.vis,
                                                 use_lowrank_visual_projector=True))):
         with pytest.raises(NotImplementedError):
-            VLBart(dataclasses.replace(base, **change))
+            VLBart(dataclasses.replace(base, **change), device="cpu")

@@ -8,6 +8,7 @@ themselves are held against the same plain twins on the card by
 chip_smoke.py.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -21,6 +22,7 @@ from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops import attention as tatt
 from vlpet_tpu_torch.ops import decode as tdec
 from vlpet_tpu_torch.ops import ffn as tffn
+from vlpet_tpu_torch.ops import fused_ln as tln
 from vlpet_tpu_torch.ops import topk as ttopk
 
 torch.set_num_threads(2)  # several xdist workers share the host
@@ -186,9 +188,21 @@ def _wrapper_calls():
         lambda: tdec.beam_decode_attend(qb, cache, cache, anc, 1)
     yield "topk_lse", ttopk, "topk_lse_reference", \
         lambda: ttopk.topk_lse(torch.zeros(2, 50), 3)
+    yield "fused_attention_bwd", tatt, "fused_attention_reference", \
+        lambda: tatt.fused_attention_bwd(q, kv, kv, torch.zeros(2, 1, 1, 4),
+                                         q, 2, True)
+    yield "fused_ffn_bwd", tffn, "ffn_reference", lambda: tffn.fused_ffn_bwd(
+        x, x, torch.zeros(64, 128), torch.zeros(64), torch.zeros(128, 64))
+    h = torch.zeros(2, 3, 8)
+    g = torch.ones(8)
+    seed = torch.zeros(1, dtype=torch.int32)
+    yield "fused_dropout_add_ln", tln, "fused_dropout_add_ln_reference", \
+        lambda: tln.fused_dropout_add_ln(h, h, g, g, seed, 0.1)
+    yield "fused_dropout_add_ln_bwd", tln, "fused_dropout_add_ln_reference", \
+        lambda: tln.fused_dropout_add_ln_bwd(h, h, g, seed, h, 0.1)
 
 
-@pytest.mark.parametrize("which", range(4))
+@pytest.mark.parametrize("which", range(8))
 def test_cuda_request_without_library_raises_not_falls_back(which,
                                                             monkeypatch):
     """A wrapper asked to launch (device check patched to say CUDA) on a
@@ -220,8 +234,8 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py with everything it
     imports, loads neither jax nor flax (the machine with the card has no
-    JAX), and from the JAX package only the framework-free
-    vlpet_tpu.config."""
+    JAX) nor any module of the JAX package: the port keeps its own copy of
+    the configuration."""
     code = ("import importlib, pkgutil, sys\n"
             "import vlpet_tpu_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(vlpet_tpu_torch.__path__,\n"
@@ -229,9 +243,8 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m.name)\n"
             "chip_smoke.flagship_cfg('bfloat16')\n"
             "top = lambda m: m.split('.')[0]\n"
-            "bad = [m for m in sys.modules if top(m) in ('jax', 'jaxlib', 'flax')\n"
-            "       or (top(m) == 'vlpet_tpu'\n"
-            "           and m not in ('vlpet_tpu', 'vlpet_tpu.config'))]\n"
+            "bad = [m for m in sys.modules\n"
+            "       if top(m) in ('jax', 'jaxlib', 'flax', 'vlpet_tpu')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -261,9 +274,53 @@ def test_flagship_cfg_is_the_graft_entry_config():
     from vlpet_tpu_torch.config import FLAGSHIP_TASKS, flagship_cfg
 
     want, tasks = _flagship_cfg()
-    assert flagship_cfg() == want
+    got = flagship_cfg()
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if dataclasses.is_dataclass(b):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
+        else:
+            assert a == b, f.name
     assert FLAGSHIP_TASKS == tasks
     assert flagship_cfg("bfloat16").dtype == "bfloat16"
+
+
+@pytest.mark.parametrize("name", ["AdapterSpec", "PetConfig", "VisConfig",
+                                  "BartConfig", "VLModelConfig"])
+def test_config_copy_has_the_jax_fields_and_defaults(name):
+    """The port's copy of each dataclass has the JAX package's field names,
+    in order, and its defaults, so the two cannot drift apart."""
+    import vlpet_tpu.config as jc
+
+    import vlpet_tpu_torch.config as pc
+
+    ours, theirs = getattr(pc, name), getattr(jc, name)
+    assert ([f.name for f in dataclasses.fields(ours)]
+            == [f.name for f in dataclasses.fields(theirs)])
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
+    assert (dataclasses.asdict(pc.vlpet_recipe("large", tasks=("a", "b")))
+            == dataclasses.asdict(jc.vlpet_recipe("large", tasks=("a", "b"))))
+
+
+def test_entry_points_default_to_the_card():
+    """With no device argument the port builds on CUDA, so on a host
+    without a card it raises instead of quietly building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    from vlpet_tpu_torch.config import BartConfig, VisConfig, VLModelConfig
+    from vlpet_tpu_torch.models.generate import init_self_cache
+    from vlpet_tpu_torch.models.vlbart import VLBart
+
+    cfg = VLModelConfig(backbone=BartConfig(
+        vocab_size=32, d_model=16, encoder_layers=1, decoder_layers=1,
+        encoder_attention_heads=2, decoder_attention_heads=2,
+        encoder_ffn_dim=32, decoder_ffn_dim=32),
+        vis=VisConfig(feat_dim=8, n_boxes=2))
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        VLBart(cfg)
+    with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+        init_self_cache(cfg, 2, 4)
+    VLBart(cfg, device="cpu")  # asked for the CPU: builds
 
 
 def test_plain_twins_routes_and_restores():

@@ -5,6 +5,8 @@ the port; encode output and cross K/V within 1e-5, the first decode step's
 top-k indices equal (values and logsumexp within 1e-5), and whole
 generations token for token (greedy, beam 3, beam 5)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from __graft_entry__ import _flagship_cfg
 from vlpet_tpu.models import generate as jgen
 from vlpet_tpu.models.vlbart import VLBart as JVLBart
 from vlpet_tpu.pet.modules import PetContext as JCtx
+from vlpet_tpu_torch import config as pc
 from vlpet_tpu_torch.convert import load_flax_params
 from vlpet_tpu_torch.models import generate as tgen
 from vlpet_tpu_torch.models.vlbart import VLBart
@@ -25,6 +28,14 @@ torch.set_num_threads(2)  # several xdist workers share the host
 TOL = 1e-5
 B, L_TXT = 3, 6
 CAPTION = 3  # task index of "caption" in the flagship task tuple
+
+
+def _port_cfg(jcfg):
+    """The JAX config as the port's own (a dataclasses.asdict round trip)."""
+    d = dataclasses.asdict(jcfg)
+    return pc.VLModelConfig(backbone=pc.BartConfig(**d.pop("backbone")),
+                            vis=pc.VisConfig(**d.pop("vis")),
+                            pet=pc.PetConfig(**d.pop("pet")), **d)
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +61,7 @@ def slice_models():
         lambda path, a: ((1.0 if path[-1].key == "scale" else 0.0)
                          + rng.normal(size=a.shape).astype(np.float32)
                          * (0.1 if path[-1].key == "scale" else 0.2)), params)
-    port = load_flax_params(VLBart(cfg), params)
+    port = load_flax_params(VLBart(_port_cfg(cfg), device="cpu"), params)
     tbatch = {k: torch.from_numpy(v).long() if v.dtype == np.int32
               else torch.from_numpy(v) for k, v in batch.items()}
     return cfg, jmodel, {"params": params}, jbatch, port, tbatch
@@ -105,7 +116,7 @@ def test_first_decode_step_topk(slice_models, beams):
     with torch.no_grad():
         tenc, tjm = port.encode(**tbatch, ctx=ctx)
         tkvs = port.init_decode(tenc, ctx)
-        cache = tgen.init_self_cache(cfg, n, max_len)
+        cache = tgen.init_self_cache(port.cfg, n, max_len, device="cpu")
         vals, toks, lse, cache = port.decode_step_topk(
             torch.full((n, 1), start), tjm, tkvs, cache, 0, k, ctx, tanc)
     np.testing.assert_array_equal(toks.numpy(), np.asarray(want[1]))

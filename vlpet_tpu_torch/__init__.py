@@ -6,13 +6,15 @@ module paths and class names (``vlpet_tpu_torch/models/bart.py`` <->
 ``vlpet_tpu_torch.convert`` maps a flax parameter tree onto a port
 ``state_dict`` by renames and transposes only.
 
-Slice ported so far: the caption-eval decode path (BART-base + VL-PET-large,
-greedy and beam search), eval mode only. Every Pallas kernel on that path is
-a hand-written CUDA kernel for sm_90a (``csrc/``), built with nvcc at first
-use and bound through ctypes (``ops/_build.py``); each keeps its plain
-PyTorch twin in the same module, which CPU tensors take.
+Slices ported so far, both for BART-base + VL-PET-large: the caption-eval
+decode path (greedy and beam search) and the training step (forward,
+backward, clip, HF AdamW; ``train/``). Every Pallas kernel on those paths
+is a hand-written CUDA kernel for sm_90a (``csrc/``), built with nvcc at
+first use and bound through ctypes (``ops/_build.py``); each keeps its
+plain PyTorch twin in the same module, which CPU tensors take.
 
-Nothing here imports jax or flax. The framework-free ``vlpet_tpu.config``
-is the one module shared with the JAX package; the port reaches it only
-through ``vlpet_tpu_torch.config``.
+Nothing here imports jax, flax or any module of the JAX package: the
+configuration dataclasses are the port's own copy (``config.py``).
+Constructors and entry points allocate on the card unless the caller asks
+for another device (``device.py``).
 """

@@ -13,6 +13,9 @@ and maps it onto a port module by the flax path:
 
 It raises on any flax leaf it cannot place and on any port parameter left
 unset, so a renamed or missing module never loads silently.
+``flax_to_state_dict`` also reads a partial tree, such as the trainable
+subtree of the JAX train step (None where a parameter is frozen), and then
+names only the leaves it holds.
 """
 
 from __future__ import annotations
@@ -25,13 +28,16 @@ import torch
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flatten a flax parameter tree into port state_dict names/layouts."""
+    """Flatten a flax parameter tree into port state_dict names/layouts;
+    None leaves (parameters left out of a partial tree) are skipped."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: tuple) -> None:
         for key, val in tree.items():
             if isinstance(val, Mapping):
                 walk(val, prefix + (key,))
+                continue
+            if val is None:
                 continue
             arr = np.asarray(val)
             if key == "kernel":

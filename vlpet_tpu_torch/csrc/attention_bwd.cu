@@ -1,0 +1,179 @@
+// Attention backward (A6): dq, dk, dv of out = softmax(q . k^T + mask) . v.
+//
+// Replaces vlpet_tpu/ops/attention.py:_pallas_attention_bwd (_bwd_kernel),
+// the TPU backward behind fused_attention's custom_vjp. Layout as the
+// forward (csrc/attention.cu): q, do (B, L, H*Dh), q pre-scaled; k, v
+// (B, S, H*Dh); additive f32 padding mask (B|1, S); ``causal`` hides key j
+// from query i unless j <= i + (S - L) (logit set to -1e9 after the mask).
+// The mask gets no gradient. As in the TPU kernel, p is recomputed (nothing
+// but q, k, v and the mask is saved by the forward) and the backward runs
+// in fp32 on fp32 p and fp32 do:
+//   dv = p^T do,  dp = do v^T,  ds = p (dp - rowsum(dp p)),
+//   dq = ds k,    dk = ds^T q,
+// with dq, dk, dv stored in the input dtype.
+//
+// Bound on the H100: per (batch, head) the work is 10 L S Dh FLOPs against
+// 4 (L + S) Dh inputs and outputs; at the encoder site (B 500, H 12,
+// L = S = 56, Dh 64) that is 12 GFLOP and 7 x 43 MB of bf16 traffic (q, k,
+// v, do in; dq, dk, dv out): ~0.09 ms of memory time against ~0.012 ms of
+// bf16 tensor-core time, so the bound is the bytes. Design: one block per
+// (head, batch) -- 6000 blocks at the encoder site -- holds the whole head:
+// q, do, k, v in shared memory as fp32 (k and v rows padded one float so
+// the lane-per-key dot products hit distinct banks) and the (L, S) p and
+// dp/ds matrices, so dk and dv, which reduce over the query rows, are
+// summed inside the block: no atomics, and the result does not depend on
+// scheduling. The products run on FP32 FMA from shared memory (the L, S <=
+// 56 tiles of the training sites are below a tensor-core tile's
+// efficiency); making it fast (mma.sync on the bf16 inputs) is later work.
+#include "common.cuh"
+
+using namespace vlpet;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarpsB = kThreads / 32;
+
+inline size_t bwd_smem_floats(int L, int S, int Dh) {
+  return (size_t)2 * L * Dh + (size_t)2 * S * (Dh + 1) + (size_t)2 * L * S;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ mask,
+                     const T* __restrict__ dout, T* __restrict__ dq,
+                     T* __restrict__ dk, T* __restrict__ dv, int L, int S,
+                     int H, int Dh, int mask_batched, int causal) {
+  extern __shared__ float sm[];
+  const int ks = Dh + 1;
+  float* Qs = sm;                  // [L][Dh]
+  float* dOs = Qs + L * Dh;        // [L][Dh]
+  float* Ks = dOs + L * Dh;        // [S][Dh + 1]
+  float* Vs = Ks + S * ks;         // [S][Dh + 1]
+  float* P = Vs + S * ks;          // [L][S]
+  float* dP = P + L * S;           // [L][S]: dp, then ds
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int inner = H * Dh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t qoff = (size_t)b * L * inner + (size_t)h * Dh;
+  const size_t koff = (size_t)b * S * inner + (size_t)h * Dh;
+  const float* mb = mask + (mask_batched ? (size_t)b * S : 0);
+
+  for (int i = tid; i < L * Dh; i += kThreads) {
+    const int r = i / Dh, d = i - r * Dh;
+    const size_t g = qoff + (size_t)r * inner + d;
+    Qs[i] = to_f(q[g]);
+    dOs[i] = to_f(dout[g]);
+  }
+  for (int i = tid; i < S * Dh; i += kThreads) {
+    const int s = i / Dh, d = i - s * Dh;
+    const size_t g = koff + (size_t)s * inner + d;
+    Ks[s * ks + d] = to_f(k[g]);
+    Vs[s * ks + d] = to_f(v[g]);
+  }
+  __syncthreads();
+
+  // logits (masked) and dp = do . v^T
+  for (int i = tid; i < L * S; i += kThreads) {
+    const int r = i / S, s = i - r * S;
+    const float* qr = Qs + r * Dh;
+    const float* gr = dOs + r * Dh;
+    const float* kr = Ks + s * ks;
+    const float* vr = Vs + s * ks;
+    float a = 0.f, c = 0.f;
+    for (int d = 0; d < Dh; ++d) {
+      a = fmaf(qr[d], kr[d], a);
+      c = fmaf(gr[d], vr[d], c);
+    }
+    a += mb[s];
+    if (causal && s > r + (S - L)) a = -1e9f;
+    P[i] = a;
+    dP[i] = c;
+  }
+  __syncthreads();
+
+  // per row: p = softmax(logits); ds = p (dp - rowsum(dp p))
+  for (int r = warp; r < L; r += kWarpsB) {
+    float* pr = P + r * S;
+    float* dr = dP + r * S;
+    float m = -INFINITY;
+    for (int s = lane; s < S; s += 32) m = fmaxf(m, pr[s]);
+    m = warp_max(m);
+    float z = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float e = expf(pr[s] - m);
+      pr[s] = e;
+      z += e;
+    }
+    z = warp_sum(z);
+    float t = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float p = pr[s] / z;
+      pr[s] = p;
+      t = fmaf(dr[s], p, t);
+    }
+    t = warp_sum(t);
+    for (int s = lane; s < S; s += 32) dr[s] = pr[s] * (dr[s] - t);
+  }
+  __syncthreads();
+
+  // dv = p^T . do and dk = ds^T . q, summed over the query rows in order
+  T* dvb = dv + koff;
+  T* dkb = dk + koff;
+  for (int i = tid; i < S * Dh; i += kThreads) {
+    const int s = i / Dh, d = i - s * Dh;
+    float av = 0.f, ak = 0.f;
+    for (int r = 0; r < L; ++r) {
+      av = fmaf(P[r * S + s], dOs[r * Dh + d], av);
+      ak = fmaf(dP[r * S + s], Qs[r * Dh + d], ak);
+    }
+    dvb[(size_t)s * inner + d] = from_f<T>(av);
+    dkb[(size_t)s * inner + d] = from_f<T>(ak);
+  }
+  // dq = ds . k
+  T* dqb = dq + qoff;
+  for (int i = tid; i < L * Dh; i += kThreads) {
+    const int r = i / Dh, d = i - r * Dh;
+    const float* dsr = dP + r * S;
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) a = fmaf(dsr[s], Ks[s * ks + d], a);
+    dqb[(size_t)r * inner + d] = from_f<T>(a);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* dout, void* dq, void* dk, void* dv, int B, int L,
+           int S, int H, int Dh, int mask_batched, int causal,
+           cudaStream_t st) {
+  const size_t smem = sizeof(float) * bwd_smem_floats(L, S, Dh);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_kernel<T><<<dim3(H, B), kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
+      (const T*)dout, (T*)dq, (T*)dk, (T*)dv, L, S, H, Dh, mask_batched,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int vlpet_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* mask,
+                                   const void* dout, void* dq, void* dk,
+                                   void* dv, int B, int L, int S, int H,
+                                   int Dh, int mask_batched, int causal,
+                                   int is_bf16, void* stream) {
+  if (B < 1 || L < 1 || S < 1 || H < 1 || Dh < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch<bf16>(q, k, v, mask, dout, dq, dk, dv, B, L, S, H, Dh,
+                        mask_batched, causal, st);
+  return launch<float>(q, k, v, mask, dout, dq, dk, dv, B, L, S, H, Dh,
+                       mask_batched, causal, st);
+}

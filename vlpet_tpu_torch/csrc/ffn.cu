@@ -1,23 +1,33 @@
-// Fused transformer FFN forward: y = act(x . W1^T + b1) . W2^T + b2.
+// Fused transformer FFN, forward (F1) and backward (F2):
+//   y = act(x . W1^T + b1) . W2^T + b2.
 //
-// Replaces vlpet_tpu/ops/ffn.py:_run with _fwd_kernel (fused_ffn). Weights
-// come in PyTorch's Linear layout: W1 (F, D), W2 (D, F); biases are f32;
-// act is gelu (erf, code 0) or gelu_new (tanh, code 1), applied in fp32.
-// The (N, F) hidden never reaches device memory: each block keeps its rows'
-// hidden chunk in shared memory and folds it straight into the fc2 sum.
+// Replaces vlpet_tpu/ops/ffn.py:_run with _fwd_kernel (F1) and with
+// _bwd_kernel (F2), the kernels behind fused_ffn's custom_vjp. Weights come
+// in PyTorch's Linear layout: W1 (F, D), W2 (D, F); biases are f32; act is
+// gelu (erf, code 0) or gelu_new (tanh, code 1), applied in fp32. The
+// (N, F) hidden never reaches device memory: each block keeps its rows'
+// hidden chunk in shared memory and folds it straight into the next
+// product. The weight matrices are frozen (no dW1/dW2); the backward
+// recomputes fc1 and gives dx, db1 = sum of fp32 ds over the rows and
+// db2 = sum of dy, with ds rounded to x's dtype before the dx product as
+// the TPU kernel does.
 //
-// Bound on the H100: 4*N*D*F FLOPs against ~2*D*F weight reads per block,
-// so at the encoder shape (N = 28000) it is compute-bound on the tensor
-// cores; at the beam decode shape (N = 2500) the weight stream from L2
-// dominates. Design (bf16): one block of 8 warps per 32 rows; the x tile
+// Bound on the H100: the forward is 4 N D F FLOPs, the backward 6 N D F
+// (recomputed fc1, dh = dy . W2, dx = ds . W1), against ~2 D F weight
+// reads per block, so at the encoder shape (N = 28000) both are
+// compute-bound on the tensor cores (0.27 ms forward, 0.40 ms backward at
+// 989 TFLOP/s); at N = 2500-5000 the weight stream from L2 weighs more.
+// Design (bf16): one block of 8 warps per 32 rows; the x (and dy) tile
 // lives in shared memory; for each 64-wide hidden chunk the warps compute
-// the 32x64 fc1 tile with WMMA bf16 tensor-core products (fp32 accumulate),
-// apply bias + activation in fp32, round to bf16 in shared memory, and
-// accumulate their 32 x D/8 slice of fc2 in fp32 register fragments. No
-// wgmma/TMA yet. fp32 inputs take a plain-FMA kernel of the same shape
-// (fp32 tensor-core paths are TF32 and would break fp32 parity). Rows past
-// N are zero-filled in shared memory and masked at the store: no padding
-// copy.
+// the 32x64 fc1 tile (and, in the backward, the 32x64 dh tile) with WMMA
+// bf16 tensor-core products (fp32 accumulate), apply bias and activation
+// (or its derivative) in fp32, round to bf16 in shared memory, and
+// accumulate their 32 x D/8 slice of the output in fp32 register
+// fragments. No wgmma/TMA yet. fp32 inputs take plain-FMA kernels of the
+// same shape (fp32 tensor-core paths are TF32 and would break fp32
+// parity). Rows past N are zero-filled in shared memory and masked at the
+// store: no padding copy. The backward's bias sums are deterministic: each
+// block writes one partial row and a second kernel sums them in order.
 #include <mma.h>
 
 #include "common.cuh"
@@ -31,6 +41,19 @@ __device__ __forceinline__ float act_fn(float h, int act) {
   if (act == 0) return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
   const float c = 0.79788456080286536f;  // sqrt(2 / pi)
   return 0.5f * h * (1.f + tanhf(c * (h + 0.044715f * h * h * h)));
+}
+
+// d act / d h, as vlpet_tpu/ops/ffn.py:_act_grad
+__device__ __forceinline__ float act_grad(float h, int act) {
+  if (act == 0) {
+    const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+    const float pdf = 0.39894228040143268f * expf(-0.5f * h * h);
+    return cdf + h * pdf;
+  }
+  const float c = 0.79788456080286536f;
+  const float t = tanhf(c * (h + 0.044715f * h * h * h));
+  const float dinner = c * (1.f + 3.f * 0.044715f * h * h);
+  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * dinner;
 }
 
 // ---------------------------------------------------------------- bf16 WMMA
@@ -150,6 +173,143 @@ int launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
   return (int)cudaGetLastError();
 }
 
+__host__ __device__ constexpr size_t wmma_bwd_smem(int D) {
+  return (size_t)2 * kBM * (D + kPad) * 2 + (size_t)kBM * kHLD * 2 +
+         (size_t)2 * kBM * kFLD * 4;
+}
+
+// partial: [gridDim.x][F + D] fp32, the block's db1 then db2 row sums
+template <int NCF>
+__global__ void __launch_bounds__(kWarps * 32)
+ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+             const bf16* __restrict__ w1, const float* __restrict__ b1,
+             const bf16* __restrict__ w2, bf16* __restrict__ dx,
+             float* __restrict__ partial, int N, int F, int act) {
+  constexpr int D = kWarps * 16 * NCF;
+  constexpr int XLD = D + kPad;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);           // [kBM][XLD]
+  bf16* dys = xs + kBM * XLD;                             // [kBM][XLD]
+  bf16* hs = dys + kBM * XLD;                             // [kBM][kHLD] ds
+  float* hf = reinterpret_cast<float*>(hs + kBM * kHLD);  // [kBM][kFLD] h
+  float* gf = hf + kBM * kFLD;                            // [kBM][kFLD] dh
+
+  const int n0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* prow = partial + (size_t)blockIdx.x * (F + D);
+
+  for (int i = tid; i < kBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    const bool in = n < N;
+    xs[r * XLD + c] = in ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
+    dys[r * XLD + c] = in ? dy[(size_t)n * D + c] : __float2bfloat16(0.f);
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xacc[2][NCF];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(xacc[i][j], 0.f);
+
+  const int arow = warp >> 2;  // fc1 / dh tile: row fragment of this warp
+  const int acol = warp & 3;   // fc1 / dh tile: hidden col fragment
+  __syncthreads();
+
+  for (int f0 = 0; f0 < F; f0 += kBF) {
+    // h[32 x 64] = x . W1[f0 : f0+64, :]^T and dh[32 x 64] = dy . W2[:, f0 : f0+64]
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, gacc;
+    wmma::fill_fragment(hacc, 0.f);
+    wmma::fill_fragment(gacc, 0.f);
+    const bf16* w1p = w1 + (size_t)(f0 + acol * 16) * D;
+    const bf16* w2p = w2 + f0 + acol * 16;
+    for (int kk = 0; kk < D; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
+      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
+      wmma::load_matrix_sync(bw, w1p + kk, D);
+      wmma::mma_sync(hacc, a, bw, hacc);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg;
+      wmma::load_matrix_sync(a, dys + arow * 16 * XLD + kk, XLD);
+      wmma::load_matrix_sync(bg, w2p + (size_t)kk * F, F);
+      wmma::mma_sync(gacc, a, bg, gacc);
+    }
+    wmma::store_matrix_sync(hf + arow * 16 * kFLD + acol * 16, hacc, kFLD,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(gf + arow * 16 * kFLD + acol * 16, gacc, kFLD,
+                            wmma::mem_row_major);
+    __syncthreads();
+    // ds = dh * act'(h + b1): fp32 into gf (for db1), bf16 into hs (for dx)
+    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
+      const int r = i / kBF, c = i - r * kBF;
+      const float ds =
+          gf[r * kFLD + c] * act_grad(hf[r * kFLD + c] + b1[f0 + c], act);
+      gf[r * kFLD + c] = ds;
+      hs[r * kHLD + c] = __float2bfloat16(ds);
+    }
+    __syncthreads();
+    if (tid < kBF) {
+      float s = 0.f;
+      for (int r = 0; r < kBM; ++r) s += gf[r * kFLD + tid];
+      prow[f0 + tid] = s;
+    }
+    // dx[32 x D] += ds[32 x 64] . W1[f0 : f0+64, :] (this warp's cols)
+#pragma unroll
+    for (int kk = 0; kk < kBF; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
+      wmma::load_matrix_sync(a0, hs + kk, kHLD);
+      wmma::load_matrix_sync(a1, hs + 16 * kHLD + kk, kHLD);
+#pragma unroll
+      for (int j = 0; j < NCF; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+        const bf16* w1q =
+            w1 + (size_t)(f0 + kk) * D + warp * NCF * 16 + j * 16;
+        wmma::load_matrix_sync(bw, w1q, D);
+        wmma::mma_sync(xacc[0][j], a0, bw, xacc[0][j]);
+        wmma::mma_sync(xacc[1][j], a1, bw, xacc[1][j]);
+      }
+    }
+    __syncthreads();  // hs, hf, gf are rewritten by the next chunk
+  }
+
+  // db2 = sum of dy over the block's rows (zero-filled past N)
+  for (int c = tid; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < kBM; ++r) s += __bfloat162float(dys[r * XLD + c]);
+    prow[F + c] = s;
+  }
+  float* stage = hf + warp * 256;  // hf is free: per-warp output staging
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) {
+      wmma::store_matrix_sync(stage, xacc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int n = n0 + i * 16 + (e >> 4);
+        const int o = warp * NCF * 16 + j * 16 + (e & 15);
+        if (n < N) dx[(size_t)n * D + o] = __float2bfloat16(stage[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int NCF>
+int launch_bwd_wmma(const void* x, const void* dy, const void* w1,
+                    const void* b1, const void* w2, void* dx, void* partial,
+                    int N, int F, int act, cudaStream_t st) {
+  const size_t smem = wmma_bwd_smem(kWarps * 16 * NCF);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ffn_bwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
+      (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
+      (const bf16*)w2, (bf16*)dx, (float*)partial, N, F, act);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- fp32 FMA
 constexpr int kFBM = 16;       // rows per block
 constexpr int kFBF = 32;       // hidden chunk width
@@ -220,6 +380,101 @@ ffn_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
+// partial: [gridDim.x][F + D] fp32, the block's db1 then db2 row sums
+__global__ void __launch_bounds__(kFThreads)
+ffn_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
+            const float* __restrict__ w1, const float* __restrict__ b1,
+            const float* __restrict__ w2, float* __restrict__ dx,
+            float* __restrict__ partial, int N, int D, int F, int act) {
+  extern __shared__ float fsm[];
+  float* xs = fsm;               // [kFBM][D]
+  float* dys = xs + kFBM * D;    // [kFBM][D]
+  float* ds = dys + kFBM * D;    // [kFBM][kFBF]
+  const int n0 = blockIdx.x * kFBM;
+  const int tid = threadIdx.x;
+  float* prow = partial + (size_t)blockIdx.x * (F + D);
+  for (int i = tid; i < kFBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    xs[i] = n < N ? x[(size_t)n * D + c] : 0.f;
+    dys[i] = n < N ? dy[(size_t)n * D + c] : 0.f;
+  }
+  float xacc[kFBM][kFOut];
+#pragma unroll
+  for (int r = 0; r < kFBM; ++r)
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) xacc[r][c] = 0.f;
+  __syncthreads();
+
+  const int hc = tid & (kFBF - 1);  // hidden column of this thread
+  const int hr = tid / kFBF;        // rows hr and hr + 8
+  for (int f0 = 0; f0 < F; f0 += kFBF) {
+    const float* w1r = w1 + (size_t)(f0 + hc) * D;
+    const float* w2c = w2 + f0 + hc;
+    float h0 = 0.f, h1 = 0.f, g0 = 0.f, g1 = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float w = w1r[d];
+      const float u = w2c[(size_t)d * F];
+      h0 = fmaf(xs[hr * D + d], w, h0);
+      h1 = fmaf(xs[(hr + 8) * D + d], w, h1);
+      g0 = fmaf(dys[hr * D + d], u, g0);
+      g1 = fmaf(dys[(hr + 8) * D + d], u, g1);
+    }
+    const float bb = b1[f0 + hc];
+    ds[hr * kFBF + hc] = g0 * act_grad(h0 + bb, act);
+    ds[(hr + 8) * kFBF + hc] = g1 * act_grad(h1 + bb, act);
+    __syncthreads();
+    if (tid < kFBF) {
+      float s = 0.f;
+      for (int r = 0; r < kFBM; ++r) s += ds[r * kFBF + tid];
+      prow[f0 + tid] = s;
+    }
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) {
+      const int o = tid + kFThreads * c;
+      if (o < D) {
+        for (int f = 0; f < kFBF; ++f) {
+          const float w = w1[(size_t)(f0 + f) * D + o];
+#pragma unroll
+          for (int r = 0; r < kFBM; ++r)
+            xacc[r][c] = fmaf(ds[r * kFBF + f], w, xacc[r][c]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = tid; c < D; c += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < kFBM; ++r) s += dys[r * D + c];
+    prow[F + c] = s;
+  }
+#pragma unroll
+  for (int c = 0; c < kFOut; ++c) {
+    const int o = tid + kFThreads * c;
+    if (o < D) {
+#pragma unroll
+      for (int r = 0; r < kFBM; ++r) {
+        const int n = n0 + r;
+        if (n < N) dx[(size_t)n * D + o] = xacc[r][c];
+      }
+    }
+  }
+}
+
+// db1[f] = sum_g partial[g][f], db2[c] = sum_g partial[g][F + c], in order
+__global__ void ffn_bias_reduce(const float* __restrict__ partial, int G,
+                                int F, int D, float* __restrict__ db1,
+                                float* __restrict__ db2) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= F + D) return;
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += partial[(size_t)g * (F + D) + t];
+  if (t < F)
+    db1[t] = s;
+  else
+    db2[t - F] = s;
+}
+
 }  // namespace
 
 extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
@@ -252,5 +507,46 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
   ffn_fwd_f32<<<(N + kFBM - 1) / kFBM, kFThreads, smem, st>>>(
       (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
       (const float*)b2, (float*)y, N, D, F, act);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
+                             const void* b1, const void* w2, void* dx,
+                             void* partial, void* db1, void* db2, int N, int D,
+                             int F, int G, int act, int is_bf16,
+                             void* stream) {
+  if (N < 1 || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0 ||
+        G != (N + kBM - 1) / kBM)
+      return (int)cudaErrorInvalidValue;
+    switch (D / (kWarps * 16)) {
+      case 1: err = launch_bwd_wmma<1>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 2: err = launch_bwd_wmma<2>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 3: err = launch_bwd_wmma<3>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 4: err = launch_bwd_wmma<4>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 5: err = launch_bwd_wmma<5>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 6: err = launch_bwd_wmma<6>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 7: err = launch_bwd_wmma<7>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 8: err = launch_bwd_wmma<8>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+    }
+  } else {
+    if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0 ||
+        G != (N + kFBM - 1) / kFBM)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(float) * ((size_t)2 * kFBM * D + kFBM * kFBF);
+    cudaError_t e = cudaFuncSetAttribute(
+        ffn_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ffn_bwd_f32<<<G, kFThreads, smem, st>>>(
+        (const float*)x, (const float*)dy, (const float*)w1, (const float*)b1,
+        (const float*)w2, (float*)dx, (float*)partial, N, D, F, act);
+    err = (int)cudaGetLastError();
+  }
+  if (err != 0) return err;
+  ffn_bias_reduce<<<(F + D + 255) / 256, 256, 0, st>>>(
+      (const float*)partial, G, F, D, (float*)db1, (float*)db2);
   return (int)cudaGetLastError();
 }

@@ -1,20 +1,24 @@
-"""BART encoder/decoder with the VL-PET-large hooks, eval mode, ported from
+"""BART encoder/decoder with the VL-PET-large hooks, ported from
 vlpet_tpu/models/bart.py.
 
 Ported: the joint encoder (text + visual concat) with the multihead down
-adapter and low-rank gate after each sublayer, and the incremental decoder
-(greedy and reorder-free beam) with the value-parallel adapter on the
-cross-attention V. Layers are registered as ``layers_{i}`` like the flax
-tree. Branches of the hook surface that the slice does not cover raise
-NotImplementedError when the model is built (models/vlbart.py
-check_supported); the teacher-forcing decoder and dropout are training-path
-only and not ported.
+adapter and low-rank gate after each sublayer; the teacher-forcing decoder
+of training (causal self-attention, cross-attention over the encoder
+states with the value-parallel adapter on V); the incremental decoder
+(greedy and reorder-free beam); and the training-time dropout: the
+embedding dropout and the residual dropout before each post-LN, all from
+the hash mask of ops/hashdrop.py with one seed per site (``DropoutSeeds``).
+Layers are registered as ``layers_{i}`` like the flax tree. Branches of the
+hook surface that the slice does not cover raise NotImplementedError when
+the model is built (models/vlbart.py check_supported).
 
-Kernel call sites: encoder self-attention and decode cross-attention go
-through ops.attention.fused_attention (kernel 1), every FFN through
-ops.ffn.fused_ffn (kernel 2), beam self-attention through
-ops.decode.beam_decode_attend (kernel 3), each picked by ops.route (the
-plain twins inside ``ops.plain_twins()``).
+Kernel call sites: every attention but the beam self-attention goes through
+ops.attention.fused_attention (A1 forward, A6 backward), every FFN through
+ops.ffn.fused_ffn (F1, F2) unless the language model trains or
+``use_fused_ffn`` is off, every dropping residual LayerNorm through
+ops.fused_ln.fused_dropout_add_ln (L1, L2), beam self-attention through
+ops.decode.beam_decode_attend (D1), each picked by ops.route (the plain
+twins inside ``ops.plain_twins()``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import VLModelConfig
+from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
 from vlpet_tpu_torch.models.visual import VisualEmbedding, downsample_vis
 from vlpet_tpu_torch.ops import route
@@ -35,6 +40,9 @@ from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
                                         beam_decode_attend_reference,
                                         decode_attend)
 from vlpet_tpu_torch.ops.ffn import ffn_reference, fused_ffn
+from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
+                                          fused_dropout_add_ln_reference)
+from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
 from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeXLowRank,
                                          MultiheadDownAdapter, PetContext,
                                          TaskDense)
@@ -56,23 +64,42 @@ def expand_mask(mask: torch.Tensor, tgt_len: int,
     return (1.0 - m) * NEG_INF
 
 
+def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:
+    """The next dropout site's seed, or None when not dropping."""
+    return seeds.next() if seeds is not None else None
+
+
 class ResidualDropoutLayerNorm(nn.Module):
-    """LayerNorm(residual + h), eval form (dropout off): fp32 fast-variance
-    statistics as in the JAX module; params ``scale``/``bias``."""
+    """LayerNorm(residual + dropout(h)), the post-LN sublayer epilogue, with
+    fp32 fast-variance statistics as in the JAX module; params
+    ``scale``/``bias`` (fp32). Without a seed (eval, or rate 0) the plain
+    form runs, as the JAX module does off the TPU; with one, the fused
+    dropout + add + LayerNorm (L1/L2 on CUDA, its plain twin otherwise)."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, dtype: torch.dtype, rate: float = 0.0,
+                 device: Device = "cuda"):
         super().__init__()
-        self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        dev = resolve_device(device)
+        self.dtype, self.rate = dtype, rate
+        self.scale = nn.Parameter(torch.ones(dim, device=dev))
+        self.bias = nn.Parameter(torch.zeros(dim, device=dev))
 
-    def forward(self, h: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return layer_norm(residual + h, self.scale, self.bias, self.dtype)
+    def forward(self, h: torch.Tensor, residual: torch.Tensor,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if seed is None or self.rate == 0.0:
+            return layer_norm(residual + h, self.scale, self.bias, self.dtype)
+        fn = route(fused_dropout_add_ln, fused_dropout_add_ln_reference)
+        return fn(h, residual, self.scale, self.bias, seed, self.rate)
 
 
 def _ffn(layer: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
-    """fc1 -> act -> fc2 of a layer, through kernel 2 or its plain twin."""
-    fn = route(fused_ffn, ffn_reference)
+    """fc1 -> act -> fc2 of a layer: through F1/F2 (or their plain twin),
+    or the plain chain when ``use_fused_ffn`` is off or the language model
+    trains (the kernels have no weight gradient), as in the JAX package."""
+    c = layer.cfg
+    fn = (route(fused_ffn, ffn_reference)
+          if c.use_fused_ffn and not c.pet.unfreeze_language_model
+          else ffn_reference)
     y = fn(x.reshape(-1, x.shape[-1]), layer.fc1.weight, layer.fc1.bias,
            layer.fc2.weight, layer.fc2.bias, act)
     return y.reshape(x.shape)
@@ -80,11 +107,12 @@ def _ffn(layer: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
 
 class BartAttention(nn.Module):
     """Multi-head attention in one of three roles: 'enc_self' (full
-    sequence), 'dec_self' (incremental decode over the KV cache) and
-    'cross' (decode over precomputed cross K/V)."""
+    sequence), 'dec_self' (causal over the target sequence in training,
+    incremental over the KV cache in decoding) and 'cross' (over the
+    encoder states, or over precomputed cross K/V in decoding)."""
 
     def __init__(self, cfg: VLModelConfig, embed_dim: int, num_heads: int,
-                 role: str, device=None):
+                 role: str, device: Device = "cuda"):
         super().__init__()
         p = cfg.pet
         self.cfg, self.role = cfg, role
@@ -135,19 +163,20 @@ class BartAttention(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache: Optional[Cache] = None, decode_pos: Optional[int] = None,
-                beam_anc: Optional[torch.Tensor] = None, qkv=None):
+                beam_anc: Optional[torch.Tensor] = None, qkv=None,
+                kv_states: Optional[torch.Tensor] = None):
         """Returns (attn_output, cache). The decode cache is updated IN PLACE
         at slot ``decode_pos`` (the JAX package returns a new buffer; here
-        the preallocated one is reused)."""
+        the preallocated one is reused). Training: 'dec_self' without a
+        cache is causal over the target sequence; 'cross' without
+        ``cross_kv`` projects ``kv_states`` (the encoder output)."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
         if self.role == "cross":
-            if cross_kv is None:
-                raise NotImplementedError("cross-attention without "
-                                          "precomputed K/V (training) is not "
-                                          "ported")
             q = self.q_proj(hidden_states) * self.scaling
+            if cross_kv is None:
+                cross_kv = self.compute_cross_kv(kv_states, ctx)
             k, v = cross_kv
             if k.shape[0] != B:  # beam-shared encoder K/V
                 out = beam_cross_attend(q.reshape(B * L, 1, H, Dh), k, v,
@@ -160,8 +189,10 @@ class BartAttention(nn.Module):
             m = attention_mask.float()
             return self.out_proj(attend(q, k, v, m, H)), cache
         if cache is None:
-            raise NotImplementedError("teacher-forcing decoder self-attention "
-                                      "(training) is not ported")
+            # teacher forcing: the triangle in-kernel, a zero padding mask
+            m = torch.zeros((1, 1, 1, L), dtype=torch.float32,
+                            device=q.device)
+            return self.out_proj(attend(q, k, v, m, H, causal=True)), cache
         cache["k"][decode_pos] = k.reshape(B, -1).to(cache["k"].dtype)
         cache["v"][decode_pos] = v.reshape(B, -1).to(cache["v"].dtype)
         q4 = q.reshape(B, 1, H, Dh)
@@ -178,7 +209,7 @@ class BartEncoderLayer(nn.Module):
     sublayer: h + MultiheadDownAdapter(h), then h * GateLargeXLowRank(x1)
     (x1 the sublayer input), then the optional gating scale."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         p, b = cfg.pet, cfg.backbone
         d = b.d_model
@@ -187,10 +218,12 @@ class BartEncoderLayer(nn.Module):
         kw = dict(dtype=dt, device=device)
         self.self_attn = BartAttention(cfg, d, b.encoder_attention_heads,
                                        "enc_self", device=device)
-        self.self_attn_layer_norm = ResidualDropoutLayerNorm(d, dt, device=device)
+        self.self_attn_layer_norm = ResidualDropoutLayerNorm(
+            d, dt, b.dropout, device=device)
         self.fc1 = TaskDense(d, b.encoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.encoder_ffn_dim, d, **kw)
-        self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, device=device)
+        self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, b.dropout,
+                                                         device=device)
         for prefix in ("attn", "ff"):
             if p.use_encoder_adapter_down_multihead:
                 self.add_module(f"{prefix}_adapter_multihead",
@@ -221,16 +254,17 @@ class BartEncoderLayer(nn.Module):
         return h
 
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
-                ctx: PetContext) -> torch.Tensor:
+                ctx: PetContext,
+                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
         residual = hidden_states
         h, _ = self.self_attn(hidden_states, ctx, attention_mask=attention_mask)
         h = self._hooks(h, residual, "attn")
-        hidden_states = self.self_attn_layer_norm(h, residual)
+        hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
         h = self._hooks(h, residual, "ff")
-        hidden_states = self.final_layer_norm(h, residual)
+        hidden_states = self.final_layer_norm(h, residual, _seed(seeds))
         if self.dtype != torch.float32:
             clamp = torch.finfo(self.dtype).max - 1000
             hidden_states = torch.clamp(hidden_states, -clamp, clamp)
@@ -238,10 +272,12 @@ class BartEncoderLayer(nn.Module):
 
 
 class BartDecoderLayer(nn.Module):
-    """Post-LN decoder layer for incremental decoding: self-attention over
-    the cache, cross-attention over precomputed K/V (VPA inside), FFN."""
+    """Post-LN decoder layer: self-attention, cross-attention (VPA on V),
+    FFN. ``forward`` is the incremental decode step (self-attention over
+    the cache, cross-attention over precomputed K/V); ``teacher_force`` the
+    training pass over the whole target sequence."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b = cfg.backbone
         d = b.d_model
@@ -252,10 +288,12 @@ class BartDecoderLayer(nn.Module):
                                        "dec_self", device=device)
         self.encoder_attn = BartAttention(cfg, d, b.decoder_attention_heads,
                                           "cross", device=device)
-        self.self_attn_layer_norm = ResidualDropoutLayerNorm(d, dt, device=device)
-        self.encoder_attn_layer_norm = ResidualDropoutLayerNorm(d, dt,
-                                                                device=device)
-        self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, device=device)
+        self.self_attn_layer_norm = ResidualDropoutLayerNorm(
+            d, dt, b.dropout, device=device)
+        self.encoder_attn_layer_norm = ResidualDropoutLayerNorm(
+            d, dt, b.dropout, device=device)
+        self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, b.dropout,
+                                                         device=device)
         self.fc1 = TaskDense(d, b.decoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.decoder_ffn_dim, d, **kw)
 
@@ -281,6 +319,25 @@ class BartDecoderLayer(nn.Module):
         hidden_states = self.final_layer_norm(h, residual)
         return hidden_states, cache
 
+    def teacher_force(self, hidden_states: torch.Tensor, ctx: PetContext,
+                      encoder_hidden_states: torch.Tensor,
+                      cross_mask: torch.Tensor,
+                      seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """The training pass over the whole target sequence (B, T, d)."""
+        residual = hidden_states
+        h, _ = self.self_attn(hidden_states, ctx)
+        hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
+
+        residual = hidden_states
+        h, _ = self.encoder_attn(hidden_states, ctx, attention_mask=cross_mask,
+                                 kv_states=encoder_hidden_states)
+        hidden_states = self.encoder_attn_layer_norm(h, residual,
+                                                     _seed(seeds))
+
+        residual = hidden_states
+        h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
+        return self.final_layer_norm(h, residual, _seed(seeds))
+
     def compute_cross_kv(self, encoder_hidden_states: torch.Tensor,
                          ctx: PetContext):
         return self.encoder_attn.compute_cross_kv(encoder_hidden_states, ctx)
@@ -291,14 +348,14 @@ class JointEncoder(nn.Module):
     embeddings get layernorm_embedding before the concat (unless
     share_vis_lang_layer_norm); the joint mask is text-mask ++ vis-mask."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b, v = cfg.backbone, cfg.vis
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
         self.embed_positions = nn.Parameter(
             torch.empty((b.max_position_embeddings + 2, b.d_model),
-                        device=device))
+                        device=resolve_device(device)))
         if not v.no_vis:
             self.visual_embedding = VisualEmbedding(v, b.d_model, dtype=dt,
                                                     device=device)
@@ -317,8 +374,11 @@ class JointEncoder(nn.Module):
                 img_order_ids: Optional[torch.Tensor] = None,
                 obj_order_ids: Optional[torch.Tensor] = None,
                 vis_attention_mask: Optional[torch.Tensor] = None,
-                ctx: Optional[PetContext] = None):
-        """Returns (hidden_states, joint_attention_mask [B, L_joint])."""
+                ctx: Optional[PetContext] = None,
+                seeds: Optional[DropoutSeeds] = None):
+        """Returns (hidden_states, joint_attention_mask [B, L_joint]).
+        ``seeds`` (training) drives the embedding dropout and the residual
+        dropout of every layer."""
         b, v = self.cfg.backbone, self.cfg.vis
         dt = self.dtype
         ctx = ctx or PetContext()
@@ -351,24 +411,27 @@ class JointEncoder(nn.Module):
         else:
             h = self.layernorm_embedding(h)
             joint_mask = attention_mask
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), b.dropout)
         # length-collapsed (B, 1, 1, S) additive mask
         attn_mask = expand_mask(joint_mask, 1, dt)
         for layer in self.layers():
-            h = layer(h, attn_mask, ctx)
+            h = layer(h, attn_mask, ctx, seeds)
         return h, joint_mask
 
 
 class BartDecoder(nn.Module):
-    """BART decoder stack, incremental decode path."""
+    """BART decoder stack: ``forward`` is one incremental decode step,
+    ``teacher_force`` the training pass."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b = cfg.backbone
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
         self.embed_positions = nn.Parameter(
             torch.empty((b.max_position_embeddings + 2, b.d_model),
-                        device=device))
+                        device=resolve_device(device)))
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
         self.n_layers = b.decoder_layers
         for i in range(b.decoder_layers):
@@ -404,6 +467,29 @@ class BartDecoder(nn.Module):
             h, _ = layer(h, ctx, self_mask, cross_mask, kv, c, decode_pos,
                          beam_anc, qkv)
         return h, cache
+
+    def teacher_force(self, input_ids: torch.Tensor,
+                      shared_embedding: torch.Tensor,
+                      encoder_hidden_states: torch.Tensor,
+                      encoder_attention_mask: torch.Tensor, ctx: PetContext,
+                      seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        """Training: the whole target sequence input_ids (B, T) at positions
+        2 + t, causal self-attention, cross-attention over the encoder
+        states (vlpet_tpu/models/bart.py:1204-1210). Returns (B, T, d)."""
+        b = self.cfg.backbone
+        dt = self.dtype
+        T = input_ids.shape[1]
+        embed_scale = (b.d_model ** 0.5) if b.scale_embedding else 1.0
+        h = shared_embedding[input_ids].to(dt) * embed_scale
+        h = h + self.embed_positions[2:2 + T].to(dt)[None]
+        h = self.layernorm_embedding(h)
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), b.dropout)
+        cross_mask = expand_mask(encoder_attention_mask, 1, dt)
+        for layer in self.layers():
+            h = layer.teacher_force(h, ctx, encoder_hidden_states, cross_mask,
+                                    seeds)
+        return h
 
     def compute_cross_kvs(self, encoder_hidden_states: torch.Tensor,
                           ctx: PetContext):

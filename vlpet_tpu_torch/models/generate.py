@@ -20,6 +20,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import compute_dtype
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops import topk as topk_ops
@@ -36,10 +37,12 @@ def topk_lse(logits: torch.Tensor, k: int):
 
 
 def init_self_cache(cfg, batch_size: int, max_len: int,
-                    dtype: torch.dtype = torch.float32, device=None):
+                    dtype: torch.dtype = torch.float32,
+                    device: Device = "cuda"):
     """Per-layer self-attention KV cache, time-major (L, B, H*Dh)."""
     b = cfg.backbone
     inner = b.d_model
+    device = resolve_device(device)
 
     def layer():
         return {"k": torch.zeros((max_len, batch_size, inner), dtype=dtype,
@@ -66,10 +69,11 @@ def _len_norm(n: int, length_penalty: float, device) -> torch.Tensor:
 def greedy_generate(decode_topk: Callable, cache, batch_size: int,
                     max_length: int, decoder_start_token_id: int,
                     eos_token_id: int, pad_token_id: int,
-                    device=None) -> torch.Tensor:
+                    device: Device = "cuda") -> torch.Tensor:
     """decode_topk(token_ids (B, 1), pos, cache, beam_anc, k) ->
     (top_vals, top_toks, lse, cache). Returns (B, max_length) with the
     start token at position 0."""
+    device = resolve_device(device)
     seqs = torch.full((batch_size, max_length), pad_token_id, dtype=torch.long,
                       device=device)
     seqs[:, 0] = decoder_start_token_id
@@ -88,7 +92,7 @@ def beam_generate(decode_topk: Callable, cache, batch_size: int, num_beams: int,
                   max_length: int, decoder_start_token_id: int,
                   eos_token_id: int, pad_token_id: int,
                   length_penalty: float = 1.0,
-                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  device: Device = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Reorder-free beam search with HF semantics (finished score =
     logprob_sum / len**length_penalty, early_stopping=False).
 
@@ -97,6 +101,7 @@ def beam_generate(decode_topk: Callable, cache, batch_size: int, num_beams: int,
     (B*K, 1), pos, cache, anc, k) -> (top_vals (B*K, k), top_toks, lse,
     cache). Returns (best_sequences (B, max_length), best_scores (B,))."""
     B, K = batch_size, num_beams
+    device = resolve_device(device)
     cache_len = cache[0]["k"].shape[0]
     f32 = torch.float32
 

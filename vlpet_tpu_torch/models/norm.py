@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from vlpet_tpu_torch.device import Device, resolve_device
+
 
 EPS = 1e-5  # torch nn.LayerNorm's default, as HF BART uses it
 
@@ -28,11 +30,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device: Device = "cuda"):
         super().__init__()
+        dev = resolve_device(device)
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.scale = nn.Parameter(torch.ones(dim, device=dev))
+        self.bias = nn.Parameter(torch.zeros(dim, device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.scale, self.bias, self.dtype)

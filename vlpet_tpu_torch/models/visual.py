@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import VisConfig
+from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm
 from vlpet_tpu_torch.pet.modules import TaskDense
 
@@ -72,7 +73,7 @@ class VisualEmbedding(nn.Module):
     embedding table."""
 
     def __init__(self, vis: VisConfig, d_model: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device: Device = "cuda"):
         super().__init__()
         self.vis, self.dtype = vis, dtype
         kw = dict(dtype=dtype, device=device)
@@ -87,7 +88,8 @@ class VisualEmbedding(nn.Module):
             self.layer_norm = LayerNorm(d_model, **kw)
         if vis.use_vis_order_embedding:
             self.img_order_embedding = nn.Parameter(
-                torch.empty((vis.n_images, d_model), device=device))
+                torch.empty((vis.n_images, d_model),
+                            device=resolve_device(device)))
 
     def forward(self, feats: torch.Tensor, pos: torch.Tensor,
                 embedding_table: torch.Tensor,

@@ -1,23 +1,29 @@
-"""VLBart: vision-augmented BART seq2seq with PET, eval/decode path, ported
-from vlpet_tpu/models/vlbart.py.
+"""VLBart: vision-augmented BART seq2seq with PET, ported from
+vlpet_tpu/models/vlbart.py.
 
-Generation is staged as in the JAX package: ``encode`` once,
-``init_decode`` precomputes what every step reuses (each decoder layer's
-cross-attention K/V with the VPA included, its fused self-attention QKV
-weight, the fp32 LM-head weight), and ``decode_step_topk`` is the
-per-token step driven by vlpet_tpu_torch.models.generate.
+Training: ``forward`` runs the encoder and the teacher-forcing decoder on
+labels shifted right and returns the per-token loss (and the logits), with
+the JAX package's loss routing (``_ce``). Generation is staged as in the JAX
+package: ``encode`` once, ``init_decode`` precomputes what every step
+reuses (each decoder layer's cross-attention K/V with the VPA included, its
+fused self-attention QKV weight, the fp32 LM-head weight), and
+``decode_step_topk`` is the per-token step driven by
+vlpet_tpu_torch.models.generate.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from vlpet_tpu_torch.config import VLModelConfig
+from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import BartDecoder, JointEncoder, compute_dtype
 from vlpet_tpu_torch.models.generate import topk_lse
+from vlpet_tpu_torch.ops.ce import cross_entropy_with_ignore, linear_ce
+from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
 from vlpet_tpu_torch.pet.modules import PetContext
 
 # PetConfig flags whose code paths the port does not have. Each must be off
@@ -52,13 +58,21 @@ _UNPORTED_VIS_FLAGS = ("use_vis_prefix", "expand_vis_embedding",
                        "use_lowrank_visual_projector", "vis_use_transformer")
 
 
-def check_supported(cfg: VLModelConfig) -> None:
-    """Raise NotImplementedError for any configuration the port's decode
-    slice does not implement, rather than ignoring it.
+def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
+                       decoder_start_token_id: int) -> torch.Tensor:
+    """Decoder inputs from labels (vlpet_tpu/models/vlbart.py:34): shift
+    right, put decoder_start first, replace -100 with pad."""
+    shifted = torch.roll(labels, 1, dims=-1)
+    shifted[:, 0] = decoder_start_token_id
+    return torch.where(shifted == -100, pad_token_id, shifted)
 
-    Not read by the port: use_pallas_attention / use_fused_ffn /
-    use_fused_ce (TPU kernel routing; on CUDA the port always runs its
-    kernels) and remat (a training memory policy, no effect in eval)."""
+
+def check_supported(cfg: VLModelConfig) -> None:
+    """Raise NotImplementedError for any configuration the port does not
+    implement, rather than ignoring it.
+
+    Not read by the port: use_pallas_attention (TPU kernel routing; on
+    CUDA the port runs its kernels)."""
     if cfg.is_t5:
         raise NotImplementedError("T5 backbones are not ported yet")
     if cfg.classifier:
@@ -69,6 +83,11 @@ def check_supported(cfg: VLModelConfig) -> None:
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers (stacked layer params) is not "
                                   "ported; convert an unstacked tree")
+    if cfg.use_fused_ce:
+        raise NotImplementedError("use_fused_ce (the streamed linear + CE "
+                                  "kernels) is not ported")
+    if cfg.remat != "none":
+        raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
     p, v = cfg.pet, cfg.vis
     bad = [f for f in _UNPORTED_PET_FLAGS if getattr(p, f)]
     bad += [f for f in _UNPORTED_VIS_FLAGS if getattr(v, f)]
@@ -91,12 +110,12 @@ class DecodeConsts(NamedTuple):
 class VLBartModel(nn.Module):
     """Encoder-decoder glue: shared embedding, joint encoder, decoder."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b = cfg.backbone
         self.cfg = cfg
         self.shared = nn.Parameter(torch.empty((b.vocab_size, b.d_model),
-                                               device=device))
+                                               device=resolve_device(device)))
         self.encoder = JointEncoder(cfg, device=device)
         self.decoder = BartDecoder(cfg, device=device)
 
@@ -122,16 +141,18 @@ class VLBartModel(nn.Module):
 
 class VLBart(nn.Module):
     """Seq2seq LM head over VLBartModel: logits tied to the shared
-    embedding plus ``final_logits_bias``."""
+    embedding plus ``final_logits_bias``. Built on the card unless
+    ``device`` says otherwise (raises on a host without CUDA)."""
 
-    def __init__(self, cfg: VLModelConfig, device=None):
+    def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         check_supported(cfg)
+        dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
-        self.model = VLBartModel(cfg, device=device)
+        self.model = VLBartModel(cfg, device=dev)
         self.final_logits_bias = nn.Parameter(
-            torch.zeros((1, cfg.backbone.vocab_size), device=device))
+            torch.zeros((1, cfg.backbone.vocab_size), device=dev))
         self.eval()
 
     @torch.no_grad()
@@ -160,6 +181,85 @@ class VLBart(nn.Module):
         exact value of a bf16 GEMM with fp32 accumulation and output); ``w``
         is ``logits_weight()``."""
         return dec_out.float() @ w.t() + self.final_logits_bias
+
+    # --- training ------------------------------------------------------------
+
+    def dropout_sites(self) -> int:
+        """Dropout seeds one training step draws, consumed in this order:
+        the encoder's embedding dropout; per encoder layer the
+        self-attention and the FFN residual dropout; the decoder's
+        embedding dropout; per decoder layer the self-attention, the
+        cross-attention and the FFN residual dropout."""
+        b = self.cfg.backbone
+        return 2 + 2 * b.encoder_layers + 3 * b.decoder_layers
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                vis_feats: Optional[torch.Tensor] = None,
+                boxes: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                ctx: Optional[PetContext] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                img_order_ids=None, obj_order_ids=None,
+                vis_attention_mask=None, decoder_input_ids=None,
+                reduce_loss: bool = False) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (vlpet_tpu/models/vlbart.py:193-218).
+        Returns {"logits", "encoder_last_hidden_state"} and, with labels,
+        "loss": per-token (B, T) fp32, or the mean over valid tokens when
+        ``reduce_loss``. ``deterministic=False`` applies dropout with one
+        seed per site drawn from ``generator`` (``dropout_sites``). On the
+        bf16 linear_ce route "logits" is the bf16 copy the loss keeps."""
+        b = self.cfg.backbone
+        ctx = ctx or PetContext()
+        if decoder_input_ids is None:
+            if labels is None:
+                raise ValueError("forward needs labels or decoder_input_ids")
+            decoder_input_ids = shift_tokens_right(
+                labels, b.pad_token_id, b.decoder_start_token_id)
+        seeds = None
+        if not deterministic:
+            if (b.attention_dropout > 0 or b.activation_dropout > 0
+                    or self.cfg.vis.sparse_sample):
+                raise NotImplementedError(
+                    "attention_dropout / activation_dropout > 0 and "
+                    "vis.sparse_sample are not ported")
+            if b.dropout > 0:
+                seeds = DropoutSeeds(self.dropout_sites(), generator,
+                                     input_ids.device)
+        enc, joint_mask = self.model.encoder(
+            input_ids, attention_mask, self.model.shared, vis_feats=vis_feats,
+            boxes=boxes, img_order_ids=img_order_ids,
+            obj_order_ids=obj_order_ids,
+            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds)
+        dec = self.model.decoder.teacher_force(
+            decoder_input_ids, self.model.shared, enc, joint_mask, ctx, seeds)
+        out = {"encoder_last_hidden_state": enc}
+        if labels is None:
+            out["logits"] = self._logits(dec, self.logits_weight())
+        else:
+            out["loss"], out["logits"] = self._ce(dec, labels, reduce_loss)
+        return out
+
+    def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
+            reduce_loss: bool):
+        """(loss, logits), routed as vlpet_tpu/models/vlbart.py:220-260:
+        ``linear_ce`` (one bf16 logits copy) when the LM head is frozen and
+        the compute is bf16, else ``cross_entropy_with_ignore`` over the
+        fp32 logits. (``use_fused_ce`` raises at build.)"""
+        p = self.cfg.pet
+        head_frozen = not p.unfreeze_lm_head and not p.unfreeze_language_model
+        if head_frozen and dec_out.dtype == torch.bfloat16:
+            B, T = labels.shape
+            nll, logits = linear_ce(dec_out.reshape(B * T, -1),
+                                    self.model.shared,
+                                    self.final_logits_bias[0],
+                                    labels.reshape(-1))
+            per_tok = nll.reshape(B, T)
+            if reduce_loss:
+                valid = (labels != -100).sum().clamp(min=1)
+                return per_tok.sum() / valid, logits.reshape(B, T, -1)
+            return per_tok, logits.reshape(B, T, -1)
+        logits = self._logits(dec_out, self.logits_weight())
+        return cross_entropy_with_ignore(logits, labels, reduce_loss), logits
 
     # --- generation-facing methods ------------------------------------------
 

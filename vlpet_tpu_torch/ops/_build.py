@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-All of ``vlpet_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers: a build of seconds,
-not minutes) and loaded with ctypes. The build runs at the first launch of
-any kernel, never at import, and is keyed on a hash of the sources, so an
-edited source rebuilds and an unchanged one reuses
-``vlpet_tpu_torch/_build/``.
+Each ``vlpet_tpu_torch/csrc/*.cu`` is compiled by its own ``nvcc`` (all
+started together), and the objects are linked into one shared library with
+a plain C interface (no PyTorch headers: a build of seconds, not minutes),
+loaded with ctypes. The build runs at the first launch of any kernel, never
+at import, and is keyed on a hash of the sources, so an edited source
+rebuilds and an unchanged one reuses ``vlpet_tpu_torch/_build/``.
 
 CPU tensors never reach this module: each op wrapper sends them to its plain
 PyTorch version. A CUDA tensor launches the kernel or raises.
@@ -27,22 +27,35 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of every exported launcher: pointers, ints, then the stream.
-# Each returns cudaGetLastError() after its launch.
+_F = ctypes.c_float
+# C signature of every exported launcher: pointers, ints, floats, then the
+# stream. Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # q, k, v, mask, out, B, L, S, H, Dh, mask_batched, is_bf16, stream
-    "vlpet_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, mask, out, B, L, S, H, Dh, mask_batched, causal, is_bf16,
+    # stream
+    "vlpet_attention_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # q, k, v, mask, do, dq, dk, dv, B, L, S, H, Dh, mask_batched, causal,
+    # is_bf16, stream
+    "vlpet_attention_bwd": [_P] * 8 + [_I] * 8 + [_P],
     # x, w1, b1, w2, b2, y, N, D, F, act, is_bf16, stream
-    "vlpet_ffn_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vlpet_ffn_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    # x, dy, w1, b1, w2, dx, partial, db1, db2, N, D, F, G, act, is_bf16,
+    # stream
+    "vlpet_ffn_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # h, res, gamma, beta, seed, y, N, D, drop, thr, scale, eps, is_bf16,
+    # stream
+    "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
+    # h, res, gamma, seed, dy, dh, dres, partial, dgamma, dbeta, N, D, G,
+    # drop, thr, scale, eps, is_bf16, stream
+    "vlpet_ln_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
     # q, k, v, anc, out, B, K, J, Lc, H, Dh, pos, is_bf16, stream
-    "vlpet_beam_attend": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _P],
+    "vlpet_beam_attend": [_P] * 5 + [_I] * 8 + [_P],
     # x, vals, idx, lse, R, V, k, stream
-    "vlpet_topk_lse": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 
@@ -76,22 +89,44 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into _build/libvlpet_<hash>.so unless that exact
-    library exists; returns its path."""
+    library exists; returns its path. One nvcc per source, run together,
+    then one link."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libvlpet_{digest.hexdigest()[:16]}.so"
+    key = digest.hexdigest()[:16]
+    out = BUILD_DIR / f"libvlpet_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{key}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        errors = []
+        for src, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *[str(obj) for _, obj, _ in jobs]],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

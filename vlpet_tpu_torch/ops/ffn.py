@@ -1,11 +1,17 @@
-"""Fused FFN forward (kernel 2) and its plain twin.
+"""Fused FFN, forward (kernel F1) and backward (kernel F2), and the plain
+twin.
 
-Replaces vlpet_tpu/ops/ffn.py:fused_ffn, whose TPU kernel is _run with
-_fwd_kernel: y = act(x . W1 + b1) . W2 + b2 with the (N, F) hidden kept off
-device memory. Weights here are in PyTorch's Linear layout, W1 (F, D) and
-W2 (D, F). Bound on the H100 and design: see the note at the top of
-csrc/ffn.cu. bf16 runs on tensor cores (WMMA), fp32 on plain FMA.
-Activation dropout is not on the ported (eval) path.
+Replaces vlpet_tpu/ops/ffn.py:fused_ffn, whose TPU kernels are _run with
+_fwd_kernel (F1) and with _bwd_kernel (F2) under a custom_vjp:
+y = act(x . W1 + b1) . W2 + b2 with the (N, F) hidden kept off device
+memory; the backward recomputes fc1 and gives dx, db1 and db2. The weight
+matrices are frozen, as ``ffn_supported`` requires in the JAX package: the
+Function has no dW1/dW2 and raises when either weight requires a gradient
+(the model routes a trainable language model to the plain fc1 -> act ->
+fc2). Weights here are in PyTorch's Linear layout, W1 (F, D) and W2 (D, F).
+Bound on the H100 and design: the header note of csrc/ffn.cu. bf16 runs on
+tensor cores (WMMA), fp32 on plain FMA. Activation dropout is not on the
+ported path.
 """
 
 from __future__ import annotations
@@ -17,25 +23,20 @@ from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
 
 _ACTS = {"gelu": (0, gelu), "gelu_new": (1, gelu_new)}
+_ROWS = {torch.bfloat16: 32, torch.float32: 16}  # rows per kernel block
 
 
 def ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor,
                   act: str = "gelu") -> torch.Tensor:
     """Plain fc1 -> act -> fc2 in x's dtype (the JAX package's unfused
-    TaskDense path)."""
+    TaskDense path); autograd differentiates it."""
     fn = _ACTS[act][1]
     h = fn(F.linear(x, w1.to(x.dtype), b1.to(x.dtype)))
     return F.linear(h, w2.to(x.dtype), b2.to(x.dtype))
 
 
-def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor,
-              act: str = "gelu") -> torch.Tensor:
-    """x (N, D); w1 (F, D); b1 (F,); w2 (D, F); b2 (D,) -> (N, D) in x's
-    dtype. CPU tensors run the plain version; CUDA tensors launch the
-    kernel (bf16: D a multiple of 128 up to 1024, F a multiple of 64;
-    fp32: D <= 1024, F a multiple of 32)."""
+def _check(x, w1, b1, w2, b2, act):
     if act not in _ACTS:
         raise ValueError(f"fused_ffn: unsupported activation {act!r}")
     N, D = x.shape
@@ -43,12 +44,16 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if w1.shape != (Fh, D) or w2.shape != (D, Fh) or b1.shape != (Fh,) \
             or b2.shape != (D,):
         raise ValueError("fused_ffn: weight shapes do not match x")
-    if not _build.use_kernel(x, w1, b1, w2, b2):
-        return ffn_reference(x, w1, b1, w2, b2, act)
-    dts = (torch.float32, torch.bfloat16)
-    _build.check(x, "x", dts, 2)
-    _build.check(w1, "w1", (x.dtype,), 2)
-    _build.check(w2, "w2", (x.dtype,), 2)
+
+
+def _kernel_inputs(x, w1, w2, extra=()):
+    """Kernel input guard: x (and dy) contiguous fp32/bf16, weights in x's
+    dtype; returns whether the bf16 tensor-core kernels run."""
+    N, D = x.shape
+    Fh = w1.shape[0]
+    _build.check(x, "x", (torch.float32, torch.bfloat16), 2)
+    for t, n in ((w1, "w1"), (w2, "w2")) + tuple(extra):
+        _build.check(t, n, (x.dtype,), 2)
     bf16 = x.dtype == torch.bfloat16
     if bf16:
         if D % 128 or D > 1024 or Fh % 64:
@@ -61,6 +66,12 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     elif D > 1024 or Fh % 32:
         raise ValueError(f"fused_ffn fp32: need D <= 1024, F % 32 == 0; got "
                          f"D={D}, F={Fh}")
+    return bf16
+
+
+def _launch_fwd(x, w1, b1, w2, b2, act):
+    N, D = x.shape
+    bf16 = _kernel_inputs(x, w1, w2)
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
     y = torch.empty_like(x)
@@ -68,9 +79,78 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return y
     _build.launch("vlpet_ffn_fwd", x.data_ptr(), w1.data_ptr(),
                   b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(), y.data_ptr(),
-                  N, D, Fh, _ACTS[act][0], int(bf16))
+                  N, D, w1.shape[0], _ACTS[act][0], int(bf16))
     fused_ffn.launches += 1
     return y
 
 
+def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
+                  b1: torch.Tensor, w2: torch.Tensor, act: str = "gelu"):
+    """(dx in x's dtype, db1 fp32, db2 fp32) of fused_ffn for cotangent dy
+    (cast to x's dtype, as the TPU backward does): kernel F2 on CUDA
+    tensors, autograd of the plain version on CPU tensors."""
+    N, D = x.shape
+    Fh = w1.shape[0]
+    _check(x, w1, b1, w2, torch.empty(D), act)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    dy = dy.to(x.dtype)
+    if not _build.use_kernel(x, dy, w1, b1, w2):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            b1r = b1.detach().float().requires_grad_()
+            b2r = torch.zeros(D, device=x.device, requires_grad=True)
+            y = ffn_reference(xr, w1.detach(), b1r, w2.detach(), b2r, act)
+            return torch.autograd.grad(y, (xr, b1r, b2r), dy)
+    dy = dy.contiguous()
+    bf16 = _kernel_inputs(x, w1, w2, extra=((dy, "dy"),))
+    b1f = b1.float().contiguous()
+    dx = torch.empty_like(x)
+    db1 = torch.zeros(Fh, dtype=torch.float32, device=x.device)
+    db2 = torch.zeros(D, dtype=torch.float32, device=x.device)
+    if N == 0:
+        return dx, db1, db2
+    G = -(-N // _ROWS[x.dtype])
+    partial = torch.empty((G, Fh + D), dtype=torch.float32, device=x.device)
+    _build.launch("vlpet_ffn_bwd", x.data_ptr(), dy.data_ptr(), w1.data_ptr(),
+                  b1f.data_ptr(), w2.data_ptr(), dx.data_ptr(),
+                  partial.data_ptr(), db1.data_ptr(), db2.data_ptr(), N, D,
+                  Fh, G, _ACTS[act][0], int(bf16))
+    fused_ffn_bwd.launches += 1
+    return dx, db1, db2
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act):
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.act, ctx.b2_dtype = act, b2.dtype
+        return _launch_fwd(x, w1, b1, w2, b2, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        dx, db1, db2 = fused_ffn_bwd(x, dy, w1, b1, w2, ctx.act)
+        return (dx, None, db1.to(b1.dtype), None, db2.to(ctx.b2_dtype), None)
+
+
+def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor,
+              act: str = "gelu") -> torch.Tensor:
+    """x (N, D); w1 (F, D); b1 (F,); w2 (D, F); b2 (D,) -> (N, D) in x's
+    dtype, differentiable in x, b1 and b2. The weight matrices are frozen:
+    raises when either requires a gradient while autograd is on. CPU
+    tensors run the plain version; CUDA tensors launch F1 forward and F2
+    backward (bf16: D a multiple of 128 up to 1024, F a multiple of 64;
+    fp32: D <= 1024, F a multiple of 32)."""
+    _check(x, w1, b1, w2, b2, act)
+    if torch.is_grad_enabled() and (w1.requires_grad or w2.requires_grad):
+        raise ValueError("fused_ffn: the weight matrices are frozen (no dW); "
+                         "take the plain fc1 -> act -> fc2 to train them")
+    if not _build.use_kernel(x, w1, b1, w2, b2):
+        return ffn_reference(x, w1, b1, w2, b2, act)
+    return _FusedFFN.apply(x.contiguous(), w1, b1, w2, b2, act)
+
+
 fused_ffn.launches = 0
+fused_ffn_bwd.launches = 0

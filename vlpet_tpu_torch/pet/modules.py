@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import AdapterSpec
+from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
 
 
@@ -51,11 +52,11 @@ class TaskDense(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, n_tasks: int = 1,
                  shared: bool = True, use_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device: Device = "cuda"):
         super().__init__()
         self.in_dim, self.out_dim, self.shared = in_dim, out_dim, shared
         lead = () if shared else (n_tasks,)
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.weight = nn.Parameter(torch.empty(lead + (out_dim, in_dim), **kw))
         self.bias = (nn.Parameter(torch.empty(lead + (out_dim,), **kw))
                      if use_bias else None)
@@ -77,7 +78,8 @@ class BottleneckAdapter(nn.Module):
     """down -> act -> up; returns the delta (the combination lives in
     AdapterController)."""
 
-    def __init__(self, spec: AdapterSpec, dtype=torch.float32, device=None):
+    def __init__(self, spec: AdapterSpec, dtype=torch.float32,
+                 device: Device = "cuda"):
         super().__init__()
         n_tasks = len(spec.tasks)
         down_shared = (spec.use_single_adapter or spec.share_down_sampler
@@ -100,7 +102,8 @@ class AdapterController(nn.Module):
     parallel out = scale*A(x) + y (y the wrapped projection's output; the
     VPA form)."""
 
-    def __init__(self, spec: AdapterSpec, dtype=torch.float32, device=None):
+    def __init__(self, spec: AdapterSpec, dtype=torch.float32,
+                 device: Device = "cuda"):
         super().__init__()
         if spec.kind != "bottleneck" or spec.track_z:
             raise NotImplementedError(
@@ -130,14 +133,14 @@ class MultiheadDownAdapter(nn.Module):
 
     def __init__(self, d_model: int, down_dim: int, num_heads: int,
                  non_linearity: str = "gelu_new", dtype=torch.float32,
-                 device=None):
+                 device: Device = "cuda"):
         super().__init__()
         if down_dim % num_heads:
             raise ValueError(f"down_dim {down_dim} not divisible by "
                              f"{num_heads} heads")
         self.d, self.r, self.h = d_model, down_dim, num_heads
         rh = down_dim // num_heads
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.down_kernel = nn.Parameter(torch.empty((num_heads, d_model, rh),
                                                     **kw))
         self.down_bias = nn.Parameter(torch.empty((num_heads, rh), **kw))
@@ -155,7 +158,7 @@ class GateLargeXLowRank(nn.Module):
     """VL-PET-large gate G = sigmoid(U gelu_new(D x))."""
 
     def __init__(self, d_model: int, gating_down_dim: int,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device: Device = "cuda"):
         super().__init__()
         self.down = TaskDense(d_model, gating_down_dim, dtype=dtype,
                               device=device)
