@@ -15,6 +15,16 @@ nonzero and no result line is printed):
      S 56) sites, FFN forward + backward at N 28000 and 5000, dropout +
      add + LayerNorm forward + backward at N 28000 and 5000, rate 0.1 and
      0.0 (the fp32 dropout mask held bit for bit against keep_mask);
+  3c. the video path's long attention, bf16 and fp32, ragged padding
+     masks: A1 forward (output and row logsumexp) and the long backward vs
+     the plain version and autograd of it at the encoder (B 50, L = S =
+     604), cross (B 50, L 10, S 604) and S 1024 (B 16) sites and one causal
+     L = S = 604 case; then the long backward and A6 timed side by side at
+     the image-text encoder shape (B 500, L = S = 56), a record only; then
+     every other kernel of the video paths at the shapes they give it, bf16
+     (beam cross-attention L 5 over S 604, decoder self-attention and A6,
+     FFN and LayerNorm kernels at 50 x 604, 50 x 10 and 250 rows, beam
+     self-attention over 20 slots, top-k over 250 rows);
   4. fp32 decode parity: BART-base + VL-PET-large at full width, seeded
      random weights, batch 8, beam 5 (then greedy) to length 40, through
      the kernels and through the plain path: the token sequences must be
@@ -23,15 +33,25 @@ nonzero and no result line is printed):
   5. the decode bench shape in bf16: batch 500 (20 text tokens + 36 boxes
      of 2048-d features), beam 5 to length 40; examples/s and launches per
      kernel (the decode path's main-path run);
+  5b. video eval (BART-base + VL-PET-large, 540 text tokens + 64 frames of
+     512-d features, S 604): fp32 beam-5 and greedy tokens identical
+     kernels vs plain at B 4 to length 20, as phase 4 (a) and (b), then
+     the bf16 beam 5 to length 20 at B 50: examples/s and launches (the
+     video eval path's main-path run);
   6. fp32 train-step parity: full width, batch 8, task vqa, dropout 0.1,
      K = 3 steps through the kernels, then 3 through the plain twins from
      the same weights and generator seed: per-step loss and gradient norm
      within 1e-5 relative, trainable parameters within rtol 1e-3, atol
      1e-5 * max|p| (tests/test_training_parity.py's lockstep tolerance);
+  6b. fp32 video train-step parity as phase 6: full width, batch 2, S 604,
+     task tvqa, dropout 0.1, 3 steps kernels vs plain;
   7. the train bench shape in bf16: batch 500, 20 text + 36 boxes, 10
      targets, vqa, dropout 0.1, lr 1e-3, clip 5: 3 warm-up steps, then 10
      timed steps with one sync; examples/s, launches per kernel per step
-     (the training path's main-path run), peak memory.
+     (the training path's main-path run), peak memory;
+  7b. the video train step in bf16: batch 50, 540 text + 64 frames, 10
+     targets, tvqa, dropout 0.1, lr 7e-4, clip 5, as phase 7 (the video
+     training path's main-path run).
 The last lines are the card, the kernels' JSON record and the result line
 {"ok": true, "device": {...}}.
 
@@ -63,7 +83,8 @@ import time
 import torch
 import torch.nn.functional as F
 
-from vlpet_tpu_torch.config import FLAGSHIP_TASKS, flagship_cfg
+from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, flagship_cfg,
+                                    video_cfg)
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.ops import (_build, attention, decode, ffn, fused_ln,
@@ -90,25 +111,35 @@ PARAM_RTOL, PARAM_ATOL_SCALE = 1e-3, 1e-5
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
-# name -> (source, the TPU kernel it replaces, main paths that launch it)
+# name -> (source, the TPU kernel(s) it replaces, main paths that launch
+# it). A1 also serves the per-head and query-strip forwards
+# (vlpet_tpu/ops/attention.py:543, :825) on the video paths.
+DECODE, TRAIN = ("decode", "video_eval"), ("train", "video_train")
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
-                        "vlpet_tpu/ops/attention.py:408", ("decode", "train")),
+                        "vlpet_tpu/ops/attention.py:408", DECODE + TRAIN),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
-                            "vlpet_tpu/ops/attention.py:1082", ("train",)),
+                            "vlpet_tpu/ops/attention.py:1082", TRAIN),
+    "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
+                                 "vlpet_tpu/ops/attention.py:641, "
+                                 "vlpet_tpu/ops/attention.py:918",
+                                 ("video_train",)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
-                  ("decode", "train")),
+                  DECODE + TRAIN),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
-                      "vlpet_tpu/ops/ffn.py:195", ("train",)),
+                      "vlpet_tpu/ops/ffn.py:195", TRAIN),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
-                             "vlpet_tpu/ops/fused_ln.py:251", ("train",)),
+                             "vlpet_tpu/ops/fused_ln.py:251", TRAIN),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
-                                 "vlpet_tpu/ops/fused_ln.py:270", ("train",)),
+                                 "vlpet_tpu/ops/fused_ln.py:270", TRAIN),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
-                           "vlpet_tpu/ops/decode.py:174", ("decode",)),
+                           "vlpet_tpu/ops/decode.py:174", DECODE),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
-                 ("decode",)),
+                 DECODE),
 }
+# the run whose launch count the kernels' JSON record reports: the first of
+# these that launches the kernel
+MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval")
 
 
 def nvidia_smi() -> str:
@@ -181,12 +212,14 @@ class Report:
         pms = cuda_ms(plain_fn, iters)
         lms = cuda_ms(library_fn, iters) if library_fn is not None else None
         lib = f"  library {lms:.4f} ms" if lms is not None else ""
+        bms, by = bound(*work, dtype) if work is not None else (None, None)
+        bnd = f"  bound {bms:.4f} ms ({by})" if work is not None else ""
         print(f"  {key:24s} {label:34s} max|err| {err:.3e}  kernel "
-              f"{ms:.4f} ms  plain {pms:.4f} ms{lib}", flush=True)
+              f"{ms:.4f} ms  plain {pms:.4f} ms{lib}{bnd}", flush=True)
         if timed:
-            bms, by = bound(*work, dtype)
             self.timed[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=bms, bound_by=by)
+        return ms
 
 
 def randn_fn(g, dev="cuda"):
@@ -284,29 +317,36 @@ def phase_kernels(rep: Report) -> None:
     }
     for cname, x in cases.items():
         for kk in (1, 10, 16):
-            vals, toks, lse = topk.topk_lse(x, kk)
-            rv, rt, rl = topk.topk_lse_reference(x, kk)
-            torch.cuda.synchronize()
-            if not torch.equal(toks, rt) or not torch.equal(vals, rv):
-                bad = (toks != rt).any(dim=1).nonzero()[:3].flatten().tolist()
-                raise AssertionError(f"topk_lse {cname} k={kk}: indices/values "
-                                     f"differ from the stable sort, rows {bad}")
-            err = (lse - rl).abs()
-            if bool((err > TOPK_LSE_TOL * (1 + rl.abs())).any()):
-                raise AssertionError(f"topk_lse {cname} k={kk}: lse max |err| "
-                                     f"{err.max().item():.3e}")
-            rep.err["topk_lse"] = max(rep.err["topk_lse"], err.max().item())
-            ms = cuda_ms(lambda: topk.topk_lse(x, kk))
-            pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
-            if cname == "randn" and kk == 10:
-                bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
-                                torch.float32)
-                rep.timed["topk_lse"] = dict(ms=ms, plain_ms=pms,
-                                             library_ms=None, bound_ms=bms,
-                                             bound_by=by)
-            print(f"  {'topk_lse':24s} {f'{cname} R{R} V{V} k{kk}':34s} "
-                  f"indices exact, lse max|err| {err.max().item():.3e}  "
-                  f"kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+            check_topk(rep, cname, x, kk, timed=cname == "randn" and kk == 10)
+
+
+def check_topk(rep: Report, cname: str, x: torch.Tensor, kk: int,
+               timed: bool = False) -> None:
+    """topk_lse on f32 logits x (R, V): indices and values exactly the
+    stable sort's, lse within TOPK_LSE_TOL."""
+    R, V = x.shape
+    vals, toks, lse = topk.topk_lse(x, kk)
+    rv, rt, rl = topk.topk_lse_reference(x, kk)
+    torch.cuda.synchronize()
+    if not torch.equal(toks, rt) or not torch.equal(vals, rv):
+        bad = (toks != rt).any(dim=1).nonzero()[:3].flatten().tolist()
+        raise AssertionError(f"topk_lse {cname} k={kk}: indices/values "
+                             f"differ from the stable sort, rows {bad}")
+    err = (lse - rl).abs()
+    if bool((err > TOPK_LSE_TOL * (1 + rl.abs())).any()):
+        raise AssertionError(f"topk_lse {cname} k={kk}: lse max |err| "
+                             f"{err.max().item():.3e}")
+    rep.err["topk_lse"] = max(rep.err["topk_lse"], err.max().item())
+    ms = cuda_ms(lambda: topk.topk_lse(x, kk))
+    pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
+    if timed:
+        bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
+                        torch.float32)
+        rep.timed["topk_lse"] = dict(ms=ms, plain_ms=pms, library_ms=None,
+                                     bound_ms=bms, bound_by=by)
+    print(f"  {'topk_lse':24s} {f'{cname} R{R} V{V} k{kk}':34s} "
+          f"indices exact, lse max|err| {err.max().item():.3e}  "
+          f"kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
 
 
 def _grads_of(fn, inputs, cot):
@@ -409,6 +449,159 @@ def phase_train_kernels(rep: Report) -> None:
                     check_ln_mask(h, res, gamma, seed, dy, rate)
 
 
+def phase_long_attention(rep: Report) -> None:
+    """The video path's attention shapes: A1 forward (output and row
+    logsumexp) and the long backward vs the plain version and autograd of
+    it; SDPA forward and autograd backward as the library yardstick."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    randn = randn_fn(g)
+    H, Dh = 12, 64
+    inner = H * Dh
+    sites = (("enc", 50, 604, 604, False), ("cross", 50, 10, 604, False),
+             ("enc", 16, 1024, 1024, False), ("causal", 50, 604, 604, True))
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        main = dtype == torch.bfloat16
+        e = 2 if main else 4
+        for site, B, L, S, causal in sites:
+            mask = padding_mask(g, B, S)
+            q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+            k = randn(B, S, inner, dtype=dtype)
+            v = randn(B, S, inner, dtype=dtype)
+            do = randn(B, L, inner, dtype=dtype)
+            label = f"{tag} {site} B{B} L{L} S{S}"
+            # the share of (query, key) pairs the causal triangle leaves
+            seen = (attention._causal_allowed(L, S, "cuda").float().mean()
+                    .item() if causal else 1.0)
+            timed = main and site == "enc" and S == 604
+            rep.check("fused_attention", label + " +lse",
+                      lambda: attention.fused_attention_fwd_lse(
+                          q, k, v, mask, H, causal),
+                      lambda: attention.fused_attention_lse_reference(
+                          q, k, v, mask, H, causal), dtype,
+                      work=(e * 2 * B * (L + S) * inner + 4 * B * S
+                            + 4 * B * H * L, 4 * B * H * L * S * Dh * seen),
+                      library_fn=None if causal else
+                      (lambda: sdpa(q, k, v, mask, H)))
+            out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H,
+                                                         causal)
+            plain_bwd = _grads_of(
+                lambda a, b, c: attention.fused_attention_reference(
+                    a, b, c, mask, H, causal), (q, k, v), do)
+            lib_bwd = None
+            if not causal:
+                lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, mask, H),
+                                    (q, k, v),
+                                    do.view(B, L, H, Dh).transpose(1, 2))
+            rep.check("fused_attention_bwd_long", label,
+                      lambda: attention.fused_attention_bwd_long(
+                          q, k, v, mask, out, lse, do, H, causal),
+                      plain_bwd, dtype, timed=timed,
+                      work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+                            10 * B * H * L * S * Dh * seen),
+                      library_fn=lib_bwd, backward=True)
+            del plain_bwd, lib_bwd
+    # a record for later PRs, not a route: the long backward at the
+    # image-text encoder shape, beside A6, which serves it
+    B, L = 500, 56
+    mask = padding_mask(g, B, L)
+    q = randn(B, L, inner, dtype=torch.bfloat16, scale=Dh ** -0.5)
+    k, v, do = (randn(B, L, inner, dtype=torch.bfloat16) for _ in range(3))
+    out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H)
+    long_ms = rep.check(
+        "fused_attention_bwd_long", f"bf16 image-text enc B{B} L=S={L}",
+        lambda: attention.fused_attention_bwd_long(q, k, v, mask, out, lse,
+                                                   do, H),
+        lambda: attention.fused_attention_bwd(q, k, v, mask, do, H),
+        torch.bfloat16, backward=True)
+    a6_ms = cuda_ms(lambda: attention.fused_attention_bwd(q, k, v, mask, do, H))
+    print(f"  image-text encoder backward, bf16 B{B} L=S={L}: long backward "
+          f"{long_ms:.4f} ms, A6 {a6_ms:.4f} ms (A6 serves this shape)",
+          flush=True)
+
+
+def phase_video_kernels(rep: Report) -> None:
+    """The other kernels of the video paths at the shapes those paths give
+    them (B 50, S 604, 10 targets, beam 5 to length 20), bf16 as the bench
+    phases run them: the beam cross-attention (L 5 over S 604), the
+    decoder self-attention (L = S = 10, causal) forward and A6 backward, the
+    FFN forward and backward and dropout + add + LayerNorm forward and
+    backward at the encoder rows (50 x 604) and the decoder rows (50 x 10),
+    the FFN forward at the beam rows (250), the beam self-attention over a
+    20-slot cache and top-k over 250 rows."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    randn = randn_fn(g)
+    dtype, B, S, T, K = torch.bfloat16, 50, 604, 10, 5
+    H, Dh, D, Fh = 12, 64, 768, 3072
+    inner = H * Dh
+    it = 5
+    mask = padding_mask(g, B, S)
+    k, v = randn(B, S, inner, dtype=dtype), randn(B, S, inner, dtype=dtype)
+    q = randn(B, K, inner, dtype=dtype, scale=Dh ** -0.5)
+    rep.check("fused_attention", f"bf16 beam cross B{B} L{K} S{S}",
+              lambda: attention.fused_attention(q, k, v, mask, H),
+              lambda: attention.fused_attention_reference(q, k, v, mask, H),
+              dtype, iters=it)
+    zero = torch.zeros((1, 1, 1, T), device="cuda")
+    q, k, v, do = (randn(B, T, inner, dtype=dtype, scale=s)
+                   for s in (Dh ** -0.5, 1.0, 1.0, 1.0))
+    label = f"bf16 dec-self B{B} L{T} S{T} causal"
+    rep.check("fused_attention", label,
+              lambda: attention.fused_attention(q, k, v, zero, H, True),
+              lambda: attention.fused_attention_reference(q, k, v, zero, H,
+                                                          True),
+              dtype, iters=it)
+    rep.check("fused_attention_bwd", label,
+              lambda: attention.fused_attention_bwd(q, k, v, zero, do, H, True),
+              _grads_of(lambda a, b, c: attention.fused_attention_reference(
+                  a, b, c, zero, H, True), (q, k, v), do),
+              dtype, iters=it, backward=True)
+    w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
+                                                          scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    gamma, beta = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    for N in (B * S, B * T, B * K):
+        x, res, dy = (randn(N, D, dtype=dtype) for _ in range(3))
+        rep.check("fused_ffn", f"bf16 N{N} D{D} F{Fh} gelu",
+                  lambda: ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),
+                  lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"),
+                  dtype, iters=it)
+        if N == B * K:  # beam rows: eval only
+            continue
+        rep.check("fused_ffn_bwd", f"bf16 N{N} D{D} F{Fh} gelu",
+                  lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu"),
+                  _grads_of(lambda a, c, d: ffn.ffn_reference(
+                      a, w1, c, w2, d, "gelu"), (x, b1, b2), dy),
+                  dtype, iters=it, backward=True)
+        label = f"bf16 N{N} D{D} rate 0.1"
+        rep.check("fused_dropout_add_ln", label,
+                  lambda: fused_ln.fused_dropout_add_ln(x, res, gamma, beta,
+                                                        seed, 0.1),
+                  lambda: fused_ln.fused_dropout_add_ln_reference(
+                      x, res, gamma, beta, seed, 0.1), dtype, iters=it)
+        rep.check("fused_dropout_add_ln_bwd", label,
+                  lambda: fused_ln.fused_dropout_add_ln_bwd(x, res, gamma,
+                                                            seed, dy, 0.1),
+                  _grads_of(lambda a, b, c, d:
+                            fused_ln.fused_dropout_add_ln_reference(
+                                a, b, c, d, seed, 0.1),
+                            (x, res, gamma, beta), dy),
+                  dtype, iters=it, backward=True)
+    Lc = 20
+    qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
+    kc, vc = (randn(Lc, B * K, inner, dtype=dtype) for _ in range(2))
+    anc = torch.randint(0, K, (B, K, Lc), generator=g, device="cuda")
+    rep.check("beam_decode_attend", f"bf16 B{B} K{K} L{Lc} pos{Lc - 1}",
+              lambda: decode.beam_decode_attend(qb, kc, vc, anc, Lc - 1),
+              lambda: decode.beam_decode_attend_reference(qb, kc, vc, anc,
+                                                          Lc - 1),
+              dtype, iters=it)
+    check_topk(rep, "randn", torch.randn((B * K, 50265), generator=g,
+                                         device="cuda"), 2 * K)
+
+
 def check_ln_mask(h, res, gamma, seed, dy, rate) -> None:
     """fp32: the backward kernel's dropout mask, bit for bit, is keep_mask's
     (dh = dres * 1/(1-rate) where kept, 0 where dropped)."""
@@ -438,22 +631,46 @@ def make_batch(B: int, vocab: int, seed: int):
                 boxes=torch.rand((B, 36, 4), generator=g, device="cuda"))
 
 
-def make_train_batch(B: int, vocab: int, seed: int):
-    """The decode batch plus 10 target tokens (padded with -100 on every
-    third example) and VQA answer scores."""
-    batch = make_batch(B, vocab, seed)
+def make_video_batch(B: int, vocab: int, seed: int):
+    """The video recipe's inputs: 540 text tokens (every other example
+    padded after 400) and 64 frames of 512-d CLIP-ViT features with zero
+    boxes, as vlpet_tpu/data/features.py:NpzVideoSource gives them: S 604."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(3, vocab, (B, 540), generator=g, device="cuda")
+    mask = torch.ones((B, 540), dtype=torch.long, device="cuda")
+    mask[1::2, 400:] = 0
+    ids = torch.where(mask.bool(), ids, 1)
+    return dict(input_ids=ids, attention_mask=mask,
+                vis_feats=torch.randn((B, 64, 512), generator=g, device="cuda"),
+                boxes=torch.zeros((B, 64, 4), device="cuda"))
+
+
+def add_targets(batch, B: int, vocab: int, seed: int, scores: bool):
+    """10 target tokens (padded with -100 on every third example) and, for
+    VQA, answer scores."""
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     targets = torch.randint(3, vocab, (B, 10), generator=g, device="cuda")
     targets[::3, 7:] = -100
-    batch.update(target_ids=targets,
-                 scores=torch.rand((B,), generator=g, device="cuda"))
+    batch["target_ids"] = targets
+    if scores:
+        batch["scores"] = torch.rand((B,), generator=g, device="cuda")
     return batch
 
 
-def build_model(dtype: str):
-    """BART-base + VL-PET-large at full width, the JAX package's seeded
-    init scheme (normal(0, 0.02) weights)."""
-    model = VLBart(flagship_cfg(dtype), device="cuda")
+def make_train_batch(B: int, vocab: int, seed: int):
+    """The decode batch plus targets and VQA answer scores."""
+    return add_targets(make_batch(B, vocab, seed), B, vocab, seed, True)
+
+
+def make_video_train_batch(B: int, vocab: int, seed: int):
+    return add_targets(make_video_batch(B, vocab, seed), B, vocab, seed, False)
+
+
+def build_model(dtype: str, cfg_fn=flagship_cfg):
+    """BART-base + VL-PET-large at full width (``cfg_fn``: the image-text
+    or the video configuration), the JAX package's seeded init scheme
+    (normal(0, 0.02) weights)."""
+    model = VLBart(cfg_fn(dtype), device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1234))
     return model
 
@@ -473,6 +690,7 @@ def spread_weights(model: VLBart, seed: int) -> VLBart:
 def wrappers():
     return {"fused_attention": attention.fused_attention,
             "fused_attention_bwd": attention.fused_attention_bwd,
+            "fused_attention_bwd_long": attention.fused_attention_bwd_long,
             "fused_ffn": ffn.fused_ffn,
             "fused_ffn_bwd": ffn.fused_ffn_bwd,
             "fused_dropout_add_ln": fused_ln.fused_dropout_add_ln,
@@ -488,7 +706,7 @@ def reset_counts():
 
 def read_counts(path: str):
     """Launch counts since the last reset; raises if a kernel of ``path``
-    ('decode' or 'train') was never launched."""
+    (a path of KERNELS) was never launched."""
     got = {k: fn.launches for k, fn in wrappers().items()}
     missing = [k for k, (_, _, paths) in KERNELS.items()
                if path in paths and got[k] == 0]
@@ -520,11 +738,11 @@ def routed_share(model: VLBart, run):
     return out, shares[-1].item()
 
 
-def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
-    """Beam 5 and greedy to length 40 at B 8, through the kernels and
-    through the plain twins: the tokens must be identical."""
-    batch = make_batch(8, model.cfg.backbone.vocab_size, seed=7)
-    ctx = PetContext(task="caption", task_idx=3)
+def parity_run(label: str, model: VLBart, batch, ctx: PetContext,
+               max_length: int, min_distinct: int,
+               min_routed: float = MIN_ROUTED_SHARE) -> None:
+    """Beam 5 and greedy to ``max_length`` through the kernels and through
+    the plain twins: the tokens must be identical."""
     with torch.inference_mode():
         enc, _ = model.encode(**batch, ctx=ctx)
         with plain_twins():
@@ -533,7 +751,7 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
 
     def beam5():
         return seq2seq_generate(model, **batch, ctx=ctx, num_beams=5,
-                                max_length=40)
+                                max_length=max_length)
 
     got, routed = routed_share(model, beam5)
     with plain_twins():
@@ -544,9 +762,9 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
                              f"kernels and plain in rows {rows}:\n"
                              f"{got[rows]}\n{want[rows]}")
     per_row = [len(set(r)) for r in got[:, 1:].tolist()]
-    if routed < MIN_ROUTED_SHARE or min(per_row) < min_distinct:
+    if routed < min_routed or min(per_row) < min_distinct:
         raise AssertionError(f"{label}: degenerate beam search: routed share "
-                             f"{routed:.3f} (need >= {MIN_ROUTED_SHARE}), "
+                             f"{routed:.3f} (need >= {min_routed}), "
                              f"distinct ids per row {per_row} (need >= "
                              f"{min_distinct}):\n{got}")
     print(f"  {label}: encoder max|kernel - plain| / max|plain| "
@@ -555,10 +773,11 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
           f"row {per_row}", flush=True)
     print(f"    sample: {got[0].tolist()}", flush=True)
     # greedy: L = 1 cross-attention and k = 1 top-k through the kernels
-    got = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1, max_length=40)
+    got = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1,
+                           max_length=max_length)
     with plain_twins():
         want = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1,
-                                max_length=40)
+                                max_length=max_length)
     if not torch.equal(got, want):
         raise AssertionError(f"{label}: fp32 greedy tokens differ between "
                              f"kernels and plain")
@@ -566,32 +785,40 @@ def parity_run(label: str, model: VLBart, min_distinct: int) -> None:
 
 
 def phase_parity() -> None:
+    ctx = PetContext(task="caption", task_idx=3)
     # (a) the full model at the JAX package's init scale
-    parity_run("6+6 layers, init std 0.02", build_model("float32"),
+    model = build_model("float32")
+    parity_run("6+6 layers, init std 0.02", model,
+               make_batch(8, model.cfg.backbone.vocab_size, seed=7), ctx, 40,
                min_distinct=2)
     # (b) weights at the slice test's scale, which decode varied tokens. At
     # full depth a random model at this scale is chaotic: fp32 round-off
     # of any two summation orders grows to O(1) over the encoder layers,
     # so token parity there would test the random model, not the kernels.
     # One layer each keeps the round-off small and every kernel on the path.
-    cfg = flagship_cfg("float32")
-    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, encoder_layers=1, decoder_layers=1))
-    parity_run("1+1 layers, std 0.2",
-               spread_weights(VLBart(cfg, device="cuda"), seed=1234),
+    parity_run("1+1 layers, std 0.2", spread_model(flagship_cfg),
+               make_batch(8, model.cfg.backbone.vocab_size, seed=7), ctx, 40,
                min_distinct=MIN_DISTINCT_PER_ROW)
 
 
-def phase_decode_bench(card: str):
-    model = build_model("bfloat16")
+def spread_model(cfg_fn) -> VLBart:
+    """fp32, one encoder and one decoder layer, weights at std 0.2."""
+    cfg = cfg_fn("float32")
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, encoder_layers=1, decoder_layers=1))
+    return spread_weights(VLBart(cfg, device="cuda"), seed=1234)
+
+
+def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
+                   max_length: int, path: str, label: str):
+    """One warm-up and one timed bf16 beam-5 generate; examples/s and the
+    launches of the timed run (the ``path`` main-path run)."""
     V = model.cfg.backbone.vocab_size
-    B = 500
-    batch = make_batch(B, V, seed=11)
-    ctx = PetContext(task="caption", task_idx=3)
+    B = batch["input_ids"].shape[0]
 
     def run():
         return seq2seq_generate(model, **batch, ctx=ctx, num_beams=5,
-                                max_length=40)
+                                max_length=max_length)
 
     out = run()  # warm-up: cuBLAS heuristics, allocator
     torch.cuda.synchronize()
@@ -600,51 +827,76 @@ def phase_decode_bench(card: str):
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launched = read_counts("decode")
-    if out.shape != (B, 40) or out.dtype != torch.long:
+    launched = read_counts(path)
+    if out.shape != (B, max_length) or out.dtype != torch.long:
         raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
     if not bool(((out >= 0) & (out < V)).all()) or not bool((out[:, 0] == 2).all()):
         raise AssertionError("token ids out of range or missing start token")
-    print(f"  bf16 B{B} beam5 len40: {B / wall:.2f} examples/s, wall "
+    print(f"  bf16 B{B} {label}: {B / wall:.2f} examples/s, wall "
           f"{wall:.3f} s on {card}; launches {launched}", flush=True)
     if "--profile" in sys.argv:
-        profile_run(run, card, "beam-5 generate")
+        profile_run(run, card, f"{label} generate")
     return launched
 
 
-def train_setup(dtype: str, B: int, seed: int):
-    model = build_model(dtype)
-    trainable = apply_freezing(model, model.cfg.pet)
-    batch = make_train_batch(B, model.cfg.backbone.vocab_size, seed)
-    return model, trainable, batch
+def phase_decode_bench(card: str):
+    model = build_model("bfloat16")
+    return generate_bench(card, model,
+                          make_batch(500, model.cfg.backbone.vocab_size,
+                                     seed=11),
+                          PetContext(task="caption", task_idx=3), 40,
+                          "decode", "beam5 len40")
+
+
+def phase_video_eval(card: str):
+    """fp32 token parity at B 4 (as phase 4: the full model at the init
+    scale, then 1+1 layers at std 0.2), then the bf16 eval shape at B 50."""
+    ctx = PetContext(task="tvqa", task_idx=VIDEO_TASKS.index("tvqa"))
+    model = build_model("float32", video_cfg)
+    V = model.cfg.backbone.vocab_size
+    batch = make_video_batch(4, V, seed=13)
+    parity_run("video 6+6 layers, init std 0.02, B4 S604", model, batch, ctx,
+               20, min_distinct=2)
+    parity_run("video 1+1 layers, std 0.2, B4 S604", spread_model(video_cfg),
+               batch, ctx, 20, min_distinct=MIN_DISTINCT_PER_ROW)
+    del model
+    model = build_model("bfloat16", video_cfg)
+    return generate_bench(card, model, make_video_batch(50, V, seed=17), ctx,
+                          20, "video_eval", "video S604 beam5 len20")
 
 
 def train_run(model, trainable, batch, steps: int, total_steps: int,
-              gen_seed: int, lr: float = 1e-3):
-    """``steps`` train steps (task vqa) with a fresh optimizer; returns the
-    per-step (loss, grad_norm) tensors."""
+              gen_seed: int, tasks=FLAGSHIP_TASKS, task: str = "vqa",
+              lr: float = 1e-3):
+    """``steps`` train steps of ``task`` with a fresh optimizer; returns
+    the per-step (loss, grad_norm) tensors."""
     opt = build_optimizer(trainable, lr=lr, total_steps=total_steps)
-    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+    step = make_train_step(model, opt, tasks)
     gen = torch.Generator(device="cuda").manual_seed(gen_seed)
-    return [step(batch, gen, FLAGSHIP_TASKS.index("vqa"))
-            for _ in range(steps)]
+    return [step(batch, gen, tasks.index(task)) for _ in range(steps)]
 
 
-def phase_train_parity() -> None:
+def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
+                 task: str, lr: float, path: str) -> None:
+    """K = 3 fp32 steps through the kernels, then through the plain twins
+    from the same weights and generator seed (phase 6's tolerances)."""
     K = 3
-    model, trainable, batch = train_setup("float32", 8, seed=21)
+    model = build_model("float32", cfg_fn)
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
     start = {n: p.detach().clone() for n, p in trainable.items()}
     reset_counts()
-    got = train_run(model, trainable, batch, K, K + 1, gen_seed=5)
+    got = train_run(model, trainable, batch, K, K + 1, 5, tasks, task, lr)
     torch.cuda.synchronize()
-    launched = read_counts("train")
+    launched = {k: n for k, n in read_counts(path).items() if n}
     after = {n: p.detach().clone() for n, p in trainable.items()}
     with torch.no_grad():
         for n, p in trainable.items():
             p.copy_(start[n])
     reset_counts()
     with plain_twins():
-        want = train_run(model, trainable, batch, K, K + 1, gen_seed=5)
+        want = train_run(model, trainable, batch, K, K + 1, 5, tasks, task,
+                         lr)
     torch.cuda.synchronize()
     if any(fn.launches for fn in wrappers().values()):
         raise AssertionError("the plain train step launched kernels")
@@ -668,42 +920,74 @@ def phase_train_parity() -> None:
                                  f"{diff.max().item():.3e}")
         moved = (after[n] - start[n]).abs().max().item()
         worst = max(worst, (diff.max() / max(moved, 1e-30)).item())
-    print(f"  fp32 B8 vqa dropout 0.1, {K} steps, loss kernel/plain and "
+    print(f"  fp32 {label} dropout 0.1, {K} steps, loss kernel/plain and "
           f"grad norm: {'; '.join(rows)}", flush=True)
     print(f"  {len(trainable)} trainable tensors agree (rtol {PARAM_RTOL}, "
           f"atol {PARAM_ATOL_SCALE} max|p|); largest |kernel - plain| / "
           f"largest update {worst:.2e}; launches {launched}", flush=True)
 
 
-def phase_train_bench(card: str):
-    B, warm, timed = 500, 3, 10
-    model, trainable, batch = train_setup("bfloat16", B, seed=31)
-    opt = build_optimizer(trainable, lr=1e-3, total_steps=warm + timed + 1)
-    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+def phase_train_parity() -> None:
+    train_parity("B8 vqa", flagship_cfg, make_train_batch, 8, 21,
+                 FLAGSHIP_TASKS, "vqa", 1e-3, "train")
+
+
+def phase_video_train_parity() -> None:
+    train_parity("video B2 S604 tvqa", video_cfg, make_video_train_batch, 2,
+                 23, VIDEO_TASKS, "tvqa", 7e-4, "video_train")
+
+
+def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
+                task: str, lr: float, path: str, label: str):
+    """3 warm-up steps, then 10 timed steps ending in one sync; the
+    launches of the timed steps (the ``path`` main-path run)."""
+    warm, timed = 3, 10
+    model = build_model("bfloat16", cfg_fn)
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
+    opt = build_optimizer(trainable, lr=lr, total_steps=warm + timed + 1)
+    step = make_train_step(model, opt, tasks)
     gen = torch.Generator(device="cuda").manual_seed(9)
-    task = FLAGSHIP_TASKS.index("vqa")
+    task_idx = tasks.index(task)
     for _ in range(warm):
-        out = step(batch, gen, task)
+        out = step(batch, gen, task_idx)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     for _ in range(timed):
-        out = step(batch, gen, task)
+        out = step(batch, gen, task_idx)
     loss = out["loss"].item()  # the one sync
     wall = time.perf_counter() - t0
-    launched = read_counts("train")
+    launched = read_counts(path)
     if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
         raise AssertionError(f"non-finite loss {loss} / grad norm")
     per_step = {k: n / timed for k, n in launched.items() if n}
-    print(f"  bf16 B{B} vqa train step: {B * timed / wall:.2f} examples/s "
+    print(f"  bf16 B{B} {label} train step: {B * timed / wall:.2f} examples/s "
           f"({wall / timed * 1e3:.2f} ms/step over {timed} steps) on {card}; "
           f"loss {loss:.4f}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
           f"per step {per_step}", flush=True)
     if "--profile" in sys.argv:
-        profile_run(lambda: step(batch, gen, task)["loss"].item(), card,
-                    "train step")
+        profile_run(lambda: step(batch, gen, task_idx)["loss"].item(), card,
+                    f"{label} train step")
+    return launched
+
+
+def phase_train_bench(card: str):
+    return train_bench(card, flagship_cfg, make_train_batch, 500, 31,
+                       FLAGSHIP_TASKS, "vqa", 1e-3, "train", "vqa")
+
+
+def phase_video_train_bench(card: str):
+    launched = train_bench(card, video_cfg, make_video_train_batch, 50, 33,
+                           VIDEO_TASKS, "tvqa", 7e-4, "video_train",
+                           "video S604 tvqa")
+    # 6 encoder self-attention and 6 cross-attention sites per step
+    if launched["fused_attention_bwd_long"] != 12 * 10:
+        raise AssertionError(f"long backward launched "
+                             f"{launched['fused_attention_bwd_long']} times "
+                             f"in 10 steps, expected 120")
     return launched
 
 
@@ -725,6 +1009,9 @@ def profile_run(run, card: str, what: str) -> None:
                 "ffn_bias": "fused_ffn_bwd kernel (F2)",
                 "attention_fwd": "fused_attention kernel (A1)",
                 "attention_bwd": "fused_attention_bwd kernel (A6)",
+                "dkdv_kernel": "long attention backward (A3/A5)",
+                "dq_kernel": "long attention backward (A3/A5)",
+                "delta_kernel": "long attention backward (A3/A5)",
                 "ln_fwd": "fused LN forward kernel (L1)",
                 "ln_bwd": "fused LN backward kernel (L2)",
                 "ln_col": "fused LN backward kernel (L2)",
@@ -779,18 +1066,28 @@ def main() -> int:
     phase_kernels(rep)
     print("phase 3b: training-path kernels vs plain", flush=True)
     phase_train_kernels(rep)
+    print("phase 3c: long attention (video path) vs plain", flush=True)
+    phase_long_attention(rep)
+    phase_video_kernels(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
 
     print("phase 5: decode bench shape, bf16", flush=True)
     launched = {"decode": phase_decode_bench(card)}
+    print("phase 5b: video eval, fp32 parity and bf16 bench shape",
+          flush=True)
+    launched["video_eval"] = phase_video_eval(card)
 
     print("phase 6: train-step parity, fp32", flush=True)
     phase_train_parity()
+    print("phase 6b: video train-step parity, fp32", flush=True)
+    phase_video_train_parity()
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
+    print("phase 7b: video train step, bf16", flush=True)
+    launched["video_train"] = phase_video_train_bench(card)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:
@@ -798,10 +1095,10 @@ def main() -> int:
     kernels = []
     for k, (src, replaces, paths) in KERNELS.items():
         by_path = {p: launched[p][k] for p in paths}
+        main_path = next(p for p in MAIN_PATH_ORDER if p in paths)
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": by_path["train" if "train" in paths
-                                            else "decode"],
+                        "launches": by_path[main_path],
                         "launches_by_path": by_path,
                         "max_abs_err": rep.err[k], **rep.timed[k]})
     print(f"card: {card}")

@@ -200,9 +200,18 @@ def _wrapper_calls():
         lambda: tln.fused_dropout_add_ln(h, h, g, g, seed, 0.1)
     yield "fused_dropout_add_ln_bwd", tln, "fused_dropout_add_ln_reference", \
         lambda: tln.fused_dropout_add_ln_bwd(h, h, g, seed, h, 0.1)
+    lse = torch.zeros(2, 2, 3)
+    yield "fused_attention", tatt, "fused_attention_lse_reference", \
+        lambda: tatt.fused_attention_fwd_lse(q, kv, kv,
+                                             torch.zeros(2, 1, 1, 4), 2)
+    yield "fused_attention_bwd_long", tatt, \
+        "fused_attention_bwd_long_reference", \
+        lambda: tatt.fused_attention_bwd_long(q, kv, kv,
+                                              torch.zeros(2, 1, 1, 4), q, lse,
+                                              q, 2, True)
 
 
-@pytest.mark.parametrize("which", range(8))
+@pytest.mark.parametrize("which", range(10))
 def test_cuda_request_without_library_raises_not_falls_back(which,
                                                             monkeypatch):
     """A wrapper asked to launch (device check patched to say CUDA) on a

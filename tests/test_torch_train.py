@@ -10,7 +10,11 @@ runs K = 3 steps of make_train_step + build_optimizer (clip 5, HF AdamW,
 linear warmup). Per step the loss and the gradient norm agree within 1e-5
 relative; after K steps the trainable parameters agree within the repo's
 lockstep tolerance (rtol 1e-3, atol 1e-5 * max|p|,
-tests/test_training_parity.py) and the frozen ones are unchanged.
+tests/test_training_parity.py) and the frozen ones are unchanged. A tiny
+video-shaped case (the video tasks, 8 frames of 16-d features with zero
+boxes, 24 text tokens, task tvqa) runs the same lockstep, and the port's
+full-width video configuration is held against the one the JAX video CLI
+builds from scripts/video-text/VL-PET-large.sh.
 """
 
 import dataclasses
@@ -39,6 +43,7 @@ torch.set_num_threads(2)  # several xdist workers share the host
 
 K = 3
 B, L_TXT, L_TGT = 4, 6, 4
+L_TXT_VIDEO = 24
 OPT = dict(lr=1e-3, total_steps=4, warmup_ratio=0.1)
 
 
@@ -50,21 +55,20 @@ def _port_cfg(jcfg):
                             pet=pc.PetConfig(**d.pop("pet")), **d)
 
 
-@pytest.fixture(scope="module")
-def lockstep():
-    jcfg, tasks = _flagship_cfg(tiny=True)
+def _setup(jcfg, tasks, L_txt, zero_boxes=False):
     jcfg = dataclasses.replace(jcfg, backbone=dataclasses.replace(
         jcfg.backbone, dropout=0.0))
     rng = np.random.default_rng(0)
     V, nb, fd = jcfg.backbone.vocab_size, jcfg.vis.n_boxes, jcfg.vis.feat_dim
-    mask = np.ones((B, L_TXT), np.int32)
-    mask[1, 4:] = 0
+    mask = np.ones((B, L_txt), np.int32)
+    mask[1, L_txt - 2:] = 0
     targets = rng.integers(3, V, (B, L_TGT)).astype(np.int32)
     targets[2, 2:] = -100  # padded labels
-    batch = dict(input_ids=rng.integers(3, V, (B, L_TXT)).astype(np.int32),
+    batch = dict(input_ids=rng.integers(3, V, (B, L_txt)).astype(np.int32),
                  attention_mask=mask,
                  vis_feats=rng.normal(size=(B, nb, fd)).astype(np.float32),
-                 boxes=rng.uniform(size=(B, nb, 4)).astype(np.float32),
+                 boxes=(np.zeros((B, nb, 4), np.float32) if zero_boxes else
+                        rng.uniform(size=(B, nb, 4)).astype(np.float32)),
                  target_ids=targets,
                  scores=rng.uniform(0.3, 1.0, B).astype(np.float32))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -82,6 +86,26 @@ def lockstep():
     return jcfg, tasks, jmodel, params, jbatch, tbatch, tx, jstep
 
 
+@pytest.fixture(scope="module")
+def lockstep():
+    return _setup(*_flagship_cfg(tiny=True), L_TXT)
+
+
+@pytest.fixture(scope="module")
+def video_lockstep():
+    """The tiny flagship backbone with the video tasks and video-shaped
+    inputs: 24 text tokens + 8 frames of 16-d features, zero boxes."""
+    from vlpet_tpu.cli.multitask_video import VIDEO_TASKS
+    from vlpet_tpu.config import VisConfig, vlpet_recipe
+
+    jcfg, _ = _flagship_cfg(tiny=True)
+    jcfg = dataclasses.replace(
+        jcfg, vis=VisConfig(feat_dim=16, n_boxes=8),
+        pet=vlpet_recipe("large", r=16, num_heads=4, gate_dim=16,
+                         tasks=VIDEO_TASKS))
+    return _setup(jcfg, VIDEO_TASKS, L_TXT_VIDEO, zero_boxes=True)
+
+
 def _jax_run(jcfg, params, jbatch, tx, step, task_idx):
     trainable, frozen = split_params(params, trainable_mask(params, jcfg.pet))
     state = TrainState.create(jax.tree_util.tree_map(jnp.asarray, trainable),
@@ -95,9 +119,8 @@ def _jax_run(jcfg, params, jbatch, tx, step, task_idx):
     return losses, norms, flax_to_state_dict(jax.device_get(state.params))
 
 
-@pytest.mark.parametrize("task", ["vqa", "caption"])
-def test_train_step_lockstep_with_jax(lockstep, task):
-    jcfg, tasks, jmodel, params, jbatch, tbatch, tx, jstep = lockstep
+def _check_lockstep(setup, task):
+    jcfg, tasks, jmodel, params, jbatch, tbatch, tx, jstep = setup
     task_idx = tasks.index(task)
     want_losses, want_norms, want_params = _jax_run(jcfg, params, jbatch, tx,
                                                     jstep, task_idx)
@@ -127,6 +150,46 @@ def test_train_step_lockstep_with_jax(lockstep, task):
     for name, p in model.named_parameters():
         if name in frozen_before:
             assert torch.equal(p, frozen_before[name]), name
+
+
+@pytest.mark.parametrize("task", ["vqa", "caption"])
+def test_train_step_lockstep_with_jax(lockstep, task):
+    _check_lockstep(lockstep, task)
+
+
+def test_video_train_step_lockstep_with_jax(video_lockstep):
+    _check_lockstep(video_lockstep, "tvqa")
+
+
+def test_video_cfg_is_the_video_cli_config():
+    """video_cfg() equals, field for field, what the JAX video CLI
+    (vlpet_tpu/cli/multitask_video.py) builds from the flags of
+    scripts/video-text/VL-PET-large.sh at r 96, 4 heads, gate 96, VPA 96,
+    lr 7e-4: the parsed arguments, feat_dim forced to 512, the video
+    tasks."""
+    from vlpet_tpu.cli.multitask_video import VIDEO_TASKS
+    from vlpet_tpu.cli.param import build_model_config, parse_args
+
+    argv = ("--optim adamw --warmup_ratio 0.1 --clip_grad_norm 5 --lr 7e-4 "
+            "--epochs 20 --backbone facebook/bart-base --num_beams 5 "
+            "--batch_size 50 --valid_batch_size 50 --reduction_factor 8 "
+            "--use_tasks_prompts --tasks tvqa,how2qa,tvc,yc2c "
+            "--feature_type RN101 --n_boxes 64 --image_size (224,224) "
+            "--use_adapter --use_single_adapter --no_encoder_adapter "
+            "--use_adapter_down_dim --use_encoder_adapter_down_multihead "
+            "--adapter_down_dim 96 --encoder_adapter_multihead_num_head 4 "
+            "--use_encoder_adapter_gating_large_x_lowrank "
+            "--adapter_gating_down_dim 96 --unfreeze_encoder_layer_norms "
+            "--no_decoder_adapter "
+            "--use_decoder_enc_attn_value_parallel_adapter_down_dim "
+            "--decoder_enc_attn_value_parallel_adapter_down_dim 96").split()
+    args = parse_args(argv)
+    args.feat_dim = 512  # as multitask_video.main forces it
+    want = build_model_config(args, VIDEO_TASKS)
+    got = pc.video_cfg()
+    assert pc.VIDEO_TASKS == VIDEO_TASKS
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert pc.video_cfg("bfloat16").dtype == "bfloat16"
 
 
 def test_forward_loss_and_shift_match_jax(lockstep):

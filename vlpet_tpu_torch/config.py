@@ -490,3 +490,22 @@ def flagship_cfg(dtype: str = "float32") -> VLModelConfig:
     return VLModelConfig(backbone=BartConfig(),
                          vis=VisConfig(feat_dim=2048, n_boxes=36), pet=pet,
                          dtype=dtype)
+
+
+VIDEO_TASKS = ("tvqa", "how2qa", "tvc", "yc2c")
+
+
+def video_cfg(dtype: str = "float32") -> VLModelConfig:
+    """BART-base + VL-PET-large for video-text multitask, the configuration
+    that vlpet_tpu/cli/multitask_video.py builds from
+    scripts/video-text/VL-PET-large.sh: r 96, 4 heads, gate 96,
+    ``VIDEO_TASKS``, 64 CLIP-ViT frames of 512-d features (the joint
+    sequence is 64 frames + the text tokens: S 604 at 540 text tokens).
+    The script's ``--reduction_factor 8`` is kept, though adapters sized by
+    ``adapter_down_dim`` do not read it."""
+    pet = dataclasses.replace(
+        vlpet_recipe("large", r=96, num_heads=4, gate_dim=96,
+                     tasks=VIDEO_TASKS), reduction_factor=8)
+    return VLModelConfig(backbone=BartConfig(),
+                         vis=VisConfig(feat_dim=512, n_boxes=64), pet=pet,
+                         dtype=dtype)

@@ -17,6 +17,13 @@
 // lane-per-key dot products hit distinct banks), one warp per 4 query rows,
 // and an online softmax over the key tiles. Logits, softmax and the
 // accumulation are fp32 throughout.
+//
+// Long sequences (the video path, S 604 and 1024): the same kernel serves
+// the per-head and query-strip forwards (_pallas_attention_perhead,
+// _pallas_attention_ltiled), which compute this function; the key tiles
+// bound its shared memory at any S. Given a non-null ``lse`` it also
+// writes the fp32 row logsumexp (B, H, L) of the masked logits, from which
+// the long backward (csrc/attention_bwd_long.cu) recomputes p.
 #include "common.cuh"
 
 using namespace vlpet;
@@ -34,8 +41,8 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ out, int L, int S, int H, int Dh,
-                     int mask_batched, int causal) {
+                     T* __restrict__ out, float* __restrict__ lse, int L,
+                     int S, int H, int Dh, int mask_batched, int causal) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;
   float* Ks = smem;                  // [kKT][Dh + 1]
@@ -125,6 +132,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int d = lane + 32 * i;
         if (d < Dh) orow[d] = from_f<T>(acc[rr][i] * inv);
       }
+      if (lse != nullptr && lane == 0)
+        lse[((size_t)b * H + h) * L + row] = m[rr] + logf(l[rr]);
     }
   }
 }
@@ -133,8 +142,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 extern "C" int vlpet_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* out,
-                                   int B, int L, int S, int H, int Dh,
-                                   int mask_batched, int causal,
+                                   void* lse, int B, int L, int S, int H,
+                                   int Dh, int mask_batched, int causal,
                                    int is_bf16, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || B < 1 || L < 1 || S < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
@@ -145,11 +154,12 @@ extern "C" int vlpet_attention_fwd(const void* q, const void* k,
   if (is_bf16) {
     attention_fwd_kernel<bf16><<<grid, kWarps * 32, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
-        (bf16*)out, L, S, H, Dh, mask_batched, causal);
+        (bf16*)out, (float*)lse, L, S, H, Dh, mask_batched, causal);
   } else {
     attention_fwd_kernel<float><<<grid, kWarps * 32, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
-        (const float*)mask, (float*)out, L, S, H, Dh, mask_batched, causal);
+        (const float*)mask, (float*)out, (float*)lse, L, S, H, Dh,
+        mask_batched, causal);
   }
   return (int)cudaGetLastError();
 }

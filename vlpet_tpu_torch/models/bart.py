@@ -13,7 +13,9 @@ hook surface that the slice does not cover raise NotImplementedError when
 the model is built (models/vlbart.py check_supported).
 
 Kernel call sites: every attention but the beam self-attention goes through
-ops.attention.fused_attention (A1 forward, A6 backward), every FFN through
+ops.attention.fused_attention (A1 forward; A6 or, at the video path's long
+sequences, the long backward, as ops.attention.backward_route picks), every
+FFN through
 ops.ffn.fused_ffn (F1, F2) unless the language model trains or
 ``use_fused_ffn`` is off, every dropping residual LayerNorm through
 ops.fused_ln.fused_dropout_add_ln (L1, L2), beam self-attention through

@@ -35,12 +35,15 @@ _F = ctypes.c_float
 # C signature of every exported launcher: pointers, ints, floats, then the
 # stream. Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # q, k, v, mask, out, B, L, S, H, Dh, mask_batched, causal, is_bf16,
-    # stream
-    "vlpet_attention_fwd": [_P] * 5 + [_I] * 8 + [_P],
+    # q, k, v, mask, out, lse (or NULL), B, L, S, H, Dh, mask_batched,
+    # causal, is_bf16, stream
+    "vlpet_attention_fwd": [_P] * 6 + [_I] * 8 + [_P],
     # q, k, v, mask, do, dq, dk, dv, B, L, S, H, Dh, mask_batched, causal,
     # is_bf16, stream
     "vlpet_attention_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # q, k, v, mask, out, lse, do, dq, dk, dv, delta, B, L, S, H, Dh,
+    # mask_batched, causal, is_bf16, stream
+    "vlpet_attention_bwd_long": [_P] * 11 + [_I] * 8 + [_P],
     # x, w1, b1, w2, b2, y, N, D, F, act, is_bf16, stream
     "vlpet_ffn_fwd": [_P] * 6 + [_I] * 5 + [_P],
     # x, dy, w1, b1, w2, dx, partial, db1, db2, N, D, F, G, act, is_bf16,

@@ -1,17 +1,24 @@
-"""Fused attention, forward (kernel A1) and backward (kernel A6), and the
-plain twin.
+"""Fused attention, forward (kernel A1) and backward (kernels A6 and the
+long backward), and the plain twins.
 
 Replaces vlpet_tpu/ops/attention.py:fused_attention, whose TPU kernels are
-_pallas_attention (_fwd_kernel) and _pallas_attention_bwd (_bwd_kernel)
-under a custom_vjp. The layout is the JAX function's: q (B, L, H*Dh)
-pre-scaled, k/v (B, S, H*Dh), an additive f32 padding mask (B|1, 1, 1, S)
-broadcast inside the kernels, and ``causal`` for the decoder triangle with
-past offset S - L. On CUDA tensors ``fused_attention`` is a
-torch.autograd.Function: A1 forward (csrc/attention.cu), A6 backward
-(csrc/attention_bwd.cu), which recomputes the softmax and gives dq, dk, dv;
-the mask gets no gradient. Bounds on the H100 and designs: the header notes
-of the two sources. Per-head masks, the T5 bias and probability dropout are
-not on the ported path and are not accepted.
+the all-heads pair _pallas_attention / _pallas_attention_bwd, the per-head
+pair _pallas_attention_perhead / _pallas_attention_perhead_bwd and the
+query-strip pair _pallas_attention_ltiled / _pallas_attention_ltiled_bwd
+under a custom_vjp, routed by the TPU's scoped-VMEM fit. The layout is the
+JAX function's: q (B, L, H*Dh) pre-scaled, k/v (B, S, H*Dh), an additive
+f32 padding mask (B|1, 1, 1, S) broadcast inside the kernels, and
+``causal`` for the decoder triangle with past offset S - L. On CUDA tensors
+``fused_attention`` is a torch.autograd.Function. Its forward is A1
+(csrc/attention.cu) at every shape: the key-tiled online softmax runs at
+any S, so it computes what the three TPU forwards compute. Its backward is
+picked by ``backward_route``: A6 (csrc/attention_bwd.cu), which holds a
+whole head in shared memory, where that fits; else the tiled long backward
+(csrc/attention_bwd_long.cu), for which the forward also saves its output
+and A1's row logsumexp. Both recompute the softmax and give dq, dk, dv;
+the mask gets no gradient. Bounds on the H100 and designs: the header
+notes of the sources. Per-head masks, the T5 bias and probability dropout
+are not on the ported path and are not accepted.
 """
 
 from __future__ import annotations
@@ -30,6 +37,32 @@ def _causal_allowed(L: int, S: int, device) -> torch.Tensor:
     return col <= row + (S - L)
 
 
+def _logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+            num_heads: int, causal: bool) -> torch.Tensor:
+    """fp32 (B, H, L, S) logits plus the mask, hidden causal logits set to
+    -1e9."""
+    B, L, inner = q.shape
+    S = k.shape[1]
+    hd = inner // num_heads
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     q.reshape(B, L, num_heads, hd).float(),
+                     k.reshape(B, S, num_heads, hd).float())
+    s = s + mask.float()
+    if causal:
+        s = torch.where(_causal_allowed(L, S, s.device), s,
+                        torch.full((), -1e9, device=s.device))
+    return s
+
+
+def _attend(p: torch.Tensor, v: torch.Tensor, num_heads: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, L, S) probabilities cast to ``dtype``, times v -> (B, L, H*Dh)."""
+    B, S, inner = v.shape
+    vh = v.reshape(B, S, num_heads, inner // num_heads)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(dtype), vh)
+    return o.reshape(B, p.shape[2], inner)
+
+
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, mask: torch.Tensor,
                               num_heads: int,
@@ -38,20 +71,54 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     fused_attention_reference, no bias/dropout): fp32 logits plus the mask,
     hidden causal logits set to -1e9, fp32 softmax, probabilities cast to
     q's dtype before the value product. Autograd differentiates it."""
+    p = torch.softmax(_logits(q, k, mask, num_heads, causal), dim=-1)
+    return _attend(p, v, num_heads, q.dtype)
+
+
+def fused_attention_lse_reference(q, k, v, mask, num_heads: int,
+                                  causal: bool = False):
+    """Plain twin of ``fused_attention_fwd_lse``: (the reference output,
+    fp32 row logsumexp (B, H, L) of the masked logits)."""
+    s = _logits(q, k, mask, num_heads, causal)
+    return (_attend(torch.softmax(s, dim=-1), v, num_heads, q.dtype),
+            torch.logsumexp(s, dim=-1))
+
+
+def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
+                                       num_heads: int, causal: bool = False):
+    """Plain twin of the long backward, in its arithmetic: p recomputed as
+    exp(logits - lse), delta = rowsum(do * out), ds = p (do v^T - delta),
+    dq = ds k, dk = ds^T q, dv = p^T do, all fp32, cast to the inputs'
+    dtype."""
     B, L, inner = q.shape
     S = k.shape[1]
     hd = inner // num_heads
-    qh = q.reshape(B, L, num_heads, hd)
-    kh = k.reshape(B, S, num_heads, hd)
-    vh = v.reshape(B, S, num_heads, hd)
-    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
-    s = s + mask.float()
-    if causal:
-        s = torch.where(_causal_allowed(L, S, s.device), s,
-                        torch.full((), -1e9, device=s.device))
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, vh)
-    return o.reshape(B, L, inner)
+
+    def heads(t, n):
+        return t.reshape(B, n, num_heads, hd).float()
+
+    qh, kh, vh, doh = heads(q, L), heads(k, S), heads(v, S), heads(do, L)
+    p = torch.exp(_logits(q, k, mask, num_heads, causal) - lse[..., None])
+    delta = (doh * heads(out, L)).sum(-1).transpose(1, 2)  # (B, H, L)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", doh, vh) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, doh)
+    return (dq.reshape(B, L, inner).to(q.dtype),
+            dk.reshape(B, S, inner).to(k.dtype),
+            dv.reshape(B, S, inner).to(v.dtype))
+
+
+def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
+    """The backward kernel of an attention site: "A6" where its whole-head
+    block fits a block's shared memory -- q, do, k, v and the (L, S) p and
+    dp matrices, staged as fp32 for either input dtype -- else "long". The
+    image-text sites (L, S <= 56) take A6; the video sites (S 604, 1024)
+    the long backward."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
+    smem = 4 * (2 * L * Dh + 2 * S * (Dh + 1) + 2 * L * S)
+    return "A6" if smem <= _SMEM_LIMIT else "long"
 
 
 def _check(q, k, v, mask, num_heads):
@@ -80,25 +147,42 @@ def _kernel_inputs(q, k, v, mask, extra=()):
     return m
 
 
-def _launch_fwd(q, k, v, mask, num_heads, causal):
+def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False):
+    """A1 -> out, or (out, lse) with ``with_lse``."""
     B, L, inner = q.shape
     S = k.shape[1]
     m = _kernel_inputs(q, k, v, mask)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     _build.launch("vlpet_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), m.data_ptr(), out.data_ptr(), B, L, S,
+                  v.data_ptr(), m.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), B, L, S,
                   num_heads, inner // num_heads, int(m.shape[0] == B),
                   int(causal), int(q.dtype == torch.bfloat16))
     fused_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def fused_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mask: torch.Tensor,
+                            num_heads: int, causal: bool = False):
+    """(out, lse): fused_attention's output and the fp32 row logsumexp
+    (B, H, L) of the masked logits, what the long backward takes. A1 on
+    CUDA tensors, the plain twin on CPU tensors."""
+    _check(q, k, v, mask, num_heads)
+    if not _build.use_kernel(q, k, v, mask):
+        return fused_attention_lse_reference(q, k, v, mask, num_heads, causal)
+    return _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, do: torch.Tensor, num_heads: int,
                         causal: bool = False):
     """(dq, dk, dv) of fused_attention for cotangent ``do`` (B, L, H*Dh), in
-    the inputs' dtype: kernel A6 on CUDA tensors, autograd of the plain
-    version on CPU tensors. The mask gets no gradient."""
+    the inputs' dtype: kernel A6 on CUDA tensors (where ``backward_route``
+    says "A6"; raises otherwise), autograd of the plain version on CPU
+    tensors. The mask gets no gradient."""
     _check(q, k, v, mask, num_heads)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
@@ -110,11 +194,10 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, L, inner = q.shape
     S = k.shape[1]
     Dh = inner // num_heads
-    smem = 4 * (2 * L * Dh + 2 * S * (Dh + 1) + 2 * L * S)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"fused_attention_bwd: L {L}, S {S}, Dh {Dh} need "
-                         f"{smem} B of shared memory per block (limit "
-                         f"{_SMEM_LIMIT}); long sequences are not ported")
+    if backward_route(L, S, Dh, q.dtype) != "A6":
+        raise ValueError(f"fused_attention_bwd: L {L}, S {S}, Dh {Dh} do not "
+                         f"fit A6's block; fused_attention_bwd_long serves "
+                         f"them")
     do = do.contiguous()
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"),))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -127,18 +210,67 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, mask: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor,
+                             do: torch.Tensor, num_heads: int,
+                             causal: bool = False):
+    """(dq, dk, dv) of fused_attention for cotangent ``do``, from the
+    forward's ``out`` and row logsumexp ``lse`` (``fused_attention_fwd_lse``),
+    in the inputs' dtype: the tiled long backward on CUDA tensors (any L, S;
+    Dh <= 128), its plain twin on CPU tensors. The mask gets no gradient."""
+    _check(q, k, v, mask, num_heads)
+    B, L, inner = q.shape
+    S = k.shape[1]
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} / out {tuple(out.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if lse.shape != (B, num_heads, L) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 (B, H, L) = ({B}, {num_heads}, "
+                         f"{L}); got {lse.dtype} {tuple(lse.shape)}")
+    if causal and S < L:
+        raise ValueError(f"causal attention needs S >= L, got L {L} S {S}")
+    if not _build.use_kernel(q, k, v, mask, out, lse, do):
+        return fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
+                                                  num_heads, causal)
+    do = do.contiguous()
+    m = _kernel_inputs(q, k, v, mask, extra=((do, "do"), (out, "out")))
+    _build.check(lse, "lse", (torch.float32,), 3)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    _build.launch("vlpet_attention_bwd_long", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), m.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  delta.data_ptr(), B, L, S, num_heads, inner // num_heads,
+                  int(m.shape[0] == B), int(causal),
+                  int(q.dtype == torch.bfloat16))
+    fused_attention_bwd_long.launches += 1
+    return dq, dk, dv
+
+
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, num_heads, causal):
-        ctx.save_for_backward(q, k, v, mask)
         ctx.num_heads, ctx.causal = num_heads, causal
-        return _launch_fwd(q, k, v, mask, num_heads, causal)
+        ctx.long = backward_route(q.shape[1], k.shape[1],
+                                  q.shape[2] // num_heads, q.dtype) == "long"
+        if not ctx.long:
+            ctx.save_for_backward(q, k, v, mask)
+            return _launch_fwd(q, k, v, mask, num_heads, causal)
+        out, lse = _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, mask, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask = ctx.saved_tensors
-        dq, dk, dv = fused_attention_bwd(q, k, v, mask, do, ctx.num_heads,
-                                         ctx.causal)
+        if ctx.long:
+            q, k, v, mask, out, lse = ctx.saved_tensors
+            dq, dk, dv = fused_attention_bwd_long(q, k, v, mask, out, lse, do,
+                                                  ctx.num_heads, ctx.causal)
+        else:
+            q, k, v, mask = ctx.saved_tensors
+            dq, dk, dv = fused_attention_bwd(q, k, v, mask, do, ctx.num_heads,
+                                             ctx.causal)
         return dq, dk, dv, None, None, None
 
 
@@ -149,7 +281,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype; differentiable in q, k, v.
 
     mask: additive (B|1, 1, 1, S). CPU tensors run the plain version; CUDA
-    tensors launch A1 forward and A6 backward."""
+    tensors launch A1 forward and the backward ``backward_route`` picks."""
     _check(q, k, v, mask, num_heads)
     if not _build.use_kernel(q, k, v, mask):
         return fused_attention_reference(q, k, v, mask, num_heads, causal)
@@ -158,3 +290,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 fused_attention.launches = 0
 fused_attention_bwd.launches = 0
+fused_attention_bwd_long.launches = 0
