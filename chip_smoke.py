@@ -51,7 +51,24 @@ nonzero and no result line is printed):
      (the training path's main-path run), peak memory;
   7b. the video train step in bf16: batch 50, 540 text + 64 frames, 10
      targets, tvqa, dropout 0.1, lr 7e-4, clip 5, as phase 7 (the video
-     training path's main-path run).
+     training path's main-path run);
+  3d. (run after 3c) the T5 eval path's kernels vs plain, bf16 and fp32:
+     A1 with the per-head relative bias at B 300, L = S = 56 (ragged
+     padding mask; SDPA with attn_mask = bias + mask as the yardstick), its
+     row logsumexp and the causal form, the beam cross-attention L 5 over
+     S 56; D1 with the bias row at B 300, K 5, 40 slots; F1 relu (zero
+     biases) and F3, the gated-gelu FFN (D 768, F 2048), at 16800 (300 x
+     56) and 1500 (300 x 5) rows;
+  4c. (run after 5b) fp32 T5 decode parity, T5-base + VL-PET-large
+     (``t5_cfg``: relu FFN, tied head) and its gated-gelu variant on the
+     t5-v1.1-base dimensions (``t5_cfg(gated=True)``: F3, untied head):
+     beam 5 and greedy to length 40 at batch 8, kernels vs plain, tokens
+     identical; (a) 12+12 layers at the JAX package's T5 init (ups zero as
+     the recipe sets them), (b) 1+1 layers at std 0.2;
+  5c. the T5 eval shape in bf16 for both: batch 300 (the recipe's
+     valid_batch_size; 20 text tokens + 36 boxes of 2048-d, S 56), beam 5
+     to length 40; examples/s and launches per kernel (the t5_eval and
+     t5_gated_eval main-path runs).
 The last lines are the card, the kernels' JSON record and the result line
 {"ok": true, "device": {...}}.
 
@@ -84,8 +101,9 @@ import torch
 import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, flagship_cfg,
-                                    video_cfg)
+                                    t5_cfg, video_cfg)
 from vlpet_tpu_torch.models.generate import seq2seq_generate
+from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.ops import (_build, attention, decode, ffn, fused_ln,
                                  plain_twins, topk)
@@ -97,6 +115,11 @@ from vlpet_tpu_torch.train.steps import make_train_step
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOPK_LSE_TOL = 1e-5  # top-k values and indices must match exactly
+# phase 3d: a bf16 FFN kernel against fp32 arithmetic on its own inputs,
+# max |err| / max |ref|: the output's bf16 rounding alone is up to 2^-8 of
+# a value (half an ulp of 7 mantissa bits), plus a margin for the order of
+# the fp32 sums
+BF16_FFN_RTOL = 5e-3
 # phase 4: at the last beam step at least this share of the cache slots is
 # read from another beam's row (hypotheses move between parents), and in
 # phase 4b every row holds at least this many distinct token ids
@@ -115,9 +138,11 @@ PEAK_BYTES = 3.35e12
 # it). A1 also serves the per-head and query-strip forwards
 # (vlpet_tpu/ops/attention.py:543, :825) on the video paths.
 DECODE, TRAIN = ("decode", "video_eval"), ("train", "video_train")
+T5 = ("t5_eval", "t5_gated_eval")
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
-                        "vlpet_tpu/ops/attention.py:408", DECODE + TRAIN),
+                        "vlpet_tpu/ops/attention.py:408",
+                        DECODE + TRAIN + T5),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082", TRAIN),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
@@ -125,7 +150,7 @@ KERNELS = {
                                  "vlpet_tpu/ops/attention.py:918",
                                  ("video_train",)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
-                  DECODE + TRAIN),
+                  DECODE + TRAIN + ("t5_eval",)),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195", TRAIN),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
@@ -133,13 +158,16 @@ KERNELS = {
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270", TRAIN),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
-                           "vlpet_tpu/ops/decode.py:174", DECODE),
+                           "vlpet_tpu/ops/decode.py:174", DECODE + T5),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
-                 DECODE),
+                 DECODE + T5),
+    "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
+                        "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
 }
 # the run whose launch count the kernels' JSON record reports: the first of
 # these that launches the kernel
-MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval")
+MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
+                   "t5_gated_eval")
 
 
 def nvidia_smi() -> str:
@@ -339,14 +367,15 @@ def check_topk(rep: Report, cname: str, x: torch.Tensor, kk: int,
     rep.err["topk_lse"] = max(rep.err["topk_lse"], err.max().item())
     ms = cuda_ms(lambda: topk.topk_lse(x, kk))
     pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
+    bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
+                    torch.float32)
     if timed:
-        bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
-                        torch.float32)
         rep.timed["topk_lse"] = dict(ms=ms, plain_ms=pms, library_ms=None,
                                      bound_ms=bms, bound_by=by)
     print(f"  {'topk_lse':24s} {f'{cname} R{R} V{V} k{kk}':34s} "
           f"indices exact, lse max|err| {err.max().item():.3e}  "
-          f"kernel {ms:.4f} ms  plain {pms:.4f} ms", flush=True)
+          f"kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bms:.4f} ms "
+          f"({by})", flush=True)
 
 
 def _grads_of(fn, inputs, cot):
@@ -602,6 +631,128 @@ def phase_video_kernels(rep: Report) -> None:
                                          device="cuda"), 2 * K)
 
 
+def phase_t5_kernels(rep: Report) -> None:
+    """The T5 eval path's shapes (B 300, 20 text + 36 boxes = S 56, beam 5
+    to length 40, d 768, 12 heads), bf16 and fp32: A1 with the per-head
+    relative bias (rounded to the compute dtype, fed as fp32, as the model
+    does) and a ragged padding mask, with its row logsumexp, and causal at
+    the teacher-forced decoder's L = S = 10; the beam cross-attention (L 5
+    over S 56); D1 with the bias row; F1 relu with zero biases and F3 at the
+    encoder rows (B x 56) and the beam rows (B x 5)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    randn = randn_fn(g)
+    B, S, K, Lc, T = 300, 56, 5, 40, 10
+    H, Dh, D, F1h, F3h = 12, 64, 768, 3072, 2048
+    inner = H * Dh
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        main = dtype == torch.bfloat16
+        e = 2 if main else 4
+        mask = padding_mask(g, B, S)
+        bias = randn(1, H, S, S, dtype=dtype, scale=0.5).float()
+        q, k, v = (randn(B, S, inner, dtype=dtype, scale=s)
+                   for s in (Dh ** -0.5, 1.0, 1.0))
+        work = (e * 2 * B * 2 * S * inner + 4 * B * S + 4 * H * S * S,
+                4 * B * H * S * S * Dh)
+        rep.check("fused_attention", f"{tag} +bias B{B} L=S={S} H{H}",
+                  lambda: attention.fused_attention(q, k, v, mask, H,
+                                                    bias=bias),
+                  lambda: attention.fused_attention_reference(
+                      q, k, v, mask, H, bias=bias),
+                  dtype, work=work,
+                  library_fn=lambda: sdpa(q, k, v, mask + bias, H))
+        rep.check("fused_attention", f"{tag} +bias +lse B{B} L=S={S}",
+                  lambda: attention.fused_attention_fwd_lse(
+                      q, k, v, mask, H, bias=bias),
+                  lambda: attention.fused_attention_lse_reference(
+                      q, k, v, mask, H, bias=bias), dtype)
+        zero = torch.zeros((1, 1, 1, T), device="cuda")
+        bias_t = randn(1, H, T, T, dtype=dtype, scale=0.5).float()
+        # q at the attention scale: T5 does not scale q, its init does
+        qt, kt, vt = (randn(B, T, inner, dtype=dtype, scale=s)
+                      for s in (Dh ** -0.5, 1.0, 1.0))
+        rep.check("fused_attention", f"{tag} +bias causal B{B} L=S={T}",
+                  lambda: attention.fused_attention(qt, kt, vt, zero, H, True,
+                                                    bias_t),
+                  lambda: attention.fused_attention_reference(
+                      qt, kt, vt, zero, H, True, bias_t), dtype)
+        qc = randn(B, K, inner, dtype=dtype, scale=Dh ** -0.5)
+        rep.check("fused_attention", f"{tag} beam cross B{B} L{K} S{S}",
+                  lambda: attention.fused_attention(qc, k, v, mask, H),
+                  lambda: attention.fused_attention_reference(qc, k, v, mask,
+                                                              H),
+                  dtype, work=(e * 2 * B * (K + S) * inner + 4 * B * S,
+                               4 * B * H * K * S * Dh),
+                  library_fn=lambda: sdpa(qc, k, v, mask, H))
+        qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
+        kc, vc = (randn(Lc, B * K, inner, dtype=dtype) for _ in range(2))
+        anc = torch.randint(0, K, (B, K, Lc), generator=g, device="cuda")
+        row = randn(1, H, 1, Lc, dtype=dtype, scale=0.5).float()
+        for pos in (0, 13, Lc - 1):
+            rows = F.one_hot(anc[:, :, :pos + 1], K).amax(dim=1).sum().item()
+            rep.check("beam_decode_attend",
+                      f"{tag} +bias row B{B} K{K} L{Lc} pos{pos}",
+                      lambda: decode.beam_decode_attend(qb, kc, vc, anc, pos,
+                                                        row),
+                      lambda: decode.beam_decode_attend_reference(
+                          qb, kc, vc, anc, pos, row),
+                      dtype, work=(e * (2 * B * K * inner + 2 * rows * inner)
+                                   + 4 * B * K * Lc + 4 * H * Lc,
+                                   4 * B * K * H * (pos + 1) * Dh))
+        w1, w2 = (randn(F1h, D, dtype=dtype, scale=0.02),
+                  randn(D, F1h, dtype=dtype, scale=0.02))
+        z1, z2 = torch.zeros(F1h, device="cuda"), torch.zeros(D, device="cuda")
+        w0, wg, wo = (randn(F3h, D, dtype=dtype, scale=0.02),
+                      randn(F3h, D, dtype=dtype, scale=0.02),
+                      randn(D, F3h, dtype=dtype, scale=0.02))
+        for N in (B * S, B * K):
+            x = randn(N, D, dtype=dtype)
+            iters = 20 if main else 3
+            rep.check("fused_ffn", f"{tag} N{N} D{D} F{F1h} relu",
+                      lambda: ffn.fused_ffn(x, w1, z1, w2, z2, "relu"),
+                      lambda: ffn.ffn_reference(x, w1, z1, w2, z2, "relu"),
+                      dtype, work=(e * (2 * N * D + 2 * D * F1h)
+                                   + 4 * (F1h + D), 4 * N * D * F1h),
+                      iters=iters)
+            rep.check("fused_gated_ffn", f"{tag} N{N} D{D} F{F3h} gelu_new",
+                      lambda: ffn.fused_gated_ffn(x, w0, wg, wo),
+                      lambda: ffn.gated_ffn_reference(x, w0, wg, wo),
+                      dtype, timed=main and N == B * S,
+                      work=(e * (2 * N * D + 3 * D * F3h), 6 * N * D * F3h),
+                      iters=iters)
+            if main:
+                check_ffn_bf16(f"N{N} D{D} F{F1h} relu",
+                               ffn.fused_ffn(x, w1, z1, w2, z2, "relu"),
+                               torch.relu(x.float() @ w1.float().t()),
+                               w2)
+                xf = x.float()
+                check_ffn_bf16(f"N{N} D{D} F{F3h} gelu_new gated",
+                               ffn.fused_gated_ffn(x, w0, wg, wo),
+                               ffn.gelu_new(xf @ w0.float().t())
+                               * (xf @ wg.float().t()), wo)
+    # top-k + logsumexp at the beam rows (B x K) over both T5 vocabularies
+    for V in (32100, 32128):
+        check_topk(rep, "randn", torch.randn((B * K, V), generator=g,
+                                             device="cuda"), 2 * K)
+
+
+def check_ffn_bf16(label: str, got: torch.Tensor, hidden: torch.Tensor,
+                   w_out: torch.Tensor) -> None:
+    """bf16 F1 / F3 against fp32 arithmetic on the same bf16 inputs: the fp32
+    ``hidden`` rounded to bf16 where the kernel rounds it, times the output
+    weight in fp32. max |err| / max |ref| within BF16_FFN_RTOL, little more
+    than the bf16 rounding of the output: a fault in a few columns fails
+    here that the elementwise 2e-2·(1 + |plain|) check could pass."""
+    ref = hidden.to(torch.bfloat16).float() @ w_out.float().t()
+    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    if not rel <= BF16_FFN_RTOL:
+        raise AssertionError(f"bf16 FFN {label}: max |err| / max |ref| "
+                             f"{rel:.3e} against fp32 on the same inputs "
+                             f"(tol {BF16_FFN_RTOL})")
+    print(f"  {'bf16 vs fp32 arithmetic':24s} {label:34s} max|err|/max|ref| "
+          f"{rel:.3e}", flush=True)
+
+
 def check_ln_mask(h, res, gamma, seed, dy, rate) -> None:
     """fp32: the backward kernel's dropout mask, bit for bit, is keep_mask's
     (dh = dres * 1/(1-rate) where kept, 0 where dropped)."""
@@ -619,13 +770,13 @@ def check_ln_mask(h, res, gamma, seed, dy, rate) -> None:
           f"{keep.float().mean().item():.4f})", flush=True)
 
 
-def make_batch(B: int, vocab: int, seed: int):
+def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.randint(3, vocab, (B, 20), generator=g, device="cuda")
     mask = torch.ones((B, 20), dtype=torch.long, device="cuda")
     # ragged text lengths: pad the tail of every other example
     mask[1::2, 14:] = 0
-    ids = torch.where(mask.bool(), ids, 1)
+    ids = torch.where(mask.bool(), ids, pad)
     return dict(input_ids=ids, attention_mask=mask,
                 vis_feats=torch.randn((B, 36, 2048), generator=g, device="cuda"),
                 boxes=torch.rand((B, 36, 4), generator=g, device="cuda"))
@@ -667,16 +818,22 @@ def make_video_train_batch(B: int, vocab: int, seed: int):
 
 
 def build_model(dtype: str, cfg_fn=flagship_cfg):
-    """BART-base + VL-PET-large at full width (``cfg_fn``: the image-text
-    or the video configuration), the JAX package's seeded init scheme
-    (normal(0, 0.02) weights)."""
-    model = VLBart(cfg_fn(dtype), device="cuda")
+    """The model of ``cfg_fn(dtype)`` at full width (BART-base +
+    VL-PET-large, image-text or video, or T5), with the JAX package's
+    seeded init scheme (BART: normal(0, 0.02) weights; T5: its Mesh-TF
+    scheme, ``VLT5.init_weights``)."""
+    cfg = cfg_fn(dtype)
+    model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cuda")
     model.init_weights(torch.Generator(device="cuda").manual_seed(1234))
     return model
 
 
+def t5_gated_cfg(dtype: str):
+    return t5_cfg(dtype, gated=True)
+
+
 @torch.no_grad()
-def spread_weights(model: VLBart, seed: int) -> VLBart:
+def spread_weights(model, seed: int):
     """Seeded weights at the scale of tests/test_torch_slice.py: normal(0,
     0.2) everywhere, LayerNorm scales 1 + normal(0, 0.1). At the 0.02 init
     the best hypothesis of each row repeats two or three token ids."""
@@ -696,7 +853,8 @@ def wrappers():
             "fused_dropout_add_ln": fused_ln.fused_dropout_add_ln,
             "fused_dropout_add_ln_bwd": fused_ln.fused_dropout_add_ln_bwd,
             "beam_decode_attend": decode.beam_decode_attend,
-            "topk_lse": topk.topk_lse}
+            "topk_lse": topk.topk_lse,
+            "fused_gated_ffn": ffn.fused_gated_ffn}
 
 
 def reset_counts():
@@ -801,12 +959,15 @@ def phase_parity() -> None:
                min_distinct=MIN_DISTINCT_PER_ROW)
 
 
-def spread_model(cfg_fn) -> VLBart:
+def spread_model(cfg_fn):
     """fp32, one encoder and one decoder layer, weights at std 0.2."""
     cfg = cfg_fn("float32")
-    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
-        cfg.backbone, encoder_layers=1, decoder_layers=1))
-    return spread_weights(VLBart(cfg, device="cuda"), seed=1234)
+    b = cfg.backbone
+    one = (dict(num_layers=1, num_decoder_layers=1) if cfg.is_t5
+           else dict(encoder_layers=1, decoder_layers=1))
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(b, **one))
+    return spread_weights((VLT5 if cfg.is_t5 else VLBart)(cfg, device="cuda"),
+                          seed=1234)
 
 
 def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
@@ -830,7 +991,9 @@ def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
     launched = read_counts(path)
     if out.shape != (B, max_length) or out.dtype != torch.long:
         raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
-    if not bool(((out >= 0) & (out < V)).all()) or not bool((out[:, 0] == 2).all()):
+    start = model.cfg.backbone.decoder_start_token_id
+    if (not bool(((out >= 0) & (out < V)).all())
+            or not bool((out[:, 0] == start).all())):
         raise AssertionError("token ids out of range or missing start token")
     print(f"  bf16 B{B} {label}: {B / wall:.2f} examples/s, wall "
           f"{wall:.3f} s on {card}; launches {launched}", flush=True)
@@ -863,6 +1026,40 @@ def phase_video_eval(card: str):
     model = build_model("bfloat16", video_cfg)
     return generate_bench(card, model, make_video_batch(50, V, seed=17), ctx,
                           20, "video_eval", "video S604 beam5 len20")
+
+
+# (label, configuration, main path) of the two T5 eval paths
+T5_CFGS = (("t5", t5_cfg, "t5_eval"),
+           ("t5 gated", t5_gated_cfg, "t5_gated_eval"))
+
+
+def phase_t5_parity() -> None:
+    """fp32 beam-5 and greedy tokens, kernels vs plain, at B 8 to length
+    40 for both T5 configurations: (a) 12+12 layers at the T5 init, (b) 1+1
+    layers at std 0.2."""
+    ctx = PetContext(task="caption", task_idx=3)
+    for name, cfg_fn, _ in T5_CFGS:
+        model = build_model("float32", cfg_fn)
+        batch = make_batch(8, model.cfg.backbone.vocab_size, seed=7, pad=0)
+        parity_run(f"{name} 12+12 layers, T5 init", model, batch, ctx, 40,
+                   min_distinct=2)
+        del model
+        parity_run(f"{name} 1+1 layers, std 0.2", spread_model(cfg_fn),
+                   batch, ctx, 40, min_distinct=MIN_DISTINCT_PER_ROW)
+
+
+def phase_t5_eval(card: str):
+    """The bf16 T5 eval shape, B 300 beam 5 to length 40, for both
+    configurations: {main path: launches}."""
+    ctx = PetContext(task="caption", task_idx=3)
+    launched = {}
+    for name, cfg_fn, path in T5_CFGS:
+        model = build_model("bfloat16", cfg_fn)
+        batch = make_batch(300, model.cfg.backbone.vocab_size, seed=19, pad=0)
+        launched[path] = generate_bench(card, model, batch, ctx, 40, path,
+                                        f"{name} beam5 len40")
+        del model
+    return launched
 
 
 def train_run(model, trainable, batch, steps: int, total_steps: int,
@@ -1005,6 +1202,7 @@ def profile_run(run, card: str, what: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"ffn_fwd": "fused_ffn kernel (F1)",
+                "gated_fwd": "fused_gated_ffn kernel (F3)",
                 "ffn_bwd": "fused_ffn_bwd kernel (F2)",
                 "ffn_bias": "fused_ffn_bwd kernel (F2)",
                 "attention_fwd": "fused_attention kernel (A1)",
@@ -1069,6 +1267,8 @@ def main() -> int:
     print("phase 3c: long attention (video path) vs plain", flush=True)
     phase_long_attention(rep)
     phase_video_kernels(rep)
+    print("phase 3d: T5 eval-path kernels vs plain", flush=True)
+    phase_t5_kernels(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -1078,6 +1278,10 @@ def main() -> int:
     print("phase 5b: video eval, fp32 parity and bf16 bench shape",
           flush=True)
     launched["video_eval"] = phase_video_eval(card)
+    print("phase 4c: T5 decode parity, fp32", flush=True)
+    phase_t5_parity()
+    print("phase 5c: T5 eval shape, bf16", flush=True)
+    launched.update(phase_t5_eval(card))
 
     print("phase 6: train-step parity, fp32", flush=True)
     phase_train_parity()

@@ -54,6 +54,47 @@ def test_attention_plain_matches_pallas_interpret(L, batched_mask):
     np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_bias_plain_matches_pallas_interpret(causal):
+    """A1 with the batch-shared per-head T5 bias (1, H, L, S), with and
+    without the causal triangle, and the row logsumexp with a bias."""
+    from vlpet_tpu.ops.attention import _pallas_attention
+
+    rng = np.random.default_rng(11)
+    B, L, S, H, Dh = 3, 6, 9, 4, 8
+    q = rng.normal(size=(B, L, H * Dh)).astype(np.float32)
+    k = rng.normal(size=(B, S, H * Dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, H * Dh)).astype(np.float32)
+    bias = rng.normal(size=(1, H, L, S)).astype(np.float32)
+    keep = rng.uniform(size=(B, 1, 1, S)) > 0.3
+    keep[..., 0] = True
+    mask = np.where(keep, 0.0, -1e9).astype(np.float32)
+    want = np.asarray(_pallas_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), H,
+        causal, jnp.asarray(bias), interpret=True))
+    got = tatt.fused_attention(_t(q), _t(k), _t(v), _t(mask), H, causal,
+                               _t(bias)).numpy()
+    np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    out, lse = tatt.fused_attention_fwd_lse(_t(q), _t(k), _t(v), _t(mask), H,
+                                            causal, _t(bias))
+    np.testing.assert_allclose(out.numpy(), want, rtol=FP32_TOL,
+                               atol=FP32_TOL)
+    s = tatt._logits(_t(q), _t(k), _t(mask), H, causal, _t(bias))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+
+
+def test_attention_bias_is_eval_only():
+    q = torch.zeros(2, 3, 8, requires_grad=True)
+    kv = torch.zeros(2, 4, 8)
+    with pytest.raises(NotImplementedError, match="bias"):
+        tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
+                             bias=torch.zeros(1, 2, 3, 4))
+    with pytest.raises(ValueError, match="bias must be"):
+        tatt.fused_attention(q.detach(), kv, kv, torch.zeros(2, 1, 1, 4), 2,
+                             bias=torch.zeros(1, 1, 3, 4))
+
+
 def test_attention_rejects_per_head_mask():
     q = torch.zeros(2, 3, 8)
     kv = torch.zeros(2, 4, 8)
@@ -61,7 +102,7 @@ def test_attention_rejects_per_head_mask():
         tatt.fused_attention(q, kv, kv, torch.zeros(2, 2, 1, 4), 2)
 
 
-@pytest.mark.parametrize("act", ["gelu", "gelu_new"])
+@pytest.mark.parametrize("act", ["gelu", "gelu_new", "relu"])
 def test_ffn_plain_matches_pallas_interpret(act, monkeypatch):
     import vlpet_tpu.ops.ffn as jffn
 
@@ -80,6 +121,67 @@ def test_ffn_plain_matches_pallas_interpret(act, monkeypatch):
     got = tffn.fused_ffn(_t(x), _t(w1.T), _t(b1), _t(w2.T), _t(b2),
                          act).numpy()
     np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+
+
+def test_gated_ffn_plain_matches_pallas_interpret(monkeypatch):
+    """F3 (rate 0): gelu_new(x W0) * (x W1) -> Wo, ragged N."""
+    import vlpet_tpu.ops.ffn as jffn
+
+    monkeypatch.setattr(jffn, "_INTERPRET", True)
+    rng = np.random.default_rng(4)
+    N, D, F = 37, 32, 64
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    w0, w1 = (rng.normal(size=(D, F)).astype(np.float32) * 0.2
+              for _ in range(2))
+    wo = rng.normal(size=(F, D)).astype(np.float32) * 0.2
+    want = np.asarray(jffn.fused_gated_ffn(*map(jnp.asarray, (x, w0, w1, wo)),
+                                           "gelu_new"))
+    got = tffn.fused_gated_ffn(_t(x), _t(w0.T), _t(w1.T), _t(wo.T),
+                               "gelu_new").numpy()
+    np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+
+
+def test_relu_ffn_and_gated_ffn_are_eval_only():
+    x = torch.zeros(3, 16, requires_grad=True)
+    w1, w2 = torch.zeros(32, 16), torch.zeros(16, 32)
+    with pytest.raises(NotImplementedError):
+        tffn.fused_ffn(x, w1, torch.zeros(32), w2, torch.zeros(16), "relu")
+    with pytest.raises(NotImplementedError):
+        tffn.fused_ffn_bwd(x.detach(), x.detach(), w1, torch.zeros(32), w2,
+                           "relu")
+    with pytest.raises(NotImplementedError):
+        tffn.fused_gated_ffn(x, w1, w1, w2)
+
+
+def test_beam_attend_bias_row_plain_matches_pallas_every_pos():
+    """D1 with T5's bias row (1, H, 1, L), the same for every beam, at
+    every decode position."""
+    from vlpet_tpu.ops.decode import (_beam_self_attend_pallas,
+                                      beam_decode_attend, beam_sel_big)
+
+    rng = np.random.default_rng(12)
+    B, K, L, H, Dh = 8, 3, 6, 4, 16
+    J = K
+    q = rng.normal(size=(B * K, 1, H, Dh)).astype(np.float32) * Dh ** -0.5
+    kc = rng.normal(size=(L, B * J, H * Dh)).astype(np.float32)
+    vc = rng.normal(size=(L, B * J, H * Dh)).astype(np.float32)
+    anc = rng.integers(0, J, size=(B, K, L)).astype(np.int32)
+    row = rng.normal(size=(1, H, 1, L)).astype(np.float32)
+    jq, jk, jv, janc, jrow = map(jnp.asarray, (q, kc, vc, anc, row))
+    bias_big = jnp.repeat(jrow.reshape(H, L), 8 * J, axis=1)
+    for pos in range(L):
+        sel = beam_sel_big(janc, pos, J, L, 8)
+        want_kernel = np.asarray(_beam_self_attend_pallas(
+            jq.reshape(B * K, H * Dh), jk, jv, sel, bias_big, H, K, J,
+            interpret=True)).reshape(B * K, 1, H * Dh)
+        want_einsum = np.asarray(beam_decode_attend(
+            jq, jk, jv, janc, bias_row=jrow, decode_pos=pos))
+        got = tdec.beam_decode_attend(_t(q), _t(kc), _t(vc), _t(anc).long(),
+                                      pos, _t(row)).numpy()
+        np.testing.assert_allclose(got, want_kernel, rtol=FP32_TOL,
+                                   atol=FP32_TOL, err_msg=f"pos {pos}")
+        np.testing.assert_allclose(got, want_einsum, rtol=FP32_TOL,
+                                   atol=FP32_TOL, err_msg=f"pos {pos}")
 
 
 def test_beam_attend_plain_matches_pallas_and_einsum_every_pos():
@@ -121,6 +223,12 @@ def test_decode_attend_and_cross_attend_match_jax():
     mask = np.where(np.arange(L) <= 2, 0.0, -1e9).astype(np.float32)[None, None, None]
     want = np.asarray(decode_attend(*map(jnp.asarray, (q, kc, vc, mask))))
     got = tdec.decode_attend(_t(q), _t(kc), _t(vc), _t(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    # T5 greedy: the bias row plus the causal mask, (1, H, 1, L)
+    row = (rng.normal(size=(1, H, 1, L)) + mask).astype(np.float32)
+    want = np.asarray(decode_attend(*map(jnp.asarray, (q, kc, vc)),
+                                    bias_row=jnp.asarray(row)))
+    got = tdec.decode_attend(_t(q), _t(kc), _t(vc), bias_row=_t(row)).numpy()
     np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
 
     qb = rng.normal(size=(B * K, 1, H, Dh)).astype(np.float32)
@@ -209,9 +317,18 @@ def _wrapper_calls():
         lambda: tatt.fused_attention_bwd_long(q, kv, kv,
                                               torch.zeros(2, 1, 1, 4), q, lse,
                                               q, 2, True)
+    yield "fused_gated_ffn", tffn, "gated_ffn_reference", \
+        lambda: tffn.fused_gated_ffn(x, torch.zeros(64, 128),
+                                     torch.zeros(64, 128), torch.zeros(128, 64))
+    yield "fused_attention", tatt, "fused_attention_reference", \
+        lambda: tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
+                                     bias=torch.zeros(1, 2, 3, 4))
+    yield "beam_decode_attend", tdec, "beam_decode_attend_reference", \
+        lambda: tdec.beam_decode_attend(qb, cache, cache, anc, 1,
+                                        torch.zeros(1, 2, 1, 5))
 
 
-@pytest.mark.parametrize("which", range(10))
+@pytest.mark.parametrize("which", range(13))
 def test_cuda_request_without_library_raises_not_falls_back(which,
                                                             monkeypatch):
     """A wrapper asked to launch (device check patched to say CUDA) on a
@@ -295,7 +412,7 @@ def test_flagship_cfg_is_the_graft_entry_config():
 
 
 @pytest.mark.parametrize("name", ["AdapterSpec", "PetConfig", "VisConfig",
-                                  "BartConfig", "VLModelConfig"])
+                                  "BartConfig", "T5Config", "VLModelConfig"])
 def test_config_copy_has_the_jax_fields_and_defaults(name):
     """The port's copy of each dataclass has the JAX package's field names,
     in order, and its defaults, so the two cannot drift apart."""

@@ -1,14 +1,14 @@
 """Configuration of the port: its own copy of the dataclasses of
 ``vlpet_tpu.config`` that the port reads (``AdapterSpec``, ``PetConfig``,
-``VisConfig``, ``BartConfig``, ``VLModelConfig``), ``vlpet_recipe`` and
-``flagship_cfg``.
+``VisConfig``, ``BartConfig``, ``T5Config``, ``VLModelConfig``),
+``vlpet_recipe``, and the full-width configurations the port runs:
+``flagship_cfg``, ``video_cfg`` and ``t5_cfg``.
 
 The fields, their names and their defaults are those of the JAX package
 (tests/test_torch_ops.py holds the two copies equal), so a configuration
 moves between the packages by ``dataclasses.asdict``. Every ``PetConfig``
 flag is kept, including the ones the port does not implement, so that
-``models/vlbart.py:check_supported`` can see and reject each of them. T5 is
-not ported and has no config class here.
+``models/vlbart.py:check_supported`` can see and reject each of them.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-__all__ = ["AdapterSpec", "BartConfig", "PetConfig", "VisConfig",
-           "VLModelConfig", "vlpet_recipe", "FLAGSHIP_TASKS", "flagship_cfg"]
+__all__ = ["AdapterSpec", "BartConfig", "PetConfig", "T5Config", "VisConfig",
+           "VLModelConfig", "vlpet_recipe", "FLAGSHIP_TASKS", "flagship_cfg",
+           "VIDEO_TASKS", "video_cfg", "t5_cfg"]
 
 
 def _replace(cfg, **kw):
@@ -387,10 +388,42 @@ class BartConfig:
 
 
 @dataclass(frozen=True)
+class T5Config:
+    """t5-base architecture (HF 4.2.1 semantics).
+
+    Reference: src/my_transformers/modeling_t5.py (T5Stack/T5Attention);
+    relative position bias at :509; RMS LayerNorm; no biases in linears.
+    """
+
+    vocab_size: int = 32100
+    d_model: int = 768
+    d_kv: int = 64
+    d_ff: int = 3072
+    num_layers: int = 12
+    num_decoder_layers: int = 12
+    num_heads: int = 12
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    dropout_rate: float = 0.1
+    layer_norm_epsilon: float = 1e-6
+    initializer_factor: float = 1.0
+    feed_forward_proj: str = "relu"
+    pad_token_id: int = 0
+    eos_token_id: int = 1
+    decoder_start_token_id: int = 0
+    tie_word_embeddings: bool = True
+    is_t5: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_kv
+
+
+@dataclass(frozen=True)
 class VLModelConfig:
     """Everything a VL model needs: backbone + vis + pet."""
 
-    backbone: BartConfig = field(default_factory=BartConfig)
+    backbone: BartConfig | T5Config = field(default_factory=BartConfig)
     vis: VisConfig = field(default_factory=VisConfig)
     pet: PetConfig = field(default_factory=PetConfig)
     # loss / head options
@@ -508,4 +541,26 @@ def video_cfg(dtype: str = "float32") -> VLModelConfig:
                      tasks=VIDEO_TASKS), reduction_factor=8)
     return VLModelConfig(backbone=BartConfig(),
                          vis=VisConfig(feat_dim=512, n_boxes=64), pet=pet,
+                         dtype=dtype)
+
+
+def t5_cfg(dtype: str = "float32", gated: bool = False) -> VLModelConfig:
+    """T5-base + VL-PET-large at full width, with the flags of
+    scripts/image-text/T5-VL-PET-large.sh: r 192, 4 heads, gate 192,
+    multitask image-text (``FLAGSHIP_TASKS``), 36 boxes of 2048-d features,
+    and ``t5=True`` (zero-init ups, encoder gating scale 0.3), which
+    ``__graft_entry__._flagship_t5_cfg`` leaves off. The backbone is
+    ``T5Config()``: d 768, 12 heads, d_kv 64, FFN 3072 relu, 12+12 layers,
+    vocab 32100, the tied head with the d_model**-0.5 rescale.
+
+    ``gated=True`` puts the same PET on the dimensions of the public
+    google/t5-v1_1-base config.json: d_ff 2048, ``gated-gelu`` FFN, vocab
+    32128 and an untied ``lm_head``; every other T5Config default stays."""
+    pet = vlpet_recipe("large", r=192, num_heads=4, gate_dim=192,
+                       tasks=FLAGSHIP_TASKS, t5=True)
+    backbone = (T5Config(d_ff=2048, feed_forward_proj="gated-gelu",
+                         vocab_size=32128, tie_word_embeddings=False)
+                if gated else T5Config())
+    return VLModelConfig(backbone=backbone,
+                         vis=VisConfig(feat_dim=2048, n_boxes=36), pet=pet,
                          dtype=dtype)

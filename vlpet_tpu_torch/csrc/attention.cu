@@ -4,9 +4,12 @@
 // TPU kernel behind fused_attention. Layout as there: q (B, L, H*Dh)
 // pre-scaled, k/v (B, S, H*Dh), additive f32 padding mask (B|1, S)
 // broadcast over heads and query rows in-kernel (no (B, 1, L, S) tensor).
+// An optional batch-shared per-head bias (T5 relative positions), f32
+// (H, L, S), is added to the logits after the mask, as in _head_logits:
+// the (B, H, L, S) sum of bias and mask never exists.
 // With ``causal`` the decoder triangle is applied in-kernel as in
 // _shared_terms / _head_logits: query i sees key j iff j <= i + (S - L),
-// and a hidden logit is set to -1e9 after the mask is added.
+// and a hidden logit is set to -1e9 after the mask and bias are added.
 //
 // Bound on the H100: at the slice's shapes (L, S <= 56, Dh 64) each block
 // reads its K/V head slice once and does ~2*L*S*Dh FLOPs per head, far
@@ -41,7 +44,8 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
-                     T* __restrict__ out, float* __restrict__ lse, int L,
+                     const float* __restrict__ bias, T* __restrict__ out,
+                     float* __restrict__ lse, int L,
                      int S, int H, int Dh, int mask_batched, int causal) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;
@@ -99,6 +103,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float sc = 0.f;
         for (int d = 0; d < Dh; ++d) sc = fmaf(qr[d], kr[d], sc);
         sc = valid ? sc + madd : -INFINITY;
+        if (valid && bias != nullptr)
+          sc += bias[((size_t)h * L + q0 + r) * S + s];
         if (valid && causal && s > q0 + r + (S - L)) sc = -1e9f;
         // key 0 of every tile is valid, so mn is finite
         const float mn = fmaxf(m[rr], warp_max(sc));
@@ -141,8 +147,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }  // namespace
 
 extern "C" int vlpet_attention_fwd(const void* q, const void* k,
-                                   const void* v, const void* mask, void* out,
-                                   void* lse, int B, int L, int S, int H,
+                                   const void* v, const void* mask,
+                                   const void* bias, void* out, void* lse,
+                                   int B, int L, int S, int H,
                                    int Dh, int mask_batched, int causal,
                                    int is_bf16, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || B < 1 || L < 1 || S < 1 || H < 1)
@@ -154,12 +161,13 @@ extern "C" int vlpet_attention_fwd(const void* q, const void* k,
   if (is_bf16) {
     attention_fwd_kernel<bf16><<<grid, kWarps * 32, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
-        (bf16*)out, (float*)lse, L, S, H, Dh, mask_batched, causal);
+        (const float*)bias, (bf16*)out, (float*)lse, L, S, H, Dh,
+        mask_batched, causal);
   } else {
     attention_fwd_kernel<float><<<grid, kWarps * 32, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
-        (const float*)mask, (float*)out, (float*)lse, L, S, H, Dh,
-        mask_batched, causal);
+        (const float*)mask, (const float*)bias, (float*)out, (float*)lse, L,
+        S, H, Dh, mask_batched, causal);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 // Replaces vlpet_tpu/ops/decode.py:_beam_self_attend_pallas
 // (_beam_self_kernel). For each (batch b, beam k, head h), over cache slots
 // t <= pos: row = b*J + anc[b, k, t]; s_t = q . K[t, row]; out =
-// sum_t softmax(s)_t V[t, row]. The time-major cache (Lc, B*J, H*Dh) is
+// sum_t softmax(s)_t V[t, row], where s_t gains bias[h, t] when a T5
+// relative-bias row (f32 (H, Lc), the same for every beam) is given. The
+// time-major cache (Lc, B*J, H*Dh) is
 // never reordered. The TPU kernel scored every beam against all tb*J rows
 // of its block through a flat (B*K, Lc*8*J) additive mask built per step;
 // here each warp reads the raw ancestry and gathers exactly its beam's
@@ -29,8 +31,8 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 beam_attend_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                    const T* __restrict__ vc, const int* __restrict__ anc,
-                   T* __restrict__ out, int B, int K, int J, int Lc, int H,
-                   int Dh, int pos) {
+                   const float* __restrict__ bias, T* __restrict__ out, int B,
+                   int K, int J, int Lc, int H, int Dh, int pos) {
   const int gw = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (gw >= B * K * H) return;  // whole warp
@@ -48,6 +50,7 @@ beam_attend_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     acc[i] = 0.f;
   }
   const int* a = anc + (size_t)bk * Lc;
+  const float* brow = bias != nullptr ? bias + (size_t)h * Lc : nullptr;
   float m = -INFINITY, lsum = 0.f;
   for (int t = 0; t <= pos; ++t) {
     const size_t off =
@@ -60,7 +63,8 @@ beam_attend_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const int d = lane + 32 * i;
       if (d < Dh) part = fmaf(qv[i], to_f(kr[d]), part);
     }
-    const float s = warp_sum(part);
+    float s = warp_sum(part);
+    if (brow != nullptr) s += brow[t];
     const float mn = fmaxf(m, s);
     const float corr = expf(m - mn);
     const float p = expf(s - mn);
@@ -84,9 +88,10 @@ beam_attend_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 }  // namespace
 
 extern "C" int vlpet_beam_attend(const void* q, const void* kc,
-                                 const void* vc, const void* anc, void* out,
-                                 int B, int K, int J, int Lc, int H, int Dh,
-                                 int pos, int is_bf16, void* stream) {
+                                 const void* vc, const void* anc,
+                                 const void* bias, void* out, int B, int K,
+                                 int J, int Lc, int H, int Dh, int pos,
+                                 int is_bf16, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || pos < 0 || pos >= Lc || B < 1 || K < 1 ||
       J < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
@@ -96,11 +101,12 @@ extern "C" int vlpet_beam_attend(const void* q, const void* kc,
   if (is_bf16) {
     beam_attend_kernel<bf16><<<blocks, kWarps * 32, 0, st>>>(
         (const bf16*)q, (const bf16*)kc, (const bf16*)vc, (const int*)anc,
-        (bf16*)out, B, K, J, Lc, H, Dh, pos);
+        (const float*)bias, (bf16*)out, B, K, J, Lc, H, Dh, pos);
   } else {
     beam_attend_kernel<float><<<blocks, kWarps * 32, 0, st>>>(
         (const float*)q, (const float*)kc, (const float*)vc,
-        (const int*)anc, (float*)out, B, K, J, Lc, H, Dh, pos);
+        (const int*)anc, (const float*)bias, (float*)out, B, K, J, Lc, H, Dh,
+        pos);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,14 @@
 // Fused transformer FFN, forward (F1) and backward (F2):
-//   y = act(x . W1^T + b1) . W2^T + b2.
+//   y = act(x . W1^T + b1) . W2^T + b2,
+// and the gated FFN's forward (F3, t5-v1.1 gated-gelu):
+//   y = (act(x . W0^T) * (x . W1^T)) . Wo^T.
 //
-// Replaces vlpet_tpu/ops/ffn.py:_run with _fwd_kernel (F1) and with
-// _bwd_kernel (F2), the kernels behind fused_ffn's custom_vjp. Weights come
-// in PyTorch's Linear layout: W1 (F, D), W2 (D, F); biases are f32; act is
-// gelu (erf, code 0) or gelu_new (tanh, code 1), applied in fp32. The
+// Replaces vlpet_tpu/ops/ffn.py:_run with _fwd_kernel (F1), with
+// _bwd_kernel (F2) and with _gated_fwd_kernel (F3), the kernels behind
+// fused_ffn's custom_vjp and fused_gated_ffn's forward. Weights come in
+// PyTorch's Linear layout: W1 (F, D), W2 (D, F), W0 (F, D), Wo (D, F);
+// biases are f32; act is gelu (erf, code 0), gelu_new (tanh, code 1) or
+// relu (code 2, forward only: F2 takes codes 0 and 1), applied in fp32. The
 // (N, F) hidden never reaches device memory: each block keeps its rows'
 // hidden chunk in shared memory and folds it straight into the next
 // product. The weight matrices are frozen (no dW1/dW2); the backward
@@ -23,10 +27,14 @@
 // bf16 tensor-core products (fp32 accumulate), apply bias and activation
 // (or its derivative) in fp32, round to bf16 in shared memory, and
 // accumulate their 32 x D/8 slice of the output in fp32 register
-// fragments. No wgmma/TMA yet. fp32 inputs take plain-FMA kernels of the
-// same shape (fp32 tensor-core paths are TF32 and would break fp32
-// parity). Rows past N are zero-filled in shared memory and masked at the
-// store: no padding copy. The backward's bias sums are deterministic: each
+// fragments. F3 is the same block with two up-projections per chunk: the
+// warps compute the 32x64 tiles of x . W0^T and x . W1^T, combine them as
+// act(h0) * h1 in fp32, round the product to bf16 in shared memory and fold
+// it into the output as F1 does; at N = 16800, D 768, F 2048 it is 6 N D F
+// FLOPs, 0.16 ms at 989 TFLOP/s. No wgmma/TMA yet. fp32 inputs take
+// plain-FMA kernels of the same shape (fp32 tensor-core paths are TF32 and
+// would break fp32 parity). Rows past N are zero-filled in shared memory
+// and masked at the store: no padding copy. The backward's bias sums are deterministic: each
 // block writes one partial row and a second kernel sums them in order.
 #include <mma.h>
 
@@ -38,6 +46,7 @@ using namespace nvcuda;
 namespace {
 
 __device__ __forceinline__ float act_fn(float h, int act) {
+  if (act == 2) return fmaxf(h, 0.f);
   if (act == 0) return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
   const float c = 0.79788456080286536f;  // sqrt(2 / pi)
   return 0.5f * h * (1.f + tanhf(c * (h + 0.044715f * h * h * h)));
@@ -475,13 +484,195 @@ __global__ void ffn_bias_reduce(const float* __restrict__ partial, int G,
     db2[t - F] = s;
 }
 
+
+// ------------------------------------------------------------ gated (F3)
+__host__ __device__ constexpr size_t gated_smem(int D) {
+  return (size_t)kBM * (D + kPad) * 2 + (size_t)kBM * kHLD * 2 +
+         (size_t)2 * kBM * kFLD * 4;
+}
+
+// D = kWarps * 16 * NCF: each warp owns NCF 16-col fragments of the output
+template <int NCF>
+__global__ void __launch_bounds__(kWarps * 32)
+gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
+               const bf16* __restrict__ w1, const bf16* __restrict__ wo,
+               bf16* __restrict__ y, int N, int F, int act) {
+  constexpr int D = kWarps * 16 * NCF;
+  constexpr int XLD = D + kPad;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // [kBM][XLD]
+  bf16* hs = xs + kBM * XLD;                               // [kBM][kHLD]
+  float* h0f = reinterpret_cast<float*>(hs + kBM * kHLD);  // [kBM][kFLD]
+  float* h1f = h0f + kBM * kFLD;                           // [kBM][kFLD]
+
+  const int n0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < kBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    xs[r * XLD + c] = n < N ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[2][NCF];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(yacc[i][j], 0.f);
+
+  const int arow = warp >> 2;  // up tiles: row fragment of this warp
+  const int acol = warp & 3;   // up tiles: hidden col fragment of this warp
+  __syncthreads();
+
+  for (int f0 = 0; f0 < F; f0 += kBF) {
+    // h0 = x . W0[f0 : f0+64, :]^T and h1 = x . W1[f0 : f0+64, :]^T
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
+    wmma::fill_fragment(acc0, 0.f);
+    wmma::fill_fragment(acc1, 0.f);
+    const size_t wrow = (size_t)(f0 + acol * 16) * D;
+    for (int kk = 0; kk < D; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
+      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
+      wmma::load_matrix_sync(b0, w0 + wrow + kk, D);
+      wmma::load_matrix_sync(b1, w1 + wrow + kk, D);
+      wmma::mma_sync(acc0, a, b0, acc0);
+      wmma::mma_sync(acc1, a, b1, acc1);
+    }
+    wmma::store_matrix_sync(h0f + arow * 16 * kFLD + acol * 16, acc0, kFLD,
+                            wmma::mem_row_major);
+    wmma::store_matrix_sync(h1f + arow * 16 * kFLD + acol * 16, acc1, kFLD,
+                            wmma::mem_row_major);
+    __syncthreads();
+    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
+      const int r = i / kBF, c = i - r * kBF;
+      hs[r * kHLD + c] = __float2bfloat16(act_fn(h0f[r * kFLD + c], act) *
+                                          h1f[r * kFLD + c]);
+    }
+    __syncthreads();
+    // y[32 x D] += g[32 x 64] . Wo[:, f0 : f0+64]^T (this warp's cols)
+#pragma unroll
+    for (int kk = 0; kk < kBF; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
+      wmma::load_matrix_sync(a0, hs + kk, kHLD);
+      wmma::load_matrix_sync(a1, hs + 16 * kHLD + kk, kHLD);
+#pragma unroll
+      for (int j = 0; j < NCF; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
+        const bf16* wop = wo + (size_t)(warp * NCF * 16 + j * 16) * F + f0 + kk;
+        wmma::load_matrix_sync(bw, wop, F);
+        wmma::mma_sync(yacc[0][j], a0, bw, yacc[0][j]);
+        wmma::mma_sync(yacc[1][j], a1, bw, yacc[1][j]);
+      }
+    }
+  }
+
+  __syncthreads();  // h0f is reused as per-warp output staging
+  float* stage = h0f + warp * 256;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) {
+      wmma::store_matrix_sync(stage, yacc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int n = n0 + i * 16 + (e >> 4);
+        const int o = warp * NCF * 16 + j * 16 + (e & 15);
+        if (n < N) y[(size_t)n * D + o] = __float2bfloat16(stage[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int NCF>
+int launch_gated_wmma(const void* x, const void* w0, const void* w1,
+                      const void* wo, void* y, int N, int F, int act,
+                      cudaStream_t st) {
+  const size_t smem = gated_smem(kWarps * 16 * NCF);
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_fwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gated_fwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
+      (const bf16*)x, (const bf16*)w0, (const bf16*)w1, (const bf16*)wo,
+      (bf16*)y, N, F, act);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(kFThreads)
+gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
+              const float* __restrict__ w1, const float* __restrict__ wo,
+              float* __restrict__ y, int N, int D, int F, int act) {
+  extern __shared__ float fsm[];
+  float* xs = fsm;               // [kFBM][D]
+  float* hs = xs + kFBM * D;     // [kFBM][kFBF]
+  const int n0 = blockIdx.x * kFBM;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kFBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    xs[i] = n < N ? x[(size_t)n * D + c] : 0.f;
+  }
+  float yacc[kFBM][kFOut];
+#pragma unroll
+  for (int r = 0; r < kFBM; ++r)
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) yacc[r][c] = 0.f;
+  __syncthreads();
+
+  const int hc = tid & (kFBF - 1);  // up products: hidden column
+  const int hr = tid / kFBF;        // up products: rows hr and hr + 8
+  for (int f0 = 0; f0 < F; f0 += kFBF) {
+    const float* w0r = w0 + (size_t)(f0 + hc) * D;
+    const float* w1r = w1 + (size_t)(f0 + hc) * D;
+    float a0 = 0.f, a1 = 0.f, g0 = 0.f, g1 = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float u = w0r[d], w = w1r[d];
+      const float xa = xs[hr * D + d], xb = xs[(hr + 8) * D + d];
+      a0 = fmaf(xa, u, a0);
+      a1 = fmaf(xb, u, a1);
+      g0 = fmaf(xa, w, g0);
+      g1 = fmaf(xb, w, g1);
+    }
+    hs[hr * kFBF + hc] = act_fn(a0, act) * g0;
+    hs[(hr + 8) * kFBF + hc] = act_fn(a1, act) * g1;
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) {
+      const int o = tid + kFThreads * c;
+      if (o < D) {
+        const float* wor = wo + (size_t)o * F + f0;
+        for (int f = 0; f < kFBF; ++f) {
+          const float w = wor[f];
+#pragma unroll
+          for (int r = 0; r < kFBM; ++r)
+            yacc[r][c] = fmaf(hs[r * kFBF + f], w, yacc[r][c]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int c = 0; c < kFOut; ++c) {
+    const int o = tid + kFThreads * c;
+    if (o < D) {
+#pragma unroll
+      for (int r = 0; r < kFBM; ++r) {
+        const int n = n0 + r;
+        if (n < N) y[(size_t)n * D + o] = yacc[r][c];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* y, int N,
                              int D, int F, int act, int is_bf16,
                              void* stream) {
-  if (N < 1 || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+  if (N < 1 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
     if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
@@ -548,5 +739,38 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
   if (err != 0) return err;
   ffn_bias_reduce<<<(F + D + 255) / 256, 256, 0, st>>>(
       (const float*)partial, G, F, D, (float*)db1, (float*)db2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
+                                   const void* w1, const void* wo, void* y,
+                                   int N, int D, int F, int act, int is_bf16,
+                                   void* stream) {
+  if (N < 1 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) {
+    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
+      return (int)cudaErrorInvalidValue;
+    switch (D / (kWarps * 16)) {
+      case 1: return launch_gated_wmma<1>(x, w0, w1, wo, y, N, F, act, st);
+      case 2: return launch_gated_wmma<2>(x, w0, w1, wo, y, N, F, act, st);
+      case 3: return launch_gated_wmma<3>(x, w0, w1, wo, y, N, F, act, st);
+      case 4: return launch_gated_wmma<4>(x, w0, w1, wo, y, N, F, act, st);
+      case 5: return launch_gated_wmma<5>(x, w0, w1, wo, y, N, F, act, st);
+      case 6: return launch_gated_wmma<6>(x, w0, w1, wo, y, N, F, act, st);
+      case 7: return launch_gated_wmma<7>(x, w0, w1, wo, y, N, F, act, st);
+      case 8: return launch_gated_wmma<8>(x, w0, w1, wo, y, N, F, act, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)kFBM * D + kFBM * kFBF);
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gated_fwd_f32<<<(N + kFBM - 1) / kFBM, kFThreads, smem, st>>>(
+      (const float*)x, (const float*)w0, (const float*)w1, (const float*)wo,
+      (float*)y, N, D, F, act);
   return (int)cudaGetLastError();
 }

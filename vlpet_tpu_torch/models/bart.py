@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
-from vlpet_tpu_torch.models.visual import VisualEmbedding, downsample_vis
+from vlpet_tpu_torch.models.visual import (VisualEmbedding,
+                                           joint_attention_mask)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
@@ -384,42 +385,30 @@ class JointEncoder(nn.Module):
         b, v = self.cfg.backbone, self.cfg.vis
         dt = self.dtype
         ctx = ctx or PetContext()
-        B, L = input_ids.shape
+        L = input_ids.shape[1]
         embed_scale = (b.d_model ** 0.5) if b.scale_embedding else 1.0
         h = shared_embedding[input_ids].to(dt) * embed_scale
         h = h + self.embed_positions[2:2 + L].to(dt)[None]
         if not v.no_vis and vis_feats is not None:
-            vis_inputs = (vis_feats, boxes)
-            if img_order_ids is not None:
-                vis_inputs = (vis_feats, boxes, img_order_ids, obj_order_ids)
-            if v.oneddownsample or v.downsample:
-                vis_inputs = downsample_vis(vis_inputs, v.n_boxes,
-                                            oned=v.oneddownsample)
-            io = vis_inputs[2] if len(vis_inputs) == 4 else img_order_ids
-            oo = vis_inputs[3] if len(vis_inputs) == 4 else obj_order_ids
-            vis_embeds = self.visual_embedding(vis_inputs[0], vis_inputs[1],
-                                               shared_embedding,
-                                               img_order_ids=io,
-                                               obj_order_ids=oo)
+            vis_embeds = self.visual_embedding.tokens(
+                vis_feats, boxes, shared_embedding, img_order_ids,
+                obj_order_ids)
             if v.share_vis_lang_layer_norm:
                 h = self.layernorm_embedding(torch.cat([h, vis_embeds], dim=1))
             else:
                 h = torch.cat([self.layernorm_embedding(h), vis_embeds], dim=1)
-            if vis_attention_mask is None:
-                vis_attention_mask = torch.ones(
-                    (B, vis_embeds.shape[1]), dtype=attention_mask.dtype,
-                    device=attention_mask.device)
-            joint_mask = torch.cat([attention_mask, vis_attention_mask], dim=1)
+            mask = joint_attention_mask(attention_mask, vis_embeds.shape[1],
+                                        vis_attention_mask)
         else:
             h = self.layernorm_embedding(h)
-            joint_mask = attention_mask
+            mask = attention_mask
         if seeds is not None:
             h = hash_dropout(h, seeds.next(), b.dropout)
         # length-collapsed (B, 1, 1, S) additive mask
-        attn_mask = expand_mask(joint_mask, 1, dt)
+        attn_mask = expand_mask(mask, 1, dt)
         for layer in self.layers():
             h = layer(h, attn_mask, ctx, seeds)
-        return h, joint_mask
+        return h, mask
 
 
 class BartDecoder(nn.Module):

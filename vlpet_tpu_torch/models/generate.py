@@ -41,7 +41,10 @@ def init_self_cache(cfg, batch_size: int, max_len: int,
                     device: Device = "cuda"):
     """Per-layer self-attention KV cache, time-major (L, B, H*Dh)."""
     b = cfg.backbone
-    inner = b.d_model
+    if cfg.is_t5:
+        n_layers, inner = b.num_decoder_layers, b.num_heads * b.d_kv
+    else:
+        n_layers, inner = b.decoder_layers, b.d_model
     device = resolve_device(device)
 
     def layer():
@@ -50,7 +53,7 @@ def init_self_cache(cfg, batch_size: int, max_len: int,
                 "v": torch.zeros((max_len, batch_size, inner), dtype=dtype,
                                  device=device)}
 
-    return tuple(layer() for _ in range(b.decoder_layers))
+    return tuple(layer() for _ in range(n_layers))
 
 
 def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -181,7 +184,8 @@ def seq2seq_generate(model, *, input_ids, attention_mask, vis_feats=None,
                      vis_attention_mask=None, ctx=None, num_beams: int = 1,
                      max_length: int = 20,
                      length_penalty: float = 1.0) -> torch.Tensor:
-    """End-to-end generation for a port VLBart. Returns token ids
+    """End-to-end generation for a port VLBart or VLT5, with the
+    backbone's start, eos and pad ids (T5: 0, 1, 0). Returns token ids
     (B, max_length) with the start token at position 0. In beam mode the
     joint mask and the cross K/V stay at B rows, shared by the K beams."""
     cfg = model.cfg

@@ -1,7 +1,8 @@
 """Visual embedding and grid downsampling for the joint encoder, ported
 from vlpet_tpu/models/visual.py (VisualEmbedding, _pos_with_area,
 downsample_vis). The low-rank and expand projectors are not on the ported
-slice."""
+slice. With ``t5_style_ln`` (the T5 joint encoder) the visual embedding's
+norms are RMSNorm with eps 1e-6 (vlpet_tpu/models/visual.py:141-144)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import VisConfig
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.norm import LayerNorm
+from vlpet_tpu_torch.models.norm import LayerNorm, RMSNorm
 from vlpet_tpu_torch.pet.modules import TaskDense
 
 
@@ -73,19 +74,26 @@ class VisualEmbedding(nn.Module):
     embedding table."""
 
     def __init__(self, vis: VisConfig, d_model: int,
-                 dtype: torch.dtype = torch.float32, device: Device = "cuda"):
+                 dtype: torch.dtype = torch.float32, device: Device = "cuda",
+                 t5_style_ln: bool = False):
         super().__init__()
         self.vis, self.dtype = vis, dtype
         kw = dict(dtype=dtype, device=device)
         self.feat_embedding = TaskDense(vis.feat_dim, d_model, **kw)
         self.absolute_vis_pos_embedding = TaskDense(vis.pos_dim + 1, d_model,
                                                     **kw)
+
+        def norm():
+            if t5_style_ln:
+                return RMSNorm(d_model, eps=1e-6, **kw)
+            return LayerNorm(d_model, **kw)
+
         individual = vis.use_vis_layer_norm and vis.individual_vis_layer_norm
         if individual:
-            self.feat_layer_norm = LayerNorm(d_model, **kw)
-            self.absolute_vis_pos_layer_norm = LayerNorm(d_model, **kw)
+            self.feat_layer_norm = norm()
+            self.absolute_vis_pos_layer_norm = norm()
         if vis.use_vis_layer_norm and not vis.individual_vis_layer_norm:
-            self.layer_norm = LayerNorm(d_model, **kw)
+            self.layer_norm = norm()
         if vis.use_vis_order_embedding:
             self.img_order_embedding = nn.Parameter(
                 torch.empty((vis.n_images, d_model),
@@ -121,3 +129,33 @@ class VisualEmbedding(nn.Module):
         if v.use_vis_layer_norm and not v.individual_vis_layer_norm:
             vis = self.layer_norm(vis)
         return vis
+
+    def tokens(self, vis_feats: torch.Tensor, boxes: torch.Tensor,
+               embedding_table: torch.Tensor,
+               img_order_ids: Optional[torch.Tensor] = None,
+               obj_order_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The joint encoder's visual tokens: features, boxes and order ids
+        downsampled as the config asks, then embedded."""
+        v = self.vis
+        vis_inputs = (vis_feats, boxes)
+        if img_order_ids is not None:
+            vis_inputs = (vis_feats, boxes, img_order_ids, obj_order_ids)
+        if v.oneddownsample or v.downsample:
+            vis_inputs = downsample_vis(vis_inputs, v.n_boxes,
+                                        oned=v.oneddownsample)
+        io = vis_inputs[2] if len(vis_inputs) == 4 else img_order_ids
+        oo = vis_inputs[3] if len(vis_inputs) == 4 else obj_order_ids
+        return self(vis_inputs[0], vis_inputs[1], embedding_table,
+                    img_order_ids=io, obj_order_ids=oo)
+
+
+def joint_attention_mask(attention_mask: torch.Tensor, n_vis: int,
+               vis_attention_mask: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """[text mask; visual mask] (B, L + n_vis); all visual tokens are kept
+    unless ``vis_attention_mask`` says otherwise."""
+    if vis_attention_mask is None:
+        vis_attention_mask = torch.ones(
+            (attention_mask.shape[0], n_vis), dtype=attention_mask.dtype,
+            device=attention_mask.device)
+    return torch.cat([attention_mask, vis_attention_mask], dim=1)

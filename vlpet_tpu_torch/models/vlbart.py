@@ -69,12 +69,12 @@ def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
 
 def check_supported(cfg: VLModelConfig) -> None:
     """Raise NotImplementedError for any configuration the port does not
-    implement, rather than ignoring it.
+    implement, rather than ignoring it. Both backbones share the list; a T5
+    backbone builds for evaluation only (models/t5.py: its training call
+    raises).
 
     Not read by the port: use_pallas_attention (TPU kernel routing; on
     CUDA the port runs its kernels)."""
-    if cfg.is_t5:
-        raise NotImplementedError("T5 backbones are not ported yet")
     if cfg.classifier:
         raise NotImplementedError("the classifier answer head is not ported")
     if cfg.use_fused_beam:
@@ -146,6 +146,9 @@ class VLBart(nn.Module):
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
+        if cfg.is_t5:
+            raise ValueError("VLBart needs a BART backbone; build "
+                             "models.t5.VLT5 for T5")
         check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg

@@ -35,9 +35,9 @@ _F = ctypes.c_float
 # C signature of every exported launcher: pointers, ints, floats, then the
 # stream. Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # q, k, v, mask, out, lse (or NULL), B, L, S, H, Dh, mask_batched,
-    # causal, is_bf16, stream
-    "vlpet_attention_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, mask, bias (or NULL), out, lse (or NULL), B, L, S, H, Dh,
+    # mask_batched, causal, is_bf16, stream
+    "vlpet_attention_fwd": [_P] * 7 + [_I] * 8 + [_P],
     # q, k, v, mask, do, dq, dk, dv, B, L, S, H, Dh, mask_batched, causal,
     # is_bf16, stream
     "vlpet_attention_bwd": [_P] * 8 + [_I] * 8 + [_P],
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "vlpet_attention_bwd_long": [_P] * 11 + [_I] * 8 + [_P],
     # x, w1, b1, w2, b2, y, N, D, F, act, is_bf16, stream
     "vlpet_ffn_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    # x, w0, w1, wo, y, N, D, F, act, is_bf16, stream
+    "vlpet_gated_ffn_fwd": [_P] * 5 + [_I] * 5 + [_P],
     # x, dy, w1, b1, w2, dx, partial, db1, db2, N, D, F, G, act, is_bf16,
     # stream
     "vlpet_ffn_bwd": [_P] * 9 + [_I] * 6 + [_P],
@@ -55,8 +57,9 @@ _SIGNATURES = {
     # h, res, gamma, seed, dy, dh, dres, partial, dgamma, dbeta, N, D, G,
     # drop, thr, scale, eps, is_bf16, stream
     "vlpet_ln_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
-    # q, k, v, anc, out, B, K, J, Lc, H, Dh, pos, is_bf16, stream
-    "vlpet_beam_attend": [_P] * 5 + [_I] * 8 + [_P],
+    # q, k, v, anc, bias row (or NULL), out, B, K, J, Lc, H, Dh, pos,
+    # is_bf16, stream
+    "vlpet_beam_attend": [_P] * 6 + [_I] * 8 + [_P],
     # x, vals, idx, lse, R, V, k, stream
     "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
 }

@@ -17,8 +17,12 @@ whole head in shared memory, where that fits; else the tiled long backward
 (csrc/attention_bwd_long.cu), for which the forward also saves its output
 and A1's row logsumexp. Both recompute the softmax and give dq, dk, dv;
 the mask gets no gradient. Bounds on the H100 and designs: the header
-notes of the sources. Per-head masks, the T5 bias and probability dropout
-are not on the ported path and are not accepted.
+notes of the sources. The T5 relative bias rides as ``bias``, a
+batch-shared (1, H, L, S) term that A1 adds to the logits after the mask
+(the (B, H, L, S) sum never exists); it is eval only: with a bias no
+backward is ported (it comes with T5 training), so a call that needs a
+gradient raises NotImplementedError. Per-head masks and probability
+dropout are not on the ported path and are not accepted.
 """
 
 from __future__ import annotations
@@ -38,9 +42,10 @@ def _causal_allowed(L: int, S: int, device) -> torch.Tensor:
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
-            num_heads: int, causal: bool) -> torch.Tensor:
-    """fp32 (B, H, L, S) logits plus the mask, hidden causal logits set to
-    -1e9."""
+            num_heads: int, causal: bool,
+            bias: torch.Tensor = None) -> torch.Tensor:
+    """fp32 (B, H, L, S) logits plus the mask, plus the bias, hidden causal
+    logits set to -1e9."""
     B, L, inner = q.shape
     S = k.shape[1]
     hd = inner // num_heads
@@ -48,6 +53,8 @@ def _logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
                      q.reshape(B, L, num_heads, hd).float(),
                      k.reshape(B, S, num_heads, hd).float())
     s = s + mask.float()
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         s = torch.where(_causal_allowed(L, S, s.device), s,
                         torch.full((), -1e9, device=s.device))
@@ -65,21 +72,22 @@ def _attend(p: torch.Tensor, v: torch.Tensor, num_heads: int,
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, mask: torch.Tensor,
-                              num_heads: int,
-                              causal: bool = False) -> torch.Tensor:
+                              num_heads: int, causal: bool = False,
+                              bias: torch.Tensor = None) -> torch.Tensor:
     """Plain version (vlpet_tpu/ops/attention.py:984
-    fused_attention_reference, no bias/dropout): fp32 logits plus the mask,
-    hidden causal logits set to -1e9, fp32 softmax, probabilities cast to
-    q's dtype before the value product. Autograd differentiates it."""
-    p = torch.softmax(_logits(q, k, mask, num_heads, causal), dim=-1)
+    fused_attention_reference, no dropout): fp32 logits plus the mask, plus
+    the (1, H, L, S) bias, hidden causal logits set to -1e9, fp32 softmax,
+    probabilities cast to q's dtype before the value product. Autograd
+    differentiates it."""
+    p = torch.softmax(_logits(q, k, mask, num_heads, causal, bias), dim=-1)
     return _attend(p, v, num_heads, q.dtype)
 
 
 def fused_attention_lse_reference(q, k, v, mask, num_heads: int,
-                                  causal: bool = False):
+                                  causal: bool = False, bias=None):
     """Plain twin of ``fused_attention_fwd_lse``: (the reference output,
     fp32 row logsumexp (B, H, L) of the masked logits)."""
-    s = _logits(q, k, mask, num_heads, causal)
+    s = _logits(q, k, mask, num_heads, causal, bias)
     return (_attend(torch.softmax(s, dim=-1), v, num_heads, q.dtype),
             torch.logsumexp(s, dim=-1))
 
@@ -121,7 +129,7 @@ def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     return "A6" if smem <= _SMEM_LIMIT else "long"
 
 
-def _check(q, k, v, mask, num_heads):
+def _check(q, k, v, mask, num_heads, bias=None):
     B, L, inner = q.shape
     S = k.shape[1]
     if k.shape != (B, S, inner) or v.shape != (B, S, inner):
@@ -134,6 +142,10 @@ def _check(q, k, v, mask, num_heads):
                          "are not supported)")
     if inner % num_heads:
         raise ValueError(f"inner {inner} not divisible by {num_heads} heads")
+    if bias is not None and (bias.shape != (1, num_heads, L, S)
+                             or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be (1, H={num_heads}, L={L}, S={S}) "
+                         f"fp32; got {bias.dtype} {tuple(bias.shape)}")
 
 
 def _kernel_inputs(q, k, v, mask, extra=()):
@@ -147,16 +159,20 @@ def _kernel_inputs(q, k, v, mask, extra=()):
     return m
 
 
-def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False):
+def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False,
+                bias=None):
     """A1 -> out, or (out, lse) with ``with_lse``."""
     B, L, inner = q.shape
     S = k.shape[1]
     m = _kernel_inputs(q, k, v, mask)
+    if bias is not None:
+        bias = bias.contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
                        device=q.device) if with_lse else None)
     _build.launch("vlpet_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), m.data_ptr(), out.data_ptr(),
+                  v.data_ptr(), m.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
                   None if lse is None else lse.data_ptr(), B, L, S,
                   num_heads, inner // num_heads, int(m.shape[0] == B),
                   int(causal), int(q.dtype == torch.bfloat16))
@@ -166,14 +182,18 @@ def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False):
 
 def fused_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, mask: torch.Tensor,
-                            num_heads: int, causal: bool = False):
+                            num_heads: int, causal: bool = False,
+                            bias: torch.Tensor = None):
     """(out, lse): fused_attention's output and the fp32 row logsumexp
-    (B, H, L) of the masked logits, what the long backward takes. A1 on
-    CUDA tensors, the plain twin on CPU tensors."""
-    _check(q, k, v, mask, num_heads)
-    if not _build.use_kernel(q, k, v, mask):
-        return fused_attention_lse_reference(q, k, v, mask, num_heads, causal)
-    return _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True)
+    (B, H, L) of the masked (and biased) logits, what the long backward
+    takes. A1 on CUDA tensors, the plain twin on CPU tensors."""
+    _check(q, k, v, mask, num_heads, bias)
+    ts = (q, k, v, mask) + (() if bias is None else (bias,))
+    if not _build.use_kernel(*ts):
+        return fused_attention_lse_reference(q, k, v, mask, num_heads, causal,
+                                             bias)
+    return _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True,
+                       bias=bias)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -275,16 +295,26 @@ class _FusedAttention(torch.autograd.Function):
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor, num_heads: int,
-                    causal: bool = False) -> torch.Tensor:
-    """softmax(q . k^T + mask [causal]) . v per head -> (B, L, H*Dh) in q's
-    dtype; differentiable in q, k, v.
+                    mask: torch.Tensor, num_heads: int, causal: bool = False,
+                    bias: torch.Tensor = None) -> torch.Tensor:
+    """softmax(q . k^T + mask [+ bias] [causal]) . v per head -> (B, L, H*Dh)
+    in q's dtype; differentiable in q, k, v when there is no bias.
 
-    mask: additive (B|1, 1, 1, S). CPU tensors run the plain version; CUDA
-    tensors launch A1 forward and the backward ``backward_route`` picks."""
-    _check(q, k, v, mask, num_heads)
-    if not _build.use_kernel(q, k, v, mask):
-        return fused_attention_reference(q, k, v, mask, num_heads, causal)
+    mask: additive (B|1, 1, 1, S); bias: batch-shared additive (1, H, L, S)
+    fp32 (T5 relative positions), eval only. CPU tensors
+    run the plain version; CUDA tensors launch A1 forward and the backward
+    ``backward_route`` picks."""
+    _check(q, k, v, mask, num_heads, bias)
+    if bias is not None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError("fused_attention: no backward with a bias "
+                                  "yet (it comes with T5 training)")
+    ts = (q, k, v, mask) + (() if bias is None else (bias,))
+    if not _build.use_kernel(*ts):
+        return fused_attention_reference(q, k, v, mask, num_heads, causal,
+                                         bias)
+    if bias is not None:
+        return _launch_fwd(q, k, v, mask, num_heads, causal, bias=bias)
     return _FusedAttention.apply(q, k, v, mask, num_heads, causal)
 
 

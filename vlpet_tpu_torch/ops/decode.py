@@ -10,7 +10,8 @@ beam_decode_attend is kernel 3 (csrc/beam_attend.cu, replacing
 _beam_self_attend_pallas); its plain twin is the einsum form of the JAX
 function's XLA branch. The kernel reads ``anc`` directly: the flat
 (B*K, L*8*J) mask, the 8-row batch blocking and the pad of B to a multiple
-of 8 were TPU sublane artefacts.
+of 8 were TPU sublane artefacts. T5's relative-bias row (1, H, 1, L), the
+same for every beam of a step, rides as ``bias_row`` in both attends.
 """
 
 from __future__ import annotations
@@ -36,10 +37,12 @@ def beam_selection_mask(anc: torch.Tensor, decode_pos: int, cache_len: int,
 
 
 def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  bias_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Greedy decode self-attention over the time-major cache (plain, as in
     the JAX package). q (B, 1, H, Dh); k, v (L, B, H*Dh); mask additive with
-    trailing L axis, e.g. (1, 1, 1, L). Returns (B, 1, H*Dh)."""
+    trailing L axis, e.g. (1, 1, 1, L); bias_row additive (1, H, 1, L) (T5).
+    Returns (B, 1, H*Dh)."""
     H, Dh = q.shape[-2:]
     L, B = k.shape[:2]
     kh = k.reshape(L, B, H, Dh)
@@ -48,6 +51,8 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kh.float())
     if mask is not None:
         logits = logits + mask.float().reshape(mask.shape[0], 1, L)
+    if bias_row is not None:
+        logits = logits + bias_row.float().reshape(1, H, L)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhl,lbhd->bhd", probs, vh)
     return out.reshape(B, 1, H * Dh)
@@ -55,10 +60,13 @@ def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def beam_decode_attend_reference(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, anc: torch.Tensor,
-                                 decode_pos: int) -> torch.Tensor:
+                                 decode_pos: int,
+                                 bias_row: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
     """Plain twin of the beam kernel: the einsum form of
     vlpet_tpu/ops/decode.py:beam_decode_attend (:409-434), every beam scored
-    against all J rows of its batch element through the ancestry mask."""
+    against all J rows of its batch element through the ancestry mask, the
+    bias row added to every row's slots."""
     B, K, _ = anc.shape
     L = k.shape[0]
     J = k.shape[1] // B
@@ -69,20 +77,27 @@ def beam_decode_attend_reference(q: torch.Tensor, k: torch.Tensor,
     vb = v.reshape(L, B, J, H, Dh)
     logits = torch.einsum("bqhd,lbjhd->bhqjl", qb.float(), kb.float())
     logits = logits.reshape(B, H, K, J * L) + sel.reshape(B, 1, K, J * L)
+    if bias_row is not None:
+        # memory index j*L + l: the L-long row repeats over the J rows
+        logits = logits + bias_row.float().reshape(1, H, 1, L).repeat(
+            1, 1, 1, J)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqjl,lbjhd->bqhd", probs.reshape(B, H, K, J, L), vb)
     return out.reshape(B * K, 1, H * Dh)
 
 
 def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       anc: torch.Tensor, decode_pos: int) -> torch.Tensor:
+                       anc: torch.Tensor, decode_pos: int,
+                       bias_row: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Ancestry-routed self-attention for one beam decode step.
 
     q (B*K, 1, H, Dh); k, v (L, B*J, H*Dh) time-major cache whose slot
     ``decode_pos`` already holds this step's KV (the mask is inclusive);
-    anc (B, K, L) integer ancestry with values in [0, J). Returns
-    (B*K, 1, H*Dh). CPU tensors run the plain version; CUDA tensors launch
-    the kernel."""
+    anc (B, K, L) integer ancestry with values in [0, J); bias_row optional
+    additive (1, H, 1, L) fp32 (T5 relative positions), added to slot l of
+    every beam. Returns (B*K, 1, H*Dh). CPU tensors run
+    the plain version; CUDA tensors launch the kernel."""
     B, K, Lc = anc.shape
     H, Dh = q.shape[-2:]
     if k.shape[0] != Lc or k.shape[1] % B or k.shape != v.shape:
@@ -92,8 +107,14 @@ def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} does not match cache/ancestry")
     if not 0 <= decode_pos < Lc:
         raise ValueError(f"decode_pos {decode_pos} outside the cache [0, {Lc})")
-    if not _build.use_kernel(q, k, v, anc):
-        return beam_decode_attend_reference(q, k, v, anc, decode_pos)
+    if bias_row is not None and (bias_row.shape != (1, H, 1, Lc) or
+                                 bias_row.dtype != torch.float32):
+        raise ValueError(f"bias_row must be (1, H={H}, 1, L={Lc}) fp32; got "
+                         f"{bias_row.dtype} {tuple(bias_row.shape)}")
+    ts = (q, k, v, anc) + (() if bias_row is None else (bias_row,))
+    if not _build.use_kernel(*ts):
+        return beam_decode_attend_reference(q, k, v, anc, decode_pos,
+                                            bias_row)
     J = k.shape[1] // B
     q2 = q.reshape(B * K, H * Dh)
     dts = (torch.float32, torch.bfloat16)
@@ -101,10 +122,13 @@ def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(k, "k", (q.dtype,), 3)
     _build.check(v, "v", (q.dtype,), 3)
     anc32 = anc.to(torch.int32).contiguous()
+    bias = None if bias_row is None else bias_row.reshape(H, Lc).contiguous()
     out = torch.empty_like(q2)
     _build.launch("vlpet_beam_attend", q2.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), anc32.data_ptr(), out.data_ptr(), B, K, J, Lc,
-                  H, Dh, int(decode_pos), int(q.dtype == torch.bfloat16))
+                  v.data_ptr(), anc32.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out.data_ptr(),
+                  B, K, J, Lc, H, Dh, int(decode_pos),
+                  int(q.dtype == torch.bfloat16))
     beam_decode_attend.launches += 1
     return out.reshape(B * K, 1, H * Dh)
 
