@@ -68,7 +68,27 @@ nonzero and no result line is printed):
   5c. the T5 eval shape in bf16 for both: batch 300 (the recipe's
      valid_batch_size; 20 text tokens + 36 boxes of 2048-d, S 56), beam 5
      to length 40; examples/s and launches per kernel (the t5_eval and
-     t5_gated_eval main-path runs).
+     t5_gated_eval main-path runs);
+  3e. (run after 3d) the T5 training path's kernels vs their plain twins
+     (the backward ones vs autograd of the plain forward), bf16 and fp32,
+     at rate 0.1 and 0.0 with a fixed seed: A1 and A6 with the relative
+     bias at the encoder (B 300, L = S = 56, ragged padding mask), with
+     bias and the causal triangle at the decoder self-attention (L = S =
+     10) and at the cross-attention (L 10 over S 56); F1/F2 relu (F 3072,
+     zero biases) and F3/F4 gated-gelu (F 2048) at 16800 (300 x 56) and
+     3000 (300 x 10) rows; then, fp32, every kernel's dropout mask bit for
+     bit against ops/hashdrop.py (one-hot values or picking weights make
+     each dropped element an exact zero of an output);
+  6c. fp32 T5 train-step parity for both T5 configurations: full width,
+     12+12 layers at the T5 init (the zero-init ups at normal(0, 0.02)),
+     batch 8, dropout 0.1, lr 3e-4, 3 steps each of vqa and caption, each
+     step taken through the plain twins and through the kernels from the
+     same state: loss and gradient norm within 1e-5 relative, every
+     tensor's update within 1e-3 of the plain one in the L2 norm
+     (``train_parity_per_step``);
+  7c. the T5 train step in bf16 for both: batch 300, 20 text tokens + 36
+     boxes (S 56), 10 targets, vqa, dropout 0.1, lr 3e-4, clip 5, as phase
+     7 (the t5_train and t5_gated_train main-path runs).
 The last lines are the card, the kernels' JSON record and the result line
 {"ok": true, "device": {...}}.
 
@@ -136,9 +156,13 @@ PEAK_BYTES = 3.35e12
 
 # name -> (source, the TPU kernel(s) it replaces, main paths that launch
 # it). A1 also serves the per-head and query-strip forwards
-# (vlpet_tpu/ops/attention.py:543, :825) on the video paths.
+# (vlpet_tpu/ops/attention.py:543, :825) on the video paths. The entries
+# of MODES are a kernel's T5-training modes (dropout, the bias in the
+# backward, relu in F2), counted by the wrapper they name and timed in
+# phase 3e.
 DECODE, TRAIN = ("decode", "video_eval"), ("train", "video_train")
 T5 = ("t5_eval", "t5_gated_eval")
+T5_TRAIN = ("t5_train", "t5_gated_train")
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
@@ -163,11 +187,37 @@ KERNELS = {
                  DECODE + T5),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
+    "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
+                            "vlpet_tpu/ops/ffn.py:354", ("t5_gated_train",)),
+    "fused_attention +bias +dropout": ("vlpet_tpu_torch/csrc/attention.cu",
+                                       "vlpet_tpu/ops/attention.py:408",
+                                       T5_TRAIN),
+    "fused_attention_bwd +bias +dropout": (
+        "vlpet_tpu_torch/csrc/attention_bwd.cu",
+        "vlpet_tpu/ops/attention.py:1082", T5_TRAIN),
+    "fused_ffn relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                "vlpet_tpu/ops/ffn.py:175", ("t5_train",)),
+    "fused_ffn_bwd relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                    "vlpet_tpu/ops/ffn.py:195",
+                                    ("t5_train",)),
+    "fused_gated_ffn +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                 "vlpet_tpu/ops/ffn.py:334",
+                                 ("t5_gated_train",)),
 }
+MODES = {"fused_attention +bias +dropout": "fused_attention",
+         "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
+         "fused_ffn relu +dropout": "fused_ffn",
+         "fused_ffn_bwd relu +dropout": "fused_ffn_bwd",
+         "fused_gated_ffn +dropout": "fused_gated_ffn"}
 # the run whose launch count the kernels' JSON record reports: the first of
 # these that launches the kernel
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
-                   "t5_gated_eval")
+                   "t5_gated_eval", "t5_train", "t5_gated_train")
+
+
+def wrapper_of(key: str) -> str:
+    """The wrapper whose launch count a record entry reads."""
+    return MODES.get(key, key)
 
 
 def nvidia_smi() -> str:
@@ -215,8 +265,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
 
 
 class Report:
-    """Per kernel: the largest error against the plain twin over all the
-    checks, and the times and bound of the one timed case."""
+    """Per record entry (a kernel, or one of its MODES): the largest error
+    against the plain twin over all the checks, and the times and bound of
+    the one timed case."""
 
     def __init__(self):
         self.err = {k: 0.0 for k in KERNELS}
@@ -261,6 +312,13 @@ def padding_mask(g, B: int, S: int) -> torch.Tensor:
                        < 0.2, -1e9, 0.0)
     mask[..., 0] = 0.0
     return mask
+
+
+def causal_mask(mask: torch.Tensor, L: int, S: int) -> torch.Tensor:
+    """The padding mask plus the causal triangle materialised: what SDPA
+    needs to compute a causal site (the kernels build it in-kernel)."""
+    hidden = ~attention._causal_allowed(L, S, mask.device)
+    return mask + torch.where(hidden, -1e9, 0.0)
 
 
 def sdpa(q, k, v, mask, H):
@@ -333,7 +391,8 @@ def phase_kernels(rep: Report) -> None:
                       dtype, timed=main and pos == Lc - 1,
                       work=(e * (2 * B * K * inner + 2 * rows * inner)
                             + 4 * B * K * Lc,
-                            4 * B * K * H * (pos + 1) * Dh))
+                            4 * B * K * H * (pos + 1) * Dh),
+                      library_fn=beam_sdpa(qb, kc, vc, anc, pos, dtype))
 
     # top-k + logsumexp on f32 logits, with ties
     R, V = 2500, 50265
@@ -346,6 +405,32 @@ def phase_kernels(rep: Report) -> None:
     for cname, x in cases.items():
         for kk in (1, 10, 16):
             check_topk(rep, cname, x, kk, timed=cname == "randn" and kk == 10)
+
+
+def beam_sdpa(qb, kc, vc, anc, pos, dtype, bias_row=None):
+    """The library yardstick of D1: one SDPA call over every beam's J * L
+    candidate slots with the ancestry mask (and the bias row)
+    materialised, the layouts prepared outside the timed call; checked
+    once against D1's plain twin."""
+    B, K, Lc = anc.shape
+    H, Dh = qb.shape[-2:]
+    J = kc.shape[1] // B
+    qh = qb.reshape(B, K, H, Dh).transpose(1, 2)
+    kh, vh = (t.reshape(Lc, B, J, H, Dh).permute(1, 3, 2, 0, 4)
+              .reshape(B, H, J * Lc, Dh) for t in (kc, vc))
+    m = decode.beam_selection_mask(anc, pos, Lc, J).reshape(B, 1, K, J * Lc)
+    if bias_row is not None:
+        m = m + bias_row.float().reshape(1, H, 1, Lc).repeat(1, 1, 1, J)
+    m = m.to(dtype)
+
+    def call():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m,
+                                              scale=1.0)
+    got = call().transpose(1, 2).reshape(B * K, 1, H * Dh)
+    compare("beam_decode_attend SDPA yardstick", got,
+            decode.beam_decode_attend_reference(qb, kc, vc, anc, pos,
+                                                bias_row), dtype)
+    return call
 
 
 def check_topk(rep: Report, cname: str, x: torch.Tensor, kk: int,
@@ -417,17 +502,18 @@ def phase_train_kernels(rep: Report) -> None:
             plain_bwd = _grads_of(
                 lambda a, b, c: attention.fused_attention_reference(
                     a, b, c, mask, H, causal), (q, k, v), do)
-            lib_bwd = None
-            if not causal:
-                lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, mask, H),
-                                    (q, k, v),
-                                    do.view(B, L, H, Dh).transpose(1, 2))
+            lmask = causal_mask(mask, L, S) if causal else mask
+            lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, lmask, H),
+                                (q, k, v),
+                                do.view(B, L, H, Dh).transpose(1, 2))
+            seen = (attention._causal_allowed(L, S, "cuda").float().mean()
+                    .item() if causal else 1.0)
             rep.check("fused_attention_bwd", label,
                       lambda: attention.fused_attention_bwd(q, k, v, mask, do,
                                                             H, causal),
                       plain_bwd, dtype, timed=main and site == "enc",
                       work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
-                            10 * B * H * L * S * Dh),
+                            10 * B * H * L * S * Dh * seen),
                       library_fn=lib_bwd, backward=True)
         D, Fh = 768, 3072
         w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
@@ -441,7 +527,9 @@ def phase_train_kernels(rep: Report) -> None:
                 rep.check("fused_ffn", f"{tag} N{N} D{D} F{Fh} gelu",
                           lambda: ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),
                           lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"),
-                          dtype, iters=iters)
+                          dtype, iters=iters,
+                          work=(e * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                                4 * N * D * Fh))
             plain_bwd = _grads_of(
                 lambda a, c, d: ffn.ffn_reference(a, w1, c, w2, d, "gelu"),
                 (x, b1, b2), dy)
@@ -698,7 +786,8 @@ def phase_t5_kernels(rep: Report) -> None:
                           qb, kc, vc, anc, pos, row),
                       dtype, work=(e * (2 * B * K * inner + 2 * rows * inner)
                                    + 4 * B * K * Lc + 4 * H * Lc,
-                                   4 * B * K * H * (pos + 1) * Dh))
+                                   4 * B * K * H * (pos + 1) * Dh),
+                      library_fn=beam_sdpa(qb, kc, vc, anc, pos, dtype, row))
         w1, w2 = (randn(F1h, D, dtype=dtype, scale=0.02),
                   randn(D, F1h, dtype=dtype, scale=0.02))
         z1, z2 = torch.zeros(F1h, device="cuda"), torch.zeros(D, device="cuda")
@@ -768,6 +857,215 @@ def check_ln_mask(h, res, gamma, seed, dy, rate) -> None:
     print(f"  {'fused_dropout_add_ln_bwd':24s} fp32 mask == keep_mask bit for "
           f"bit ({h.shape[0]}x{h.shape[1]}, kept share "
           f"{keep.float().mean().item():.4f})", flush=True)
+
+
+def phase_t5_train_kernels(rep: Report) -> None:
+    """The T5 training path's shapes (B 300, S 56, 10 targets, d 768, 12
+    heads), bf16 and fp32, at rate 0.1 and 0.0 with one seed: A1 and A6 at
+    the encoder self-attention (relative bias, ragged padding mask), the
+    decoder self-attention (bias, causal) and the cross-attention; F1/F2
+    relu (zero biases) and F3/F4 gated at the encoder rows (B x 56) and the
+    decoder rows (B x 10). Then the dropout masks bit for bit (fp32)."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    randn = randn_fn(g)
+    B, S, T = 300, 56, 10
+    H, Dh, D, F1h, F3h = 12, 64, 768, 3072, 2048
+    inner = H * Dh
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        main = dtype == torch.bfloat16
+        e = 2 if main else 4
+        enc_mask = padding_mask(g, B, S)
+        sites = (("enc", S, S, False, enc_mask, True),
+                 ("dec-self", T, T, True,
+                  torch.zeros((1, 1, 1, T), device="cuda"), True),
+                 ("cross", T, S, False, enc_mask, False))
+        for site, L, Sk, causal, mask, has_bias in sites:
+            q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+            k, v = (randn(B, Sk, inner, dtype=dtype) for _ in range(2))
+            do = randn(B, L, inner, dtype=dtype)
+            bias = (randn(1, H, L, Sk, dtype=dtype, scale=0.5).float()
+                    if has_bias else None)
+            seen = (attention._causal_allowed(L, Sk, "cuda").float().mean()
+                    .item() if causal else 1.0)
+            lmask = causal_mask(mask, L, Sk) if causal else mask
+            if bias is not None:
+                lmask = lmask + bias
+            nb = 4 * H * L * Sk if has_bias else 0
+            for rate in (0.1, 0.0):
+                label = (f"{tag} {site} B{B} L{L} S{Sk}"
+                         + (" +bias" if has_bias else "")
+                         + (" causal" if causal else "") + f" rate {rate}")
+                timed = main and site == "enc" and rate > 0
+                # SDPA computes the same function only without dropout
+                lib = rate == 0.0
+                rep.check("fused_attention +bias +dropout", label,
+                          lambda: attention.fused_attention(
+                              q, k, v, mask, H, causal, bias, rate, seed),
+                          lambda: attention.fused_attention_reference(
+                              q, k, v, mask, H, causal, bias, rate, seed),
+                          dtype, timed=timed,
+                          work=(e * 2 * B * (L + Sk) * inner + 4 * B * Sk
+                                + nb, 4 * B * H * L * Sk * Dh * seen),
+                          library_fn=(lambda: sdpa(q, k, v, lmask, H))
+                          if lib else None)
+                plain_bwd = _grads_of(
+                    lambda a, b, c: attention.fused_attention_reference(
+                        a, b, c, mask, H, causal, bias, rate, seed),
+                    (q, k, v), do)
+                lib_bwd = (_grads_of(lambda a, b, c: sdpa(a, b, c, lmask, H),
+                                     (q, k, v),
+                                     do.view(B, L, H, Dh).transpose(1, 2))
+                           if lib else None)
+                rep.check("fused_attention_bwd +bias +dropout", label,
+                          lambda: attention.fused_attention_bwd(
+                              q, k, v, mask, do, H, causal, bias, rate, seed),
+                          plain_bwd, dtype, timed=timed,
+                          work=(e * (3 * B * L + 4 * B * Sk) * inner
+                                + 4 * B * Sk + nb,
+                                10 * B * H * L * Sk * Dh * seen),
+                          library_fn=lib_bwd, backward=True)
+                del plain_bwd, lib_bwd
+        w1, w2 = (randn(F1h, D, dtype=dtype, scale=0.02),
+                  randn(D, F1h, dtype=dtype, scale=0.02))
+        z1, z2 = torch.zeros(F1h, device="cuda"), torch.zeros(D, device="cuda")
+        w0, wg, wo = (randn(F3h, D, dtype=dtype, scale=0.02),
+                      randn(F3h, D, dtype=dtype, scale=0.02),
+                      randn(D, F3h, dtype=dtype, scale=0.02))
+        for N in (B * S, B * T):
+            x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+            iters = 20 if main else 3
+            for rate in (0.1, 0.0):
+                label = f"{tag} N{N} D{D} F{F1h} relu rate {rate}"
+                timed = main and N == B * S and rate > 0
+                rep.check("fused_ffn relu +dropout", label,
+                          lambda: ffn.fused_ffn(x, w1, z1, w2, z2, "relu",
+                                                rate, seed),
+                          lambda: ffn.ffn_reference(x, w1, z1, w2, z2, "relu",
+                                                    rate, seed),
+                          dtype, timed=timed,
+                          work=(e * (2 * N * D + 2 * D * F1h) + 4 * (F1h + D),
+                                4 * N * D * F1h), iters=iters)
+                plain_bwd = _grads_of(
+                    lambda a, c, d: ffn.ffn_reference(a, w1, c, w2, d, "relu",
+                                                      rate, seed),
+                    (x, z1, z2), dy)
+                rep.check("fused_ffn_bwd relu +dropout", label,
+                          lambda: ffn.fused_ffn_bwd(x, dy, w1, z1, w2, "relu",
+                                                    rate, seed),
+                          plain_bwd, dtype, timed=timed,
+                          work=(e * (3 * N * D + 2 * D * F1h)
+                                + 4 * (2 * F1h + D), 6 * N * D * F1h),
+                          iters=iters, backward=True)
+                label = f"{tag} N{N} D{D} F{F3h} gelu_new rate {rate}"
+                rep.check("fused_gated_ffn +dropout", label,
+                          lambda: ffn.fused_gated_ffn(x, w0, wg, wo,
+                                                      "gelu_new", rate, seed),
+                          lambda: ffn.gated_ffn_reference(
+                              x, w0, wg, wo, "gelu_new", rate, seed),
+                          dtype, timed=timed,
+                          work=(e * (2 * N * D + 3 * D * F3h),
+                                6 * N * D * F3h), iters=iters)
+                plain_bwd = _grads_of(
+                    lambda a: ffn.gated_ffn_reference(a, w0, wg, wo,
+                                                      "gelu_new", rate, seed),
+                    (x,), dy)
+                rep.check("fused_gated_ffn_bwd", label,
+                          lambda: ffn.fused_gated_ffn_bwd(
+                              x, dy, w0, wg, wo, "gelu_new", rate, seed),
+                          lambda: plain_bwd()[0], dtype, timed=timed,
+                          work=(e * (3 * N * D + 3 * D * F3h),
+                                10 * N * D * F3h),
+                          iters=iters, backward=True)
+                del plain_bwd
+    check_drop_masks(seed)
+
+
+def _expect_zeros(name: str, got: torch.Tensor, keep: torch.Tensor) -> None:
+    """got (fp32) is zero exactly where keep is False."""
+    bad = ((got == 0) != ~keep).sum().item()
+    if bad:
+        raise AssertionError(f"{name}: dropout mask differs from "
+                             f"ops/hashdrop.py in {bad} elements")
+    print(f"  {name:46s} fp32 mask == hashdrop bit for bit "
+          f"({tuple(keep.shape)}, kept share "
+          f"{keep.float().mean().item():.4f})", flush=True)
+
+
+def _picking(rows: int, cols: int, off: int) -> torch.Tensor:
+    """(rows, cols) fp32 with W[r, r + off] = 1: x . W^T reads columns
+    off .. off + rows of the hidden."""
+    w = torch.zeros((rows, cols), device="cuda")
+    r = torch.arange(rows, device="cuda")
+    w[r, r + off] = 1.0
+    return w
+
+
+@torch.no_grad()
+def check_drop_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
+    """fp32, the T5 training shapes: each kernel's dropout mask, bit for
+    bit, is ops/hashdrop.py's. A1 with one-hot values (v[j, d] = [d == j],
+    S <= Dh) returns the dropped probabilities themselves; A6 with one-hot
+    cotangents returns them in dv; the FFN kernels with picking weights
+    return columns off .. off + D of the dropped hidden (or of its
+    cotangent), at off 0 and F - D."""
+    from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask, keep_mask
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, H, Dh = 300, 12, 64
+    inner = H * Dh
+    eye = torch.eye(Dh, device="cuda")
+    for L, S, causal in ((56, 56, False), (10, 10, True), (10, 56, False)):
+        q = torch.randn((B, L, inner), generator=g, device="cuda") * 0.1
+        k = torch.randn((B, S, inner), generator=g, device="cuda")
+        mask = torch.zeros((1, 1, 1, S), device="cuda")
+        onehot_v = eye[:S].repeat(1, H).expand(B, S, inner).contiguous()
+        keep = attention_keep_mask(B, L, S, H, seed, rate, device="cuda")
+        if causal:
+            keep = keep & attention._causal_allowed(L, S, "cuda")
+        out = attention.fused_attention(q, k, onehot_v, mask, H, causal,
+                                        rate=rate, seed=seed)
+        got = out.view(B, L, H, Dh)[..., :S].permute(0, 2, 1, 3)
+        _expect_zeros(f"fused_attention L{L} S{S}", got, keep)
+        onehot_do = eye[:L].repeat(1, H).expand(B, L, inner).contiguous()
+        _, _, dv = attention.fused_attention_bwd(q, k, k, mask, onehot_do, H,
+                                                 causal, rate=rate, seed=seed)
+        got = dv.view(B, S, H, Dh)[..., :L].permute(0, 2, 3, 1)
+        _expect_zeros(f"fused_attention_bwd L{L} S{S}", got, keep)
+    D = 768
+    for N in (300 * 56, 300 * 10):
+        ones = torch.ones((N, D), device="cuda")
+        for Fh in (3072, 2048):
+            keep = keep_mask((N, Fh), 0, seed, rate, device="cuda")
+            for off in (0, Fh - D):
+                pick = _picking(D, Fh, off)       # (D, F): hidden -> D
+                spread = pick.t().contiguous()    # (F, D): D -> hidden
+                kept = keep[:, off:off + D]
+                if Fh == 3072:
+                    b1 = torch.full((Fh,), 1.0, device="cuda")
+                    z = torch.zeros(D, device="cuda")
+                    # h = relu(0 + 1) = 1: y = the dropped hidden columns
+                    y = ffn.fused_ffn(ones, torch.zeros((Fh, D), device="cuda"),
+                                      b1, pick, z, "relu", rate, seed)
+                    _expect_zeros(f"fused_ffn N{N} F{Fh} off{off}", y, kept)
+                    # h = x + 1 > 0, dh = dy . W2 = 1: dx = drop(1) columns
+                    dx, _, _ = ffn.fused_ffn_bwd(ones, ones, spread, b1, pick,
+                                                 "relu", rate, seed)
+                    _expect_zeros(f"fused_ffn_bwd N{N} F{Fh} off{off}", dx,
+                                  kept)
+                else:
+                    # h0 = h1 = 3 on the picked columns, 0 elsewhere
+                    x3 = 3.0 * ones
+                    y = ffn.fused_gated_ffn(x3, spread, spread, pick,
+                                            "gelu_new", rate, seed)
+                    _expect_zeros(f"fused_gated_ffn N{N} F{Fh} off{off}", y,
+                                  kept)
+                    dx = ffn.fused_gated_ffn_bwd(x3, ones, spread, spread,
+                                                 pick, "gelu_new", rate, seed)
+                    _expect_zeros(f"fused_gated_ffn_bwd N{N} F{Fh} off{off}",
+                                  dx, kept)
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -854,7 +1152,8 @@ def wrappers():
             "fused_dropout_add_ln_bwd": fused_ln.fused_dropout_add_ln_bwd,
             "beam_decode_attend": decode.beam_decode_attend,
             "topk_lse": topk.topk_lse,
-            "fused_gated_ffn": ffn.fused_gated_ffn}
+            "fused_gated_ffn": ffn.fused_gated_ffn,
+            "fused_gated_ffn_bwd": ffn.fused_gated_ffn_bwd}
 
 
 def reset_counts():
@@ -867,7 +1166,7 @@ def read_counts(path: str):
     (a path of KERNELS) was never launched."""
     got = {k: fn.launches for k, fn in wrappers().items()}
     missing = [k for k, (_, _, paths) in KERNELS.items()
-               if path in paths and got[k] == 0]
+               if path in paths and got[wrapper_of(k)] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
@@ -1073,40 +1372,24 @@ def train_run(model, trainable, batch, steps: int, total_steps: int,
     return [step(batch, gen, tasks.index(task)) for _ in range(steps)]
 
 
-def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
-                 task: str, lr: float, path: str) -> None:
-    """K = 3 fp32 steps through the kernels, then through the plain twins
-    from the same weights and generator seed (phase 6's tolerances)."""
-    K = 3
-    model = build_model("float32", cfg_fn)
-    trainable = apply_freezing(model, model.cfg.pet)
-    batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
-    start = {n: p.detach().clone() for n, p in trainable.items()}
-    reset_counts()
-    got = train_run(model, trainable, batch, K, K + 1, 5, tasks, task, lr)
-    torch.cuda.synchronize()
-    launched = {k: n for k, n in read_counts(path).items() if n}
-    after = {n: p.detach().clone() for n, p in trainable.items()}
-    with torch.no_grad():
-        for n, p in trainable.items():
-            p.copy_(start[n])
-    reset_counts()
-    with plain_twins():
-        want = train_run(model, trainable, batch, K, K + 1, 5, tasks, task,
-                         lr)
-    torch.cuda.synchronize()
-    if any(fn.launches for fn in wrappers().values()):
-        raise AssertionError("the plain train step launched kernels")
-    rows = []
-    for i, (a, b) in enumerate(zip(got, want)):
-        for key in ("loss", "grad_norm"):
-            x, y = a[key].item(), b[key].item()
-            if not math.isfinite(x) or abs(x - y) > TRAIN_METRIC_RTOL * abs(y):
-                raise AssertionError(f"train step {i} {key}: kernels {x!r} vs "
-                                     f"plain {y!r}")
-        rows.append(f"{a['loss'].item():.7f}/{b['loss'].item():.7f} "
-                    f"|g| {a['grad_norm'].item():.6f}/"
-                    f"{b['grad_norm'].item():.6f}")
+def check_step(i: int, got, want) -> str:
+    """Step i's loss and gradient norm, kernels vs plain, within
+    TRAIN_METRIC_RTOL; returns the printed row."""
+    for key in ("loss", "grad_norm"):
+        x, y = got[key].item(), want[key].item()
+        if not math.isfinite(x) or abs(x - y) > TRAIN_METRIC_RTOL * abs(y):
+            raise AssertionError(f"train step {i} {key}: kernels {x!r} vs "
+                                 f"plain {y!r}")
+    return (f"{got['loss'].item():.7f}/{want['loss'].item():.7f} "
+            f"|g| {got['grad_norm'].item():.6f}/"
+            f"{want['grad_norm'].item():.6f}")
+
+
+def check_params(trainable, after, start) -> float:
+    """The kernels' parameters ``after`` against the plain path's (the
+    current values of ``trainable``), both updated from ``start``: within
+    rtol PARAM_RTOL, atol PARAM_ATOL_SCALE * max|p|. Returns the largest
+    |kernel - plain| over the largest update."""
     worst = 0.0
     for n, p in trainable.items():
         want_p = p.detach()
@@ -1117,11 +1400,129 @@ def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
                                  f"{diff.max().item():.3e}")
         moved = (after[n] - start[n]).abs().max().item()
         worst = max(worst, (diff.max() / max(moved, 1e-30)).item())
+    return worst
+
+
+def check_updates(trainable, after, start) -> float:
+    """Per trainable tensor, the kernels' update (``after`` - ``start``)
+    against the plain path's (the current values of ``trainable`` -
+    ``start``): |kernel - plain| <= PARAM_RTOL * |plain update| in the L2
+    norm over the tensor. Returns the largest ratio."""
+    worst = 0.0
+    for n, p in trainable.items():
+        diff = (after[n] - p.detach()).norm().item()
+        moved = (p.detach() - start[n]).norm().item()
+        if diff > PARAM_RTOL * moved:
+            raise AssertionError(f"trainable {n}: |kernel - plain| {diff:.3e} "
+                                 f"> {PARAM_RTOL} * |plain update| "
+                                 f"{moved:.3e} (L2 over the tensor)")
+        worst = max(worst, diff / max(moved, 1e-30))
+    return worst
+
+
+def snapshot(trainable):
+    return {n: p.detach().clone() for n, p in trainable.items()}
+
+
+@torch.no_grad()
+def restore(trainable, values) -> None:
+    for n, p in trainable.items():
+        p.copy_(values[n])
+
+
+def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
+                 task: str, lr: float, path: str) -> None:
+    """K = 3 fp32 steps through the kernels, then through the plain twins
+    from the same weights and generator seed (phase 6's tolerances)."""
+    K = 3
+    model = build_model("float32", cfg_fn)
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
+    start = snapshot(trainable)
+    reset_counts()
+    got = train_run(model, trainable, batch, K, K + 1, 5, tasks, task, lr)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in read_counts(path).items() if n}
+    after = snapshot(trainable)
+    restore(trainable, start)
+    reset_counts()
+    with plain_twins():
+        want = train_run(model, trainable, batch, K, K + 1, 5, tasks, task,
+                         lr)
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in wrappers().values()):
+        raise AssertionError("the plain train step launched kernels")
+    rows = [check_step(i, a, b) for i, (a, b) in enumerate(zip(got, want))]
+    worst = check_params(trainable, after, start)
     print(f"  fp32 {label} dropout 0.1, {K} steps, loss kernel/plain and "
           f"grad norm: {'; '.join(rows)}", flush=True)
     print(f"  {len(trainable)} trainable tensors agree (rtol {PARAM_RTOL}, "
           f"atol {PARAM_ATOL_SCALE} max|p|); largest |kernel - plain| / "
           f"largest update {worst:.2e}; launches {launched}", flush=True)
+
+
+def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
+                          tasks, task: str, lr: float, path: str) -> None:
+    """K = 3 fp32 steps, each taken twice from the same parameters and
+    optimizer state -- through the plain twins, then through the kernels
+    -- with the same dropout seeds; the next step starts from the plain
+    result. Each step's loss and gradient norm within TRAIN_METRIC_RTOL
+    (phase 6's), each tensor's update within PARAM_RTOL of the plain
+    update in the L2 norm (``check_updates``).
+
+    Why not phase 6's free-running lockstep and elementwise parameter
+    check (PERF.md, Findings): at T5-base's 12+12 layers two fp32 paths that
+    sum in different orders flip the sign of a few relu pre-activations a
+    step, which moves a whole row of the backward by a few percent; Adam
+    then turns that, for the elements whose gradients are near zero, into
+    parameter differences of the size of the update. Free-running, the
+    gradient norms parted by 2.5e-5 by the third step; step by step,
+    loss and gradient norm agree to a few 1e-7 but single elements of the
+    visual projection still differ by more than phase 6's elementwise
+    tolerance. The recipe zero-inits the up projections; at 0 Adam's steps
+    are +-lr whatever a gradient's size, so they start at normal(0, 0.02)
+    (``unzero``)."""
+    K = 3
+    model = build_model("float32", cfg_fn)
+    unzero(model)
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
+    opts = [build_optimizer(trainable, lr=lr, total_steps=K + 1)
+            for _ in range(2)]
+    steps = [make_train_step(model, opt, tasks) for opt in opts]
+    task_idx = tasks.index(task)
+    rows, worst, launched = [], 0.0, {}
+    for i in range(K):
+        start = snapshot(trainable)
+        for name in ("mu", "nu"):
+            for dst, src in zip(getattr(opts[1], name), getattr(opts[0], name)):
+                dst.copy_(src)
+        opts[1].count = opts[0].count
+        reset_counts()
+        with plain_twins():
+            want = steps[0](batch, torch.Generator(device="cuda").manual_seed(
+                seed + i), task_idx)
+        torch.cuda.synchronize()
+        if any(fn.launches for fn in wrappers().values()):
+            raise AssertionError("the plain train step launched kernels")
+        plain_after = snapshot(trainable)
+        restore(trainable, start)
+        got = steps[1](batch, torch.Generator(device="cuda").manual_seed(
+            seed + i), task_idx)
+        torch.cuda.synchronize()
+        for k, n in read_counts(path).items():
+            if n:
+                launched[k] = launched.get(k, 0) + n
+        rows.append(check_step(i, got, want))
+        kernel_after = snapshot(trainable)
+        restore(trainable, plain_after)
+        worst = max(worst, check_updates(trainable, kernel_after, start))
+    print(f"  fp32 {label} dropout 0.1, {K} steps each from the plain "
+          f"state, loss kernel/plain and grad norm: {'; '.join(rows)}",
+          flush=True)
+    print(f"  {len(trainable)} trainable tensors: every step's update within "
+          f"{PARAM_RTOL} of the plain update (L2 per tensor), largest ratio "
+          f"{worst:.2e}; launches {launched}", flush=True)
 
 
 def phase_train_parity() -> None:
@@ -1176,6 +1577,63 @@ def phase_train_bench(card: str):
                        FLAGSHIP_TASKS, "vqa", 1e-3, "train", "vqa")
 
 
+def make_t5_train_batch(B: int, vocab: int, seed: int):
+    """The T5 decode batch (pad 0) plus targets and VQA answer scores."""
+    return add_targets(make_batch(B, vocab, seed, pad=0), B, vocab, seed,
+                       True)
+
+
+# (label, configuration, main path) of the two T5 training paths
+T5_TRAIN_CFGS = (("t5", t5_cfg, "t5_train"),
+                 ("t5 gated", t5_gated_cfg, "t5_gated_train"))
+
+
+@torch.no_grad()
+def unzero(model, std: float = 0.02) -> None:
+    """Every all-zero parameter (the recipe's zero-init up projections) at
+    normal(0, std), seeded."""
+    g = torch.Generator(device="cuda").manual_seed(99)
+    for p in model.parameters():
+        if not p.any():
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda") * std)
+
+
+# the T5 recipe's learning rate (SURVEY.md: bs 300, lr 3e-4)
+T5_LR = 3e-4
+
+
+def phase_t5_train_parity() -> None:
+    """Both T5 configurations at 12+12 layers, batch 8, vqa and caption,
+    step by step from the plain state (``train_parity_per_step``)."""
+    for name, cfg_fn, path in T5_TRAIN_CFGS:
+        for task in ("vqa", "caption"):
+            train_parity_per_step(f"{name} 12+12 layers B8 {task}", cfg_fn,
+                                  make_t5_train_batch, 8, 25, FLAGSHIP_TASKS,
+                                  task, T5_LR, path)
+
+
+def phase_t5_train_bench(card: str):
+    """bf16 B 300 for both T5 configurations: {main path: launches}. A1
+    launches at 36 sites a step (12 encoder self, 12 decoder self, 12
+    cross), A6 at 35: the first decoder block's self-attention reads only
+    frozen embeddings and its frozen projections, so nothing there needs a
+    gradient; the FFN kernels at 24 each."""
+    launched = {}
+    for name, cfg_fn, path in T5_TRAIN_CFGS:
+        got = train_bench(card, cfg_fn, make_t5_train_batch, 300, 35,
+                          FLAGSHIP_TASKS, "vqa", T5_LR, path, name)
+        fwd, bwd = (("fused_gated_ffn", "fused_gated_ffn_bwd")
+                    if "gated" in path else ("fused_ffn", "fused_ffn_bwd"))
+        want = {"fused_attention": 360, "fused_attention_bwd": 350,
+                fwd: 240, bwd: 240}
+        seen = {k: got[k] for k in want}
+        if seen != want:
+            raise AssertionError(f"{name}: launches in 10 steps {seen}, "
+                                 f"expected {want}")
+        launched[path] = got
+    return launched
+
+
 def phase_video_train_bench(card: str):
     launched = train_bench(card, video_cfg, make_video_train_batch, 50, 33,
                            VIDEO_TASKS, "tvqa", 7e-4, "video_train",
@@ -1203,6 +1661,7 @@ def profile_run(run, card: str, what: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"ffn_fwd": "fused_ffn kernel (F1)",
                 "gated_fwd": "fused_gated_ffn kernel (F3)",
+                "gated_bwd": "fused_gated_ffn_bwd kernel (F4)",
                 "ffn_bwd": "fused_ffn_bwd kernel (F2)",
                 "ffn_bias": "fused_ffn_bwd kernel (F2)",
                 "attention_fwd": "fused_attention kernel (A1)",
@@ -1269,6 +1728,8 @@ def main() -> int:
     phase_video_kernels(rep)
     print("phase 3d: T5 eval-path kernels vs plain", flush=True)
     phase_t5_kernels(rep)
+    print("phase 3e: T5 training-path kernels vs plain", flush=True)
+    phase_t5_train_kernels(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -1287,18 +1748,22 @@ def main() -> int:
     phase_train_parity()
     print("phase 6b: video train-step parity, fp32", flush=True)
     phase_video_train_parity()
+    print("phase 6c: T5 train-step parity, fp32", flush=True)
+    phase_t5_train_parity()
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
     print("phase 7b: video train step, bf16", flush=True)
     launched["video_train"] = phase_video_train_bench(card)
+    print("phase 7c: T5 train step, bf16", flush=True)
+    launched.update(phase_t5_train_bench(card))
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:
         raise AssertionError(f"no timed case for {missing}")
     kernels = []
     for k, (src, replaces, paths) in KERNELS.items():
-        by_path = {p: launched[p][k] for p in paths}
+        by_path = {p: launched[p][wrapper_of(k)] for p in paths}
         main_path = next(p for p in MAIN_PATH_ORDER if p in paths)
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": replaces,

@@ -85,11 +85,16 @@ def test_attention_bias_plain_matches_pallas_interpret(causal):
 
 
 def test_attention_bias_is_eval_only():
+    """The bias itself gets no gradient: a bias that requires one raises
+    (its dbias is not ported); q, k and v train through a biased site."""
     q = torch.zeros(2, 3, 8, requires_grad=True)
     kv = torch.zeros(2, 4, 8)
     with pytest.raises(NotImplementedError, match="bias"):
         tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
-                             bias=torch.zeros(1, 2, 3, 4))
+                             bias=torch.zeros(1, 2, 3, 4, requires_grad=True))
+    out = tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
+                               bias=torch.zeros(1, 2, 3, 4))
+    assert out.requires_grad
     with pytest.raises(ValueError, match="bias must be"):
         tatt.fused_attention(q.detach(), kv, kv, torch.zeros(2, 1, 1, 4), 2,
                              bias=torch.zeros(1, 1, 3, 4))
@@ -142,15 +147,30 @@ def test_gated_ffn_plain_matches_pallas_interpret(monkeypatch):
 
 
 def test_relu_ffn_and_gated_ffn_are_eval_only():
-    x = torch.zeros(3, 16, requires_grad=True)
-    w1, w2 = torch.zeros(32, 16), torch.zeros(16, 32)
-    with pytest.raises(NotImplementedError):
-        tffn.fused_ffn(x, w1, torch.zeros(32), w2, torch.zeros(16), "relu")
-    with pytest.raises(NotImplementedError):
-        tffn.fused_ffn_bwd(x.detach(), x.detach(), w1, torch.zeros(32), w2,
-                           "relu")
-    with pytest.raises(NotImplementedError):
-        tffn.fused_gated_ffn(x, w1, w1, w2)
+    """Only the weight matrices are eval only (frozen, no dW: a weight that
+    requires a gradient raises); x trains through the relu FFN (F2) and the
+    gated FFN (F4), as autograd of the plain twins."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(3, 16)).astype(np.float32)).requires_grad_()
+    w1, w2 = (_t(rng.normal(size=s).astype(np.float32))
+              for s in ((32, 16), (16, 32)))
+    dy = _t(rng.normal(size=(3, 16)).astype(np.float32))
+    y = tffn.fused_ffn(x, w1, torch.zeros(32), w2, torch.zeros(16), "relu")
+    (dx,) = torch.autograd.grad(y, x, dy)
+    np.testing.assert_allclose(
+        tffn.fused_ffn_bwd(x.detach(), dy, w1, torch.zeros(32), w2,
+                           "relu")[0].numpy(), dx.numpy(), rtol=FP32_TOL,
+        atol=FP32_TOL)
+    y = tffn.fused_gated_ffn(x, w1, w1, w2)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    np.testing.assert_allclose(
+        tffn.fused_gated_ffn_bwd(x.detach(), dy, w1, w1, w2).numpy(),
+        dx.numpy(), rtol=FP32_TOL, atol=FP32_TOL)
+    for call in (lambda w: tffn.fused_ffn(x, w, torch.zeros(32), w2,
+                                          torch.zeros(16), "relu"),
+                 lambda w: tffn.fused_gated_ffn(x, w1, w, w2)):
+        with pytest.raises(ValueError, match="frozen"):
+            call(w1.clone().requires_grad_())
 
 
 def test_beam_attend_bias_row_plain_matches_pallas_every_pos():
@@ -320,6 +340,11 @@ def _wrapper_calls():
     yield "fused_gated_ffn", tffn, "gated_ffn_reference", \
         lambda: tffn.fused_gated_ffn(x, torch.zeros(64, 128),
                                      torch.zeros(64, 128), torch.zeros(128, 64))
+    yield "fused_gated_ffn_bwd", tffn, "gated_ffn_reference", \
+        lambda: tffn.fused_gated_ffn_bwd(x, x, torch.zeros(64, 128),
+                                         torch.zeros(64, 128),
+                                         torch.zeros(128, 64), "gelu_new",
+                                         0.1, seed)
     yield "fused_attention", tatt, "fused_attention_reference", \
         lambda: tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
                                      bias=torch.zeros(1, 2, 3, 4))
@@ -328,7 +353,7 @@ def _wrapper_calls():
                                         torch.zeros(1, 2, 1, 5))
 
 
-@pytest.mark.parametrize("which", range(13))
+@pytest.mark.parametrize("which", range(14))
 def test_cuda_request_without_library_raises_not_falls_back(which,
                                                             monkeypatch):
     """A wrapper asked to launch (device check patched to say CUDA) on a

@@ -290,15 +290,19 @@ def test_generate_token_parity(t5_models, beams):
 
 
 def test_t5_training_and_unported_options_raise():
-    """T5 training raises, and so does every T5 option the port lacks; no
-    call falls back to a plain path."""
+    """T5 training raises where it needs what the port lacks (a trainable
+    relative_attention_bias, whose dbias is not ported; vis.sparse_sample),
+    and so does every T5 option the port lacks; no call falls back to a
+    plain path."""
     cfg = _port_cfg(_jax_cfg(gated=False))
-    model = VLT5(cfg, device="cpu")
+    model = VLT5(cfg, device="cpu")  # nothing frozen: the bias trains
     ids = torch.ones((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="relative_attention_bias"):
         model(ids, ids, decoder_input_ids=ids, deterministic=False)
-    with pytest.raises(NotImplementedError):
-        model(ids, ids, labels=ids)
+    sparse = VLT5(dataclasses.replace(cfg, vis=dataclasses.replace(
+        cfg.vis, sparse_sample=True)), device="cpu")
+    with pytest.raises(NotImplementedError, match="sparse_sample"):
+        sparse(ids, ids, labels=ids, deterministic=False)
     for change in (dict(classifier=True), dict(use_fused_ce=True),
                    dict(use_fused_beam=True),
                    dict(pet=dataclasses.replace(cfg.pet, use_hyperformer=True)),

@@ -10,6 +10,15 @@
 // With ``causal`` the decoder triangle is applied in-kernel as in
 // _shared_terms / _head_logits: query i sees key j iff j <= i + (S - L),
 // and a hidden logit is set to -1e9 after the mask and bias are added.
+// With ``drop`` the probabilities take T5's attention dropout as in
+// _fwd_kernel: element (b, i, j) of head h is kept iff
+// hash_bits((b * L + i) * S + j, head_seed(seed, h)) >= thr (common.cuh;
+// the global index, so the 16-query tiles give the TPU's bits) and kept
+// probabilities are scaled by 1 / (1 - rate). The online softmax divides by
+// the row sum only at the end, so the P.V numerator takes the dropped
+// terms and the row sum the undropped ones: out = scale * sum_j keep_j
+// e_j v_j / sum_j e_j, the dropped normalised probabilities times v. The
+// seed is a (1,) int32 device tensor read by pointer.
 //
 // Bound on the H100: at the slice's shapes (L, S <= 56, Dh 64) each block
 // reads its K/V head slice once and does ~2*L*S*Dh FLOPs per head, far
@@ -44,9 +53,11 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
-                     const float* __restrict__ bias, T* __restrict__ out,
-                     float* __restrict__ lse, int L,
-                     int S, int H, int Dh, int mask_batched, int causal) {
+                     const float* __restrict__ bias,
+                     const int* __restrict__ seed_p, T* __restrict__ out,
+                     float* __restrict__ lse, int L, int S, int H, int Dh,
+                     int mask_batched, int causal, int drop, uint32_t thr,
+                     float scale) {
   extern __shared__ float smem[];
   const int ks = Dh + 1;
   float* Ks = smem;                  // [kKT][Dh + 1]
@@ -60,6 +71,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t)b * S * inner + (size_t)h * Dh;
   const T* vb = v + (size_t)b * S * inner + (size_t)h * Dh;
   const float* mb = mask + (mask_batched ? (size_t)b * S : 0);
+  const uint32_t hseed = drop ? head_seed((uint32_t)seed_p[0], h) : 0u;
 
   for (int i = tid; i < kQT * Dh; i += blockDim.x) {
     const int r = i / Dh, d = i - r * Dh;
@@ -111,10 +123,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = expf(sc - mn);
         const float corr = expf(m[rr] - mn);
         l[rr] = l[rr] * corr + warp_sum(p);
+        float pv = p;  // the numerator's term: dropped where not kept
+        if (drop && valid) {
+          const uint32_t idx =
+              ((uint32_t)b * (uint32_t)L + (uint32_t)(q0 + r)) * (uint32_t)S +
+              (uint32_t)s;
+          if (hash_bits(idx, hseed) < thr) pv = 0.f;
+        }
 #pragma unroll
         for (int i = 0; i < kDPL; ++i) acc[rr][i] *= corr;
         for (int j = 0; j < kKT; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, p, j);
+          const float pj = __shfl_sync(0xffffffffu, pv, j);
           const float* vr = Vs + j * Dh;
 #pragma unroll
           for (int i = 0; i < kDPL; ++i) {
@@ -131,7 +150,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < kRows; ++rr) {
     const int row = q0 + warp * kRows + rr;
     if (row < L) {
-      const float inv = 1.f / l[rr];
+      const float inv = (drop ? scale : 1.f) / l[rr];
       T* orow = out + ((size_t)b * L + row) * inner + (size_t)h * Dh;
 #pragma unroll
       for (int i = 0; i < kDPL; ++i) {
@@ -148,11 +167,13 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 extern "C" int vlpet_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask,
-                                   const void* bias, void* out, void* lse,
-                                   int B, int L, int S, int H,
-                                   int Dh, int mask_batched, int causal,
-                                   int is_bf16, void* stream) {
-  if (Dh < 1 || Dh > kMaxDh || B < 1 || L < 1 || S < 1 || H < 1)
+                                   const void* bias, const void* seed,
+                                   void* out, void* lse, int B, int L, int S,
+                                   int H, int Dh, int mask_batched,
+                                   int causal, int is_bf16, int drop, int thr,
+                                   float scale, void* stream) {
+  if (Dh < 1 || Dh > kMaxDh || B < 1 || L < 1 || S < 1 || H < 1 ||
+      (drop && (seed == nullptr || thr < 0)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((L + kQT - 1) / kQT, H, B);
   const size_t smem = sizeof(float) * ((size_t)kKT * (Dh + 1) +
@@ -161,13 +182,14 @@ extern "C" int vlpet_attention_fwd(const void* q, const void* k,
   if (is_bf16) {
     attention_fwd_kernel<bf16><<<grid, kWarps * 32, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
-        (const float*)bias, (bf16*)out, (float*)lse, L, S, H, Dh,
-        mask_batched, causal);
+        (const float*)bias, (const int*)seed, (bf16*)out, (float*)lse, L, S,
+        H, Dh, mask_batched, causal, drop, (uint32_t)thr, scale);
   } else {
     attention_fwd_kernel<float><<<grid, kWarps * 32, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v,
-        (const float*)mask, (const float*)bias, (float*)out, (float*)lse, L,
-        S, H, Dh, mask_batched, causal);
+        (const float*)mask, (const float*)bias, (const int*)seed,
+        (float*)out, (float*)lse, L, S, H, Dh, mask_batched, causal, drop,
+        (uint32_t)thr, scale);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// Attention backward (A6): dq, dk, dv of out = softmax(q . k^T + mask) . v.
+// Attention backward (A6): dq, dk, dv of
+//   out = drop(softmax(q . k^T + mask [+ bias] [causal])) . v.
 //
 // Replaces vlpet_tpu/ops/attention.py:_pallas_attention_bwd (_bwd_kernel),
 // the TPU backward behind fused_attention's custom_vjp. Layout as the
@@ -10,7 +11,16 @@
 // in fp32 on fp32 p and fp32 do:
 //   dv = p^T do,  dp = do v^T,  ds = p (dp - rowsum(dp p)),
 //   dq = ds k,    dk = ds^T q,
-// with dq, dk, dv stored in the input dtype.
+// with dq, dk, dv stored in the input dtype. The T5 training terms, as in
+// _bwd_kernel: an optional batch-shared per-head bias (H, L, S) f32 added
+// after the mask (it gets no gradient: no VL-PET recipe trains the relative
+// bias; its dbias is not ported), and with ``drop`` the probability
+// dropout, its mask regenerated from the seed as the forward draws it
+// (hash_bits((b * L + i) * S + j, head_seed(seed, h)), common.cuh):
+//   dv = p_drop^T do,  dp = keep ? (do v^T) / (1 - rate) : 0,
+//   ds = p (dp - rowsum(dp p)) with the UNdropped p,
+// p_drop = keep ? p / (1 - rate) : 0 being the forward's dropped
+// probabilities.
 //
 // Bound on the H100: per (batch, head) the work is 10 L S Dh FLOPs against
 // 4 (L + S) Dh inputs and outputs; at the encoder site (B 500, H 12,
@@ -42,9 +52,12 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ mask,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ seed_p,
                      const T* __restrict__ dout, T* __restrict__ dq,
                      T* __restrict__ dk, T* __restrict__ dv, int L, int S,
-                     int H, int Dh, int mask_batched, int causal) {
+                     int H, int Dh, int mask_batched, int causal, int drop,
+                     uint32_t thr, float scale) {
   extern __shared__ float sm[];
   const int ks = Dh + 1;
   float* Qs = sm;                  // [L][Dh]
@@ -60,6 +73,10 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t qoff = (size_t)b * L * inner + (size_t)h * Dh;
   const size_t koff = (size_t)b * S * inner + (size_t)h * Dh;
   const float* mb = mask + (mask_batched ? (size_t)b * S : 0);
+  const float* bh = bias != nullptr ? bias + (size_t)h * L * S : nullptr;
+  const uint32_t hseed = drop ? head_seed((uint32_t)seed_p[0], h) : 0u;
+  // global flat index of (b, row 0, key 0) in the (B, L, S) dropout mask
+  const uint32_t ibase = (uint32_t)b * (uint32_t)L * (uint32_t)S;
 
   for (int i = tid; i < L * Dh; i += kThreads) {
     const int r = i / Dh, d = i - r * Dh;
@@ -75,7 +92,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  // logits (masked) and dp = do . v^T
+  // logits (masked, biased) and dp = do . v^T
   for (int i = tid; i < L * S; i += kThreads) {
     const int r = i / S, s = i - r * S;
     const float* qr = Qs + r * Dh;
@@ -88,13 +105,15 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       c = fmaf(gr[d], vr[d], c);
     }
     a += mb[s];
+    if (bh != nullptr) a += bh[i];
     if (causal && s > r + (S - L)) a = -1e9f;
     P[i] = a;
     dP[i] = c;
   }
   __syncthreads();
 
-  // per row: p = softmax(logits); ds = p (dp - rowsum(dp p))
+  // per row: p = softmax(logits); dp through the dropout mask;
+  // ds = p (dp - rowsum(dp p)); then P holds the dropped p for dv
   for (int r = warp; r < L; r += kWarpsB) {
     float* pr = P + r * S;
     float* dr = dP + r * S;
@@ -109,17 +128,24 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     z = warp_sum(z);
     float t = 0.f;
+    const uint32_t irow = ibase + (uint32_t)r * (uint32_t)S;
     for (int s = lane; s < S; s += 32) {
       const float p = pr[s] / z;
       pr[s] = p;
+      if (drop) dr[s] = drop_elem(dr[s], irow + s, hseed, thr, scale);
       t = fmaf(dr[s], p, t);
     }
     t = warp_sum(t);
-    for (int s = lane; s < S; s += 32) dr[s] = pr[s] * (dr[s] - t);
+    for (int s = lane; s < S; s += 32) {
+      const float p = pr[s];
+      dr[s] = p * (dr[s] - t);
+      if (drop) pr[s] = drop_elem(p, irow + s, hseed, thr, scale);
+    }
   }
   __syncthreads();
 
-  // dv = p^T . do and dk = ds^T . q, summed over the query rows in order
+  // dv = p_drop^T . do and dk = ds^T . q, summed over the query rows in
+  // order
   T* dvb = dv + koff;
   T* dkb = dk + koff;
   for (int i = tid; i < S * Dh; i += kThreads) {
@@ -145,8 +171,9 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-           const void* dout, void* dq, void* dk, void* dv, int B, int L,
-           int S, int H, int Dh, int mask_batched, int causal,
+           const void* bias, const void* seed, const void* dout, void* dq,
+           void* dk, void* dv, int B, int L, int S, int H, int Dh,
+           int mask_batched, int causal, int drop, uint32_t thr, float scale,
            cudaStream_t st) {
   const size_t smem = sizeof(float) * bwd_smem_floats(L, S, Dh);
   cudaError_t err = cudaFuncSetAttribute(
@@ -155,8 +182,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   if (err != cudaSuccess) return (int)err;
   attention_bwd_kernel<T><<<dim3(H, B), kThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)mask,
-      (const T*)dout, (T*)dq, (T*)dk, (T*)dv, L, S, H, Dh, mask_batched,
-      causal);
+      (const float*)bias, (const int*)seed, (const T*)dout, (T*)dq, (T*)dk,
+      (T*)dv, L, S, H, Dh, mask_batched, causal, drop, thr, scale);
   return (int)cudaGetLastError();
 }
 
@@ -164,16 +191,21 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 extern "C" int vlpet_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* mask,
+                                   const void* bias, const void* seed,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, int B, int L, int S, int H,
                                    int Dh, int mask_batched, int causal,
-                                   int is_bf16, void* stream) {
-  if (B < 1 || L < 1 || S < 1 || H < 1 || Dh < 1 || B > 65535)
+                                   int is_bf16, int drop, int thr,
+                                   float scale, void* stream) {
+  if (B < 1 || L < 1 || S < 1 || H < 1 || Dh < 1 || B > 65535 ||
+      (drop && (seed == nullptr || thr < 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<bf16>(q, k, v, mask, dout, dq, dk, dv, B, L, S, H, Dh,
-                        mask_batched, causal, st);
-  return launch<float>(q, k, v, mask, dout, dq, dk, dv, B, L, S, H, Dh,
-                       mask_batched, causal, st);
+    return launch<bf16>(q, k, v, mask, bias, seed, dout, dq, dk, dv, B, L,
+                        S, H, Dh, mask_batched, causal, drop, (uint32_t)thr,
+                        scale, st);
+  return launch<float>(q, k, v, mask, bias, seed, dout, dq, dk, dv, B, L, S,
+                       H, Dh, mask_batched, causal, drop, (uint32_t)thr,
+                       scale, st);
 }

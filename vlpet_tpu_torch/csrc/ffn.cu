@@ -1,20 +1,28 @@
 // Fused transformer FFN, forward (F1) and backward (F2):
-//   y = act(x . W1^T + b1) . W2^T + b2,
-// and the gated FFN's forward (F3, t5-v1.1 gated-gelu):
-//   y = (act(x . W0^T) * (x . W1^T)) . Wo^T.
+//   y = drop(act(x . W1^T + b1)) . W2^T + b2,
+// and the gated FFN (t5-v1.1 gated-gelu), forward (F3) and backward (F4):
+//   y = drop(act(x . W0^T) * (x . W1^T)) . Wo^T.
 //
 // Replaces vlpet_tpu/ops/ffn.py:_run with _fwd_kernel (F1), with
-// _bwd_kernel (F2) and with _gated_fwd_kernel (F3), the kernels behind
-// fused_ffn's custom_vjp and fused_gated_ffn's forward. Weights come in
-// PyTorch's Linear layout: W1 (F, D), W2 (D, F), W0 (F, D), Wo (D, F);
-// biases are f32; act is gelu (erf, code 0), gelu_new (tanh, code 1) or
-// relu (code 2, forward only: F2 takes codes 0 and 1), applied in fp32. The
-// (N, F) hidden never reaches device memory: each block keeps its rows'
-// hidden chunk in shared memory and folds it straight into the next
-// product. The weight matrices are frozen (no dW1/dW2); the backward
-// recomputes fc1 and gives dx, db1 = sum of fp32 ds over the rows and
-// db2 = sum of dy, with ds rounded to x's dtype before the dx product as
-// the TPU kernel does.
+// _bwd_kernel (F2), with _gated_fwd_kernel (F3) and with _gated_bwd_kernel
+// (F4), the kernels behind the custom_vjps of fused_ffn and
+// fused_gated_ffn. Weights come in PyTorch's Linear layout: W1 (F, D),
+// W2 (D, F), W0 (F, D), Wo (D, F); biases are f32; act is gelu (erf, code
+// 0), gelu_new (tanh, code 1) or relu (code 2), applied in fp32. The (N, F)
+// hidden never reaches device memory: each block keeps its rows' hidden
+// chunk in shared memory and folds it straight into the next product. The
+// weight matrices are frozen (no dW); the backward recomputes fc1 and gives
+// dx, db1 = sum of fp32 ds over the rows and db2 = sum of dy, with ds
+// rounded to x's dtype before the dx product as the TPU kernel does.
+// Hidden dropout (T5 training): element (n, f) of the (N, F) hidden is
+// kept iff hash_bits(n * F + f, seed) >= thr (common.cuh; the global
+// index, so the 32-row blocks give the TPU's bits), applied in fp32 after
+// the activation and before the bf16 rounding; the backward regenerates
+// the mask on the hidden's cotangent. F4 recomputes h0 = x . W0^T and
+// h1 = x . W1^T, forms dg = dy . Wo, drops it, and folds
+// dh0 = dg * h1 * act'(h0) and dh1 = dg * act(h0), each rounded to x's
+// dtype as the TPU kernel does, into dx = dh0 . W0 + dh1 . W1 (no biases
+// in T5, so dx alone).
 //
 // Bound on the H100: the forward is 4 N D F FLOPs, the backward 6 N D F
 // (recomputed fc1, dh = dy . W2, dx = ds . W1), against ~2 D F weight
@@ -31,7 +39,10 @@
 // warps compute the 32x64 tiles of x . W0^T and x . W1^T, combine them as
 // act(h0) * h1 in fp32, round the product to bf16 in shared memory and fold
 // it into the output as F1 does; at N = 16800, D 768, F 2048 it is 6 N D F
-// FLOPs, 0.16 ms at 989 TFLOP/s. No wgmma/TMA yet. fp32 inputs take
+// FLOPs, 0.16 ms at 989 TFLOP/s. F4 is F2's block with three tiles per
+// chunk (h0, h1 and dg: three WMMA accumulators a warp) and two hidden
+// tiles (dh0, dh1) folded into the same fp32 dx fragments: 10 N D F FLOPs,
+// 0.27 ms at N = 16800, D 768, F 2048. No wgmma/TMA yet. fp32 inputs take
 // plain-FMA kernels of the same shape (fp32 tensor-core paths are TF32 and
 // would break fp32 parity). Rows past N are zero-filled in shared memory
 // and masked at the store: no padding copy. The backward's bias sums are deterministic: each
@@ -54,6 +65,7 @@ __device__ __forceinline__ float act_fn(float h, int act) {
 
 // d act / d h, as vlpet_tpu/ops/ffn.py:_act_grad
 __device__ __forceinline__ float act_grad(float h, int act) {
+  if (act == 2) return h > 0.f ? 1.f : 0.f;
   if (act == 0) {
     const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
     const float pdf = 0.39894228040143268f * expf(-0.5f * h * h);
@@ -84,7 +96,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 ffn_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
              const float* __restrict__ b1, const bf16* __restrict__ w2,
              const float* __restrict__ b2, bf16* __restrict__ y, int N,
-             int F, int act) {
+             int F, int act, DropArgs dr) {
   constexpr int D = kWarps * 16 * NCF;
   constexpr int XLD = D + kPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -94,6 +106,7 @@ ffn_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   const int n0 = blockIdx.x * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t seed = seed_of(dr);
 
   for (int i = tid; i < kBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
@@ -128,8 +141,11 @@ ffn_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     __syncthreads();
     for (int i = tid; i < kBM * kBF; i += blockDim.x) {
       const int r = i / kBF, c = i - r * kBF;
-      hs[r * kHLD + c] =
-          __float2bfloat16(act_fn(hf[r * kFLD + c] + b1[f0 + c], act));
+      float hv = act_fn(hf[r * kFLD + c] + b1[f0 + c], act);
+      if (dr.on)
+        hv = drop_elem(hv, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
+                       dr.thr, dr.scale);
+      hs[r * kHLD + c] = __float2bfloat16(hv);
     }
     __syncthreads();
     // fc2: y[32 x D] += h[32 x 64] . W2[:, f0 : f0+64]^T (this warp's cols)
@@ -169,7 +185,7 @@ ffn_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
 template <int NCF>
 int launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
-                const void* b2, void* y, int N, int F, int act,
+                const void* b2, void* y, int N, int F, int act, DropArgs dr,
                 cudaStream_t st) {
   const size_t smem = wmma_smem(kWarps * 16 * NCF);
   cudaError_t err = cudaFuncSetAttribute(
@@ -178,7 +194,7 @@ int launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
   if (err != cudaSuccess) return (int)err;
   ffn_fwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
       (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (bf16*)y, N, F, act);
+      (const float*)b2, (bf16*)y, N, F, act, dr);
   return (int)cudaGetLastError();
 }
 
@@ -193,7 +209,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
              const bf16* __restrict__ w1, const float* __restrict__ b1,
              const bf16* __restrict__ w2, bf16* __restrict__ dx,
-             float* __restrict__ partial, int N, int F, int act) {
+             float* __restrict__ partial, int N, int F, int act,
+             DropArgs dr) {
   constexpr int D = kWarps * 16 * NCF;
   constexpr int XLD = D + kPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -206,6 +223,7 @@ ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   const int n0 = blockIdx.x * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* prow = partial + (size_t)blockIdx.x * (F + D);
+  const uint32_t seed = seed_of(dr);
 
   for (int i = tid; i < kBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
@@ -248,11 +266,15 @@ ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     wmma::store_matrix_sync(gf + arow * 16 * kFLD + acol * 16, gacc, kFLD,
                             wmma::mem_row_major);
     __syncthreads();
-    // ds = dh * act'(h + b1): fp32 into gf (for db1), bf16 into hs (for dx)
+    // ds = drop(dh) * act'(h + b1): fp32 into gf (for db1), bf16 into hs
+    // (for dx)
     for (int i = tid; i < kBM * kBF; i += blockDim.x) {
       const int r = i / kBF, c = i - r * kBF;
-      const float ds =
-          gf[r * kFLD + c] * act_grad(hf[r * kFLD + c] + b1[f0 + c], act);
+      float g = gf[r * kFLD + c];
+      if (dr.on)
+        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
+                      dr.thr, dr.scale);
+      const float ds = g * act_grad(hf[r * kFLD + c] + b1[f0 + c], act);
       gf[r * kFLD + c] = ds;
       hs[r * kHLD + c] = __float2bfloat16(ds);
     }
@@ -307,7 +329,7 @@ ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 template <int NCF>
 int launch_bwd_wmma(const void* x, const void* dy, const void* w1,
                     const void* b1, const void* w2, void* dx, void* partial,
-                    int N, int F, int act, cudaStream_t st) {
+                    int N, int F, int act, DropArgs dr, cudaStream_t st) {
   const size_t smem = wmma_bwd_smem(kWarps * 16 * NCF);
   cudaError_t err = cudaFuncSetAttribute(
       ffn_bwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -315,7 +337,7 @@ int launch_bwd_wmma(const void* x, const void* dy, const void* w1,
   if (err != cudaSuccess) return (int)err;
   ffn_bwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
       (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
-      (const bf16*)w2, (bf16*)dx, (float*)partial, N, F, act);
+      (const bf16*)w2, (bf16*)dx, (float*)partial, N, F, act, dr);
   return (int)cudaGetLastError();
 }
 
@@ -329,12 +351,13 @@ __global__ void __launch_bounds__(kFThreads)
 ffn_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
             const float* __restrict__ b1, const float* __restrict__ w2,
             const float* __restrict__ b2, float* __restrict__ y, int N, int D,
-            int F, int act) {
+            int F, int act, DropArgs dr) {
   extern __shared__ float fsm[];
   float* xs = fsm;               // [kFBM][D]
   float* hs = xs + kFBM * D;     // [kFBM][kFBF]
   const int n0 = blockIdx.x * kFBM;
   const int tid = threadIdx.x;
+  const uint32_t seed = seed_of(dr);
   for (int i = tid; i < kFBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
     const int n = n0 + r;
@@ -358,8 +381,14 @@ ffn_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
       h1 = fmaf(xs[(hr + 8) * D + d], w, h1);
     }
     const float bb = b1[f0 + hc];
-    hs[hr * kFBF + hc] = act_fn(h0 + bb, act);
-    hs[(hr + 8) * kFBF + hc] = act_fn(h1 + bb, act);
+    float a0 = act_fn(h0 + bb, act), a1 = act_fn(h1 + bb, act);
+    if (dr.on) {
+      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      a0 = drop_elem(a0, i0, seed, dr.thr, dr.scale);
+      a1 = drop_elem(a1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+    }
+    hs[hr * kFBF + hc] = a0;
+    hs[(hr + 8) * kFBF + hc] = a1;
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < kFOut; ++c) {
@@ -394,13 +423,15 @@ __global__ void __launch_bounds__(kFThreads)
 ffn_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
             const float* __restrict__ w1, const float* __restrict__ b1,
             const float* __restrict__ w2, float* __restrict__ dx,
-            float* __restrict__ partial, int N, int D, int F, int act) {
+            float* __restrict__ partial, int N, int D, int F, int act,
+            DropArgs dr) {
   extern __shared__ float fsm[];
   float* xs = fsm;               // [kFBM][D]
   float* dys = xs + kFBM * D;    // [kFBM][D]
   float* ds = dys + kFBM * D;    // [kFBM][kFBF]
   const int n0 = blockIdx.x * kFBM;
   const int tid = threadIdx.x;
+  const uint32_t seed = seed_of(dr);
   float* prow = partial + (size_t)blockIdx.x * (F + D);
   for (int i = tid; i < kFBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
@@ -430,6 +461,11 @@ ffn_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
       g1 = fmaf(dys[(hr + 8) * D + d], u, g1);
     }
     const float bb = b1[f0 + hc];
+    if (dr.on) {
+      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      g0 = drop_elem(g0, i0, seed, dr.thr, dr.scale);
+      g1 = drop_elem(g1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+    }
     ds[hr * kFBF + hc] = g0 * act_grad(h0 + bb, act);
     ds[(hr + 8) * kFBF + hc] = g1 * act_grad(h1 + bb, act);
     __syncthreads();
@@ -496,7 +532,7 @@ template <int NCF>
 __global__ void __launch_bounds__(kWarps * 32)
 gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
                const bf16* __restrict__ w1, const bf16* __restrict__ wo,
-               bf16* __restrict__ y, int N, int F, int act) {
+               bf16* __restrict__ y, int N, int F, int act, DropArgs dr) {
   constexpr int D = kWarps * 16 * NCF;
   constexpr int XLD = D + kPad;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -507,6 +543,7 @@ gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 
   const int n0 = blockIdx.x * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t seed = seed_of(dr);
 
   for (int i = tid; i < kBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
@@ -546,8 +583,11 @@ gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
     __syncthreads();
     for (int i = tid; i < kBM * kBF; i += blockDim.x) {
       const int r = i / kBF, c = i - r * kBF;
-      hs[r * kHLD + c] = __float2bfloat16(act_fn(h0f[r * kFLD + c], act) *
-                                          h1f[r * kFLD + c]);
+      float g = act_fn(h0f[r * kFLD + c], act) * h1f[r * kFLD + c];
+      if (dr.on)
+        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
+                      dr.thr, dr.scale);
+      hs[r * kHLD + c] = __float2bfloat16(g);
     }
     __syncthreads();
     // y[32 x D] += g[32 x 64] . Wo[:, f0 : f0+64]^T (this warp's cols)
@@ -588,7 +628,7 @@ gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
 template <int NCF>
 int launch_gated_wmma(const void* x, const void* w0, const void* w1,
                       const void* wo, void* y, int N, int F, int act,
-                      cudaStream_t st) {
+                      DropArgs dr, cudaStream_t st) {
   const size_t smem = gated_smem(kWarps * 16 * NCF);
   cudaError_t err = cudaFuncSetAttribute(
       gated_fwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -596,19 +636,21 @@ int launch_gated_wmma(const void* x, const void* w0, const void* w1,
   if (err != cudaSuccess) return (int)err;
   gated_fwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
       (const bf16*)x, (const bf16*)w0, (const bf16*)w1, (const bf16*)wo,
-      (bf16*)y, N, F, act);
+      (bf16*)y, N, F, act, dr);
   return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kFThreads)
 gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
               const float* __restrict__ w1, const float* __restrict__ wo,
-              float* __restrict__ y, int N, int D, int F, int act) {
+              float* __restrict__ y, int N, int D, int F, int act,
+              DropArgs dr) {
   extern __shared__ float fsm[];
   float* xs = fsm;               // [kFBM][D]
   float* hs = xs + kFBM * D;     // [kFBM][kFBF]
   const int n0 = blockIdx.x * kFBM;
   const int tid = threadIdx.x;
+  const uint32_t seed = seed_of(dr);
   for (int i = tid; i < kFBM * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
     const int n = n0 + r;
@@ -635,8 +677,14 @@ gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
       g0 = fmaf(xa, w, g0);
       g1 = fmaf(xb, w, g1);
     }
-    hs[hr * kFBF + hc] = act_fn(a0, act) * g0;
-    hs[(hr + 8) * kFBF + hc] = act_fn(a1, act) * g1;
+    float v0 = act_fn(a0, act) * g0, v1 = act_fn(a1, act) * g1;
+    if (dr.on) {
+      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      v0 = drop_elem(v0, i0, seed, dr.thr, dr.scale);
+      v1 = drop_elem(v1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+    }
+    hs[hr * kFBF + hc] = v0;
+    hs[(hr + 8) * kFBF + hc] = v1;
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < kFOut; ++c) {
@@ -666,26 +714,263 @@ gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
   }
 }
 
+// ------------------------------------------------------------ gated (F4)
+__host__ __device__ constexpr size_t gated_bwd_smem(int D) {
+  return (size_t)2 * kBM * (D + kPad) * 2 + (size_t)2 * kBM * kHLD * 2 +
+         (size_t)3 * kBM * kFLD * 4;
+}
+
+// dx of the gated FFN. D = kWarps * 16 * NCF: each warp owns NCF 16-col
+// fragments of dx and one 16 x 16 fragment of each 32 x 64 chunk tile.
+template <int NCF>
+__global__ void __launch_bounds__(kWarps * 32)
+gated_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+               const bf16* __restrict__ w0, const bf16* __restrict__ w1,
+               const bf16* __restrict__ wo, bf16* __restrict__ dx, int N,
+               int F, int act, DropArgs dr) {
+  constexpr int D = kWarps * 16 * NCF;
+  constexpr int XLD = D + kPad;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // [kBM][XLD]
+  bf16* dys = xs + kBM * XLD;                              // [kBM][XLD]
+  bf16* d0s = dys + kBM * XLD;                             // [kBM][kHLD] dh0
+  bf16* d1s = d0s + kBM * kHLD;                            // [kBM][kHLD] dh1
+  float* h0f = reinterpret_cast<float*>(d1s + kBM * kHLD); // [kBM][kFLD] h0
+  float* h1f = h0f + kBM * kFLD;                           // [kBM][kFLD] h1
+  float* gf = h1f + kBM * kFLD;                            // [kBM][kFLD] dg
+
+  const int n0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t seed = seed_of(dr);
+
+  for (int i = tid; i < kBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    const bool in = n < N;
+    xs[r * XLD + c] = in ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
+    dys[r * XLD + c] = in ? dy[(size_t)n * D + c] : __float2bfloat16(0.f);
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xacc[2][NCF];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(xacc[i][j], 0.f);
+
+  const int arow = warp >> 2;  // chunk tiles: row fragment of this warp
+  const int acol = warp & 3;   // chunk tiles: hidden col fragment
+  __syncthreads();
+
+  for (int f0 = 0; f0 < F; f0 += kBF) {
+    // h0 = x . W0[f0 : f0+64, :]^T, h1 = x . W1[f0 : f0+64, :]^T and
+    // dg = dy . Wo[:, f0 : f0+64]
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1, gacc;
+    wmma::fill_fragment(acc0, 0.f);
+    wmma::fill_fragment(acc1, 0.f);
+    wmma::fill_fragment(gacc, 0.f);
+    const size_t wrow = (size_t)(f0 + acol * 16) * D;
+    const bf16* wop = wo + f0 + acol * 16;
+    for (int kk = 0; kk < D; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
+      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
+      wmma::load_matrix_sync(b0, w0 + wrow + kk, D);
+      wmma::load_matrix_sync(b1, w1 + wrow + kk, D);
+      wmma::mma_sync(acc0, a, b0, acc0);
+      wmma::mma_sync(acc1, a, b1, acc1);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg;
+      wmma::load_matrix_sync(a, dys + arow * 16 * XLD + kk, XLD);
+      wmma::load_matrix_sync(bg, wop + (size_t)kk * F, F);
+      wmma::mma_sync(gacc, a, bg, gacc);
+    }
+    const int off = arow * 16 * kFLD + acol * 16;
+    wmma::store_matrix_sync(h0f + off, acc0, kFLD, wmma::mem_row_major);
+    wmma::store_matrix_sync(h1f + off, acc1, kFLD, wmma::mem_row_major);
+    wmma::store_matrix_sync(gf + off, gacc, kFLD, wmma::mem_row_major);
+    __syncthreads();
+    // dg through the dropout mask; dh0 = dg h1 act'(h0), dh1 = dg act(h0),
+    // each rounded to bf16
+    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
+      const int r = i / kBF, c = i - r * kBF;
+      const float h0 = h0f[r * kFLD + c], h1 = h1f[r * kFLD + c];
+      float g = gf[r * kFLD + c];
+      if (dr.on)
+        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
+                      dr.thr, dr.scale);
+      d0s[r * kHLD + c] = __float2bfloat16(g * h1 * act_grad(h0, act));
+      d1s[r * kHLD + c] = __float2bfloat16(g * act_fn(h0, act));
+    }
+    __syncthreads();
+    // dx[32 x D] += dh0 . W0[f0 : f0+64, :] + dh1 . W1[f0 : f0+64, :]
+#pragma unroll
+    for (int kk = 0; kk < kBF; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1,
+          c0, c1;
+      wmma::load_matrix_sync(a0, d0s + kk, kHLD);
+      wmma::load_matrix_sync(a1, d0s + 16 * kHLD + kk, kHLD);
+      wmma::load_matrix_sync(c0, d1s + kk, kHLD);
+      wmma::load_matrix_sync(c1, d1s + 16 * kHLD + kk, kHLD);
+#pragma unroll
+      for (int j = 0; j < NCF; ++j) {
+        const size_t wq = (size_t)(f0 + kk) * D + warp * NCF * 16 + j * 16;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
+        wmma::load_matrix_sync(bw, w0 + wq, D);
+        wmma::mma_sync(xacc[0][j], a0, bw, xacc[0][j]);
+        wmma::mma_sync(xacc[1][j], a1, bw, xacc[1][j]);
+        wmma::load_matrix_sync(bw, w1 + wq, D);
+        wmma::mma_sync(xacc[0][j], c0, bw, xacc[0][j]);
+        wmma::mma_sync(xacc[1][j], c1, bw, xacc[1][j]);
+      }
+    }
+    __syncthreads();  // d0s, d1s and the staging tiles are rewritten next
+  }
+
+  float* stage = h0f + warp * 256;  // per-warp output staging
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NCF; ++j) {
+      wmma::store_matrix_sync(stage, xacc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int n = n0 + i * 16 + (e >> 4);
+        const int o = warp * NCF * 16 + j * 16 + (e & 15);
+        if (n < N) dx[(size_t)n * D + o] = __float2bfloat16(stage[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+template <int NCF>
+int launch_gated_bwd_wmma(const void* x, const void* dy, const void* w0,
+                          const void* w1, const void* wo, void* dx, int N,
+                          int F, int act, DropArgs dr, cudaStream_t st) {
+  const size_t smem = gated_bwd_smem(kWarps * 16 * NCF);
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_bwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gated_bwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
+      (const bf16*)x, (const bf16*)dy, (const bf16*)w0, (const bf16*)w1,
+      (const bf16*)wo, (bf16*)dx, N, F, act, dr);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(kFThreads)
+gated_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
+              const float* __restrict__ w0, const float* __restrict__ w1,
+              const float* __restrict__ wo, float* __restrict__ dx, int N,
+              int D, int F, int act, DropArgs dr) {
+  extern __shared__ float fsm[];
+  float* xs = fsm;               // [kFBM][D]
+  float* dys = xs + kFBM * D;    // [kFBM][D]
+  float* d0 = dys + kFBM * D;    // [kFBM][kFBF] dh0
+  float* d1 = d0 + kFBM * kFBF;  // [kFBM][kFBF] dh1
+  const int n0 = blockIdx.x * kFBM;
+  const int tid = threadIdx.x;
+  const uint32_t seed = seed_of(dr);
+  for (int i = tid; i < kFBM * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    const int n = n0 + r;
+    xs[i] = n < N ? x[(size_t)n * D + c] : 0.f;
+    dys[i] = n < N ? dy[(size_t)n * D + c] : 0.f;
+  }
+  float xacc[kFBM][kFOut];
+#pragma unroll
+  for (int r = 0; r < kFBM; ++r)
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) xacc[r][c] = 0.f;
+  __syncthreads();
+
+  const int hc = tid & (kFBF - 1);  // hidden column of this thread
+  const int hr = tid / kFBF;        // rows hr and hr + 8
+  for (int f0 = 0; f0 < F; f0 += kFBF) {
+    const float* w0r = w0 + (size_t)(f0 + hc) * D;
+    const float* w1r = w1 + (size_t)(f0 + hc) * D;
+    const float* woc = wo + f0 + hc;
+    float a[2] = {0.f, 0.f}, b[2] = {0.f, 0.f}, g[2] = {0.f, 0.f};
+    for (int d = 0; d < D; ++d) {
+      const float u = w0r[d], w = w1r[d], o = woc[(size_t)d * F];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float xv = xs[(hr + 8 * k) * D + d];
+        a[k] = fmaf(xv, u, a[k]);
+        b[k] = fmaf(xv, w, b[k]);
+        g[k] = fmaf(dys[(hr + 8 * k) * D + d], o, g[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int r = hr + 8 * k;
+      float gk = g[k];
+      if (dr.on)
+        gk = drop_elem(gk, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + hc), seed,
+                       dr.thr, dr.scale);
+      d0[r * kFBF + hc] = gk * b[k] * act_grad(a[k], act);
+      d1[r * kFBF + hc] = gk * act_fn(a[k], act);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kFOut; ++c) {
+      const int o = tid + kFThreads * c;
+      if (o < D) {
+        for (int f = 0; f < kFBF; ++f) {
+          const float u = w0[(size_t)(f0 + f) * D + o];
+          const float w = w1[(size_t)(f0 + f) * D + o];
+#pragma unroll
+          for (int r = 0; r < kFBM; ++r)
+            xacc[r][c] = fmaf(d1[r * kFBF + f], w,
+                              fmaf(d0[r * kFBF + f], u, xacc[r][c]));
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int c = 0; c < kFOut; ++c) {
+    const int o = tid + kFThreads * c;
+    if (o < D) {
+#pragma unroll
+      for (int r = 0; r < kFBM; ++r) {
+        const int n = n0 + r;
+        if (n < N) dx[(size_t)n * D + o] = xacc[r][c];
+      }
+    }
+  }
+}
+
+inline DropArgs drop_args(const void* seed, int drop, int thr, float scale) {
+  return DropArgs{(const int*)seed, drop, (uint32_t)thr, scale};
+}
+
+inline bool bad_drop(const void* seed, int drop, int thr) {
+  return drop && (seed == nullptr || thr < 0);
+}
+
 }  // namespace
 
 extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
-                             const void* w2, const void* b2, void* y, int N,
-                             int D, int F, int act, int is_bf16,
+                             const void* w2, const void* b2, const void* seed,
+                             void* y, int N, int D, int F, int act,
+                             int is_bf16, int drop, int thr, float scale,
                              void* stream) {
-  if (N < 1 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
     if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
       return (int)cudaErrorInvalidValue;
     switch (D / (kWarps * 16)) {
-      case 1: return launch_wmma<1>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 2: return launch_wmma<2>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 3: return launch_wmma<3>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 4: return launch_wmma<4>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 5: return launch_wmma<5>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 6: return launch_wmma<6>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 7: return launch_wmma<7>(x, w1, b1, w2, b2, y, N, F, act, st);
-      case 8: return launch_wmma<8>(x, w1, b1, w2, b2, y, N, F, act, st);
+      case 1: return launch_wmma<1>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 2: return launch_wmma<2>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 3: return launch_wmma<3>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 4: return launch_wmma<4>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 5: return launch_wmma<5>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 6: return launch_wmma<6>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 7: return launch_wmma<7>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+      case 8: return launch_wmma<8>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -697,31 +982,33 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
   if (err != cudaSuccess) return (int)err;
   ffn_fwd_f32<<<(N + kFBM - 1) / kFBM, kFThreads, smem, st>>>(
       (const float*)x, (const float*)w1, (const float*)b1, (const float*)w2,
-      (const float*)b2, (float*)y, N, D, F, act);
+      (const float*)b2, (float*)y, N, D, F, act, dr);
   return (int)cudaGetLastError();
 }
 
 extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
-                             const void* b1, const void* w2, void* dx,
-                             void* partial, void* db1, void* db2, int N, int D,
-                             int F, int G, int act, int is_bf16,
-                             void* stream) {
-  if (N < 1 || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+                             const void* b1, const void* w2, const void* seed,
+                             void* dx, void* partial, void* db1, void* db2,
+                             int N, int D, int F, int G, int act, int is_bf16,
+                             int drop, int thr, float scale, void* stream) {
+  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const DropArgs dr = drop_args(seed, drop, thr, scale);
   int err = (int)cudaErrorInvalidValue;
   if (is_bf16) {
     if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0 ||
         G != (N + kBM - 1) / kBM)
       return (int)cudaErrorInvalidValue;
     switch (D / (kWarps * 16)) {
-      case 1: err = launch_bwd_wmma<1>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 2: err = launch_bwd_wmma<2>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 3: err = launch_bwd_wmma<3>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 4: err = launch_bwd_wmma<4>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 5: err = launch_bwd_wmma<5>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 6: err = launch_bwd_wmma<6>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 7: err = launch_bwd_wmma<7>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
-      case 8: err = launch_bwd_wmma<8>(x, dy, w1, b1, w2, dx, partial, N, F, act, st); break;
+      case 1: err = launch_bwd_wmma<1>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 2: err = launch_bwd_wmma<2>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 3: err = launch_bwd_wmma<3>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 4: err = launch_bwd_wmma<4>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 5: err = launch_bwd_wmma<5>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 6: err = launch_bwd_wmma<6>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 7: err = launch_bwd_wmma<7>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+      case 8: err = launch_bwd_wmma<8>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
     }
   } else {
     if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0 ||
@@ -733,7 +1020,7 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
     if (e != cudaSuccess) return (int)e;
     ffn_bwd_f32<<<G, kFThreads, smem, st>>>(
         (const float*)x, (const float*)dy, (const float*)w1, (const float*)b1,
-        (const float*)w2, (float*)dx, (float*)partial, N, D, F, act);
+        (const float*)w2, (float*)dx, (float*)partial, N, D, F, act, dr);
     err = (int)cudaGetLastError();
   }
   if (err != 0) return err;
@@ -743,23 +1030,26 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
 }
 
 extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
-                                   const void* w1, const void* wo, void* y,
-                                   int N, int D, int F, int act, int is_bf16,
-                                   void* stream) {
-  if (N < 1 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+                                   const void* w1, const void* wo,
+                                   const void* seed, void* y, int N, int D,
+                                   int F, int act, int is_bf16, int drop,
+                                   int thr, float scale, void* stream) {
+  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
     if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
       return (int)cudaErrorInvalidValue;
     switch (D / (kWarps * 16)) {
-      case 1: return launch_gated_wmma<1>(x, w0, w1, wo, y, N, F, act, st);
-      case 2: return launch_gated_wmma<2>(x, w0, w1, wo, y, N, F, act, st);
-      case 3: return launch_gated_wmma<3>(x, w0, w1, wo, y, N, F, act, st);
-      case 4: return launch_gated_wmma<4>(x, w0, w1, wo, y, N, F, act, st);
-      case 5: return launch_gated_wmma<5>(x, w0, w1, wo, y, N, F, act, st);
-      case 6: return launch_gated_wmma<6>(x, w0, w1, wo, y, N, F, act, st);
-      case 7: return launch_gated_wmma<7>(x, w0, w1, wo, y, N, F, act, st);
-      case 8: return launch_gated_wmma<8>(x, w0, w1, wo, y, N, F, act, st);
+      case 1: return launch_gated_wmma<1>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 2: return launch_gated_wmma<2>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 3: return launch_gated_wmma<3>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 4: return launch_gated_wmma<4>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 5: return launch_gated_wmma<5>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 6: return launch_gated_wmma<6>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 7: return launch_gated_wmma<7>(x, w0, w1, wo, y, N, F, act, dr, st);
+      case 8: return launch_gated_wmma<8>(x, w0, w1, wo, y, N, F, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -771,6 +1061,44 @@ extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
   if (err != cudaSuccess) return (int)err;
   gated_fwd_f32<<<(N + kFBM - 1) / kFBM, kFThreads, smem, st>>>(
       (const float*)x, (const float*)w0, (const float*)w1, (const float*)wo,
-      (float*)y, N, D, F, act);
+      (float*)y, N, D, F, act, dr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vlpet_gated_ffn_bwd(const void* x, const void* dy,
+                                   const void* w0, const void* w1,
+                                   const void* wo, const void* seed, void* dx,
+                                   int N, int D, int F, int act, int is_bf16,
+                                   int drop, int thr, float scale,
+                                   void* stream) {
+  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const DropArgs dr = drop_args(seed, drop, thr, scale);
+  if (is_bf16) {
+    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
+      return (int)cudaErrorInvalidValue;
+    switch (D / (kWarps * 16)) {
+      case 1: return launch_gated_bwd_wmma<1>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 2: return launch_gated_bwd_wmma<2>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 3: return launch_gated_bwd_wmma<3>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 4: return launch_gated_bwd_wmma<4>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 5: return launch_gated_bwd_wmma<5>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 6: return launch_gated_bwd_wmma<6>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 7: return launch_gated_bwd_wmma<7>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+      case 8: return launch_gated_bwd_wmma<8>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * kFBM * D + (size_t)2 * kFBM * kFBF);
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gated_bwd_f32<<<(N + kFBM - 1) / kFBM, kFThreads, smem, st>>>(
+      (const float*)x, (const float*)dy, (const float*)w0, (const float*)w1,
+      (const float*)wo, (float*)dx, N, D, F, act, dr);
   return (int)cudaGetLastError();
 }

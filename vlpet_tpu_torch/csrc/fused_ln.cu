@@ -8,7 +8,8 @@
 // serves every (B, L, D) view.
 //
 // The dropout mask is the murmur3 hash of the GLOBAL flat element index
-// row * D + col in uint32 arithmetic (vlpet_tpu/ops/hashdrop.py keep_mask):
+// row * D + col in uint32 arithmetic (vlpet_tpu/ops/hashdrop.py keep_mask;
+// ``hash_bits`` in common.cuh, shared with the attention and FFN kernels):
 // keep iff (hash & 0x7FFFFFFF) >= int(rate * 2^31). Nothing is stored: the
 // backward regenerates the mask from the seed, which is a (1,) int32 device
 // tensor read by pointer (no host sync per site). Statistics are the fast
@@ -33,16 +34,6 @@ using namespace vlpet;
 namespace {
 
 constexpr int kWarps = 8;
-
-__device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t seed) {
-  uint32_t z = idx * 2654435761u + seed;
-  z ^= z >> 16;
-  z *= 0x7FEB352Du;
-  z ^= z >> 15;
-  z *= 0x846CA68Bu;
-  z ^= z >> 16;
-  return z & 0x7FFFFFFFu;
-}
 
 // x = res + dropout(h) for the NPER columns lane + 32 i of one row, with
 // the keep decisions as a bit mask; returns through the arrays.

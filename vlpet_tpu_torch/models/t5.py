@@ -1,5 +1,5 @@
 """T5 encoder/decoder with the VL-PET-large hooks and the VLT5 glue, for
-evaluation, ported from vlpet_tpu/models/t5.py.
+training and evaluation, ported from vlpet_tpu/models/t5.py.
 
 Semantics kept from the JAX module:
 
@@ -16,17 +16,28 @@ Semantics kept from the JAX module:
 * the tied LM head with the d_model**-0.5 rescale, or an untied ``lm_head``
   (t5-v1.1) without it; no vocab pad.
 
-Eval only (``deterministic=True``): the training forward, the classifier,
-prompts, the hyperformer and ``use_fused_ce`` raise NotImplementedError
-(at build through models/vlbart.py check_supported, or at call).
+Training (``VLT5.forward`` with ``deterministic=False``): hash dropout
+(ops/hashdrop.py) at rate ``dropout_rate`` on the embeddings, on every
+residual branch and on the final states of both stacks, on the attention
+probabilities inside A1/A6 and on the FFN hidden inside F1-F4, one seed per
+site per step drawn from the caller's generator in the order of
+``VLT5.dropout_sites``; the loss is vlpet_tpu/models/t5.py:1030-1067's
+(``linear_ce`` on the rescaled states for the tied head in bf16, else CE on
+the fp32 logits). What the port lacks raises NotImplementedError: the
+classifier, prompts, the hyperformer and ``use_fused_ce`` at build
+(models/vlbart.py check_supported); at a training call, a trainable
+``relative_attention_bias`` (its dbias is not ported), ``vis.sparse_sample``
+and, in ops.attention, a biased or dropping site on the long backward
+(T5 video).
 
 Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
 ops.attention.fused_attention (A1, with the relative bias as its per-head
 ``bias``), beam self-attention through ops.decode.beam_decode_attend (D1,
 with the bias row), the relu FFN through ops.ffn.fused_ffn (F1, zero
-biases) and the gated-gelu FFN through ops.ffn.fused_gated_ffn (F3), unless
-``use_fused_ffn`` is off or the language model trains. Parameter names are
+biases; backward F2) and the gated-gelu FFN through ops.ffn.fused_gated_ffn
+(F3, backward F4), unless ``use_fused_ffn`` is off or the language model
+trains (the FFN kernels have no weight gradient). Parameter names are
 the flax tree's (``blocks_{i}``, ``shared``, ``lm_head``), so
 vlpet_tpu_torch.convert carries the weights across unchanged.
 """
@@ -42,20 +53,23 @@ import torch.nn as nn
 
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.bart import NEG_INF, compute_dtype, expand_mask
+from vlpet_tpu_torch.models.bart import (NEG_INF, _seed, compute_dtype,
+                                         expand_mask)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (VisualEmbedding,
                                            joint_attention_mask)
-from vlpet_tpu_torch.models.vlbart import check_supported
+from vlpet_tpu_torch.models.vlbart import check_supported, shift_tokens_right
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
+from vlpet_tpu_torch.ops.ce import cross_entropy_with_ignore, linear_ce
 from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
                                         beam_decode_attend_reference,
                                         decode_attend)
 from vlpet_tpu_torch.ops.ffn import (ffn_reference, fused_ffn,
                                      fused_gated_ffn, gated_ffn_reference)
+from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
 from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeXLowRank,
                                          MultiheadDownAdapter, PetContext,
                                          TaskDense)
@@ -152,12 +166,14 @@ class T5Attention(nn.Module):
                 kv_states: Optional[torch.Tensor] = None,
                 cache: Optional[Cache] = None,
                 decode_pos: Optional[int] = None,
-                beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                beam_anc: Optional[torch.Tensor] = None, rate: float = 0.0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask``: additive (B, 1, 1, S) padding mask (enc_self, cross).
         ``bias``: the relative bias, (1, H, L, S) for a whole sequence, or
         at a decode step the (1, H, 1, L_cache) row (beam) or row plus the
         causal mask (greedy). The decode cache is updated IN PLACE at slot
-        ``decode_pos``."""
+        ``decode_pos``. ``rate`` > 0 (training, whole sequences): dropout
+        of the probabilities, driven by ``seed``."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
@@ -169,14 +185,16 @@ class T5Attention(nn.Module):
                 out = beam_cross_attend(q.reshape(B * L, 1, H, Dh), k, v,
                                         mask, attend)
                 return self.o(out.reshape(B, L, -1))
-            return self.o(attend(q, k, v, mask.float(), H))
+            return self.o(attend(q, k, v, mask.float(), H, False, None, rate,
+                                 seed))
         k = self.k(hidden_states)
         v = self.v(hidden_states)
         if cache is None:
             if mask is None:  # teacher-forced decoder: no padding mask
                 mask = torch.zeros((1, 1, 1, L), dtype=torch.float32,
                                    device=q.device)
-            return self.o(attend(q, k, v, mask.float(), H, causal, bias))
+            return self.o(attend(q, k, v, mask.float(), H, causal, bias, rate,
+                                 seed))
         cache["k"][decode_pos] = k.reshape(B, -1).to(cache["k"].dtype)
         cache["v"][decode_pos] = v.reshape(B, -1).to(cache["v"].dtype)
         q4 = q.reshape(B, 1, H, Dh)
@@ -270,19 +288,31 @@ class T5Block(nn.Module):
             self.attn_hooks = T5EncoderHooks(cfg, "attn", device)
             self.ff_hooks = T5EncoderHooks(cfg, "ff", device)
 
-    def _ff(self, x: torch.Tensor) -> torch.Tensor:
-        fused = self.cfg.use_fused_ffn  # eval only: no weight gradient
+    def _ff(self, x: torch.Tensor, rate: float = 0.0,
+            seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The FFN with its hidden dropout: the kernels (F1/F2 relu, F3/F4
+        gated) unless ``use_fused_ffn`` is off or the language model trains
+        (the kernels give no weight gradient), as BART's ``_ffn``."""
+        c = self.cfg
+        fused = c.use_fused_ffn and not c.pet.unfreeze_language_model
         x2 = x.reshape(-1, x.shape[-1])
         if self.gated:
             fn = (route(fused_gated_ffn, gated_ffn_reference) if fused
                   else gated_ffn_reference)
             y = fn(x2, self.wi_0.weight, self.wi_1.weight, self.wo.weight,
-                   "gelu_new")
+                   "gelu_new", rate, seed)
         else:
             fn = route(fused_ffn, ffn_reference) if fused else ffn_reference
             y = fn(x2, self.wi.weight, self.zero_b1, self.wo.weight,
-                   self.zero_b2, "relu")
+                   self.zero_b2, "relu", rate, seed)
         return y.reshape(x.shape)
+
+    def _res_drop(self, y: torch.Tensor,
+                  seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """Residual-branch hash dropout (vlpet_tpu/models/t5.py:460)."""
+        if seeds is None:
+            return y
+        return hash_dropout(y, seeds.next(), self.cfg.backbone.dropout_rate)
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
                 mask: Optional[torch.Tensor] = None,
@@ -292,26 +322,33 @@ class T5Block(nn.Module):
                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache: Optional[Cache] = None,
                 decode_pos: Optional[int] = None,
-                beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                beam_anc: Optional[torch.Tensor] = None,
+                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        """``seeds`` (training) drives, in this order, the self-attention's
+        probability and residual dropout, the cross-attention's (decoder),
+        and the FFN's hidden and residual dropout."""
+        rate = self.cfg.backbone.dropout_rate if seeds is not None else 0.0
         x = hidden_states
         y = self.self_attn(self.self_attn_layer_norm(x), ctx, mask=mask,
                            bias=bias, causal=causal, cache=cache,
-                           decode_pos=decode_pos, beam_anc=beam_anc)
+                           decode_pos=decode_pos, beam_anc=beam_anc,
+                           rate=rate, seed=_seed(seeds))
         if not self.is_decoder:
             y = self.attn_hooks(y, x)
-        h = x + y
+        h = x + self._res_drop(y, seeds)
         if self.is_decoder and (encoder_hidden_states is not None
                                 or cross_kv is not None):
             x = h
             y = self.cross_attn(self.cross_attn_layer_norm(x), ctx,
                                 mask=cross_mask, cross_kv=cross_kv,
-                                kv_states=encoder_hidden_states)
-            h = x + y
+                                kv_states=encoder_hidden_states, rate=rate,
+                                seed=_seed(seeds))
+            h = x + self._res_drop(y, seeds)
         x = h
-        y = self._ff(self.ff_layer_norm(x))
+        y = self._ff(self.ff_layer_norm(x), rate, _seed(seeds))
         if not self.is_decoder:
             y = self.ff_hooks(y, x)
-        h = x + y
+        h = x + self._res_drop(y, seeds)
         if self.dtype != torch.float32:
             clamp = torch.finfo(self.dtype).max - 1000
             h = torch.clamp(h, -clamp, clamp)
@@ -353,9 +390,13 @@ class T5JointEncoder(nn.Module):
                 img_order_ids: Optional[torch.Tensor] = None,
                 obj_order_ids: Optional[torch.Tensor] = None,
                 vis_attention_mask: Optional[torch.Tensor] = None,
-                ctx: Optional[PetContext] = None):
-        """Returns (hidden_states, joint_attention_mask [B, L_joint])."""
+                ctx: Optional[PetContext] = None,
+                seeds: Optional[DropoutSeeds] = None):
+        """Returns (hidden_states, joint_attention_mask [B, L_joint]).
+        ``seeds`` (training) drives the embedding dropout, every block's
+        sites and the dropout of the final states."""
         v = self.cfg.vis
+        rate = self.cfg.backbone.dropout_rate
         dt = self.dtype
         ctx = ctx or PetContext()
         L = input_ids.shape[1]
@@ -368,6 +409,8 @@ class T5JointEncoder(nn.Module):
             h = torch.cat([h, vis_embeds], dim=1)
             mask = joint_attention_mask(attention_mask, vis_embeds.shape[1],
                                         vis_attention_mask)
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), rate)
         # the (B, 1, 1, S) padding mask stays apart from the (1, H, S, S)
         # bias: text-text pairs get the T5 bias, pairs with a visual token 0
         pad_mask = expand_mask(mask, 1, dt).float()
@@ -379,8 +422,11 @@ class T5JointEncoder(nn.Module):
         bias[:, :, :L, :L] = text_bias
         bias = bias.float()  # the kernels take fp32: the same dt values
         for blk in blocks:
-            h = blk(h, ctx, mask=pad_mask, bias=bias)
-        return self.final_layer_norm(h), mask
+            h = blk(h, ctx, mask=pad_mask, bias=bias, seeds=seeds)
+        h = self.final_layer_norm(h)
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), rate)
+        return h, mask
 
 
 class T5Decoder(nn.Module):
@@ -433,21 +479,30 @@ class T5Decoder(nn.Module):
                       shared_embedding: torch.Tensor,
                       encoder_hidden_states: torch.Tensor,
                       encoder_attention_mask: torch.Tensor,
-                      ctx: PetContext) -> torch.Tensor:
+                      ctx: PetContext,
+                      seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
         """The whole target sequence (B, T): the relative bias plus the
         causal triangle, in-kernel, and cross-attention over the encoder
-        states. Returns (B, T, d)."""
+        states. ``seeds`` (training) drives the embedding dropout, every
+        block's sites and the dropout of the final states. Returns
+        (B, T, d)."""
         dt = self.dtype
+        rate = self.cfg.backbone.dropout_rate
         T = input_ids.shape[1]
         h = shared_embedding[input_ids].to(dt)
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), rate)
         blocks = self.blocks()
         bias = blocks[0].self_attn.compute_bias(T, T).float()
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
         for blk in blocks:
             h = blk(h, ctx, bias=bias, causal=True,
                     encoder_hidden_states=encoder_hidden_states,
-                    cross_mask=cross_mask)
-        return self.final_layer_norm(h)
+                    cross_mask=cross_mask, seeds=seeds)
+        h = self.final_layer_norm(h)
+        if seeds is not None:
+            h = hash_dropout(h, seeds.next(), rate)
+        return h
 
     def compute_cross_kvs(self, encoder_hidden_states: torch.Tensor,
                           ctx: PetContext):
@@ -489,10 +544,10 @@ _ZERO_INIT_RULES = (
 
 
 class VLT5(nn.Module):
-    """Seq2seq LM head over VLT5Model for evaluation (vlpet_tpu/models/
-    t5.py:930). Built on the card unless ``device`` says otherwise. Eval
-    only: every public method runs without autograd (the biased attention,
-    relu and gated FFN kernels have no backward yet)."""
+    """Seq2seq LM head over VLT5Model (vlpet_tpu/models/t5.py:930). Built
+    on the card unless ``device`` says otherwise. ``forward`` trains
+    (``deterministic=False``, with autograd) or evaluates; the generation
+    methods run without autograd."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -573,31 +628,101 @@ class VLT5(nn.Module):
             dec_out = dec_out * (b.d_model ** -0.5)
         return dec_out.float() @ w.t()
 
-    @torch.no_grad()
+    # --- training ------------------------------------------------------------
+
+    def dropout_sites(self) -> int:
+        """Dropout seeds one training step draws, consumed in this order:
+        the encoder's embedding dropout; per encoder block the
+        self-attention's probabilities and residual, the FFN's hidden and
+        residual; the encoder's final states; the decoder's embedding
+        dropout; per decoder block the self-attention's probabilities and
+        residual, the cross-attention's, the FFN's hidden and residual; the
+        decoder's final states."""
+        b = self.cfg.backbone
+        return 4 + 4 * b.num_layers + 6 * b.num_decoder_layers
+
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 vis_feats: Optional[torch.Tensor] = None,
                 boxes: Optional[torch.Tensor] = None,
                 decoder_input_ids: Optional[torch.Tensor] = None,
                 ctx: Optional[PetContext] = None, deterministic: bool = True,
                 labels: Optional[torch.Tensor] = None, img_order_ids=None,
-                obj_order_ids=None,
-                vis_attention_mask=None) -> Dict[str, torch.Tensor]:
-        """Teacher-forced deterministic forward -> {"logits" (B, T, V) fp32,
-        "encoder_last_hidden_state"}. T5 training (dropout, the loss) is
-        not ported: ``deterministic=False`` and ``labels`` raise."""
-        if not deterministic or labels is not None:
-            raise NotImplementedError("T5 training (dropout, loss) is not "
-                                      "ported; the T5 path is eval only")
+                obj_order_ids=None, vis_attention_mask=None,
+                generator: Optional[torch.Generator] = None,
+                reduce_loss: bool = False) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward (vlpet_tpu/models/t5.py:1006-1067) on
+        ``decoder_input_ids`` or on ``labels`` shifted right. Returns
+        {"logits", "encoder_last_hidden_state"} and, with labels, "loss":
+        per-token (B, T) fp32, or the mean over valid tokens when
+        ``reduce_loss``. ``deterministic=False`` trains: autograd on,
+        dropout with one seed per site drawn from ``generator``
+        (``dropout_sites``); otherwise no autograd. On the bf16 linear_ce
+        route "logits" is the bf16 copy the loss keeps."""
+        b = self.cfg.backbone
         if decoder_input_ids is None:
-            raise ValueError("forward needs decoder_input_ids")
-        ctx = ctx or PetContext()
-        enc, joint_mask = self.encode(input_ids, attention_mask, vis_feats,
-                                      boxes, img_order_ids, obj_order_ids,
-                                      vis_attention_mask, ctx)
-        dec = self.model.decoder.teacher_force(
-            decoder_input_ids, self.model.shared, enc, joint_mask, ctx)
-        return {"logits": self._logits(dec, self.logits_weight()),
-                "encoder_last_hidden_state": enc}
+            if labels is None:
+                raise ValueError("forward needs labels or decoder_input_ids")
+            decoder_input_ids = shift_tokens_right(
+                labels, b.pad_token_id, b.decoder_start_token_id)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not deterministic):
+            seeds = None
+            if not deterministic:
+                self._check_trainable()
+                if b.dropout_rate > 0:
+                    seeds = DropoutSeeds(self.dropout_sites(), generator,
+                                         input_ids.device)
+            ctx = ctx or PetContext()
+            enc, joint_mask = self.model.encoder(
+                input_ids, attention_mask, self.model.shared,
+                vis_feats=vis_feats, boxes=boxes, img_order_ids=img_order_ids,
+                obj_order_ids=obj_order_ids,
+                vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds)
+            dec = self.model.decoder.teacher_force(
+                decoder_input_ids, self.model.shared, enc, joint_mask, ctx,
+                seeds)
+            out = {"encoder_last_hidden_state": enc}
+            if labels is None:
+                out["logits"] = self._logits(dec, self.logits_weight())
+            else:
+                out["loss"], out["logits"] = self._ce(dec, labels,
+                                                      reduce_loss)
+            return out
+
+    def _check_trainable(self) -> None:
+        """Raise for a training call that needs what is not ported."""
+        if self.cfg.vis.sparse_sample:
+            raise NotImplementedError("vis.sparse_sample is not ported")
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for n, p in self.named_parameters()
+                if n.endswith("relative_attention_bias")):
+            raise NotImplementedError(
+                "a trainable relative_attention_bias is not ported (the "
+                "attention kernels give the bias no gradient)")
+
+    def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
+            reduce_loss: bool):
+        """(loss, logits), routed as vlpet_tpu/models/t5.py:1030-1067: the
+        tied, frozen head in bf16 takes ``linear_ce`` on the rescaled states
+        (zero bias, one bf16 logits copy); otherwise CE over the fp32
+        logits. (``use_fused_ce`` raises at build.)"""
+        b, p = self.cfg.backbone, self.cfg.pet
+        head_frozen = (b.tie_word_embeddings and not p.unfreeze_lm_head
+                       and not p.unfreeze_language_model)
+        if head_frozen and dec_out.dtype == torch.bfloat16:
+            B, T = labels.shape
+            x2 = (dec_out * (b.d_model ** -0.5)).reshape(B * T, -1)
+            zero_b = torch.zeros(b.vocab_size, dtype=torch.float32,
+                                 device=dec_out.device)
+            nll, logits = linear_ce(x2, self.model.shared, zero_b,
+                                    labels.reshape(-1))
+            per_tok = nll.reshape(B, T)
+            if reduce_loss:
+                valid = (labels != -100).sum().clamp(min=1)
+                return per_tok.sum() / valid, logits.reshape(B, T, -1)
+            return per_tok, logits.reshape(B, T, -1)
+        logits = self._logits(dec_out, self.logits_weight())
+        return cross_entropy_with_ignore(logits, labels, reduce_loss), logits
 
     # --- generation-facing methods ------------------------------------------
 

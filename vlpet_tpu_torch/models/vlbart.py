@@ -69,9 +69,12 @@ def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
 
 def check_supported(cfg: VLModelConfig) -> None:
     """Raise NotImplementedError for any configuration the port does not
-    implement, rather than ignoring it. Both backbones share the list; a T5
-    backbone builds for evaluation only (models/t5.py: its training call
-    raises).
+    implement, rather than ignoring it. Both backbones share the list and
+    both train and evaluate. What is unported only on a training call
+    raises there: ``lambda_z`` (train/steps.py), a trainable T5
+    ``relative_attention_bias`` and ``vis.sparse_sample`` (models/t5.py
+    ``VLT5.forward``), a biased or dropping attention site on the long
+    backward (T5 video, ops/attention.py).
 
     Not read by the port: use_pallas_attention (TPU kernel routing; on
     CUDA the port runs its kernels)."""

@@ -35,22 +35,27 @@ _F = ctypes.c_float
 # C signature of every exported launcher: pointers, ints, floats, then the
 # stream. Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
-    # q, k, v, mask, bias (or NULL), out, lse (or NULL), B, L, S, H, Dh,
-    # mask_batched, causal, is_bf16, stream
-    "vlpet_attention_fwd": [_P] * 7 + [_I] * 8 + [_P],
-    # q, k, v, mask, do, dq, dk, dv, B, L, S, H, Dh, mask_batched, causal,
-    # is_bf16, stream
-    "vlpet_attention_bwd": [_P] * 8 + [_I] * 8 + [_P],
+    # q, k, v, mask, bias (or NULL), seed (or NULL), out, lse (or NULL), B,
+    # L, S, H, Dh, mask_batched, causal, is_bf16, drop, thr, scale, stream
+    "vlpet_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _P],
+    # q, k, v, mask, bias (or NULL), seed (or NULL), do, dq, dk, dv, B, L,
+    # S, H, Dh, mask_batched, causal, is_bf16, drop, thr, scale, stream
+    "vlpet_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _P],
     # q, k, v, mask, out, lse, do, dq, dk, dv, delta, B, L, S, H, Dh,
     # mask_batched, causal, is_bf16, stream
     "vlpet_attention_bwd_long": [_P] * 11 + [_I] * 8 + [_P],
-    # x, w1, b1, w2, b2, y, N, D, F, act, is_bf16, stream
-    "vlpet_ffn_fwd": [_P] * 6 + [_I] * 5 + [_P],
-    # x, w0, w1, wo, y, N, D, F, act, is_bf16, stream
-    "vlpet_gated_ffn_fwd": [_P] * 5 + [_I] * 5 + [_P],
-    # x, dy, w1, b1, w2, dx, partial, db1, db2, N, D, F, G, act, is_bf16,
-    # stream
-    "vlpet_ffn_bwd": [_P] * 9 + [_I] * 6 + [_P],
+    # x, w1, b1, w2, b2, seed (or NULL), y, N, D, F, act, is_bf16, drop,
+    # thr, scale, stream
+    "vlpet_ffn_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # x, w0, w1, wo, seed (or NULL), y, N, D, F, act, is_bf16, drop, thr,
+    # scale, stream
+    "vlpet_gated_ffn_fwd": [_P] * 6 + [_I] * 7 + [_F, _P],
+    # x, dy, w0, w1, wo, seed (or NULL), dx, N, D, F, act, is_bf16, drop,
+    # thr, scale, stream
+    "vlpet_gated_ffn_bwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # x, dy, w1, b1, w2, seed (or NULL), dx, partial, db1, db2, N, D, F, G,
+    # act, is_bf16, drop, thr, scale, stream
+    "vlpet_ffn_bwd": [_P] * 10 + [_I] * 8 + [_F, _P],
     # h, res, gamma, beta, seed, y, N, D, drop, thr, scale, eps, is_bf16,
     # stream
     "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],

@@ -17,12 +17,18 @@ whole head in shared memory, where that fits; else the tiled long backward
 (csrc/attention_bwd_long.cu), for which the forward also saves its output
 and A1's row logsumexp. Both recompute the softmax and give dq, dk, dv;
 the mask gets no gradient. Bounds on the H100 and designs: the header
-notes of the sources. The T5 relative bias rides as ``bias``, a
-batch-shared (1, H, L, S) term that A1 adds to the logits after the mask
-(the (B, H, L, S) sum never exists); it is eval only: with a bias no
-backward is ported (it comes with T5 training), so a call that needs a
-gradient raises NotImplementedError. Per-head masks and probability
-dropout are not on the ported path and are not accepted.
+notes of the sources.
+
+T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
+fp32 term added to the logits after the mask (the (B, H, L, S) sum never
+exists), and ``rate`` > 0 drops the probabilities with the hash mask of
+ops/hashdrop.py ``attention_keep_mask`` (seed: a (1,) int32 tensor),
+regenerated in the backward, as vlpet_tpu/ops/attention.py does. A1 and
+A6 take both. The bias gets no gradient: a bias that requires one raises
+NotImplementedError (no VL-PET recipe trains ``relative_attention_bias``;
+the TPU's dbias is not ported), and so does a gradient through the long
+backward with a bias or a rate (T5 video). Per-head masks are not on the
+ported path and are not accepted.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from vlpet_tpu_torch.ops import _build
+from vlpet_tpu_torch.ops.hashdrop import (attention_keep_mask, check_drop,
+                                          kernel_drop_args)
 
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 
@@ -61,6 +69,16 @@ def _logits(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
     return s
 
 
+def _drop_probs(p: torch.Tensor, rate: float, seed) -> torch.Tensor:
+    """The fp32 (B, H, L, S) probabilities through the attention dropout:
+    kept ones scaled by 1 / (1 - rate), the rest 0."""
+    if rate <= 0.0:
+        return p
+    B, H, L, S = p.shape
+    keep = attention_keep_mask(B, L, S, H, seed, rate, device=p.device)
+    return torch.where(keep, p * (1.0 / (1.0 - rate)), torch.zeros_like(p))
+
+
 def _attend(p: torch.Tensor, v: torch.Tensor, num_heads: int,
             dtype: torch.dtype) -> torch.Tensor:
     """(B, H, L, S) probabilities cast to ``dtype``, times v -> (B, L, H*Dh)."""
@@ -73,14 +91,16 @@ def _attend(p: torch.Tensor, v: torch.Tensor, num_heads: int,
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, mask: torch.Tensor,
                               num_heads: int, causal: bool = False,
-                              bias: torch.Tensor = None) -> torch.Tensor:
+                              bias: torch.Tensor = None, rate: float = 0.0,
+                              seed: torch.Tensor = None) -> torch.Tensor:
     """Plain version (vlpet_tpu/ops/attention.py:984
-    fused_attention_reference, no dropout): fp32 logits plus the mask, plus
-    the (1, H, L, S) bias, hidden causal logits set to -1e9, fp32 softmax,
-    probabilities cast to q's dtype before the value product. Autograd
-    differentiates it."""
+    fused_attention_reference): fp32 logits plus the mask, plus the
+    (1, H, L, S) bias, hidden causal logits set to -1e9, fp32 softmax,
+    the probability dropout of ``attention_keep_mask`` in fp32 when
+    ``rate`` > 0, probabilities cast to q's dtype before the value product.
+    Autograd differentiates it."""
     p = torch.softmax(_logits(q, k, mask, num_heads, causal, bias), dim=-1)
-    return _attend(p, v, num_heads, q.dtype)
+    return _attend(_drop_probs(p, rate, seed), v, num_heads, q.dtype)
 
 
 def fused_attention_lse_reference(q, k, v, mask, num_heads: int,
@@ -129,7 +149,7 @@ def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     return "A6" if smem <= _SMEM_LIMIT else "long"
 
 
-def _check(q, k, v, mask, num_heads, bias=None):
+def _check(q, k, v, mask, num_heads, bias=None, rate=0.0, seed=None):
     B, L, inner = q.shape
     S = k.shape[1]
     if k.shape != (B, S, inner) or v.shape != (B, S, inner):
@@ -146,6 +166,7 @@ def _check(q, k, v, mask, num_heads, bias=None):
                              or bias.dtype != torch.float32):
         raise ValueError(f"bias must be (1, H={num_heads}, L={L}, S={S}) "
                          f"fp32; got {bias.dtype} {tuple(bias.shape)}")
+    check_drop(rate, seed)
 
 
 def _kernel_inputs(q, k, v, mask, extra=()):
@@ -159,23 +180,36 @@ def _kernel_inputs(q, k, v, mask, extra=()):
     return m
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _extras(bias, rate, seed):
+    """The kernels' bias and seed inputs, checked and contiguous."""
+    if bias is not None:
+        bias = bias.contiguous()
+    if rate > 0.0:
+        _build.check(seed, "seed", (torch.int32,), 1)
+    else:
+        seed = None
+    return bias, seed
+
+
 def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False,
-                bias=None):
+                bias=None, rate=0.0, seed=None):
     """A1 -> out, or (out, lse) with ``with_lse``."""
     B, L, inner = q.shape
     S = k.shape[1]
     m = _kernel_inputs(q, k, v, mask)
-    if bias is not None:
-        bias = bias.contiguous()
+    bias, seed = _extras(bias, rate, seed)
     out = torch.empty_like(q)
     lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
                        device=q.device) if with_lse else None)
     _build.launch("vlpet_attention_fwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), m.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  None if lse is None else lse.data_ptr(), B, L, S,
-                  num_heads, inner // num_heads, int(m.shape[0] == B),
-                  int(causal), int(q.dtype == torch.bfloat16))
+                  v.data_ptr(), m.data_ptr(), _ptr(bias), _ptr(seed),
+                  out.data_ptr(), _ptr(lse), B, L, S, num_heads,
+                  inner // num_heads, int(m.shape[0] == B), int(causal),
+                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
     fused_attention.launches += 1
     return (out, lse) if with_lse else out
 
@@ -198,18 +232,23 @@ def fused_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, do: torch.Tensor, num_heads: int,
-                        causal: bool = False):
+                        causal: bool = False, bias: torch.Tensor = None,
+                        rate: float = 0.0, seed: torch.Tensor = None):
     """(dq, dk, dv) of fused_attention for cotangent ``do`` (B, L, H*Dh), in
     the inputs' dtype: kernel A6 on CUDA tensors (where ``backward_route``
     says "A6"; raises otherwise), autograd of the plain version on CPU
-    tensors. The mask gets no gradient."""
-    _check(q, k, v, mask, num_heads)
+    tensors. The mask and the bias get no gradient; with ``rate`` > 0 the
+    forward's dropout mask is regenerated from ``seed``."""
+    _check(q, k, v, mask, num_heads, bias, rate, seed)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
-    if not _build.use_kernel(q, k, v, mask, do):
+    ts = (q, k, v, mask, do) + tuple(t for t in (bias, seed) if t is not None)
+    if not _build.use_kernel(*ts):
         with torch.enable_grad():
             args = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = fused_attention_reference(*args, mask, num_heads, causal)
+            out = fused_attention_reference(
+                *args, mask, num_heads, causal,
+                None if bias is None else bias.detach(), rate, seed)
             return torch.autograd.grad(out, args, do)
     B, L, inner = q.shape
     S = k.shape[1]
@@ -220,12 +259,13 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"them")
     do = do.contiguous()
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"),))
+    bias, seed = _extras(bias, rate, seed)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _build.launch("vlpet_attention_bwd", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), m.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), B, L, S, num_heads, Dh,
-                  int(m.shape[0] == B), int(causal),
-                  int(q.dtype == torch.bfloat16))
+                  v.data_ptr(), m.data_ptr(), _ptr(bias), _ptr(seed),
+                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  B, L, S, num_heads, Dh, int(m.shape[0] == B), int(causal),
+                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
     fused_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -270,13 +310,14 @@ def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
 
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, num_heads, causal):
-        ctx.num_heads, ctx.causal = num_heads, causal
+    def forward(ctx, q, k, v, mask, bias, seed, num_heads, causal, rate):
+        ctx.num_heads, ctx.causal, ctx.rate = num_heads, causal, rate
         ctx.long = backward_route(q.shape[1], k.shape[1],
                                   q.shape[2] // num_heads, q.dtype) == "long"
         if not ctx.long:
-            ctx.save_for_backward(q, k, v, mask)
-            return _launch_fwd(q, k, v, mask, num_heads, causal)
+            ctx.save_for_backward(q, k, v, mask, bias, seed)
+            return _launch_fwd(q, k, v, mask, num_heads, causal, bias=bias,
+                               rate=rate, seed=seed)
         out, lse = _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True)
         ctx.save_for_backward(q, k, v, mask, out, lse)
         return out
@@ -288,34 +329,47 @@ class _FusedAttention(torch.autograd.Function):
             dq, dk, dv = fused_attention_bwd_long(q, k, v, mask, out, lse, do,
                                                   ctx.num_heads, ctx.causal)
         else:
-            q, k, v, mask = ctx.saved_tensors
+            q, k, v, mask, bias, seed = ctx.saved_tensors
             dq, dk, dv = fused_attention_bwd(q, k, v, mask, do, ctx.num_heads,
-                                             ctx.causal)
-        return dq, dk, dv, None, None, None
+                                             ctx.causal, bias, ctx.rate, seed)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, num_heads: int, causal: bool = False,
-                    bias: torch.Tensor = None) -> torch.Tensor:
-    """softmax(q . k^T + mask [+ bias] [causal]) . v per head -> (B, L, H*Dh)
-    in q's dtype; differentiable in q, k, v when there is no bias.
+                    bias: torch.Tensor = None, rate: float = 0.0,
+                    seed: torch.Tensor = None) -> torch.Tensor:
+    """drop(softmax(q . k^T + mask [+ bias] [causal])) . v per head ->
+    (B, L, H*Dh) in q's dtype; differentiable in q, k and v.
 
     mask: additive (B|1, 1, 1, S); bias: batch-shared additive (1, H, L, S)
-    fp32 (T5 relative positions), eval only. CPU tensors
-    run the plain version; CUDA tensors launch A1 forward and the backward
-    ``backward_route`` picks."""
-    _check(q, k, v, mask, num_heads, bias)
-    if bias is not None and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError("fused_attention: no backward with a bias "
-                                  "yet (it comes with T5 training)")
-    ts = (q, k, v, mask) + (() if bias is None else (bias,))
+    fp32 (T5 relative positions), which gets no gradient; ``rate`` > 0:
+    probability dropout driven by ``seed``, a (1,) int32 tensor. CPU
+    tensors run the plain version; CUDA tensors launch A1 forward and the
+    backward ``backward_route`` picks. Raises NotImplementedError for a bias
+    that requires a gradient, and for a gradient through the long backward
+    with a bias or a rate."""
+    _check(q, k, v, mask, num_heads, bias, rate, seed)
+    grad = torch.is_grad_enabled()
+    if grad and bias is not None and bias.requires_grad:
+        raise NotImplementedError("fused_attention: no gradient for the bias "
+                                  "(a trainable relative_attention_bias; its "
+                                  "dbias is not ported)")
+    need_grad = grad and any(t.requires_grad for t in (q, k, v))
+    if need_grad and (bias is not None or rate > 0.0) and backward_route(
+            q.shape[1], k.shape[1], q.shape[2] // num_heads,
+            q.dtype) == "long":
+        raise NotImplementedError("fused_attention: the long backward takes "
+                                  "no bias and no dropout (T5 video)")
+    ts = (q, k, v, mask) + tuple(t for t in (bias, seed) if t is not None)
     if not _build.use_kernel(*ts):
         return fused_attention_reference(q, k, v, mask, num_heads, causal,
-                                         bias)
-    if bias is not None:
-        return _launch_fwd(q, k, v, mask, num_heads, causal, bias=bias)
-    return _FusedAttention.apply(q, k, v, mask, num_heads, causal)
+                                         bias, rate, seed)
+    if not need_grad:
+        return _launch_fwd(q, k, v, mask, num_heads, causal, bias=bias,
+                           rate=rate, seed=seed)
+    return _FusedAttention.apply(q, k, v, mask, bias, seed, num_heads, causal,
+                                 rate)
 
 
 fused_attention.launches = 0

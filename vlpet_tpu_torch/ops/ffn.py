@@ -1,24 +1,29 @@
 """Fused FFN, forward (kernel F1) and backward (kernel F2), the gated FFN's
-forward (kernel F3), and their plain twins.
+forward (kernel F3) and backward (kernel F4), and their plain twins.
 
 Replaces vlpet_tpu/ops/ffn.py:fused_ffn, whose TPU kernels are _run with
 _fwd_kernel (F1) and with _bwd_kernel (F2) under a custom_vjp:
-y = act(x . W1 + b1) . W2 + b2 with the (N, F) hidden kept off device
-memory; the backward recomputes fc1 and gives dx, db1 and db2. The weight
-matrices are frozen, as ``ffn_supported`` requires in the JAX package: the
-Function has no dW1/dW2 and raises when either weight requires a gradient
-(the model routes a trainable language model to the plain fc1 -> act ->
-fc2). Weights here are in PyTorch's Linear layout, W1 (F, D) and W2 (D, F).
-Bound on the H100 and design: the header note of csrc/ffn.cu. bf16 runs on
-tensor cores (WMMA), fp32 on plain FMA. The activation is gelu, gelu_new or
-relu (T5); F2 has no relu yet, so relu raises where a gradient is asked
-for. Activation dropout is not on the ported path.
+y = drop(act(x . W1 + b1)) . W2 + b2 with the (N, F) hidden kept off
+device memory; the backward recomputes fc1 and gives dx, db1 and db2. The
+weight matrices are frozen, as ``ffn_supported`` requires in the JAX
+package: the Functions have no dW and raise when a weight requires a
+gradient (the models route a trainable language model to the plain
+fc1 -> act -> fc2). Weights here are in PyTorch's Linear layout, W1 (F, D)
+and W2 (D, F). Bound on the H100 and design: the header note of
+csrc/ffn.cu. bf16 runs on tensor cores (WMMA), fp32 on plain FMA. The
+activation is gelu, gelu_new or relu (T5).
 
 ``fused_gated_ffn`` replaces vlpet_tpu/ops/ffn.py:fused_gated_ffn (_run with
-_gated_fwd_kernel, F3): y = (act(x . W0^T) * (x . W1^T)) . Wo^T, the
-t5-v1.1 gated-gelu FFN, with both (N, F) hiddens kept off device memory.
-It is eval only: its backward (_gated_bwd_kernel, F4) is not ported, and a
-call that needs a gradient raises NotImplementedError.
+_gated_fwd_kernel, F3, and _gated_bwd_kernel, F4):
+y = drop(act(x . W0^T) * (x . W1^T)) . Wo^T, the t5-v1.1 gated-gelu FFN,
+with both (N, F) hiddens kept off device memory; F4 recomputes them and
+gives dx alone (T5 dense layers have no biases).
+
+Hidden dropout (T5 training, ``rate`` > 0, ``seed`` a (1,) int32 tensor):
+element (n, f) of the (N, F) hidden is kept iff keep_mask((N, F), 0, seed,
+rate) (ops/hashdrop.py), applied in fp32 after the activation (after the
+gating product in the gated FFN) and regenerated in the backward, as the
+TPU kernels do (vlpet_tpu/ops/ffn.py:182-189, :343-347).
 """
 
 from __future__ import annotations
@@ -28,23 +33,38 @@ import torch.nn.functional as F
 
 from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
+from vlpet_tpu_torch.ops.hashdrop import (check_drop, keep_mask,
+                                          kernel_drop_args)
 
 _ACTS = {"gelu": (0, gelu), "gelu_new": (1, gelu_new),
          "relu": (2, torch.relu)}
 _ROWS = {torch.bfloat16: 32, torch.float32: 16}  # rows per kernel block
 
 
+def _drop_hidden(h: torch.Tensor, rate: float, seed) -> torch.Tensor:
+    """The (N, F) hidden through the hash dropout in fp32, back in h's
+    dtype (the kernels round the dropped fp32 hidden)."""
+    if rate <= 0.0:
+        return h
+    keep = keep_mask(h.shape, 0, seed, rate, device=h.device)
+    hf = h.float()
+    return torch.where(keep, hf * (1.0 / (1.0 - rate)),
+                       torch.zeros_like(hf)).to(h.dtype)
+
+
 def ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                  w2: torch.Tensor, b2: torch.Tensor,
-                  act: str = "gelu") -> torch.Tensor:
-    """Plain fc1 -> act -> fc2 in x's dtype (the JAX package's unfused
-    TaskDense path); autograd differentiates it."""
+                  w2: torch.Tensor, b2: torch.Tensor, act: str = "gelu",
+                  rate: float = 0.0, seed: torch.Tensor = None) -> torch.Tensor:
+    """Plain fc1 -> act -> dropout -> fc2 in x's dtype (the JAX package's
+    unfused TaskDense path, with the kernels' hash mask); autograd
+    differentiates it."""
     fn = _ACTS[act][1]
     h = fn(F.linear(x, w1.to(x.dtype), b1.to(x.dtype)))
-    return F.linear(h, w2.to(x.dtype), b2.to(x.dtype))
+    return F.linear(_drop_hidden(h, rate, seed), w2.to(x.dtype),
+                    b2.to(x.dtype))
 
 
-def _check(x, w1, b1, w2, b2, act):
+def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None):
     if act not in _ACTS:
         raise ValueError(f"fused_ffn: unsupported activation {act!r}")
     N, D = x.shape
@@ -52,16 +72,20 @@ def _check(x, w1, b1, w2, b2, act):
     if w1.shape != (Fh, D) or w2.shape != (D, Fh) or b1.shape != (Fh,) \
             or b2.shape != (D,):
         raise ValueError("fused_ffn: weight shapes do not match x")
+    check_drop(rate, seed)
 
 
-def _kernel_inputs(x, w1, w2, extra=()):
-    """Kernel input guard: x (and dy) contiguous fp32/bf16, weights in x's
-    dtype; returns whether the bf16 tensor-core kernels run."""
+def _kernel_inputs(x, weights, dy=None):
+    """Kernel input guard: x (and dy) contiguous fp32/bf16, the weight
+    matrices (first one (F, D)) in x's dtype; returns whether the bf16
+    tensor-core kernels run."""
     N, D = x.shape
-    Fh = w1.shape[0]
+    Fh = weights[0].shape[0]
     _build.check(x, "x", (torch.float32, torch.bfloat16), 2)
-    for t, n in ((w1, "w1"), (w2, "w2")) + tuple(extra):
-        _build.check(t, n, (x.dtype,), 2)
+    for i, w in enumerate(weights):
+        _build.check(w, f"weight {i}", (x.dtype,), 2)
+    if dy is not None:
+        _build.check(dy, "dy", (x.dtype,), 2)
     bf16 = x.dtype == torch.bfloat16
     if bf16:
         if D % 128 or D > 1024 or Fh % 64:
@@ -69,7 +93,7 @@ def _kernel_inputs(x, w1, w2, extra=()):
                              f"F % 64 == 0; got D={D}, F={Fh}")
         # tensor-core fragment loads read the weights straight from global
         # memory and need 32-byte aligned rows
-        if w1.data_ptr() % 32 or w2.data_ptr() % 32:
+        if any(w.data_ptr() % 32 for w in weights):
             raise ValueError("fused_ffn bf16: weights must be 32-byte aligned")
     elif D > 1024 or Fh % 32:
         raise ValueError(f"fused_ffn fp32: need D <= 1024, F % 32 == 0; got "
@@ -77,44 +101,54 @@ def _kernel_inputs(x, w1, w2, extra=()):
     return bf16
 
 
-def _launch_fwd(x, w1, b1, w2, b2, act):
+def _seed_arg(rate, seed):
+    """The seed pointer of a launch (None without dropout)."""
+    if rate <= 0.0:
+        return None
+    _build.check(seed, "seed", (torch.int32,), 1)
+    return seed.data_ptr()
+
+
+def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
     N, D = x.shape
-    bf16 = _kernel_inputs(x, w1, w2)
+    bf16 = _kernel_inputs(x, (w1, w2))
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
     y = torch.empty_like(x)
     if N == 0:
         return y
     _build.launch("vlpet_ffn_fwd", x.data_ptr(), w1.data_ptr(),
-                  b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(), y.data_ptr(),
-                  N, D, w1.shape[0], _ACTS[act][0], int(bf16))
+                  b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+                  _seed_arg(rate, seed), y.data_ptr(), N, D, w1.shape[0],
+                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
     fused_ffn.launches += 1
     return y
 
 
 def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
-                  b1: torch.Tensor, w2: torch.Tensor, act: str = "gelu"):
+                  b1: torch.Tensor, w2: torch.Tensor, act: str = "gelu",
+                  rate: float = 0.0, seed: torch.Tensor = None):
     """(dx in x's dtype, db1 fp32, db2 fp32) of fused_ffn for cotangent dy
-    (cast to x's dtype, as the TPU backward does): kernel F2 on CUDA
-    tensors, autograd of the plain version on CPU tensors."""
+    (cast to x's dtype, as the TPU backward does), the forward's dropout
+    mask regenerated from ``seed``: kernel F2 on CUDA tensors, autograd of
+    the plain version on CPU tensors."""
     N, D = x.shape
     Fh = w1.shape[0]
-    _check(x, w1, b1, w2, torch.empty(D), act)
-    if act == "relu":
-        raise NotImplementedError("fused_ffn_bwd: F2 has no relu yet (it "
-                                  "comes with T5 training)")
+    _check(x, w1, b1, w2, torch.empty(D), act, rate, seed)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     dy = dy.to(x.dtype)
-    if not _build.use_kernel(x, dy, w1, b1, w2):
+    ts = (x, dy, w1, b1, w2) + ((seed,) if seed is not None else ())
+    if not _build.use_kernel(*ts):
         with torch.enable_grad():
             xr = x.detach().requires_grad_()
             b1r = b1.detach().float().requires_grad_()
             b2r = torch.zeros(D, device=x.device, requires_grad=True)
-            y = ffn_reference(xr, w1.detach(), b1r, w2.detach(), b2r, act)
+            y = ffn_reference(xr, w1.detach(), b1r, w2.detach(), b2r, act,
+                              rate, seed)
             return torch.autograd.grad(y, (xr, b1r, b2r), dy)
     dy = dy.contiguous()
-    bf16 = _kernel_inputs(x, w1, w2, extra=((dy, "dy"),))
+    bf16 = _kernel_inputs(x, (w1, w2), dy)
     b1f = b1.float().contiguous()
     dx = torch.empty_like(x)
     db1 = torch.zeros(Fh, dtype=torch.float32, device=x.device)
@@ -124,92 +158,160 @@ def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
     G = -(-N // _ROWS[x.dtype])
     partial = torch.empty((G, Fh + D), dtype=torch.float32, device=x.device)
     _build.launch("vlpet_ffn_bwd", x.data_ptr(), dy.data_ptr(), w1.data_ptr(),
-                  b1f.data_ptr(), w2.data_ptr(), dx.data_ptr(),
-                  partial.data_ptr(), db1.data_ptr(), db2.data_ptr(), N, D,
-                  Fh, G, _ACTS[act][0], int(bf16))
+                  b1f.data_ptr(), w2.data_ptr(), _seed_arg(rate, seed),
+                  dx.data_ptr(), partial.data_ptr(), db1.data_ptr(),
+                  db2.data_ptr(), N, D, Fh, G, _ACTS[act][0], int(bf16),
+                  *kernel_drop_args(rate))
     fused_ffn_bwd.launches += 1
     return dx, db1, db2
 
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, act):
-        ctx.save_for_backward(x, w1, b1, w2)
-        ctx.act, ctx.b2_dtype = act, b2.dtype
-        return _launch_fwd(x, w1, b1, w2, b2, act)
+    def forward(ctx, x, w1, b1, w2, b2, seed, act, rate):
+        ctx.save_for_backward(x, w1, b1, w2, seed)
+        ctx.act, ctx.rate, ctx.b2_dtype = act, rate, b2.dtype
+        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed)
 
     @staticmethod
     def backward(ctx, dy):
-        x, w1, b1, w2 = ctx.saved_tensors
-        dx, db1, db2 = fused_ffn_bwd(x, dy, w1, b1, w2, ctx.act)
-        return (dx, None, db1.to(b1.dtype), None, db2.to(ctx.b2_dtype), None)
+        x, w1, b1, w2, seed = ctx.saved_tensors
+        dx, db1, db2 = fused_ffn_bwd(x, dy, w1, b1, w2, ctx.act, ctx.rate,
+                                     seed)
+        return (dx, None, db1.to(b1.dtype), None, db2.to(ctx.b2_dtype), None,
+                None, None)
+
+
+def _frozen(name, grad, *weights):
+    if grad and any(w.requires_grad for w in weights):
+        raise ValueError(f"{name}: the weight matrices are frozen (no dW); "
+                         f"take the plain path to train them")
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor,
-              act: str = "gelu") -> torch.Tensor:
+              w2: torch.Tensor, b2: torch.Tensor, act: str = "gelu",
+              rate: float = 0.0, seed: torch.Tensor = None) -> torch.Tensor:
     """x (N, D); w1 (F, D); b1 (F,); w2 (D, F); b2 (D,) -> (N, D) in x's
-    dtype, differentiable in x, b1 and b2. The weight matrices are frozen:
-    raises when either requires a gradient while autograd is on. CPU
-    tensors run the plain version; CUDA tensors launch F1 forward and F2
-    backward (bf16: D a multiple of 128 up to 1024, F a multiple of 64;
-    fp32: D <= 1024, F a multiple of 32)."""
-    _check(x, w1, b1, w2, b2, act)
-    grad = torch.is_grad_enabled()
-    if grad and (w1.requires_grad or w2.requires_grad):
-        raise ValueError("fused_ffn: the weight matrices are frozen (no dW); "
-                         "take the plain fc1 -> act -> fc2 to train them")
-    if grad and act == "relu" and (x.requires_grad or b1.requires_grad
-                                   or b2.requires_grad):
-        raise NotImplementedError("fused_ffn: F2 has no relu backward yet "
-                                  "(it comes with T5 training)")
-    if not _build.use_kernel(x, w1, b1, w2, b2):
-        return ffn_reference(x, w1, b1, w2, b2, act)
-    return _FusedFFN.apply(x.contiguous(), w1, b1, w2, b2, act)
+    dtype, differentiable in x, b1 and b2; ``rate`` > 0 drops the hidden
+    (``seed`` a (1,) int32 tensor). The weight matrices are frozen: raises
+    when either requires a gradient while autograd is on. CPU tensors run
+    the plain version; CUDA tensors launch F1 forward and F2 backward (bf16:
+    D a multiple of 128 up to 1024, F a multiple of 64; fp32: D <= 1024, F
+    a multiple of 32)."""
+    _check(x, w1, b1, w2, b2, act, rate, seed)
+    _frozen("fused_ffn", torch.is_grad_enabled(), w1, w2)
+    ts = (x, w1, b1, w2, b2) + ((seed,) if seed is not None else ())
+    if not _build.use_kernel(*ts):
+        return ffn_reference(x, w1, b1, w2, b2, act, rate, seed)
+    return _FusedFFN.apply(x.contiguous(), w1, b1, w2, b2, seed, act, rate)
 
 
 def gated_ffn_reference(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
-                        wo: torch.Tensor, act: str = "gelu_new") -> torch.Tensor:
-    """Plain act(x . W0^T) * (x . W1^T) -> . Wo^T in x's dtype (the JAX
-    package's unfused wi_0 / wi_1 / wo path, vlpet_tpu/models/t5.py:500)."""
+                        wo: torch.Tensor, act: str = "gelu_new",
+                        rate: float = 0.0,
+                        seed: torch.Tensor = None) -> torch.Tensor:
+    """Plain act(x . W0^T) * (x . W1^T) -> dropout -> . Wo^T in x's dtype
+    (the JAX package's unfused wi_0 / wi_1 / wo path,
+    vlpet_tpu/models/t5.py:500, with the kernels' hash mask); autograd
+    differentiates it."""
     h = _ACTS[act][1](F.linear(x, w0.to(x.dtype))) * F.linear(x, w1.to(x.dtype))
-    return F.linear(h, wo.to(x.dtype))
+    return F.linear(_drop_hidden(h, rate, seed), wo.to(x.dtype))
 
 
-def fused_gated_ffn(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
-                    wo: torch.Tensor, act: str = "gelu_new") -> torch.Tensor:
-    """x (N, D); w0, w1 (F, D); wo (D, F) -> (N, D) in x's dtype. CPU
-    tensors run the plain version; CUDA tensors launch F3 (bf16: D a
-    multiple of 128 up to 1024, F a multiple of 64; fp32: D <= 1024, F a
-    multiple of 32). Eval only: raises NotImplementedError when x or a
-    weight requires a gradient while autograd is on."""
+def _check_gated(x, w0, w1, wo, act, rate, seed):
     if act not in _ACTS:
         raise ValueError(f"fused_gated_ffn: unsupported activation {act!r}")
     N, D = x.shape
     Fh = w0.shape[0]
     if w0.shape != (Fh, D) or w1.shape != (Fh, D) or wo.shape != (D, Fh):
         raise ValueError("fused_gated_ffn: weight shapes do not match x")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, w0, w1, wo)):
-        raise NotImplementedError("fused_gated_ffn: the gated backward (F4) "
-                                  "is not ported; it comes with T5 training")
-    if not _build.use_kernel(x, w0, w1, wo):
-        return gated_ffn_reference(x, w0, w1, wo, act)
-    x = x.contiguous()
-    bf16 = _kernel_inputs(x, w0, wo, extra=((w1, "w1"),))
-    if bf16 and w1.data_ptr() % 32:
-        raise ValueError("fused_gated_ffn bf16: weights must be 32-byte "
-                         "aligned")
+    check_drop(rate, seed)
+
+
+def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed):
+    N, D = x.shape
+    bf16 = _kernel_inputs(x, (w0, w1, wo))
     y = torch.empty_like(x)
     if N == 0:
         return y
     _build.launch("vlpet_gated_ffn_fwd", x.data_ptr(), w0.data_ptr(),
-                  w1.data_ptr(), wo.data_ptr(), y.data_ptr(), N, D, Fh,
-                  _ACTS[act][0], int(bf16))
+                  w1.data_ptr(), wo.data_ptr(), _seed_arg(rate, seed),
+                  y.data_ptr(), N, D, w0.shape[0], _ACTS[act][0], int(bf16),
+                  *kernel_drop_args(rate))
     fused_gated_ffn.launches += 1
     return y
+
+
+def fused_gated_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w0: torch.Tensor,
+                        w1: torch.Tensor, wo: torch.Tensor,
+                        act: str = "gelu_new", rate: float = 0.0,
+                        seed: torch.Tensor = None) -> torch.Tensor:
+    """dx (x's dtype) of fused_gated_ffn for cotangent dy (cast to x's
+    dtype, as the TPU backward does), the forward's dropout mask
+    regenerated from ``seed``: kernel F4 on CUDA tensors, autograd of the
+    plain version on CPU tensors."""
+    _check_gated(x, w0, w1, wo, act, rate, seed)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    dy = dy.to(x.dtype)
+    ts = (x, dy, w0, w1, wo) + ((seed,) if seed is not None else ())
+    if not _build.use_kernel(*ts):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            y = gated_ffn_reference(xr, w0.detach(), w1.detach(), wo.detach(),
+                                    act, rate, seed)
+            return torch.autograd.grad(y, xr, dy)[0]
+    N, D = x.shape
+    dy = dy.contiguous()
+    bf16 = _kernel_inputs(x, (w0, w1, wo), dy)
+    dx = torch.empty_like(x)
+    if N == 0:
+        return dx
+    _build.launch("vlpet_gated_ffn_bwd", x.data_ptr(), dy.data_ptr(),
+                  w0.data_ptr(), w1.data_ptr(), wo.data_ptr(),
+                  _seed_arg(rate, seed), dx.data_ptr(), N, D, w0.shape[0],
+                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
+    fused_gated_ffn_bwd.launches += 1
+    return dx
+
+
+class _FusedGatedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w0, w1, wo, seed, act, rate):
+        ctx.save_for_backward(x, w0, w1, wo, seed)
+        ctx.act, ctx.rate = act, rate
+        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w0, w1, wo, seed = ctx.saved_tensors
+        dx = fused_gated_ffn_bwd(x, dy, w0, w1, wo, ctx.act, ctx.rate, seed)
+        return dx, None, None, None, None, None, None
+
+
+def fused_gated_ffn(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
+                    wo: torch.Tensor, act: str = "gelu_new",
+                    rate: float = 0.0,
+                    seed: torch.Tensor = None) -> torch.Tensor:
+    """x (N, D); w0, w1 (F, D); wo (D, F) -> (N, D) in x's dtype,
+    differentiable in x; ``rate`` > 0 drops the gated hidden (``seed`` a
+    (1,) int32 tensor). The weights are frozen: raises when one requires a
+    gradient while autograd is on. CPU tensors run the plain version; CUDA
+    tensors launch F3 forward and F4 backward (bf16: D a multiple of 128 up
+    to 1024, F a multiple of 64; fp32: D <= 1024, F a multiple of 32)."""
+    _check_gated(x, w0, w1, wo, act, rate, seed)
+    grad = torch.is_grad_enabled()
+    _frozen("fused_gated_ffn", grad, w0, w1, wo)
+    ts = (x, w0, w1, wo) + ((seed,) if seed is not None else ())
+    if not _build.use_kernel(*ts):
+        return gated_ffn_reference(x, w0, w1, wo, act, rate, seed)
+    x = x.contiguous()
+    if not (grad and x.requires_grad):
+        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed)
+    return _FusedGatedFFN.apply(x, w0, w1, wo, seed, act, rate)
 
 
 fused_ffn.launches = 0
 fused_ffn_bwd.launches = 0
 fused_gated_ffn.launches = 0
+fused_gated_ffn_bwd.launches = 0

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from vlpet_tpu_torch.ops import _build
-from vlpet_tpu_torch.ops.hashdrop import keep_mask, keep_threshold
+from vlpet_tpu_torch.ops.hashdrop import kernel_drop_args, keep_mask
 
 EPS = 1e-5  # torch nn.LayerNorm's default, as HF BART uses it
 _BWD_BLOCKS = 528  # row blocks of the backward: 4 per SM on 132 SMs
@@ -67,8 +67,7 @@ def _check(h, res, gamma, beta, seed, rate):
 
 def _kernel_args(h, rate):
     N = h.numel() // h.shape[-1]
-    return (N, h.shape[-1], int(rate > 0.0), keep_threshold(rate),
-            _scale(rate))
+    return (N, h.shape[-1], *kernel_drop_args(rate))
 
 
 def _check_kernel_inputs(h, res, gamma, seed, dy=None):

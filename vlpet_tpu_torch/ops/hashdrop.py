@@ -8,11 +8,13 @@ with tensor ops. P(keep) = 1 - rate, decided on 31 bits.
 The JAX functions work in uint32. Here every value is an int64 tensor that
 holds a uint32 (0 <= v < 2**32): each product is split into 16-bit halves
 so that no intermediate leaves int64's range, and each sum and shift is
-masked back to 32 bits. The CUDA kernels (csrc/fused_ln.cu) compute the
+masked back to 32 bits. The CUDA kernels (``hash_bits`` in
+csrc/common.cuh: the LayerNorm, attention and FFN kernels) compute the
 same function in native uint32.
 
 ``head_seed`` is vlpet_tpu/ops/attention.py:50 (the per-head seed of the
-attention kernels' dropout).
+attention kernels' dropout); ``attention_keep_mask`` is the probability
+mask of the attention kernels (vlpet_tpu/ops/attention.py:1001-1006).
 """
 
 from __future__ import annotations
@@ -76,6 +78,22 @@ def keep_mask(shape: Sequence[int], row_base, seed, rate: float,
     return ((z & 0x7FFFFFFF) >= keep_threshold(rate)).expand(shape)
 
 
+def check_drop(rate: float, seed) -> None:
+    """A dropping op's arguments: rate in [0, 1) and, when rate > 0, a (1,)
+    int32 seed tensor."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    if rate > 0.0 and (not isinstance(seed, torch.Tensor)
+                       or seed.shape != (1,) or seed.dtype != torch.int32):
+        raise ValueError("rate > 0 needs a (1,) int32 seed tensor")
+
+
+def kernel_drop_args(rate: float):
+    """(drop, thr, scale) of a dropping kernel's launch: whether rate > 0,
+    the 31-bit keep threshold and 1 / (1 - rate)."""
+    return int(rate > 0.0), keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
 def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
     """Dropout from the hash mask over x's whole flat index
     (vlpet_tpu/ops/hashdrop.py:57): kept elements scaled by 1/(1-rate)
@@ -94,12 +112,25 @@ def head_seed(seed, h: int) -> torch.Tensor:
         0x9E3779B9)) & _M32
 
 
+def attention_keep_mask(batch: int, L: int, S: int, num_heads: int, seed,
+                        rate: float, device=None) -> torch.Tensor:
+    """(B, H, L, S) keep mask of the attention probabilities: head h keeps
+    element (b, i, j) iff keep_mask((B, L, S), 0, head_seed(seed, h),
+    rate), i.e. the hash of the flat index (b * L + i) * S + j under the
+    head's seed."""
+    if device is None:
+        device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
+    return torch.stack([keep_mask((batch, L, S), 0, head_seed(seed, h), rate,
+                                  device=device)
+                        for h in range(num_heads)], dim=1)
+
+
 class DropoutSeeds:
     """The dropout seeds of one training step: ``n`` int32 values in
     [0, 2**31 - 1) drawn from ``generator`` in ONE call, handed out in
     call order as (1,) views by ``next()`` (a kernel reads its seed by
     pointer, so no site syncs with the host). The model consumes them in a
-    fixed site order (models/vlbart.py ``VLBart.dropout_sites``)."""
+    fixed site order (``VLBart.dropout_sites``, ``VLT5.dropout_sites``)."""
 
     def __init__(self, n: int, generator: Optional[torch.Generator],
                  device):
