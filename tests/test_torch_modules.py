@@ -212,8 +212,7 @@ def test_unported_flags_raise_at_build():
                                              gate_dim=8))
     VLBart(base, device="cpu")  # the slice itself builds
 
-    for change in (dict(use_fused_beam=True), dict(scan_layers=True),
-                   dict(classifier=True), dict(use_fused_ce=True),
+    for change in (dict(scan_layers=True), dict(classifier=True),
                    dict(remat="dots"),
                    dict(pet=dataclasses.replace(base.pet, use_lora=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),

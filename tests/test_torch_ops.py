@@ -20,8 +20,10 @@ import torch
 
 from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops import attention as tatt
+from vlpet_tpu_torch.ops import cache_update as tcu
 from vlpet_tpu_torch.ops import decode as tdec
 from vlpet_tpu_torch.ops import ffn as tffn
+from vlpet_tpu_torch.ops import fused_ce as tfce
 from vlpet_tpu_torch.ops import fused_ln as tln
 from vlpet_tpu_torch.ops import topk as ttopk
 
@@ -351,9 +353,26 @@ def _wrapper_calls():
     yield "beam_decode_attend", tdec, "beam_decode_attend_reference", \
         lambda: tdec.beam_decode_attend(qb, cache, cache, anc, 1,
                                         torch.zeros(1, 2, 1, 5))
+    labels = torch.zeros(3, dtype=torch.long)
+    yield "fused_linear_ce", tfce, "fused_linear_ce_reference", \
+        lambda: tfce.fused_linear_ce(torch.zeros(3, 64), torch.zeros(10, 64),
+                                     torch.zeros(10), labels)
+    yield "fused_linear_ce_bwd", tfce, "fused_linear_ce_bwd_reference", \
+        lambda: tfce.fused_linear_ce_bwd(torch.zeros(3, 768),
+                                         torch.zeros(10, 768),
+                                         torch.zeros(10), labels,
+                                         torch.zeros(3), torch.ones(3))
+    new = torch.zeros(4, 1, 8)
+    yield "beam_decode_attend_update", tdec, \
+        "beam_decode_attend_update_reference", \
+        lambda: tdec.beam_decode_attend_update(qb, cache.clone(),
+                                               cache.clone(), new, new, anc, 1)
+    yield "cache_slot_update", tcu, "cache_slot_update_reference", \
+        lambda: tcu.cache_slot_update(torch.zeros(1, 5, 4, 8),
+                                      torch.zeros(1, 4, 8), 1)
 
 
-@pytest.mark.parametrize("which", range(14))
+@pytest.mark.parametrize("which", range(18))
 def test_cuda_request_without_library_raises_not_falls_back(which,
                                                             monkeypatch):
     """A wrapper asked to launch (device check patched to say CUDA) on a

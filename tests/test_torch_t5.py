@@ -303,8 +303,7 @@ def test_t5_training_and_unported_options_raise():
         cfg.vis, sparse_sample=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="sparse_sample"):
         sparse(ids, ids, labels=ids, deterministic=False)
-    for change in (dict(classifier=True), dict(use_fused_ce=True),
-                   dict(use_fused_beam=True),
+    for change in (dict(classifier=True),
                    dict(pet=dataclasses.replace(cfg.pet, use_hyperformer=True)),
                    dict(pet=dataclasses.replace(cfg.pet,
                                                 encoder_prompt_len=2))):

@@ -19,8 +19,11 @@ FFN through
 ops.ffn.fused_ffn (F1, F2) unless the language model trains or
 ``use_fused_ffn`` is off, every dropping residual LayerNorm through
 ops.fused_ln.fused_dropout_add_ln (L1, L2), beam self-attention through
-ops.decode.beam_decode_attend (D1), each picked by ops.route (the plain
-twins inside ``ops.plain_twins()``).
+ops.decode.beam_decode_attend (D1) or, with ``use_fused_beam``,
+ops.decode.beam_decode_attend_update (D2, which also writes the cache
+slot), every other decode-step KV write through
+ops.cache_update.cache_slot_update (U1), each picked by ops.route (the
+plain twins inside ``ops.plain_twins()``).
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ from vlpet_tpu_torch.models.visual import (VisualEmbedding,
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
+from vlpet_tpu_torch.ops.cache_update import (cache_slot_update,
+                                              cache_slot_update_reference)
 from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
                                         beam_decode_attend_reference,
+                                        beam_decode_attend_update,
+                                        beam_decode_attend_update_reference,
                                         decode_attend)
 from vlpet_tpu_torch.ops.ffn import ffn_reference, fused_ffn
 from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
@@ -65,6 +72,17 @@ def expand_mask(mask: torch.Tensor, tgt_len: int,
     B, S = mask.shape
     m = mask[:, None, None, :].expand(B, 1, tgt_len, S).to(dtype)
     return (1.0 - m) * NEG_INF
+
+
+def write_slot(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+               pos: int) -> None:
+    """This step's K and V (B rows of H*Dh) into slot ``pos`` of the
+    time-major (L, B, H*Dh) cache, in place, through U1 (or its plain twin):
+    the cache is U1's N = 1 case, viewed as (1, L, B, H*Dh)."""
+    fn = route(cache_slot_update, cache_slot_update_reference)
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        fn(c.view((1,) + c.shape), new.reshape((1,) + c.shape[1:]), pos)
 
 
 def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:
@@ -170,7 +188,9 @@ class BartAttention(nn.Module):
                 kv_states: Optional[torch.Tensor] = None):
         """Returns (attn_output, cache). The decode cache is updated IN PLACE
         at slot ``decode_pos`` (the JAX package returns a new buffer; here
-        the preallocated one is reused). Training: 'dec_self' without a
+        the preallocated one is reused): by U1 before the attend, or by D2
+        inside it on the ``use_fused_beam`` beam path
+        (vlpet_tpu/models/bart.py:442-455). Training: 'dec_self' without a
         cache is causal over the target sequence; 'cross' without
         ``cross_kv`` projects ``kv_states`` (the encoder output)."""
         B, L, _ = hidden_states.shape
@@ -196,9 +216,15 @@ class BartAttention(nn.Module):
             m = torch.zeros((1, 1, 1, L), dtype=torch.float32,
                             device=q.device)
             return self.out_proj(attend(q, k, v, m, H, causal=True)), cache
-        cache["k"][decode_pos] = k.reshape(B, -1).to(cache["k"].dtype)
-        cache["v"][decode_pos] = v.reshape(B, -1).to(cache["v"].dtype)
         q4 = q.reshape(B, 1, H, Dh)
+        if beam_anc is not None and self.cfg.use_fused_beam:
+            # D2: attend over the slots before decode_pos plus the own new
+            # K/V, and write the slot, in one launch
+            fn = route(beam_decode_attend_update,
+                       beam_decode_attend_update_reference)
+            out = fn(q4, cache["k"], cache["v"], k, v, beam_anc, decode_pos)
+            return self.out_proj(out), cache
+        write_slot(cache, k, v, decode_pos)
         if beam_anc is not None:
             fn = route(beam_decode_attend, beam_decode_attend_reference)
             out = fn(q4, cache["k"], cache["v"], beam_anc, decode_pos)

@@ -22,10 +22,11 @@ residual branch and on the final states of both stacks, on the attention
 probabilities inside A1/A6 and on the FFN hidden inside F1-F4, one seed per
 site per step drawn from the caller's generator in the order of
 ``VLT5.dropout_sites``; the loss is vlpet_tpu/models/t5.py:1030-1067's
-(``linear_ce`` on the rescaled states for the tied head in bf16, else CE on
-the fp32 logits). What the port lacks raises NotImplementedError: the
-classifier, prompts, the hyperformer and ``use_fused_ce`` at build
-(models/vlbart.py check_supported); at a training call, a trainable
+(for the tied, frozen head ``fused_linear_ce`` on the rescaled states
+with ``use_fused_ce``, else ``linear_ce`` in bf16; otherwise CE on the fp32
+logits). What the port lacks raises NotImplementedError: the classifier,
+prompts and the hyperformer at build (models/vlbart.py
+check_supported); at a training call, a trainable
 ``relative_attention_bias`` (its dbias is not ported), ``vis.sparse_sample``
 and, in ops.attention, a biased or dropping site on the long backward
 (T5 video).
@@ -34,7 +35,11 @@ Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
 ops.attention.fused_attention (A1, with the relative bias as its per-head
 ``bias``), beam self-attention through ops.decode.beam_decode_attend (D1,
-with the bias row), the relu FFN through ops.ffn.fused_ffn (F1, zero
+with the bias row) or, with ``use_fused_beam``, the fused attend and slot
+write ops.decode.beam_decode_attend_update (D2), every other decode-step
+KV write through ops.cache_update.cache_slot_update (U1), the tied
+frozen head's loss through ops.fused_ce.fused_linear_ce (C1, backward C2)
+with ``use_fused_ce``, the relu FFN through ops.ffn.fused_ffn (F1, zero
 biases; backward F2) and the gated-gelu FFN through ops.ffn.fused_gated_ffn
 (F3, backward F4), unless ``use_fused_ffn`` is off or the language model
 trains (the FFN kernels have no weight gradient). Parameter names are
@@ -54,7 +59,7 @@ import torch.nn as nn
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import (NEG_INF, _seed, compute_dtype,
-                                         expand_mask)
+                                         expand_mask, write_slot)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (VisualEmbedding,
@@ -63,10 +68,15 @@ from vlpet_tpu_torch.models.vlbart import check_supported, shift_tokens_right
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
-from vlpet_tpu_torch.ops.ce import cross_entropy_with_ignore, linear_ce
+from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
+                                    mean_or_per_token)
 from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
                                         beam_decode_attend_reference,
+                                        beam_decode_attend_update,
+                                        beam_decode_attend_update_reference,
                                         decode_attend)
+from vlpet_tpu_torch.ops.fused_ce import (fused_linear_ce,
+                                          fused_linear_ce_plain)
 from vlpet_tpu_torch.ops.ffn import (ffn_reference, fused_ffn,
                                      fused_gated_ffn, gated_ffn_reference)
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
@@ -195,9 +205,16 @@ class T5Attention(nn.Module):
                                    device=q.device)
             return self.o(attend(q, k, v, mask.float(), H, causal, bias, rate,
                                  seed))
-        cache["k"][decode_pos] = k.reshape(B, -1).to(cache["k"].dtype)
-        cache["v"][decode_pos] = v.reshape(B, -1).to(cache["v"].dtype)
         q4 = q.reshape(B, 1, H, Dh)
+        if beam_anc is not None and self.cfg.use_fused_beam:
+            # D2 (vlpet_tpu/models/t5.py:196-211): the own row gets the
+            # distance-0 bias, the cache side the bias row
+            fn = route(beam_decode_attend_update,
+                       beam_decode_attend_update_reference)
+            out = fn(q4, cache["k"], cache["v"], k, v, beam_anc, decode_pos,
+                     bias[0, :, 0, decode_pos].contiguous(), bias)
+            return self.o(out)
+        write_slot(cache, k, v, decode_pos)
         if beam_anc is not None:
             fn = route(beam_decode_attend, beam_decode_attend_reference)
             out = fn(q4, cache["k"], cache["v"], beam_anc, decode_pos, bias)
@@ -657,7 +674,11 @@ class VLT5(nn.Module):
         ``reduce_loss``. ``deterministic=False`` trains: autograd on,
         dropout with one seed per site drawn from ``generator``
         (``dropout_sites``); otherwise no autograd. On the bf16 linear_ce
-        route "logits" is the bf16 copy the loss keeps."""
+        route "logits" is the bf16 copy the loss keeps; on the
+        ``use_fused_ce`` route (``_ce``) the output has no "logits": the
+        fused loss never forms them (under jit the JAX package's logits
+        there are dead code; eagerly they would be the (B, T, V) fp32
+        tensor the flag exists to avoid)."""
         b = self.cfg.backbone
         if decoder_input_ids is None:
             if labels is None:
@@ -685,8 +706,9 @@ class VLT5(nn.Module):
             if labels is None:
                 out["logits"] = self._logits(dec, self.logits_weight())
             else:
-                out["loss"], out["logits"] = self._ce(dec, labels,
-                                                      reduce_loss)
+                out["loss"], logits = self._ce(dec, labels, reduce_loss)
+                if logits is not None:
+                    out["logits"] = logits
             return out
 
     def _check_trainable(self) -> None:
@@ -702,25 +724,32 @@ class VLT5(nn.Module):
 
     def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
             reduce_loss: bool):
-        """(loss, logits), routed as vlpet_tpu/models/t5.py:1030-1067: the
-        tied, frozen head in bf16 takes ``linear_ce`` on the rescaled states
-        (zero bias, one bf16 logits copy); otherwise CE over the fp32
-        logits. (``use_fused_ce`` raises at build.)"""
+        """(loss, logits or None), routed as
+        vlpet_tpu/models/t5.py:1030-1067. The tied, frozen head takes
+        ``fused_linear_ce`` (C1/C2) on the rescaled states with a zero bias
+        under ``use_fused_ce``, in bf16 and fp32 alike, and then no logits
+        exist (None); else, in bf16, ``linear_ce`` (one bf16 logits copy).
+        Otherwise -- the gated/untied head ignores the flag, as in JAX --
+        CE over the fp32 logits."""
         b, p = self.cfg.backbone, self.cfg.pet
         head_frozen = (b.tie_word_embeddings and not p.unfreeze_lm_head
                        and not p.unfreeze_language_model)
-        if head_frozen and dec_out.dtype == torch.bfloat16:
-            B, T = labels.shape
+        B, T = labels.shape
+        if head_frozen and (self.cfg.use_fused_ce
+                            or dec_out.dtype == torch.bfloat16):
             x2 = (dec_out * (b.d_model ** -0.5)).reshape(B * T, -1)
             zero_b = torch.zeros(b.vocab_size, dtype=torch.float32,
                                  device=dec_out.device)
-            nll, logits = linear_ce(x2, self.model.shared, zero_b,
-                                    labels.reshape(-1))
-            per_tok = nll.reshape(B, T)
-            if reduce_loss:
-                valid = (labels != -100).sum().clamp(min=1)
-                return per_tok.sum() / valid, logits.reshape(B, T, -1)
-            return per_tok, logits.reshape(B, T, -1)
+            if self.cfg.use_fused_ce:
+                fn = route(fused_linear_ce, fused_linear_ce_plain)
+                nll, _ = fn(x2, self.model.shared, zero_b, labels.reshape(-1))
+                logits = None
+            else:
+                nll, logits = linear_ce(x2, self.model.shared, zero_b,
+                                        labels.reshape(-1))
+                logits = logits.reshape(B, T, -1)
+            return mean_or_per_token(nll.reshape(B, T), labels,
+                                     reduce_loss), logits
         logits = self._logits(dec_out, self.logits_weight())
         return cross_entropy_with_ignore(logits, labels, reduce_loss), logits
 

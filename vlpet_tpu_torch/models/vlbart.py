@@ -22,7 +22,10 @@ from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import BartDecoder, JointEncoder, compute_dtype
 from vlpet_tpu_torch.models.generate import topk_lse
-from vlpet_tpu_torch.ops.ce import cross_entropy_with_ignore, linear_ce
+from vlpet_tpu_torch.ops import route
+from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
+                                    mean_or_per_token)
+from vlpet_tpu_torch.ops.fused_ce import fused_linear_ce, fused_linear_ce_plain
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
 from vlpet_tpu_torch.pet.modules import PetContext
 
@@ -70,25 +73,24 @@ def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
 def check_supported(cfg: VLModelConfig) -> None:
     """Raise NotImplementedError for any configuration the port does not
     implement, rather than ignoring it. Both backbones share the list and
-    both train and evaluate. What is unported only on a training call
-    raises there: ``lambda_z`` (train/steps.py), a trainable T5
+    both train and evaluate. What raises here: the classifier answer head,
+    ``scan_layers``, ``remat`` other than "none", and the PET and visual
+    flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` and serial
+    adapters. What is unported only on a training call raises there:
+    ``lambda_z`` (train/steps.py), a trainable T5
     ``relative_attention_bias`` and ``vis.sparse_sample`` (models/t5.py
     ``VLT5.forward``), a biased or dropping attention site on the long
     backward (T5 video, ops/attention.py).
 
-    Not read by the port: use_pallas_attention (TPU kernel routing; on
-    CUDA the port runs its kernels)."""
+    Accepted: ``use_fused_ce`` (C1/C2 on a frozen head, ``VLBart._ce``,
+    ``VLT5._ce``) and ``use_fused_beam`` (D2 on the beam path). Not read by
+    the port: use_pallas_attention (TPU kernel routing; on CUDA the port
+    runs its kernels)."""
     if cfg.classifier:
         raise NotImplementedError("the classifier answer head is not ported")
-    if cfg.use_fused_beam:
-        raise NotImplementedError("use_fused_beam (fused beam attend + cache "
-                                  "write) is not ported")
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers (stacked layer params) is not "
                                   "ported; convert an unstacked tree")
-    if cfg.use_fused_ce:
-        raise NotImplementedError("use_fused_ce (the streamed linear + CE "
-                                  "kernels) is not ported")
     if cfg.remat != "none":
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
     p, v = cfg.pet, cfg.vis
@@ -213,7 +215,11 @@ class VLBart(nn.Module):
         "loss": per-token (B, T) fp32, or the mean over valid tokens when
         ``reduce_loss``. ``deterministic=False`` applies dropout with one
         seed per site drawn from ``generator`` (``dropout_sites``). On the
-        bf16 linear_ce route "logits" is the bf16 copy the loss keeps."""
+        bf16 linear_ce route "logits" is the bf16 copy the loss keeps; on
+        the ``use_fused_ce`` route (``_ce``) the output has no "logits":
+        the fused loss never forms them (under jit the JAX package's logits
+        there are dead code; eagerly they would be the (B, T, V) fp32
+        tensor, 1 GB at B 500, that the flag exists to avoid)."""
         b = self.cfg.backbone
         ctx = ctx or PetContext()
         if decoder_input_ids is None:
@@ -242,28 +248,36 @@ class VLBart(nn.Module):
         if labels is None:
             out["logits"] = self._logits(dec, self.logits_weight())
         else:
-            out["loss"], out["logits"] = self._ce(dec, labels, reduce_loss)
+            out["loss"], logits = self._ce(dec, labels, reduce_loss)
+            if logits is not None:
+                out["logits"] = logits
         return out
 
     def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
             reduce_loss: bool):
-        """(loss, logits), routed as vlpet_tpu/models/vlbart.py:220-260:
-        ``linear_ce`` (one bf16 logits copy) when the LM head is frozen and
-        the compute is bf16, else ``cross_entropy_with_ignore`` over the
-        fp32 logits. (``use_fused_ce`` raises at build.)"""
+        """(loss, logits or None), routed as
+        vlpet_tpu/models/vlbart.py:220-260 with a frozen LM head:
+        ``fused_linear_ce`` (C1/C2, no logits: None) under
+        ``use_fused_ce``, in bf16 and fp32 alike, else ``linear_ce`` (one
+        bf16 logits copy) in bf16; otherwise ``cross_entropy_with_ignore``
+        over the fp32 logits. The JAX package's row-tile and backend tests
+        (``pick_row_tile``, ``jax.default_backend()``) are TPU artefacts
+        and are dropped."""
         p = self.cfg.pet
         head_frozen = not p.unfreeze_lm_head and not p.unfreeze_language_model
-        if head_frozen and dec_out.dtype == torch.bfloat16:
-            B, T = labels.shape
-            nll, logits = linear_ce(dec_out.reshape(B * T, -1),
-                                    self.model.shared,
-                                    self.final_logits_bias[0],
-                                    labels.reshape(-1))
-            per_tok = nll.reshape(B, T)
-            if reduce_loss:
-                valid = (labels != -100).sum().clamp(min=1)
-                return per_tok.sum() / valid, logits.reshape(B, T, -1)
-            return per_tok, logits.reshape(B, T, -1)
+        B, T = labels.shape
+        if head_frozen and (self.cfg.use_fused_ce
+                            or dec_out.dtype == torch.bfloat16):
+            args = (dec_out.reshape(B * T, -1), self.model.shared,
+                    self.final_logits_bias[0], labels.reshape(-1))
+            if self.cfg.use_fused_ce:
+                nll, _ = route(fused_linear_ce, fused_linear_ce_plain)(*args)
+                logits = None
+            else:
+                nll, logits = linear_ce(*args)
+                logits = logits.reshape(B, T, -1)
+            return mean_or_per_token(nll.reshape(B, T), labels,
+                                     reduce_loss), logits
         logits = self._logits(dec_out, self.logits_weight())
         return cross_entropy_with_ignore(logits, labels, reduce_loss), logits
 

@@ -65,8 +65,18 @@ _SIGNATURES = {
     # q, k, v, anc, bias row (or NULL), out, B, K, J, Lc, H, Dh, pos,
     # is_bf16, stream
     "vlpet_beam_attend": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k cache, v cache, k new, v new, anc, bias row (or NULL), own bias
+    # (or NULL), out, B, K, Lc, H, Dh, pos, is_bf16, stream
+    "vlpet_beam_attend_update": [_P] * 9 + [_I] * 7 + [_P],
     # x, vals, idx, lse, R, V, k, stream
     "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
+    # cache, new, N, L, row elements, element bytes, pos, stream
+    "vlpet_cache_update": [_P] * 2 + [_I] * 5 + [_P],
+    # x, w, b, labels, partials, loss, lse, N, D, V, splits, is_bf16, stream
+    "vlpet_ce_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # x, w, b, labels, lse, dloss, partials, dx, N, D, V, splits, is_bf16,
+    # stream
+    "vlpet_ce_bwd": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
@@ -142,12 +152,22 @@ def build() -> Path:
     return out
 
 
-@functools.cache
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def _require_cuda() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA kernels requested but torch.cuda is not "
                            "available on this host")
+
+
+def multiprocessors(device: torch.device) -> int:
+    """The SM count of the card ``device``, for sizing a launch."""
+    _require_cuda()
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    _require_cuda()
     handle = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(handle, name)

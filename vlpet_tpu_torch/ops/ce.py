@@ -79,6 +79,13 @@ def cross_entropy_with_ignore(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return mean_or_per_token(nll, labels, reduce)
+
+
+def mean_or_per_token(per_tok: torch.Tensor, labels: torch.Tensor,
+                      reduce: bool) -> torch.Tensor:
+    """Per-token losses (B, T) as they are, or their mean over the valid
+    (label != -100) tokens when ``reduce``."""
     if reduce:
-        return nll.sum() / valid.sum().clamp(min=1)
-    return nll
+        return per_tok.sum() / (labels != IGNORE).sum().clamp(min=1)
+    return per_tok

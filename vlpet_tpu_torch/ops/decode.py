@@ -6,12 +6,18 @@ ancestry vector anc[b, k, t], the physical row that holds its KV at slot t,
 and attention reads through it. The cross-attention KV stays at B rows,
 shared by the K beams of a batch element.
 
-beam_decode_attend is kernel 3 (csrc/beam_attend.cu, replacing
+beam_decode_attend is kernel D1 (csrc/beam_attend.cu, replacing
 _beam_self_attend_pallas); its plain twin is the einsum form of the JAX
 function's XLA branch. The kernel reads ``anc`` directly: the flat
 (B*K, L*8*J) mask, the 8-row batch blocking and the pad of B to a multiple
 of 8 were TPU sublane artefacts. T5's relative-bias row (1, H, 1, L), the
 same for every beam of a step, rides as ``bias_row`` in both attends.
+
+beam_decode_attend_update is kernel D2 (csrc/beam_attend.cu, replacing
+beam_decode_attend_update's _beam_self_update_kernel, the opt-in
+``use_fused_beam``): D1 over the slots before ``decode_pos``, plus each
+beam's own new K/V as an extra term, then the write of the new K/V into
+slot ``decode_pos``, in one launch.
 """
 
 from __future__ import annotations
@@ -155,3 +161,117 @@ def beam_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = mask.float().reshape(B, 1, 1, S)
     out = attend(q.reshape(B, K, H * Dh), k, v, m, H)
     return out.reshape(B * K, 1, H * Dh)
+
+
+def _check_update(q, k_cache, v_cache, k_new, v_new, anc, decode_pos,
+                  own_bias, bias_row):
+    B, K, Lc = anc.shape
+    H, Dh = q.shape[-2:]
+    if k_cache.shape != (Lc, B * K, H * Dh) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches {tuple(k_cache.shape)} must be (L, B*K, "
+                         f"H*Dh) = ({Lc}, {B * K}, {H * Dh}): one physical "
+                         f"row per beam")
+    if q.shape[0] != B * K or k_new.numel() != B * K * H * Dh \
+            or v_new.numel() != k_new.numel():
+        raise ValueError("q / k_new / v_new do not match the ancestry")
+    if not 0 <= decode_pos < Lc:
+        raise ValueError(f"decode_pos {decode_pos} outside the cache [0, {Lc})")
+    for name, t, shape in (("own_bias", own_bias, (H,)),
+                           ("bias_row", bias_row, (1, H, 1, Lc))):
+        if t is not None and (t.shape != shape or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be {shape} fp32; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
+def beam_decode_attend_update_reference(
+        q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+        k_new: torch.Tensor, v_new: torch.Tensor, anc: torch.Tensor,
+        decode_pos: int, own_bias: Optional[torch.Tensor] = None,
+        bias_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain twin of D2 (vlpet_tpu/ops/decode.py:208-247): the cache slots
+    l <= decode_pos - 1 read through the ancestry, plus an own-row score
+    q . k_new (elementwise products in q's dtype, summed in fp32, plus
+    ``own_bias``) under one softmax; the cache part of the probabilities
+    rounded to q's dtype before P.V (fp32 accumulation), the own part added
+    in fp32. Then k_new and v_new are written into slot ``decode_pos`` of
+    the caches, in place. Returns (B*K, 1, H*Dh)."""
+    _check_update(q, k_cache, v_cache, k_new, v_new, anc, decode_pos,
+                  own_bias, bias_row)
+    B, K, L = anc.shape
+    H, Dh = q.shape[-2:]
+    sel = beam_selection_mask(anc, decode_pos - 1, L, K)
+    qb = q.reshape(B, K, H, Dh)
+    kb = k_cache.reshape(L, B, K, H, Dh)
+    vb = v_cache.reshape(L, B, K, H, Dh)
+    kn = k_new.reshape(B, K, H, Dh).to(q.dtype)
+    vn = v_new.reshape(B, K, H, Dh).to(q.dtype)
+    s = torch.einsum("bqhd,lbjhd->bhqjl", qb.float(), kb.float())
+    s = s.reshape(B, H, K, K * L) + sel.reshape(B, 1, K, K * L)
+    if bias_row is not None:
+        s = s + bias_row.float().reshape(1, H, 1, L).repeat(1, 1, 1, K)
+    s_own = (qb * kn).float().sum(-1).permute(0, 2, 1)  # (B, H, K)
+    if own_bias is not None:
+        s_own = s_own + own_bias.float().reshape(1, H, 1)
+    m = torch.maximum(s.amax(-1), s_own)
+    e = torch.exp(s - m[..., None])
+    eo = torch.exp(s_own - m)
+    denom = e.sum(-1) + eo
+    p = (e / denom[..., None]).to(q.dtype).float()
+    out = torch.einsum("bhqjl,lbjhd->bqhd", p.reshape(B, H, K, K, L),
+                       vb.float())
+    out = out + (eo / denom).permute(0, 2, 1)[..., None] * vn.float()
+    k_cache[decode_pos] = kn.reshape(B * K, H * Dh).to(k_cache.dtype)
+    v_cache[decode_pos] = vn.reshape(B * K, H * Dh).to(v_cache.dtype)
+    return out.to(q.dtype).reshape(B * K, 1, H * Dh)
+
+
+def beam_decode_attend_update(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, k_new: torch.Tensor,
+                              v_new: torch.Tensor, anc: torch.Tensor,
+                              decode_pos: int,
+                              own_bias: Optional[torch.Tensor] = None,
+                              bias_row: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Fused beam self-attention and cache write for one decode step.
+
+    q (B*K, 1, H, Dh); k_cache, v_cache (L, B*K, H*Dh) time-major, one
+    physical row per beam (J == K), whose slot ``decode_pos`` still holds
+    stale data and is overwritten, in place, with k_new, v_new ((B*K) *
+    H*Dh elements each, rows beam-major); anc (B, K, L) ancestry, read at
+    slots l <= decode_pos - 1 (this step enters through the own-row term);
+    own_bias optional (H,) fp32 on the own score (T5's distance-0 bias);
+    bias_row optional (1, H, 1, L) fp32 on the cache side. Returns
+    (B*K, 1, H*Dh). CPU tensors run the plain twin; CUDA tensors launch
+    D2."""
+    _check_update(q, k_cache, v_cache, k_new, v_new, anc, decode_pos,
+                  own_bias, bias_row)
+    ts = (q, k_cache, v_cache, k_new, v_new, anc) + tuple(
+        t for t in (own_bias, bias_row) if t is not None)
+    if not _build.use_kernel(*ts):
+        return beam_decode_attend_update_reference(
+            q, k_cache, v_cache, k_new, v_new, anc, decode_pos, own_bias,
+            bias_row)
+    B, K, Lc = anc.shape
+    H, Dh = q.shape[-2:]
+    q2 = q.reshape(B * K, H * Dh).contiguous()
+    _build.check(q2, "q", (torch.float32, torch.bfloat16), 2)
+    _build.check(k_cache, "k_cache", (q.dtype,), 3)
+    _build.check(v_cache, "v_cache", (q.dtype,), 3)
+    kn = k_new.reshape(B * K, H * Dh).to(q.dtype).contiguous()
+    vn = v_new.reshape(B * K, H * Dh).to(q.dtype).contiguous()
+    anc32 = anc.to(torch.int32).contiguous()
+    bias = None if bias_row is None else bias_row.reshape(H, Lc).contiguous()
+    obias = None if own_bias is None else own_bias.contiguous()
+    out = torch.empty_like(q2)
+    _build.launch("vlpet_beam_attend_update", q2.data_ptr(),
+                  k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
+                  vn.data_ptr(), anc32.data_ptr(),
+                  None if bias is None else bias.data_ptr(),
+                  None if obias is None else obias.data_ptr(),
+                  out.data_ptr(), B, K, Lc, H, Dh, int(decode_pos),
+                  int(q.dtype == torch.bfloat16))
+    beam_decode_attend_update.launches += 1
+    return out.reshape(B * K, 1, H * Dh)
+
+
+beam_decode_attend_update.launches = 0
