@@ -86,20 +86,34 @@ def test_attention_bias_plain_matches_pallas_interpret(causal):
                                rtol=FP32_TOL, atol=FP32_TOL)
 
 
-def test_attention_bias_is_eval_only():
-    """The bias itself gets no gradient: a bias that requires one raises
-    (its dbias is not ported); q, k and v train through a biased site."""
-    q = torch.zeros(2, 3, 8, requires_grad=True)
-    kv = torch.zeros(2, 4, 8)
-    with pytest.raises(NotImplementedError, match="bias"):
-        tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
-                             bias=torch.zeros(1, 2, 3, 4, requires_grad=True))
-    out = tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
-                               bias=torch.zeros(1, 2, 3, 4))
+def test_attention_bias_gradient():
+    """A bias that requires a gradient gets the batch sum of the per-example
+    logits' cotangents (the same function with the bias repeated per example
+    and summed); q, k and v train through a biased site whose bias is
+    frozen, and A6's CPU wrapper gives the same dbias."""
+    rng = np.random.default_rng(3)
+    q, k, v, do = (_t(rng.normal(size=shape).astype(np.float32))
+                   for shape in ((2, 3, 8), (2, 4, 8), (2, 4, 8), (2, 3, 8)))
+    mask = torch.zeros(2, 1, 1, 4)
+    bias = _t(rng.normal(size=(1, 2, 3, 4)).astype(np.float32))
+    b = bias.clone().requires_grad_()
+    (dbias,) = torch.autograd.grad(
+        tatt.fused_attention(q, k, v, mask, 2, bias=b), b, do)
+    per_example = bias.repeat(2, 1, 1, 1).requires_grad_()
+    s = tatt._logits(q, k, mask, 2, False) + per_example
+    want = torch.autograd.grad(
+        tatt._attend(torch.softmax(s, -1), v, 2, q.dtype), per_example, do)[0]
+    np.testing.assert_allclose(dbias.numpy(), want.sum(0, keepdim=True).numpy(),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    *_, bwd_dbias = tatt.fused_attention_bwd(q, k, v, mask, do, 2,
+                                             bias=bias, bias_grad=True)
+    np.testing.assert_allclose(bwd_dbias.numpy(), dbias.numpy(),
+                               rtol=FP32_TOL, atol=FP32_TOL)
+    qg = q.clone().requires_grad_()
+    out = tatt.fused_attention(qg, k, v, mask, 2, bias=bias)
     assert out.requires_grad
     with pytest.raises(ValueError, match="bias must be"):
-        tatt.fused_attention(q.detach(), kv, kv, torch.zeros(2, 1, 1, 4), 2,
-                             bias=torch.zeros(1, 1, 3, 4))
+        tatt.fused_attention(q, k, v, mask, 2, bias=torch.zeros(1, 1, 3, 4))
 
 
 def test_attention_rejects_per_head_mask():

@@ -25,6 +25,7 @@ from vlpet_tpu_torch.convert import load_flax_params
 from vlpet_tpu_torch.models import generate as tgen
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.pet.modules import PetContext
+from vlpet_tpu_torch.train.freezing import apply_freezing
 
 torch.set_num_threads(2)  # several xdist workers share the host
 
@@ -290,15 +291,24 @@ def test_generate_token_parity(t5_models, beams):
 
 
 def test_t5_training_and_unported_options_raise():
-    """T5 training raises where it needs what the port lacks (a trainable
-    relative_attention_bias, whose dbias is not ported; vis.sparse_sample),
-    and so does every T5 option the port lacks; no call falls back to a
-    plain path."""
+    """T5 training raises where it needs what the port lacks
+    (vis.sparse_sample), and so does every T5 option the port lacks; no
+    call falls back to a plain path. A trainable relative_attention_bias
+    now trains: under unfreeze_bias the gradient of a training forward
+    reaches the bias of both stacks."""
     cfg = _port_cfg(_jax_cfg(gated=False))
-    model = VLT5(cfg, device="cpu")  # nothing frozen: the bias trains
+    model = VLT5(dataclasses.replace(cfg, pet=dataclasses.replace(
+        cfg.pet, unfreeze_bias=True)), device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    apply_freezing(model, model.cfg.pet)
     ids = torch.ones((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="relative_attention_bias"):
-        model(ids, ids, decoder_input_ids=ids, deterministic=False)
+    out = model(ids, ids, decoder_input_ids=ids, deterministic=False)
+    biases = [p for n, p in model.named_parameters()
+              if n.endswith("relative_attention_bias")]
+    assert len(biases) == 2
+    grads = torch.autograd.grad(out["logits"].square().sum(), biases)
+    assert all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+               for g in grads)
     sparse = VLT5(dataclasses.replace(cfg, vis=dataclasses.replace(
         cfg.vis, sparse_sample=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="sparse_sample"):

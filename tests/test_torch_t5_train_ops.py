@@ -12,8 +12,10 @@ into several programs, so the mask must follow the global index; F1/F2
 relu with hidden dropout and F3/F4 gated-gelu with hidden dropout, through
 jax.vjp of fused_ffn and fused_gated_ffn over several row tiles; the
 attention mask helper bit for bit against the JAX keep_mask/head_seed; and
-the cases that must raise (a bias with a gradient, a biased or dropping
-site on the long backward). fp32 tolerance 1e-5 * (1 + max|jax|).
+the cases that still raise (a per-head mask, a rate without a seed,
+bias_grad without a bias) beside the ones that now compute (a bias with a
+gradient, a biased and dropping site on the long backward). fp32 tolerance
+1e-5 * (1 + max|jax|).
 """
 
 import jax
@@ -111,29 +113,40 @@ def test_attention_dropout_fwd_bwd_match_pallas_interpret(site):
 
 
 def test_attention_raises_for_unported_training():
-    """A bias that requires a gradient, and a gradient through the long
-    backward with a bias or a rate, raise; eval on the long route works."""
+    """What stays unported raises: a per-head mask, a rate without a seed,
+    bias_grad without a bias. A bias that requires a gradient, and a biased
+    and dropping site on the long route (L = S = 128, Dh 64: past A6's
+    shared memory), now train: autograd of fused_attention gives dq, dk, dv
+    and dbias, and the long backward's plain twin gives the same."""
     q = torch.zeros(2, 3, 8, requires_grad=True)
     kv = torch.zeros(2, 4, 8)
-    seed = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="bias"):
-        tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2,
-                             bias=torch.zeros(1, 2, 3, 4, requires_grad=True))
-    # L = S = 128, Dh 64: past A6's shared memory, the long backward's
-    L = 128
-    assert tatt.backward_route(L, L, 64, torch.float32) == "long"
-    ql = torch.zeros(1, L, 64, requires_grad=True)
-    kl = torch.zeros(1, L, 64)
-    ml = torch.zeros(1, 1, 1, L)
-    with pytest.raises(NotImplementedError, match="long backward"):
-        tatt.fused_attention(ql, kl, kl, ml, 1, bias=torch.zeros(1, 1, L, L))
-    with pytest.raises(NotImplementedError, match="long backward"):
-        tatt.fused_attention(ql, kl, kl, ml, 1, rate=RATE, seed=seed)
-    with torch.no_grad():
-        tatt.fused_attention(ql, kl, kl, ml, 1, bias=torch.zeros(1, 1, L, L))
-    tatt.fused_attention(ql, kl, kl, ml, 1).sum().backward()
+    with pytest.raises(ValueError, match="per-head"):
+        tatt.fused_attention(q, kv, kv, torch.zeros(2, 2, 1, 4), 2)
     with pytest.raises(ValueError, match="seed"):
         tatt.fused_attention(q, kv, kv, torch.zeros(2, 1, 1, 4), 2, rate=RATE)
+    with pytest.raises(ValueError, match="bias_grad"):
+        tatt.fused_attention_bwd(q.detach(), kv, kv, torch.zeros(2, 1, 1, 4),
+                                 q.detach(), 2, bias_grad=True)
+    L = 128
+    assert tatt.backward_route(L, L, 64, torch.float32) == "long"
+    rng = np.random.default_rng(11)
+    ql, kl, vl, dol = (_t(rng.normal(size=(1, L, 64)).astype(np.float32)
+                          * s) for s in (0.125, 1.0, 1.0, 1.0))
+    bias = _t(rng.normal(size=(1, 1, L, L)).astype(np.float32))
+    ml = torch.zeros(1, 1, 1, L)
+    seed = _t(SEED)
+    leaves = [t.clone().requires_grad_() for t in (ql, kl, vl, bias)]
+    out = tatt.fused_attention(*leaves[:3], ml, 1, False, leaves[3], RATE,
+                               seed)
+    grads = torch.autograd.grad(out, leaves, dol)
+    fwd, lse = tatt.fused_attention_fwd_lse(ql, kl, vl, ml, 1, False, bias,
+                                            RATE, seed)
+    _close(fwd, out.detach().numpy(), "out")
+    long = tatt.fused_attention_bwd_long(ql, kl, vl, ml, fwd, lse, dol, 1,
+                                         False, bias, RATE, seed, True)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), long, grads):
+        _close(g, w.numpy(), name)
+    assert float(grads[3].abs().max()) > 0
 
 
 def _ffn_inputs(rng, N, D, F, n_w):

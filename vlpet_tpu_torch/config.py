@@ -564,3 +564,15 @@ def t5_cfg(dtype: str = "float32", gated: bool = False) -> VLModelConfig:
     return VLModelConfig(backbone=backbone,
                          vis=VisConfig(feat_dim=2048, n_boxes=36), pet=pet,
                          dtype=dtype)
+
+
+def t5_video_cfg(dtype: str = "float32") -> VLModelConfig:
+    """T5-base + VL-PET-large at the video shape: ``t5_cfg()`` (relu FFN,
+    tied head, the T5 recipe's PET and tasks) with 64 CLIP-ViT frames of
+    512-d features, as scripts/bench_step_variants.py's ``t5_video_base``
+    variant builds it (``_bench_variant`` with ``_video`` and ``_t5``: the
+    joint sequence is 64 frames + 540 text tokens, S 604, at batch 50). The
+    one difference from that variant is ``t5_cfg``'s ``t5=True``."""
+    cfg = t5_cfg(dtype)
+    return dataclasses.replace(cfg, vis=dataclasses.replace(
+        cfg.vis, feat_dim=512, n_boxes=64))

@@ -24,12 +24,15 @@ site per step drawn from the caller's generator in the order of
 ``VLT5.dropout_sites``; the loss is vlpet_tpu/models/t5.py:1030-1067's
 (for the tied, frozen head ``fused_linear_ce`` on the rescaled states
 with ``use_fused_ce``, else ``linear_ce`` in bf16; otherwise CE on the fp32
-logits). What the port lacks raises NotImplementedError: the classifier,
-prompts and the hyperformer at build (models/vlbart.py
-check_supported); at a training call, a trainable
-``relative_attention_bias`` (its dbias is not ported), ``vis.sparse_sample``
-and, in ops.attention, a biased or dropping site on the long backward
-(T5 video).
+logits). A trainable ``relative_attention_bias`` (unfreeze_language_model,
+unfreeze_bias, unfreeze_encoder_bias, unfreeze_decoder_bias) takes its
+gradient through the attention kernels' dbias (ops.attention, A6 and the
+long backward), then through the plain bucket gather and the sum over the
+blocks that share it. The video shape (S 604, ``config.t5_video_cfg``)
+trains through the long backward with the bias and the dropout. What the
+port lacks raises NotImplementedError: the classifier, prompts and the
+hyperformer at build (models/vlbart.py check_supported), and
+``vis.sparse_sample`` at a training call.
 
 Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
@@ -715,12 +718,6 @@ class VLT5(nn.Module):
         """Raise for a training call that needs what is not ported."""
         if self.cfg.vis.sparse_sample:
             raise NotImplementedError("vis.sparse_sample is not ported")
-        if torch.is_grad_enabled() and any(
-                p.requires_grad for n, p in self.named_parameters()
-                if n.endswith("relative_attention_bias")):
-            raise NotImplementedError(
-                "a trainable relative_attention_bias is not ported (the "
-                "attention kernels give the bias no gradient)")
 
     def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
             reduce_loss: bool):

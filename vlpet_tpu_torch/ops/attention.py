@@ -23,12 +23,14 @@ T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
 fp32 term added to the logits after the mask (the (B, H, L, S) sum never
 exists), and ``rate`` > 0 drops the probabilities with the hash mask of
 ops/hashdrop.py ``attention_keep_mask`` (seed: a (1,) int32 tensor),
-regenerated in the backward, as vlpet_tpu/ops/attention.py does. A1 and
-A6 take both. The bias gets no gradient: a bias that requires one raises
-NotImplementedError (no VL-PET recipe trains ``relative_attention_bias``;
-the TPU's dbias is not ported), and so does a gradient through the long
-backward with a bias or a rate (T5 video). Per-head masks are not on the
-ported path and are not accepted.
+regenerated in the backward, as vlpet_tpu/ops/attention.py does. A1, A6
+and the long backward take both. A bias that requires a gradient (a
+trainable ``relative_attention_bias``: unfreeze_language_model, BitFit)
+gets the true dbias[h] = sum_b ds[b, h] in fp32 from either backward
+(``bias_grad``, the JAX package's flag; here set by autograd's
+``needs_input_grad``, so a site whose bias is frozen computes none), summed
+over the batch in a fixed order. Per-head masks are not on the ported path
+and are not accepted.
 """
 
 from __future__ import annotations
@@ -104,20 +106,26 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def fused_attention_lse_reference(q, k, v, mask, num_heads: int,
-                                  causal: bool = False, bias=None):
+                                  causal: bool = False, bias=None,
+                                  rate: float = 0.0, seed=None):
     """Plain twin of ``fused_attention_fwd_lse``: (the reference output,
-    fp32 row logsumexp (B, H, L) of the masked logits)."""
+    dropped where ``rate`` > 0, and the fp32 row logsumexp (B, H, L) of the
+    masked, biased, undropped logits)."""
     s = _logits(q, k, mask, num_heads, causal, bias)
-    return (_attend(torch.softmax(s, dim=-1), v, num_heads, q.dtype),
-            torch.logsumexp(s, dim=-1))
+    p = _drop_probs(torch.softmax(s, dim=-1), rate, seed)
+    return _attend(p, v, num_heads, q.dtype), torch.logsumexp(s, dim=-1)
 
 
 def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
-                                       num_heads: int, causal: bool = False):
+                                       num_heads: int, causal: bool = False,
+                                       bias=None, rate: float = 0.0,
+                                       seed=None, bias_grad: bool = False):
     """Plain twin of the long backward, in its arithmetic: p recomputed as
-    exp(logits - lse), delta = rowsum(do * out), ds = p (do v^T - delta),
-    dq = ds k, dk = ds^T q, dv = p^T do, all fp32, cast to the inputs'
-    dtype."""
+    exp(logits - lse) (bias included), the dropout's keep mask regenerated,
+    delta = rowsum(do * out) with ``out`` the dropped output,
+    dp = keep ? (do v^T) / (1 - rate) : 0, ds = p (dp - delta), dq = ds k,
+    dk = ds^T q, dv = p_drop^T do, all fp32, cast to the inputs' dtype;
+    with ``bias_grad`` also dbias = sum_b ds, fp32 (1, H, L, S)."""
     B, L, inner = q.shape
     S = k.shape[1]
     hd = inner // num_heads
@@ -126,15 +134,25 @@ def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
         return t.reshape(B, n, num_heads, hd).float()
 
     qh, kh, vh, doh = heads(q, L), heads(k, S), heads(v, S), heads(do, L)
-    p = torch.exp(_logits(q, k, mask, num_heads, causal) - lse[..., None])
+    p = torch.exp(_logits(q, k, mask, num_heads, causal, bias)
+                  - lse[..., None])
     delta = (doh * heads(out, L)).sum(-1).transpose(1, 2)  # (B, H, L)
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", doh, vh) - delta[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    pd = p
+    if rate > 0.0:
+        keep = attention_keep_mask(B, L, S, num_heads, seed, rate,
+                                   device=q.device)
+        inv = 1.0 / (1.0 - rate)
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
+        pd = torch.where(keep, p * inv, torch.zeros_like(p))
+    ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, doh)
-    return (dq.reshape(B, L, inner).to(q.dtype),
-            dk.reshape(B, S, inner).to(k.dtype),
-            dv.reshape(B, S, inner).to(v.dtype))
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, doh)
+    grads = (dq.reshape(B, L, inner).to(q.dtype),
+             dk.reshape(B, S, inner).to(k.dtype),
+             dv.reshape(B, S, inner).to(v.dtype))
+    return grads + (ds.sum(0, keepdim=True),) if bias_grad else grads
 
 
 def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
@@ -149,7 +167,8 @@ def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     return "A6" if smem <= _SMEM_LIMIT else "long"
 
 
-def _check(q, k, v, mask, num_heads, bias=None, rate=0.0, seed=None):
+def _check(q, k, v, mask, num_heads, bias=None, rate=0.0, seed=None,
+           bias_grad=False):
     B, L, inner = q.shape
     S = k.shape[1]
     if k.shape != (B, S, inner) or v.shape != (B, S, inner):
@@ -166,6 +185,8 @@ def _check(q, k, v, mask, num_heads, bias=None, rate=0.0, seed=None):
                              or bias.dtype != torch.float32):
         raise ValueError(f"bias must be (1, H={num_heads}, L={L}, S={S}) "
                          f"fp32; got {bias.dtype} {tuple(bias.shape)}")
+    if bias_grad and bias is None:
+        raise ValueError("bias_grad needs a bias")
     check_drop(rate, seed)
 
 
@@ -217,38 +238,45 @@ def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False,
 def fused_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, mask: torch.Tensor,
                             num_heads: int, causal: bool = False,
-                            bias: torch.Tensor = None):
-    """(out, lse): fused_attention's output and the fp32 row logsumexp
-    (B, H, L) of the masked (and biased) logits, what the long backward
-    takes. A1 on CUDA tensors, the plain twin on CPU tensors."""
-    _check(q, k, v, mask, num_heads, bias)
-    ts = (q, k, v, mask) + (() if bias is None else (bias,))
+                            bias: torch.Tensor = None, rate: float = 0.0,
+                            seed: torch.Tensor = None):
+    """(out, lse): fused_attention's output (dropped where ``rate`` > 0) and
+    the fp32 row logsumexp (B, H, L) of the masked, biased, undropped
+    logits, what the long backward takes. A1 on CUDA tensors, the plain twin
+    on CPU tensors."""
+    _check(q, k, v, mask, num_heads, bias, rate, seed)
+    ts = (q, k, v, mask) + tuple(t for t in (bias, seed) if t is not None)
     if not _build.use_kernel(*ts):
         return fused_attention_lse_reference(q, k, v, mask, num_heads, causal,
-                                             bias)
+                                             bias, rate, seed)
     return _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True,
-                       bias=bias)
+                       bias=bias, rate=rate, seed=seed)
 
 
 def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, do: torch.Tensor, num_heads: int,
                         causal: bool = False, bias: torch.Tensor = None,
-                        rate: float = 0.0, seed: torch.Tensor = None):
+                        rate: float = 0.0, seed: torch.Tensor = None,
+                        bias_grad: bool = False):
     """(dq, dk, dv) of fused_attention for cotangent ``do`` (B, L, H*Dh), in
-    the inputs' dtype: kernel A6 on CUDA tensors (where ``backward_route``
-    says "A6"; raises otherwise), autograd of the plain version on CPU
-    tensors. The mask and the bias get no gradient; with ``rate`` > 0 the
-    forward's dropout mask is regenerated from ``seed``."""
-    _check(q, k, v, mask, num_heads, bias, rate, seed)
+    the inputs' dtype, and with ``bias_grad`` the bias's fp32 cotangent
+    dbias (1, H, L, S) = sum_b ds[b] as a fourth: kernel A6 on CUDA tensors
+    (where ``backward_route`` says "A6"; raises otherwise), autograd of the
+    plain version on CPU tensors. The mask gets no gradient; with ``rate``
+    > 0 the forward's dropout mask is regenerated from ``seed``."""
+    _check(q, k, v, mask, num_heads, bias, rate, seed, bias_grad)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} must match q {tuple(q.shape)}")
     ts = (q, k, v, mask, do) + tuple(t for t in (bias, seed) if t is not None)
     if not _build.use_kernel(*ts):
         with torch.enable_grad():
             args = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = fused_attention_reference(
-                *args, mask, num_heads, causal,
-                None if bias is None else bias.detach(), rate, seed)
+            b = None if bias is None else bias.detach()
+            if bias_grad:
+                b.requires_grad_()
+                args.append(b)
+            out = fused_attention_reference(args[0], args[1], args[2], mask,
+                                            num_heads, causal, b, rate, seed)
             return torch.autograd.grad(out, args, do)
     B, L, inner = q.shape
     S = k.shape[1]
@@ -261,25 +289,39 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"),))
     bias, seed = _extras(bias, rate, seed)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    part = dbias = None
+    if bias_grad:
+        part = torch.empty((B, num_heads, L, S), dtype=torch.float32,
+                           device=q.device)
+        dbias = torch.empty((1, num_heads, L, S), dtype=torch.float32,
+                            device=q.device)
     _build.launch("vlpet_attention_bwd", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), m.data_ptr(), _ptr(bias), _ptr(seed),
                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  B, L, S, num_heads, Dh, int(m.shape[0] == B), int(causal),
+                  _ptr(part), _ptr(dbias), B, L, S, num_heads, Dh,
+                  int(m.shape[0] == B), int(causal),
                   int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
     fused_attention_bwd.launches += 1
-    return dq, dk, dv
+    if not bias_grad:
+        return dq, dk, dv
+    fused_attention_bwd.dbias_launches += 1
+    return dq, dk, dv, dbias
 
 
 def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, mask: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor,
                              do: torch.Tensor, num_heads: int,
-                             causal: bool = False):
+                             causal: bool = False, bias: torch.Tensor = None,
+                             rate: float = 0.0, seed: torch.Tensor = None,
+                             bias_grad: bool = False):
     """(dq, dk, dv) of fused_attention for cotangent ``do``, from the
-    forward's ``out`` and row logsumexp ``lse`` (``fused_attention_fwd_lse``),
-    in the inputs' dtype: the tiled long backward on CUDA tensors (any L, S;
-    Dh <= 128), its plain twin on CPU tensors. The mask gets no gradient."""
-    _check(q, k, v, mask, num_heads)
+    forward's ``out`` and row logsumexp ``lse`` (``fused_attention_fwd_lse``
+    with the same bias, rate and seed), in the inputs' dtype, and with
+    ``bias_grad`` the fp32 dbias (1, H, L, S) as a fourth: the tiled long
+    backward on CUDA tensors (any L, S; Dh <= 128), its plain twin on CPU
+    tensors. The mask gets no gradient."""
+    _check(q, k, v, mask, num_heads, bias, rate, seed, bias_grad)
     B, L, inner = q.shape
     S = k.shape[1]
     if do.shape != q.shape or out.shape != q.shape:
@@ -290,22 +332,32 @@ def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
                          f"{L}); got {lse.dtype} {tuple(lse.shape)}")
     if causal and S < L:
         raise ValueError(f"causal attention needs S >= L, got L {L} S {S}")
-    if not _build.use_kernel(q, k, v, mask, out, lse, do):
-        return fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
-                                                  num_heads, causal)
+    ts = (q, k, v, mask, out, lse, do) + tuple(
+        t for t in (bias, seed) if t is not None)
+    if not _build.use_kernel(*ts):
+        return fused_attention_bwd_long_reference(
+            q, k, v, mask, out, lse, do, num_heads, causal, bias, rate, seed,
+            bias_grad)
     do = do.contiguous()
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"), (out, "out")))
     _build.check(lse, "lse", (torch.float32,), 3)
+    bias, seed = _extras(bias, rate, seed)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
+    dbias = (torch.empty((1, num_heads, L, S), dtype=torch.float32,
+                         device=q.device) if bias_grad else None)
     _build.launch("vlpet_attention_bwd_long", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), m.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                  do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  delta.data_ptr(), B, L, S, num_heads, inner // num_heads,
-                  int(m.shape[0] == B), int(causal),
-                  int(q.dtype == torch.bfloat16))
+                  v.data_ptr(), m.data_ptr(), _ptr(bias), _ptr(seed),
+                  out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  delta.data_ptr(), _ptr(dbias), B, L, S, num_heads,
+                  inner // num_heads, int(m.shape[0] == B), int(causal),
+                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
     fused_attention_bwd_long.launches += 1
-    return dq, dk, dv
+    if not bias_grad:
+        return dq, dk, dv
+    fused_attention_bwd_long.dbias_launches += 1
+    return dq, dk, dv, dbias
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -318,21 +370,30 @@ class _FusedAttention(torch.autograd.Function):
             ctx.save_for_backward(q, k, v, mask, bias, seed)
             return _launch_fwd(q, k, v, mask, num_heads, causal, bias=bias,
                                rate=rate, seed=seed)
-        out, lse = _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
+        out, lse = _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=True,
+                               bias=bias, rate=rate, seed=seed)
+        ctx.save_for_backward(q, k, v, mask, bias, seed, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
+        # dbias only where the bias is trainable: the counterpart of the
+        # JAX package's per-site path_is_trainable(... relative_attention_bias)
+        bias_grad = ctx.needs_input_grad[4]
         if ctx.long:
-            q, k, v, mask, out, lse = ctx.saved_tensors
-            dq, dk, dv = fused_attention_bwd_long(q, k, v, mask, out, lse, do,
-                                                  ctx.num_heads, ctx.causal)
+            q, k, v, mask, bias, seed, out, lse = ctx.saved_tensors
+            grads = fused_attention_bwd_long(
+                q, k, v, mask, out, lse, do, ctx.num_heads, ctx.causal, bias,
+                ctx.rate, seed, bias_grad)
         else:
             q, k, v, mask, bias, seed = ctx.saved_tensors
-            dq, dk, dv = fused_attention_bwd(q, k, v, mask, do, ctx.num_heads,
-                                             ctx.causal, bias, ctx.rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None
+            grads = fused_attention_bwd(q, k, v, mask, do, ctx.num_heads,
+                                        ctx.causal, bias, ctx.rate, seed,
+                                        bias_grad)
+        dq, dk, dv = (g if need else None
+                      for g, need in zip(grads[:3], ctx.needs_input_grad))
+        return (dq, dk, dv, None, grads[3] if bias_grad else None, None, None,
+                None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -343,24 +404,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, L, H*Dh) in q's dtype; differentiable in q, k and v.
 
     mask: additive (B|1, 1, 1, S); bias: batch-shared additive (1, H, L, S)
-    fp32 (T5 relative positions), which gets no gradient; ``rate`` > 0:
-    probability dropout driven by ``seed``, a (1,) int32 tensor. CPU
-    tensors run the plain version; CUDA tensors launch A1 forward and the
-    backward ``backward_route`` picks. Raises NotImplementedError for a bias
-    that requires a gradient, and for a gradient through the long backward
-    with a bias or a rate."""
+    fp32 (T5 relative positions), differentiable too (a trainable
+    relative_attention_bias); ``rate`` > 0: probability dropout driven by
+    ``seed``, a (1,) int32 tensor. CPU tensors run the plain version; CUDA
+    tensors launch A1 forward and the backward ``backward_route`` picks."""
     _check(q, k, v, mask, num_heads, bias, rate, seed)
-    grad = torch.is_grad_enabled()
-    if grad and bias is not None and bias.requires_grad:
-        raise NotImplementedError("fused_attention: no gradient for the bias "
-                                  "(a trainable relative_attention_bias; its "
-                                  "dbias is not ported)")
-    need_grad = grad and any(t.requires_grad for t in (q, k, v))
-    if need_grad and (bias is not None or rate > 0.0) and backward_route(
-            q.shape[1], k.shape[1], q.shape[2] // num_heads,
-            q.dtype) == "long":
-        raise NotImplementedError("fused_attention: the long backward takes "
-                                  "no bias and no dropout (T5 video)")
+    need_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias))
     ts = (q, k, v, mask) + tuple(t for t in (bias, seed) if t is not None)
     if not _build.use_kernel(*ts):
         return fused_attention_reference(q, k, v, mask, num_heads, causal,
@@ -375,3 +425,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 fused_attention.launches = 0
 fused_attention_bwd.launches = 0
 fused_attention_bwd_long.launches = 0
+# launches that also computed dbias (a mode of each backward, counted apart)
+fused_attention_bwd.dbias_launches = 0
+fused_attention_bwd_long.dbias_launches = 0
