@@ -18,11 +18,14 @@ nonzero and no result line is printed):
   3c. the video path's long attention, bf16 and fp32, ragged padding
      masks: A1 forward (output and row logsumexp) and the long backward vs
      the plain version and autograd of it at the encoder (B 50, L = S =
-     604), cross (B 50, L 10, S 604) and S 1024 (B 16) sites and one causal
-     L = S = 604 case; then the long backward and A6 timed side by side at
+     604), cross (B 50, L 10, S 604) and S 1024 (B 16) sites, one causal
+     L = S = 604 case and L = S = 65 (a 1-row last tile), the bf16 long
+     backward run twice and bitwise equal; then the long backward and A6
+     timed side by side at
      the image-text encoder shape (B 500, L = S = 56), a record only; then
      every other kernel of the video paths at the shapes they give it, bf16
-     (beam cross-attention L 5 over S 604, decoder self-attention and A6,
+     (beam cross-attention L 5 and greedy L 1 over S 604, decoder
+     self-attention and A6,
      FFN and LayerNorm kernels at 50 x 604, 50 x 10 and 250 rows, beam
      self-attention over 20 slots, top-k over 250 rows);
   4. fp32 decode parity: BART-base + VL-PET-large at full width, seeded
@@ -51,7 +54,10 @@ nonzero and no result line is printed):
      (the training path's main-path run), peak memory;
   7b. the video train step in bf16: batch 50, 540 text + 64 frames, 10
      targets, tvqa, dropout 0.1, lr 7e-4, clip 5, as phase 7 (the video
-     training path's main-path run);
+     training path's main-path run); then one bf16 step through the
+     kernels and one through the plain twins from the same state (weights
+     and dropout seeds): losses within 1e-2 relative, the gradient norms'
+     ratio printed;
   3d. (run after 3c) the T5 eval path's kernels vs plain, bf16 and fp32:
      A1 with the per-head relative bias at B 300, L = S = 56 (ragged
      padding mask; SDPA with attn_mask = bias + mask as the yardstick), its
@@ -122,8 +128,11 @@ nonzero and no result line is printed):
      and from the long backward at the video encoder -- dq, dk, dv and
      dbias checked, every dbias case run twice and bitwise equal; the
      library yardstick SDPA's autograd (bias gradient included) at rate 0;
-     then the long backward's dropout mask bit for bit (fp32, a ragged
-     64-row tile included);
+     at the long sites also A1's output and row logsumexp with the same
+     terms, and every long backward run twice, bitwise equal; then A1's and
+     the long backward's dropout masks bit for bit at the T5 video encoder,
+     bf16 and fp32 (every query row, the ragged 64-row and 64-key tiles
+     included);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -138,7 +147,13 @@ nonzero and no result line is printed):
   7e. (run after 7d) the bf16 T5 video train step (B 50, S 604, vqa) and
      t5_full_ft (unfreeze_language_model, B 300) as phase 7c: examples/s,
      ms/step, peak memory and launches beside phases 7b and 7c (the
-     t5_video_train and t5_full_ft main-path runs).
+     t5_video_train and t5_full_ft main-path runs); the T5 video step then
+     one bf16 step kernels vs plain, as 7b.
+Routes: each kernel-vs-plain line of A1 and the long backward prints the
+route it launched (ops/attention.py forward_route: "tc", the tensor-core
+kernels, for bf16 at Dh 64; "fma" otherwise), every bf16 bench run (5-5e,
+7-7e) must launch both on "tc" only, and the kernels' JSON record gives
+their main-path launches per route.
 The last lines are the smoke's wall time, the card, the kernels' JSON
 record and the result line {"ok": true, "device": {...}}.
 
@@ -198,6 +213,10 @@ MIN_ROUTED_SHARE = 0.5
 MIN_DISTINCT_PER_ROW = 4
 # phase 6: per-step loss and gradient norm, relative; trainable parameters
 TRAIN_METRIC_RTOL = 1e-5
+# phases 7b and 7e: one bf16 step through the kernels against one through
+# the plain twins from the same state, loss relative (the two round the
+# probabilities and hidden activations to bf16 at other places)
+BF16_STEP_RTOL = 1e-2
 PARAM_RTOL, PARAM_ATOL_SCALE = 1e-3, 1e-5
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): bf16
@@ -365,7 +384,10 @@ class Report:
         function, where there is one). ``work`` = (bytes, operations) of
         the call, for the bound of the timed case; ``backward`` takes the
         tolerance scaled by max|plain| (module docstring)."""
-        got, want = kernel_fn(), plain_fn()
+        before = route_counts()
+        got = kernel_fn()
+        took = routes_taken(before)
+        want = plain_fn()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
         torch.cuda.synchronize()
@@ -379,11 +401,21 @@ class Report:
         bms, by = bound(*work, dtype) if work is not None else (None, None)
         bnd = f"  bound {bms:.4f} ms ({by})" if work is not None else ""
         print(f"  {key:24s} {label:34s} max|err| {err:.3e}  kernel "
-              f"{ms:.4f} ms  plain {pms:.4f} ms{lib}{bnd}", flush=True)
+              f"{ms:.4f} ms  plain {pms:.4f} ms{lib}{bnd}{took}", flush=True)
         if timed:
             self.timed[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=bms, bound_by=by)
         return ms
+
+
+def routes_taken(before: dict) -> str:
+    """The routes launched since ``before`` (route_counts()), as printed
+    after a case: "  route fused_attention tc", or "" for an unrouted
+    kernel."""
+    now = route_counts()
+    took = [k.replace("[", " ").rstrip("]") for k, n in now.items()
+            if n > before[k]]
+    return f"  route {', '.join(took)}" if took else ""
 
 
 def randn_fn(g, dev="cuda"):
@@ -659,8 +691,10 @@ def phase_long_attention(rep: Report) -> None:
     randn = randn_fn(g)
     H, Dh = 12, 64
     inner = H * Dh
+    # "ragged": L = S = 65, one full 64-row tile and a 1-row one
     sites = (("enc", 50, 604, 604, False), ("cross", 50, 10, 604, False),
-             ("enc", 16, 1024, 1024, False), ("causal", 50, 604, 604, True))
+             ("enc", 16, 1024, 1024, False), ("causal", 50, 604, 604, True),
+             ("ragged", 50, 65, 65, False))
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
         main = dtype == torch.bfloat16
@@ -703,6 +737,10 @@ def phase_long_attention(rep: Report) -> None:
                             10 * B * H * L * S * Dh * seen),
                       library_fn=lib_bwd, backward=True)
             del plain_bwd, lib_bwd
+            if main:
+                bitwise_repeat("fused_attention_bwd_long", label,
+                               lambda: attention.fused_attention_bwd_long(
+                                   q, k, v, mask, out, lse, do, H, causal))
     # a record for later PRs, not a route: the long backward at the
     # image-text encoder shape, beside A6, which serves it
     B, L = 500, 56
@@ -719,6 +757,17 @@ def phase_long_attention(rep: Report) -> None:
     a6_ms = cuda_ms(lambda: attention.fused_attention_bwd(q, k, v, mask, do, H))
     print(f"  image-text encoder backward, bf16 B{B} L=S={L}: long backward "
           f"{long_ms:.4f} ms, A6 {a6_ms:.4f} ms (A6 serves this shape)",
+          flush=True)
+
+
+def bitwise_repeat(key: str, label: str, fn) -> None:
+    """fn() twice gives bitwise equal outputs (no atomics, fixed-order
+    sums)."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{key} {label}: two runs differ")
+    print(f"  {key:24s} {label:34s} bitwise equal over two runs",
           flush=True)
 
 
@@ -739,11 +788,13 @@ def phase_video_kernels(rep: Report) -> None:
     it = 5
     mask = padding_mask(g, B, S)
     k, v = randn(B, S, inner, dtype=dtype), randn(B, S, inner, dtype=dtype)
-    q = randn(B, K, inner, dtype=dtype, scale=Dh ** -0.5)
-    rep.check("fused_attention", f"bf16 beam cross B{B} L{K} S{S}",
-              lambda: attention.fused_attention(q, k, v, mask, H),
-              lambda: attention.fused_attention_reference(q, k, v, mask, H),
-              dtype, iters=it)
+    for L, what in ((K, "beam"), (1, "greedy")):
+        q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+        rep.check("fused_attention", f"bf16 {what} cross B{B} L{L} S{S}",
+                  lambda: attention.fused_attention(q, k, v, mask, H),
+                  lambda: attention.fused_attention_reference(q, k, v, mask,
+                                                              H),
+                  dtype, iters=it, library_fn=lambda: sdpa(q, k, v, mask, H))
     zero = torch.zeros((1, 1, 1, T), device="cuda")
     q, k, v, do = (randn(B, T, inner, dtype=dtype, scale=s)
                    for s in (Dh ** -0.5, 1.0, 1.0, 1.0))
@@ -1068,13 +1119,14 @@ def phase_t5_train_kernels(rep: Report) -> None:
     check_drop_masks(seed)
 
 
-def _expect_zeros(name: str, got: torch.Tensor, keep: torch.Tensor) -> None:
-    """got (fp32) is zero exactly where keep is False."""
+def _expect_zeros(name: str, got: torch.Tensor, keep: torch.Tensor,
+                  tag: str = "fp32") -> None:
+    """got is zero exactly where keep is False."""
     bad = ((got == 0) != ~keep).sum().item()
     if bad:
         raise AssertionError(f"{name}: dropout mask differs from "
                              f"ops/hashdrop.py in {bad} elements")
-    print(f"  {name:46s} fp32 mask == hashdrop bit for bit "
+    print(f"  {name:46s} {tag} mask == hashdrop bit for bit "
           f"({tuple(keep.shape)}, kept share "
           f"{keep.float().mean().item():.4f})", flush=True)
 
@@ -1209,24 +1261,65 @@ def grad_case(rep: Report, g, dtype, seed, site: str, B: int, L: int,
     nb = 4 * H * L * S * (2 if bias_grad else 1) if has_bias else 0
     label = (f"{tag} {site} B{B} L{L} S{S}" + (" +bias" if has_bias else "")
              + (" causal" if causal else "") + f" rate {rate}")
+    if long:  # the forward the long backward starts from, same terms
+        rep.check("fused_attention +bias +dropout", label + " +lse",
+                  lambda: attention.fused_attention_fwd_lse(
+                      q, k, v, mask, H, causal, bias, rate, seed),
+                  lambda: attention.fused_attention_lse_reference(
+                      q, k, v, mask, H, causal, bias, rate, seed),
+                  dtype, iters=10)
     rep.check(key, label, kernel, plain, dtype, timed=timed,
               work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S + nb
                     + (e * B * L * inner + 4 * B * H * L if long else 0),
                     10 * B * H * L * S * Dh * seen),
               library_fn=lib, iters=10 if long else 20, backward=True)
-    if bias_grad:
-        first, again = kernel(), kernel()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise AssertionError(f"{key} {label}: two runs differ")
-        print(f"  {key:24s} {label:34s} dq, dk, dv, dbias bitwise equal "
-              f"over two runs", flush=True)
+    if bias_grad or long:
+        bitwise_repeat(key, label, kernel)
     del plain, lib
 
 
+def _t5_video_inputs(g, dtype, B: int, L: int, H: int, Dh: int):
+    """q (scale 0.1), k and the (1, H, L, L) bias of the T5 video encoder
+    drop-mask checks: logits of O(1), so no kept probability rounds to 0."""
+    inner = H * Dh
+    q = (torch.randn((B, L, inner), generator=g, device="cuda") * 0.1)
+    k = torch.randn((B, L, inner), generator=g, device="cuda")
+    bias = torch.randn((1, H, L, L), generator=g, device="cuda") * 0.5
+    return q.to(dtype), k.to(dtype), bias
+
+
 @torch.no_grad()
-def check_long_drop_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
-    """fp32, the T5 video encoder shape (B 50, L = S = 604): the long
+def check_long_fwd_drop_mask(seed: torch.Tensor, dtype,
+                             rate: float = 0.1) -> None:
+    """The T5 video encoder shape (B 50, L = S = 604), ``dtype``: A1's
+    dropout mask, bit for bit, is ops/hashdrop.py's at every query row (the
+    rows past 64 and the ragged last 64-row tile included). Values one-hot
+    on the keys c0 .. c0 + 64 (v[j, d] = [j - c0 == d]) give out[i, d] =
+    the dropped probability of (i, c0 + d) over the row sum, an exact zero
+    where the element is dropped; c0 = 540 spans the last full 64-key tile
+    and the ragged one."""
+    from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    B, L, H, Dh = 50, 604, 12, 64
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    q, k, bias = _t5_video_inputs(g, dtype, B, L, H, Dh)
+    mask = torch.zeros((1, 1, 1, L), device="cuda")
+    keep = attention_keep_mask(B, L, L, H, seed, rate, device="cuda")
+    cols = torch.arange(Dh, device="cuda")
+    for c0 in (0, L - Dh):
+        v = torch.zeros((B, L, H, Dh), device="cuda", dtype=dtype)
+        v[:, c0 + cols, :, cols] = 1.0
+        out = attention.fused_attention(q, k, v.view(B, L, H * Dh), mask, H,
+                                        False, bias, rate, seed)
+        got = out.view(B, L, H, Dh).permute(0, 2, 1, 3).float()  # (B, H, i, d)
+        _expect_zeros(f"fused_attention L=S={L} keys {c0}..{c0 + Dh - 1}",
+                      got, keep[..., c0:c0 + Dh], tag)
+
+
+@torch.no_grad()
+def check_long_drop_mask(seed: torch.Tensor, dtype, rate: float = 0.1) -> None:
+    """The T5 video encoder shape (B 50, L = S = 604), ``dtype``: the long
     backward's dropout mask, bit for bit, is ops/hashdrop.py's. A cotangent
     one-hot on the 64 query rows r0 .. r0 + 64 (do[i, d] = [i - r0 == d])
     gives dv[j, d] = p_drop[r0 + d, j], so each dropped element is an exact
@@ -1237,23 +1330,22 @@ def check_long_drop_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
     g = torch.Generator(device="cuda").manual_seed(9)
     B, L, H, Dh = 50, 604, 12, 64
     inner = H * Dh
-    q = torch.randn((B, L, inner), generator=g, device="cuda") * 0.1
-    k = torch.randn((B, L, inner), generator=g, device="cuda")
-    bias = torch.randn((1, H, L, L), generator=g, device="cuda") * 0.5
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    q, k, bias = _t5_video_inputs(g, dtype, B, L, H, Dh)
     mask = torch.zeros((1, 1, 1, L), device="cuda")
     out, lse = attention.fused_attention_fwd_lse(q, k, k, mask, H, False,
                                                  bias, rate, seed)
     keep = attention_keep_mask(B, L, L, H, seed, rate, device="cuda")
+    rows = torch.arange(Dh, device="cuda")
     for r0 in (0, L - Dh):
-        do = torch.zeros((B, L, H, Dh), device="cuda")
-        rows = torch.arange(Dh, device="cuda")
+        do = torch.zeros((B, L, H, Dh), device="cuda", dtype=dtype)
         do[:, r0 + rows, :, rows] = 1.0
         _, _, dv = attention.fused_attention_bwd_long(
             q, k, k, mask, out, lse, do.view(B, L, inner), H, False, bias,
             rate, seed)
-        got = dv.view(B, L, H, Dh).permute(0, 2, 3, 1)  # (B, H, d, j)
+        got = dv.view(B, L, H, Dh).permute(0, 2, 3, 1).float()  # (B, H, d, j)
         _expect_zeros(f"fused_attention_bwd_long rows {r0}..{r0 + Dh - 1}",
-                      got, keep[:, :, r0:r0 + Dh])
+                      got, keep[:, :, r0:r0 + Dh], tag)
 
 
 def phase_bias_grad_kernels(rep: Report) -> None:
@@ -1283,7 +1375,9 @@ def phase_bias_grad_kernels(rep: Report) -> None:
                                       "t5 video enc dbias")
             grad_case(rep, g, dtype, seed, site, B, L, S, causal, has_bias,
                       bias_grad, timed)
-    check_long_drop_mask(seed)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_long_fwd_drop_mask(seed, dtype)
+        check_long_drop_mask(seed, dtype)
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -1387,9 +1481,21 @@ def counters():
     return out
 
 
+# the wrappers that count their launches by ops.attention.forward_route
+ROUTED = ("fused_attention", "fused_attention_bwd_long")
+
+
+def route_counts() -> dict:
+    """"name[route]" -> launches, for the routed wrappers."""
+    return {f"{k}[{r}]": n for k in ROUTED
+            for r, n in wrappers()[k].launches_by_route.items()}
+
+
 def reset_counts():
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    for k in ROUTED:
+        wrappers()[k].launches_by_route.update(tc=0, fma=0)
 
 
 def any_launched() -> bool:
@@ -1405,7 +1511,15 @@ def read_counts(path: str):
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
-    return got
+    return {**got, **route_counts()}
+
+
+def require_tc(path: str, launched: dict) -> None:
+    """A bf16 bench run (every Dh 64): A1 and the long backward launched on
+    the tensor-core route only."""
+    off = {k: launched[f"{k}[fma]"] for k in ROUTED if launched[f"{k}[fma]"]}
+    if off:
+        raise AssertionError(f"{path}: bf16 launches on the FMA route {off}")
 
 
 def routed_share(model: VLBart, run):
@@ -1466,16 +1580,21 @@ def parity_run(label: str, model: VLBart, batch, ctx: PetContext,
           f"cache slots read across beams {routed:.3f}, distinct ids per "
           f"row {per_row}", flush=True)
     print(f"    sample: {got[0].tolist()}", flush=True)
-    # greedy: L = 1 cross-attention and k = 1 top-k through the kernels
+    # greedy: L = 1 cross-attention and k = 1 top-k (T2) through the
+    # kernels; T2's launches counted over the run
+    t2 = topk.topk_lse.launches
     got = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1,
                            max_length=max_length)
+    t2 = topk.topk_lse.launches - t2
     with plain_twins():
         want = seq2seq_generate(model, **batch, ctx=ctx, num_beams=1,
                                 max_length=max_length)
     if not torch.equal(got, want):
         raise AssertionError(f"{label}: fp32 greedy tokens differ between "
                              f"kernels and plain")
-    print(f"  {label}: greedy tokens identical (kernel vs plain)", flush=True)
+    print(f"  {label}: greedy tokens identical (kernel vs plain); top-k "
+          f"launches (T2, k = 1) {t2} over {max_length - 1} steps",
+          flush=True)
     return beam, got
 
 
@@ -1526,6 +1645,7 @@ def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = read_counts(path)
+    require_tc(path, launched)
     if out.shape != (B, max_length) or out.dtype != torch.long:
         raise AssertionError(f"bad output {tuple(out.shape)} {out.dtype}")
     start = model.cfg.backbone.decoder_start_token_id
@@ -1846,10 +1966,35 @@ def phase_video_train_parity() -> None:
                  23, VIDEO_TASKS, "tvqa", 7e-4, "video_train")
 
 
+def step_vs_plain(label: str, step, trainable, batch, gen, task_idx) -> None:
+    """One bf16 step through the kernels and one through the plain twins
+    from the same state (parameters and dropout seeds): the losses within
+    BF16_STEP_RTOL relative; the gradient norms' ratio printed."""
+    start, gstate = snapshot(trainable), gen.get_state()
+    got = step(batch, gen, task_idx)
+    loss, gnorm = got["loss"].item(), got["grad_norm"].item()
+    restore(trainable, start)
+    gen.set_state(gstate)
+    with plain_twins():
+        want = step(batch, gen, task_idx)
+    ploss, pgnorm = want["loss"].item(), want["grad_norm"].item()
+    rel = abs(loss - ploss) / abs(ploss)
+    if not rel <= BF16_STEP_RTOL:
+        raise AssertionError(f"{label}: bf16 loss {loss:.6f} through the "
+                             f"kernels, {ploss:.6f} through the plain twins: "
+                             f"{rel:.3e} relative (tol {BF16_STEP_RTOL})")
+    print(f"  {label}: one bf16 step kernels vs plain from the same state: "
+          f"loss {loss:.6f} vs {ploss:.6f} ({rel:.3e} relative, tol "
+          f"{BF16_STEP_RTOL}); grad norm {gnorm:.6f} vs {pgnorm:.6f} (ratio "
+          f"{gnorm / pgnorm:.6f})", flush=True)
+
+
 def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
-                task: str, lr: float, path: str, label: str):
+                task: str, lr: float, path: str, label: str,
+                vs_plain: bool = False):
     """3 warm-up steps, then 10 timed steps ending in one sync; the
-    launches of the timed steps (the ``path`` main-path run)."""
+    launches of the timed steps (the ``path`` main-path run). With
+    ``vs_plain``, then one step kernels vs plain (``step_vs_plain``)."""
     warm, timed = 3, 10
     model = build_model("bfloat16", cfg_fn)
     trainable = apply_freezing(model, model.cfg.pet)
@@ -1869,6 +2014,7 @@ def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
     loss = out["loss"].item()  # the one sync
     wall = time.perf_counter() - t0
     launched = read_counts(path)
+    require_tc(path, launched)
     if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
         raise AssertionError(f"non-finite loss {loss} / grad norm")
     per_step = {k: n / timed for k, n in launched.items() if n}
@@ -1882,6 +2028,9 @@ def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
     if "--profile" in sys.argv:
         profile_run(lambda: step(batch, gen, task_idx)["loss"].item(), card,
                     f"{label} train step")
+    if vs_plain:
+        step_vs_plain(f"bf16 B{B} {label}", step, trainable, batch, gen,
+                      task_idx)
     return launched
 
 
@@ -1950,7 +2099,7 @@ def phase_t5_train_bench(card: str):
 def phase_video_train_bench(card: str):
     launched = train_bench(card, video_cfg, make_video_train_batch, 50, 33,
                            VIDEO_TASKS, "tvqa", 7e-4, "video_train",
-                           "video S604 tvqa")
+                           "video S604 tvqa", vs_plain=True)
     # 6 encoder self-attention and 6 cross-attention sites per step
     if launched["fused_attention_bwd_long"] != 12 * 10:
         raise AssertionError(f"long backward launched "
@@ -2343,7 +2492,7 @@ def phase_bias_train_bench(card: str):
               "fused_attention_bwd.dbias": 240, "fused_ffn": 0,
               "fused_ffn_bwd": 0})):
         got = train_bench(card, cfg_fn, batch_fn, B, seed, FLAGSHIP_TASKS,
-                          "vqa", T5_LR, path, name)
+                          "vqa", T5_LR, path, name, vs_plain=path == T5V_TRAIN)
         seen = {k: got[k] for k in want}
         if seen != want:
             raise AssertionError(f"{name}: launches in 10 steps {seen}, "
@@ -2379,6 +2528,8 @@ def profile_run(run, card: str, what: str) -> None:
                 "attention_bwd": "fused_attention_bwd kernel (A6)",
                 "dkdv_kernel": "long attention backward (A3/A5)",
                 "dq_kernel": "long attention backward (A3/A5)",
+                "dkdv_tc": "long attention backward (A3/A5)",
+                "dq_tc": "long attention backward (A3/A5)",
                 "delta_kernel": "long attention backward (A3/A5)",
                 "ln_fwd": "fused LN forward kernel (L1)",
                 "ln_bwd": "fused LN backward kernel (L2)",
@@ -2503,11 +2654,14 @@ def main() -> int:
     for k, (src, replaces, paths) in KERNELS.items():
         by_path = {p: launched[p].get(wrapper_of(k), 0) for p in paths}
         main_path = next(p for p in MAIN_PATH_ORDER if p in paths)
-        kernels.append({"name": k, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": by_path[main_path],
-                        "launches_by_path": by_path,
-                        "max_abs_err": rep.err[k], **rep.timed[k]})
+        entry = {"name": k, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": by_path[main_path],
+                 "launches_by_path": by_path}
+        if wrapper_of(k) in ROUTED:  # the main path's launches per route
+            entry["launches_by_route"] = {
+                r: launched[main_path].get(f"{wrapper_of(k)}[{r}]", 0)
+                for r in ("tc", "fma")}
+        kernels.append({**entry, "max_abs_err": rep.err[k], **rep.timed[k]})
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -61,14 +61,49 @@
 //
 // Bound on the H100: at the video encoder site (B 50, H 12, L = S = 604,
 // Dh 64) the function is 10 B H L S Dh = 140 GFLOP against 325 MB of bf16
-// q, k, v, do in and dq, dk, dv out: 0.142 ms at the bf16 tensor-core peak
-// against 0.097 ms of memory time, so the bound is the operations. This
-// kernel recomputes q k^T and do v^T in both (2) and (3) (14 B H L S Dh in
-// all; 18 with dbias) on FP32 FMA from shared memory: each thread owns a
-// 4 x 4 tile of the 64 x 64 logits and a 4 x (Dh / 16) tile of its
-// outputs, two FMAs per shared-memory load. The bias is read straight from
-// device memory (17.5 MB at S 604: L2-resident across the batch).
-// mma/wgmma on the bf16 inputs are later work.
+// q, k, v, do in and dq, dk, dv out: 0.1416 ms at the bf16 tensor-core
+// peak against 0.097 ms of memory time, so the bound is the operations.
+// Kernels 2 and 3 recompute q k^T and do v^T each (14 B H L S Dh in all, 196
+// GFLOP; 18 with dbias). Two routes, picked by the wrapper with
+// ops/attention.py forward_route (a plain function of dtype and Dh) and
+// passed as ``tc``; the pre-pass (1) and dbias (4) are the same on both:
+//
+// "fma" (fp32, and bf16 at Dh != 64; the FMA design): FP32 FMA on
+// fp32 copies of the tiles in shared memory, each thread a 4 x 4 tile of
+// the 64 x 64 logits and a 4 x (Dh / 16) tile of its outputs, two FMAs per
+// shared-memory load; the bias read straight from device memory. It ran at
+// about 75x the bound in bf16 (10.6 ms). The fp32 train-step parity
+// phases hold it to full fp32 arithmetic (no TF32), so it stays.
+//
+// "tc" (bf16, Dh 64), dkdv_tc and dq_tc: FlashAttention-2's deterministic
+// backward on mma.sync m16n8k16 (bf16 in, fp32 sums), 4 warps a block, 16
+// rows of the 64-row tile a warp:
+//   - dk/dv: a block per (64-key tile, head, batch) keeps K, V and the key
+//     tile's mask in bf16 shared memory and dK, dV in fp32 registers, and
+//     walks the 64-query tiles with Q, dO (bf16), lse and delta -- and the
+//     bias tile -- double-buffered by 16-byte cp.async. Each warp computes
+//     the transposed tiles s^T = K q^T and dp^T = V do^T, then p, the keep
+//     bit, p_drop and ds element-wise on the fragments with the global
+//     indices; p_drop^T and ds^T, rounded to bf16 in registers, are the A
+//     fragments of dv += p_drop^T do and dk += ds^T q, whose B operands
+//     come from the Q and dO tiles by ldmatrix.trans;
+//   - dq: a block per (64-query tile, head, batch) keeps Q and dO as A
+//     fragments in registers and walks the key tiles (K, V, mask, bias)
+//     double-buffered: s = q k^T (the forward's instruction, fragments and
+//     k order: bitwise the forward's s, so p = exp(s - lse) is the
+//     forward's softmax up to EX2's rounding), dp = do v^T, ds in
+//     registers, dq += ds k;
+//   - exp is one FFMA + EX2 with lse scaled by log2(e); interior tiles skip
+//     the range and causal tests; the bias and the dropout are template
+//     flags; causal tiles no row may see are skipped as on the FMA route.
+//   dk/dv's s^T swaps the operand roles of the forward's product (the same
+//   bf16 products summed over the same k order); whether the tensor cores
+//   give it the same bits was not measured: the card's checks hold dq, dk,
+//   dv to 2e-2 of the plain twin, which takes p from the forward's lse.
+// Resources (nvcc -Xptxas -v, sm_90a, no spills): dk/dv 188-235 registers
+// a thread, 56,576 bytes of shared memory a block (91,392 with the bias);
+// dq 177-222 registers, 56,320 bytes (93,184 with the bias): 2 blocks an
+// SM.
 #include "common.cuh"
 
 using namespace vlpet;
@@ -481,9 +516,432 @@ dbias_kernel(Args a, int B, float* __restrict__ dbias) {
   }
 }
 
+// kernel 4 (the FMA design on either route)
+template <typename T>
+int launch_dbias(const Args& a, float* dbias, int B, size_t tile,
+                 cudaStream_t st) {
+  const size_t smem_b = sizeof(float) * (4 * tile + 3 * kT);
+  cudaError_t err = cudaFuncSetAttribute(
+      dbias_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_b);
+  if (err != cudaSuccess) return (int)err;
+  dbias_kernel<T><<<dim3((a.S + kT - 1) / kT, (a.L + kT - 1) / kT, a.H),
+                    kThreads, smem_b, st>>>(a, B, dbias);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16, Dh 64; header): kernels 2 and 3 on
+// mma.sync with the bf16 tiles in shared memory, fed by cp.async.
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 rows of the 64-row tile each
+// row strides of the staged (64 queries x 64 keys) fp32 bias tiles: dk/dv
+// reads a column per quad lane (stride 68: lanes on distinct banks), dq a
+// float2 per lane along a row (stride 72)
+constexpr int kBiasLdKV = kT + 4;
+constexpr int kBiasLdQ = kT + 8;
+
+// shared memory of dkdv_tc and dq_tc: six bf16 tiles (two resident, two
+// stages of two), the mask, lse and delta, and with a bias two stages of
+// its tile
+__host__ __device__ constexpr size_t tc_smem_kv(bool bias) {
+  return 6 * (size_t)kTcTile * 2 + (2 * kT + 2 * kT + kT) * 4 +
+         (bias ? 2 * (size_t)kT * kBiasLdKV * 4 : 0);
+}
+__host__ __device__ constexpr size_t tc_smem_q(bool bias) {
+  return 6 * (size_t)kTcTile * 2 + (2 * kT + kT + kT) * 4 +
+         (bias ? 2 * (size_t)kT * kBiasLdQ * 4 : 0);
+}
+
+// p and the dropped terms of one logit of batch b: x the product (s or its
+// transpose) at the global (qi, kj), g its dp, bv its bias, lse2 the row's
+// logsumexp times log2(e); returns (p_drop, ds) in (x, g). FULL: the
+// caller's tile is interior (every (qi, kj) in range and, causal,
+// visible), else both are zero outside the L x S range.
+template <bool FULL, bool BIAS, bool DROP>
+__device__ __forceinline__ void tc_probs(float& x, float& g, float madd,
+                                         float bv, float lse2, float delta,
+                                         const Terms& tm, int b, int qi,
+                                         int kj, int L, int S, int causal) {
+  if (!FULL && (qi >= L || kj >= S)) {
+    x = g = 0.f;
+    return;
+  }
+  float a = x + madd;
+  if (BIAS) a += bv;
+  if (!FULL && causal && kj > qi + (S - L)) a = -1e9f;
+  const float p = ex2(fmaf(a, kLog2e, -lse2));
+  float dp = g, pd = p;
+  if (DROP) {
+    const uint32_t idx =
+        ((uint32_t)b * (uint32_t)L + (uint32_t)qi) * (uint32_t)S +
+        (uint32_t)kj;
+    const bool keep = hash_bits(idx, tm.hseed) >= tm.thr;
+    dp = keep ? dp * tm.scale : 0.f;
+    pd = keep ? p * tm.scale : 0.f;
+  }
+  x = pd;
+  g = p * (dp - delta);
+}
+
+// Kernel 2 on the tensor cores: one block per (64-key tile, head, batch),
+// warp w owns keys 16 w .. 16 w + 16 of it. K and V stay in shared memory;
+// the 64-query tiles of Q and dO (with their lse and delta) are
+// double-buffered by cp.async. Per query tile each warp computes the
+// transposed tiles s^T = K q^T and dp^T = V do^T (16 keys x 64 queries),
+// then p_drop^T and ds^T in registers, which are the A fragments of
+// dv += p_drop^T do and dk += ds^T q.
+template <bool BIAS, bool DROP>
+__global__ void __launch_bounds__(kTcThreads)
+dkdv_tc(Args a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kTcTile;
+  bf16* Qs = Vs + kTcTile;       // [2][kTcTile]
+  bf16* Gs = Qs + 2 * kTcTile;   // [2][kTcTile]: dO
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * kTcTile);  // [2][kT]
+  float* Ds = Ls + 2 * kT;                                 // [2][kT]
+  float* Ms = Ds + 2 * kT;                                 // [kT]
+  float* Bs = Ms + kT;  // [2][kT][kBiasLdKV], with a bias
+
+  const int L = a.L, S = a.S;
+  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int inner = a.H * kTcD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = warp * 16;
+  const size_t qoff = (size_t)b * L * inner + (size_t)h * kTcD;
+  const size_t koff = (size_t)b * S * inner + (size_t)h * kTcD;
+  const bf16* qb = (const bf16*)a.q + qoff;
+  const bf16* gb = (const bf16*)a.dout + qoff;
+  const float* lb = a.lse + ((size_t)b * a.H + h) * L;
+  const float* db = a.delta + ((size_t)b * a.H + h) * L;
+  const float* mb = a.mask + (a.mask_batched ? (size_t)b * S : 0);
+  const Terms tm = make_terms(a.bias, a.seed, DROP, a.thr, a.scale, h, L, S);
+
+  tc_load_tile(Ks, (const bf16*)a.k + koff, k0, S, inner, kTcThreads);
+  tc_load_tile(Vs, (const bf16*)a.v + koff, k0, S, inner, kTcThreads);
+  if (threadIdx.x < kT)
+    Ms[threadIdx.x] = k0 + threadIdx.x < S ? mb[k0 + threadIdx.x] : 0.f;
+  // the query tile's lse (times log2(e)) and delta, zeros past L
+  auto load_q = [&](int q0, int st) {
+    tc_load_tile(Qs + st * kTcTile, qb, q0, L, inner, kTcThreads);
+    tc_load_tile(Gs + st * kTcTile, gb, q0, L, inner, kTcThreads);
+    if (BIAS)
+      tc_load_bias(Bs + st * kT * kBiasLdKV, kBiasLdKV, tm.bias, q0, kT, L,
+                   k0, S, kTcThreads);
+    if (threadIdx.x < kT) {
+      const bool ok = q0 + (int)threadIdx.x < L;
+      Ls[st * kT + threadIdx.x] = ok ? lb[q0 + threadIdx.x] * kLog2e : 0.f;
+      Ds[st * kT + threadIdx.x] = ok ? db[q0 + threadIdx.x] : 0.f;
+    }
+  };
+  // causal: rows before k0 - (S - L) see no key of this tile
+  const int qstart = a.causal ? max(0, k0 - (S - L)) / kT * kT : 0;
+  const int nq = (L - qstart + kT - 1) / kT;
+  load_q(qstart, 0);
+  cp_async_commit();
+
+  float ak[8][4], av[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[i][e] = av[i][e] = 0.f;
+  float madd[2];  // the mask of the thread's two keys
+
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1, q0 = qstart + it * kT;
+    if (it + 1 < nq) {
+      load_q(q0 + kT, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+      madd[0] = Ms[wk + g];
+      madd[1] = Ms[wk + g + 8];
+    }
+    const bf16* Q = Qs + st * kTcTile;
+    const bf16* G = Gs + st * kTcTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t ka[4], va[4];
+      tc_frag_a(ka, Ks, wk, kc, lane);
+      tc_frag_a(va, Vs, wk, kc, lane);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4], bg[4];
+        tc_frag_bt(bq, Q, np * 16, kc, lane);
+        tc_frag_bt(bg, G, np * 16, kc, lane);
+        mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * np], va, bg[0], bg[1]);
+        mma_bf16(dp[2 * np + 1], va, bg[2], bg[3]);
+      }
+    }
+    // element (r, c) of n8 tile nt: key wk + g + 8 r, query 8 nt + 2 t + c
+    auto probs = [&](auto full_t) {
+      constexpr bool FULL = decltype(full_t)::value;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int ql = nt * 8 + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(Ls + st * kT + ql);
+        const float2 d2 = *reinterpret_cast<const float2*>(Ds + st * kT + ql);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kl = wk + g + r * 8;
+            const float bv =
+                BIAS ? Bs[(st * kT + ql + c) * kBiasLdKV + kl] : 0.f;
+            tc_probs<FULL, BIAS, DROP>(
+                s[nt][2 * r + c], dp[nt][2 * r + c], madd[r], bv,
+                c ? l2.y : l2.x, c ? d2.y : d2.x, tm, b, q0 + ql + c, k0 + kl,
+                L, S, a.causal);
+          }
+      }
+    };
+    if (q0 + kT <= L && k0 + kT <= S &&
+        (!a.causal || k0 + kT - 1 <= q0 + (S - L)))
+      probs(std::true_type());
+    else
+      probs(std::false_type());
+    // dv += p_drop^T do, dk += ds^T q over the tile's 64 queries
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4], sa[4];
+      mma_a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+      mma_a_from_c(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t bg[4], bq[4];
+        tc_frag_b(bg, G, kk * 16, 2 * dd, lane);
+        tc_frag_b(bq, Q, kk * 16, 2 * dd, lane);
+        mma_bf16(av[2 * dd], pa, bg[0], bg[1]);
+        mma_bf16(av[2 * dd + 1], pa, bg[2], bg[3]);
+        mma_bf16(ak[2 * dd], sa, bq[0], bq[1]);
+        mma_bf16(ak[2 * dd + 1], sa, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + wk + g + r * 8;
+    if (key >= S) continue;
+    const size_t row = koff + (size_t)key * inner;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      const int d = dt * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
+          __floats2bfloat162_rn(ak[dt][2 * r], ak[dt][2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
+          __floats2bfloat162_rn(av[dt][2 * r], av[dt][2 * r + 1]);
+    }
+  }
+}
+
+// Kernel 3 on the tensor cores: one block per (64-query tile, head,
+// batch), warp w owns queries 16 w .. 16 w + 16. Q and dO stay in
+// registers as A fragments; the 64-key tiles of K and V (with the mask)
+// are double-buffered by cp.async. s = q k^T is the forward's product --
+// the same instruction, fragments and k order (csrc/attention.cu
+// attention_fwd_tc) -- then dp = do v^T, ds in registers, and dq += ds k.
+template <bool BIAS, bool DROP>
+__global__ void __launch_bounds__(kTcThreads)
+dq_tc(Args a, bf16* __restrict__ dq) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + kTcTile;       // dO
+  bf16* Ks = Gs + kTcTile;       // [2][kTcTile]
+  bf16* Vs = Ks + 2 * kTcTile;   // [2][kTcTile]
+  float* Ms = reinterpret_cast<float*>(Vs + 2 * kTcTile);  // [2][kT]
+  float* Ls = Ms + 2 * kT;                                 // [kT]
+  float* Ds = Ls + kT;                                     // [kT]
+  float* Bs = Ds + kT;  // [2][kT][kBiasLdQ], with a bias
+
+  const int L = a.L, S = a.S;
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int inner = a.H * kTcD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16;
+  const size_t qoff = (size_t)b * L * inner + (size_t)h * kTcD;
+  const size_t koff = (size_t)b * S * inner + (size_t)h * kTcD;
+  const bf16* kb = (const bf16*)a.k + koff;
+  const bf16* vb = (const bf16*)a.v + koff;
+  const float* mb = a.mask + (a.mask_batched ? (size_t)b * S : 0);
+  const Terms tm = make_terms(a.bias, a.seed, DROP, a.thr, a.scale, h, L, S);
+
+  tc_load_tile(Qs, (const bf16*)a.q + qoff, q0, L, inner, kTcThreads);
+  tc_load_tile(Gs, (const bf16*)a.dout + qoff, q0, L, inner, kTcThreads);
+  load_rows(Ls, Ds, a.lse + ((size_t)b * a.H + h) * L,
+            a.delta + ((size_t)b * a.H + h) * L, q0, L);
+  auto load_kv = [&](int k0, int st) {
+    tc_load_tile(Ks + st * kTcTile, kb, k0, S, inner, kTcThreads);
+    tc_load_tile(Vs + st * kTcTile, vb, k0, S, inner, kTcThreads);
+    if (BIAS)
+      tc_load_bias(Bs + st * kT * kBiasLdQ, kBiasLdQ, tm.bias, q0, kT, L, k0,
+                   S, kTcThreads);
+    if (threadIdx.x < kT)
+      Ms[st * kT + threadIdx.x] =
+          k0 + threadIdx.x < S ? mb[k0 + threadIdx.x] : 0.f;
+  };
+  // causal: the tile's last row sees keys up to its index + (S - L)
+  const int kend = a.causal ? min(S, min(q0 + kT, L) + (S - L)) : S;
+  const int nk = (kend + kT - 1) / kT;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  uint32_t qf[4][4], gf[4][4];
+  float lse2[2], dl[2];  // the thread's two rows: lse times log2(e), delta
+  float aq[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) aq[i][e] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int st = it & 1, k0 = it * kT;
+    if (it + 1 < nk) {
+      load_kv(k0 + kT, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        tc_frag_a(qf[kc], Qs, wr, kc, lane);
+        tc_frag_a(gf[kc], Gs, wr, kc, lane);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse2[r] = Ls[wr + g + r * 8] * kLog2e;
+        dl[r] = Ds[wr + g + r * 8];
+      }
+    }
+    const bf16* K = Ks + st * kTcTile;
+    const bf16* V = Vs + st * kTcTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        tc_frag_bt(bk, K, np * 16, kc, lane);
+        mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
+        tc_frag_bt(bv, V, np * 16, kc, lane);
+        mma_bf16(dp[2 * np], gf[kc], bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], gf[kc], bv[2], bv[3]);
+      }
+    // element (r, c) of n8 tile nt: query wr + g + 8 r, key 8 nt + 2 t + c
+    const float* Mt = Ms + st * kT;
+    const float* Bt = Bs + st * kT * kBiasLdQ;
+    auto probs = [&](auto full_t) {
+      constexpr bool FULL = decltype(full_t)::value;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int kl = nt * 8 + 2 * t;
+        const float2 mk = *reinterpret_cast<const float2*>(Mt + kl);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int ql = wr + g + r * 8;
+          float2 bv = make_float2(0.f, 0.f);
+          if (BIAS)
+            bv = *reinterpret_cast<const float2*>(Bt + ql * kBiasLdQ + kl);
+          tc_probs<FULL, BIAS, DROP>(s[nt][2 * r], dp[nt][2 * r], mk.x, bv.x,
+                                     lse2[r], dl[r], tm, b, q0 + ql, k0 + kl,
+                                     L, S, a.causal);
+          tc_probs<FULL, BIAS, DROP>(s[nt][2 * r + 1], dp[nt][2 * r + 1],
+                                     mk.y, bv.y, lse2[r], dl[r], tm, b,
+                                     q0 + ql, k0 + kl + 1, L, S, a.causal);
+        }
+      }
+    };
+    if (q0 + kT <= L && k0 + kT <= S &&
+        (!a.causal || k0 + kT - 1 <= q0 + (S - L)))
+      probs(std::true_type());
+    else
+      probs(std::false_type());
+    // dq += ds k over the tile's 64 keys
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sa[4];
+      mma_a_from_c(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t bk[4];
+        tc_frag_b(bk, K, kk * 16, 2 * dd, lane);
+        mma_bf16(aq[2 * dd], sa, bk[0], bk[1]);
+        mma_bf16(aq[2 * dd + 1], sa, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr + g + r * 8;
+    if (row >= L) continue;
+    bf16* dst = dq + qoff + (size_t)row * inner;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8 + 2 * t) =
+          __floats2bfloat162_rn(aq[dt][2 * r], aq[dt][2 * r + 1]);
+  }
+}
+
+// kernels 2 and 3 on the tensor-core route (bf16, Dh 64)
+template <bool BIAS, bool DROP>
+int launch_tc_terms(const Args& a, void* dq, void* dk, void* dv, int B,
+                    cudaStream_t st) {
+  const size_t smem_kv = tc_smem_kv(BIAS);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_tc<BIAS, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_kv);
+  if (err != cudaSuccess) return (int)err;
+  dkdv_tc<BIAS, DROP><<<dim3((a.S + kT - 1) / kT, a.H, B), kTcThreads,
+                        smem_kv, st>>>(a, (bf16*)dk, (bf16*)dv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem_q = tc_smem_q(BIAS);
+  err = cudaFuncSetAttribute(dq_tc<BIAS, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return (int)err;
+  dq_tc<BIAS, DROP><<<dim3((a.L + kT - 1) / kT, a.H, B), kTcThreads, smem_q,
+                      st>>>(a, (bf16*)dq);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc(const Args& a, void* dq, void* dk, void* dv, int B,
+              cudaStream_t st) {
+  if (a.bias != nullptr)
+    return a.drop ? launch_tc_terms<true, true>(a, dq, dk, dv, B, st)
+                  : launch_tc_terms<true, false>(a, dq, dk, dv, B, st);
+  return a.drop ? launch_tc_terms<false, true>(a, dq, dk, dv, B, st)
+                : launch_tc_terms<false, false>(a, dq, dk, dv, B, st);
+}
+
 template <typename T, int NJ>
 int launch_all(Args a, const void* out, void* dq, void* dk, void* dv,
-               float* delta, float* dbias, int B, cudaStream_t st) {
+               float* delta, float* dbias, int B, int tc, cudaStream_t st) {
   const long rows = (long)B * a.L * a.H;
   delta_kernel<T><<<(unsigned)((rows * 32 + kThreads - 1) / kThreads),
                     kThreads, 0, st>>>((const T*)out, (const T*)a.dout, delta,
@@ -493,6 +951,11 @@ int launch_all(Args a, const void* out, void* dq, void* dk, void* dv,
   a.delta = delta;
 
   const size_t tile = (size_t)kT * (a.Dh + 1);
+  if (tc) {
+    err = (cudaError_t)launch_tc(a, dq, dk, dv, B, st);
+    if (err != cudaSuccess || dbias == nullptr) return (int)err;
+    return launch_dbias<T>(a, dbias, B, tile, st);
+  }
   const size_t smem_kv = sizeof(float) * (4 * tile + 2 * kT * kPL + 3 * kT);
   err = cudaFuncSetAttribute(dkdv_kernel<T, NJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -512,23 +975,15 @@ int launch_all(Args a, const void* out, void* dq, void* dk, void* dv,
                      st>>>(a, (T*)dq);
   err = cudaGetLastError();
   if (err != cudaSuccess || dbias == nullptr) return (int)err;
-
-  const size_t smem_b = sizeof(float) * (4 * tile + 3 * kT);
-  err = cudaFuncSetAttribute(dbias_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_b);
-  if (err != cudaSuccess) return (int)err;
-  dbias_kernel<T><<<dim3((a.S + kT - 1) / kT, (a.L + kT - 1) / kT, a.H),
-                    kThreads, smem_b, st>>>(a, B, dbias);
-  return (int)cudaGetLastError();
+  return launch_dbias<T>(a, dbias, B, tile, st);
 }
 
 template <typename T>
 int launch_dh(const Args& a, const void* out, void* dq, void* dk, void* dv,
-              float* delta, float* dbias, int B, cudaStream_t st) {
+              float* delta, float* dbias, int B, int tc, cudaStream_t st) {
   if (a.Dh <= 64)
-    return launch_all<T, 4>(a, out, dq, dk, dv, delta, dbias, B, st);
-  return launch_all<T, 8>(a, out, dq, dk, dv, delta, dbias, B, st);
+    return launch_all<T, 4>(a, out, dq, dk, dv, delta, dbias, B, tc, st);
+  return launch_all<T, 8>(a, out, dq, dk, dv, delta, dbias, B, tc, st);
 }
 
 }  // namespace
@@ -541,9 +996,9 @@ extern "C" int vlpet_attention_bwd_long(
     const void* bias, const void* seed, const void* out, const void* lse,
     const void* dout, void* dq, void* dk, void* dv, void* delta, void* dbias,
     int B, int L, int S, int H, int Dh, int mask_batched, int causal,
-    int is_bf16, int drop, int thr, float scale, void* stream) {
+    int is_bf16, int tc, int drop, int thr, float scale, void* stream) {
   if (B < 1 || L < 1 || S < 1 || H < 1 || Dh < 1 || Dh > 128 || B > 65535 ||
-      H > 65535 || (causal && S < L) ||
+      H > 65535 || (causal && S < L) || (tc && (!is_bf16 || Dh != kTcD)) ||
       (drop && (seed == nullptr || thr < 0)) ||
       (dbias != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -568,7 +1023,7 @@ extern "C" int vlpet_attention_bwd_long(
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return launch_dh<bf16>(a, out, dq, dk, dv, (float*)delta, (float*)dbias,
-                           B, st);
+                           B, tc, st);
   return launch_dh<float>(a, out, dq, dk, dv, (float*)delta, (float*)dbias, B,
-                          st);
+                          tc, st);
 }

@@ -36,16 +36,17 @@ _F = ctypes.c_float
 # stream. Each returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     # q, k, v, mask, bias (or NULL), seed (or NULL), out, lse (or NULL), B,
-    # L, S, H, Dh, mask_batched, causal, is_bf16, drop, thr, scale, stream
-    "vlpet_attention_fwd": [_P] * 8 + [_I] * 10 + [_F, _P],
+    # L, S, H, Dh, mask_batched, causal, is_bf16, tc (the tensor-core
+    # route), drop, thr, scale, stream
+    "vlpet_attention_fwd": [_P] * 8 + [_I] * 11 + [_F, _P],
     # q, k, v, mask, bias (or NULL), seed (or NULL), do, dq, dk, dv, dbias
     # partials (or NULL), dbias (or NULL), B, L, S, H, Dh, mask_batched,
     # causal, is_bf16, drop, thr, scale, stream
     "vlpet_attention_bwd": [_P] * 12 + [_I] * 10 + [_F, _P],
     # q, k, v, mask, bias (or NULL), seed (or NULL), out, lse, do, dq, dk,
     # dv, delta, dbias (or NULL), B, L, S, H, Dh, mask_batched, causal,
-    # is_bf16, drop, thr, scale, stream
-    "vlpet_attention_bwd_long": [_P] * 14 + [_I] * 10 + [_F, _P],
+    # is_bf16, tc (the tensor-core route), drop, thr, scale, stream
+    "vlpet_attention_bwd_long": [_P] * 14 + [_I] * 11 + [_F, _P],
     # x, w1, b1, w2, b2, seed (or NULL), y, N, D, F, act, is_bf16, drop,
     # thr, scale, stream
     "vlpet_ffn_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],

@@ -19,6 +19,16 @@ and A1's row logsumexp. Both recompute the softmax and give dq, dk, dv;
 the mask gets no gradient. Bounds on the H100 and designs: the header
 notes of the sources.
 
+Routes: ``forward_route(L, S, Dh, dtype)``, a plain function of (dtype,
+Dh), picks the kernel family of A1 and of the long backward: "tc" for bf16
+at Dh 64 (products on the tensor cores, mma.sync; bf16 tiles fed by
+cp.async, which needs 16-byte aligned q, k, v, do and bias: the wrappers
+check and raise), "fma" for fp32 and for bf16 at other widths (the FP32-FMA
+kernels, which the fp32 parity runs hold to full fp32 arithmetic).
+``fused_attention.launches_by_route`` and
+``fused_attention_bwd_long.launches_by_route`` count the launches of each.
+A6 has one route.
+
 T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
 fp32 term added to the logits after the mask (the (B, H, L, S) sum never
 exists), and ``rate`` > 0 drops the probabilities with the hash mask of
@@ -155,6 +165,36 @@ def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
     return grads + (ds.sum(0, keepdim=True),) if bias_grad else grads
 
 
+# the head width of the tensor-core kernels (every configuration of the
+# repo: BART-base and T5-base, d 768 over 12 heads)
+TC_HEAD_DIM = 64
+
+
+def forward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
+    """The kernel family of an attention site, a plain function of (dtype,
+    Dh): "tc" (the tensor-core kernels: bf16 products on mma.sync, bf16
+    tiles fed by cp.async) for bf16 at Dh 64, else "fma" (the FP32-FMA
+    kernels, fp32 or bf16 at any Dh up to 128). It picks A1's kernel and,
+    at "long" sites of ``backward_route``, the long backward's. L and S do
+    not decide it."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
+    if not 1 <= Dh <= 128:
+        raise ValueError(f"attention kernels take Dh 1..128, not {Dh}")
+    return "tc" if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM else "fma"
+
+
+def _check_aligned(*named) -> None:
+    """The tensor-core kernels copy rows in 16-byte pieces (cp.async; the
+    bias's rows too where S is a multiple of 4): every (tensor, name) must
+    start on a 16-byte boundary."""
+    for t, n in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n}: the tensor-core attention kernels need "
+                             f"16-byte aligned data; this view starts at "
+                             f"{t.data_ptr() % 16} bytes past a boundary")
+
+
 def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     """The backward kernel of an attention site: "A6" where its whole-head
     block fits a block's shared memory -- q, do, k, v and the (L, S) p and
@@ -223,6 +263,10 @@ def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False,
     S = k.shape[1]
     m = _kernel_inputs(q, k, v, mask)
     bias, seed = _extras(bias, rate, seed)
+    route = forward_route(L, S, inner // num_heads, q.dtype)
+    if route == "tc":
+        _check_aligned((q, "q"), (k, "k"), (v, "v"),
+                       *([(bias, "bias")] if bias is not None else []))
     out = torch.empty_like(q)
     lse = (torch.empty((B, num_heads, L), dtype=torch.float32,
                        device=q.device) if with_lse else None)
@@ -230,8 +274,10 @@ def _launch_fwd(q, k, v, mask, num_heads, causal, with_lse=False,
                   v.data_ptr(), m.data_ptr(), _ptr(bias), _ptr(seed),
                   out.data_ptr(), _ptr(lse), B, L, S, num_heads,
                   inner // num_heads, int(m.shape[0] == B), int(causal),
-                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
+                  int(q.dtype == torch.bfloat16), int(route == "tc"),
+                  *kernel_drop_args(rate))
     fused_attention.launches += 1
+    fused_attention.launches_by_route[route] += 1
     return (out, lse) if with_lse else out
 
 
@@ -342,6 +388,10 @@ def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"), (out, "out")))
     _build.check(lse, "lse", (torch.float32,), 3)
     bias, seed = _extras(bias, rate, seed)
+    route = forward_route(L, S, inner // num_heads, q.dtype)
+    if route == "tc":
+        _check_aligned((q, "q"), (k, "k"), (v, "v"), (do, "do"),
+                       *([(bias, "bias")] if bias is not None else []))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
     dbias = (torch.empty((1, num_heads, L, S), dtype=torch.float32,
@@ -352,8 +402,10 @@ def fused_attention_bwd_long(q: torch.Tensor, k: torch.Tensor,
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   delta.data_ptr(), _ptr(dbias), B, L, S, num_heads,
                   inner // num_heads, int(m.shape[0] == B), int(causal),
-                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
+                  int(q.dtype == torch.bfloat16), int(route == "tc"),
+                  *kernel_drop_args(rate))
     fused_attention_bwd_long.launches += 1
+    fused_attention_bwd_long.launches_by_route[route] += 1
     if not bias_grad:
         return dq, dk, dv
     fused_attention_bwd_long.dbias_launches += 1
@@ -425,6 +477,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 fused_attention.launches = 0
 fused_attention_bwd.launches = 0
 fused_attention_bwd_long.launches = 0
+# the same launches by forward_route: a run shows which kernels it took
+fused_attention.launches_by_route = {"tc": 0, "fma": 0}
+fused_attention_bwd_long.launches_by_route = {"tc": 0, "fma": 0}
 # launches that also computed dbias (a mode of each backward, counted apart)
 fused_attention_bwd.dbias_launches = 0
 fused_attention_bwd_long.dbias_launches = 0
