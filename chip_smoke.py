@@ -149,11 +149,15 @@ nonzero and no result line is printed):
      ms/step, peak memory and launches beside phases 7b and 7c (the
      t5_video_train and t5_full_ft main-path runs); the T5 video step then
      one bf16 step kernels vs plain, as 7b.
-Routes: each kernel-vs-plain line of A1 and the long backward prints the
-route it launched (ops/attention.py forward_route: "tc", the tensor-core
-kernels, for bf16 at Dh 64; "fma" otherwise), every bf16 bench run (5-5e,
-7-7e) must launch both on "tc" only, and the kernels' JSON record gives
-their main-path launches per route.
+Routes: each kernel-vs-plain line of A1, A6 and the long backward prints
+the route it launched (ops/attention.py forward_route for A1 and the long
+backward, a6_route for A6: "tc", the tensor-core kernels, for bf16 at Dh
+64 -- and, for A6, L, S <= 64; "fma" otherwise), every bf16 bench run
+(5-5e, 7-7e) must launch all three on "tc" only, and the kernels' JSON
+record gives their main-path launches per route. Every bf16 A6 and C2
+case runs twice and must be bitwise equal; 3e also holds A6's dropout mask
+bit for bit in bf16; 3f adds bf16 C2 at a ragged N (2999) and at D 512
+and 1024.
 The last lines are the smoke's wall time, the card, the kernels' JSON
 record and the result line {"ok": true, "device": {...}}.
 
@@ -632,6 +636,10 @@ def phase_train_kernels(rep: Report) -> None:
                       work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
                             10 * B * H * L * S * Dh * seen),
                       library_fn=lib_bwd, backward=True)
+            if main:
+                bitwise_repeat("fused_attention_bwd", label,
+                               lambda: attention.fused_attention_bwd(
+                                   q, k, v, mask, do, H, causal))
         D, Fh = 768, 3072
         w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
                                                               scale=0.02)
@@ -710,6 +718,8 @@ def phase_long_attention(rep: Report) -> None:
             seen = (attention._causal_allowed(L, S, "cuda").float().mean()
                     .item() if causal else 1.0)
             timed = main and site == "enc" and S == 604
+            # SDPA takes the causal triangle materialised in its mask
+            lmask = causal_mask(mask, L, S) if causal else mask
             rep.check("fused_attention", label + " +lse",
                       lambda: attention.fused_attention_fwd_lse(
                           q, k, v, mask, H, causal),
@@ -717,18 +727,15 @@ def phase_long_attention(rep: Report) -> None:
                           q, k, v, mask, H, causal), dtype,
                       work=(e * 2 * B * (L + S) * inner + 4 * B * S
                             + 4 * B * H * L, 4 * B * H * L * S * Dh * seen),
-                      library_fn=None if causal else
-                      (lambda: sdpa(q, k, v, mask, H)))
+                      library_fn=lambda: sdpa(q, k, v, lmask, H))
             out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H,
                                                          causal)
             plain_bwd = _grads_of(
                 lambda a, b, c: attention.fused_attention_reference(
                     a, b, c, mask, H, causal), (q, k, v), do)
-            lib_bwd = None
-            if not causal:
-                lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, mask, H),
-                                    (q, k, v),
-                                    do.view(B, L, H, Dh).transpose(1, 2))
+            lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, lmask, H),
+                                (q, k, v),
+                                do.view(B, L, H, Dh).transpose(1, 2))
             rep.check("fused_attention_bwd_long", label,
                       lambda: attention.fused_attention_bwd_long(
                           q, k, v, mask, out, lse, do, H, causal),
@@ -794,7 +801,9 @@ def phase_video_kernels(rep: Report) -> None:
                   lambda: attention.fused_attention(q, k, v, mask, H),
                   lambda: attention.fused_attention_reference(q, k, v, mask,
                                                               H),
-                  dtype, iters=it, library_fn=lambda: sdpa(q, k, v, mask, H))
+                  dtype, iters=it, library_fn=lambda: sdpa(q, k, v, mask, H),
+                  work=(2 * 2 * B * (L + S) * inner + 4 * B * S,
+                        4 * B * H * L * S * Dh))
     zero = torch.zeros((1, 1, 1, T), device="cuda")
     q, k, v, do = (randn(B, T, inner, dtype=dtype, scale=s)
                    for s in (Dh ** -0.5, 1.0, 1.0, 1.0))
@@ -809,6 +818,9 @@ def phase_video_kernels(rep: Report) -> None:
               _grads_of(lambda a, b, c: attention.fused_attention_reference(
                   a, b, c, zero, H, True), (q, k, v), do),
               dtype, iters=it, backward=True)
+    bitwise_repeat("fused_attention_bwd", label,
+                   lambda: attention.fused_attention_bwd(q, k, v, zero, do, H,
+                                                         True))
     w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
                                                           scale=0.02)
     b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
@@ -1063,6 +1075,11 @@ def phase_t5_train_kernels(rep: Report) -> None:
                                 + 4 * B * Sk + nb,
                                 10 * B * H * L * Sk * Dh * seen),
                           library_fn=lib_bwd, backward=True)
+                if main:
+                    bitwise_repeat("fused_attention_bwd +bias +dropout", label,
+                                   lambda: attention.fused_attention_bwd(
+                                       q, k, v, mask, do, H, causal, bias,
+                                       rate, seed))
                 del plain_bwd, lib_bwd
         w1, w2 = (randn(F1h, D, dtype=dtype, scale=0.02),
                   randn(D, F1h, dtype=dtype, scale=0.02))
@@ -1142,10 +1159,11 @@ def _picking(rows: int, cols: int, off: int) -> torch.Tensor:
 
 @torch.no_grad()
 def check_drop_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
-    """fp32, the T5 training shapes: each kernel's dropout mask, bit for
-    bit, is ops/hashdrop.py's. A1 with one-hot values (v[j, d] = [d == j],
-    S <= Dh) returns the dropped probabilities themselves; A6 with one-hot
-    cotangents returns them in dv; the FFN kernels with picking weights
+    """fp32 (A6 also bf16, its tensor-core route), the T5 training shapes:
+    each kernel's dropout mask, bit for bit, is ops/hashdrop.py's. A1 with
+    one-hot values (v[j, d] = [d == j], S <= Dh) returns the dropped
+    probabilities themselves; A6 with one-hot cotangents returns them in
+    dv; the FFN kernels with picking weights
     return columns off .. off + D of the dropped hidden (or of its
     cotangent), at off 0 and F - D."""
     from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask, keep_mask
@@ -1167,10 +1185,12 @@ def check_drop_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
         got = out.view(B, L, H, Dh)[..., :S].permute(0, 2, 1, 3)
         _expect_zeros(f"fused_attention L{L} S{S}", got, keep)
         onehot_do = eye[:L].repeat(1, H).expand(B, L, inner).contiguous()
-        _, _, dv = attention.fused_attention_bwd(q, k, k, mask, onehot_do, H,
-                                                 causal, rate=rate, seed=seed)
-        got = dv.view(B, S, H, Dh)[..., :L].permute(0, 2, 3, 1)
-        _expect_zeros(f"fused_attention_bwd L{L} S{S}", got, keep)
+        for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            _, _, dv = attention.fused_attention_bwd(
+                q.to(dt), k.to(dt), k.to(dt), mask, onehot_do.to(dt), H,
+                causal, rate=rate, seed=seed)
+            got = dv.float().view(B, S, H, Dh)[..., :L].permute(0, 2, 3, 1)
+            _expect_zeros(f"fused_attention_bwd L{L} S{S}", got, keep, tag)
     D = 768
     for N in (300 * 56, 300 * 10):
         ones = torch.ones((N, D), device="cuda")
@@ -1262,18 +1282,23 @@ def grad_case(rep: Report, g, dtype, seed, site: str, B: int, L: int,
     label = (f"{tag} {site} B{B} L{L} S{S}" + (" +bias" if has_bias else "")
              + (" causal" if causal else "") + f" rate {rate}")
     if long:  # the forward the long backward starts from, same terms
+        fmask = lmask + bias if has_bias else lmask
         rep.check("fused_attention +bias +dropout", label + " +lse",
                   lambda: attention.fused_attention_fwd_lse(
                       q, k, v, mask, H, causal, bias, rate, seed),
                   lambda: attention.fused_attention_lse_reference(
                       q, k, v, mask, H, causal, bias, rate, seed),
-                  dtype, iters=10)
+                  dtype, iters=10,
+                  work=(e * 2 * B * (L + S) * inner + 4 * B * S
+                        + 4 * B * H * L + (4 * H * L * S if has_bias else 0),
+                        4 * B * H * L * S * Dh * seen),
+                  library_fn=lambda: sdpa(q, k, v, fmask, H))
     rep.check(key, label, kernel, plain, dtype, timed=timed,
               work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S + nb
                     + (e * B * L * inner + 4 * B * H * L if long else 0),
                     10 * B * H * L * S * Dh * seen),
               library_fn=lib, iters=10 if long else 20, backward=True)
-    if bias_grad or long:
+    if bias_grad or long or dtype == torch.bfloat16:
         bitwise_repeat(key, label, kernel)
     del plain, lib
 
@@ -1481,8 +1506,9 @@ def counters():
     return out
 
 
-# the wrappers that count their launches by ops.attention.forward_route
-ROUTED = ("fused_attention", "fused_attention_bwd_long")
+# the wrappers that count their launches by route: A1 and the long
+# backward by ops.attention.forward_route, A6 by ops.attention.a6_route
+ROUTED = ("fused_attention", "fused_attention_bwd_long", "fused_attention_bwd")
 
 
 def route_counts() -> dict:
@@ -1515,8 +1541,8 @@ def read_counts(path: str):
 
 
 def require_tc(path: str, launched: dict) -> None:
-    """A bf16 bench run (every Dh 64): A1 and the long backward launched on
-    the tensor-core route only."""
+    """A bf16 bench run (every Dh 64, every A6 site L, S <= 64): A1, A6 and
+    the long backward launched on the tensor-core route only."""
     off = {k: launched[f"{k}[fma]"] for k in ROUTED if launched[f"{k}[fma]"]}
     if off:
         raise AssertionError(f"{path}: bf16 launches on the FMA route {off}")
@@ -2156,6 +2182,36 @@ def ce_case(rep: Report, label: str, x, w, b, labels, timed: bool) -> None:
               work=(e * (2 * N * D + V * D) + 4 * V + 16 * N,
                     4 * N * V * D),
               library_fn=lambda: lib()[0], iters=iters, backward=True)
+    if dtype == torch.bfloat16:
+        bitwise_repeat("fused_linear_ce_bwd", f"{tag} {label} N{N} D{D} V{V}",
+                       lambda: (fused_ce.fused_linear_ce_bwd(
+                           x, w, b, labels, lse, dloss),))
+
+
+def c2_case(rep: Report, label: str, x, w, b, labels) -> None:
+    """C2 alone, bf16, at a shape no main path gives it (a ragged N, D 512
+    or 1024), from the plain forward's lse: dx against the plain twin under
+    the backward rule, the library yardstick autograd of F.linear +
+    F.cross_entropy, and two runs bitwise equal."""
+    N, D = x.shape
+    V = w.shape[0]
+    dloss = torch.rand(N, generator=torch.Generator(device="cuda")
+                       .manual_seed(N), device="cuda") + 0.5
+    _, lse = fused_ce.fused_linear_ce_reference(x, w, b, labels)
+    bl = b.to(x.dtype)
+    lib = _grads_of(lambda xx: F.cross_entropy(F.linear(xx, w, bl).float(),
+                                               labels, reduction="none"),
+                    [x], dloss)
+    name = f"bf16 {label} N{N} D{D} V{V}"
+
+    def kernel():
+        return fused_ce.fused_linear_ce_bwd(x, w, b, labels, lse, dloss)
+    rep.check("fused_linear_ce_bwd", name, kernel,
+              lambda: fused_ce.fused_linear_ce_bwd_reference(
+                  x, w, b, labels, lse, dloss), torch.bfloat16,
+              work=(2 * (2 * N * D + V * D) + 4 * V + 16 * N, 4 * N * V * D),
+              library_fn=lambda: lib()[0], backward=True)
+    bitwise_repeat("fused_linear_ce_bwd", name, lambda: (kernel(),))
 
 
 def d2_case(rep: Report, g, dtype, B: int, H: int, Dh: int, Lc: int,
@@ -2261,6 +2317,17 @@ def phase_fused_kernels(rep: Report) -> None:
             drop = torch.rand(N, generator=g, device="cuda") < 0.1
             labels = torch.where(drop, -100, labels)
             ce_case(rep, label, x, w, b, labels, timed=main and label == "bart")
+            del x, w
+        # C2's other widths and a ragged N (no multiple of a row block)
+        for label, N, Dc in (("t5 ragged", 2999, D), ("d512", 3000, 512),
+                             ("d1024", 2999, 1024)) if main else ():
+            x = randn(N, Dc, dtype=dtype, scale=Dc ** -0.5)
+            w = randn(32100, Dc, dtype=dtype)
+            labels = torch.randint(0, 32100, (N,), generator=g, device="cuda")
+            labels = torch.where(torch.rand(N, generator=g, device="cuda")
+                                 < 0.1, -100, labels)
+            c2_case(rep, label, x, w, torch.zeros(32100, device="cuda"),
+                    labels)
             del x, w
         for B, H, pos, bias in ((500, 12, 0, False), (500, 12, 20, False),
                                 (500, 12, 39, False), (300, 12, 39, True)):
@@ -2538,6 +2605,7 @@ def profile_run(run, card: str, what: str) -> None:
                 "beam_attend": "beam_decode_attend kernel (D1)",
                 "ce_fwd": "fused linear + CE forward (C1)",
                 "ce_bwd": "fused linear + CE backward (C2)",
+                "ce_w_tiles": "fused linear + CE backward (C2)",
                 "slot_copy": "cache_slot_update kernel (U1)",
                 "topk_lse": "topk_lse kernel (T1)", "gemm": "cuBLAS GEMMs",
                 "sm90": "cuBLAS GEMMs", "cutlass": "cuBLAS GEMMs",

@@ -19,18 +19,41 @@
 // through all of V per program (N / tn programs: under 160 at N 5000 for
 // 132 SMs, each streaming all of W). Design here: the grid is (row blocks,
 // vocab splits), so enough blocks fill the card; each block walks its
-// split's 64-column vocab tiles in order, stages the W tile (zero rows
-// past V, so 0 x garbage never reaches dx) and its rows of x in shared
-// memory with cp.async (C1 copies tile t + 1 while it reduces tile t), and
-// computes the logits tile with WMMA bf16 tensor-core products
-// (fp32 accumulate; fp32 inputs take plain FMA, never TF32). C1 keeps per
-// row an online (max, sum, picked logit) and writes one partial a split;
-// a second kernel merges the splits in order. C2 (32 rows a block) rounds
-// the g tile to bf16 in shared memory and folds it into fp32 dx fragments,
-// one partial dx a split, summed in split order by a third kernel. No
-// atomics: every sum has a fixed order, so the result is deterministic.
-// Consecutive blocks share a split, so one W tile serves the row blocks
-// from L2. No wgmma/TMA yet.
+// split's vocab tiles in order. Consecutive blocks share a split, so one W
+// tile serves the row blocks from L2. Zero rows past V, so 0 x garbage
+// never reaches dx. No atomics: every sum has a fixed order (a partial a
+// split, merged or summed in split order by a second kernel), so the
+// result is deterministic; fp32 inputs take plain FMA, never TF32.
+//
+// C1 (ce_fwd_wmma, 64-column tiles): stages the W tile and its rows of x
+// with cp.async (tile t + 1 copies while it reduces tile t), the logits
+// tile by WMMA bf16 products, and per row an online (max, sum, picked
+// logit).
+//
+// C2, bf16 (ce_bwd_tc; below, before the kernel): 64 rows a block (32 at
+// D 1024), 32-column vocab tiles. It replaced a WMMA design (32 rows a
+// block, 64-column tiles) that staged each W tile with no overlap, sent
+// the logits through fp32 and g through bf16 shared memory (four barriers
+// a tile) and held one block an SM: 3.15 ms at the T5 site against 1.59
+// for autograd of F.linear + F.cross_entropy. What the new one does about
+// it: (1) W streams through a 2-3 stage ring filled by one TMA bulk copy a
+// tile from a tile-contiguous copy of W (ce_w_tiles): one instruction, not
+// a few thousand 16-byte cp.async a tile (issued by every thread, those
+// took as long as the products); (2) the logits' C
+// fragments become g and then g's A fragments in registers (mma_a_from_c),
+// no staging; (3) 64 rows a block read each W tile from L2 half as often.
+// Why wgmma for the logits and mma.sync for dx: the logits are a 64-row x
+// 32-column product over all of D with both operands in shared memory,
+// wgmma's shape, and its accumulator lands in mma.sync's C layout, so g
+// needs no shuffle; dx keeps its fp32 accumulator, 64 rows x D, in the
+// registers of the warps that own the rows (384 columns a warpgroup at
+// D 768: 192 registers a thread), which wgmma's A-from-registers form
+// could also do, but at no gain here. The price of register-resident dx:
+// each warpgroup computes the logits of its rows again (twice at D 768).
+// Tried and not kept (measured on an NVIDIA H100 80GB HBM3, 700 W): a
+// 2- or 4-block cluster sharing each W tile by TMA multicast (no gain: the
+// L2 reads were not the limit), mma.sync logits (1.5x slower), 48 rows
+// with 256-column slices (spills).
 #include <mma.h>
 
 #include "common.cuh"
@@ -46,17 +69,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;          // bf16 row padding: ldm a multiple of 8
 constexpr int kLLD = kTV + 4;    // fp32 logits staging row stride
-constexpr int kGLD = kTV + kPad; // bf16 g tile row stride
 
 // ------------------------------------------------------------ bf16 (WMMA)
 
 __host__ __device__ constexpr size_t fwd_smem(int BM, int D) {
   return (size_t)(BM + kTV) * (D + kPad) * 2 + (size_t)BM * kLLD * 4;
-}
-
-__host__ __device__ constexpr size_t bwd_smem(int D) {
-  return (size_t)(32 + kTV) * (D + kPad) * 2 + (size_t)32 * kLLD * 4 +
-         (size_t)32 * kGLD * 2;
 }
 
 // rows [r0, r0 + R) of a (rows, D) bf16 matrix into shared memory with
@@ -332,84 +349,293 @@ __device__ __forceinline__ GRows g_rows(const int* labels, const float* lse,
   return g;
 }
 
-// part: [S][N][D] fp32, split blockIdx.y's dx
-template <int NCF>
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            const float* __restrict__ b, const int* __restrict__ labels,
-            const float* __restrict__ lse, const float* __restrict__ dloss,
-            float* __restrict__ part, int N, int V, int tps) {
-  constexpr int D = kWarps * 16 * NCF;
-  constexpr int ld = D + kPad;
+// ------------------------------------------------------- bf16 (tensor cores)
+// C2 on the tensor cores (header): a block of BM rows x all D columns of
+// dx; warpgroup sl (4 warps) owns dx columns SL sl .. SL sl + SL, warp rc
+// of it rows 16 rc .. 16 rc + 16 (SL / 2 fp32 accumulator registers a
+// thread). Per 32-column vocab tile each warpgroup computes the BM x 32
+// logits over all of D (WG: one wgmma m64n32k16 chain from shared memory;
+// else mma.sync per warp), turns them into g in registers, and the C
+// fragments of g are the A fragments of dx += g . W (mma_a_from_c,
+// mma.sync). The W tiles come from ``wt``, W re-laid out by ce_w_tiles so
+// that each tile, with its bias, is one contiguous block in the shared
+// memory layout: one bulk copy (TMA, cp.async.bulk) a tile, completing on
+// the stage's mbarrier, into a ring of STAGES stages, tile t + STAGES - 1
+// copying while tile t multiplies; one barrier a tile.
+//
+// Shared-memory layout, x and W alike: "chunk-major", the 16-byte chunk c
+// (columns 8 c .. 8 c + 8) of row r at (c * rows + r) * 16 bytes, so each
+// 8-row x 16-byte core matrix is 128 contiguous bytes: wgmma's no-swizzle
+// K-major layout (leading offset rows * 16 bytes between k chunks, stride
+// offset 128 between 8-row groups), and conflict-free for ldmatrix.
+
+constexpr int kCTV = 32;  // vocab columns of a W tile
+
+template <int D, int BM, int STAGES, int SL, bool WG>
+struct BwdTc {
+  static constexpr int warps = (BM / 16) * (D / SL);
+  static constexpr int threads = warps * 32;
+  // a ring stage (and a tile of wt): the W tile and its kCTV fp32 biases,
+  // in bf16 units
+  static constexpr int stage = kCTV * D + 2 * kCTV;
+  static constexpr uint32_t stage_bytes = stage * 2;
+  static constexpr size_t smem =
+      ((size_t)BM * D + (size_t)STAGES * stage) * 2 + STAGES * 8;
+  static_assert(stage_bytes % 16 == 0, "bulk copies of 16 bytes");
+};
+
+// rows r0 .. r0 + R of a (rows, D) bf16 matrix into the chunk-major dst
+// (R rows), zeros past ``rows``: 16-byte cp.async copies, not committed.
+// Neighbouring threads take the two chunks of a 32-byte sector of a row,
+// then the next rows.
+template <int D>
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int r0,
+                                        int R, int rows, int threads) {
+  constexpr int words = D / 8;
+  for (int i = threadIdx.x; i < R * words; i += threads) {
+    const int pr = i >> 1, r = pr % R;
+    const int c = (pr / R) * 2 + (i & 1);
+    const bool ok = r0 + r < rows;
+    cp_async_16(dst + (c * R + r) * 8,
+                ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// wt[t] = W rows 32 t .. 32 t + 32 chunk-major, then their 32 biases;
+// zeros past V. One 16-byte chunk (or one bias) a thread.
+template <int D>
+__global__ void ce_w_tiles(const bf16* __restrict__ w,
+                           const float* __restrict__ b, bf16* __restrict__ wt,
+                           int V, long long items) {
+  constexpr int words = D / 8;
+  constexpr int stage = kCTV * D + 2 * kCTV;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long tile = i / (kCTV * (words + 1));
+    const int j = (int)(i - tile * (kCTV * (words + 1)));
+    const int r = j / (words + 1), c = j - r * (words + 1);
+    const long long v = tile * kCTV + r;
+    bf16* dst = wt + tile * stage;
+    if (c < words) {
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (v < V) val = *reinterpret_cast<const uint4*>(w + v * D + c * 8);
+      *reinterpret_cast<uint4*>(dst + (c * kCTV + r) * 8) = val;
+    } else {
+      reinterpret_cast<float*>(dst + kCTV * D)[r] = v < V ? b[v] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@!P bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global src to shared dst by the
+// tensor memory accelerator, completing on the mbarrier bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading byte
+// offset (between the two 8-column core matrices of a k16 step), stride
+// byte offset (between 8-row groups)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (+)= A . B^T, m64n32k16, A and B K-major in shared memory; warp w of
+// the warpgroup receives rows 16 w .. 16 w + 16 in mma.sync's C layout
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[4][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int D, int BM, int STAGES, int SL, bool WG>
+__global__ void __launch_bounds__(BwdTc<D, BM, STAGES, SL, WG>::threads)
+ce_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+          const int* __restrict__ labels, const float* __restrict__ lse,
+          const float* __restrict__ dloss, float* __restrict__ part, int N,
+          int V, int tps) {
+  using C = BwdTc<D, BM, STAGES, SL, WG>;
+  constexpr int RCH = BM / 16;
+  static_assert(!WG || BM == 64, "a wgmma logits tile is 64 rows");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                 // [32][ld]
-  bf16* ws = xs + 32 * ld;                                      // [kTV][ld]
-  float* lf = reinterpret_cast<float*>(ws + kTV * ld);          // [32][kLLD]
-  bf16* gs = reinterpret_cast<bf16*>(lf + 32 * kLLD);           // [32][kGLD]
-  const int n0 = blockIdx.x * 32;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n_tiles = (V + kTV - 1) / kTV;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][BM]
+  bf16* ws = xs + BM * D;  // [STAGES][C::stage]: W chunk-major, then bias
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + STAGES * C::stage);
+
+  const int n0 = blockIdx.x * BM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp % RCH) * 16, c0 = (warp / RCH) * SL;
+  const int n_tiles = (V + kCTV - 1) / kCTV;
   const int t0 = blockIdx.y * tps;
   const int t1 = min(t0 + tps, n_tiles);
-  const GRows gr = g_rows(labels, lse, dloss, n0, N);
-  const int c = tid & 63;
+  // tile nt of wt into its ring stage (one thread)
+  auto issue = [&](int nt) {
+    const int st = (nt - t0) % STAGES;
+    mbar_expect_tx(full + st, C::stage_bytes);
+    bulk_copy(ws + st * C::stage, wt + (size_t)nt * C::stage,
+              C::stage_bytes, full + st);
+  };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xacc[2][NCF];
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(full + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the label, lse (times log2(e): exp(l - lse) is one FFMA and one EX2)
+  // and dloss of the thread's two rows (dloss 0 on ignored rows, past N)
+  int lab[2];
+  float lr2[2], sc[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(xacc[i][j], 0.f);
+  for (int r = 0; r < 2; ++r) {
+    const int n = n0 + r0 + g + 8 * r;
+    const bool in = n < N;
+    lab[r] = in ? labels[n] : -1;
+    lr2[r] = in ? lse[n] * kLog2e : 0.f;
+    sc[r] = in && lab[r] >= 0 ? dloss[n] : 0.f;
+  }
+  cp_rows<D>(xs, x, n0, BM, N, C::threads);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (threadIdx.x == 0)
+    for (int nt = t0; nt < min(t0 + STAGES - 1, t1); ++nt) issue(nt);
+  cp_async_wait<0>();
+  // x (written by cp.async) is read by wgmma, the async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 
-  stage_rows(xs, x, n0, 32, N, D);
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * kTV;
-    __syncthreads();  // the previous tile's ws is consumed
-    stage_rows(ws, w, v0, kTV, V, D);
-    stage_wait();
-    __syncthreads();
-    logits_tile_wmma<32>(xs, ws, lf, D, warp);
-    __syncthreads();
+  float acc[SL / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = (tid >> 6) + 4 * j;
-      gs[r * kGLD + c] = __float2bfloat16(g_elem(
-          lf[r * kLLD + c], b, v0 + c, V, gr.lab[j], gr.lse[j], gr.scale[j]));
+  for (int i = 0; i < SL / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  // ldmatrix lane offsets in the chunk-major tiles: row (or vocab row) and
+  // chunk of an A fragment / a B fragment with k down the rows (.trans),
+  // and of a B fragment with the rows as n
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_chunk = lane >> 4;
+  const int bt_row = (lane & 7) + (lane >> 4) * 8;
+  const int bt_chunk = (lane >> 3) & 1;
+
+  for (int it = t0; it < t1; ++it) {
+    // every warp is done with tile it - 1: its stage is free for tile
+    // it + STAGES - 1 (and, the first time, x is in place)
+    __syncthreads();
+    if (threadIdx.x == 0 && it + STAGES - 1 < t1) issue(it + STAGES - 1);
+    const int st = (it - t0) % STAGES;
+    mbar_wait(full + st, ((it - t0) / STAGES) & 1);
+    const bf16* W = ws + st * C::stage;
+    const float* Bt = reinterpret_cast<const float*>(W + kCTV * D);
+    const int v0 = it * kCTV;
+
+    // logits (16 rows x 32 columns a warp) over all of D
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+    if constexpr (WG) {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll 8
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n32(s, wg_desc(xs + 2 * kc * BM * 8, BM * 16, 128),
+                     wg_desc(W + 2 * kc * kCTV * 8, kCTV * 16, 128), kc > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    } else {
+#pragma unroll 4
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t a[4], b0[4], b1[4];
+        ldmatrix_x4(a, xs + ((2 * kc + a_chunk) * BM + r0 + a_row) * 8);
+        ldmatrix_x4(b0, W + ((2 * kc + bt_chunk) * kCTV + bt_row) * 8);
+        ldmatrix_x4(b1, W + ((2 * kc + bt_chunk) * kCTV + 16 + bt_row) * 8);
+        mma_bf16(s[0], a, b0[0], b0[1]);
+        mma_bf16(s[1], a, b0[2], b0[3]);
+        mma_bf16(s[2], a, b1[0], b1[1]);
+        mma_bf16(s[3], a, b1[2], b1[3]);
+      }
     }
-    __syncthreads();
-    // dx[32 x D] += g[32 x 64] . W[v0 : v0+64, :] (this warp's columns)
+    // g = (exp(logit + b - lse) - onehot) * dloss, 0 past V; element (r, c)
+    // of n8 tile nt: row r0 + g + 8 r, column v0 + 8 nt + 2 t + c
 #pragma unroll
-    for (int kk = 0; kk < kTV; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, gs + kk, kGLD);
-      wmma::load_matrix_sync(a1, gs + 16 * kGLD + kk, kGLD);
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int j = 0; j < NCF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, ws + kk * ld + warp * NCF * 16 + j * 16,
-                               ld);
-        wmma::mma_sync(xacc[0][j], a0, bw, xacc[0][j]);
-        wmma::mma_sync(xacc[1][j], a1, bw, xacc[1][j]);
+      for (int c = 0; c < 2; ++c) {
+        const int col = v0 + nt * 8 + 2 * t + c;
+        const float bc = Bt[nt * 8 + 2 * t + c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float& e = s[nt][2 * r + c];
+          const float p = ex2(fmaf(e + bc, kLog2e, -lr2[r]));
+          e = col < V && sc[r] != 0.f
+                  ? (p - (col == lab[r] ? 1.f : 0.f)) * sc[r]
+                  : 0.f;
+        }
+      }
+    // dx[16 x SL] += g[16 x 32] . W[32 x SL], g's A fragments from its C
+    // fragments (rounded to bf16), W's B fragments by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t ga[4];
+      mma_a_from_c(ga, s[2 * kk], s[2 * kk + 1]);
+      const bf16* wk = W + ((c0 / 8 + a_chunk) * kCTV + kk * 16 + a_row) * 8;
+#pragma unroll
+      for (int dn = 0; dn < SL / 16; ++dn) {
+        uint32_t bw[4];
+        ldmatrix_x4_trans(bw, wk + 2 * dn * kCTV * 8);
+        mma_bf16(acc[2 * dn], ga, bw[0], bw[1]);
+        mma_bf16(acc[2 * dn + 1], ga, bw[2], bw[3]);
       }
     }
   }
-
-  stage_wait();      // an empty split still staged x
-  __syncthreads();  // lf is reused as per-warp output staging
-  float* stage = lf + warp * 256;
   float* prow = part + (size_t)blockIdx.y * N * D;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int r = 0; r < 2; ++r) {
+    const int n = n0 + r0 + g + 8 * r;
+    if (n >= N) continue;
+    float* dst = prow + (size_t)n * D + c0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NCF; ++j) {
-      wmma::store_matrix_sync(stage, xacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int n = n0 + i * 16 + (e >> 4);
-        const int o = warp * NCF * 16 + j * 16 + (e & 15);
-        if (n < N) prow[(size_t)n * D + o] = stage[e];
-      }
-      __syncwarp();
-    }
+    for (int dt = 0; dt < SL / 8; ++dt)
+      *reinterpret_cast<float2*>(dst + dt * 8) =
+          make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
   }
 }
 
@@ -502,17 +728,28 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int NCF>
-int launch_bwd_wmma(const void* x, const void* w, const void* b,
-                    const void* labels, const void* lse, const void* dloss,
-                    void* part, int N, int V, int tps, dim3 grid,
-                    cudaStream_t st) {
-  const size_t smem = bwd_smem(kWarps * 16 * NCF);
-  const int err = set_smem(ce_bwd_wmma<NCF>, smem);
+// W re-laid out into wt, then C2
+template <int D, int BM, int STAGES, int SL, bool WG>
+int launch_bwd_tc(const void* x, const void* w, const void* b,
+                  const void* labels, const void* lse, const void* dloss,
+                  void* wt, void* part, int N, int V, int S,
+                  cudaStream_t st) {
+  using C = BwdTc<D, BM, STAGES, SL, WG>;
+  static_assert(C::smem <= 232448, "C2's shared memory exceeds a block's");
+  const int n_tiles = (V + kCTV - 1) / kCTV;
+  const long long items = (long long)n_tiles * kCTV * (D / 8 + 1);
+  const long long want = (items + 255) / 256;
+  ce_w_tiles<D><<<(unsigned)(want > 16384 ? 16384 : want), 256, 0, st>>>(
+      (const bf16*)w, (const float*)b, (bf16*)wt, V, items);
+  int err = (int)cudaGetLastError();
   if (err) return err;
-  ce_bwd_wmma<NCF><<<grid, kThreads, smem, st>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)labels,
-      (const float*)lse, (const float*)dloss, (float*)part, N, V, tps);
+  err = set_smem(ce_bwd_tc<D, BM, STAGES, SL, WG>, C::smem);
+  if (err) return err;
+  const int tps = (n_tiles + S - 1) / S;
+  ce_bwd_tc<D, BM, STAGES, SL, WG>
+      <<<dim3((N + BM - 1) / BM, S), C::threads, C::smem, st>>>(
+          (const bf16*)x, (const bf16*)wt, (const int*)labels,
+          (const float*)lse, (const float*)dloss, (float*)part, N, V, tps);
   return (int)cudaGetLastError();
 }
 
@@ -584,26 +821,34 @@ extern "C" int vlpet_ce_fwd(const void* x, const void* w, const void* b,
 }
 
 // lse, dloss (N,) f32; part [S][N][D] f32 scratch; dx (N, D) x's dtype.
-// D 512, 768 or 1024.
+// D 512, 768 or 1024. bf16: wt, scratch of ceil(V / 32) * (32 D + 64) bf16
+// (W re-laid out by tiles), rows per block 64, 64, 32 (ops/fused_ce.py
+// _BWD_ROWS) and S splits of ceil(ceil(V / 32) / S) tiles of 32 columns;
+// fp32: wt unused (NULL), 32 rows and tiles of 64 columns.
 extern "C" int vlpet_ce_bwd(const void* x, const void* w, const void* b,
                             const void* labels, const void* lse,
-                            const void* dloss, void* part, void* dx, int N,
-                            int D, int V, int S, int is_bf16, void* stream) {
-  if (N < 1 || V < 1 || S < 1 || (D != 512 && D != 768 && D != 1024))
+                            const void* dloss, void* wt, void* part, void* dx,
+                            int N, int D, int V, int S, int is_bf16,
+                            void* stream) {
+  if (N < 1 || V < 1 || S < 1 || (D != 512 && D != 768 && D != 1024) ||
+      (is_bf16 && wt == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = (V + kTV - 1) / kTV;
-  const int tps = (n_tiles + S - 1) / S;
-  const dim3 grid((N + 31) / 32, S);
   int err;
   if (is_bf16) {
-    err = D == 512   ? launch_bwd_wmma<4>(x, w, b, labels, lse, dloss, part,
-                                          N, V, tps, grid, st)
-          : D == 768 ? launch_bwd_wmma<6>(x, w, b, labels, lse, dloss, part,
-                                          N, V, tps, grid, st)
-                     : launch_bwd_wmma<8>(x, w, b, labels, lse, dloss, part,
-                                          N, V, tps, grid, st);
+    // D <= 768: 64 rows, the logits on wgmma; D 1024: 32 rows (the fp32 dx
+    // accumulator of 64 rows would fill the register file), mma.sync
+    err = D == 512   ? launch_bwd_tc<512, 64, 3, 256, true>(
+                         x, w, b, labels, lse, dloss, wt, part, N, V, S, st)
+          : D == 768 ? launch_bwd_tc<768, 64, 2, 384, true>(
+                           x, w, b, labels, lse, dloss, wt, part, N, V, S, st)
+                     : launch_bwd_tc<1024, 32, 2, 256, false>(
+                           x, w, b, labels, lse, dloss, wt, part, N, V, S,
+                           st);
   } else {
+    const int n_tiles = (V + kTV - 1) / kTV;
+    const int tps = (n_tiles + S - 1) / S;
+    const dim3 grid((N + kFBM - 1) / kFBM, S);
     err = D == 512   ? launch_bwd_f32<8>(x, w, b, labels, lse, dloss, part,
                                          N, V, tps, grid, st)
           : D == 768 ? launch_bwd_f32<12>(x, w, b, labels, lse, dloss, part,

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "vlpet_attention_fwd": [_P] * 8 + [_I] * 11 + [_F, _P],
     # q, k, v, mask, bias (or NULL), seed (or NULL), do, dq, dk, dv, dbias
     # partials (or NULL), dbias (or NULL), B, L, S, H, Dh, mask_batched,
-    # causal, is_bf16, drop, thr, scale, stream
-    "vlpet_attention_bwd": [_P] * 12 + [_I] * 10 + [_F, _P],
+    # causal, is_bf16, tc (the tensor-core route), drop, thr, scale, stream
+    "vlpet_attention_bwd": [_P] * 12 + [_I] * 11 + [_F, _P],
     # q, k, v, mask, bias (or NULL), seed (or NULL), out, lse, do, dq, dk,
     # dv, delta, dbias (or NULL), B, L, S, H, Dh, mask_batched, causal,
     # is_bf16, tc (the tensor-core route), drop, thr, scale, stream
@@ -77,9 +77,9 @@ _SIGNATURES = {
     "vlpet_cache_update": [_P] * 2 + [_I] * 5 + [_P],
     # x, w, b, labels, partials, loss, lse, N, D, V, splits, is_bf16, stream
     "vlpet_ce_fwd": [_P] * 7 + [_I] * 5 + [_P],
-    # x, w, b, labels, lse, dloss, partials, dx, N, D, V, splits, is_bf16,
-    # stream
-    "vlpet_ce_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    # x, w, b, labels, lse, dloss, tiled W (bf16; NULL for fp32), partials,
+    # dx, N, D, V, splits, is_bf16, stream
+    "vlpet_ce_bwd": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 

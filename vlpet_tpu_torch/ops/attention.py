@@ -27,7 +27,9 @@ check and raise), "fma" for fp32 and for bf16 at other widths (the FP32-FMA
 kernels, which the fp32 parity runs hold to full fp32 arithmetic).
 ``fused_attention.launches_by_route`` and
 ``fused_attention_bwd_long.launches_by_route`` count the launches of each.
-A6 has one route.
+A6's kernel is picked by ``a6_route(L, S, Dh, dtype)``: "tc" for bf16 at
+Dh 64 with L, S <= 64 (every A6 site of the repo), "fma" otherwise;
+``fused_attention_bwd.launches_by_route`` counts them.
 
 T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
 fp32 term added to the logits after the mask (the (B, H, L, S) sum never
@@ -168,6 +170,8 @@ def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
 # the head width of the tensor-core kernels (every configuration of the
 # repo: BART-base and T5-base, d 768 over 12 heads)
 TC_HEAD_DIM = 64
+# the rows of the tensor-core kernels' tiles (csrc/common.cuh kTcRows)
+TC_ROWS = 64
 
 
 def forward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
@@ -193,6 +197,19 @@ def _check_aligned(*named) -> None:
             raise ValueError(f"{n}: the tensor-core attention kernels need "
                              f"16-byte aligned data; this view starts at "
                              f"{t.data_ptr() % 16} bytes past a boundary")
+
+
+def a6_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
+    """A6's kernel, a plain function of (L, S, Dh, dtype): "tc" (the
+    tensor-core kernel: bf16 products on mma.sync, p and ds in registers,
+    bf16 tiles fed by cp.async, 16-byte aligned inputs) for bf16 at Dh 64
+    where a head's L and S fit one 64-row tile -- every A6 site of the repo
+    -- else "fma" (the FP32-FMA kernel: fp32, other widths, L or S past
+    64)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
+    return ("tc" if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM
+            and L <= TC_ROWS and S <= TC_ROWS else "fma")
 
 
 def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
@@ -334,6 +351,10 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.contiguous()
     m = _kernel_inputs(q, k, v, mask, extra=((do, "do"),))
     bias, seed = _extras(bias, rate, seed)
+    route = a6_route(L, S, Dh, q.dtype)
+    if route == "tc":
+        _check_aligned((q, "q"), (k, "k"), (v, "v"), (do, "do"),
+                       *([(bias, "bias")] if bias is not None else []))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     part = dbias = None
     if bias_grad:
@@ -346,8 +367,10 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   _ptr(part), _ptr(dbias), B, L, S, num_heads, Dh,
                   int(m.shape[0] == B), int(causal),
-                  int(q.dtype == torch.bfloat16), *kernel_drop_args(rate))
+                  int(q.dtype == torch.bfloat16), int(route == "tc"),
+                  *kernel_drop_args(rate))
     fused_attention_bwd.launches += 1
+    fused_attention_bwd.launches_by_route[route] += 1
     if not bias_grad:
         return dq, dk, dv
     fused_attention_bwd.dbias_launches += 1
@@ -480,6 +503,8 @@ fused_attention_bwd_long.launches = 0
 # the same launches by forward_route: a run shows which kernels it took
 fused_attention.launches_by_route = {"tc": 0, "fma": 0}
 fused_attention_bwd_long.launches_by_route = {"tc": 0, "fma": 0}
+# A6's launches by a6_route
+fused_attention_bwd.launches_by_route = {"tc": 0, "fma": 0}
 # launches that also computed dbias (a mode of each backward, counted apart)
 fused_attention_bwd.dbias_launches = 0
 fused_attention_bwd_long.dbias_launches = 0

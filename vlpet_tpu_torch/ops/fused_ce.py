@@ -25,8 +25,13 @@ from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.ce import IGNORE, _logits_f32
 
 _TV = 64                 # vocab tile of the kernels (csrc/fused_ce.cu kTV)
+_BWD_TV = 32             # vocab tile of the bf16 backward (kCTV)
 _BLOCKS_PER_SM = 4       # vocab splits: about this many blocks a SM
 _BWD_DIMS = (512, 768, 1024)
+# rows a bf16 backward block takes, by D (csrc/fused_ce.cu vlpet_ce_bwd):
+# its fp32 dx accumulator, rows x D, lives in registers, and its x rows and
+# the ring of W tiles in shared memory
+_BWD_ROWS = {512: 64, 768: 64, 1024: 32}
 
 
 def fused_linear_ce_reference(x: torch.Tensor, w: torch.Tensor,
@@ -72,12 +77,13 @@ def _check(x, w, b, labels):
                          f"{tuple(labels.shape)} do not match")
 
 
-def _splits(rows_per_block: int, N: int, V: int, device) -> int:
-    """Vocab splits: enough blocks for about _BLOCKS_PER_SM a SM, no split
-    empty. A function of the shapes and the card, so a result does not
-    change from call to call."""
+def _splits(rows_per_block: int, N: int, V: int, device,
+            tile: int = _TV) -> int:
+    """Vocab splits of ``tile``-column tiles: enough blocks for about
+    _BLOCKS_PER_SM a SM, no split empty. A function of the shapes and the
+    card, so a result does not change from call to call."""
     sms = _build.multiprocessors(device)
-    tiles = -(-V // _TV)
+    tiles = -(-V // tile)
     row_blocks = -(-N // rows_per_block)
     want = min(tiles, max(1, -(-_BLOCKS_PER_SM * sms // row_blocks)))
     per = -(-tiles // want)
@@ -136,12 +142,20 @@ def fused_linear_ce_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     dx = torch.empty_like(x)
     if N == 0:
         return dx
-    S = _splits(32, N, wc.shape[0], x.device)
+    V = wc.shape[0]
+    wt = None
+    if x.dtype == torch.bfloat16:
+        S = _splits(_BWD_ROWS[D], N, V, x.device, _BWD_TV)
+        # W and b re-laid out tile by tile (csrc/fused_ce.cu ce_w_tiles)
+        wt = torch.empty(-(-V // _BWD_TV) * (_BWD_TV * D + 2 * _BWD_TV),
+                         dtype=torch.bfloat16, device=x.device)
+    else:
+        S = _splits(32, N, V, x.device)
     part = torch.empty((S, N, D), dtype=torch.float32, device=x.device)
     _build.launch("vlpet_ce_bwd", x.data_ptr(), wc.data_ptr(), bf.data_ptr(),
                   lab.data_ptr(), lse.data_ptr(), dl.data_ptr(),
-                  part.data_ptr(), dx.data_ptr(), N, D, wc.shape[0], S,
-                  int(x.dtype == torch.bfloat16))
+                  None if wt is None else wt.data_ptr(), part.data_ptr(),
+                  dx.data_ptr(), N, D, V, S, int(x.dtype == torch.bfloat16))
     fused_linear_ce_bwd.launches += 1
     return dx
 
