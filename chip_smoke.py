@@ -133,6 +133,16 @@ nonzero and no result line is printed):
      the long backward's dropout masks bit for bit at the T5 video encoder,
      bf16 and fp32 (every query row, the ragged 64-row and 64-key tiles
      included);
+  3h. (run after 3g) F1 and C1 in bf16 at the rows their paths give them:
+     F1 at N 1 and 2501 (ragged), 250 (video beam), 1500 (T5 beam, relu),
+     2500 (BART beam), 16800 (T5 train, relu, rate 0.1) and 28000 (BART
+     encoder), each against its plain twin and against fp32 arithmetic on
+     its inputs, twice bitwise equal, with the split count it took; the
+     cost of re-laying W1 and W2 out; F1's dropout mask bit for bit in
+     bf16 at a split (N 1500) and an unsplit (N 16800) row count; C1 at
+     the BART and T5 sites, T5 at N 2999 and D 512 and 1024, loss and lse
+     against the plain twin, twice bitwise equal (chip_phases.py runs
+     this phase on an earlier tree's kernels too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -974,13 +984,16 @@ def phase_t5_kernels(rep: Report) -> None:
 
 
 def check_ffn_bf16(label: str, got: torch.Tensor, hidden: torch.Tensor,
-                   w_out: torch.Tensor) -> None:
+                   w_out: torch.Tensor, b_out: torch.Tensor = None) -> None:
     """bf16 F1 / F3 against fp32 arithmetic on the same bf16 inputs: the fp32
     ``hidden`` rounded to bf16 where the kernel rounds it, times the output
-    weight in fp32. max |err| / max |ref| within BF16_FFN_RTOL, little more
-    than the bf16 rounding of the output: a fault in a few columns fails
-    here that the elementwise 2e-2·(1 + |plain|) check could pass."""
+    weight in fp32 (plus the output bias). max |err| / max |ref| within
+    BF16_FFN_RTOL, little more than the bf16 rounding of the output: a
+    fault in a few columns fails here that the elementwise 2e-2·(1 +
+    |plain|) check could pass."""
     ref = hidden.to(torch.bfloat16).float() @ w_out.float().t()
+    if b_out is not None:
+        ref = ref + b_out.float()
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     if not rel <= BF16_FFN_RTOL:
         raise AssertionError(f"bf16 FFN {label}: max |err| / max |ref| "
@@ -1403,6 +1416,117 @@ def phase_bias_grad_kernels(rep: Report) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         check_long_fwd_drop_mask(seed, dtype)
         check_long_drop_mask(seed, dtype)
+
+
+def phase_ffn_ce_sites(rep: Report) -> None:
+    """3h: F1 and C1 in bf16 at the rows their paths give them. F1 (D 768,
+    F 3072): N 1 and 2501 (ragged), 250 (video beam), 1500 (T5 beam, relu,
+    zero biases), 2500 (BART beam), 16800 (T5 train, relu, rate 0.1) and
+    28000 (BART encoder), each against its plain twin, against fp32
+    arithmetic on its inputs (check_ffn_bf16) and twice, bitwise equal;
+    then its dropout mask bit for bit at a split and an unsplit row count.
+    C1: the BART (N 5000, V 50265) and T5 (N 3000, V 32100) sites, T5 at a
+    ragged N 2999 and D 512 and 1024, loss and lse against the plain twin
+    (library F.linear + F.cross_entropy), twice, bitwise equal. Only
+    fused_ffn, fused_linear_ce and their twins are called, so the phase
+    also times an earlier tree's kernels (chip_phases.py)."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    randn = randn_fn(g)
+    dtype = torch.bfloat16
+    D, Fh = 768, 3072
+    w1 = randn(Fh, D, dtype=dtype, scale=0.02)
+    w2 = randn(D, Fh, dtype=dtype, scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    z1, z2 = torch.zeros(Fh, device="cuda"), torch.zeros(D, device="cuda")
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    acts = {"gelu": F.gelu, "relu": torch.relu}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for site, N, act, biased, rate in (
+            ("ragged", 1, "gelu", True, 0.0),
+            ("video beam", 250, "gelu", True, 0.0),
+            ("t5 beam", 1500, "relu", False, 0.0),
+            ("bart beam", 2500, "gelu", True, 0.0),
+            ("ragged", 2501, "gelu", True, 0.0),
+            ("t5 train", 16800, "relu", False, 0.1),
+            ("bart encoder", 28000, "gelu", True, 0.0)):
+        x = randn(N, D, dtype=dtype)
+        c1, c2 = (b1, b2) if biased else (z1, z2)
+        key = "fused_ffn relu +dropout" if rate else "fused_ffn"
+        label = f"bf16 {site} N{N} {act}" + (f" rate {rate}" if rate else "")
+        if hasattr(ffn, "f1_splits"):
+            label += f" S{ffn.f1_splits(N, D, Fh, sms)[0]}"
+
+        def kernel():
+            return ffn.fused_ffn(x, w1, c1, w2, c2, act, rate, seed)
+        rep.check(key, label, kernel,
+                  lambda: ffn.ffn_reference(x, w1, c1, w2, c2, act, rate,
+                                            seed),
+                  dtype, work=(2 * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                               4 * N * D * Fh))
+        hidden = acts[act](x.float() @ w1.float().t() + c1)
+        check_ffn_bf16(label, kernel(), ffn._drop_hidden(hidden, rate, seed),
+                       w2, c2)
+        bitwise_repeat(key, label, lambda: (kernel(),))
+        del x, hidden
+    if hasattr(ffn, "f1_tiles"):  # W1 and W2 re-laid out, uncached
+        wt = torch.empty(2 * Fh * D, dtype=dtype, device="cuda")
+        ms = cuda_ms(lambda: _build.launch(
+            "vlpet_ffn_w_tiles", w1.data_ptr(), w2.data_ptr(), wt.data_ptr(),
+            D, Fh))
+        print(f"  {'fused_ffn':24s} {'bf16 W1, W2 re-laid out (9.4 MB)':34s} "
+              f"{ms:.4f} ms, once per layer while the weights live",
+              flush=True)
+    check_ffn_bf16_mask(seed)
+    for label, N, Dc, V, xs, bias, ws in (
+            ("bart", 5000, 768, 50265, 1.0, True, 0.02),
+            ("t5", 3000, 768, 32100, 768 ** -0.5, False, 1.0),
+            ("t5 ragged", 2999, 768, 32100, 768 ** -0.5, False, 1.0),
+            ("d512", 3000, 512, 32100, 512 ** -0.5, False, 1.0),
+            ("d1024", 2999, 1024, 32100, 1024 ** -0.5, False, 1.0)):
+        x = randn(N, Dc, dtype=dtype, scale=xs)
+        w = randn(V, Dc, dtype=dtype, scale=ws)
+        b = randn(V, scale=0.1) if bias else torch.zeros(V, device="cuda")
+        labels = torch.randint(0, V, (N,), generator=g, device="cuda")
+        labels = torch.where(torch.rand(N, generator=g, device="cuda") < 0.1,
+                             -100, labels)
+        name = f"bf16 {label} N{N} D{Dc} V{V}"
+        bl = b.to(dtype)
+
+        def kernel():
+            return fused_ce.fused_linear_ce(x, w, b, labels)
+        rep.check("fused_linear_ce", name, kernel,
+                  lambda: fused_ce.fused_linear_ce_reference(x, w, b, labels),
+                  dtype, work=(2 * (N * Dc + V * Dc) + 4 * V + 16 * N,
+                               2 * N * V * Dc),
+                  library_fn=lambda: F.cross_entropy(
+                      F.linear(x, w, bl).float(), labels, reduction="none"))
+        bitwise_repeat("fused_linear_ce", name, kernel)
+        del x, w
+
+
+@torch.no_grad()
+def check_ffn_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
+    """bf16 F1's dropout mask, bit for bit, is ops/hashdrop.py's, where the
+    hidden is split over blocks (N 1500, the T5 beam rows) and where it is
+    not (N 16800, T5 training): W1 = 0 and b1 = 1 make the hidden 1 before
+    the dropout, and picking weights return its columns off .. off + D
+    (off 0 and F - D) as y, an exact zero where dropped (check_drop_masks'
+    construction, in bf16)."""
+    D, Fh = 768, 3072
+    bf = torch.bfloat16
+    zero_w1 = torch.zeros((Fh, D), device="cuda", dtype=bf)
+    ones_b1 = torch.ones(Fh, device="cuda")
+    z = torch.zeros(D, device="cuda")
+    for N in (1500, 16800):
+        ones = torch.ones((N, D), device="cuda", dtype=bf)
+        keep = keep_mask((N, Fh), 0, seed, rate, device="cuda")
+        for off in (0, Fh - D):
+            pick = _picking(D, Fh, off).to(bf)
+            y = ffn.fused_ffn(ones, zero_w1, ones_b1, pick, z, "relu", rate,
+                              seed)
+            _expect_zeros(f"fused_ffn N{N} F{Fh} off{off}", y,
+                          keep[:, off:off + D], "bf16")
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -2587,6 +2711,7 @@ def profile_run(run, card: str, what: str) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     families = {"ffn_fwd": "fused_ffn kernel (F1)",
+                "ffn_w_tiles": "fused_ffn kernel (F1)",
                 "gated_fwd": "fused_gated_ffn kernel (F3)",
                 "gated_bwd": "fused_gated_ffn_bwd kernel (F4)",
                 "ffn_bwd": "fused_ffn_bwd kernel (F2)",
@@ -2605,7 +2730,7 @@ def profile_run(run, card: str, what: str) -> None:
                 "beam_attend": "beam_decode_attend kernel (D1)",
                 "ce_fwd": "fused linear + CE forward (C1)",
                 "ce_bwd": "fused linear + CE backward (C2)",
-                "ce_w_tiles": "fused linear + CE backward (C2)",
+                "ce_w_tiles": "fused linear + CE forward (C1)",
                 "slot_copy": "cache_slot_update kernel (U1)",
                 "topk_lse": "topk_lse kernel (T1)", "gemm": "cuBLAS GEMMs",
                 "sm90": "cuBLAS GEMMs", "cutlass": "cuBLAS GEMMs",
@@ -2671,6 +2796,8 @@ def main() -> int:
     print("phase 3g: long backward with bias and dropout, dbias, vs plain",
           flush=True)
     phase_bias_grad_kernels(rep)
+    print("phase 3h: F1 and C1 at their paths' rows, bf16", flush=True)
+    phase_ffn_ce_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()

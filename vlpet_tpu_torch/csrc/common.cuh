@@ -263,4 +263,121 @@ __device__ __forceinline__ void tc_frag_b(uint32_t (&b)[4], const bf16* tile,
   ldmatrix_x4_trans(b, tile + row * kTcLd + col);
 }
 
+// ------------------------------------------------ wgmma, TMA, mbarriers
+// The streamed kernels (csrc/fused_ce.cu C1 and C2, csrc/ffn.cu F1) keep
+// their operand tiles in shared memory "chunk-major": the 16-byte chunk c
+// (columns 8 c .. 8 c + 8) of row r of an R-row tile at (c * R + r) * 16
+// bytes, so each 8-row x 16-byte core matrix is 128 contiguous bytes:
+// wgmma's no-swizzle K-major layout (leading offset R * 16 bytes between
+// the two k chunks of a k16 step, stride offset 128 between 8-row groups)
+// and conflict-free for ldmatrix. Weight tiles arrive already in that
+// layout (re-laid out in device memory by the wrapper's tiling kernel), one
+// TMA bulk copy a tile, completing on an mbarrier.
+
+// rows r0 .. r0 + R of a (rows, D) bf16 matrix into the chunk-major dst
+// (R rows), zeros past ``rows``: 16-byte cp.async copies, not committed.
+// Neighbouring threads take the two chunks of a 32-byte sector of a row,
+// then the next rows.
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int r0,
+                                        int R, int rows, int D,
+                                        int threads) {
+  const int words = D / 8;
+  for (int i = threadIdx.x; i < R * words; i += threads) {
+    const int pr = i >> 1, r = pr % R;
+    const int c = (pr / R) * 2 + (i & 1);
+    const bool ok = r0 + r < rows;
+    cp_async_16(dst + (c * R + r) * 8,
+                ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the initialised barriers are visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@!P bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global src to shared dst by the
+// tensor memory accelerator, completing on the mbarrier bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// generic-proxy writes to shared memory (cp.async, st.shared) are visible
+// to the async proxy (wgmma operands) once every writer has run this and a
+// barrier has followed
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, leading byte
+// offset (between the two 8-column core matrices of a k16 step), stride
+// byte offset (between 8-row groups)
+__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// at most N of this warpgroup's committed wgmma groups still pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= A . B^T, m64n32k16, A and B K-major in shared memory; warp w of
+// the warpgroup receives rows 16 w .. 16 w + 16 in mma.sync's C layout:
+// d[nt] is n8 tile nt, (row g, columns 2 t, 2 t + 1), then row g + 8
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[4][4], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 }  // namespace vlpet

@@ -28,25 +28,58 @@
 // (recomputed fc1, dh = dy . W2, dx = ds . W1), against ~2 D F weight
 // reads per block, so at the encoder shape (N = 28000) both are
 // compute-bound on the tensor cores (0.27 ms forward, 0.40 ms backward at
-// 989 TFLOP/s); at N = 2500-5000 the weight stream from L2 weighs more.
-// Design (bf16): one block of 8 warps per 32 rows; the x (and dy) tile
-// lives in shared memory; for each 64-wide hidden chunk the warps compute
-// the 32x64 fc1 tile (and, in the backward, the 32x64 dh tile) with WMMA
-// bf16 tensor-core products (fp32 accumulate), apply bias and activation
-// (or its derivative) in fp32, round to bf16 in shared memory, and
-// accumulate their 32 x D/8 slice of the output in fp32 register
-// fragments. F3 is the same block with two up-projections per chunk: the
-// warps compute the 32x64 tiles of x . W0^T and x . W1^T, combine them as
-// act(h0) * h1 in fp32, round the product to bf16 in shared memory and fold
-// it into the output as F1 does; at N = 16800, D 768, F 2048 it is 6 N D F
-// FLOPs, 0.16 ms at 989 TFLOP/s. F4 is F2's block with three tiles per
-// chunk (h0, h1 and dg: three WMMA accumulators a warp) and two hidden
-// tiles (dh0, dh1) folded into the same fp32 dx fragments: 10 N D F FLOPs,
-// 0.27 ms at N = 16800, D 768, F 2048. No wgmma/TMA yet. fp32 inputs take
-// plain-FMA kernels of the same shape (fp32 tensor-core paths are TF32 and
-// would break fp32 parity). Rows past N are zero-filled in shared memory
-// and masked at the store: no padding copy. The backward's bias sums are deterministic: each
-// block writes one partial row and a second kernel sums them in order.
+// 989 TFLOP/s); at the decode rows (N 250-2500: 0.01-0.02 ms) the 9.4 MB
+// of bf16 weights, read once, and the card's fill weigh as much.
+//
+// F1, bf16 (ffn_fwd_tc; below): one block of 64 rows and two warpgroups
+// an SM (247 registers, no spills; 208 KB of shared memory at D 768). x
+// sits in shared memory; W1 and W2 stream through a ring of two 48 KB
+// stages (D 768) from a copy re-laid out so that a stage is one TMA bulk
+// copy in wgmma's no-swizzle layout (ffn_w_tiles; the wrapper keeps the
+// copy beside W1 and rebuilds it when either weight changes). Per 64-wide
+// hidden chunk, fc1 runs on wgmma m64n32k16 (each warpgroup 32 columns
+// over all of D), the bias, activation, hash dropout and bf16 rounding
+// happen on the accumulator registers, the bf16 hidden goes to one
+// double-buffered 64 x 64 shared tile, and fc2 adds hidden . W2^T into the
+// fp32 y accumulator with wgmma m64n64k16: 64 x D in the registers of the
+// two warpgroups (192 a thread at D 768; D 896 and 1024 split y's columns
+// over two blocks, which both compute fc1). At decode rows the hidden
+// chunks are split over blocks (ops/ffn.py f1_splits: one wave, one split
+// at the encoder rows); each split writes an fp32 partial of y and
+// ffn_fwd_reduce sums them in split order with b2: deterministic, no
+// atomics. What holds it (probe runs on an NVIDIA H100 80GB HBM3, 700 W,
+// scripts not kept): the weight stream. A block's bulk copies complete
+// about one at a time, each in about the same time up to ~48 KB, so 16 KB
+// stages left the products waiting; stages as large as two fit, issued by
+// the warps in turn, were the fastest tried. Tried and not kept: a 2-block
+// cluster sharing each stage by TMA multicast (slower: the leader's
+// copies served two blocks at the same rate), a tensor-map TMA in place
+// of the bulk copy (same rate), splitting a stage into smaller copies or
+// rotating the chunk order per block (no gain). It replaced a
+// WMMA design (one block of 8 warps per 32 rows, 47 blocks at N 1500;
+// every block read 16 x 16 fragments of W1 and W2 straight from global
+// memory; the hidden and y went through fp32 shared tiles, two barriers a
+// chunk): 0.84-0.87 ms at N 1500-2500 and 5.14 at N 28000 against
+// 0.07-0.11 and 0.51 for the plain three-GEMM chain (PERF.md).
+//
+// F2-F4, bf16: one block of 8 warps per 32 rows; the x (and dy) tile lives
+// in shared memory; for each 64-wide hidden chunk the warps compute the
+// 32x64 fc1 tile (and, in the backward, the 32x64 dh tile) with WMMA bf16
+// tensor-core products (fp32 accumulate), apply bias and activation (or
+// its derivative) in fp32, round to bf16 in shared memory, and accumulate
+// their 32 x D/8 slice of the output in fp32 register fragments. F3 is the
+// same block with two up-projections per chunk: the warps compute the
+// 32x64 tiles of x . W0^T and x . W1^T, combine them as act(h0) * h1 in
+// fp32, round the product to bf16 in shared memory and fold it into the
+// output; at N = 16800, D 768, F 2048 it is 6 N D F FLOPs, 0.16 ms at 989
+// TFLOP/s. F4 is F2's block with three tiles per chunk (h0, h1 and dg:
+// three WMMA accumulators a warp) and two hidden tiles (dh0, dh1) folded
+// into the same fp32 dx fragments: 10 N D F FLOPs, 0.27 ms at N = 16800,
+// D 768, F 2048. fp32 inputs take plain-FMA kernels of the same shape
+// (fp32 tensor-core paths are TF32 and would break fp32 parity). Rows past
+// N are zero-filled in shared memory and masked at the store: no padding
+// copy. The backward's bias sums are deterministic: each block writes one
+// partial row and a second kernel sums them in order.
 #include <mma.h>
 
 #include "common.cuh"
@@ -85,116 +118,356 @@ constexpr int kPad = 8;     // bf16 row padding: ldm stays a multiple of 8
 constexpr int kHLD = kBF + kPad;   // hidden tile row stride (bf16)
 constexpr int kFLD = kBF + 4;      // fp32 staging row stride
 
-__host__ __device__ constexpr size_t wmma_smem(int D) {
-  return (size_t)kBM * (D + kPad) * 2 + (size_t)kBM * kHLD * 2 +
-         (size_t)kBM * kFLD * 4;
+// ------------------------------------------------- F1, bf16 (tensor cores)
+// F1 on the tensor cores (header). A block takes 64 rows of x (chunk-major
+// in shared memory, common.cuh), one range of 64-wide hidden chunks (its
+// split) and DU 128-column pieces of y (all of D up to D 768). Per chunk c
+// the weights arrive as 16 KB pieces of wt (ffn_w_tiles): D / 128 fc1
+// pieces (W1 rows 64 c .. 64 c + 64, columns 128 kp .. 128 kp + 128) and
+// the block's fc2 pieces (W2 rows 128 dp .. 128 dp + 128, columns 64 c ..
+// 64 c + 64), P neighbouring pieces a ring stage, one TMA bulk copy each;
+// every warp releases a stage on its ``empty`` mbarrier once its wgmma
+// reads of it are done, and the warps take turns refilling. Two
+// warpgroups: warpgroup j computes hidden columns 32 j .. 32 j + 32 of the
+// chunk (wgmma m64n32k16 over D from x and the fc1 pieces), adds b1,
+// applies the activation and the dropout in its accumulator registers and
+// stores the bf16 hidden into a chunk-major 64 x 64 tile (double-buffered:
+// one barrier a chunk); then y columns 64 j .. 64 j + 64 of every fc2
+// piece += hidden . piece^T (wgmma m64n64k16), 32 fp32 registers a piece.
+constexpr int kFc = 64;            // hidden chunk width
+constexpr int kF1Rows = 64;        // rows a block (the wgmma M)
+constexpr int kF1Threads = 256;    // two warpgroups
+constexpr int kPiece = 8192;       // bf16 elements of a weight piece
+constexpr uint32_t kPieceBytes = kPiece * 2;
+constexpr int kF1MaxStages = 8;
+constexpr int kF1MaxDu = 6;        // 192 accumulator registers a thread
+
+// fc2 pieces (128 y columns each) a block: all D / 128 up to 6, else the
+// fewest a group of blockIdx.z that keeps under 6 (D 896 and 1024: 4)
+int f1_du(int D) {
+  const int pieces = D / 128;
+  const int groups = (pieces + kF1MaxDu - 1) / kF1MaxDu;
+  return (pieces + groups - 1) / groups;
 }
 
-// D = kWarps * 16 * NCF: each warp owns NCF 16-col fragments of the output
-template <int NCF>
-__global__ void __launch_bounds__(kWarps * 32)
-ffn_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-             const float* __restrict__ b1, const bf16* __restrict__ w2,
-             const float* __restrict__ b2, bf16* __restrict__ y, int N,
-             int F, int act, DropArgs dr) {
-  constexpr int D = kWarps * 16 * NCF;
-  constexpr int XLD = D + kPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);           // [kBM][XLD]
-  bf16* hs = xs + kBM * XLD;                              // [kBM][kHLD]
-  float* hf = reinterpret_cast<float*>(hs + kBM * kHLD);  // [kBM][kFLD]
+size_t f1_fixed_smem(int D) {
+  return (size_t)kF1Rows * D * 2 + 2 * kF1Rows * kFc * 2 +
+         2 * kF1MaxStages * 8;
+}
 
-  const int n0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t seed = seed_of(dr);
+// ring stages of ``pieces`` 16 KB pieces that fit beside x and the hidden
+int f1_stages(int D, int pieces) {
+  const long long fit = (232448 - (long long)f1_fixed_smem(D)) /
+                        ((long long)pieces * kPieceBytes);
+  return (int)(fit < kF1MaxStages ? fit : kF1MaxStages);
+}
 
-  for (int i = tid; i < kBM * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    const int n = n0 + r;
-    xs[r * XLD + c] = n < N ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
+// pieces a ring stage takes (one bulk copy): the most that leave two
+// stages in the ring. A block's bulk copies complete about one at a time,
+// each in about the same time up to ~48 KB, so fewer, larger copies stream
+// the weights faster (3 pieces, 48 KB, at D 768). It divides the D / 128
+// fc1 pieces and the du fc2 pieces of a chunk, so that a copy is one
+// contiguous run of wt.
+int f1_pieces(int D, int du) {
+  for (int p = du; p > 1; --p)
+    if ((D / 128) % p == 0 && du % p == 0 && f1_stages(D, p) >= 2) return p;
+  return 1;
+}
+
+// wt: for each hidden chunk c (of F / 64), D / 128 fc1 pieces then D / 128
+// fc2 pieces of kPiece bf16 each. fc1 piece (c, kp): W1 rows 64 c + r,
+// columns 128 kp + 8 kc .. + 8, chunk-major [16][64]; fc2 piece (c, dp):
+// W2 rows 128 dp + r, columns 64 c + 8 fc .. + 8, chunk-major [8][128].
+// One 16-byte chunk a thread, neighbouring threads along a source row.
+__global__ void ffn_w_tiles(const bf16* __restrict__ w1,
+                            const bf16* __restrict__ w2,
+                            bf16* __restrict__ wt, int D, int F,
+                            long long items) {
+  const int KP = D / 128;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long piece = i >> 10;
+    const int j = (int)(i & 1023);
+    const int c = (int)(piece / (2 * KP)), k = (int)(piece % (2 * KP));
+    const bf16* src;
+    int dst;
+    if (k < KP) {
+      const int r = j >> 4, kc = j & 15;
+      src = w1 + (size_t)(c * kFc + r) * D + k * 128 + kc * 8;
+      dst = (kc * 64 + r) * 8;
+    } else {
+      const int r = j >> 3, fc = j & 7;
+      src = w2 + (size_t)((k - KP) * 128 + r) * F + c * kFc + fc * 8;
+      dst = (fc * 128 + r) * 8;
+    }
+    *reinterpret_cast<uint4*>(wt + piece * kPiece + dst) =
+        *reinterpret_cast<const uint4*>(src);
   }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[2][NCF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(yacc[i][j], 0.f);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 
-  const int arow = warp >> 2;  // fc1 tile: row fragment of this warp
-  const int acol = warp & 3;   // fc1 tile: hidden col fragment of this warp
+// d (+)= A . B^T, m64n64k16, A and B K-major in shared memory; d[4 nt ..
+// 4 nt + 4] is n8 tile nt in mma.sync's C layout (wgmma_m64n32)
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// part: [S][N][D] fp32 partials of y when the hidden is split (S > 1;
+// NULL for one split, which writes y itself). A ring stage holds P pieces
+// (f1_pieces), one bulk copy.
+template <int DU>
+__global__ void __launch_bounds__(kF1Threads, 1)
+ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+           const float* __restrict__ b1, const float* __restrict__ b2,
+           bf16* __restrict__ y, float* __restrict__ part, int N, int D,
+           int F, int cps, int stages, int P, int act, DropArgs dr) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][64]
+  bf16* hs = xs + kF1Rows * D;  // 2 x chunk-major [8][64]: the hidden
+  bf16* ring = hs + 2 * kF1Rows * kFc;  // [stages][P][kPiece]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)stages * P * kPiece);
+  uint64_t* empty = full + kF1MaxStages;
+
+  const int KP = D / 128;  // fc1 pieces a chunk
+  const int n0 = blockIdx.x * kF1Rows;
+  const int c0 = blockIdx.y * cps;
+  const int c1 = min(c0 + cps, F / kFc);
+  const int u0 = blockIdx.z * DU;  // the block's first fc2 piece
+  const int du = min(DU, KP - u0);
+  const int per_chunk = (KP + du) / P;  // ring stages a chunk takes
+  const int total = (c1 - c0) * per_chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t seed = seed_of(dr);
+  const uint32_t stage_bytes = (uint32_t)P * kPieceBytes;
+
+  // stage q of the block's sequence into its ring slot (one thread): P
+  // pieces that lie next to each other in wt
+  auto issue = [&](int q) {
+    const int c = c0 + q / per_chunk, i = (q % per_chunk) * P;
+    const int tile = c * 2 * KP + (i < KP ? i : KP + u0 + (i - KP));
+    const int st = q % stages;
+    mbar_expect_tx(full + st, stage_bytes);
+    bulk_copy(ring + (size_t)st * P * kPiece, wt + (size_t)tile * kPiece,
+              stage_bytes, full + st);
+  };
+  auto slot = [&](int q) {  // wait for stage q; its pieces
+    mbar_wait(full + q % stages, (q / stages) & 1);
+    return ring + (size_t)(q % stages) * P * kPiece;
+  };
+  // this warp's wgmma reads of stage q are done: release its slot; once
+  // all eight warps have, lane 0 of warp (q + stages) % 8 refills it with
+  // stage q + stages (a bulk copy holds its issuing thread a while: the
+  // warps take turns)
+  auto release = [&](int q) {
+    if (lane == 0) mbar_arrive(empty + q % stages);
+    if (lane == 0 && warp == (q + stages) % 8 && q + stages < total) {
+      mbar_wait(empty + q % stages, (q / stages) & 1);
+      issue(q + stages);
+    }
+    __syncwarp();
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kF1Threads / 32);
+    }
+    mbar_init_fence();
+  }
+  cp_rows(xs, x, n0, kF1Rows, N, D, kF1Threads);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (lane == 0)
+    for (int q = warp; q < min(stages, total); q += 8) issue(q);
+  cp_async_wait<0>();
+  fence_proxy_async();  // x (cp.async) is read by wgmma
   __syncthreads();
 
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    // fc1: h[32 x 64] = x[32 x D] . W1[f0 : f0+64, :]^T
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-    wmma::fill_fragment(hacc, 0.f);
-    const bf16* w1p = w1 + (size_t)(f0 + acol * 16) * D;
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(bw, w1p + kk, D);
-      wmma::mma_sync(hacc, a, bw, hacc);
-    }
-    wmma::store_matrix_sync(hf + arow * 16 * kFLD + acol * 16, hacc, kFLD,
-                            wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
-      const int r = i / kBF, c = i - r * kBF;
-      float hv = act_fn(hf[r * kFLD + c] + b1[f0 + c], act);
-      if (dr.on)
-        hv = drop_elem(hv, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
-                       dr.thr, dr.scale);
-      hs[r * kHLD + c] = __float2bfloat16(hv);
-    }
-    __syncthreads();
-    // fc2: y[32 x D] += h[32 x 64] . W2[:, f0 : f0+64]^T (this warp's cols)
+  // the accumulators are only ever written by wgmma (the first product of
+  // a sum does not add: scale-d 0), so ptxas keeps the products in flight
+  // across stages instead of serialising them
+  float acc[DU][32];
+  float h[4][4];
+  int q = 0;
+  for (int c = c0; c < c1; ++c) {
+    // fc1: this warpgroup's 64 x 32 of the chunk's hidden over all of D
+    for (int kq = 0; kq < KP / P; ++kq, ++q) {
+      const bf16* W = slot(q);
+      wgmma_fence();
+      for (int p = 0; p < P; ++p) {
+        const int kp = kq * P + p;
 #pragma unroll
-    for (int kk = 0; kk < kBF; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hs + kk, kHLD);
-      wmma::load_matrix_sync(a1, hs + 16 * kHLD + kk, kHLD);
-#pragma unroll
-      for (int j = 0; j < NCF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        const bf16* w2p = w2 + (size_t)(warp * NCF * 16 + j * 16) * F + f0 + kk;
-        wmma::load_matrix_sync(bw, w2p, F);
-        wmma::mma_sync(yacc[0][j], a0, bw, yacc[0][j]);
-        wmma::mma_sync(yacc[1][j], a1, bw, yacc[1][j]);
+        for (int s = 0; s < 8; ++s) {
+          const int kc = kp * 8 + s;
+          wgmma_m64n32(
+              h, wg_desc(xs + 2 * kc * kF1Rows * 8, kF1Rows * 16, 128),
+              wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
+                      128),
+              kc > 0);
+        }
+      }
+      wgmma_commit();
+      if (kq > 0) {
+        wgmma_wait<1>();
+        release(q - 1);
       }
     }
+    wgmma_wait<0>();
+    release(q - 1);
+
+    // + b1, activation, dropout (global index n F + f) in fp32, rounded to
+    // bf16 into the hidden tile of this chunk's parity
+    bf16* hb = hs + (c & 1) * kF1Rows * kFc;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int fl = 32 * wg + 8 * nt + 2 * t;  // column in the chunk
+      const int f = c * kFc + fl;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + f);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wr + g + 8 * r;
+        float v0 = act_fn(h[nt][2 * r] + bb.x, act);
+        float v1 = act_fn(h[nt][2 * r + 1] + bb.y, act);
+        if (dr.on) {
+          const uint32_t idx = (uint32_t)(n0 + row) * (uint32_t)F + f;
+          v0 = drop_elem(v0, idx, seed, dr.thr, dr.scale);
+          v1 = drop_elem(v1, idx + 1u, seed, dr.thr, dr.scale);
+        }
+        *reinterpret_cast<uint32_t*>(hb + ((fl >> 3) * kF1Rows + row) * 8 +
+                                     (fl & 7)) = pack_bf16(v0, v1);
+      }
+    }
+    fence_proxy_async();  // the hidden is read by wgmma
+    __syncthreads();  // both halves written (the other tile's readers done)
+
+    // fc2: y columns 128 (u0 + u) + 64 wg .. + 64 += hidden . W2 piece^T
+    const bf16* W = nullptr;
+#pragma unroll
+    for (int u = 0; u < DU; ++u) {
+      if (u < du) {
+        const int p = u % P;
+        if (p == 0) {
+          W = slot(q);
+          wgmma_fence();
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64(acc[u],
+                       wg_desc(hb + 2 * s * kF1Rows * 8, kF1Rows * 16, 128),
+                       wg_desc(W + p * kPiece + (2 * s * 128 + 64 * wg) * 8,
+                               128 * 16, 128),
+                       c > c0 || s > 0);
+        if (p == P - 1) {
+          wgmma_commit();
+          if (u >= P) {
+            wgmma_wait<1>();
+            release(q - 1);
+          }
+          ++q;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    release(q - 1);
   }
 
-  __syncthreads();  // hf is reused as per-warp output staging
-  float* stage = hf + warp * 256;
+  // one split: y = bf16(acc + b2); else the split's fp32 partial
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int u = 0; u < DU; ++u) {
+    if (u >= du) continue;
 #pragma unroll
-    for (int j = 0; j < NCF; ++j) {
-      wmma::store_matrix_sync(stage, yacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int n = n0 + i * 16 + (e >> 4);
-        const int o = warp * NCF * 16 + j * 16 + (e & 15);
-        if (n < N) y[(size_t)n * D + o] = __float2bfloat16(stage[e] + b2[o]);
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (u0 + u) * 128 + 64 * wg + 8 * nt + 2 * t;
+      const float2 bb = part == nullptr
+                            ? *reinterpret_cast<const float2*>(b2 + col)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + wr + g + 8 * r;
+        if (n >= N) continue;
+        const float v0 = acc[u][4 * nt + 2 * r];
+        const float v1 = acc[u][4 * nt + 2 * r + 1];
+        if (part == nullptr)
+          *reinterpret_cast<uint32_t*>(y + (size_t)n * D + col) =
+              pack_bf16(v0 + bb.x, v1 + bb.y);
+        else
+          *reinterpret_cast<float2*>(
+              part + ((size_t)blockIdx.y * N + n) * D + col) =
+              make_float2(v0, v1);
       }
-      __syncwarp();
     }
   }
 }
 
-template <int NCF>
-int launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
-                const void* b2, void* y, int N, int F, int act, DropArgs dr,
-                cudaStream_t st) {
-  const size_t smem = wmma_smem(kWarps * 16 * NCF);
+// y = bf16(sum of the S partials in split order + b2), two columns a
+// thread
+__global__ void ffn_fwd_reduce(const float* __restrict__ part,
+                               const float* __restrict__ b2,
+                               bf16* __restrict__ y, int N, int D, int S) {
+  const long long pairs = (long long)N * D / 2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < pairs; i += (long long)gridDim.x * blockDim.x) {
+    const long long e = 2 * i;
+    const int col = (int)(e % D);
+    float2 a = *reinterpret_cast<const float2*>(b2 + col);
+    float2 sum = make_float2(0.f, 0.f);
+    for (int s = 0; s < S; ++s) {
+      const float2 p =
+          *reinterpret_cast<const float2*>(part + (size_t)s * N * D + e);
+      sum.x += p.x;
+      sum.y += p.y;
+    }
+    *reinterpret_cast<uint32_t*>(y + e) = pack_bf16(sum.x + a.x, sum.y + a.y);
+  }
+}
+
+template <int DU>
+int launch_f1_tc(const void* x, const void* wt, const void* b1,
+                 const void* b2, void* y, void* part, int N, int D, int F,
+                 int S, int act, DropArgs dr, cudaStream_t st) {
+  const int groups = (D / 128 + DU - 1) / DU;
+  const int P = f1_pieces(D, DU);  // divides every group's fc2 pieces
+  const int stages = f1_stages(D, P);
+  const size_t smem = f1_fixed_smem(D) + (size_t)stages * P * kPieceBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ffn_fwd_tc<DU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_fwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
-      (const bf16*)x, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
-      (const float*)b2, (bf16*)y, N, F, act, dr);
+  const int chunks = F / kFc;
+  const int cps = (chunks + S - 1) / S;
+  ffn_fwd_tc<DU><<<dim3((N + kF1Rows - 1) / kF1Rows, S, groups), kF1Threads,
+                   smem, st>>>(
+      (const bf16*)x, (const bf16*)wt, (const float*)b1, (const float*)b2,
+      (bf16*)y, S > 1 ? (float*)part : nullptr, N, D, F, cps, stages, P,
+      act, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  const long long pairs = (long long)N * D / 2;
+  const long long blocks = (pairs + 255) / 256;
+  ffn_fwd_reduce<<<(unsigned)(blocks > 8192 ? 8192 : blocks), 256, 0, st>>>(
+      (const float*)part, (const float*)b2, (bf16*)y, N, D, S);
   return (int)cudaGetLastError();
 }
 
@@ -950,31 +1223,52 @@ inline bool bad_drop(const void* seed, int drop, int thr) {
 
 }  // namespace
 
+// W1 (F, D) and W2 (D, F) bf16 re-laid out into wt, 2 F D bf16
+// (ffn_w_tiles): what the bf16 F1 reads. D a multiple of 128, F of 64.
+extern "C" int vlpet_ffn_w_tiles(const void* w1, const void* w2, void* wt,
+                                 int D, int F, void* stream) {
+  if (D < 128 || D % 128 || F < kFc || F % kFc)
+    return (int)cudaErrorInvalidValue;
+  const long long items = 2LL * F * D / 8;
+  const long long want = (items + 255) / 256;
+  ffn_w_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0,
+                (cudaStream_t)stream>>>((const bf16*)w1, (const bf16*)w2,
+                                        (bf16*)wt, D, F, items);
+  return (int)cudaGetLastError();
+}
+
+// x (N, D), y (N, D) in x's dtype; b1 (F,), b2 (D,) f32. bf16: wt from
+// vlpet_ffn_w_tiles (w1, w2 unused), D a multiple of 128 up to 1024, F of
+// 64, S hidden splits of ceil(F / 64 / S) chunks each (none empty) and
+// part [S][N][D] f32 scratch when S > 1 (ops/ffn.py _f1_splits); fp32: w1
+// (F, D), w2 (D, F), wt and part unused, S 1.
 extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* seed,
-                             void* y, int N, int D, int F, int act,
-                             int is_bf16, int drop, int thr, float scale,
-                             void* stream) {
-  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                             const void* wt, void* part, void* y, int N,
+                             int D, int F, int S, int act, int is_bf16,
+                             int drop, int thr, float scale, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
-    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
+    const int chunks = F / kFc;
+    if (D < 128 || D % 128 != 0 || D > 1024 || F < kFc || F % kFc != 0 ||
+        wt == nullptr || S > chunks ||
+        (S - 1) * ((chunks + S - 1) / S) >= chunks ||
+        (S > 1 && part == nullptr))
       return (int)cudaErrorInvalidValue;
-    switch (D / (kWarps * 16)) {
-      case 1: return launch_wmma<1>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 2: return launch_wmma<2>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 3: return launch_wmma<3>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 4: return launch_wmma<4>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 5: return launch_wmma<5>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 6: return launch_wmma<6>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 7: return launch_wmma<7>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
-      case 8: return launch_wmma<8>(x, w1, b1, w2, b2, y, N, F, act, dr, st);
+    switch (f1_du(D)) {
+      case 1: return launch_f1_tc<1>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 2: return launch_f1_tc<2>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 3: return launch_f1_tc<3>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 4: return launch_f1_tc<4>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 5: return launch_f1_tc<5>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 6: return launch_f1_tc<6>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
+  if (S != 1 || D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)kFBM * D + kFBM * kFBF);
   cudaError_t err = cudaFuncSetAttribute(

@@ -25,10 +25,21 @@
 // split, merged or summed in split order by a second kernel), so the
 // result is deterministic; fp32 inputs take plain FMA, never TF32.
 //
-// C1 (ce_fwd_wmma, 64-column tiles): stages the W tile and its rows of x
-// with cp.async (tile t + 1 copies while it reduces tile t), the logits
-// tile by WMMA bf16 products, and per row an online (max, sum, picked
-// logit).
+// C1, bf16 (ce_fwd_tc; below, before the kernel): 64 rows a block, one
+// warpgroup, 32-column vocab tiles of C2's re-laid W (ce_w_tiles, bias
+// included) streamed by one TMA bulk copy a tile into an mbarrier ring
+// (4 stages at D 512, 2 at D 768, 1 at D 1024 beside the 64 x D x tile).
+// The 64 x 32 logits come from one wgmma m64n32k16 chain over all of D
+// and stay in registers: each quad of lanes holds a row's 32 columns, and
+// the row's running (max, sum, picked logit) is updated with quad
+// shuffles and EX2. Two register sets of logits let tile t + 1's chain run
+// on the tensor cores while the CUDA cores reduce tile t. It replaced a
+// WMMA design (ce_fwd_wmma, 64-column tiles, 8 warps) that staged each W
+// tile by 16-byte cp.async copies from every thread, sent the logits
+// through an fp32 shared tile read back one warp a row, and took two
+// barriers a tile: 2.14 ms at the T5 site against 1.37 for F.linear +
+// F.cross_entropy (PERF.md). The forward hands its wt to C2
+// (ops/fused_ce.py), so a step re-lays W once.
 //
 // C2, bf16 (ce_bwd_tc; below, before the kernel): 64 rows a block (32 at
 // D 1024), 32-column vocab tiles. It replaced a WMMA design (32 rows a
@@ -54,81 +65,18 @@
 // 2- or 4-block cluster sharing each W tile by TMA multicast (no gain: the
 // L2 reads were not the limit), mma.sync logits (1.5x slower), 48 rows
 // with 256-column slices (spills).
-#include <mma.h>
-
 #include "common.cuh"
 
 using namespace vlpet;
-using namespace nvcuda;
 
 namespace {
 
 constexpr float kNeg = -1e30f;  // masked column (vlpet_tpu fused_ce NEG)
-constexpr int kTV = 64;         // vocab tile: four 16-col fragments
+constexpr int kTV = 64;         // fp32 vocab tile: four 16-col fragments
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;          // bf16 row padding: ldm a multiple of 8
 constexpr int kLLD = kTV + 4;    // fp32 logits staging row stride
-
-// ------------------------------------------------------------ bf16 (WMMA)
-
-__host__ __device__ constexpr size_t fwd_smem(int BM, int D) {
-  return (size_t)(BM + kTV) * (D + kPad) * 2 + (size_t)BM * kLLD * 4;
-}
-
-// rows [r0, r0 + R) of a (rows, D) bf16 matrix into shared memory with
-// row stride D + kPad, zero rows past ``rows``: 16-byte cp.async copies,
-// all in flight together; stage_wait() before the block's barrier
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int r0, int R, int rows, int D) {
-  const int words = D / 8;
-  const int ld = D + kPad;
-  for (int i = threadIdx.x; i < R * words; i += blockDim.x) {
-    const int r = i / words, c = i - r * words;
-    bf16* d = dst + r * ld + c * 8;
-    if (r0 + r < rows) {
-      const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
-                   "l"(src + (size_t)(r0 + r) * D + c * 8));
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// this thread's staged copies have landed (a __syncthreads() then makes
-// every thread's visible)
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// lf[BM][kLLD] = xs[BM][D] . ws[kTV][D]^T (fp32), 8 warps: warp w takes
-// column fragment w & 3 and row fragments (w >> 2) + 2p
-template <int BM>
-__device__ __forceinline__ void logits_tile_wmma(const bf16* xs, const bf16* ws,
-                                                 float* lf, int D, int warp) {
-  constexpr int PER = BM / 32;
-  const int ld = D + kPad;
-  const int cf = warp & 3, r0 = warp >> 2;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[PER];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) wmma::fill_fragment(acc[p], 0.f);
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-    wmma::load_matrix_sync(bw, ws + cf * 16 * ld + kk, ld);
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + (r0 + 2 * p) * 16 * ld + kk, ld);
-      wmma::mma_sync(acc[p], a, bw, acc[p]);
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < PER; ++p)
-    wmma::store_matrix_sync(lf + (r0 + 2 * p) * 16 * kLLD + cf * 16, acc[p],
-                            kLLD, wmma::mem_row_major);
-}
+constexpr int kCTV = 32;         // vocab columns of a bf16 W tile (wt)
 
 // ------------------------------------------------------------ fp32 (FMA)
 
@@ -221,45 +169,6 @@ __device__ __forceinline__ void write_fwd_partial(float* part, int N, int S,
     part[plane + o] = s[rr];
     part[2 * plane + o] = pk[rr];
   }
-}
-
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w,
-            const float* __restrict__ b, const int* __restrict__ labels,
-            float* __restrict__ part, int N, int D, int V, int tps, int S) {
-  constexpr int RPW = BM / kWarps;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);              // [BM][D+8]
-  bf16* ws = xs + BM * (D + kPad);                           // [kTV][D+8]
-  float* lf = reinterpret_cast<float*>(ws + kTV * (D + kPad));  // [BM][kLLD]
-  const int n0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_tiles = (V + kTV - 1) / kTV;
-  const int t0 = blockIdx.y * tps;
-  const int t1 = min(t0 + tps, n_tiles);
-  float m[RPW], s[RPW], pk[RPW];
-  int lab[RPW];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int n = n0 + warp * RPW + rr;
-    m[rr] = kNeg;
-    s[rr] = 0.f;
-    pk[rr] = 0.f;
-    lab[rr] = n < N ? labels[n] : -1;
-  }
-  stage_rows(xs, x, n0, BM, N, D);
-  if (t0 < t1) stage_rows(ws, w, t0 * kTV, kTV, V, D);
-  for (int t = t0; t < t1; ++t) {
-    stage_wait();
-    __syncthreads();  // W tile t staged; the previous tile's lf consumed
-    logits_tile_wmma<BM>(xs, ws, lf, D, warp);
-    __syncthreads();  // lf written, ws free: stage tile t + 1 meanwhile
-    if (t + 1 < t1) stage_rows(ws, w, (t + 1) * kTV, kTV, V, D);
-    online_lse<RPW>(lf, b, lab, t * kTV, V, warp, lane, m, s, pk);
-  }
-  stage_wait();  // an empty split still staged x
-  write_fwd_partial<BM>(part, N, S, n0, warp, lane, m, s, pk);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -363,13 +272,7 @@ __device__ __forceinline__ GRows g_rows(const int* labels, const float* lse,
 // the stage's mbarrier, into a ring of STAGES stages, tile t + STAGES - 1
 // copying while tile t multiplies; one barrier a tile.
 //
-// Shared-memory layout, x and W alike: "chunk-major", the 16-byte chunk c
-// (columns 8 c .. 8 c + 8) of row r at (c * rows + r) * 16 bytes, so each
-// 8-row x 16-byte core matrix is 128 contiguous bytes: wgmma's no-swizzle
-// K-major layout (leading offset rows * 16 bytes between k chunks, stride
-// offset 128 between 8-row groups), and conflict-free for ldmatrix.
-
-constexpr int kCTV = 32;  // vocab columns of a W tile
+// Shared-memory layout, x and W alike: chunk-major (common.cuh).
 
 template <int D, int BM, int STAGES, int SL, bool WG>
 struct BwdTc {
@@ -384,31 +287,14 @@ struct BwdTc {
   static_assert(stage_bytes % 16 == 0, "bulk copies of 16 bytes");
 };
 
-// rows r0 .. r0 + R of a (rows, D) bf16 matrix into the chunk-major dst
-// (R rows), zeros past ``rows``: 16-byte cp.async copies, not committed.
-// Neighbouring threads take the two chunks of a 32-byte sector of a row,
-// then the next rows.
-template <int D>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src, int r0,
-                                        int R, int rows, int threads) {
-  constexpr int words = D / 8;
-  for (int i = threadIdx.x; i < R * words; i += threads) {
-    const int pr = i >> 1, r = pr % R;
-    const int c = (pr / R) * 2 + (i & 1);
-    const bool ok = r0 + r < rows;
-    cp_async_16(dst + (c * R + r) * 8,
-                ok ? src + (size_t)(r0 + r) * D + c * 8 : src, ok ? 16 : 0);
-  }
-}
-
 // wt[t] = W rows 32 t .. 32 t + 32 chunk-major, then their 32 biases;
-// zeros past V. One 16-byte chunk (or one bias) a thread.
-template <int D>
+// zeros past V. One 16-byte chunk (or one bias) a thread. C1 and C2 read
+// the same wt.
 __global__ void ce_w_tiles(const bf16* __restrict__ w,
                            const float* __restrict__ b, bf16* __restrict__ wt,
-                           int V, long long items) {
-  constexpr int words = D / 8;
-  constexpr int stage = kCTV * D + 2 * kCTV;
+                           int V, int D, long long items) {
+  const int words = D / 8;
+  const int stage = kCTV * D + 2 * kCTV;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < items; i += (long long)gridDim.x * blockDim.x) {
     const long long tile = i / (kCTV * (words + 1));
@@ -426,66 +312,150 @@ __global__ void ce_w_tiles(const bf16* __restrict__ w,
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
+// ------------------------------------------------ C1, bf16 (tensor cores)
+// C1 on the tensor cores (header): one warpgroup takes 64 rows, warp w of
+// it rows 16 w .. 16 w + 16, the thread rows g and g + 8 of those (g =
+// lane / 4) and, of each 32-column tile, columns 8 nt + 2 t, + 1 (t = lane
+// % 4, nt 0..3). x stays in shared memory; the tiles of wt stream through
+// a ring of ``stages`` stages, one bulk copy each.
+constexpr int kC1Rows = 64;
+constexpr int kC1Threads = 128;
+constexpr int kC1MaxStages = 4;
+
+size_t c1_stage_bytes(int D) { return ((size_t)kCTV * D + 2 * kCTV) * 2; }
+
+// ring stages that fit beside the x tile (0: D too wide for one)
+int c1_stages(int D) {
+  const long long room =
+      232448 - (long long)kC1Rows * D * 2 - kC1MaxStages * 8;
+  const long long fit = room / (long long)c1_stage_bytes(D);
+  return (int)(fit < kC1MaxStages ? fit : kC1MaxStages);
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
+size_t c1_smem(int D, int stages) {
+  return (size_t)kC1Rows * D * 2 + stages * c1_stage_bytes(D) +
+         kC1MaxStages * 8;
 }
 
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
-      "@!P bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
+// part: [3][S][N] fp32 (max, sum, picked logit) of split blockIdx.y
+__global__ void __launch_bounds__(kC1Threads)
+ce_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+          const int* __restrict__ labels, float* __restrict__ part, int N,
+          int D, int V, int tps, int S, int stages) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int stage = kCTV * D + 2 * kCTV;  // bf16 elements of a ring stage
+  const uint32_t stage_bytes = (uint32_t)stage * 2;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][64]
+  bf16* ws = xs + kC1Rows * D;  // [stages][stage]: W chunk-major, then bias
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + (size_t)stages * stage);
 
-// ``bytes`` (a multiple of 16) from global src to shared dst by the
-// tensor memory accelerator, completing on the mbarrier bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+  const int n0 = blockIdx.x * kC1Rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (V + kCTV - 1) / kCTV;
+  const int t0 = blockIdx.y * tps;
+  const int t1 = min(t0 + tps, n_tiles);
+  // tile nt of wt into its ring stage (one thread)
+  auto issue = [&](int nt) {
+    const int st = (nt - t0) % stages;
+    mbar_expect_tx(full + st, stage_bytes);
+    bulk_copy(ws + (size_t)st * stage, wt + (size_t)nt * stage, stage_bytes,
+              full + st);
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(full + st, 1);
+    mbar_init_fence();
+  }
+  // the thread's two rows: label and running (max, sum, picked logit)
+  int lab[2];
+  float m[2], s[2], pk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int n = n0 + warp * 16 + g + 8 * r;
+    lab[r] = n < N ? labels[n] : -1;
+    m[r] = kNeg;
+    s[r] = 0.f;
+    pk[r] = 0.f;
+  }
+  cp_rows(xs, x, n0, kC1Rows, N, D, kC1Threads);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (threadIdx.x == 0)
+    for (int nt = t0; nt < min(t0 + stages, t1); ++nt) issue(nt);
+  cp_async_wait<0>();
+  fence_proxy_async();  // x (cp.async) is read by wgmma
+  __syncthreads();
 
-// wgmma shared-memory descriptor, no swizzle: start address, leading byte
-// offset (between the two 8-column core matrices of a k16 step), stride
-// byte offset (between 8-row groups)
-__device__ __forceinline__ uint64_t wg_desc(const void* p, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-// d (+)= A . B^T, m64n32k16, A and B K-major in shared memory; warp w of
-// the warpgroup receives rows 16 w .. 16 w + 16 in mma.sync's C layout
-__device__ __forceinline__ void wgmma_m64n32(float (&d)[4][4], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, "
-      "p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(accumulate));
+  // tile it's logits into l: wait for its stage, one wgmma chain over D
+  auto chain = [&](float (&l)[4][4], int it) {
+    const int st = (it - t0) % stages;
+    mbar_wait(full + st, ((it - t0) / stages) & 1);
+    const bf16* W = ws + (size_t)st * stage;
+    wgmma_fence();
+#pragma unroll 8
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_m64n32(l, wg_desc(xs + 2 * kc * kC1Rows * 8, kC1Rows * 16, 128),
+                   wg_desc(W + 2 * kc * kCTV * 8, kCTV * 16, 128), kc > 0);
+    wgmma_commit();
+  };
+  // tile it, whose chain into cur is in flight: wait for it, free its
+  // stage, start tile it + 1's chain into nxt, then reduce cur
+  auto step = [&](float (&cur)[4][4], float (&nxt)[4][4], int it) {
+    wgmma_wait<0>();
+    const int st = (it - t0) % stages;
+    const float* Bt =
+        reinterpret_cast<const float*>(ws + (size_t)st * stage + kCTV * D);
+    float2 bc[4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      bc[nt] = *reinterpret_cast<const float2*>(Bt + nt * 8 + 2 * t);
+    __syncthreads();  // every warp is done with stage st: refill it
+    if (threadIdx.x == 0 && it + stages < t1) issue(it + stages);
+    if (it + 1 < t1) chain(nxt, it + 1);
+    const int v0 = it * kCTV;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float e[8];
+      float mx = kNeg;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = v0 + nt * 8 + 2 * t + c;
+          const float v = col < V ? cur[nt][2 * r + c] + (c ? bc[nt].y
+                                                            : bc[nt].x)
+                                  : kNeg;
+          e[2 * nt + c] = v;
+          mx = fmaxf(mx, v);
+          if (col == lab[r]) pk[r] = v;
+        }
+      const float mn = fmaxf(m[r], quad_max(mx));
+      const float mn2 = mn * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sum += ex2(fmaf(e[i], kLog2e, -mn2));
+      s[r] = s[r] * ex2(fmaf(m[r], kLog2e, -mn2)) + quad_sum(sum);
+      m[r] = mn;
+    }
+  };
+  // written only by wgmma (scale-d 0 first): no serialised products
+  float la[4][4], lb[4][4];
+  if (t0 < t1) chain(la, t0);
+  for (int it = t0; it < t1; it += 2) {
+    step(la, lb, it);
+    if (it + 1 < t1) step(lb, la, it + 1);
+  }
+  const size_t plane = (size_t)S * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float p = quad_sum(pk[r]);  // one lane of the quad holds it
+    const int n = n0 + warp * 16 + g + 8 * r;
+    if (t != 0 || n >= N) continue;
+    const size_t o = (size_t)blockIdx.y * N + n;
+    part[o] = m[r];
+    part[plane + o] = s[r];
+    part[2 * plane + o] = p;
+  }
 }
 
 template <int D, int BM, int STAGES, int SL, bool WG>
@@ -519,7 +489,7 @@ ce_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) mbar_init(full + st, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   // the label, lse (times log2(e): exp(l - lse) is one FFMA and one EX2)
   // and dloss of the thread's two rows (dloss 0 on ignored rows, past N)
@@ -533,14 +503,14 @@ ce_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     lr2[r] = in ? lse[n] * kLog2e : 0.f;
     sc[r] = in && lab[r] >= 0 ? dloss[n] : 0.f;
   }
-  cp_rows<D>(xs, x, n0, BM, N, C::threads);
+  cp_rows(xs, x, n0, BM, N, D, C::threads);
   cp_async_commit();
   __syncthreads();  // the barriers are initialised
   if (threadIdx.x == 0)
     for (int nt = t0; nt < min(t0 + STAGES - 1, t1); ++nt) issue(nt);
   cp_async_wait<0>();
   // x (written by cp.async) is read by wgmma, the async proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
 
   float acc[SL / 8][4];
 #pragma unroll
@@ -573,13 +543,13 @@ ce_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
     if constexpr (WG) {
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll 8
       for (int kc = 0; kc < D / 16; ++kc)
         wgmma_m64n32(s, wg_desc(xs + 2 * kc * BM * 8, BM * 16, 128),
                      wg_desc(W + 2 * kc * kCTV * 8, kCTV * 16, 128), kc > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait<0>();
     } else {
 #pragma unroll 4
       for (int kc = 0; kc < D / 16; ++kc) {
@@ -728,22 +698,15 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// W re-laid out into wt, then C2
+// C2 over wt (ce_w_tiles has re-laid W out)
 template <int D, int BM, int STAGES, int SL, bool WG>
-int launch_bwd_tc(const void* x, const void* w, const void* b,
-                  const void* labels, const void* lse, const void* dloss,
-                  void* wt, void* part, int N, int V, int S,
-                  cudaStream_t st) {
+int launch_bwd_tc(const void* x, const void* wt, const void* labels,
+                  const void* lse, const void* dloss, void* part, int N,
+                  int V, int S, cudaStream_t st) {
   using C = BwdTc<D, BM, STAGES, SL, WG>;
   static_assert(C::smem <= 232448, "C2's shared memory exceeds a block's");
   const int n_tiles = (V + kCTV - 1) / kCTV;
-  const long long items = (long long)n_tiles * kCTV * (D / 8 + 1);
-  const long long want = (items + 255) / 256;
-  ce_w_tiles<D><<<(unsigned)(want > 16384 ? 16384 : want), 256, 0, st>>>(
-      (const bf16*)w, (const float*)b, (bf16*)wt, V, items);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  err = set_smem(ce_bwd_tc<D, BM, STAGES, SL, WG>, C::smem);
+  const int err = set_smem(ce_bwd_tc<D, BM, STAGES, SL, WG>, C::smem);
   if (err) return err;
   const int tps = (n_tiles + S - 1) / S;
   ce_bwd_tc<D, BM, STAGES, SL, WG>
@@ -769,46 +732,49 @@ int reduce_blocks(long long total) {
   return (int)(blocks > 8192 ? 8192 : blocks);
 }
 
-// rows per forward block: bf16 64 where its shared memory fits, else 32
-int fwd_rows(int D, int is_bf16) {
-  return is_bf16 && fwd_smem(64, D) <= 232448 ? 64 : 32;
-}
-
 }  // namespace
 
-// x (N, D), w (V, D) in x's dtype, b (V,) f32, labels (N,) int32; part
-// [3][S][N] f32 scratch; loss, lse (N,) f32. S vocab splits of
-// ceil(ceil(V / 64) / S) tiles each.
+// W (V, D) bf16 and b (V,) f32 re-laid out into wt, ceil(V / 32) tiles of
+// 32 D + 64 bf16 (ce_w_tiles): what the bf16 C1 and C2 read
+extern "C" int vlpet_ce_w_tiles(const void* w, const void* b, void* wt,
+                                int V, int D, void* stream) {
+  if (V < 1 || D < 8 || D % 8) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (V + kCTV - 1) / kCTV;
+  const long long items = (long long)n_tiles * kCTV * (D / 8 + 1);
+  const long long want = (items + 255) / 256;
+  ce_w_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0,
+               (cudaStream_t)stream>>>((const bf16*)w, (const float*)b,
+                                       (bf16*)wt, V, D, items);
+  return (int)cudaGetLastError();
+}
+
+// x (N, D), labels (N,) int32; part [3][S][N] f32 scratch; loss, lse (N,)
+// f32. bf16: wt from vlpet_ce_w_tiles (w and b unused), 64 rows a block
+// and S vocab splits of ceil(ceil(V / 32) / S) tiles of 32 columns; fp32:
+// w (V, D), b (V,) f32, wt unused, 32 rows a block and tiles of 64 columns.
 extern "C" int vlpet_ce_fwd(const void* x, const void* w, const void* b,
-                            const void* labels, void* part, void* loss,
-                            void* lse, int N, int D, int V, int S,
+                            const void* labels, const void* wt, void* part,
+                            void* loss, void* lse, int N, int D, int V, int S,
                             int is_bf16, void* stream) {
-  if (N < 1 || V < 1 || S < 1 || D < 1 || D % 32)
+  if (N < 1 || V < 1 || S < 1 || D < 1 || D % 32 ||
+      (is_bf16 && wt == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int n_tiles = (V + kTV - 1) / kTV;
-  const int tps = (n_tiles + S - 1) / S;
-  const int rows = fwd_rows(D, is_bf16);
-  const dim3 grid((N + rows - 1) / rows, S);
   if (is_bf16) {
-    const size_t smem = fwd_smem(rows, D);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    int err;
-    if (rows == 64) {
-      err = set_smem(ce_fwd_wmma<64>, smem);
-      if (err) return err;
-      ce_fwd_wmma<64><<<grid, kThreads, smem, st>>>(
-          (const bf16*)x, (const bf16*)w, (const float*)b,
-          (const int*)labels, (float*)part, N, D, V, tps, S);
-    } else {
-      err = set_smem(ce_fwd_wmma<32>, smem);
-      if (err) return err;
-      ce_fwd_wmma<32><<<grid, kThreads, smem, st>>>(
-          (const bf16*)x, (const bf16*)w, (const float*)b,
-          (const int*)labels, (float*)part, N, D, V, tps, S);
-    }
+    const int stages = c1_stages(D);
+    if (stages < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = c1_smem(D, stages);
+    const int err = set_smem(ce_fwd_tc, smem);
+    if (err) return err;
+    const int n_tiles = (V + kCTV - 1) / kCTV;
+    const int tps = (n_tiles + S - 1) / S;
+    ce_fwd_tc<<<dim3((N + kC1Rows - 1) / kC1Rows, S), kC1Threads, smem,
+                st>>>((const bf16*)x, (const bf16*)wt, (const int*)labels,
+                      (float*)part, N, D, V, tps, S, stages);
   } else {
-    ce_fwd_f32<<<grid, kThreads, 0, st>>>(
+    const int n_tiles = (V + kTV - 1) / kTV;
+    const int tps = (n_tiles + S - 1) / S;
+    ce_fwd_f32<<<dim3((N + kFBM - 1) / kFBM, S), kThreads, 0, st>>>(
         (const float*)x, (const float*)w, (const float*)b,
         (const int*)labels, (float*)part, N, D, V, tps, S);
   }
@@ -821,14 +787,14 @@ extern "C" int vlpet_ce_fwd(const void* x, const void* w, const void* b,
 }
 
 // lse, dloss (N,) f32; part [S][N][D] f32 scratch; dx (N, D) x's dtype.
-// D 512, 768 or 1024. bf16: wt, scratch of ceil(V / 32) * (32 D + 64) bf16
-// (W re-laid out by tiles), rows per block 64, 64, 32 (ops/fused_ce.py
-// _BWD_ROWS) and S splits of ceil(ceil(V / 32) / S) tiles of 32 columns;
-// fp32: wt unused (NULL), 32 rows and tiles of 64 columns.
+// D 512, 768 or 1024. bf16: wt from vlpet_ce_w_tiles (w and b unused),
+// rows per block 64, 64, 32 (ops/fused_ce.py _BWD_ROWS) and S splits of
+// ceil(ceil(V / 32) / S) tiles of 32 columns; fp32: wt unused (NULL), 32
+// rows and tiles of 64 columns.
 extern "C" int vlpet_ce_bwd(const void* x, const void* w, const void* b,
                             const void* labels, const void* lse,
-                            const void* dloss, void* wt, void* part, void* dx,
-                            int N, int D, int V, int S, int is_bf16,
+                            const void* dloss, const void* wt, void* part,
+                            void* dx, int N, int D, int V, int S, int is_bf16,
                             void* stream) {
   if (N < 1 || V < 1 || S < 1 || (D != 512 && D != 768 && D != 1024) ||
       (is_bf16 && wt == nullptr))
@@ -838,13 +804,13 @@ extern "C" int vlpet_ce_bwd(const void* x, const void* w, const void* b,
   if (is_bf16) {
     // D <= 768: 64 rows, the logits on wgmma; D 1024: 32 rows (the fp32 dx
     // accumulator of 64 rows would fill the register file), mma.sync
-    err = D == 512   ? launch_bwd_tc<512, 64, 3, 256, true>(
-                         x, w, b, labels, lse, dloss, wt, part, N, V, S, st)
-          : D == 768 ? launch_bwd_tc<768, 64, 2, 384, true>(
-                           x, w, b, labels, lse, dloss, wt, part, N, V, S, st)
-                     : launch_bwd_tc<1024, 32, 2, 256, false>(
-                           x, w, b, labels, lse, dloss, wt, part, N, V, S,
-                           st);
+    err = D == 512 ? launch_bwd_tc<512, 64, 3, 256, true>(
+                         x, wt, labels, lse, dloss, part, N, V, S, st)
+          : D == 768
+              ? launch_bwd_tc<768, 64, 2, 384, true>(x, wt, labels, lse,
+                                                     dloss, part, N, V, S, st)
+              : launch_bwd_tc<1024, 32, 2, 256, false>(
+                    x, wt, labels, lse, dloss, part, N, V, S, st);
   } else {
     const int n_tiles = (V + kTV - 1) / kTV;
     const int tps = (n_tiles + S - 1) / S;

@@ -47,9 +47,11 @@ _SIGNATURES = {
     # dv, delta, dbias (or NULL), B, L, S, H, Dh, mask_batched, causal,
     # is_bf16, tc (the tensor-core route), drop, thr, scale, stream
     "vlpet_attention_bwd_long": [_P] * 14 + [_I] * 11 + [_F, _P],
-    # x, w1, b1, w2, b2, seed (or NULL), y, N, D, F, act, is_bf16, drop,
-    # thr, scale, stream
-    "vlpet_ffn_fwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # w1, w2, wt (F1's re-laid weights), D, F, stream
+    "vlpet_ffn_w_tiles": [_P] * 3 + [_I] * 2 + [_P],
+    # x, w1, b1, w2, b2, seed (or NULL), wt (bf16; NULL for fp32), partials
+    # (or NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, stream
+    "vlpet_ffn_fwd": [_P] * 9 + [_I] * 8 + [_F, _P],
     # x, w0, w1, wo, seed (or NULL), y, N, D, F, act, is_bf16, drop, thr,
     # scale, stream
     "vlpet_gated_ffn_fwd": [_P] * 6 + [_I] * 7 + [_F, _P],
@@ -75,8 +77,11 @@ _SIGNATURES = {
     "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
     # cache, new, N, L, row elements, element bytes, pos, stream
     "vlpet_cache_update": [_P] * 2 + [_I] * 5 + [_P],
-    # x, w, b, labels, partials, loss, lse, N, D, V, splits, is_bf16, stream
-    "vlpet_ce_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # w, b, tiled W (C1 and C2's re-laid head), V, D, stream
+    "vlpet_ce_w_tiles": [_P] * 3 + [_I] * 2 + [_P],
+    # x, w, b, labels, tiled W (bf16; NULL for fp32), partials, loss, lse,
+    # N, D, V, splits, is_bf16, stream
+    "vlpet_ce_fwd": [_P] * 8 + [_I] * 5 + [_P],
     # x, w, b, labels, lse, dloss, tiled W (bf16; NULL for fp32), partials,
     # dx, N, D, V, splits, is_bf16, stream
     "vlpet_ce_bwd": [_P] * 9 + [_I] * 5 + [_P],

@@ -10,7 +10,9 @@ package: the Functions have no dW and raise when a weight requires a
 gradient (the models route a trainable language model to the plain
 fc1 -> act -> fc2). Weights here are in PyTorch's Linear layout, W1 (F, D)
 and W2 (D, F). Bound on the H100 and design: the header note of
-csrc/ffn.cu. bf16 runs on tensor cores (WMMA), fp32 on plain FMA. The
+csrc/ffn.cu. bf16 runs on tensor cores (F1: wgmma over weight pieces
+that TMA streams from a re-laid copy of W1 and W2, split over the hidden
+at decode rows, ``f1_splits``; F2-F4: WMMA), fp32 on plain FMA. The
 activation is gelu, gelu_new or relu (T5).
 
 ``fused_gated_ffn`` replaces vlpet_tpu/ops/ffn.py:fused_gated_ffn (_run with
@@ -28,8 +30,11 @@ TPU kernels do (vlpet_tpu/ops/ffn.py:182-189, :343-347).
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
@@ -38,7 +43,10 @@ from vlpet_tpu_torch.ops.hashdrop import (check_drop, keep_mask,
 
 _ACTS = {"gelu": (0, gelu), "gelu_new": (1, gelu_new),
          "relu": (2, torch.relu)}
-_ROWS = {torch.bfloat16: 32, torch.float32: 16}  # rows per kernel block
+_ROWS = {torch.bfloat16: 32, torch.float32: 16}  # rows per F2 block
+_F1_ROWS = 64    # rows a bf16 F1 block (csrc/ffn.cu kF1Rows)
+_F1_CHUNK = 64   # hidden columns of an F1 chunk (kFc)
+_F1_MAX_DU = 6   # 128-column y pieces a bf16 F1 block (kF1MaxDu)
 
 
 def _drop_hidden(h: torch.Tensor, rate: float, seed) -> torch.Tensor:
@@ -91,10 +99,11 @@ def _kernel_inputs(x, weights, dy=None):
         if D % 128 or D > 1024 or Fh % 64:
             raise ValueError(f"fused_ffn bf16: need D % 128 == 0, D <= 1024, "
                              f"F % 64 == 0; got D={D}, F={Fh}")
-        # tensor-core fragment loads read the weights straight from global
-        # memory and need 32-byte aligned rows
-        if any(w.data_ptr() % 32 for w in weights):
-            raise ValueError("fused_ffn bf16: weights must be 32-byte aligned")
+        # F1 copies x and re-lays the weights in 16-byte pieces; F2-F4's
+        # fragment loads read the weights in 32-byte rows
+        if x.data_ptr() % 16 or any(w.data_ptr() % 32 for w in weights):
+            raise ValueError("fused_ffn bf16: x must be 16-byte and the "
+                             "weights 32-byte aligned")
     elif D > 1024 or Fh % 32:
         raise ValueError(f"fused_ffn fp32: need D <= 1024, F % 32 == 0; got "
                          f"D={D}, F={Fh}")
@@ -109,18 +118,77 @@ def _seed_arg(rate, seed):
     return seed.data_ptr()
 
 
+def f1_splits(N: int, D: int, Fh: int, sms: int):
+    """(splits, hidden chunks a split) of the bf16 F1 at N rows: as many
+    splits of the F / 64 chunks as leave every block of the grid (row
+    blocks x y-column groups x splits) an SM of its own, one wave; none
+    empty. One split once the row blocks fill the card (the encoder and
+    training rows: y is written directly, no partial). A function of the
+    shapes and the SM count, so a result does not change between calls."""
+    chunks = Fh // _F1_CHUNK
+    groups = -(-(D // 128) // _F1_MAX_DU)
+    blocks = -(-N // _F1_ROWS) * groups
+    want = max(1, min(chunks, sms // blocks))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+# W1 -> (weakref to W2, stamp, its re-laid copy): F1's weight pieces
+_F1_TILES = WeakIdKeyDictionary()
+
+
+def _stamp(w1, w2):
+    """What must not change for a cached re-laid copy to stay valid: both
+    weights' storage and version counters (None for inference tensors,
+    which keep no version counter: never cached)."""
+    if w1.is_inference() or w2.is_inference():
+        return None
+    return (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+
+
+def f1_tiles(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """W1 (F, D) and W2 (D, F) bf16 re-laid out into F1's 16 KB weight
+    pieces (csrc/ffn.cu ffn_w_tiles, 2 F D bf16, one pass over both). Kept
+    beside W1 while W1 lives, and rebuilt when W2 is another tensor or an
+    in-place write moved either weight's version counter or storage: the
+    weights of every path that takes F1 are frozen, so an eval or a train
+    run re-lays each layer once."""
+    stamp = _stamp(w1, w2)
+    hit = _F1_TILES.get(w1) if stamp is not None else None
+    if hit is not None and hit[0]() is w2 and hit[1] == stamp:
+        return hit[2]
+    Fh, D = w1.shape
+    wt = torch.empty(2 * Fh * D, dtype=torch.bfloat16, device=w1.device)
+    _build.launch("vlpet_ffn_w_tiles", w1.data_ptr(), w2.data_ptr(),
+                  wt.data_ptr(), D, Fh)
+    if stamp is not None:
+        _F1_TILES[w1] = (weakref.ref(w2), stamp, wt)
+    return wt
+
+
 def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
     N, D = x.shape
+    Fh = w1.shape[0]
     bf16 = _kernel_inputs(x, (w1, w2))
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
     y = torch.empty_like(x)
     if N == 0:
         return y
+    S, wt, part = 1, None, None
+    if bf16:
+        S, _ = f1_splits(N, D, Fh, _build.multiprocessors(x.device))
+        wt = f1_tiles(w1, w2)
+        if S > 1:
+            part = torch.empty((S, N, D), dtype=torch.float32,
+                               device=x.device)
     _build.launch("vlpet_ffn_fwd", x.data_ptr(), w1.data_ptr(),
                   b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-                  _seed_arg(rate, seed), y.data_ptr(), N, D, w1.shape[0],
-                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
+                  _seed_arg(rate, seed),
+                  None if wt is None else wt.data_ptr(),
+                  None if part is None else part.data_ptr(), y.data_ptr(),
+                  N, D, Fh, S, _ACTS[act][0], int(bf16),
+                  *kernel_drop_args(rate))
     fused_ffn.launches += 1
     return y
 
@@ -199,11 +267,16 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     D a multiple of 128 up to 1024, F a multiple of 64; fp32: D <= 1024, F
     a multiple of 32)."""
     _check(x, w1, b1, w2, b2, act, rate, seed)
-    _frozen("fused_ffn", torch.is_grad_enabled(), w1, w2)
+    grad = torch.is_grad_enabled()
+    _frozen("fused_ffn", grad, w1, w2)
     ts = (x, w1, b1, w2, b2) + ((seed,) if seed is not None else ())
     if not _build.use_kernel(*ts):
         return ffn_reference(x, w1, b1, w2, b2, act, rate, seed)
-    return _FusedFFN.apply(x.contiguous(), w1, b1, w2, b2, seed, act, rate)
+    x = x.contiguous()
+    if not (grad and (x.requires_grad or b1.requires_grad
+                      or b2.requires_grad)):
+        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed)
+    return _FusedFFN.apply(x, w1, b1, w2, b2, seed, act, rate)
 
 
 def gated_ffn_reference(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,

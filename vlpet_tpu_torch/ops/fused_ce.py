@@ -7,7 +7,10 @@ custom_vjp: the per-token cross-entropy of x . W^T + b straight from the
 decoder states, with an online logsumexp over vocab tiles, so the (N, V)
 logits never exist; the backward recomputes each tile and accumulates
 dx = ((softmax - onehot) * dloss) . W. Bound on the H100 and design: the
-header note of csrc/fused_ce.cu.
+header note of csrc/fused_ce.cu. In bf16 both kernels stream W, with its
+bias, from a copy re-laid out tile by tile (``w_tiles``); the forward
+makes it and the autograd Function hands it to the backward, so a step
+re-lays the head once (the copy, V x D bf16, lives from C1 to C2).
 
 The frozen-head contract (vlpet_tpu/ops/fused_ce.py:11-15): W (the tied
 ``shared`` embedding) and the bias get no gradient. The JAX package returns
@@ -24,8 +27,9 @@ import torch
 from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.ce import IGNORE, _logits_f32
 
-_TV = 64                 # vocab tile of the kernels (csrc/fused_ce.cu kTV)
-_BWD_TV = 32             # vocab tile of the bf16 backward (kCTV)
+_TV = 64                 # vocab tile of the fp32 kernels (csrc/fused_ce.cu kTV)
+_TC_TV = 32              # vocab tile of the bf16 kernels and of wt (kCTV)
+_FWD_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # rows a C1 block
 _BLOCKS_PER_SM = 4       # vocab splits: about this many blocks a SM
 _BWD_DIMS = (512, 768, 1024)
 # rows a bf16 backward block takes, by D (csrc/fused_ce.cu vlpet_ce_bwd):
@@ -77,17 +81,35 @@ def _check(x, w, b, labels):
                          f"{tuple(labels.shape)} do not match")
 
 
-def _splits(rows_per_block: int, N: int, V: int, device,
-            tile: int = _TV) -> int:
+def vocab_splits(rows_per_block: int, N: int, V: int, sms: int,
+                 tile: int = _TV) -> int:
     """Vocab splits of ``tile``-column tiles: enough blocks for about
-    _BLOCKS_PER_SM a SM, no split empty. A function of the shapes and the
-    card, so a result does not change from call to call."""
-    sms = _build.multiprocessors(device)
+    _BLOCKS_PER_SM an SM, no split empty (each takes ceil(tiles / splits)
+    tiles, the last the rest). A function of the shapes and the SM count,
+    so a result does not change from call to call."""
     tiles = -(-V // tile)
     row_blocks = -(-N // rows_per_block)
     want = min(tiles, max(1, -(-_BLOCKS_PER_SM * sms // row_blocks)))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+def _splits(rows_per_block: int, N: int, V: int, device,
+            tile: int = _TV) -> int:
+    return vocab_splits(rows_per_block, N, V,
+                        _build.multiprocessors(device), tile)
+
+
+def w_tiles(wc: torch.Tensor, bf: torch.Tensor) -> torch.Tensor:
+    """The bf16 head wc (V, D) and its fp32 bias re-laid out for C1 and
+    C2: ceil(V / 32) tiles of 32 rows, chunk-major, each followed by its
+    32 biases (csrc/fused_ce.cu ce_w_tiles)."""
+    V, D = wc.shape
+    wt = torch.empty(-(-V // _TC_TV) * (_TC_TV * D + 2 * _TC_TV),
+                     dtype=torch.bfloat16, device=wc.device)
+    _build.launch("vlpet_ce_w_tiles", wc.data_ptr(), bf.data_ptr(),
+                  wt.data_ptr(), V, D)
+    return wt
 
 
 def _kernel_inputs(x, w, b, labels):
@@ -105,28 +127,34 @@ def _kernel_inputs(x, w, b, labels):
 
 
 def _launch_fwd(x, wc, bf, lab):
+    """C1: (loss, lse, wt), wt the re-laid head (bf16; None for fp32)."""
     N, D = x.shape
     V = wc.shape[0]
     bf16 = x.dtype == torch.bfloat16
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty(N, dtype=torch.float32, device=x.device)
     if N == 0:
-        return loss, lse
-    S = _splits(64 if bf16 else 32, N, V, x.device)
+        return loss, lse, None
+    wt = w_tiles(wc, bf) if bf16 else None
+    S = _splits(_FWD_ROWS[x.dtype], N, V, x.device,
+                _TC_TV if bf16 else _TV)
     part = torch.empty((3, S, N), dtype=torch.float32, device=x.device)
     _build.launch("vlpet_ce_fwd", x.data_ptr(), wc.data_ptr(), bf.data_ptr(),
-                  lab.data_ptr(), part.data_ptr(), loss.data_ptr(),
-                  lse.data_ptr(), N, D, V, S, int(bf16))
+                  lab.data_ptr(), None if wt is None else wt.data_ptr(),
+                  part.data_ptr(), loss.data_ptr(), lse.data_ptr(), N, D, V,
+                  S, int(bf16))
     fused_linear_ce.launches += 1
-    return loss, lse
+    return loss, lse, wt
 
 
 def fused_linear_ce_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         labels: torch.Tensor, lse: torch.Tensor,
-                        dloss: torch.Tensor) -> torch.Tensor:
+                        dloss: torch.Tensor,
+                        wt: torch.Tensor = None) -> torch.Tensor:
     """dx (x's dtype) of fused_linear_ce for the per-token cotangent dloss,
     from the forward's row lse: kernel C2 on CUDA tensors (D 512, 768 or
-    1024), the plain twin on CPU tensors."""
+    1024), the plain twin on CPU tensors. ``wt``, bf16 only: the forward's
+    re-laid head (``w_tiles`` of the same w and b); made here when None."""
     _check(x, w, b, labels)
     ts = (x, w, b, labels, lse, dloss)
     if not _build.use_kernel(*ts):
@@ -143,13 +171,15 @@ def fused_linear_ce_bwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if N == 0:
         return dx
     V = wc.shape[0]
-    wt = None
     if x.dtype == torch.bfloat16:
-        S = _splits(_BWD_ROWS[D], N, V, x.device, _BWD_TV)
-        # W and b re-laid out tile by tile (csrc/fused_ce.cu ce_w_tiles)
-        wt = torch.empty(-(-V // _BWD_TV) * (_BWD_TV * D + 2 * _BWD_TV),
-                         dtype=torch.bfloat16, device=x.device)
+        S = _splits(_BWD_ROWS[D], N, V, x.device, _TC_TV)
+        if wt is None:
+            wt = w_tiles(wc, bf)
+        elif wt.numel() != -(-V // _TC_TV) * (_TC_TV * D + 2 * _TC_TV):
+            raise ValueError("fused_linear_ce_bwd: wt is not the re-laid "
+                             "head of this w")
     else:
+        wt = None
         S = _splits(32, N, V, x.device)
     part = torch.empty((S, N, D), dtype=torch.float32, device=x.device)
     _build.launch("vlpet_ce_bwd", x.data_ptr(), wc.data_ptr(), bf.data_ptr(),
@@ -166,22 +196,26 @@ class _FusedLinearCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, b, labels, kernels):
-        if kernels:  # the head cast to x's dtype once, kept for C2
+        wt = None
+        if kernels:  # the head cast to x's dtype (and re-laid) once for C2
             w, b, labels = _kernel_inputs(x, w, b, labels)
-            loss, lse = _launch_fwd(x, w, b, labels)
+            loss, lse, wt = _launch_fwd(x, w, b, labels)
         else:
             loss, lse = fused_linear_ce_reference(x, w, b, labels)
         ctx.save_for_backward(x, w, b, labels, lse)
-        ctx.kernels = kernels
+        ctx.kernels, ctx.wt = kernels, wt
         ctx.mark_non_differentiable(lse)
         return loss, lse
 
     @staticmethod
     def backward(ctx, dloss, _):
         x, w, b, labels, lse = ctx.saved_tensors
-        bwd = (fused_linear_ce_bwd if ctx.kernels
-               else fused_linear_ce_bwd_reference)
-        return bwd(x, w, b, labels, lse, dloss), None, None, None, None
+        if ctx.kernels:
+            dx = fused_linear_ce_bwd(x, w, b, labels, lse, dloss, ctx.wt)
+        else:
+            dx = fused_linear_ce_bwd_reference(x, w, b, labels, lse, dloss)
+        ctx.wt = None
+        return dx, None, None, None, None
 
 
 def _frozen(name, w, b):
