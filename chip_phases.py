@@ -9,20 +9,22 @@ imports ROOT's ``chip_smoke`` and ``vlpet_tpu_torch``, builds ROOT's
 kernels, and runs the named phases in the order given (default: all, in
 the order below). 3, 3b, 3d, 3e, 3f and 3g hold the decode path's, the
 training path's, the T5 eval path's, the T5 training path's, the opt-in
-paths' and the trainable-bias kernels against their plain twins and print
-one line per case (the kernel's, the plain twin's and the library call's
-times and the bound); 3h times F1 and C1 at their paths' rows. A phase
-that ROOT's ``chip_smoke`` lacks (3h in a tree older than it) is taken
-from this tree's ``chip_smoke`` and run on ROOT's port, so an earlier
-tree's kernels are timed at the same cases. 5, 5b, 5c and 5e time the
-bf16 beam-5 evals (image-text, video, T5 and T5 gated, T5 video; 5b and
-5e first hold fp32 tokens kernels vs plain); 7, 7b, 7c, 7d and 7e time
-the bf16 train steps (image-text, video, T5, use_fused_ce, T5 video and
-t5_full_ft; 7d needs 7 and 7c before it, 7e needs 7b and 7c).
-``--profile`` adds each bench run's device-time breakdown (chip_smoke's
-profile_run). Run parent, change, change, parent to see the spread beside
-the change. Exits nonzero without a card. Imports torch, the standard
-library and ROOT's port only.
+paths' and the trainable-bias kernels against their plain twins and
+print one line per case (the kernel's, the plain twin's and the library
+call's times and the bound); 3h times F1 and C1 at their paths' rows, 3i
+F3 and F4 at theirs. A phase that ROOT's ``chip_smoke`` lacks (3h or 3i
+in a tree older than it) is taken from this tree's ``chip_smoke`` and
+run on ROOT's port, so an earlier tree's kernels are timed at the same
+cases. 5, 5b, 5c and 5e time the bf16 beam-5 evals (image-text, video,
+T5 and T5 gated, T5 video; 5b and 5e first hold fp32 tokens kernels vs
+plain); 7, 7b, 7c, 7d and 7e time the bf16 train steps (image-text,
+video, T5, use_fused_ce, T5 video and t5_full_ft; 7d needs 7 and 7c
+before it, 7e needs 7b and 7c). ``--profile`` adds each bench run's
+device-time breakdown (chip_smoke's profile_run). After each phase the
+card's peak allocated memory over the phase is printed (for trees whose
+phases do not print their own). Run parent, change, change, parent to
+see the spread beside the change. Exits nonzero without a card. Imports
+torch, the standard library and ROOT's port only.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ PHASES = {"3": ("phase_kernels", False),
           "3f": ("phase_fused_kernels", False),
           "3g": ("phase_bias_grad_kernels", False),
           "3h": ("phase_ffn_ce_sites", False),
+          "3i": ("phase_gated_ffn_sites", False),
           "5": ("phase_decode_bench", True),
           "5b": ("phase_video_eval", True),
           "5c": ("phase_t5_eval", True),
@@ -97,7 +100,11 @@ def main(argv) -> int:
         else:
             print(f"phase {p} of {root.name}", flush=True)
         rep = reports.setdefault(smoke.__name__, smoke.Report())
+        torch.cuda.reset_peak_memory_stats()
         getattr(smoke, name)(card if takes_card else rep)
+        print(f"phase {p} of {root.name}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
     print(f"tree {root} done in {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

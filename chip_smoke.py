@@ -143,6 +143,16 @@ nonzero and no result line is printed):
      the BART and T5 sites, T5 at N 2999 and D 512 and 1024, loss and lse
      against the plain twin, twice bitwise equal (chip_phases.py runs
      this phase on an earlier tree's kernels too);
+  3i. (run after 3h) F3 and F4 in bf16 at the rows their paths give them
+     (D 768, F 2048, gelu_new): F3 at N 1 and 1501 (ragged), 1500 (T5
+     beam), 3000 (rate 0.1) and 16800 (rate 0 and 0.1), F4 at N 2999
+     (ragged), 3000 and 16800 at rate 0.1 and 16800 at rate 0, each
+     against its plain twin and against fp32 arithmetic on its inputs
+     (F4's with dh0 and dh1 rounded where the kernel rounds them), twice
+     bitwise equal, with its split count and bound; the cost of the two
+     weight re-lays; both dropout masks bit for bit in bf16 at a split (N
+     1500) and an unsplit (N 16800) row count (chip_phases.py runs this
+     phase on an earlier tree's kernels too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -994,6 +1004,13 @@ def check_ffn_bf16(label: str, got: torch.Tensor, hidden: torch.Tensor,
     ref = hidden.to(torch.bfloat16).float() @ w_out.float().t()
     if b_out is not None:
         ref = ref + b_out.float()
+    check_bf16_vs_fp32(label, got, ref)
+
+
+def check_bf16_vs_fp32(label: str, got: torch.Tensor,
+                       ref: torch.Tensor) -> None:
+    """A bf16 FFN kernel's output against ``ref``, fp32 arithmetic on the
+    same bf16 inputs: max |err| / max |ref| within BF16_FFN_RTOL."""
     rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
     if not rel <= BF16_FFN_RTOL:
         raise AssertionError(f"bf16 FFN {label}: max |err| / max |ref| "
@@ -1529,6 +1546,128 @@ def check_ffn_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
                           keep[:, off:off + D], "bf16")
 
 
+def gated_bwd_fp32(x, dy, w0, w1, wo, rate, seed) -> torch.Tensor:
+    """dx of the gated FFN (gelu_new) in fp32 arithmetic on its bf16
+    inputs, with dh0 and dh1 rounded to bf16 where F4 (and the TPU kernel,
+    vlpet_tpu/ops/ffn.py:372-373) rounds them."""
+    xf = x.float()
+    h0 = (xf @ w0.float().t()).requires_grad_()
+    h1 = xf @ w1.float().t()
+    dg = ffn._drop_hidden(dy.float() @ wo.float(), rate, seed)
+    with torch.enable_grad():
+        a = ffn.gelu_new(h0)
+        (da,) = torch.autograd.grad(a, h0, torch.ones_like(a))
+    dh0 = (dg * h1 * da).to(torch.bfloat16).float()
+    dh1 = (dg * a.detach()).to(torch.bfloat16).float()
+    return dh0 @ w0.float() + dh1 @ w1.float()
+
+
+def phase_gated_ffn_sites(rep: Report) -> None:
+    """3i: F3 and F4 in bf16 at the rows their paths give them
+    (t5-v1.1-base: D 768, F 2048, gelu_new). F3: N 1 and 1501 (ragged),
+    1500 (T5 beam), 3000 (decoder training rows, rate 0.1), 16800 (encoder
+    training rows, rate 0 and 0.1); F4: N 2999 (ragged), 3000 and 16800 at
+    rate 0.1, 16800 at rate 0. Each against its plain twin, against fp32
+    arithmetic on its own inputs (F3 through check_ffn_bf16, F4 against
+    gated_bwd_fp32) and twice, bitwise equal; each line gives the split
+    count and the bound. Then the cost of the weight re-lays and both
+    dropout masks bit for bit at a split and an unsplit row count. Only
+    fused_gated_ffn, fused_gated_ffn_bwd and their twins are called (the
+    split rule and the re-lays where the port has them), so the phase also
+    times an earlier tree's kernels (chip_phases.py)."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    randn = randn_fn(g)
+    dtype = torch.bfloat16
+    D, Fh = 768, 2048
+    w0, w1 = (randn(Fh, D, dtype=dtype, scale=0.02) for _ in range(2))
+    wo = randn(D, Fh, dtype=dtype, scale=0.02)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def splits(N):
+        if not hasattr(ffn, "gated_splits"):
+            return ""
+        return f" S{ffn.gated_splits(N, D, Fh, sms)[0]}"
+
+    for site, N, rate in (("ragged", 1, 0.0), ("t5 beam", 1500, 0.0),
+                          ("ragged", 1501, 0.0), ("dec train", 3000, 0.1),
+                          ("encoder", 16800, 0.0), ("encoder", 16800, 0.1)):
+        x = randn(N, D, dtype=dtype)
+        key = "fused_gated_ffn +dropout" if rate else "fused_gated_ffn"
+        label = (f"bf16 {site} N{N}" + (f" rate {rate}" if rate else "")
+                 + splits(N))
+
+        def kernel():
+            return ffn.fused_gated_ffn(x, w0, w1, wo, "gelu_new", rate, seed)
+        rep.check(key, label, kernel,
+                  lambda: ffn.gated_ffn_reference(x, w0, w1, wo, "gelu_new",
+                                                  rate, seed),
+                  dtype, work=(2 * (2 * N * D + 3 * D * Fh), 6 * N * D * Fh))
+        xf = x.float()
+        hidden = ffn.gelu_new(xf @ w0.float().t()) * (xf @ w1.float().t())
+        check_ffn_bf16(label, kernel(), ffn._drop_hidden(hidden, rate, seed),
+                       wo)
+        bitwise_repeat(key, label, lambda: (kernel(),))
+        del x, xf, hidden
+    for site, N, rate in (("ragged", 2999, 0.1), ("dec train", 3000, 0.1),
+                          ("encoder", 16800, 0.1), ("encoder", 16800, 0.0)):
+        x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+        label = f"bf16 {site} N{N} rate {rate}" + splits(N)
+
+        def kernel():
+            return ffn.fused_gated_ffn_bwd(x, dy, w0, w1, wo, "gelu_new",
+                                           rate, seed)
+        plain = _grads_of(lambda a: ffn.gated_ffn_reference(
+            a, w0, w1, wo, "gelu_new", rate, seed), (x,), dy)
+        rep.check("fused_gated_ffn_bwd", label, kernel, lambda: plain()[0],
+                  dtype, work=(2 * (3 * N * D + 3 * D * Fh),
+                               10 * N * D * Fh), backward=True)
+        check_bf16_vs_fp32(label, kernel(),
+                           gated_bwd_fp32(x, dy, w0, w1, wo, rate, seed))
+        bitwise_repeat("fused_gated_ffn_bwd", label, lambda: (kernel(),))
+        del x, dy, plain
+    if hasattr(ffn, "gated_tiles"):  # the re-lays, uncached
+        t = torch.empty(3 * Fh * D, dtype=dtype, device="cuda")
+        for name, what in (("vlpet_gated_w_tiles", "F3: W0, W1, Wo"),
+                           ("vlpet_gated_bwd_tiles", "F4: Wo^T, W0^T, W1^T")):
+            ms = cuda_ms(lambda: _build.launch(
+                name, w0.data_ptr(), w1.data_ptr(), wo.data_ptr(),
+                t.data_ptr(), D, Fh))
+            print(f"  {'fused_gated_ffn':24s} "
+                  f"{'bf16 ' + what + ' re-laid (9.4 MB)':34s} {ms:.4f} ms, "
+                  f"once per layer while the weights live", flush=True)
+    check_gated_bf16_mask(seed)
+
+
+@torch.no_grad()
+def check_gated_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
+    """bf16 F3's and F4's dropout masks, bit for bit, are ops/hashdrop.py's
+    where the hidden is split over blocks (N 1500) and where it is not (N
+    16800): check_drop_masks' picking weights in bf16. W0 = W1 spread the
+    input onto hidden columns off .. off + D (x = 3: h0 = h1 = 3 there, 0
+    elsewhere) and Wo picks them back; dy = 1 makes dg 1 on them. So y and
+    dx are nonzero exactly where the hidden is kept, at off 0 and F - D."""
+    D, Fh = 768, 2048
+    bf = torch.bfloat16
+    for N in (1500, 16800):
+        x3 = torch.full((N, D), 3.0, device="cuda", dtype=bf)
+        ones = torch.ones((N, D), device="cuda", dtype=bf)
+        keep = keep_mask((N, Fh), 0, seed, rate, device="cuda")
+        for off in (0, Fh - D):
+            pick = _picking(D, Fh, off).to(bf)  # (D, F): hidden -> D
+            spread = pick.t().contiguous()      # (F, D): D -> hidden
+            kept = keep[:, off:off + D]
+            y = ffn.fused_gated_ffn(x3, spread, spread, pick, "gelu_new",
+                                    rate, seed)
+            _expect_zeros(f"fused_gated_ffn N{N} F{Fh} off{off}", y, kept,
+                          "bf16")
+            dx = ffn.fused_gated_ffn_bwd(x3, ones, spread, spread, pick,
+                                         "gelu_new", rate, seed)
+            _expect_zeros(f"fused_gated_ffn_bwd N{N} F{Fh} off{off}", dx,
+                          kept, "bf16")
+
+
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.randint(3, vocab, (B, 20), generator=g, device="cuda")
@@ -1789,11 +1928,13 @@ def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
 
     out = run()  # warm-up: cuBLAS heuristics, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launched = read_counts(path)
     require_tc(path, launched)
     if out.shape != (B, max_length) or out.dtype != torch.long:
@@ -1802,9 +1943,10 @@ def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
     if (not bool(((out >= 0) & (out < V)).all())
             or not bool((out[:, 0] == start).all())):
         raise AssertionError("token ids out of range or missing start token")
-    RUNS[path] = dict(ex_s=B / wall)
+    RUNS[path] = dict(ex_s=B / wall, peak_gib=peak)
     print(f"  bf16 B{B} {label}: {B / wall:.2f} examples/s, wall "
-          f"{wall:.3f} s on {card}; launches {launched}", flush=True)
+          f"{wall:.3f} s on {card}; peak memory {peak:.2f} GiB; launches "
+          f"{launched}", flush=True)
     if "--profile" in sys.argv:
         profile_run(run, card, f"{label} generate")
     return launched
@@ -2713,7 +2855,9 @@ def profile_run(run, card: str, what: str) -> None:
     families = {"ffn_fwd": "fused_ffn kernel (F1)",
                 "ffn_w_tiles": "fused_ffn kernel (F1)",
                 "gated_fwd": "fused_gated_ffn kernel (F3)",
+                "gated_w_tiles": "fused_gated_ffn kernel (F3)",
                 "gated_bwd": "fused_gated_ffn_bwd kernel (F4)",
+                "gated_dy_tiles": "fused_gated_ffn_bwd kernel (F4)",
                 "ffn_bwd": "fused_ffn_bwd kernel (F2)",
                 "ffn_bias": "fused_ffn_bwd kernel (F2)",
                 "attention_fwd": "fused_attention kernel (A1)",
@@ -2798,6 +2942,8 @@ def main() -> int:
     phase_bias_grad_kernels(rep)
     print("phase 3h: F1 and C1 at their paths' rows, bf16", flush=True)
     phase_ffn_ce_sites(rep)
+    print("phase 3i: F3 and F4 at their paths' rows, bf16", flush=True)
+    phase_gated_ffn_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()

@@ -60,26 +60,71 @@
 // every block read 16 x 16 fragments of W1 and W2 straight from global
 // memory; the hidden and y went through fp32 shared tiles, two barriers a
 // chunk): 0.84-0.87 ms at N 1500-2500 and 5.14 at N 28000 against
-// 0.07-0.11 and 0.51 for the plain three-GEMM chain (PERF.md).
+// 0.07-0.11 and 0.51 for the plain three-GEMM chain (NVIDIA H100 80GB
+// HBM3, 700 W; PERF.md).
 //
-// F2-F4, bf16: one block of 8 warps per 32 rows; the x (and dy) tile lives
-// in shared memory; for each 64-wide hidden chunk the warps compute the
-// 32x64 fc1 tile (and, in the backward, the 32x64 dh tile) with WMMA bf16
-// tensor-core products (fp32 accumulate), apply bias and activation (or
-// its derivative) in fp32, round to bf16 in shared memory, and accumulate
-// their 32 x D/8 slice of the output in fp32 register fragments. F3 is the
-// same block with two up-projections per chunk: the warps compute the
-// 32x64 tiles of x . W0^T and x . W1^T, combine them as act(h0) * h1 in
-// fp32, round the product to bf16 in shared memory and fold it into the
-// output; at N = 16800, D 768, F 2048 it is 6 N D F FLOPs, 0.16 ms at 989
-// TFLOP/s. F4 is F2's block with three tiles per chunk (h0, h1 and dg:
-// three WMMA accumulators a warp) and two hidden tiles (dh0, dh1) folded
-// into the same fp32 dx fragments: 10 N D F FLOPs, 0.27 ms at N = 16800,
-// D 768, F 2048. fp32 inputs take plain-FMA kernels of the same shape
-// (fp32 tensor-core paths are TF32 and would break fp32 parity). Rows past
-// N are zero-filled in shared memory and masked at the store: no padding
-// copy. The backward's bias sums are deterministic: each block writes one
-// partial row and a second kernel sums them in order.
+// F3, bf16 (gated_fwd_tc): F1's kernel with two up-projections (one
+// template, fwd_tc<DU, GATED>). At N = 16800, D 768, F 2048 it is 6 N D F
+// FLOPs, 0.16 ms at 989 TFLOP/s, against 9.4 MB of weights that every
+// 64-row block streams (at N 1500: 0.014 ms of bytes). W0 and W1 are
+// re-laid out together (gated_w_tiles): each hidden chunk has two sets of
+// D / 128 up pieces, 64 rows each, W0 and W1 rows interleaved in 8-row
+// groups, so that one wgmma m64n32k16 of a warpgroup yields h0 (n8 tiles
+// 0, 2) and h1 (tiles 1, 3) of the same 16 hidden columns: each thread
+// holds the h0 and h1 of its elements, the gating product never leaves
+// the thread, and fc1's registers stay F1's 16 (two sets a chunk, each
+// with its own epilogue, instead of one m64n64 of 32 registers beside the
+// 192 of y). Then Wo's pieces as F1's fc2 pieces; the dropout (global
+// index n F + f) on act(h0) * h1 in fp32 before the bf16 rounding, split
+// over one wave at decode rows (ops/ffn.py gated_splits, f1_splits' rule)
+// with gated_fwd_reduce summing the partials in order. 247 registers, no
+// spills. It replaced a WMMA design (8 warps per 32 rows reading 16 x 16
+// fragments of W0, W1 and Wo straight from global memory): 0.6908 -> 0.1623
+// ms at N 1500 and 2.7628 -> 0.7786 at N 16800 (chip_phases.py phase 3i,
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+//
+// F4, bf16 (gated_bwd_tc<DU>): dx of F3, 10 N D F FLOPs (0.27 ms at N
+// 16800, D 768, F 2048). 64 rows a block, two warpgroups, the fp32 dx
+// accumulator (64 x D) in their registers as F1's y. Per 64-wide hidden
+// chunk: dg = dy . Wo on wgmma m64n32 (each warpgroup 32 columns), the
+// dropout applied and the fp32 dg parked in a per-thread shared stash (16
+// KB: the 16 registers it would hold beside h0/h1 and dx do not fit); then
+// per set h0, h1 as F3 and, on the accumulator registers, dh0 = dg h1
+// act'(h0) and dh1 = dg act(h0), each rounded to bf16 (where the TPU
+// kernel rounds) into two 64 x 64 tiles; then dx += dh0 . W0 + dh1 . W1
+// (m64n64 per piece). Shared memory is the binding limit: x and dy at 64
+// rows and D 768 are 96 KB each, so x stays resident and dy streams
+// through the ring beside the weights, re-laid out per call into 64-row
+// pieces (gated_dy_tiles, an extra N D read and write): a ring of two 48 KB
+// stages, x, the dh tiles (single-buffered: one more barrier a chunk) and
+// the stash take 224 KB. The products read the weights K-major only, so W0
+// and W1 (K = D for h, K = F for dx) and Wo^T (dg's B) come from a second
+// re-laid copy (gated_bwd_tiles: Wo^T, then per 128 dx columns a W0^T and
+// a W1^T piece, 3 F D bf16, 9.4 MB a layer at t5-v1.1-base, beside F3's
+// copy whose up pieces F4 reads too); wgmma's transpose-B bit would have
+// read one copy both ways, but its no-swizzle MN-major layout was not
+// tried. Per chunk a block streams 36 pieces (dy 6, Wo^T 6, up 12, dx 12 at
+// D 768): the dg products wait for a dy stage and a Wo^T stage together.
+// At N 3000 (47 row blocks) the hidden splits over blocks with fp32
+// partials of dx (gated_bwd_reduce, in order). 248 registers, no spills.
+// It replaced a WMMA design (F2's block with three accumulators): 6.9401
+// -> 1.4552 ms at N 16800 and 1.5342 -> 0.4298 at N 3000, rate 0.1
+// (chip_phases.py phase 3i, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+// Both F3 and F4 run at the rate F1's stream found (about 3.5 TB/s of
+// weights from L2 over the card). F2 maps onto the same skeleton (one
+// up-product, ds = drop(dy . W2) act'(h + b1), dx = ds . W1, plus the
+// column sums of ds).
+//
+// F2, bf16: one block of 8 warps per 32 rows; the x and dy tiles live in
+// shared memory; for each 64-wide hidden chunk the warps compute the 32x64
+// fc1 and dh tiles with WMMA bf16 tensor-core products (fp32 accumulate),
+// apply the bias and the activation's derivative in fp32, round to bf16 in
+// shared memory, and accumulate their 32 x D/8 slice of dx in fp32 register
+// fragments. fp32 inputs take plain-FMA kernels of the same shape (fp32
+// tensor-core paths are TF32 and would break fp32 parity). Rows past N are
+// zero-filled in shared memory (or the re-laid dy) and masked at the store:
+// no padding copy. The backward's bias sums are deterministic: each block
+// writes one partial row and a second kernel sums them in order.
 #include <mma.h>
 
 #include "common.cuh"
@@ -108,6 +153,25 @@ __device__ __forceinline__ float act_grad(float h, int act) {
   const float t = tanhf(c * (h + 0.044715f * h * h * h));
   const float dinner = c * (1.f + 3.f * 0.044715f * h * h);
   return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * dinner;
+}
+
+// act_fn(h) and act_grad(h) with one erf or tanh for both
+__device__ __forceinline__ void act_and_grad(float h, int act, float& a,
+                                             float& da) {
+  if (act == 2) {
+    a = fmaxf(h, 0.f);
+    da = h > 0.f ? 1.f : 0.f;
+  } else if (act == 0) {
+    const float e = erff(h * 0.70710678118654752f);
+    a = 0.5f * h * (1.f + e);
+    da = 0.5f * (1.f + e) + h * (0.39894228040143268f * expf(-0.5f * h * h));
+  } else {
+    const float c = 0.79788456080286536f;
+    const float t = tanhf(c * (h + 0.044715f * h * h * h));
+    const float dinner = c * (1.f + 3.f * 0.044715f * h * h);
+    a = 0.5f * h * (1.f + t);
+    da = 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * dinner;
+  }
 }
 
 // ---------------------------------------------------------------- bf16 WMMA
@@ -150,14 +214,17 @@ int f1_du(int D) {
   return (pieces + groups - 1) / groups;
 }
 
-size_t f1_fixed_smem(int D) {
+// shared memory besides the ring: x, two 64 x 64 bf16 hidden tiles (F1
+// and F3: one tile, double-buffered; F4: dh0 and dh1) and, in F4, the
+// fp32 dg stash of 64 x 64; the barriers
+size_t tc_fixed_smem(int D, bool bwd) {
   return (size_t)kF1Rows * D * 2 + 2 * kF1Rows * kFc * 2 +
-         2 * kF1MaxStages * 8;
+         (bwd ? (size_t)kF1Rows * kFc * 4 : 0) + 2 * kF1MaxStages * 8;
 }
 
-// ring stages of ``pieces`` 16 KB pieces that fit beside x and the hidden
-int f1_stages(int D, int pieces) {
-  const long long fit = (232448 - (long long)f1_fixed_smem(D)) /
+// ring stages of ``pieces`` 16 KB pieces that fit beside ``fixed`` bytes
+int tc_stages(size_t fixed, int pieces) {
+  const long long fit = (232448 - (long long)fixed) /
                         ((long long)pieces * kPieceBytes);
   return (int)(fit < kF1MaxStages ? fit : kF1MaxStages);
 }
@@ -166,11 +233,12 @@ int f1_stages(int D, int pieces) {
 // stages in the ring. A block's bulk copies complete about one at a time,
 // each in about the same time up to ~48 KB, so fewer, larger copies stream
 // the weights faster (3 pieces, 48 KB, at D 768). It divides the D / 128
-// fc1 pieces and the du fc2 pieces of a chunk, so that a copy is one
-// contiguous run of wt.
-int f1_pieces(int D, int du) {
+// pieces of an up-product (and of dy) and the du pieces of y's (or dx's)
+// columns of a chunk, so that a copy is one contiguous run of its buffer.
+int tc_pieces(int D, int du, size_t fixed) {
   for (int p = du; p > 1; --p)
-    if ((D / 128) % p == 0 && du % p == 0 && f1_stages(D, p) >= 2) return p;
+    if ((D / 128) % p == 0 && du % p == 0 && tc_stages(fixed, p) >= 2)
+      return p;
   return 1;
 }
 
@@ -205,6 +273,103 @@ __global__ void ffn_w_tiles(const bf16* __restrict__ w1,
   }
 }
 
+// gt, F3's weights (and F4's up pieces): for each hidden chunk c, the two
+// sets' D / 128 up pieces, then D / 128 Wo pieces. Up piece (c, s, kp): row
+// r is W0's (r / 8 even) or W1's (odd) row f = 64 c + 32 (r / 32) + 16 s +
+// 8 ((r / 16) % 2) + r % 8, columns 128 kp + 8 kc .. + 8, chunk-major
+// [16][64]: warpgroup j's m64n32 over rows 32 j .. 32 j + 32 gives h0 (n8
+// tiles 0 and 2) and h1 (tiles 1 and 3) of chunk columns 32 j + 16 s ..
+// + 16. Wo piece (c, dp): as ffn_w_tiles' fc2 pieces.
+__global__ void gated_w_tiles(const bf16* __restrict__ w0,
+                              const bf16* __restrict__ w1,
+                              const bf16* __restrict__ wo,
+                              bf16* __restrict__ gt, int D, int F,
+                              long long items) {
+  const int KP = D / 128;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long piece = i >> 10;
+    const int j = (int)(i & 1023);
+    const int c = (int)(piece / (3 * KP)), k = (int)(piece % (3 * KP));
+    const bf16* src;
+    int dst;
+    if (k < 2 * KP) {
+      const int s = k / KP, kp = k % KP, r = j >> 4, kc = j & 15;
+      const int f = c * kFc + 32 * (r >> 5) + 16 * s + 8 * ((r >> 4) & 1) +
+                    (r & 7);
+      src = ((r >> 3) & 1 ? w1 : w0) + (size_t)f * D + kp * 128 + kc * 8;
+      dst = (kc * 64 + r) * 8;
+    } else {
+      const int r = j >> 3, fc = j & 7;
+      src = wo + (size_t)((k - 2 * KP) * 128 + r) * F + c * kFc + fc * 8;
+      dst = (fc * 128 + r) * 8;
+    }
+    *reinterpret_cast<uint4*>(gt + piece * kPiece + dst) =
+        *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+// bt, the rest of F4's weights: for each hidden chunk c, D / 128 pieces of
+// Wo^T (dg's B: rows f = 64 c + r, columns 128 kp + 8 kc .. + 8,
+// chunk-major [16][64]), then for each 128 dx columns dp a W0^T and a W1^T
+// piece (rows d = 128 dp + r, columns 64 c + 8 fc .. + 8, chunk-major
+// [8][128]). Transposing gathers: one 16-byte chunk a thread, eight
+// strided reads, neighbouring threads on neighbouring source columns.
+__global__ void gated_bwd_tiles(const bf16* __restrict__ w0,
+                                const bf16* __restrict__ w1,
+                                const bf16* __restrict__ wo,
+                                bf16* __restrict__ bt, int D, int F,
+                                long long items) {
+  const int KP = D / 128;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long piece = i >> 10;
+    const int j = (int)(i & 1023);
+    const int c = (int)(piece / (3 * KP)), k = (int)(piece % (3 * KP));
+    const bf16* src;
+    size_t stride;
+    int dst;
+    if (k < KP) {
+      const int r = j & 63, kc = j >> 6;
+      src = wo + (size_t)(k * 128 + kc * 8) * F + c * kFc + r;
+      stride = F;
+      dst = (kc * 64 + r) * 8;
+    } else {
+      const int dp = (k - KP) >> 1, r = j & 127, fc = j >> 7;
+      src = ((k - KP) & 1 ? w1 : w0) + (size_t)(c * kFc + fc * 8) * D +
+            dp * 128 + r;
+      stride = D;
+      dst = (fc * 128 + r) * 8;
+    }
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = src[e * stride];
+    *reinterpret_cast<uint4*>(bt + piece * kPiece + dst) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// dy (N, D) into 64-row blocks of D / 128 pieces, each chunk-major
+// [16][64] as x in shared memory, zeros past N: F4 streams it beside the
+// weights. Thread pairs take the two 16-byte chunks of a 32-byte sector.
+__global__ void gated_dy_tiles(const bf16* __restrict__ dy,
+                               bf16* __restrict__ dyt, int N, int D,
+                               long long items) {
+  const int KP = D / 128;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long piece = i >> 10;
+    const int j = (int)(i & 1023);
+    const int pr = j >> 1, r = pr & 63, kc = ((pr >> 6) << 1) | (j & 1);
+    const long long n = piece / KP * kF1Rows + r;
+    const int kp = (int)(piece % KP);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n < N)
+      v = *reinterpret_cast<const uint4*>(dy + n * D + kp * 128 + kc * 8);
+    *reinterpret_cast<uint4*>(dyt + piece * kPiece + (kc * 64 + r) * 8) = v;
+  }
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
@@ -231,15 +396,17 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// part: [S][N][D] fp32 partials of y when the hidden is split (S > 1;
-// NULL for one split, which writes y itself). A ring stage holds P pieces
-// (f1_pieces), one bulk copy.
-template <int DU>
-__global__ void __launch_bounds__(kF1Threads, 1)
-ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-           const float* __restrict__ b1, const float* __restrict__ b2,
-           bf16* __restrict__ y, float* __restrict__ part, int N, int D,
-           int F, int cps, int stages, int P, int act, DropArgs dr) {
+// The tensor-core forward of F1 (GATED false) and F3 (GATED true). part:
+// [S][N][D] fp32 partials of y when the hidden is split (S > 1; NULL for
+// one split, which writes y itself). A ring stage holds P pieces
+// (tc_pieces), one bulk copy. wt: F1's ffn_w_tiles or F3's gated_w_tiles;
+// F3 has no biases (b1, b2 unread).
+template <int DU, bool GATED>
+__device__ __forceinline__ void fwd_tc(
+    const bf16* __restrict__ x, const bf16* __restrict__ wt,
+    const float* __restrict__ b1, const float* __restrict__ b2,
+    bf16* __restrict__ y, float* __restrict__ part, int N, int D, int F,
+    int cps, int stages, int P, int act, DropArgs dr) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][64]
   bf16* hs = xs + kF1Rows * D;  // 2 x chunk-major [8][64]: the hidden
@@ -248,13 +415,15 @@ ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
       reinterpret_cast<uint64_t*>(ring + (size_t)stages * P * kPiece);
   uint64_t* empty = full + kF1MaxStages;
 
-  const int KP = D / 128;  // fc1 pieces a chunk
+  constexpr int kSets = GATED ? 2 : 1;  // up-products a chunk
+  const int KP = D / 128;  // pieces of an up-product
+  const int UP = kSets * KP;
   const int n0 = blockIdx.x * kF1Rows;
   const int c0 = blockIdx.y * cps;
   const int c1 = min(c0 + cps, F / kFc);
   const int u0 = blockIdx.z * DU;  // the block's first fc2 piece
   const int du = min(DU, KP - u0);
-  const int per_chunk = (KP + du) / P;  // ring stages a chunk takes
+  const int per_chunk = (UP + du) / P;  // ring stages a chunk takes
   const int total = (c1 - c0) * per_chunk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, wr = (warp & 3) * 16;
@@ -266,7 +435,7 @@ ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   // pieces that lie next to each other in wt
   auto issue = [&](int q) {
     const int c = c0 + q / per_chunk, i = (q % per_chunk) * P;
-    const int tile = c * 2 * KP + (i < KP ? i : KP + u0 + (i - KP));
+    const int tile = c * (UP + KP) + (i < UP ? i : UP + u0 + (i - UP));
     const int st = q % stages;
     mbar_expect_tx(full + st, stage_bytes);
     bulk_copy(ring + (size_t)st * P * kPiece, wt + (size_t)tile * kPiece,
@@ -312,51 +481,65 @@ ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   float h[4][4];
   int q = 0;
   for (int c = c0; c < c1; ++c) {
-    // fc1: this warpgroup's 64 x 32 of the chunk's hidden over all of D
-    for (int kq = 0; kq < KP / P; ++kq, ++q) {
-      const bf16* W = slot(q);
-      wgmma_fence();
-      for (int p = 0; p < P; ++p) {
-        const int kp = kq * P + p;
+    bf16* hb = hs + (c & 1) * kF1Rows * kFc;  // this chunk's hidden tile
 #pragma unroll
-        for (int s = 0; s < 8; ++s) {
-          const int kc = kp * 8 + s;
-          wgmma_m64n32(
-              h, wg_desc(xs + 2 * kc * kF1Rows * 8, kF1Rows * 16, 128),
-              wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
-                      128),
-              kc > 0);
+    for (int set = 0; set < kSets; ++set) {
+      // fc1 (F3: the set's up pieces): this warpgroup's 64 x 32 over all
+      // of D
+      for (int kq = 0; kq < KP / P; ++kq, ++q) {
+        const bf16* W = slot(q);
+        wgmma_fence();
+        for (int p = 0; p < P; ++p) {
+          const int kp = kq * P + p;
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int kc = kp * 8 + s;
+            wgmma_m64n32(
+                h, wg_desc(xs + 2 * kc * kF1Rows * 8, kF1Rows * 16, 128),
+                wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
+                        128),
+                kc > 0);
+          }
+        }
+        wgmma_commit();
+        if (kq > 0) {
+          wgmma_wait<1>();
+          release(q - 1);
         }
       }
-      wgmma_commit();
-      if (kq > 0) {
-        wgmma_wait<1>();
-        release(q - 1);
-      }
-    }
-    wgmma_wait<0>();
-    release(q - 1);
+      wgmma_wait<0>();
+      release(q - 1);
 
-    // + b1, activation, dropout (global index n F + f) in fp32, rounded to
-    // bf16 into the hidden tile of this chunk's parity
-    bf16* hb = hs + (c & 1) * kF1Rows * kFc;
+      // F1: + b1 and the activation; F3: act(h0) * h1 (n8 tiles 2 j and
+      // 2 j + 1 hold h0 and h1 of the same 8 columns). Then the dropout
+      // (global index n F + f) in fp32, rounded to bf16 into the hidden
+      // tile
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int fl = 32 * wg + 8 * nt + 2 * t;  // column in the chunk
-      const int f = c * kFc + fl;
-      const float2 bb = *reinterpret_cast<const float2*>(b1 + f);
+      for (int j = 0; j < (GATED ? 2 : 4); ++j) {
+        const int fl = GATED ? 32 * wg + 16 * set + 8 * j + 2 * t
+                             : 32 * wg + 8 * j + 2 * t;  // chunk column
+        const int f = c * kFc + fl;
+        float2 bb = make_float2(0.f, 0.f);
+        if constexpr (!GATED) bb = *reinterpret_cast<const float2*>(b1 + f);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = wr + g + 8 * r;
-        float v0 = act_fn(h[nt][2 * r] + bb.x, act);
-        float v1 = act_fn(h[nt][2 * r + 1] + bb.y, act);
-        if (dr.on) {
-          const uint32_t idx = (uint32_t)(n0 + row) * (uint32_t)F + f;
-          v0 = drop_elem(v0, idx, seed, dr.thr, dr.scale);
-          v1 = drop_elem(v1, idx + 1u, seed, dr.thr, dr.scale);
+        for (int r = 0; r < 2; ++r) {
+          const int row = wr + g + 8 * r;
+          float v0, v1;
+          if constexpr (GATED) {
+            v0 = act_fn(h[2 * j][2 * r], act) * h[2 * j + 1][2 * r];
+            v1 = act_fn(h[2 * j][2 * r + 1], act) * h[2 * j + 1][2 * r + 1];
+          } else {
+            v0 = act_fn(h[j][2 * r] + bb.x, act);
+            v1 = act_fn(h[j][2 * r + 1] + bb.y, act);
+          }
+          if (dr.on) {
+            const uint32_t idx = (uint32_t)(n0 + row) * (uint32_t)F + f;
+            v0 = drop_elem(v0, idx, seed, dr.thr, dr.scale);
+            v1 = drop_elem(v1, idx + 1u, seed, dr.thr, dr.scale);
+          }
+          *reinterpret_cast<uint32_t*>(hb + ((fl >> 3) * kF1Rows + row) * 8 +
+                                       (fl & 7)) = pack_bf16(v0, v1);
         }
-        *reinterpret_cast<uint32_t*>(hb + ((fl >> 3) * kF1Rows + row) * 8 +
-                                     (fl & 7)) = pack_bf16(v0, v1);
       }
     }
     fence_proxy_async();  // the hidden is read by wgmma
@@ -400,9 +583,9 @@ ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int col = (u0 + u) * 128 + 64 * wg + 8 * nt + 2 * t;
-      const float2 bb = part == nullptr
-                            ? *reinterpret_cast<const float2*>(b2 + col)
-                            : make_float2(0.f, 0.f);
+      const float2 bb = GATED || part != nullptr
+                            ? make_float2(0.f, 0.f)
+                            : *reinterpret_cast<const float2*>(b2 + col);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int n = n0 + wr + g + 8 * r;
@@ -421,17 +604,38 @@ ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   }
 }
 
-// y = bf16(sum of the S partials in split order + b2), two columns a
-// thread
-__global__ void ffn_fwd_reduce(const float* __restrict__ part,
-                               const float* __restrict__ b2,
-                               bf16* __restrict__ y, int N, int D, int S) {
+template <int DU>
+__global__ void __launch_bounds__(kF1Threads, 1)
+ffn_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+           const float* __restrict__ b1, const float* __restrict__ b2,
+           bf16* __restrict__ y, float* __restrict__ part, int N, int D,
+           int F, int cps, int stages, int P, int act, DropArgs dr) {
+  fwd_tc<DU, false>(x, wt, b1, b2, y, part, N, D, F, cps, stages, P, act,
+                    dr);
+}
+
+template <int DU>
+__global__ void __launch_bounds__(kF1Threads, 1)
+gated_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+             const float* __restrict__ b1, const float* __restrict__ b2,
+             bf16* __restrict__ y, float* __restrict__ part, int N, int D,
+             int F, int cps, int stages, int P, int act, DropArgs dr) {
+  fwd_tc<DU, true>(x, wt, b1, b2, y, part, N, D, F, cps, stages, P, act, dr);
+}
+
+// out = bf16(sum of the S partials in split order (+ b, when not NULL)),
+// two columns a thread
+__device__ __forceinline__ void reduce_splits(const float* __restrict__ part,
+                                              const float* __restrict__ b,
+                                              bf16* __restrict__ out, int N,
+                                              int D, int S) {
   const long long pairs = (long long)N * D / 2;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < pairs; i += (long long)gridDim.x * blockDim.x) {
     const long long e = 2 * i;
     const int col = (int)(e % D);
-    float2 a = *reinterpret_cast<const float2*>(b2 + col);
+    const float2 a = b == nullptr ? make_float2(0.f, 0.f)
+                                  : *reinterpret_cast<const float2*>(b + col);
     float2 sum = make_float2(0.f, 0.f);
     for (int s = 0; s < S; ++s) {
       const float2 p =
@@ -439,36 +643,337 @@ __global__ void ffn_fwd_reduce(const float* __restrict__ part,
       sum.x += p.x;
       sum.y += p.y;
     }
-    *reinterpret_cast<uint32_t*>(y + e) = pack_bf16(sum.x + a.x, sum.y + a.y);
+    *reinterpret_cast<uint32_t*>(out + e) =
+        pack_bf16(sum.x + a.x, sum.y + a.y);
   }
 }
 
-template <int DU>
-int launch_f1_tc(const void* x, const void* wt, const void* b1,
-                 const void* b2, void* y, void* part, int N, int D, int F,
-                 int S, int act, DropArgs dr, cudaStream_t st) {
+// one kernel name per path, for the profile's families (F1, F3, F4)
+__global__ void ffn_fwd_reduce(const float* __restrict__ part,
+                               const float* __restrict__ b,
+                               bf16* __restrict__ out, int N, int D, int S) {
+  reduce_splits(part, b, out, N, D, S);
+}
+
+__global__ void gated_fwd_reduce(const float* __restrict__ part,
+                                 const float* __restrict__ b,
+                                 bf16* __restrict__ out, int N, int D, int S) {
+  reduce_splits(part, b, out, N, D, S);
+}
+
+__global__ void gated_bwd_reduce(const float* __restrict__ part,
+                                 const float* __restrict__ b,
+                                 bf16* __restrict__ out, int N, int D, int S) {
+  reduce_splits(part, b, out, N, D, S);
+}
+
+int launch_reduce(bool fwd, bool gated, const void* part, const void* b,
+                  void* out, int N, int D, int S, cudaStream_t st) {
+  const long long pairs = (long long)N * D / 2;
+  const long long want = (pairs + 255) / 256;
+  const unsigned blocks = (unsigned)(want > 8192 ? 8192 : want);
+  auto kern = !gated ? &ffn_fwd_reduce
+                     : (fwd ? &gated_fwd_reduce : &gated_bwd_reduce);
+  kern<<<blocks, 256, 0, st>>>((const float*)part, (const float*)b,
+                               (bf16*)out, N, D, S);
+  return (int)cudaGetLastError();
+}
+
+// F1 (GATED false) or F3 over S hidden splits, y's columns over
+// ceil(D / 128 / DU) groups of blocks
+template <int DU, bool GATED>
+int launch_fwd_tc(const void* x, const void* wt, const void* b1,
+                  const void* b2, void* y, void* part, int N, int D, int F,
+                  int S, int act, DropArgs dr, cudaStream_t st) {
   const int groups = (D / 128 + DU - 1) / DU;
-  const int P = f1_pieces(D, DU);  // divides every group's fc2 pieces
-  const int stages = f1_stages(D, P);
-  const size_t smem = f1_fixed_smem(D) + (size_t)stages * P * kPieceBytes;
+  const size_t fixed = tc_fixed_smem(D, false);
+  const int P = tc_pieces(D, DU, fixed);  // divides every group's pieces
+  const int stages = tc_stages(fixed, P);
+  const size_t smem = fixed + (size_t)stages * P * kPieceBytes;
+  auto kern = GATED ? &gated_fwd_tc<DU> : &ffn_fwd_tc<DU>;
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_fwd_tc<DU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int chunks = F / kFc;
   const int cps = (chunks + S - 1) / S;
-  ffn_fwd_tc<DU><<<dim3((N + kF1Rows - 1) / kF1Rows, S, groups), kF1Threads,
-                   smem, st>>>(
-      (const bf16*)x, (const bf16*)wt, (const float*)b1, (const float*)b2,
-      (bf16*)y, S > 1 ? (float*)part : nullptr, N, D, F, cps, stages, P,
+  kern<<<dim3((N + kF1Rows - 1) / kF1Rows, S, groups), kF1Threads, smem,
+         st>>>((const bf16*)x, (const bf16*)wt, (const float*)b1,
+               (const float*)b2, (bf16*)y, S > 1 ? (float*)part : nullptr, N,
+               D, F, cps, stages, P, act, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  return launch_reduce(true, GATED, part, GATED ? nullptr : b2, y, N, D, S,
+                       st);
+}
+
+// F4 on the tensor cores (header). A block takes 64 rows of x (chunk-major
+// in shared memory), one range of 64-wide hidden chunks (its split) and DU
+// 128-column pieces of dx. Per chunk c the ring brings, P pieces a stage:
+// the block's dy pieces and the chunk's Wo^T pieces in turn (dg: the
+// products wait for one stage of each), the chunk's 2 D / 128 up pieces of
+// gt (h0 and h1, two sets), then the block's dx pieces of bt (a W0^T and a
+// W1^T piece per 128 dx columns). part: [S][N][D] fp32 partials of dx when
+// the hidden is split (S > 1), else NULL.
+template <int DU>
+__global__ void __launch_bounds__(kF1Threads, 1)
+gated_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ dyt,
+             const bf16* __restrict__ gt, const bf16* __restrict__ bt,
+             bf16* __restrict__ dx, float* __restrict__ part, int N, int D,
+             int F, int cps, int stages, int P, int act, DropArgs dr) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][64]
+  bf16* d0s = xs + kF1Rows * D;        // dh0, chunk-major [8][64]
+  bf16* d1s = d0s + kF1Rows * kFc;     // dh1
+  // dg after the dropout, each thread's own 16 values: [8][256] float2
+  float2* stash = reinterpret_cast<float2*>(d1s + kF1Rows * kFc);
+  bf16* ring = reinterpret_cast<bf16*>(stash + 8 * kF1Threads);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)stages * P * kPiece);
+  uint64_t* empty = full + kF1MaxStages;
+
+  const int KP = D / 128;
+  const int n0 = blockIdx.x * kF1Rows;
+  const int c0 = blockIdx.y * cps;
+  const int c1 = min(c0 + cps, F / kFc);
+  const int u0 = blockIdx.z * DU;  // the block's first 128 dx columns
+  const int du = min(DU, KP - u0);
+  const int dgs = 2 * KP / P;          // a chunk's stages of dy and Wo^T
+  const int ups = dgs + 2 * KP / P;    // ... then of the up pieces
+  const int per_chunk = ups + 2 * du / P;  // ... then of the dx pieces
+  const int total = (c1 - c0) * per_chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t seed = seed_of(dr);
+  const uint32_t stage_bytes = (uint32_t)P * kPieceBytes;
+  const size_t wchunk = (size_t)3 * KP * kPiece;  // a chunk of gt or bt
+
+  auto issue = [&](int q) {
+    const int c = c0 + q / per_chunk, i = q % per_chunk;
+    const bf16* src;
+    if (i < dgs) {
+      const int kp = (i >> 1) * P;
+      src = (i & 1) ? bt + c * wchunk + (size_t)kp * kPiece
+                    : dyt + ((size_t)blockIdx.x * KP + kp) * kPiece;
+    } else if (i < ups) {
+      src = gt + c * wchunk + (size_t)(i - dgs) * P * kPiece;
+    } else {
+      src = bt + c * wchunk + (size_t)(KP + 2 * u0 + (i - ups) * P) * kPiece;
+    }
+    const int st = q % stages;
+    mbar_expect_tx(full + st, stage_bytes);
+    bulk_copy(ring + (size_t)st * P * kPiece, src, stage_bytes, full + st);
+  };
+  auto slot = [&](int q) {
+    mbar_wait(full + q % stages, (q / stages) & 1);
+    return ring + (size_t)(q % stages) * P * kPiece;
+  };
+  auto release = [&](int q) {  // as fwd_tc's
+    if (lane == 0) mbar_arrive(empty + q % stages);
+    if (lane == 0 && warp == (q + stages) % 8 && q + stages < total) {
+      mbar_wait(empty + q % stages, (q / stages) & 1);
+      issue(q + stages);
+    }
+    __syncwarp();
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kF1Threads / 32);
+    }
+    mbar_init_fence();
+  }
+  cp_rows(xs, x, n0, kF1Rows, N, D, kF1Threads);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (lane == 0)
+    for (int q = warp; q < min(stages, total); q += 8) issue(q);
+  cp_async_wait<0>();
+  fence_proxy_async();  // x (cp.async) is read by wgmma
+  __syncthreads();
+
+  float acc[DU][32];
+  float h[4][4];  // dg, then each set's h0 and h1
+  int q = 0;
+  for (int c = c0; c < c1; ++c) {
+    // dg = dy . Wo[:, chunk]: this warpgroup's columns 32 wg .. + 32. With
+    // two ring stages a dy and a Wo^T stage fill the ring: the pair is
+    // released before the next one is waited for
+    for (int kq = 0; kq < KP / P; ++kq, q += 2) {
+      const bf16* A = slot(q);
+      const bf16* W = slot(q + 1);
+      wgmma_fence();
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          wgmma_m64n32(
+              h, wg_desc(A + p * kPiece + 2 * s * kF1Rows * 8, kF1Rows * 16,
+                         128),
+              wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
+                      128),
+              kq > 0 || p > 0 || s > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(q);
+      release(q + 1);
+    }
+    // the dropout on dg (global index n F + f), parked in the stash
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int f = c * kFc + 32 * wg + 8 * nt + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 v = make_float2(h[nt][2 * r], h[nt][2 * r + 1]);
+        if (dr.on) {
+          const uint32_t idx =
+              (uint32_t)(n0 + wr + g + 8 * r) * (uint32_t)F + f;
+          v.x = drop_elem(v.x, idx, seed, dr.thr, dr.scale);
+          v.y = drop_elem(v.y, idx + 1u, seed, dr.thr, dr.scale);
+        }
+        stash[(nt * 2 + r) * kF1Threads + tid] = v;
+      }
+    }
+#pragma unroll
+    for (int set = 0; set < 2; ++set) {
+      // h0, h1 of this warpgroup's chunk columns 32 wg + 16 set .. + 16
+      for (int kq = 0; kq < KP / P; ++kq, ++q) {
+        const bf16* W = slot(q);
+        wgmma_fence();
+        for (int p = 0; p < P; ++p) {
+          const int kp = kq * P + p;
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int kc = kp * 8 + s;
+            wgmma_m64n32(
+                h, wg_desc(xs + 2 * kc * kF1Rows * 8, kF1Rows * 16, 128),
+                wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
+                        128),
+                kc > 0);
+          }
+        }
+        wgmma_commit();
+        if (kq > 0) {
+          wgmma_wait<1>();
+          release(q - 1);
+        }
+      }
+      wgmma_wait<0>();
+      release(q - 1);
+      // the last chunk's dx products are done with dh0 and dh1
+      if (set == 0 && c > c0) __syncthreads();
+      // dh0 = dg h1 act'(h0), dh1 = dg act(h0), each rounded to bf16
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int fl = 32 * wg + 16 * set + 8 * j + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = wr + g + 8 * r;
+          const float2 dg = stash[((2 * set + j) * 2 + r) * kF1Threads + tid];
+          float a0, da0, a1, da1;
+          act_and_grad(h[2 * j][2 * r], act, a0, da0);
+          act_and_grad(h[2 * j][2 * r + 1], act, a1, da1);
+          const int at = ((fl >> 3) * kF1Rows + row) * 8 + (fl & 7);
+          *reinterpret_cast<uint32_t*>(d0s + at) =
+              pack_bf16(dg.x * h[2 * j + 1][2 * r] * da0,
+                        dg.y * h[2 * j + 1][2 * r + 1] * da1);
+          *reinterpret_cast<uint32_t*>(d1s + at) =
+              pack_bf16(dg.x * a0, dg.y * a1);
+        }
+      }
+    }
+    fence_proxy_async();  // dh0 and dh1 are read by wgmma
+    __syncthreads();
+
+    // dx columns 128 (u0 + i / 2) + 64 wg .. + 64 += dh0 . W0^T piece^T
+    // (i even) or dh1 . W1^T piece^T (i odd)
+    const bf16* W = nullptr;
+#pragma unroll
+    for (int i = 0; i < 2 * DU; ++i) {
+      if (i < 2 * du) {
+        const int p = i % P;
+        if (p == 0) {
+          W = slot(q);
+          wgmma_fence();
+        }
+        const bf16* A = (i & 1) ? d1s : d0s;
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64(acc[i >> 1],
+                       wg_desc(A + 2 * s * kF1Rows * 8, kF1Rows * 16, 128),
+                       wg_desc(W + p * kPiece + (2 * s * 128 + 64 * wg) * 8,
+                               128 * 16, 128),
+                       c > c0 || (i & 1) || s > 0);
+        if (p == P - 1) {
+          wgmma_commit();
+          if (i >= P) {
+            wgmma_wait<1>();
+            release(q - 1);
+          }
+          ++q;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    release(q - 1);
+  }
+
+  // one split: dx = bf16(acc); else the split's fp32 partial
+#pragma unroll
+  for (int u = 0; u < DU; ++u) {
+    if (u >= du) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (u0 + u) * 128 + 64 * wg + 8 * nt + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + wr + g + 8 * r;
+        if (n >= N) continue;
+        const float v0 = acc[u][4 * nt + 2 * r];
+        const float v1 = acc[u][4 * nt + 2 * r + 1];
+        if (part == nullptr)
+          *reinterpret_cast<uint32_t*>(dx + (size_t)n * D + col) =
+              pack_bf16(v0, v1);
+        else
+          *reinterpret_cast<float2*>(
+              part + ((size_t)blockIdx.y * N + n) * D + col) =
+              make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dy re-laid out into dyt, then F4 over S hidden splits (and the reduce)
+template <int DU>
+int launch_f4_tc(const void* x, const void* dy, void* dyt, const void* gt,
+                 const void* bt, void* dx, void* part, int N, int D, int F,
+                 int S, int act, DropArgs dr, cudaStream_t st) {
+  const int groups = (D / 128 + DU - 1) / DU;
+  const size_t fixed = tc_fixed_smem(D, true);
+  const int P = tc_pieces(D, DU, fixed);
+  const int stages = tc_stages(fixed, P);
+  const size_t smem = fixed + (size_t)stages * P * kPieceBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      gated_bwd_tc<DU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (N + kF1Rows - 1) / kF1Rows;
+  const long long items = (long long)rows * (D / 128) * 1024;
+  const long long want = (items + 255) / 256;
+  gated_dy_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0, st>>>(
+      (const bf16*)dy, (bf16*)dyt, N, D, items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = F / kFc;
+  const int cps = (chunks + S - 1) / S;
+  gated_bwd_tc<DU><<<dim3(rows, S, groups), kF1Threads, smem, st>>>(
+      (const bf16*)x, (const bf16*)dyt, (const bf16*)gt, (const bf16*)bt,
+      (bf16*)dx, S > 1 ? (float*)part : nullptr, N, D, F, cps, stages, P,
       act, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
-  const long long pairs = (long long)N * D / 2;
-  const long long blocks = (pairs + 255) / 256;
-  ffn_fwd_reduce<<<(unsigned)(blocks > 8192 ? 8192 : blocks), 256, 0, st>>>(
-      (const float*)part, (const float*)b2, (bf16*)y, N, D, S);
-  return (int)cudaGetLastError();
+  return launch_reduce(false, true, part, nullptr, dx, N, D, S, st);
 }
 
 __host__ __device__ constexpr size_t wmma_bwd_smem(int D) {
@@ -794,125 +1299,7 @@ __global__ void ffn_bias_reduce(const float* __restrict__ partial, int G,
 }
 
 
-// ------------------------------------------------------------ gated (F3)
-__host__ __device__ constexpr size_t gated_smem(int D) {
-  return (size_t)kBM * (D + kPad) * 2 + (size_t)kBM * kHLD * 2 +
-         (size_t)2 * kBM * kFLD * 4;
-}
-
-// D = kWarps * 16 * NCF: each warp owns NCF 16-col fragments of the output
-template <int NCF>
-__global__ void __launch_bounds__(kWarps * 32)
-gated_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w0,
-               const bf16* __restrict__ w1, const bf16* __restrict__ wo,
-               bf16* __restrict__ y, int N, int F, int act, DropArgs dr) {
-  constexpr int D = kWarps * 16 * NCF;
-  constexpr int XLD = D + kPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // [kBM][XLD]
-  bf16* hs = xs + kBM * XLD;                               // [kBM][kHLD]
-  float* h0f = reinterpret_cast<float*>(hs + kBM * kHLD);  // [kBM][kFLD]
-  float* h1f = h0f + kBM * kFLD;                           // [kBM][kFLD]
-
-  const int n0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t seed = seed_of(dr);
-
-  for (int i = tid; i < kBM * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    const int n = n0 + r;
-    xs[r * XLD + c] = n < N ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> yacc[2][NCF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(yacc[i][j], 0.f);
-
-  const int arow = warp >> 2;  // up tiles: row fragment of this warp
-  const int acol = warp & 3;   // up tiles: hidden col fragment of this warp
-  __syncthreads();
-
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    // h0 = x . W0[f0 : f0+64, :]^T and h1 = x . W1[f0 : f0+64, :]^T
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1;
-    wmma::fill_fragment(acc0, 0.f);
-    wmma::fill_fragment(acc1, 0.f);
-    const size_t wrow = (size_t)(f0 + acol * 16) * D;
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(b0, w0 + wrow + kk, D);
-      wmma::load_matrix_sync(b1, w1 + wrow + kk, D);
-      wmma::mma_sync(acc0, a, b0, acc0);
-      wmma::mma_sync(acc1, a, b1, acc1);
-    }
-    wmma::store_matrix_sync(h0f + arow * 16 * kFLD + acol * 16, acc0, kFLD,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(h1f + arow * 16 * kFLD + acol * 16, acc1, kFLD,
-                            wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
-      const int r = i / kBF, c = i - r * kBF;
-      float g = act_fn(h0f[r * kFLD + c], act) * h1f[r * kFLD + c];
-      if (dr.on)
-        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
-                      dr.thr, dr.scale);
-      hs[r * kHLD + c] = __float2bfloat16(g);
-    }
-    __syncthreads();
-    // y[32 x D] += g[32 x 64] . Wo[:, f0 : f0+64]^T (this warp's cols)
-#pragma unroll
-    for (int kk = 0; kk < kBF; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hs + kk, kHLD);
-      wmma::load_matrix_sync(a1, hs + 16 * kHLD + kk, kHLD);
-#pragma unroll
-      for (int j = 0; j < NCF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-        const bf16* wop = wo + (size_t)(warp * NCF * 16 + j * 16) * F + f0 + kk;
-        wmma::load_matrix_sync(bw, wop, F);
-        wmma::mma_sync(yacc[0][j], a0, bw, yacc[0][j]);
-        wmma::mma_sync(yacc[1][j], a1, bw, yacc[1][j]);
-      }
-    }
-  }
-
-  __syncthreads();  // h0f is reused as per-warp output staging
-  float* stage = h0f + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) {
-      wmma::store_matrix_sync(stage, yacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int n = n0 + i * 16 + (e >> 4);
-        const int o = warp * NCF * 16 + j * 16 + (e & 15);
-        if (n < N) y[(size_t)n * D + o] = __float2bfloat16(stage[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <int NCF>
-int launch_gated_wmma(const void* x, const void* w0, const void* w1,
-                      const void* wo, void* y, int N, int F, int act,
-                      DropArgs dr, cudaStream_t st) {
-  const size_t smem = gated_smem(kWarps * 16 * NCF);
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_fwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gated_fwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
-      (const bf16*)x, (const bf16*)w0, (const bf16*)w1, (const bf16*)wo,
-      (bf16*)y, N, F, act, dr);
-  return (int)cudaGetLastError();
-}
-
+// ------------------------------------------------- gated (F3, F4), fp32
 __global__ void __launch_bounds__(kFThreads)
 gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
               const float* __restrict__ w1, const float* __restrict__ wo,
@@ -985,149 +1372,6 @@ gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
       }
     }
   }
-}
-
-// ------------------------------------------------------------ gated (F4)
-__host__ __device__ constexpr size_t gated_bwd_smem(int D) {
-  return (size_t)2 * kBM * (D + kPad) * 2 + (size_t)2 * kBM * kHLD * 2 +
-         (size_t)3 * kBM * kFLD * 4;
-}
-
-// dx of the gated FFN. D = kWarps * 16 * NCF: each warp owns NCF 16-col
-// fragments of dx and one 16 x 16 fragment of each 32 x 64 chunk tile.
-template <int NCF>
-__global__ void __launch_bounds__(kWarps * 32)
-gated_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-               const bf16* __restrict__ w0, const bf16* __restrict__ w1,
-               const bf16* __restrict__ wo, bf16* __restrict__ dx, int N,
-               int F, int act, DropArgs dr) {
-  constexpr int D = kWarps * 16 * NCF;
-  constexpr int XLD = D + kPad;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);            // [kBM][XLD]
-  bf16* dys = xs + kBM * XLD;                              // [kBM][XLD]
-  bf16* d0s = dys + kBM * XLD;                             // [kBM][kHLD] dh0
-  bf16* d1s = d0s + kBM * kHLD;                            // [kBM][kHLD] dh1
-  float* h0f = reinterpret_cast<float*>(d1s + kBM * kHLD); // [kBM][kFLD] h0
-  float* h1f = h0f + kBM * kFLD;                           // [kBM][kFLD] h1
-  float* gf = h1f + kBM * kFLD;                            // [kBM][kFLD] dg
-
-  const int n0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t seed = seed_of(dr);
-
-  for (int i = tid; i < kBM * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    const int n = n0 + r;
-    const bool in = n < N;
-    xs[r * XLD + c] = in ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
-    dys[r * XLD + c] = in ? dy[(size_t)n * D + c] : __float2bfloat16(0.f);
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xacc[2][NCF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(xacc[i][j], 0.f);
-
-  const int arow = warp >> 2;  // chunk tiles: row fragment of this warp
-  const int acol = warp & 3;   // chunk tiles: hidden col fragment
-  __syncthreads();
-
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    // h0 = x . W0[f0 : f0+64, :]^T, h1 = x . W1[f0 : f0+64, :]^T and
-    // dg = dy . Wo[:, f0 : f0+64]
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc0, acc1, gacc;
-    wmma::fill_fragment(acc0, 0.f);
-    wmma::fill_fragment(acc1, 0.f);
-    wmma::fill_fragment(gacc, 0.f);
-    const size_t wrow = (size_t)(f0 + acol * 16) * D;
-    const bf16* wop = wo + f0 + acol * 16;
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(b0, w0 + wrow + kk, D);
-      wmma::load_matrix_sync(b1, w1 + wrow + kk, D);
-      wmma::mma_sync(acc0, a, b0, acc0);
-      wmma::mma_sync(acc1, a, b1, acc1);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg;
-      wmma::load_matrix_sync(a, dys + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(bg, wop + (size_t)kk * F, F);
-      wmma::mma_sync(gacc, a, bg, gacc);
-    }
-    const int off = arow * 16 * kFLD + acol * 16;
-    wmma::store_matrix_sync(h0f + off, acc0, kFLD, wmma::mem_row_major);
-    wmma::store_matrix_sync(h1f + off, acc1, kFLD, wmma::mem_row_major);
-    wmma::store_matrix_sync(gf + off, gacc, kFLD, wmma::mem_row_major);
-    __syncthreads();
-    // dg through the dropout mask; dh0 = dg h1 act'(h0), dh1 = dg act(h0),
-    // each rounded to bf16
-    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
-      const int r = i / kBF, c = i - r * kBF;
-      const float h0 = h0f[r * kFLD + c], h1 = h1f[r * kFLD + c];
-      float g = gf[r * kFLD + c];
-      if (dr.on)
-        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
-                      dr.thr, dr.scale);
-      d0s[r * kHLD + c] = __float2bfloat16(g * h1 * act_grad(h0, act));
-      d1s[r * kHLD + c] = __float2bfloat16(g * act_fn(h0, act));
-    }
-    __syncthreads();
-    // dx[32 x D] += dh0 . W0[f0 : f0+64, :] + dh1 . W1[f0 : f0+64, :]
-#pragma unroll
-    for (int kk = 0; kk < kBF; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1,
-          c0, c1;
-      wmma::load_matrix_sync(a0, d0s + kk, kHLD);
-      wmma::load_matrix_sync(a1, d0s + 16 * kHLD + kk, kHLD);
-      wmma::load_matrix_sync(c0, d1s + kk, kHLD);
-      wmma::load_matrix_sync(c1, d1s + 16 * kHLD + kk, kHLD);
-#pragma unroll
-      for (int j = 0; j < NCF; ++j) {
-        const size_t wq = (size_t)(f0 + kk) * D + warp * NCF * 16 + j * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, w0 + wq, D);
-        wmma::mma_sync(xacc[0][j], a0, bw, xacc[0][j]);
-        wmma::mma_sync(xacc[1][j], a1, bw, xacc[1][j]);
-        wmma::load_matrix_sync(bw, w1 + wq, D);
-        wmma::mma_sync(xacc[0][j], c0, bw, xacc[0][j]);
-        wmma::mma_sync(xacc[1][j], c1, bw, xacc[1][j]);
-      }
-    }
-    __syncthreads();  // d0s, d1s and the staging tiles are rewritten next
-  }
-
-  float* stage = h0f + warp * 256;  // per-warp output staging
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) {
-      wmma::store_matrix_sync(stage, xacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int n = n0 + i * 16 + (e >> 4);
-        const int o = warp * NCF * 16 + j * 16 + (e & 15);
-        if (n < N) dx[(size_t)n * D + o] = __float2bfloat16(stage[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <int NCF>
-int launch_gated_bwd_wmma(const void* x, const void* dy, const void* w0,
-                          const void* w1, const void* wo, void* dx, int N,
-                          int F, int act, DropArgs dr, cudaStream_t st) {
-  const size_t smem = gated_bwd_smem(kWarps * 16 * NCF);
-  cudaError_t err = cudaFuncSetAttribute(
-      gated_bwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gated_bwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
-      (const bf16*)x, (const bf16*)dy, (const bf16*)w0, (const bf16*)w1,
-      (const bf16*)wo, (bf16*)dx, N, F, act, dr);
-  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kFThreads)
@@ -1221,6 +1465,16 @@ inline bool bad_drop(const void* seed, int drop, int thr) {
   return drop && (seed == nullptr || thr < 0);
 }
 
+// what the bf16 tensor-core kernels take: D a multiple of 128 up to 1024,
+// F of 64, S hidden splits of ceil(F / 64 / S) chunks each (none empty),
+// partials when S > 1
+inline bool bad_tc(int D, int F, int S, const void* part) {
+  const int chunks = F / kFc;
+  return D < 128 || D % 128 != 0 || D > 1024 || F < kFc || F % kFc != 0 ||
+         S > chunks || (S - 1) * ((chunks + S - 1) / S) >= chunks ||
+         (S > 1 && part == nullptr);
+}
+
 }  // namespace
 
 // W1 (F, D) and W2 (D, F) bf16 re-laid out into wt, 2 F D bf16
@@ -1240,7 +1494,7 @@ extern "C" int vlpet_ffn_w_tiles(const void* w1, const void* w2, void* wt,
 // x (N, D), y (N, D) in x's dtype; b1 (F,), b2 (D,) f32. bf16: wt from
 // vlpet_ffn_w_tiles (w1, w2 unused), D a multiple of 128 up to 1024, F of
 // 64, S hidden splits of ceil(F / 64 / S) chunks each (none empty) and
-// part [S][N][D] f32 scratch when S > 1 (ops/ffn.py _f1_splits); fp32: w1
+// part [S][N][D] f32 scratch when S > 1 (ops/ffn.py f1_splits); fp32: w1
 // (F, D), w2 (D, F), wt and part unused, S 1.
 extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* seed,
@@ -1252,19 +1506,15 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
   cudaStream_t st = (cudaStream_t)stream;
   const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
-    const int chunks = F / kFc;
-    if (D < 128 || D % 128 != 0 || D > 1024 || F < kFc || F % kFc != 0 ||
-        wt == nullptr || S > chunks ||
-        (S - 1) * ((chunks + S - 1) / S) >= chunks ||
-        (S > 1 && part == nullptr))
+    if (wt == nullptr || bad_tc(D, F, S, part))
       return (int)cudaErrorInvalidValue;
     switch (f1_du(D)) {
-      case 1: return launch_f1_tc<1>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
-      case 2: return launch_f1_tc<2>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
-      case 3: return launch_f1_tc<3>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
-      case 4: return launch_f1_tc<4>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
-      case 5: return launch_f1_tc<5>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
-      case 6: return launch_f1_tc<6>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 1: return launch_fwd_tc<1, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 2: return launch_fwd_tc<2, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 3: return launch_fwd_tc<3, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 4: return launch_fwd_tc<4, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 5: return launch_fwd_tc<5, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
+      case 6: return launch_fwd_tc<6, false>(x, wt, b1, b2, y, part, N, D, F, S, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -1323,31 +1573,65 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
   return (int)cudaGetLastError();
 }
 
+// W0, W1 (F, D) and Wo (D, F) bf16 re-laid out: gt (gated_w_tiles, what
+// F3 reads and F4's up pieces) or bt (gated_bwd_tiles, the rest of F4's
+// weights), 3 F D bf16 each. D a multiple of 128, F of 64.
+extern "C" int vlpet_gated_w_tiles(const void* w0, const void* w1,
+                                   const void* wo, void* gt, int D, int F,
+                                   void* stream) {
+  if (D < 128 || D % 128 || F < kFc || F % kFc)
+    return (int)cudaErrorInvalidValue;
+  const long long items = 3LL * F * D / 8;
+  const long long want = (items + 255) / 256;
+  gated_w_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0,
+                  (cudaStream_t)stream>>>((const bf16*)w0, (const bf16*)w1,
+                                          (const bf16*)wo, (bf16*)gt, D, F,
+                                          items);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vlpet_gated_bwd_tiles(const void* w0, const void* w1,
+                                     const void* wo, void* bt, int D, int F,
+                                     void* stream) {
+  if (D < 128 || D % 128 || F < kFc || F % kFc)
+    return (int)cudaErrorInvalidValue;
+  const long long items = 3LL * F * D / 8;
+  const long long want = (items + 255) / 256;
+  gated_bwd_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0,
+                    (cudaStream_t)stream>>>((const bf16*)w0, (const bf16*)w1,
+                                            (const bf16*)wo, (bf16*)bt, D, F,
+                                            items);
+  return (int)cudaGetLastError();
+}
+
+// x (N, D), y (N, D) in x's dtype. bf16: gt from vlpet_gated_w_tiles (w0,
+// w1, wo unused), S hidden splits and part [S][N][D] f32 scratch when S >
+// 1 (ops/ffn.py gated_splits), D and F as bad_tc; fp32: w0, w1 (F, D), wo
+// (D, F), gt and part unused, S 1.
 extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
                                    const void* w1, const void* wo,
-                                   const void* seed, void* y, int N, int D,
-                                   int F, int act, int is_bf16, int drop,
+                                   const void* seed, const void* gt,
+                                   void* part, void* y, int N, int D, int F,
+                                   int S, int act, int is_bf16, int drop,
                                    int thr, float scale, void* stream) {
-  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
-    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
+    if (gt == nullptr || bad_tc(D, F, S, part))
       return (int)cudaErrorInvalidValue;
-    switch (D / (kWarps * 16)) {
-      case 1: return launch_gated_wmma<1>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 2: return launch_gated_wmma<2>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 3: return launch_gated_wmma<3>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 4: return launch_gated_wmma<4>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 5: return launch_gated_wmma<5>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 6: return launch_gated_wmma<6>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 7: return launch_gated_wmma<7>(x, w0, w1, wo, y, N, F, act, dr, st);
-      case 8: return launch_gated_wmma<8>(x, w0, w1, wo, y, N, F, act, dr, st);
+    switch (f1_du(D)) {
+      case 1: return launch_fwd_tc<1, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
+      case 2: return launch_fwd_tc<2, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
+      case 3: return launch_fwd_tc<3, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
+      case 4: return launch_fwd_tc<4, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
+      case 5: return launch_fwd_tc<5, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
+      case 6: return launch_fwd_tc<6, true>(x, gt, nullptr, nullptr, y, part, N, D, F, S, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
+  if (S != 1 || D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)kFBM * D + kFBM * kFBF);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1359,32 +1643,36 @@ extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
   return (int)cudaGetLastError();
 }
 
+// dx (N, D) of vlpet_gated_ffn_fwd for dy (N, D). bf16: gt and bt from
+// the re-lay entries (w0, w1, wo unused), dyt scratch of ceil(N / 64) 64 D
+// bf16 (dy re-laid out), S and part as the forward's; fp32: w0, w1, wo,
+// dyt, gt, bt and part unused, S 1.
 extern "C" int vlpet_gated_ffn_bwd(const void* x, const void* dy,
                                    const void* w0, const void* w1,
-                                   const void* wo, const void* seed, void* dx,
-                                   int N, int D, int F, int act, int is_bf16,
-                                   int drop, int thr, float scale,
-                                   void* stream) {
-  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                                   const void* wo, const void* seed,
+                                   void* dyt, const void* gt, const void* bt,
+                                   void* part, void* dx, int N, int D, int F,
+                                   int S, int act, int is_bf16, int drop,
+                                   int thr, float scale, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const DropArgs dr = drop_args(seed, drop, thr, scale);
   if (is_bf16) {
-    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0)
+    if (dyt == nullptr || gt == nullptr || bt == nullptr ||
+        bad_tc(D, F, S, part))
       return (int)cudaErrorInvalidValue;
-    switch (D / (kWarps * 16)) {
-      case 1: return launch_gated_bwd_wmma<1>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 2: return launch_gated_bwd_wmma<2>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 3: return launch_gated_bwd_wmma<3>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 4: return launch_gated_bwd_wmma<4>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 5: return launch_gated_bwd_wmma<5>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 6: return launch_gated_bwd_wmma<6>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 7: return launch_gated_bwd_wmma<7>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
-      case 8: return launch_gated_bwd_wmma<8>(x, dy, w0, w1, wo, dx, N, F, act, dr, st);
+    switch (f1_du(D)) {
+      case 1: return launch_f4_tc<1>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
+      case 2: return launch_f4_tc<2>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
+      case 3: return launch_f4_tc<3>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
+      case 4: return launch_f4_tc<4>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
+      case 5: return launch_f4_tc<5>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
+      case 6: return launch_f4_tc<6>(x, dy, dyt, gt, bt, dx, part, N, D, F, S, act, dr, st);
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
+  if (S != 1 || D < 1 || D > kFThreads * kFOut || F % kFBF != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)2 * kFBM * D + (size_t)2 * kFBM * kFBF);

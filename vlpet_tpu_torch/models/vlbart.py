@@ -77,10 +77,10 @@ def check_supported(cfg: VLModelConfig) -> None:
     ``scan_layers``, ``remat`` other than "none", and the PET and visual
     flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` and serial
     adapters. What is unported only on a training call raises there:
-    ``lambda_z`` (train/steps.py), a trainable T5
-    ``relative_attention_bias`` and ``vis.sparse_sample`` (models/t5.py
-    ``VLT5.forward``), a biased or dropping attention site on the long
-    backward (T5 video, ops/attention.py).
+    ``lambda_z`` (train/steps.py) and ``vis.sparse_sample`` (models/t5.py
+    ``VLT5._check_trainable``). A trainable T5 ``relative_attention_bias``
+    trains (its dbias comes from A6 or the long backward), and the long
+    backward takes the T5 video sites' bias and probability dropout.
 
     Accepted: ``use_fused_ce`` (C1/C2 on a frozen head, ``VLBart._ce``,
     ``VLT5._ce``) and ``use_fused_beam`` (D2 on the beam path). Not read by

@@ -52,12 +52,17 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, seed (or NULL), wt (bf16; NULL for fp32), partials
     # (or NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, stream
     "vlpet_ffn_fwd": [_P] * 9 + [_I] * 8 + [_F, _P],
-    # x, w0, w1, wo, seed (or NULL), y, N, D, F, act, is_bf16, drop, thr,
-    # scale, stream
-    "vlpet_gated_ffn_fwd": [_P] * 6 + [_I] * 7 + [_F, _P],
-    # x, dy, w0, w1, wo, seed (or NULL), dx, N, D, F, act, is_bf16, drop,
-    # thr, scale, stream
-    "vlpet_gated_ffn_bwd": [_P] * 7 + [_I] * 7 + [_F, _P],
+    # w0, w1, wo, F3's re-laid weights (gt) or F4's others (bt), D, F,
+    # stream
+    "vlpet_gated_w_tiles": [_P] * 4 + [_I] * 2 + [_P],
+    "vlpet_gated_bwd_tiles": [_P] * 4 + [_I] * 2 + [_P],
+    # x, w0, w1, wo, seed (or NULL), gt (bf16; NULL for fp32), partials (or
+    # NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, stream
+    "vlpet_gated_ffn_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # x, dy, w0, w1, wo, seed (or NULL), dy re-laid (scratch), gt, bt (bf16;
+    # NULL for fp32), partials (or NULL), dx, N, D, F, splits, act, is_bf16,
+    # drop, thr, scale, stream
+    "vlpet_gated_ffn_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
     # x, dy, w1, b1, w2, seed (or NULL), dx, partial, db1, db2, N, D, F, G,
     # act, is_bf16, drop, thr, scale, stream
     "vlpet_ffn_bwd": [_P] * 10 + [_I] * 8 + [_F, _P],

@@ -10,10 +10,11 @@ package: the Functions have no dW and raise when a weight requires a
 gradient (the models route a trainable language model to the plain
 fc1 -> act -> fc2). Weights here are in PyTorch's Linear layout, W1 (F, D)
 and W2 (D, F). Bound on the H100 and design: the header note of
-csrc/ffn.cu. bf16 runs on tensor cores (F1: wgmma over weight pieces
-that TMA streams from a re-laid copy of W1 and W2, split over the hidden
-at decode rows, ``f1_splits``; F2-F4: WMMA), fp32 on plain FMA. The
-activation is gelu, gelu_new or relu (T5).
+csrc/ffn.cu. bf16 runs on tensor cores (F1, F3, F4: wgmma over weight
+pieces that TMA streams from re-laid copies of the weights, kept beside
+them, split over the hidden at decode rows, ``f1_splits`` and
+``gated_splits``; F2: WMMA), fp32 on plain FMA. The activation is gelu,
+gelu_new or relu (T5).
 
 ``fused_gated_ffn`` replaces vlpet_tpu/ops/ffn.py:fused_gated_ffn (_run with
 _gated_fwd_kernel, F3, and _gated_bwd_kernel, F4):
@@ -83,10 +84,11 @@ def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None):
     check_drop(rate, seed)
 
 
-def _kernel_inputs(x, weights, dy=None):
+def _kernel_inputs(x, weights, dy=None, wmma=False):
     """Kernel input guard: x (and dy) contiguous fp32/bf16, the weight
     matrices (first one (F, D)) in x's dtype; returns whether the bf16
-    tensor-core kernels run."""
+    tensor-core kernels run. ``wmma``: F2's, whose fragment loads read the
+    weights in place."""
     N, D = x.shape
     Fh = weights[0].shape[0]
     _build.check(x, "x", (torch.float32, torch.bfloat16), 2)
@@ -99,11 +101,16 @@ def _kernel_inputs(x, weights, dy=None):
         if D % 128 or D > 1024 or Fh % 64:
             raise ValueError(f"fused_ffn bf16: need D % 128 == 0, D <= 1024, "
                              f"F % 64 == 0; got D={D}, F={Fh}")
-        # F1 copies x and re-lays the weights in 16-byte pieces; F2-F4's
-        # fragment loads read the weights in 32-byte rows
-        if x.data_ptr() % 16 or any(w.data_ptr() % 32 for w in weights):
-            raise ValueError("fused_ffn bf16: x must be 16-byte and the "
-                             "weights 32-byte aligned")
+        # F1, F3 and F4 copy x (F4 also dy) and re-lay the weights in
+        # 16-byte pieces; F2's fragment loads read the weights in 32-byte
+        # rows
+        walign = 32 if wmma else 16
+        rows = (x,) if wmma or dy is None else (x, dy)
+        if any(t.data_ptr() % 16 for t in rows) or any(
+                w.data_ptr() % walign for w in weights):
+            what = "x" if len(rows) == 1 else "x and dy"
+            raise ValueError(f"fused_ffn bf16: {what} must be 16-byte and "
+                             f"the weights {walign}-byte aligned")
     elif D > 1024 or Fh % 32:
         raise ValueError(f"fused_ffn fp32: need D <= 1024, F % 32 == 0; got "
                          f"D={D}, F={Fh}")
@@ -133,17 +140,29 @@ def f1_splits(N: int, D: int, Fh: int, sms: int):
     return -(-chunks // per), per
 
 
+def gated_splits(N: int, D: int, Fh: int, sms: int):
+    """(splits, hidden chunks a split) of the bf16 F3 and F4 at N rows:
+    f1_splits' rule, for the same 64-row blocks, 64-wide hidden chunks and
+    groups of 128 output columns (F3 at the T5 beam rows, F4 at the
+    decoder's training rows split; both take one split at the encoder
+    rows)."""
+    return f1_splits(N, D, Fh, sms)
+
+
 # W1 -> (weakref to W2, stamp, its re-laid copy): F1's weight pieces
 _F1_TILES = WeakIdKeyDictionary()
+# W0 -> [weakrefs to W1 and Wo, stamp, F3's re-laid copy (gt) or None,
+# F4's (bt) or None]
+_GATED_TILES = WeakIdKeyDictionary()
 
 
-def _stamp(w1, w2):
-    """What must not change for a cached re-laid copy to stay valid: both
+def _stamp(*weights):
+    """What must not change for a cached re-laid copy to stay valid: the
     weights' storage and version counters (None for inference tensors,
     which keep no version counter: never cached)."""
-    if w1.is_inference() or w2.is_inference():
+    if any(w.is_inference() for w in weights):
         return None
-    return (w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+    return tuple(v for w in weights for v in (w.data_ptr(), w._version))
 
 
 def f1_tiles(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -164,6 +183,46 @@ def f1_tiles(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     if stamp is not None:
         _F1_TILES[w1] = (weakref.ref(w2), stamp, wt)
     return wt
+
+
+def gated_tiles(w0: torch.Tensor, w1: torch.Tensor, wo: torch.Tensor,
+                backward: bool = False) -> torch.Tensor:
+    """W0, W1 (F, D) and Wo (D, F) bf16 re-laid out for the tensor-core
+    kernels, 3 F D bf16: F3's weights (csrc/ffn.cu gated_w_tiles; F4 reads
+    its up pieces too) or, with ``backward``, the rest of F4's (Wo^T, W0^T,
+    W1^T: gated_bwd_tiles). Kept beside W0 while it lives and rebuilt, as
+    f1_tiles, when W1 or Wo is another tensor or a weight's version counter
+    or storage moved: an eval or a train run re-lays each layer once (a
+    train run twice: both copies)."""
+    stamp = _stamp(w0, w1, wo)
+    hit = _GATED_TILES.get(w0) if stamp is not None else None
+    if (hit is None or hit[0]() is not w1 or hit[1]() is not wo
+            or hit[2] != stamp):
+        hit = [weakref.ref(w1), weakref.ref(wo), stamp, None, None]
+        if stamp is not None:
+            _GATED_TILES[w0] = hit
+    k = 4 if backward else 3
+    if hit[k] is None:
+        Fh, D = w0.shape
+        hit[k] = torch.empty(3 * Fh * D, dtype=torch.bfloat16,
+                             device=w0.device)
+        _build.launch("vlpet_gated_bwd_tiles" if backward
+                      else "vlpet_gated_w_tiles", w0.data_ptr(),
+                      w1.data_ptr(), wo.data_ptr(), hit[k].data_ptr(), D, Fh)
+    return hit[k]
+
+
+def _splits_and_partials(x, D, Fh):
+    """(splits, fp32 partials or None) of a bf16 F3 / F4 launch."""
+    N = x.shape[0]
+    S, _ = gated_splits(N, D, Fh, _build.multiprocessors(x.device))
+    part = (torch.empty((S, N, D), dtype=torch.float32, device=x.device)
+            if S > 1 else None)
+    return S, part
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
@@ -216,7 +275,7 @@ def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                               rate, seed)
             return torch.autograd.grad(y, (xr, b1r, b2r), dy)
     dy = dy.contiguous()
-    bf16 = _kernel_inputs(x, (w1, w2), dy)
+    bf16 = _kernel_inputs(x, (w1, w2), dy, wmma=True)
     b1f = b1.float().contiguous()
     dx = torch.empty_like(x)
     db1 = torch.zeros(Fh, dtype=torch.float32, device=x.device)
@@ -303,14 +362,19 @@ def _check_gated(x, w0, w1, wo, act, rate, seed):
 
 def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed):
     N, D = x.shape
+    Fh = w0.shape[0]
     bf16 = _kernel_inputs(x, (w0, w1, wo))
     y = torch.empty_like(x)
     if N == 0:
         return y
+    S, gt, part = 1, None, None
+    if bf16:
+        S, part = _splits_and_partials(x, D, Fh)
+        gt = gated_tiles(w0, w1, wo)
     _build.launch("vlpet_gated_ffn_fwd", x.data_ptr(), w0.data_ptr(),
                   w1.data_ptr(), wo.data_ptr(), _seed_arg(rate, seed),
-                  y.data_ptr(), N, D, w0.shape[0], _ACTS[act][0], int(bf16),
-                  *kernel_drop_args(rate))
+                  _ptr(gt), _ptr(part), y.data_ptr(), N, D, Fh, S,
+                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
     fused_gated_ffn.launches += 1
     return y
 
@@ -335,15 +399,25 @@ def fused_gated_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w0: torch.Tensor,
                                     act, rate, seed)
             return torch.autograd.grad(y, xr, dy)[0]
     N, D = x.shape
+    Fh = w0.shape[0]
     dy = dy.contiguous()
     bf16 = _kernel_inputs(x, (w0, w1, wo), dy)
     dx = torch.empty_like(x)
     if N == 0:
         return dx
+    S, dyt, gt, bt, part = 1, None, None, None, None
+    if bf16:
+        S, part = _splits_and_partials(x, D, Fh)
+        # dy re-laid out into 64-row pieces (csrc/ffn.cu gated_dy_tiles)
+        dyt = torch.empty(-(-N // _F1_ROWS) * _F1_ROWS * D,
+                          dtype=torch.bfloat16, device=x.device)
+        gt = gated_tiles(w0, w1, wo)
+        bt = gated_tiles(w0, w1, wo, backward=True)
     _build.launch("vlpet_gated_ffn_bwd", x.data_ptr(), dy.data_ptr(),
                   w0.data_ptr(), w1.data_ptr(), wo.data_ptr(),
-                  _seed_arg(rate, seed), dx.data_ptr(), N, D, w0.shape[0],
-                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
+                  _seed_arg(rate, seed), _ptr(dyt), _ptr(gt), _ptr(bt),
+                  _ptr(part), dx.data_ptr(), N, D, Fh, S, _ACTS[act][0],
+                  int(bf16), *kernel_drop_args(rate))
     fused_gated_ffn_bwd.launches += 1
     return dx
 
