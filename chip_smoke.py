@@ -103,7 +103,8 @@ nonzero and no result line is printed):
      F.linear + F.cross_entropy, and the logits GEMM alone); D2, the fused
      beam attend + slot write, at B 500, K 5, L 40, pos 0, 20, 39 and at
      B 300 with the bias row (the output, the written slot, every other
-     slot bit for bit); U1 at both beam caches, exact;
+     slot bit for bit); U1's K+V write (one launch for a layer's two
+     caches) at both beam caches, exact;
   4d. (run after 5c) fp32 beam-5 and greedy tokens with use_fused_beam,
      BART (6+6) and T5 relu/tied (12+12) at batch 8 to length 40, the init
      scale: kernels vs plain identical, D2 on every beam step and D1 never,
@@ -153,6 +154,17 @@ nonzero and no result line is printed):
      weight re-lays; both dropout masks bit for bit in bf16 at a split (N
      1500) and an unsplit (N 16800) row count (chip_phases.py runs this
      phase on an earlier tree's kernels too);
+  3j. (run after 3i) F2 in bf16 at the rows its paths give it (D 768, F
+     3072): N 1 and 2501 (ragged), 500 (video decoder), 3000 (T5 decoder,
+     relu, rate 0.1), 5000 (BART decoder), 16800 (T5 encoder, relu, rate 0
+     and 0.1), 28000 (BART encoder) and 30200 (video encoder), each against
+     its plain twin and against fp32 arithmetic on its inputs (dx with ds
+     rounded where the kernel rounds it, db1, db2), twice bitwise equal,
+     with its split count and bound; F2's bf16 dropout mask bit for bit
+     at a split (N 3000) and an unsplit (N 16800) row count; U1's K+V
+     write at the BART and T5 beam caches, bf16 and fp32, exact, against
+     two cache[pos].copy_ calls (chip_phases.py runs this phase on an
+     earlier tree's kernels too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -429,6 +441,7 @@ class Report:
         if timed:
             self.timed[key] = dict(ms=ms, plain_ms=pms, library_ms=lms,
                                    bound_ms=bms, bound_by=by)
+        self.last = (ms, pms, lms)
         return ms
 
 
@@ -1007,11 +1020,16 @@ def check_ffn_bf16(label: str, got: torch.Tensor, hidden: torch.Tensor,
     check_bf16_vs_fp32(label, got, ref)
 
 
-def check_bf16_vs_fp32(label: str, got: torch.Tensor,
-                       ref: torch.Tensor) -> None:
+def check_bf16_vs_fp32(label: str, got: torch.Tensor, ref: torch.Tensor,
+                       allow: torch.Tensor = None) -> None:
     """A bf16 FFN kernel's output against ``ref``, fp32 arithmetic on the
-    same bf16 inputs: max |err| / max |ref| within BF16_FFN_RTOL."""
-    rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    same bf16 inputs: max |err| / max |ref| within BF16_FFN_RTOL, where
+    ``allow`` (elementwise, or None) is first taken off |err|: what fp32
+    arithmetic may give either way (ffn_bwd_fp32)."""
+    err = (got.float() - ref).abs()
+    if allow is not None:
+        err = (err - allow).clamp_min(0.0)
+    rel = (err.max() / ref.abs().max()).item()
     if not rel <= BF16_FFN_RTOL:
         raise AssertionError(f"bf16 FFN {label}: max |err| / max |ref| "
                              f"{rel:.3e} against fp32 on the same inputs "
@@ -1666,6 +1684,125 @@ def check_gated_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
                                          "gelu_new", rate, seed)
             _expect_zeros(f"fused_gated_ffn_bwd N{N} F{Fh} off{off}", dx,
                           kept, "bf16")
+
+
+def ffn_bwd_fp32(x, dy, w1, b1, w2, act, rate, seed):
+    """((dx, db1, db2), their allowances) of the FFN in fp32
+    arithmetic on its bf16 inputs, with ds rounded to bf16 before the dx
+    product where F2 (and the TPU kernel, vlpet_tpu/ops/ffn.py:227-231)
+    rounds it; db1 from the fp32 ds. relu' jumps at h = 0, and two fp32
+    sums of the same D products in other orders can leave h on either side
+    of 0 where |h| is within their rounding: there either side is fp32
+    arithmetic. So for relu the reference takes relu' from h in fp64, and
+    the allowances bound what taking the other side changes at the
+    elements with |h| <= 2^-20 (sum_k |x[n, k] W1[f, k]| + |b1[f]|) (16
+    units of fp32 rounding of the terms' magnitude): in dx, sum over those
+    f of |dh[n, f]| |W1[f, d]|, in db1 the sum over those n of |dh[n, f]|.
+    gelu's derivative is smooth: no allowances (None)."""
+    dh = ffn._drop_hidden(dy.float() @ w2.float(), rate, seed)
+    allow = (None, None, None)
+    if act == "relu":
+        xd, wd, bd = x.double(), w1.double(), b1.double()
+        h = xd @ wd.t() + bd
+        amb = h.abs() <= 2.0 ** -20 * (xd.abs() @ wd.abs().t() + bd.abs())
+        ds = dh * (h > 0)
+        flip = dh.abs() * amb
+        allow = (flip @ w1.float().abs() * (1.0 + 2.0 ** -7), flip.sum(0),
+                 None)
+        print(f"  {'relu kink':24s} {amb.sum().item()} of {amb.numel()} "
+              f"elements of h within fp32 rounding of 0", flush=True)
+        del xd, wd, h, amb, flip
+    else:
+        h = (x.float() @ w1.float().t() + b1).requires_grad_()
+        with torch.enable_grad():
+            a = F.gelu(h)
+            (da,) = torch.autograd.grad(a, h, torch.ones_like(a))
+        ds = dh * da
+    return (ds.to(torch.bfloat16).float() @ w1.float(), ds.sum(0),
+            dy.float().sum(0)), allow
+
+
+def phase_ffn_bwd_sites(rep: Report) -> None:
+    """3j: F2 in bf16 at the rows its paths give it (D 768, F 3072): N 1
+    and 2501 (ragged), 500 (video decoder), 3000 (T5 decoder, relu, rate
+    0.1), 5000 (BART decoder), 16800 (T5 encoder, relu, rate 0 and 0.1),
+    28000 (BART encoder) and 30200 (video encoder), gelu with random biases
+    or relu with zero ones. Each against its plain twin (autograd of the
+    plain forward), against fp32 arithmetic on its own inputs (dx, db1,
+    db2: ffn_bwd_fp32) and twice, bitwise equal; each line gives the split
+    count and the bound (F2 reads F1's re-laid weights, whose cost 3h
+    prints). Then F2's bf16 dropout mask bit for bit at a split (N 3000)
+    and an unsplit (N 16800) row count, and U1's K+V write at the BART and
+    T5 beam caches, bf16 and fp32. Only fused_ffn_bwd, the slot writes
+    and their twins are called, so the phase also times an earlier tree's
+    kernels (chip_phases.py)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    randn = randn_fn(g)
+    dtype = torch.bfloat16
+    D, Fh = 768, 3072
+    w1 = randn(Fh, D, dtype=dtype, scale=0.02)
+    w2 = randn(D, Fh, dtype=dtype, scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    z1, z2 = torch.zeros(Fh, device="cuda"), torch.zeros(D, device="cuda")
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tc = not hasattr(ffn, "_ROWS")  # not the WMMA F2 (an earlier port)
+    for site, N, act, rate in (
+            ("ragged", 1, "gelu", 0.0), ("video decoder", 500, "gelu", 0.0),
+            ("ragged", 2501, "gelu", 0.0), ("t5 decoder", 3000, "relu", 0.1),
+            ("bart decoder", 5000, "gelu", 0.0),
+            ("t5 encoder", 16800, "relu", 0.0),
+            ("t5 encoder", 16800, "relu", 0.1),
+            ("bart encoder", 28000, "gelu", 0.0),
+            ("video encoder", 30200, "gelu", 0.0)):
+        x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+        c1, c2 = (b1, b2) if act == "gelu" else (z1, z2)
+        key = "fused_ffn_bwd relu +dropout" if rate else "fused_ffn_bwd"
+        label = (f"bf16 {site} N{N} {act}" + (f" rate {rate}" if rate else "")
+                 + (f" S{ffn.f1_splits(N, D, Fh, sms)[0]}" if tc else ""))
+
+        def kernel():
+            return ffn.fused_ffn_bwd(x, dy, w1, c1, w2, act, rate, seed)
+        plain = _grads_of(lambda a, c, d: ffn.ffn_reference(
+            a, w1, c, w2, d, act, rate, seed), (x, c1, c2), dy)
+        rep.check(key, label, kernel, plain, dtype,
+                  work=(2 * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                        6 * N * D * Fh), backward=True)
+        refs, allows = ffn_bwd_fp32(x, dy, w1, c1, w2, act, rate, seed)
+        for name, got, ref, allow in zip(("dx", "db1", "db2"), kernel(),
+                                         refs, allows):
+            check_bf16_vs_fp32(f"{label} {name}", got, ref, allow)
+        del refs, allows
+        bitwise_repeat(key, label, kernel)
+        del x, dy, plain
+    check_ffn_bwd_bf16_mask(seed)
+    for dt in (torch.bfloat16, torch.float32):
+        for rows, label in ((2500, "bart beam"), (1500, "t5 beam")):
+            u1_case(rep, g, dt, rows, D, 40, 20, label, timed=False)
+
+
+@torch.no_grad()
+def check_ffn_bwd_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
+    """bf16 F2's dropout mask, bit for bit, is ops/hashdrop.py's where the
+    hidden is split over blocks (N 3000, the T5 decoder rows) and where it
+    is not (N 16800): check_drop_masks' picking weights in bf16. W1 spreads
+    x = 1 onto hidden columns off .. off + D, b1 = 1 keeps relu' at 1, and
+    W2 picks dy = 1 back onto them, so dx = drop(dh) . W1 holds the dropped
+    columns: an exact zero where dropped, at off 0 and F - D."""
+    D, Fh = 768, 3072
+    bf = torch.bfloat16
+    ones_b1 = torch.ones(Fh, device="cuda")
+    for N in (3000, 16800):
+        ones = torch.ones((N, D), device="cuda", dtype=bf)
+        keep = keep_mask((N, Fh), 0, seed, rate, device="cuda")
+        for off in (0, Fh - D):
+            pick = _picking(D, Fh, off).to(bf)  # (D, F): hidden -> D
+            spread = pick.t().contiguous()      # (F, D): D -> hidden
+            dx, _, _ = ffn.fused_ffn_bwd(ones, ones, spread, ones_b1, pick,
+                                         "relu", rate, seed)
+            _expect_zeros(f"fused_ffn_bwd N{N} F{Fh} off{off}", dx,
+                          keep[:, off:off + D], "bf16")
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -2529,34 +2666,63 @@ def d2_case(rep: Report, g, dtype, B: int, H: int, Dh: int, Lc: int,
               library_fn=beam_sdpa(qb, kk, vk, anc, pos, dtype, row))
 
 
+def slot_writers():
+    """(write, plain): a decode step's K and V slot writes. The pair form,
+    one U1 launch (ops.cache_update.cache_slots_update), where the port has
+    it; else two one-cache writes (an earlier tree's port, which
+    chip_phases.py times with this tree's phases)."""
+    if hasattr(cache_update, "cache_slots_update"):
+        return (cache_update.cache_slots_update,
+                cache_update.cache_slots_update_reference)
+
+    def each(fn):
+        return lambda caches, news, pos: [fn(c, n, pos)
+                                          for c, n in zip(caches, news)]
+    return (each(cache_update.cache_slot_update),
+            each(cache_update.cache_slot_update_reference))
+
+
 def u1_case(rep: Report, g, dtype, rows: int, inner: int, Lc: int, pos: int,
             label: str, timed: bool) -> None:
-    """U1 at one decode cache, viewed as (1, L, rows, inner): the slot
-    written exactly, every other slot unchanged bit for bit, the plain
-    twin's cache equal; the library yardstick is cache[pos].copy_(new)."""
+    """U1 at one layer's K and V decode caches, each viewed as (1, L, rows,
+    inner): both slots written exactly, every other slot unchanged bit for
+    bit, the plain twin's caches equal, one launch for the pair where the
+    port has the pair form; the library yardstick is two
+    cache[pos].copy_(new) calls, the bound the pair's bytes."""
     randn = randn_fn(g)
     tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-    cache = randn(Lc, rows, inner, dtype=dtype)
-    new = randn(rows, inner, dtype=dtype)
-    before, plain = cache.clone(), cache.clone()
-    c4, p4, n3 = (cache.view(1, Lc, rows, inner),
-                  plain.view(1, Lc, rows, inner), new.view(1, rows, inner))
-    got = cache_update.cache_slot_update(c4, n3, pos)
-    cache_update.cache_slot_update_reference(p4, n3, pos)
+    caches = [randn(Lc, rows, inner, dtype=dtype) for _ in range(2)]
+    news = [randn(rows, inner, dtype=dtype) for _ in range(2)]
+    before = [c.clone() for c in caches]
+    plain = [c.clone() for c in caches]
+    c4 = [c.view(1, Lc, rows, inner) for c in caches]
+    p4 = [c.view(1, Lc, rows, inner) for c in plain]
+    n3 = [n.view(1, rows, inner) for n in news]
+    write, write_plain = slot_writers()
+    launches = cache_update.cache_slot_update.launches
+    write(c4, n3, pos)
+    launches = cache_update.cache_slot_update.launches - launches
+    write_plain(p4, n3, pos)
     torch.cuda.synchronize()
     others = [t for t in range(Lc) if t != pos]
-    if (got.data_ptr() != cache.data_ptr() or not torch.equal(cache[pos], new)
-            or not torch.equal(cache[others], before[others])
-            or not torch.equal(cache, plain)):
-        raise AssertionError(f"cache_slot_update {tag} {label}: not an exact "
-                             f"in-place write of slot {pos}")
-    rep.check("cache_slot_update", f"{tag} {label} (1, {Lc}, {rows}, {inner}) "
-              f"pos{pos}",
-              lambda: cache_update.cache_slot_update(c4, n3, pos),
-              lambda: cache_update.cache_slot_update_reference(p4, n3, pos),
-              dtype, timed=timed,
-              work=(2 * cache.element_size() * rows * inner, 0),
-              library_fn=lambda: cache[pos].copy_(new))
+    for c, b, p, n in zip(caches, before, plain, news):
+        if (not torch.equal(c[pos], n) or not torch.equal(c[others], b[others])
+                or not torch.equal(c, p)):
+            raise AssertionError(f"cache_slot_update {tag} {label}: not an "
+                                 f"exact in-place write of slot {pos}")
+    if hasattr(cache_update, "cache_slots_update") and launches != 1:
+        raise AssertionError(f"cache_slot_update {tag} {label}: {launches} "
+                             f"launches for one K and V write")
+    rep.check("cache_slot_update", f"{tag} {label} K+V (1, {Lc}, {rows}, "
+              f"{inner}) pos{pos}", lambda: write(c4, n3, pos),
+              lambda: write_plain(p4, n3, pos), dtype, timed=timed,
+              work=(2 * 2 * caches[0].element_size() * rows * inner, 0),
+              library_fn=lambda: [c[pos].copy_(n)
+                                  for c, n in zip(caches, news)])
+    ms, _, lms = rep.last
+    print(f"  {'cache_slot_update':24s} {f'{tag} {label}':34s} {launches} "
+          f"launch(es) per K+V write; kernel / two copy_ {ms / lms:.3f}",
+          flush=True)
 
 
 def phase_fused_kernels(rep: Report) -> None:
@@ -2858,6 +3024,7 @@ def profile_run(run, card: str, what: str) -> None:
                 "gated_w_tiles": "fused_gated_ffn kernel (F3)",
                 "gated_bwd": "fused_gated_ffn_bwd kernel (F4)",
                 "gated_dy_tiles": "fused_gated_ffn_bwd kernel (F4)",
+                # ffn_bwd_tc, ffn_bwd_dy_tiles, ffn_bwd_reduce, ffn_bwd_f32
                 "ffn_bwd": "fused_ffn_bwd kernel (F2)",
                 "ffn_bias": "fused_ffn_bwd kernel (F2)",
                 "attention_fwd": "fused_attention kernel (A1)",
@@ -2944,6 +3111,9 @@ def main() -> int:
     phase_ffn_ce_sites(rep)
     print("phase 3i: F3 and F4 at their paths' rows, bf16", flush=True)
     phase_gated_ffn_sites(rep)
+    print("phase 3j: F2 at its paths' rows, bf16; U1's K+V write",
+          flush=True)
+    phase_ffn_bwd_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()

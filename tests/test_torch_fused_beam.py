@@ -20,7 +20,8 @@ against the JAX package, on CPU.
   identical to the JAX model's (which on the CPU takes its dus +
   beam_decode_attend path, the same function) and to the port without the
   flag. Every beam step's self-attention goes through D2 and no other
-  decode-step slot write happens there; greedy steps write through U1.
+  decode-step slot write happens there; greedy steps write through U1, K
+  and V in one call a layer and step.
 """
 
 import dataclasses
@@ -200,7 +201,8 @@ def test_fused_beam_generate_token_parity(fused_beam_models, beams,
     counts = {}
     for name in ("beam_decode_attend_update", "beam_decode_attend"):
         _counting(monkeypatch, mod, name, counts)
-    _counting(monkeypatch, tbart, "cache_slot_update", counts)
+    _counting(monkeypatch, tbart, "cache_slots_update", counts)
+    _counting(monkeypatch, ports[True], "decode_step_topk", counts)
     fused = tgen.seq2seq_generate(ports[True], **tbatch, ctx=ctx,
                                   num_beams=beams, max_length=max_len)
     np.testing.assert_array_equal(fused.numpy(), want)
@@ -211,10 +213,12 @@ def test_fused_beam_generate_token_parity(fused_beam_models, beams,
               else cfg.backbone.decoder_layers)
     if beams > 1:
         assert counts.get("beam_decode_attend", 0) == 0
-        assert counts.get("cache_slot_update", 0) == 0
+        assert counts.get("cache_slots_update", 0) == 0
         assert counts["beam_decode_attend_update"] % layers == 0
         assert counts["beam_decode_attend_update"] > 0
     else:
         assert counts.get("beam_decode_attend_update", 0) == 0
-        assert counts["cache_slot_update"] > 0
-        assert counts["cache_slot_update"] % (2 * layers) == 0
+        # K and V in one U1 call: one a layer and step
+        assert counts["decode_step_topk"] > 0
+        assert counts["cache_slots_update"] == layers * counts[
+            "decode_step_topk"]

@@ -363,21 +363,25 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (+)= A . B^T, m64n32k16, A and B K-major in shared memory; warp w of
+// d (+)= A . B^T, m64n32k16, A K-major in shared memory, B K-major (TB 0)
+// or MN-major (TB 1: wgmma's transpose-B; no swizzle, core matrices of 8
+// K rows x 16 bytes of N, the descriptor's leading offset between core
+// matrices along K, its stride offset between those along N); warp w of
 // the warpgroup receives rows 16 w .. 16 w + 16 in mma.sync's C layout:
 // d[nt] is n8 tile nt, (row g, columns 2 t, 2 t + 1), then row g + 8
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n32(float (&d)[4][4], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, "
-      "p, 1, 1, 0, 0;\n}\n"
+      "p, 1, 1, 0, %19;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
         "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 }  // namespace vlpet

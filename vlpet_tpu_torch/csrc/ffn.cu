@@ -107,30 +107,51 @@
 // D 768): the dg products wait for a dy stage and a Wo^T stage together.
 // At N 3000 (47 row blocks) the hidden splits over blocks with fp32
 // partials of dx (gated_bwd_reduce, in order). 248 registers, no spills.
-// It replaced a WMMA design (F2's block with three accumulators): 6.9401
-// -> 1.4552 ms at N 16800 and 1.5342 -> 0.4298 at N 3000, rate 0.1
+// It replaced a WMMA design (8 warps per 32 rows, three accumulators):
+// 6.9401 -> 1.4552 ms at N 16800 and 1.5342 -> 0.4298 at N 3000, rate 0.1
 // (chip_phases.py phase 3i, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 // Both F3 and F4 run at the rate F1's stream found (about 3.5 TB/s of
-// weights from L2 over the card). F2 maps onto the same skeleton (one
-// up-product, ds = drop(dy . W2) act'(h + b1), dx = ds . W1, plus the
-// column sums of ds).
+// weights from L2 over the card).
 //
-// F2, bf16: one block of 8 warps per 32 rows; the x and dy tiles live in
-// shared memory; for each 64-wide hidden chunk the warps compute the 32x64
-// fc1 and dh tiles with WMMA bf16 tensor-core products (fp32 accumulate),
-// apply the bias and the activation's derivative in fp32, round to bf16 in
-// shared memory, and accumulate their 32 x D/8 slice of dx in fp32 register
-// fragments. fp32 inputs take plain-FMA kernels of the same shape (fp32
-// tensor-core paths are TF32 and would break fp32 parity). Rows past N are
-// zero-filled in shared memory (or the re-laid dy) and masked at the store:
-// no padding copy. The backward's bias sums are deterministic: each block
-// writes one partial row and a second kernel sums them in order.
-#include <mma.h>
-
+// F2, bf16 (ffn_bwd_tc<DU>): dx, db1 and db2 of F1, 6 N D F FLOPs (0.40 ms
+// at N 28000, D 768, F 3072). F4's block with one up-product: 64 rows, two
+// warpgroups, dx's fp32 accumulator (64 x D) in their registers, x
+// resident in shared memory, dy re-laid per call into 64-row pieces
+// (ffn_bwd_dy_tiles, which also writes each 64-row block's fp32 column
+// sums of dy: db2's partial row) and streamed through the ring beside the
+// weights. Per 64-wide hidden chunk: dh = dy . W2[:, chunk] on wgmma m64n32
+// (32 columns a warpgroup), the dropout (global index n F + f), the fp32
+// dh parked in the per-thread stash; h = x . W1[chunk]^T; on the
+// accumulator registers ds = dh act'(h + b1) in fp32, rounded to bf16 into
+// a double-buffered 64 x 64 tile (one barrier a chunk), and its column
+// sums: shuffles over the 16 rows of a warp, then the four warps of the
+// column's warpgroup in order, written once per (row block, chunk) into
+// the block's db1 partial row (each split owns its chunks' columns; no
+// atomics); then dx += ds . W1[chunk, :] on m64n64 per 128 dx columns.
+// Every weight comes from F1's re-laid copy (ffn_w_tiles): h from its up
+// pieces as F1's fc1, and dh's and dx's B operands, W2[:, chunk] and
+// W1[chunk, :], from its fc2 and up pieces read MN-major (wgmma's
+// transpose-B bit, no swizzle), so F2 needs no second copy. Per chunk a
+// block streams 24 pieces at D 768 (dy 6, fc2 6, up 6 for h and again 6
+// for dx). At N 3000 and below the hidden splits over blocks (f1_splits'
+// rule) with fp32 partials of dx (ffn_bwd_reduce, in order);
+// ffn_bias_reduce sums the bias partial rows in block order. Rows past N
+// are zero in x's tile and in dy's pieces, so their ds is 0 and the sums
+// need no mask. Shared memory at D 768: x 96 KB, the ds tiles 16, the
+// stash 16, the column sums 2, a ring of two 48 KB stages: 226 KB. 255
+// registers at DU 6, no spills. Tried first: F4's second re-laid copy
+// (W2^T and W1^T, K-major, 4.7 MB a layer), which ran no faster than the
+// transpose-B reads that replaced it. fp32 keeps ffn_bwd_f32 (plain FMA,
+// 16 rows a block): fp32 tensor-core paths are TF32 and would break fp32
+// parity. It replaced a WMMA design (8 warps per 32 rows reading 16 x 16
+// fragments of W1 and W2 straight from global memory): 9.1060 -> 2.6921
+// ms at N 28000 (gelu), 5.0809 -> 1.3026 at N 16800 (relu, rate 0.1) and
+// 1.2428 -> 0.5183 at N 3000, still 6-7x the bound at the encoder rows:
+// the weight stream holds it, as it holds F1, F3 and F4 (chip_phases.py
+// phase 3j, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
 #include "common.cuh"
 
 using namespace vlpet;
-using namespace nvcuda;
 
 namespace {
 
@@ -174,14 +195,6 @@ __device__ __forceinline__ void act_and_grad(float h, int act, float& a,
   }
 }
 
-// ---------------------------------------------------------------- bf16 WMMA
-constexpr int kBM = 32;     // rows per block (two 16-row fragments)
-constexpr int kBF = 64;     // hidden chunk width (four 16-col fragments)
-constexpr int kWarps = 8;
-constexpr int kPad = 8;     // bf16 row padding: ldm stays a multiple of 8
-constexpr int kHLD = kBF + kPad;   // hidden tile row stride (bf16)
-constexpr int kFLD = kBF + 4;      // fp32 staging row stride
-
 // ------------------------------------------------- F1, bf16 (tensor cores)
 // F1 on the tensor cores (header). A block takes 64 rows of x (chunk-major
 // in shared memory, common.cuh), one range of 64-wide hidden chunks (its
@@ -214,9 +227,9 @@ int f1_du(int D) {
   return (pieces + groups - 1) / groups;
 }
 
-// shared memory besides the ring: x, two 64 x 64 bf16 hidden tiles (F1
-// and F3: one tile, double-buffered; F4: dh0 and dh1) and, in F4, the
-// fp32 dg stash of 64 x 64; the barriers
+// shared memory besides the ring: x, two 64 x 64 bf16 hidden tiles (F1,
+// F3 and F2: one tile, double-buffered; F4: dh0 and dh1) and, in the
+// backwards, the fp32 stash of 64 x 64 (F2's dh, F4's dg); the barriers
 size_t tc_fixed_smem(int D, bool bwd) {
   return (size_t)kF1Rows * D * 2 + 2 * kF1Rows * kFc * 2 +
          (bwd ? (size_t)kF1Rows * kFc * 4 : 0) + 2 * kF1MaxStages * 8;
@@ -370,14 +383,48 @@ __global__ void gated_dy_tiles(const bf16* __restrict__ dy,
   }
 }
 
+// F2's dy re-lay: dy into dyt as gated_dy_tiles lays it out, and each
+// 64-row block's fp32 column sums of dy (zeros past N) into its bias
+// partial row, bias_part[block][F + d] (db2's share of the block). One
+// thread a 64-row block and 16-byte column chunk, down the block's rows;
+// neighbouring threads on neighbouring chunks of a row.
+__global__ void ffn_bwd_dy_tiles(const bf16* __restrict__ dy,
+                                 bf16* __restrict__ dyt,
+                                 float* __restrict__ bias_part, int N, int D,
+                                 int F, long long items) {
+  const int words = D / 8;  // 16-byte chunks of a row
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < items; i += (long long)gridDim.x * blockDim.x) {
+    const long long rb = i / words;
+    const int w = (int)(i - rb * words);
+    bf16* dst = dyt + (rb * (D / 128) + (w >> 4)) * kPiece + (w & 15) * 64 * 8;
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int r = 0; r < kF1Rows; ++r) {
+      const long long n = rb * kF1Rows + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (n < N) v = *reinterpret_cast<const uint4*>(dy + n * D + w * 8);
+      *reinterpret_cast<uint4*>(dst + r * 8) = v;
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s[k] += __bfloat162float(e[k]);
+    }
+    float4* o = reinterpret_cast<float4*>(bias_part + rb * (F + D) + F + w * 8);
+    o[0] = make_float4(s[0], s[1], s[2], s[3]);
+    o[1] = make_float4(s[4], s[5], s[6], s[7]);
+  }
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
                : "memory");
 }
 
-// d (+)= A . B^T, m64n64k16, A and B K-major in shared memory; d[4 nt ..
-// 4 nt + 4] is n8 tile nt in mma.sync's C layout (wgmma_m64n32)
+// d (+)= A . B^T, m64n64k16, A K-major in shared memory, B K-major (TB 0)
+// or MN-major (TB 1, as wgmma_m64n32's); d[4 nt .. 4 nt + 4] is n8 tile nt
+// in mma.sync's C layout (wgmma_m64n32)
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
@@ -385,7 +432,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
       "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -393,7 +440,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // The tensor-core forward of F1 (GATED false) and F3 (GATED true). part:
@@ -648,7 +695,7 @@ __device__ __forceinline__ void reduce_splits(const float* __restrict__ part,
   }
 }
 
-// one kernel name per path, for the profile's families (F1, F3, F4)
+// one kernel name per path, for the profile's families (F1, F2, F3, F4)
 __global__ void ffn_fwd_reduce(const float* __restrict__ part,
                                const float* __restrict__ b,
                                bf16* __restrict__ out, int N, int D, int S) {
@@ -661,10 +708,30 @@ __global__ void gated_fwd_reduce(const float* __restrict__ part,
   reduce_splits(part, b, out, N, D, S);
 }
 
+__global__ void ffn_bwd_reduce(const float* __restrict__ part,
+                               const float* __restrict__ b,
+                               bf16* __restrict__ out, int N, int D, int S) {
+  reduce_splits(part, b, out, N, D, S);
+}
+
 __global__ void gated_bwd_reduce(const float* __restrict__ part,
                                  const float* __restrict__ b,
                                  bf16* __restrict__ out, int N, int D, int S) {
   reduce_splits(part, b, out, N, D, S);
+}
+
+// db1[f] = sum_g partial[g][f], db2[c] = sum_g partial[g][F + c], in order
+__global__ void ffn_bias_reduce(const float* __restrict__ partial, int G,
+                                int F, int D, float* __restrict__ db1,
+                                float* __restrict__ db2) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= F + D) return;
+  float s = 0.f;
+  for (int g = 0; g < G; ++g) s += partial[(size_t)g * (F + D) + t];
+  if (t < F)
+    db1[t] = s;
+  else
+    db2[t - F] = s;
 }
 
 int launch_reduce(bool fwd, bool gated, const void* part, const void* b,
@@ -672,8 +739,8 @@ int launch_reduce(bool fwd, bool gated, const void* part, const void* b,
   const long long pairs = (long long)N * D / 2;
   const long long want = (pairs + 255) / 256;
   const unsigned blocks = (unsigned)(want > 8192 ? 8192 : want);
-  auto kern = !gated ? &ffn_fwd_reduce
-                     : (fwd ? &gated_fwd_reduce : &gated_bwd_reduce);
+  auto kern = gated ? (fwd ? &gated_fwd_reduce : &gated_bwd_reduce)
+                    : (fwd ? &ffn_fwd_reduce : &ffn_bwd_reduce);
   kern<<<blocks, 256, 0, st>>>((const float*)part, (const float*)b,
                                (bf16*)out, N, D, S);
   return (int)cudaGetLastError();
@@ -976,146 +1043,308 @@ int launch_f4_tc(const void* x, const void* dy, void* dyt, const void* gt,
   return launch_reduce(false, true, part, nullptr, dx, N, D, S, st);
 }
 
-__host__ __device__ constexpr size_t wmma_bwd_smem(int D) {
-  return (size_t)2 * kBM * (D + kPad) * 2 + (size_t)kBM * kHLD * 2 +
-         (size_t)2 * kBM * kFLD * 4;
-}
+// F2 on the tensor cores (header): F4's block with one up-product. A block
+// takes 64 rows of x (chunk-major in shared memory), one range of 64-wide
+// hidden chunks (its split) and DU 128-column pieces of dx. Per chunk c the
+// ring brings, P pieces a stage, all of them from F1's wt but dy: the
+// block's dy pieces and the chunk's fc2 pieces in turn (dh: the products
+// wait for one stage of each), the chunk's D / 128 up pieces (h), then the
+// block's dx pieces, the up pieces of its 128-column groups again (dx).
+// dh and dx read their B operands, W2[:, chunk] and W1[chunk, :], from the
+// fc2 and up pieces MN-major (wgmma's transpose-B): no second copy. part:
+// [S][N][D] fp32 partials of dx when the hidden is split (S > 1), else
+// NULL. bias_part: [gridDim.x][F + D] fp32, the block's db1
+// column sums (written here by the blocks of the first dx-column group,
+// each split its own chunks) and db2's (ffn_bwd_dy_tiles).
+constexpr int kF2ColFloats = 2 * (kF1Threads / 32) * 32;  // [2][8 warps][32]
 
-// partial: [gridDim.x][F + D] fp32, the block's db1 then db2 row sums
-template <int NCF>
-__global__ void __launch_bounds__(kWarps * 32)
-ffn_bwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-             const bf16* __restrict__ w1, const float* __restrict__ b1,
-             const bf16* __restrict__ w2, bf16* __restrict__ dx,
-             float* __restrict__ partial, int N, int F, int act,
-             DropArgs dr) {
-  constexpr int D = kWarps * 16 * NCF;
-  constexpr int XLD = D + kPad;
+template <int DU>
+__global__ void __launch_bounds__(kF1Threads, 1)
+ffn_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ dyt,
+           const bf16* __restrict__ wt, const float* __restrict__ b1,
+           bf16* __restrict__ dx,
+           float* __restrict__ part, float* __restrict__ bias_part, int N,
+           int D, int F, int cps, int stages, int P, int act, DropArgs dr) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);           // [kBM][XLD]
-  bf16* dys = xs + kBM * XLD;                             // [kBM][XLD]
-  bf16* hs = dys + kBM * XLD;                             // [kBM][kHLD] ds
-  float* hf = reinterpret_cast<float*>(hs + kBM * kHLD);  // [kBM][kFLD] h
-  float* gf = hf + kBM * kFLD;                            // [kBM][kFLD] dh
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // chunk-major [D / 8][64]
+  bf16* dss = xs + kF1Rows * D;  // 2 x chunk-major [8][64]: bf16 ds
+  // dh after the dropout, each thread's own 16 values: [8][256] float2
+  float2* stash = reinterpret_cast<float2*>(dss + 2 * kF1Rows * kFc);
+  // each warp's column sums of ds over its 16 rows, double-buffered
+  float* cols = reinterpret_cast<float*>(stash + 8 * kF1Threads);
+  bf16* ring = reinterpret_cast<bf16*>(cols + kF2ColFloats);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + (size_t)stages * P * kPiece);
+  uint64_t* empty = full + kF1MaxStages;
 
-  const int n0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* prow = partial + (size_t)blockIdx.x * (F + D);
+  const int KP = D / 128;
+  const int n0 = blockIdx.x * kF1Rows;
+  const int c0 = blockIdx.y * cps;
+  const int c1 = min(c0 + cps, F / kFc);
+  const int u0 = blockIdx.z * DU;  // the block's first 128 dx columns
+  const int du = min(DU, KP - u0);
+  const int dhs = 2 * KP / P;          // a chunk's stages of dy and fc2
+  const int ups = dhs + KP / P;        // ... then of the up pieces
+  const int per_chunk = ups + du / P;  // ... then of the dx pieces
+  const int total = (c1 - c0) * per_chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wr = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
   const uint32_t seed = seed_of(dr);
+  const uint32_t stage_bytes = (uint32_t)P * kPieceBytes;
+  const size_t wchunk = (size_t)2 * KP * kPiece;  // a chunk of wt
 
-  for (int i = tid; i < kBM * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    const int n = n0 + r;
-    const bool in = n < N;
-    xs[r * XLD + c] = in ? x[(size_t)n * D + c] : __float2bfloat16(0.f);
-    dys[r * XLD + c] = in ? dy[(size_t)n * D + c] : __float2bfloat16(0.f);
+  auto issue = [&](int q) {
+    const int c = c0 + q / per_chunk, i = q % per_chunk;
+    const bf16* src;
+    if (i < dhs) {
+      const int kp = (i >> 1) * P;
+      src = (i & 1) ? wt + c * wchunk + (size_t)(KP + kp) * kPiece
+                    : dyt + ((size_t)blockIdx.x * KP + kp) * kPiece;
+    } else if (i < ups) {
+      src = wt + c * wchunk + (size_t)(i - dhs) * P * kPiece;
+    } else {
+      src = wt + c * wchunk + (size_t)(u0 + (i - ups) * P) * kPiece;
+    }
+    const int st = q % stages;
+    mbar_expect_tx(full + st, stage_bytes);
+    bulk_copy(ring + (size_t)st * P * kPiece, src, stage_bytes, full + st);
+  };
+  auto slot = [&](int q) {
+    mbar_wait(full + q % stages, (q / stages) & 1);
+    return ring + (size_t)(q % stages) * P * kPiece;
+  };
+  auto release = [&](int q) {  // as fwd_tc's
+    if (lane == 0) mbar_arrive(empty + q % stages);
+    if (lane == 0 && warp == (q + stages) % 8 && q + stages < total) {
+      mbar_wait(empty + q % stages, (q / stages) & 1);
+      issue(q + stages);
+    }
+    __syncwarp();
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, kF1Threads / 32);
+    }
+    mbar_init_fence();
   }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> xacc[2][NCF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NCF; ++j) wmma::fill_fragment(xacc[i][j], 0.f);
-
-  const int arow = warp >> 2;  // fc1 / dh tile: row fragment of this warp
-  const int acol = warp & 3;   // fc1 / dh tile: hidden col fragment
+  cp_rows(xs, x, n0, kF1Rows, N, D, kF1Threads);
+  cp_async_commit();
+  __syncthreads();  // the barriers are initialised
+  if (lane == 0)
+    for (int q = warp; q < min(stages, total); q += 8) issue(q);
+  cp_async_wait<0>();
+  fence_proxy_async();  // x (cp.async) is read by wgmma
   __syncthreads();
 
-  for (int f0 = 0; f0 < F; f0 += kBF) {
-    // h[32 x 64] = x . W1[f0 : f0+64, :]^T and dh[32 x 64] = dy . W2[:, f0 : f0+64]
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, gacc;
-    wmma::fill_fragment(hacc, 0.f);
-    wmma::fill_fragment(gacc, 0.f);
-    const bf16* w1p = w1 + (size_t)(f0 + acol * 16) * D;
-    const bf16* w2p = w2 + f0 + acol * 16;
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-      wmma::load_matrix_sync(a, xs + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(bw, w1p + kk, D);
-      wmma::mma_sync(hacc, a, bw, hacc);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg;
-      wmma::load_matrix_sync(a, dys + arow * 16 * XLD + kk, XLD);
-      wmma::load_matrix_sync(bg, w2p + (size_t)kk * F, F);
-      wmma::mma_sync(gacc, a, bg, gacc);
-    }
-    wmma::store_matrix_sync(hf + arow * 16 * kFLD + acol * 16, hacc, kFLD,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(gf + arow * 16 * kFLD + acol * 16, gacc, kFLD,
-                            wmma::mem_row_major);
-    __syncthreads();
-    // ds = drop(dh) * act'(h + b1): fp32 into gf (for db1), bf16 into hs
-    // (for dx)
-    for (int i = tid; i < kBM * kBF; i += blockDim.x) {
-      const int r = i / kBF, c = i - r * kBF;
-      float g = gf[r * kFLD + c];
-      if (dr.on)
-        g = drop_elem(g, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + c), seed,
-                      dr.thr, dr.scale);
-      const float ds = g * act_grad(hf[r * kFLD + c] + b1[f0 + c], act);
-      gf[r * kFLD + c] = ds;
-      hs[r * kHLD + c] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-    if (tid < kBF) {
-      float s = 0.f;
-      for (int r = 0; r < kBM; ++r) s += gf[r * kFLD + tid];
-      prow[f0 + tid] = s;
-    }
-    // dx[32 x D] += ds[32 x 64] . W1[f0 : f0+64, :] (this warp's cols)
+  float acc[DU][32];
+  float h[4][4];  // dh, then h
+  int q = 0;
+  for (int c = c0; c < c1; ++c) {
+    // dh = dy . W2[:, chunk]: this warpgroup's columns 32 wg .. + 32 (as
+    // F4's dg: the pair of stages is released before the next is waited
+    // for). B MN-major from an fc2 piece, chunk-major [8][128]: a core
+    // matrix is 8 of its rows (d, K) of one 16-byte chunk (8 f, N); the
+    // next along K 128 bytes on, the next along N 2048
+    for (int kq = 0; kq < KP / P; ++kq, q += 2) {
+      const bf16* A = slot(q);
+      const bf16* W = slot(q + 1);
+      wgmma_fence();
+      for (int p = 0; p < P; ++p) {
 #pragma unroll
-    for (int kk = 0; kk < kBF; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, hs + kk, kHLD);
-      wmma::load_matrix_sync(a1, hs + 16 * kHLD + kk, kHLD);
+        for (int s = 0; s < 8; ++s)
+          wgmma_m64n32<1>(
+              h, wg_desc(A + p * kPiece + 2 * s * kF1Rows * 8, kF1Rows * 16,
+                         128),
+              wg_desc(W + p * kPiece + (4 * wg * 128 + 16 * s) * 8, 128,
+                      128 * 16),
+              kq > 0 || p > 0 || s > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(q);
+      release(q + 1);
+    }
+    // the dropout on dh (global index n F + f), parked in the stash
 #pragma unroll
-      for (int j = 0; j < NCF; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        const bf16* w1q =
-            w1 + (size_t)(f0 + kk) * D + warp * NCF * 16 + j * 16;
-        wmma::load_matrix_sync(bw, w1q, D);
-        wmma::mma_sync(xacc[0][j], a0, bw, xacc[0][j]);
-        wmma::mma_sync(xacc[1][j], a1, bw, xacc[1][j]);
+    for (int nt = 0; nt < 4; ++nt) {
+      const int f = c * kFc + 32 * wg + 8 * nt + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float2 v = make_float2(h[nt][2 * r], h[nt][2 * r + 1]);
+        if (dr.on) {
+          const uint32_t idx =
+              (uint32_t)(n0 + wr + g + 8 * r) * (uint32_t)F + f;
+          v.x = drop_elem(v.x, idx, seed, dr.thr, dr.scale);
+          v.y = drop_elem(v.y, idx + 1u, seed, dr.thr, dr.scale);
+        }
+        stash[(nt * 2 + r) * kF1Threads + tid] = v;
       }
     }
-    __syncthreads();  // hs, hf, gf are rewritten by the next chunk
+    // h = x . W1[chunk]^T (F1's fc1 over its up pieces)
+    for (int kq = 0; kq < KP / P; ++kq, ++q) {
+      const bf16* W = slot(q);
+      wgmma_fence();
+      for (int p = 0; p < P; ++p) {
+        const int kp = kq * P + p;
+#pragma unroll
+        for (int s = 0; s < 8; ++s) {
+          const int kc = kp * 8 + s;
+          wgmma_m64n32(
+              h, wg_desc(xs + 2 * kc * kF1Rows * 8, kF1Rows * 16, 128),
+              wg_desc(W + p * kPiece + (2 * s * 64 + 32 * wg) * 8, 64 * 16,
+                      128),
+              kc > 0);
+        }
+      }
+      wgmma_commit();
+      if (kq > 0) {
+        wgmma_wait<1>();
+        release(q - 1);
+      }
+    }
+    wgmma_wait<0>();
+    release(q - 1);
+
+    // ds = dh act'(h + b1) in fp32: rounded to bf16 into this chunk's tile
+    // (double-buffered: the other chunk's readers are done), and its column
+    // sums over the warp's 16 rows (lanes of one t: shuffles over g) into
+    // the warp's row of cols
+    bf16* dsb = dss + (c & 1) * kF1Rows * kFc;
+    float* cs = cols + (c & 1) * (kF2ColFloats / 2);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int fl = 32 * wg + 8 * nt + 2 * t;  // chunk column
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + c * kFc + fl);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wr + g + 8 * r;
+        const float2 d = stash[(nt * 2 + r) * kF1Threads + tid];
+        const float v0 = d.x * act_grad(h[nt][2 * r] + bb.x, act);
+        const float v1 = d.y * act_grad(h[nt][2 * r + 1] + bb.y, act);
+        s0 += v0;
+        s1 += v1;
+        *reinterpret_cast<uint32_t*>(dsb + ((fl >> 3) * kF1Rows + row) * 8 +
+                                     (fl & 7)) = pack_bf16(v0, v1);
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0)
+        *reinterpret_cast<float2*>(cs + warp * 32 + 8 * nt + 2 * t) =
+            make_float2(s0, s1);
+    }
+    fence_proxy_async();  // ds is read by wgmma
+    __syncthreads();  // ds and the column sums written
+
+    // dx columns 128 (u0 + u) + 64 wg .. + 64 += ds . W1[chunk, those]:
+    // B MN-major from the up piece, chunk-major [16][64]: a core matrix is
+    // 8 of its rows (f, K) of one 16-byte chunk (8 d, N); the next along K
+    // 128 bytes on, the next along N 1024
+    const bf16* W = nullptr;
+#pragma unroll
+    for (int u = 0; u < DU; ++u) {
+      if (u < du) {
+        const int p = u % P;
+        if (p == 0) {
+          W = slot(q);
+          wgmma_fence();
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n64<1>(
+              acc[u], wg_desc(dsb + 2 * s * kF1Rows * 8, kF1Rows * 16, 128),
+              wg_desc(W + p * kPiece + (8 * wg * 64 + 16 * s) * 8, 128,
+                      64 * 16),
+              c > c0 || s > 0);
+        if (p == P - 1) {
+          wgmma_commit();
+          if (u >= P) {
+            wgmma_wait<1>();
+            release(q - 1);
+          }
+          ++q;
+        }
+      }
+    }
+    wgmma_wait<0>();
+    release(q - 1);
+
+    // db1 of the chunk's columns: the four warps of the column's
+    // warpgroup, in order (the first dx-column group's blocks)
+    if (blockIdx.z == 0 && tid < kFc) {
+      const float* w4 = cs + (tid >> 5) * 4 * 32 + (tid & 31);
+      bias_part[(size_t)blockIdx.x * (F + D) + c * kFc + tid] =
+          ((w4[0] + w4[32]) + w4[64]) + w4[96];
+    }
   }
 
-  // db2 = sum of dy over the block's rows (zero-filled past N)
-  for (int c = tid; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < kBM; ++r) s += __bfloat162float(dys[r * XLD + c]);
-    prow[F + c] = s;
-  }
-  float* stage = hf + warp * 256;  // hf is free: per-warp output staging
+  // one split: dx = bf16(acc); else the split's fp32 partial
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int u = 0; u < DU; ++u) {
+    if (u >= du) continue;
 #pragma unroll
-    for (int j = 0; j < NCF; ++j) {
-      wmma::store_matrix_sync(stage, xacc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int n = n0 + i * 16 + (e >> 4);
-        const int o = warp * NCF * 16 + j * 16 + (e & 15);
-        if (n < N) dx[(size_t)n * D + o] = __float2bfloat16(stage[e]);
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = (u0 + u) * 128 + 64 * wg + 8 * nt + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = n0 + wr + g + 8 * r;
+        if (n >= N) continue;
+        const float v0 = acc[u][4 * nt + 2 * r];
+        const float v1 = acc[u][4 * nt + 2 * r + 1];
+        if (part == nullptr)
+          *reinterpret_cast<uint32_t*>(dx + (size_t)n * D + col) =
+              pack_bf16(v0, v1);
+        else
+          *reinterpret_cast<float2*>(
+              part + ((size_t)blockIdx.y * N + n) * D + col) =
+              make_float2(v0, v1);
       }
-      __syncwarp();
     }
   }
 }
 
-template <int NCF>
-int launch_bwd_wmma(const void* x, const void* dy, const void* w1,
-                    const void* b1, const void* w2, void* dx, void* partial,
-                    int N, int F, int act, DropArgs dr, cudaStream_t st) {
-  const size_t smem = wmma_bwd_smem(kWarps * 16 * NCF);
+// dy re-laid out into dyt (and db2's partials), F2 over S hidden splits,
+// the reduce of dx's partials, then the bias sums in block order
+template <int DU>
+int launch_f2_tc(const void* x, const void* dy, void* dyt, const void* wt,
+                 const void* b1, void* dx, void* part,
+                 void* bias_part, void* db1, void* db2, int N, int D, int F,
+                 int S, int act, DropArgs dr, cudaStream_t st) {
+  const int groups = (D / 128 + DU - 1) / DU;
+  const size_t fixed = tc_fixed_smem(D, true) + kF2ColFloats * 4;
+  const int P = tc_pieces(D, DU, fixed);
+  const int stages = tc_stages(fixed, P);
+  const size_t smem = fixed + (size_t)stages * P * kPieceBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ffn_bwd_wmma<NCF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ffn_bwd_tc<DU>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_bwd_wmma<NCF><<<(N + kBM - 1) / kBM, kWarps * 32, smem, st>>>(
-      (const bf16*)x, (const bf16*)dy, (const bf16*)w1, (const float*)b1,
-      (const bf16*)w2, (bf16*)dx, (float*)partial, N, F, act, dr);
+  const int rows = (N + kF1Rows - 1) / kF1Rows;
+  const long long items = (long long)rows * (D / 8);
+  const long long want = (items + 255) / 256;
+  ffn_bwd_dy_tiles<<<(unsigned)(want > 16384 ? 16384 : want), 256, 0, st>>>(
+      (const bf16*)dy, (bf16*)dyt, (float*)bias_part, N, D, F, items);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int chunks = F / kFc;
+  const int cps = (chunks + S - 1) / S;
+  ffn_bwd_tc<DU><<<dim3(rows, S, groups), kF1Threads, smem, st>>>(
+      (const bf16*)x, (const bf16*)dyt, (const bf16*)wt, (const float*)b1,
+      (bf16*)dx, S > 1 ? (float*)part : nullptr,
+      (float*)bias_part, N, D, F, cps, stages, P, act, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (S > 1) {
+    const int e = launch_reduce(false, false, part, nullptr, dx, N, D, S, st);
+    if (e != 0) return e;
+  }
+  ffn_bias_reduce<<<(F + D + 255) / 256, 256, 0, st>>>(
+      (const float*)bias_part, rows, F, D, (float*)db1, (float*)db2);
   return (int)cudaGetLastError();
 }
 
@@ -1283,21 +1512,6 @@ ffn_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
     }
   }
 }
-
-// db1[f] = sum_g partial[g][f], db2[c] = sum_g partial[g][F + c], in order
-__global__ void ffn_bias_reduce(const float* __restrict__ partial, int G,
-                                int F, int D, float* __restrict__ db1,
-                                float* __restrict__ db2) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= F + D) return;
-  float s = 0.f;
-  for (int g = 0; g < G; ++g) s += partial[(size_t)g * (F + D) + t];
-  if (t < F)
-    db1[t] = s;
-  else
-    db2[t - F] = s;
-}
-
 
 // ------------------------------------------------- gated (F3, F4), fp32
 __global__ void __launch_bounds__(kFThreads)
@@ -1530,44 +1744,48 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
   return (int)cudaGetLastError();
 }
 
+// dx (N, D) in x's dtype, db1 (F,) and db2 (D,) f32 of vlpet_ffn_fwd for dy
+// (N, D); partial: [G][F + D] f32 scratch, the per-block bias sums. bf16:
+// wt from vlpet_ffn_w_tiles (w1, w2 unused), dyt scratch of G 64 D bf16
+// (dy re-laid out), G = ceil(N / 64), S and part as the forward's; fp32:
+// w1, w2, G = ceil(N / 16), dyt, wt and part unused, S 1.
 extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
                              const void* b1, const void* w2, const void* seed,
-                             void* dx, void* partial, void* db1, void* db2,
-                             int N, int D, int F, int G, int act, int is_bf16,
-                             int drop, int thr, float scale, void* stream) {
-  if (N < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                             void* dyt, const void* wt, void* part,
+                             void* dx, void* partial, void* db1,
+                             void* db2, int N, int D, int F, int G, int S,
+                             int act, int is_bf16, int drop, int thr,
+                             float scale, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const DropArgs dr = drop_args(seed, drop, thr, scale);
-  int err = (int)cudaErrorInvalidValue;
   if (is_bf16) {
-    if (D % (kWarps * 16) != 0 || D > 1024 || F % kBF != 0 ||
-        G != (N + kBM - 1) / kBM)
+    if (dyt == nullptr || wt == nullptr || bad_tc(D, F, S, part) ||
+        G != (N + kF1Rows - 1) / kF1Rows)
       return (int)cudaErrorInvalidValue;
-    switch (D / (kWarps * 16)) {
-      case 1: err = launch_bwd_wmma<1>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 2: err = launch_bwd_wmma<2>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 3: err = launch_bwd_wmma<3>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 4: err = launch_bwd_wmma<4>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 5: err = launch_bwd_wmma<5>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 6: err = launch_bwd_wmma<6>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 7: err = launch_bwd_wmma<7>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
-      case 8: err = launch_bwd_wmma<8>(x, dy, w1, b1, w2, dx, partial, N, F, act, dr, st); break;
+    switch (f1_du(D)) {
+      case 1: return launch_f2_tc<1>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
+      case 2: return launch_f2_tc<2>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
+      case 3: return launch_f2_tc<3>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
+      case 4: return launch_f2_tc<4>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
+      case 5: return launch_f2_tc<5>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
+      case 6: return launch_f2_tc<6>(x, dy, dyt, wt, b1, dx, part, partial, db1, db2, N, D, F, S, act, dr, st);
     }
-  } else {
-    if (D < 1 || D > kFThreads * kFOut || F % kFBF != 0 ||
-        G != (N + kFBM - 1) / kFBM)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * ((size_t)2 * kFBM * D + kFBM * kFBF);
-    cudaError_t e = cudaFuncSetAttribute(
-        ffn_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    ffn_bwd_f32<<<G, kFThreads, smem, st>>>(
-        (const float*)x, (const float*)dy, (const float*)w1, (const float*)b1,
-        (const float*)w2, (float*)dx, (float*)partial, N, D, F, act, dr);
-    err = (int)cudaGetLastError();
+    return (int)cudaErrorInvalidValue;
   }
-  if (err != 0) return err;
+  if (S != 1 || D < 1 || D > kFThreads * kFOut || F % kFBF != 0 ||
+      G != (N + kFBM - 1) / kFBM)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)2 * kFBM * D + kFBM * kFBF);
+  cudaError_t err = cudaFuncSetAttribute(
+      ffn_bwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ffn_bwd_f32<<<G, kFThreads, smem, st>>>(
+      (const float*)x, (const float*)dy, (const float*)w1, (const float*)b1,
+      (const float*)w2, (float*)dx, (float*)partial, N, D, F, act, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   ffn_bias_reduce<<<(F + D + 255) / 256, 256, 0, st>>>(
       (const float*)partial, G, F, D, (float*)db1, (float*)db2);
   return (int)cudaGetLastError();

@@ -22,8 +22,8 @@ ops.fused_ln.fused_dropout_add_ln (L1, L2), beam self-attention through
 ops.decode.beam_decode_attend (D1) or, with ``use_fused_beam``,
 ops.decode.beam_decode_attend_update (D2, which also writes the cache
 slot), every other decode-step KV write through
-ops.cache_update.cache_slot_update (U1), each picked by ops.route (the
-plain twins inside ``ops.plain_twins()``).
+ops.cache_update.cache_slots_update (U1, K and V in one launch), each
+picked by ops.route (the plain twins inside ``ops.plain_twins()``).
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ from vlpet_tpu_torch.models.visual import (VisualEmbedding,
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
-from vlpet_tpu_torch.ops.cache_update import (cache_slot_update,
-                                              cache_slot_update_reference)
+from vlpet_tpu_torch.ops.cache_update import (cache_slots_update,
+                                              cache_slots_update_reference)
 from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
                                         beam_decode_attend_reference,
                                         beam_decode_attend_update,
@@ -77,12 +77,14 @@ def expand_mask(mask: torch.Tensor, tgt_len: int,
 def write_slot(cache: Cache, k: torch.Tensor, v: torch.Tensor,
                pos: int) -> None:
     """This step's K and V (B rows of H*Dh) into slot ``pos`` of the
-    time-major (L, B, H*Dh) cache, in place, through U1 (or its plain twin):
-    the cache is U1's N = 1 case, viewed as (1, L, B, H*Dh)."""
-    fn = route(cache_slot_update, cache_slot_update_reference)
-    for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        fn(c.view((1,) + c.shape), new.reshape((1,) + c.shape[1:]), pos)
+    time-major (L, B, H*Dh) caches, in place, through one U1 launch for
+    both (or its plain twin): each cache is U1's N = 1 case, viewed as
+    (1, L, B, H*Dh)."""
+    kc, vc = cache["k"], cache["v"]
+    view, slot = (1,) + kc.shape, (1,) + kc.shape[1:]
+    route(cache_slots_update, cache_slots_update_reference)(
+        (kc.view(view), vc.view(view)), (k.reshape(slot), v.reshape(slot)),
+        pos)
 
 
 def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:

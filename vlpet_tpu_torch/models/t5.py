@@ -40,11 +40,11 @@ ops.attention.fused_attention (A1, with the relative bias as its per-head
 ``bias``), beam self-attention through ops.decode.beam_decode_attend (D1,
 with the bias row) or, with ``use_fused_beam``, the fused attend and slot
 write ops.decode.beam_decode_attend_update (D2), every other decode-step
-KV write through ops.cache_update.cache_slot_update (U1), the tied
-frozen head's loss through ops.fused_ce.fused_linear_ce (C1, backward C2)
-with ``use_fused_ce``, the relu FFN through ops.ffn.fused_ffn (F1, zero
-biases; backward F2) and the gated-gelu FFN through ops.ffn.fused_gated_ffn
-(F3, backward F4), unless ``use_fused_ffn`` is off or the language model
+KV write through ops.cache_update.cache_slots_update (U1, K and V in one
+launch), the tied frozen head's loss through ops.fused_ce.fused_linear_ce
+(C1, backward C2) with ``use_fused_ce``, the relu FFN through
+ops.ffn.fused_ffn (F1, zero biases; backward F2) and the gated-gelu FFN
+through ops.ffn.fused_gated_ffn (F3, backward F4), unless ``use_fused_ffn`` is off or the language model
 trains (the FFN kernels have no weight gradient). Parameter names are
 the flax tree's (``blocks_{i}``, ``shared``, ``lm_head``), so
 vlpet_tpu_torch.convert carries the weights across unchanged.

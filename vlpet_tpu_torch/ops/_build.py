@@ -63,9 +63,11 @@ _SIGNATURES = {
     # NULL for fp32), partials (or NULL), dx, N, D, F, splits, act, is_bf16,
     # drop, thr, scale, stream
     "vlpet_gated_ffn_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
-    # x, dy, w1, b1, w2, seed (or NULL), dx, partial, db1, db2, N, D, F, G,
-    # act, is_bf16, drop, thr, scale, stream
-    "vlpet_ffn_bwd": [_P] * 10 + [_I] * 8 + [_F, _P],
+    # x, dy, w1, b1, w2, seed (or NULL), dy re-laid (scratch), wt (F1's
+    # re-laid weights; both NULL for fp32), partials of dx (or NULL), dx,
+    # bias partials, db1, db2, N, D, F, G, splits, act, is_bf16, drop, thr,
+    # scale, stream
+    "vlpet_ffn_bwd": [_P] * 13 + [_I] * 9 + [_F, _P],
     # h, res, gamma, beta, seed, y, N, D, drop, thr, scale, eps, is_bf16,
     # stream
     "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
@@ -80,8 +82,9 @@ _SIGNATURES = {
     "vlpet_beam_attend_update": [_P] * 9 + [_I] * 7 + [_P],
     # x, vals, idx, lse, R, V, k, stream
     "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
-    # cache, new, N, L, row elements, element bytes, pos, stream
-    "vlpet_cache_update": [_P] * 2 + [_I] * 5 + [_P],
+    # cache, new, second cache and new (or NULL, NULL), N, L, row elements,
+    # element bytes, pos, stream
+    "vlpet_cache_update": [_P] * 4 + [_I] * 5 + [_P],
     # w, b, tiled W (C1 and C2's re-laid head), V, D, stream
     "vlpet_ce_w_tiles": [_P] * 3 + [_I] * 2 + [_P],
     # x, w, b, labels, tiled W (bf16; NULL for fp32), partials, loss, lse,
@@ -97,11 +100,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on a CUDA device (launch the kernel),
     False when every tensor lies on the CPU (run the plain version).
     Anything else raises: there is no third route."""
+    if all(t.is_cuda for t in tensors):  # no device objects on this path
+        return True
     kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
-        return True
     raise ValueError(f"kernel inputs must all be on CPU or all on CUDA, "
                      f"got devices {sorted(kinds)}")
 
@@ -190,10 +193,13 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call launcher ``name`` on the current stream; raise on a nonzero
+    """Call launcher ``name`` on the current stream of the current device
+    (its raw handle, without building a torch.cuda.Stream: the launch is on
+    every decode step's host path); raise on a nonzero
     cudaGetLastError()."""
     fn = getattr(lib(), name)
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

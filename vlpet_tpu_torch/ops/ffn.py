@@ -10,11 +10,10 @@ package: the Functions have no dW and raise when a weight requires a
 gradient (the models route a trainable language model to the plain
 fc1 -> act -> fc2). Weights here are in PyTorch's Linear layout, W1 (F, D)
 and W2 (D, F). Bound on the H100 and design: the header note of
-csrc/ffn.cu. bf16 runs on tensor cores (F1, F3, F4: wgmma over weight
-pieces that TMA streams from re-laid copies of the weights, kept beside
-them, split over the hidden at decode rows, ``f1_splits`` and
-``gated_splits``; F2: WMMA), fp32 on plain FMA. The activation is gelu,
-gelu_new or relu (T5).
+csrc/ffn.cu. bf16 runs on tensor cores (F1-F4: wgmma over weight pieces
+that TMA streams from re-laid copies of the weights, kept beside them,
+split over the hidden at decode rows, ``f1_splits`` and ``gated_splits``),
+fp32 on plain FMA. The activation is gelu, gelu_new or relu (T5).
 
 ``fused_gated_ffn`` replaces vlpet_tpu/ops/ffn.py:fused_gated_ffn (_run with
 _gated_fwd_kernel, F3, and _gated_bwd_kernel, F4):
@@ -44,8 +43,8 @@ from vlpet_tpu_torch.ops.hashdrop import (check_drop, keep_mask,
 
 _ACTS = {"gelu": (0, gelu), "gelu_new": (1, gelu_new),
          "relu": (2, torch.relu)}
-_ROWS = {torch.bfloat16: 32, torch.float32: 16}  # rows per F2 block
-_F1_ROWS = 64    # rows a bf16 F1 block (csrc/ffn.cu kF1Rows)
+_F1_ROWS = 64    # rows a bf16 F1-F4 block (csrc/ffn.cu kF1Rows)
+_F32_ROWS = 16   # rows an fp32 F2 block (kFBM)
 _F1_CHUNK = 64   # hidden columns of an F1 chunk (kFc)
 _F1_MAX_DU = 6   # 128-column y pieces a bf16 F1 block (kF1MaxDu)
 
@@ -84,11 +83,10 @@ def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None):
     check_drop(rate, seed)
 
 
-def _kernel_inputs(x, weights, dy=None, wmma=False):
+def _kernel_inputs(x, weights, dy=None):
     """Kernel input guard: x (and dy) contiguous fp32/bf16, the weight
     matrices (first one (F, D)) in x's dtype; returns whether the bf16
-    tensor-core kernels run. ``wmma``: F2's, whose fragment loads read the
-    weights in place."""
+    tensor-core kernels run."""
     N, D = x.shape
     Fh = weights[0].shape[0]
     _build.check(x, "x", (torch.float32, torch.bfloat16), 2)
@@ -101,16 +99,13 @@ def _kernel_inputs(x, weights, dy=None, wmma=False):
         if D % 128 or D > 1024 or Fh % 64:
             raise ValueError(f"fused_ffn bf16: need D % 128 == 0, D <= 1024, "
                              f"F % 64 == 0; got D={D}, F={Fh}")
-        # F1, F3 and F4 copy x (F4 also dy) and re-lay the weights in
-        # 16-byte pieces; F2's fragment loads read the weights in 32-byte
-        # rows
-        walign = 32 if wmma else 16
-        rows = (x,) if wmma or dy is None else (x, dy)
-        if any(t.data_ptr() % 16 for t in rows) or any(
-                w.data_ptr() % walign for w in weights):
-            what = "x" if len(rows) == 1 else "x and dy"
-            raise ValueError(f"fused_ffn bf16: {what} must be 16-byte and "
-                             f"the weights {walign}-byte aligned")
+        # the kernels copy x (the backwards also dy) and re-lay the
+        # weights in 16-byte pieces
+        rows = (x,) if dy is None else (x, dy)
+        if any(t.data_ptr() % 16 for t in rows + tuple(weights)):
+            what = "x" if dy is None else "x and dy"
+            raise ValueError(f"fused_ffn bf16: {what} must be 16-byte "
+                             f"aligned, as must the weights")
     elif D > 1024 or Fh % 32:
         raise ValueError(f"fused_ffn fp32: need D <= 1024, F % 32 == 0; got "
                          f"D={D}, F={Fh}")
@@ -167,11 +162,12 @@ def _stamp(*weights):
 
 def f1_tiles(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """W1 (F, D) and W2 (D, F) bf16 re-laid out into F1's 16 KB weight
-    pieces (csrc/ffn.cu ffn_w_tiles, 2 F D bf16, one pass over both). Kept
-    beside W1 while W1 lives, and rebuilt when W2 is another tensor or an
-    in-place write moved either weight's version counter or storage: the
-    weights of every path that takes F1 are frozen, so an eval or a train
-    run re-lays each layer once."""
+    pieces (csrc/ffn.cu ffn_w_tiles, 2 F D bf16, one pass over both); F2
+    reads them too, W2[:, chunk] and W1[chunk, :] MN-major. Kept beside W1
+    while W1 lives, and rebuilt when W2 is another tensor or an in-place
+    write moved either weight's version counter or storage: the weights of
+    every path that takes F1 and F2 are frozen, so an eval or a train run
+    re-lays each layer once."""
     stamp = _stamp(w1, w2)
     hit = _F1_TILES.get(w1) if stamp is not None else None
     if hit is not None and hit[0]() is w2 and hit[1] == stamp:
@@ -213,9 +209,10 @@ def gated_tiles(w0: torch.Tensor, w1: torch.Tensor, wo: torch.Tensor,
 
 
 def _splits_and_partials(x, D, Fh):
-    """(splits, fp32 partials or None) of a bf16 F3 / F4 launch."""
+    """(splits, fp32 partials or None) of a bf16 F2, F3 or F4 launch
+    (f1_splits' rule)."""
     N = x.shape[0]
-    S, _ = gated_splits(N, D, Fh, _build.multiprocessors(x.device))
+    S, _ = f1_splits(N, D, Fh, _build.multiprocessors(x.device))
     part = (torch.empty((S, N, D), dtype=torch.float32, device=x.device)
             if S > 1 else None)
     return S, part
@@ -236,16 +233,11 @@ def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
         return y
     S, wt, part = 1, None, None
     if bf16:
-        S, _ = f1_splits(N, D, Fh, _build.multiprocessors(x.device))
+        S, part = _splits_and_partials(x, D, Fh)
         wt = f1_tiles(w1, w2)
-        if S > 1:
-            part = torch.empty((S, N, D), dtype=torch.float32,
-                               device=x.device)
     _build.launch("vlpet_ffn_fwd", x.data_ptr(), w1.data_ptr(),
                   b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-                  _seed_arg(rate, seed),
-                  None if wt is None else wt.data_ptr(),
-                  None if part is None else part.data_ptr(), y.data_ptr(),
+                  _seed_arg(rate, seed), _ptr(wt), _ptr(part), y.data_ptr(),
                   N, D, Fh, S, _ACTS[act][0], int(bf16),
                   *kernel_drop_args(rate))
     fused_ffn.launches += 1
@@ -275,19 +267,28 @@ def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                               rate, seed)
             return torch.autograd.grad(y, (xr, b1r, b2r), dy)
     dy = dy.contiguous()
-    bf16 = _kernel_inputs(x, (w1, w2), dy, wmma=True)
+    bf16 = _kernel_inputs(x, (w1, w2), dy)
     b1f = b1.float().contiguous()
     dx = torch.empty_like(x)
     db1 = torch.zeros(Fh, dtype=torch.float32, device=x.device)
     db2 = torch.zeros(D, dtype=torch.float32, device=x.device)
     if N == 0:
         return dx, db1, db2
-    G = -(-N // _ROWS[x.dtype])
+    G = -(-N // (_F1_ROWS if bf16 else _F32_ROWS))
+    S, dyt, wt, part = 1, None, None, None
+    if bf16:
+        S, part = _splits_and_partials(x, D, Fh)
+        # dy re-laid out into 64-row pieces (csrc/ffn.cu ffn_bwd_dy_tiles)
+        dyt = torch.empty(G * _F1_ROWS * D, dtype=torch.bfloat16,
+                          device=x.device)
+        wt = f1_tiles(w1, w2)  # F2 reads F1's copy (MN-major where needed)
+    # per-block column sums: db1's (F2) and db2's (the dy re-lay or F2)
     partial = torch.empty((G, Fh + D), dtype=torch.float32, device=x.device)
     _build.launch("vlpet_ffn_bwd", x.data_ptr(), dy.data_ptr(), w1.data_ptr(),
                   b1f.data_ptr(), w2.data_ptr(), _seed_arg(rate, seed),
-                  dx.data_ptr(), partial.data_ptr(), db1.data_ptr(),
-                  db2.data_ptr(), N, D, Fh, G, _ACTS[act][0], int(bf16),
+                  _ptr(dyt), _ptr(wt), _ptr(part), dx.data_ptr(),
+                  partial.data_ptr(), db1.data_ptr(), db2.data_ptr(), N, D,
+                  Fh, G, S, _ACTS[act][0], int(bf16),
                   *kernel_drop_args(rate))
     fused_ffn_bwd.launches += 1
     return dx, db1, db2
