@@ -12,18 +12,22 @@ training path's, the T5 eval path's, the T5 training path's, the opt-in
 paths' and the trainable-bias kernels against their plain twins and
 print one line per case (the kernel's, the plain twin's and the library
 call's times and the bound); 3h times F1 and C1 at their paths' rows, 3i
-F3 and F4 at theirs, 3j F2 at its own and U1's K+V write. A phase that
-ROOT's ``chip_smoke`` lacks (3h, 3i or 3j in a tree older than it) is taken from this tree's ``chip_smoke`` and
-run on ROOT's port, so an earlier tree's kernels are timed at the same
-cases. 5, 5b, 5c and 5e time the bf16 beam-5 evals (image-text, video,
-T5 and T5 gated, T5 video; 5b and 5e first hold fp32 tokens kernels vs
-plain); 7, 7b, 7c, 7d and 7e time the bf16 train steps (image-text,
-video, T5, use_fused_ce, T5 video and t5_full_ft; 7d needs 7 and 7c
-before it, 7e needs 7b and 7c). ``--profile`` adds each bench run's
-device-time breakdown (chip_smoke's profile_run). After each phase the
-card's peak allocated memory over the phase is printed (for trees whose
-phases do not print their own). Run parent, change, change, parent to
-see the spread beside the change. Exits nonzero without a card. Imports
+F3 and F4 at theirs, 3j F2 at its own and U1's K+V write, 3k D1 and D2
+at theirs (each case's per-call, back-to-back and device times). A phase
+that ROOT's ``chip_smoke`` lacks (3h, 3i, 3j or 3k in a tree older than
+it) is taken from this tree's ``chip_smoke`` and run on ROOT's port, so
+an earlier tree's kernels are timed at the same cases. 5, 5b, 5c and 5e
+time the bf16 beam-5 evals (image-text, video, T5 and T5 gated, T5
+video; 5b and 5e first hold fp32 tokens kernels vs plain), 5d the
+use_fused_beam evals (BART and T5; it needs 5 and 5c before it); 7, 7b,
+7c, 7d and 7e time the bf16 train steps (image-text, video, T5,
+use_fused_ce, T5 video and t5_full_ft; 7d needs 7 and 7c before it, 7e
+needs 7b and 7c). ``--profile`` adds each bench run's device time and
+launches by kernel family, read for every tree by this tree's
+chip_smoke.profile_run. After each phase the card's peak allocated
+memory over the phase is printed (for trees whose phases do not print
+their own). Run parent, change, change, parent to see the spread beside
+the change. Exits nonzero without a card. Imports
 torch, the standard library and ROOT's port only.
 """
 
@@ -44,9 +48,11 @@ PHASES = {"3": ("phase_kernels", False),
           "3h": ("phase_ffn_ce_sites", False),
           "3i": ("phase_gated_ffn_sites", False),
           "3j": ("phase_ffn_bwd_sites", False),
+          "3k": ("phase_beam_sites", False),
           "5": ("phase_decode_bench", True),
           "5b": ("phase_video_eval", True),
           "5c": ("phase_t5_eval", True),
+          "5d": ("phase_fused_beam_bench", True),
           "5e": ("phase_t5_video_eval", True),
           "7": ("phase_train_bench", True),
           "7b": ("phase_video_train_bench", True),
@@ -81,6 +87,9 @@ def main(argv) -> int:
     import chip_smoke
 
     from vlpet_tpu_torch.ops import _build
+
+    if "--profile" in argv:  # both trees' runs read by the same profiler
+        chip_smoke.profile_run = this_trees_smoke().profile_run
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

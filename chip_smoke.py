@@ -165,6 +165,20 @@ nonzero and no result line is printed):
      write at the BART and T5 beam caches, bf16 and fp32, exact, against
      two cache[pos].copy_ calls (chip_phases.py runs this phase on an
      earlier tree's kernels too);
+  3k. (run after 3j) D1 and D2 in bf16 at the rows their paths give them
+     (K 5, H 12, Dh 64): BART B 500, L 40 at pos 0, 20 and 39; T5 B 300
+     with the bias row in T5's strided layout (D2: and its column pos as
+     the own bias) at pos 39; the video eval B 50, L 20 at pos 19; L 160
+     at pos 159 (B 50, more slots than the kernel stages at once); each
+     under the uniform ancestry and a beam-tree one (every step each beam
+     picks a random parent). Each against its plain twin, against fp32
+     arithmetic on its own inputs (p rounded to bf16 where the kernel
+     rounds it), twice bitwise equal, D2's slot pos written exactly and
+     every other slot unchanged; each prints the per-call event time, the
+     time per launch of 20 back to back, the device time per launch
+     (torch.profiler), the plain twin's, SDPA's and the bound with the
+     distinct rows its ancestry reads (chip_phases.py runs this phase on
+     an earlier tree's kernels too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -242,6 +256,13 @@ TOPK_LSE_TOL = 1e-5  # top-k values and indices must match exactly
 # a value (half an ulp of 7 mantissa bits), plus a margin for the order of
 # the fp32 sums
 BF16_FFN_RTOL = 5e-3
+# phase 3k: an output element of a bf16 beam attend against fp32 arithmetic
+# on its own inputs (p rounded where the kernel rounds it) within 2^-7 (one
+# bf16 ulp, relative) of |ref| + pmax vmax: the output's own rounding (a
+# flip where the two fp32 sums straddle a boundary), and one probability
+# of its row rounded the other way (two fp32 quotients on either side of a
+# boundary: at most an ulp of the row's largest p, times the largest |v|)
+BEAM_FP32_RTOL = 2.0 ** -7
 # phase 4: at the last beam step at least this share of the cache slots is
 # read from another beam's row (hypotheses move between parents), and in
 # phase 4b every row holds at least this many distinct token ids
@@ -544,7 +565,7 @@ def phase_kernels(rep: Report) -> None:
                           qb, kc, vc, anc, pos),
                       dtype, timed=main and pos == Lc - 1,
                       work=(e * (2 * B * K * inner + 2 * rows * inner)
-                            + 4 * B * K * Lc,
+                            + anc.element_size() * B * K * (pos + 1),
                             4 * B * K * H * (pos + 1) * Dh),
                       library_fn=beam_sdpa(qb, kc, vc, anc, pos, dtype))
 
@@ -966,7 +987,8 @@ def phase_t5_kernels(rep: Report) -> None:
                       lambda: decode.beam_decode_attend_reference(
                           qb, kc, vc, anc, pos, row),
                       dtype, work=(e * (2 * B * K * inner + 2 * rows * inner)
-                                   + 4 * B * K * Lc + 4 * H * Lc,
+                                   + anc.element_size() * B * K * (pos + 1)
+                                   + 4 * H * (pos + 1),
                                    4 * B * K * H * (pos + 1) * Dh),
                       library_fn=beam_sdpa(qb, kc, vc, anc, pos, dtype, row))
         w1, w2 = (randn(F1h, D, dtype=dtype, scale=0.02),
@@ -1803,6 +1825,247 @@ def check_ffn_bwd_bf16_mask(seed: torch.Tensor, rate: float = 0.1) -> None:
                                          "relu", rate, seed)
             _expect_zeros(f"fused_ffn_bwd N{N} F{Fh} off{off}", dx,
                           keep[:, off:off + D], "bf16")
+
+
+def beam_tree_anc(g, B: int, K: int, Lc: int, pos: int) -> torch.Tensor:
+    """The ancestry a beam search holds at step ``pos``: at each step t
+    every beam's own row is written into slot t, then (t < pos) every beam
+    picks a random parent among the K and takes over its history, as
+    models/generate.py beam_generate does with _gather_beams. Slots past
+    ``pos`` are never read. int64, (B, K, Lc)."""
+    own = torch.arange(K, device="cuda")
+    anc = own[None, :, None].expand(B, K, Lc).clone()
+    for t in range(pos + 1):
+        anc[:, :, t] = own
+        if t < pos:
+            parents = torch.randint(0, K, (B, K), generator=g, device="cuda")
+            anc = torch.gather(anc, 1, parents[:, :, None].expand(B, K, Lc))
+    return anc
+
+
+def beam_attend_fp32(qb, kc, vc, anc, P: int, bias_row, rounds_p: bool,
+                     own=None) -> torch.Tensor:
+    """D1 (``own`` None: slots t < P = pos + 1) or D2 (``own`` = (k_new,
+    v_new, own_bias): slots t < P = pos plus the own row, its products
+    rounded to the compute dtype) in fp32 arithmetic on the same inputs:
+    each beam's rows gathered through the ancestry, one softmax, the
+    probabilities rounded to the compute dtype before P.V where the kernel
+    rounds them (``rounds_p``). Returns fp32 (B*K, 1, H*Dh) and, per
+    output element, the largest probability of its row times the largest
+    |v| it reads (check_beam_fp32's allowance for one flipped p)."""
+    B, K, Lc = anc.shape
+    H, Dh = qb.shape[-2:]
+    J = kc.shape[1] // B
+    rows = (torch.arange(B, device="cuda")[:, None, None] * J
+            + anc[:, :, :P].long())
+    t = torch.arange(P, device="cuda")[None, None, :]
+    ks = kc.view(Lc, B * J, H, Dh)[t, rows].float()  # (B, K, P, H, Dh)
+    vs = vc.view(Lc, B * J, H, Dh)[t, rows].float()
+    q = qb.reshape(B, K, H, Dh)
+    s = torch.einsum("bkhd,bkphd->bkhp", q.float(), ks)
+    if bias_row is not None:
+        s = s + bias_row.float().reshape(H, Lc)[None, None, :, :P]
+    if own is None:
+        m, e_own = s.amax(-1), None
+    else:
+        kn, vn, ob = own
+        s_own = (q * kn.reshape(B, K, H, Dh)).float().sum(-1)  # (B, K, H)
+        if ob is not None:
+            s_own = s_own + ob.float()
+        m = torch.maximum(s.amax(-1), s_own) if P else s_own
+    e = torch.exp(s - m[..., None])
+    denom = e.sum(-1)
+    if own is not None:
+        e_own = torch.exp(s_own - m)
+        denom = denom + e_own
+    p = e / denom[..., None]
+    if rounds_p:
+        p = p.to(qb.dtype).float()
+    out = torch.einsum("bkhp,bkphd->bkhd", p, vs)
+    if own is not None:
+        out = out + (e_own / denom)[..., None] * vn.reshape(
+            B, K, H, Dh).float()
+    pv = (p.amax(-1) if P else torch.zeros_like(m)) * (
+        vs.abs().amax(dim=(2, 4)) if P else 0.0)  # (B, K, H)
+    return (out.reshape(B * K, 1, H * Dh),
+            pv[..., None].expand(B, K, H, Dh).reshape(B * K, 1, H * Dh))
+
+
+def check_beam_fp32(key: str, label: str, got: torch.Tensor,
+                    ref: tuple) -> None:
+    """|got - ref| <= BEAM_FP32_RTOL (|ref| + pmax vmax) elementwise, ``ref``
+    beam_attend_fp32's (output, pmax vmax): a row read for another beam or
+    slot moves an output by p |v - v'|, which the plain twin's 2e-2 (1 +
+    |plain|) can miss and this cannot."""
+    ref, pv = ref
+    err = (got.float() - ref).abs()
+    tol = BEAM_FP32_RTOL * (ref.abs() + pv)
+    worst = (err / tol).max().item()
+    if not torch.isfinite(got).all() or not worst <= 1.0:
+        raise AssertionError(f"{key} {label}: against fp32 arithmetic on its "
+                             f"inputs, max |err| / tol {worst:.3f}")
+    print(f"  {'bf16 vs fp32 arithmetic':24s} {label:34s} max|err|/tol "
+          f"{worst:.3f}", flush=True)
+
+
+def back_to_back_ms(fn, n: int = 20) -> float:
+    """Milliseconds per call of ``n`` calls between one event pair (the
+    host enqueues while the card runs: the host's share drops out where
+    the device is the slower)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, update: bool, n: int = 20) -> tuple:
+    """(device ms of the beam kernel, of every kernel of the call) per
+    call, from torch.profiler over ``n`` calls; the kernel is
+    beam_attend_update_kernel for D2 (``update``), beam_attend_kernel for
+    D1."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(events[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    kernel = total = 0.0
+    for ev in events:
+        us = getattr(ev, key)
+        if ev.device_type == DeviceType.CPU or us <= 0:
+            continue
+        total += us
+        name = ev.key.lower()
+        if "beam_attend" in name and ("update" in name) == update:
+            kernel += us
+    return kernel / 1e3 / n, total / 1e3 / n
+
+
+def beam_case(rep: Report, g, site: str, B: int, Lc: int, pos: int,
+              bias: bool, tree: bool, rounds_p: bool) -> None:
+    """D1 and D2 in bf16 at one step (K 5, H 12, Dh 64): against the plain
+    twin, against fp32 arithmetic on their own inputs, twice bitwise
+    equal; D2's slot ``pos`` written exactly and every other slot
+    unchanged, bit for bit. Prints the per-call event time, the
+    back-to-back time, the device time, the plain twin's, SDPA's (the
+    ancestry mask materialised) and the bound, with the distinct rows
+    this ancestry reads."""
+    randn = randn_fn(g)
+    dtype = torch.bfloat16
+    K, H, Dh = 5, 12, 64
+    inner = H * Dh
+    qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
+    kc = randn(Lc, B * K, inner, dtype=dtype)
+    vc = randn(Lc, B * K, inner, dtype=dtype)
+    kn = randn(B * K, 1, inner, dtype=dtype)
+    vn = randn(B * K, 1, inner, dtype=dtype)
+    if tree:
+        anc = beam_tree_anc(g, B, K, Lc, pos)
+    else:
+        anc = torch.randint(0, K, (B, K, Lc), generator=g, device="cuda")
+        anc[:, :, pos] = torch.arange(K, device="cuda")
+    row = own = None
+    if bias:  # T5's layout: compute_bias_row's permuted (1, H, 1, L) view
+        row = randn(1, Lc, H).permute(2, 0, 1)[None]
+        own = row[0, :, 0, pos]
+    label = (f"bf16 {site} B{B} L{Lc} pos{pos} "
+             f"{'tree' if tree else 'uniform'}")
+    for key, P in (("beam_decode_attend", pos + 1),
+                   ("beam_decode_attend_update", pos)):
+        update = key == "beam_decode_attend_update"
+        # distinct (b, t, row) this step reads: each one K and one V row
+        rows = (F.one_hot(anc[:, :, :P], K).amax(dim=1).sum().item()
+                if P else 0)
+        work = (2 * ((6 if update else 2) * B * K * inner + 2 * rows * inner)
+                + anc.element_size() * B * K * P
+                + (4 * H * (P + update) if bias else 0),
+                4 * B * K * H * (pos + 1) * Dh)
+        if update:
+            kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+
+            def kernel():
+                return decode.beam_decode_attend_update(qb, kk, vk, kn, vn,
+                                                        anc, pos, own, row)
+
+            def plain():
+                return decode.beam_decode_attend_update_reference(
+                    qb, kp, vp, kn, vn, anc, pos, own, row)
+            kernel()
+            plain()
+            torch.cuda.synchronize()
+            others = [t for t in range(Lc) if t != pos]
+            for name, got, want, old, new in (("k", kk, kp, kc, kn),
+                                              ("v", vk, vp, vc, vn)):
+                if not (torch.equal(got[pos], new.reshape(B * K, inner))
+                        and torch.equal(got[others], old[others])
+                        and torch.equal(got, want)):
+                    raise AssertionError(f"{key} {label}: the {name} cache "
+                                         f"is not the old one with slot "
+                                         f"{pos} written")
+            fp32 = beam_attend_fp32(qb, kc, vc, anc, P, row, rounds_p,
+                                    (kn, vn, own))
+            library = beam_sdpa(qb, kk, vk, anc, pos, dtype, row)
+        else:
+            def kernel():
+                return decode.beam_decode_attend(qb, kc, vc, anc, pos, row)
+
+            def plain():
+                return decode.beam_decode_attend_reference(qb, kc, vc, anc,
+                                                           pos, row)
+            fp32 = beam_attend_fp32(qb, kc, vc, anc, P, row, rounds_p)
+            library = beam_sdpa(qb, kc, vc, anc, pos, dtype, row)
+        rep.check(key, label, kernel, plain, dtype, work=work,
+                  library_fn=library)
+        ms, pms, lms = rep.last
+        check_beam_fp32(key, label, kernel(), fp32)
+        del fp32
+        bitwise_repeat(key, label, lambda: (kernel(),))
+        b2b = back_to_back_ms(kernel)
+        dev, dev_call = device_ms(kernel, update)
+        bms, _ = bound(*work, dtype)
+        route = (f", route {decode.beam_route(K, Dh, dtype)}"
+                 if hasattr(decode, "beam_route") else "")
+        print(f"  {key:24s} {label:34s} per call {ms:.4f} ms, back to back "
+              f"{b2b:.4f}, device {dev:.4f} (the call's kernels "
+              f"{dev_call:.4f}), plain {pms:.4f}, SDPA {lms:.4f}, bound "
+              f"{bms:.4f} ({rows} distinct rows){route}", flush=True)
+
+
+def phase_beam_sites(rep: Report) -> None:
+    """3k: D1 and D2 in bf16 at the rows their paths give them (K 5, H 12,
+    Dh 64): BART B 500, L 40 at pos 0, 20 and 39; T5 B 300 with the bias
+    row (and the own bias: its column pos, for D2) at pos 39, in T5's
+    strided layout; the video eval B 50, L 20 at pos 19; and L 160 at pos
+    159 (B 50), a cache of more slots than the kernel stages at once. Each
+    under the smoke's uniform ancestry and a beam-tree one (beam_tree_anc),
+    by beam_case. Only the two wrappers, their twins and
+    beam_selection_mask are called, so the phase also times an earlier
+    tree's kernels (chip_phases.py); there, whose kernel keeps p in fp32,
+    the fp32 arithmetic keeps it too."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rounds_p = hasattr(decode, "beam_plan")
+    for site, B, Lc, pos, bias in (("bart", 500, 40, 0, False),
+                                   ("bart", 500, 40, 20, False),
+                                   ("bart", 500, 40, 39, False),
+                                   ("t5 +bias", 300, 40, 39, True),
+                                   ("video", 50, 20, 19, False),
+                                   ("long", 50, 160, 159, False)):
+        for tree in (False, True):
+            beam_case(rep, g, site, B, Lc, pos, bias, tree, rounds_p)
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -2661,7 +2924,8 @@ def d2_case(rep: Report, g, dtype, B: int, H: int, Dh: int, Lc: int,
                   qb, kp, vp, kn, vn, anc, pos, own, row),
               dtype, timed=timed,
               work=(e * (6 * B * K * inner + 2 * rows * inner)
-                    + 4 * B * K * Lc + (4 * H * (Lc + 1) if bias else 0),
+                    + anc.element_size() * B * K * pos
+                    + (4 * H * (pos + 1) if bias else 0),
                     4 * B * K * H * (pos + 1) * Dh),
               library_fn=beam_sdpa(qb, kk, vk, anc, pos, dtype, row))
 
@@ -3006,9 +3270,9 @@ def phase_bias_train_bench(card: str):
 
 
 def profile_run(run, card: str, what: str) -> None:
-    """One more run under torch.profiler: device time by kernel family, the
-    device idle share of the run's wall time, and the top of the per-kernel
-    table."""
+    """One more run under torch.profiler: device time and launches by
+    kernel family, the device idle share of the run's wall time, and the
+    top of the per-kernel table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3046,7 +3310,7 @@ def profile_run(run, card: str, what: str) -> None:
                 "topk_lse": "topk_lse kernel (T1)", "gemm": "cuBLAS GEMMs",
                 "sm90": "cuBLAS GEMMs", "cutlass": "cuBLAS GEMMs",
                 "nvjet": "cuBLAS GEMMs"}
-    by_family, busy = {}, 0.0
+    by_family, launches, busy = {}, {}, 0.0
     events = prof.key_averages()
     key = ("self_device_time_total" if hasattr(events[0], "self_device_time_total")
            else "self_cuda_time_total")
@@ -3060,11 +3324,13 @@ def profile_run(run, card: str, what: str) -> None:
         fam = next((f for pat, f in families.items() if pat in ev.key.lower()),
                    "other kernels and copies")
         by_family[fam] = by_family.get(fam, 0.0) + dev_us / 1e3
+        launches[fam] = launches.get(fam, 0) + ev.count
     print(f"  profile of one {what} on {card}: wall {wall_ms:.1f} ms, device "
           f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}",
           flush=True)
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"    {fam:32s} {ms:9.2f} ms  {ms / wall_ms:.3f} of wall")
+        print(f"    {fam:32s} {ms:9.2f} ms  {ms / wall_ms:.3f} of wall  "
+              f"{launches[fam]} launches")
     print(events.table(sort_by=key, row_limit=25, max_name_column_width=60),
           flush=True)
 
@@ -3114,6 +3380,8 @@ def main() -> int:
     print("phase 3j: F2 at its paths' rows, bf16; U1's K+V write",
           flush=True)
     phase_ffn_bwd_sites(rep)
+    print("phase 3k: D1 and D2 at their paths' rows, bf16", flush=True)
+    phase_beam_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()

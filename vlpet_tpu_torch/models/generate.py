@@ -117,7 +117,8 @@ def beam_generate(decode_topk: Callable, cache, batch_size: int, num_beams: int,
     fin_seqs = torch.full((B, K, max_length), pad_token_id, dtype=torch.long,
                           device=device)
     fin_scores = torch.full((B, K), NEG_INF, dtype=f32, device=device)
-    own_row = torch.arange(K, device=device)
+    # int32, as the JAX loop holds it: the attends read it in place
+    own_row = torch.arange(K, dtype=torch.int32, device=device)
     anc = own_row[None, :, None].expand(B, K, cache_len).clone()
 
     i = 0

@@ -211,11 +211,12 @@ class T5Attention(nn.Module):
         q4 = q.reshape(B, 1, H, Dh)
         if beam_anc is not None and self.cfg.use_fused_beam:
             # D2 (vlpet_tpu/models/t5.py:196-211): the own row gets the
-            # distance-0 bias, the cache side the bias row
+            # distance-0 bias, the cache side the bias row; the own bias is
+            # the row's column decode_pos, a view (D2 reads it by stride)
             fn = route(beam_decode_attend_update,
                        beam_decode_attend_update_reference)
             out = fn(q4, cache["k"], cache["v"], k, v, beam_anc, decode_pos,
-                     bias[0, :, 0, decode_pos].contiguous(), bias)
+                     bias[0, :, 0, decode_pos], bias)
             return self.o(out)
         write_slot(cache, k, v, decode_pos)
         if beam_anc is not None:

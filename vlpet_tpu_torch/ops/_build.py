@@ -74,12 +74,16 @@ _SIGNATURES = {
     # h, res, gamma, seed, dy, dh, dres, partial, dgamma, dbeta, N, D, G,
     # drop, thr, scale, eps, is_bf16, stream
     "vlpet_ln_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
-    # q, k, v, anc, bias row (or NULL), out, B, K, J, Lc, H, Dh, pos,
-    # is_bf16, stream
-    "vlpet_beam_attend": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k, v, anc (int32 or int64), bias row (or NULL), out, B, K, J, Lc,
+    # H, Dh, pos, anc64, bias row's head and slot strides, is_bf16, tc (the
+    # route), heads a block, tile rows, shared memory bytes (ops/decode.py
+    # beam_route, tc_heads, beam_plan), stream
+    "vlpet_beam_attend": [_P] * 6 + [_I] * 15 + [_P],
     # q, k cache, v cache, k new, v new, anc, bias row (or NULL), own bias
-    # (or NULL), out, B, K, Lc, H, Dh, pos, is_bf16, stream
-    "vlpet_beam_attend_update": [_P] * 9 + [_I] * 7 + [_P],
+    # (or NULL), out, B, K, Lc, H, Dh, pos, anc64, bias row's strides, own
+    # bias's stride, is_bf16, tc, heads a block, tile rows, shared memory
+    # bytes, stream
+    "vlpet_beam_attend_update": [_P] * 9 + [_I] * 15 + [_P],
     # x, vals, idx, lse, R, V, k, stream
     "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
     # cache, new, second cache and new (or NULL, NULL), N, L, row elements,

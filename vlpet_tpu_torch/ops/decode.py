@@ -18,10 +18,17 @@ beam_decode_attend_update's _beam_self_update_kernel, the opt-in
 ``use_fused_beam``): D1 over the slots before ``decode_pos``, plus each
 beam's own new K/V as an extra term, then the write of the new K/V into
 slot ``decode_pos``, in one launch.
+
+On the card both are one launch of one kernel template and nothing else:
+the ancestry goes by pointer as the caller holds it (int32 or int64, the
+kernel reads either), the bias row and the own bias by pointer and
+strides (T5's own bias is a column of its bias row: no copy), and the
+checks cost no launch. ``beam_plan`` is the launch's shared-memory plan.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -30,6 +37,133 @@ from vlpet_tpu_torch.ops import _build
 from vlpet_tpu_torch.ops.attention import fused_attention
 
 NEG_INF = -1.0e9
+
+# D1 / D2's launch (csrc/beam_attend.cu): kStages ring tiles of head slices
+# in flight; "fma" a block of kThreads per head, tiles of _TILE_BYTES;
+# "tc" a warp per head, up to _TC_MAX_HEADS heads a block (tc_heads), tiles
+# of _TC_ENT entries, rows padded to _TC_LD elements
+_STAGES, _THREADS, _TILE_BYTES = 3, 128, 8192
+_TC_DH, _TC_LD, _TC_ENT, _TC_MAX_K = 64, 72, 16, 16
+_TC_MAX_HEADS = 4
+SMEM_LIMIT = 232448  # a block's shared memory on sm_90 (227 KB)
+MAX_ROWS = 32  # J: a slot's rows are one 32-bit mask in the kernel
+_FLOATS, _INDEX = (torch.float32, torch.bfloat16), (torch.int32, torch.int64)
+
+
+def beam_route(K: int, Dh: int, dtype: torch.dtype) -> str:
+    """D1 / D2's math, a plain function of (K, Dh, dtype): "tc" (a warp per
+    head, tc_heads(H) heads a block, scores and P.V on mma.sync with the K
+    beams as the rows of an m16 tile) for bf16 at Dh 64 with K <= 16 --
+    every beam site of the repo -- else "fma" (a block per head, FMA dot
+    products: fp32, which no tensor-core product keeps, and other
+    widths)."""
+    return ("tc" if dtype == torch.bfloat16 and Dh == _TC_DH
+            and K <= _TC_MAX_K else "fma")
+
+
+def tc_heads(H: int, K: int, J: int, P: int, update: bool = False) -> int:
+    """Heads a "tc" block takes over P slots: the most that divide H, up to
+    _TC_MAX_HEADS (4 at BART-base and T5-base: three blocks a batch
+    element, five an SM; 6 and 12 heads a block, one 1536-byte run of a
+    row's heads, measured slower: fewer blocks in flight), whose shared
+    memory fits a block (fewer for a long cache); 1 if none does.
+    ``update``: D2's launch."""
+    for g in range(min(H, _TC_MAX_HEADS), 0, -1):
+        if H % g == 0 and beam_plan(K, J, P, _TC_DH, 2, g,
+                                    update)[1] <= SMEM_LIMIT:
+            return g
+    return 1
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def beam_plan(K: int, J: int, P: int, Dh: int, elem: int, heads: int,
+              update: bool = False):
+    """(rows, smem) of a D1 / D2 launch over P slots of a (B*J)-row cache,
+    on route "tc" with ``heads`` heads a block, or "fma" (``heads`` 0): a
+    ring tile holds ``rows`` entries -- _TC_ENT of each head ("tc"), or
+    _TILE_BYTES of head slices, or the P * min(K, J) distinct rows a block
+    can read at most, if fewer ("fma") -- and the block takes ``smem``
+    bytes of shared memory, region by region as csrc/beam_attend.cu
+    layout_of lays them out: the ring, the queries (16 rows a head on
+    "tc"), "fma"'s fp32 P.V sums per slot split, per (head, beam, slot) a
+    score, per (beam, slot) an entry number, per slot a row mask, a first
+    entry and up to min(K, J) entries, D2's own probabilities and (D2,
+    ``update``) its k_new and v_new rows. The kernel refuses a launch whose
+    smem differs from its own layout."""
+    if heads:
+        G, ld, rows, qrows, acc = heads, _TC_LD, _TC_ENT, _TC_MAX_K, 0
+    else:
+        vecs = Dh * elem // 16
+        splits = 1 if K * vecs >= _THREADS else _THREADS // (K * vecs)
+        G, ld, qrows, acc = 1, Dh, K, _a16(splits * K * Dh * 4)
+        rows = min(_TILE_BYTES // (Dh * elem), max(1, P * min(K, J)))
+    smem = (_a16(_STAGES * rows * G * ld * elem) + _a16(G * qrows * ld * elem)
+            + acc + _a16(G * K * P * 4) + _a16(K * P * 4) + _a16(P * 4)
+            + _a16((P + 1) * 4) + _a16(P * min(K, J) * 4) + _a16(G * K * 4)
+            + (_a16(2 * K * G * Dh * elem) if update else 0))
+    return rows, smem
+
+
+def _card_args(q: torch.Tensor, others: tuple, names: tuple,
+               anc: torch.Tensor, J: int, P: int,
+               bias_row: Optional[torch.Tensor], update: bool):
+    """The checks of a D1 / D2 launch, none of which launches anything, and
+    the launch's shared arguments: q as (B*K, H*Dh) (copied only where the
+    caller's is not contiguous), the ancestry's int64 flag, the bias row's
+    pointer and strides, and the launch's route flag, heads a block, tile
+    rows and smem (beam_route, tc_heads, beam_plan). ``others`` (the
+    caches, D2's new K/V; ``names`` names q and them) must have q's dtype
+    and be contiguous and 16-byte aligned. The ancestry goes as the caller
+    holds it: int32 or int64, and one that is not contiguous raises (it is
+    never copied)."""
+    B, K, _ = anc.shape
+    H, Dh = q.shape[-2:]
+    dt = q.dtype
+    q2 = q.reshape(B * K, H * Dh)
+    if not q2.is_contiguous():
+        q2 = q2.contiguous()
+    ts = (q2,) + others
+    elem = q2.element_size()
+    if (dt not in _FLOATS or anc.dtype not in _INDEX
+            or not anc.is_contiguous() or J > MAX_ROWS or (Dh * elem) % 16
+            or any(t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16
+                   for t in ts)):
+        _refuse(ts, names, anc, J, Dh)
+    heads = (tc_heads(H, K, J, P, update) if beam_route(K, Dh, dt) == "tc"
+             else 0)
+    rows, smem = beam_plan(K, J, P, Dh, elem, heads, update)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K {K}, {P} slots, Dh {Dh}: {smem} bytes of "
+                         f"shared memory, over the block's {SMEM_LIMIT}")
+    bias = ((None, 0, 0) if bias_row is None else
+            (bias_row.data_ptr(), bias_row.stride(1), bias_row.stride(3)))
+    return (q2, int(anc.dtype == torch.int64), bias,
+            (int(heads > 0), max(heads, 1), rows, smem))
+
+
+def _refuse(ts: tuple, names: tuple, anc: torch.Tensor, J: int, Dh: int):
+    """Raise the error of the check of _card_args that failed."""
+    if ts[0].dtype not in _FLOATS:
+        raise TypeError(f"q: dtype {ts[0].dtype} not in {_FLOATS}")
+    if anc.dtype not in _INDEX:
+        raise TypeError(f"anc: dtype {anc.dtype} not in {_INDEX}")
+    if not anc.is_contiguous():
+        raise ValueError("anc: the ancestry must be contiguous (the kernel "
+                         "reads it in place)")
+    if J > MAX_ROWS:
+        raise ValueError(f"{J} cache rows per batch element: the kernel "
+                         f"takes at most {MAX_ROWS}")
+    for name, t in zip(names, ts):
+        _build.check(t, name, (ts[0].dtype,), t.dim())  # shapes: the caller
+        if t.data_ptr() % 16 or (Dh * t.element_size()) % 16:
+            raise ValueError(f"{name}: the kernel copies 16-byte pieces of "
+                             f"each head's Dh {Dh}: the tensor must be "
+                             f"16-byte aligned and Dh * {t.element_size()} "
+                             f"a multiple of 16")
 
 
 def beam_selection_mask(anc: torch.Tensor, decode_pos: int, cache_len: int,
@@ -100,10 +234,11 @@ def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B*K, 1, H, Dh); k, v (L, B*J, H*Dh) time-major cache whose slot
     ``decode_pos`` already holds this step's KV (the mask is inclusive);
-    anc (B, K, L) integer ancestry with values in [0, J); bias_row optional
-    additive (1, H, 1, L) fp32 (T5 relative positions), added to slot l of
-    every beam. Returns (B*K, 1, H*Dh). CPU tensors run
-    the plain version; CUDA tensors launch the kernel."""
+    anc (B, K, L) integer ancestry with values in [0, J) (on the card int32
+    or int64, contiguous: the kernel reads it in place); bias_row optional
+    additive (1, H, 1, L) fp32 (T5 relative positions, any strides), added
+    to slot l of every beam. Returns (B*K, 1, H*Dh). CPU tensors run the
+    plain version; CUDA tensors launch the kernel (one launch)."""
     B, K, Lc = anc.shape
     H, Dh = q.shape[-2:]
     if k.shape[0] != Lc or k.shape[1] % B or k.shape != v.shape:
@@ -122,19 +257,13 @@ def beam_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return beam_decode_attend_reference(q, k, v, anc, decode_pos,
                                             bias_row)
     J = k.shape[1] // B
-    q2 = q.reshape(B * K, H * Dh)
-    dts = (torch.float32, torch.bfloat16)
-    _build.check(q2, "q", dts, 2)
-    _build.check(k, "k", (q.dtype,), 3)
-    _build.check(v, "v", (q.dtype,), 3)
-    anc32 = anc.to(torch.int32).contiguous()
-    bias = None if bias_row is None else bias_row.reshape(H, Lc).contiguous()
+    q2, anc64, (bias, sh, st), plan = _card_args(
+        q, (k, v), ("q", "k", "v"), anc, J, decode_pos + 1, bias_row, False)
     out = torch.empty_like(q2)
     _build.launch("vlpet_beam_attend", q2.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), anc32.data_ptr(),
-                  None if bias is None else bias.data_ptr(), out.data_ptr(),
-                  B, K, J, Lc, H, Dh, int(decode_pos),
-                  int(q.dtype == torch.bfloat16))
+                  v.data_ptr(), anc.data_ptr(), bias, out.data_ptr(), B, K,
+                  J, Lc, H, Dh, int(decode_pos), anc64, sh, st,
+                  int(q.dtype == torch.bfloat16), *plan)
     beam_decode_attend.launches += 1
     return out.reshape(B * K, 1, H * Dh)
 
@@ -161,6 +290,9 @@ def beam_cross_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = mask.float().reshape(B, 1, 1, S)
     out = attend(q.reshape(B, K, H * Dh), k, v, m, H)
     return out.reshape(B * K, 1, H * Dh)
+
+
+_D2_NAMES = ("q", "k_cache", "v_cache", "k_new", "v_new")
 
 
 def _check_update(q, k_cache, v_cache, k_new, v_new, anc, decode_pos,
@@ -239,37 +371,42 @@ def beam_decode_attend_update(q: torch.Tensor, k_cache: torch.Tensor,
     stale data and is overwritten, in place, with k_new, v_new ((B*K) *
     H*Dh elements each, rows beam-major); anc (B, K, L) ancestry, read at
     slots l <= decode_pos - 1 (this step enters through the own-row term);
-    own_bias optional (H,) fp32 on the own score (T5's distance-0 bias);
-    bias_row optional (1, H, 1, L) fp32 on the cache side. Returns
+    own_bias optional (H,) fp32 on the own score (T5's distance-0 bias: a
+    column of the bias row, any stride); bias_row optional (1, H, 1, L)
+    fp32 on the cache side (any strides); on the card the ancestry is
+    int32 or int64 and contiguous, read in place. Returns
     (B*K, 1, H*Dh). CPU tensors run the plain twin; CUDA tensors launch
     D2."""
     _check_update(q, k_cache, v_cache, k_new, v_new, anc, decode_pos,
                   own_bias, bias_row)
-    ts = (q, k_cache, v_cache, k_new, v_new, anc) + tuple(
-        t for t in (own_bias, bias_row) if t is not None)
+    ts = (q, k_cache, v_cache, k_new, v_new, anc)
+    if own_bias is not None:
+        ts += (own_bias,)
+    if bias_row is not None:
+        ts += (bias_row,)
     if not _build.use_kernel(*ts):
         return beam_decode_attend_update_reference(
             q, k_cache, v_cache, k_new, v_new, anc, decode_pos, own_bias,
             bias_row)
     B, K, Lc = anc.shape
     H, Dh = q.shape[-2:]
-    q2 = q.reshape(B * K, H * Dh).contiguous()
-    _build.check(q2, "q", (torch.float32, torch.bfloat16), 2)
-    _build.check(k_cache, "k_cache", (q.dtype,), 3)
-    _build.check(v_cache, "v_cache", (q.dtype,), 3)
-    kn = k_new.reshape(B * K, H * Dh).to(q.dtype).contiguous()
-    vn = v_new.reshape(B * K, H * Dh).to(q.dtype).contiguous()
-    anc32 = anc.to(torch.int32).contiguous()
-    bias = None if bias_row is None else bias_row.reshape(H, Lc).contiguous()
-    obias = None if own_bias is None else own_bias.contiguous()
+    kn = k_new.reshape(B * K, H * Dh)
+    vn = v_new.reshape(B * K, H * Dh)
+    if kn.dtype != q.dtype or not kn.is_contiguous():
+        kn = kn.to(q.dtype).contiguous()
+    if vn.dtype != q.dtype or not vn.is_contiguous():
+        vn = vn.to(q.dtype).contiguous()
+    q2, anc64, (bias, sh, st), plan = _card_args(
+        q, (k_cache, v_cache, kn, vn), _D2_NAMES, anc, K, decode_pos,
+        bias_row, True)
+    obias, so = ((None, 0) if own_bias is None
+                 else (own_bias.data_ptr(), own_bias.stride(0)))
     out = torch.empty_like(q2)
     _build.launch("vlpet_beam_attend_update", q2.data_ptr(),
                   k_cache.data_ptr(), v_cache.data_ptr(), kn.data_ptr(),
-                  vn.data_ptr(), anc32.data_ptr(),
-                  None if bias is None else bias.data_ptr(),
-                  None if obias is None else obias.data_ptr(),
-                  out.data_ptr(), B, K, Lc, H, Dh, int(decode_pos),
-                  int(q.dtype == torch.bfloat16))
+                  vn.data_ptr(), anc.data_ptr(), bias, obias, out.data_ptr(),
+                  B, K, Lc, H, Dh, int(decode_pos), anc64, sh, st, so,
+                  int(q.dtype == torch.bfloat16), *plan)
     beam_decode_attend_update.launches += 1
     return out.reshape(B * K, 1, H * Dh)
 
