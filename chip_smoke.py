@@ -179,6 +179,17 @@ nonzero and no result line is printed):
      (torch.profiler), the plain twin's, SDPA's and the bound with the
      distinct rows its ancestry reads (chip_phases.py runs this phase on
      an earlier tree's kernels too);
+  3l. (run after 3k) T1 and T2, the exact top-k + logsumexp, on fp32
+     logits at the sites their paths give them: beam 5 at BART R 2500 and
+     the video eval's R 250 (V 50265), T5 R 1500 at V 32100 (relu, tied)
+     and 32128 (gated, untied), k 10; k 1 at R 2500 (T2's row) and the
+     greedy rows, BART R 500 and T5 R 300; k 16 at R 1 and 2501; short
+     vocabularies (R 2501 V 1001 k 10, R 7 V 37 k 16). Each on randn logits, ties (2000 levels) and rows half -inf
+     with row 0 all -inf: values and indices exactly the stable sort's,
+     lse within TOPK_LSE_TOL, twice bitwise equal; per-call,
+     back-to-back and device times, the plain twin's, the two calls
+     torch.topk + torch.logsumexp and the bound (chip_phases.py runs this
+     phase on an earlier tree's kernel too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -613,18 +624,11 @@ def check_topk(rep: Report, cname: str, x: torch.Tensor, kk: int,
     """topk_lse on f32 logits x (R, V): indices and values exactly the
     stable sort's, lse within TOPK_LSE_TOL."""
     R, V = x.shape
-    vals, toks, lse = topk.topk_lse(x, kk)
-    rv, rt, rl = topk.topk_lse_reference(x, kk)
+    got = topk.topk_lse(x, kk)
+    want = topk.topk_lse_reference(x, kk)
     torch.cuda.synchronize()
-    if not torch.equal(toks, rt) or not torch.equal(vals, rv):
-        bad = (toks != rt).any(dim=1).nonzero()[:3].flatten().tolist()
-        raise AssertionError(f"topk_lse {cname} k={kk}: indices/values "
-                             f"differ from the stable sort, rows {bad}")
-    err = (lse - rl).abs()
-    if bool((err > TOPK_LSE_TOL * (1 + rl.abs())).any()):
-        raise AssertionError(f"topk_lse {cname} k={kk}: lse max |err| "
-                             f"{err.max().item():.3e}")
-    rep.err["topk_lse"] = max(rep.err["topk_lse"], err.max().item())
+    worst = topk_exact(f"{cname} k={kk}", got, want)
+    rep.err["topk_lse"] = max(rep.err["topk_lse"], worst)
     ms = cuda_ms(lambda: topk.topk_lse(x, kk))
     pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
     bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
@@ -633,9 +637,30 @@ def check_topk(rep: Report, cname: str, x: torch.Tensor, kk: int,
         rep.timed["topk_lse"] = dict(ms=ms, plain_ms=pms, library_ms=None,
                                      bound_ms=bms, bound_by=by)
     print(f"  {'topk_lse':24s} {f'{cname} R{R} V{V} k{kk}':34s} "
-          f"indices exact, lse max|err| {err.max().item():.3e}  "
+          f"indices exact, lse max|err| {worst:.3e}  "
           f"kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bms:.4f} ms "
           f"({by})", flush=True)
+
+
+def topk_exact(label: str, got, want) -> float:
+    """Raise unless topk_lse's (vals, toks, lse) ``got`` has the plain
+    twin's values and indices exactly and its lse within TOPK_LSE_TOL (-inf
+    where the twin's is -inf); returns the largest lse error."""
+    (vals, toks, lse), (rv, rt, rl) = got, want
+    if not torch.equal(toks, rt) or not torch.equal(vals, rv):
+        bad = (toks != rt).any(dim=1).nonzero()[:3].flatten().tolist()
+        raise AssertionError(f"topk_lse {label}: indices/values differ from "
+                             f"the stable sort, rows {bad}")
+    fin = torch.isfinite(rl)
+    if not (torch.equal(torch.isfinite(lse), fin)
+            and torch.equal(lse[~fin], rl[~fin])):
+        raise AssertionError(f"topk_lse {label}: lse not -inf where the "
+                             f"plain twin's is")
+    err = (lse[fin] - rl[fin]).abs()
+    worst = err.max().item() if err.numel() else 0.0
+    if bool((err > TOPK_LSE_TOL * (1 + rl[fin].abs())).any()):
+        raise AssertionError(f"topk_lse {label}: lse max |err| {worst:.3e}")
+    return worst
 
 
 def _grads_of(fn, inputs, cot):
@@ -1924,11 +1949,10 @@ def back_to_back_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, update: bool, n: int = 20) -> tuple:
-    """(device ms of the beam kernel, of every kernel of the call) per
-    call, from torch.profiler over ``n`` calls; the kernel is
-    beam_attend_update_kernel for D2 (``update``), beam_attend_kernel for
-    D1."""
+def device_ms(fn, pick, n: int = 20) -> tuple:
+    """(device ms of the kernels whose lower-case name ``pick`` accepts,
+    of every kernel of the call) per call, from torch.profiler over ``n``
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1949,8 +1973,7 @@ def device_ms(fn, update: bool, n: int = 20) -> tuple:
         if ev.device_type == DeviceType.CPU or us <= 0:
             continue
         total += us
-        name = ev.key.lower()
-        if "beam_attend" in name and ("update" in name) == update:
+        if pick(ev.key.lower()):
             kernel += us
     return kernel / 1e3 / n, total / 1e3 / n
 
@@ -2035,7 +2058,9 @@ def beam_case(rep: Report, g, site: str, B: int, Lc: int, pos: int,
         del fp32
         bitwise_repeat(key, label, lambda: (kernel(),))
         b2b = back_to_back_ms(kernel)
-        dev, dev_call = device_ms(kernel, update)
+        dev, dev_call = device_ms(
+            kernel, lambda name: "beam_attend" in name
+            and ("update" in name) == update)
         bms, _ = bound(*work, dtype)
         route = (f", route {decode.beam_route(K, Dh, dtype)}"
                  if hasattr(decode, "beam_route") else "")
@@ -2066,6 +2091,74 @@ def phase_beam_sites(rep: Report) -> None:
                                    ("long", 50, 160, 159, False)):
         for tree in (False, True):
             beam_case(rep, g, site, B, Lc, pos, bias, tree, rounds_p)
+
+
+# phase 3l: T1 and T2 at the sites their paths give them, (site, R, V, k):
+# the beam evals (R = B x 5), T2's row of PERF.md, the greedy evals (R =
+# B), k 16 at a ragged R; and two short vocabularies (one group a row)
+TOPK_SITES = (("bart beam", 2500, 50265, 10), ("t5 beam relu", 1500, 32100, 10),
+              ("t5 beam gated", 1500, 32128, 10),
+              ("video beam", 250, 50265, 10), ("T2 row", 2500, 50265, 1),
+              ("bart greedy", 500, 50265, 1), ("t5 greedy", 300, 32100, 1),
+              ("k16 ragged", 1, 50265, 16), ("k16 ragged", 2501, 50265, 16),
+              ("short V", 2501, 1001, 10), ("short V", 7, 37, 16))
+
+
+def phase_topk_sites(rep: Report) -> None:
+    """3l: topk_lse (T1; T2 at k 1) at TOPK_SITES, each on randn logits,
+    on check_topk's ties (2000 levels: every top value tied ~25 ways) and
+    on rows with half their entries at -inf, row 0 all -inf. Values and
+    indices exactly the stable sort's, lse within TOPK_LSE_TOL (-inf where
+    the plain twin gives -inf), every case twice bitwise equal. Each prints
+    the per-call event time, the time per call of 20 back to back, the
+    device time per call (torch.profiler), the plain twin's, the two-call
+    yardstick torch.topk + torch.logsumexp (its indices are not compared:
+    torch.topk leaves the order of ties unspecified) and the bound. Only
+    topk_lse and its twin are called, so chip_phases.py also times an
+    earlier tree's kernel here."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for site, R, V, kk in TOPK_SITES:
+        randn = torch.randn((R, V), generator=g, device="cuda")
+        inputs = {
+            "randn": randn,
+            "ties": torch.randint(-1000, 1000, (R, V), generator=g,
+                                  device="cuda").float() / 100.0,
+            "-inf": torch.where(torch.rand((R, V), generator=g, device="cuda")
+                                < 0.5, -math.inf, randn),
+        }
+        inputs["-inf"][0] = -math.inf
+        for cname, x in inputs.items():
+            topk_case(rep, site, cname, x, kk)
+        del inputs, randn
+
+
+def topk_case(rep: Report, site: str, cname: str, x: torch.Tensor,
+              kk: int) -> None:
+    R, V = x.shape
+    label = f"{site} {cname} R{R} V{V} k{kk}"
+    got = topk.topk_lse(x, kk)
+    again = topk.topk_lse(x, kk)
+    want = topk.topk_lse_reference(x, kk)
+    torch.cuda.synchronize()
+    worst = topk_exact(label, got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"topk_lse {label}: two runs differ")
+    rep.err["topk_lse"] = max(rep.err["topk_lse"], worst)
+
+    def kernel():
+        return topk.topk_lse(x, kk)
+    ms = cuda_ms(kernel)
+    b2b = back_to_back_ms(kernel)
+    dev, dev_call = device_ms(kernel, lambda name: "topk" in name)
+    pms = cuda_ms(lambda: topk.topk_lse_reference(x, kk))
+    two = cuda_ms(lambda: (torch.topk(x, kk), torch.logsumexp(x, dim=-1)))
+    bms, by = bound(4 * R * V + 4 * R * (2 * kk + 1), 4 * R * V,
+                    torch.float32)
+    print(f"  {'topk_lse':24s} {label:42s} exact, lse max|err| {worst:.3e}, "
+          f"bitwise twice; per call {ms:.4f} ms, back to back {b2b:.4f}, "
+          f"device {dev:.4f} (the call's kernels {dev_call:.4f}), plain "
+          f"{pms:.4f}, two calls {two:.4f}, bound {bms:.4f} ({by})",
+          flush=True)
 
 
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
@@ -3382,6 +3475,8 @@ def main() -> int:
     phase_ffn_bwd_sites(rep)
     print("phase 3k: D1 and D2 at their paths' rows, bf16", flush=True)
     phase_beam_sites(rep)
+    print("phase 3l: T1 and T2 at their sites, fp32", flush=True)
+    phase_topk_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()

@@ -84,8 +84,9 @@ _SIGNATURES = {
     # bias's stride, is_bf16, tc, heads a block, tile rows, shared memory
     # bytes, stream
     "vlpet_beam_attend_update": [_P] * 9 + [_I] * 15 + [_P],
-    # x, vals, idx, lse, R, V, k, stream
-    "vlpet_topk_lse": [_P] * 4 + [_I] * 3 + [_P],
+    # x, vals, idx, lse, R, V, k, then the plan (ops/topk.py topk_plan):
+    # threads, float4s a thread a group, ring stages, shared bytes; stream
+    "vlpet_topk_lse": [_P] * 4 + [_I] * 7 + [_P],
     # cache, new, second cache and new (or NULL, NULL), N, L, row elements,
     # element bytes, pos, stream
     "vlpet_cache_update": [_P] * 4 + [_I] * 5 + [_P],
