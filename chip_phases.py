@@ -13,9 +13,9 @@ paths' and the trainable-bias kernels against their plain twins and
 print one line per case (the kernel's, the plain twin's and the library
 call's times and the bound); 3h times F1 and C1 at their paths' rows, 3i
 F3 and F4 at theirs, 3j F2 at its own and U1's K+V write, 3k D1 and D2
-at theirs, 3l T1 and T2 at theirs (each case's per-call, back-to-back and
-device times). A phase that ROOT's ``chip_smoke`` lacks (3h-3l in a tree
-older than it) is taken from this tree's ``chip_smoke`` and run on ROOT's
+at theirs, 3l T1 and T2 at theirs, 3m L1 and L2 at theirs (each case's
+per-call, back-to-back and device times). A phase that ROOT's
+``chip_smoke`` lacks (3h-3m in a tree older than it) is taken from this tree's ``chip_smoke`` and run on ROOT's
 port, so an earlier tree's kernels are timed at the same cases. 5, 5b, 5c and 5e
 time the bf16 beam-5 evals (image-text, video, T5 and T5 gated, T5
 video; 5b and 5e first hold fp32 tokens kernels vs plain), 5d the
@@ -50,6 +50,7 @@ PHASES = {"3": ("phase_kernels", False),
           "3j": ("phase_ffn_bwd_sites", False),
           "3k": ("phase_beam_sites", False),
           "3l": ("phase_topk_sites", False),
+          "3m": ("phase_ln_sites", False),
           "5": ("phase_decode_bench", True),
           "5b": ("phase_video_eval", True),
           "5c": ("phase_t5_eval", True),

@@ -190,6 +190,20 @@ nonzero and no result line is printed):
      back-to-back and device times, the plain twin's, the two calls
      torch.topk + torch.logsumexp and the bound (chip_phases.py runs this
      phase on an earlier tree's kernel too);
+  3m. (run after 3l) L1 and L2, the fused dropout + add + LayerNorm
+     forward and backward, at the sites their paths give them (LN_SITES):
+     the image-text step's N 28000 and 5000 and the video step's N 30200
+     and 500, D 768, bf16, rate 0.1 and 0; ragged N 28001 and 1; D 1024 at
+     N 5000; D 100 at N 61 (bf16 rows of 200 bytes: the second route,
+     "scalar") and an h one element off 16 bytes at N 28000 ("scalar"
+     again, several rows a warp); fp32 at N 28000. Each against its plain
+     twin (L2 against autograd of it), bf16 twice bitwise equal (dgamma
+     and dbeta too), the bf16 dropout mask of L2 by _expect_zeros (dh
+     zero where keep_mask drops, nonzero where kept and dres is nonzero);
+     the route taken, the per-call, back-to-back and device times (by
+     kernel), the plain twin's, the two calls F.layer_norm(res + h) (L2:
+     its autograd) at rate 0 and the bound (chip_phases.py runs this
+     phase on an earlier tree's kernels too);
   5e. (run after 5d) the T5 video eval (config.t5_video_cfg): fp32 beam-5
      and greedy tokens kernels vs plain at B 4 to length 20, as 5b, then
      bf16 beam 5 to length 20 at B 50 (the t5_video_eval main-path run);
@@ -206,12 +220,14 @@ nonzero and no result line is printed):
      ms/step, peak memory and launches beside phases 7b and 7c (the
      t5_video_train and t5_full_ft main-path runs); the T5 video step then
      one bf16 step kernels vs plain, as 7b.
-Routes: each kernel-vs-plain line of A1, A6 and the long backward prints
-the route it launched (ops/attention.py forward_route for A1 and the long
-backward, a6_route for A6: "tc", the tensor-core kernels, for bf16 at Dh
-64 -- and, for A6, L, S <= 64; "fma" otherwise), every bf16 bench run
-(5-5e, 7-7e) must launch all three on "tc" only, and the kernels' JSON
-record gives their main-path launches per route. Every bf16 A6 and C2
+Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
+L2 prints the route it launched (ops/attention.py forward_route for A1
+and the long backward, a6_route for A6: "tc", the tensor-core kernels,
+for bf16 at Dh 64 -- and, for A6, L, S <= 64; "fma" otherwise;
+ops/fused_ln.py ln_plan for L1 and L2: "vec", 16-byte rows, or
+"scalar"), every bf16 bench run (5-5e, 7-7e) must launch A1, A6 and the
+long backward on "tc" only and L1 and L2 on "vec" only, and the kernels'
+JSON record gives their main-path launches per route. Every bf16 A6 and C2
 case runs twice and must be bitwise equal; 3e also holds A6's dropout mask
 bit for bit in bf16; 3f adds bf16 C2 at a ragged N (2999) and at D 512
 and 1024.
@@ -1949,33 +1965,58 @@ def back_to_back_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+PROFILE_TRIES = 5  # profiled windows device_by_kernel takes at most
+
+
+def device_by_kernel(fn, n: int = 20) -> dict:
+    """Device ms per call of each kernel (by its profiler name) that fn()
+    launches, from torch.profiler over ``n`` calls. The profiler now and
+    then records no kernel, or only some, of a window (PERF.md §7): a
+    window counts only where every kernel of one profiled call appears n
+    times as often, else both are profiled again (PROFILE_TRIES in all;
+    then this raises)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(calls: int):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type != DeviceType.CPU]
+        key = ("self_device_time_total" if events and hasattr(
+            events[0], "self_device_time_total") else "self_cuda_time_total")
+        return ({ev.key: getattr(ev, key) / 1e3 / calls for ev in events},
+                {ev.key: ev.count for ev in events})
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        _, once = window(1)
+        by, counts = window(n)
+        if once and counts == {k: n * c for k, c in once.items()}:
+            return by
+    raise AssertionError(f"torch.profiler recorded no complete window of "
+                         f"{n} calls in {PROFILE_TRIES} tries")
+
+
 def device_ms(fn, pick, n: int = 20) -> tuple:
     """(device ms of the kernels whose lower-case name ``pick`` accepts,
     of every kernel of the call) per call, from torch.profiler over ``n``
     calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    by = device_by_kernel(fn, n)
+    return (sum(ms for k, ms in by.items() if pick(k.lower())),
+            sum(by.values()))
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(events[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    kernel = total = 0.0
-    for ev in events:
-        us = getattr(ev, key)
-        if ev.device_type == DeviceType.CPU or us <= 0:
-            continue
-        total += us
-        if pick(ev.key.lower()):
-            kernel += us
-    return kernel / 1e3 / n, total / 1e3 / n
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel name without its return type, namespace, template
+    arguments and parameters: "void (anonymous
+    namespace)::ln_bwd_vec<__nv_bfloat16, 24>(..)" -> "ln_bwd_vec"."""
+    head = key.replace("(anonymous namespace)::", "")
+    return head.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
 
 
 def beam_case(rep: Report, g, site: str, B: int, Lc: int, pos: int,
@@ -2161,6 +2202,116 @@ def topk_case(rep: Report, site: str, cname: str, x: torch.Tensor,
           flush=True)
 
 
+# phase 3m: L1 and L2 at the sites their paths give them, (site, N, D,
+# dtype, rates, h's offset in elements): the image-text step's encoder (B
+# 500 x S 56) and decoder (x 10 targets) rows, the video step's (B 50 x S
+# 604, x 10), ragged N, D 1024, the second route twice (a D whose bf16
+# rows are not a multiple of 16 bytes; an h not on 16 bytes, at the
+# encoder rows, where a warp takes several rows) and fp32 at the encoder
+# rows
+LN_SITES = (("image enc", 28000, 768, torch.bfloat16, (0.1, 0.0), 0),
+            ("image dec", 5000, 768, torch.bfloat16, (0.1, 0.0), 0),
+            ("video enc", 30200, 768, torch.bfloat16, (0.1, 0.0), 0),
+            ("video dec", 500, 768, torch.bfloat16, (0.1, 0.0), 0),
+            ("ragged", 28001, 768, torch.bfloat16, (0.1,), 0),
+            ("ragged", 1, 768, torch.bfloat16, (0.1,), 0),
+            ("D 1024", 5000, 1024, torch.bfloat16, (0.1,), 0),
+            ("D 100", 61, 100, torch.bfloat16, (0.1,), 0),
+            ("misaligned", 28000, 768, torch.bfloat16, (0.1,), 1),
+            ("fp32 enc", 28000, 768, torch.float32, (0.1,), 0))
+
+
+def phase_ln_sites(rep: Report) -> None:
+    """3m: L1 and L2 (fused_dropout_add_ln and its backward) at LN_SITES,
+    by ln_case. Only the two wrappers and their twin are called, so
+    chip_phases.py also times an earlier tree's kernels here (route "n/a"
+    where its port does not count routes)."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for site, N, D, dtype, rates, offset in LN_SITES:
+        for rate in rates:
+            ln_case(rep, g, site, N, D, dtype, rate, offset)
+
+
+def ln_case(rep: Report, g, site: str, N: int, D: int, dtype,
+            rate: float, offset: int = 0) -> None:
+    """L1 and L2 at one site against the plain twin (the backward against
+    its autograd) at TOL, bf16 twice bitwise equal (dgamma and dbeta
+    too), bf16 with dropout: L2's mask by _expect_zeros; h a view
+    ``offset`` elements into its buffer. Each prints the route taken (the
+    second, "scalar", exactly where bf16 rows are not a multiple of 16
+    bytes or h is not on 16 bytes), the per-call event time, the time per call of
+    20 back to back, the device time per call by kernel (torch.profiler),
+    the plain twin's, the two-call yardstick at rate 0 (F.layer_norm(res +
+    h) for L1, its autograd for L2: not the same function, so not a
+    library row) and the bound."""
+    randn = randn_fn(g)
+    h = randn(N * D + offset, dtype=dtype)[offset:].view(N, D)
+    res, dy = (randn(N, D, dtype=dtype) for _ in range(2))
+    gamma, beta = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    label = f"{tag} {site} N{N} D{D} rate {rate}"
+    e = h.element_size()
+    want_route = "scalar" if D * e % 16 or offset * e % 16 else "vec"
+    gl, bl = gamma.to(dtype), beta.to(dtype)
+
+    def fwd():
+        return fused_ln.fused_dropout_add_ln(h, res, gamma, beta, seed, rate)
+
+    def bwd():
+        return fused_ln.fused_dropout_add_ln_bwd(h, res, gamma, seed, dy,
+                                                 rate)
+    plain_bwd = _grads_of(
+        lambda a, b, c, d: fused_ln.fused_dropout_add_ln_reference(
+            a, b, c, d, seed, rate), (h, res, gamma, beta), dy)
+    two_bwd = _grads_of(lambda a, b, c, d: F.layer_norm(a + b, (D,), c, d),
+                        (res, h, gl, bl), dy)
+    cases = (("fused_dropout_add_ln", fwd,
+              lambda: fused_ln.fused_dropout_add_ln_reference(
+                  h, res, gamma, beta, seed, rate),
+              lambda: F.layer_norm(res + h, (D,), gl, bl),
+              (e * 3 * N * D + 4 * (2 * D + 1), 8 * N * D), False),
+             ("fused_dropout_add_ln_bwd", bwd, plain_bwd, two_bwd,
+              (e * 5 * N * D + 4 * (3 * D + 1), 16 * N * D), True))
+    for key, kernel, plain, two, work, backward in cases:
+        before = route_counts()
+        got = kernel()
+        took = [k.split("[")[1].rstrip("]") for k, n in route_counts().items()
+                if k.startswith(key + "[") and n > before[k]]
+        want = plain()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        torch.cuda.synchronize()
+        err = max(compare(f"{key} {label}", a, b, dtype, backward)
+                  for a, b in zip(got, want))
+        rep.err[key] = max(rep.err[key], err)
+        route = took[0] if took else "n/a"
+        if took and took != [want_route]:
+            raise AssertionError(f"{key} {label}: launched on {took}, "
+                                 f"expected {want_route}")
+        if dtype == torch.bfloat16:
+            bitwise_repeat(key, label,
+                           lambda: kernel() if backward else (kernel(),))
+        ms = cuda_ms(kernel)
+        b2b = back_to_back_ms(kernel)
+        by = device_by_kernel(kernel)
+        dev = sum(by.values())
+        names = ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in by.items())
+        pms = cuda_ms(plain)
+        tms = cuda_ms(two)
+        bms, bby = bound(*work, dtype)
+        print(f"  {key:24s} {label:34s} max|err| {err:.3e}, route {route}; "
+              f"per call {ms:.4f} ms, back to back {b2b:.4f}, device "
+              f"{dev:.4f} ({names}), plain {pms:.4f}, two calls {tms:.4f}, "
+              f"bound {bms:.4f} ({bby})", flush=True)
+    if dtype == torch.bfloat16 and rate > 0:
+        dh, dres, _, _ = bwd()
+        keep = keep_mask(h.shape, 0, seed, rate)
+        _expect_zeros(f"fused_dropout_add_ln_bwd {label}", dh,
+                      keep & (dres != 0), "bf16")
+
+
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.randint(3, vocab, (B, 20), generator=g, device="cuda")
@@ -2262,22 +2413,33 @@ def counters():
     return out
 
 
-# the wrappers that count their launches by route: A1 and the long
-# backward by ops.attention.forward_route, A6 by ops.attention.a6_route
-ROUTED = ("fused_attention", "fused_attention_bwd_long", "fused_attention_bwd")
+# the wrappers that count their launches by route -> (the bf16 bench
+# route, the second route): A1 and the long backward by
+# ops.attention.forward_route, A6 by ops.attention.a6_route, L1 and L2 by
+# ops.fused_ln.ln_plan
+ROUTED = {"fused_attention": ("tc", "fma"),
+          "fused_attention_bwd_long": ("tc", "fma"),
+          "fused_attention_bwd": ("tc", "fma"),
+          "fused_dropout_add_ln": ("vec", "scalar"),
+          "fused_dropout_add_ln_bwd": ("vec", "scalar")}
+
+
+def _by_route(k: str) -> dict:
+    """The wrapper's launches per route ({} where an earlier tree's port
+    does not count them: chip_phases.py)."""
+    return getattr(wrappers()[k], "launches_by_route", {})
 
 
 def route_counts() -> dict:
     """"name[route]" -> launches, for the routed wrappers."""
-    return {f"{k}[{r}]": n for k in ROUTED
-            for r, n in wrappers()[k].launches_by_route.items()}
+    return {f"{k}[{r}]": n for k in ROUTED for r, n in _by_route(k).items()}
 
 
 def reset_counts():
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
     for k in ROUTED:
-        wrappers()[k].launches_by_route.update(tc=0, fma=0)
+        _by_route(k).update(dict.fromkeys(_by_route(k), 0))
 
 
 def any_launched() -> bool:
@@ -2297,11 +2459,14 @@ def read_counts(path: str):
 
 
 def require_tc(path: str, launched: dict) -> None:
-    """A bf16 bench run (every Dh 64, every A6 site L, S <= 64): A1, A6 and
-    the long backward launched on the tensor-core route only."""
-    off = {k: launched[f"{k}[fma]"] for k in ROUTED if launched[f"{k}[fma]"]}
+    """A bf16 bench run (every Dh 64, every A6 site L, S <= 64, every
+    LayerNorm row 16-byte aligned): A1, A6 and the long backward launched
+    on the tensor-core route only, L1 and L2 on the vector route only."""
+    off = {f"{k}[{second}]": launched[f"{k}[{second}]"]
+           for k, (_, second) in ROUTED.items()
+           if launched.get(f"{k}[{second}]")}
     if off:
-        raise AssertionError(f"{path}: bf16 launches on the FMA route {off}")
+        raise AssertionError(f"{path}: bf16 launches on a second route {off}")
 
 
 def routed_share(model: VLBart, run):
@@ -3477,6 +3642,8 @@ def main() -> int:
     phase_beam_sites(rep)
     print("phase 3l: T1 and T2 at their sites, fp32", flush=True)
     phase_topk_sites(rep)
+    print("phase 3m: L1 and L2 at their sites", flush=True)
+    phase_ln_sites(rep)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -3534,7 +3701,7 @@ def main() -> int:
         if wrapper_of(k) in ROUTED:  # the main path's launches per route
             entry["launches_by_route"] = {
                 r: launched[main_path].get(f"{wrapper_of(k)}[{r}]", 0)
-                for r in ("tc", "fma")}
+                for r in ROUTED[wrapper_of(k)]}
         kernels.append({**entry, "max_abs_err": rep.err[k], **rep.timed[k]})
     print(f"smoke wall time {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}")

@@ -69,11 +69,12 @@ _SIGNATURES = {
     # scale, stream
     "vlpet_ffn_bwd": [_P] * 13 + [_I] * 9 + [_F, _P],
     # h, res, gamma, beta, seed, y, N, D, drop, thr, scale, eps, is_bf16,
-    # stream
-    "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F, _I, _P],
-    # h, res, gamma, seed, dy, dh, dres, partial, dgamma, dbeta, N, D, G,
-    # drop, thr, scale, eps, is_bf16, stream
-    "vlpet_ln_bwd": [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P],
+    # then the plan (ops/fused_ln.py ln_plan): stages, blocks; stream
+    "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],
+    # h, res, gamma, seed, dy, dh, dres, partial (blocks, 2, D), dgamma and
+    # dbeta (2, D), N, D, drop, thr, scale, eps, is_bf16, stages, blocks,
+    # evict_first, stream
+    "vlpet_ln_bwd": [_P] * 9 + [_I] * 4 + [_F, _F] + [_I] * 4 + [_P],
     # q, k, v, anc (int32 or int64), bias row (or NULL), out, B, K, J, Lc,
     # H, Dh, pos, anc64, bias row's head and slot strides, is_bf16, tc (the
     # route), heads a block, tile rows, shared memory bytes (ops/decode.py
