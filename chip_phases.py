@@ -22,7 +22,9 @@ video; 5b and 5e first hold fp32 tokens kernels vs plain), 5d the
 use_fused_beam evals (BART and T5; it needs 5 and 5c before it); 7, 7b,
 7c, 7d and 7e time the bf16 train steps (image-text, video, T5,
 use_fused_ce, T5 video and t5_full_ft; 7d needs 7 and 7c before it, 7e
-needs 7b and 7c). ``--profile`` adds each bench run's device time and
+needs 7b and 7c); 8 runs the image-text CLI (VL-PET-small, bf16, B 500,
+train, eval each epoch, resume) in child processes of ROOT's
+chip_smoke. ``--profile`` adds each bench run's device time and
 launches by kernel family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
 memory over the phase is printed (for trees whose phases do not print
@@ -60,7 +62,8 @@ PHASES = {"3": ("phase_kernels", False),
           "7b": ("phase_video_train_bench", True),
           "7c": ("phase_t5_train_bench", True),
           "7d": ("phase_fused_ce_bench", True),
-          "7e": ("phase_bias_train_bench", True)}
+          "7e": ("phase_bias_train_bench", True),
+          "8": ("phase_cli_rehearsal", True)}
 HERE = Path(__file__).resolve().parent
 
 

@@ -15,6 +15,11 @@ nonzero and no result line is printed):
      S 56) sites, FFN forward + backward at N 28000 and 5000, dropout +
      add + LayerNorm forward + backward at N 28000 and 5000, rate 0.1 and
      0.0 (the fp32 dropout mask held bit for bit against keep_mask);
+     then, bf16, the image-text CLI's (phase 8) other shapes: attention at
+     caption's B 416 (L = S = 76; decoder-self L 40, causal; cross L 40,
+     S 76) and nlvr's B 166 (L = S = 102; cross L 10, S 102), where A6
+     takes its "fma" kernel past L, S 64 (bit for bit on a repeat), and
+     F1, F2, L1, L2 at gqa's N 46648 and caption's N 31616 rows;
   3c. the video path's long attention, bf16 and fp32, ragged padding
      masks: A1 forward (output and row logsumexp) and the long backward vs
      the plain version and autograd of it at the encoder (B 50, L = S =
@@ -220,6 +225,23 @@ nonzero and no result line is printed):
      ms/step, peak memory and launches beside phases 7b and 7c (the
      t5_video_train and t5_full_ft main-path runs); the T5 video step then
      one bf16 step kernels vs plain, as 7b.
+  6f. (run after 6e) the VL-PET-small, -middleX and -middleY gates on
+     BART-base at full width (``gate_cfg``: the recipes of
+     scripts/image-text/VL-PET-{small,middleX,middleY}.sh), fp32: phase
+     6's train-step parity (B 8, vqa, dropout 0.1, 3 steps kernels vs
+     plain, phase 6's tolerances), then phase 4 (a)'s beam-5 and greedy
+     tokens at B 8 to length 40, kernels vs plain, identical;
+  8. (run last) the image-text CLI, ``python -m vlpet_tpu_torch.cli.multitask``
+     in a child process (``chip_smoke.py --cli-child``), with the flags of
+     scripts/image-text/VL-PET-small.sh plus --bf16: batch 500 (valid
+     500), the four tasks, beam 5, 1000 synthetic examples a task, 10
+     epochs (110 optimizer steps), each epoch followed by the eval of all
+     four tasks; then a second child with --resume restores the saved
+     state (its digest bit for bit the first run's) and trains one epoch
+     more. Every kernel of the path (A1, A6, F1, F2, L1, L2, D1, T1/T2,
+     U1) must launch in the first run (the cli_multitask main-path run);
+     prints the wall clock of data building, training (host-clocked
+     ms/step and examples/s), each task's eval and the resume.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -255,16 +277,21 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
+import shlex
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 import torch.nn.functional as F
 
 from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, flagship_cfg,
-                                    t5_cfg, t5_video_cfg, video_cfg)
+                                    t5_cfg, t5_video_cfg, video_cfg,
+                                    vlpet_recipe)
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
@@ -315,6 +342,8 @@ PEAK_BYTES = 3.35e12
 # relu in F2, dbias), counted by the wrapper, or the wrapper's mode counter,
 # that they name, and timed in phases 3e and 3g.
 DECODE, TRAIN = ("decode", "video_eval"), ("train", "video_train")
+# phase 8: the image-text CLI (train step and beam-5 / greedy eval)
+CLI = "cli_multitask"
 T5 = ("t5_eval", "t5_gated_eval")
 T5_TRAIN = ("t5_train", "t5_gated_train")
 FUSED_CE = ("train_fused_ce", "t5_train_fused_ce")
@@ -327,27 +356,29 @@ BITFIT, T5V_BITFIT = "t5_bitfit", "t5_video_bitfit"
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
-                        DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT)),
+                        DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
+                                               CLI)),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
-                            TRAIN + (T5V_TRAIN, FULL_FT)),
+                            TRAIN + (T5V_TRAIN, FULL_FT, CLI)),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
                                  ("video_train", T5V_TRAIN)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
-                  DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN)),
+                  DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
-                      "vlpet_tpu/ops/ffn.py:195", TRAIN + (T5V_TRAIN,)),
+                      "vlpet_tpu/ops/ffn.py:195", TRAIN + (T5V_TRAIN, CLI)),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
-                             "vlpet_tpu/ops/fused_ln.py:251", TRAIN),
+                             "vlpet_tpu/ops/fused_ln.py:251", TRAIN + (CLI,)),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
-                                 "vlpet_tpu/ops/fused_ln.py:270", TRAIN),
+                                 "vlpet_tpu/ops/fused_ln.py:270",
+                                 TRAIN + (CLI,)),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
-                           DECODE + T5 + (T5V_EVAL,)),
+                           DECODE + T5 + (T5V_EVAL, CLI)),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
-                 DECODE + T5 + (T5V_EVAL,)),
+                 DECODE + T5 + (T5V_EVAL, CLI)),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -384,7 +415,8 @@ KERNELS = {
     "beam_decode_attend_update": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                                   "vlpet_tpu/ops/decode.py:249", FUSED_BEAM),
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
-                          "vlpet_tpu/ops/cache_update.py:31", DECODE + T5),
+                          "vlpet_tpu/ops/cache_update.py:31",
+                          DECODE + T5 + (CLI,)),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -398,7 +430,7 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
 # these that launches the kernel
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
-    + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT)
+    + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI)
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -784,6 +816,102 @@ def phase_train_kernels(rep: Report) -> None:
                           backward=True)
                 if not main and rate > 0:
                     check_ln_mask(h, res, gamma, seed, dy, rate)
+    cli_train_sites(rep)
+
+
+# The image-text CLI's (phase 8) train shapes that the B 500 sites above
+# miss, at the pooled 36 boxes: caption B 416 (500 * 50/60), L 40 + 36,
+# target 40; nlvr B 166 (500 * 20/60), L 30 + 2 * 36, target 10. A6 takes
+# its "fma" kernel past L, S 64. (site, B, L, S, causal)
+CLI_ATTENTION_SITES = (("caption enc", 416, 76, 76, False),
+                       ("caption dec-self", 416, 40, 40, True),
+                       ("caption cross", 416, 40, 76, False),
+                       ("nlvr enc", 166, 102, 102, False),
+                       ("nlvr cross", 166, 10, 102, False))
+# gqa's encoder rows (833 * 56) and caption's (416 * 76)
+CLI_ROWS = (46648, 31616)
+
+
+def cli_train_sites(rep: Report) -> None:
+    """A1, A6, F1, F2, L1 and L2 in bf16 at CLI_ATTENTION_SITES and
+    CLI_ROWS, against their plain twins (A6 also bit for bit on a repeat),
+    with times, bounds and library calls."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    randn = randn_fn(g)
+    dtype, e = torch.bfloat16, 2
+    H, Dh = 12, 64
+    inner = H * Dh
+    for site, B, L, S, causal in CLI_ATTENTION_SITES:
+        mask = (torch.zeros((1, 1, 1, S), device="cuda") if causal
+                else padding_mask(g, B, S))
+        q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+        k, v, do = (randn(B, n, inner, dtype=dtype) for n in (S, S, L))
+        label = f"bf16 {site} B{B} L{L} S{S}" + (" causal" if causal else "")
+        lmask = causal_mask(mask, L, S) if causal else mask
+        seen = (attention._causal_allowed(L, S, "cuda").float().mean().item()
+                if causal else 1.0)
+        rep.check("fused_attention", label,
+                  lambda: attention.fused_attention(q, k, v, mask, H, causal),
+                  lambda: attention.fused_attention_reference(
+                      q, k, v, mask, H, causal), dtype,
+                  work=(e * 2 * B * (L + S) * inner + 4 * B * S,
+                        4 * B * H * L * S * Dh * seen),
+                  library_fn=lambda: sdpa(q, k, v, lmask, H))
+        plain_bwd = _grads_of(
+            lambda a, b, c: attention.fused_attention_reference(
+                a, b, c, mask, H, causal), (q, k, v), do)
+        lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, lmask, H),
+                            (q, k, v), do.view(B, L, H, Dh).transpose(1, 2))
+        rep.check("fused_attention_bwd", label,
+                  lambda: attention.fused_attention_bwd(q, k, v, mask, do, H,
+                                                        causal),
+                  plain_bwd, dtype,
+                  work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+                        10 * B * H * L * S * Dh * seen),
+                  library_fn=lib_bwd, backward=True)
+        bitwise_repeat("fused_attention_bwd", label,
+                       lambda: attention.fused_attention_bwd(
+                           q, k, v, mask, do, H, causal))
+    D, Fh = 768, 3072
+    w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
+                                                          scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    for N in CLI_ROWS:
+        x, dy, res = (randn(N, D, dtype=dtype) for _ in range(3))
+        label = f"bf16 N{N} D{D} F{Fh} gelu"
+        rep.check("fused_ffn", label,
+                  lambda: ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),
+                  lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"), dtype,
+                  work=(e * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                        4 * N * D * Fh))
+        plain_bwd = _grads_of(
+            lambda a, c, d: ffn.ffn_reference(a, w1, c, w2, d, "gelu"),
+            (x, b1, b2), dy)
+        rep.check("fused_ffn_bwd", label,
+                  lambda: ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu"),
+                  plain_bwd, dtype,
+                  work=(e * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                        6 * N * D * Fh), backward=True)
+        gamma, beta = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g,
+                             device="cuda", dtype=torch.int32)
+        for rate in (0.1, 0.0):
+            label = f"bf16 N{N} D{D} rate {rate}"
+            rep.check("fused_dropout_add_ln", label,
+                      lambda: fused_ln.fused_dropout_add_ln(
+                          x, res, gamma, beta, seed, rate),
+                      lambda: fused_ln.fused_dropout_add_ln_reference(
+                          x, res, gamma, beta, seed, rate), dtype,
+                      work=(e * 3 * N * D + 4 * (2 * D + 1), 8 * N * D))
+            plain_bwd = _grads_of(
+                lambda a, b, c, d: fused_ln.fused_dropout_add_ln_reference(
+                    a, b, c, d, seed, rate), (x, res, gamma, beta), dy)
+            rep.check("fused_dropout_add_ln_bwd", label,
+                      lambda: fused_ln.fused_dropout_add_ln_bwd(
+                          x, res, gamma, seed, dy, rate),
+                      plain_bwd, dtype,
+                      work=(e * 5 * N * D + 4 * (3 * D + 1), 16 * N * D),
+                      backward=True)
 
 
 def phase_long_attention(rep: Report) -> None:
@@ -2450,16 +2578,21 @@ def read_counts(path: str):
     """Launch counts since the last reset; raises if a kernel of ``path``
     (a path of KERNELS) was never launched."""
     got = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    require_launched(path, got)
+    return {**got, **route_counts()}
+
+
+def require_launched(path: str, got: dict) -> None:
+    """Raise if a kernel of ``path`` has no launch in the counts ``got``."""
     missing = [k for k, (_, _, paths) in KERNELS.items()
                if path in paths and got[wrapper_of(k)] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
-    return {**got, **route_counts()}
 
 
 def require_tc(path: str, launched: dict) -> None:
-    """A bf16 bench run (every Dh 64, every A6 site L, S <= 64, every
+    """A bf16 bench run (every Dh 64, each A6 site at L, S <= 64, every
     LayerNorm row 16-byte aligned): A1, A6 and the long backward launched
     on the tensor-core route only, L1 and L2 on the vector route only."""
     off = {f"{k}[{second}]": launched[f"{k}[{second}]"]
@@ -3527,6 +3660,191 @@ def phase_bias_train_bench(card: str):
     return launched
 
 
+# phase 6f: the three other VL-PET granularity gates on BART-base
+GATE_VARIANTS = ("small", "middleX", "middleY")
+
+
+def gate_cfg(variant: str):
+    """``flagship_cfg`` with the PET of scripts/image-text/VL-PET-
+    ``variant``.sh (r 96, 4 heads, the variant's gate)."""
+    def cfg(dtype: str = "float32"):
+        return dataclasses.replace(flagship_cfg(dtype), pet=vlpet_recipe(
+            variant, r=96, num_heads=4, gate_dim=96, tasks=FLAGSHIP_TASKS))
+    return cfg
+
+
+def phase_gate_parity() -> None:
+    """Per gate: phase 6's fp32 train-step parity (B 8, vqa, dropout 0.1,
+    3 steps kernels vs plain), then phase 4 (a)'s beam-5 and greedy token
+    parity (6+6 layers at the init scale, B 8, length 40)."""
+    ctx = PetContext(task="caption", task_idx=3)
+    for v in GATE_VARIANTS:
+        train_parity(f"VL-PET-{v} B8 vqa", gate_cfg(v), make_train_batch, 8,
+                     21, FLAGSHIP_TASKS, "vqa", 1e-3, "train")
+        model = build_model("float32", gate_cfg(v))
+        parity_run(f"VL-PET-{v} 6+6 layers, init std 0.02", model,
+                   make_batch(8, model.cfg.backbone.vocab_size, seed=7), ctx,
+                   40, min_distinct=2)
+        del model
+
+
+# phase 8: the image-text CLI at the VL-PET-small recipe. 1000 synthetic
+# examples a task (36 boxes of 2048-d fp32, 0.3 MB an image: about 1.5 GB a
+# split with NLVR's two images) give 11 optimizer steps an epoch at batch
+# 500 (vqa 2, gqa 1, nlvr 6, caption 2), so 10 epochs take 110 steps, each
+# epoch followed by the eval of all four tasks; the resumed run takes one
+# epoch more.
+CLI_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "image-text", "VL-PET-small.sh")
+CLI_EXAMPLES, CLI_EPOCHS, CLI_MIN_STEPS = 1000, 10, 100
+CLI_TIMEOUT_S = 600
+
+
+def script_flags(path: str, positional) -> list:
+    """The flags a scripts/*.sh passes to its CLI: its variables and the
+    positional arguments ``positional`` ($1, $2, ..) filled in."""
+    text = open(path).read()
+    env = {str(i + 1): v for i, v in enumerate(positional)}
+    env.update(re.findall(r"^(\w+)=(\S+)$", text, flags=re.M))
+    cmd = text[text.index("python -m"):].replace("\\\n", " ").split("\n")[0]
+    for _ in range(2):
+        cmd = re.sub(r"\$\{(\w+)\}|\$(\d|[A-Za-z_]\w*)",
+                     lambda m: env.get(m.group(1) or m.group(2), ""), cmd)
+    return shlex.split(cmd)[3:]
+
+
+def cli_child(argv) -> None:
+    """``python -m vlpet_tpu_torch.cli.multitask <argv>`` in this process
+    (``chip_smoke.py --cli-child <argv>``), then one tagged line with the
+    kernels' launches over the run and its wall time."""
+    import runpy
+
+    reset_counts()
+    sys.argv = ["vlpet_tpu_torch.cli.multitask"] + list(argv)
+    t0 = time.perf_counter()
+    runpy.run_module("vlpet_tpu_torch.cli.multitask", run_name="__main__",
+                     alter_sys=True)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    got = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    print("CLI_RESULT " + json.dumps({
+        "launches": {**got, **route_counts()},
+        "wall_s": time.perf_counter() - t0}), flush=True)
+
+
+def run_cli(argv, label: str):
+    """The CLI in a child process; returns (its stdout, its CLI_RESULT)."""
+    t0 = time.perf_counter()
+    # the WhitespaceTokenizer fallback ids words by Python's str hash: one
+    # hash seed gives both processes (and every smoke run) the same ids,
+    # and the CLI refuses --resume without one (require_stable_word_ids)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--cli-child"] + list(argv), capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          env={**os.environ, "PYTHONHASHSEED": "0"})
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: the CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    tag = [ln for ln in proc.stdout.splitlines()
+           if ln.startswith("CLI_RESULT ")]
+    res = json.loads(tag[-1][len("CLI_RESULT "):])
+    res["process_s"] = time.perf_counter() - t0
+    return proc.stdout, res
+
+
+def _digest(out: str, pattern: str) -> tuple:
+    m = re.search(pattern, out)
+    if m is None:
+        raise AssertionError(f"no {pattern!r} in the CLI's output")
+    return m.groups()
+
+
+def phase_cli_rehearsal(card: str) -> dict:
+    """``python -m vlpet_tpu_torch.cli.multitask`` with the flags of
+    scripts/image-text/VL-PET-small.sh (r 96, 4 heads, VPA 96, lr 1e-3;
+    synthetic features made at the pooled 36 boxes, so ``--downsample`` is
+    left out) plus ``--bf16``: batch 500 (valid 500), the four tasks,
+    beam 5, CLI_EPOCHS epochs of CLI_EXAMPLES examples a task, each epoch
+    evaluated; then a second process with ``--resume`` restores the saved
+    state (its digest equal, bit for bit, to what the first saved) and
+    trains one epoch more. Every kernel of the path must launch in the
+    first run (the cli_multitask main-path run); prints the wall clock of
+    each part beside the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "run")
+        flags = script_flags(CLI_SCRIPT, ["0", "96", "4", "96", "96", "1e-3",
+                                          "9595"])
+        flags = [f for f in flags if f != "--downsample"] + [
+            "--bf16", "--synthetic_examples", str(CLI_EXAMPLES), "--output",
+            out_dir, "--device", "cuda"]
+        out1, res1 = run_cli(flags + ["--epochs", str(CLI_EPOCHS)], "train")
+        launched = res1["launches"]
+        require_launched(CLI, launched)
+        saved_step, saved = _digest(out1, r"saved at step (\d+); state "
+                                          r"digest ([0-9a-f]+)")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+        out2, res2 = run_cli(flags + ["--epochs", str(CLI_EPOCHS + 1),
+                                      "--resume"], "resume")
+        step2, restore_s, restored = _digest(
+            out2, r"resumed from step (\d+) in ([0-9.]+) s; state digest "
+                  r"([0-9a-f]+)")
+        end_step, _ = _digest(out2, r"saved at step (\d+); state digest "
+                                    r"([0-9a-f]+)")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            recs2 = [json.loads(ln) for ln in f][len(recs):]
+    if step2 != saved_step or restored != saved:
+        raise AssertionError(f"resume: step {step2} digest {restored}, saved "
+                             f"step {saved_step} digest {saved}")
+    epochs = [r for r in recs if "train_seconds" in r]
+    steps = int(sum(r["train_steps"] for r in epochs))
+    if len(epochs) != CLI_EPOCHS or steps < CLI_MIN_STEPS:
+        raise AssertionError(f"{len(epochs)} epochs, {steps} steps")
+    for r in epochs + [r for r in recs2 if "train_seconds" in r]:
+        if not math.isfinite(r["train_loss"]):
+            raise AssertionError(f"non-finite train loss in {r}")
+        for t in FLAGSHIP_TASKS:
+            if f"{t}/eval_seconds" not in r:
+                raise AssertionError(f"no {t} eval in epoch {r['epoch']}")
+    more = int(end_step) - int(saved_step)
+    if more <= 0:
+        raise AssertionError(f"the resumed run took no step ({end_step})")
+    data_s = [r["data_build_seconds"] for r in recs + recs2
+              if "data_build_seconds" in r]
+    train_s = sum(r["train_seconds"] for r in epochs)
+    ex = sum(r["train_examples"] for r in epochs)
+    later = epochs[1:]
+    later_ms = (sum(r["train_seconds"] for r in later)
+                / sum(r["train_steps"] for r in later) * 1e3)
+    last = epochs[-1]
+    evals = {t: [r[f"{t}/eval_seconds"] for r in epochs]
+             for t in FLAGSHIP_TASKS}
+    print(f"  on {card}: VL-PET-small CLI, bf16, B 500, {CLI_EXAMPLES} "
+          f"examples a task, {CLI_EPOCHS} epochs", flush=True)
+    print(f"  data build {data_s[0]:.2f} s (train + val, both runs: "
+          f"{', '.join(f'{x:.2f}' for x in data_s)} s)", flush=True)
+    print(f"  train: {steps} steps in {train_s:.2f} s host-clocked: "
+          f"{train_s / steps * 1e3:.2f} ms/step, {ex / train_s:.2f} "
+          f"examples/s over all epochs; {later_ms:.2f} ms/step after the "
+          f"first epoch; last epoch loss {last['train_loss']:.4f}",
+          flush=True)
+    for t, xs in evals.items():
+        scores = {k.split("/", 1)[1]: round(v, 4) for k, v in last.items()
+                  if k.startswith(t + "/") and not k.endswith("eval_seconds")}
+        print(f"  eval {t}: {xs[0]:.2f} s the first epoch, median "
+              f"{statistics.median(xs):.2f} s; last scores {scores}",
+              flush=True)
+    print(f"  processes: train {res1['process_s']:.2f} s ({res1['wall_s']:.2f} "
+          f"s in the CLI), resume {res2['process_s']:.2f} s "
+          f"({res2['wall_s']:.2f} s in the CLI; restore {float(restore_s):.3f}"
+          f" s, {more} more steps); state at step {saved_step} restored bit "
+          f"for bit (digest {saved[:16]})", flush=True)
+    print(f"  launches of the train run "
+          f"{ {k: n for k, n in launched.items() if n} }", flush=True)
+    return launched
+
+
 def profile_run(run, card: str, what: str) -> None:
     """One more run under torch.profiler: device time and launches by
     kernel family, the device idle share of the run's wall time, and the
@@ -3676,6 +3994,9 @@ def main() -> int:
     print("phase 6e: T5 video and trainable-bias train-step parity, fp32",
           flush=True)
     launched.update(phase_bias_train_parity())
+    print("phase 6f: VL-PET-small, -middleX, -middleY parity, fp32",
+          flush=True)
+    phase_gate_parity()
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -3687,6 +4008,8 @@ def main() -> int:
     launched.update(phase_fused_ce_bench(card))
     print("phase 7e: T5 video and t5_full_ft train steps, bf16", flush=True)
     launched.update(phase_bias_train_bench(card))
+    print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
+    launched[CLI] = phase_cli_rehearsal(card)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:
@@ -3713,4 +4036,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-child"]:
+        cli_child(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -211,12 +211,16 @@ def test_unported_flags_raise_at_build():
                          pet=pc.vlpet_recipe("large", r=8, num_heads=4,
                                              gate_dim=8))
     VLBart(base, device="cpu")  # the slice itself builds
+    for variant in ("small", "middleX", "middleY"):  # so do the other gates
+        VLBart(dataclasses.replace(base, pet=pc.vlpet_recipe(
+            variant, r=8, num_heads=4)), device="cpu")
 
     for change in (dict(scan_layers=True), dict(classifier=True),
                    dict(remat="dots"),
                    dict(pet=dataclasses.replace(base.pet, use_lora=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),
-                   dict(pet=pc.vlpet_recipe("small", r=8, num_heads=4)),
+                   dict(pet=dataclasses.replace(
+                       base.pet, use_encoder_adapter_gating_l2norm=True)),
                    dict(pet=pc.PetConfig(use_adapter=True)),
                    dict(vis=dataclasses.replace(base.vis,
                                                 use_lowrank_visual_projector=True))):

@@ -316,6 +316,34 @@ def test_stable_topk_matches_lax_top_k_on_ties():
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
 
 
+@pytest.mark.parametrize("case", ["tied", "neg_inf", "all_neg_inf",
+                                  "batched", "nan"])
+def test_stable_topk_candidates_match_a_full_stable_sort(case):
+    """The CPU path sorts only each row's candidates (values at or above
+    its k-th largest): the same values and indices as lax.top_k, and as a
+    full stable sort where a row holds NaN."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    x = _tied_logits(rng, 12, 300)
+    if case == "neg_inf":
+        x[x < 15.0] = -np.inf
+    elif case == "all_neg_inf":
+        x[:] = -np.inf
+    elif case == "batched":
+        x = x.reshape(3, 4, 300)
+    elif case == "nan":
+        x[2, 7] = np.nan
+    gv, gt = ttopk.stable_topk(_t(x), 10)
+    if case == "nan":
+        wv, wt = torch.sort(_t(x), dim=-1, descending=True, stable=True)
+        wv, wt = wv[..., :10].numpy(), wt[..., :10].numpy()
+    else:
+        wv, wt = map(np.asarray, jax.lax.top_k(jnp.asarray(x), 10))
+    np.testing.assert_array_equal(gt.numpy(), wt)
+    np.testing.assert_array_equal(gv.numpy(), wv)
+
+
 def _wrapper_calls():
     q = torch.zeros(2, 3, 8)
     kv = torch.zeros(2, 4, 8)

@@ -1,0 +1,239 @@
+"""Image-text multitask entry point of the port (reference:
+src/multitask.py; vlpet_tpu/cli/multitask.py).
+
+Reproduces the reference's run layout: per-task batch-size scaling
+(gqa bs·100/60, nlvr bs·20/60, caption bs·50/60 — multitask.py:682-695),
+task prompts ("vqa: " etc. — :697-706), roundrobin multitask training, and
+per-epoch VQA/GQA/NLVR/caption eval.
+
+Run:  python -m vlpet_tpu_torch.cli.multitask --tasks vqa,gqa,nlvr,caption ...
+(the flags of scripts/image-text/*.sh; ``--device cpu`` runs on the CPU,
+the default is the card). Without ``--data_root`` the data are synthetic
+(``--synthetic_examples`` per task). Not ported, and raising
+NotImplementedError: the raw-image feature types, ``--backbone_ckpt``,
+``--mesh_model_axis`` > 1, ``--distributed`` and ``--classifier``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Dict, List, Tuple
+
+from vlpet_tpu_torch.cli.param import build_model_config, parse_args
+from vlpet_tpu_torch.data.datasets import (
+    TASK_PROMPTS,
+    DatasetConfig,
+    Loader,
+    TaskDataset,
+    build_image_text_dataset,
+    synthetic_task_data,
+)
+from vlpet_tpu_torch.data.features import (
+    MonolithicH5Source,
+    PackedFeatureSource,
+    PerImageH5Source,
+)
+from vlpet_tpu_torch.data.multitask import MultitaskLoader
+from vlpet_tpu_torch.data.tokenization import (
+    WhitespaceTokenizer,
+    effective_vocab_size,
+    get_tokenizer,
+)
+from vlpet_tpu_torch.evalsuite import (
+    COCOCaptionEvaluator,
+    GQAEvaluator,
+    NLVR2Evaluator,
+    VQAEvaluator,
+)
+
+# per-task batch scaling (reference: multitask.py:682-695)
+BATCH_SCALE = {"vqa": 1.0, "gqa": 100 / 60, "nlvr": 20 / 60, "caption": 50 / 60}
+# per-task max text lengths (reference: multitask.py:683-695)
+TEXT_LEN = {"vqa": 20, "gqa": 20, "nlvr": 30, "caption": 40}
+GEN_LEN = {"vqa": 10, "gqa": 10, "nlvr": 10, "caption": 40}
+
+
+def task_batch_size(task: str, base: int) -> int:
+    return max(1, int(base * BATCH_SCALE.get(task, 1.0)))
+
+
+def feature_source_for(args, task: str):
+    """Pick the loader family by --feature_type (reference: multitask.py:638-680):
+    'butd' → monolithic h5 with boxes; 'raw_*' → raw images (on-the-fly CLIP
+    trunk inside the train step, vision.vis_encoder.RawInputVLModel); else →
+    per-image clip-feature h5 (or a packed mmap if present)."""
+    root = args.data_root
+    if root is None:
+        return None
+    if args.feature_type.startswith("raw_"):
+        raise NotImplementedError("raw-image feature types need the CLIP "
+                                  "trunk, which the port does not have")
+    packed = os.path.join(root, f"{task}_features")
+    if os.path.exists(packed + ".npy"):
+        return PackedFeatureSource(packed)
+    if args.feature_type == "butd":
+        return MonolithicH5Source(os.path.join(root, f"{task}_obj36.h5"))
+    return PerImageH5Source(os.path.join(root, "clip_features",
+                                         args.feature_type))
+
+
+def load_ans2label(args) -> Dict[str, int]:
+    """Topk answer vocabulary for the classifier head (reference:
+    vqa_data.py trainval_ans2label.json). With no data_root (synthetic
+    runs) a small fixed vocabulary is used."""
+    if args.data_root:
+        import json
+
+        path = os.path.join(args.data_root, "trainval_ans2label.json")
+        with open(path) as f:
+            return json.load(f)
+    return {a: i for i, a in enumerate(["yes", "no", "0", "1", "2", "3"])}
+
+
+def make_evaluator(task: str, examples: List[Dict]):
+    if task == "vqa":
+        id2datum = {e.get("question_id"): e for e in examples}
+        id2gt = {e.get("question_id"): e for e in examples if "answers" in e}
+        return VQAEvaluator(id2datum, id2gt)
+    if task == "gqa":
+        return GQAEvaluator({e.get("question_id"): e for e in examples})
+    if task == "nlvr":
+        id2uid = {e["identifier"]: e.get("uid", i)
+                  for i, e in enumerate(examples)}
+        return NLVR2Evaluator(examples, id2uid,
+                              {e.get("uid", i): e for i, e in enumerate(examples)})
+    if task == "caption":
+        return COCOCaptionEvaluator()
+    return None
+
+
+def require_stable_word_ids(args, tokenizer) -> None:
+    """The WhitespaceTokenizer fallback ids a word by Python's str hash,
+    which is seeded anew in every process unless PYTHONHASHSEED fixes it:
+    weights or a checkpoint trained in one process would meet other token
+    ids in the next. Refuse to restore one (``--resume``, ``--load``,
+    ``--load_trained_model_path``) under the fallback without a fixed
+    seed."""
+    if not isinstance(tokenizer, WhitespaceTokenizer):
+        return
+    restoring = [flag for flag, on in (
+        ("--resume", args.resume), ("--load", args.load),
+        ("--load_trained_model_path", args.load_trained_model_path)) if on]
+    if restoring and not os.environ.get("PYTHONHASHSEED", "").isdigit():
+        raise ValueError(
+            f"{', '.join(restoring)} with the WhitespaceTokenizer fallback "
+            f"(no --tokenizer_path) needs PYTHONHASHSEED set to an integer, "
+            f"the same in every run: its word ids are str hashes")
+
+
+def build_loaders(args, tasks: Tuple[str, ...], tokenizer, split: str,
+                  mode: str) -> List[Loader]:
+    loaders = []
+    for task in tasks:
+        cfg = DatasetConfig(
+            task=task,
+            max_text_length=TEXT_LEN.get(task, args.max_text_length),
+            gen_max_length=GEN_LEN.get(task, args.gen_max_length),
+            n_boxes=args.n_boxes, feat_dim=int(args.feat_dim),
+            prompt=TASK_PROMPTS.get(task, "") if args.use_tasks_prompts else "",
+            post_prompt=args.post_prompt,
+            raw_label=args.raw_label, answer_normalize=args.answer_normalize,
+            classifier=bool(args.classifier and task == "vqa"),
+            ans2label=(load_ans2label(args) if args.classifier
+                       and task == "vqa" else None),
+            use_vision=args.use_vision and not args.no_vis)
+        if args.data_root:
+            source = feature_source_for(args, task)
+            split_json = os.path.join(args.data_root, f"{task}_{split}.json")
+            ds = build_image_text_dataset(
+                task, split_json, source, tokenizer, cfg, mode=mode,
+                topk=int(args.train_topk if mode == "train" else args.valid_topk),
+                seed=args.seed)
+        else:
+            n = args.synthetic_examples or 64
+            grid = None
+            if args.downsample:
+                grid = int(math.isqrt(args.n_boxes)) * 2  # pre-pool grid
+            examples, source = synthetic_task_data(
+                task, n, n_boxes=args.n_boxes, feat_dim=int(args.feat_dim),
+                grid=grid, seed=args.seed)
+            ds = TaskDataset(cfg, examples, source, tokenizer, mode=mode,
+                             seed=args.seed)
+        bs = task_batch_size(task, args.batch_size if mode == "train"
+                             else args.valid_batch_size)
+        # one process: the whole split (the multi-host shards of the JAX
+        # CLI are not ported)
+        loaders.append(Loader(ds, bs, shuffle=(mode == "train"),
+                              drop_last=(mode == "train"),
+                              evaluator=make_evaluator(task, ds.examples)))
+    return loaders
+
+
+def main(argv=None, device=None):
+    """Train (or with ``--test_only`` / ``--infer_only`` evaluate) on
+    ``device`` (default ``--device``, itself "cuda" by default). Returns
+    (trainer, history), or the trainer after an evaluation-only run."""
+    args = parse_args(argv)
+    if device is not None:
+        args.device = str(device)
+    if args.distributed or args.classifier:
+        raise NotImplementedError("--distributed and --classifier are not "
+                                  "ported")
+    if args.feature_type.startswith("raw_"):
+        raise NotImplementedError("raw-image feature types are not ported")
+    tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
+    tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
+    require_stable_word_ids(args, tokenizer)
+    cfg = build_model_config(args, tasks,
+                             vocab_size=effective_vocab_size(tokenizer, added))
+
+    t0 = time.time()
+    train_loaders = build_loaders(args, tasks, tokenizer, args.train, "train")
+    val_loaders = build_loaders(args, tasks, tokenizer, args.valid, "val")
+    data_s = time.time() - t0
+    mt = MultitaskLoader(train_loaders, sampling=args.multitask_sampling)
+    total_steps = max(1, len(mt) * args.epochs)
+
+    from vlpet_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(
+        cfg, tasks, lr=args.lr, total_steps=total_steps,
+        warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
+        clip_grad_norm=args.clip_grad_norm, adam_eps=args.adam_eps,
+        adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
+        seed=args.seed, output_dir=args.output, tokenizer=tokenizer,
+        backbone_ckpt=args.backbone_ckpt, load=args.load,
+        mesh_model_axis=args.mesh_model_axis,
+        gradient_accumulation_steps=args.gradient_accumulation_steps,
+        device=args.device)
+    trainer.logger.log({"data_build_seconds": data_s})
+    if args.resume:
+        t1 = time.time()
+        step = trainer.restore()
+        if step is not None:
+            print(f"resumed from step {step} in {time.time() - t1:.3f} s; "
+                  f"state digest {trainer.state_digest()}")
+
+    if args.infer_only or args.test_only:
+        if args.load_trained_model_path:
+            from vlpet_tpu_torch.train.checkpoint import load_params_npz
+
+            load_params_npz(args.load_trained_model_path, trainer.model)
+        for loader in val_loaders:
+            scores = trainer.evaluate(loader, num_beams=args.num_beams,
+                                      max_length=args.gen_max_length)
+            print(loader.task, scores)
+            if loader.task == "caption":
+                print(f"[caption metric basis] {COCOCaptionEvaluator.BASIS}")
+        return trainer
+
+    history = trainer.train(mt, epochs=args.epochs, val_loaders=val_loaders)
+    print(f"saved at step {trainer.step}; state digest "
+          f"{trainer.state_digest()}")
+    return trainer, history
+
+
+if __name__ == "__main__":
+    main()

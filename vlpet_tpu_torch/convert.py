@@ -1,4 +1,4 @@
-"""flax parameters -> port state_dict.
+"""flax parameters <-> port state_dict.
 
 Takes the nested dict of arrays that ``model.init(...)["params"]`` gives
 (after ``jax.device_get``; numpy arrays, or anything ``np.asarray`` reads)
@@ -15,13 +15,15 @@ It raises on any flax leaf it cannot place and on any port parameter left
 unset, so a renamed or missing module never loads silently.
 ``flax_to_state_dict`` also reads a partial tree, such as the trainable
 subtree of the JAX train step (None where a parameter is frozen), and then
-names only the leaves it holds.
+names only the leaves it holds. ``flax_path`` and ``to_flax_array`` are
+the inverse direction: a port name and tensor as the flax path and array
+(a ``weight`` back to a ``kernel`` with its last two axes swapped).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +69,21 @@ def load_flax_params(module: torch.nn.Module, params: Mapping) -> torch.nn.Modul
         raise ValueError("shape mismatch:\n  " + "\n  ".join(bad))
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def flax_path(name: str) -> Tuple[Tuple[str, ...], bool]:
+    """A port parameter name as its flax path, and whether the array's last
+    two axes swap on the way (a ``weight``, which is a flax ``kernel``)."""
+    parts = tuple(name.split("."))
+    if parts[-1] == "weight":
+        return parts[:-1] + ("kernel",), True
+    return parts, False
+
+
+def to_flax_array(name: str, t: torch.Tensor) -> np.ndarray:
+    """A port tensor as the flax leaf of ``flax_path(name)``: fp32 (the
+    JAX package keeps fp32 parameters), a kernel's axes swapped back."""
+    arr = t.detach().float().cpu().numpy()
+    if flax_path(name)[1]:
+        arr = np.swapaxes(arr, -1, -2)
+    return np.ascontiguousarray(arr)

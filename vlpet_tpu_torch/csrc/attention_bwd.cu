@@ -52,7 +52,7 @@
 // store. The fp32 parity phases hold it to full fp32 arithmetic (no TF32),
 // so it stays, unchanged.
 //
-// "tc" (bf16, Dh 64, L, S <= 64; every A6 site of the repo),
+// "tc" (bf16, Dh 64, L, S <= 64: the image-text train sites at L, S <= 56),
 // attention_bwd_tc: mma.sync m16n8k16 (bf16 in, fp32 sums), 4 warps.
 // q, do, k, v go to bf16 64 x 72 tiles by 16-byte cp.async (zeros past L
 // and S), the bias (when given) to an fp32 tile. Warp w owns query rows

@@ -1,8 +1,9 @@
-"""BART encoder/decoder with the VL-PET-large hooks, ported from
+"""BART encoder/decoder with the VL-PET hooks, ported from
 vlpet_tpu/models/bart.py.
 
 Ported: the joint encoder (text + visual concat) with the multihead down
-adapter and low-rank gate after each sublayer; the teacher-forcing decoder
+adapter and the VL-PET granularity gate (small, middleX, middleY, large, or
+the full d x d GateLargeX) after each sublayer; the teacher-forcing decoder
 of training (causal self-attention, cross-attention over the encoder
 states with the value-parallel adapter on V); the incremental decoder
 (greedy and reorder-free beam); and the training-time dropout: the
@@ -53,9 +54,11 @@ from vlpet_tpu_torch.ops.ffn import ffn_reference, fused_ffn
 from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
                                           fused_dropout_add_ln_reference)
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
-from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeXLowRank,
+from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeX,
+                                         GateLargeXLowRank, GateMiddleXYAdd,
+                                         GateSmallXYCat, IA3Vector,
                                          MultiheadDownAdapter, PetContext,
-                                         TaskDense)
+                                         TaskDense, build_gate)
 
 NEG_INF = -1e9  # additive-mask constant of the JAX package
 
@@ -236,9 +239,28 @@ class BartAttention(nn.Module):
 
 
 class BartEncoderLayer(nn.Module):
-    """Post-LN encoder layer with the VL-PET-large hook chain after each
-    sublayer: h + MultiheadDownAdapter(h), then h * GateLargeXLowRank(x1)
-    (x1 the sublayer input), then the optional gating scale."""
+    """Post-LN encoder layer with the VL-PET hook chain after each sublayer
+    (vlpet_tpu/models/bart.py:563-595): h + MultiheadDownAdapter(h), then
+    one of the granularity gates -- h * G with G from GateLargeX(x1),
+    GateLargeXLowRank(x1), GateSmallXYCat(x1, h) or GateMiddleXYAdd(x1, h)
+    (x1 the sublayer input; h + G under ``use_encoder_adapter_gating_add``),
+    or middle-Y's h + h * v (h + 1 + v under the add flag) -- then the
+    optional gating scale. No gate sits on the attention sublayer under
+    ``no_encoder_attn_adapter``."""
+
+    # (flag, module suffix, class) in the JAX elif order
+    GATES = (
+        ("use_encoder_adapter_gating_large_x", "adapter_gating_large_x",
+         GateLargeX),
+        ("use_encoder_adapter_gating_large_x_lowrank",
+         "adapter_gating_large_x_lowrank", GateLargeXLowRank),
+        ("use_encoder_adapter_gating_small_xy_cat",
+         "adapter_gating_small_xy_cat", GateSmallXYCat),
+        ("use_encoder_adapter_gating_middle_xy_add",
+         "adapter_gating_middle_xy_add", GateMiddleXYAdd),
+        ("use_encoder_adapter_gating_middle_ia3_add",
+         "adapter_gating_middle_ia3_add", IA3Vector),
+    )
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -255,6 +277,8 @@ class BartEncoderLayer(nn.Module):
         self.fc2 = TaskDense(b.encoder_ffn_dim, d, **kw)
         self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, b.dropout,
                                                          device=device)
+        self.gate = next(((flag, suffix, cls) for flag, suffix, cls
+                          in self.GATES if getattr(p, flag)), None)
         for prefix in ("attn", "ff"):
             if p.use_encoder_adapter_down_multihead:
                 self.add_module(f"{prefix}_adapter_multihead",
@@ -262,14 +286,13 @@ class BartEncoderLayer(nn.Module):
                                     d, p.adapter_down_dim,
                                     p.encoder_adapter_multihead_num_head, **kw))
             if self._gated(prefix):
-                self.add_module(
-                    f"encoder_{prefix}_adapter_gating_large_x_lowrank",
-                    GateLargeXLowRank(d, p.adapter_gating_down_dim, **kw))
+                _, suffix, cls = self.gate
+                self.add_module(f"encoder_{prefix}_{suffix}",
+                                build_gate(cls, d, p, **kw))
 
     def _gated(self, prefix: str) -> bool:
-        p = self.cfg.pet
-        return (p.use_encoder_adapter_gating_large_x_lowrank
-                and not (prefix == "attn" and p.no_encoder_attn_adapter))
+        return (self.gate is not None and not (
+            prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter))
 
     def _hooks(self, h: torch.Tensor, residual: torch.Tensor,
                prefix: str) -> torch.Tensor:
@@ -277,9 +300,17 @@ class BartEncoderLayer(nn.Module):
         if p.use_encoder_adapter_down_multihead:
             h = h + getattr(self, f"{prefix}_adapter_multihead")(h)
         if self._gated(prefix):
-            gate = getattr(
-                self, f"encoder_{prefix}_adapter_gating_large_x_lowrank")(residual)
-            h = (h + gate) if p.use_encoder_adapter_gating_add else h * gate
+            _, suffix, cls = self.gate
+            mod = getattr(self, f"encoder_{prefix}_{suffix}")
+            if cls is IA3Vector:
+                g = mod()
+                if p.use_encoder_adapter_gating_add:
+                    h = h + torch.ones_like(h) + g
+                else:
+                    h = h + h * g.to(h.dtype)
+            else:
+                gate = mod(residual, h)
+                h = (h + gate) if p.use_encoder_adapter_gating_add else h * gate
         if p.use_encoder_gating_scaling:
             h = h * p.encoder_gating_scaling_factor
         return h

@@ -53,7 +53,6 @@ vlpet_tpu_torch.convert carries the weights across unchanged.
 from __future__ import annotations
 
 import math
-import re
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -84,8 +83,10 @@ from vlpet_tpu_torch.ops.ffn import (ffn_reference, fused_ffn,
                                      fused_gated_ffn, gated_ffn_reference)
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
 from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeXLowRank,
-                                         MultiheadDownAdapter, PetContext,
-                                         TaskDense)
+                                         GateMiddleXYAdd, GateSmallXYCat,
+                                         IA3Vector, MultiheadDownAdapter,
+                                         PetContext, TaskDense, build_gate)
+from vlpet_tpu_torch.train.freezing import weight_initialization
 
 Cache = Dict[str, torch.Tensor]
 
@@ -229,10 +230,25 @@ class T5Attention(nn.Module):
 
 class T5EncoderHooks(nn.Module):
     """The encoder hook chain on a sublayer's output y (vlpet_tpu/models/
-    t5.py:312): y + MultiheadDownAdapter(y) (scaled as configured), then
-    y * GateLargeXLowRank(x) with x the pre-norm block input, then the
-    gating scale. Registered as ``attn_hooks`` / ``ff_hooks``; the serial
-    adapter, the other gates and the hyperformer raise at build."""
+    t5.py:312-384): y + MultiheadDownAdapter(y) (scaled as configured),
+    then one gate with x the pre-norm block input -- y * G with G from
+    GateLargeXLowRank(x), GateSmallXYCat(x, y) or GateMiddleXYAdd(x, y), or
+    middle-Y's y + y * v -- then the gating scale. As in the JAX T5 (and
+    unlike BART): no GateLargeX, no ``_add`` form of the gates and no
+    ``no_encoder_attn_adapter`` check. Registered as ``attn_hooks`` /
+    ``ff_hooks``; the serial adapter and the hyperformer raise at build."""
+
+    # (flag, module suffix, class) in the JAX elif order
+    GATES = (
+        ("use_encoder_adapter_gating_large_x_lowrank",
+         "adapter_gating_large_x_lowrank", GateLargeXLowRank),
+        ("use_encoder_adapter_gating_small_xy_cat",
+         "adapter_gating_small_xy_cat", GateSmallXYCat),
+        ("use_encoder_adapter_gating_middle_xy_add",
+         "adapter_gating_middle_xy_add", GateMiddleXYAdd),
+        ("use_encoder_adapter_gating_middle_ia3_add",
+         "adapter_gating_middle_ia3_add", IA3Vector),
+    )
 
     def __init__(self, cfg: VLModelConfig, prefix: str,
                  device: Device = "cuda"):
@@ -245,10 +261,12 @@ class T5EncoderHooks(nn.Module):
             self.add_module(f"{prefix}_adapter_multihead", MultiheadDownAdapter(
                 d, p.adapter_down_dim, p.encoder_adapter_multihead_num_head,
                 **kw))
-        if p.use_encoder_adapter_gating_large_x_lowrank:
-            self.add_module(f"encoder_{prefix}_adapter_gating_large_x_lowrank",
-                            GateLargeXLowRank(d, p.adapter_gating_down_dim,
-                                              **kw))
+        self.gate = next(((suffix, cls) for flag, suffix, cls in self.GATES
+                          if getattr(p, flag)), None)
+        if self.gate is not None:
+            suffix, cls = self.gate
+            self.add_module(f"encoder_{prefix}_{suffix}",
+                            build_gate(cls, d, p, **kw))
 
     def forward(self, y: torch.Tensor,
                 x_pre_norm: torch.Tensor) -> torch.Tensor:
@@ -260,10 +278,13 @@ class T5EncoderHooks(nn.Module):
             if p.use_encoder_x2_scaling:
                 y = y * p.encoder_x2_scaling_factor
             y = y + delta
-        if p.use_encoder_adapter_gating_large_x_lowrank:
-            gate = getattr(
-                self, f"encoder_{self.prefix}_adapter_gating_large_x_lowrank")
-            y = y * gate(x_pre_norm)
+        if self.gate is not None:
+            suffix, cls = self.gate
+            mod = getattr(self, f"encoder_{self.prefix}_{suffix}")
+            if cls is IA3Vector:
+                y = y + y * mod().to(y.dtype)
+            else:
+                y = y * mod(x_pre_norm, y)
         if p.use_encoder_gating_scaling:
             y = y * p.encoder_gating_scaling_factor
         return y
@@ -552,18 +573,6 @@ class VLT5Model(nn.Module):
         self.decoder = T5Decoder(cfg, device=device)
 
 
-# the recipes' post-init overrides that zero the up projections
-# (vlpet_tpu/train/freezing.py weight_initialization), on port names
-_ZERO_INIT_RULES = (
-    ("use_encoder_multihead_up_zero_init",
-     re.compile(r"adapter_multihead.*\.up\.")),
-    ("use_encoder_gating_large_x_lowrank_up_zero_init",
-     re.compile(r"adapter_gating_large_x.*\.up\.")),
-    ("use_decoder_enc_vpa_up_zero_init",
-     re.compile(r"cross_attn\.attn_value_parallel_adapter.*up_sampler")),
-)
-
-
 class VLT5(nn.Module):
     """Seq2seq LM head over VLT5Model (vlpet_tpu/models/t5.py:930). Built
     on the card unless ``device`` says otherwise. ``forward`` trains
@@ -593,8 +602,9 @@ class VLT5(nn.Module):
         k, v, wi f*d^-0.5; o f*inner^-0.5; wo f*d_ff^-0.5; the relative
         bias f*d^-0.5; ``shared`` and ``lm_head`` f), RMSNorm scales 1, the
         image-order table normal(0, 0.02), and the torch Linear default
-        U(+-1/sqrt(fan_in)) for the visual projections and the PET modules;
-        then the recipe's zero-init of the up projections."""
+        U(+-1/sqrt(fan_in)) for the visual projections and the PET modules,
+        normal(0, 0.02) for middle-Y's vector; then the recipe's re-inits
+        (train/freezing.py ``weight_initialization``)."""
         b = self.cfg.backbone
         f, d, inner = b.initializer_factor, b.d_model, b.num_heads * b.d_kv
         std = {"q": f * (d * b.d_kv) ** -0.5, "k": f * d ** -0.5,
@@ -602,7 +612,8 @@ class VLT5(nn.Module):
                "wi": f * d ** -0.5, "wi_0": f * d ** -0.5,
                "wi_1": f * d ** -0.5, "wo": f * b.d_ff ** -0.5,
                "relative_attention_bias": f * d ** -0.5, "shared": f,
-               "lm_head": f, "img_order_embedding": 0.02}
+               "lm_head": f, "img_order_embedding": 0.02,
+               "gating_middle_ia3": 0.02}
         fan_in = {}
         for mname, mod in self.named_modules():
             if isinstance(mod, TaskDense):
@@ -625,12 +636,7 @@ class VLT5(nn.Module):
                 bound = fan_in[name] ** -0.5
                 p.copy_((torch.rand(p.shape, generator=generator,
                                     device=generator.device) * 2 - 1) * bound)
-        pet = self.cfg.pet
-        for flag, pattern in _ZERO_INIT_RULES:
-            if getattr(pet, flag):
-                for name, p in self.named_parameters():
-                    if pattern.search(name):
-                        p.zero_()
+        weight_initialization(self, self.cfg.pet)
         return self
 
     def logits_weight(self) -> torch.Tensor:

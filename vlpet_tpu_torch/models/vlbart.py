@@ -28,6 +28,7 @@ from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
 from vlpet_tpu_torch.ops.fused_ce import fused_linear_ce, fused_linear_ce_plain
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
 from vlpet_tpu_torch.pet.modules import PetContext
+from vlpet_tpu_torch.train.freezing import weight_initialization
 
 # PetConfig flags whose code paths the port does not have. Each must be off
 # (False / 0); the freezing and post-init override flags only shape training
@@ -39,9 +40,6 @@ _UNPORTED_PET_FLAGS = (
     "use_encoder_adapter_up_multihead", "use_encoder_adapter_down_up_multihead",
     "use_encoder_adapter_down_up_pair_multihead",
     "use_decoder_adapter_down_multihead",
-    "use_encoder_adapter_gating_large_x", "use_encoder_adapter_gating_small_xy_cat",
-    "use_encoder_adapter_gating_middle_xy_add",
-    "use_encoder_adapter_gating_middle_ia3_add",
     "use_encoder_adapter_gating_layernorm", "use_encoder_adapter_gating_l2norm",
     "use_encoder_gating_large_x_lowrank",
     "use_decoder_enc_attn_key_parallel_adapter_down_dim",
@@ -166,8 +164,9 @@ class VLBart(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VLBart":
         """Seeded random init with the JAX package's scheme: normal(0,
-        init_std) for dense kernels and embeddings, zeros for biases, ones
-        for LayerNorm scales."""
+        init_std) for dense kernels, embeddings and middle-Y's vector, zeros
+        for biases, ones for LayerNorm scales; then the recipe's re-inits
+        (train/freezing.py ``weight_initialization``)."""
         std = self.cfg.backbone.init_std
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -178,6 +177,7 @@ class VLBart(nn.Module):
             else:
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=generator.device) * std)
+        weight_initialization(self, self.cfg.pet)
         return self
 
     def logits_weight(self) -> torch.Tensor:

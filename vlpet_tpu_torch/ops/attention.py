@@ -28,7 +28,8 @@ kernels, which the fp32 parity runs hold to full fp32 arithmetic).
 ``fused_attention.launches_by_route`` and
 ``fused_attention_bwd_long.launches_by_route`` count the launches of each.
 A6's kernel is picked by ``a6_route(L, S, Dh, dtype)``: "tc" for bf16 at
-Dh 64 with L, S <= 64 (every A6 site of the repo), "fma" otherwise;
+Dh 64 with L, S <= 64 (the B 500 train sites, L, S <= 56), "fma"
+otherwise (the image-text CLI's caption L 76 and nlvr S 102 in bf16);
 ``fused_attention_bwd.launches_by_route`` counts them.
 
 T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
@@ -203,9 +204,9 @@ def a6_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     """A6's kernel, a plain function of (L, S, Dh, dtype): "tc" (the
     tensor-core kernel: bf16 products on mma.sync, p and ds in registers,
     bf16 tiles fed by cp.async, 16-byte aligned inputs) for bf16 at Dh 64
-    where a head's L and S fit one 64-row tile -- every A6 site of the repo
-    -- else "fma" (the FP32-FMA kernel: fp32, other widths, L or S past
-    64)."""
+    where a head's L and S fit one 64-row tile -- the image-text train
+    sites at L, S <= 56 -- else "fma" (the FP32-FMA kernel: fp32, other
+    widths, L or S past 64, as the CLI's caption L 76 and nlvr S 102)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
     return ("tc" if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM

@@ -46,7 +46,22 @@ def topk_plan(R: int, V: int, k: int) -> Tuple[int, int, int, int]:
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """lax.top_k over the last axis: the first k of a STABLE descending
     sort, so equal values come out in ascending index order. (torch.topk
-    leaves the order among equal values unspecified.)"""
+    leaves the order among equal values unspecified.) On the CPU only the
+    entries at or above each row's k-th largest value, which alone can
+    come first, are sorted: in index order, then stably by value (NaNs,
+    or ties reaching the whole row, sort the row). That takes two host
+    reads, which the card's decode loop does not pay: there every row is
+    sorted."""
+    V = x.shape[-1]
+    if x.device.type == "cpu" and x.numel() and not bool(x.isnan().any()):
+        kth = torch.topk(x, k, dim=-1).values[..., -1:]
+        c = int((x >= kth).sum(dim=-1).max())
+        if c < V:
+            idx = torch.topk(x, c, dim=-1, sorted=False).indices
+            idx = idx.sort(dim=-1).values
+            vals, order = torch.sort(torch.gather(x, -1, idx), dim=-1,
+                                     descending=True, stable=True)
+            return vals[..., :k], torch.gather(idx, -1, order)[..., :k]
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

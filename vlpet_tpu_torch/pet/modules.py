@@ -1,5 +1,8 @@
-"""PET modules used by the VL-PET-large decode path, ported from
-vlpet_tpu/pet/modules.py.
+"""PET modules of the VL-PET recipes, ported from vlpet_tpu/pet/modules.py:
+the task-routed dense layer and bottleneck adapter (the decoder VPA), the
+multihead down adapter, and the four granularity gates (VL-PET-large's
+low-rank gate, -small's per-example and -middleX's per-token scalar gates,
+-middleY's vector) plus the full d x d GateLargeX.
 
 Parameter names follow the flax tree (TaskDense ``weight``/``bias`` for
 flax ``kernel``/``bias``; the multihead per-head ``down_kernel``/
@@ -165,9 +168,82 @@ class GateLargeXLowRank(nn.Module):
         self.up = TaskDense(gating_down_dim, d_model, dtype=dtype,
                             device=device)
 
-    def forward(self, x: torch.Tensor, return_pre_sigmoid: bool = False):
+    def forward(self, x: torch.Tensor, y: torch.Tensor = None,
+                return_pre_sigmoid: bool = False):
         pre = self.up(gelu_new(self.down(x)))
         gate = torch.sigmoid(pre)
         if return_pre_sigmoid:
             return gate, pre
         return gate
+
+
+class GateLargeX(nn.Module):
+    """Full d x d gate from the block input: G = sigmoid(W x)
+    (vlpet_tpu/pet/modules.py:668)."""
+
+    def __init__(self, d_model: int, dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.proj = TaskDense(d_model, d_model, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor = None) -> torch.Tensor:
+        return torch.sigmoid(self.proj(x))
+
+
+class GateSmallXYCat(nn.Module):
+    """VL-PET-small gate: one scalar per example, sigmoid(W [x; y]) meaned
+    over all L tokens, padding included, as the JAX mean does
+    (vlpet_tpu/pet/modules.py:706); (B, 1, 1)."""
+
+    def __init__(self, d_model: int, dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.proj = TaskDense(2 * d_model, 1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        g = torch.sigmoid(self.proj(torch.cat([x, y], dim=-1)))
+        return g.mean(dim=-2, keepdim=True)
+
+
+class GateMiddleXYAdd(nn.Module):
+    """VL-PET-middleX gate: one scalar per token, sigmoid(W (x + y))
+    (vlpet_tpu/pet/modules.py:722); (B, L, 1)."""
+
+    def __init__(self, d_model: int, dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.proj = TaskDense(d_model, 1, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.proj(x + y))
+
+
+class IA3Vector(nn.Module):
+    """The learned d-vector of VL-PET-middleY (vlpet_tpu/pet/modules.py:737):
+    one fp32 parameter named ``param_name``; init normal(0, 0.02)."""
+
+    def __init__(self, dim: int, param_name: str = "ia3",
+                 device: Device = "cuda"):
+        super().__init__()
+        self.param_name = param_name
+        self.register_parameter(param_name, nn.Parameter(
+            torch.empty(dim, device=resolve_device(device))))
+
+    def forward(self) -> torch.Tensor:
+        return getattr(self, self.param_name)
+
+
+def build_gate(cls, d_model: int, pet, dtype=torch.float32,
+               device: Device = "cuda") -> nn.Module:
+    """An encoder granularity gate of class ``cls`` (an entry of a
+    backbone's GATES table), built as both JAX backbones build it:
+    middle-Y's vector under the flax name ``gating_middle_ia3``, the
+    low-rank gate at ``pet.adapter_gating_down_dim``. Every gate but the
+    IA3Vector is called as gate(x, y), x the sublayer's input and y its
+    output; GateLargeX and GateLargeXLowRank read x alone."""
+    if cls is IA3Vector:
+        return IA3Vector(d_model, "gating_middle_ia3", device=device)
+    if cls is GateLargeXLowRank:
+        return cls(d_model, pet.adapter_gating_down_dim, dtype=dtype,
+                   device=device)
+    return cls(d_model, dtype=dtype, device=device)

@@ -1,0 +1,100 @@
+"""Checkpoints, ported from vlpet_tpu/train/checkpoint.py.
+
+``CheckpointManager`` keeps the resumable train state -- the trainable
+tensors, the optimizer state, the step and the dropout generator's state
+-- as one ``torch.save`` file a step under its directory
+(``<output>/ckpt/<step>.pt``), the newest two kept, as the JAX package's
+orbax manager keeps them. A file is written under a temporary name and
+renamed, so a run killed while saving leaves the previous one whole.
+
+``save_params_npz`` / ``load_params_npz`` are the weights-only export in
+the JAX package's own npz format: one array a parameter under its
+"/"-joined flax path, fp32, Dense kernels as (in, out). A LAST.npz written
+by either package loads into the other; the load is strict=False (it fills
+what matches by name and shape, leaves the rest and counts what it filled).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vlpet_tpu_torch.convert import flax_path, to_flax_array
+
+_STEP_FILE = re.compile(r"^(\d+)\.pt$")
+
+
+class CheckpointManager:
+    """Step-numbered ``torch.save`` checkpoints in ``directory``."""
+
+    def __init__(self, directory: str, max_to_keep: int = 2):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, f"{int(step)}.pt")
+
+    def all_steps(self):
+        return sorted(int(m.group(1)) for m in map(_STEP_FILE.match,
+                                                   os.listdir(self.directory))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Dict[str, Any]) -> str:
+        path = self._path(step)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+        return path
+
+    def restore(self, step: Optional[int] = None,
+                map_location=None) -> Optional[Dict[str, Any]]:
+        """The state saved at ``step`` (the newest when None), or None
+        when there is none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location=map_location,
+                          weights_only=False)
+
+
+def save_params_npz(named: Mapping[str, torch.Tensor], path: str) -> None:
+    """Weights-only export (the reference's LAST.pth analog) of port
+    tensors by name, in the JAX package's npz layout."""
+    flat = {"/".join(flax_path(name)[0]): to_flax_array(name, t)
+            for name, t in named.items()}
+    np.savez(path, **flat)
+
+
+@torch.no_grad()
+def load_params_npz(path: str, module: torch.nn.Module
+                    ) -> Tuple[torch.nn.Module, int]:
+    """strict=False-style load into ``module`` in place (reference:
+    utils.py:63-71 load_state_dict semantics): every parameter whose flax
+    path is in the file with the flax shape takes the array (cast to its
+    dtype); the rest keep their values. Returns (module, count filled)."""
+    data = np.load(path)
+    loaded = 0
+    for name, p in module.named_parameters():
+        fpath, swap = flax_path(name)
+        key = "/".join(fpath)
+        shape = tuple(p.shape)
+        if swap:
+            shape = shape[:-2] + (shape[-1], shape[-2])
+        if key in data.files and data[key].shape == shape:
+            arr = data[key]
+            if swap:
+                arr = np.swapaxes(arr, -1, -2)
+            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            loaded += 1
+    return module, loaded

@@ -12,7 +12,7 @@ and select the same tensors. ``apply_freezing`` sets ``requires_grad``.
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -162,3 +162,54 @@ def trainable_report(model: torch.nn.Module, pet: PetConfig) -> Dict:
             trainable += p.numel()
     return {"total": total, "trainable": trainable,
             "percentage": 100.0 * trainable / max(total, 1)}
+
+
+def _reinit_rules(pet: PetConfig) -> List[Tuple[re.Pattern, float]]:
+    """(pattern, value) of every post-init override the config asks for, in
+    the order of vlpet_tpu/train/freezing.py:172-215; the first pattern that
+    matches a name wins."""
+    rules: List[Tuple[re.Pattern, float]] = []
+    if (pet.use_decoder_enc_attn_value_ia3_one_init
+            or pet.use_encoder_attn_value_ia3_one_init
+            or pet.use_decoder_self_attn_value_ia3_one_init
+            or pet.use_decoder_ff_ia3_one_init):
+        rules.append((re.compile(r"ia3"), 1.0))
+    if pet.use_encoder_multihead_up_zero_init:
+        rules.append((re.compile(
+            r"adapter_multihead.*(\.up\.|up_kernel|up_bias)"), 0.0))
+    if pet.use_encoder_gating_large_x_lowrank_up_zero_init:
+        rules.append((re.compile(r"adapter_gating_large_x.*\.up\."), 0.0))
+    if pet.use_decoder_enc_vpa_up_zero_init:
+        # cross-attention VPA only (BART encoder_attn, T5 cross_attn); the
+        # decoder self-attention VPA must not match
+        rules.append((re.compile(
+            r"(encoder_attn|EncDecAttention|cross_attn)"
+            r"\.attn_value_parallel_adapter.*up_sampler"), 0.0))
+    if pet.use_encoder_gating_small_up_zero_init:
+        rules.append((re.compile(r"adapter_gating_small_xy_cat"), 0.0))
+    if pet.use_encoder_gating_middle_up_zero_init:
+        rules.append((re.compile(r"adapter_gating_middle_xy_add"), 0.0))
+    if pet.use_encoder_gating_middle_ia3_one_init:
+        rules.append((re.compile(r"gating_middle_ia3"), 1.0))
+    if pet.use_encoder_gating_middle_ia3_zero_init:
+        rules.append((re.compile(r"gating_middle_ia3"), 0.0))
+    return rules
+
+
+@torch.no_grad()
+def weight_initialization(model: torch.nn.Module,
+                          pet: PetConfig) -> torch.nn.Module:
+    """The post-init identity re-inits (reference: trainer_base.py:544-599;
+    vlpet_tpu/train/freezing.py:172 ``weight_initialization``), in place:
+    ia3 one-init, the multihead and large-gate up zero-inits, the
+    cross-attention VPA up zero-init, the small and middle gate zero-inits
+    and middle-Y's one/zero-init. The JAX rules match the flax path; the
+    port's names are that path (a Dense ``kernel`` is ``weight``, which
+    ``\\.up\\.`` still matches), so the patterns are the same."""
+    rules = _reinit_rules(pet)
+    for name, p in model.named_parameters():
+        for pat, val in rules:
+            if pat.search(name):
+                p.fill_(val)
+                break
+    return model

@@ -38,6 +38,13 @@ def decay_mask(named_params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
     return {name: decide(name) for name in named_params}
 
 
+def global_norm(grads) -> torch.Tensor:
+    """optax.global_norm: the fp32 L2 norm over every gradient, as a
+    scalar tensor (no host sync)."""
+    return torch.stack([(g.float() * g.float()).sum()
+                        for g in grads]).sum().sqrt()
+
+
 def linear_warmup_schedule(lr: float, total_steps: int,
                            warmup_ratio: float = 0.1) -> Callable[[int], float]:
     """Step -> lr: linear 0 -> lr over the warmup steps, then lr -> 0 over
@@ -78,10 +85,34 @@ class HFAdamW:
         self.mu = [torch.zeros_like(m) for m in self.master]
         self.nu = [torch.zeros_like(m) for m in self.master]
 
+    def state_dict(self) -> Dict:
+        """The optimizer state by parameter name: the update count, the
+        moments and, for lower-precision parameters, the fp32 master
+        copies (the tensors themselves, not copies)."""
+        return {"count": self.count,
+                "mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu)),
+                "master": {n: m for n, p, m in zip(self.names, self.params,
+                                                   self.master)
+                           if m is not p}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict()`` back in place, bit for bit; a master
+        copy also sets its parameter (the master rounded to its dtype)."""
+        self.count = int(state["count"])
+        for n, p, m, mu, nu in zip(self.names, self.params, self.master,
+                                   self.mu, self.nu):
+            mu.copy_(state["mu"][n])
+            nu.copy_(state["nu"][n])
+            if m is not p:
+                m.copy_(state["master"][n])
+                p.copy_(m)
+
     @torch.no_grad()
     def step(self, grads) -> torch.Tensor:
         grads = [g.float() for g in grads]
-        norm = torch.stack([(g * g).sum() for g in grads]).sum().sqrt()
+        norm = global_norm(grads)
         if self.clip > 0:
             # optax.clip_by_global_norm: g / norm * clip where norm >= clip
             keep = norm < self.clip

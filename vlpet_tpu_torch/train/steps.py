@@ -24,14 +24,54 @@ import torch
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.heads import task_loss
 from vlpet_tpu_torch.pet.modules import PetContext
-from vlpet_tpu_torch.train.optim import HFAdamW
+from vlpet_tpu_torch.train.optim import HFAdamW, global_norm
+
+
+class GradAccumulator:
+    """optax.MultiSteps(every_k_schedule=k) over the optimizer: each
+    micro-batch's gradients join a running mean (Welford's update, as
+    optax's ``use_grad_mean``), and every k-th call hands the mean of the k
+    to the optimizer (one clipped AdamW update) and starts over."""
+
+    def __init__(self, params: Sequence[torch.Tensor], k: int):
+        self.k = k
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+
+    @torch.no_grad()
+    def add(self, grads) -> Optional[list]:
+        """Fold in one micro-batch; the mean of the k on the k-th call,
+        else None."""
+        n = self.mini_step
+        for a, g in zip(self.acc, grads):
+            a.add_((g.float() - a) / (n + 1))
+        self.mini_step = (n + 1) % self.k
+        if self.mini_step:
+            return None
+        mean = [a.clone() for a in self.acc]
+        for a in self.acc:
+            a.zero_()
+        return mean
+
+    def state_dict(self) -> Dict:
+        return {"mini_step": self.mini_step, "acc": list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        self.mini_step = int(state["mini_step"])
+        for a, b in zip(self.acc, state["acc"]):
+            a.copy_(b)
 
 
 def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
-                    lambda_z: float = 0.0,
-                    device: Device = "cuda") -> Callable:
+                    lambda_z: float = 0.0, device: Device = "cuda",
+                    accumulation_steps: int = 1) -> Callable:
     """Returns train_step(batch, generator, task_idx) -> {"loss",
     "grad_norm"} (fp32 scalar tensors; nothing syncs with the host).
+    ``accumulation_steps`` k > 1 updates the parameters every k-th call with
+    the mean of the k gradients (``GradAccumulator``, held as
+    ``train_step.accumulator``); "grad_norm" is then the micro-batch's, as
+    the JAX step reports it.
 
     ``batch`` holds input_ids, attention_mask, vis_feats, boxes, target_ids
     (labels, -100 = ignore) and, for vqa, scores; optionally
@@ -67,7 +107,16 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         # gradient, as jax.grad gives it
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
-        grad_norm = optimizer.step(grads)
+        if accumulator is None:
+            grad_norm = optimizer.step(grads)
+        else:
+            grad_norm = global_norm(grads)
+            mean = accumulator.add(grads)
+            if mean is not None:
+                optimizer.step(mean)
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
+    accumulator = (GradAccumulator(params, accumulation_steps)
+                   if accumulation_steps > 1 else None)
+    train_step.accumulator = accumulator
     return train_step
