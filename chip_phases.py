@@ -14,7 +14,8 @@ print one line per case (the kernel's, the plain twin's and the library
 call's times and the bound); 3h times F1 and C1 at their paths' rows, 3i
 F3 and F4 at theirs, 3j F2 at its own and U1's K+V write, 3k D1 and D2
 at theirs, 3l T1 and T2 at theirs, 3m L1 and L2 at theirs (each case's
-per-call, back-to-back and device times). A phase that ROOT's
+per-call, back-to-back and device times), 3n A1, A6 and the long
+backward at the prompt baseline's sites. A phase that ROOT's
 ``chip_smoke`` lacks (3h-3m in a tree older than it) is taken from this tree's ``chip_smoke`` and run on ROOT's
 port, so an earlier tree's kernels are timed at the same cases. 5, 5b, 5c and 5e
 time the bf16 beam-5 evals (image-text, video, T5 and T5 gated, T5
@@ -22,9 +23,12 @@ video; 5b and 5e first hold fp32 tokens kernels vs plain), 5d the
 use_fused_beam evals (BART and T5; it needs 5 and 5c before it); 7, 7b,
 7c, 7d and 7e time the bf16 train steps (image-text, video, T5,
 use_fused_ce, T5 video and t5_full_ft; 7d needs 7 and 7c before it, 7e
-needs 7b and 7c); 8 runs the image-text CLI (VL-PET-small, bf16, B 500,
-train, eval each epoch, resume) in child processes of ROOT's
-chip_smoke. ``--profile`` adds each bench run's device time and
+needs 7b and 7c), 7f the PET baselines' (their scripts' configs on
+BART-base: train steps, and the LoRA, prompt and hyperformer evals); 6g
+holds the PET baselines' fp32 train steps and tokens kernels vs plain; 8
+runs the image-text CLI (VL-PET-small, bf16, B 500, train, eval each
+epoch, resume) and 8b the prompt script's (two epochs) in child processes
+of ROOT's chip_smoke. ``--profile`` adds each bench run's device time and
 launches by kernel family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
 memory over the phase is printed (for trees whose phases do not print
@@ -40,30 +44,35 @@ import sys
 import time
 from pathlib import Path
 
-# phase -> (chip_smoke function, whether it takes the card's name)
-PHASES = {"3": ("phase_kernels", False),
-          "3b": ("phase_train_kernels", False),
-          "3d": ("phase_t5_kernels", False),
-          "3e": ("phase_t5_train_kernels", False),
-          "3f": ("phase_fused_kernels", False),
-          "3g": ("phase_bias_grad_kernels", False),
-          "3h": ("phase_ffn_ce_sites", False),
-          "3i": ("phase_gated_ffn_sites", False),
-          "3j": ("phase_ffn_bwd_sites", False),
-          "3k": ("phase_beam_sites", False),
-          "3l": ("phase_topk_sites", False),
-          "3m": ("phase_ln_sites", False),
-          "5": ("phase_decode_bench", True),
-          "5b": ("phase_video_eval", True),
-          "5c": ("phase_t5_eval", True),
-          "5d": ("phase_fused_beam_bench", True),
-          "5e": ("phase_t5_video_eval", True),
-          "7": ("phase_train_bench", True),
-          "7b": ("phase_video_train_bench", True),
-          "7c": ("phase_t5_train_bench", True),
-          "7d": ("phase_fused_ce_bench", True),
-          "7e": ("phase_bias_train_bench", True),
-          "8": ("phase_cli_rehearsal", True)}
+# phase -> (chip_smoke function, what it takes: the report "rep", the
+# card's name "card", or nothing)
+PHASES = {"3": ("phase_kernels", "rep"),
+          "3b": ("phase_train_kernels", "rep"),
+          "3d": ("phase_t5_kernels", "rep"),
+          "3e": ("phase_t5_train_kernels", "rep"),
+          "3f": ("phase_fused_kernels", "rep"),
+          "3g": ("phase_bias_grad_kernels", "rep"),
+          "3h": ("phase_ffn_ce_sites", "rep"),
+          "3i": ("phase_gated_ffn_sites", "rep"),
+          "3j": ("phase_ffn_bwd_sites", "rep"),
+          "3k": ("phase_beam_sites", "rep"),
+          "3l": ("phase_topk_sites", "rep"),
+          "3m": ("phase_ln_sites", "rep"),
+          "3n": ("phase_prompt_sites", "rep"),
+          "5": ("phase_decode_bench", "card"),
+          "5b": ("phase_video_eval", "card"),
+          "5c": ("phase_t5_eval", "card"),
+          "5d": ("phase_fused_beam_bench", "card"),
+          "5e": ("phase_t5_video_eval", "card"),
+          "6g": ("phase_pet_parity", None),
+          "7": ("phase_train_bench", "card"),
+          "7b": ("phase_video_train_bench", "card"),
+          "7c": ("phase_t5_train_bench", "card"),
+          "7d": ("phase_fused_ce_bench", "card"),
+          "7e": ("phase_bias_train_bench", "card"),
+          "7f": ("phase_pet_bench", "card"),
+          "8": ("phase_cli_rehearsal", "card"),
+          "8b": ("phase_cli_prompt", "card")}
 HERE = Path(__file__).resolve().parent
 
 
@@ -106,7 +115,7 @@ def main(argv) -> int:
     print(f"  built in {time.perf_counter() - t0:.2f} s", flush=True)
     reports = {}
     for p in phases or list(PHASES):
-        name, takes_card = PHASES[p]
+        name, takes = PHASES[p]
         smoke = chip_smoke
         if not hasattr(smoke, name):
             smoke = this_trees_smoke()
@@ -116,7 +125,8 @@ def main(argv) -> int:
             print(f"phase {p} of {root.name}", flush=True)
         rep = reports.setdefault(smoke.__name__, smoke.Report())
         torch.cuda.reset_peak_memory_stats()
-        getattr(smoke, name)(card if takes_card else rep)
+        getattr(smoke, name)(*{"card": (card,), "rep": (rep,)}.get(takes,
+                                                                   ()))
         print(f"phase {p} of {root.name}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)

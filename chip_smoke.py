@@ -231,6 +231,28 @@ nonzero and no result line is printed):
      6's train-step parity (B 8, vqa, dropout 0.1, 3 steps kernels vs
      plain, phase 6's tolerances), then phase 4 (a)'s beam-5 and greedy
      tokens at B 8 to length 40, kernels vs plain, identical;
+  6g. (run after 6f) the PET baselines on BART-base at full width
+     (``pet_cfg``: the config the port's CLI builds from each of
+     scripts/image-text/{single_adapter,single_compacter,single_lora,
+     single_prompt,hyperformer,bitfit,full_finetuning}.sh, lr 1e-3,
+     hypercomplex_division 4, lora_dim 4, projected_task_embedding_dim
+     64, and single_lradapter: single_adapter.sh with the low-rank
+     adapter), fp32: phase 6's train-step parity (B 8, vqa, dropout 0.1,
+     LoRA's dropout 0.1, 3 steps kernels vs plain); then, for the adapter,
+     Compacter, low-rank, LoRA, prompt and hyperformer recipes (whose
+     decode differs from the plain model's), phase 4 (a)'s beam-5 and
+     greedy tokens at B 8 to length 40, kernels vs plain, identical;
+  7f. (run after 7e) each script's bf16 train step at B 500, vqa (S 56;
+     96 with the prompt, whose A6 takes its "fma" kernel), as phase 7
+     (the pet_<script> main-path runs); then the beam-5 eval of the LoRA,
+     prompt and hyperformer scripts at B 500 to length 40, as phase 5
+     (the pet_<script>_eval runs);
+  3n. (run after 3m) A1, and A6 or the long backward, bf16, at the prompt
+     baseline's sites (40 prompt tokens before the text): vqa B 500 L = S
+     96 and cross L 10 x S 96, gqa B 833 L = S 96, caption B 416 L = S
+     116 and cross L 40 x S 116, nlvr B 166 L = S 142 (the long backward)
+     and cross L 10 x S 142: vs the plain twin and its autograd, bitwise
+     on a repeat, with the route, SDPA's time and the bound;
   8. (run last) the image-text CLI, ``python -m vlpet_tpu_torch.cli.multitask``
      in a child process (``chip_smoke.py --cli-child``), with the flags of
      scripts/image-text/VL-PET-small.sh plus --bf16: batch 500 (valid
@@ -241,7 +263,14 @@ nonzero and no result line is printed):
      more. Every kernel of the path (A1, A6, F1, F2, L1, L2, D1, T1/T2,
      U1) must launch in the first run (the cli_multitask main-path run);
      prints the wall clock of data building, training (host-clocked
-     ms/step and examples/s), each task's eval and the resume.
+     ms/step and examples/s), each task's eval and the resume;
+  8b. (after 8) the same CLI with the flags of
+     scripts/image-text/single_prompt.sh plus --bf16: B 500, the four
+     tasks, 1000 synthetic examples a task, 2 epochs, each evaluated
+     (the cli_single_prompt main-path run: A6 on "fma" and the long
+     backward, at nlvr's L = S = 142, must launch); data build, ms/step
+     and each task's eval seconds.
+Each of 3n, 6g, 7f and 8b prints its seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -353,32 +382,50 @@ FUSED_BEAM = ("decode_fused_beam", "t5_eval_fused_beam")
 # backward's dbias: no run script trains T5's bias at the video shape)
 T5V_EVAL, T5V_TRAIN, FULL_FT = "t5_video_eval", "t5_video_train", "t5_full_ft"
 BITFIT, T5V_BITFIT = "t5_bitfit", "t5_video_bitfit"
+# the PET baselines' scripts (scripts/image-text/*.sh) on BART-base: phase
+# 7f's bf16 train steps (PET_TRAIN; full fine-tuning takes the plain FFN
+# chain) and beam-5 evals (PET_EVAL), and phase 8b's CLI run of the prompt
+# script (CLI_PROMPT, whose nlvr encoder takes the long backward)
+PET_SCRIPTS = ("single_adapter", "single_compacter", "single_lora",
+               "single_prompt", "hyperformer", "bitfit", "full_finetuning")
+PET_TRAIN = tuple(f"pet_{n}" for n in PET_SCRIPTS)
+PET_FFN_TRAIN = tuple(p for p in PET_TRAIN if p != "pet_full_finetuning")
+PET_EVAL = ("pet_single_lora_eval", "pet_single_prompt_eval",
+            "pet_hyperformer_eval")
+CLI_PROMPT = "cli_single_prompt"
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
-                                               CLI)),
+                                               CLI) + PET_TRAIN + PET_EVAL
+                        + (CLI_PROMPT,)),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
-                            TRAIN + (T5V_TRAIN, FULL_FT, CLI)),
+                            TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
+                            + (CLI_PROMPT,)),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
-                                 ("video_train", T5V_TRAIN)),
+                                 ("video_train", T5V_TRAIN, CLI_PROMPT)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
-                  DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)),
+                  DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
+                  + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,)),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
-                      "vlpet_tpu/ops/ffn.py:195", TRAIN + (T5V_TRAIN, CLI)),
+                      "vlpet_tpu/ops/ffn.py:195",
+                      TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
+                      + (CLI_PROMPT,)),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
-                             "vlpet_tpu/ops/fused_ln.py:251", TRAIN + (CLI,)),
+                             "vlpet_tpu/ops/fused_ln.py:251",
+                             TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
-                                 TRAIN + (CLI,)),
+                                 TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
-                           DECODE + T5 + (T5V_EVAL, CLI)),
+                           DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
+                           + (CLI_PROMPT,)),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
-                 DECODE + T5 + (T5V_EVAL, CLI)),
+                 DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -416,7 +463,7 @@ KERNELS = {
                                   "vlpet_tpu/ops/decode.py:249", FUSED_BEAM),
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
                           "vlpet_tpu/ops/cache_update.py:31",
-                          DECODE + T5 + (CLI,)),
+                          DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -430,7 +477,8 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
 # these that launches the kernel
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
-    + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI)
+    + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
+    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,)
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -2440,6 +2488,66 @@ def ln_case(rep: Report, g, site: str, N: int, D: int, dtype,
                       keep & (dres != 0), "bf16")
 
 
+# phase 3n: the prompt baseline's attention sites. single_prompt.sh puts 40
+# prompt tokens before the text, so the encoder's L = S and the cross
+# attention's S grow by 40 over phase 3b's and phase 8's: vqa 56 -> 96,
+# caption 76 -> 116, nlvr 102 -> 142. (site, B, L, S)
+PROMPT_SITES = (("vqa enc", 500, 96, 96), ("vqa cross", 500, 10, 96),
+                ("gqa enc", 833, 96, 96), ("caption enc", 416, 116, 116),
+                ("caption cross", 416, 40, 116), ("nlvr enc", 166, 142, 142),
+                ("nlvr cross", 166, 10, 142))
+
+
+def phase_prompt_sites(rep: Report) -> None:
+    """A1, and A6 or (where ``backward_route`` says "long") the long
+    backward, in bf16 at PROMPT_SITES with a ragged padding mask, against
+    the plain twin and autograd of it (phase 3b's tolerances), each
+    backward twice bitwise equal; the route taken, SDPA's time (and its
+    autograd's) and the bound on every line."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    randn = randn_fn(g)
+    dtype, e = torch.bfloat16, 2
+    H, Dh = 12, 64
+    inner = H * Dh
+    for site, B, L, S in PROMPT_SITES:
+        mask = padding_mask(g, B, S)
+        q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+        k, v, do = (randn(B, n, inner, dtype=dtype) for n in (S, S, L))
+        label = f"bf16 prompt {site} B{B} L{L} S{S}"
+        rep.check("fused_attention", label,
+                  lambda: attention.fused_attention(q, k, v, mask, H),
+                  lambda: attention.fused_attention_reference(q, k, v, mask,
+                                                              H), dtype,
+                  work=(e * 2 * B * (L + S) * inner + 4 * B * S,
+                        4 * B * H * L * S * Dh),
+                  library_fn=lambda: sdpa(q, k, v, mask, H))
+        plain_bwd = _grads_of(
+            lambda a, b, c: attention.fused_attention_reference(a, b, c,
+                                                                mask, H),
+            (q, k, v), do)
+        lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, mask, H), (q, k, v),
+                            do.view(B, L, H, Dh).transpose(1, 2))
+        work = (e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+                10 * B * H * L * S * Dh)
+        if attention.backward_route(L, S, Dh, dtype) == "long":
+            out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H)
+            key = "fused_attention_bwd_long"
+            work = (work[0] + e * B * L * inner + 4 * B * H * L, work[1])
+
+            def kernel():
+                return attention.fused_attention_bwd_long(q, k, v, mask, out,
+                                                          lse, do, H)
+        else:
+            key = "fused_attention_bwd"
+
+            def kernel():
+                return attention.fused_attention_bwd(q, k, v, mask, do, H)
+        rep.check(key, label, kernel, plain_bwd, dtype, work=work,
+                  library_fn=lib_bwd, backward=True)
+        bitwise_repeat(key, label, kernel)
+        del plain_bwd, lib_bwd
+
+
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.randint(3, vocab, (B, 20), generator=g, device="cuda")
@@ -2904,11 +3012,15 @@ def restore(trainable, values) -> None:
 
 
 def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
-                 task: str, lr: float, path: str) -> None:
+                 task: str, lr: float, path: str,
+                 unzero_first: bool = False) -> None:
     """K = 3 fp32 steps through the kernels, then through the plain twins
-    from the same weights and generator seed (phase 6's tolerances)."""
+    from the same weights and generator seed (phase 6's tolerances); with
+    ``unzero_first``, from the weights after ``unzero``."""
     K = 3
     model = build_model("float32", cfg_fn)
+    if unzero_first:
+        unzero(model)
     trainable = apply_freezing(model, model.cfg.pet)
     batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
     start = snapshot(trainable)
@@ -3074,10 +3186,11 @@ def step_vs_plain(label: str, step, trainable, batch, gen, task_idx) -> None:
 
 def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
                 task: str, lr: float, path: str, label: str,
-                vs_plain: bool = False):
+                vs_plain: bool = False, tc_only: bool = True):
     """3 warm-up steps, then 10 timed steps ending in one sync; the
     launches of the timed steps (the ``path`` main-path run). With
-    ``vs_plain``, then one step kernels vs plain (``step_vs_plain``)."""
+    ``vs_plain``, then one step kernels vs plain (``step_vs_plain``);
+    ``tc_only`` requires the tensor-core routes (``require_tc``)."""
     warm, timed = 3, 10
     model = build_model("bfloat16", cfg_fn)
     trainable = apply_freezing(model, model.cfg.pet)
@@ -3097,7 +3210,8 @@ def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
     loss = out["loss"].item()  # the one sync
     wall = time.perf_counter() - t0
     launched = read_counts(path)
-    require_tc(path, launched)
+    if tc_only:
+        require_tc(path, launched)
     if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
         raise AssertionError(f"non-finite loss {loss} / grad norm")
     per_step = {k: n / timed for k, n in launched.items() if n}
@@ -3845,6 +3959,158 @@ def phase_cli_rehearsal(card: str) -> dict:
     return launched
 
 
+# phases 6g, 7f and 8b: the PET baselines on BART-base with each script's
+# flags (the positional values the scripts leave to their caller: lr 1e-3,
+# hypercomplex_division 4, lora_dim 4, projected_task_embedding_dim 64) and
+# single_lradapter, which no script sets: single_adapter.sh's flags with
+# the low-rank adapter (rank 1) in place of the bottleneck one.
+PET_POSITIONAL = {"single_compacter": ["4"], "single_lora": ["4"],
+                  "hyperformer": ["64"]}
+# the recipes whose decode path differs from the plain model's (phase 6g's
+# token parity)
+PET_DECODE = ("single_adapter", "single_compacter", "single_lradapter",
+              "single_lora", "single_prompt", "hyperformer")
+PET_EVAL_SCRIPTS = ("single_lora", "single_prompt", "hyperformer")
+
+
+def pet_flags(name: str) -> list:
+    if name == "single_lradapter":
+        flags = pet_flags("single_adapter")
+        i = flags.index("--use_adapter")
+        return (flags[:i] + ["--use_lradapter", "--low_rank_rank", "1"]
+                + flags[i + 1:])
+    return script_flags(os.path.join(os.path.dirname(CLI_SCRIPT),
+                                     f"{name}.sh"),
+                        ["1e-3"] + PET_POSITIONAL.get(name, []) + ["9595"])
+
+
+def pet_cfg(name: str):
+    """``flagship_cfg`` with the PET config the port's CLI builds from
+    ``pet_flags(name)``."""
+    from vlpet_tpu_torch.cli.param import build_model_config, parse_args
+
+    pet = build_model_config(parse_args(pet_flags(name)), FLAGSHIP_TASKS).pet
+
+    def cfg(dtype: str = "float32"):
+        return dataclasses.replace(flagship_cfg(dtype), pet=pet)
+    return cfg
+
+
+def pet_path(name: str) -> str:
+    """The main-path name whose kernels a recipe's train step launches."""
+    return "pet_single_adapter" if name == "single_lradapter" else f"pet_{name}"
+
+
+def phase_pet_parity() -> None:
+    """6g: per recipe, phase 6's fp32 train-step parity (B 8, vqa, dropout
+    0.1 and LoRA's 0.1, 3 steps kernels vs plain, phase 6's tolerances)
+    from the weights after ``unzero``, as phase 6c starts: LoRA's B, the
+    biases that LoRA, BitFit and full fine-tuning train and the
+    hypernets' biases start at zero, where Adam's steps are +-lr whatever
+    a gradient's size (from the init: a k_proj bias, whose true gradient
+    is zero, 6.7e-10 apart against an atol of ~1e-14; a lora_B 2.7e-8
+    apart against ~1e-8); then, for the recipes whose decode path
+    differs from the plain model's, phase 4 (a)'s beam-5 and greedy tokens
+    at B 8 to length 40 from the init, kernels vs plain, identical."""
+    ctx = PetContext(task="caption", task_idx=3)
+    for name in PET_SCRIPTS + ("single_lradapter",):
+        t0 = time.perf_counter()
+        train_parity(f"{name} B8 vqa", pet_cfg(name), make_train_batch, 8, 21,
+                     FLAGSHIP_TASKS, "vqa", 1e-3, pet_path(name),
+                     unzero_first=True)
+        if name in PET_DECODE:
+            model = build_model("float32", pet_cfg(name))
+            parity_run(f"{name} 6+6 layers, init std 0.02", model,
+                       make_batch(8, model.cfg.backbone.vocab_size, seed=7),
+                       ctx, 40, min_distinct=2)
+            del model
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_pet_bench(card: str) -> dict:
+    """7f: each script's bf16 train step (B 500, vqa: S 56, 96 with the
+    prompt) as phase 7 (ms/step, examples/s, peak GiB, launches); the
+    prompt's A6 on its "fma" kernel (L = S = 96). Then the beam-5 eval (B
+    500 to length 40, caption) of the LoRA, prompt and hyperformer
+    scripts, as phase 5."""
+    launched = {}
+    for name in PET_SCRIPTS:
+        path = f"pet_{name}"
+        launched[path] = train_bench(card, pet_cfg(name), make_train_batch,
+                                     500, 31, FLAGSHIP_TASKS, "vqa", 1e-3,
+                                     path, f"{name} vqa",
+                                     tc_only=name != "single_prompt")
+        if name == "single_prompt" and not launched[path].get(
+                "fused_attention_bwd[fma]"):
+            raise AssertionError(f"{path}: A6 never took its fma kernel")
+    for name in PET_EVAL_SCRIPTS:
+        model = build_model("bfloat16", pet_cfg(name))
+        path = f"pet_{name}_eval"
+        launched[path] = generate_bench(
+            card, model, make_batch(500, model.cfg.backbone.vocab_size,
+                                    seed=11),
+            PetContext(task="caption", task_idx=3), 40, path,
+            f"{name} beam5 len40")
+        del model
+    return launched
+
+
+PROMPT_EPOCHS = 2
+
+
+def phase_cli_prompt(card: str) -> dict:
+    """8b: ``python -m vlpet_tpu_torch.cli.multitask`` with the flags of
+    scripts/image-text/single_prompt.sh (``--downsample`` left out, as in
+    phase 8) plus --bf16: batch 500, the four tasks, CLI_EXAMPLES
+    synthetic examples a task, PROMPT_EPOCHS epochs, each evaluated. Every
+    kernel of the path must launch, A6 on its "fma" kernel and the long
+    backward (nlvr's encoder, L = S = 142) among them; prints the data
+    build, the host-clocked ms/step and each task's eval seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "run")
+        flags = [f for f in pet_flags("single_prompt") if f != "--downsample"]
+        flags += ["--bf16", "--synthetic_examples", str(CLI_EXAMPLES),
+                  "--output", out_dir, "--device", "cuda", "--epochs",
+                  str(PROMPT_EPOCHS)]
+        _, res = run_cli(flags, "single_prompt")
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f]
+    launched = res["launches"]
+    require_launched(CLI_PROMPT, launched)
+    if not launched.get("fused_attention_bwd[fma]"):
+        raise AssertionError("single_prompt CLI: A6 never took its fma kernel")
+    epochs = [r for r in recs if "train_seconds" in r]
+    if len(epochs) != PROMPT_EPOCHS:
+        raise AssertionError(f"{len(epochs)} epochs")
+    for r in epochs:
+        if not math.isfinite(r["train_loss"]):
+            raise AssertionError(f"non-finite train loss in {r}")
+        for t in FLAGSHIP_TASKS:
+            if f"{t}/eval_seconds" not in r:
+                raise AssertionError(f"no {t} eval in epoch {r['epoch']}")
+    data_s = [r["data_build_seconds"] for r in recs
+              if "data_build_seconds" in r]
+    steps = int(sum(r["train_steps"] for r in epochs))
+    train_s = sum(r["train_seconds"] for r in epochs)
+    ex = sum(r["train_examples"] for r in epochs)
+    print(f"  on {card}: single_prompt CLI, bf16, B 500, {CLI_EXAMPLES} "
+          f"examples a task, {PROMPT_EPOCHS} epochs; data build "
+          f"{data_s[0]:.2f} s", flush=True)
+    for r in epochs:
+        print(f"  epoch {r['epoch']}: {r['train_steps']} steps in "
+              f"{r['train_seconds']:.2f} s host-clocked "
+              f"({r['train_seconds'] / r['train_steps'] * 1e3:.2f} ms/step), "
+              f"loss {r['train_loss']:.4f}; eval "
+              + ", ".join(f"{t} {r[f'{t}/eval_seconds']:.2f} s"
+                          for t in FLAGSHIP_TASKS), flush=True)
+    print(f"  train: {steps} steps, {train_s / steps * 1e3:.2f} ms/step, "
+          f"{ex / train_s:.2f} examples/s over both epochs; process "
+          f"{res['process_s']:.2f} s ({res['wall_s']:.2f} s in the CLI); "
+          f"launches {({k: n for k, n in launched.items() if n})}",
+          flush=True)
+    return launched
+
+
 def profile_run(run, card: str, what: str) -> None:
     """One more run under torch.profiler: device time and launches by
     kernel family, the device idle share of the run's wall time, and the
@@ -3962,6 +4228,11 @@ def main() -> int:
     phase_topk_sites(rep)
     print("phase 3m: L1 and L2 at their sites", flush=True)
     phase_ln_sites(rep)
+    t0 = time.perf_counter()
+    print("phase 3n: A1, A6 and the long backward at the prompt baseline's "
+          "sites, bf16", flush=True)
+    phase_prompt_sites(rep)
+    print(f"  phase 3n: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -3997,6 +4268,11 @@ def main() -> int:
     print("phase 6f: VL-PET-small, -middleX, -middleY parity, fp32",
           flush=True)
     phase_gate_parity()
+    t0 = time.perf_counter()
+    print("phase 6g: the PET baselines' train and decode parity, fp32",
+          flush=True)
+    phase_pet_parity()
+    print(f"  phase 6g: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -4008,8 +4284,17 @@ def main() -> int:
     launched.update(phase_fused_ce_bench(card))
     print("phase 7e: T5 video and t5_full_ft train steps, bf16", flush=True)
     launched.update(phase_bias_train_bench(card))
+    t0 = time.perf_counter()
+    print("phase 7f: the PET baselines' train steps and evals, bf16",
+          flush=True)
+    launched.update(phase_pet_bench(card))
+    print(f"  phase 7f: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
+    t0 = time.perf_counter()
+    print("phase 8b: the image-text CLI, single_prompt, bf16", flush=True)
+    launched[CLI_PROMPT] = phase_cli_prompt(card)
+    print(f"  phase 8b: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:

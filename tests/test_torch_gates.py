@@ -100,7 +100,11 @@ def _models(jcfg):
 
 def setup(backbone: str, variant: str):
     """(jcfg, jmodel, params, jbatch, tbatch, port model) from one seed."""
-    jcfg = jax_cfg(backbone, variant)
+    return setup_cfg(jax_cfg(backbone, variant))
+
+
+def setup_cfg(jcfg):
+    """``setup`` for a given JAX config."""
     J, T = _models(jcfg)
     rng = np.random.default_rng(0)
     V, nb, fd = jcfg.backbone.vocab_size, jcfg.vis.n_boxes, jcfg.vis.feat_dim
@@ -117,23 +121,24 @@ def setup(backbone: str, variant: str):
                  scores=rng.uniform(0.3, 1.0, B).astype(np.float32))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jmodel = J(jcfg)
-    params = jax.device_get(jmodel.init(
+    # every leaf is drawn anew, so the init's shapes are all it needs
+    shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), jbatch["input_ids"], jbatch["attention_mask"],
         vis_feats=jbatch["vis_feats"], boxes=jbatch["boxes"],
         labels=jbatch["target_ids"], ctx=JCtx())["params"])
     params = jax.tree_util.tree_map_with_path(
         lambda path, a: ((1.0 if path[-1].key == "scale" else 0.0)
                          + rng.normal(size=a.shape).astype(np.float32)
-                         * (0.1 if path[-1].key == "scale" else 0.2)), params)
+                         * (0.1 if path[-1].key == "scale" else 0.2)), shapes)
     tbatch = {k: torch.from_numpy(v).long() if v.dtype == np.int32
               else torch.from_numpy(v) for k, v in batch.items()}
     port = load_flax_params(T(port_cfg(jcfg), device="cpu"), params)
     return jcfg, jmodel, params, jbatch, tbatch, port
 
 
-def check_forward(s, task="vqa"):
+def check_forward(s, task="vqa", tasks=TASKS, keys=("loss", "logits")):
     jcfg, jmodel, params, jbatch, tbatch, port = s
-    ti = TASKS.index(task)
+    ti = tasks.index(task)
     want = jmodel.apply({"params": params}, jbatch["input_ids"],
                         jbatch["attention_mask"],
                         vis_feats=jbatch["vis_feats"], boxes=jbatch["boxes"],
@@ -144,19 +149,19 @@ def check_forward(s, task="vqa"):
                    tbatch["vis_feats"], tbatch["boxes"],
                    labels=tbatch["target_ids"],
                    ctx=PetContext(task=task, task_idx=ti))
-    for key in ("loss", "logits"):
+    for key in keys:
         w = np.asarray(want[key])
         np.testing.assert_allclose(got[key].numpy(), w, rtol=0,
                                    atol=1e-5 * (1 + np.abs(w).max()),
                                    err_msg=key)
 
 
-def check_lockstep(s, task="vqa"):
+def check_lockstep(s, task="vqa", tasks=TASKS):
     jcfg, jmodel, params, jbatch, tbatch, _ = s
-    ti = TASKS.index(task)
+    ti = tasks.index(task)
     trainable, frozen = split_params(params, trainable_mask(params, jcfg.pet))
     tx = jbuild_optimizer(trainable, **OPT)
-    jstep = jmake_step(jmodel, tx, TASKS)
+    jstep = jmake_step(jmodel, tx, tasks)
     state = TrainState.create(jax.tree_util.tree_map(jnp.asarray, trainable),
                               tx)
     want_losses, want_norms = [], []
@@ -172,7 +177,7 @@ def check_lockstep(s, task="vqa"):
     assert set(named) == set(want_params)
     frozen_before = {n: p.detach().clone()
                      for n, p in model.named_parameters() if n not in named}
-    step = make_train_step(model, build_optimizer(named, **OPT), TASKS,
+    step = make_train_step(model, build_optimizer(named, **OPT), tasks,
                            device="cpu")
     gen = torch.Generator().manual_seed(0)
     losses, norms = [], []
@@ -192,9 +197,9 @@ def check_lockstep(s, task="vqa"):
             assert torch.equal(p, frozen_before[name]), name
 
 
-def check_beam5(s, task="caption"):
+def check_beam5(s, task="caption", tasks=TASKS):
     jcfg, jmodel, params, jbatch, tbatch, port = s
-    ti = TASKS.index(task)
+    ti = tasks.index(task)
     keys = ("input_ids", "attention_mask", "vis_feats", "boxes")
     want = np.asarray(jgen.seq2seq_generate(
         jmodel, {"params": params}, **{k: jbatch[k] for k in keys},

@@ -214,14 +214,21 @@ def test_unported_flags_raise_at_build():
     for variant in ("small", "middleX", "middleY"):  # so do the other gates
         VLBart(dataclasses.replace(base, pet=pc.vlpet_recipe(
             variant, r=8, num_heads=4)), device="cpu")
+    # and the PET baselines: LoRA, serial adapters
+    VLBart(dataclasses.replace(base, pet=dataclasses.replace(
+        base.pet, use_lora=True)), device="cpu")
+    VLBart(dataclasses.replace(base, pet=pc.PetConfig(use_adapter=True)),
+           device="cpu")
 
     for change in (dict(scan_layers=True), dict(classifier=True),
                    dict(remat="dots"),
-                   dict(pet=dataclasses.replace(base.pet, use_lora=True)),
+                   dict(pet=dataclasses.replace(base.pet,
+                                                use_lm_head_adapter=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),
                    dict(pet=dataclasses.replace(
                        base.pet, use_encoder_adapter_gating_l2norm=True)),
-                   dict(pet=pc.PetConfig(use_adapter=True)),
+                   dict(pet=pc.PetConfig(use_attn_prefix=True,
+                                         encoder_prompt_len=2)),
                    dict(vis=dataclasses.replace(base.vis,
                                                 use_lowrank_visual_projector=True))):
         with pytest.raises(NotImplementedError):

@@ -497,7 +497,8 @@ def test_flagship_cfg_is_the_graft_entry_config():
     assert flagship_cfg("bfloat16").dtype == "bfloat16"
 
 
-@pytest.mark.parametrize("name", ["AdapterSpec", "PetConfig", "VisConfig",
+@pytest.mark.parametrize("name", ["AdapterSpec", "LoraSpec", "PromptSpec",
+                                  "HyperformerSpec", "PetConfig", "VisConfig",
                                   "BartConfig", "T5Config", "VLModelConfig"])
 def test_config_copy_has_the_jax_fields_and_defaults(name):
     """The port's copy of each dataclass has the JAX package's field names,
@@ -512,6 +513,9 @@ def test_config_copy_has_the_jax_fields_and_defaults(name):
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
     assert (dataclasses.asdict(pc.vlpet_recipe("large", tasks=("a", "b")))
             == dataclasses.asdict(jc.vlpet_recipe("large", tasks=("a", "b"))))
+    pet = dict(tasks=("a", "b"), lora_dim=8, use_single_lora=True)
+    assert (dataclasses.asdict(pc.PetConfig(**pet).lora_spec())
+            == dataclasses.asdict(jc.PetConfig(**pet).lora_spec()))
 
 
 def test_entry_points_default_to_the_card():

@@ -1,6 +1,7 @@
 """Configuration of the port: its own copy of the dataclasses of
-``vlpet_tpu.config`` that the port reads (``AdapterSpec``, ``PetConfig``,
-``VisConfig``, ``BartConfig``, ``T5Config``, ``VLModelConfig``),
+``vlpet_tpu.config`` that the port reads (``AdapterSpec``, ``LoraSpec``,
+``PromptSpec``, ``HyperformerSpec``, ``PetConfig``, ``VisConfig``,
+``BartConfig``, ``T5Config``, ``VLModelConfig``),
 ``vlpet_recipe``, and the full-width configurations the port runs:
 ``flagship_cfg``, ``video_cfg`` and ``t5_cfg``.
 
@@ -17,7 +18,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-__all__ = ["AdapterSpec", "BartConfig", "PetConfig", "T5Config", "VisConfig",
+__all__ = ["AdapterSpec", "LoraSpec", "PromptSpec", "HyperformerSpec",
+           "BartConfig", "PetConfig", "T5Config", "VisConfig",
            "VLModelConfig", "vlpet_recipe", "FLAGSHIP_TASKS", "flagship_cfg",
            "VIDEO_TASKS", "video_cfg", "t5_cfg"]
 
@@ -82,6 +84,42 @@ class AdapterSpec:
             return self.adapter_down_dim
         return self.d_model // self.reduction_factor
 
+
+
+@dataclass(frozen=True)
+class LoraSpec:
+    """LoRA hyperparameters (reference: src/lora/config.py:5-9)."""
+
+    lora_dim: int = 4
+    lora_alpha: float = 32.0
+    lora_dropout: float = 0.1
+    tasks: Tuple[str, ...] = ("default",)
+    use_single_lora: bool = False
+
+
+@dataclass(frozen=True)
+class PromptSpec:
+    """Prompt-tuning hyperparameters (reference: src/prompt/config.py:5-22)."""
+
+    prompt_len: int = 0
+    mid_dim: int = 768
+    use_single_prompt: bool = False
+    tasks: Tuple[str, ...] = ("default",)
+
+
+@dataclass(frozen=True)
+class HyperformerSpec:
+    """Hyperformer hypernetwork settings
+    (reference: src/adapters/config.py:58-78, adapter_hypernetwork.py)."""
+
+    task_embedding_dim: int = 512
+    projected_task_embedding_dim: int = 64
+    layer_id_embedding_dim: int = 64
+    hidden_dim: int = 128
+    unique_hyper_net: bool = False
+    efficient_unique_hyper_net: bool = False
+    unique_hyper_net_layer_norm: bool = True
+    train_task_embeddings: bool = False
 
 
 @dataclass(frozen=True)
@@ -308,6 +346,21 @@ class PetConfig:
         if scaling is not None:
             spec = _replace(spec, use_scaling_factor=True, scaling_factor=scaling)
         return spec
+
+    def lora_spec(self) -> LoraSpec:
+        return LoraSpec(lora_dim=self.lora_dim, lora_alpha=self.lora_alpha,
+                        tasks=self.tasks, use_single_lora=self.use_single_lora)
+
+    def hyperformer_spec(self) -> HyperformerSpec:
+        """The spec every hypernet of the JAX BART builds
+        (vlpet_tpu/models/bart.py:905-909, vlpet_tpu/models/vlbart.py:55-58):
+        the projected task-embedding width, 64 when the flag is unset."""
+        return HyperformerSpec(
+            projected_task_embedding_dim=(self.projected_task_embedding_dim
+                                          if self.projected_task_embedding_dim
+                                          > 0 else 64),
+            unique_hyper_net=self.unique_hyper_net,
+            efficient_unique_hyper_net=self.efficient_unique_hyper_net)
 
 
 @dataclass(frozen=True)

@@ -1,14 +1,18 @@
 """BART encoder/decoder with the VL-PET hooks, ported from
 vlpet_tpu/models/bart.py.
 
-Ported: the joint encoder (text + visual concat) with the multihead down
-adapter and the VL-PET granularity gate (small, middleX, middleY, large, or
-the full d x d GateLargeX) after each sublayer; the teacher-forcing decoder
-of training (causal self-attention, cross-attention over the encoder
-states with the value-parallel adapter on V); the incremental decoder
-(greedy and reorder-free beam); and the training-time dropout: the
-embedding dropout and the residual dropout before each post-LN, all from
-the hash mask of ops/hashdrop.py with one seed per site (``DropoutSeeds``).
+Ported: the joint encoder (text + visual concat, the encoder prompt before
+the text) with the multihead down adapter and the VL-PET granularity gate
+(small, middleX, middleY, large, or the full d x d GateLargeX) after each
+sublayer; the teacher-forcing decoder of training (causal self-attention,
+cross-attention over the encoder states with the value-parallel adapter
+on V); the incremental decoder (greedy and reorder-free beam); the PET
+baselines' hooks: serial adapters (bottleneck, Compacter, low-rank) after
+each sublayer of both stacks, LoRA on every q and v projection, the
+hyperformer's generated adapters; and the training-time dropout: the
+embedding dropout, the residual dropout before each post-LN and LoRA's
+input dropout, all from the hash mask of ops/hashdrop.py with one seed per
+site (``DropoutSeeds``).
 Layers are registered as ``layers_{i}`` like the flax tree. Branches of the
 hook surface that the slice does not cover raise NotImplementedError when
 the model is built (models/vlbart.py check_supported).
@@ -29,13 +33,14 @@ picked by ops.route (the plain twins inside ``ops.plain_twins()``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vlpet_tpu_torch.config import VLModelConfig
+from vlpet_tpu_torch.config import PromptSpec, VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
 from vlpet_tpu_torch.models.visual import (VisualEmbedding,
@@ -54,11 +59,15 @@ from vlpet_tpu_torch.ops.ffn import ffn_reference, fused_ffn
 from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
                                           fused_dropout_add_ln_reference)
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
+from vlpet_tpu_torch.pet.hypernet import (MetaLayersAdapterController,
+                                          stack_hypernet)
 from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeX,
                                          GateLargeXLowRank, GateMiddleXYAdd,
-                                         GateSmallXYCat, IA3Vector,
+                                         GateSmallXYCat, IA3Vector, LoRADense,
                                          MultiheadDownAdapter, PetContext,
-                                         TaskDense, build_gate)
+                                         TaskDense, build_gate,
+                                         shared_phm_W_dims)
+from vlpet_tpu_torch.pet.prompts import PromptController
 
 NEG_INF = -1e9  # additive-mask constant of the JAX package
 
@@ -93,6 +102,14 @@ def write_slot(cache: Cache, k: torch.Tensor, v: torch.Tensor,
 def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:
     """The next dropout site's seed, or None when not dropping."""
     return seeds.next() if seeds is not None else None
+
+
+def _embedding_dropout(h: torch.Tensor, seeds: Optional[DropoutSeeds],
+                       rate: float) -> torch.Tensor:
+    """A stack's embedding dropout; its site takes a seed whenever the
+    step draws seeds (a LoRA model draws them at BART dropout 0 too)."""
+    seed = _seed(seeds)
+    return hash_dropout(h, seed, rate) if seed is not None and rate else h
 
 
 class ResidualDropoutLayerNorm(nn.Module):
@@ -147,9 +164,14 @@ class BartAttention(nn.Module):
         self.scaling = self.head_dim ** -0.5
         dt = compute_dtype(cfg)
         kw = dict(dtype=dt, device=device)
-        self.q_proj = TaskDense(embed_dim, embed_dim, **kw)
-        self.k_proj = TaskDense(embed_dim, embed_dim, **kw)
-        self.v_proj = TaskDense(embed_dim, embed_dim, **kw)
+        # LoRA: q_proj and v_proj are LoRADense on all three roles
+        # (vlpet_tpu/models/bart.py:177-183), routed by task
+        self.lora = p.use_lora
+        for name in ("q_proj", "k_proj", "v_proj"):
+            self.add_module(name, LoRADense(embed_dim, embed_dim,
+                                            p.lora_spec(), **kw)
+                            if self.lora and name != "k_proj"
+                            else TaskDense(embed_dim, embed_dim, **kw))
         self.out_proj = TaskDense(embed_dim, embed_dim, **kw)
         self.has_vpa = (role == "cross" and
                         p.use_decoder_enc_attn_value_parallel_adapter_down_dim)
@@ -160,27 +182,49 @@ class BartAttention(nn.Module):
             spec = p.down_dim_spec(
                 embed_dim, p.decoder_enc_attn_value_parallel_adapter_down_dim,
                 parallel=True, scaling=scaling)
-            self.attn_value_parallel_adapter = AdapterController(spec, **kw)
+            self.attn_value_parallel_adapter = AdapterController(
+                spec, phm_W_dims=shared_phm_W_dims(p, embed_dim), **kw)
 
-    def fused_qkv(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The q/k/v projections as one (3d, d) weight and (3d,) bias."""
+    def fused_qkv(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The q/k/v projections as one (3d, d) weight and (3d,) bias; None
+        under LoRA, whose q and v take the unfused path as in JAX
+        (``fuse_qkv``, vlpet_tpu/models/bart.py:416)."""
+        if self.lora:
+            return None
         return (torch.cat([self.q_proj.weight, self.k_proj.weight,
                            self.v_proj.weight], dim=0),
                 torch.cat([self.q_proj.bias, self.k_proj.bias,
                            self.v_proj.bias]))
 
-    def _qkv_fused(self, h: torch.Tensor, qkv=None):
-        """q/k/v in one (d, 3d) GEMM; q is scaled after its bias. ``qkv``
-        is ``fused_qkv()`` when the caller built it once for many steps."""
+    def _proj(self, mod: nn.Module, h: torch.Tensor, ctx: PetContext,
+              seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+        """A q/v projection; a LoRADense is routed by task and, in
+        training, takes the next dropout seed (one site a call)."""
+        if isinstance(mod, LoRADense):
+            return mod(h, ctx.task_idx,
+                       _seed(seeds) if mod.rate > 0.0 else None)
+        return mod(h)
+
+    def _qkv(self, h: torch.Tensor, ctx: PetContext, qkv=None,
+             seeds: Optional[DropoutSeeds] = None):
+        """q (scaled after its bias), k, v. Without LoRA in one (d, 3d)
+        GEMM (``qkv`` is ``fused_qkv()`` when the caller built it once for
+        many steps); with LoRA three projections, q's then v's dropout
+        seed drawn in that order."""
+        if self.lora:
+            q = self._proj(self.q_proj, h, ctx, seeds) * self.scaling
+            k = self.k_proj(h)
+            return q, k, self._proj(self.v_proj, h, ctx, seeds)
         W, b = qkv if qkv is not None else self.fused_qkv()
         q, k, v = F.linear(h.to(W.dtype), W, b).split(self.embed_dim, dim=-1)
         return q * self.scaling, k.contiguous(), v.contiguous()
 
-    def compute_cross_kv(self, kv_states: torch.Tensor, ctx: PetContext):
-        """Cross K/V (B, S, H*Dh), the VPA included: computed once per
-        sequence."""
+    def compute_cross_kv(self, kv_states: torch.Tensor, ctx: PetContext,
+                         seeds: Optional[DropoutSeeds] = None):
+        """Cross K/V (B, S, H*Dh), LoRA's v and the VPA included: computed
+        once per sequence."""
         k = self.k_proj(kv_states)
-        v = self.v_proj(kv_states)
+        v = self._proj(self.v_proj, kv_states, ctx, seeds)
         if self.has_vpa:
             v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
         return k, v
@@ -190,21 +234,24 @@ class BartAttention(nn.Module):
                 cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 cache: Optional[Cache] = None, decode_pos: Optional[int] = None,
                 beam_anc: Optional[torch.Tensor] = None, qkv=None,
-                kv_states: Optional[torch.Tensor] = None):
+                kv_states: Optional[torch.Tensor] = None,
+                seeds: Optional[DropoutSeeds] = None):
         """Returns (attn_output, cache). The decode cache is updated IN PLACE
         at slot ``decode_pos`` (the JAX package returns a new buffer; here
         the preallocated one is reused): by U1 before the attend, or by D2
         inside it on the ``use_fused_beam`` beam path
         (vlpet_tpu/models/bart.py:442-455). Training: 'dec_self' without a
         cache is causal over the target sequence; 'cross' without
-        ``cross_kv`` projects ``kv_states`` (the encoder output)."""
+        ``cross_kv`` projects ``kv_states`` (the encoder output). ``seeds``
+        (training) feed LoRA's dropout."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
         if self.role == "cross":
-            q = self.q_proj(hidden_states) * self.scaling
+            q = self._proj(self.q_proj, hidden_states, ctx,
+                           seeds) * self.scaling
             if cross_kv is None:
-                cross_kv = self.compute_cross_kv(kv_states, ctx)
+                cross_kv = self.compute_cross_kv(kv_states, ctx, seeds)
             k, v = cross_kv
             if k.shape[0] != B:  # beam-shared encoder K/V
                 out = beam_cross_attend(q.reshape(B * L, 1, H, Dh), k, v,
@@ -212,7 +259,7 @@ class BartAttention(nn.Module):
                 return self.out_proj(out.reshape(B, L, -1)), cache
             m = attention_mask.float()
             return self.out_proj(attend(q, k, v, m, H)), cache
-        q, k, v = self._qkv_fused(hidden_states, qkv)
+        q, k, v = self._qkv(hidden_states, ctx, qkv, seeds)
         if self.role == "enc_self":
             m = attention_mask.float()
             return self.out_proj(attend(q, k, v, m, H)), cache
@@ -239,13 +286,18 @@ class BartAttention(nn.Module):
 
 
 class BartEncoderLayer(nn.Module):
-    """Post-LN encoder layer with the VL-PET hook chain after each sublayer
-    (vlpet_tpu/models/bart.py:563-595): h + MultiheadDownAdapter(h), then
-    one of the granularity gates -- h * G with G from GateLargeX(x1),
-    GateLargeXLowRank(x1), GateSmallXYCat(x1, h) or GateMiddleXYAdd(x1, h)
-    (x1 the sublayer input; h + G under ``use_encoder_adapter_gating_add``),
-    or middle-Y's h + h * v (h + 1 + v under the add flag) -- then the
-    optional gating scale. No gate sits on the attention sublayer under
+    """Post-LN encoder layer with the hook chain after each sublayer
+    (vlpet_tpu/models/bart.py:545-608), in JAX's order: the serial adapter
+    (an AdapterController ``attn_adapter`` / ``ff_adapter`` of the
+    bottleneck, Compacter or low-rank kind, with the optional per-sublayer
+    scaling) or h + MultiheadDownAdapter(h); then one of the granularity
+    gates -- h * G with G from GateLargeX(x1), GateLargeXLowRank(x1),
+    GateSmallXYCat(x1, h) or GateMiddleXYAdd(x1, h) (x1 the sublayer input;
+    h + G under ``use_encoder_adapter_gating_add``), or middle-Y's h + h * v
+    (h + 1 + v under the add flag); then the hyperformer adapter
+    (``adapter_hypernet``) with the layer's generated weights
+    (``ctx.block_adapters``); then the optional gating scale. Neither the
+    serial adapter nor a gate sits on the attention sublayer under
     ``no_encoder_attn_adapter``."""
 
     # (flag, module suffix, class) in the JAX elif order
@@ -279,8 +331,23 @@ class BartEncoderLayer(nn.Module):
                                                          device=device)
         self.gate = next(((flag, suffix, cls) for flag, suffix, cls
                           in self.GATES if getattr(p, flag)), None)
+        self.serial = ((p.use_adapter or p.use_compacter or p.use_lradapter)
+                       and not p.no_encoder_adapter)
+        if p.use_hyperformer:
+            self.adapter_hypernet = MetaLayersAdapterController(
+                add_layer_norm_before_adapter=p.add_layer_norm_before_adapter,
+                add_layer_norm_after_adapter=p.add_layer_norm_after_adapter,
+                dtype=dt)
         for prefix in ("attn", "ff"):
-            if p.use_encoder_adapter_down_multihead:
+            if self._serial(prefix):
+                spec = p.adapter_spec(d)
+                if getattr(p, f"use_encoder_{prefix}_adapter_scaling"):
+                    spec = dataclasses.replace(
+                        spec, use_scaling_factor=True, scaling_factor=getattr(
+                            p, f"encoder_{prefix}_adapter_scaling_factor"))
+                self.add_module(f"{prefix}_adapter", AdapterController(
+                    spec, phm_W_dims=shared_phm_W_dims(p, d), **kw))
+            elif p.use_encoder_adapter_down_multihead:
                 self.add_module(f"{prefix}_adapter_multihead",
                                 MultiheadDownAdapter(
                                     d, p.adapter_down_dim,
@@ -294,10 +361,16 @@ class BartEncoderLayer(nn.Module):
         return (self.gate is not None and not (
             prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter))
 
-    def _hooks(self, h: torch.Tensor, residual: torch.Tensor,
-               prefix: str) -> torch.Tensor:
+    def _serial(self, prefix: str) -> bool:
+        return self.serial and not (
+            prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter)
+
+    def _hooks(self, h: torch.Tensor, residual: torch.Tensor, prefix: str,
+               ctx: PetContext, block_w) -> torch.Tensor:
         p = self.cfg.pet
-        if p.use_encoder_adapter_down_multihead:
+        if self._serial(prefix):
+            h = getattr(self, f"{prefix}_adapter")(h, ctx)
+        elif p.use_encoder_adapter_down_multihead:
             h = h + getattr(self, f"{prefix}_adapter_multihead")(h)
         if self._gated(prefix):
             _, suffix, cls = self.gate
@@ -311,6 +384,8 @@ class BartEncoderLayer(nn.Module):
             else:
                 gate = mod(residual, h)
                 h = (h + gate) if p.use_encoder_adapter_gating_add else h * gate
+        if p.use_hyperformer and block_w is not None:
+            h = self.adapter_hypernet(h, block_w)
         if p.use_encoder_gating_scaling:
             h = h * p.encoder_gating_scaling_factor
         return h
@@ -318,14 +393,18 @@ class BartEncoderLayer(nn.Module):
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
                 ctx: PetContext,
                 seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+        block = ctx.block_adapters
         residual = hidden_states
-        h, _ = self.self_attn(hidden_states, ctx, attention_mask=attention_mask)
-        h = self._hooks(h, residual, "attn")
+        h, _ = self.self_attn(hidden_states, ctx, attention_mask=attention_mask,
+                              seeds=seeds)
+        h = self._hooks(h, residual, "attn", ctx,
+                        block.self_attention if block is not None else None)
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
-        h = self._hooks(h, residual, "ff")
+        h = self._hooks(h, residual, "ff", ctx,
+                        block.feed_forward if block is not None else None)
         hidden_states = self.final_layer_norm(h, residual, _seed(seeds))
         if self.dtype != torch.float32:
             clamp = torch.finfo(self.dtype).max - 1000
@@ -335,9 +414,20 @@ class BartEncoderLayer(nn.Module):
 
 class BartDecoderLayer(nn.Module):
     """Post-LN decoder layer: self-attention, cross-attention (VPA on V),
-    FFN. ``forward`` is the incremental decode step (self-attention over
-    the cache, cross-attention over precomputed K/V); ``teacher_force`` the
-    training pass over the whole target sequence."""
+    FFN; each sublayer's output goes through its serial adapter
+    (``self_attn_adapter``, ``enc_attn_adapter`` under
+    ``add_adapter_cross_attn``, ``ff_adapter``) and then the hyperformer
+    adapter (``adapter_hypernet``, the layer's generated weights in
+    ``ctx.block_adapters``) before its LayerNorm
+    (vlpet_tpu/models/bart.py:710-727, :786-869). ``forward`` is the
+    incremental decode step (self-attention over the cache,
+    cross-attention over precomputed K/V); ``teacher_force`` the training
+    pass over the whole target sequence."""
+
+    # sublayer (a field of BlockAdapterWeights) -> its serial adapter
+    ADAPTERS = {"self_attention": "self_attn_adapter",
+                "cross_attention": "enc_attn_adapter",
+                "feed_forward": "ff_adapter"}
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -358,6 +448,31 @@ class BartDecoderLayer(nn.Module):
                                                          device=device)
         self.fc1 = TaskDense(d, b.decoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.decoder_ffn_dim, d, **kw)
+        p = cfg.pet
+        if ((p.use_adapter or p.use_compacter or p.use_lradapter)
+                and not p.no_decoder_adapter):
+            for part, name in self.ADAPTERS.items():
+                if part != "cross_attention" or p.add_adapter_cross_attn:
+                    self.add_module(name, AdapterController(
+                        p.adapter_spec(d), phm_W_dims=shared_phm_W_dims(p, d),
+                        **kw))
+        if p.use_hyperformer:
+            self.adapter_hypernet = MetaLayersAdapterController(
+                add_layer_norm_before_adapter=p.add_layer_norm_before_adapter,
+                add_layer_norm_after_adapter=p.add_layer_norm_after_adapter,
+                dtype=dt)
+
+    def _adapt(self, h: torch.Tensor, part: str,
+               ctx: PetContext) -> torch.Tensor:
+        """Sublayer ``part``'s output through its serial adapter, then the
+        hyperformer adapter, where the layer has them."""
+        name = self.ADAPTERS[part]
+        if name in self._modules:
+            h = self._modules[name](h, ctx)
+        block = ctx.block_adapters
+        if block is not None and getattr(block, part) is not None:
+            h = self.adapter_hypernet(h, getattr(block, part))
+        return h
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
                 self_mask: Optional[torch.Tensor],
@@ -369,15 +484,18 @@ class BartDecoderLayer(nn.Module):
         h, cache = self.self_attn(hidden_states, ctx, attention_mask=self_mask,
                                   cache=cache, decode_pos=decode_pos,
                                   beam_anc=beam_anc, qkv=self_qkv)
+        h = self._adapt(h, "self_attention", ctx)
         hidden_states = self.self_attn_layer_norm(h, residual)
 
         residual = hidden_states
         h, _ = self.encoder_attn(hidden_states, ctx, attention_mask=cross_mask,
                                  cross_kv=cross_kv)
+        h = self._adapt(h, "cross_attention", ctx)
         hidden_states = self.encoder_attn_layer_norm(h, residual)
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
+        h = self._adapt(h, "feed_forward", ctx)
         hidden_states = self.final_layer_norm(h, residual)
         return hidden_states, cache
 
@@ -387,17 +505,20 @@ class BartDecoderLayer(nn.Module):
                       seeds: Optional[DropoutSeeds]) -> torch.Tensor:
         """The training pass over the whole target sequence (B, T, d)."""
         residual = hidden_states
-        h, _ = self.self_attn(hidden_states, ctx)
+        h, _ = self.self_attn(hidden_states, ctx, seeds=seeds)
+        h = self._adapt(h, "self_attention", ctx)
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
         residual = hidden_states
         h, _ = self.encoder_attn(hidden_states, ctx, attention_mask=cross_mask,
-                                 kv_states=encoder_hidden_states)
+                                 kv_states=encoder_hidden_states, seeds=seeds)
+        h = self._adapt(h, "cross_attention", ctx)
         hidden_states = self.encoder_attn_layer_norm(h, residual,
                                                      _seed(seeds))
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
+        h = self._adapt(h, "feed_forward", ctx)
         return self.final_layer_norm(h, residual, _seed(seeds))
 
     def compute_cross_kv(self, encoder_hidden_states: torch.Tensor,
@@ -406,9 +527,14 @@ class BartDecoderLayer(nn.Module):
 
 
 class JointEncoder(nn.Module):
-    """BART encoder + visual concat. Sequence layout [text; vis]; text
-    embeddings get layernorm_embedding before the concat (unless
-    share_vis_lang_layer_norm); the joint mask is text-mask ++ vis-mask."""
+    """BART encoder + visual concat. Sequence layout [prompt; text; vis]:
+    the encoder prompt (``prompt_modules``, ``encoder_prompt_len`` > 0)
+    goes before the text after the text's positions are added, and takes
+    layernorm_embedding with it (before the concat with vis, unless
+    share_vis_lang_layer_norm); the joint mask is ones over the prompt ++
+    text-mask ++ vis-mask (vlpet_tpu/models/bart.py:945-958). Under
+    ``use_hyperformer`` the stack's ``adapter_layers_hyper_net`` generates
+    each layer's adapter weights from the task embedding."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -422,6 +548,16 @@ class JointEncoder(nn.Module):
             self.visual_embedding = VisualEmbedding(v, b.d_model, dtype=dt,
                                                     device=device)
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
+        p = cfg.pet
+        if p.encoder_prompt_len > 0:
+            self.prompt_modules = PromptController(
+                PromptSpec(prompt_len=p.encoder_prompt_len, mid_dim=p.mid_dim,
+                           use_single_prompt=p.use_single_prompt,
+                           tasks=p.tasks),
+                b.d_model, init_std=b.init_std, dtype=dt, device=device)
+        if p.use_hyperformer:
+            self.adapter_layers_hyper_net = stack_hypernet(
+                cfg, b.encoder_layers, False, dtype=dt, device=device)
         self.n_layers = b.encoder_layers
         for i in range(b.encoder_layers):
             self.add_module(f"layers_{i}", BartEncoderLayer(cfg, device=device))
@@ -437,17 +573,24 @@ class JointEncoder(nn.Module):
                 obj_order_ids: Optional[torch.Tensor] = None,
                 vis_attention_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[PetContext] = None,
-                seeds: Optional[DropoutSeeds] = None):
+                seeds: Optional[DropoutSeeds] = None,
+                task_embedding: Optional[torch.Tensor] = None):
         """Returns (hidden_states, joint_attention_mask [B, L_joint]).
-        ``seeds`` (training) drives the embedding dropout and the residual
-        dropout of every layer."""
+        ``seeds`` (training) drives the embedding dropout, the residual
+        dropout of every layer and LoRA's dropout; ``task_embedding`` (the
+        hyperformer's) feeds the stack's hypernet."""
         b, v = self.cfg.backbone, self.cfg.vis
         dt = self.dtype
         ctx = ctx or PetContext()
-        L = input_ids.shape[1]
+        B, L = input_ids.shape
         embed_scale = (b.d_model ** 0.5) if b.scale_embedding else 1.0
         h = shared_embedding[input_ids].to(dt) * embed_scale
         h = h + self.embed_positions[2:2 + L].to(dt)[None]
+        if self.cfg.pet.encoder_prompt_len > 0:
+            prefix = self.prompt_modules(B, ctx.task_idx)
+            h = torch.cat([prefix, h], dim=1)
+            attention_mask = torch.cat([attention_mask.new_ones(
+                (B, prefix.shape[1])), attention_mask], dim=1)
         if not v.no_vis and vis_feats is not None:
             vis_embeds = self.visual_embedding.tokens(
                 vis_feats, boxes, shared_embedding, img_order_ids,
@@ -461,18 +604,24 @@ class JointEncoder(nn.Module):
         else:
             h = self.layernorm_embedding(h)
             mask = attention_mask
-        if seeds is not None:
-            h = hash_dropout(h, seeds.next(), b.dropout)
+        h = _embedding_dropout(h, seeds, b.dropout)
         # length-collapsed (B, 1, 1, S) additive mask
         attn_mask = expand_mask(mask, 1, dt)
-        for layer in self.layers():
-            h = layer(h, attn_mask, ctx, seeds)
+        hypernet = self._modules.get("adapter_layers_hyper_net")
+        for i, layer in enumerate(self.layers()):
+            block = (hypernet(task_embedding, i) if hypernet is not None
+                     else None)
+            h = layer(h, attn_mask, ctx.for_layer(block), seeds)
         return h, mask
 
 
 class BartDecoder(nn.Module):
     """BART decoder stack: ``forward`` is one incremental decode step,
-    ``teacher_force`` the training pass."""
+    ``teacher_force`` the training pass. Under ``use_hyperformer`` the
+    stack's ``adapter_layers_hyper_net`` generates each layer's adapter
+    weights (cross-attention's under ``add_adapter_cross_attn``):
+    ``block_adapters`` once per generation, held in the decode constants,
+    and in every training pass."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -483,6 +632,10 @@ class BartDecoder(nn.Module):
             torch.empty((b.max_position_embeddings + 2, b.d_model),
                         device=resolve_device(device)))
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
+        if cfg.pet.use_hyperformer:
+            self.adapter_layers_hyper_net = stack_hypernet(
+                cfg, b.decoder_layers, cfg.pet.add_adapter_cross_attn,
+                dtype=dt, device=device)
         self.n_layers = b.decoder_layers
         for i in range(b.decoder_layers):
             self.add_module(f"layers_{i}", BartDecoderLayer(cfg, device=device))
@@ -490,15 +643,25 @@ class BartDecoder(nn.Module):
     def layers(self) -> List[BartDecoderLayer]:
         return [getattr(self, f"layers_{i}") for i in range(self.n_layers)]
 
+    def block_adapters(self, task_embedding: Optional[torch.Tensor]) -> Tuple:
+        """Each layer's hypernet-generated adapter weights (None per layer
+        without the hyperformer)."""
+        hypernet = self._modules.get("adapter_layers_hyper_net")
+        return tuple(hypernet(task_embedding, i) if hypernet is not None
+                     else None
+                     for i in range(self.n_layers))
+
     def forward(self, input_ids: torch.Tensor, shared_embedding: torch.Tensor,
                 encoder_attention_mask: torch.Tensor, ctx: PetContext,
                 cross_kvs: Tuple, cache: Tuple[Cache, ...], decode_pos: int,
-                beam_anc: Optional[torch.Tensor], self_qkvs: Tuple):
+                beam_anc: Optional[torch.Tensor], self_qkvs: Tuple,
+                blocks: Tuple):
         """One decode step: input_ids (B, 1) at position ``decode_pos``.
         ``beam_anc`` (B_true, K, L_cache) switches self-attention to the
         reorder-free beam path; input rows are then beam-major (B_true*K)
         and cross_kvs / encoder_attention_mask stay at B_true rows.
-        ``self_qkvs`` is ``fused_self_qkvs()``, built once per sequence.
+        ``self_qkvs`` is ``fused_self_qkvs()`` and ``blocks``
+        ``block_adapters()``, both built once per sequence.
         Returns (hidden (B, 1, d), cache)."""
         b = self.cfg.backbone
         dt = self.dtype
@@ -512,17 +675,19 @@ class BartDecoder(nn.Module):
             self_mask = torch.where(j <= decode_pos, 0.0, NEG_INF).to(dt)
         h = self.layernorm_embedding(h)
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
-        for layer, kv, c, qkv in zip(self.layers(), cross_kvs, cache,
-                                     self_qkvs):
-            h, _ = layer(h, ctx, self_mask, cross_mask, kv, c, decode_pos,
-                         beam_anc, qkv)
+        for layer, kv, c, qkv, block in zip(self.layers(), cross_kvs, cache,
+                                            self_qkvs, blocks):
+            h, _ = layer(h, ctx.for_layer(block), self_mask, cross_mask, kv, c,
+                         decode_pos, beam_anc, qkv)
         return h, cache
 
     def teacher_force(self, input_ids: torch.Tensor,
                       shared_embedding: torch.Tensor,
                       encoder_hidden_states: torch.Tensor,
                       encoder_attention_mask: torch.Tensor, ctx: PetContext,
-                      seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+                      seeds: Optional[DropoutSeeds] = None,
+                      task_embedding: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
         """Training: the whole target sequence input_ids (B, T) at positions
         2 + t, causal self-attention, cross-attention over the encoder
         states (vlpet_tpu/models/bart.py:1204-1210). Returns (B, T, d)."""
@@ -533,12 +698,12 @@ class BartDecoder(nn.Module):
         h = shared_embedding[input_ids].to(dt) * embed_scale
         h = h + self.embed_positions[2:2 + T].to(dt)[None]
         h = self.layernorm_embedding(h)
-        if seeds is not None:
-            h = hash_dropout(h, seeds.next(), b.dropout)
+        h = _embedding_dropout(h, seeds, b.dropout)
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
-        for layer in self.layers():
-            h = layer.teacher_force(h, ctx, encoder_hidden_states, cross_mask,
-                                    seeds)
+        for layer, block in zip(self.layers(),
+                                self.block_adapters(task_embedding)):
+            h = layer.teacher_force(h, ctx.for_layer(block),
+                                    encoder_hidden_states, cross_mask, seeds)
         return h
 
     def compute_cross_kvs(self, encoder_hidden_states: torch.Tensor,
@@ -548,5 +713,6 @@ class BartDecoder(nn.Module):
                      for layer in self.layers())
 
     def fused_self_qkvs(self):
-        """Per-layer fused self-attention QKV weight and bias."""
+        """Per-layer fused self-attention QKV weight and bias (None per
+        layer under LoRA)."""
         return tuple(layer.self_attn.fused_qkv() for layer in self.layers())

@@ -30,9 +30,11 @@ gradient through the attention kernels' dbias (ops.attention, A6 and the
 long backward), then through the plain bucket gather and the sum over the
 blocks that share it. The video shape (S 604, ``config.t5_video_cfg``)
 trains through the long backward with the bias and the dropout. What the
-port lacks raises NotImplementedError: the classifier, prompts and the
-hyperformer at build (models/vlbart.py check_supported), and
-``vis.sparse_sample`` at a training call.
+port lacks raises NotImplementedError: at build the configurations
+models/vlbart.py check_supported rejects and the PET baselines, which
+the port has on BART only (serial adapters, Compacter, the low-rank
+adapter, LoRA, the hyperformer, the encoder prompt: ``check_t5_supported``),
+and ``vis.sparse_sample`` at a training call.
 
 Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
@@ -66,7 +68,8 @@ from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (VisualEmbedding,
                                            joint_attention_mask)
-from vlpet_tpu_torch.models.vlbart import check_supported, shift_tokens_right
+from vlpet_tpu_torch.models.vlbart import (BASELINE_FLAGS, check_supported,
+                                           serial_adapters, shift_tokens_right)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
@@ -573,6 +576,18 @@ class VLT5Model(nn.Module):
         self.decoder = T5Decoder(cfg, device=device)
 
 
+def check_t5_supported(cfg: VLModelConfig) -> None:
+    """``check_supported``, and the PET baselines, which the port's T5
+    does not have (the JAX T5 has serial adapters, prompts and the
+    hypernet, vlpet_tpu/models/t5.py:334, :606)."""
+    check_supported(cfg)
+    bad = [f for f in BASELINE_FLAGS if getattr(cfg.pet, f)]
+    if serial_adapters(cfg.pet):
+        bad.append("serial adapters")
+    if bad:
+        raise NotImplementedError(f"not ported on T5: {', '.join(bad)}")
+
+
 class VLT5(nn.Module):
     """Seq2seq LM head over VLT5Model (vlpet_tpu/models/t5.py:930). Built
     on the card unless ``device`` says otherwise. ``forward`` trains
@@ -583,7 +598,7 @@ class VLT5(nn.Module):
         super().__init__()
         if not cfg.is_t5:
             raise ValueError("VLT5 needs a T5 backbone; build VLBart")
-        check_supported(cfg)
+        check_t5_supported(cfg)
         dev = resolve_device(device)
         b = cfg.backbone
         self.cfg = cfg

@@ -5,14 +5,19 @@ Training: ``forward`` runs the encoder and the teacher-forcing decoder on
 labels shifted right and returns the per-token loss (and the logits), with
 the JAX package's loss routing (``_ce``). Generation is staged as in the JAX
 package: ``encode`` once, ``init_decode`` precomputes what every step
-reuses (each decoder layer's cross-attention K/V with the VPA included, its
-fused self-attention QKV weight, the fp32 LM-head weight), and
-``decode_step_topk`` is the per-token step driven by
-vlpet_tpu_torch.models.generate.
+reuses (each decoder layer's cross-attention K/V with LoRA's v and the VPA
+included, its fused self-attention QKV weight, its hypernet-generated
+adapter weights, the fp32 LM-head weight), and ``decode_step_topk`` is the
+per-token step driven by vlpet_tpu_torch.models.generate.
+
+The model root holds what the JAX VLBart keeps there: Compacter's shared
+``phm_rule`` and slow weights (``phm_W_*``), injected into every call's
+PetContext (``_ctx``), and the hyperformer's ``shared_task_embed``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -27,16 +32,17 @@ from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
                                     mean_or_per_token)
 from vlpet_tpu_torch.ops.fused_ce import fused_linear_ce, fused_linear_ce_plain
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
-from vlpet_tpu_torch.pet.modules import PetContext
+from vlpet_tpu_torch.pet.hypernet import TaskEmbeddingController
+from vlpet_tpu_torch.pet.modules import (PetContext, glorot_uniform_gain2_,
+                                         make_shared_phm_W, normal_,
+                                         shared_phm_W)
 from vlpet_tpu_torch.train.freezing import weight_initialization
 
 # PetConfig flags whose code paths the port does not have. Each must be off
 # (False / 0); the freezing and post-init override flags only shape training
 # and weight init, so they do not appear here.
 _UNPORTED_PET_FLAGS = (
-    "use_compacter", "use_lradapter", "use_hyperformer", "use_lora",
-    "encoder_prompt_len", "decoder_prompt_len", "use_attn_prefix",
-    "use_lm_head_adapter",
+    "decoder_prompt_len", "use_attn_prefix", "use_lm_head_adapter", "track_z",
     "use_encoder_adapter_up_multihead", "use_encoder_adapter_down_up_multihead",
     "use_encoder_adapter_down_up_pair_multihead",
     "use_decoder_adapter_down_multihead",
@@ -57,6 +63,10 @@ _UNPORTED_PET_FLAGS = (
 )
 _UNPORTED_VIS_FLAGS = ("use_vis_prefix", "expand_vis_embedding",
                        "use_lowrank_visual_projector", "vis_use_transformer")
+# the PET baselines' flags: ported on BART (serial adapters, Compacter, the
+# low-rank adapter, LoRA, the hyperformer, the encoder prompt), not on T5
+BASELINE_FLAGS = ("use_compacter", "use_lradapter", "use_hyperformer",
+                  "use_lora", "encoder_prompt_len")
 
 
 def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
@@ -73,8 +83,11 @@ def check_supported(cfg: VLModelConfig) -> None:
     implement, rather than ignoring it. Both backbones share the list and
     both train and evaluate. What raises here: the classifier answer head,
     ``scan_layers``, ``remat`` other than "none", and the PET and visual
-    flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` and serial
-    adapters. What is unported only on a training call raises there:
+    flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` (the
+    encoder prompt under ``use_attn_prefix`` too). The baselines' flags
+    (``BASELINE_FLAGS`` and serial adapters) build on BART; the T5 model
+    rejects them itself (models/t5.py). What is unported only on a
+    training call raises there:
     ``lambda_z`` (train/steps.py) and ``vis.sparse_sample`` (models/t5.py
     ``VLT5._check_trainable``). A trainable T5 ``relative_attention_bias``
     trains (its dbias comes from A6 or the long backward), and the long
@@ -94,24 +107,32 @@ def check_supported(cfg: VLModelConfig) -> None:
     p, v = cfg.pet, cfg.vis
     bad = [f for f in _UNPORTED_PET_FLAGS if getattr(p, f)]
     bad += [f for f in _UNPORTED_VIS_FLAGS if getattr(v, f)]
-    if p.use_adapter and not (p.no_encoder_adapter and p.no_decoder_adapter):
-        bad.append("use_adapter (serial adapters)")
     if bad:
         raise NotImplementedError(f"not ported: {', '.join(bad)}")
+
+
+def serial_adapters(pet) -> bool:
+    """Whether the recipe puts serial adapters in either stack."""
+    return ((pet.use_adapter or pet.use_compacter or pet.use_lradapter)
+            and not (pet.no_encoder_adapter and pet.no_decoder_adapter))
 
 
 class DecodeConsts(NamedTuple):
     """The loop-invariant tensors of one generation, built once by
     ``VLBart.init_decode``: per decoder layer the cross-attention K/V
-    (B, S, H*Dh) and the fused self-attention QKV (weight, bias), and the
-    LM-head weight as fp32."""
+    (B, S, H*Dh), the fused self-attention QKV (weight, bias; None under
+    LoRA) and the hypernet-generated adapter weights (None without the
+    hyperformer), and the LM-head weight as fp32."""
     cross_kvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
-    self_qkvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    self_qkvs: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
+    blocks: Tuple
     logits_weight: torch.Tensor
 
 
 class VLBartModel(nn.Module):
-    """Encoder-decoder glue: shared embedding, joint encoder, decoder."""
+    """Encoder-decoder glue: shared embedding, joint encoder, decoder and,
+    under ``use_hyperformer``, the task embedding (``shared_task_embed``,
+    vlpet_tpu/models/vlbart.py:50-68)."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -121,22 +142,31 @@ class VLBartModel(nn.Module):
                                                device=resolve_device(device)))
         self.encoder = JointEncoder(cfg, device=device)
         self.decoder = BartDecoder(cfg, device=device)
+        if cfg.pet.use_hyperformer:
+            self.shared_task_embed = TaskEmbeddingController(
+                cfg.pet.hyperformer_spec(), cfg.pet.tasks, device=device)
+
+    def task_embedding(self, ctx: PetContext) -> Optional[torch.Tensor]:
+        embed = self._modules.get("shared_task_embed")
+        return embed(ctx.task_idx) if embed is not None else None
 
     def encode(self, input_ids, attention_mask, vis_feats=None, boxes=None,
                img_order_ids=None, obj_order_ids=None, vis_attention_mask=None,
                ctx: Optional[PetContext] = None):
+        ctx = ctx or PetContext()
         return self.encoder(input_ids, attention_mask, self.shared,
                             vis_feats=vis_feats, boxes=boxes,
                             img_order_ids=img_order_ids,
                             obj_order_ids=obj_order_ids,
                             vis_attention_mask=vis_attention_mask,
-                            ctx=ctx or PetContext())
+                            ctx=ctx, task_embedding=self.task_embedding(ctx))
 
     def decode(self, decoder_input_ids, joint_mask, ctx,
                consts: DecodeConsts, cache, decode_pos: int, beam_anc=None):
         return self.decoder(decoder_input_ids, self.shared, joint_mask,
                             ctx or PetContext(), consts.cross_kvs, cache,
-                            decode_pos, beam_anc, consts.self_qkvs)
+                            decode_pos, beam_anc, consts.self_qkvs,
+                            consts.blocks)
 
     def compute_cross_kvs(self, encoder_hidden_states, ctx: PetContext):
         return self.decoder.compute_cross_kvs(encoder_hidden_states, ctx)
@@ -154,19 +184,43 @@ class VLBart(nn.Module):
                              "models.t5.VLT5 for T5")
         check_supported(cfg)
         dev = resolve_device(device)
+        p = cfg.pet
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
         self.model = VLBartModel(cfg, device=dev)
         self.final_logits_bias = nn.Parameter(
             torch.zeros((1, cfg.backbone.vocab_size), device=dev))
+        # Compacter's model-shared rule and slow weights
+        # (vlpet_tpu/models/vlbart.py:140-153)
+        if p.use_compacter and p.shared_phm_rule:
+            pd = p.hypercomplex_division
+            self.phm_rule = nn.Parameter(torch.empty(
+                (pd, pd, pd), dtype=self.dtype, device=dev))
+        if p.use_compacter and p.shared_W_phm:
+            make_shared_phm_W(self, p, cfg.d_model, dtype=self.dtype,
+                              device=dev)
         self.eval()
+
+    def _ctx(self, ctx: Optional[PetContext]) -> PetContext:
+        """The call's PetContext with Compacter's model-shared rule and
+        slow weights injected (vlpet_tpu/models/vlbart.py:155-164)."""
+        ctx = ctx or PetContext()
+        p = self.cfg.pet
+        if p.use_compacter and p.shared_phm_rule and ctx.phm_rule is None:
+            ctx = dataclasses.replace(ctx, phm_rule=self.phm_rule)
+        if p.use_compacter and p.shared_W_phm and ctx.phm_W is None:
+            ctx = dataclasses.replace(ctx, phm_W=shared_phm_W(self, p))
+        return ctx
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VLBart":
         """Seeded random init with the JAX package's scheme: normal(0,
         init_std) for dense kernels, embeddings and middle-Y's vector, zeros
-        for biases, ones for LayerNorm scales; then the recipe's re-inits
-        (train/freezing.py ``weight_initialization``)."""
+        for biases, ones for LayerNorm scales; the PET modules' own
+        initialisers (``init_params``: LoRA, Compacter, the low-rank
+        adapter, the prompts, the hypernets) and Compacter's root weights
+        (normal(0, phm_init_range) rule, glorot slow weights); then the
+        recipe's re-inits (train/freezing.py ``weight_initialization``)."""
         std = self.cfg.backbone.init_std
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -175,8 +229,15 @@ class VLBart(nn.Module):
             elif leaf.endswith("bias"):
                 p.zero_()
             else:
-                p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=generator.device) * std)
+                normal_(p, std, generator)
+        for m in self.modules():
+            if hasattr(m, "init_params"):
+                m.init_params(generator)
+        for name, p in self.named_parameters(recurse=False):
+            if name == "phm_rule":
+                normal_(p, self.cfg.pet.phm_init_range, generator)
+            elif name.startswith("phm_W_"):
+                glorot_uniform_gain2_(p, generator)
         weight_initialization(self, self.cfg.pet)
         return self
 
@@ -192,14 +253,23 @@ class VLBart(nn.Module):
 
     # --- training ------------------------------------------------------------
 
+    def lora_drops(self) -> bool:
+        """Whether LoRA's q and v projections drop their input in training."""
+        p = self.cfg.pet
+        return p.use_lora and p.lora_spec().lora_dropout > 0.0
+
     def dropout_sites(self) -> int:
         """Dropout seeds one training step draws, consumed in this order:
-        the encoder's embedding dropout; per encoder layer the
-        self-attention and the FFN residual dropout; the decoder's
-        embedding dropout; per decoder layer the self-attention, the
-        cross-attention and the FFN residual dropout."""
+        the encoder's embedding dropout; per encoder layer (LoRA's q and v
+        input dropout, where LoRA drops) the self-attention and the FFN
+        residual dropout; the decoder's embedding dropout; per decoder
+        layer (LoRA's self-attention q and v) the self-attention residual
+        dropout, (LoRA's cross-attention q and v) the cross-attention and
+        the FFN residual dropout."""
         b = self.cfg.backbone
-        return 2 + 2 * b.encoder_layers + 3 * b.decoder_layers
+        lora = (2 * b.encoder_layers + 4 * b.decoder_layers
+                if self.lora_drops() else 0)
+        return 2 + 2 * b.encoder_layers + 3 * b.decoder_layers + lora
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 vis_feats: Optional[torch.Tensor] = None,
@@ -221,7 +291,7 @@ class VLBart(nn.Module):
         there are dead code; eagerly they would be the (B, T, V) fp32
         tensor, 1 GB at B 500, that the flag exists to avoid)."""
         b = self.cfg.backbone
-        ctx = ctx or PetContext()
+        ctx = self._ctx(ctx)
         if decoder_input_ids is None:
             if labels is None:
                 raise ValueError("forward needs labels or decoder_input_ids")
@@ -234,16 +304,19 @@ class VLBart(nn.Module):
                 raise NotImplementedError(
                     "attention_dropout / activation_dropout > 0 and "
                     "vis.sparse_sample are not ported")
-            if b.dropout > 0:
+            if b.dropout > 0 or self.lora_drops():
                 seeds = DropoutSeeds(self.dropout_sites(), generator,
                                      input_ids.device)
+        task_embedding = self.model.task_embedding(ctx)
         enc, joint_mask = self.model.encoder(
             input_ids, attention_mask, self.model.shared, vis_feats=vis_feats,
             boxes=boxes, img_order_ids=img_order_ids,
             obj_order_ids=obj_order_ids,
-            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds)
+            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
+            task_embedding=task_embedding)
         dec = self.model.decoder.teacher_force(
-            decoder_input_ids, self.model.shared, enc, joint_mask, ctx, seeds)
+            decoder_input_ids, self.model.shared, enc, joint_mask, ctx, seeds,
+            task_embedding)
         out = {"encoder_last_hidden_state": enc}
         if labels is None:
             out["logits"] = self._logits(dec, self.logits_weight())
@@ -288,23 +361,28 @@ class VLBart(nn.Module):
                ctx: Optional[PetContext] = None):
         return self.model.encode(input_ids, attention_mask, vis_feats, boxes,
                                  img_order_ids, obj_order_ids,
-                                 vis_attention_mask, ctx)
+                                 vis_attention_mask, self._ctx(ctx))
 
     def init_decode(self, encoder_hidden_states,
                     ctx: Optional[PetContext] = None) -> DecodeConsts:
         """What every decode step reuses: the cross-attention K/V
-        (B, S, H*Dh) of every decoder layer and the other loop invariants."""
+        (B, S, H*Dh) of every decoder layer, the hypernet's adapter weights
+        (the JAX package regenerates them every step: the same values) and
+        the other loop invariants."""
+        ctx = self._ctx(ctx)
         return DecodeConsts(
-            self.model.compute_cross_kvs(encoder_hidden_states,
-                                         ctx or PetContext()),
-            self.model.decoder.fused_self_qkvs(), self.logits_weight())
+            self.model.compute_cross_kvs(encoder_hidden_states, ctx),
+            self.model.decoder.fused_self_qkvs(),
+            self.model.decoder.block_adapters(self.model.task_embedding(ctx)),
+            self.logits_weight())
 
     def decode_step(self, decoder_input_ids, joint_mask, consts: DecodeConsts,
                     cache, decode_pos: int, ctx: Optional[PetContext] = None,
                     beam_anc=None):
         """One decode step -> (logits (B, V) f32, cache)."""
-        dec_out, cache = self.model.decode(decoder_input_ids, joint_mask, ctx,
-                                           consts, cache, decode_pos, beam_anc)
+        dec_out, cache = self.model.decode(decoder_input_ids, joint_mask,
+                                           self._ctx(ctx), consts, cache,
+                                           decode_pos, beam_anc)
         return self._logits(dec_out[:, -1, :], consts.logits_weight), cache
 
     def decode_step_topk(self, decoder_input_ids, joint_mask,

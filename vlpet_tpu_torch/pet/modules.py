@@ -1,30 +1,41 @@
-"""PET modules of the VL-PET recipes, ported from vlpet_tpu/pet/modules.py:
-the task-routed dense layer and bottleneck adapter (the decoder VPA), the
-multihead down adapter, and the four granularity gates (VL-PET-large's
-low-rank gate, -small's per-example and -middleX's per-token scalar gates,
--middleY's vector) plus the full d x d GateLargeX.
+"""PET modules, ported from vlpet_tpu/pet/modules.py: the task-routed
+dense layer; the adapters of the serial-adapter baselines (the bottleneck
+adapter, Compacter's ``HyperComplexAdapter`` over ``PHMDense``, the
+``LowRankAdapter`` over ``LowRankDense``) and their ``AdapterController``
+with its optional LayerNorms (also the decoder VPA of VL-PET); LoRA's
+task-routed ``LoRADense``; the multihead down adapter, and the four
+granularity gates (VL-PET-large's low-rank gate, -small's per-example and
+-middleX's per-token scalar gates, -middleY's vector) plus the full d x d
+GateLargeX.
 
 Parameter names follow the flax tree (TaskDense ``weight``/``bias`` for
-flax ``kernel``/``bias``; the multihead per-head ``down_kernel``/
-``down_bias`` keep their names and shapes), so vlpet_tpu_torch.convert is
-a rename plus transposes. Activation math runs in the module's compute
+flax ``kernel``/``bias``; every other leaf -- the multihead per-head
+``down_kernel``/``down_bias``, ``W``, ``W_left``, ``W_right``, ``b``,
+``phm_rule``, ``lora_A``, ``lora_B`` -- keeps its name and shape), so
+vlpet_tpu_torch.convert is a rename plus transposes and the freezing
+substrings match as in JAX. Activation math runs in the module's compute
 dtype, as in the JAX package; parameters are created in that dtype too
 (the JAX modules cast their fp32 params at every use, which gives the same
-values).
+values). A module whose parameters the JAX package initialises other than
+normal(0, init_std) / zero biases has ``init_params(generator)``, which
+``VLBart.init_weights`` calls after its generic pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from vlpet_tpu_torch.config import AdapterSpec
+from vlpet_tpu_torch.config import AdapterSpec, LoraSpec, PetConfig
 from vlpet_tpu_torch.device import Device, resolve_device
+from vlpet_tpu_torch.models.norm import LayerNorm
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
+from vlpet_tpu_torch.ops.hashdrop import hash_dropout
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -39,13 +50,48 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return table[name]
 
 
-@dataclasses.dataclass(frozen=True)
+# ---------------------------------------------------------------------------
+# Initialisers of the JAX package (vlpet_tpu/pet/modules.py:80-125), in place
+# ---------------------------------------------------------------------------
+
+
+def normal_(p: torch.Tensor, std: float, g: torch.Generator) -> None:
+    p.copy_(torch.randn(p.shape, generator=g, device=g.device) * std)
+
+
+def uniform_(p: torch.Tensor, lo: float, hi: float,
+             g: torch.Generator) -> None:
+    p.copy_(lo + (hi - lo) * torch.rand(p.shape, generator=g,
+                                        device=g.device))
+
+
+def glorot_uniform_gain2_(p: torch.Tensor, g: torch.Generator) -> None:
+    """xavier_uniform with gain sqrt(2) over the last two dims."""
+    bound = math.sqrt(2.0) * math.sqrt(6.0 / (p.shape[-2] + p.shape[-1]))
+    uniform_(p, -bound, bound, g)
+
+
+def glorot_normal_gain2_(p: torch.Tensor, g: torch.Generator) -> None:
+    normal_(p, math.sqrt(2.0) * math.sqrt(2.0 / (p.shape[-2] + p.shape[-1])),
+            g)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class PetContext:
-    """Per-call PET state: the static task routing of the JAX package.
-    (The Compacter/hyperformer fields are not on the ported slice.)"""
+    """Per-call PET state (vlpet_tpu/pet/modules.py:147): the static task
+    routing; the model-shared Compacter rule ``phm_rule`` and slow weights
+    ``phm_W`` ({"down": W, "up": W}, W a tensor or a (W_left, W_right)
+    pair), which ``VLBart`` injects; and ``block_adapters``, the current
+    layer's hypernet-generated adapter weights (pet/hypernet.py)."""
 
     task: str = "default"
     task_idx: int = 0
+    phm_rule: Optional[torch.Tensor] = None
+    phm_W: Any = None
+    block_adapters: Any = None
+
+    def for_layer(self, block_adapters) -> "PetContext":
+        return dataclasses.replace(self, block_adapters=block_adapters)
 
 
 class TaskDense(nn.Module):
@@ -77,6 +123,151 @@ class TaskDense(nn.Module):
         return F.linear(x.to(w.dtype), w, b)
 
 
+class LowRankDense(nn.Module):
+    """W = W_left @ W_right, rank-k (vlpet_tpu/pet/modules.py:232); applied
+    as (x @ W_left) @ W_right + b."""
+
+    def __init__(self, in_dim: int, out_dim: int, rank: int = 1,
+                 n_tasks: int = 1, shared: bool = True, use_bias: bool = True,
+                 w_init: str = "glorot-uniform", dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.shared, self.w_init = shared, w_init
+        lead = () if shared else (n_tasks,)
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.dtype = dtype
+        self.W_left = nn.Parameter(torch.empty(lead + (in_dim, rank), **kw))
+        self.W_right = nn.Parameter(torch.empty(lead + (rank, out_dim), **kw))
+        self.b = (nn.Parameter(torch.empty(lead + (out_dim,), **kw))
+                  if use_bias else None)
+
+    @torch.no_grad()
+    def init_params(self, g: torch.Generator) -> None:
+        init = (glorot_uniform_gain2_ if self.w_init == "glorot-uniform"
+                else glorot_normal_gain2_)
+        init(self.W_left, g)
+        init(self.W_right, g)
+        if self.b is not None:
+            self.b.zero_()
+
+    def forward(self, x: torch.Tensor, task_idx: int = 0) -> torch.Tensor:
+        y = ((x.to(self.dtype) @ _task(self.W_left, self.shared, task_idx))
+             @ _task(self.W_right, self.shared, task_idx))
+        b = _task(self.b, self.shared, task_idx)
+        return y + b if b is not None else y
+
+
+def _task(p: Optional[torch.Tensor], shared: bool, task_idx: int):
+    return p if p is None or shared else p[task_idx]
+
+
+class PHMDense(nn.Module):
+    """Parameterized-hypercomplex linear layer of Compacter
+    (vlpet_tpu/pet/modules.py:263): y = x . (sum_r rule[r] (x) W[r]) + b,
+    computed by the JAX package's two contractions, ``...ik,rko->...rio``
+    then ``...rio,rij->...jo``, over x viewed as (..., pd, in/pd) -- never
+    the materialised Kronecker sum.
+
+    ``own_W`` False: the layer owns no slow weight and takes the model's
+    shared one (``W_shared`` at the call, shared_W_phm). ``own_rule``
+    False: the rule comes in as ``phm_rule`` (shared_phm_rule). An owned
+    W is (pd, in/pd, out/pd) or, with ``factorized_phm``, W_left (pd,
+    in/pd, rank) and W_right (pd, rank, out/pd), each with a leading task
+    axis unless ``shared``; an owned rule is (pd, pd, pd) (or its
+    ``factorized_phm_rule`` pair) with a task axis unless ``shared`` or
+    ``shared_phm_rule_over_tasks``."""
+
+    def __init__(self, in_dim: int, out_dim: int, spec: AdapterSpec,
+                 n_tasks: int = 1, shared: bool = True, use_bias: bool = True,
+                 own_W: bool = True, own_rule: bool = True,
+                 dtype=torch.float32, device: Device = "cuda"):
+        super().__init__()
+        pd = spec.hypercomplex_division
+        if in_dim % pd or out_dim % pd:
+            raise ValueError(f"({in_dim}, {out_dim}) not divisible by "
+                             f"hypercomplex_division {pd}")
+        self.spec, self.shared, self.dtype = spec, shared, dtype
+        self.in_dim, self.out_dim, self.pd = in_dim, out_dim, pd
+        self.rule_shared = shared or spec.shared_phm_rule_over_tasks
+        lead = () if shared else (n_tasks,)
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        ip, op = in_dim // pd, out_dim // pd
+        if own_W and spec.factorized_phm:
+            self.W_left = nn.Parameter(torch.empty(
+                lead + (pd, ip, spec.phm_rank), **kw))
+            self.W_right = nn.Parameter(torch.empty(
+                lead + (pd, spec.phm_rank, op), **kw))
+        elif own_W:
+            self.W = nn.Parameter(torch.empty(lead + (pd, ip, op), **kw))
+        if own_rule:
+            rlead = () if self.rule_shared else (n_tasks,)
+            if spec.factorized_phm_rule:
+                self.phm_rule_left = nn.Parameter(torch.empty(
+                    rlead + (pd, pd, 1), **kw))
+                self.phm_rule_right = nn.Parameter(torch.empty(
+                    rlead + (pd, 1, pd), **kw))
+            else:
+                self.phm_rule = nn.Parameter(torch.empty(rlead + (pd, pd, pd),
+                                                         **kw))
+        self.b = (nn.Parameter(torch.empty(lead + (out_dim,), **kw))
+                  if use_bias else None)
+
+    @torch.no_grad()
+    def init_params(self, g: torch.Generator) -> None:
+        s = self.spec
+        for name in ("W", "W_left", "W_right"):
+            if hasattr(self, name):
+                glorot_uniform_gain2_(getattr(self, name), g)
+        for name in ("phm_rule", "phm_rule_left", "phm_rule_right"):
+            if hasattr(self, name):
+                if s.phm_c_init == "normal":
+                    normal_(getattr(self, name), s.phm_init_range, g)
+                else:  # flax uniform(scale=0.02): U[0, 0.02)
+                    uniform_(getattr(self, name), 0.0, 0.02, g)
+        if self.b is not None:
+            self.b.zero_()
+
+    def _W(self, task_idx: int, W_shared) -> torch.Tensor:
+        dt = self.dtype
+        if W_shared is not None:
+            if isinstance(W_shared, tuple):
+                wl, wr = W_shared
+                return torch.einsum("rip,rpo->rio", wl.to(dt), wr.to(dt))
+            return W_shared.to(dt)
+        if hasattr(self, "W_left"):
+            return torch.einsum(
+                "rip,rpo->rio", _task(self.W_left, self.shared, task_idx),
+                _task(self.W_right, self.shared, task_idx))
+        if not hasattr(self, "W"):
+            raise ValueError("this PHMDense owns no W: pass W_shared")
+        return _task(self.W, self.shared, task_idx)
+
+    def _rule(self, task_idx: int) -> torch.Tensor:
+        if hasattr(self, "phm_rule_left"):
+            return torch.einsum(
+                "rio,roj->rij",
+                _task(self.phm_rule_left, self.rule_shared, task_idx),
+                _task(self.phm_rule_right, self.rule_shared, task_idx))
+        if not hasattr(self, "phm_rule"):
+            raise ValueError("this PHMDense owns no rule: pass phm_rule")
+        return _task(self.phm_rule, self.rule_shared, task_idx)
+
+    def forward(self, x: torch.Tensor, task_idx: int = 0,
+                phm_rule: Optional[torch.Tensor] = None,
+                W_shared: Any = None) -> torch.Tensor:
+        W = self._W(task_idx, W_shared)
+        rule = (phm_rule if phm_rule is not None
+                else self._rule(task_idx)).to(self.dtype)
+        lead = x.shape[:-1]
+        xr = x.to(self.dtype).reshape(lead + (self.pd, self.in_dim // self.pd))
+        t = torch.einsum("...ik,rko->...rio", xr, W)
+        y = torch.einsum("...rio,rij->...jo", t, rule).reshape(
+            lead + (self.out_dim,))
+        if self.b is not None:
+            y = y + _task(self.b, self.shared, task_idx)
+        return y
+
+
 class BottleneckAdapter(nn.Module):
     """down -> act -> up; returns the delta (the combination lives in
     AdapterController)."""
@@ -85,10 +276,7 @@ class BottleneckAdapter(nn.Module):
                  device: Device = "cuda"):
         super().__init__()
         n_tasks = len(spec.tasks)
-        down_shared = (spec.use_single_adapter or spec.share_down_sampler
-                       or n_tasks == 1)
-        up_shared = (spec.use_single_adapter or spec.share_up_sampler
-                     or n_tasks == 1)
+        down_shared, up_shared = _sampler_sharing(spec)
         self.act = get_activation(spec.non_linearity)
         self.down_sampler = TaskDense(spec.d_model, spec.down_dim, n_tasks,
                                       down_shared, dtype=dtype, device=device)
@@ -100,28 +288,175 @@ class BottleneckAdapter(nn.Module):
                                task_idx)
 
 
-class AdapterController(nn.Module):
-    """Task-routed bottleneck adapter: sequential out = scale*A(x) + x,
-    parallel out = scale*A(x) + y (y the wrapped projection's output; the
-    VPA form)."""
+def _sampler_sharing(spec: AdapterSpec) -> Tuple[bool, bool]:
+    """(down shared, up shared) over the tasks, for every adapter kind
+    (reference: src/adapters/adapter_controller.py:69-77)."""
+    one = spec.use_single_adapter or len(spec.tasks) == 1
+    return one or spec.share_down_sampler, one or spec.share_up_sampler
+
+
+class LowRankAdapter(nn.Module):
+    """Rank-factorized bottleneck adapter (vlpet_tpu/pet/modules.py:387):
+    its bottleneck is always d_model // reduction_factor, as the
+    reference's."""
 
     def __init__(self, spec: AdapterSpec, dtype=torch.float32,
                  device: Device = "cuda"):
         super().__init__()
-        if spec.kind != "bottleneck" or spec.track_z:
-            raise NotImplementedError(
-                f"adapter kind {spec.kind!r} / track_z is not ported")
-        if spec.add_layer_norm_before_adapter or spec.add_layer_norm_after_adapter:
-            raise NotImplementedError("adapter layer norms are not ported")
+        n_tasks = len(spec.tasks)
+        down = spec.d_model // spec.reduction_factor
+        down_shared, up_shared = _sampler_sharing(spec)
+        kw = dict(rank=spec.low_rank_rank, n_tasks=n_tasks,
+                  w_init=spec.low_rank_w_init, dtype=dtype, device=device)
+        self.act = get_activation(spec.non_linearity)
+        self.down_sampler = LowRankDense(spec.d_model, down,
+                                         shared=down_shared, **kw)
+        self.up_sampler = LowRankDense(down, spec.d_model, shared=up_shared,
+                                       **kw)
+
+    def forward(self, x: torch.Tensor, task_idx: int = 0) -> torch.Tensor:
+        return self.up_sampler(self.act(self.down_sampler(x, task_idx)),
+                               task_idx)
+
+
+def shared_phm_W_dims(pet: PetConfig, d_model: int) -> Optional[Tuple[int, int]]:
+    """(in, out) of the model-shared Compacter down weight (the up one is
+    its reverse), or None when the model has none."""
+    if not (pet.use_compacter and pet.shared_W_phm):
+        return None
+    down = (pet.adapter_down_dim if pet.use_adapter_down_dim
+            else d_model // pet.reduction_factor)
+    return d_model, down
+
+
+def make_shared_phm_W(module: nn.Module, pet: PetConfig, d_model: int,
+                      dtype=torch.float32, device: Device = "cuda") -> None:
+    """Register the model-root Compacter slow weights on ``module``
+    (vlpet_tpu/pet/modules.py:414): ``phm_W_down`` (pd, d/pd, down/pd) and
+    ``phm_W_up`` (pd, down/pd, d/pd), or with ``factorized_phm`` their
+    ``_left`` / ``_right`` factors of rank ``phm_rank``."""
+    d, down = shared_phm_W_dims(pet, d_model)
+    pd, rank = pet.hypercomplex_division, pet.phm_rank
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    for prefix, i, o in (("phm_W_down", d, down), ("phm_W_up", down, d)):
+        ip, op = i // pd, o // pd
+        if pet.factorized_phm:
+            module.register_parameter(f"{prefix}_left", nn.Parameter(
+                torch.empty((pd, ip, rank), **kw)))
+            module.register_parameter(f"{prefix}_right", nn.Parameter(
+                torch.empty((pd, rank, op), **kw)))
+        else:
+            module.register_parameter(prefix, nn.Parameter(
+                torch.empty((pd, ip, op), **kw)))
+
+
+def shared_phm_W(module: nn.Module, pet: PetConfig) -> Dict[str, Any]:
+    """{"down": W, "up": W} of ``make_shared_phm_W``'s parameters, a W a
+    tensor or a (W_left, W_right) pair (``PetContext.phm_W``)."""
+    def get(prefix):
+        if pet.factorized_phm:
+            return (getattr(module, f"{prefix}_left"),
+                    getattr(module, f"{prefix}_right"))
+        return getattr(module, prefix)
+    return {"down": get("phm_W_down"), "up": get("phm_W_up")}
+
+
+def _phm_w_dims(W: Any, pd: int) -> Tuple[int, int]:
+    """(in_dim, out_dim) implied by a shared phm W (full or factorized)."""
+    if isinstance(W, tuple):
+        return W[0].shape[1] * pd, W[1].shape[2] * pd
+    return W.shape[1] * pd, W.shape[2] * pd
+
+
+class HyperComplexAdapter(nn.Module):
+    """Compacter adapter: PHM down -> act -> PHM up
+    (vlpet_tpu/pet/modules.py:447). ``phm_W_dims`` is
+    ``shared_phm_W_dims``: the samplers take the model-shared slow weights
+    (and own none) where their dims match the root's, as in JAX."""
+
+    def __init__(self, spec: AdapterSpec, dtype=torch.float32,
+                 device: Device = "cuda",
+                 phm_W_dims: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        n_tasks = len(spec.tasks)
+        down_shared, up_shared = _sampler_sharing(spec)
         self.spec = spec
-        self.adapters = BottleneckAdapter(spec, dtype=dtype, device=device)
+        self.root_W = (spec.shared_W_phm and phm_W_dims is not None
+                       and tuple(phm_W_dims) == (spec.d_model, spec.down_dim))
+        kw = dict(spec=spec, n_tasks=n_tasks, own_W=not self.root_W,
+                  own_rule=not spec.shared_phm_rule, dtype=dtype,
+                  device=device)
+        self.act = get_activation(spec.non_linearity)
+        self.down_sampler = PHMDense(spec.d_model, spec.down_dim,
+                                     shared=down_shared, **kw)
+        self.up_sampler = PHMDense(spec.down_dim, spec.d_model,
+                                   shared=up_shared, **kw)
+
+    def forward(self, x: torch.Tensor, task_idx: int = 0,
+                phm_rule: Optional[torch.Tensor] = None,
+                phm_W: Any = None) -> torch.Tensor:
+        s = self.spec
+        rule = phm_rule if s.shared_phm_rule else None
+        if s.shared_phm_rule and rule is None:
+            raise ValueError("shared_phm_rule: the context holds no phm_rule")
+        W_down = W_up = None
+        if self.root_W:
+            if phm_W is None:
+                raise ValueError("shared_W_phm: the context holds no phm_W")
+            pd = s.hypercomplex_division
+            if _phm_w_dims(phm_W["down"], pd) != (s.d_model, s.down_dim):
+                raise ValueError("shared phm W does not match the sampler")
+            W_down, W_up = phm_W["down"], phm_W["up"]
+        z = self.act(self.down_sampler(x, task_idx, rule, W_down))
+        return self.up_sampler(z, task_idx, rule, W_up)
+
+
+class AdapterController(nn.Module):
+    """Task-routed adapter (vlpet_tpu/pet/modules.py:484) of one of three
+    kinds, the spec's: "bottleneck", "compacter" (``HyperComplexAdapter``,
+    reading ``ctx.phm_rule`` / ``ctx.phm_W``) or "lowrank"
+    (``LowRankAdapter``); optional LayerNorms ``pre_layer_norm`` on the
+    adapter's input and ``post_layer_norm`` on its scaled output.
+    Sequential out = scale*A(x) + x, parallel out = scale*A(x) + y (y the
+    wrapped projection's output; the VPA form)."""
+
+    def __init__(self, spec: AdapterSpec, dtype=torch.float32,
+                 device: Device = "cuda",
+                 phm_W_dims: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        if spec.track_z:
+            raise NotImplementedError("track_z (the adapter z regularizer) "
+                                      "is not ported")
+        self.spec = spec
+        kw = dict(dtype=dtype, device=device)
+        if spec.add_layer_norm_before_adapter:
+            self.pre_layer_norm = LayerNorm(spec.d_model, **kw)
+        if spec.kind == "compacter":
+            self.adapters = HyperComplexAdapter(spec, phm_W_dims=phm_W_dims,
+                                                **kw)
+        elif spec.kind == "lowrank":
+            self.adapters = LowRankAdapter(spec, **kw)
+        elif spec.kind == "bottleneck":
+            self.adapters = BottleneckAdapter(spec, **kw)
+        else:
+            raise ValueError(f"unknown adapter kind {spec.kind!r}")
+        if spec.add_layer_norm_after_adapter:
+            self.post_layer_norm = LayerNorm(spec.d_model, **kw)
 
     def forward(self, inputs: torch.Tensor, ctx: PetContext,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
         s = self.spec
-        out = self.adapters(inputs, ctx.task_idx)
+        z = inputs
+        if s.add_layer_norm_before_adapter:
+            z = self.pre_layer_norm(z)
+        if s.kind == "compacter":
+            out = self.adapters(z, ctx.task_idx, ctx.phm_rule, ctx.phm_W)
+        else:
+            out = self.adapters(z, ctx.task_idx)
         if s.use_scaling_factor:
             out = out * s.scaling_factor
+        if s.add_layer_norm_after_adapter:
+            out = self.post_layer_norm(out)
         if s.use_parallel_adapter:
             if y is None:
                 raise ValueError("parallel adapter needs the wrapped output y")
@@ -247,3 +582,51 @@ def build_gate(cls, d_model: int, pet, dtype=torch.float32,
         return cls(d_model, pet.adapter_gating_down_dim, dtype=dtype,
                    device=device)
     return cls(d_model, dtype=dtype, device=device)
+
+
+class LoRADense(nn.Module):
+    """Dense with a LoRA delta (vlpet_tpu/pet/modules.py:756):
+    y = base(x) + dropout(x) @ A @ B * (alpha / r). ``base`` is a
+    TaskDense; ``lora_A`` (in, r) and ``lora_B`` (r, out) carry a leading
+    task axis, picked by the static task index, unless ``use_single_lora``
+    (or one task). The dropout is the hash mask of ops/hashdrop.py at
+    ``rate`` (the spec's ``lora_dropout``), drawn only when a training call
+    hands the layer its seed (one ``DropoutSeeds`` site a call); the JAX
+    layer draws it with jax.random."""
+
+    def __init__(self, in_dim: int, out_dim: int, spec: LoraSpec,
+                 use_bias: bool = True, dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        n_tasks = 1 if spec.use_single_lora else len(spec.tasks)
+        self.shared = n_tasks == 1
+        self.in_dim, self.dtype = in_dim, dtype
+        self.rate = spec.lora_dropout
+        self.scale = spec.lora_alpha / spec.lora_dim
+        self.base = TaskDense(in_dim, out_dim, use_bias=use_bias, dtype=dtype,
+                              device=device)
+        lead = () if self.shared else (n_tasks,)
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.lora_A = nn.Parameter(torch.empty(lead + (in_dim, spec.lora_dim),
+                                               **kw))
+        self.lora_B = nn.Parameter(torch.empty(lead + (spec.lora_dim, out_dim),
+                                               **kw))
+
+    @torch.no_grad()
+    def init_params(self, g: torch.Generator) -> None:
+        """A: torch's kaiming_uniform(a=sqrt(5)) on (r, in), U(+-1/sqrt(in));
+        B: zeros (the base keeps the generic init)."""
+        bound = 1.0 / math.sqrt(self.in_dim)
+        uniform_(self.lora_A, -bound, bound, g)
+        self.lora_B.zero_()
+
+    def forward(self, x: torch.Tensor, task_idx: int = 0,
+                seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        base = self.base(x)
+        a = _task(self.lora_A, self.shared, task_idx)
+        b = _task(self.lora_B, self.shared, task_idx)
+        xz = x
+        if seed is not None and self.rate > 0.0:
+            xz = hash_dropout(x, seed, self.rate)
+        delta = (xz.to(self.dtype) @ a) @ b
+        return base + delta * self.scale
