@@ -270,7 +270,38 @@ nonzero and no result line is printed):
      (the cli_single_prompt main-path run: A6 on "fma" and the long
      backward, at nlvr's L = S = 142, must launch); data build, ms/step
      and each task's eval seconds.
-Each of 3n, 6g, 7f and 8b prints its seconds.
+  3o. (run after 3n) every kernel of the ten scripts/video-text/*.sh at
+     the shapes they give it (B 50; QA text 600 and captions 77 tokens +
+     64 frames: S 664 and 141, 704 and 181 with the prompt; 20 targets),
+     bf16: A1 and the long backward or A6 (as backward_route picks: "fma"
+     at the caption cross sites L 20 over S 141 / 181) at the encoders,
+     the decoder self-attention, the cross-attention and the decode cross
+     sites (L 5 beam, L 1 greedy); fp32 A1 and the long backward at the
+     tvqa encoder and cross sites; F1 / F2 and L1 / L2 at N 33200, 35200,
+     7050, 9050, 1000 (F1 also at the decode rows 250 and 50), with the
+     split and waves of ops/ffn.py f1_splits and the plan of
+     ops/fused_ln.py ln_plan; D1 at 40 slots (beam-tree ancestry), U1,
+     T1 (R 250) and T2 (R 50): vs the plain twin, bf16 twice bitwise
+     equal, with the route, the library call and the bound;
+  6h. (run after 6g) the video VL-PET-large recipe (the config
+     cli.multitask_video builds from its script) at full width, fp32, B
+     2: phase 6's train parity (3 steps from the weights after unzero) of
+     tvqa at S 664 and tvc at S 141 (20 targets), single_prompt.sh's tvqa
+     at S 704; beam-5 and greedy tokens on tvc (B 4, length 40) and greedy
+     on tvqa (B 4, length 20; the init and 1+1 layers at std 0.2),
+     kernels vs plain, identical;
+  7g. (run after 7f) each video script's bf16 train step at B 50 on tvqa
+     (S 664, 704 with the prompt), as phase 7 (the video_<script> runs);
+     VL-PET-large's on tvc (S 141, A6 on "fma"); its greedy tvqa eval to
+     length 20 and beam-5 tvc eval to length 40 at B 50;
+  8c. (after 8b) ``python -m vlpet_tpu_torch.cli.multitask_video`` with
+     VL-PET-large.sh's flags + --bf16, B 50, the four tasks, 250 synthetic
+     examples a task, 2 epochs, each evaluated, then --resume (the saved
+     state's digest bit for bit); ``python -m
+     vlpet_tpu_torch.cli.single_task tvqa`` with single_prompt.sh's flags
+     for 1 epoch, whose S 704 sites take the long backward (the cli_video
+     and cli_video_single_prompt runs).
+Each of 3n, 3o, 6g, 6h, 7f, 7g, 8b and 8c prints its seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -393,39 +424,65 @@ PET_FFN_TRAIN = tuple(p for p in PET_TRAIN if p != "pet_full_finetuning")
 PET_EVAL = ("pet_single_lora_eval", "pet_single_prompt_eval",
             "pet_hyperformer_eval")
 CLI_PROMPT = "cli_single_prompt"
+# the ten video scripts (scripts/video-text/*.sh) on BART-base: phase 7g's
+# bf16 train steps at tvqa (S 664, 704 with the prompt; full fine-tuning
+# takes the plain FFN chain) and VL-PET-large's at tvc (S 141: A6 on "fma"
+# at the cross-attention), VL-PET-large's greedy tvqa and beam-5 tvc evals
+# (VS_QA_EVAL, VS_CAP_EVAL); phase 8c's CLI runs: cli.multitask_video with
+# VL-PET-large.sh's flags (CLI_VIDEO) and cli.single_task tvqa with
+# single_prompt.sh's (CLI_VIDEO_PROMPT, greedy eval only)
+VIDEO_GATES = ("VL-PET-small", "VL-PET-middleX", "VL-PET-middleY",
+               "VL-PET-large")
+VIDEO_SCRIPTS = VIDEO_GATES + ("single_adapter", "single_compacter",
+                               "single_lora", "single_prompt", "bitfit",
+                               "full_finetuning")
+VS_TRAIN = tuple(f"video_{n}" for n in VIDEO_SCRIPTS) + (
+    "video_VL-PET-large_tvc",)
+VS_FFN_TRAIN = tuple(p for p in VS_TRAIN if p != "video_full_finetuning")
+VS_QA_EVAL, VS_CAP_EVAL = ("video_VL-PET-large_tvqa_eval",
+                           "video_VL-PET-large_tvc_eval")
+CLI_VIDEO, CLI_VIDEO_PROMPT = "cli_video", "cli_video_single_prompt"
+VS_EVAL_CLI = (VS_QA_EVAL, VS_CAP_EVAL, CLI_VIDEO, CLI_VIDEO_PROMPT)
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
                                                CLI) + PET_TRAIN + PET_EVAL
-                        + (CLI_PROMPT,)),
+                        + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
-                            + (CLI_PROMPT,)),
+                            + (CLI_PROMPT,) + VS_TRAIN
+                            + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
-                                 ("video_train", T5V_TRAIN, CLI_PROMPT)),
+                                 ("video_train", T5V_TRAIN, CLI_PROMPT)
+                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
-                  + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,)),
+                  + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
+                  + VS_EVAL_CLI),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195",
                       TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
-                      + (CLI_PROMPT,)),
+                      + (CLI_PROMPT,) + VS_FFN_TRAIN
+                      + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                              "vlpet_tpu/ops/fused_ln.py:251",
-                             TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)),
+                             TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
+                             + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
-                                 TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)),
+                                 TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
+                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
-                           + (CLI_PROMPT,)),
+                           + (CLI_PROMPT, VS_CAP_EVAL, CLI_VIDEO)),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
-                 DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)),
+                 DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)
+                 + VS_EVAL_CLI),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -463,7 +520,8 @@ KERNELS = {
                                   "vlpet_tpu/ops/decode.py:249", FUSED_BEAM),
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
                           "vlpet_tpu/ops/cache_update.py:31",
-                          DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)),
+                          DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)
+                          + VS_EVAL_CLI),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -478,7 +536,7 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
-    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,)
+    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -2548,6 +2606,218 @@ def phase_prompt_sites(rep: Report) -> None:
         del plain_bwd, lib_bwd
 
 
+# phase 3o: the video scripts' sites. vlpet_tpu_torch/data/video.py pads
+# the QA text to 600 tokens and the captions to 77, and the targets to
+# --gen_max_length (20); with 64 frames the joint length is S 664 (tvqa,
+# how2qa) or 141 (tvc, yc2c), and single_prompt.sh's 40 prompt tokens make
+# it 704 or 181. B 50, the scripts' batch; beam 5 on captions, greedy on QA.
+# (site, L, S, causal, trained): the decode sites only run forward.
+VIDEO_B, VIDEO_T = 50, 20
+VIDEO_ATTENTION_SITES = (
+    ("tvqa enc", 664, 664, False, True), ("prompt tvqa enc", 704, 704, False,
+                                          True),
+    ("tvc enc", 141, 141, False, True), ("prompt tvc enc", 181, 181, False,
+                                         True),
+    ("dec-self", 20, 20, True, True), ("tvqa cross", 20, 664, False, True),
+    ("prompt tvqa cross", 20, 704, False, True),
+    ("tvc cross", 20, 141, False, True),
+    ("prompt tvc cross", 20, 181, False, True),
+    ("tvc beam cross", 5, 141, False, False),
+    ("prompt tvc beam cross", 5, 181, False, False),
+    ("tvqa greedy cross", 1, 664, False, False),
+    ("prompt tvqa greedy cross", 1, 704, False, False))
+# FFN and LayerNorm rows: the four encoders, the decoder (50 x 20); F1 also
+# at the beam (250) and greedy (50) decode rows
+VIDEO_TRAIN_ROWS = (33200, 35200, 7050, 9050, 1000)
+VIDEO_DECODE_ROWS = (250, 50)
+
+
+def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
+                   causal: bool, trained: bool) -> None:
+    """A1 (with its row logsumexp where the backward is the long one) and,
+    at a trained site, A6 or the long backward as ``backward_route`` picks,
+    against the plain twin and autograd of it (phase 3b's tolerances); the
+    route, SDPA's time (and its autograd's) and the bound on every line;
+    bf16 twice bitwise equal."""
+    randn = randn_fn(g)
+    H, Dh = 12, 64
+    inner = H * Dh
+    e = 2 if dtype == torch.bfloat16 else 4
+    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+    mask = padding_mask(g, B, S)
+    lmask = causal_mask(mask, L, S) if causal else mask
+    seen = (attention._causal_allowed(L, S, "cuda").float().mean().item()
+            if causal else 1.0)
+    q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+    k, v, do = (randn(B, n, inner, dtype=dtype) for n in (S, S, L))
+    label = f"{tag} video {site} B{B} L{L} S{S}" + (" causal" if causal
+                                                    else "")
+    long = trained and attention.backward_route(L, S, Dh, dtype) == "long"
+    if long:
+        def fwd():
+            return attention.fused_attention_fwd_lse(q, k, v, mask, H, causal)
+
+        def fwd_plain():
+            return attention.fused_attention_lse_reference(q, k, v, mask, H,
+                                                           causal)
+    else:
+        def fwd():
+            return (attention.fused_attention(q, k, v, mask, H, causal),)
+
+        def fwd_plain():
+            return (attention.fused_attention_reference(q, k, v, mask, H,
+                                                        causal),)
+    rep.check("fused_attention", label + (" +lse" if long else ""), fwd,
+              fwd_plain, dtype,
+              work=(e * 2 * B * (L + S) * inner + 4 * B * S
+                    + (4 * B * H * L if long else 0),
+                    4 * B * H * L * S * Dh * seen),
+              library_fn=lambda: sdpa(q, k, v, lmask, H))
+    if dtype == torch.bfloat16:
+        bitwise_repeat("fused_attention", label, fwd)
+    if not trained:
+        return
+    plain_bwd = _grads_of(
+        lambda a, b, c: attention.fused_attention_reference(a, b, c, mask, H,
+                                                            causal),
+        (q, k, v), do)
+    lib_bwd = _grads_of(lambda a, b, c: sdpa(a, b, c, lmask, H), (q, k, v),
+                        do.view(B, L, H, Dh).transpose(1, 2))
+    work = (e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+            10 * B * H * L * S * Dh * seen)
+    if long:
+        out, lse = fwd()
+        key = "fused_attention_bwd_long"
+        work = (work[0] + e * B * L * inner + 4 * B * H * L, work[1])
+
+        def kernel():
+            return attention.fused_attention_bwd_long(q, k, v, mask, out, lse,
+                                                      do, H, causal)
+    else:
+        key = "fused_attention_bwd"
+
+        def kernel():
+            return attention.fused_attention_bwd(q, k, v, mask, do, H, causal)
+    rep.check(key, label, kernel, plain_bwd, dtype, work=work,
+              library_fn=lib_bwd, backward=True,
+              iters=5 if dtype == torch.float32 else 20)
+    if dtype == torch.bfloat16:
+        bitwise_repeat(key, label, kernel)
+    del plain_bwd, lib_bwd
+
+
+def phase_video_script_sites(rep: Report) -> None:
+    """3o: every kernel of the video scripts' paths at the shapes they give
+    it (``VIDEO_ATTENTION_SITES``, ``VIDEO_TRAIN_ROWS``,
+    ``VIDEO_DECODE_ROWS``; B 50), bf16, and fp32 for A1 and the long
+    backward at the tvqa encoder and cross sites: each against its plain
+    twin (the backward ones against autograd of it) within phase 3b's
+    tolerances, bf16 twice bitwise equal, with the route, the library call
+    where one computes the function and the bound. F1 / F2 print the
+    hidden split ``ops.ffn.f1_splits`` takes and the waves of its grid,
+    L1 / L2 the plan of ``ops.fused_ln.ln_plan``; then D1 (beam 5 to
+    length 40: 40 slots, pos 39), U1 (the beam cache's K+V write), T1
+    (R 250, k 10) and T2 (the greedy R 50, k 1)."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    randn = randn_fn(g)
+    B, T, K = VIDEO_B, VIDEO_T, 5
+    for site, L, S, causal, trained in VIDEO_ATTENTION_SITES:
+        attention_site(rep, g, torch.bfloat16, site, B, L, S, causal, trained)
+    for site, L, S, causal, trained in VIDEO_ATTENTION_SITES[:1] + \
+            VIDEO_ATTENTION_SITES[5:6]:
+        attention_site(rep, g, torch.float32, site, B, L, S, causal, trained)
+    dtype, D, Fh = torch.bfloat16, 768, 3072
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
+                                                          scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    gamma, beta = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    groups = -(-(D // 128) // ffn._F1_MAX_DU)
+    for N in VIDEO_TRAIN_ROWS + VIDEO_DECODE_ROWS:
+        x, res, dy = (randn(N, D, dtype=dtype) for _ in range(3))
+        splits, per = ffn.f1_splits(N, D, Fh, sms)
+        grid = -(-N // ffn._F1_ROWS) * groups * splits
+        label = f"bf16 video N{N} D{D} F{Fh} gelu S{splits}"
+        print(f"  {'fused_ffn':24s} N{N}: f1_splits {splits} x {per} hidden "
+              f"chunks, grid {grid} blocks = {-(-grid // sms)} wave(s) of "
+              f"{sms} SMs", flush=True)
+        it = 5 if N > 20000 else 20
+
+        def f1():
+            return (ffn.fused_ffn(x, w1, b1, w2, b2, "gelu"),)
+        rep.check("fused_ffn", label, f1,
+                  lambda: (ffn.ffn_reference(x, w1, b1, w2, b2, "gelu"),),
+                  dtype, iters=it,
+                  work=(2 * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                        4 * N * D * Fh))
+        bitwise_repeat("fused_ffn", label, f1)
+        if N in VIDEO_DECODE_ROWS:
+            continue
+
+        def f2():
+            return ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu")
+        rep.check("fused_ffn_bwd", label, f2,
+                  _grads_of(lambda a, c, d: ffn.ffn_reference(
+                      a, w1, c, w2, d, "gelu"), (x, b1, b2), dy),
+                  dtype, iters=it, backward=True,
+                  work=(2 * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                        6 * N * D * Fh))
+        bitwise_repeat("fused_ffn_bwd", label, f2)
+        plan = fused_ln.ln_plan(N, D, dtype, True)
+        print(f"  {'fused_dropout_add_ln':24s} N{N}: ln_plan route "
+              f"{plan.route}, {plan.blocks} blocks of {plan.warps} warps, "
+              f"at most {plan.rows_per_warp} rows a warp", flush=True)
+        label = f"bf16 video N{N} D{D} rate 0.1"
+
+        def l1():
+            return (fused_ln.fused_dropout_add_ln(x, res, gamma, beta, seed,
+                                                  0.1),)
+
+        def l2():
+            return fused_ln.fused_dropout_add_ln_bwd(x, res, gamma, seed, dy,
+                                                     0.1)
+        rep.check("fused_dropout_add_ln", label, l1,
+                  lambda: (fused_ln.fused_dropout_add_ln_reference(
+                      x, res, gamma, beta, seed, 0.1),), dtype, iters=it,
+                  work=(2 * 3 * N * D + 4 * (2 * D + 1), 8 * N * D))
+        bitwise_repeat("fused_dropout_add_ln", label, l1)
+        rep.check("fused_dropout_add_ln_bwd", label, l2,
+                  _grads_of(lambda a, b, c, d:
+                            fused_ln.fused_dropout_add_ln_reference(
+                                a, b, c, d, seed, 0.1),
+                            (x, res, gamma, beta), dy),
+                  dtype, iters=it, backward=True,
+                  work=(2 * 5 * N * D + 4 * (3 * D + 1), 16 * N * D))
+        bitwise_repeat("fused_dropout_add_ln_bwd", label, l2)
+        del x, res, dy
+    H, Dh, Lc = 12, 64, 40
+    inner = H * Dh
+    qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
+    kc, vc = (randn(Lc, B * K, inner, dtype=dtype) for _ in range(2))
+    anc = beam_tree_anc(g, B, K, Lc, Lc - 1)
+    rows = F.one_hot(anc, K).amax(dim=1).sum().item()
+    label = f"bf16 video B{B} K{K} L{Lc} pos{Lc - 1} tree"
+
+    def d1():
+        return (decode.beam_decode_attend(qb, kc, vc, anc, Lc - 1),)
+    rep.check("beam_decode_attend", label, d1,
+              lambda: (decode.beam_decode_attend_reference(qb, kc, vc, anc,
+                                                           Lc - 1),), dtype,
+              work=(2 * (2 * B * K * inner + 2 * rows * inner)
+                    + anc.element_size() * B * K * Lc,
+                    4 * B * K * H * Lc * Dh),
+              library_fn=beam_sdpa(qb, kc, vc, anc, Lc - 1, dtype))
+    bitwise_repeat("beam_decode_attend", label, d1)
+    u1_case(rep, g, dtype, B * K, inner, Lc, Lc - 1, "video beam", False)
+    for R, kk in ((B * K, 2 * K), (B, 1)):
+        x = torch.randn((R, 50265), generator=g, device="cuda")
+        check_topk(rep, "randn", x, kk)
+        bitwise_repeat("topk_lse", f"fp32 video R{R} k{kk}",
+                       lambda: topk.topk_lse(x, kk))
+
+
 def make_batch(B: int, vocab: int, seed: int, pad: int = 1):
     g = torch.Generator(device="cuda").manual_seed(seed)
     ids = torch.randint(3, vocab, (B, 20), generator=g, device="cuda")
@@ -2815,14 +3085,16 @@ def spread_model(cfg_fn):
 
 
 def generate_bench(card: str, model: VLBart, batch, ctx: PetContext,
-                   max_length: int, path: str, label: str):
-    """One warm-up and one timed bf16 beam-5 generate; examples/s and the
-    launches of the timed run (the ``path`` main-path run)."""
+                   max_length: int, path: str, label: str,
+                   num_beams: int = 5):
+    """One warm-up and one timed bf16 beam-5 (or ``num_beams``) generate;
+    examples/s and the launches of the timed run (the ``path`` main-path
+    run)."""
     V = model.cfg.backbone.vocab_size
     B = batch["input_ids"].shape[0]
 
     def run():
-        return seq2seq_generate(model, **batch, ctx=ctx, num_beams=5,
+        return seq2seq_generate(model, **batch, ctx=ctx, num_beams=num_beams,
                                 max_length=max_length)
 
     out = run()  # warm-up: cuBLAS heuristics, allocator
@@ -3827,17 +4099,19 @@ def script_flags(path: str, positional) -> list:
     return shlex.split(cmd)[3:]
 
 
-def cli_child(argv) -> None:
-    """``python -m vlpet_tpu_torch.cli.multitask <argv>`` in this process
-    (``chip_smoke.py --cli-child <argv>``), then one tagged line with the
-    kernels' launches over the run and its wall time."""
+CLI_MODULE = "vlpet_tpu_torch.cli.multitask"
+
+
+def cli_child(module: str, argv) -> None:
+    """``python -m <module> <argv>`` in this process (``chip_smoke.py
+    --cli-child <module> <argv>``), then one tagged line with the kernels'
+    launches over the run and its wall time."""
     import runpy
 
     reset_counts()
-    sys.argv = ["vlpet_tpu_torch.cli.multitask"] + list(argv)
+    sys.argv = [module] + list(argv)
     t0 = time.perf_counter()
-    runpy.run_module("vlpet_tpu_torch.cli.multitask", run_name="__main__",
-                     alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     got = {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
@@ -3846,14 +4120,16 @@ def cli_child(argv) -> None:
         "wall_s": time.perf_counter() - t0}), flush=True)
 
 
-def run_cli(argv, label: str):
-    """The CLI in a child process; returns (its stdout, its CLI_RESULT)."""
+def run_cli(argv, label: str, module: str = CLI_MODULE):
+    """``python -m <module> <argv>`` in a child process; returns (its
+    stdout, its CLI_RESULT)."""
     t0 = time.perf_counter()
     # the WhitespaceTokenizer fallback ids words by Python's str hash: one
     # hash seed gives both processes (and every smoke run) the same ids,
     # and the CLI refuses --resume without one (require_stable_word_ids)
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--cli-child"] + list(argv), capture_output=True,
+                           "--cli-child", module] + list(argv),
+                          capture_output=True,
                           text=True, timeout=CLI_TIMEOUT_S,
                           cwd=os.path.dirname(os.path.abspath(__file__)),
                           env={**os.environ, "PYTHONHASHSEED": "0"})
@@ -4111,6 +4387,271 @@ def phase_cli_prompt(card: str) -> dict:
     return launched
 
 
+# phases 3o, 6h, 7g and 8c: the ten scripts of scripts/video-text/, each
+# calling ``python -m vlpet_tpu_torch.cli.multitask_video``. The positional
+# values they leave to their caller: the VL-PET scripts r 96, 4 heads, gate
+# 96, VPA 96 and phase 7b's lr 7e-4; the baselines lr 1e-3,
+# hypercomplex_division 4 and lora_dim 4, as phase 6g; seed 9595.
+VIDEO_SCRIPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "scripts", "video-text")
+
+
+def video_flags(name: str) -> list:
+    """The flags scripts/video-text/<name>.sh passes to its CLI."""
+    if name in VIDEO_GATES:
+        positional = ["0", "96", "4", "96", "96", "7e-4", "9595"]
+    else:
+        positional = ["1e-3"] + PET_POSITIONAL.get(name, []) + ["9595"]
+    return script_flags(os.path.join(VIDEO_SCRIPT_DIR, f"{name}.sh"),
+                        positional)
+
+
+def video_script_cfg(name: str):
+    """dtype -> the config ``cli.multitask_video`` builds from
+    ``video_flags(name)`` (feat_dim 512, the script's four tasks, the BART
+    vocabulary)."""
+    from vlpet_tpu_torch.cli.param import build_model_config, parse_args
+
+    args = parse_args(video_flags(name))
+    args.feat_dim = 512
+    base = build_model_config(args, tuple(args.tasks.split(",")), 50265)
+
+    def cfg(dtype: str = "float32"):
+        return dataclasses.replace(base, dtype=dtype)
+    return cfg
+
+
+def video_inputs(text: int):
+    """batch_fn (B, vocab, seed) -> the video scripts' model inputs:
+    ``text`` text tokens (600 QA, 77 caption; every other example padded
+    after two thirds of them) and 64 frames of 512-d CLIP-ViT features with
+    zero boxes, as data/video.py collates them."""
+    def fn(B: int, vocab: int, seed: int, pad: int = 1):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ids = torch.randint(3, vocab, (B, text), generator=g, device="cuda")
+        mask = torch.ones((B, text), dtype=torch.long, device="cuda")
+        mask[1::2, 2 * text // 3:] = 0
+        ids = torch.where(mask.bool(), ids, pad)
+        return dict(input_ids=ids, attention_mask=mask,
+                    vis_feats=torch.randn((B, 64, 512), generator=g,
+                                          device="cuda"),
+                    boxes=torch.zeros((B, 64, 4), device="cuda"))
+    return fn
+
+
+def video_train_inputs(text: int):
+    """``video_inputs(text)`` plus VIDEO_T (20, --gen_max_length) target
+    tokens, every third example's padded with -100 after 14."""
+    def fn(B: int, vocab: int, seed: int):
+        batch = video_inputs(text)(B, vocab, seed)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        targets = torch.randint(3, vocab, (B, VIDEO_T), generator=g,
+                                device="cuda")
+        targets[::3, 14:] = -100
+        batch["target_ids"] = targets
+        return batch
+    return fn
+
+
+QA_TEXT, CAP_TEXT = 600, 77  # data/video.py's max_text_length
+
+
+def phase_video_script_parity() -> None:
+    """6h: the video VL-PET-large recipe (``video_script_cfg``, the config
+    cli.multitask_video builds from VL-PET-large.sh) at full width, fp32,
+    B 2, dropout 0.1, lr 7e-4: phase 6's train-step parity, 3 steps kernels
+    vs plain, of tvqa at S 664 and of tvc at S 141, 20 targets each; then
+    single_prompt.sh's recipe (lr 1e-3), 3 tvqa steps at S 704. Each from
+    the weights after ``unzero`` (phase 6g's start): from the recipe's
+    zero-init up projections Adam steps +-lr on noise, and at S 664 a
+    multihead adapter's up bias parted by 2.3e-8 against an atol of ~2e-8
+    from the init. Then beam-5 and greedy tokens on tvc (B 4, length 40)
+    and greedy tokens on tvqa (B 4, length 20) from the init, kernels vs
+    plain, identical."""
+    large = video_script_cfg("VL-PET-large")
+    t0 = time.perf_counter()
+    for task, text, seed in (("tvqa", QA_TEXT, 41), ("tvc", CAP_TEXT, 43)):
+        train_parity(f"video VL-PET-large B2 S{text + 64} {task} T20", large,
+                     video_train_inputs(text), 2, seed, VIDEO_TASKS, task,
+                     7e-4, "video_train", unzero_first=True)
+    train_parity("video single_prompt B2 S704 tvqa T20",
+                 video_script_cfg("single_prompt"),
+                 video_train_inputs(QA_TEXT), 2, 45, VIDEO_TASKS, "tvqa",
+                 1e-3, "video_train", unzero_first=True)
+    print(f"  train parity: {time.perf_counter() - t0:.1f} s", flush=True)
+    model = build_model("float32", large)
+    V = model.cfg.backbone.vocab_size
+    ctx = PetContext(task="tvc", task_idx=VIDEO_TASKS.index("tvc"))
+    parity_run("video VL-PET-large tvc B4 S141 len40, init std 0.02", model,
+               video_inputs(CAP_TEXT)(4, V, 47), ctx, 40, min_distinct=2)
+    ctx = PetContext(task="tvqa", task_idx=VIDEO_TASKS.index("tvqa"))
+    batch = video_inputs(QA_TEXT)(4, V, 49)
+    # the init-scale model ends most rows at once; 1+1 layers at std 0.2
+    # (phase 4 (b)) decode to the full length
+    for what, m in (("6+6 layers, init std 0.02", model),
+                    ("1+1 layers, std 0.2", spread_model(large))):
+        t2 = topk.topk_lse.launches
+        got = seq2seq_generate(m, **batch, ctx=ctx, num_beams=1,
+                               max_length=20)
+        t2 = topk.topk_lse.launches - t2
+        with plain_twins():
+            want = seq2seq_generate(m, **batch, ctx=ctx, num_beams=1,
+                                    max_length=20)
+        if not torch.equal(got, want):
+            raise AssertionError(f"video tvqa S664 {what}: fp32 greedy tokens "
+                                 f"differ between kernels and plain")
+        print(f"  video VL-PET-large tvqa B4 S664 len20 {what}: greedy tokens "
+              f"identical (kernel vs plain), T2 launches {t2}, distinct ids "
+              f"per row {[len(set(r)) for r in got[:, 1:].tolist()]}",
+              flush=True)
+    del model
+
+
+def phase_video_script_bench(card: str) -> dict:
+    """7g: each video script's bf16 train step at B 50 on tvqa (S 664; 704
+    with the prompt), 20 targets, as phase 7 (ms/step, examples/s, peak
+    GiB, launches; the video_<script> main-path runs); VL-PET-large's on tvc
+    (S 141, whose cross-attention A6 takes on "fma"); then VL-PET-large's
+    greedy tvqa eval to length 20 (weights at std 0.2) and beam-5 tvc eval
+    to length 40 at B 50 (examples/s; VS_QA_EVAL, VS_CAP_EVAL)."""
+    launched = {}
+    for name in VIDEO_SCRIPTS:
+        S = QA_TEXT + 64 + (40 if name == "single_prompt" else 0)
+        launched[f"video_{name}"] = train_bench(
+            card, video_script_cfg(name), video_train_inputs(QA_TEXT),
+            VIDEO_B, 51, VIDEO_TASKS, "tvqa",
+            7e-4 if name in VIDEO_GATES else 1e-3,
+            f"video_{name}", f"video {name} tvqa S{S}")
+    path = "video_VL-PET-large_tvc"
+    launched[path] = train_bench(
+        card, video_script_cfg("VL-PET-large"), video_train_inputs(CAP_TEXT),
+        VIDEO_B, 53, VIDEO_TASKS, "tvc", 7e-4, path,
+        "video VL-PET-large tvc S141", tc_only=False)
+    if not launched[path].get("fused_attention_bwd[fma]"):
+        raise AssertionError(f"{path}: A6 never took its fma kernel")
+    # greedy at the init scale ends every row at the first step; at
+    # phase 4 (b)'s std 0.2 it decodes to the full length (T2's launches
+    # count the steps). Beam 5 runs its 39 steps at the init scale.
+    for path, task, text, beams, length, spread in (
+            (VS_QA_EVAL, "tvqa", QA_TEXT, 1, 20, True),
+            (VS_CAP_EVAL, "tvc", CAP_TEXT, 5, 40, False)):
+        model = build_model("bfloat16", video_script_cfg("VL-PET-large"))
+        if spread:
+            spread_weights(model, 1234)
+        ctx = PetContext(task=task, task_idx=VIDEO_TASKS.index(task))
+        launched[path] = generate_bench(
+            card, model,
+            video_inputs(text)(VIDEO_B, model.cfg.backbone.vocab_size, 55),
+            ctx, length, path,
+            f"video VL-PET-large {task} S{text + 64} beam{beams} "
+            f"len{length}" + (" std 0.2" if spread else ""),
+            num_beams=beams)
+        del model
+    return launched
+
+
+VIDEO_CLI_MODULE = "vlpet_tpu_torch.cli.multitask_video"
+VIDEO_CLI_EXAMPLES, VIDEO_CLI_EPOCHS = 250, 2
+
+
+def _epochs_of(out_dir: str, tasks) -> tuple:
+    """(every record, the epoch records) of a run's metrics.jsonl, each
+    epoch's train loss finite and each task evaluated."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    epochs = [r for r in recs if "train_seconds" in r]
+    for r in epochs:
+        if not math.isfinite(r["train_loss"]):
+            raise AssertionError(f"non-finite train loss in {r}")
+        for t in tasks:
+            if f"{t}/eval_seconds" not in r:
+                raise AssertionError(f"no {t} eval in epoch {r['epoch']}")
+    return recs, epochs
+
+
+def phase_cli_video(card: str) -> dict:
+    """8c: ``python -m vlpet_tpu_torch.cli.multitask_video`` with the flags
+    of scripts/video-text/VL-PET-large.sh (r 96, 4 heads, gate 96, VPA 96,
+    lr 7e-4, seed 9595) plus --bf16: B 50 (valid 50), the four tasks,
+    VIDEO_CLI_EXAMPLES synthetic examples a task, VIDEO_CLI_EPOCHS epochs,
+    each evaluated (QA greedy to length 20, captions beam 5 to length 40);
+    then a second process with ``--resume`` restores the saved state (its
+    digest equal, bit for bit) and, nothing being left to train, saves it
+    again unchanged. Then ``python -m vlpet_tpu_torch.cli.single_task tvqa``
+    with single_prompt.sh's flags for one epoch, whose encoder (S 704) and
+    cross-attention take the long backward. Every kernel of each path must
+    launch (cli_video, cli_video_single_prompt); prints the data build
+    seconds, ms/step, each task's eval seconds and the launches."""
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "run")
+        flags = video_flags("VL-PET-large") + [
+            "--bf16", "--synthetic_examples", str(VIDEO_CLI_EXAMPLES),
+            "--output", out_dir, "--device", "cuda", "--epochs",
+            str(VIDEO_CLI_EPOCHS)]
+        out1, res1 = run_cli(flags, "video train", VIDEO_CLI_MODULE)
+        launched[CLI_VIDEO] = res1["launches"]
+        require_launched(CLI_VIDEO, res1["launches"])
+        saved_step, saved = _digest(out1, r"saved at step (\d+); state "
+                                          r"digest ([0-9a-f]+)")
+        recs, epochs = _epochs_of(out_dir, VIDEO_TASKS)
+        out2, res2 = run_cli(flags + ["--resume"], "video resume",
+                             VIDEO_CLI_MODULE)
+        step2, restore_s, restored = _digest(
+            out2, r"resumed from step (\d+) in ([0-9.]+) s; state digest "
+                  r"([0-9a-f]+)")
+        end_step, end = _digest(out2, r"saved at step (\d+); state digest "
+                                      r"([0-9a-f]+)")
+        prompt_dir = os.path.join(tmp, "prompt")
+        pflags = ["tvqa"] + video_flags("single_prompt") + [
+            "--bf16", "--synthetic_examples", str(VIDEO_CLI_EXAMPLES),
+            "--output", prompt_dir, "--device", "cuda", "--epochs", "1"]
+        _, res3 = run_cli(pflags, "single_task tvqa single_prompt",
+                          "vlpet_tpu_torch.cli.single_task")
+        launched[CLI_VIDEO_PROMPT] = res3["launches"]
+        require_launched(CLI_VIDEO_PROMPT, res3["launches"])
+        precs, pepochs = _epochs_of(prompt_dir, ("tvqa",))
+    if (step2, restored, end_step, end) != (saved_step, saved, saved_step,
+                                            saved):
+        raise AssertionError(f"resume: step {step2} digest {restored}, saved "
+                             f"again at {end_step} {end}; saved step "
+                             f"{saved_step} digest {saved}")
+    if len(epochs) != VIDEO_CLI_EPOCHS or len(pepochs) != 1:
+        raise AssertionError(f"{len(epochs)} and {len(pepochs)} epochs")
+    data_s = [r["data_build_seconds"] for r in recs
+              if "data_build_seconds" in r]
+    pdata_s = [r["data_build_seconds"] for r in precs
+               if "data_build_seconds" in r]
+    print(f"  on {card}: VL-PET-large video CLI, bf16, B {VIDEO_B}, "
+          f"{VIDEO_CLI_EXAMPLES} examples a task, {VIDEO_CLI_EPOCHS} epochs; "
+          f"data build {data_s[0]:.2f} s", flush=True)
+    for r in epochs:
+        print(f"  epoch {int(r['epoch'])}: {int(r['train_steps'])} steps in "
+              f"{r['train_seconds']:.2f} s host-clocked "
+              f"({r['train_seconds'] / r['train_steps'] * 1e3:.2f} ms/step, "
+              f"{r['train_examples'] / r['train_seconds']:.2f} examples/s), "
+              f"loss {r['train_loss']:.4f}; eval "
+              + ", ".join(f"{t} {r[f'{t}/eval_seconds']:.2f} s"
+                          for t in VIDEO_TASKS), flush=True)
+    scores = {k: round(v, 4) for k, v in epochs[-1].items()
+              if "/" in k and not k.endswith("eval_seconds")}
+    print(f"  last scores {scores}; processes: train {res1['process_s']:.2f} "
+          f"s ({res1['wall_s']:.2f} s in the CLI), resume "
+          f"{res2['process_s']:.2f} s (restore {float(restore_s):.3f} s); "
+          f"state at step {saved_step} restored bit for bit (digest "
+          f"{saved[:16]}); launches "
+          f"{ {k: n for k, n in res1['launches'].items() if n} }",
+          flush=True)
+    r = pepochs[0]
+    print(f"  single_task tvqa, single_prompt.sh flags, 1 epoch: data build "
+          f"{pdata_s[0]:.2f} s, {int(r['train_steps'])} steps "
+          f"({r['train_seconds'] / r['train_steps'] * 1e3:.2f} ms/step), "
+          f"loss {r['train_loss']:.4f}, eval {r['tvqa/eval_seconds']:.2f} s; "
+          f"process {res3['process_s']:.2f} s; launches "
+          f"{ {k: n for k, n in res3['launches'].items() if n} }", flush=True)
+    return launched
+
+
 def profile_run(run, card: str, what: str) -> None:
     """One more run under torch.profiler: device time and launches by
     kernel family, the device idle share of the run's wall time, and the
@@ -4233,6 +4774,10 @@ def main() -> int:
           "sites, bf16", flush=True)
     phase_prompt_sites(rep)
     print(f"  phase 3n: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 3o: the video scripts' kernel sites", flush=True)
+    phase_video_script_sites(rep)
+    print(f"  phase 3o: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -4273,6 +4818,11 @@ def main() -> int:
           flush=True)
     phase_pet_parity()
     print(f"  phase 6g: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 6h: the video scripts' train and decode parity, fp32",
+          flush=True)
+    phase_video_script_parity()
+    print(f"  phase 6h: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -4289,12 +4839,22 @@ def main() -> int:
           flush=True)
     launched.update(phase_pet_bench(card))
     print(f"  phase 7f: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 7g: the video scripts' train steps and evals, bf16",
+          flush=True)
+    launched.update(phase_video_script_bench(card))
+    print(f"  phase 7g: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
     t0 = time.perf_counter()
     print("phase 8b: the image-text CLI, single_prompt, bf16", flush=True)
     launched[CLI_PROMPT] = phase_cli_prompt(card)
     print(f"  phase 8b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 8c: the video CLI, VL-PET-large, and single_task tvqa, "
+          "single_prompt, bf16", flush=True)
+    launched.update(phase_cli_video(card))
+    print(f"  phase 8c: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:
@@ -4322,6 +4882,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli-child"]:
-        cli_child(sys.argv[2:])
+        cli_child(sys.argv[2], sys.argv[3:])
         sys.exit(0)
     sys.exit(main())

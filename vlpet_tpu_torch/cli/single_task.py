@@ -1,0 +1,67 @@
+"""Single-task entry points of the port (reference: src/{vqa,gqa,nlvr,
+caption}.py and src/{tvqa,how2qa,tvc,yc2c}.py; vlpet_tpu/cli/single_task.py
+-- the same Trainer pattern for one task each).
+
+Run:  python -m vlpet_tpu_torch.cli.single_task <task> <flags>
+with <task> one of vqa, gqa, nlvr, caption (image tasks: the loaders of
+``cli.multitask``) or tvqa, how2qa, tvc, yc2c (video tasks: the loaders of
+``data.video``, ``feat_dim`` 512). ``--device cpu`` runs on the CPU, the
+default is the card. As in the JAX entry point, the Trainer takes the
+default AdamW eps and betas. Not ported, and raising NotImplementedError:
+the raw-image feature types, ``--backbone_ckpt``, ``--mesh_model_axis`` >
+1, ``--distributed`` and ``--classifier``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from vlpet_tpu_torch.cli.multitask import build_loaders, require_stable_word_ids
+from vlpet_tpu_torch.cli.multitask_video import run
+from vlpet_tpu_torch.cli.param import build_model_config, parse_args
+from vlpet_tpu_torch.data.tokenization import (effective_vocab_size,
+                                               get_tokenizer)
+from vlpet_tpu_torch.data.video import (VIDEO_CAP_TASKS, VIDEO_QA_TASKS,
+                                        build_video_loader)
+
+IMAGE_TASKS = ("vqa", "gqa", "nlvr", "caption")
+
+
+def main(task: str, argv=None, device=None):
+    """Train ``task`` (or with ``--test_only`` / ``--infer_only`` evaluate
+    it) on ``device`` (default ``--device``, itself "cuda" by default).
+    Returns (trainer, history), or the trainer after an evaluation-only
+    run."""
+    args = parse_args(argv)
+    if device is not None:
+        args.device = str(device)
+    if args.distributed or args.classifier:
+        raise NotImplementedError("--distributed and --classifier are not "
+                                  "ported")
+    if task in IMAGE_TASKS and args.feature_type.startswith("raw_"):
+        raise NotImplementedError("raw-image feature types are not ported")
+    args.tasks = task
+    tasks = (task,)
+    if task in VIDEO_QA_TASKS or task in VIDEO_CAP_TASKS:
+        args.feat_dim = 512
+    tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
+    require_stable_word_ids(args, tokenizer)
+    cfg = build_model_config(args, tasks,
+                             vocab_size=effective_vocab_size(tokenizer, added))
+
+    t0 = time.time()
+    if task in IMAGE_TASKS:
+        train_loaders = build_loaders(args, tasks, tokenizer, args.train, "train")
+        val_loaders = build_loaders(args, tasks, tokenizer, args.valid, "val")
+    else:
+        train_loaders = [build_video_loader(task, args, tokenizer, args.train,
+                                            "train", args.data_root)]
+        val_loaders = [build_video_loader(task, args, tokenizer, args.valid,
+                                          "val", args.data_root)]
+    return run(args, tasks, tokenizer, cfg, train_loaders, val_loaders,
+               time.time() - t0)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2:])

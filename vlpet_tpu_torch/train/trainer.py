@@ -270,29 +270,35 @@ class Trainer:
     def predict_classifier(self, loader, label2ans) -> Dict[str, Any]:
         raise NotImplementedError("the classifier answer head is not ported")
 
-    @torch.no_grad()
-    def predict_nlvr(self, loader) -> Dict[Any, int]:
-        """True/false-logit scoring at ``nlvr_position``, no generation
-        (reference: nlvr_model.py:240-258): one forward on the fixed
-        decoder input [decoder_start, bos] (BART) or [decoder_start] (T5)."""
+    def fixed_step_logits(self, batch: Dict[str, Any], task: str
+                          ) -> torch.Tensor:
+        """The logits at ``nlvr_position`` of one deterministic forward on
+        the fixed decoder input [decoder_start, bos] (BART) or
+        [decoder_start] (T5): the true/false scoring of NLVR and of the
+        matching formulation (reference: nlvr_model.py:240-258)."""
         b = self.cfg.backbone
         dec = ([b.decoder_start_token_id] if self.cfg.is_t5
                else [b.decoder_start_token_id, b.bos_token_id])
-        ctx = PetContext(task="nlvr", task_idx=self.task_idx("nlvr"))
+        ctx = PetContext(task=task, task_idx=self.task_idx(task))
+        arr = array_batch(batch, self.device)
+        B = arr["input_ids"].shape[0]
+        dec_ids = torch.tensor([dec], dtype=torch.long,
+                               device=self.device).expand(B, -1)
+        logits = self.model(
+            arr["input_ids"], arr["attention_mask"],
+            vis_feats=arr.get("vis_feats"), boxes=arr.get("boxes"),
+            img_order_ids=arr.get("img_order_ids"),
+            obj_order_ids=arr.get("obj_order_ids"),
+            decoder_input_ids=dec_ids, ctx=ctx,
+            deterministic=True)["logits"]
+        return logits[:, self.nlvr_position, :]
+
+    @torch.no_grad()
+    def predict_nlvr(self, loader) -> Dict[Any, int]:
+        """True/false-logit scoring, no generation (``fixed_step_logits``)."""
         out: Dict[Any, int] = {}
         for batch in loader:
-            arr = array_batch(batch, self.device)
-            B = arr["input_ids"].shape[0]
-            dec_ids = torch.tensor([dec], dtype=torch.long,
-                                   device=self.device).expand(B, -1)
-            logits = self.model(
-                arr["input_ids"], arr["attention_mask"],
-                vis_feats=arr.get("vis_feats"), boxes=arr.get("boxes"),
-                img_order_ids=arr.get("img_order_ids"),
-                obj_order_ids=arr.get("obj_order_ids"),
-                decoder_input_ids=dec_ids, ctx=ctx,
-                deterministic=True)["logits"]
-            step = logits[:, self.nlvr_position, :]
+            step = self.fixed_step_logits(batch, "nlvr")
             preds = (step[:, self.true_id] > step[:, self.false_id]).tolist()
             for qid, p in zip(batch["question_ids"], preds):
                 out[qid] = int(p)
@@ -391,3 +397,28 @@ class Trainer:
         self.step = int(data["step"])
         self._data_rng = data.get("data_rng")
         return self.step
+
+
+@torch.no_grad()
+def predict_matching(trainer: Trainer, loader, task: str = "tvqa"
+                     ) -> Dict[str, Dict[str, float]]:
+    """Matching-variant scoring (reference: video_matching_model.py's
+    true-token scoring; vlpet_tpu/train/trainer.py predict_matching): per
+    row the true logit minus the false logit of
+    ``Trainer.fixed_step_logits``, grouped by question. Row ids are
+    "<question id>/<candidate>" (``data.video.expand_matching_examples``).
+    Returns {group_id: {candidate: true_score}}."""
+    if trainer.true_id is None:
+        trainer.true_id = trainer.tokenizer(
+            "true", add_special_tokens=False).input_ids[0]
+        trainer.false_id = trainer.tokenizer(
+            "false", add_special_tokens=False).input_ids[0]
+    groups: Dict[str, Dict[str, float]] = {}
+    for batch in loader:
+        step = trainer.fixed_step_logits(batch, task)
+        scores = (step[:, trainer.true_id]
+                  - step[:, trainer.false_id]).float().tolist()
+        for qid, sc in zip(batch["question_ids"], scores):
+            gid, cand = str(qid).rsplit("/", 1)
+            groups.setdefault(gid, {})[cand] = float(sc)
+    return groups
