@@ -16,7 +16,9 @@ F3 and F4 at theirs, 3j F2 at its own and U1's K+V write, 3k D1 and D2
 at theirs, 3l T1 and T2 at theirs, 3m L1 and L2 at theirs (each case's
 per-call, back-to-back and device times), 3n A1, A6 and the long
 backward at the prompt baseline's sites, 3o every kernel at the video
-scripts' sites (S 664 / 704 / 141 / 181, 20 targets, B 50). A phase that ROOT's
+scripts' sites (S 664 / 704 / 141 / 181, 20 targets, B 50), 3p every
+kernel at the raw-image path's sites (RN101 grid: S 69 / 118 / 216, B
+500). A phase that ROOT's
 ``chip_smoke`` lacks (3h-3m in a tree older than it) is taken from this tree's ``chip_smoke`` and run on ROOT's
 port, so an earlier tree's kernels are timed at the same cases. 5, 5b, 5c and 5e
 time the bf16 beam-5 evals (image-text, video, T5 and T5 gated, T5
@@ -29,11 +31,17 @@ BART-base: train steps, and the LoRA, prompt and hyperformer evals); 6g
 holds the PET baselines' fp32 train steps and tokens kernels vs plain, 6h
 the video scripts' (VL-PET-large tvqa and tvc, single_prompt tvqa); 7g
 times the ten video scripts' bf16 train steps (B 50, tvqa) and
-VL-PET-large's tvc step and greedy / beam-5 evals; 8 runs the image-text
+VL-PET-large's tvc step and greedy / beam-5 evals; 6i holds the raw path's
+fp32 train steps and tokens kernels vs plain and the checkpoint importers
+at full shape; 7h times the CLIP trunks, the raw train steps and evals
+and the feature extractor, 7i (not in the smoke's run) the raw
+--use_vis_adapter step under the Trainer's cuDNN settings and under
+cuDNN's autotuner; 8 runs the image-text
 CLI (VL-PET-small, bf16, B 500, train, eval each epoch, resume), 8b the
 prompt script's (two epochs) and 8c the video CLI (VL-PET-large.sh, two
-epochs, resume) and single_task tvqa (single_prompt.sh) in child
-processes of ROOT's chip_smoke. ``--profile`` adds each bench run's device time and
+epochs, resume) and single_task tvqa (single_prompt.sh), 8d the
+extractor + CLI on features with --backbone_ckpt (resume) and the raw
+CLI with --clip_ckpt, in child processes of ROOT's chip_smoke. ``--profile`` adds each bench run's device time and
 launches by kernel family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
 memory over the phase is printed (for trees whose phases do not print
@@ -65,6 +73,7 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "3m": ("phase_ln_sites", "rep"),
           "3n": ("phase_prompt_sites", "rep"),
           "3o": ("phase_video_script_sites", "rep"),
+          "3p": ("phase_raw_sites", "rep"),
           "5": ("phase_decode_bench", "card"),
           "5b": ("phase_video_eval", "card"),
           "5c": ("phase_t5_eval", "card"),
@@ -72,6 +81,7 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "5e": ("phase_t5_video_eval", "card"),
           "6g": ("phase_pet_parity", None),
           "6h": ("phase_video_script_parity", None),
+          "6i": ("phase_raw_parity", None),
           "7": ("phase_train_bench", "card"),
           "7b": ("phase_video_train_bench", "card"),
           "7c": ("phase_t5_train_bench", "card"),
@@ -79,9 +89,12 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "7e": ("phase_bias_train_bench", "card"),
           "7f": ("phase_pet_bench", "card"),
           "7g": ("phase_video_script_bench", "card"),
+          "7h": ("phase_raw_bench", "card"),
+          "7i": ("phase_raw_cudnn", "card"),
           "8": ("phase_cli_rehearsal", "card"),
           "8b": ("phase_cli_prompt", "card"),
-          "8c": ("phase_cli_video", "card")}
+          "8c": ("phase_cli_video", "card"),
+          "8d": ("phase_cli_raw", "card")}
 HERE = Path(__file__).resolve().parent
 
 

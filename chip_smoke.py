@@ -301,7 +301,59 @@ nonzero and no result line is printed):
      vlpet_tpu_torch.cli.single_task tvqa`` with single_prompt.sh's flags
      for 1 epoch, whose S 704 sites take the long backward (the cli_video
      and cli_video_single_prompt runs).
-Each of 3n, 3o, 6g, 6h, 7f, 7g, 8b and 8c prints its seconds.
+  3p. (run after 3o) the raw-image path's kernel sites (the RN101 grid at
+     224 px: 49 tokens after 20 text tokens, S 69; NLVR's two images S
+     118; 448 px S 216), B 500, bf16, and fp32 for A1 and A6 at S 69: A1
+     and A6 or the long backward at the encoder (S 69 on A6 "fma", S 118
+     and 216 on the long backward) and cross (L 10, and the caption's L
+     40, over S 69 and 118: A6 "fma") sites, the beam cross-attention L 5
+     over S 69; F1, F2, L1 and L2 at N 34500, 59000
+     and 108000; D1, U1, T1 and T2 at the raw caption eval (B 500, beam 5
+     to length 40): vs the plain twin, bf16 twice bitwise equal, with the
+     route, the library call and the bound;
+  6i. (run after 6h) the raw path, BART-base + VL-PET-large + RN101 at 224
+     px with --use_vis_adapter (middle-bottleneck, reduction 2), fp32,
+     from the weights after unzero, under a Trainer run's library
+     settings (device.deterministic_kernels): phase 6's train parity over
+     3 vqa steps at B 8 (S 69) and one NLVR two-image step at B 4 (S 118,
+     its route printed), each also taken again from the same state and
+     bit for bit the first, the trunk's BatchNorm statistics unchanged;
+     caption
+     beam-5 and greedy tokens at B 8 to length 40, kernels vs plain,
+     identical. Then the importers at full shape, from seeded state dicts
+     whose names and shapes are written out here: OpenAI CLIP RN101 and
+     ViT-B/32 at 224 and 448 px (no skipped key; the RN101 attention
+     pool's positions resized at 448); HF BART-base (vocabulary 50265)
+     through a .safetensors file into a 50365-row model and T5-base
+     (32128) through a torch .bin into 32200 rows: every named tensor
+     equal to the file's, the added rows at their init;
+  7h. (run after 7g) what the raw path costs, bf16: (a) the trunks alone
+     (RN50, RN101, ViT-B/32 at 224, RN101 at 448; B 256, forward and
+     forward + backward of a pooled-sum loss: images/s, peak GiB); (b) the
+     raw VL-PET-large vqa step at B 500 (the largest multiple of 50 that
+     fits) under a Trainer run's library settings (cuDNN deterministic,
+     no autotuner; ``chip_phases.py`` 7i, not run here, times the adapter
+     step under cuDNN's autotuner too) with a frozen trunk,
+     --use_vis_adapter (the raw_step run) and --unfreeze_vis_encoder,
+     and a raw T5-base step at B 300: ms/step, examples/s, peak GiB, the
+     trunk's share of the step (CUDA events around vis_forward); (c) the
+     raw caption beam-5 eval at B 500 to length 40 (the raw_eval run) and
+     the NLVR two-image scoring at B 166;
+     (d) the extractor (RN101, 224 px, fp32) over 2048 seeded images at B
+     256, images/s, PackedFeatureSource against a direct forward;
+  8d. (after 8c) the user's pipeline on the CLI: the extractor's loop
+     writes vqa and caption features for seeded images beside seeded
+     annotation json; ``cli.multitask`` with VL-PET-large.sh's flags +
+     --bf16 --backbone_ckpt <seeded BART-base .safetensors>, vqa and
+     caption, one epoch, evaluated, then --resume bit for bit (the
+     cli_features run); the same flags with --feature_type raw_RN101
+     --image_size "(224,224)" --clip_ckpt <seeded RN101 .pt>
+     --use_vis_adapter on seeded PNGs, vqa and nlvr, two epochs (the
+     cli_raw run; the second epoch's ms/step has no first step in it),
+     then that run's train loader alone in this process (seconds a
+     batch, no step).
+Each of 3n, 3o, 3p, 6g, 6h, 6i, 7f, 7g, 7h, 8b, 8c and 8d prints its
+seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -338,6 +390,7 @@ import dataclasses
 import json
 import math
 import os
+import random
 import re
 import shlex
 import statistics
@@ -345,6 +398,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import torch
 import torch.nn.functional as F
@@ -352,7 +406,12 @@ import torch.nn.functional as F
 from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, flagship_cfg,
                                     t5_cfg, t5_video_cfg, video_cfg,
                                     vlpet_recipe)
+from vlpet_tpu_torch.data.features import PackedFeatureSource
+from vlpet_tpu_torch.device import deterministic_kernels
 from vlpet_tpu_torch.models.generate import seq2seq_generate
+from vlpet_tpu_torch.models.hf_import import (bart_hf_to_port,
+                                              load_torch_state_dict,
+                                              t5_hf_to_port)
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.ops import (_build, attention, cache_update, decode, ffn,
@@ -362,6 +421,10 @@ from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.freezing import apply_freezing
 from vlpet_tpu_torch.train.optim import build_optimizer
 from vlpet_tpu_torch.train.steps import make_train_step
+from vlpet_tpu_torch.vision.clip import CLIPVisualEncoder, resize_pos_embed
+from vlpet_tpu_torch.vision.clip_import import load_clip_state_dict
+from vlpet_tpu_torch.vision.extract import write_features
+from vlpet_tpu_torch.vision.vis_encoder import RawInputVLModel
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 TOPK_LSE_TOL = 1e-5  # top-k values and indices must match exactly
@@ -443,17 +506,25 @@ VS_QA_EVAL, VS_CAP_EVAL = ("video_VL-PET-large_tvqa_eval",
                            "video_VL-PET-large_tvc_eval")
 CLI_VIDEO, CLI_VIDEO_PROMPT = "cli_video", "cli_video_single_prompt"
 VS_EVAL_CLI = (VS_QA_EVAL, VS_CAP_EVAL, CLI_VIDEO, CLI_VIDEO_PROMPT)
+# the raw-image path (phases 7h and 8d): the raw vqa step with
+# --use_vis_adapter (RAW_STEP) and the raw caption beam-5 eval (RAW_EVAL),
+# the CLI on extracted features (CLI_FEATURES: vqa and caption) and on raw
+# images (CLI_RAW: vqa and nlvr, greedy eval and scoring only)
+RAW_STEP, RAW_EVAL = "raw_step", "raw_eval"
+CLI_FEATURES, CLI_RAW = "cli_features", "cli_raw"
+RAW_TRAIN = (RAW_STEP, CLI_FEATURES, CLI_RAW)
+RAW_ALL = (RAW_STEP, RAW_EVAL, CLI_FEATURES, CLI_RAW)
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
                                                CLI) + PET_TRAIN + PET_EVAL
-                        + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI),
+                        + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
                             + (CLI_PROMPT,) + VS_TRAIN
-                            + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
+                            + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
@@ -462,27 +533,30 @@ KERNELS = {
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
-                  + VS_EVAL_CLI),
+                  + VS_EVAL_CLI + RAW_ALL),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195",
                       TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
                       + (CLI_PROMPT,) + VS_FFN_TRAIN
-                      + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
+                      + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                              "vlpet_tpu/ops/fused_ln.py:251",
                              TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
-                             + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
+                             + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
+                             + RAW_TRAIN),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
                                  TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
-                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
+                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
+                                 + RAW_TRAIN),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
-                           + (CLI_PROMPT, VS_CAP_EVAL, CLI_VIDEO)),
+                           + (CLI_PROMPT, VS_CAP_EVAL, CLI_VIDEO, RAW_EVAL,
+                              CLI_FEATURES)),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
                  DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)
-                 + VS_EVAL_CLI),
+                 + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -521,7 +595,7 @@ KERNELS = {
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
                           "vlpet_tpu/ops/cache_update.py:31",
                           DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)
-                          + VS_EVAL_CLI),
+                          + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -536,7 +610,7 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
-    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI
+    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -2633,7 +2707,7 @@ VIDEO_DECODE_ROWS = (250, 50)
 
 
 def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
-                   causal: bool, trained: bool) -> None:
+                   causal: bool, trained: bool, what: str = "video") -> None:
     """A1 (with its row logsumexp where the backward is the long one) and,
     at a trained site, A6 or the long backward as ``backward_route`` picks,
     against the plain twin and autograd of it (phase 3b's tolerances); the
@@ -2650,8 +2724,8 @@ def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
             if causal else 1.0)
     q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
     k, v, do = (randn(B, n, inner, dtype=dtype) for n in (S, S, L))
-    label = f"{tag} video {site} B{B} L{L} S{S}" + (" causal" if causal
-                                                    else "")
+    label = f"{tag} {what} {site} B{B} L{L} S{S}" + (" causal" if causal
+                                                     else "")
     long = trained and attention.backward_route(L, S, Dh, dtype) == "long"
     if long:
         def fwd():
@@ -2719,13 +2793,23 @@ def phase_video_script_sites(rep: Report) -> None:
     length 40: 40 slots, pos 39), U1 (the beam cache's K+V write), T1
     (R 250, k 10) and T2 (the greedy R 50, k 1)."""
     g = torch.Generator(device="cuda").manual_seed(18)
-    randn = randn_fn(g)
-    B, T, K = VIDEO_B, VIDEO_T, 5
+    B = VIDEO_B
     for site, L, S, causal, trained in VIDEO_ATTENTION_SITES:
         attention_site(rep, g, torch.bfloat16, site, B, L, S, causal, trained)
     for site, L, S, causal, trained in VIDEO_ATTENTION_SITES[:1] + \
             VIDEO_ATTENTION_SITES[5:6]:
         attention_site(rep, g, torch.float32, site, B, L, S, causal, trained)
+    ffn_ln_rows(rep, g, VIDEO_TRAIN_ROWS, VIDEO_DECODE_ROWS, "video")
+    decode_kernel_sites(rep, g, B, "video")
+
+
+def ffn_ln_rows(rep: Report, g, train_rows, decode_rows, what: str) -> None:
+    """F1 at ``train_rows`` + ``decode_rows``, F2, L1 and L2 at
+    ``train_rows`` (bf16, D 768, F 3072, gelu, rate 0.1): each against its
+    plain twin (the backward ones against autograd of it), twice bitwise
+    equal, with the bound; F1 prints the hidden split ops.ffn.f1_splits
+    takes and its grid's waves, L1 / L2 the plan of ops.fused_ln.ln_plan."""
+    randn = randn_fn(g)
     dtype, D, Fh = torch.bfloat16, 768, 3072
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
@@ -2735,11 +2819,11 @@ def phase_video_script_sites(rep: Report) -> None:
     seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
                          dtype=torch.int32)
     groups = -(-(D // 128) // ffn._F1_MAX_DU)
-    for N in VIDEO_TRAIN_ROWS + VIDEO_DECODE_ROWS:
+    for N in tuple(train_rows) + tuple(decode_rows):
         x, res, dy = (randn(N, D, dtype=dtype) for _ in range(3))
         splits, per = ffn.f1_splits(N, D, Fh, sms)
         grid = -(-N // ffn._F1_ROWS) * groups * splits
-        label = f"bf16 video N{N} D{D} F{Fh} gelu S{splits}"
+        label = f"bf16 {what} N{N} D{D} F{Fh} gelu S{splits}"
         print(f"  {'fused_ffn':24s} N{N}: f1_splits {splits} x {per} hidden "
               f"chunks, grid {grid} blocks = {-(-grid // sms)} wave(s) of "
               f"{sms} SMs", flush=True)
@@ -2753,7 +2837,7 @@ def phase_video_script_sites(rep: Report) -> None:
                   work=(2 * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
                         4 * N * D * Fh))
         bitwise_repeat("fused_ffn", label, f1)
-        if N in VIDEO_DECODE_ROWS:
+        if N in decode_rows:
             continue
 
         def f2():
@@ -2769,7 +2853,7 @@ def phase_video_script_sites(rep: Report) -> None:
         print(f"  {'fused_dropout_add_ln':24s} N{N}: ln_plan route "
               f"{plan.route}, {plan.blocks} blocks of {plan.warps} warps, "
               f"at most {plan.rows_per_warp} rows a warp", flush=True)
-        label = f"bf16 video N{N} D{D} rate 0.1"
+        label = f"bf16 {what} N{N} D{D} rate 0.1"
 
         def l1():
             return (fused_ln.fused_dropout_add_ln(x, res, gamma, beta, seed,
@@ -2792,13 +2876,22 @@ def phase_video_script_sites(rep: Report) -> None:
                   work=(2 * 5 * N * D + 4 * (3 * D + 1), 16 * N * D))
         bitwise_repeat("fused_dropout_add_ln_bwd", label, l2)
         del x, res, dy
+
+
+def decode_kernel_sites(rep: Report, g, B: int, what: str) -> None:
+    """The beam-5 and greedy eval's decode kernels at batch ``B`` to length
+    40 (bf16): D1 at 40 slots, pos 39, a beam-tree ancestry; U1's K+V
+    write; T1 (R = 5 B, k 10) and T2 (R = B, k 1) on fp32 logits over the
+    BART vocabulary; against the plain twins, bitwise on a repeat."""
+    randn = randn_fn(g)
+    dtype, K = torch.bfloat16, 5
     H, Dh, Lc = 12, 64, 40
     inner = H * Dh
     qb = randn(B * K, 1, H, Dh, dtype=dtype, scale=Dh ** -0.5)
     kc, vc = (randn(Lc, B * K, inner, dtype=dtype) for _ in range(2))
     anc = beam_tree_anc(g, B, K, Lc, Lc - 1)
     rows = F.one_hot(anc, K).amax(dim=1).sum().item()
-    label = f"bf16 video B{B} K{K} L{Lc} pos{Lc - 1} tree"
+    label = f"bf16 {what} B{B} K{K} L{Lc} pos{Lc - 1} tree"
 
     def d1():
         return (decode.beam_decode_attend(qb, kc, vc, anc, Lc - 1),)
@@ -2810,11 +2903,11 @@ def phase_video_script_sites(rep: Report) -> None:
                     4 * B * K * H * Lc * Dh),
               library_fn=beam_sdpa(qb, kc, vc, anc, Lc - 1, dtype))
     bitwise_repeat("beam_decode_attend", label, d1)
-    u1_case(rep, g, dtype, B * K, inner, Lc, Lc - 1, "video beam", False)
+    u1_case(rep, g, dtype, B * K, inner, Lc, Lc - 1, f"{what} beam", False)
     for R, kk in ((B * K, 2 * K), (B, 1)):
         x = torch.randn((R, 50265), generator=g, device="cuda")
         check_topk(rep, "randn", x, kk)
-        bitwise_repeat("topk_lse", f"fp32 video R{R} k{kk}",
+        bitwise_repeat("topk_lse", f"fp32 {what} R{R} k{kk}",
                        lambda: topk.topk_lse(x, kk))
 
 
@@ -4122,7 +4215,10 @@ def cli_child(module: str, argv) -> None:
 
 def run_cli(argv, label: str, module: str = CLI_MODULE):
     """``python -m <module> <argv>`` in a child process; returns (its
-    stdout, its CLI_RESULT)."""
+    stdout, its CLI_RESULT). The blocks this process's allocator caches
+    go back to the card first: the child allocates its own."""
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     # the WhitespaceTokenizer fallback ids words by Python's str hash: one
     # hash seed gives both processes (and every smoke run) the same ids,
@@ -4652,6 +4748,1014 @@ def phase_cli_video(card: str) -> dict:
     return launched
 
 
+# phases 3p, 6i, 7h and 8d: the raw-image path (vision/vis_encoder.py
+# RawInputVLModel: the CLIP trunk inside the train step and the
+# generation), the feature extractor (vision/extract.py) and the checkpoint
+# importers (vision/clip_import.py, models/hf_import.py). The raw
+# configuration of the scripts: RN101 at 224 px, a 7 x 7 grid of 2048-d
+# features (49 tokens: 20 text tokens give the joint S 69, NLVR's two
+# images S 118, a 14 x 14 grid at 448 px S 216), BART-base + VL-PET-large
+# with --use_vis_adapter (middle-bottleneck, reduction 2: the JAX
+# Trainer's). The trunk runs as plain PyTorch (convolutions, BatchNorm on
+# its running statistics); the VL model's kernels serve the raw path at
+# these joint lengths.
+RAW_BACKBONE, RAW_IMAGE, RAW_GRID, RAW_TEXT = "RN101", 224, 49, 20
+RAW_B, RAW_T5_B, RAW_TRUNK_B = 500, 300, 256
+RAW_ADAPTER = "middle-bottleneck"
+# phase 3p: (site, B, L, S, causal, trained)
+RAW_ATTENTION_SITES = (
+    ("vqa enc", 500, 69, 69, False, True),
+    ("vqa cross", 500, 10, 69, False, True),
+    ("caption cross", 500, 40, 69, False, True),
+    ("caption beam cross", 500, 5, 69, False, False),
+    ("nlvr enc", 500, 118, 118, False, True),
+    ("nlvr cross", 500, 10, 118, False, True),
+    ("cross L40 S118", 500, 40, 118, False, True),
+    ("448 enc", 500, 216, 216, False, True))
+RAW_TRAIN_ROWS = (500 * 69, 500 * 118, 500 * 216)
+
+
+def raw_cfg(dtype: str, adapter: bool = True, unfreeze: bool = False,
+            t5: bool = False):
+    """BART-base (or T5-base) + VL-PET-large at full width with the raw
+    path's visual flags: --use_vis_adapter, --unfreeze_vis_encoder; 2048-d
+    grid features, no downsampling (the 49 grid tokens reach the
+    encoder)."""
+    base = (t5_cfg if t5 else flagship_cfg)(dtype)
+    pet = dataclasses.replace(base.pet, use_vis_adapter=adapter,
+                              unfreeze_vis_encoder=unfreeze)
+    return dataclasses.replace(base, pet=pet)
+
+
+def raw_model(dtype: str, adapter: bool = True, unfreeze: bool = False,
+              t5: bool = False, image: int = RAW_IMAGE,
+              seed: int = 1234) -> RawInputVLModel:
+    """RawInputVLModel (RN101 trunk) with its seeded init on the card."""
+    cfg = raw_cfg(dtype, adapter, unfreeze, t5)
+    model = RawInputVLModel(cfg, vis_backbone=RAW_BACKBONE, image_size=image,
+                            vis_adapter_type=RAW_ADAPTER if adapter else None,
+                            device="cuda")
+    return model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def make_raw_batch(B: int, vocab: int, seed: int, n_images: int = 1,
+                   image: int = RAW_IMAGE, pad: int = 1):
+    """20 text tokens (every other example padded after 14) and seeded
+    images, N(0, 1) as CLIP-normalized pixels, NCHW: (B, 3, H, W), or (B,
+    2, 3, H, W) for the NLVR pair; the images ride in the vis_feats slot
+    of the generation protocol."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(3, vocab, (B, RAW_TEXT), generator=g, device="cuda")
+    mask = torch.ones((B, RAW_TEXT), dtype=torch.long, device="cuda")
+    mask[1::2, 14:] = 0
+    ids = torch.where(mask.bool(), ids, pad)
+    lead = (B,) if n_images == 1 else (B, n_images)
+    return dict(input_ids=ids, attention_mask=mask,
+                vis_feats=torch.randn(lead + (3, image, image), generator=g,
+                                      device="cuda"))
+
+
+def make_raw_train_batch(B: int, vocab: int, seed: int, n_images: int = 1):
+    """The raw batch plus 10 targets and VQA answer scores."""
+    return add_targets(make_raw_batch(B, vocab, seed, n_images), B, vocab,
+                       seed, True)
+
+
+def phase_raw_sites(rep: Report) -> None:
+    """3p: the raw path's kernel sites, bf16, and fp32 for A1 and A6 at S
+    69 (RAW_ATTENTION_SITES: B 500, vqa S 69 with A6 on "fma" past L, S
+    64, NLVR S 118 and 448 px S 216 on the long backward, the cross sites
+    L 10 and the caption's L 40 over S 69 and 118 (A6 "fma"), the beam
+    cross-attention L 5 over S 69); F1, F2, L1 and L2 at the encoder rows
+    (RAW_TRAIN_ROWS, N 34500 / 59000 / 108000); D1, U1, T1 and T2 at the
+    raw caption eval (B 500, beam 5 to length 40). Each against its plain
+    twin (the backward ones against autograd of it) within phase 3b's
+    tolerances, bf16 twice bitwise equal, with the route, the library call
+    (SDPA and its autograd for attention) and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for site, B, L, S, causal, trained in RAW_ATTENTION_SITES:
+        attention_site(rep, g, torch.bfloat16, site, B, L, S, causal, trained,
+                       what="raw")
+    for site, B, L, S, causal, trained in RAW_ATTENTION_SITES[:1]:
+        attention_site(rep, g, torch.float32, site, B, L, S, causal, trained,
+                       what="raw")
+    ffn_ln_rows(rep, g, RAW_TRAIN_ROWS, (), "raw")
+    decode_kernel_sites(rep, g, RAW_B, "raw")
+
+
+# --- the importers' seeded state dicts, names and shapes written out here
+# from the published architectures (not from the importers' tables) ------
+
+
+def clip_visual_keys(backbone: str, grid: int = 7):
+    """(key, shape) of an OpenAI CLIP visual state dict at 224 px (grid 7):
+    RN101 (stem 32 / 32 / 64, stages (3, 4, 23, 3) of width 64, attention
+    pool 2048 -> 512) or ViT-B/32 (width 768, 12 blocks, 768 -> 512
+    proj); with two keys of the text tower, which the importer passes
+    over."""
+    keys = []
+
+    def bn(prefix, c):
+        keys.extend([(f"{prefix}.weight", (c,)), (f"{prefix}.bias", (c,)),
+                     (f"{prefix}.running_mean", (c,)),
+                     (f"{prefix}.running_var", (c,)),
+                     (f"{prefix}.num_batches_tracked", ())])
+
+    if backbone == "RN101":
+        for i, (cin, cout) in enumerate(((3, 32), (32, 32), (32, 64)), 1):
+            keys.append((f"visual.conv{i}.weight", (cout, cin, 3, 3)))
+            bn(f"visual.bn{i}", cout)
+        inplanes = 64
+        for stage, blocks in enumerate((3, 4, 23, 3), 1):
+            planes = 64 * 2 ** (stage - 1)
+            for b in range(blocks):
+                p = f"visual.layer{stage}.{b}"
+                keys.append((f"{p}.conv1.weight", (planes, inplanes, 1, 1)))
+                bn(f"{p}.bn1", planes)
+                keys.append((f"{p}.conv2.weight", (planes, planes, 3, 3)))
+                bn(f"{p}.bn2", planes)
+                keys.append((f"{p}.conv3.weight", (4 * planes, planes, 1, 1)))
+                bn(f"{p}.bn3", 4 * planes)
+                if b == 0:
+                    keys.append((f"{p}.downsample.0.weight",
+                                 (4 * planes, inplanes, 1, 1)))
+                    bn(f"{p}.downsample.1", 4 * planes)
+                inplanes = 4 * planes
+        keys.append(("visual.attnpool.positional_embedding",
+                     (grid * grid + 1, 2048)))
+        for proj, out in (("q", 2048), ("k", 2048), ("v", 2048), ("c", 512)):
+            keys += [(f"visual.attnpool.{proj}_proj.weight", (out, 2048)),
+                     (f"visual.attnpool.{proj}_proj.bias", (out,))]
+    else:
+        W = 768
+        keys += [("visual.class_embedding", (W,)),
+                 ("visual.positional_embedding", (grid * grid + 1, W)),
+                 ("visual.proj", (W, 512)),
+                 ("visual.conv1.weight", (W, 3, 32, 32)),
+                 ("visual.ln_pre.weight", (W,)), ("visual.ln_pre.bias", (W,)),
+                 ("visual.ln_post.weight", (W,)),
+                 ("visual.ln_post.bias", (W,))]
+        for i in range(12):
+            p = f"visual.transformer.resblocks.{i}"
+            keys += [(f"{p}.attn.in_proj_weight", (3 * W, W)),
+                     (f"{p}.attn.in_proj_bias", (3 * W,)),
+                     (f"{p}.attn.out_proj.weight", (W, W)),
+                     (f"{p}.attn.out_proj.bias", (W,)),
+                     (f"{p}.ln_1.weight", (W,)), (f"{p}.ln_1.bias", (W,)),
+                     (f"{p}.mlp.c_fc.weight", (4 * W, W)),
+                     (f"{p}.mlp.c_fc.bias", (4 * W,)),
+                     (f"{p}.mlp.c_proj.weight", (W, 4 * W)),
+                     (f"{p}.mlp.c_proj.bias", (W,)),
+                     (f"{p}.ln_2.weight", (W,)), (f"{p}.ln_2.bias", (W,))]
+    keys += [("token_embedding.weight", (49408, 512)), ("logit_scale", ())]
+    return keys
+
+
+def bart_base_keys(vocab: int = 50265):
+    """(HF key, shape, the port tensor it fills, the vocabulary axis) of
+    facebook/bart-base (6 + 6 layers, d 768, FFN 3072, 1026 learned
+    positions); the tied lm_head fills nothing."""
+    d, ffn, pos = 768, 3072, 1026
+    keys = [("model.shared.weight", (vocab, d), "model.shared", 0),
+            ("model.encoder.embed_tokens.weight", (vocab, d), "model.shared",
+             0),
+            ("model.decoder.embed_tokens.weight", (vocab, d), "model.shared",
+             0),
+            ("final_logits_bias", (1, vocab), "final_logits_bias", 1),
+            ("lm_head.weight", (vocab, d), None, None)]
+    for stack in ("encoder", "decoder"):
+        hf, pt = f"model.{stack}", f"model.{stack}"
+        keys += [(f"{hf}.embed_positions.weight", (pos, d),
+                  f"{pt}.embed_positions", None),
+                 (f"{hf}.layernorm_embedding.weight", (d,),
+                  f"{pt}.layernorm_embedding.scale", None),
+                 (f"{hf}.layernorm_embedding.bias", (d,),
+                  f"{pt}.layernorm_embedding.bias", None)]
+        attns = ("self_attn",) + (("encoder_attn",) if stack == "decoder"
+                                  else ())
+        for i in range(6):
+            h, p = f"{hf}.layers.{i}", f"{pt}.layers_{i}"
+            for a in attns:
+                for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+                    keys += [(f"{h}.{a}.{proj}.weight", (d, d),
+                              f"{p}.{a}.{proj}.weight", None),
+                             (f"{h}.{a}.{proj}.bias", (d,),
+                              f"{p}.{a}.{proj}.bias", None)]
+                keys += [(f"{h}.{a}_layer_norm.weight", (d,),
+                          f"{p}.{a}_layer_norm.scale", None),
+                         (f"{h}.{a}_layer_norm.bias", (d,),
+                          f"{p}.{a}_layer_norm.bias", None)]
+            keys += [(f"{h}.fc1.weight", (ffn, d), f"{p}.fc1.weight", None),
+                     (f"{h}.fc1.bias", (ffn,), f"{p}.fc1.bias", None),
+                     (f"{h}.fc2.weight", (d, ffn), f"{p}.fc2.weight", None),
+                     (f"{h}.fc2.bias", (d,), f"{p}.fc2.bias", None),
+                     (f"{h}.final_layer_norm.weight", (d,),
+                      f"{p}.final_layer_norm.scale", None),
+                     (f"{h}.final_layer_norm.bias", (d,),
+                      f"{p}.final_layer_norm.bias", None)]
+    return keys
+
+
+def t5_base_keys(vocab: int = 32128):
+    """(HF key, shape, port tensor, vocabulary axis) of t5-base (12 + 12
+    blocks, d 768, 12 heads of 64, relu FFN 3072, 32 relative-position
+    buckets on block 0, tied head)."""
+    d, ffn = 768, 3072
+    keys = [("shared.weight", (vocab, d), "model.shared", 0),
+            ("encoder.embed_tokens.weight", (vocab, d), "model.shared", 0),
+            ("decoder.embed_tokens.weight", (vocab, d), "model.shared", 0),
+            ("lm_head.weight", (vocab, d), None, None)]
+    for stack in ("encoder", "decoder"):
+        subs = (("SelfAttention", "self_attn"),) + (
+            (("EncDecAttention", "cross_attn"),) if stack == "decoder" else ())
+        for i in range(12):
+            h, p = f"{stack}.block.{i}.layer", f"model.{stack}.blocks_{i}"
+            for j, (hf_mod, mod) in enumerate(subs):
+                for proj in ("q", "k", "v", "o"):
+                    keys.append((f"{h}.{j}.{hf_mod}.{proj}.weight", (d, d),
+                                 f"{p}.{mod}.{proj}.weight", None))
+                if i == 0 and j == 0:
+                    keys.append((f"{h}.0.SelfAttention.relative_attention_bias"
+                                 f".weight", (32, 12),
+                                 f"{p}.self_attn.relative_attention_bias",
+                                 None))
+                keys.append((f"{h}.{j}.layer_norm.weight", (d,),
+                             f"{p}.{mod}_layer_norm.scale", None))
+            f = len(subs)
+            keys += [(f"{h}.{f}.DenseReluDense.wi.weight", (ffn, d),
+                      f"{p}.wi.weight", None),
+                     (f"{h}.{f}.DenseReluDense.wo.weight", (d, ffn),
+                      f"{p}.wo.weight", None),
+                     (f"{h}.{f}.layer_norm.weight", (d,),
+                      f"{p}.ff_layer_norm.scale", None)]
+        keys.append((f"{stack}.final_layer_norm.weight", (d,),
+                     f"model.{stack}.final_layer_norm.scale", None))
+    return keys
+
+
+def seeded_state_dict(keys, seed: int):
+    """{key: seeded CPU fp32 tensor} for (key, shape, ...) rows: N(0, 0.02),
+    norm weights 1 + N(0, 0.1), BatchNorm variances in [0.5, 1.5], one
+    tensor for the keys that share a port tensor (the tied embeddings)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out, shared = {}, {}
+    for row in keys:
+        key, shape = row[0], row[1]
+        target = row[2] if len(row) > 2 else None
+        if target is not None and target in shared:
+            out[key] = shared[target]
+            continue
+        if key.endswith("num_batches_tracked"):
+            t = torch.tensor(1000)
+        elif key.endswith("running_var"):
+            t = 0.5 + torch.rand(shape, generator=g, device="cuda")
+        else:
+            t = torch.randn(shape, generator=g, device="cuda") * 0.02
+            if key.endswith(("norm.weight", "ln_1.weight", "ln_2.weight",
+                             "ln_pre.weight", "ln_post.weight",
+                             "layernorm_embedding.weight")) or (
+                    ".bn" in key and key.endswith("weight")):
+                t = t * 5 + 1.0
+        out[key] = t.cpu()
+        if target is not None:
+            shared[target] = out[key]
+    return out
+
+
+def write_safetensors(tensors, path: str) -> None:
+    """A ``.safetensors`` file of fp32 tensors: the 8-byte little-endian
+    header length, the JSON header (dtype, shape, byte offsets), the raw
+    little-endian buffers."""
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * 4
+        header[k] = {"dtype": "F32", "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    text = json.dumps(header).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(len(text).to_bytes(8, "little"))
+        f.write(text)
+        for t in tensors.values():
+            f.write(t.float().contiguous().reshape(-1).view(torch.uint8)
+                    .numpy().tobytes())
+
+
+def check_clip_import(backbone: str, image: int) -> None:
+    """An OpenAI CLIP visual dict (clip_visual_keys, seeded) into the
+    port's trunk at ``image`` px: no skipped key, every filled tensor equal
+    to the dict's (the RN101 attention pool's positional embedding to its
+    cubic resize at 448), every other tensor unchanged, a finite forward
+    of the grid's length."""
+    grid = image // 32
+    sd = seeded_state_dict(clip_visual_keys(backbone), 31)
+    enc = CLIPVisualEncoder(backbone, image, device="cuda")
+    enc.init_weights(torch.Generator(device="cuda").manual_seed(5))
+    before = {k: v.clone() for k, v in enc.visual.state_dict().items()}
+    t0 = time.perf_counter()
+    report = load_clip_state_dict(enc, sd)
+    secs = time.perf_counter() - t0
+    if report["skipped"]:
+        raise AssertionError(f"CLIP {backbone} {image}: skipped "
+                             f"{report['skipped'][:5]}")
+    own = enc.visual.state_dict()
+    filled = set(report["filled"])
+    resized = unfilled = 0
+    for key in (k for k in sd if k.startswith("visual.")):
+        name = key[len("visual."):]
+        if key not in filled:
+            if name in own and not torch.equal(own[name], before[name]):
+                raise AssertionError(f"{key}: changed, not reported")
+            unfilled += name in own
+            continue
+        want = sd[key].to(own[name].device)
+        if want.shape != own[name].shape:
+            want = resize_pos_embed(want, own[name].shape[0])
+            resized += 1
+        if not torch.equal(own[name], want.to(own[name].dtype)):
+            raise AssertionError(f"{key}: port tensor differs from the file")
+    with torch.no_grad():
+        feats, pooled = enc(torch.randn(2, 3, image, image, device="cuda"))
+    if (feats.shape[1] != grid * grid or not torch.isfinite(feats).all()
+            or not torch.isfinite(pooled).all()):
+        raise AssertionError(f"CLIP {backbone} {image}: bad forward "
+                             f"{tuple(feats.shape)}")
+    print(f"  CLIP {backbone} at {image} px: {len(sd)} keys, "
+          f"{len(report['filled'])} tensors filled ({len(filled)} keys, "
+          f"{resized} resized to {grid * grid + 1} positions), "
+          f"{unfilled} trunk tensors left at their init (the JAX importer's "
+          f"rule: the ViT's positional embedding is not resized), 0 skipped, "
+          f"{secs:.2f} s; forward grid {tuple(feats.shape)}", flush=True)
+    del enc, sd
+
+
+def check_hf_import(label: str, keys, model, convert, path: str,
+                    write) -> None:
+    """A seeded HF state dict (``keys``) written to ``path`` by ``write``,
+    read back by load_torch_state_dict and imported into ``model``: no
+    skipped key; every port tensor a key names equal to the file's (the
+    leading rows where the model's vocabulary is larger), the added rows
+    and every tensor no key names unchanged."""
+    sd = seeded_state_dict(keys, 37)
+    t0 = time.perf_counter()
+    write(sd, path)
+    write_s = time.perf_counter() - t0
+    own = model.state_dict()
+    before = {k: v.clone() for k, v in own.items()}
+    t0 = time.perf_counter()
+    loaded = load_torch_state_dict(path)
+    report = convert(loaded, model)
+    load_s = time.perf_counter() - t0
+    if report["skipped"]:
+        raise AssertionError(f"{label}: skipped {report['skipped'][:5]}")
+    named = set()
+    grown = 0
+    for key, shape, name, axis in keys:
+        if name is None:
+            continue
+        named.add(name)
+        got, want = own[name], sd[key].to(own[name].device)
+        if axis is not None and got.shape[axis] > want.shape[axis]:
+            n = want.shape[axis]
+            head = got.narrow(axis, 0, n)
+            tail = got.narrow(axis, n, got.shape[axis] - n)
+            if not torch.equal(tail, before[name].narrow(
+                    axis, n, got.shape[axis] - n)):
+                raise AssertionError(f"{label} {name}: added rows changed")
+            grown = got.shape[axis] - n
+            got = head
+        if not torch.equal(got, want.to(got.dtype)):
+            raise AssertionError(f"{label} {key} -> {name}: differs")
+    for name, t in own.items():
+        if name not in named and not torch.equal(t, before[name]):
+            raise AssertionError(f"{label} {name}: changed, no key names it")
+    n_params = sum(t.numel() for t in {id(t): t for t in sd.values()}
+                   .values())
+    print(f"  {label}: {len(sd)} keys ({n_params / 1e6:.1f} M values), "
+          f"{len(report['filled'])} tensors filled, 0 skipped; every named "
+          f"tensor equal to the file's, {grown} added vocabulary rows at "
+          f"their init; write {write_s:.2f} s, read + import {load_s:.2f} s "
+          f"({os.path.getsize(path) / 2 ** 20:.0f} MiB)", flush=True)
+
+
+@contextlib.contextmanager
+def trainer_settings(autotuned: bool = False):
+    """The library settings a Trainer run takes (device.deterministic_kernels:
+    TF32 off, cuDNN's deterministic algorithms, no autotuner); with
+    ``autotuned`` cuDNN's autotuner and any algorithm instead, to show what
+    the deterministic choice costs. The cuDNN settings before are restored
+    after."""
+    cudnn = torch.backends.cudnn
+    keep = cudnn.deterministic, cudnn.benchmark
+    deterministic_kernels()
+    if autotuned:
+        cudnn.deterministic, cudnn.benchmark = False, True
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = keep
+
+
+def cudnn_setting() -> str:
+    cudnn = torch.backends.cudnn
+    return (f"cuDNN deterministic={cudnn.deterministic} "
+            f"benchmark={cudnn.benchmark}")
+
+
+def raw_train_run(model, trainable, batch, steps: int, total_steps: int,
+                  gen_seed: int, task: str = "vqa", lr: float = 1e-3):
+    """``steps`` raw train steps of ``task`` with a fresh optimizer."""
+    opt = build_optimizer(trainable, lr=lr, total_steps=total_steps)
+    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    return [step(batch, gen, FLAGSHIP_TASKS.index(task))
+            for _ in range(steps)]
+
+
+def raw_train_parity(label: str, model, batch, task: str, K: int) -> dict:
+    """K fp32 raw steps through the kernels, then again from the same
+    weights and generator seed (bit for bit: the trunk's convolutions and
+    their backward under the Trainer's settings, the kernels), then
+    through the plain twins (phase 6's tolerances); the trunk's BatchNorm
+    statistics unchanged by all. Returns the kernels' launches (with their
+    routes)."""
+    trainable = apply_freezing(model, model.cfg.pet)
+    stats = {n: b.clone() for n, b in model.named_buffers()}
+    start = snapshot(trainable)
+    reset_counts()
+    got = raw_train_run(model, trainable, batch, K, K + 1, 5, task)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in read_counts("train").items() if n}
+    after = snapshot(trainable)
+    restore(trainable, start)
+    again = raw_train_run(model, trainable, batch, K, K + 1, 5, task)
+    if not (all(torch.equal(a[k], b[k]) for a, b in zip(got, again)
+                for k in a)
+            and all(torch.equal(p, after[n]) for n, p in trainable.items())):
+        raise AssertionError(f"{label}: a repeat from the same state is not "
+                             f"bit for bit the first run ({cudnn_setting()})")
+    restore(trainable, start)
+    reset_counts()
+    with plain_twins():
+        want = raw_train_run(model, trainable, batch, K, K + 1, 5, task)
+    torch.cuda.synchronize()
+    if any_launched():
+        raise AssertionError("the plain raw train step launched kernels")
+    rows = [check_step(i, a, b) for i, (a, b) in enumerate(zip(got, want))]
+    worst = check_params(trainable, after, start)
+    if any(not torch.equal(b, stats[n]) for n, b in model.named_buffers()):
+        raise AssertionError(f"{label}: a BatchNorm statistic moved")
+    n_vis = sum(1 for n in trainable if n.startswith("vis_encoder."))
+    print(f"  fp32 {label} dropout 0.1, {K} step(s), loss kernel/plain and "
+          f"grad norm: {'; '.join(rows)}", flush=True)
+    print(f"  repeat from the same state bit for bit ({cudnn_setting()})",
+          flush=True)
+    print(f"  {len(trainable)} trainable tensors ({n_vis} in the trunk's "
+          f"visual adapters) agree (rtol {PARAM_RTOL}, atol "
+          f"{PARAM_ATOL_SCALE} max|p|); largest |kernel - plain| / largest "
+          f"update {worst:.2e}; {len(stats)} BatchNorm statistics unchanged; "
+          f"launches {launched}", flush=True)
+    restore(trainable, start)
+    return launched
+
+
+def phase_raw_parity() -> None:
+    """6i: fp32 parity kernels vs plain on the raw path, BART-base +
+    VL-PET-large + RN101 at 224 px with --use_vis_adapter, from the weights
+    after ``unzero``: 3 vqa steps at B 8 (S 69); one NLVR two-image step at
+    B 4 (S 118, its route printed); caption beam-5 and greedy tokens at B
+    8 to length 40, identical. Then the importers at full shape from
+    seeded state dicts whose names and shapes are written out here: OpenAI
+    CLIP RN101 and ViT-B/32 at 224 and 448 px, no skipped key; HF
+    BART-base (vocabulary 50265, into a model of 50365 rows) through a
+    .safetensors file and T5-base (32128, into 32200) through a torch .bin:
+    every named tensor equal to the file's, the added rows at their
+    init."""
+    t0 = time.perf_counter()
+    model = raw_model("float32")
+    unzero(model)
+    V = model.cfg.backbone.vocab_size
+    S = RAW_TEXT + 2 * RAW_GRID
+    with trainer_settings():
+        raw_train_parity(f"raw vqa B8 S{RAW_TEXT + RAW_GRID}", model,
+                         make_raw_train_batch(8, V, 61), "vqa", 3)
+        launched = raw_train_parity(
+            f"raw nlvr two images B4 S{S} (backward_route "
+            f"{attention.backward_route(S, S, 64, torch.float32)})", model,
+            make_raw_train_batch(4, V, 63, n_images=2), "nlvr", 1)
+    print(f"  nlvr routes: "
+          f"{ {k: n for k, n in launched.items() if '[' in k} }", flush=True)
+    print(f"  raw train parity: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    model = raw_model("float32")
+    ctx = PetContext(task="caption", task_idx=FLAGSHIP_TASKS.index("caption"))
+    parity_run(f"raw caption B8 S{RAW_TEXT + RAW_GRID} len40, init std 0.02",
+               model, make_raw_batch(8, V, 65), ctx, 40, min_distinct=2)
+    del model
+    t1 = time.perf_counter()
+    for backbone in ("RN101", "ViT-B/32"):
+        for image in (224, 448):
+            check_clip_import(backbone, image)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = flagship_cfg("float32")
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, vocab_size=50265 + 100))
+        model = VLBart(cfg, device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(3))
+        check_hf_import("HF BART-base -> VLBart (.safetensors)",
+                        bart_base_keys(), model, bart_hf_to_port,
+                        os.path.join(tmp, "bart.safetensors"),
+                        write_safetensors)
+        del model
+        cfg = t5_cfg("float32")
+        cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+            cfg.backbone, vocab_size=32200))
+        model = VLT5(cfg, device="cuda")
+        model.init_weights(torch.Generator(device="cuda").manual_seed(3))
+        check_hf_import("HF T5-base -> VLT5 (torch .bin)", t5_base_keys(),
+                        model, t5_hf_to_port,
+                        os.path.join(tmp, "t5.bin"),
+                        lambda sd, p: torch.save(sd, p))
+        del model
+    print(f"  importers: {time.perf_counter() - t1:.1f} s", flush=True)
+
+
+def _events_around(model, name: str):
+    """Wrap model.<name> with CUDA events; returns the list of (start, end)
+    pairs it records."""
+    fn, spans = getattr(model, name), []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    setattr(model, name, timed)
+    return spans
+
+
+def fit_batch(run, B: int, step: int):
+    """run(B) at the largest B (from ``B`` down by ``step``) whose memory
+    fits on the card; returns (B, run's result)."""
+    while True:
+        try:
+            return B, run(B)
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            print(f"    B {B} does not fit in the card's memory", flush=True)
+            B -= step
+            if B <= 0:
+                raise
+
+
+def trunk_bench(card: str, backbone: str, image: int) -> None:
+    """7h (a): the trunk alone in bf16 at RAW_TRUNK_B: images/s for the
+    forward (no autograd) and for forward + backward (the gradient of a
+    pooled-sum loss w.r.t. every trunk parameter, as
+    scripts/bench_vision.py takes it), each from CUDA events, and the peak
+    GiB; the batch of the backward is the largest multiple of 32 that
+    fits."""
+    enc = CLIPVisualEncoder(backbone, image, dtype=torch.bfloat16,
+                            device="cuda")
+    enc.init_weights(torch.Generator(device="cuda").manual_seed(7))
+    params = list(enc.parameters())
+
+    def fwd_at(B):
+        x = torch.randn(B, 3, image, image, device="cuda")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: enc(x)[1], iters=5, warmup=2)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def train_at(B):
+        x = torch.randn(B, 3, image, image, device="cuda")
+
+        def run():
+            loss = (enc(x)[1].float() ** 2).sum()
+            return torch.autograd.grad(loss, params)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, iters=3, warmup=1)
+        return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    torch.cuda.reset_peak_memory_stats()
+    Bf, (fms, fpeak) = RAW_TRUNK_B, fwd_at(RAW_TRUNK_B)
+    Bt, (tms, tpeak) = fit_batch(train_at, RAW_TRUNK_B, 32)
+    print(f"  trunk {backbone} at {image} px, bf16: forward B{Bf} "
+          f"{fms:.2f} ms, {Bf / fms * 1e3:.1f} images/s, peak {fpeak:.2f} "
+          f"GiB; forward + backward B{Bt} {tms:.2f} ms, "
+          f"{Bt / tms * 1e3:.1f} images/s, peak {tpeak:.2f} GiB on {card}",
+          flush=True)
+    del enc, params
+
+
+def raw_train_bench(card: str, label: str, path, adapter: bool,
+                    unfreeze: bool, t5: bool = False, B: int = RAW_B,
+                    lr: float = 1e-3, autotuned: bool = False):
+    """7h (b): the bf16 raw vqa step (20 text + 49 grid tokens, 10
+    targets, dropout 0.1, clip 5) at B (or the largest multiple of 50
+    below it that fits), under a Trainer run's library settings
+    (``trainer_settings``; ``autotuned``: cuDNN's autotuner instead): 2
+    warm-up steps, then 5 timed steps ending in one sync; ms/step,
+    examples/s, peak GiB, and the trunk's share of the step (CUDA events
+    around ``vis_forward``, summed over the timed steps, over the steps'
+    wall time). Returns the timed steps' launches (the ``path`` main-path
+    run when ``path`` is set)."""
+    with trainer_settings(autotuned):
+        return _raw_train_bench(card, label, path, adapter, unfreeze, t5, B,
+                                lr)
+
+
+def _raw_train_bench(card, label, path, adapter, unfreeze, t5, B, lr):
+    warm, timed = 2, 5
+    model = raw_model("bfloat16", adapter, unfreeze, t5)
+    trainable = apply_freezing(model, model.cfg.pet)
+    n_train = sum(p.numel() for p in trainable.values())
+    V = model.cfg.backbone.vocab_size
+    opt = build_optimizer(trainable, lr=lr, total_steps=warm + timed + 1)
+    step = make_train_step(model, opt, FLAGSHIP_TASKS)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def run(b):
+        batch = make_raw_train_batch(b, V, 71)
+        for _ in range(warm):
+            out = step(batch, gen, 0)
+        out["loss"].item()
+        return batch
+
+    B, batch = fit_batch(run, B, 50)
+    spans = _events_around(model, "vis_forward")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out = step(batch, gen, 0)
+    loss = out["loss"].item()
+    wall = time.perf_counter() - t0
+    launched = read_counts(path) if path else {
+        k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
+        raise AssertionError(f"{label}: non-finite loss {loss}")
+    trunk_ms = sum(s.elapsed_time(e) for s, e in spans[-timed:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if path:
+        RUNS[path] = dict(ex_s=B * timed / wall, ms_step=wall / timed * 1e3,
+                          peak_gib=peak)
+    print(f"  bf16 B{B} {label} raw step ({cudnn_setting()}): "
+          f"{wall / timed * 1e3:.2f} ms/step, "
+          f"{B * timed / wall:.2f} examples/s, peak {peak:.2f} GiB, trunk "
+          f"{trunk_ms / timed:.2f} ms/step = {trunk_ms / (wall * 1e3):.3f} "
+          f"of the step; {n_train / 1e6:.2f} M trainable; loss {loss:.4f} on "
+          f"{card}; launches per step "
+          f"{ {k: n / timed for k, n in launched.items() if n} }", flush=True)
+    if "--profile" in sys.argv and path:
+        profile_run(lambda: step(batch, gen, 0)["loss"].item(), card,
+                    f"{label} raw step")
+    del model, opt, step, batch
+    return launched
+
+
+def phase_raw_bench(card: str) -> dict:
+    """7h: what the raw path costs, bf16, full width. (a) the trunk alone:
+    RN50, RN101 and ViT-B/32 at 224 px and RN101 at 448 px, B 256, forward
+    and forward + backward (``trunk_bench``). (b) the raw VL-PET-large vqa
+    step at B 500 under a Trainer run's library settings with a frozen
+    trunk, with --use_vis_adapter (the raw_step main-path run) and with
+    --unfreeze_vis_encoder (``chip_phases.py`` 7i adds the step under
+    cuDNN's autotuner), and one raw
+    T5-base VL-PET-large step at B 300 (``raw_train_bench``). (c) the raw
+    caption beam-5 eval at B 500 to length 40 (the raw_eval main-path run)
+    and the NLVR two-image scoring (one deterministic forward on the fixed
+    decoder input) at B 166, examples/s. (d) the extractor: RN101 at 224
+    px over 2048 seeded preprocessed images at B 256, images/s, and
+    PackedFeatureSource reading back what a direct trunk forward gives for
+    8 of them (fp32 tolerance)."""
+    launched = {}
+    t0 = time.perf_counter()
+    for backbone, image in (("RN50", 224), ("RN101", 224), ("ViT-B/32", 224),
+                            ("RN101", 448)):
+        trunk_bench(card, backbone, image)
+    print(f"  (a) trunks: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    raw_train_bench(card, "vqa frozen trunk", None, False, False)
+    launched[RAW_STEP] = raw_train_bench(card, "vqa --use_vis_adapter",
+                                         RAW_STEP, True, False)
+    raw_train_bench(card, "vqa --unfreeze_vis_encoder", None, False, True)
+    raw_train_bench(card, "T5-base vqa --use_vis_adapter", None, True, False,
+                    t5=True, B=RAW_T5_B, lr=T5_LR)
+    print(f"  (b) raw steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    model = raw_model("bfloat16")
+    V = model.cfg.backbone.vocab_size
+    ctx = PetContext(task="caption", task_idx=FLAGSHIP_TASKS.index("caption"))
+    launched[RAW_EVAL] = generate_bench(
+        card, model, make_raw_batch(RAW_B, V, 73), ctx, 40, RAW_EVAL,
+        f"raw caption S{RAW_TEXT + RAW_GRID} beam5 len40")
+    Bn = RAW_B * 20 // 60  # the CLI's nlvr batch at base 500
+    nb = make_raw_batch(Bn, V, 75, n_images=2)
+    dec = torch.tensor([[2, 0]], device="cuda").expand(Bn, -1)
+    nctx = PetContext(task="nlvr", task_idx=FLAGSHIP_TASKS.index("nlvr"))
+
+    def score():
+        with torch.no_grad():
+            return model(nb["input_ids"], nb["attention_mask"],
+                         nb["vis_feats"], decoder_input_ids=dec, ctx=nctx)[
+                "logits"][:, 1]
+    ms = cuda_ms(score, iters=3, warmup=1)
+    if not torch.isfinite(score()).all():
+        raise AssertionError("raw nlvr scoring: non-finite logits")
+    print(f"  bf16 B{Bn} raw nlvr two-image scoring S"
+          f"{RAW_TEXT + 2 * RAW_GRID}: {ms:.2f} ms, {Bn / ms * 1e3:.1f} "
+          f"examples/s on {card}", flush=True)
+    del model, nb
+    print(f"  (c) raw evals: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    n, B = 2048, 256
+    enc = CLIPVisualEncoder(RAW_BACKBONE, RAW_IMAGE, device="cuda")
+    enc.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    g = torch.Generator().manual_seed(13)
+    images = torch.randn((n, RAW_IMAGE, RAW_IMAGE, 3), generator=g)
+    ids = [f"img{i}" for i in range(n)]
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "packed")
+        write_features(enc, lambda i: images[int(i[3:])].numpy(), ids[:B],
+                       prefix, B)  # warm-up: cuDNN's algorithms
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        write_features(enc, lambda i: images[int(i[3:])].numpy(), ids,
+                       prefix, B)
+        secs = time.perf_counter() - t1
+        src = PackedFeatureSource(prefix)
+        pick = ids[::n // 8][:8]
+        x = torch.stack([images[int(i[3:])] for i in pick]).cuda()
+        with torch.no_grad():
+            want = enc(x.permute(0, 3, 1, 2).contiguous())[0].float().cpu()
+        got = torch.stack([torch.tensor(src.get(i)[0]) for i in pick])
+        err = compare("extractor packed vs direct", got, want, torch.float32,
+                      scaled=True)
+        size = os.path.getsize(prefix + ".npy") / 2 ** 20
+    print(f"  extractor RN101 {RAW_IMAGE} px fp32: {n} images at B{B} in "
+          f"{secs:.2f} s = {n / secs:.1f} images/s (the loop: host stacking, "
+          f"copies, trunk, write of {size:.0f} MiB) on {card}; "
+          f"PackedFeatureSource vs a direct forward on 8: max|err| "
+          f"{err:.2e}", flush=True)
+    del enc, images
+    print(f"  (d) extractor: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
+def phase_raw_cudnn(card: str) -> None:
+    """7i (``chip_phases.py`` only; cuDNN's ~20 s of autotuning stays out
+    of the smoke's run): 7h's --use_vis_adapter raw step under a Trainer
+    run's settings (cuDNN's deterministic algorithms, no autotuner), then
+    under cuDNN's autotuner with any algorithm: what the Trainer's
+    deterministic choice costs the step."""
+    for autotuned in (False, True):
+        raw_train_bench(card, "vqa --use_vis_adapter", None, True, False,
+                        autotuned=autotuned)
+
+
+# phase 8d: the user's pipeline on the CLI. The features run: seeded
+# annotation json of vqa and caption (RAW_CLI_TRAIN examples each, and
+# RAW_CLI_VALID to evaluate) and their images' features written by the
+# extractor's loop (RN101, 224 px); VL-PET-large.sh's flags (--downsample
+# pools the 7 x 7 grid to 36) + --bf16 --backbone_ckpt <seeded BART-base
+# .safetensors>, one epoch, each task evaluated, then --resume. The raw run:
+# the same flags with --feature_type raw_RN101 --image_size "(224,224)"
+# --clip_ckpt <seeded RN101 .pt> --use_vis_adapter, on a folder of seeded
+# PNGs, over vqa and nlvr, for RAW_CLI_RAW_EPOCHS epochs; then its train
+# loader alone in this process, to part the host's decoding from the
+# steps.
+RAW_CLI_TRAIN, RAW_CLI_VALID = 1000, 500
+RAW_CLI_RAW_TRAIN, RAW_CLI_RAW_VALID = 500, 100
+RAW_CLI_RAW_EPOCHS = 2  # the second's steps have no first-step warm-up
+RAW_CLI_PNG = (160, 128)  # the PNGs' width and height (resized to 224)
+
+
+def cli_annotations(task: str, n: int, seed: int, prefix: str):
+    """Seeded reference-format examples (the synthetic data's layout):
+    vqa questions with scored answers, captions with two targets, NLVR
+    pairs with a label; image ids ``{prefix}{i}`` (NLVR: two a pair)."""
+    rnd = random.Random(seed)
+    words = ["red", "blue", "dog", "cat", "ball", "table", "man", "woman",
+             "tree", "car"]
+    out = []
+    for i in range(n):
+        sent = " ".join(rnd.choice(words) for _ in range(5))
+        if task == "vqa":
+            out.append({"img_id": f"{prefix}{i}", "sent": f"what is {sent}",
+                        "question_id": i, "label": {rnd.choice(words): 1.0,
+                                                    rnd.choice(words): 0.3}})
+        elif task == "caption":
+            out.append({"img_id": f"{prefix}{i}", "sent": sent,
+                        "targets": [sent, sent + " outside"],
+                        "question_id": i})
+        else:
+            out.append({"img0": f"{prefix}{2 * i}", "img1":
+                        f"{prefix}{2 * i + 1}", "sent": sent, "uid": i,
+                        "identifier": f"test1-{i // 2}-{i % 2}-0",
+                        "label": rnd.randint(0, 1)})
+    return out
+
+
+def write_png(path: str, rgb: bytes, width: int, height: int) -> None:
+    """An 8-bit RGB PNG (no filter, zlib level 1) from raw row-major
+    bytes."""
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (len(data).to_bytes(4, "big") + kind + data
+                + zlib.crc32(kind + data).to_bytes(4, "big"))
+    row = 3 * width
+    raw = b"".join(b"\x00" + rgb[y * row:(y + 1) * row] for y in range(height))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", width.to_bytes(4, "big")
+                        + height.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0]))
+                + chunk(b"IDAT", zlib.compress(raw, 1))
+                + chunk(b"IEND", b""))
+
+
+def _cli_epoch(out_dir: str, tasks) -> dict:
+    recs, epochs = _epochs_of(out_dir, tasks)
+    if len(epochs) != 1:
+        raise AssertionError(f"{len(epochs)} epochs")
+    r = epochs[0]
+    r["data_build_seconds"] = next(x["data_build_seconds"] for x in recs
+                                   if "data_build_seconds" in x)
+    return r
+
+
+def _print_cli(card: str, label: str, r: dict, res: dict, tasks) -> None:
+    print(f"  {label} on {card}: data build {r['data_build_seconds']:.2f} s, "
+          f"{int(r['train_steps'])} steps in {r['train_seconds']:.2f} s "
+          f"({r['train_seconds'] / r['train_steps'] * 1e3:.2f} ms/step, "
+          f"{r['train_examples'] / r['train_seconds']:.2f} examples/s), loss "
+          f"{r['train_loss']:.4f}; eval "
+          + ", ".join(f"{t} {r[f'{t}/eval_seconds']:.2f} s" for t in tasks)
+          + f"; process {res['process_s']:.2f} s; launches "
+          f"{ {k: n for k, n in res['launches'].items() if n} }", flush=True)
+
+
+def phase_cli_raw(card: str) -> dict:
+    """8d: the user's pipeline on the CLI, in child processes as phase 8.
+    (1) the extractor's loop (``write_features``, RN101 at 224 px, fp32)
+    writes <root>/vqa_features and <root>/caption_features for seeded
+    preprocessed images, beside seeded annotation json; (2) ``python -m
+    vlpet_tpu_torch.cli.multitask`` with VL-PET-large.sh's flags + --bf16
+    --data_root <root> --backbone_ckpt <seeded BART-base .safetensors>
+    --tasks vqa,caption, one epoch, each task evaluated (the cli_features
+    run), then --resume restores the state bit for bit; (3) the same flags
+    with --feature_type raw_RN101 --image_size "(224,224)" --clip_ckpt
+    <seeded RN101 .pt> --use_vis_adapter --tasks vqa,nlvr on a folder of
+    seeded PNGs (the cli_raw run). Prints the data build seconds, ms/step,
+    each task's eval seconds and the launches by kernel."""
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "features")
+        os.makedirs(root)
+        enc = CLIPVisualEncoder(RAW_BACKBONE, RAW_IMAGE, device="cuda")
+        enc.init_weights(torch.Generator(device="cuda").manual_seed(17))
+        g = torch.Generator().manual_seed(19)
+        n_img = RAW_CLI_TRAIN + RAW_CLI_VALID
+        for task in ("vqa", "caption"):
+            for split, n, off in (("train", RAW_CLI_TRAIN, 0),
+                                  ("valid", RAW_CLI_VALID, RAW_CLI_TRAIN)):
+                ex = cli_annotations(task, n, 23 + off, f"{task}_")
+                for i, e in enumerate(ex):
+                    e["img_id"] = f"{task}_{off + i}"
+                with open(os.path.join(root, f"{task}_{split}.json"),
+                          "w") as f:
+                    json.dump(ex, f)
+            write_features(
+                enc, lambda i: torch.randn((RAW_IMAGE, RAW_IMAGE, 3),
+                                           generator=g).numpy(),
+                [f"{task}_{i}" for i in range(n_img)],
+                os.path.join(root, f"{task}_features"), RAW_TRUNK_B)
+        del enc
+        extract_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "bart-base.safetensors")
+        write_safetensors(seeded_state_dict(bart_base_keys(), 37), ckpt)
+        clip_pt = os.path.join(tmp, "RN101.pt")
+        torch.save(seeded_state_dict(clip_visual_keys("RN101"), 31), clip_pt)
+        ckpt_s = time.perf_counter() - t0
+        print(f"  extractor: {2 * n_img} images' features in {extract_s:.2f} "
+              f"s; seeded BART-base .safetensors and RN101 .pt written in "
+              f"{ckpt_s:.2f} s", flush=True)
+        flags = script_flags(
+            os.path.join(os.path.dirname(CLI_SCRIPT), "VL-PET-large.sh"),
+            ["0", "96", "4", "96", "96", "1e-3", "9595"]) + [
+            "--bf16", "--backbone_ckpt", ckpt, "--epochs", "1", "--device",
+            "cuda"]
+        out_dir = os.path.join(tmp, "run")
+        fflags = flags + ["--data_root", root, "--tasks", "vqa,caption",
+                          "--output", out_dir]
+        out1, res1 = run_cli(fflags, "features train")
+        launched[CLI_FEATURES] = res1["launches"]
+        require_launched(CLI_FEATURES, res1["launches"])
+        if "imported" not in out1:
+            raise AssertionError("the features run printed no import")
+        saved_step, saved = _digest(out1, r"saved at step (\d+); state "
+                                          r"digest ([0-9a-f]+)")
+        r1 = _cli_epoch(out_dir, ("vqa", "caption"))
+        out2, res2 = run_cli(fflags + ["--resume"], "features resume")
+        step2, restore_s, restored = _digest(
+            out2, r"resumed from step (\d+) in ([0-9.]+) s; state digest "
+                  r"([0-9a-f]+)")
+        end_step, end = _digest(out2, r"saved at step (\d+); state digest "
+                                      r"([0-9a-f]+)")
+        if (step2, restored, end_step, end) != (saved_step, saved,
+                                                saved_step, saved):
+            raise AssertionError(f"resume: step {step2} digest {restored}, "
+                                 f"saved again at {end_step} {end}; saved "
+                                 f"step {saved_step} digest {saved}")
+        _print_cli(card, "features run (VL-PET-large.sh, vqa + caption, "
+                   "--backbone_ckpt)", r1, res1, ("vqa", "caption"))
+        print(f"  resume: state at step {saved_step} restored bit for bit "
+              f"(digest {saved[:16]}) in {float(restore_s):.3f} s; process "
+              f"{res2['process_s']:.2f} s", flush=True)
+        # (3) the raw run on PNGs
+        t0 = time.perf_counter()
+        raw_root = os.path.join(tmp, "raw")
+        os.makedirs(os.path.join(raw_root, "images"))
+        w, h = RAW_CLI_PNG
+        n_pairs = RAW_CLI_RAW_TRAIN // 3
+        for task, n_tr, n_va in (("vqa", RAW_CLI_RAW_TRAIN, RAW_CLI_RAW_VALID),
+                                 ("nlvr", n_pairs, RAW_CLI_RAW_VALID // 2)):
+            for split, n, seed in (("train", n_tr, 29), ("valid", n_va, 31)):
+                ex = cli_annotations(task, n, seed, f"{task}_{split}_")
+                with open(os.path.join(raw_root, f"{task}_{split}.json"),
+                          "w") as f:
+                    json.dump(ex, f)
+                for i in range(n * (2 if task == "nlvr" else 1)):
+                    rgb = torch.randint(0, 256, (h * w * 3,), generator=g,
+                                        dtype=torch.uint8)
+                    write_png(os.path.join(raw_root, "images",
+                                           f"{task}_{split}_{i}.png"),
+                              rgb.numpy().tobytes(), w, h)
+        png_s = time.perf_counter() - t0
+        raw_dir = os.path.join(tmp, "raw_run")
+        rflags = flags + ["--data_root", raw_root, "--tasks", "vqa,nlvr",
+                          "--feature_type", f"raw_{RAW_BACKBONE}",
+                          "--image_size", f"({RAW_IMAGE},{RAW_IMAGE})",
+                          "--clip_ckpt", clip_pt, "--use_vis_adapter",
+                          "--output", raw_dir,
+                          "--epochs", str(RAW_CLI_RAW_EPOCHS)]
+        out3, res3 = run_cli(rflags, "raw train")
+        launched[CLI_RAW] = res3["launches"]
+        require_launched(CLI_RAW, res3["launches"])
+        if "CLIP import" not in out3:
+            raise AssertionError("the raw run printed no CLIP import")
+        recs, epochs = _epochs_of(raw_dir, ("vqa", "nlvr"))
+        if len(epochs) != RAW_CLI_RAW_EPOCHS:
+            raise AssertionError(f"the raw run: {len(epochs)} epochs")
+        r3 = dict(epochs[0], data_build_seconds=next(
+            x["data_build_seconds"] for x in recs
+            if "data_build_seconds" in x))
+        print(f"  {len(os.listdir(os.path.join(raw_root, 'images')))} seeded "
+              f"{w} x {h} PNGs written in {png_s:.2f} s", flush=True)
+        _print_cli(card, "raw run (raw_RN101 224 px, --use_vis_adapter, "
+                   "--clip_ckpt, vqa + nlvr), epoch 1", r3, res3,
+                   ("vqa", "nlvr"))
+        r = epochs[-1]
+        print(f"  raw run, epoch {len(epochs)} (no first step): "
+              f"{int(r['train_steps'])} steps in {r['train_seconds']:.2f} s "
+              f"({r['train_seconds'] / r['train_steps'] * 1e3:.2f} ms/step, "
+              f"{r['train_examples'] / r['train_seconds']:.2f} examples/s)",
+              flush=True)
+        raw_loader_alone(card, rflags)
+    return launched
+
+
+def raw_loader_alone(card: str, argv) -> None:
+    """The raw run's train batches from its loader alone, in this process
+    and with no step: the CLI's own data pipeline (PIL decoding and
+    resizing each PNG, the collate), one epoch; the seconds a batch beside
+    the CLI run's ms/step tell the host's share of it."""
+    from vlpet_tpu_torch.cli import multitask as cli
+    from vlpet_tpu_torch.data.multitask import MultitaskLoader
+    from vlpet_tpu_torch.data.tokenization import get_tokenizer
+
+    args = cli.parse_args(argv)
+    tasks = tuple(args.tasks.split(","))
+    tokenizer, _ = get_tokenizer(args.backbone, args.tokenizer_path)
+    loader = MultitaskLoader(cli.build_loaders(args, tasks, tokenizer,
+                                               args.train, "train"),
+                             sampling=args.multitask_sampling)
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    sizes = [len(b["input_ids"]) for b in loader]
+    secs = time.perf_counter() - t0
+    print(f"  the raw run's train loader alone (no steps, host): "
+          f"{len(sizes)} batches of {sizes} in {secs:.2f} s = "
+          f"{secs / len(sizes) * 1e3:.2f} ms a batch, "
+          f"{sum(sizes) / secs:.2f} examples/s on the host of {card}",
+          flush=True)
+
+
 def profile_run(run, card: str, what: str) -> None:
     """One more run under torch.profiler: device time and launches by
     kernel family, the device idle share of the run's wall time, and the
@@ -4778,6 +5882,10 @@ def main() -> int:
     print("phase 3o: the video scripts' kernel sites", flush=True)
     phase_video_script_sites(rep)
     print(f"  phase 3o: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 3p: the raw-image path's kernel sites", flush=True)
+    phase_raw_sites(rep)
+    print(f"  phase 3p: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 4: decode parity, fp32", flush=True)
     phase_parity()
@@ -4823,6 +5931,11 @@ def main() -> int:
           flush=True)
     phase_video_script_parity()
     print(f"  phase 6h: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 6i: the raw path's train and decode parity, fp32; the "
+          "importers at full shape", flush=True)
+    phase_raw_parity()
+    print(f"  phase 6i: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -4844,6 +5957,10 @@ def main() -> int:
           flush=True)
     launched.update(phase_video_script_bench(card))
     print(f"  phase 7g: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 7h: what the raw path costs, bf16", flush=True)
+    launched.update(phase_raw_bench(card))
+    print(f"  phase 7h: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
     t0 = time.perf_counter()
@@ -4855,6 +5972,12 @@ def main() -> int:
           "single_prompt, bf16", flush=True)
     launched.update(phase_cli_video(card))
     print(f"  phase 8c: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 8d: the user's pipeline on the CLI: extracted features with "
+          "--backbone_ckpt, then raw images with --clip_ckpt, bf16",
+          flush=True)
+    launched.update(phase_cli_raw(card))
+    print(f"  phase 8d: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:

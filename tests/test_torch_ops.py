@@ -447,7 +447,9 @@ def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py with everything it
     imports, loads neither jax nor flax (the machine with the card has no
     JAX) nor any module of the JAX package: the port keeps its own copy of
-    the configuration."""
+    the configuration. Nor does loading them import PIL, transformers or
+    safetensors: the modules that read images or checkpoints import what
+    they use where they use it."""
     code = ("import importlib, pkgutil, sys\n"
             "import vlpet_tpu_torch, chip_smoke\n"
             "for m in pkgutil.walk_packages(vlpet_tpu_torch.__path__,\n"
@@ -456,7 +458,8 @@ def test_port_imports_no_jax():
             "chip_smoke.flagship_cfg('bfloat16')\n"
             "top = lambda m: m.split('.')[0]\n"
             "bad = [m for m in sys.modules\n"
-            "       if top(m) in ('jax', 'jaxlib', 'flax', 'vlpet_tpu')]\n"
+            "       if top(m) in ('jax', 'jaxlib', 'flax', 'vlpet_tpu',\n"
+            "                     'PIL', 'transformers', 'safetensors')]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -10,8 +10,12 @@ Ported: BART-base and T5-base with every VL-PET gate (small, middleX,
 middleY, large), the decode path (greedy and beam search), the training
 step (forward, backward, clip, HF AdamW), the image-text trainer,
 checkpoints, data pipeline and evaluators (``train/``, ``data/``,
-``evalsuite/``) and the image-text CLIs (``python -m
-vlpet_tpu_torch.cli.multitask``, ``cli.multitask_infer``). Every Pallas
+``evalsuite/``), the image-text and video CLIs (``python -m
+vlpet_tpu_torch.cli.multitask``, ``cli.multitask_infer``,
+``cli.multitask_video``, ``cli.single_task``), the CLIP trunks, the
+raw-image path and the feature extractor (``vision/``) and the HF / CLIP
+checkpoint importers (``models/hf_import.py``, ``vision/clip_import.py``).
+Every Pallas
 kernel is a hand-written CUDA kernel for sm_90a (``csrc/``), built with
 nvcc at first use and bound through ctypes (``ops/_build.py``); each keeps
 its plain PyTorch twin in the same module, which CPU tensors take.

@@ -9,15 +9,19 @@ per-epoch VQA/GQA/NLVR/caption eval.
 Run:  python -m vlpet_tpu_torch.cli.multitask --tasks vqa,gqa,nlvr,caption ...
 (the flags of scripts/image-text/*.sh; ``--device cpu`` runs on the CPU,
 the default is the card). Without ``--data_root`` the data are synthetic
-(``--synthetic_examples`` per task). Not ported, and raising
-NotImplementedError: the raw-image feature types, ``--backbone_ckpt``,
-``--mesh_model_axis`` > 1, ``--distributed`` and ``--classifier``.
+(``--synthetic_examples`` per task). ``--feature_type raw_<backbone>``
+(raw_RN101, ...) reads ``<data_root>/images`` and runs the CLIP trunk inside
+the train step (``--image_size``, ``--use_vis_adapter``, ``--clip_ckpt``);
+``--backbone_ckpt`` loads a local HF BART / T5 state dict. Not ported, and
+raising NotImplementedError: ``--mesh_model_axis`` > 1, ``--distributed``
+and ``--classifier``.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
 import time
 from typing import Dict, List, Tuple
 
@@ -31,6 +35,7 @@ from vlpet_tpu_torch.data.datasets import (
     synthetic_task_data,
 )
 from vlpet_tpu_torch.data.features import (
+    ImageFolderSource,
     MonolithicH5Source,
     PackedFeatureSource,
     PerImageH5Source,
@@ -59,6 +64,14 @@ def task_batch_size(task: str, base: int) -> int:
     return max(1, int(base * BATCH_SCALE.get(task, 1.0)))
 
 
+def parse_image_size(s) -> int:
+    """--image_size is reference-format: '(448,448)' or an int string."""
+    if isinstance(s, int):
+        return s
+    digits = [int(x) for x in re.findall(r"\d+", str(s))]
+    return digits[0] if digits else 224
+
+
 def feature_source_for(args, task: str):
     """Pick the loader family by --feature_type (reference: multitask.py:638-680):
     'butd' → monolithic h5 with boxes; 'raw_*' → raw images (on-the-fly CLIP
@@ -68,8 +81,9 @@ def feature_source_for(args, task: str):
     if root is None:
         return None
     if args.feature_type.startswith("raw_"):
-        raise NotImplementedError("raw-image feature types need the CLIP "
-                                  "trunk, which the port does not have")
+        return ImageFolderSource(
+            os.path.join(root, "images"),
+            image_size=parse_image_size(getattr(args, "image_size", 224)))
     packed = os.path.join(root, f"{task}_features")
     if os.path.exists(packed + ".npy"):
         return PackedFeatureSource(packed)
@@ -181,8 +195,6 @@ def main(argv=None, device=None):
     if args.distributed or args.classifier:
         raise NotImplementedError("--distributed and --classifier are not "
                                   "ported")
-    if args.feature_type.startswith("raw_"):
-        raise NotImplementedError("raw-image feature types are not ported")
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
     require_stable_word_ids(args, tokenizer)
@@ -198,6 +210,15 @@ def main(argv=None, device=None):
 
     from vlpet_tpu_torch.train.trainer import Trainer
 
+    raw_kw = {}
+    if args.feature_type.startswith("raw_"):
+        # 'raw_RN101' etc. -- CLIP trunk inside the model
+        # (multitask.py:648-660)
+        raw_kw = dict(raw_vis_backbone=args.feature_type[len("raw_"):],
+                      image_size=parse_image_size(args.image_size),
+                      vis_adapter_type=args.vis_adapter_type,
+                      vis_pooling_output=args.vis_pooling_output,
+                      clip_ckpt=getattr(args, "clip_ckpt", None))
     trainer = Trainer(
         cfg, tasks, lr=args.lr, total_steps=total_steps,
         warmup_ratio=args.warmup_ratio, weight_decay=args.weight_decay,
@@ -207,7 +228,7 @@ def main(argv=None, device=None):
         backbone_ckpt=args.backbone_ckpt, load=args.load,
         mesh_model_axis=args.mesh_model_axis,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
-        device=args.device)
+        device=args.device, **raw_kw)
     trainer.logger.log({"data_build_seconds": data_s})
     if args.resume:
         t1 = time.time()

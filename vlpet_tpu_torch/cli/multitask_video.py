@@ -13,8 +13,9 @@ the default is the card). Without ``--data_root`` the data are synthetic
 (``--synthetic_examples`` per task). As in the JAX video CLI, the Trainer
 takes the default AdamW eps and betas whatever ``--adam_eps`` /
 ``--adam_beta1`` / ``--adam_beta2`` say, and ``--feature_type`` is not
-read. Not ported, and raising NotImplementedError: ``--backbone_ckpt``,
-``--mesh_model_axis`` > 1, ``--distributed`` and ``--classifier``.
+read; ``--backbone_ckpt`` loads a local HF BART / T5 state dict. Not
+ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1,
+``--distributed`` and ``--classifier``.
 """
 
 from __future__ import annotations

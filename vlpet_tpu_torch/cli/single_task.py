@@ -7,9 +7,12 @@ with <task> one of vqa, gqa, nlvr, caption (image tasks: the loaders of
 ``cli.multitask``) or tvqa, how2qa, tvc, yc2c (video tasks: the loaders of
 ``data.video``, ``feat_dim`` 512). ``--device cpu`` runs on the CPU, the
 default is the card. As in the JAX entry point, the Trainer takes the
-default AdamW eps and betas. Not ported, and raising NotImplementedError:
-the raw-image feature types, ``--backbone_ckpt``, ``--mesh_model_axis`` >
-1, ``--distributed`` and ``--classifier``.
+default AdamW eps and betas and ``--backbone_ckpt`` (a local HF state
+dict), and it is the feature Trainer: under a raw_* feature type the
+batches carry images that no trunk reads (the JAX entry point's behaviour;
+``cli.multitask`` runs the raw path). Not ported, and raising
+NotImplementedError: ``--mesh_model_axis`` > 1, ``--distributed`` and
+``--classifier``.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ def main(task: str, argv=None, device=None):
         raise NotImplementedError("--distributed and --classifier are not "
                                   "ported")
     if task in IMAGE_TASKS and args.feature_type.startswith("raw_"):
-        raise NotImplementedError("raw-image feature types are not ported")
+        print(f"single_task {task}: --feature_type {args.feature_type} "
+              f"images are not read here (as in the JAX entry point); "
+              f"cli.multitask runs the raw path")
     args.tasks = task
     tasks = (task,)
     if task in VIDEO_QA_TASKS or task in VIDEO_CAP_TASKS:

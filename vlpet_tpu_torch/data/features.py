@@ -12,8 +12,9 @@ The per-image-h5 layout is seek-heavy (SURVEY.md §7 risk); ``pack_features``
 converts any source into one memory-mapped .npy + a json index, giving
 sequential reads and zero-copy slicing for the input pipeline.
 
-The port's own copy of vlpet_tpu/data/features.py. The raw-image source raises NotImplementedError until the vision
-modules are ported; h5py is imported only where an h5 file is read.
+The port's own copy of vlpet_tpu/data/features.py. The raw-image source
+preprocesses through vision/extract.py; h5py and PIL are imported only
+where an h5 file or an image is read.
 """
 
 from __future__ import annotations
@@ -181,9 +182,13 @@ class ImageFolderSource:
                 self._ext[stem] = ext
 
     def get_image(self, img_id: str) -> np.ndarray:
-        raise NotImplementedError(
-            "raw images need the CLIP preprocessing of the vision modules, "
-            "which the port does not have yet")
+        from PIL import Image
+
+        from vlpet_tpu_torch.vision.extract import preprocess_image
+
+        path = os.path.join(self.directory, f"{img_id}{self._ext[str(img_id)]}")
+        img = np.asarray(Image.open(path).convert("RGB"))
+        return preprocess_image(img, self.image_size)
 
     def get(self, img_id: str):
         """Feature-source interface: returns the preprocessed image as the

@@ -23,7 +23,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from vlpet_tpu_torch.convert import flax_path, to_flax_array
+from vlpet_tpu_torch.convert import flax_leaves, flax_to_state_dict
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -68,11 +68,16 @@ class CheckpointManager:
                           weights_only=False)
 
 
-def save_params_npz(named: Mapping[str, torch.Tensor], path: str) -> None:
+def save_params_npz(named: Mapping[str, torch.Tensor], path: str,
+                    heads: Optional[Mapping[str, int]] = None) -> None:
     """Weights-only export (the reference's LAST.pth analog) of port
-    tensors by name, in the JAX package's npz layout."""
-    flat = {"/".join(flax_path(name)[0]): to_flax_array(name, t)
-            for name, t in named.items()}
+    tensors by name, in the JAX package's npz layout (a CLIP trunk's
+    tensors under their flax leaves: ``convert.flax_leaves``, with the
+    attention tensors' head counts ``heads``, ``convert.attention_heads``
+    of the model)."""
+    heads = heads or {}
+    flat = {"/".join(p): a for name, t in named.items()
+            for p, a in flax_leaves(name, t, heads=heads.get(name))}
     np.savez(path, **flat)
 
 
@@ -80,21 +85,23 @@ def save_params_npz(named: Mapping[str, torch.Tensor], path: str) -> None:
 def load_params_npz(path: str, module: torch.nn.Module
                     ) -> Tuple[torch.nn.Module, int]:
     """strict=False-style load into ``module`` in place (reference:
-    utils.py:63-71 load_state_dict semantics): every parameter whose flax
-    path is in the file with the flax shape takes the array (cast to its
-    dtype); the rest keep their values. Returns (module, count filled)."""
+    utils.py:63-71 load_state_dict semantics): the file's flax tree is
+    converted to port names and layouts (``convert.flax_to_state_dict``),
+    and every parameter whose name it holds with the same shape takes
+    the array (cast to its dtype); the rest keep their values. Returns
+    (module, count filled)."""
     data = np.load(path)
+    tree: Dict[str, Any] = {}
+    for key in data.files:
+        *mods, leaf = key.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = data[key]
+    sd = flax_to_state_dict(tree)
     loaded = 0
     for name, p in module.named_parameters():
-        fpath, swap = flax_path(name)
-        key = "/".join(fpath)
-        shape = tuple(p.shape)
-        if swap:
-            shape = shape[:-2] + (shape[-1], shape[-2])
-        if key in data.files and data[key].shape == shape:
-            arr = data[key]
-            if swap:
-                arr = np.swapaxes(arr, -1, -2)
-            p.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        if name in sd and sd[name].shape == p.shape:
+            p.copy_(sd[name])
             loaded += 1
     return module, loaded

@@ -75,8 +75,12 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
 
     ``batch`` holds input_ids, attention_mask, vis_feats, boxes, target_ids
     (labels, -100 = ignore) and, for vqa, scores; optionally
-    img_order_ids, obj_order_ids, vis_attention_mask. The model must lie on
-    ``device``. ``lambda_z`` > 0 (the adapter-activation L2 regularizer of
+    img_order_ids, obj_order_ids, vis_attention_mask. The raw-image path's
+    model (vision/vis_encoder.py RawInputVLModel) takes its images, (B, 3,
+    H, W) or the NLVR pair (B, 2, 3, H, W), as vis_feats with no boxes, and
+    runs the CLIP trunk inside the step (vlpet_tpu/train/steps.py:158-189);
+    the trunk's BatchNorms keep their running statistics. The model must
+    lie on ``device``. ``lambda_z`` > 0 (the adapter-activation L2 regularizer of
     the reference, vlpet_tpu/train/steps.py:79-98) is not ported."""
     if lambda_z > 0:
         raise NotImplementedError("lambda_z > 0 (the adapter z regularizer) "

@@ -10,9 +10,15 @@ hand-written kernels (ops/); the losses stay device tensors until a log
 point, so the host waits for the card once a log interval, not once a
 step. Dropped as TPU artefacts: the device mesh and batch sharding, the
 scoped-VMEM retry, the rbg PRNG and the scan twin of the generation model.
-Not ported, and raising NotImplementedError: the raw-image path,
-``backbone_ckpt`` / ``clip_ckpt`` (they need the HF and CLIP importers),
-``mesh_model_axis`` > 1, multi-process runs and the classifier head.
+With ``raw_vis_backbone`` (the raw_* feature types) the model is
+vision/vis_encoder.py's RawInputVLModel: the CLIP trunk runs inside the
+train step and the generation, on the batch's images, which ``array_batch``
+puts in the vis_feats slot. The weights go in as the JAX Trainer takes
+them: the seeded init, then ``clip_ckpt`` (an OpenAI CLIP visual state
+dict, raw mode only), then ``backbone_ckpt`` (an HF BART / T5 state dict),
+then the recipe's re-inits, then ``load``. Not
+ported, and raising NotImplementedError: ``mesh_model_axis`` > 1,
+multi-process runs and the classifier head.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import numpy as np
 import torch
 
 from vlpet_tpu_torch.config import VLModelConfig
-from vlpet_tpu_torch.device import Device, resolve_device
+from vlpet_tpu_torch.convert import attention_heads
+from vlpet_tpu_torch.device import Device, deterministic_kernels, resolve_device
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
@@ -34,14 +41,15 @@ from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.checkpoint import (CheckpointManager,
                                               load_params_npz,
                                               save_params_npz)
-from vlpet_tpu_torch.train.freezing import apply_freezing, trainable_report
+from vlpet_tpu_torch.train.freezing import (apply_freezing, trainable_report,
+                                            weight_initialization)
 from vlpet_tpu_torch.train.optim import build_optimizer
 from vlpet_tpu_torch.train.steps import make_train_step
 from vlpet_tpu_torch.utils.logging import LossMeter, MetricsLogger
 
 ARRAY_BATCH_KEYS = ("input_ids", "attention_mask", "vis_feats", "boxes",
                     "img_order_ids", "obj_order_ids", "vis_attention_mask",
-                    "target_ids", "scores", "decoder_input_ids")
+                    "target_ids", "scores", "decoder_input_ids", "images")
 
 
 def _task_loaders(loader) -> List:
@@ -61,7 +69,10 @@ def data_rng_state(loader) -> Dict[str, Any]:
 def array_batch(batch: Dict[str, Any], device: torch.device
                 ) -> Dict[str, torch.Tensor]:
     """The model inputs of a collated batch as tensors on ``device``:
-    integer arrays as int64, floating ones as fp32."""
+    integer arrays as int64, floating ones as fp32; the raw path's
+    ``images`` (B, [2,] H, W, 3) as the trunk's NCHW (B, [2,] 3, H, W),
+    contiguous, under ``vis_feats``, the slot where RawInputVLModel takes
+    them."""
     out = {}
     for k, v in batch.items():
         if k not in ARRAY_BATCH_KEYS or v is None:
@@ -69,7 +80,10 @@ def array_batch(batch: Dict[str, Any], device: torch.device
         a = np.asarray(v)
         t = torch.from_numpy(a.astype(np.int64) if a.dtype.kind in "iub"
                              else a.astype(np.float32, copy=False))
-        out[k] = t.to(device, non_blocking=True)
+        t = t.to(device, non_blocking=True)
+        if k == "images":
+            k, t = "vis_feats", t.movedim(-1, -3).contiguous()
+        out[k] = t
     return out
 
 
@@ -85,13 +99,10 @@ class Trainer:
                  gradient_accumulation_steps: int = 1,
                  verbose: bool = True, use_wandb: bool = False,
                  raw_vis_backbone: Optional[str] = None,
+                 image_size: int = 224,
+                 vis_adapter_type: Optional[str] = None,
+                 vis_pooling_output: bool = False,
                  clip_ckpt: Optional[str] = None, device: Device = "cuda"):
-        if raw_vis_backbone is not None or clip_ckpt:
-            raise NotImplementedError("the raw-image path (the CLIP trunk) "
-                                      "is not ported")
-        if backbone_ckpt:
-            raise NotImplementedError("--backbone_ckpt needs the HF "
-                                      "importer, which is not ported")
         if mesh_model_axis > 1:
             raise NotImplementedError("tensor parallelism (mesh_model_axis "
                                       "> 1) is not ported")
@@ -101,12 +112,47 @@ class Trainer:
         self.output_dir = output_dir
         self.verbose = verbose
         self.device = dev = resolve_device(device)
+        deterministic_kernels()
         self.logger = MetricsLogger(output_dir, use_wandb=use_wandb,
                                     verbose=verbose)
 
-        # --- params: seeded init (with the recipe's re-inits), load -------
-        self.model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device=dev)
+        # --- params: seeded init (with the recipe's re-inits), the CLIP
+        # and backbone imports, the re-inits again, load ------------------
+        # raw_* feature types: the CLIP trunk runs inside the train step so
+        # --unfreeze_vis_encoder / --use_vis_adapter gradients flow end to
+        # end (reference: multitask.py:648-660 raw feature_type +
+        # vis_forward)
+        self.raw = raw_vis_backbone is not None
+        if self.raw:
+            from vlpet_tpu_torch.vision.vis_encoder import RawInputVLModel
+
+            self.model = RawInputVLModel(
+                cfg, vis_backbone=raw_vis_backbone, image_size=image_size,
+                vis_adapter_type=(vis_adapter_type
+                                  if cfg.pet.use_vis_adapter else None),
+                vis_pooling_output=vis_pooling_output, device=dev)
+        else:
+            self.model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device=dev)
         self.model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        if self.raw and clip_ckpt:
+            from vlpet_tpu_torch.models.hf_import import load_torch_state_dict
+            from vlpet_tpu_torch.vision.clip_import import load_clip_state_dict
+
+            report = load_clip_state_dict(self.model.vis_encoder,
+                                          load_torch_state_dict(clip_ckpt))
+            if verbose:
+                print(f"CLIP import: {len(report['filled'])} tensors")
+        if backbone_ckpt:
+            from vlpet_tpu_torch.models.hf_import import (
+                bart_hf_to_port, load_torch_state_dict, t5_hf_to_port)
+
+            conv = t5_hf_to_port if cfg.is_t5 else bart_hf_to_port
+            report = conv(load_torch_state_dict(backbone_ckpt),
+                          self.model.vl if self.raw else self.model)
+            if verbose:
+                print(f"imported {len(report['filled'])} tensors from "
+                      f"{backbone_ckpt}; {len(report['skipped'])} skipped")
+        weight_initialization(self.model, cfg.pet)
         if load:
             _, n = load_params_npz(load, self.model)
             if verbose:
@@ -124,7 +170,9 @@ class Trainer:
             warmup_ratio=warmup_ratio, weight_decay=weight_decay,
             adam_beta1=adam_beta1, adam_beta2=adam_beta2, adam_eps=adam_eps,
             clip_grad_norm=clip_grad_norm)
-        self.lambda_z = cfg.pet.lambda_z if cfg.pet.track_z else 0.0
+        # the JAX raw step takes no z regularizer
+        self.lambda_z = (cfg.pet.lambda_z if cfg.pet.track_z and not self.raw
+                         else 0.0)
         self.train_step = make_train_step(
             self.model, self.optimizer, self.tasks, lambda_z=self.lambda_z,
             device=dev, accumulation_steps=gradient_accumulation_steps)
@@ -230,7 +278,8 @@ class Trainer:
             self.save(step, train_loader)
         if self.output_dir:
             save_params_npz(self.named_weights(),
-                            os.path.join(self.output_dir, "LAST.npz"))
+                            os.path.join(self.output_dir, "LAST.npz"),
+                            heads=attention_heads(self.model))
         return history
 
     # ------------------------------------------------------------------
