@@ -352,8 +352,29 @@ nonzero and no result line is printed):
      cli_raw run; the second epoch's ms/step has no first step in it),
      then that run's train loader alone in this process (seconds a
      batch, no step).
-Each of 3n, 3o, 3p, 6g, 6h, 6i, 7f, 7g, 7h, 8b, 8c and 8d prints its
-seconds.
+  6j. (after 6i) the VL-PET ablation flags (``ABLATIONS``: eleven
+     families, each the VL-PET-large recipe with one group of flags
+     swapped in at its dims -- the multihead up / down-up / pair adapters,
+     the LayerNorm and L2 gates, the standalone gate in both forms, the
+     key parallel adapter, the decoder's multihead and key-value
+     adapters, the sequential value adapter with the residual and its
+     gate, the VPA's residual gate and the multihead and pair VPAs, the
+     decoder's down-dim adapters, cross and FFN IA3 with the four value
+     flags that build nothing, the low-rank visual projector on BART-base
+     and T5-base, single_adapter.sh with track_z and lambda_z 1e-3):
+     phase 6c's fp32 per-step train parity from the weights after
+     ``unzero`` under phase 6's tolerances (B 8, vqa,
+     ``ABL_PARITY_LAYERS``; T5 under 6c's), then for families 4-9
+     phase 4 (a)'s beam-5 and greedy caption tokens at B 8, identical;
+  7j. (after 7h) each ablation's bf16 vqa train step (B 500, T5-base B
+     300; 2 warm-up and 5 timed steps: ms/step, peak GiB) beside
+     VL-PET-large's on both backbones, the track_z recipe again at
+     lambda_z 0, and the beam-5 caption eval (B 500 to
+     length 40) of families 4, 6, 8 and 9 (the abl_* runs); under the
+     decoder FFN's IA3 F1 and F2 launch at the encoder's sites only
+     (the decoder FFN takes the plain chain, as in the JAX package).
+Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 7f, 7g, 7h, 7j, 8b, 8c and 8d prints
+its seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -514,17 +535,37 @@ RAW_STEP, RAW_EVAL = "raw_step", "raw_eval"
 CLI_FEATURES, CLI_RAW = "cli_features", "cli_raw"
 RAW_TRAIN = (RAW_STEP, CLI_FEATURES, CLI_RAW)
 RAW_ALL = (RAW_STEP, RAW_EVAL, CLI_FEATURES, CLI_RAW)
+# the VL-PET ablation flags (phases 6j and 7j): name -> (family, the PET
+# and visual flags over VL-PET-large's; ABLATIONS below). Phase 7j's bf16
+# train steps (ABL_TRAIN on BART-base, ABL_T5_TRAIN on T5-base; the
+# track_z recipe also at lambda_z 0, and VL-PET-large itself on both
+# backbones for reference) and beam-5 evals (ABL_EVAL)
+ABL_BART = ("mh_up", "mh_down_up", "mh_pair", "gating_layernorm",
+            "gating_l2norm", "standalone_gating", "standalone_gating_add_x2",
+            "key_parallel", "decoder_mh_kv_adapter", "sequential_va",
+            "vpa_residual_gate", "mh_vpa", "pair_vpa", "decoder_adapters",
+            "ia3", "lowrank_visual_projector", "track_z")
+ABL_TRAIN = tuple(f"abl_{n}" for n in ABL_BART) + ("abl_track_z_lambda0",
+                                                   "abl_vlpet_large")
+ABL_T5_TRAIN = ("abl_t5_lowrank_visual_projector", "abl_t5_vlpet_large")
+ABL_DECODE = ("key_parallel", "decoder_mh_kv_adapter", "sequential_va",
+              "vpa_residual_gate", "mh_vpa", "pair_vpa", "decoder_adapters",
+              "ia3")
+ABL_EVAL_NAMES = ("key_parallel", "sequential_va", "decoder_adapters", "ia3")
+ABL_EVAL = tuple(f"abl_{n}_eval" for n in ABL_EVAL_NAMES)
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
                                                CLI) + PET_TRAIN + PET_EVAL
-                        + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL),
+                        + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
+                        + ABL_TRAIN + ABL_EVAL),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
                             + (CLI_PROMPT,) + VS_TRAIN
-                            + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN),
+                            + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN
+                            + ABL_TRAIN),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
@@ -533,40 +574,43 @@ KERNELS = {
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
-                  + VS_EVAL_CLI + RAW_ALL),
+                  + VS_EVAL_CLI + RAW_ALL + ABL_TRAIN + ABL_EVAL),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195",
                       TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
                       + (CLI_PROMPT,) + VS_FFN_TRAIN
-                      + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN),
+                      + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN + ABL_TRAIN),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                              "vlpet_tpu/ops/fused_ln.py:251",
                              TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                              + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                             + RAW_TRAIN),
+                             + RAW_TRAIN + ABL_TRAIN),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
                                  TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                                  + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                                 + RAW_TRAIN),
+                                 + RAW_TRAIN + ABL_TRAIN),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
                            + (CLI_PROMPT, VS_CAP_EVAL, CLI_VIDEO, RAW_EVAL,
-                              CLI_FEATURES)),
+                              CLI_FEATURES) + ABL_EVAL),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
                  DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)
-                 + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)),
+                 + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)
+                 + ABL_EVAL),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                             "vlpet_tpu/ops/ffn.py:354", ("t5_gated_train",)),
     "fused_attention +bias +dropout": ("vlpet_tpu_torch/csrc/attention.cu",
                                        "vlpet_tpu/ops/attention.py:408",
-                                       T5_TRAIN + (T5V_TRAIN, FULL_FT)),
+                                       T5_TRAIN + (T5V_TRAIN, FULL_FT)
+                                       + ABL_T5_TRAIN),
     "fused_attention_bwd +bias +dropout": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
-        "vlpet_tpu/ops/attention.py:1082", T5_TRAIN + (T5V_TRAIN, FULL_FT)),
+        "vlpet_tpu/ops/attention.py:1082", T5_TRAIN + (T5V_TRAIN, FULL_FT)
+        + ABL_T5_TRAIN),
     "fused_attention_bwd +dbias": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", (FULL_FT, BITFIT, T5V_BITFIT)),
@@ -579,10 +623,10 @@ KERNELS = {
         "vlpet_tpu/ops/attention.py:641", (T5V_BITFIT,)),
     "fused_ffn relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                 "vlpet_tpu/ops/ffn.py:175",
-                                ("t5_train", T5V_TRAIN)),
+                                ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN),
     "fused_ffn_bwd relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                     "vlpet_tpu/ops/ffn.py:195",
-                                    ("t5_train", T5V_TRAIN)),
+                                    ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN),
     "fused_gated_ffn +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                  "vlpet_tpu/ops/ffn.py:334",
                                  ("t5_gated_train",)),
@@ -595,7 +639,8 @@ KERNELS = {
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
                           "vlpet_tpu/ops/cache_update.py:31",
                           DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)
-                          + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)),
+                          + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)
+                          + ABL_EVAL),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -610,7 +655,8 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
-    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
+    + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL \
+    + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -3414,7 +3460,9 @@ def train_parity(label: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
 def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
                           tasks, task: str, lr: float, path: str,
                           watch: str = None,
-                          second_reference: bool = False) -> dict:
+                          second_reference: bool = False,
+                          lambda_z: float = 0.0,
+                          elementwise: bool = False) -> dict:
     """K = 3 fp32 steps, each taken twice from the same parameters and
     optimizer state -- through the plain twins, then through the kernels
     -- with the same dropout seeds; the next step starts from the plain
@@ -3446,7 +3494,17 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
     path, parts the two plain steps by more than these tolerances (an
     RMSNorm scale's update by 1.43e-3 of itself), as far as the kernels'
     step parts from the fp32 plain one: a relu pre-activation within an
-    fp32 rounding of 0 decides a row of the backward (PERF.md, Findings)."""
+    fp32 rounding of 0 decides a row of the backward (PERF.md, Findings).
+    ``lambda_z`` is the steps' z regularizer weight (train/steps.py).
+
+    ``elementwise`` (phase 6j) holds each step's parameters, kernels vs
+    plain, by phase 6's elementwise tolerances (``check_params``: rtol
+    PARAM_RTOL, atol PARAM_ATOL_SCALE * max|p|) in place of the L2 update
+    ratio, whose 1e-3 no tensor with a zero true gradient can meet: the
+    key parallel adapter's up bias adds one vector to every key of a
+    sequence, which the softmax cancels, so its gradient is fp32 noise
+    (kernels and plain sum in other orders) and Adam turns that noise into
+    updates of either sign (PERF.md, Findings)."""
     K = 3
     model = build_model("float32", cfg_fn)
     unzero(model)
@@ -3454,7 +3512,8 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
     batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
     opts = [build_optimizer(trainable, lr=lr, total_steps=K + 1)
             for _ in range(3 if second_reference else 2)]
-    steps = [make_train_step(model, opt, tasks) for opt in opts]
+    steps = [make_train_step(model, opt, tasks, lambda_z=lambda_z)
+             for opt in opts]
     task_idx = tasks.index(task)
     rows, worst, floor, launched = [], 0.0, 0.0, {}
     worst_fp32 = 0.0  # against the fp32 plain step alone
@@ -3491,8 +3550,12 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
         rows.append(check_step(i, got, want, want2))
         kernel_after = snapshot(trainable)
         restore(trainable, refs[0])
-        ratios = check_updates(kernel_after, refs, start)
-        worst = max(worst, max(ratios.values()))
+        if elementwise:
+            worst = max(worst, check_params(trainable, kernel_after, start))
+            ratios = {}
+        else:
+            ratios = check_updates(kernel_after, refs, start)
+            worst = max(worst, max(ratios.values()))
         if second_reference:
             def largest(a, b):
                 return max((a[n] - b[n]).norm().item()
@@ -3506,10 +3569,14 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
     print(f"  fp32 {label} dropout 0.1, {K} steps each from the plain "
           f"state, loss kernel/plain and grad norm: {'; '.join(rows)}",
           flush=True)
-    print(f"  {len(trainable)} trainable tensors: every step's update within "
-          f"{PARAM_RTOL} of the plain update (L2 per tensor"
-          f"{', either plain reference' if second_reference else ''}), "
-          f"largest ratio {worst:.2e}"
+    rule = (f"every step's parameters within rtol {PARAM_RTOL}, atol "
+            f"{PARAM_ATOL_SCALE} max|p| of the plain step's, largest "
+            f"|kernel - plain| / largest update" if elementwise else
+            f"every step's update within {PARAM_RTOL} of the plain update "
+            f"(L2 per tensor"
+            f"{', either plain reference' if second_reference else ''}), "
+            f"largest ratio")
+    print(f"  {len(trainable)} trainable tensors: {rule} {worst:.2e}"
           + (f" (against the fp32 plain step alone {worst_fp32:.2e}; "
              f"fp64-fc1 plain vs plain {floor:.2e})" if second_reference
              else "") + f"; launches {launched}", flush=True)
@@ -3551,17 +3618,18 @@ def step_vs_plain(label: str, step, trainable, batch, gen, task_idx) -> None:
 
 def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
                 task: str, lr: float, path: str, label: str,
-                vs_plain: bool = False, tc_only: bool = True):
-    """3 warm-up steps, then 10 timed steps ending in one sync; the
-    launches of the timed steps (the ``path`` main-path run). With
-    ``vs_plain``, then one step kernels vs plain (``step_vs_plain``);
-    ``tc_only`` requires the tensor-core routes (``require_tc``)."""
-    warm, timed = 3, 10
+                vs_plain: bool = False, tc_only: bool = True,
+                warm: int = 3, timed: int = 10, lambda_z: float = 0.0):
+    """``warm`` warm-up steps, then ``timed`` timed steps ending in one
+    sync; the launches of the timed steps (the ``path`` main-path run).
+    With ``vs_plain``, then one step kernels vs plain (``step_vs_plain``);
+    ``tc_only`` requires the tensor-core routes (``require_tc``);
+    ``lambda_z`` is the z regularizer weight (train/steps.py)."""
     model = build_model("bfloat16", cfg_fn)
     trainable = apply_freezing(model, model.cfg.pet)
     batch = batch_fn(B, model.cfg.backbone.vocab_size, seed)
     opt = build_optimizer(trainable, lr=lr, total_steps=warm + timed + 1)
-    step = make_train_step(model, opt, tasks)
+    step = make_train_step(model, opt, tasks, lambda_z=lambda_z)
     gen = torch.Generator(device="cuda").manual_seed(9)
     task_idx = tasks.index(task)
     for _ in range(warm):
@@ -5822,6 +5890,217 @@ def profile_run(run, card: str, what: str) -> None:
           flush=True)
 
 
+# phases 6j and 7j: the VL-PET ablation flags, each family the
+# VL-PET-large recipe (flagship_cfg: r 96, 4 heads, gate 96, VPA 96) with
+# one group of flags swapped in at those dims. Every flag group below is
+# {PetConfig or VisConfig field: value} over VL-PET-large's.
+_NO_LARGE_GATE = dict(use_encoder_adapter_gating_large_x_lowrank=False)
+_NO_VPA = dict(use_decoder_enc_attn_value_parallel_adapter_down_dim=False)
+_NO_DOWN_MH = dict(use_encoder_adapter_down_multihead=False,
+                   use_encoder_multihead_up_zero_init=True)
+_VPA_HEADS = dict(_NO_VPA,
+                  decoder_enc_attn_value_parallel_adapter_multihead_num_head=4)
+_LOWRANK_VIS = dict(use_lowrank_visual_projector=True,
+                    visual_projector_down_dim=96,
+                    visual_projector_multihead_num_head=4,
+                    use_visual_projector_gating_large_x_lowrank=True,
+                    visual_projector_gating_down_dim=96)
+ABLATIONS = {
+    # 0: VL-PET-large itself, phase 7j's reference in the same call
+    "vlpet_large": (0, {}),
+    # 1: the multihead adapter shapes, their ups zero-initialised
+    "mh_up": (1, dict(_NO_DOWN_MH, use_encoder_adapter_up_multihead=True)),
+    "mh_down_up": (1, dict(_NO_DOWN_MH,
+                           use_encoder_adapter_down_up_multihead=True)),
+    "mh_pair": (1, dict(_NO_DOWN_MH,
+                        use_encoder_adapter_down_up_pair_multihead=True)),
+    # 2: the gate's normalisation
+    "gating_layernorm": (2, dict(_NO_LARGE_GATE,
+                                 use_encoder_adapter_gating_layernorm=True)),
+    "gating_l2norm": (2, dict(_NO_LARGE_GATE,
+                              use_encoder_adapter_gating_l2norm=True)),
+    # 3: the standalone gate, both forms
+    "standalone_gating": (3, dict(_NO_LARGE_GATE,
+                                  use_encoder_gating_large_x_lowrank=True,
+                                  gating_down_dim=96)),
+    "standalone_gating_add_x2": (3, dict(
+        _NO_LARGE_GATE, use_encoder_gating_large_x_lowrank=True,
+        gating_down_dim=96,
+        use_encoder_gating_large_x_lowrank_add_x2_deltay=True)),
+    # 4: the key parallel adapter beside the VPA
+    "key_parallel": (4, dict(
+        use_decoder_enc_attn_key_parallel_adapter_down_dim=True,
+        decoder_enc_attn_key_parallel_adapter_down_dim=96)),
+    # 5: the decoder's multihead adapters and the key-value adapter
+    "decoder_mh_kv_adapter": (5, dict(
+        use_decoder_adapter_down_multihead=True,
+        decoder_adapter_multihead_num_head=4,
+        use_decoder_enc_attn_key_value_adapter_down_dim=True,
+        decoder_enc_attn_key_value_adapter_down_dim=96)),
+    # 6: the sequential value adapter with the residual and its gate
+    "sequential_va": (6, dict(
+        _NO_VPA, use_decoder_enc_attn_value_sequential_adapter_down_dim=True,
+        decoder_enc_attn_value_sequential_adapter_down_dim=96,
+        use_decoder_enc_attn_value_residual_connection=True,
+        use_decoder_enc_attn_value_sequential_adapter_gating_large_x_lowrank=True,
+        decoder_enc_attn_value_sequential_adapter_gating_large_x_lowrank_down_dim=96)),
+    # 7: the VPA with the residual gate; the multihead and pair VPAs
+    "vpa_residual_gate": (7, dict(
+        use_decoder_enc_attn_value_residual_connection=True,
+        use_decoder_enc_attn_value_parallel_adapter_gating_large_x_lowrank=True,
+        decoder_enc_attn_value_parallel_adapter_gating_large_x_lowrank_down_dim=96)),
+    "mh_vpa": (7, dict(
+        _VPA_HEADS,
+        use_decoder_enc_attn_value_parallel_adapter_down_multihead=True)),
+    "pair_vpa": (7, dict(
+        _VPA_HEADS,
+        use_decoder_enc_attn_value_parallel_adapter_down_up_pair_multihead=True)),
+    # 8: the decoder's down-dim adapters and the cross gate
+    "decoder_adapters": (8, dict(
+        use_decoder_self_attn_adapter_down_dim=True,
+        decoder_self_attn_adapter_down_dim=96,
+        use_decoder_enc_attn_adapter_down_dim=True,
+        decoder_enc_attn_adapter_down_dim=96,
+        use_decoder_enc_attn_adapter_gating_large_x_lowrank=True,
+        decoder_enc_attn_adapter_gating_large_x_lowrank_down_dim=96,
+        use_decoder_ff_adapter_down_dim=True, decoder_ff_adapter_down_dim=96)),
+    # 9: IA3 on the cross value and the decoder FFN in place of the VPA,
+    # with the four value flags that build nothing
+    "ia3": (9, dict(
+        _NO_VPA, use_decoder_enc_attn_value_ia3=True,
+        use_decoder_enc_attn_value_ia3_add=True,
+        use_decoder_enc_attn_value_ia3_one_init=True,
+        use_decoder_ff_ia3=True, use_decoder_ff_ia3_add=True,
+        use_decoder_ff_ia3_one_init=True, use_encoder_attn_value_ia3=True,
+        use_decoder_self_attn_value_ia3=True,
+        use_encoder_attn_value_parallel_adapter_down_dim=True,
+        encoder_attn_value_parallel_adapter_down_dim=96,
+        use_decoder_self_attn_value_parallel_adapter_down_dim=True,
+        decoder_self_attn_value_parallel_adapter_down_dim=96)),
+    # 10: the low-rank visual projector (BART here, T5-base below)
+    "lowrank_visual_projector": (10, _LOWRANK_VIS),
+    # 11: single_adapter.sh's flags with --track_z --lambda_z 1e-3
+    "track_z": (11, dict(track_z=True, lambda_z=1e-3)),
+}
+# phase 6j's depth, encoder and decoder layers each: at 6+6 (T5-base
+# 12+12) 6j took ~75 s and 7j ~45 s of the ~90 s the two may add to the
+# smoke, and T5-base's third fp32 step parted by 4.4e-5 in the gradient
+# norm (the 12+12 T5 drift of phase 6c; PERF.md, Findings)
+ABL_PARITY_LAYERS = 2
+
+
+def _with_fields(cfg, flags: dict):
+    """``cfg`` with each flag set on its PetConfig or VisConfig."""
+    pet = {k: v for k, v in flags.items() if hasattr(cfg.pet, k)}
+    vis = {k: v for k, v in flags.items() if k not in pet}
+    return dataclasses.replace(cfg, pet=dataclasses.replace(cfg.pet, **pet),
+                               vis=dataclasses.replace(cfg.vis, **vis))
+
+
+def ablation_cfg(name: str, layers=None):
+    """The configuration function of an ablation (``ABLATIONS``; the T5
+    one is ``t5_<name>``), with ``layers`` encoder and decoder layers each
+    where given."""
+    t5 = name.startswith("t5_")
+    flags = ABLATIONS[name[3:] if t5 else name][1]
+
+    def cfg(dtype: str = "float32"):
+        if t5:
+            base = t5_cfg(dtype)
+        elif name == "track_z":
+            base = pet_cfg("single_adapter")(dtype)
+        else:
+            base = flagship_cfg(dtype)
+        c = _with_fields(base, flags)
+        if layers is not None:
+            b = c.backbone
+            one = (dict(num_layers=layers, num_decoder_layers=layers) if t5
+                   else dict(encoder_layers=layers, decoder_layers=layers))
+            c = dataclasses.replace(c, backbone=dataclasses.replace(b, **one))
+        return c
+    return cfg
+
+
+def phase_ablation_parity() -> None:
+    """6j: per ablation (``ABLATIONS``, and the low-rank projector on
+    T5-base), phase 6c's fp32 per-step train parity (B 8, vqa, dropout
+    0.1, 3 steps, each from the plain state, kernels vs plain; from the
+    weights after ``unzero``) under phase 6's tolerances (loss and grad
+    norm 1e-5 relative, parameters elementwise: ``elementwise``; T5 by
+    6c's update ratio, as phase 6c holds T5) at ``ABL_PARITY_LAYERS``;
+    then, for the
+    families whose hooks reach the decode (4-9), phase 4 (a)'s beam-5 and
+    greedy caption tokens at B 8 to length 40 from the init, kernels vs
+    plain, identical."""
+    ctx = PetContext(task="caption", task_idx=3)
+    for name in ABL_BART + ("t5_lowrank_visual_projector",):
+        t0 = time.perf_counter()
+        cfg_fn = ablation_cfg(name, ABL_PARITY_LAYERS)
+        t5 = name.startswith("t5_")
+        lambda_z = ABLATIONS[name][1].get("lambda_z", 0.0) if not t5 else 0.0
+        train_parity_per_step(
+            f"{name} B8 vqa", cfg_fn,
+            make_t5_train_batch if t5 else make_train_batch, 8, 21,
+            FLAGSHIP_TASKS, "vqa", T5_LR if t5 else 1e-3, f"abl_{name}",
+            lambda_z=lambda_z, elementwise=not t5)
+        if name in ABL_DECODE:
+            model = build_model("float32", cfg_fn)
+            parity_run(f"{name} init std 0.02", model,
+                       make_batch(8, model.cfg.backbone.vocab_size, seed=7),
+                       ctx, 40, min_distinct=2)
+            del model
+        print(f"  {name} (family {ABLATIONS[name.replace('t5_', '')][0]}): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_ablation_bench(card: str) -> dict:
+    """7j: per ablation a bf16 vqa train step as phase 7 (B 500; T5-base
+    B 300 as phase 7c), timed over 5 steps after 2, beside VL-PET-large's
+    own on both backbones; the track_z recipe again at lambda_z 0; then
+    the beam-5 caption eval (B 500 to length 40, as phase 5) of families
+    4, 6, 8 and 9. Under the decoder FFN's IA3 the decoder's FFN takes the
+    plain chain, as in the JAX package: the ia3 step launches F1 and F2 at
+    the 6 encoder sites only, half VL-PET-large's. Prints a table of
+    ms/step, peak GiB and examples/s."""
+    launched = {}
+    runs = [(n, ablation_cfg(n), f"abl_{n}",
+             ABLATIONS[n][1].get("lambda_z", 0.0))
+            for n in ("vlpet_large",) + ABL_BART]
+    runs.append(("track_z lambda_z 0", ablation_cfg("track_z"),
+                 "abl_track_z_lambda0", 0.0))
+    runs += [(n, ablation_cfg(n), f"abl_{n}", 0.0)
+             for n in ("t5_vlpet_large", "t5_lowrank_visual_projector")]
+    for label, cfg_fn, path, lambda_z in runs:
+        t5 = path in ABL_T5_TRAIN
+        launched[path] = train_bench(
+            card, cfg_fn, make_t5_train_batch if t5 else make_train_batch,
+            300 if t5 else 500, 35 if t5 else 31, FLAGSHIP_TASKS, "vqa",
+            T5_LR if t5 else 1e-3, path, f"{label} vqa", warm=2, timed=5,
+            lambda_z=lambda_z)
+    for k in ("fused_ffn", "fused_ffn_bwd"):
+        ia3, base = launched["abl_ia3"][k], launched["abl_vlpet_large"][k]
+        if 2 * ia3 != base:
+            raise AssertionError(f"ia3: {k} launched {ia3} times, "
+                                 f"VL-PET-large {base}: expected half")
+    ctx = PetContext(task="caption", task_idx=3)
+    for name in ABL_EVAL_NAMES:
+        model = build_model("bfloat16", ablation_cfg(name))
+        path = f"abl_{name}_eval"
+        launched[path] = generate_bench(
+            card, model, make_batch(500, model.cfg.backbone.vocab_size,
+                                    seed=11), ctx, 40, path,
+            f"{name} beam5 len40")
+        del model
+    print(f"  phase 7j on {card}: path, ms/step, peak GiB, examples/s",
+          flush=True)
+    for path in launched:
+        r = RUNS[path]
+        ms = f"{r['ms_step']:.2f}" if "ms_step" in r else "-"
+        print(f"    {path}: {ms} ms/step, {r['peak_gib']:.2f} GiB, "
+              f"{r['ex_s']:.2f} ex/s", flush=True)
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     print("phase 1: environment", flush=True)
@@ -5936,6 +6215,11 @@ def main() -> int:
           "importers at full shape", flush=True)
     phase_raw_parity()
     print(f"  phase 6i: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 6j: the VL-PET ablation flags' train and decode parity, "
+          "fp32", flush=True)
+    phase_ablation_parity()
+    print(f"  phase 6j: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -5961,6 +6245,11 @@ def main() -> int:
     print("phase 7h: what the raw path costs, bf16", flush=True)
     launched.update(phase_raw_bench(card))
     print(f"  phase 7h: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 7j: the VL-PET ablation flags' train steps and evals, bf16",
+          flush=True)
+    launched.update(phase_ablation_bench(card))
+    print(f"  phase 7j: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
     t0 = time.perf_counter()

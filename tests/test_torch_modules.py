@@ -220,16 +220,20 @@ def test_unported_flags_raise_at_build():
     VLBart(dataclasses.replace(base, pet=pc.PetConfig(use_adapter=True)),
            device="cpu")
 
+    # and the VL-PET ablations: the L2 gate, the low-rank visual projector
+    VLBart(dataclasses.replace(base, pet=dataclasses.replace(
+        base.pet, use_encoder_adapter_gating_l2norm=True)), device="cpu")
+    VLBart(dataclasses.replace(base, vis=dataclasses.replace(
+        base.vis, use_lowrank_visual_projector=True)), device="cpu")
+
     for change in (dict(scan_layers=True), dict(classifier=True),
                    dict(remat="dots"),
                    dict(pet=dataclasses.replace(base.pet,
                                                 use_lm_head_adapter=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),
-                   dict(pet=dataclasses.replace(
-                       base.pet, use_encoder_adapter_gating_l2norm=True)),
                    dict(pet=pc.PetConfig(use_attn_prefix=True,
                                          encoder_prompt_len=2)),
                    dict(vis=dataclasses.replace(base.vis,
-                                                use_lowrank_visual_projector=True))):
+                                                use_vis_prefix=True))):
         with pytest.raises(NotImplementedError):
             VLBart(dataclasses.replace(base, **change), device="cpu")

@@ -4,7 +4,9 @@ initializers, on CPU.
 Each recipe of tests/test_torch_pet_recipes.py at d 128 (FFN 256, 1+1
 layers, vocab 512): the JAX model's ``init`` and the port's
 ``init_weights`` draw their own numbers, so they are held by
-distribution. Parameters are grouped by name with the layer index dropped
+distribution; the JAX side takes the recipe's re-inits
+(vlpet_tpu/train/freezing.py ``weight_initialization``), which the port's
+``init_weights`` ends with. Parameters are grouped by name with the layer index dropped
 (``layers_0`` and ``layers_1`` pool). Per group:
 
 * all zeros in JAX (``lora_B``, every zero-initialised bias) -> exactly
@@ -26,6 +28,7 @@ import torch
 from test_torch_gates import _models, port_cfg
 from test_torch_pet_recipes import RECIPES, recipe_cfg
 from vlpet_tpu.pet.modules import PetContext as JCtx
+from vlpet_tpu.train.freezing import weight_initialization
 from vlpet_tpu_torch.convert import flax_to_state_dict
 
 torch.set_num_threads(2)  # several xdist workers share the host
@@ -44,7 +47,12 @@ def _groups(named):
 
 @pytest.mark.parametrize("name", RECIPES)
 def test_port_init_matches_the_jax_initializers(name):
-    jcfg = recipe_cfg(name, **WIDTH)
+    check_init(recipe_cfg(name, **WIDTH))
+
+
+def check_init(jcfg):
+    """The port's init of ``jcfg``'s model against the JAX init, by the
+    rules of the module docstring."""
     J, T = _models(jcfg)
     v = jcfg.vis
     params = jax.device_get(J(jcfg).init(
@@ -53,6 +61,8 @@ def test_port_init_matches_the_jax_initializers(name):
                                                           v.feat_dim)),
         boxes=jnp.zeros((1, v.n_boxes, 4)),
         labels=jnp.ones((1, 2), jnp.int32), ctx=JCtx())["params"])
+    # the recipe's re-inits, which the port's init_weights ends with
+    params = weight_initialization(params, jcfg.pet)
     port = T(port_cfg(jcfg), device="cpu").init_weights(
         torch.Generator().manual_seed(0))
     want = _groups(flax_to_state_dict(params))

@@ -25,22 +25,22 @@ from vlpet_tpu_torch.data.tokenization import effective_vocab_size, get_tokenize
 def gate_modules(model):
     """(dump name, module) of every gate whose activation the JAX BART
     sows: per encoder layer and sublayer, the gate G that multiplies (or
-    is added to) the sublayer output -- middle-Y's vector is not one."""
+    is added to) the sublayer output -- middle-Y's vector and the two
+    norms are not one."""
     from vlpet_tpu_torch.models.bart import BartEncoderLayer
+    from vlpet_tpu_torch.models.norm import LayerNorm
     from vlpet_tpu_torch.pet.modules import IA3Vector
 
     out = []
     for name, layer in model.named_modules():
-        if not isinstance(layer, BartEncoderLayer) or layer.gate is None:
-            continue
-        _, suffix, cls = layer.gate
-        if cls is IA3Vector:
+        if not isinstance(layer, BartEncoderLayer):
             continue
         for prefix in ("attn", "ff"):
-            if layer._gated(prefix):
-                out.append((f"{name.replace('.', '_')}_encoder_{prefix}"
-                            f"_gate_[0]",
-                            getattr(layer, f"encoder_{prefix}_{suffix}")))
+            gate = layer.gate(prefix)
+            if gate is None or gate[2] in (None, IA3Vector, LayerNorm):
+                continue
+            out.append((f"{name.replace('.', '_')}_encoder_{prefix}_gate_[0]",
+                        getattr(layer, f"encoder_{prefix}_{gate[1]}")))
     return out
 
 

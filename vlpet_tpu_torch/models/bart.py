@@ -2,11 +2,14 @@
 vlpet_tpu/models/bart.py.
 
 Ported: the joint encoder (text + visual concat, the encoder prompt before
-the text) with the multihead down adapter and the VL-PET granularity gate
-(small, middleX, middleY, large, or the full d x d GateLargeX) after each
+the text) with the multihead adapter (down, up, down-up or pair) and the
+VL-PET granularity gate (small, middleX, middleY, large, the full d x d
+GateLargeX, the LayerNorm or L2 norm; the standalone gate) after each
 sublayer; the teacher-forcing decoder of training (causal self-attention,
-cross-attention over the encoder states with the value-parallel adapter
-on V); the incremental decoder (greedy and reorder-free beam); the PET
+cross-attention over the encoder states with the value and key hooks on
+its K/V: the VPA and its ablations; the decoder's down-dim and multihead
+adapters; the FFN's IA3); the incremental decoder (greedy and
+reorder-free beam); the PET
 baselines' hooks: serial adapters (bottleneck, Compacter, low-rank) after
 each sublayer of both stacks, LoRA on every q and v projection, the
 hyperformer's generated adapters; and the training-time dropout: the
@@ -14,15 +17,15 @@ embedding dropout, the residual dropout before each post-LN and LoRA's
 input dropout, all from the hash mask of ops/hashdrop.py with one seed per
 site (``DropoutSeeds``).
 Layers are registered as ``layers_{i}`` like the flax tree. Branches of the
-hook surface that the slice does not cover raise NotImplementedError when
+hook surface that the port does not cover raise NotImplementedError when
 the model is built (models/vlbart.py check_supported).
 
 Kernel call sites: every attention but the beam self-attention goes through
 ops.attention.fused_attention (A1 forward; A6 or, at the video path's long
 sequences, the long backward, as ops.attention.backward_route picks), every
-FFN through
-ops.ffn.fused_ffn (F1, F2) unless the language model trains or
-``use_fused_ffn`` is off, every dropping residual LayerNorm through
+FFN through ops.ffn.fused_ffn (F1, F2) unless the language model trains,
+``use_fused_ffn`` is off or the layer has the decoder FFN's IA3, every
+dropping residual LayerNorm through
 ops.fused_ln.fused_dropout_add_ln (L1, L2), beam self-attention through
 ops.decode.beam_decode_attend (D1) or, with ``use_fused_beam``,
 ops.decode.beam_decode_attend_update (D2, which also writes the cache
@@ -43,8 +46,8 @@ import torch.nn.functional as F
 from vlpet_tpu_torch.config import PromptSpec, VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
-from vlpet_tpu_torch.models.visual import (VisualEmbedding,
-                                           joint_attention_mask)
+from vlpet_tpu_torch.models.visual import (joint_attention_mask,
+                                           visual_embedding_class)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
@@ -61,12 +64,14 @@ from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
 from vlpet_tpu_torch.pet.hypernet import (MetaLayersAdapterController,
                                           stack_hypernet)
-from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeX,
+from vlpet_tpu_torch.pet.modules import (MULTIHEAD_ADAPTERS,
+                                         AdapterController, GateLargeX,
                                          GateLargeXLowRank, GateMiddleXYAdd,
                                          GateSmallXYCat, IA3Vector, LoRADense,
-                                         MultiheadDownAdapter, PetContext,
+                                         MultiheadDownAdapter,
+                                         MultiheadPairAdapter, PetContext,
                                          TaskDense, build_gate,
-                                         shared_phm_W_dims)
+                                         get_activation, shared_phm_W_dims)
 from vlpet_tpu_torch.pet.prompts import PromptController
 
 NEG_INF = -1e9  # additive-mask constant of the JAX package
@@ -138,8 +143,18 @@ class ResidualDropoutLayerNorm(nn.Module):
 def _ffn(layer: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
     """fc1 -> act -> fc2 of a layer: through F1/F2 (or their plain twin),
     or the plain chain when ``use_fused_ffn`` is off or the language model
-    trains (the kernels have no weight gradient), as in the JAX package."""
+    trains (the kernels have no weight gradient), as in the JAX package.
+    A decoder layer with the FFN's IA3 vector (``decoder_ff_ia3_mod``)
+    scales the hidden between act and fc2, h * g (h + h * g under
+    ``use_decoder_ff_ia3_add``): the plain chain always, as the JAX
+    package leaves fused_ffn there (vlpet_tpu/models/bart.py:842-859)."""
     c = layer.cfg
+    ia3 = layer._modules.get("decoder_ff_ia3_mod")
+    if ia3 is not None:
+        h = get_activation(act)(layer.fc1(x))
+        g = ia3().to(h.dtype)
+        h = h + h * g if c.pet.use_decoder_ff_ia3_add else h * g
+        return layer.fc2(h)
     fn = (route(fused_ffn, ffn_reference)
           if c.use_fused_ffn and not c.pet.unfreeze_language_model
           else ffn_reference)
@@ -173,17 +188,75 @@ class BartAttention(nn.Module):
                             if self.lora and name != "k_proj"
                             else TaskDense(embed_dim, embed_dim, **kw))
         self.out_proj = TaskDense(embed_dim, embed_dim, **kw)
-        self.has_vpa = (role == "cross" and
-                        p.use_decoder_enc_attn_value_parallel_adapter_down_dim)
-        if self.has_vpa:
-            scaling = (p.decoder_enc_attn_value_parallel_adapter_scaling_factor
-                       if p.use_decoder_enc_attn_value_parallel_adapter_scaling
-                       else None)
-            spec = p.down_dim_spec(
-                embed_dim, p.decoder_enc_attn_value_parallel_adapter_down_dim,
-                parallel=True, scaling=scaling)
-            self.attn_value_parallel_adapter = AdapterController(
-                spec, phm_W_dims=shared_phm_W_dims(p, embed_dim), **kw)
+        self._hooks(p, embed_dim, kw)
+
+    def _hooks(self, p, d: int, kw) -> None:
+        """The value and key hooks (vlpet_tpu/models/bart.py:195-257), in
+        the JAX elif order, under the JAX names. On the cross role: one
+        value hook (the VPA ``attn_value_parallel_adapter``, the sequential
+        ``enc_attn_value_sequential_adapter``, the IA3 ``value_ia3``, or a
+        multihead or pair VPA ``attn_value_parallel_adapter_multihead``),
+        the key parallel adapter ``attn_key_parallel_adapter`` and, under
+        the residual connection, the value gate. The self roles' value
+        flags (``use_encoder_attn_value_ia3``,
+        ``use_decoder_self_attn_value_ia3``,
+        ``use_encoder_attn_value_parallel_adapter_down_dim``,
+        ``use_decoder_self_attn_value_parallel_adapter_down_dim``) build
+        nothing: the JAX package defines their modules in ``setup`` and
+        never calls them (value hooks fire only on the cross path), so
+        flax creates no parameters for them."""
+        ac = dict(phm_W_dims=shared_phm_W_dims(p, d), **kw)
+        multihead_vpa = self._multihead_vpa(p)
+        if self.role == "cross":
+            if p.use_decoder_enc_attn_value_parallel_adapter_down_dim:
+                scaling = (
+                    p.decoder_enc_attn_value_parallel_adapter_scaling_factor
+                    if p.use_decoder_enc_attn_value_parallel_adapter_scaling
+                    else None)
+                spec = p.down_dim_spec(
+                    d, p.decoder_enc_attn_value_parallel_adapter_down_dim,
+                    parallel=True, scaling=scaling)
+                self.attn_value_parallel_adapter = AdapterController(spec,
+                                                                     **ac)
+            elif p.use_decoder_enc_attn_value_sequential_adapter_down_dim:
+                self.enc_attn_value_sequential_adapter = AdapterController(
+                    p.down_dim_spec(
+                        d, p.decoder_enc_attn_value_sequential_adapter_down_dim),
+                    **ac)
+            elif p.use_decoder_enc_attn_value_ia3:
+                self.value_ia3 = IA3Vector(d, "attn_value_ia3",
+                                           device=kw["device"])
+            elif multihead_vpa is not None:
+                self.attn_value_parallel_adapter_multihead = multihead_vpa(
+                    d, p.decoder_enc_attn_value_parallel_adapter_down_dim,
+                    p.decoder_enc_attn_value_parallel_adapter_multihead_num_head,
+                    **kw)
+            if p.use_decoder_enc_attn_key_parallel_adapter_down_dim:
+                self.attn_key_parallel_adapter = AdapterController(
+                    p.down_dim_spec(
+                        d, p.decoder_enc_attn_key_parallel_adapter_down_dim,
+                        parallel=True), **ac)
+            # the residual's gate: the sequential adapter's, else the VPA's
+            for kind in ("sequential", "parallel"):
+                flag = (f"decoder_enc_attn_value_{kind}_adapter_gating_"
+                        f"large_x_lowrank")
+                if (p.use_decoder_enc_attn_value_residual_connection
+                        and getattr(p, "use_" + flag)):
+                    self.add_module(
+                        f"enc_attn_value_{kind}_adapter_gating_large_x",
+                        GateLargeXLowRank(d, getattr(p, flag + "_down_dim"),
+                                          **kw))
+                    break
+
+    @staticmethod
+    def _multihead_vpa(p):
+        """The multihead VPA's class (down, or pair), or None."""
+        v = "use_decoder_enc_attn_value_parallel_adapter_down"
+        if getattr(p, v + "_multihead"):
+            return MultiheadDownAdapter
+        if getattr(p, v + "_up_pair_multihead"):
+            return MultiheadPairAdapter
+        return None
 
     def fused_qkv(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """The q/k/v projections as one (3d, d) weight and (3d,) bias; None
@@ -221,12 +294,36 @@ class BartAttention(nn.Module):
 
     def compute_cross_kv(self, kv_states: torch.Tensor, ctx: PetContext,
                          seeds: Optional[DropoutSeeds] = None):
-        """Cross K/V (B, S, H*Dh), LoRA's v and the VPA included: computed
-        once per sequence."""
+        """Cross K/V (B, S, H*Dh) with LoRA's v and the hooks
+        (vlpet_tpu/models/bart.py:303-330): the key parallel adapter on k;
+        on v the VPA (on the raw states, added to v), the sequential
+        adapter (replacing v), IA3 (v * g, or v + v * g), or the multihead
+        / pair VPA (v + A(states)); then, under the residual connection, v
+        times its gate where there is one, plus the states in v's dtype.
+        Computed once per sequence: the training pass and the decode
+        precompute both come here."""
+        p, mods = self.cfg.pet, self._modules
         k = self.k_proj(kv_states)
+        if "attn_key_parallel_adapter" in mods:
+            k = self.attn_key_parallel_adapter(kv_states, ctx, y=k)
         v = self._proj(self.v_proj, kv_states, ctx, seeds)
-        if self.has_vpa:
+        if "attn_value_parallel_adapter" in mods:
             v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
+        elif "enc_attn_value_sequential_adapter" in mods:
+            v = self.enc_attn_value_sequential_adapter(kv_states, ctx)
+        elif "value_ia3" in mods:
+            # the JAX product promotes a bf16 v to fp32; the port keeps v's
+            # dtype, the attention's (the same values in fp32)
+            g = self.value_ia3().to(v.dtype)
+            v = v + v * g if p.use_decoder_enc_attn_value_ia3_add else v * g
+        elif "attn_value_parallel_adapter_multihead" in mods:
+            v = v + self.attn_value_parallel_adapter_multihead(kv_states)
+        if p.use_decoder_enc_attn_value_residual_connection:
+            gate = (mods.get("enc_attn_value_sequential_adapter_gating_large_x")
+                    or mods.get("enc_attn_value_parallel_adapter_gating_large_x"))
+            if gate is not None:
+                v = v * gate(kv_states)
+            v = kv_states.to(v.dtype) + v
         return k, v
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
@@ -287,31 +384,41 @@ class BartAttention(nn.Module):
 
 class BartEncoderLayer(nn.Module):
     """Post-LN encoder layer with the hook chain after each sublayer
-    (vlpet_tpu/models/bart.py:545-608), in JAX's order: the serial adapter
+    (vlpet_tpu/models/bart.py:543-610), in JAX's order: the serial adapter
     (an AdapterController ``attn_adapter`` / ``ff_adapter`` of the
     bottleneck, Compacter or low-rank kind, with the optional per-sublayer
-    scaling) or h + MultiheadDownAdapter(h); then one of the granularity
-    gates -- h * G with G from GateLargeX(x1), GateLargeXLowRank(x1),
-    GateSmallXYCat(x1, h) or GateMiddleXYAdd(x1, h) (x1 the sublayer input;
-    h + G under ``use_encoder_adapter_gating_add``), or middle-Y's h + h * v
-    (h + 1 + v under the add flag); then the hyperformer adapter
-    (``adapter_hypernet``) with the layer's generated weights
-    (``ctx.block_adapters``); then the optional gating scale. Neither the
-    serial adapter nor a gate sits on the attention sublayer under
-    ``no_encoder_attn_adapter``."""
+    scaling) or h + A(h), A the multihead adapter of the recipe's shape
+    (``MULTIHEAD_ADAPTERS``: down, up, down-up or pair); then the first of
+    ``GATES`` whose flag is set -- h * G with G from GateLargeX(x1),
+    GateLargeXLowRank(x1), GateSmallXYCat(x1, h) or GateMiddleXYAdd(x1, h)
+    (x1 the sublayer input; h + G under ``use_encoder_adapter_gating_add``),
+    middle-Y's h + h * v (h + 1 + v under the add flag), or h normalised
+    by a LayerNorm or by its L2 norm; then the standalone gate
+    (``use_encoder_gating_large_x_lowrank``: G, dy = GateLargeXLowRank(x1)
+    with its pre-sigmoid dy, dy + h * G, or (dy + h) * G under
+    ``_add_x2_deltay``); then the hyperformer adapter (``adapter_hypernet``)
+    with the layer's generated weights (``ctx.block_adapters``); then the
+    optional gating scale. Under ``no_encoder_attn_adapter`` neither the
+    serial adapter, nor a gate other than the two norms, nor the standalone
+    gate sits on the attention sublayer."""
 
-    # (flag, module suffix, class) in the JAX elif order
+    # (flag, module suffix, class, whether no_encoder_attn_adapter keeps it
+    # off the attention sublayer) in the JAX elif order
+    # (vlpet_tpu/models/bart.py:566-588); L2 has no module
     GATES = (
         ("use_encoder_adapter_gating_large_x", "adapter_gating_large_x",
-         GateLargeX),
+         GateLargeX, True),
         ("use_encoder_adapter_gating_large_x_lowrank",
-         "adapter_gating_large_x_lowrank", GateLargeXLowRank),
+         "adapter_gating_large_x_lowrank", GateLargeXLowRank, True),
         ("use_encoder_adapter_gating_small_xy_cat",
-         "adapter_gating_small_xy_cat", GateSmallXYCat),
+         "adapter_gating_small_xy_cat", GateSmallXYCat, True),
         ("use_encoder_adapter_gating_middle_xy_add",
-         "adapter_gating_middle_xy_add", GateMiddleXYAdd),
+         "adapter_gating_middle_xy_add", GateMiddleXYAdd, True),
         ("use_encoder_adapter_gating_middle_ia3_add",
-         "adapter_gating_middle_ia3_add", IA3Vector),
+         "adapter_gating_middle_ia3_add", IA3Vector, True),
+        ("use_encoder_adapter_gating_layernorm", "adapter_gating_layernorm",
+         LayerNorm, False),
+        ("use_encoder_adapter_gating_l2norm", None, None, False),
     )
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
@@ -329,10 +436,10 @@ class BartEncoderLayer(nn.Module):
         self.fc2 = TaskDense(b.encoder_ffn_dim, d, **kw)
         self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, b.dropout,
                                                          device=device)
-        self.gate = next(((flag, suffix, cls) for flag, suffix, cls
-                          in self.GATES if getattr(p, flag)), None)
         self.serial = ((p.use_adapter or p.use_compacter or p.use_lradapter)
                        and not p.no_encoder_adapter)
+        self.multihead = next((cls for flag, cls in MULTIHEAD_ADAPTERS
+                               if getattr(p, flag)), None)
         if p.use_hyperformer:
             self.adapter_hypernet = MetaLayersAdapterController(
                 add_layer_norm_before_adapter=p.add_layer_norm_before_adapter,
@@ -347,43 +454,66 @@ class BartEncoderLayer(nn.Module):
                             p, f"encoder_{prefix}_adapter_scaling_factor"))
                 self.add_module(f"{prefix}_adapter", AdapterController(
                     spec, phm_W_dims=shared_phm_W_dims(p, d), **kw))
-            elif p.use_encoder_adapter_down_multihead:
-                self.add_module(f"{prefix}_adapter_multihead",
-                                MultiheadDownAdapter(
-                                    d, p.adapter_down_dim,
-                                    p.encoder_adapter_multihead_num_head, **kw))
-            if self._gated(prefix):
-                _, suffix, cls = self.gate
+            elif self.multihead is not None:
+                self.add_module(f"{prefix}_adapter_multihead", self.multihead(
+                    d, p.adapter_down_dim, p.encoder_adapter_multihead_num_head,
+                    **kw))
+            gate = self.gate(prefix)
+            if gate is not None and gate[2] is not None:
+                _, suffix, cls, _ = gate
                 self.add_module(f"encoder_{prefix}_{suffix}",
-                                build_gate(cls, d, p, **kw))
+                                LayerNorm(d, **kw) if cls is LayerNorm
+                                else build_gate(cls, d, p, **kw))
+            if self._standalone(prefix):
+                self.add_module(f"encoder_{prefix}_gating_large_x_lowrank",
+                                GateLargeXLowRank(d, p.gating_down_dim, **kw))
 
-    def _gated(self, prefix: str) -> bool:
-        return (self.gate is not None and not (
-            prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter))
+    def _attn_off(self, prefix: str) -> bool:
+        return prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter
+
+    def gate(self, prefix: str):
+        """The ``GATES`` entry on sublayer ``prefix``, or None."""
+        return next((g for g in self.GATES if getattr(self.cfg.pet, g[0])
+                     and not (g[3] and self._attn_off(prefix))), None)
 
     def _serial(self, prefix: str) -> bool:
-        return self.serial and not (
-            prefix == "attn" and self.cfg.pet.no_encoder_attn_adapter)
+        return self.serial and not self._attn_off(prefix)
+
+    def _standalone(self, prefix: str) -> bool:
+        return (self.cfg.pet.use_encoder_gating_large_x_lowrank
+                and not self._attn_off(prefix))
 
     def _hooks(self, h: torch.Tensor, residual: torch.Tensor, prefix: str,
                ctx: PetContext, block_w) -> torch.Tensor:
         p = self.cfg.pet
         if self._serial(prefix):
             h = getattr(self, f"{prefix}_adapter")(h, ctx)
-        elif p.use_encoder_adapter_down_multihead:
+        elif self.multihead is not None:
             h = h + getattr(self, f"{prefix}_adapter_multihead")(h)
-        if self._gated(prefix):
-            _, suffix, cls = self.gate
-            mod = getattr(self, f"encoder_{prefix}_{suffix}")
-            if cls is IA3Vector:
+        gate = self.gate(prefix)
+        if gate is not None:
+            _, suffix, cls, _ = gate
+            mod = self._modules.get(f"encoder_{prefix}_{suffix}")
+            if cls is None:  # L2: a clip, not an added eps
+                h = h / torch.linalg.vector_norm(
+                    h, dim=-1, keepdim=True).clamp_min(1e-12)
+            elif cls is LayerNorm:
+                h = mod(h)
+            elif cls is IA3Vector:
                 g = mod()
                 if p.use_encoder_adapter_gating_add:
                     h = h + torch.ones_like(h) + g
                 else:
                     h = h + h * g.to(h.dtype)
             else:
-                gate = mod(residual, h)
-                h = (h + gate) if p.use_encoder_adapter_gating_add else h * gate
+                g = mod(residual, h)
+                h = (h + g) if p.use_encoder_adapter_gating_add else h * g
+        if self._standalone(prefix):
+            g, dy = getattr(self, f"encoder_{prefix}_gating_large_x_lowrank")(
+                residual, return_pre_sigmoid=True)
+            h = ((dy + h) * g
+                 if p.use_encoder_gating_large_x_lowrank_add_x2_deltay
+                 else dy + h * g)
         if p.use_hyperformer and block_w is not None:
             h = self.adapter_hypernet(h, block_w)
         if p.use_encoder_gating_scaling:
@@ -413,21 +543,34 @@ class BartEncoderLayer(nn.Module):
 
 
 class BartDecoderLayer(nn.Module):
-    """Post-LN decoder layer: self-attention, cross-attention (VPA on V),
-    FFN; each sublayer's output goes through its serial adapter
-    (``self_attn_adapter``, ``enc_attn_adapter`` under
-    ``add_adapter_cross_attn``, ``ff_adapter``) and then the hyperformer
-    adapter (``adapter_hypernet``, the layer's generated weights in
-    ``ctx.block_adapters``) before its LayerNorm
-    (vlpet_tpu/models/bart.py:710-727, :786-869). ``forward`` is the
-    incremental decode step (self-attention over the cache,
-    cross-attention over precomputed K/V); ``teacher_force`` the training
-    pass over the whole target sequence."""
+    """Post-LN decoder layer: self-attention, cross-attention (the value
+    and key hooks on its K/V), FFN (IA3 on its hidden under
+    ``use_decoder_ff_ia3``); each sublayer's output goes through the
+    first adapter of ``ADAPTERS[part]`` that the layer has -- the serial
+    adapter (``self_attn_adapter``, ``enc_attn_adapter`` under
+    ``add_adapter_cross_attn``, ``ff_adapter``), the down-dim adapter
+    (``decoder_*_adapter``; the cross one then times its gate on the
+    sublayer input, ``decoder_enc_attn_adapter_gating_large_x``) or h +
+    the multihead down adapter (``*_adapter_multihead``) -- and then the
+    hyperformer adapter (``adapter_hypernet``, the layer's generated
+    weights in ``ctx.block_adapters``) before its LayerNorm
+    (vlpet_tpu/models/bart.py:710-869). The key-value adapter
+    (``decoder_enc_attn_key_value_adapter``) runs on the encoder states
+    before both K and V (``kv_states``). ``forward`` is the incremental
+    decode step (self-attention over the cache, cross-attention over
+    precomputed K/V); ``teacher_force`` the training pass over the whole
+    target sequence."""
 
-    # sublayer (a field of BlockAdapterWeights) -> its serial adapter
-    ADAPTERS = {"self_attention": "self_attn_adapter",
-                "cross_attention": "enc_attn_adapter",
-                "feed_forward": "ff_adapter"}
+    # sublayer (a field of BlockAdapterWeights) -> its adapters, in the JAX
+    # elif order: serial, down-dim, multihead
+    ADAPTERS = {"self_attention": ("self_attn_adapter",
+                                   "decoder_self_attn_adapter",
+                                   "self_attn_adapter_multihead"),
+                "cross_attention": ("enc_attn_adapter",
+                                    "decoder_enc_attn_adapter",
+                                    "enc_attn_adapter_multihead"),
+                "feed_forward": ("ff_adapter", "decoder_ff_adapter",
+                                 "ff_adapter_multihead")}
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -449,30 +592,69 @@ class BartDecoderLayer(nn.Module):
         self.fc1 = TaskDense(d, b.decoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.decoder_ffn_dim, d, **kw)
         p = cfg.pet
-        if ((p.use_adapter or p.use_compacter or p.use_lradapter)
-                and not p.no_decoder_adapter):
-            for part, name in self.ADAPTERS.items():
-                if part != "cross_attention" or p.add_adapter_cross_attn:
-                    self.add_module(name, AdapterController(
-                        p.adapter_spec(d), phm_W_dims=shared_phm_W_dims(p, d),
-                        **kw))
+        ac = dict(phm_W_dims=shared_phm_W_dims(p, d), **kw)
+        serial = ((p.use_adapter or p.use_compacter or p.use_lradapter)
+                  and not p.no_decoder_adapter)
+        # one adapter a sublayer, the first the JAX elif reaches: flax
+        # creates no parameters for a module its forward never calls
+        for part, (name, down_dim, multihead) in self.ADAPTERS.items():
+            flag = f"use_{down_dim}_down_dim"
+            if serial and (part != "cross_attention"
+                           or p.add_adapter_cross_attn):
+                self.add_module(name, AdapterController(p.adapter_spec(d),
+                                                        **ac))
+            elif getattr(p, flag):
+                self.add_module(down_dim, AdapterController(p.down_dim_spec(
+                    d, getattr(p, flag[4:])), **ac))
+                gate = "decoder_enc_attn_adapter_gating_large_x_lowrank"
+                if part == "cross_attention" and getattr(p, "use_" + gate):
+                    self.decoder_enc_attn_adapter_gating_large_x = (
+                        GateLargeXLowRank(d, getattr(p, gate + "_down_dim"),
+                                          **kw))
+            elif p.use_decoder_adapter_down_multihead and not serial:
+                self.add_module(multihead, MultiheadDownAdapter(
+                    d, p.adapter_down_dim, p.decoder_adapter_multihead_num_head,
+                    **kw))
+        if p.use_decoder_enc_attn_key_value_adapter_down_dim:
+            self.decoder_enc_attn_key_value_adapter = AdapterController(
+                p.down_dim_spec(
+                    d, p.decoder_enc_attn_key_value_adapter_down_dim), **ac)
+        if p.use_decoder_ff_ia3:
+            self.decoder_ff_ia3_mod = IA3Vector(b.decoder_ffn_dim,
+                                                "decoder_ff_ia3", device=device)
         if p.use_hyperformer:
             self.adapter_hypernet = MetaLayersAdapterController(
                 add_layer_norm_before_adapter=p.add_layer_norm_before_adapter,
                 add_layer_norm_after_adapter=p.add_layer_norm_after_adapter,
                 dtype=dt)
 
-    def _adapt(self, h: torch.Tensor, part: str,
-               ctx: PetContext) -> torch.Tensor:
-        """Sublayer ``part``'s output through its serial adapter, then the
-        hyperformer adapter, where the layer has them."""
-        name = self.ADAPTERS[part]
-        if name in self._modules:
-            h = self._modules[name](h, ctx)
+    def _adapt(self, h: torch.Tensor, part: str, ctx: PetContext,
+               residual: torch.Tensor) -> torch.Tensor:
+        """Sublayer ``part``'s output (``residual`` its input) through its
+        adapter, then the hyperformer adapter, where the layer has them."""
+        mods = self._modules
+        name, down_dim, multihead = self.ADAPTERS[part]
+        if name in mods:
+            h = mods[name](h, ctx)
+        elif down_dim in mods:
+            h = mods[down_dim](h, ctx)
+            gate = mods.get(f"{down_dim}_gating_large_x")
+            if gate is not None:
+                h = h * gate(residual)
+        elif multihead in mods:
+            h = h + mods[multihead](h)
         block = ctx.block_adapters
         if block is not None and getattr(block, part) is not None:
             h = self.adapter_hypernet(h, getattr(block, part))
         return h
+
+    def kv_states(self, encoder_hidden_states: torch.Tensor,
+                  ctx: PetContext) -> torch.Tensor:
+        """The states the cross-attention's K and V read: the encoder's,
+        through the key-value adapter where the layer has one."""
+        kv = self._modules.get("decoder_enc_attn_key_value_adapter")
+        return (kv(encoder_hidden_states, ctx) if kv is not None
+                else encoder_hidden_states)
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
                 self_mask: Optional[torch.Tensor],
@@ -484,18 +666,18 @@ class BartDecoderLayer(nn.Module):
         h, cache = self.self_attn(hidden_states, ctx, attention_mask=self_mask,
                                   cache=cache, decode_pos=decode_pos,
                                   beam_anc=beam_anc, qkv=self_qkv)
-        h = self._adapt(h, "self_attention", ctx)
+        h = self._adapt(h, "self_attention", ctx, residual)
         hidden_states = self.self_attn_layer_norm(h, residual)
 
         residual = hidden_states
         h, _ = self.encoder_attn(hidden_states, ctx, attention_mask=cross_mask,
                                  cross_kv=cross_kv)
-        h = self._adapt(h, "cross_attention", ctx)
+        h = self._adapt(h, "cross_attention", ctx, residual)
         hidden_states = self.encoder_attn_layer_norm(h, residual)
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
-        h = self._adapt(h, "feed_forward", ctx)
+        h = self._adapt(h, "feed_forward", ctx, residual)
         hidden_states = self.final_layer_norm(h, residual)
         return hidden_states, cache
 
@@ -506,24 +688,30 @@ class BartDecoderLayer(nn.Module):
         """The training pass over the whole target sequence (B, T, d)."""
         residual = hidden_states
         h, _ = self.self_attn(hidden_states, ctx, seeds=seeds)
-        h = self._adapt(h, "self_attention", ctx)
+        h = self._adapt(h, "self_attention", ctx, residual)
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
         residual = hidden_states
-        h, _ = self.encoder_attn(hidden_states, ctx, attention_mask=cross_mask,
-                                 kv_states=encoder_hidden_states, seeds=seeds)
-        h = self._adapt(h, "cross_attention", ctx)
+        # the cross K/V through compute_cross_kv's path (kv_states, then
+        # BartAttention.compute_cross_kv), LoRA's q seed before v's
+        h, _ = self.encoder_attn(
+            hidden_states, ctx, attention_mask=cross_mask,
+            kv_states=self.kv_states(encoder_hidden_states, ctx), seeds=seeds)
+        h = self._adapt(h, "cross_attention", ctx, residual)
         hidden_states = self.encoder_attn_layer_norm(h, residual,
                                                      _seed(seeds))
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
-        h = self._adapt(h, "feed_forward", ctx)
+        h = self._adapt(h, "feed_forward", ctx, residual)
         return self.final_layer_norm(h, residual, _seed(seeds))
 
     def compute_cross_kv(self, encoder_hidden_states: torch.Tensor,
                          ctx: PetContext):
-        return self.encoder_attn.compute_cross_kv(encoder_hidden_states, ctx)
+        """The decode precompute of the cross K/V: the training pass's
+        path (``kv_states``, then BartAttention.compute_cross_kv)."""
+        return self.encoder_attn.compute_cross_kv(
+            self.kv_states(encoder_hidden_states, ctx), ctx)
 
 
 class JointEncoder(nn.Module):
@@ -545,8 +733,8 @@ class JointEncoder(nn.Module):
             torch.empty((b.max_position_embeddings + 2, b.d_model),
                         device=resolve_device(device)))
         if not v.no_vis:
-            self.visual_embedding = VisualEmbedding(v, b.d_model, dtype=dt,
-                                                    device=device)
+            self.visual_embedding = visual_embedding_class(v)(
+                v, b.d_model, dtype=dt, device=device)
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
         p = cfg.pet
         if p.encoder_prompt_len > 0:

@@ -66,9 +66,11 @@ from vlpet_tpu_torch.models.bart import (NEG_INF, _seed, compute_dtype,
                                          expand_mask, write_slot)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
-from vlpet_tpu_torch.models.visual import (VisualEmbedding,
-                                           joint_attention_mask)
-from vlpet_tpu_torch.models.vlbart import (BASELINE_FLAGS, check_supported,
+from vlpet_tpu_torch.models.visual import (LowRankVisualEmbedding,
+                                           joint_attention_mask,
+                                           visual_embedding_class)
+from vlpet_tpu_torch.models.vlbart import (BART_ONLY_PET_FLAGS,
+                                           BASELINE_FLAGS, check_supported,
                                            serial_adapters, shift_tokens_right)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
@@ -421,9 +423,8 @@ class T5JointEncoder(nn.Module):
         self.final_layer_norm = RMSNorm(b.d_model, eps=b.layer_norm_epsilon,
                                         dtype=dt, device=device)
         if not v.no_vis:
-            self.visual_embedding = VisualEmbedding(v, b.d_model, dtype=dt,
-                                                    device=device,
-                                                    t5_style_ln=True)
+            self.visual_embedding = visual_embedding_class(v)(
+                v, b.d_model, dtype=dt, device=device, t5_style_ln=True)
 
     def blocks(self) -> List[T5Block]:
         return _blocks(self, self.n_layers)
@@ -577,15 +578,24 @@ class VLT5Model(nn.Module):
 
 
 def check_t5_supported(cfg: VLModelConfig) -> None:
-    """``check_supported``, and the PET baselines, which the port's T5
-    does not have (the JAX T5 has serial adapters, prompts and the
-    hypernet, vlpet_tpu/models/t5.py:334, :606)."""
+    """``check_supported``; the PET baselines, which the port's T5 does
+    not have (the JAX T5 has serial adapters, prompts and the hypernet,
+    vlpet_tpu/models/t5.py:334, :606); and the BART-only flags
+    (``BART_ONLY_PET_FLAGS``, ``expand_vis_embedding``), which the JAX T5
+    does not read: it would build the model without them."""
     check_supported(cfg)
     bad = [f for f in BASELINE_FLAGS if getattr(cfg.pet, f)]
     if serial_adapters(cfg.pet):
         bad.append("serial adapters")
     if bad:
         raise NotImplementedError(f"not ported on T5: {', '.join(bad)}")
+    bad = [f for f in BART_ONLY_PET_FLAGS if getattr(cfg.pet, f)]
+    if cfg.vis.expand_vis_embedding:
+        bad.append("expand_vis_embedding")
+    if bad:
+        raise NotImplementedError(
+            f"BART-only, not read by the JAX T5 (vlpet_tpu/models/t5.py): "
+            f"{', '.join(bad)}")
 
 
 class VLT5(nn.Module):
@@ -637,11 +647,16 @@ class VLT5(nn.Module):
             elif isinstance(mod, MultiheadDownAdapter):
                 for leaf in ("down_kernel", "down_bias"):
                     fan_in[f"{mname}.{leaf}"] = mod.d
+            elif isinstance(mod, LowRankVisualEmbedding):
+                fan_in[f"{mname}.visual_projector_multihead_down_kernel"] = (
+                    mod.vis.feat_dim)
         for name, p in self.named_parameters():
             parts = name.split(".")
             key = parts[-2] if parts[-1] == "weight" else parts[-1]
             if parts[-1] == "scale":
                 p.fill_(1.0)
+            elif key == "visual_projector_multihead_down_bias":
+                p.zero_()  # flax zeros (vlpet_tpu/models/visual.py:212)
             elif key in std and not (key in ("q", "k", "v", "o") and
                                      parts[-3] not in ("self_attn",
                                                        "cross_attn")):

@@ -41,8 +41,14 @@ from vlpet_tpu_torch.train.freezing import weight_initialization
 # PetConfig flags whose code paths the port does not have. Each must be off
 # (False / 0); the freezing and post-init override flags only shape training
 # and weight init, so they do not appear here.
-_UNPORTED_PET_FLAGS = (
-    "decoder_prompt_len", "use_attn_prefix", "use_lm_head_adapter", "track_z",
+_UNPORTED_PET_FLAGS = ("decoder_prompt_len", "use_attn_prefix",
+                       "use_lm_head_adapter")
+_UNPORTED_VIS_FLAGS = ("use_vis_prefix", "vis_use_transformer")
+# the VL-PET ablation flags that only the BART backbone reads (the JAX T5
+# ignores them; the port's T5 refuses them, models/t5.py
+# check_t5_supported)
+BART_ONLY_PET_FLAGS = (
+    "track_z",
     "use_encoder_adapter_up_multihead", "use_encoder_adapter_down_up_multihead",
     "use_encoder_adapter_down_up_pair_multihead",
     "use_decoder_adapter_down_multihead",
@@ -55,14 +61,13 @@ _UNPORTED_PET_FLAGS = (
     "use_decoder_enc_attn_value_residual_connection",
     "use_decoder_enc_attn_value_parallel_adapter_down_multihead",
     "use_decoder_enc_attn_value_parallel_adapter_down_up_pair_multihead",
-    "use_decoder_self_attn_value_parallel_adapter_down_dim",
     "use_decoder_self_attn_adapter_down_dim", "use_decoder_ff_adapter_down_dim",
     "use_encoder_attn_value_parallel_adapter_down_dim",
+    # (use_decoder_self_attn_value_parallel_adapter_down_dim is read by the
+    # JAX T5 too, and builds nothing on either backbone)
     "use_decoder_enc_attn_value_ia3", "use_decoder_self_attn_value_ia3",
     "use_decoder_ff_ia3", "use_encoder_attn_value_ia3",
 )
-_UNPORTED_VIS_FLAGS = ("use_vis_prefix", "expand_vis_embedding",
-                       "use_lowrank_visual_projector", "vis_use_transformer")
 # the PET baselines' flags: ported on BART (serial adapters, Compacter, the
 # low-rank adapter, LoRA, the hyperformer, the encoder prompt), not on T5
 BASELINE_FLAGS = ("use_compacter", "use_lradapter", "use_hyperformer",
@@ -85,10 +90,10 @@ def check_supported(cfg: VLModelConfig) -> None:
     ``scan_layers``, ``remat`` other than "none", and the PET and visual
     flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` (the
     encoder prompt under ``use_attn_prefix`` too). The baselines' flags
-    (``BASELINE_FLAGS`` and serial adapters) build on BART; the T5 model
-    rejects them itself (models/t5.py). What is unported only on a
-    training call raises there:
-    ``lambda_z`` (train/steps.py) and ``vis.sparse_sample`` (models/t5.py
+    (``BASELINE_FLAGS`` and serial adapters) and the VL-PET ablations
+    (``BART_ONLY_PET_FLAGS``, ``expand_vis_embedding``) build on BART; the
+    T5 model rejects them itself (models/t5.py). What is unported only on
+    a training call raises there: ``vis.sparse_sample`` (models/t5.py
     ``VLT5._check_trainable``). A trainable T5 ``relative_attention_bias``
     trains (its dbias comes from A6 or the long backward), and the long
     backward takes the T5 video sites' bias and probability dropout.

@@ -2,11 +2,17 @@
 dense layer; the adapters of the serial-adapter baselines (the bottleneck
 adapter, Compacter's ``HyperComplexAdapter`` over ``PHMDense``, the
 ``LowRankAdapter`` over ``LowRankDense``) and their ``AdapterController``
-with its optional LayerNorms (also the decoder VPA of VL-PET); LoRA's
-task-routed ``LoRADense``; the multihead down adapter, and the four
+with its optional LayerNorms (also the VPA, KPA, sequential and down-dim
+adapters of VL-PET and its ablations); LoRA's task-routed ``LoRADense``;
+the four multihead adapter shapes (down, up, down-up, pair), and the four
 granularity gates (VL-PET-large's low-rank gate, -small's per-example and
--middleX's per-token scalar gates, -middleY's vector) plus the full d x d
-GateLargeX.
+-middleX's per-token scalar gates, -middleY's vector, also the IA3
+vectors) plus the full d x d GateLargeX.
+
+``track_z``: the three adapter kinds append their bottleneck activation z
+to ``PetContext.zs`` when the call's context holds a list there (the train
+step's ``lambda_z`` regularizer, vlpet_tpu/pet/modules.py:380, :407,
+:477); nothing is kept on a module between calls.
 
 Parameter names follow the flax tree (TaskDense ``weight``/``bias`` for
 flax ``kernel``/``bias``; every other leaf -- the multihead per-head
@@ -25,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -82,13 +88,16 @@ class PetContext:
     routing; the model-shared Compacter rule ``phm_rule`` and slow weights
     ``phm_W`` ({"down": W, "up": W}, W a tensor or a (W_left, W_right)
     pair), which ``VLBart`` injects; and ``block_adapters``, the current
-    layer's hypernet-generated adapter weights (pet/hypernet.py)."""
+    layer's hypernet-generated adapter weights (pet/hypernet.py); ``zs``,
+    where a list, collects the bottleneck activations of the adapters
+    whose spec has ``track_z``, in call order."""
 
     task: str = "default"
     task_idx: int = 0
     phm_rule: Optional[torch.Tensor] = None
     phm_W: Any = None
     block_adapters: Any = None
+    zs: Optional[List[torch.Tensor]] = None
 
     def for_layer(self, block_adapters) -> "PetContext":
         return dataclasses.replace(self, block_adapters=block_adapters)
@@ -283,9 +292,17 @@ class BottleneckAdapter(nn.Module):
         self.up_sampler = TaskDense(spec.down_dim, spec.d_model, n_tasks,
                                     up_shared, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, task_idx: int = 0) -> torch.Tensor:
-        return self.up_sampler(self.act(self.down_sampler(x, task_idx)),
-                               task_idx)
+    def forward(self, x: torch.Tensor, task_idx: int = 0,
+                zs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        return self.up_sampler(_track(self.act(self.down_sampler(x, task_idx)),
+                                      zs), task_idx)
+
+
+def _track(z: torch.Tensor, zs: Optional[List[torch.Tensor]]) -> torch.Tensor:
+    """z, appended to ``zs`` where that is a list (track_z)."""
+    if zs is not None:
+        zs.append(z)
+    return z
 
 
 def _sampler_sharing(spec: AdapterSpec) -> Tuple[bool, bool]:
@@ -314,9 +331,10 @@ class LowRankAdapter(nn.Module):
         self.up_sampler = LowRankDense(down, spec.d_model, shared=up_shared,
                                        **kw)
 
-    def forward(self, x: torch.Tensor, task_idx: int = 0) -> torch.Tensor:
-        return self.up_sampler(self.act(self.down_sampler(x, task_idx)),
-                               task_idx)
+    def forward(self, x: torch.Tensor, task_idx: int = 0,
+                zs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        return self.up_sampler(_track(self.act(self.down_sampler(x, task_idx)),
+                                      zs), task_idx)
 
 
 def shared_phm_W_dims(pet: PetConfig, d_model: int) -> Optional[Tuple[int, int]]:
@@ -394,7 +412,8 @@ class HyperComplexAdapter(nn.Module):
 
     def forward(self, x: torch.Tensor, task_idx: int = 0,
                 phm_rule: Optional[torch.Tensor] = None,
-                phm_W: Any = None) -> torch.Tensor:
+                phm_W: Any = None,
+                zs: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         s = self.spec
         rule = phm_rule if s.shared_phm_rule else None
         if s.shared_phm_rule and rule is None:
@@ -407,7 +426,7 @@ class HyperComplexAdapter(nn.Module):
             if _phm_w_dims(phm_W["down"], pd) != (s.d_model, s.down_dim):
                 raise ValueError("shared phm W does not match the sampler")
             W_down, W_up = phm_W["down"], phm_W["up"]
-        z = self.act(self.down_sampler(x, task_idx, rule, W_down))
+        z = _track(self.act(self.down_sampler(x, task_idx, rule, W_down)), zs)
         return self.up_sampler(z, task_idx, rule, W_up)
 
 
@@ -418,15 +437,13 @@ class AdapterController(nn.Module):
     (``LowRankAdapter``); optional LayerNorms ``pre_layer_norm`` on the
     adapter's input and ``post_layer_norm`` on its scaled output.
     Sequential out = scale*A(x) + x, parallel out = scale*A(x) + y (y the
-    wrapped projection's output; the VPA form)."""
+    wrapped projection's output; the VPA form). Under the spec's
+    ``track_z`` the adapter's z goes to ``ctx.zs``."""
 
     def __init__(self, spec: AdapterSpec, dtype=torch.float32,
                  device: Device = "cuda",
                  phm_W_dims: Optional[Tuple[int, int]] = None):
         super().__init__()
-        if spec.track_z:
-            raise NotImplementedError("track_z (the adapter z regularizer) "
-                                      "is not ported")
         self.spec = spec
         kw = dict(dtype=dtype, device=device)
         if spec.add_layer_norm_before_adapter:
@@ -449,10 +466,11 @@ class AdapterController(nn.Module):
         z = inputs
         if s.add_layer_norm_before_adapter:
             z = self.pre_layer_norm(z)
+        zs = ctx.zs if s.track_z else None
         if s.kind == "compacter":
-            out = self.adapters(z, ctx.task_idx, ctx.phm_rule, ctx.phm_W)
+            out = self.adapters(z, ctx.task_idx, ctx.phm_rule, ctx.phm_W, zs)
         else:
-            out = self.adapters(z, ctx.task_idx)
+            out = self.adapters(z, ctx.task_idx, zs)
         if s.use_scaling_factor:
             out = out * s.scaling_factor
         if s.add_layer_norm_after_adapter:
@@ -462,6 +480,19 @@ class AdapterController(nn.Module):
                 raise ValueError("parallel adapter needs the wrapped output y")
             return out + y
         return out + inputs
+
+
+def per_head_param(h: int, fan_in: int, out: int, dtype,
+                   device) -> nn.Parameter:
+    """An uninitialised (h, fan_in, out) per-head kernel."""
+    return nn.Parameter(torch.empty((h, fan_in, out), dtype=dtype,
+                                    device=resolve_device(device)))
+
+
+def fuse_heads(w: torch.Tensor) -> torch.Tensor:
+    """Per-head (h, i, o) -> one (i, h*o): concat_j(x W_j) == x W_fused."""
+    h, i, o = w.shape
+    return w.permute(1, 0, 2).reshape(i, h * o)
 
 
 class MultiheadDownAdapter(nn.Module):
@@ -478,18 +509,110 @@ class MultiheadDownAdapter(nn.Module):
                              f"{num_heads} heads")
         self.d, self.r, self.h = d_model, down_dim, num_heads
         rh = down_dim // num_heads
-        kw = dict(dtype=dtype, device=resolve_device(device))
-        self.down_kernel = nn.Parameter(torch.empty((num_heads, d_model, rh),
-                                                    **kw))
-        self.down_bias = nn.Parameter(torch.empty((num_heads, rh), **kw))
+        self.down_kernel = per_head_param(num_heads, d_model, rh, dtype, device)
+        self.down_bias = nn.Parameter(torch.empty(
+            (num_heads, rh), dtype=dtype, device=resolve_device(device)))
         self.act = get_activation(non_linearity)
         self.up = TaskDense(down_dim, d_model, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (h, d, rh) -> (d, h*rh): concat_i(x W_i + b_i) == x W_fused + b_fused
-        w = self.down_kernel.permute(1, 0, 2).reshape(self.d, self.r)
-        z = x @ w + self.down_bias.reshape(self.r)
+        z = x @ fuse_heads(self.down_kernel) + self.down_bias.reshape(self.r)
         return self.up(self.act(z))
+
+
+class MultiheadUpAdapter(nn.Module):
+    """One down d -> r (``down``, a TaskDense) -> act -> h heads of
+    r -> d/h (concat), stored per head as ``up_kernel`` (h, r, d/h) and
+    ``up_bias`` (h, d/h) (vlpet_tpu/pet/modules.py:577); returns the
+    delta."""
+
+    def __init__(self, d_model: int, down_dim: int, num_heads: int,
+                 non_linearity: str = "gelu_new", dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} not divisible by "
+                             f"{num_heads} heads")
+        self.d, self.r, self.h = d_model, down_dim, num_heads
+        dh = d_model // num_heads
+        self.down = TaskDense(d_model, down_dim, dtype=dtype, device=device)
+        self.act = get_activation(non_linearity)
+        self.up_kernel = per_head_param(num_heads, down_dim, dh, dtype, device)
+        self.up_bias = nn.Parameter(torch.empty(
+            (num_heads, dh), dtype=dtype, device=resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.act(self.down(x))
+        return z @ fuse_heads(self.up_kernel) + self.up_bias.reshape(self.d)
+
+
+class MultiheadDownUpAdapter(nn.Module):
+    """h downs d -> r/h (concat) -> act -> h ups r -> d/h (concat), each up
+    reading the whole r-wide activation (vlpet_tpu/pet/modules.py:603):
+    ``down_kernel`` (h, d, r/h), ``up_kernel`` (h, r, d/h) and their
+    biases, applied as two fused GEMMs; returns the delta."""
+
+    def __init__(self, d_model: int, down_dim: int, num_heads: int,
+                 non_linearity: str = "gelu_new", dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        if down_dim % num_heads or d_model % num_heads:
+            raise ValueError(f"({d_model}, {down_dim}) not divisible by "
+                             f"{num_heads} heads")
+        self.d, self.r, self.h = d_model, down_dim, num_heads
+        rh, dh = down_dim // num_heads, d_model // num_heads
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.down_kernel = per_head_param(num_heads, d_model, rh, dtype, device)
+        self.down_bias = nn.Parameter(torch.empty((num_heads, rh), **kw))
+        self.up_kernel = per_head_param(num_heads, down_dim, dh, dtype, device)
+        self.up_bias = nn.Parameter(torch.empty((num_heads, dh), **kw))
+        self.act = get_activation(non_linearity)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.act(x @ fuse_heads(self.down_kernel)
+                     + self.down_bias.reshape(self.r))
+        return z @ fuse_heads(self.up_kernel) + self.up_bias.reshape(self.d)
+
+
+class MultiheadPairAdapter(nn.Module):
+    """h independent pairs d -> r/h -> d/h (vlpet_tpu/pet/modules.py:631):
+    one fused down GEMM, then a block-diagonal up, head j's r/h
+    activations through its own ``up_kernel[j]`` (h, r/h, d/h) -- the JAX
+    package's per-head einsum ``...hr,hro->...ho``, not one (r, d)
+    product; returns the delta."""
+
+    def __init__(self, d_model: int, down_dim: int, num_heads: int,
+                 non_linearity: str = "gelu_new", dtype=torch.float32,
+                 device: Device = "cuda"):
+        super().__init__()
+        if down_dim % num_heads or d_model % num_heads:
+            raise ValueError(f"({d_model}, {down_dim}) not divisible by "
+                             f"{num_heads} heads")
+        self.d, self.r, self.h = d_model, down_dim, num_heads
+        rh, dh = down_dim // num_heads, d_model // num_heads
+        kw = dict(dtype=dtype, device=resolve_device(device))
+        self.down_kernel = per_head_param(num_heads, d_model, rh, dtype, device)
+        self.down_bias = nn.Parameter(torch.empty((num_heads, rh), **kw))
+        self.up_kernel = per_head_param(num_heads, rh, dh, dtype, device)
+        self.up_bias = nn.Parameter(torch.empty((num_heads, dh), **kw))
+        self.act = get_activation(non_linearity)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.act(x @ fuse_heads(self.down_kernel)
+                     + self.down_bias.reshape(self.r))
+        zh = z.reshape(z.shape[:-1] + (self.h, self.r // self.h))
+        y = torch.einsum("...hr,hro->...ho", zh, self.up_kernel) + self.up_bias
+        return y.reshape(x.shape[:-1] + (self.d,))
+
+
+# the encoder's multihead adapter shapes, by flag, in the JAX elif order
+# (vlpet_tpu/models/bart.py:528-541)
+MULTIHEAD_ADAPTERS = (
+    ("use_encoder_adapter_down_multihead", MultiheadDownAdapter),
+    ("use_encoder_adapter_up_multihead", MultiheadUpAdapter),
+    ("use_encoder_adapter_down_up_multihead", MultiheadDownUpAdapter),
+    ("use_encoder_adapter_down_up_pair_multihead", MultiheadPairAdapter),
+)
 
 
 class GateLargeXLowRank(nn.Module):

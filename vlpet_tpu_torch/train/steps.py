@@ -63,6 +63,13 @@ class GradAccumulator:
             a.copy_(b)
 
 
+def z_penalty(zs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The mean over the recorded adapter activations of mean(z^2), in
+    fp32 (vlpet_tpu/train/steps.py:88-97; the reference's
+    multitask.py:242-256)."""
+    return sum(z.float().square().mean() for z in zs) / len(zs)
+
+
 def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                     lambda_z: float = 0.0, device: Device = "cuda",
                     accumulation_steps: int = 1) -> Callable:
@@ -80,11 +87,11 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
     H, W) or the NLVR pair (B, 2, 3, H, W), as vis_feats with no boxes, and
     runs the CLIP trunk inside the step (vlpet_tpu/train/steps.py:158-189);
     the trunk's BatchNorms keep their running statistics. The model must
-    lie on ``device``. ``lambda_z`` > 0 (the adapter-activation L2 regularizer of
-    the reference, vlpet_tpu/train/steps.py:79-98) is not ported."""
-    if lambda_z > 0:
-        raise NotImplementedError("lambda_z > 0 (the adapter z regularizer) "
-                                  "is not ported")
+    lie on ``device``. ``lambda_z`` > 0 adds the reference's
+    adapter-activation L2 regularizer (vlpet_tpu/train/steps.py:79-98):
+    lambda_z times the mean over the adapters that record their z
+    (``track_z``, ``PetContext.zs``) of mean(z^2), in fp32; a model with
+    no such adapter adds nothing."""
     dev = resolve_device(device)
     bad = {p.device.type for p in model.parameters()} - {dev.type}
     if bad:
@@ -96,7 +103,8 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                    generator: Optional[torch.Generator],
                    task_idx: int) -> Dict[str, torch.Tensor]:
         task = tasks[task_idx]
-        ctx = PetContext(task=task, task_idx=task_idx)
+        ctx = PetContext(task=task, task_idx=task_idx,
+                         zs=[] if lambda_z > 0 else None)
         out = model(batch["input_ids"], batch["attention_mask"],
                     batch.get("vis_feats"), batch.get("boxes"),
                     labels=batch["target_ids"], ctx=ctx, deterministic=False,
@@ -106,6 +114,8 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                     vis_attention_mask=batch.get("vis_attention_mask"))
         loss = task_loss(task, out["loss"], batch["target_ids"],
                          batch.get("scores"))
+        if ctx.zs:
+            loss = loss + lambda_z * z_penalty(ctx.zs)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a trainable parameter the task does not reach gets a zero
         # gradient, as jax.grad gives it
