@@ -38,7 +38,11 @@ and the feature extractor, 7i (not in the smoke's run) the raw
 --use_vis_adapter step under the Trainer's cuDNN settings and under
 cuDNN's autotuner; 6j holds the VL-PET ablation flags' fp32 train
 steps (and, for the families that reach the decode, the tokens) kernels
-vs plain, 7j times their bf16 train steps and four beam-5 evals; 8 runs
+vs plain, 7j times their bf16 train steps and four beam-5 evals; 6k holds
+A1 and A6 at the prefixes' sites and the remaining PET flags' (prefixes,
+decoder prompts, the LM-head adapter, the T5 baselines) fp32 train steps
+and tokens kernels vs plain, 7k times their bf16 train steps and beam-5
+evals; 8 runs
 the image-text
 CLI (VL-PET-small, bf16, B 500, train, eval each epoch, resume), 8b the
 prompt script's (two epochs) and 8c the video CLI (VL-PET-large.sh, two
@@ -86,6 +90,7 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "6h": ("phase_video_script_parity", None),
           "6i": ("phase_raw_parity", None),
           "6j": ("phase_ablation_parity", None),
+          "6k": ("phase_pet_flag_parity", "rep"),
           "7": ("phase_train_bench", "card"),
           "7b": ("phase_video_train_bench", "card"),
           "7c": ("phase_t5_train_bench", "card"),
@@ -96,6 +101,7 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "7h": ("phase_raw_bench", "card"),
           "7i": ("phase_raw_cudnn", "card"),
           "7j": ("phase_ablation_bench", "card"),
+          "7k": ("phase_pet_flag_bench", "card"),
           "8": ("phase_cli_rehearsal", "card"),
           "8b": ("phase_cli_prompt", "card"),
           "8c": ("phase_cli_video", "card"),

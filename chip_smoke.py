@@ -373,8 +373,25 @@ nonzero and no result line is printed):
      length 40) of families 4, 6, 8 and 9 (the abl_* runs); under the
      decoder FFN's IA3 F1 and F2 launch at the encoder's sites only
      (the decoder FFN takes the plain chain, as in the JAX package).
-Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 7f, 7g, 7h, 7j, 8b, 8c and 8d prints
-its seconds.
+  6k. (after 6j) the remaining PET flags (``PET_FLAGS``: prefix tuning
+     with encoder and decoder prefixes of 40, the visual prefix on
+     VL-PET-large, the decoder input prompt of 40 on BART-base and
+     T5-base, the LM-head adapter on VL-PET-large with use_fused_ce, and
+     single_adapter.sh, single_compacter.sh, hyperformer.sh,
+     single_prompt.sh, single_lora.sh and the low-rank adapter on T5-base):
+     A1 and A6 alone at the causal L 10 over S 50 and the L 56 over S 96
+     sites the prefixes make (fp32 B 8, bf16 B 500), then per family 6j's
+     per-step train parity and phase 4 (b)'s beam-5 / greedy caption
+     tokens (1+1 layers, std 0.2; on T5 the trainable parameters at their
+     init);
+  7k. (after 7j) each family's bf16 vqa step (B 500, T5-base B 300; 3
+     steps after 1) beside VL-PET-large's on both backbones and its
+     beam-5 caption eval (B 500 / 300, length 40; the pf_* runs): A6 on
+     "fma" where a prefix or prompt makes S 96, no C1 / C2 under the
+     LM-head adapter, the prefix eval's D1 and U1 launches a step equal to
+     VL-PET-large's.
+Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 7f, 7g, 7h, 7j, 7k, 8b, 8c and 8d
+prints its seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -553,19 +570,32 @@ ABL_DECODE = ("key_parallel", "decoder_mh_kv_adapter", "sequential_va",
               "ia3")
 ABL_EVAL_NAMES = ("key_parallel", "sequential_va", "decoder_adapters", "ia3")
 ABL_EVAL = tuple(f"abl_{n}_eval" for n in ABL_EVAL_NAMES)
+# the remaining PET flags (phases 6k and 7k; PET_FLAGS below): bf16 train
+# steps on BART-base (PF_TRAIN) and T5-base (PF_T5_TRAIN; the T5 LoRA
+# recipe trains the relative bias: PF_DBIAS) and beam-5 evals (PF_EVAL),
+# VL-PET-large on both backbones beside them
+PF_BART = ("prefix", "vis_prefix", "decoder_prompt", "lm_head_adapter")
+PF_T5 = ("t5_decoder_prompt", "t5_single_adapter", "t5_single_compacter",
+         "t5_hyperformer", "t5_single_prompt", "t5_single_lora",
+         "t5_single_lradapter")
+PF_TRAIN = tuple(f"pf_{n}" for n in PF_BART) + ("pf_vlpet_large",)
+PF_T5_TRAIN = tuple(f"pf_{n}" for n in PF_T5) + ("pf_t5_vlpet_large",)
+PF_DBIAS = ("pf_t5_single_lora",)
+PF_EVAL = tuple(f"pf_{n}_eval" for n in PF_BART + PF_T5) + (
+    "pf_vlpet_large_eval",)
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
                                                CLI) + PET_TRAIN + PET_EVAL
                         + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
-                        + ABL_TRAIN + ABL_EVAL),
+                        + ABL_TRAIN + ABL_EVAL + PF_TRAIN + PF_EVAL),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
                             + (CLI_PROMPT,) + VS_TRAIN
                             + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN
-                            + ABL_TRAIN),
+                            + ABL_TRAIN + PF_TRAIN),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
@@ -574,31 +604,33 @@ KERNELS = {
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
-                  + VS_EVAL_CLI + RAW_ALL + ABL_TRAIN + ABL_EVAL),
+                  + VS_EVAL_CLI + RAW_ALL + ABL_TRAIN + ABL_EVAL + PF_TRAIN
+                  + PF_EVAL),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195",
                       TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
                       + (CLI_PROMPT,) + VS_FFN_TRAIN
-                      + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN + ABL_TRAIN),
+                      + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN + ABL_TRAIN
+                      + PF_TRAIN),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                              "vlpet_tpu/ops/fused_ln.py:251",
                              TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                              + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                             + RAW_TRAIN + ABL_TRAIN),
+                             + RAW_TRAIN + ABL_TRAIN + PF_TRAIN),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
                                  TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                                  + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                                 + RAW_TRAIN + ABL_TRAIN),
+                                 + RAW_TRAIN + ABL_TRAIN + PF_TRAIN),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
                            + (CLI_PROMPT, VS_CAP_EVAL, CLI_VIDEO, RAW_EVAL,
-                              CLI_FEATURES) + ABL_EVAL),
+                              CLI_FEATURES) + ABL_EVAL + PF_EVAL),
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
                  DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)
                  + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)
-                 + ABL_EVAL),
+                 + ABL_EVAL + PF_EVAL),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -606,14 +638,15 @@ KERNELS = {
     "fused_attention +bias +dropout": ("vlpet_tpu_torch/csrc/attention.cu",
                                        "vlpet_tpu/ops/attention.py:408",
                                        T5_TRAIN + (T5V_TRAIN, FULL_FT)
-                                       + ABL_T5_TRAIN),
+                                       + ABL_T5_TRAIN + PF_T5_TRAIN),
     "fused_attention_bwd +bias +dropout": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", T5_TRAIN + (T5V_TRAIN, FULL_FT)
-        + ABL_T5_TRAIN),
+        + ABL_T5_TRAIN + PF_T5_TRAIN),
     "fused_attention_bwd +dbias": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
-        "vlpet_tpu/ops/attention.py:1082", (FULL_FT, BITFIT, T5V_BITFIT)),
+        "vlpet_tpu/ops/attention.py:1082", (FULL_FT, BITFIT, T5V_BITFIT)
+        + PF_DBIAS),
     "fused_attention_bwd_long +bias +dropout": (
         "vlpet_tpu_torch/csrc/attention_bwd_long.cu",
         "vlpet_tpu/ops/attention.py:641, vlpet_tpu/ops/attention.py:918",
@@ -623,10 +656,12 @@ KERNELS = {
         "vlpet_tpu/ops/attention.py:641", (T5V_BITFIT,)),
     "fused_ffn relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                 "vlpet_tpu/ops/ffn.py:175",
-                                ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN),
+                                ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN
+                                + PF_T5_TRAIN),
     "fused_ffn_bwd relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                     "vlpet_tpu/ops/ffn.py:195",
-                                    ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN),
+                                    ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN
+                                    + PF_T5_TRAIN),
     "fused_gated_ffn +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                  "vlpet_tpu/ops/ffn.py:334",
                                  ("t5_gated_train",)),
@@ -640,7 +675,7 @@ KERNELS = {
                           "vlpet_tpu/ops/cache_update.py:31",
                           DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)
                           + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)
-                          + ABL_EVAL),
+                          + ABL_EVAL + PF_EVAL),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
@@ -656,7 +691,7 @@ MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
     + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL \
-    + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL
+    + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL + PF_TRAIN + PF_T5_TRAIN + PF_EVAL
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -6101,6 +6136,189 @@ def phase_ablation_bench(card: str) -> dict:
     return launched
 
 
+# phases 6k and 7k: the remaining PET flags, each family a recipe at the
+# dims of the earlier phases (BART-base 6+6, T5-base 12+12, 36 boxes of
+# 2048-d features, the prompt lengths of single_prompt.sh: 40, mid_dim
+# 800). family -> (the recipe its flags go onto: VL-PET-large or a
+# scripts/image-text/*.sh recipe through pet_cfg, the flags over it).
+# No T5 script sets the baselines' flags: the T5 families put each BART
+# script's PET config on T5-base, as tests/test_pet_variants.py's recipes.
+_DEC_PROMPT = dict(encoder_prompt_len=0, decoder_prompt_len=40)
+PET_FLAGS = {
+    # 1: prefix tuning, encoder and decoder prefixes of 40
+    "prefix": ("single_prompt", dict(use_attn_prefix=True,
+                                     decoder_prompt_len=40)),
+    # 2: the visual features as each encoder layer's K/V prefix
+    "vis_prefix": ("vlpet_large", dict(use_vis_prefix=True)),
+    # 3: the decoder input prompt, on BART-base and T5-base
+    "decoder_prompt": ("single_prompt", _DEC_PROMPT),
+    "t5_decoder_prompt": ("single_prompt", _DEC_PROMPT),
+    # 4: the LM-head adapter, with use_fused_ce asked for (the dense
+    # route must serve it: no C1 / C2)
+    "lm_head_adapter": ("vlpet_large", dict(use_lm_head_adapter=True,
+                                            use_fused_ce=True)),
+    # 5: the PET baselines on T5-base
+    "t5_single_adapter": ("single_adapter", {}),
+    "t5_single_compacter": ("single_compacter", {}),
+    "t5_hyperformer": ("hyperformer", {}),
+    "t5_single_prompt": ("single_prompt", {}),
+    "t5_single_lora": ("single_lora", {}),
+    "t5_single_lradapter": ("single_lradapter", {}),
+}
+# the families whose A6 runs over S 96 (the 40 prefix or prompt slots
+# before the 56 joint tokens), past the tensor-core kernel's S 64: "fma"
+PF_A6_FMA = ("prefix", "t5_single_prompt")
+
+
+def _with_any(cfg, flags: dict):
+    """``cfg`` with each flag set on its PetConfig, VisConfig or the
+    VLModelConfig itself."""
+    pet = {k: v for k, v in flags.items() if hasattr(cfg.pet, k)}
+    vis = {k: v for k, v in flags.items()
+           if k not in pet and hasattr(cfg.vis, k)}
+    top = {k: v for k, v in flags.items() if k not in pet and k not in vis}
+    return dataclasses.replace(cfg, pet=dataclasses.replace(cfg.pet, **pet),
+                               vis=dataclasses.replace(cfg.vis, **vis), **top)
+
+
+def pf_cfg(name: str, layers=None):
+    """The configuration function of a ``PET_FLAGS`` family (or of
+    VL-PET-large, "vlpet_large" / "t5_vlpet_large"), with ``layers``
+    encoder and decoder layers each where given."""
+    t5 = name.startswith("t5_")
+    recipe, flags = PET_FLAGS.get(name, ("vlpet_large", {}))
+
+    def cfg(dtype: str = "float32"):
+        base = t5_cfg(dtype) if t5 else flagship_cfg(dtype)
+        if recipe != "vlpet_large":
+            base = dataclasses.replace(base, pet=pet_cfg(recipe)(dtype).pet)
+        c = _with_any(base, flags)
+        if layers is not None:
+            one = (dict(num_layers=layers, num_decoder_layers=layers) if t5
+                   else dict(encoder_layers=layers, decoder_layers=layers))
+            c = dataclasses.replace(c, backbone=dataclasses.replace(
+                c.backbone, **one))
+        return c
+    return cfg
+
+
+@torch.no_grad()
+def pet_at_init(model) -> None:
+    """The recipe's trainable parameters of ``model`` (its PET modules,
+    and what the recipe unfreezes) at the seeded init of
+    ``build_model``, the rest as they are."""
+    init = type(model)(model.cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(1234))
+    for name, p in apply_freezing(init, init.cfg.pet).items():
+        model.get_parameter(name).copy_(p)
+
+
+def phase_pet_flag_parity(rep: Report) -> None:
+    """6k: A1 and A6 alone at the sites the prefixes make -- the decoder's
+    causal self-attention over the 40 prefix keys (L 10 over S 50, the
+    triangle at offset S - L) and the encoder's over them (L 56 over S
+    96) -- fp32 at B 8 and bf16 at B 500, against the plain twin and its
+    autograd (phase 3b's tolerances, bf16 twice bitwise equal). Then per
+    ``PET_FLAGS`` family at ``ABL_PARITY_LAYERS`` (6j's depth, encoder and
+    decoder layers each), from the weights after ``unzero``: phase 6c's
+    fp32 per-step train parity (B 8, vqa, dropout 0.1, 3 steps, each from
+    the plain state, kernels vs plain) under phase 6's elementwise
+    tolerances (T5 by 6c's update ratio), then phase 4 (b)'s beam-5 and
+    greedy caption tokens at B 8 to length 40, kernels vs plain,
+    identical: 1+1 layers at std 0.2, where every decode runs all 39 steps
+    over the prefilled cache (at the init a BART greedy decode ends at its
+    first step, and at T5's 2+2 init every beam repeats one token); on T5
+    the recipe's trainable parameters stay at their init (``pet_at_init``:
+    with the serial adapter's too at std 0.2, kernels and plain summed in
+    two orders turned a near tie of two beams at step 34)."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for dtype, B in ((torch.float32, 8), (torch.bfloat16, 500)):
+        attention_site(rep, g, dtype, "dec-self", B, 10, 50, True, True,
+                       what="prefix")
+        attention_site(rep, g, dtype, "enc", B, 56, 96, False, True,
+                       what="prefix")
+    ctx = PetContext(task="caption", task_idx=3)
+    for name in PET_FLAGS:
+        t0 = time.perf_counter()
+        t5 = name.startswith("t5_")
+        cfg_fn = pf_cfg(name, ABL_PARITY_LAYERS)
+        train_parity_per_step(
+            f"{name} B8 vqa", cfg_fn,
+            make_t5_train_batch if t5 else make_train_batch, 8, 21,
+            FLAGSHIP_TASKS, "vqa", T5_LR if t5 else 1e-3, f"pf_{name}",
+            elementwise=not t5)
+        model = spread_model(pf_cfg(name))
+        if t5:
+            pet_at_init(model)
+        parity_run(f"{name} 1+1 layers, std 0.2"
+                   + (", PET at its init" if t5 else ""), model,
+                   make_batch(8, model.cfg.backbone.vocab_size, seed=7,
+                              pad=0 if t5 else 1), ctx, 40,
+                   min_distinct=MIN_DISTINCT_PER_ROW)
+        del model
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_pet_flag_bench(card: str) -> dict:
+    """7k: per ``PET_FLAGS`` family a bf16 vqa train step as phase 7 (B
+    500; T5-base B 300 as phase 7c), timed over 3 steps after 1, beside
+    VL-PET-large's on both backbones; then each one's beam-5 caption eval
+    (B 500, T5 B 300, to length 40, as phase 5) and VL-PET-large's. The
+    families of ``PF_A6_FMA`` must launch A6 on "fma" (S 96); the LM-head
+    adapter's step must launch no C1 / C2 under use_fused_ce; the prefix
+    eval's D1 and U1 launches a decode step (a step is one T1 launch) must
+    equal VL-PET-large's: the P prefilled slots change what D1 reads, not
+    how often it runs. Prints a table of ms/step, peak GiB and
+    examples/s."""
+    launched = {}
+    names = ("vlpet_large",) + PF_BART + ("t5_vlpet_large",) + PF_T5
+    for name in names:
+        t5, path = name.startswith("t5_"), f"pf_{name}"
+        launched[path] = train_bench(
+            card, pf_cfg(name), make_t5_train_batch if t5 else make_train_batch,
+            300 if t5 else 500, 35 if t5 else 31, FLAGSHIP_TASKS, "vqa",
+            T5_LR if t5 else 1e-3, path, f"{name} vqa",
+            tc_only=name not in PF_A6_FMA, warm=1, timed=3)
+        if name in PF_A6_FMA and not launched[path].get(
+                "fused_attention_bwd[fma]"):
+            raise AssertionError(f"{path}: A6 never took its fma kernel")
+    ce = {k: launched["pf_lm_head_adapter"][k]
+          for k in ("fused_linear_ce", "fused_linear_ce_bwd")}
+    if any(ce.values()):
+        raise AssertionError(f"the LM-head adapter's step launched C1 / C2 "
+                             f"{ce}: its head is not frozen")
+    ctx = PetContext(task="caption", task_idx=3)
+    for name in names:
+        if name == "t5_vlpet_large":  # phase 5c's eval
+            continue
+        t5, path = name.startswith("t5_"), f"pf_{name}_eval"
+        model = build_model("bfloat16", pf_cfg(name))
+        B = 300 if t5 else 500
+        launched[path] = generate_bench(
+            card, model, make_batch(B, model.cfg.backbone.vocab_size, seed=11,
+                                    pad=0 if t5 else 1), ctx, 40, path,
+            f"{name} beam5 len40")
+        del model
+
+    def per_step(path: str, k: str) -> float:
+        return launched[path][k] / launched[path]["topk_lse"]
+
+    for k in ("beam_decode_attend", "cache_slot_update"):
+        got, want = (per_step(p, k) for p in ("pf_prefix_eval",
+                                              "pf_vlpet_large_eval"))
+        if got != want:
+            raise AssertionError(f"prefix eval: {k} {got} launches a step, "
+                                 f"VL-PET-large {want}")
+    print(f"  phase 7k on {card}: path, ms/step, peak GiB, examples/s",
+          flush=True)
+    for path in launched:
+        r = RUNS[path]
+        ms = f"{r['ms_step']:.2f}" if "ms_step" in r else "-"
+        print(f"    {path}: {ms} ms/step, {r['peak_gib']:.2f} GiB, "
+              f"{r['ex_s']:.2f} ex/s", flush=True)
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     print("phase 1: environment", flush=True)
@@ -6220,6 +6438,11 @@ def main() -> int:
           "fp32", flush=True)
     phase_ablation_parity()
     print(f"  phase 6j: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 6k: the prefixes', decoder prompts', LM-head adapter's and "
+          "T5 baselines' train and decode parity, fp32", flush=True)
+    phase_pet_flag_parity(rep)
+    print(f"  phase 6k: {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
@@ -6250,6 +6473,11 @@ def main() -> int:
           flush=True)
     launched.update(phase_ablation_bench(card))
     print(f"  phase 7j: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("phase 7k: the prefixes', decoder prompts', LM-head adapter's and "
+          "T5 baselines' train steps and evals, bf16", flush=True)
+    launched.update(phase_pet_flag_bench(card))
+    print(f"  phase 7k: {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
     t0 = time.perf_counter()

@@ -226,14 +226,20 @@ def test_unported_flags_raise_at_build():
     VLBart(dataclasses.replace(base, vis=dataclasses.replace(
         base.vis, use_lowrank_visual_projector=True)), device="cpu")
 
-    for change in (dict(scan_layers=True), dict(classifier=True),
-                   dict(remat="dots"),
-                   dict(pet=dataclasses.replace(base.pet,
+    # and the prefixes, the decoder input prompt and the LM-head adapter
+    for change in (dict(pet=dataclasses.replace(base.pet,
                                                 use_lm_head_adapter=True)),
                    dict(pet=dataclasses.replace(base.pet, decoder_prompt_len=2)),
                    dict(pet=pc.PetConfig(use_attn_prefix=True,
-                                         encoder_prompt_len=2)),
+                                         encoder_prompt_len=2,
+                                         decoder_prompt_len=2)),
                    dict(vis=dataclasses.replace(base.vis,
                                                 use_vis_prefix=True))):
+        VLBart(dataclasses.replace(base, **change), device="cpu")
+
+    for change in (dict(scan_layers=True), dict(classifier=True),
+                   dict(remat="dots"),
+                   dict(vis=dataclasses.replace(base.vis,
+                                                vis_use_transformer=True))):
         with pytest.raises(NotImplementedError):
             VLBart(dataclasses.replace(base, **change), device="cpu")

@@ -118,13 +118,14 @@ def _with(cfg, **pet):
 
 def test_unported_flags_still_raise():
     cfg = pc.flagship_cfg()
-    for flag in tvlbart._UNPORTED_PET_FLAGS:
-        value = 4 if flag.endswith("_len") else True
+    for flag in tvlbart._UNPORTED_VIS_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
-            tvlbart.check_supported(_with(cfg, **{flag: value}))
-    with pytest.raises(NotImplementedError, match="use_attn_prefix"):
-        tvlbart.check_supported(_with(cfg, encoder_prompt_len=4,
-                                      use_attn_prefix=True))
+            tvlbart.check_supported(dataclasses.replace(
+                cfg, vis=dataclasses.replace(cfg.vis, **{flag: True})))
+    # the prefixes and the decoder prompt build, under use_attn_prefix too
+    tvlbart.check_supported(_with(cfg, encoder_prompt_len=4,
+                                  decoder_prompt_len=4, use_attn_prefix=True,
+                                  use_lm_head_adapter=True))
     for name in SCRIPTS:  # what the seven scripts set builds
         tvlbart.check_supported(_configs(name)[1])
 
@@ -136,10 +137,13 @@ def test_unported_flags_still_raise():
     dict(use_hyperformer=True), dict(encoder_prompt_len=4)],
     ids=lambda p: next(iter(p)))
 def test_t5_rejects_the_baselines(pet):
+    """The baselines build on T5 now; what the JAX T5 does not read on top
+    of one (the attention prefix, the LM-head adapter) is still refused."""
     cfg = pc.t5_cfg("float32")
-    check_t5_supported(cfg)
-    with pytest.raises(NotImplementedError, match="not ported on T5"):
-        check_t5_supported(_with(cfg, **pet))
+    check_t5_supported(_with(cfg, **pet))
+    for flag in ("use_attn_prefix", "use_lm_head_adapter"):
+        with pytest.raises(NotImplementedError, match="JAX T5"):
+            check_t5_supported(_with(cfg, **pet, **{flag: True}))
 
 
 @pytest.mark.parametrize("name", RECIPES)

@@ -314,9 +314,10 @@ def test_t5_training_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="sparse_sample"):
         sparse(ids, ids, labels=ids, deterministic=False)
     for change in (dict(classifier=True),
-                   dict(pet=dataclasses.replace(cfg.pet, use_hyperformer=True)),
+                   dict(pet=dataclasses.replace(cfg.pet, use_attn_prefix=True,
+                                                decoder_prompt_len=2)),
                    dict(pet=dataclasses.replace(cfg.pet,
-                                                encoder_prompt_len=2))):
+                                                use_lm_head_adapter=True))):
         with pytest.raises(NotImplementedError):
             VLT5(dataclasses.replace(cfg, **change), device="cpu")
 

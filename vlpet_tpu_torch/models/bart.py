@@ -12,7 +12,9 @@ adapters; the FFN's IA3); the incremental decoder (greedy and
 reorder-free beam); the PET
 baselines' hooks: serial adapters (bottleneck, Compacter, low-rank) after
 each sublayer of both stacks, LoRA on every q and v projection, the
-hyperformer's generated adapters; and the training-time dropout: the
+hyperformer's generated adapters; prefix tuning (the encoder's and the
+decoder's per-layer K/V prefixes), the visual prefix and the decoder input
+prompt; and the training-time dropout: the
 embedding dropout, the residual dropout before each post-LN and LoRA's
 input dropout, all from the hash mask of ops/hashdrop.py with one seed per
 site (``DropoutSeeds``).
@@ -46,7 +48,8 @@ import torch.nn.functional as F
 from vlpet_tpu_torch.config import PromptSpec, VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
-from vlpet_tpu_torch.models.visual import (joint_attention_mask,
+from vlpet_tpu_torch.models.visual import (downsample_vis,
+                                           joint_attention_mask,
                                            visual_embedding_class)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
@@ -72,6 +75,8 @@ from vlpet_tpu_torch.pet.modules import (MULTIHEAD_ADAPTERS,
                                          MultiheadPairAdapter, PetContext,
                                          TaskDense, build_gate,
                                          get_activation, shared_phm_W_dims)
+from vlpet_tpu_torch.pet.prefix import (AttnPrefixController,
+                                        ResidualVisualPrefix)
 from vlpet_tpu_torch.pet.prompts import PromptController
 
 NEG_INF = -1e9  # additive-mask constant of the JAX package
@@ -332,7 +337,8 @@ class BartAttention(nn.Module):
                 cache: Optional[Cache] = None, decode_pos: Optional[int] = None,
                 beam_anc: Optional[torch.Tensor] = None, qkv=None,
                 kv_states: Optional[torch.Tensor] = None,
-                seeds: Optional[DropoutSeeds] = None):
+                seeds: Optional[DropoutSeeds] = None,
+                prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """Returns (attn_output, cache). The decode cache is updated IN PLACE
         at slot ``decode_pos`` (the JAX package returns a new buffer; here
         the preallocated one is reused): by U1 before the attend, or by D2
@@ -340,7 +346,11 @@ class BartAttention(nn.Module):
         (vlpet_tpu/models/bart.py:442-455). Training: 'dec_self' without a
         cache is causal over the target sequence; 'cross' without
         ``cross_kv`` projects ``kv_states`` (the encoder output). ``seeds``
-        (training) feed LoRA's dropout."""
+        (training) feed LoRA's dropout. ``prefix_kv`` (B, P, H*Dh) each,
+        on a self role over a whole sequence: prefix-tuning K/V before the
+        own (vlpet_tpu/models/bart.py:483-485); the encoder's mask then has
+        the P columns already, and the causal triangle's offset S - L opens
+        them to every query of the decoder."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
@@ -357,12 +367,15 @@ class BartAttention(nn.Module):
             m = attention_mask.float()
             return self.out_proj(attend(q, k, v, m, H)), cache
         q, k, v = self._qkv(hidden_states, ctx, qkv, seeds)
+        if prefix_kv is not None:
+            k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
+            v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
         if self.role == "enc_self":
             m = attention_mask.float()
             return self.out_proj(attend(q, k, v, m, H)), cache
         if cache is None:
             # teacher forcing: the triangle in-kernel, a zero padding mask
-            m = torch.zeros((1, 1, 1, L), dtype=torch.float32,
+            m = torch.zeros((1, 1, 1, k.shape[1]), dtype=torch.float32,
                             device=q.device)
             return self.out_proj(attend(q, k, v, m, H, causal=True)), cache
         q4 = q.reshape(B, 1, H, Dh)
@@ -521,12 +534,12 @@ class BartEncoderLayer(nn.Module):
         return h
 
     def forward(self, hidden_states: torch.Tensor, attention_mask: torch.Tensor,
-                ctx: PetContext,
-                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+                ctx: PetContext, seeds: Optional[DropoutSeeds] = None,
+                prefix_kv=None) -> torch.Tensor:
         block = ctx.block_adapters
         residual = hidden_states
         h, _ = self.self_attn(hidden_states, ctx, attention_mask=attention_mask,
-                              seeds=seeds)
+                              seeds=seeds, prefix_kv=prefix_kv)
         h = self._hooks(h, residual, "attn", ctx,
                         block.self_attention if block is not None else None)
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
@@ -682,24 +695,37 @@ class BartDecoderLayer(nn.Module):
         return hidden_states, cache
 
     def teacher_force(self, hidden_states: torch.Tensor, ctx: PetContext,
-                      encoder_hidden_states: torch.Tensor,
-                      cross_mask: torch.Tensor,
-                      seeds: Optional[DropoutSeeds]) -> torch.Tensor:
-        """The training pass over the whole target sequence (B, T, d)."""
+                      encoder_hidden_states: Optional[torch.Tensor],
+                      cross_mask: Optional[torch.Tensor],
+                      seeds: Optional[DropoutSeeds], prefix_kv=None,
+                      prompt_len: int = 0) -> torch.Tensor:
+        """The training pass over the whole target sequence (B, T, d).
+        ``prefix_kv``: the layer's attention prefix before the causal
+        keys. ``prompt_len`` P: the first P rows are the decoder input
+        prompt, which the cross block leaves as they were (the reference's
+        dry run has no encoder states, vlpet_tpu/models/bart.py:829-837).
+        Without ``encoder_hidden_states`` the cross block is skipped: that
+        dry run itself (``BartDecoder.prefill_kvs``)."""
         residual = hidden_states
-        h, _ = self.self_attn(hidden_states, ctx, seeds=seeds)
+        h, _ = self.self_attn(hidden_states, ctx, seeds=seeds,
+                              prefix_kv=prefix_kv)
         h = self._adapt(h, "self_attention", ctx, residual)
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
-        residual = hidden_states
-        # the cross K/V through compute_cross_kv's path (kv_states, then
-        # BartAttention.compute_cross_kv), LoRA's q seed before v's
-        h, _ = self.encoder_attn(
-            hidden_states, ctx, attention_mask=cross_mask,
-            kv_states=self.kv_states(encoder_hidden_states, ctx), seeds=seeds)
-        h = self._adapt(h, "cross_attention", ctx, residual)
-        hidden_states = self.encoder_attn_layer_norm(h, residual,
-                                                     _seed(seeds))
+        if encoder_hidden_states is not None:
+            residual = hidden_states
+            # the cross K/V through compute_cross_kv's path (kv_states,
+            # then BartAttention.compute_cross_kv), LoRA's q seed before v's
+            h, _ = self.encoder_attn(
+                hidden_states, ctx, attention_mask=cross_mask,
+                kv_states=self.kv_states(encoder_hidden_states, ctx),
+                seeds=seeds)
+            h = self._adapt(h, "cross_attention", ctx, residual)
+            hidden_states = self.encoder_attn_layer_norm(h, residual,
+                                                         _seed(seeds))
+            if prompt_len:
+                hidden_states = torch.cat([residual[:, :prompt_len],
+                                           hidden_states[:, prompt_len:]], 1)
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
@@ -714,6 +740,19 @@ class BartDecoderLayer(nn.Module):
             self.kv_states(encoder_hidden_states, ctx), ctx)
 
 
+def prompt_controller(cfg: VLModelConfig, prompt_len: int,
+                      init_std: Optional[float], dtype,
+                      device: Device) -> PromptController:
+    """The PromptController of an encoder or decoder prompt of
+    ``prompt_len`` (vlpet_tpu/models/bart.py:948-953, :1133-1139; T5's
+    with init_std None, vlpet_tpu/models/t5.py:606-614, :730-737)."""
+    p = cfg.pet
+    return PromptController(
+        PromptSpec(prompt_len=prompt_len, mid_dim=p.mid_dim,
+                   use_single_prompt=p.use_single_prompt, tasks=p.tasks),
+        cfg.d_model, init_std=init_std, dtype=dtype, device=device)
+
+
 class JointEncoder(nn.Module):
     """BART encoder + visual concat. Sequence layout [prompt; text; vis]:
     the encoder prompt (``prompt_modules``, ``encoder_prompt_len`` > 0)
@@ -722,27 +761,43 @@ class JointEncoder(nn.Module):
     share_vis_lang_layer_norm); the joint mask is ones over the prompt ++
     text-mask ++ vis-mask (vlpet_tpu/models/bart.py:945-958). Under
     ``use_hyperformer`` the stack's ``adapter_layers_hyper_net`` generates
-    each layer's adapter weights from the task embedding."""
+    each layer's adapter weights from the task embedding.
+
+    Prefixes (vlpet_tpu/models/bart.py:959-980, :1029-1050): under
+    ``use_vis_prefix`` the visual features (downsampled as configured)
+    become each layer's K/V prefix (``visual_embedding`` is a
+    ResidualVisualPrefix), nothing joins the sequence and the joint mask
+    is the text's, while the attention mask takes the visual mask's
+    columns on the left; else, under ``use_attn_prefix``, the
+    ``encoder_prompt_len`` learned prefixes
+    (``encoder_prefix_embedding``) take the prompt's place, with P
+    always-open mask columns."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b, v = cfg.backbone, cfg.vis
+        p = cfg.pet
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
         self.embed_positions = nn.Parameter(
             torch.empty((b.max_position_embeddings + 2, b.d_model),
                         device=resolve_device(device)))
-        if not v.no_vis:
+        if v.use_vis_prefix and not v.no_vis:
+            self.visual_embedding = ResidualVisualPrefix(
+                v.feat_dim, b.encoder_layers, b.d_model, dtype=dt,
+                device=device)
+        elif not v.no_vis:
             self.visual_embedding = visual_embedding_class(v)(
                 v, b.d_model, dtype=dt, device=device)
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
-        p = cfg.pet
-        if p.encoder_prompt_len > 0:
-            self.prompt_modules = PromptController(
-                PromptSpec(prompt_len=p.encoder_prompt_len, mid_dim=p.mid_dim,
-                           use_single_prompt=p.use_single_prompt,
-                           tasks=p.tasks),
-                b.d_model, init_std=b.init_std, dtype=dt, device=device)
+        if p.use_attn_prefix and p.encoder_prompt_len > 0:
+            self.encoder_prefix_embedding = AttnPrefixController(
+                p.encoder_prompt_len, b.encoder_layers, b.d_model,
+                mid_dim=p.mid_dim, init_std=b.init_std, dtype=dt,
+                device=device)
+        elif p.encoder_prompt_len > 0:
+            self.prompt_modules = prompt_controller(
+                cfg, p.encoder_prompt_len, b.init_std, dt, device)
         if p.use_hyperformer:
             self.adapter_layers_hyper_net = stack_hypernet(
                 cfg, b.encoder_layers, False, dtype=dt, device=device)
@@ -774,12 +829,26 @@ class JointEncoder(nn.Module):
         embed_scale = (b.d_model ** 0.5) if b.scale_embedding else 1.0
         h = shared_embedding[input_ids].to(dt) * embed_scale
         h = h + self.embed_positions[2:2 + L].to(dt)[None]
-        if self.cfg.pet.encoder_prompt_len > 0:
+        mods = self._modules
+        if "prompt_modules" in mods:
             prefix = self.prompt_modules(B, ctx.task_idx)
             h = torch.cat([prefix, h], dim=1)
             attention_mask = torch.cat([attention_mask.new_ones(
                 (B, prefix.shape[1])), attention_mask], dim=1)
-        if not v.no_vis and vis_feats is not None:
+        prefix_kvs = None
+        if v.use_vis_prefix and not v.no_vis and vis_feats is not None:
+            vf = vis_feats
+            if v.oneddownsample or v.downsample:
+                vf = downsample_vis((vis_feats, boxes), v.n_boxes,
+                                    oned=v.oneddownsample)[0]
+            prefix_kvs = self.visual_embedding(vf)
+            if vis_attention_mask is None:
+                vis_attention_mask = attention_mask.new_ones(vf.shape[:2])
+            h = self.layernorm_embedding(h)
+            mask = attention_mask
+            # the visual mask's columns before the text's
+            prefix_mask = expand_mask(vis_attention_mask, 1, dt)
+        elif not v.no_vis and vis_feats is not None:
             vis_embeds = self.visual_embedding.tokens(
                 vis_feats, boxes, shared_embedding, img_order_ids,
                 obj_order_ids)
@@ -795,11 +864,18 @@ class JointEncoder(nn.Module):
         h = _embedding_dropout(h, seeds, b.dropout)
         # length-collapsed (B, 1, 1, S) additive mask
         attn_mask = expand_mask(mask, 1, dt)
-        hypernet = self._modules.get("adapter_layers_hyper_net")
+        if prefix_kvs is not None:
+            attn_mask = torch.cat([prefix_mask, attn_mask], dim=-1)
+        elif "encoder_prefix_embedding" in mods:
+            prefix_kvs = self.encoder_prefix_embedding(B)
+            attn_mask = torch.cat([attn_mask.new_zeros(
+                (B, 1, 1, prefix_kvs[0][0].shape[1])), attn_mask], dim=-1)
+        hypernet = mods.get("adapter_layers_hyper_net")
         for i, layer in enumerate(self.layers()):
             block = (hypernet(task_embedding, i) if hypernet is not None
                      else None)
-            h = layer(h, attn_mask, ctx.for_layer(block), seeds)
+            h = layer(h, attn_mask, ctx.for_layer(block), seeds,
+                      prefix_kvs[i] if prefix_kvs is not None else None)
         return h, mask
 
 
@@ -809,17 +885,35 @@ class BartDecoder(nn.Module):
     stack's ``adapter_layers_hyper_net`` generates each layer's adapter
     weights (cross-attention's under ``add_adapter_cross_attn``):
     ``block_adapters`` once per generation, held in the decode constants,
-    and in every training pass."""
+    and in every training pass.
+
+    ``decoder_prompt_len`` P > 0 builds one of two things
+    (vlpet_tpu/models/bart.py:1117-1143): under ``use_attn_prefix`` the
+    per-layer attention prefixes (``decoder_prefix_embedding``), whose
+    P keys sit before the causal ones, the positions then starting at
+    2 + P; otherwise the decoder input prompt (``prompt_modules``),
+    whose P rows go before the inputs, with positions over P + T, are
+    left alone by the cross block and are dropped at the end. Either
+    way generation prefills the first P cache slots (``prefill_kvs``)
+    and decodes from slot P."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
-        b = cfg.backbone
+        b, p = cfg.backbone, cfg.pet
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
         self.embed_positions = nn.Parameter(
             torch.empty((b.max_position_embeddings + 2, b.d_model),
                         device=resolve_device(device)))
         self.layernorm_embedding = LayerNorm(b.d_model, dtype=dt, device=device)
+        if p.decoder_prompt_len > 0 and p.use_attn_prefix:
+            self.decoder_prefix_embedding = AttnPrefixController(
+                p.decoder_prompt_len, b.decoder_layers, b.d_model,
+                mid_dim=p.mid_dim, init_std=b.init_std, dtype=dt,
+                device=device)
+        elif p.decoder_prompt_len > 0:
+            self.prompt_modules = prompt_controller(
+                cfg, p.decoder_prompt_len, b.init_std, dt, device)
         if cfg.pet.use_hyperformer:
             self.adapter_layers_hyper_net = stack_hypernet(
                 cfg, b.decoder_layers, cfg.pet.add_adapter_cross_attn,
@@ -878,21 +972,62 @@ class BartDecoder(nn.Module):
                       ) -> torch.Tensor:
         """Training: the whole target sequence input_ids (B, T) at positions
         2 + t, causal self-attention, cross-attention over the encoder
-        states (vlpet_tpu/models/bart.py:1204-1210). Returns (B, T, d)."""
+        states (vlpet_tpu/models/bart.py:1186-1305), after the decoder
+        input prompt or behind the attention prefix (the class docstring).
+        Returns (B, T, d)."""
         b = self.cfg.backbone
         dt = self.dtype
-        T = input_ids.shape[1]
+        B, T = input_ids.shape
         embed_scale = (b.d_model ** 0.5) if b.scale_embedding else 1.0
         h = shared_embedding[input_ids].to(dt) * embed_scale
-        h = h + self.embed_positions[2:2 + T].to(dt)[None]
+        mods = self._modules
+        P_in = P_off = 0
+        if "prompt_modules" in mods:
+            prompt = self.prompt_modules(B, ctx.task_idx).to(dt)
+            P_in = prompt.shape[1]
+            h = torch.cat([prompt, h], dim=1)
+        prefix_kvs = None
+        if "decoder_prefix_embedding" in mods:
+            prefix_kvs = self.decoder_prefix_embedding(B)
+            P_off = prefix_kvs[0][0].shape[1]
+        h = h + self.embed_positions[2 + P_off:2 + P_off + P_in + T].to(dt)[None]
         h = self.layernorm_embedding(h)
         h = _embedding_dropout(h, seeds, b.dropout)
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
+        for i, (layer, block) in enumerate(zip(
+                self.layers(), self.block_adapters(task_embedding))):
+            h = layer.teacher_force(
+                h, ctx.for_layer(block), encoder_hidden_states, cross_mask,
+                seeds, prefix_kvs[i] if prefix_kvs is not None else None,
+                P_in)
+        return h[:, P_in:] if P_in else h
+
+    def prefill_kvs(self, batch_size: int, ctx: PetContext,
+                    task_embedding: Optional[torch.Tensor] = None):
+        """Per layer the (k, v), each (B, P, H*Dh), that generation writes
+        into the first P cache slots, or None without decoder prefixes or
+        prompts: the attention prefixes themselves
+        (vlpet_tpu/models/bart.py:1307 ``prefix_cache_init``), or the
+        decoder input prompt's self-attention K/V from the reference's dry
+        run (``compute_prompt_kvs``, :1316): the prompt at positions
+        0..P-1 through every layer without its cross block."""
+        mods = self._modules
+        if "decoder_prefix_embedding" in mods:
+            return self.decoder_prefix_embedding(batch_size)
+        if "prompt_modules" not in mods:
+            return None
+        dt = self.dtype
+        h = self.prompt_modules(batch_size, ctx.task_idx).to(dt)
+        h = h + self.embed_positions[2:2 + h.shape[1]].to(dt)[None]
+        h = self.layernorm_embedding(h)
+        kvs = []
         for layer, block in zip(self.layers(),
                                 self.block_adapters(task_embedding)):
-            h = layer.teacher_force(h, ctx.for_layer(block),
-                                    encoder_hidden_states, cross_mask, seeds)
-        return h
+            lctx = ctx.for_layer(block)
+            _, k, v = layer.self_attn._qkv(h, lctx)
+            kvs.append((k, v))
+            h = layer.teacher_force(h, lctx, None, None, None)
+        return tuple(kvs)
 
     def compute_cross_kvs(self, encoder_hidden_states: torch.Tensor,
                           ctx: PetContext):

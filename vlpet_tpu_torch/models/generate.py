@@ -94,15 +94,19 @@ def greedy_generate(decode_topk: Callable, cache, batch_size: int,
 def beam_generate(decode_topk: Callable, cache, batch_size: int, num_beams: int,
                   max_length: int, decoder_start_token_id: int,
                   eos_token_id: int, pad_token_id: int,
-                  length_penalty: float = 1.0,
-                  device: Device = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                  length_penalty: float = 1.0, device: Device = "cuda",
+                  pos_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reorder-free beam search with HF semantics (finished score =
     logprob_sum / len**length_penalty, early_stopping=False).
 
     ``cache`` has B*K physical rows that are never reordered; anc[b, k, t]
     names the physical row of beam k's KV at slot t. decode_topk(token_ids
     (B*K, 1), pos, cache, anc, k) -> (top_vals (B*K, k), top_toks, lse,
-    cache). Returns (best_sequences (B, max_length), best_scores (B,))."""
+    cache). ``pos_offset`` is the first writable cache slot: step i writes
+    slot pos_offset + i (vlpet_tpu/models/generate.py:238), the slots
+    before it (a decoder prefix or prompt, the same in every row) keep the
+    identity ancestry. Returns (best_sequences (B, max_length),
+    best_scores (B,))."""
     B, K = batch_size, num_beams
     device = resolve_device(device)
     cache_len = cache[0]["k"].shape[0]
@@ -132,7 +136,7 @@ def beam_generate(decode_topk: Callable, cache, batch_size: int, num_beams: int,
             break
         tok = alive_seqs[:, :, i]
         # this step's KV lands in each beam's own physical row
-        anc[:, :, i] = own_row
+        anc[:, :, pos_offset + i] = own_row
         top_vals, top_tok, lse, cache = decode_topk(tok.reshape(B * K, 1), i,
                                                     cache, anc, 2 * K)
         top_lp = (top_vals - lse[:, None]).reshape(B, K, 2 * K)
@@ -188,7 +192,11 @@ def seq2seq_generate(model, *, input_ids, attention_mask, vis_feats=None,
     """End-to-end generation for a port VLBart or VLT5, with the
     backbone's start, eos and pad ids (T5: 0, 1, 0). Returns token ids
     (B, max_length) with the start token at position 0. In beam mode the
-    joint mask and the cross K/V stay at B rows, shared by the K beams."""
+    joint mask and the cross K/V stay at B rows, shared by the K beams.
+    A decoder prefix or input prompt of P slots (``model.prefill_kvs``)
+    is written into the first P slots of a cache of max_length + P once,
+    and step i decodes at position P + i (vlpet_tpu/models/
+    generate.py:356-393)."""
     cfg = model.cfg
     bk = cfg.backbone
     B = input_ids.shape[0]
@@ -198,18 +206,24 @@ def seq2seq_generate(model, *, input_ids, attention_mask, vis_feats=None,
                                        vis_attention_mask, ctx)
     consts = model.init_decode(enc_out, ctx)
     n = B * num_beams if num_beams > 1 else B
-    cache = init_self_cache(cfg, n, max_length, compute_dtype(cfg), device)
+    dtype = compute_dtype(cfg)
+    prefill = model.prefill_kvs(n, ctx)
+    P = prefill[0][0].shape[1] if prefill is not None else 0
+    cache = init_self_cache(cfg, n, max_length + P, dtype, device)
+    for layer, (k, v) in zip(cache, prefill or ()):
+        layer["k"][:P] = k.transpose(0, 1).to(dtype)
+        layer["v"][:P] = v.transpose(0, 1).to(dtype)
 
     def decode_topk(tok, pos, cache, beam_anc, k):
-        return model.decode_step_topk(tok, joint_mask, consts, cache, pos, k,
-                                      ctx, beam_anc)
+        return model.decode_step_topk(tok, joint_mask, consts, cache, pos + P,
+                                      k, ctx, beam_anc)
 
     start, eos, pad = (bk.decoder_start_token_id, bk.eos_token_id,
                        bk.pad_token_id)
     if num_beams > 1:
         seqs, _ = beam_generate(decode_topk, cache, B, num_beams, max_length,
                                 start, eos, pad, length_penalty,
-                                device=device)
+                                device=device, pos_offset=P)
         return seqs
     return greedy_generate(decode_topk, cache, B, max_length, start, eos, pad,
                            device=device)

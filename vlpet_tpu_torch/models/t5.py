@@ -29,12 +29,21 @@ unfreeze_bias, unfreeze_encoder_bias, unfreeze_decoder_bias) takes its
 gradient through the attention kernels' dbias (ops.attention, A6 and the
 long backward), then through the plain bucket gather and the sum over the
 blocks that share it. The video shape (S 604, ``config.t5_video_cfg``)
-trains through the long backward with the bias and the dropout. What the
-port lacks raises NotImplementedError: at build the configurations
-models/vlbart.py check_supported rejects and the PET baselines, which
-the port has on BART only (serial adapters, Compacter, the low-rank
-adapter, LoRA, the hyperformer, the encoder prompt: ``check_t5_supported``),
-and ``vis.sparse_sample`` at a training call.
+trains through the long backward with the bias and the dropout.
+
+The PET baselines of the JAX T5: serial adapters (bottleneck, Compacter
+with the model-root rule and slow weights, low-rank) after each sublayer
+of both stacks, the hyperformer's generated adapters (a hypernet per
+stack, the task embedding at the model), the encoder prompt before the
+joint sequence (the relative bias then spans prompt and text) and the
+decoder input prompt (its rows before the inputs, untouched by the cross
+block, dropped at the end; generation prefills its dry-run K/V). LoRA on
+T5 builds no module: the JAX T5 has none, and ``use_lora`` only makes the
+"bias" leaves (the relative bias among them) trainable, which the freezing
+rules do. What the port lacks raises NotImplementedError: at build the
+configurations models/vlbart.py check_supported rejects and the flags the
+JAX T5 does not read (``check_t5_supported``), and ``vis.sparse_sample``
+at a training call.
 
 Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
@@ -54,6 +63,7 @@ vlpet_tpu_torch.convert carries the weights across unchanged.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -63,15 +73,16 @@ import torch.nn as nn
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import (NEG_INF, _seed, compute_dtype,
-                                         expand_mask, write_slot)
+                                         expand_mask, prompt_controller,
+                                         write_slot)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (LowRankVisualEmbedding,
                                            joint_attention_mask,
                                            visual_embedding_class)
 from vlpet_tpu_torch.models.vlbart import (BART_ONLY_PET_FLAGS,
-                                           BASELINE_FLAGS, check_supported,
-                                           serial_adapters, shift_tokens_right)
+                                           T5_UNREAD_FLAGS, check_supported,
+                                           shift_tokens_right)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
@@ -87,10 +98,16 @@ from vlpet_tpu_torch.ops.fused_ce import (fused_linear_ce,
 from vlpet_tpu_torch.ops.ffn import (ffn_reference, fused_ffn,
                                      fused_gated_ffn, gated_ffn_reference)
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
+from vlpet_tpu_torch.pet.hypernet import (MetaLayersAdapterController,
+                                          TaskEmbeddingController,
+                                          stack_hypernet)
 from vlpet_tpu_torch.pet.modules import (AdapterController, GateLargeXLowRank,
                                          GateMiddleXYAdd, GateSmallXYCat,
                                          IA3Vector, MultiheadDownAdapter,
-                                         PetContext, TaskDense, build_gate)
+                                         PetContext, TaskDense, build_gate,
+                                         glorot_uniform_gain2_,
+                                         make_shared_phm_W, normal_,
+                                         shared_phm_W, shared_phm_W_dims)
 from vlpet_tpu_torch.train.freezing import weight_initialization
 
 Cache = Dict[str, torch.Tensor]
@@ -235,13 +252,17 @@ class T5Attention(nn.Module):
 
 class T5EncoderHooks(nn.Module):
     """The encoder hook chain on a sublayer's output y (vlpet_tpu/models/
-    t5.py:312-384): y + MultiheadDownAdapter(y) (scaled as configured),
-    then one gate with x the pre-norm block input -- y * G with G from
-    GateLargeXLowRank(x), GateSmallXYCat(x, y) or GateMiddleXYAdd(x, y), or
-    middle-Y's y + y * v -- then the gating scale. As in the JAX T5 (and
-    unlike BART): no GateLargeX, no ``_add`` form of the gates and no
-    ``no_encoder_attn_adapter`` check. Registered as ``attn_hooks`` /
-    ``ff_hooks``; the serial adapter and the hyperformer raise at build."""
+    t5.py:312-388): the serial adapter (``{prefix}_adapter``, an
+    AdapterController of the bottleneck, Compacter or low-rank kind, unless
+    ``no_encoder_adapter``) or y + MultiheadDownAdapter(y) (scaled as
+    configured); then the hyperformer adapter (``adapter_hypernet``) with
+    the layer's generated weights; then one gate with x the pre-norm block
+    input -- y * G with G from GateLargeXLowRank(x), GateSmallXYCat(x, y) or
+    GateMiddleXYAdd(x, y), or middle-Y's y + y * v -- then the gating
+    scale. As in the JAX T5 (and unlike BART): no GateLargeX, no ``_add``
+    form of the gates, no ``no_encoder_attn_adapter`` check and the
+    hypernet before the gate. Registered as ``attn_hooks`` /
+    ``ff_hooks``."""
 
     # (flag, module suffix, class) in the JAX elif order
     GATES = (
@@ -262,10 +283,16 @@ class T5EncoderHooks(nn.Module):
         d = cfg.d_model
         self.cfg, self.prefix = cfg, prefix
         kw = dict(dtype=compute_dtype(cfg), device=device)
-        if p.use_encoder_adapter_down_multihead:
+        if ((p.use_adapter or p.use_compacter or p.use_lradapter)
+                and not p.no_encoder_adapter):
+            self.add_module(f"{prefix}_adapter", AdapterController(
+                p.adapter_spec(d), phm_W_dims=shared_phm_W_dims(p, d), **kw))
+        elif p.use_encoder_adapter_down_multihead:
             self.add_module(f"{prefix}_adapter_multihead", MultiheadDownAdapter(
                 d, p.adapter_down_dim, p.encoder_adapter_multihead_num_head,
                 **kw))
+        if p.use_hyperformer:
+            self.adapter_hypernet = _meta_adapter(p, kw["dtype"])
         self.gate = next(((suffix, cls) for flag, suffix, cls in self.GATES
                           if getattr(p, flag)), None)
         if self.gate is not None:
@@ -273,16 +300,22 @@ class T5EncoderHooks(nn.Module):
             self.add_module(f"encoder_{prefix}_{suffix}",
                             build_gate(cls, d, p, **kw))
 
-    def forward(self, y: torch.Tensor,
-                x_pre_norm: torch.Tensor) -> torch.Tensor:
-        p = self.cfg.pet
-        if p.use_encoder_adapter_down_multihead:
-            delta = getattr(self, f"{self.prefix}_adapter_multihead")(y)
+    def forward(self, y: torch.Tensor, x_pre_norm: torch.Tensor,
+                ctx: PetContext, block_w=None) -> torch.Tensor:
+        p, mods = self.cfg.pet, self._modules
+        serial = mods.get(f"{self.prefix}_adapter")
+        multihead = mods.get(f"{self.prefix}_adapter_multihead")
+        if serial is not None:
+            y = serial(y, ctx)
+        elif multihead is not None:
+            delta = multihead(y)
             if p.use_encoder_adapter_scaling:
                 delta = delta * p.encoder_adapter_scaling_factor
             if p.use_encoder_x2_scaling:
                 y = y * p.encoder_x2_scaling_factor
             y = y + delta
+        if block_w is not None:
+            y = self.adapter_hypernet(y, block_w)
         if self.gate is not None:
             suffix, cls = self.gate
             mod = getattr(self, f"encoder_{self.prefix}_{suffix}")
@@ -295,10 +328,21 @@ class T5EncoderHooks(nn.Module):
         return y
 
 
+def _meta_adapter(p, dtype) -> MetaLayersAdapterController:
+    return MetaLayersAdapterController(
+        add_layer_norm_before_adapter=p.add_layer_norm_before_adapter,
+        add_layer_norm_after_adapter=p.add_layer_norm_after_adapter,
+        dtype=dtype)
+
+
 class T5Block(nn.Module):
     """Pre-norm block: self-attention [+ cross-attention] + FFN, with the
     encoder hooks after each encoder sublayer and the bf16 clamp at the
-    end (vlpet_tpu/models/t5.py:391)."""
+    end (vlpet_tpu/models/t5.py:391). A decoder block's sublayer outputs
+    go through its serial adapters (``attn_adapter``, ``enc_attn_adapter``
+    under ``add_adapter_cross_attn``, ``ff_adapter``; none under
+    ``no_decoder_adapter``) and then the hyperformer adapter
+    (``adapter_hypernet``), in the JAX order (:524-570)."""
 
     def __init__(self, cfg: VLModelConfig, is_decoder: bool = False,
                  has_relative_attention_bias: bool = False,
@@ -331,9 +375,23 @@ class T5Block(nn.Module):
                                  torch.zeros(b.d_model, device=dev),
                                  persistent=False)
         self.wo = TaskDense(b.d_ff, b.d_model, **kw)
+        p = cfg.pet
         if not is_decoder:
             self.attn_hooks = T5EncoderHooks(cfg, "attn", device)
             self.ff_hooks = T5EncoderHooks(cfg, "ff", device)
+        else:
+            if ((p.use_adapter or p.use_compacter or p.use_lradapter)
+                    and not p.no_decoder_adapter):
+                names = (("attn_adapter", "enc_attn_adapter", "ff_adapter")
+                         if p.add_adapter_cross_attn
+                         else ("attn_adapter", "ff_adapter"))
+                for name in names:
+                    self.add_module(name, AdapterController(
+                        p.adapter_spec(b.d_model),
+                        phm_W_dims=shared_phm_W_dims(p, b.d_model), dtype=dt,
+                        device=device))
+            if p.use_hyperformer:
+                self.adapter_hypernet = _meta_adapter(p, dt)
 
     def _ff(self, x: torch.Tensor, rate: float = 0.0,
             seed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -354,6 +412,18 @@ class T5Block(nn.Module):
                    self.zero_b2, "relu", rate, seed)
         return y.reshape(x.shape)
 
+    def _adapt(self, y: torch.Tensor, name: str, block, part: str,
+               ctx: PetContext) -> torch.Tensor:
+        """A decoder sublayer's output through its serial adapter ``name``
+        and the hyperformer adapter with ``part`` of the block's weights,
+        where the block has them."""
+        adapter = self._modules.get(name)
+        if adapter is not None:
+            y = adapter(y, ctx)
+        if block is not None and getattr(block, part) is not None:
+            y = self.adapter_hypernet(y, getattr(block, part))
+        return y
+
     def _res_drop(self, y: torch.Tensor,
                   seeds: Optional[DropoutSeeds]) -> torch.Tensor:
         """Residual-branch hash dropout (vlpet_tpu/models/t5.py:460)."""
@@ -370,18 +440,26 @@ class T5Block(nn.Module):
                 cache: Optional[Cache] = None,
                 decode_pos: Optional[int] = None,
                 beam_anc: Optional[torch.Tensor] = None,
-                seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+                seeds: Optional[DropoutSeeds] = None,
+                prompt_len: int = 0) -> torch.Tensor:
         """``seeds`` (training) drives, in this order, the self-attention's
         probability and residual dropout, the cross-attention's (decoder),
-        and the FFN's hidden and residual dropout."""
+        and the FFN's hidden and residual dropout. ``ctx.block_adapters``:
+        the layer's hypernet-generated adapter weights. ``prompt_len`` P:
+        the first P rows are the decoder input prompt, which the cross
+        block leaves as they were (vlpet_tpu/models/t5.py:552-558)."""
         rate = self.cfg.backbone.dropout_rate if seeds is not None else 0.0
+        block = ctx.block_adapters
         x = hidden_states
         y = self.self_attn(self.self_attn_layer_norm(x), ctx, mask=mask,
                            bias=bias, causal=causal, cache=cache,
                            decode_pos=decode_pos, beam_anc=beam_anc,
                            rate=rate, seed=_seed(seeds))
         if not self.is_decoder:
-            y = self.attn_hooks(y, x)
+            y = self.attn_hooks(y, x, ctx,
+                                block.self_attention if block else None)
+        else:
+            y = self._adapt(y, "attn_adapter", block, "self_attention", ctx)
         h = x + self._res_drop(y, seeds)
         if self.is_decoder and (encoder_hidden_states is not None
                                 or cross_kv is not None):
@@ -390,11 +468,17 @@ class T5Block(nn.Module):
                                 mask=cross_mask, cross_kv=cross_kv,
                                 kv_states=encoder_hidden_states, rate=rate,
                                 seed=_seed(seeds))
+            y = self._adapt(y, "enc_attn_adapter", block, "cross_attention",
+                            ctx)
             h = x + self._res_drop(y, seeds)
+            if prompt_len:
+                h = torch.cat([x[:, :prompt_len], h[:, prompt_len:]], 1)
         x = h
         y = self._ff(self.ff_layer_norm(x), rate, _seed(seeds))
         if not self.is_decoder:
-            y = self.ff_hooks(y, x)
+            y = self.ff_hooks(y, x, ctx, block.feed_forward if block else None)
+        else:
+            y = self._adapt(y, "ff_adapter", block, "feed_forward", ctx)
         h = x + self._res_drop(y, seeds)
         if self.dtype != torch.float32:
             clamp = torch.finfo(self.dtype).max - 1000
@@ -406,15 +490,32 @@ def _blocks(module: nn.Module, n: int) -> List[T5Block]:
     return [getattr(module, f"blocks_{i}") for i in range(n)]
 
 
+def _layer_blocks(hypernet, task_embedding, n: int) -> Tuple:
+    """Each layer's hypernet-generated adapter weights (None per layer
+    without a hypernet)."""
+    return tuple(hypernet(task_embedding, i) if hypernet is not None
+                 else None for i in range(n))
+
+
 class T5JointEncoder(nn.Module):
-    """T5 encoder over [text; visual] tokens with the block-diagonal
-    relative bias (vlpet_tpu/models/t5.py:580)."""
+    """T5 encoder over [prompt; text; visual] tokens with the
+    block-diagonal relative bias (vlpet_tpu/models/t5.py:580): the encoder
+    prompt (``prompt_modules``) goes before the text and the text's
+    relative bias spans both; under ``use_hyperformer`` the stack's
+    ``adapter_layers_hyper_net`` generates each block's adapter weights."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
-        b, v = cfg.backbone, cfg.vis
+        b, v, p = cfg.backbone, cfg.vis, cfg.pet
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
+        if p.encoder_prompt_len > 0:
+            # init_std None: a normal(0, 1) table, torch-default denses
+            self.prompt_modules = prompt_controller(
+                cfg, p.encoder_prompt_len, None, dt, device)
+        if p.use_hyperformer:
+            self.adapter_layers_hyper_net = stack_hypernet(
+                cfg, b.num_layers, False, dtype=dt, device=device)
         self.n_layers = b.num_layers
         for i in range(b.num_layers):
             self.add_module(f"blocks_{i}", T5Block(
@@ -437,7 +538,8 @@ class T5JointEncoder(nn.Module):
                 obj_order_ids: Optional[torch.Tensor] = None,
                 vis_attention_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[PetContext] = None,
-                seeds: Optional[DropoutSeeds] = None):
+                seeds: Optional[DropoutSeeds] = None,
+                task_embedding: Optional[torch.Tensor] = None):
         """Returns (hidden_states, joint_attention_mask [B, L_joint]).
         ``seeds`` (training) drives the embedding dropout, every block's
         sites and the dropout of the final states."""
@@ -445,8 +547,14 @@ class T5JointEncoder(nn.Module):
         rate = self.cfg.backbone.dropout_rate
         dt = self.dtype
         ctx = ctx or PetContext()
-        L = input_ids.shape[1]
+        B = input_ids.shape[0]
         h = shared_embedding[input_ids].to(dt)
+        if "prompt_modules" in self._modules:
+            prefix = self.prompt_modules(B, ctx.task_idx).to(dt)
+            h = torch.cat([prefix, h], dim=1)
+            attention_mask = torch.cat([attention_mask.new_ones(
+                (B, prefix.shape[1])), attention_mask], dim=1)
+        L = h.shape[1]
         mask = attention_mask
         if not v.no_vis and vis_feats is not None:
             vis_embeds = self.visual_embedding.tokens(
@@ -467,8 +575,11 @@ class T5JointEncoder(nn.Module):
                            device=h.device)
         bias[:, :, :L, :L] = text_bias
         bias = bias.float()  # the kernels take fp32: the same dt values
-        for blk in blocks:
-            h = blk(h, ctx, mask=pad_mask, bias=bias, seeds=seeds)
+        for blk, block in zip(blocks, _layer_blocks(
+                self._modules.get("adapter_layers_hyper_net"),
+                task_embedding, self.n_layers)):
+            h = blk(h, ctx.for_layer(block), mask=pad_mask, bias=bias,
+                    seeds=seeds)
         h = self.final_layer_norm(h)
         if seeds is not None:
             h = hash_dropout(h, seeds.next(), rate)
@@ -477,13 +588,28 @@ class T5JointEncoder(nn.Module):
 
 class T5Decoder(nn.Module):
     """T5 decoder stack: ``forward`` is one incremental decode step,
-    ``teacher_force`` the whole target sequence (eval)."""
+    ``teacher_force`` the whole target sequence. The decoder input prompt
+    (``prompt_modules``, ``decoder_prompt_len`` P) goes before the inputs
+    in training, its rows at relative positions 0..P-1 and left alone by
+    the cross block, and is dropped before the final norm; generation
+    prefills its dry-run K/V (``prefill_kvs``) and decodes from P
+    (vlpet_tpu/models/t5.py:753-873). Under ``use_hyperformer`` the stack's
+    ``adapter_layers_hyper_net`` generates each block's adapter weights
+    (``block_adapters``: once per generation, and in every training
+    pass)."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
-        b = cfg.backbone
+        b, p = cfg.backbone, cfg.pet
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
+        if p.decoder_prompt_len > 0:
+            self.prompt_modules = prompt_controller(
+                cfg, p.decoder_prompt_len, None, dt, device)
+        if p.use_hyperformer:
+            self.adapter_layers_hyper_net = stack_hypernet(
+                cfg, b.num_decoder_layers, p.add_adapter_cross_attn,
+                dtype=dt, device=device)
         self.n_layers = b.num_decoder_layers
         for i in range(b.num_decoder_layers):
             self.add_module(f"blocks_{i}", T5Block(
@@ -495,15 +621,21 @@ class T5Decoder(nn.Module):
     def blocks(self) -> List[T5Block]:
         return _blocks(self, self.n_layers)
 
+    def block_adapters(self, task_embedding: Optional[torch.Tensor]) -> Tuple:
+        return _layer_blocks(self._modules.get("adapter_layers_hyper_net"),
+                             task_embedding, self.n_layers)
+
     def forward(self, input_ids: torch.Tensor, shared_embedding: torch.Tensor,
                 encoder_attention_mask: torch.Tensor, ctx: PetContext,
                 cross_kvs: Tuple, cache: Tuple[Cache, ...], decode_pos: int,
-                beam_anc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                beam_anc: Optional[torch.Tensor] = None,
+                layer_blocks: Optional[Tuple] = None) -> torch.Tensor:
         """One decode step: input_ids (B, 1) at ``decode_pos``. With
         ``beam_anc`` (B_true, K, L_cache) the self-attention takes the
         reorder-free beam path (its ancestry carries the causal limit and
         the bias row rides through D1); greedy adds the causal mask to the
-        bias row. Returns hidden (B, 1, d)."""
+        bias row. ``layer_blocks``: ``block_adapters()``, built once per
+        sequence. Returns hidden (B, 1, d)."""
         dt = self.dtype
         h = shared_embedding[input_ids].to(dt)
         blocks = self.blocks()
@@ -515,10 +647,11 @@ class T5Decoder(nn.Module):
             j = torch.arange(max_len, device=h.device)[None, None, None, :]
             self_bias = self_bias + torch.where(j <= decode_pos, 0.0, NEG_INF)
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
-        for blk, kv, c in zip(blocks, cross_kvs, cache):
-            h = blk(h, ctx, bias=self_bias, cross_mask=cross_mask,
-                    cross_kv=kv, cache=c, decode_pos=decode_pos,
-                    beam_anc=beam_anc)
+        for blk, kv, c, block in zip(blocks, cross_kvs, cache,
+                                     layer_blocks or (None,) * len(blocks)):
+            h = blk(h, ctx.for_layer(block), bias=self_bias,
+                    cross_mask=cross_mask, cross_kv=kv, cache=c,
+                    decode_pos=decode_pos, beam_anc=beam_anc)
         return self.final_layer_norm(h)
 
     def teacher_force(self, input_ids: torch.Tensor,
@@ -526,26 +659,34 @@ class T5Decoder(nn.Module):
                       encoder_hidden_states: torch.Tensor,
                       encoder_attention_mask: torch.Tensor,
                       ctx: PetContext,
-                      seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
-        """The whole target sequence (B, T): the relative bias plus the
-        causal triangle, in-kernel, and cross-attention over the encoder
-        states. ``seeds`` (training) drives the embedding dropout, every
-        block's sites and the dropout of the final states. Returns
-        (B, T, d)."""
+                      seeds: Optional[DropoutSeeds] = None,
+                      task_embedding: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The whole target sequence (B, T), after the decoder input
+        prompt: the relative bias plus the causal triangle, in-kernel, and
+        cross-attention over the encoder states. ``seeds`` (training)
+        drives the embedding dropout, every block's sites and the dropout
+        of the final states. Returns (B, T, d)."""
         dt = self.dtype
         rate = self.cfg.backbone.dropout_rate
-        T = input_ids.shape[1]
+        B = input_ids.shape[0]
         h = shared_embedding[input_ids].to(dt)
+        P = 0
+        if "prompt_modules" in self._modules:
+            prompt = self.prompt_modules(B, ctx.task_idx).to(dt)
+            P = prompt.shape[1]
+            h = torch.cat([prompt, h], dim=1)
         if seeds is not None:
             h = hash_dropout(h, seeds.next(), rate)
         blocks = self.blocks()
+        T = h.shape[1]
         bias = blocks[0].self_attn.compute_bias(T, T).float()
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
-        for blk in blocks:
-            h = blk(h, ctx, bias=bias, causal=True,
+        for blk, block in zip(blocks, self.block_adapters(task_embedding)):
+            h = blk(h, ctx.for_layer(block), bias=bias, causal=True,
                     encoder_hidden_states=encoder_hidden_states,
-                    cross_mask=cross_mask, seeds=seeds)
-        h = self.final_layer_norm(h)
+                    cross_mask=cross_mask, seeds=seeds, prompt_len=P)
+        h = self.final_layer_norm(h[:, P:] if P else h)
         if seeds is not None:
             h = hash_dropout(h, seeds.next(), rate)
         return h
@@ -556,17 +697,41 @@ class T5Decoder(nn.Module):
         return tuple(blk.cross_attn.compute_cross_kv(encoder_hidden_states, ctx)
                      for blk in self.blocks())
 
+    def prefill_kvs(self, batch_size: int, ctx: PetContext,
+                    task_embedding: Optional[torch.Tensor] = None):
+        """Per block the self-attention (k, v), each (B, P, H*Dh), of the
+        decoder input prompt's dry run (vlpet_tpu/models/t5.py:843
+        ``compute_prompt_kvs``): the prompt through every block without
+        its cross section, causal, with the relative bias over P; or None
+        without a decoder prompt."""
+        if "prompt_modules" not in self._modules:
+            return None
+        h = self.prompt_modules(batch_size, ctx.task_idx).to(self.dtype)
+        blocks = self.blocks()
+        P = h.shape[1]
+        bias = blocks[0].self_attn.compute_bias(P, P).float()
+        kvs = []
+        for blk, block in zip(blocks, self.block_adapters(task_embedding)):
+            x = blk.self_attn_layer_norm(h)  # T5 projects the normed input
+            kvs.append((blk.self_attn.k(x), blk.self_attn.v(x)))
+            h = blk(h, ctx.for_layer(block), bias=bias, causal=True)
+        return tuple(kvs)
+
 
 class T5DecodeConsts(NamedTuple):
     """The loop invariants of one generation, built once by
     ``VLT5.init_decode``: per decoder block the cross-attention K/V
-    (B, S, H*Dh), and the LM-head weight as fp32."""
+    (B, S, H*Dh) and the hypernet-generated adapter weights (None without
+    the hyperformer), and the LM-head weight as fp32."""
     cross_kvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
+    blocks: Tuple
     logits_weight: torch.Tensor
 
 
 class VLT5Model(nn.Module):
-    """Encoder-decoder glue: shared embedding, joint encoder, decoder."""
+    """Encoder-decoder glue: shared embedding, joint encoder, decoder and,
+    under ``use_hyperformer``, the task embedding (``shared_task_embed``,
+    vlpet_tpu/models/t5.py:887-900)."""
 
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
@@ -575,21 +740,25 @@ class VLT5Model(nn.Module):
                                                device=resolve_device(device)))
         self.encoder = T5JointEncoder(cfg, device=device)
         self.decoder = T5Decoder(cfg, device=device)
+        if cfg.pet.use_hyperformer:
+            self.shared_task_embed = TaskEmbeddingController(
+                cfg.pet.hyperformer_spec(), cfg.pet.tasks, device=device)
+
+    def task_embedding(self, ctx: PetContext) -> Optional[torch.Tensor]:
+        embed = self._modules.get("shared_task_embed")
+        return embed(ctx.task_idx) if embed is not None else None
 
 
 def check_t5_supported(cfg: VLModelConfig) -> None:
-    """``check_supported``; the PET baselines, which the port's T5 does
-    not have (the JAX T5 has serial adapters, prompts and the hypernet,
-    vlpet_tpu/models/t5.py:334, :606); and the BART-only flags
-    (``BART_ONLY_PET_FLAGS``, ``expand_vis_embedding``), which the JAX T5
-    does not read: it would build the model without them."""
+    """``check_supported``, and the flags the JAX T5 does not read: it
+    would build the model without them. They are the BART-only VL-PET
+    flags (``BART_ONLY_PET_FLAGS``, ``expand_vis_embedding``) and the
+    prefix and LM-head flags (``T5_UNREAD_FLAGS``: ``use_attn_prefix``,
+    under which the JAX T5 still builds the input prompts,
+    ``use_vis_prefix``, ``use_lm_head_adapter``)."""
     check_supported(cfg)
-    bad = [f for f in BASELINE_FLAGS if getattr(cfg.pet, f)]
-    if serial_adapters(cfg.pet):
-        bad.append("serial adapters")
-    if bad:
-        raise NotImplementedError(f"not ported on T5: {', '.join(bad)}")
-    bad = [f for f in BART_ONLY_PET_FLAGS if getattr(cfg.pet, f)]
+    bad = [f for f in BART_ONLY_PET_FLAGS + T5_UNREAD_FLAGS
+           if getattr(cfg.pet, f, False) or getattr(cfg.vis, f, False)]
     if cfg.vis.expand_vis_embedding:
         bad.append("expand_vis_embedding")
     if bad:
@@ -618,7 +787,28 @@ class VLT5(nn.Module):
             # flax nn.Dense without a dtype: fp32 params, fp32 product
             self.lm_head = TaskDense(b.d_model, b.vocab_size, use_bias=False,
                                      device=dev)
+        # Compacter's model-shared rule and slow weights
+        # (vlpet_tpu/models/t5.py:949-971)
+        p = cfg.pet
+        if p.use_compacter and p.shared_phm_rule:
+            pd = p.hypercomplex_division
+            self.phm_rule = nn.Parameter(torch.empty(
+                (pd, pd, pd), dtype=self.dtype, device=dev))
+        if p.use_compacter and p.shared_W_phm:
+            make_shared_phm_W(self, p, b.d_model, dtype=self.dtype,
+                              device=dev)
         self.eval()
+
+    def _ctx(self, ctx: Optional[PetContext]) -> PetContext:
+        """The call's PetContext with Compacter's model-shared rule and
+        slow weights injected (vlpet_tpu/models/t5.py:973-979)."""
+        ctx = ctx or PetContext()
+        p = self.cfg.pet
+        if p.use_compacter and p.shared_phm_rule and ctx.phm_rule is None:
+            ctx = dataclasses.replace(ctx, phm_rule=self.phm_rule)
+        if p.use_compacter and p.shared_W_phm and ctx.phm_W is None:
+            ctx = dataclasses.replace(ctx, phm_W=shared_phm_W(self, p))
+        return ctx
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VLT5":
@@ -628,7 +818,11 @@ class VLT5(nn.Module):
         bias f*d^-0.5; ``shared`` and ``lm_head`` f), RMSNorm scales 1, the
         image-order table normal(0, 0.02), and the torch Linear default
         U(+-1/sqrt(fan_in)) for the visual projections and the PET modules,
-        normal(0, 0.02) for middle-Y's vector; then the recipe's re-inits
+        normal(0, 0.02) for middle-Y's vector, LayerNorm biases 0; then the
+        PET modules' own initialisers (``init_params``: Compacter, the
+        low-rank adapter, the prompt tables' normal(0, 1), the hypernets)
+        and Compacter's root weights (normal(0, phm_init_range) rule,
+        glorot slow weights); then the recipe's re-inits
         (train/freezing.py ``weight_initialization``)."""
         b = self.cfg.backbone
         f, d, inner = b.initializer_factor, b.d_model, b.num_heads * b.d_kv
@@ -650,6 +844,7 @@ class VLT5(nn.Module):
             elif isinstance(mod, LowRankVisualEmbedding):
                 fan_in[f"{mname}.visual_projector_multihead_down_kernel"] = (
                     mod.vis.feat_dim)
+        pending = set()
         for name, p in self.named_parameters():
             parts = name.split(".")
             key = parts[-2] if parts[-1] == "weight" else parts[-1]
@@ -662,11 +857,29 @@ class VLT5(nn.Module):
                                                        "cross_attn")):
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=generator.device) * std[key])
-            else:
+            elif name in fan_in:
                 bound = fan_in[name] ** -0.5
                 p.copy_((torch.rand(p.shape, generator=generator,
                                     device=generator.device) * 2 - 1) * bound)
-        weight_initialization(self, self.cfg.pet)
+            elif parts[-1] == "bias":  # a LayerNorm's
+                p.zero_()
+            else:
+                pending.add(name)
+        for mname, m in self.named_modules():
+            if hasattr(m, "init_params"):
+                m.init_params(generator)
+                pending -= {f"{mname}.{n}" if mname else n
+                            for n, _ in m.named_parameters(recurse=False)}
+        pet = self.cfg.pet
+        for name, p in self.named_parameters(recurse=False):
+            if name == "phm_rule":
+                normal_(p, pet.phm_init_range, generator)
+            elif name.startswith("phm_W_"):
+                glorot_uniform_gain2_(p, generator)
+            pending.discard(name)
+        if pending:
+            raise ValueError(f"no initialiser for {sorted(pending)}")
+        weight_initialization(self, pet)
         return self
 
     def logits_weight(self) -> torch.Tensor:
@@ -733,15 +946,17 @@ class VLT5(nn.Module):
                 if b.dropout_rate > 0:
                     seeds = DropoutSeeds(self.dropout_sites(), generator,
                                          input_ids.device)
-            ctx = ctx or PetContext()
+            ctx = self._ctx(ctx)
+            task_embedding = self.model.task_embedding(ctx)
             enc, joint_mask = self.model.encoder(
                 input_ids, attention_mask, self.model.shared,
                 vis_feats=vis_feats, boxes=boxes, img_order_ids=img_order_ids,
                 obj_order_ids=obj_order_ids,
-                vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds)
+                vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
+                task_embedding=task_embedding)
             dec = self.model.decoder.teacher_force(
                 decoder_input_ids, self.model.shared, enc, joint_mask, ctx,
-                seeds)
+                seeds, task_embedding)
             out = {"encoder_last_hidden_state": enc}
             if labels is None:
                 out["logits"] = self._logits(dec, self.logits_weight())
@@ -793,22 +1008,36 @@ class VLT5(nn.Module):
     def encode(self, input_ids, attention_mask, vis_feats=None, boxes=None,
                img_order_ids=None, obj_order_ids=None, vis_attention_mask=None,
                ctx: Optional[PetContext] = None):
+        ctx = self._ctx(ctx)
         return self.model.encoder(input_ids, attention_mask, self.model.shared,
                                   vis_feats=vis_feats, boxes=boxes,
                                   img_order_ids=img_order_ids,
                                   obj_order_ids=obj_order_ids,
                                   vis_attention_mask=vis_attention_mask,
-                                  ctx=ctx or PetContext())
+                                  ctx=ctx,
+                                  task_embedding=self.model.task_embedding(ctx))
 
     @torch.no_grad()
     def init_decode(self, encoder_hidden_states,
                     ctx: Optional[PetContext] = None) -> T5DecodeConsts:
-        """The cross-attention K/V (B, S, H*Dh) of every decoder block and
-        the fp32 LM-head weight."""
+        """The cross-attention K/V (B, S, H*Dh) of every decoder block, its
+        hypernet-generated adapter weights (the JAX package regenerates
+        them every step: the same values) and the fp32 LM-head weight."""
+        ctx = self._ctx(ctx)
+        decoder = self.model.decoder
         return T5DecodeConsts(
-            self.model.decoder.compute_cross_kvs(encoder_hidden_states,
-                                                 ctx or PetContext()),
+            decoder.compute_cross_kvs(encoder_hidden_states, ctx),
+            decoder.block_adapters(self.model.task_embedding(ctx)),
             self.logits_weight())
+
+    @torch.no_grad()
+    def prefill_kvs(self, batch_size: int,
+                    ctx: Optional[PetContext] = None):
+        """Per decoder block the (k, v) (B, P, H*Dh) of the decoder input
+        prompt's dry run (``T5Decoder.prefill_kvs``), or None."""
+        ctx = self._ctx(ctx)
+        return self.model.decoder.prefill_kvs(
+            batch_size, ctx, self.model.task_embedding(ctx))
 
     @torch.no_grad()
     def decode_step(self, decoder_input_ids, joint_mask,
@@ -816,9 +1045,9 @@ class VLT5(nn.Module):
                     ctx: Optional[PetContext] = None, beam_anc=None):
         """One decode step -> (logits (B, V) f32, cache)."""
         dec_out = self.model.decoder(decoder_input_ids, self.model.shared,
-                                     joint_mask, ctx or PetContext(),
+                                     joint_mask, self._ctx(ctx),
                                      consts.cross_kvs, cache, decode_pos,
-                                     beam_anc)
+                                     beam_anc, consts.blocks)
         return self._logits(dec_out[:, -1, :], consts.logits_weight), cache
 
     @torch.no_grad()

@@ -33,17 +33,20 @@ from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
 from vlpet_tpu_torch.ops.fused_ce import fused_linear_ce, fused_linear_ce_plain
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
 from vlpet_tpu_torch.pet.hypernet import TaskEmbeddingController
-from vlpet_tpu_torch.pet.modules import (PetContext, glorot_uniform_gain2_,
+from vlpet_tpu_torch.pet.modules import (OutputParallelAdapterLayer,
+                                         PetContext, glorot_uniform_gain2_,
                                          make_shared_phm_W, normal_,
                                          shared_phm_W)
 from vlpet_tpu_torch.train.freezing import weight_initialization
 
-# PetConfig flags whose code paths the port does not have. Each must be off
-# (False / 0); the freezing and post-init override flags only shape training
-# and weight init, so they do not appear here.
-_UNPORTED_PET_FLAGS = ("decoder_prompt_len", "use_attn_prefix",
-                       "use_lm_head_adapter")
-_UNPORTED_VIS_FLAGS = ("use_vis_prefix", "vis_use_transformer")
+# VisConfig flags whose code paths the port does not have: each must be
+# off. vis_use_transformer is read by no model of the JAX package either
+# (only its config and CLI carry it).
+_UNPORTED_VIS_FLAGS = ("vis_use_transformer",)
+# the prefix and LM-head flags, which the JAX T5 does not read (its
+# generation takes the decoder input prompt even under use_attn_prefix):
+# the port's T5 refuses them (models/t5.py check_t5_supported)
+T5_UNREAD_FLAGS = ("use_attn_prefix", "use_vis_prefix", "use_lm_head_adapter")
 # the VL-PET ablation flags that only the BART backbone reads (the JAX T5
 # ignores them; the port's T5 refuses them, models/t5.py
 # check_t5_supported)
@@ -68,10 +71,6 @@ BART_ONLY_PET_FLAGS = (
     "use_decoder_enc_attn_value_ia3", "use_decoder_self_attn_value_ia3",
     "use_decoder_ff_ia3", "use_encoder_attn_value_ia3",
 )
-# the PET baselines' flags: ported on BART (serial adapters, Compacter, the
-# low-rank adapter, LoRA, the hyperformer, the encoder prompt), not on T5
-BASELINE_FLAGS = ("use_compacter", "use_lradapter", "use_hyperformer",
-                  "use_lora", "encoder_prompt_len")
 
 
 def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
@@ -87,13 +86,12 @@ def check_supported(cfg: VLModelConfig) -> None:
     """Raise NotImplementedError for any configuration the port does not
     implement, rather than ignoring it. Both backbones share the list and
     both train and evaluate. What raises here: the classifier answer head,
-    ``scan_layers``, ``remat`` other than "none", and the PET and visual
-    flags of ``_UNPORTED_PET_FLAGS`` / ``_UNPORTED_VIS_FLAGS`` (the
-    encoder prompt under ``use_attn_prefix`` too). The baselines' flags
-    (``BASELINE_FLAGS`` and serial adapters) and the VL-PET ablations
-    (``BART_ONLY_PET_FLAGS``, ``expand_vis_embedding``) build on BART; the
-    T5 model rejects them itself (models/t5.py). What is unported only on
-    a training call raises there: ``vis.sparse_sample`` (models/t5.py
+    ``scan_layers``, ``remat`` other than "none", and the visual flag of
+    ``_UNPORTED_VIS_FLAGS``. Every PET flag the JAX package reads builds
+    on BART; the flags the JAX T5 does not read (``BART_ONLY_PET_FLAGS``,
+    ``T5_UNREAD_FLAGS``, ``expand_vis_embedding``) the T5 model rejects
+    itself (models/t5.py). What is unported only on a training call
+    raises there: ``vis.sparse_sample`` (models/t5.py
     ``VLT5._check_trainable``). A trainable T5 ``relative_attention_bias``
     trains (its dbias comes from A6 or the long backward), and the long
     backward takes the T5 video sites' bias and probability dropout.
@@ -109,17 +107,9 @@ def check_supported(cfg: VLModelConfig) -> None:
                                   "ported; convert an unstacked tree")
     if cfg.remat != "none":
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
-    p, v = cfg.pet, cfg.vis
-    bad = [f for f in _UNPORTED_PET_FLAGS if getattr(p, f)]
-    bad += [f for f in _UNPORTED_VIS_FLAGS if getattr(v, f)]
+    bad = [f for f in _UNPORTED_VIS_FLAGS if getattr(cfg.vis, f)]
     if bad:
         raise NotImplementedError(f"not ported: {', '.join(bad)}")
-
-
-def serial_adapters(pet) -> bool:
-    """Whether the recipe puts serial adapters in either stack."""
-    return ((pet.use_adapter or pet.use_compacter or pet.use_lradapter)
-            and not (pet.no_encoder_adapter and pet.no_decoder_adapter))
 
 
 class DecodeConsts(NamedTuple):
@@ -127,7 +117,8 @@ class DecodeConsts(NamedTuple):
     ``VLBart.init_decode``: per decoder layer the cross-attention K/V
     (B, S, H*Dh), the fused self-attention QKV (weight, bias; None under
     LoRA) and the hypernet-generated adapter weights (None without the
-    hyperformer), and the LM-head weight as fp32."""
+    hyperformer), and the LM-head weight as fp32 (the LM-head adapter,
+    where there is one, adds its output to the logits at every step)."""
     cross_kvs: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
     self_qkvs: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
     blocks: Tuple
@@ -204,6 +195,9 @@ class VLBart(nn.Module):
         if p.use_compacter and p.shared_W_phm:
             make_shared_phm_W(self, p, cfg.d_model, dtype=self.dtype,
                               device=dev)
+        if p.use_lm_head_adapter:  # vlpet_tpu/models/vlbart.py:128-131
+            self.output_adapter = OutputParallelAdapterLayer(
+                cfg.d_model, cfg.backbone.vocab_size, device=dev)
         self.eval()
 
     def _ctx(self, ctx: Optional[PetContext]) -> PetContext:
@@ -253,8 +247,13 @@ class VLBart(nn.Module):
     def _logits(self, dec_out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """fp32 logits: the compute-dtype operands multiplied in fp32 (the
         exact value of a bf16 GEMM with fp32 accumulation and output); ``w``
-        is ``logits_weight()``."""
-        return dec_out.float() @ w.t() + self.final_logits_bias
+        is ``logits_weight()``. The LM-head adapter's fp32 output is added
+        (vlpet_tpu/models/vlbart.py:185-190)."""
+        logits = dec_out.float() @ w.t() + self.final_logits_bias
+        adapter = self._modules.get("output_adapter")
+        if adapter is not None:
+            logits = logits + adapter(dec_out).float()
+        return logits
 
     # --- training ------------------------------------------------------------
 
@@ -340,9 +339,11 @@ class VLBart(nn.Module):
         bf16 logits copy) in bf16; otherwise ``cross_entropy_with_ignore``
         over the fp32 logits. The JAX package's row-tile and backend tests
         (``pick_row_tile``, ``jax.default_backend()``) are TPU artefacts
-        and are dropped."""
+        and are dropped. The LM-head adapter counts as an unfrozen head
+        (vlpet_tpu/models/vlbart.py:230-236): the dense route, no C1 / C2."""
         p = self.cfg.pet
-        head_frozen = not p.unfreeze_lm_head and not p.unfreeze_language_model
+        head_frozen = (not p.use_lm_head_adapter and not p.unfreeze_lm_head
+                       and not p.unfreeze_language_model)
         B, T = labels.shape
         if head_frozen and (self.cfg.use_fused_ce
                             or dec_out.dtype == torch.bfloat16):
@@ -380,6 +381,15 @@ class VLBart(nn.Module):
             self.model.decoder.fused_self_qkvs(),
             self.model.decoder.block_adapters(self.model.task_embedding(ctx)),
             self.logits_weight())
+
+    def prefill_kvs(self, batch_size: int,
+                    ctx: Optional[PetContext] = None):
+        """Per decoder layer the (k, v) (B, P, H*Dh) of the first P cache
+        slots -- the decoder's attention prefixes or its input prompt's
+        dry-run K/V (``BartDecoder.prefill_kvs``) -- or None."""
+        ctx = self._ctx(ctx)
+        return self.model.decoder.prefill_kvs(
+            batch_size, ctx, self.model.task_embedding(ctx))
 
     def decode_step(self, decoder_input_ids, joint_mask, consts: DecodeConsts,
                     cache, decode_pos: int, ctx: Optional[PetContext] = None,

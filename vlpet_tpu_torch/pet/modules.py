@@ -482,6 +482,24 @@ class AdapterController(nn.Module):
         return out + inputs
 
 
+class OutputParallelAdapterLayer(nn.Module):
+    """The LM-head adapter (vlpet_tpu/pet/modules.py:520):
+    ``adapter_down_sampler`` d -> d/16, gelu_new, ``adapter_up_sampler``
+    d/16 -> vocab; its output is added to the logits. fp32 parameters and
+    arithmetic, as the JAX module (built without a dtype) has them."""
+
+    def __init__(self, d_model: int, output_dim: int,
+                 non_linearity: str = "gelu_new", device: Device = "cuda"):
+        super().__init__()
+        down = d_model // 16
+        self.act = get_activation(non_linearity)
+        self.adapter_down_sampler = TaskDense(d_model, down, device=device)
+        self.adapter_up_sampler = TaskDense(down, output_dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.adapter_up_sampler(self.act(self.adapter_down_sampler(x)))
+
+
 def per_head_param(h: int, fan_in: int, out: int, dtype,
                    device) -> nn.Parameter:
     """An uninitialised (h, fan_in, out) per-head kernel."""

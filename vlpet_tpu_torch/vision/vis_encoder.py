@@ -30,11 +30,11 @@ class RawInputVLModel(nn.Module):
     """CLIP visual trunk + VLBart / VLT5 in one module.
 
     ``forward`` and the generation protocol (``encode``, ``init_decode``,
-    ``decode_step``, ``decode_step_topk``) take the images, (B, 3, H, W) or
-    the NLVR pair (B, 2, 3, H, W), in the vis_feats slot, so the train step
-    and models/generate.py run unchanged; the boxes are zeros (reference:
-    vis_forward sets vis_pos zeros) (the JAX wrapper's ``init_decoder_prefix`` serves the decoder
-    prompt, which the port's VL models do not have). With
+    ``prefill_kvs``, ``decode_step``, ``decode_step_topk``) take the
+    images, (B, 3, H, W) or the NLVR pair (B, 2, 3, H, W), in the
+    vis_feats slot, so the train step and models/generate.py run
+    unchanged; the boxes are zeros (reference: vis_forward sets vis_pos
+    zeros). With
     ``vis_pooling_output`` the pooled (B, 1, output_dim) vector is the
     one visual token: it fits the feature projection only where
     ``cfg.vis.feat_dim`` is the trunk's output_dim, and raises otherwise,
@@ -144,6 +144,9 @@ class RawInputVLModel(nn.Module):
     def init_decode(self, encoder_hidden_states,
                     ctx: Optional[PetContext] = None):
         return self.vl.init_decode(encoder_hidden_states, ctx)
+
+    def prefill_kvs(self, batch_size: int, ctx: Optional[PetContext] = None):
+        return self.vl.prefill_kvs(batch_size, ctx)
 
     def decode_step(self, decoder_input_ids, joint_mask, consts, cache,
                     decode_pos: int, ctx: Optional[PetContext] = None,
