@@ -42,14 +42,19 @@ vs plain, 7j times their bf16 train steps and four beam-5 evals; 6k holds
 A1 and A6 at the prefixes' sites and the remaining PET flags' (prefixes,
 decoder prompts, the LM-head adapter, the T5 baselines) fp32 train steps
 and tokens kernels vs plain, 7k times their bf16 train steps and beam-5
-evals; 8 runs
+evals; 6l holds BART's attention and activation dropout at their kernel
+sites, the classifier's, the dropouts', remat's and sparse_sample's fp32
+train steps and the BART heads kernels vs plain, 7l times the
+classifier's, the dropouts' and remat's bf16 train steps; 8 runs
 the image-text
 CLI (VL-PET-small, bf16, B 500, train, eval each epoch, resume), 8b the
 prompt script's (two epochs) and 8c the video CLI (VL-PET-large.sh, two
 epochs, resume) and single_task tvqa (single_prompt.sh), 8d the
 extractor + CLI on features with --backbone_ckpt (resume) and the raw
-CLI with --clip_ckpt, in child processes of ROOT's chip_smoke. ``--profile`` adds each bench run's device time and
-launches by kernel family, read for every tree by this tree's
+CLI with --clip_ckpt, 8e the CLI with --classifier (VL-PET-large.sh,
+one epoch, resume), in child processes of ROOT's chip_smoke.
+``--profile`` adds each bench run's device time and launches by kernel
+family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
 memory over the phase is printed (for trees whose phases do not print
 their own). Run parent, change, change, parent to see the spread beside
@@ -91,6 +96,7 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "6i": ("phase_raw_parity", None),
           "6j": ("phase_ablation_parity", None),
           "6k": ("phase_pet_flag_parity", "rep"),
+          "6l": ("phase_tail_parity", "rep"),
           "7": ("phase_train_bench", "card"),
           "7b": ("phase_video_train_bench", "card"),
           "7c": ("phase_t5_train_bench", "card"),
@@ -102,10 +108,12 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "7i": ("phase_raw_cudnn", "card"),
           "7j": ("phase_ablation_bench", "card"),
           "7k": ("phase_pet_flag_bench", "card"),
+          "7l": ("phase_tail_bench", "card"),
           "8": ("phase_cli_rehearsal", "card"),
           "8b": ("phase_cli_prompt", "card"),
           "8c": ("phase_cli_video", "card"),
-          "8d": ("phase_cli_raw", "card")}
+          "8d": ("phase_cli_raw", "card"),
+          "8e": ("phase_cli_classifier", "card")}
 HERE = Path(__file__).resolve().parent
 
 

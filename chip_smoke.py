@@ -390,8 +390,33 @@ nonzero and no result line is printed):
      "fma" where a prefix or prompt makes S 96, no C1 / C2 under the
      LM-head adapter, the prefix eval's D1 and U1 launches a step equal to
      VL-PET-large's.
-Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 7f, 7g, 7h, 7j, 7k, 8b, 8c and 8d
-prints its seconds.
+  6l. (after 6k) the last single-card paths, fp32, kernels vs plain:
+     first A1 and A6 at rate 0.1 at BART's sites (B 500 bf16 and B 8
+     fp32: the encoder's S 56, the causal decoder L 10, the cross L 10
+     over S 56, the classify decoder's one token over S 56 and over
+     itself), the long backward at rate 0.1 at the video encoder (B 50, S
+     604) and F1 / F2 gelu with hidden dropout at N 28000 and 5000; then
+     the classifier (``TAIL["cls"]``: BART-base, and T5-base at 2+2
+     layers, num_answers 3129), 6j's per-step train parity over 3 vqa
+     steps at B 8 and predict_classifier's argmax identical; VL-PET-large
+     at attention and activation dropout 0.1, 3 vqa steps at B 8 and one
+     tvqa step at B 2, S 604 (the long backward's dropout at BART's
+     sites); remat "full" and "dots" against "none" through the kernels
+     (loss and every gradient, their largest difference printed); one
+     vis.sparse_sample step (49 visual tokens subsampled to 36); a forward
+     and backward of each models/bart_heads.py class at BART-base width;
+  7l. (after 7k) bf16 vqa steps, B 500 (T5-base B 300; 3 after 1): the
+     classifier beside VL-PET-large's LM step on both backbones,
+     VL-PET-large at both dropouts 0.1 (beside 0: the LM step), remat
+     "full" and "dots" (beside "none"): ms/step, examples/s, peak GiB and
+     the launches a step of A1, A6, F1, F2, L1 and L2 (the tail_* runs;
+     under remat the forward kernels launch twice a step);
+  8e. (after 8d) ``cli.multitask`` with VL-PET-large.sh's flags +
+     --classifier --bf16 on vqa, CLS_CLI_EXAMPLES synthetic examples, one
+     epoch, the predict_classifier eval, then --resume (the saved state's
+     digest bit for bit; the cli_classifier run).
+Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
+8d and 8e prints its seconds.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -441,12 +466,15 @@ import zlib
 import torch
 import torch.nn.functional as F
 
-from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, flagship_cfg,
-                                    t5_cfg, t5_video_cfg, video_cfg,
-                                    vlpet_recipe)
+from vlpet_tpu_torch.config import (FLAGSHIP_TASKS, VIDEO_TASKS, PetConfig,
+                                    flagship_cfg, t5_cfg, t5_video_cfg,
+                                    video_cfg, vlpet_recipe)
 from vlpet_tpu_torch.data.features import PackedFeatureSource
 from vlpet_tpu_torch.device import deterministic_kernels
+from vlpet_tpu_torch.models.bart_heads import (BartForQuestionAnswering,
+                                               BartForSequenceClassification)
 from vlpet_tpu_torch.models.generate import seq2seq_generate
+from vlpet_tpu_torch.models.heads import task_loss
 from vlpet_tpu_torch.models.hf_import import (bart_hf_to_port,
                                               load_torch_state_dict,
                                               t5_hf_to_port)
@@ -490,6 +518,9 @@ TRAIN_METRIC_RTOL = 1e-5
 # probabilities and hidden activations to bf16 at other places)
 BF16_STEP_RTOL = 1e-2
 PARAM_RTOL, PARAM_ATOL_SCALE = 1e-3, 1e-5
+# calls of a plain twin's (and a library call's) timed median; the
+# kernel's own median takes ``iters`` (20 unless a case says otherwise)
+TWIN_ITERS = 3
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): bf16
 # tensor cores, fp32 outside them (the fp32 kernels must not round to TF32)
@@ -583,19 +614,32 @@ PF_T5_TRAIN = tuple(f"pf_{n}" for n in PF_T5) + ("pf_t5_vlpet_large",)
 PF_DBIAS = ("pf_t5_single_lora",)
 PF_EVAL = tuple(f"pf_{n}_eval" for n in PF_BART + PF_T5) + (
     "pf_vlpet_large_eval",)
+# the last single-card paths (phases 6l, 7l, 8e; TAIL below): phase 7l's
+# bf16 steps on BART-base (TAIL_TRAIN: the LM step, the classifier, both
+# dropouts 0.1, remat full and dots; TAIL_DROP the dropping one) and
+# T5-base (TAIL_T5_TRAIN), 6l's fp32 video step at both dropouts 0.1
+# (TAIL_VIDEO_DROP: the long backward's dropout at BART's sites) and 8e's
+# CLI run with --classifier (CLI_CLS: train steps and predict_classifier)
+TAIL_DROP, TAIL_VIDEO_DROP, CLI_CLS = ("tail_drop", "tail_video_drop",
+                                       "cli_classifier")
+TAIL_TRAIN = ("tail_vlpet_large", "tail_cls", TAIL_DROP, "tail_remat_full",
+              "tail_remat_dots")
+TAIL_T5_TRAIN = ("tail_t5_vlpet_large", "tail_t5_cls")
+TAIL_ALL = TAIL_TRAIN + (CLI_CLS,)
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
                         DECODE + TRAIN + T5 + (T5V_EVAL, T5V_TRAIN, FULL_FT,
                                                CLI) + PET_TRAIN + PET_EVAL
                         + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
-                        + ABL_TRAIN + ABL_EVAL + PF_TRAIN + PF_EVAL),
+                        + ABL_TRAIN + ABL_EVAL + PF_TRAIN + PF_EVAL
+                        + TAIL_ALL),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
                             + (CLI_PROMPT,) + VS_TRAIN
                             + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN
-                            + ABL_TRAIN + PF_TRAIN),
+                            + ABL_TRAIN + PF_TRAIN + TAIL_ALL),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
@@ -605,23 +649,24 @@ KERNELS = {
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
                   + VS_EVAL_CLI + RAW_ALL + ABL_TRAIN + ABL_EVAL + PF_TRAIN
-                  + PF_EVAL),
+                  + PF_EVAL + TAIL_ALL),
     "fused_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
                       "vlpet_tpu/ops/ffn.py:195",
                       TRAIN + (T5V_TRAIN, CLI) + PET_FFN_TRAIN
                       + (CLI_PROMPT,) + VS_FFN_TRAIN
                       + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN + ABL_TRAIN
-                      + PF_TRAIN),
+                      + PF_TRAIN + TAIL_ALL),
     "fused_dropout_add_ln": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                              "vlpet_tpu/ops/fused_ln.py:251",
                              TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                              + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                             + RAW_TRAIN + ABL_TRAIN + PF_TRAIN),
+                             + RAW_TRAIN + ABL_TRAIN + PF_TRAIN + TAIL_ALL),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
                                  TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                                  + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                                 + RAW_TRAIN + ABL_TRAIN + PF_TRAIN),
+                                 + RAW_TRAIN + ABL_TRAIN + PF_TRAIN
+                                 + TAIL_ALL),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
@@ -638,11 +683,12 @@ KERNELS = {
     "fused_attention +bias +dropout": ("vlpet_tpu_torch/csrc/attention.cu",
                                        "vlpet_tpu/ops/attention.py:408",
                                        T5_TRAIN + (T5V_TRAIN, FULL_FT)
-                                       + ABL_T5_TRAIN + PF_T5_TRAIN),
+                                       + ABL_T5_TRAIN + PF_T5_TRAIN
+                                       + TAIL_T5_TRAIN),
     "fused_attention_bwd +bias +dropout": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", T5_TRAIN + (T5V_TRAIN, FULL_FT)
-        + ABL_T5_TRAIN + PF_T5_TRAIN),
+        + ABL_T5_TRAIN + PF_T5_TRAIN + TAIL_T5_TRAIN),
     "fused_attention_bwd +dbias": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", (FULL_FT, BITFIT, T5V_BITFIT)
@@ -657,11 +703,28 @@ KERNELS = {
     "fused_ffn relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                 "vlpet_tpu/ops/ffn.py:175",
                                 ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN
-                                + PF_T5_TRAIN),
+                                + PF_T5_TRAIN + TAIL_T5_TRAIN),
     "fused_ffn_bwd relu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                     "vlpet_tpu/ops/ffn.py:195",
                                     ("t5_train", T5V_TRAIN) + ABL_T5_TRAIN
-                                    + PF_T5_TRAIN),
+                                    + PF_T5_TRAIN + TAIL_T5_TRAIN),
+    # BART's attention and activation dropout (phase 6l's timed cases)
+    "fused_attention +dropout": ("vlpet_tpu_torch/csrc/attention.cu",
+                                 "vlpet_tpu/ops/attention.py:408",
+                                 (TAIL_DROP, TAIL_VIDEO_DROP)),
+    "fused_attention_bwd +dropout": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
+                                     "vlpet_tpu/ops/attention.py:1082",
+                                     (TAIL_DROP,)),
+    "fused_attention_bwd_long +dropout": (
+        "vlpet_tpu_torch/csrc/attention_bwd_long.cu",
+        "vlpet_tpu/ops/attention.py:641, vlpet_tpu/ops/attention.py:918",
+        (TAIL_VIDEO_DROP,)),
+    "fused_ffn gelu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                "vlpet_tpu/ops/ffn.py:175",
+                                (TAIL_DROP, TAIL_VIDEO_DROP)),
+    "fused_ffn_bwd gelu +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                    "vlpet_tpu/ops/ffn.py:195",
+                                    (TAIL_DROP, TAIL_VIDEO_DROP)),
     "fused_gated_ffn +dropout": ("vlpet_tpu_torch/csrc/ffn.cu",
                                  "vlpet_tpu/ops/ffn.py:334",
                                  ("t5_gated_train",)),
@@ -684,14 +747,20 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd_long +dbias": "fused_attention_bwd_long.dbias",
          "fused_ffn relu +dropout": "fused_ffn",
          "fused_ffn_bwd relu +dropout": "fused_ffn_bwd",
-         "fused_gated_ffn +dropout": "fused_gated_ffn"}
+         "fused_gated_ffn +dropout": "fused_gated_ffn",
+         "fused_attention +dropout": "fused_attention",
+         "fused_attention_bwd +dropout": "fused_attention_bwd",
+         "fused_attention_bwd_long +dropout": "fused_attention_bwd_long",
+         "fused_ffn gelu +dropout": "fused_ffn",
+         "fused_ffn_bwd gelu +dropout": "fused_ffn_bwd"}
 # the run whose launch count the kernels' JSON record reports: the first of
 # these that launches the kernel
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
                    "t5_gated_eval", "t5_train", "t5_gated_train") + FUSED_CE \
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
     + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL \
-    + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL + PF_TRAIN + PF_T5_TRAIN + PF_EVAL
+    + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL + PF_TRAIN + PF_T5_TRAIN + PF_EVAL \
+    + TAIL_TRAIN + TAIL_T5_TRAIN + (TAIL_VIDEO_DROP, CLI_CLS)
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -772,8 +841,11 @@ class Report:
                   for g, w in zip(got, want))
         self.err[key] = max(self.err[key], err)
         ms = cuda_ms(kernel_fn, iters)
-        pms = cuda_ms(plain_fn, iters)
-        lms = cuda_ms(library_fn, iters) if library_fn is not None else None
+        # the twins' and the library's medians over fewer calls: the plain
+        # twins take up to 60 ms a call, and the smoke has 1200 s in all
+        pms = cuda_ms(plain_fn, min(iters, TWIN_ITERS), warmup=1)
+        lms = (cuda_ms(library_fn, min(iters, TWIN_ITERS), warmup=1)
+               if library_fn is not None else None)
         lib = f"  library {lms:.4f} ms" if lms is not None else ""
         bms, by = bound(*work, dtype) if work is not None else (None, None)
         bnd = f"  bound {bms:.4f} ms ({by})" if work is not None else ""
@@ -3497,13 +3569,14 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
                           watch: str = None,
                           second_reference: bool = False,
                           lambda_z: float = 0.0,
-                          elementwise: bool = False) -> dict:
-    """K = 3 fp32 steps, each taken twice from the same parameters and
-    optimizer state -- through the plain twins, then through the kernels
-    -- with the same dropout seeds; the next step starts from the plain
-    result. Each step's loss and gradient norm within TRAIN_METRIC_RTOL
-    (phase 6's), each tensor's update within PARAM_RTOL of the plain
-    update in the L2 norm (``check_updates``).
+                          elementwise: bool = False,
+                          n_steps: int = 3) -> dict:
+    """K = ``n_steps`` fp32 steps, each taken twice from the same
+    parameters and optimizer state -- through the plain twins, then
+    through the kernels -- with the same dropout seeds; the next step
+    starts from the plain result. Each step's loss and gradient norm
+    within TRAIN_METRIC_RTOL (phase 6's), each tensor's update within
+    PARAM_RTOL of the plain update in the L2 norm (``check_updates``).
 
     Why not phase 6's free-running lockstep and elementwise parameter
     check (PERF.md, Findings): at T5-base's 12+12 layers two fp32 paths that
@@ -3540,7 +3613,7 @@ def train_parity_per_step(label: str, cfg_fn, batch_fn, B: int, seed: int,
     sequence, which the softmax cancels, so its gradient is fp32 noise
     (kernels and plain sum in other orders) and Adam turns that noise into
     updates of either sign (PERF.md, Findings)."""
-    K = 3
+    K = n_steps
     model = build_model("float32", cfg_fn)
     unzero(model)
     trainable = apply_freezing(model, model.cfg.pet)
@@ -4273,12 +4346,13 @@ def phase_gate_parity() -> None:
 # phase 8: the image-text CLI at the VL-PET-small recipe. 1000 synthetic
 # examples a task (36 boxes of 2048-d fp32, 0.3 MB an image: about 1.5 GB a
 # split with NLVR's two images) give 11 optimizer steps an epoch at batch
-# 500 (vqa 2, gqa 1, nlvr 6, caption 2), so 10 epochs take 110 steps, each
+# 500 (vqa 2, gqa 1, nlvr 6, caption 2), so 2 epochs take 22 steps, each
 # epoch followed by the eval of all four tasks; the resumed run takes one
-# epoch more.
+# epoch more. (10 epochs until the smoke grew past 1000 s of its 1200:
+# the later epochs repeat the first's shapes.)
 CLI_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "scripts", "image-text", "VL-PET-small.sh")
-CLI_EXAMPLES, CLI_EPOCHS, CLI_MIN_STEPS = 1000, 10, 100
+CLI_EXAMPLES, CLI_EPOCHS, CLI_MIN_STEPS = 1000, 2, 20
 CLI_TIMEOUT_S = 600
 
 
@@ -6090,7 +6164,7 @@ def phase_ablation_parity() -> None:
 
 def phase_ablation_bench(card: str) -> dict:
     """7j: per ablation a bf16 vqa train step as phase 7 (B 500; T5-base
-    B 300 as phase 7c), timed over 5 steps after 2, beside VL-PET-large's
+    B 300 as phase 7c), timed over 3 steps after 1, beside VL-PET-large's
     own on both backbones; the track_z recipe again at lambda_z 0; then
     the beam-5 caption eval (B 500 to length 40, as phase 5) of families
     4, 6, 8 and 9. Under the decoder FFN's IA3 the decoder's FFN takes the
@@ -6110,7 +6184,7 @@ def phase_ablation_bench(card: str) -> dict:
         launched[path] = train_bench(
             card, cfg_fn, make_t5_train_batch if t5 else make_train_batch,
             300 if t5 else 500, 35 if t5 else 31, FLAGSHIP_TASKS, "vqa",
-            T5_LR if t5 else 1e-3, path, f"{label} vqa", warm=2, timed=5,
+            T5_LR if t5 else 1e-3, path, f"{label} vqa", warm=1, timed=3,
             lambda_z=lambda_z)
     for k in ("fused_ffn", "fused_ffn_bwd"):
         ia3, base = launched["abl_ia3"][k], launched["abl_vlpet_large"][k]
@@ -6319,9 +6393,460 @@ def phase_pet_flag_bench(card: str) -> dict:
     return launched
 
 
+# phases 6l, 7l and 8e: the last single-card paths. name -> the flags over
+# VL-PET-large (BART-base, or T5-base for the t5_* names; backbone, PET,
+# visual or VLModelConfig fields): the classifier answer head over the
+# VQA answer vocabulary (TAIL_ANSWERS, VQAv2's topk), BART's attention and
+# activation dropout, per-layer remat, vis.sparse_sample
+TAIL_ANSWERS = 3129
+TAIL = {
+    "vlpet_large": {},
+    "cls": dict(classifier=True, num_answers=TAIL_ANSWERS),
+    "drop": dict(attention_dropout=0.1, activation_dropout=0.1),
+    "remat_full": dict(remat="full"),
+    "remat_dots": dict(remat="dots"),
+    "sparse": dict(sparse_sample=True),
+    "t5_vlpet_large": {},
+    "t5_cls": dict(classifier=True, num_answers=TAIL_ANSWERS),
+}
+# 6l's sparse_sample step: a 7 x 7 grid of features, subsampled to the
+# configuration's 36 boxes
+SPARSE_TOKENS = 49
+# 8e: synthetic vqa examples (two B 500 steps an epoch)
+CLS_CLI_EXAMPLES = 1000
+
+
+def tail_cfg(name: str, layers=None, video: bool = False, **extra):
+    """The configuration function of a ``TAIL`` entry (and ``extra`` flags
+    over it) on VL-PET-large: BART-base (video_cfg's with ``video``) or
+    T5-base, with ``layers`` encoder and decoder layers each where
+    given."""
+    t5 = name.startswith("t5_")
+    flags = {**TAIL[name], **extra}
+
+    def cfg(dtype: str = "float32"):
+        base = (t5_cfg if t5 else video_cfg if video else flagship_cfg)(dtype)
+        bk = {k: v for k, v in flags.items() if hasattr(base.backbone, k)}
+        if layers is not None:
+            bk.update(dict(num_layers=layers, num_decoder_layers=layers) if t5
+                      else dict(encoder_layers=layers, decoder_layers=layers))
+        c = dataclasses.replace(base, backbone=dataclasses.replace(
+            base.backbone, **bk))
+        return _with_any(c, {k: v for k, v in flags.items()
+                             if not hasattr(base.backbone, k)})
+    return cfg
+
+
+def add_answer_scores(batch, B: int, seed: int):
+    """The classifier's target: VQA soft scores over TAIL_ANSWERS answers,
+    1.0 and 0.3 at two seeded answers a row."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    idx = torch.randint(0, TAIL_ANSWERS, (B, 2), generator=g, device="cuda")
+    target = torch.zeros((B, TAIL_ANSWERS), device="cuda")
+    target.scatter_(1, idx[:, 1:], 0.3)
+    target.scatter_(1, idx[:, :1], 1.0)
+    batch["target"] = target
+    return batch
+
+
+def make_cls_batch(B: int, vocab: int, seed: int):
+    return add_answer_scores(make_train_batch(B, vocab, seed), B, seed)
+
+
+def make_t5_cls_batch(B: int, vocab: int, seed: int):
+    return add_answer_scores(make_t5_train_batch(B, vocab, seed), B, seed)
+
+
+def make_sparse_batch(B: int, vocab: int, seed: int):
+    """The train batch with SPARSE_TOKENS visual tokens a row."""
+    batch = make_train_batch(B, vocab, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    batch["vis_feats"] = torch.randn((B, SPARSE_TOKENS, 2048), generator=g,
+                                     device="cuda")
+    batch["boxes"] = torch.rand((B, SPARSE_TOKENS, 4), generator=g,
+                                device="cuda")
+    return batch
+
+
+def tail_dropout_sites(rep: Report) -> None:
+    """The kernels' dropout modes at BART's sites, rate 0.1, one seed:
+    A1 and A6 (bf16 B 500 and fp32 B 8) at the encoder's S 56 (ragged
+    padding), the causal decoder L = S 10, the cross L 10 over S 56 and
+    the classify decoder's one token over S 56 and over itself; A1 with
+    its row logsumexp and the long backward at the video encoder (bf16 B
+    50, L = S 604); F1 / F2 gelu with both biases at the encoder's and the
+    decoder's rows (bf16 N 28000 and 5000). Each against its plain twin
+    (the backwards against autograd of it) within phase 3b's tolerances,
+    bf16 twice bitwise equal, with the route, the bound and, where one
+    computes the same function (rate 0 only: none here), the library
+    call."""
+    g = torch.Generator(device="cuda").manual_seed(22)
+    randn = randn_fn(g)
+    H, Dh, D, Fh = 12, 64, 768, 3072
+    inner, rate = H * Dh, 0.1
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    for dtype, B in ((torch.bfloat16, 500), (torch.float32, 8)):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        main, e = dtype == torch.bfloat16, (2 if dtype == torch.bfloat16
+                                            else 4)
+        enc = padding_mask(g, B, 56)
+        zero = torch.zeros((1, 1, 1, 1), device="cuda")
+        for site, L, S, causal, mask in (
+                ("enc", 56, 56, False, enc),
+                ("dec-self", 10, 10, True, zero.expand(1, 1, 1, 10)),
+                ("cross", 10, 56, False, enc),
+                ("classify cross", 1, 56, False, enc),
+                ("classify self", 1, 1, True, zero)):
+            mask = mask.contiguous()
+            q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+            k, v = (randn(B, S, inner, dtype=dtype) for _ in range(2))
+            do = randn(B, L, inner, dtype=dtype)
+            seen = (attention._causal_allowed(L, S, "cuda").float().mean()
+                    .item() if causal else 1.0)
+            label = (f"{tag} {site} B{B} L{L} S{S}"
+                     + (" causal" if causal else "") + f" rate {rate}")
+            timed = main and site == "enc"
+
+            def fwd():
+                return attention.fused_attention(q, k, v, mask, H, causal,
+                                                  None, rate, seed)
+            rep.check("fused_attention +dropout", label, fwd,
+                      lambda: attention.fused_attention_reference(
+                          q, k, v, mask, H, causal, None, rate, seed),
+                      dtype, timed=timed,
+                      work=(e * 2 * B * (L + S) * inner + 4 * B * S,
+                            4 * B * H * L * S * Dh * seen))
+
+            def bwd():
+                return attention.fused_attention_bwd(q, k, v, mask, do, H,
+                                                     causal, None, rate, seed)
+            rep.check("fused_attention_bwd +dropout", label, bwd,
+                      _grads_of(lambda a, b, c:
+                                attention.fused_attention_reference(
+                                    a, b, c, mask, H, causal, None, rate,
+                                    seed), (q, k, v), do),
+                      dtype, timed=timed, backward=True,
+                      work=(e * (3 * B * L + 4 * B * S) * inner + 4 * B * S,
+                            10 * B * H * L * S * Dh * seen))
+            if main:
+                bitwise_repeat("fused_attention +dropout", label, fwd)
+                bitwise_repeat("fused_attention_bwd +dropout", label, bwd)
+    # the long backward at the video encoder
+    B, L = VIDEO_B, 604
+    dtype = torch.bfloat16
+    mask = padding_mask(g, B, L)
+    q = randn(B, L, inner, dtype=dtype, scale=Dh ** -0.5)
+    k, v, do = (randn(B, L, inner, dtype=dtype) for _ in range(3))
+    label = f"bf16 video enc B{B} L{L} S{L} rate {rate}"
+    rep.check("fused_attention +dropout", label + " +lse",
+              lambda: attention.fused_attention_fwd_lse(
+                  q, k, v, mask, H, False, None, rate, seed),
+              lambda: attention.fused_attention_lse_reference(
+                  q, k, v, mask, H, False, None, rate, seed), dtype,
+              work=(2 * 2 * B * 2 * L * inner + 4 * B * L + 4 * B * H * L,
+                    4 * B * H * L * L * Dh))
+    out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H, False,
+                                                 None, rate, seed)
+
+    def long_bwd():
+        return attention.fused_attention_bwd_long(q, k, v, mask, out, lse, do,
+                                                  H, False, None, rate, seed)
+    rep.check("fused_attention_bwd_long +dropout", label, long_bwd,
+              _grads_of(lambda a, b, c: attention.fused_attention_reference(
+                  a, b, c, mask, H, False, None, rate, seed), (q, k, v), do),
+              dtype, timed=True, backward=True,
+              work=(2 * (3 * B * L + 4 * B * L) * inner + 4 * B * L
+                    + 2 * B * L * inner + 4 * B * H * L,
+                    10 * B * H * L * L * Dh))
+    bitwise_repeat("fused_attention_bwd_long +dropout", label, long_bwd)
+    del q, k, v, do, out, lse
+    # F1 / F2 gelu with hidden dropout
+    w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
+                                                          scale=0.02)
+    b1, b2 = randn(Fh, scale=0.02), randn(D, scale=0.02)
+    for N in (500 * 56, 500 * 10):
+        x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+        label = f"bf16 N{N} D{D} F{Fh} gelu rate {rate}"
+        timed = N == 500 * 56
+
+        def f1():
+            return ffn.fused_ffn(x, w1, b1, w2, b2, "gelu", rate, seed)
+
+        def f2():
+            return ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu", rate, seed)
+        rep.check("fused_ffn gelu +dropout", label, f1,
+                  lambda: ffn.ffn_reference(x, w1, b1, w2, b2, "gelu", rate,
+                                            seed), dtype, timed=timed,
+                  work=(2 * (2 * N * D + 2 * D * Fh) + 4 * (Fh + D),
+                        4 * N * D * Fh))
+        rep.check("fused_ffn_bwd gelu +dropout", label, f2,
+                  _grads_of(lambda a, c, d: ffn.ffn_reference(
+                      a, w1, c, w2, d, "gelu", rate, seed), (x, b1, b2), dy),
+                  dtype, timed=timed, backward=True,
+                  work=(2 * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                        6 * N * D * Fh))
+        bitwise_repeat("fused_ffn gelu +dropout", label, f1)
+        bitwise_repeat("fused_ffn_bwd gelu +dropout", label, f2)
+        del x, dy
+
+
+@torch.no_grad()
+def classify_parity(label: str, cfg_fn, batch_fn, B: int) -> None:
+    """predict_classifier's answers (the argmax over the answer head's
+    logits, ``classify``) through the kernels and the plain twins, fp32,
+    from the weights after ``unzero``: identical; the logits within phase
+    6's tolerance."""
+    model = build_model("float32", cfg_fn)
+    unzero(model)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, 29)
+    ctx = PetContext(task="vqa", task_idx=0)
+
+    def run():
+        return model.classify(batch["input_ids"], batch["attention_mask"],
+                              batch["vis_feats"], batch["boxes"], ctx=ctx)
+    got = run()
+    with plain_twins():
+        want = run()
+    err = compare(f"{label} answer logits", got, want, torch.float32, True)
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError(f"{label}: predict_classifier's answers differ, "
+                             f"kernels vs plain")
+    print(f"  fp32 {label} B{B}: predict_classifier answers identical kernels "
+          f"vs plain ({TAIL_ANSWERS} answers), logits max|err| {err:.3e}",
+          flush=True)
+    del model
+
+
+def remat_parity() -> None:
+    """fp32 BART-base VL-PET-large at dropout, attention and activation
+    dropout 0.1, B 8 vqa, from the weights after ``unzero``: the loss and
+    the gradient of every trainable tensor of one training pass through the
+    kernels under remat "full" and "dots" against "none", with the same
+    seeds. The replay takes the layer's seeds of the first run and the
+    kernels are deterministic, so the expected difference is 0; checked
+    within phase 6's tolerances, the largest printed. The launches of each
+    pass: under remat the forward kernels run again in the backward."""
+    ref = None
+    for mode in ("none", "full", "dots"):
+        model = build_model("float32", tail_cfg(
+            "vlpet_large", remat=mode, attention_dropout=0.1,
+            activation_dropout=0.1))
+        unzero(model)
+        trainable = apply_freezing(model, model.cfg.pet)
+        batch = make_train_batch(8, model.cfg.backbone.vocab_size, 21)
+        reset_counts()
+        out = model(batch["input_ids"], batch["attention_mask"],
+                    batch["vis_feats"], batch["boxes"],
+                    labels=batch["target_ids"], ctx=PetContext(task="vqa"),
+                    deterministic=False,
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+        loss = task_loss("vqa", out["loss"], batch["target_ids"],
+                         batch["scores"])
+        grads = torch.autograd.grad(loss, list(trainable.values()))
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_counts("remat").items() if n}
+        got = (loss.detach(), [g.detach() for g in grads])
+        if ref is None:
+            ref, line = got, "reference"
+        else:
+            dl = abs(got[0].item() - ref[0].item())
+            if not dl <= TRAIN_METRIC_RTOL * abs(ref[0].item()):
+                raise AssertionError(f"remat {mode}: loss {got[0].item()} vs "
+                                     f"{ref[0].item()}")
+            dg = max(compare(f"remat {mode} grad", a, b, torch.float32,
+                             True) for a, b in zip(got[1], ref[1]))
+            line = (f"|loss - none's| {dl:.3e}, largest |grad - none's| "
+                    f"{dg:.3e} over {len(grads)} tensors")
+        print(f"  fp32 remat {mode} B8 vqa dropouts 0.1: loss "
+              f"{got[0].item():.6f}; {line}; launches {launched}",
+              flush=True)
+        del model, trainable, out, loss, grads
+
+
+def bart_heads_parity() -> None:
+    """A forward and backward of each models/bart_heads.py class at
+    BART-base width (6+6 layers, text only, dropout 0.1, fp32, B 8, 20
+    tokens ending in <eos>, an earlier <eos> in row 0), the head and the
+    backbone's LayerNorms trainable (the FFN kernels take no weight
+    gradient): the loss and every gradient through the kernels against the
+    plain twins with the same seeds, within phase 6's tolerances."""
+    base = flagship_cfg("float32")
+    cfg = dataclasses.replace(base, pet=PetConfig(),
+                              vis=dataclasses.replace(base.vis, no_vis=True))
+    g = torch.Generator(device="cuda").manual_seed(31)
+    B, T, eos = 8, 20, cfg.backbone.eos_token_id
+    ids = torch.randint(3, cfg.backbone.vocab_size, (B, T), generator=g,
+                        device="cuda")
+    ids[:, -1] = eos
+    ids[0, 8] = eos
+    mask = torch.ones_like(ids)
+    for cls, kw in ((BartForSequenceClassification,
+                     dict(labels=torch.randint(0, 3, (B,), generator=g,
+                                               device="cuda"))),
+                    (BartForQuestionAnswering,
+                     dict(start_positions=torch.randint(
+                         0, T, (B,), generator=g, device="cuda"),
+                          end_positions=torch.randint(
+                              0, T, (B,), generator=g, device="cuda")))):
+        model = cls(cfg, device="cuda").init_weights(
+            torch.Generator(device="cuda").manual_seed(7))
+        apply_freezing(model, PetConfig(unfreeze_layer_norms=True))
+        head = (model.classification_head if "classification_head"
+                in model._modules else model.qa_outputs)
+        head.requires_grad_(True)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        def run():
+            out = model(ids, mask, deterministic=False, generator=torch.
+                        Generator(device="cuda").manual_seed(3), **kw)
+            return (out["loss"],) + torch.autograd.grad(out["loss"], params)
+        reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_counts("bart_heads").items() if n}
+        with plain_twins():
+            want = run()
+        dl = abs(got[0].item() - want[0].item())
+        if not dl <= TRAIN_METRIC_RTOL * abs(want[0].item()):
+            raise AssertionError(f"{cls.__name__}: loss {got[0].item()} vs "
+                                 f"{want[0].item()}")
+        dg = max(compare(f"{cls.__name__} grad", a, b, torch.float32, True)
+                 for a, b in zip(got[1:], want[1:]))
+        print(f"  fp32 {cls.__name__} B{B} T{T} dropout 0.1: loss kernel "
+              f"{got[0].item():.6f} / plain {want[0].item():.6f}; "
+              f"{len(params)} gradients, largest |err| {dg:.3e}; launches "
+              f"{launched}", flush=True)
+        del model, got, want
+
+
+def phase_tail_parity(rep: Report) -> dict:
+    """6l: the last single-card paths through the kernels against the
+    plain twins, fp32 (module docstring). Returns the launches of the
+    TAIL_VIDEO_DROP run."""
+    t0 = time.perf_counter()
+    tail_dropout_sites(rep)
+    print(f"  the dropout sites: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launched = {}
+    for label, name, layers, batch_fn, lr in (
+            ("classifier", "cls", None, make_cls_batch, 1e-3),
+            ("t5 classifier", "t5_cls", ABL_PARITY_LAYERS, make_t5_cls_batch,
+             T5_LR)):
+        t5 = name.startswith("t5_")
+        train_parity_per_step(f"{label} B8 vqa", tail_cfg(name, layers),
+                              batch_fn, 8, 21, FLAGSHIP_TASKS, "vqa", lr,
+                              f"tail_{name}_parity", elementwise=not t5)
+        classify_parity(label, tail_cfg(name, layers), batch_fn, 8)
+    train_parity_per_step("attention + activation dropout 0.1 B8 vqa",
+                          tail_cfg("drop"), make_train_batch, 8, 21,
+                          FLAGSHIP_TASKS, "vqa", 1e-3, "tail_drop_parity",
+                          elementwise=True)
+    launched[TAIL_VIDEO_DROP] = train_parity_per_step(
+        "attention + activation dropout 0.1 video B2 S604 tvqa",
+        tail_cfg("drop", video=True), make_video_train_batch, 2, 23,
+        VIDEO_TASKS, "tvqa", 7e-4, TAIL_VIDEO_DROP, elementwise=True,
+        n_steps=1)
+    remat_parity()
+    train_parity_per_step(f"sparse_sample {SPARSE_TOKENS} -> 36 tokens B8 "
+                          f"vqa", tail_cfg("sparse"), make_sparse_batch, 8,
+                          21, FLAGSHIP_TASKS, "vqa", 1e-3,
+                          "tail_sparse_parity", elementwise=True, n_steps=1)
+    bart_heads_parity()
+    return launched
+
+
+def phase_tail_bench(card: str) -> dict:
+    """7l: bf16 vqa steps (B 500, T5-base B 300; 3 timed after 1): the
+    classifier beside VL-PET-large's LM step on both backbones,
+    VL-PET-large at attention and activation dropout 0.1, and under remat
+    "full" and "dots". Prints a table of ms/step, examples/s, peak GiB and
+    the launches a step of A1, A6, F1, F2, L1 and L2; under remat the
+    forward kernels run again in the backward, so their launches a step
+    double."""
+    launched = {}
+    runs = (("vlpet_large", make_train_batch), ("cls", make_cls_batch),
+            ("drop", make_train_batch), ("remat_full", make_train_batch),
+            ("remat_dots", make_train_batch),
+            ("t5_vlpet_large", make_t5_train_batch),
+            ("t5_cls", make_t5_cls_batch))
+    for name, batch_fn in runs:
+        t5, path = name.startswith("t5_"), f"tail_{name}"
+        launched[path] = train_bench(
+            card, tail_cfg(name), batch_fn, 300 if t5 else 500,
+            35 if t5 else 31, FLAGSHIP_TASKS, "vqa", T5_LR if t5 else 1e-3,
+            path, f"{name} vqa", warm=1, timed=3)
+    print(f"  phase 7l on {card}: path, ms/step, examples/s, peak GiB; "
+          f"launches a step of A1, A6, F1, F2, L1, L2 (under remat the "
+          f"forward kernels launch twice a step: once more in the "
+          f"recompute)", flush=True)
+    keys = ("fused_attention", "fused_attention_bwd", "fused_ffn",
+            "fused_ffn_bwd", "fused_dropout_add_ln",
+            "fused_dropout_add_ln_bwd")
+    for path, n in launched.items():
+        r = RUNS[path]
+        per = ", ".join(f"{n.get(k, 0) / 3:g}" for k in keys)
+        print(f"    {path}: {r['ms_step']:.2f} ms/step, {r['ex_s']:.2f} ex/s, "
+              f"{r['peak_gib']:.2f} GiB; {per}", flush=True)
+    return launched
+
+
+def phase_cli_classifier(card: str) -> dict:
+    """8e: ``python -m vlpet_tpu_torch.cli.multitask`` with the flags of
+    scripts/image-text/VL-PET-large.sh (r 96, 4 heads, gate 96, VPA 96,
+    lr 1e-3, seed 9595; synthetic features at the pooled 36 boxes, so
+    ``--downsample`` is left out) plus --classifier --bf16 on vqa: B 500,
+    CLS_CLI_EXAMPLES synthetic examples, one epoch, the predict_classifier
+    eval; then a second process with ``--resume`` restores the saved state
+    (its digest equal, bit for bit) and, nothing being left to train,
+    saves it again unchanged. Every kernel of the path must launch (the
+    cli_classifier run)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "run")
+        flags = script_flags(
+            os.path.join(os.path.dirname(CLI_SCRIPT), "VL-PET-large.sh"),
+            ["0", "96", "4", "96", "96", "1e-3", "9595"])
+        flags = [f for f in flags if f != "--downsample"] + [
+            "--classifier", "--bf16", "--tasks", "vqa", "--synthetic_examples",
+            str(CLS_CLI_EXAMPLES), "--output", out_dir, "--device", "cuda",
+            "--epochs", "1"]
+        out1, res1 = run_cli(flags, "classifier train")
+        require_launched(CLI_CLS, res1["launches"])
+        saved_step, saved = _digest(out1, r"saved at step (\d+); state "
+                                          r"digest ([0-9a-f]+)")
+        recs, epochs = _epochs_of(out_dir, ("vqa",))
+        out2, res2 = run_cli(flags + ["--resume"], "classifier resume")
+        step2, restore_s, restored = _digest(
+            out2, r"resumed from step (\d+) in ([0-9.]+) s; state digest "
+                  r"([0-9a-f]+)")
+        end_step, end = _digest(out2, r"saved at step (\d+); state digest "
+                                      r"([0-9a-f]+)")
+    if (step2, restored, end_step, end) != (saved_step, saved, saved_step,
+                                            saved):
+        raise AssertionError(f"resume: step {step2} digest {restored}, saved "
+                             f"again at {end_step} {end}; saved step "
+                             f"{saved_step} digest {saved}")
+    if len(epochs) != 1:
+        raise AssertionError(f"{len(epochs)} epochs")
+    r = epochs[0]
+    r["data_build_seconds"] = next(x["data_build_seconds"] for x in recs
+                                   if "data_build_seconds" in x)
+    _print_cli(card, "VL-PET-large --classifier CLI, bf16, B 500, "
+                     f"{CLS_CLI_EXAMPLES} vqa examples", r, res1, ("vqa",))
+    print(f"  vqa score {r.get('vqa/score')}; resume process "
+          f"{res2['process_s']:.2f} s (restore {float(restore_s):.3f} s); "
+          f"state at step {saved_step} restored bit for bit (digest "
+          f"{saved[:16]})", flush=True)
+    return {CLI_CLS: res1["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
-    print("phase 1: environment", flush=True)
+
+    def header(text: str, flush: bool = True) -> None:
+        """A phase's title line, with the smoke's seconds so far."""
+        print(f"{text} [{time.perf_counter() - t_start:.1f} s]", flush=flush)
+    header("phase 1: environment", flush=True)
     print(f"  python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     if not torch.cuda.is_available():
@@ -6332,169 +6857,185 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("phase 2: build", flush=True)
+    header("phase 2: build", flush=True)
     t0 = time.perf_counter()
     path = _build.build()
     _build.lib()
     print(f"  built and loaded {path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    print("phase 3: decode-path kernels vs plain", flush=True)
+    header("phase 3: decode-path kernels vs plain", flush=True)
     rep = Report()
     phase_kernels(rep)
-    print("phase 3b: training-path kernels vs plain", flush=True)
+    header("phase 3b: training-path kernels vs plain", flush=True)
     phase_train_kernels(rep)
-    print("phase 3c: long attention (video path) vs plain", flush=True)
+    header("phase 3c: long attention (video path) vs plain", flush=True)
     phase_long_attention(rep)
     phase_video_kernels(rep)
-    print("phase 3d: T5 eval-path kernels vs plain", flush=True)
+    header("phase 3d: T5 eval-path kernels vs plain", flush=True)
     phase_t5_kernels(rep)
-    print("phase 3e: T5 training-path kernels vs plain", flush=True)
+    header("phase 3e: T5 training-path kernels vs plain", flush=True)
     phase_t5_train_kernels(rep)
-    print("phase 3f: fused CE, fused beam and slot-write kernels vs plain",
+    header("phase 3f: fused CE, fused beam and slot-write kernels vs plain",
           flush=True)
     phase_fused_kernels(rep)
-    print("phase 3g: long backward with bias and dropout, dbias, vs plain",
+    header("phase 3g: long backward with bias and dropout, dbias, vs plain",
           flush=True)
     phase_bias_grad_kernels(rep)
-    print("phase 3h: F1 and C1 at their paths' rows, bf16", flush=True)
+    header("phase 3h: F1 and C1 at their paths' rows, bf16", flush=True)
     phase_ffn_ce_sites(rep)
-    print("phase 3i: F3 and F4 at their paths' rows, bf16", flush=True)
+    header("phase 3i: F3 and F4 at their paths' rows, bf16", flush=True)
     phase_gated_ffn_sites(rep)
-    print("phase 3j: F2 at its paths' rows, bf16; U1's K+V write",
+    header("phase 3j: F2 at its paths' rows, bf16; U1's K+V write",
           flush=True)
     phase_ffn_bwd_sites(rep)
-    print("phase 3k: D1 and D2 at their paths' rows, bf16", flush=True)
+    header("phase 3k: D1 and D2 at their paths' rows, bf16", flush=True)
     phase_beam_sites(rep)
-    print("phase 3l: T1 and T2 at their sites, fp32", flush=True)
+    header("phase 3l: T1 and T2 at their sites, fp32", flush=True)
     phase_topk_sites(rep)
-    print("phase 3m: L1 and L2 at their sites", flush=True)
+    header("phase 3m: L1 and L2 at their sites", flush=True)
     phase_ln_sites(rep)
     t0 = time.perf_counter()
-    print("phase 3n: A1, A6 and the long backward at the prompt baseline's "
+    header("phase 3n: A1, A6 and the long backward at the prompt baseline's "
           "sites, bf16", flush=True)
     phase_prompt_sites(rep)
     print(f"  phase 3n: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 3o: the video scripts' kernel sites", flush=True)
+    header("phase 3o: the video scripts' kernel sites", flush=True)
     phase_video_script_sites(rep)
     print(f"  phase 3o: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 3p: the raw-image path's kernel sites", flush=True)
+    header("phase 3p: the raw-image path's kernel sites", flush=True)
     phase_raw_sites(rep)
     print(f"  phase 3p: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 4: decode parity, fp32", flush=True)
+    header("phase 4: decode parity, fp32", flush=True)
     phase_parity()
 
-    print("phase 5: decode bench shape, bf16", flush=True)
+    header("phase 5: decode bench shape, bf16", flush=True)
     launched = {"decode": phase_decode_bench(card)}
-    print("phase 5b: video eval, fp32 parity and bf16 bench shape",
+    header("phase 5b: video eval, fp32 parity and bf16 bench shape",
           flush=True)
     launched["video_eval"] = phase_video_eval(card)
-    print("phase 4c: T5 decode parity, fp32", flush=True)
+    header("phase 4c: T5 decode parity, fp32", flush=True)
     phase_t5_parity()
-    print("phase 5c: T5 eval shape, bf16", flush=True)
+    header("phase 5c: T5 eval shape, bf16", flush=True)
     launched.update(phase_t5_eval(card))
-    print("phase 4d: use_fused_beam decode parity, fp32", flush=True)
+    header("phase 4d: use_fused_beam decode parity, fp32", flush=True)
     phase_fused_beam_parity()
-    print("phase 5d: use_fused_beam eval shape, bf16", flush=True)
+    header("phase 5d: use_fused_beam eval shape, bf16", flush=True)
     launched.update(phase_fused_beam_bench(card))
-    print("phase 5e: T5 video eval, fp32 parity and bf16 bench shape",
+    header("phase 5e: T5 video eval, fp32 parity and bf16 bench shape",
           flush=True)
     launched[T5V_EVAL] = phase_t5_video_eval(card)
 
-    print("phase 6: train-step parity, fp32", flush=True)
+    header("phase 6: train-step parity, fp32", flush=True)
     phase_train_parity()
-    print("phase 6b: video train-step parity, fp32", flush=True)
+    header("phase 6b: video train-step parity, fp32", flush=True)
     phase_video_train_parity()
-    print("phase 6c: T5 train-step parity, fp32", flush=True)
+    header("phase 6c: T5 train-step parity, fp32", flush=True)
     phase_t5_train_parity()
-    print("phase 6d: use_fused_ce train-step parity, fp32", flush=True)
+    header("phase 6d: use_fused_ce train-step parity, fp32", flush=True)
     phase_fused_ce_parity()
-    print("phase 6e: T5 video and trainable-bias train-step parity, fp32",
+    header("phase 6e: T5 video and trainable-bias train-step parity, fp32",
           flush=True)
     launched.update(phase_bias_train_parity())
-    print("phase 6f: VL-PET-small, -middleX, -middleY parity, fp32",
+    header("phase 6f: VL-PET-small, -middleX, -middleY parity, fp32",
           flush=True)
     phase_gate_parity()
     t0 = time.perf_counter()
-    print("phase 6g: the PET baselines' train and decode parity, fp32",
+    header("phase 6g: the PET baselines' train and decode parity, fp32",
           flush=True)
     phase_pet_parity()
     print(f"  phase 6g: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 6h: the video scripts' train and decode parity, fp32",
+    header("phase 6h: the video scripts' train and decode parity, fp32",
           flush=True)
     phase_video_script_parity()
     print(f"  phase 6h: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 6i: the raw path's train and decode parity, fp32; the "
+    header("phase 6i: the raw path's train and decode parity, fp32; the "
           "importers at full shape", flush=True)
     phase_raw_parity()
     print(f"  phase 6i: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 6j: the VL-PET ablation flags' train and decode parity, "
+    header("phase 6j: the VL-PET ablation flags' train and decode parity, "
           "fp32", flush=True)
     phase_ablation_parity()
     print(f"  phase 6j: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 6k: the prefixes', decoder prompts', LM-head adapter's and "
+    header("phase 6k: the prefixes', decoder prompts', LM-head adapter's and "
           "T5 baselines' train and decode parity, fp32", flush=True)
     phase_pet_flag_parity(rep)
     print(f"  phase 6k: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    header("phase 6l: the classifier, BART's attention and activation "
+          "dropout, remat, sparse_sample and the BART heads, fp32",
+          flush=True)
+    launched.update(phase_tail_parity(rep))
+    print(f"  phase 6l: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 7: train bench shape, bf16", flush=True)
+    header("phase 7: train bench shape, bf16", flush=True)
     launched["train"] = phase_train_bench(card)
-    print("phase 7b: video train step, bf16", flush=True)
+    header("phase 7b: video train step, bf16", flush=True)
     launched["video_train"] = phase_video_train_bench(card)
-    print("phase 7c: T5 train step, bf16", flush=True)
+    header("phase 7c: T5 train step, bf16", flush=True)
     launched.update(phase_t5_train_bench(card))
-    print("phase 7d: use_fused_ce train step, bf16", flush=True)
+    header("phase 7d: use_fused_ce train step, bf16", flush=True)
     launched.update(phase_fused_ce_bench(card))
-    print("phase 7e: T5 video and t5_full_ft train steps, bf16", flush=True)
+    header("phase 7e: T5 video and t5_full_ft train steps, bf16", flush=True)
     launched.update(phase_bias_train_bench(card))
     t0 = time.perf_counter()
-    print("phase 7f: the PET baselines' train steps and evals, bf16",
+    header("phase 7f: the PET baselines' train steps and evals, bf16",
           flush=True)
     launched.update(phase_pet_bench(card))
     print(f"  phase 7f: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 7g: the video scripts' train steps and evals, bf16",
+    header("phase 7g: the video scripts' train steps and evals, bf16",
           flush=True)
     launched.update(phase_video_script_bench(card))
     print(f"  phase 7g: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 7h: what the raw path costs, bf16", flush=True)
+    header("phase 7h: what the raw path costs, bf16", flush=True)
     launched.update(phase_raw_bench(card))
     print(f"  phase 7h: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 7j: the VL-PET ablation flags' train steps and evals, bf16",
+    header("phase 7j: the VL-PET ablation flags' train steps and evals, bf16",
           flush=True)
     launched.update(phase_ablation_bench(card))
     print(f"  phase 7j: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 7k: the prefixes', decoder prompts', LM-head adapter's and "
+    header("phase 7k: the prefixes', decoder prompts', LM-head adapter's and "
           "T5 baselines' train steps and evals, bf16", flush=True)
     launched.update(phase_pet_flag_bench(card))
     print(f"  phase 7k: {time.perf_counter() - t0:.1f} s", flush=True)
-    print("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
+    t0 = time.perf_counter()
+    header("phase 7l: the classifier, the dropouts and remat: train steps, "
+          "bf16", flush=True)
+    launched.update(phase_tail_bench(card))
+    print(f"  phase 7l: {time.perf_counter() - t0:.1f} s", flush=True)
+    header("phase 8: the image-text CLI, VL-PET-small, bf16", flush=True)
     launched[CLI] = phase_cli_rehearsal(card)
     t0 = time.perf_counter()
-    print("phase 8b: the image-text CLI, single_prompt, bf16", flush=True)
+    header("phase 8b: the image-text CLI, single_prompt, bf16", flush=True)
     launched[CLI_PROMPT] = phase_cli_prompt(card)
     print(f"  phase 8b: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 8c: the video CLI, VL-PET-large, and single_task tvqa, "
+    header("phase 8c: the video CLI, VL-PET-large, and single_task tvqa, "
           "single_prompt, bf16", flush=True)
     launched.update(phase_cli_video(card))
     print(f"  phase 8c: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    print("phase 8d: the user's pipeline on the CLI: extracted features with "
+    header("phase 8d: the user's pipeline on the CLI: extracted features with "
           "--backbone_ckpt, then raw images with --clip_ckpt, bf16",
           flush=True)
     launched.update(phase_cli_raw(card))
     print(f"  phase 8d: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    header("phase 8e: the image-text CLI with --classifier, VL-PET-large, "
+          "bf16", flush=True)
+    launched.update(phase_cli_classifier(card))
+    print(f"  phase 8e: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:

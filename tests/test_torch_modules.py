@@ -237,8 +237,14 @@ def test_unported_flags_raise_at_build():
                                                 use_vis_prefix=True))):
         VLBart(dataclasses.replace(base, **change), device="cpu")
 
-    for change in (dict(scan_layers=True), dict(classifier=True),
-                   dict(remat="dots"),
+    # the classifier answer head and per-layer remat build
+    model = VLBart(dataclasses.replace(base, classifier=True, num_answers=5),
+                   device="cpu")
+    assert model.answer_head.fc2.weight.shape == (5, 64)
+    assert VLBart(dataclasses.replace(base, remat="dots"),
+                  device="cpu").cfg.remat == "dots"
+
+    for change in (dict(scan_layers=True),
                    dict(vis=dataclasses.replace(base.vis,
                                                 vis_use_transformer=True))):
         with pytest.raises(NotImplementedError):

@@ -291,11 +291,11 @@ def test_generate_token_parity(t5_models, beams):
 
 
 def test_t5_training_and_unported_options_raise():
-    """T5 training raises where it needs what the port lacks
-    (vis.sparse_sample), and so does every T5 option the port lacks; no
-    call falls back to a plain path. A trainable relative_attention_bias
-    now trains: under unfreeze_bias the gradient of a training forward
-    reaches the bias of both stacks."""
+    """Every T5 option the port lacks raises; no call falls back to a plain
+    path. A trainable relative_attention_bias trains: under unfreeze_bias
+    the gradient of a training forward reaches the bias of both stacks.
+    vis.sparse_sample trains (the visual tokens subsampled to n_boxes) and
+    the classifier answer head builds and classifies."""
     cfg = _port_cfg(_jax_cfg(gated=False))
     model = VLT5(dataclasses.replace(cfg, pet=dataclasses.replace(
         cfg.pet, unfreeze_bias=True)), device="cpu")
@@ -311,10 +311,19 @@ def test_t5_training_and_unported_options_raise():
                for g in grads)
     sparse = VLT5(dataclasses.replace(cfg, vis=dataclasses.replace(
         cfg.vis, sparse_sample=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse_sample"):
-        sparse(ids, ids, labels=ids, deterministic=False)
-    for change in (dict(classifier=True),
-                   dict(pet=dataclasses.replace(cfg.pet, use_attn_prefix=True,
+    sparse.init_weights(torch.Generator().manual_seed(0))
+    apply_freezing(sparse, sparse.cfg.pet)
+    n_boxes = sparse.cfg.vis.n_boxes
+    feats = torch.randn(1, n_boxes + 3, sparse.cfg.vis.feat_dim)
+    out = sparse(ids, ids, feats, torch.rand(1, n_boxes + 3, 4), labels=ids,
+                 deterministic=False, generator=torch.Generator())
+    assert out["encoder_last_hidden_state"].shape[1] == 3 + n_boxes
+    assert bool(torch.isfinite(out["loss"]).all())
+    classifier = VLT5(dataclasses.replace(cfg, classifier=True,
+                                          num_answers=5), device="cpu")
+    classifier.init_weights(torch.Generator().manual_seed(0))
+    assert classifier.classify(ids, ids).shape == (1, 5)
+    for change in (dict(pet=dataclasses.replace(cfg.pet, use_attn_prefix=True,
                                                 decoder_prompt_len=2)),
                    dict(pet=dataclasses.replace(cfg.pet,
                                                 use_lm_head_adapter=True))):

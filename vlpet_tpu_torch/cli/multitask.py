@@ -12,13 +12,16 @@ the default is the card). Without ``--data_root`` the data are synthetic
 (``--synthetic_examples`` per task). ``--feature_type raw_<backbone>``
 (raw_RN101, ...) reads ``<data_root>/images`` and runs the CLIP trunk inside
 the train step (``--image_size``, ``--use_vis_adapter``, ``--clip_ckpt``);
-``--backbone_ckpt`` loads a local HF BART / T5 state dict. Not ported, and
-raising NotImplementedError: ``--mesh_model_axis`` > 1, ``--distributed``
-and ``--classifier``.
+``--backbone_ckpt`` loads a local HF BART / T5 state dict.
+``--classifier`` trains the answer head on vqa (the vqa loaders carry the
+answer scores over ``load_ans2label``'s vocabulary, ``num_answers`` its
+size) and answers vqa by its argmax. Not ported, and raising
+NotImplementedError: ``--mesh_model_axis`` > 1 and ``--distributed``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import re
@@ -192,14 +195,15 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed or args.classifier:
-        raise NotImplementedError("--distributed and --classifier are not "
-                                  "ported")
+    if args.distributed:
+        raise NotImplementedError("--distributed is not ported")
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
     require_stable_word_ids(args, tokenizer)
     cfg = build_model_config(args, tasks,
                              vocab_size=effective_vocab_size(tokenizer, added))
+    if args.classifier:  # vlpet_tpu/cli/multitask.py:175-179
+        cfg = dataclasses.replace(cfg, num_answers=len(load_ans2label(args)))
 
     t0 = time.time()
     train_loaders = build_loaders(args, tasks, tokenizer, args.train, "train")

@@ -13,9 +13,12 @@ the default is the card). Without ``--data_root`` the data are synthetic
 (``--synthetic_examples`` per task). As in the JAX video CLI, the Trainer
 takes the default AdamW eps and betas whatever ``--adam_eps`` /
 ``--adam_beta1`` / ``--adam_beta2`` say, and ``--feature_type`` is not
-read; ``--backbone_ckpt`` loads a local HF BART / T5 state dict. Not
-ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1,
-``--distributed`` and ``--classifier``.
+read; ``--backbone_ckpt`` loads a local HF BART / T5 state dict. As in
+the JAX video CLI, ``--classifier`` builds the answer head (``num_answers``
+as configured) and nothing reads it: the video loaders carry no answer
+scores, so the steps take the LM loss and the evaluation generates. Not
+ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1 and
+``--distributed``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,8 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed or args.classifier:
-        raise NotImplementedError("--distributed and --classifier are not "
-                                  "ported")
+    if args.distributed:
+        raise NotImplementedError("--distributed is not ported")
     args.feat_dim = 512  # CLIP-ViT frame features (reference: :738)
     tasks = tuple(t for t in args.tasks.split(",") if t) or VIDEO_TASKS
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)

@@ -10,9 +10,12 @@ default is the card. As in the JAX entry point, the Trainer takes the
 default AdamW eps and betas and ``--backbone_ckpt`` (a local HF state
 dict), and it is the feature Trainer: under a raw_* feature type the
 batches carry images that no trunk reads (the JAX entry point's behaviour;
-``cli.multitask`` runs the raw path). Not ported, and raising
-NotImplementedError: ``--mesh_model_axis`` > 1, ``--distributed`` and
-``--classifier``.
+``cli.multitask`` runs the raw path). ``--classifier`` builds the answer
+head with ``num_answers`` as configured, as the JAX entry point does (it
+does not size it to the answer vocabulary): on vqa the loaders carry the
+answer scores and the step trains the head, elsewhere nothing reads it.
+Not ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1
+and ``--distributed``.
 """
 
 from __future__ import annotations
@@ -39,9 +42,8 @@ def main(task: str, argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed or args.classifier:
-        raise NotImplementedError("--distributed and --classifier are not "
-                                  "ported")
+    if args.distributed:
+        raise NotImplementedError("--distributed is not ported")
     if task in IMAGE_TASKS and args.feature_type.startswith("raw_"):
         print(f"single_task {task}: --feature_type {args.feature_type} "
               f"images are not read here (as in the JAX entry point); "

@@ -11,6 +11,9 @@ and maps it onto a port module by the flax path:
   embeddings, ``final_logits_bias``, the multihead per-head
   ``down_kernel``/``down_bias``).
 
+So the classifier's ``answer_head`` (``fc1`` / ``fc2`` kernels transposed,
+``mlp_layer_norm`` scale and bias) crosses both ways by these rules.
+
 It raises on any flax leaf it cannot place and on any port parameter left
 unset, so a renamed or missing module never loads silently.
 ``flax_to_state_dict`` also reads a partial tree, such as the trainable

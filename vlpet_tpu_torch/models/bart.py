@@ -15,9 +15,14 @@ each sublayer of both stacks, LoRA on every q and v projection, the
 hyperformer's generated adapters; prefix tuning (the encoder's and the
 decoder's per-layer K/V prefixes), the visual prefix and the decoder input
 prompt; and the training-time dropout: the
-embedding dropout, the residual dropout before each post-LN and LoRA's
-input dropout, all from the hash mask of ops/hashdrop.py with one seed per
-site (``DropoutSeeds``).
+embedding dropout, the residual dropout before each post-LN, LoRA's input
+dropout, the attention probabilities' (``attention_dropout``, inside A1 /
+A6 / the long backward) and the FFN hidden's (``activation_dropout``,
+inside F1 / F2), all from the hash mask of ops/hashdrop.py with one seed
+per site (``DropoutSeeds``; a layer's sites: ``layer_sites``). Each layer
+of a training pass runs under ``cfg.remat`` (``run_layer``: "full"
+recomputes the layer in the backward, "dots" all but its matrix
+products).
 Layers are registered as ``layers_{i}`` like the flax tree. Branches of the
 hook surface that the port does not cover raise NotImplementedError when
 the model is built (models/vlbart.py check_supported).
@@ -44,12 +49,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from vlpet_tpu_torch.config import PromptSpec, VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm, layer_norm
 from vlpet_tpu_torch.models.visual import (downsample_vis,
                                            joint_attention_mask,
+                                           sparse_sample, sparse_scores,
                                            visual_embedding_class)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
@@ -114,6 +121,75 @@ def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:
     return seeds.next() if seeds is not None else None
 
 
+def _rate_seed(seeds: Optional[DropoutSeeds], rate: float):
+    """(rate, seed) of a site that exists only where its rate is above 0
+    (BART's attention and activation dropout): (0.0, None) off training
+    or at rate 0, else the rate and the next seed."""
+    if seeds is None or rate <= 0.0:
+        return 0.0, None
+    return rate, seeds.next()
+
+
+def layer_sites(cfg: VLModelConfig, n_attention: int) -> int:
+    """Dropout seeds one layer with ``n_attention`` attention sublayers
+    takes in a training step: per attention sublayer LoRA's q and v input
+    dropout (where LoRA drops), the probabilities' (where
+    ``attention_dropout`` > 0) and the residual's; the FFN's hidden
+    (where ``activation_dropout`` > 0) and residual."""
+    b, p = cfg.backbone, cfg.pet
+    lora = 2 if p.use_lora and p.lora_spec().lora_dropout > 0.0 else 0
+    probs = 1 if b.attention_dropout > 0.0 else 0
+    hidden = 1 if b.activation_dropout > 0.0 else 0
+    return n_attention * (1 + lora + probs) + 1 + hidden
+
+
+def _dots_saveable():
+    """Selective checkpointing's contexts for ``remat="dots"``: the outputs
+    of the matrix products are saved, everything else -- the hand kernels,
+    which are no aten op, included -- is recomputed in the backward, as
+    jax.checkpoint_policies.dots_saveable does with a pallas_call."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return create_selective_checkpoint_contexts(policy)
+
+
+def run_layer(remat: str, fn, h: torch.Tensor,
+              seeds: Optional[DropoutSeeds], n_sites: int) -> torch.Tensor:
+    """fn(h, layer_seeds) for one layer of a training pass, under the
+    per-layer rematerialisation ``remat`` (vlpet_tpu/models/bart.py:73):
+    "none" keeps every activation; "full" saves the layer's input and
+    recomputes the layer in the backward; "dots" saves the matrix
+    products' outputs and recomputes the rest. The layer's ``n_sites``
+    seeds are drawn here, before the checkpoint, and handed in as a
+    tensor: the recomputation takes the same masks. Without autograd the
+    layer runs as it is."""
+    seed_t = seeds.take(n_sites) if seeds is not None else None
+
+    def body(h: torch.Tensor, seed_t: Optional[torch.Tensor]):
+        own = DropoutSeeds.of(seed_t) if seed_t is not None else None
+        out = fn(h, own)
+        if own is not None and own.used != n_sites:
+            raise RuntimeError(f"a layer took {own.used} dropout seeds, "
+                               f"{n_sites} drawn for it")
+        return out
+
+    if remat == "none" or not torch.is_grad_enabled():
+        return body(h, seed_t)
+    if remat == "full":
+        return checkpoint(body, h, seed_t, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(body, h, seed_t, use_reentrant=False,
+                          context_fn=_dots_saveable)
+    raise ValueError(f"unknown remat policy: {remat!r}")
+
+
 def _embedding_dropout(h: torch.Tensor, seeds: Optional[DropoutSeeds],
                        rate: float) -> torch.Tensor:
     """A stack's embedding dropout; its site takes a seed whenever the
@@ -145,26 +221,34 @@ class ResidualDropoutLayerNorm(nn.Module):
         return fn(h, residual, self.scale, self.bias, seed, self.rate)
 
 
-def _ffn(layer: nn.Module, x: torch.Tensor, act: str) -> torch.Tensor:
-    """fc1 -> act -> fc2 of a layer: through F1/F2 (or their plain twin),
-    or the plain chain when ``use_fused_ffn`` is off or the language model
-    trains (the kernels have no weight gradient), as in the JAX package.
-    A decoder layer with the FFN's IA3 vector (``decoder_ff_ia3_mod``)
-    scales the hidden between act and fc2, h * g (h + h * g under
-    ``use_decoder_ff_ia3_add``): the plain chain always, as the JAX
-    package leaves fused_ffn there (vlpet_tpu/models/bart.py:842-859)."""
+def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
+         seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
+    """fc1 -> act -> (dropout) -> fc2 of a layer: through F1/F2 (or their
+    plain twin), or the plain chain when ``use_fused_ffn`` is off or the
+    language model trains (the kernels have no weight gradient), as in the
+    JAX package. In training (``seeds``) at ``activation_dropout`` > 0 the
+    hidden is dropped with the hash mask of the site's seed: inside F1 /
+    F2 (their hidden-dropout mode; the plain chain, ``ffn_reference``, the
+    same mask). A decoder layer with the FFN's IA3 vector
+    (``decoder_ff_ia3_mod``) scales the hidden between act and fc2, h * g
+    (h + h * g under ``use_decoder_ff_ia3_add``), then drops it
+    (``hash_dropout``): the plain chain always, as the JAX package leaves
+    fused_ffn there (vlpet_tpu/models/bart.py:842-859)."""
     c = layer.cfg
+    rate, seed = _rate_seed(seeds, c.backbone.activation_dropout)
     ia3 = layer._modules.get("decoder_ff_ia3_mod")
     if ia3 is not None:
         h = get_activation(act)(layer.fc1(x))
         g = ia3().to(h.dtype)
         h = h + h * g if c.pet.use_decoder_ff_ia3_add else h * g
+        if seed is not None:
+            h = hash_dropout(h, seed, rate)
         return layer.fc2(h)
     fn = (route(fused_ffn, ffn_reference)
           if c.use_fused_ffn and not c.pet.unfreeze_language_model
           else ffn_reference)
     y = fn(x.reshape(-1, x.shape[-1]), layer.fc1.weight, layer.fc1.bias,
-           layer.fc2.weight, layer.fc2.bias, act)
+           layer.fc2.weight, layer.fc2.bias, act, rate, seed)
     return y.reshape(x.shape)
 
 
@@ -350,7 +434,11 @@ class BartAttention(nn.Module):
         on a self role over a whole sequence: prefix-tuning K/V before the
         own (vlpet_tpu/models/bart.py:483-485); the encoder's mask then has
         the P columns already, and the causal triangle's offset S - L opens
-        them to every query of the decoder."""
+        them to every query of the decoder. In training at
+        ``attention_dropout`` > 0 the probabilities are dropped with the
+        hash mask of the site's seed, drawn after the projections' (A1 and
+        A6 or the long backward in their dropout mode; JAX:
+        vlpet_tpu/models/bart.py:355-377)."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
@@ -365,19 +453,25 @@ class BartAttention(nn.Module):
                                         attention_mask, attend)
                 return self.out_proj(out.reshape(B, L, -1)), cache
             m = attention_mask.float()
-            return self.out_proj(attend(q, k, v, m, H)), cache
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            return self.out_proj(attend(q, k, v, m, H, False, None, rate,
+                                        seed)), cache
         q, k, v = self._qkv(hidden_states, ctx, qkv, seeds)
         if prefix_kv is not None:
             k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
             v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
         if self.role == "enc_self":
             m = attention_mask.float()
-            return self.out_proj(attend(q, k, v, m, H)), cache
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            return self.out_proj(attend(q, k, v, m, H, False, None, rate,
+                                        seed)), cache
         if cache is None:
             # teacher forcing: the triangle in-kernel, a zero padding mask
             m = torch.zeros((1, 1, 1, k.shape[1]), dtype=torch.float32,
                             device=q.device)
-            return self.out_proj(attend(q, k, v, m, H, causal=True)), cache
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            return self.out_proj(attend(q, k, v, m, H, True, None, rate,
+                                        seed)), cache
         q4 = q.reshape(B, 1, H, Dh)
         if beam_anc is not None and self.cfg.use_fused_beam:
             # D2: attend over the slots before decode_pos plus the own new
@@ -545,7 +639,8 @@ class BartEncoderLayer(nn.Module):
         hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
 
         residual = hidden_states
-        h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
+        h = _ffn(self, hidden_states, self.cfg.backbone.activation_function,
+                 seeds)
         h = self._hooks(h, residual, "ff", ctx,
                         block.feed_forward if block is not None else None)
         hidden_states = self.final_layer_norm(h, residual, _seed(seeds))
@@ -728,7 +823,8 @@ class BartDecoderLayer(nn.Module):
                                            hidden_states[:, prompt_len:]], 1)
 
         residual = hidden_states
-        h = _ffn(self, hidden_states, self.cfg.backbone.activation_function)
+        h = _ffn(self, hidden_states, self.cfg.backbone.activation_function,
+                 seeds)
         h = self._adapt(h, "feed_forward", ctx, residual)
         return self.final_layer_norm(h, residual, _seed(seeds))
 
@@ -817,11 +913,17 @@ class JointEncoder(nn.Module):
                 vis_attention_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[PetContext] = None,
                 seeds: Optional[DropoutSeeds] = None,
-                task_embedding: Optional[torch.Tensor] = None):
+                task_embedding: Optional[torch.Tensor] = None,
+                sparse_generator: Optional[torch.Generator] = None,
+                sparse: bool = False):
         """Returns (hidden_states, joint_attention_mask [B, L_joint]).
-        ``seeds`` (training) drives the embedding dropout, the residual
-        dropout of every layer and LoRA's dropout; ``task_embedding`` (the
-        hyperformer's) feeds the stack's hypernet."""
+        ``seeds`` (training) drives the embedding dropout, each layer's
+        sites (``layer_sites``) and LoRA's dropout; ``task_embedding`` (the
+        hyperformer's) feeds the stack's hypernet. ``sparse`` (a training
+        call under ``vis.sparse_sample``): the visual tokens are
+        subsampled to ``n_boxes`` (``sparse_sample``) with scores drawn
+        from ``sparse_generator`` (vlpet_tpu/models/bart.py:1003-1006).
+        Each layer runs under ``cfg.remat`` (``run_layer``)."""
         b, v = self.cfg.backbone, self.cfg.vis
         dt = self.dtype
         ctx = ctx or PetContext()
@@ -852,6 +954,10 @@ class JointEncoder(nn.Module):
             vis_embeds = self.visual_embedding.tokens(
                 vis_feats, boxes, shared_embedding, img_order_ids,
                 obj_order_ids)
+            if sparse:
+                scores = sparse_scores(vis_embeds.shape[:2], sparse_generator,
+                                       h.device)
+                vis_embeds = sparse_sample(vis_embeds, v.n_boxes, scores)
             if v.share_vis_lang_layer_norm:
                 h = self.layernorm_embedding(torch.cat([h, vis_embeds], dim=1))
             else:
@@ -871,11 +977,16 @@ class JointEncoder(nn.Module):
             attn_mask = torch.cat([attn_mask.new_zeros(
                 (B, 1, 1, prefix_kvs[0][0].shape[1])), attn_mask], dim=-1)
         hypernet = mods.get("adapter_layers_hyper_net")
+        n_sites = layer_sites(self.cfg, 1)
         for i, layer in enumerate(self.layers()):
             block = (hypernet(task_embedding, i) if hypernet is not None
                      else None)
-            h = layer(h, attn_mask, ctx.for_layer(block), seeds,
-                      prefix_kvs[i] if prefix_kvs is not None else None)
+            lctx = ctx.for_layer(block)
+            pkv = prefix_kvs[i] if prefix_kvs is not None else None
+            h = run_layer(self.cfg.remat,
+                          lambda x, s, layer=layer, lctx=lctx, pkv=pkv:
+                          layer(x, attn_mask, lctx, s, pkv), h, seeds,
+                          n_sites)
         return h, mask
 
 
@@ -994,12 +1105,16 @@ class BartDecoder(nn.Module):
         h = self.layernorm_embedding(h)
         h = _embedding_dropout(h, seeds, b.dropout)
         cross_mask = expand_mask(encoder_attention_mask, 1, dt)
+        n_sites = layer_sites(self.cfg, 2)
         for i, (layer, block) in enumerate(zip(
                 self.layers(), self.block_adapters(task_embedding))):
-            h = layer.teacher_force(
-                h, ctx.for_layer(block), encoder_hidden_states, cross_mask,
-                seeds, prefix_kvs[i] if prefix_kvs is not None else None,
-                P_in)
+            lctx = ctx.for_layer(block)
+            pkv = prefix_kvs[i] if prefix_kvs is not None else None
+            h = run_layer(self.cfg.remat,
+                          lambda x, s, layer=layer, lctx=lctx, pkv=pkv:
+                          layer.teacher_force(x, lctx, encoder_hidden_states,
+                                              cross_mask, s, pkv, P_in),
+                          h, seeds, n_sites)
         return h[:, P_in:] if P_in else h
 
     def prefill_kvs(self, batch_size: int, ctx: PetContext,

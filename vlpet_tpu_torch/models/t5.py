@@ -40,10 +40,13 @@ decoder input prompt (its rows before the inputs, untouched by the cross
 block, dropped at the end; generation prefills its dry-run K/V). LoRA on
 T5 builds no module: the JAX T5 has none, and ``use_lora`` only makes the
 "bias" leaves (the relative bias among them) trainable, which the freezing
-rules do. What the port lacks raises NotImplementedError: at build the
-configurations models/vlbart.py check_supported rejects and the flags the
-JAX T5 does not read (``check_t5_supported``), and ``vis.sparse_sample``
-at a training call.
+rules do. Under ``cfg.classifier`` the answer head of models/vlbart.py
+(``AnswerHead``, std ``initializer_factor`` * 0.02) sits on the last
+decoder state (``classify``, ``forward``'s "answer_logits"); a training
+call under ``vis.sparse_sample`` subsamples the visual tokens. What the
+port lacks raises NotImplementedError at build: the configurations
+models/vlbart.py check_supported rejects and the flags the JAX T5 does not
+read (``check_t5_supported``).
 
 Kernel call sites, each picked by ops.route (the plain twins inside
 ``ops.plain_twins()``): every attention but the beam self-attention through
@@ -79,9 +82,11 @@ from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (LowRankVisualEmbedding,
                                            joint_attention_mask,
+                                           sparse_sample, sparse_scores,
                                            visual_embedding_class)
 from vlpet_tpu_torch.models.vlbart import (BART_ONLY_PET_FLAGS,
-                                           T5_UNREAD_FLAGS, check_supported,
+                                           T5_UNREAD_FLAGS, AnswerHead,
+                                           check_supported,
                                            shift_tokens_right)
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.attention import (fused_attention,
@@ -539,10 +544,15 @@ class T5JointEncoder(nn.Module):
                 vis_attention_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[PetContext] = None,
                 seeds: Optional[DropoutSeeds] = None,
-                task_embedding: Optional[torch.Tensor] = None):
+                task_embedding: Optional[torch.Tensor] = None,
+                sparse_generator: Optional[torch.Generator] = None,
+                sparse: bool = False):
         """Returns (hidden_states, joint_attention_mask [B, L_joint]).
         ``seeds`` (training) drives the embedding dropout, every block's
-        sites and the dropout of the final states."""
+        sites and the dropout of the final states. ``sparse`` (a training
+        call under ``vis.sparse_sample``): the visual tokens are
+        subsampled to ``n_boxes`` with scores from ``sparse_generator``
+        (vlpet_tpu/models/t5.py:667-670)."""
         v = self.cfg.vis
         rate = self.cfg.backbone.dropout_rate
         dt = self.dtype
@@ -560,6 +570,10 @@ class T5JointEncoder(nn.Module):
             vis_embeds = self.visual_embedding.tokens(
                 vis_feats, boxes, shared_embedding, img_order_ids,
                 obj_order_ids)
+            if sparse:
+                scores = sparse_scores(vis_embeds.shape[:2], sparse_generator,
+                                       h.device)
+                vis_embeds = sparse_sample(vis_embeds, v.n_boxes, scores)
             h = torch.cat([h, vis_embeds], dim=1)
             mask = joint_attention_mask(attention_mask, vis_embeds.shape[1],
                                         vis_attention_mask)
@@ -797,6 +811,10 @@ class VLT5(nn.Module):
         if p.use_compacter and p.shared_W_phm:
             make_shared_phm_W(self, p, b.d_model, dtype=self.dtype,
                               device=dev)
+        if cfg.classifier:  # vlpet_tpu/models/t5.py:956-965
+            self.answer_head = AnswerHead(b.d_model, cfg.num_answers,
+                                          b.initializer_factor * 0.02,
+                                          device=dev)
         self.eval()
 
     def _ctx(self, ctx: Optional[PetContext]) -> PetContext:
@@ -940,24 +958,13 @@ class VLT5(nn.Module):
                 labels, b.pad_token_id, b.decoder_start_token_id)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and not deterministic):
-            seeds = None
-            if not deterministic:
-                self._check_trainable()
-                if b.dropout_rate > 0:
-                    seeds = DropoutSeeds(self.dropout_sites(), generator,
-                                         input_ids.device)
-            ctx = self._ctx(ctx)
-            task_embedding = self.model.task_embedding(ctx)
-            enc, joint_mask = self.model.encoder(
-                input_ids, attention_mask, self.model.shared,
-                vis_feats=vis_feats, boxes=boxes, img_order_ids=img_order_ids,
-                obj_order_ids=obj_order_ids,
-                vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
-                task_embedding=task_embedding)
-            dec = self.model.decoder.teacher_force(
-                decoder_input_ids, self.model.shared, enc, joint_mask, ctx,
-                seeds, task_embedding)
+            enc, joint_mask, dec = self._run(
+                input_ids, attention_mask, decoder_input_ids, vis_feats, boxes,
+                ctx, deterministic, generator, img_order_ids, obj_order_ids,
+                vis_attention_mask)
             out = {"encoder_last_hidden_state": enc}
+            if "answer_head" in self._modules:
+                out["answer_logits"] = self.answer_head(dec[:, -1])
             if labels is None:
                 out["logits"] = self._logits(dec, self.logits_weight())
             else:
@@ -966,10 +973,51 @@ class VLT5(nn.Module):
                     out["logits"] = logits
             return out
 
-    def _check_trainable(self) -> None:
-        """Raise for a training call that needs what is not ported."""
-        if self.cfg.vis.sparse_sample:
-            raise NotImplementedError("vis.sparse_sample is not ported")
+    def _run(self, input_ids, attention_mask, decoder_input_ids, vis_feats,
+             boxes, ctx, deterministic: bool, generator, img_order_ids=None,
+             obj_order_ids=None, vis_attention_mask=None):
+        """(encoder states, joint mask, decoder states) of one teacher-forced
+        pass; a training one (``deterministic`` False) draws the step's
+        dropout seeds, then ``vis.sparse_sample``'s scores, from
+        ``generator``."""
+        seeds = None
+        if not deterministic and self.cfg.backbone.dropout_rate > 0:
+            seeds = DropoutSeeds(self.dropout_sites(), generator,
+                                 input_ids.device)
+        ctx = self._ctx(ctx)
+        task_embedding = self.model.task_embedding(ctx)
+        enc, joint_mask = self.model.encoder(
+            input_ids, attention_mask, self.model.shared,
+            vis_feats=vis_feats, boxes=boxes, img_order_ids=img_order_ids,
+            obj_order_ids=obj_order_ids,
+            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
+            task_embedding=task_embedding, sparse_generator=generator,
+            sparse=self.cfg.vis.sparse_sample and not deterministic)
+        dec = self.model.decoder.teacher_force(
+            decoder_input_ids, self.model.shared, enc, joint_mask, ctx,
+            seeds, task_embedding)
+        return enc, joint_mask, dec
+
+    def classify(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 vis_feats: Optional[torch.Tensor] = None,
+                 boxes: Optional[torch.Tensor] = None,
+                 img_order_ids=None, obj_order_ids=None,
+                 ctx: Optional[PetContext] = None, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """The classifier head's forward (vlpet_tpu/models/t5.py:1070-1085):
+        one ``decoder_start_token_id`` (= pad) a row through the decoder,
+        the answer logits (B, num_answers) fp32 of its state; autograd on
+        only when training (``deterministic`` False), as ``forward``."""
+        B = input_ids.shape[0]
+        dec_ids = torch.full((B, 1), self.cfg.backbone.decoder_start_token_id,
+                             dtype=torch.long, device=input_ids.device)
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not deterministic):
+            _, _, dec = self._run(input_ids, attention_mask, dec_ids,
+                                  vis_feats, boxes, ctx, deterministic,
+                                  generator, img_order_ids, obj_order_ids)
+            return self.answer_head(dec[:, -1])
 
     def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
             reduce_loss: bool):

@@ -1,6 +1,6 @@
 """Visual embedding and grid downsampling for the joint encoder, ported
 from vlpet_tpu/models/visual.py (VisualEmbedding, LowRankVisualEmbedding,
-ExpandVisualEmbedding, _pos_with_area, downsample_vis). With
+ExpandVisualEmbedding, _pos_with_area, downsample_vis, sparse_sample). With
 ``t5_style_ln`` (the T5 joint encoder) the visual embedding's norms are
 RMSNorm with eps 1e-6 (vlpet_tpu/models/visual.py:141-144).
 ``visual_embedding_class`` picks the projector a config asks for."""
@@ -61,6 +61,28 @@ def downsample_vis(vis_inputs: tuple, n_boxes: int, oned: bool = False) -> tuple
         return feats, trim(boxes), trim(img_order_ids), trim(obj_order_ids)
     feats = pool(vis_inputs[0])
     return feats, vis_inputs[1][:, :feats.shape[1]]
+
+
+def sparse_scores(shape, generator: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+    """The (B, L) uniform scores of ``sparse_sample``, drawn from the
+    training step's generator."""
+    return torch.rand(tuple(shape), generator=generator,
+                      device=generator.device if generator is not None
+                      else device).to(device)
+
+
+def sparse_sample(feats: torch.Tensor, out_len: int,
+                  scores: torch.Tensor) -> torch.Tensor:
+    """A random sorted subsample of ``out_len`` of the (B, L, D) tokens at
+    train time (vlpet_tpu/models/visual.py:107-115): the tokens of the
+    ``out_len`` lowest ``scores`` (B, L) of each row, in their order. The
+    JAX function draws its scores from its rng; here the caller hands them
+    in (``sparse_scores``)."""
+    order = torch.argsort(scores, dim=-1, stable=True)
+    idx = torch.sort(order[:, :out_len], dim=-1).values
+    return torch.gather(feats, 1,
+                        idx[..., None].expand(-1, -1, feats.shape[-1]))
 
 
 def _pos_with_area(pos: torch.Tensor) -> torch.Tensor:

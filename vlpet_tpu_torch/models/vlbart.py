@@ -12,7 +12,9 @@ per-token step driven by vlpet_tpu_torch.models.generate.
 
 The model root holds what the JAX VLBart keeps there: Compacter's shared
 ``phm_rule`` and slow weights (``phm_W_*``), injected into every call's
-PetContext (``_ctx``), and the hyperformer's ``shared_task_embed``.
+PetContext (``_ctx``), the hyperformer's ``shared_task_embed`` and, under
+``cfg.classifier``, the answer head (``AnswerHead``: ``classify`` and
+``forward``'s "answer_logits").
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import torch.nn as nn
 
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.bart import BartDecoder, JointEncoder, compute_dtype
+from vlpet_tpu_torch.models.bart import (BartDecoder, JointEncoder,
+                                         compute_dtype, layer_sites)
 from vlpet_tpu_torch.models.generate import topk_lse
+from vlpet_tpu_torch.models.norm import LayerNorm
 from vlpet_tpu_torch.ops import route
 from vlpet_tpu_torch.ops.ce import (cross_entropy_with_ignore, linear_ce,
                                     mean_or_per_token)
@@ -34,7 +38,9 @@ from vlpet_tpu_torch.ops.fused_ce import fused_linear_ce, fused_linear_ce_plain
 from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds
 from vlpet_tpu_torch.pet.hypernet import TaskEmbeddingController
 from vlpet_tpu_torch.pet.modules import (OutputParallelAdapterLayer,
-                                         PetContext, glorot_uniform_gain2_,
+                                         PetContext, TaskDense,
+                                         get_activation,
+                                         glorot_uniform_gain2_,
                                          make_shared_phm_W, normal_,
                                          shared_phm_W)
 from vlpet_tpu_torch.train.freezing import weight_initialization
@@ -82,31 +88,47 @@ def shift_tokens_right(labels: torch.Tensor, pad_token_id: int,
     return torch.where(shifted == -100, pad_token_id, shifted)
 
 
+def drops(cfg: VLModelConfig) -> bool:
+    """Whether a BART training step draws dropout seeds: any BART dropout
+    rate above 0, or LoRA's."""
+    b, p = cfg.backbone, cfg.pet
+    return (b.dropout > 0 or b.attention_dropout > 0
+            or b.activation_dropout > 0
+            or (p.use_lora and p.lora_spec().lora_dropout > 0.0))
+
+
+def dropout_sites(cfg: VLModelConfig) -> int:
+    """The seeds of one BART training step (``VLBart.dropout_sites``)."""
+    b = cfg.backbone
+    return (2 + b.encoder_layers * layer_sites(cfg, 1)
+            + b.decoder_layers * layer_sites(cfg, 2))
+
+
 def check_supported(cfg: VLModelConfig) -> None:
     """Raise NotImplementedError for any configuration the port does not
     implement, rather than ignoring it. Both backbones share the list and
-    both train and evaluate. What raises here: the classifier answer head,
-    ``scan_layers``, ``remat`` other than "none", and the visual flag of
+    both train and evaluate. What raises here: ``scan_layers`` (a TPU
+    artefact: stacked layer parameters) and the visual flag of
     ``_UNPORTED_VIS_FLAGS``. Every PET flag the JAX package reads builds
     on BART; the flags the JAX T5 does not read (``BART_ONLY_PET_FLAGS``,
     ``T5_UNREAD_FLAGS``, ``expand_vis_embedding``) the T5 model rejects
-    itself (models/t5.py). What is unported only on a training call
-    raises there: ``vis.sparse_sample`` (models/t5.py
-    ``VLT5._check_trainable``). A trainable T5 ``relative_attention_bias``
+    itself (models/t5.py). A trainable T5 ``relative_attention_bias``
     trains (its dbias comes from A6 or the long backward), and the long
     backward takes the T5 video sites' bias and probability dropout.
 
-    Accepted: ``use_fused_ce`` (C1/C2 on a frozen head, ``VLBart._ce``,
-    ``VLT5._ce``) and ``use_fused_beam`` (D2 on the beam path). Not read by
-    the port: use_pallas_attention (TPU kernel routing; on CUDA the port
-    runs its kernels)."""
-    if cfg.classifier:
-        raise NotImplementedError("the classifier answer head is not ported")
+    Accepted: the classifier answer head (``classifier``: ``AnswerHead``,
+    ``classify``), ``remat`` "full" and "dots" (BART only, as in JAX:
+    models/bart.py ``run_layer``; T5 ignores it, as the JAX T5 does),
+    BART's ``attention_dropout`` and ``activation_dropout``,
+    ``vis.sparse_sample``, ``use_fused_ce`` (C1/C2 on a frozen head,
+    ``VLBart._ce``, ``VLT5._ce``) and ``use_fused_beam`` (D2 on the beam
+    path). Not read by the port: use_pallas_attention (TPU kernel routing;
+    on CUDA the port runs its kernels)."""
     if cfg.scan_layers:
         raise NotImplementedError("scan_layers (stacked layer params) is not "
                                   "ported; convert an unstacked tree")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported")
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat policy: {cfg.remat!r}")
     bad = [f for f in _UNPORTED_VIS_FLAGS if getattr(cfg.vis, f)]
     if bad:
         raise NotImplementedError(f"not ported: {', '.join(bad)}")
@@ -123,6 +145,36 @@ class DecodeConsts(NamedTuple):
     self_qkvs: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
     blocks: Tuple
     logits_weight: torch.Tensor
+
+
+class AnswerHead(nn.Module):
+    """The classifier answer head (vlpet_tpu/models/vlbart.py:349-366):
+    Linear(d -> 2d) -> GELU (erf) -> LayerNorm(eps 1e-5) -> Linear(2d ->
+    num_answers), in fp32 whatever the compute dtype (the JAX TaskDense
+    default); parameters ``fc1`` / ``fc2`` (``weight``, ``bias``) and
+    ``mlp_layer_norm`` (``scale``, ``bias``) as in the flax tree. Its
+    LayerNorm is the plain one with flax's statistics (models/norm.py), not
+    L1. ``init_params``: normal(0, ``init_std``) weights, zero biases."""
+
+    def __init__(self, d_model: int, num_answers: int, init_std: float,
+                 device: Device = "cuda"):
+        super().__init__()
+        self.init_std = init_std
+        self.fc1 = TaskDense(d_model, 2 * d_model, device=device)
+        self.mlp_layer_norm = LayerNorm(2 * d_model, device=device)
+        self.fc2 = TaskDense(2 * d_model, num_answers, device=device)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        for fc in (self.fc1, self.fc2):
+            normal_(fc.weight, self.init_std, generator)
+            fc.bias.zero_()
+        self.mlp_layer_norm.scale.fill_(1.0)
+        self.mlp_layer_norm.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = get_activation("gelu")(self.fc1(x.float()))
+        return self.fc2(self.mlp_layer_norm(h))
 
 
 class VLBartModel(nn.Module):
@@ -167,6 +219,61 @@ class VLBartModel(nn.Module):
     def compute_cross_kvs(self, encoder_hidden_states, ctx: PetContext):
         return self.decoder.compute_cross_kvs(encoder_hidden_states, ctx)
 
+    def forward(self, input_ids, attention_mask, decoder_input_ids,
+                vis_feats=None, boxes=None, img_order_ids=None,
+                obj_order_ids=None, vis_attention_mask=None,
+                ctx: Optional[PetContext] = None,
+                seeds: Optional[DropoutSeeds] = None,
+                sparse_generator: Optional[torch.Generator] = None,
+                sparse: bool = False):
+        """The teacher-forced pass (vlpet_tpu/models/vlbart.py:100-111):
+        (decoder states, encoder states, joint mask). ``seeds`` (training)
+        drive the dropout sites, ``sparse`` the visual subsample
+        (``JointEncoder.forward``)."""
+        ctx = ctx or PetContext()
+        task_embedding = self.task_embedding(ctx)
+        enc, joint_mask = self.encoder(
+            input_ids, attention_mask, self.shared, vis_feats=vis_feats,
+            boxes=boxes, img_order_ids=img_order_ids,
+            obj_order_ids=obj_order_ids,
+            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
+            task_embedding=task_embedding, sparse_generator=sparse_generator,
+            sparse=sparse)
+        dec = self.decoder.teacher_force(decoder_input_ids, self.shared, enc,
+                                         joint_mask, ctx, seeds,
+                                         task_embedding)
+        return dec, enc, joint_mask
+
+
+def seeded_init(module: nn.Module, cfg: VLModelConfig,
+                generator: torch.Generator) -> None:
+    """The JAX package's BART init scheme on ``module``, in place:
+    normal(0, init_std) for dense kernels, embeddings and middle-Y's
+    vector, zeros for biases, ones for LayerNorm scales; the PET modules'
+    own initialisers (``init_params``: LoRA, Compacter, the low-rank
+    adapter, the prompts, the hypernets, the answer head) and Compacter's
+    root weights (normal(0, phm_init_range) rule, glorot slow weights);
+    then the recipe's re-inits (train/freezing.py
+    ``weight_initialization``)."""
+    std = cfg.backbone.init_std
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf.endswith("bias"):
+            p.zero_()
+        else:
+            normal_(p, std, generator)
+    for m in module.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(generator)
+    for name, p in module.named_parameters(recurse=False):
+        if name == "phm_rule":
+            normal_(p, cfg.pet.phm_init_range, generator)
+        elif name.startswith("phm_W_"):
+            glorot_uniform_gain2_(p, generator)
+    weight_initialization(module, cfg.pet)
+
 
 class VLBart(nn.Module):
     """Seq2seq LM head over VLBartModel: logits tied to the shared
@@ -198,6 +305,9 @@ class VLBart(nn.Module):
         if p.use_lm_head_adapter:  # vlpet_tpu/models/vlbart.py:128-131
             self.output_adapter = OutputParallelAdapterLayer(
                 cfg.d_model, cfg.backbone.vocab_size, device=dev)
+        if cfg.classifier:  # vlpet_tpu/models/vlbart.py:132-138
+            self.answer_head = AnswerHead(cfg.d_model, cfg.num_answers,
+                                          cfg.backbone.init_std, device=dev)
         self.eval()
 
     def _ctx(self, ctx: Optional[PetContext]) -> PetContext:
@@ -213,31 +323,9 @@ class VLBart(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VLBart":
-        """Seeded random init with the JAX package's scheme: normal(0,
-        init_std) for dense kernels, embeddings and middle-Y's vector, zeros
-        for biases, ones for LayerNorm scales; the PET modules' own
-        initialisers (``init_params``: LoRA, Compacter, the low-rank
-        adapter, the prompts, the hypernets) and Compacter's root weights
-        (normal(0, phm_init_range) rule, glorot slow weights); then the
-        recipe's re-inits (train/freezing.py ``weight_initialization``)."""
-        std = self.cfg.backbone.init_std
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf.endswith("bias"):
-                p.zero_()
-            else:
-                normal_(p, std, generator)
-        for m in self.modules():
-            if hasattr(m, "init_params"):
-                m.init_params(generator)
-        for name, p in self.named_parameters(recurse=False):
-            if name == "phm_rule":
-                normal_(p, self.cfg.pet.phm_init_range, generator)
-            elif name.startswith("phm_W_"):
-                glorot_uniform_gain2_(p, generator)
-        weight_initialization(self, self.cfg.pet)
+        """Seeded random init with the JAX package's scheme
+        (``seeded_init``)."""
+        seeded_init(self, self.cfg, generator)
         return self
 
     def logits_weight(self) -> torch.Tensor:
@@ -265,15 +353,17 @@ class VLBart(nn.Module):
     def dropout_sites(self) -> int:
         """Dropout seeds one training step draws, consumed in this order:
         the encoder's embedding dropout; per encoder layer (LoRA's q and v
-        input dropout, where LoRA drops) the self-attention and the FFN
-        residual dropout; the decoder's embedding dropout; per decoder
-        layer (LoRA's self-attention q and v) the self-attention residual
-        dropout, (LoRA's cross-attention q and v) the cross-attention and
-        the FFN residual dropout."""
-        b = self.cfg.backbone
-        lora = (2 * b.encoder_layers + 4 * b.decoder_layers
-                if self.lora_drops() else 0)
-        return 2 + 2 * b.encoder_layers + 3 * b.decoder_layers + lora
+        input dropout, where LoRA drops), (the self-attention's
+        probabilities, where ``attention_dropout`` > 0), the
+        self-attention's residual, (the FFN's hidden, where
+        ``activation_dropout`` > 0) and the FFN's residual; the decoder's
+        embedding dropout; per decoder layer (LoRA's self-attention q and
+        v), (the self-attention's probabilities), its residual, (LoRA's
+        cross-attention q and v), (the cross-attention's probabilities),
+        its residual, (the FFN's hidden) and its residual
+        (models/bart.py ``layer_sites``; each layer's drawn before the
+        layer runs, ``run_layer``)."""
+        return dropout_sites(self.cfg)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 vis_feats: Optional[torch.Tensor] = None,
@@ -287,8 +377,10 @@ class VLBart(nn.Module):
         """Teacher-forced forward (vlpet_tpu/models/vlbart.py:193-218).
         Returns {"logits", "encoder_last_hidden_state"} and, with labels,
         "loss": per-token (B, T) fp32, or the mean over valid tokens when
-        ``reduce_loss``. ``deterministic=False`` applies dropout with one
-        seed per site drawn from ``generator`` (``dropout_sites``). On the
+        ``reduce_loss``; under ``cfg.classifier`` also "answer_logits", the
+        answer head on the last decoder state (:212-213).
+        ``deterministic=False`` applies dropout with one seed per site
+        drawn from ``generator`` (``dropout_sites``). On the
         bf16 linear_ce route "logits" is the bf16 copy the loss keeps; on
         the ``use_fused_ce`` route (``_ce``) the output has no "logits":
         the fused loss never forms them (under jit the JAX package's logits
@@ -301,27 +393,13 @@ class VLBart(nn.Module):
                 raise ValueError("forward needs labels or decoder_input_ids")
             decoder_input_ids = shift_tokens_right(
                 labels, b.pad_token_id, b.decoder_start_token_id)
-        seeds = None
-        if not deterministic:
-            if (b.attention_dropout > 0 or b.activation_dropout > 0
-                    or self.cfg.vis.sparse_sample):
-                raise NotImplementedError(
-                    "attention_dropout / activation_dropout > 0 and "
-                    "vis.sparse_sample are not ported")
-            if b.dropout > 0 or self.lora_drops():
-                seeds = DropoutSeeds(self.dropout_sites(), generator,
-                                     input_ids.device)
-        task_embedding = self.model.task_embedding(ctx)
-        enc, joint_mask = self.model.encoder(
-            input_ids, attention_mask, self.model.shared, vis_feats=vis_feats,
-            boxes=boxes, img_order_ids=img_order_ids,
-            obj_order_ids=obj_order_ids,
-            vis_attention_mask=vis_attention_mask, ctx=ctx, seeds=seeds,
-            task_embedding=task_embedding)
-        dec = self.model.decoder.teacher_force(
-            decoder_input_ids, self.model.shared, enc, joint_mask, ctx, seeds,
-            task_embedding)
+        enc, joint_mask, dec = self._run(
+            input_ids, attention_mask, decoder_input_ids, vis_feats, boxes,
+            ctx, deterministic, generator, img_order_ids, obj_order_ids,
+            vis_attention_mask)
         out = {"encoder_last_hidden_state": enc}
+        if "answer_head" in self._modules:
+            out["answer_logits"] = self.answer_head(dec[:, -1])
         if labels is None:
             out["logits"] = self._logits(dec, self.logits_weight())
         else:
@@ -329,6 +407,43 @@ class VLBart(nn.Module):
             if logits is not None:
                 out["logits"] = logits
         return out
+
+    def _run(self, input_ids, attention_mask, decoder_input_ids, vis_feats,
+             boxes, ctx: PetContext, deterministic: bool, generator,
+             img_order_ids=None, obj_order_ids=None,
+             vis_attention_mask=None):
+        """(encoder states, joint mask, decoder states) of one teacher-forced
+        pass; a training one (``deterministic`` False) draws the step's
+        dropout seeds, then ``vis.sparse_sample``'s scores, from
+        ``generator``."""
+        seeds = None
+        if not deterministic and drops(self.cfg):
+            seeds = DropoutSeeds(self.dropout_sites(), generator,
+                                 input_ids.device)
+        dec, enc, joint_mask = self.model(
+            input_ids, attention_mask, decoder_input_ids, vis_feats, boxes,
+            img_order_ids, obj_order_ids, vis_attention_mask, ctx, seeds,
+            generator, self.cfg.vis.sparse_sample and not deterministic)
+        return enc, joint_mask, dec
+
+    def classify(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 vis_feats: Optional[torch.Tensor] = None,
+                 boxes: Optional[torch.Tensor] = None,
+                 img_order_ids=None, obj_order_ids=None,
+                 ctx: Optional[PetContext] = None, deterministic: bool = True,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """The classifier head's forward (vlpet_tpu/models/vlbart.py:330-346):
+        one ``decoder_start_token_id`` a row through the decoder, the
+        answer logits (B, num_answers) fp32 of its state. Training
+        (``deterministic`` False) drops as ``forward`` does."""
+        B = input_ids.shape[0]
+        dec_ids = torch.full((B, 1), self.cfg.backbone.decoder_start_token_id,
+                             dtype=torch.long, device=input_ids.device)
+        _, _, dec = self._run(input_ids, attention_mask, dec_ids, vis_feats,
+                              boxes, self._ctx(ctx), deterministic, generator,
+                              img_order_ids, obj_order_ids)
+        return self.answer_head(dec[:, -1])
 
     def _ce(self, dec_out: torch.Tensor, labels: torch.Tensor,
             reduce_loss: bool):

@@ -138,10 +138,23 @@ class DropoutSeeds:
                                    device=device, dtype=torch.int32)
         self.used = 0
 
+    @classmethod
+    def of(cls, seeds: torch.Tensor) -> "DropoutSeeds":
+        """The seeds of ``seeds`` (an int32 tensor) handed out from the
+        first: a layer's own sites, replayed from the start by each call
+        (a recomputed layer takes the seeds of its first run)."""
+        out = cls.__new__(cls)
+        out.seeds, out.used = seeds, 0
+        return out
+
     def next(self) -> torch.Tensor:
-        if self.used >= self.seeds.numel():
+        return self.take(1)
+
+    def take(self, n: int) -> torch.Tensor:
+        """The next ``n`` seeds as one (n,) view (``next()`` is n = 1)."""
+        if self.used + n > self.seeds.numel():
             raise RuntimeError(f"more dropout sites than the {self.seeds.numel()}"
                                f" seeds drawn for the step")
-        s = self.seeds[self.used:self.used + 1]
-        self.used += 1
+        s = self.seeds[self.used:self.used + n]
+        self.used += n
         return s

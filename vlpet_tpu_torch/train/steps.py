@@ -22,7 +22,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.heads import task_loss
+from vlpet_tpu_torch.models.heads import classifier_bce_loss, task_loss
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.optim import HFAdamW, global_norm
 
@@ -82,9 +82,13 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
 
     ``batch`` holds input_ids, attention_mask, vis_feats, boxes, target_ids
     (labels, -100 = ignore) and, for vqa, scores; optionally
-    img_order_ids, obj_order_ids, vis_attention_mask. The raw-image path's
-    model (vision/vis_encoder.py RawInputVLModel) takes its images, (B, 3,
-    H, W) or the NLVR pair (B, 2, 3, H, W), as vis_feats with no boxes, and
+    img_order_ids, obj_order_ids, vis_attention_mask. A batch that carries
+    ``target`` (the classifier's (B, num_answers) answer scores) trains
+    the answer head: ``model.classify`` on one decoder start token, the
+    BCE over the answer vocabulary (vlpet_tpu/train/steps.py:56-71). The
+    raw-image path's model (vision/vis_encoder.py RawInputVLModel) takes
+    its images, (B, 3, H, W) or the NLVR pair (B, 2, 3, H, W), as
+    vis_feats with no boxes, and
     runs the CLIP trunk inside the step (vlpet_tpu/train/steps.py:158-189);
     the trunk's BatchNorms keep their running statistics. The model must
     lie on ``device``. ``lambda_z`` > 0 adds the reference's
@@ -105,17 +109,28 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         task = tasks[task_idx]
         ctx = PetContext(task=task, task_idx=task_idx,
                          zs=[] if lambda_z > 0 else None)
-        out = model(batch["input_ids"], batch["attention_mask"],
-                    batch.get("vis_feats"), batch.get("boxes"),
-                    labels=batch["target_ids"], ctx=ctx, deterministic=False,
-                    generator=generator,
-                    img_order_ids=batch.get("img_order_ids"),
-                    obj_order_ids=batch.get("obj_order_ids"),
-                    vis_attention_mask=batch.get("vis_attention_mask"))
-        loss = task_loss(task, out["loss"], batch["target_ids"],
-                         batch.get("scores"))
-        if ctx.zs:
-            loss = loss + lambda_z * z_penalty(ctx.zs)
+        # the raw-image model (no ``classify``) takes the LM loss whatever
+        # the batch carries, as the JAX raw step does
+        if batch.get("target") is not None and hasattr(model, "classify"):
+            logits = model.classify(
+                batch["input_ids"], batch["attention_mask"],
+                batch.get("vis_feats"), batch.get("boxes"),
+                img_order_ids=batch.get("img_order_ids"),
+                obj_order_ids=batch.get("obj_order_ids"), ctx=ctx,
+                deterministic=False, generator=generator)
+            loss = classifier_bce_loss(logits, batch["target"])
+        else:
+            out = model(batch["input_ids"], batch["attention_mask"],
+                        batch.get("vis_feats"), batch.get("boxes"),
+                        labels=batch["target_ids"], ctx=ctx,
+                        deterministic=False, generator=generator,
+                        img_order_ids=batch.get("img_order_ids"),
+                        obj_order_ids=batch.get("obj_order_ids"),
+                        vis_attention_mask=batch.get("vis_attention_mask"))
+            loss = task_loss(task, out["loss"], batch["target_ids"],
+                             batch.get("scores"))
+            if ctx.zs:
+                loss = loss + lambda_z * z_penalty(ctx.zs)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a trainable parameter the task does not reach gets a zero
         # gradient, as jax.grad gives it

@@ -16,9 +16,11 @@ train step and the generation, on the batch's images, which ``array_batch``
 puts in the vis_feats slot. The weights go in as the JAX Trainer takes
 them: the seeded init, then ``clip_ckpt`` (an OpenAI CLIP visual state
 dict, raw mode only), then ``backbone_ckpt`` (an HF BART / T5 state dict),
-then the recipe's re-inits, then ``load``. Not
-ported, and raising NotImplementedError: ``mesh_model_axis`` > 1,
-multi-process runs and the classifier head.
+then the recipe's re-inits, then ``load``. Under ``cfg.classifier`` the
+vqa batches carry ``target`` (the answer scores): the step trains the
+answer head on the BCE and ``evaluate`` answers by ``predict_classifier``.
+Not ported, and raising NotImplementedError: ``mesh_model_axis`` > 1 and
+multi-process runs.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from vlpet_tpu_torch.utils.logging import LossMeter, MetricsLogger
 
 ARRAY_BATCH_KEYS = ("input_ids", "attention_mask", "vis_feats", "boxes",
                     "img_order_ids", "obj_order_ids", "vis_attention_mask",
-                    "target_ids", "scores", "decoder_input_ids", "images")
+                    "target_ids", "scores", "decoder_input_ids", "images",
+                    "target")
 
 
 def _task_loaders(loader) -> List:
@@ -316,8 +319,28 @@ class Trainer:
         return {"quesid2ans": quesid2ans, "predictions": predictions,
                 "targets": targets}
 
+    @torch.no_grad()
     def predict_classifier(self, loader, label2ans) -> Dict[str, Any]:
-        raise NotImplementedError("the classifier answer head is not ported")
+        """Classifier-head prediction: per example the answer of the argmax
+        over the answer vocabulary (vlpet_tpu/train/trainer.py:513-537;
+        the first of tied maxima, as numpy's)."""
+        quesid2ans: Dict[Any, str] = {}
+        ctx = PetContext(task=loader.task, task_idx=self.task_idx(loader.task))
+        offset = 0
+        for batch in loader:
+            arr = array_batch(batch, self.device)
+            logits = self.model.classify(
+                arr["input_ids"], arr["attention_mask"],
+                vis_feats=arr.get("vis_feats"), boxes=arr.get("boxes"),
+                img_order_ids=arr.get("img_order_ids"),
+                obj_order_ids=arr.get("obj_order_ids"), ctx=ctx)
+            ids = logits.argmax(-1).tolist()
+            qids = batch.get("question_ids",
+                             range(offset, offset + len(ids)))
+            offset += len(ids)
+            for qid, i in zip(qids, ids):
+                quesid2ans[qid] = label2ans[int(i)]
+        return {"quesid2ans": quesid2ans}
 
     def fixed_step_logits(self, batch: Dict[str, Any], task: str
                           ) -> torch.Tensor:
@@ -370,9 +393,16 @@ class Trainer:
             if ev is None:
                 return {}
             return ev.evaluate(res["predictions"], res["targets"])
-        # QA-style tasks
-        res = self.predict(loader, num_beams=num_beams or 1,
-                           max_length=max_length or 20)
+        # QA-style tasks: the answer head where the model and the loader's
+        # dataset both have the classifier (vlpet_tpu/train/trainer.py:623)
+        ds_cfg = getattr(getattr(loader, "dataset", None), "cfg", None)
+        if (self.cfg.classifier and getattr(ds_cfg, "classifier", False)
+                and ds_cfg.ans2label):
+            label2ans = {v: k for k, v in ds_cfg.ans2label.items()}
+            res = self.predict_classifier(loader, label2ans)
+        else:
+            res = self.predict(loader, num_beams=num_beams or 1,
+                               max_length=max_length or 20)
         if ev is None:
             return {}
         if hasattr(ev, "evaluate_raw") and getattr(ev, "id2datum_gt", None):
