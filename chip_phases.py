@@ -52,7 +52,9 @@ prompt script's (two epochs) and 8c the video CLI (VL-PET-large.sh, two
 epochs, resume) and single_task tvqa (single_prompt.sh), 8d the
 extractor + CLI on features with --backbone_ckpt (resume) and the raw
 CLI with --clip_ckpt, 8e the CLI with --classifier (VL-PET-large.sh,
-one epoch, resume), in child processes of ROOT's chip_smoke.
+one epoch, resume), in child processes of ROOT's chip_smoke; 9 the
+data-parallel ranks on the one card (world 1 over NCCL, world 2 over
+gloo: train steps against one process, the merged beam-5 tokens).
 ``--profile`` adds each bench run's device time and launches by kernel
 family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
@@ -113,7 +115,8 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "8b": ("phase_cli_prompt", "card"),
           "8c": ("phase_cli_video", "card"),
           "8d": ("phase_cli_raw", "card"),
-          "8e": ("phase_cli_classifier", "card")}
+          "8e": ("phase_cli_classifier", "card"),
+          "9": ("phase_data_parallel", "card")}
 HERE = Path(__file__).resolve().parent
 
 

@@ -415,8 +415,21 @@ nonzero and no result line is printed):
      --classifier --bf16 on vqa, CLS_CLI_EXAMPLES synthetic examples, one
      epoch, the predict_classifier eval, then --resume (the saved state's
      digest bit for bit; the cli_classifier run).
+  9. data parallelism on the one card (``phase_data_parallel``): every
+     rank a process that vlpet_tpu_torch/parallel/launch.py spawns on
+     cuda:0 and that joins its group through the CLIs' init from
+     torchrun-style environment. (a) world 1 over NCCL: the bf16 B 500
+     vqa step bit for bit the one-process step; (b) world 2 over gloo
+     (NCCL refuses two ranks on one card), B 250 a rank of the same
+     batch: the loss within BF16_STEP_RTOL of (a)'s; (c) world 2, fp32
+     B 16, dropout, attention and activation dropout 0.1: 3 steps, each
+     from the one-process run's state, by phase 6c's per-step rule; (d)
+     world 2 fp32 beam 5 to length 20, B 4 a rank: the merged tokens
+     identical to one process's B 8. Each rank's launches a step equal
+     one process's (A1 18, A6 17, F1 12, F2 12, L1 30, L2 29). Two ranks
+     sharing one card time nothing about multi-card speed.
 Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
-8d and 8e prints its seconds.
+8d and 8e prints its seconds; 9 prints its own.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -448,6 +461,7 @@ Imports: torch, the standard library and the port (vlpet_tpu_torch) only.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -6840,6 +6854,251 @@ def phase_cli_classifier(card: str) -> dict:
     return {CLI_CLS: res1["launches"]}
 
 
+# phase 9: data parallelism on the one card. Every rank is a process that
+# vlpet_tpu_torch/parallel/launch.py spawns on cuda:0 and that joins its
+# group through the CLIs' own init (multihost.maybe_initialize_distributed
+# from torchrun's environment): world 1 over NCCL, world 2 over gloo (NCCL
+# refuses two ranks on one card). Two ranks sharing one card time nothing
+# about multi-card speed.
+DP_TIMEOUT_S = 240  # each spawn's limit
+DP_B, DP_FP32_B, DP_EVAL_B = 500, 16, 4  # (a)/(b), (c) global; (d) a rank
+
+
+def dp_share(batch, rank: int, world: int):
+    """The rank's contiguous share of a global batch of tensors."""
+    b = batch["input_ids"].shape[0] // world
+    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def params_digest(trainable) -> str:
+    """sha256 over the trainable tensors' bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(trainable):
+        t = trainable[n].detach().contiguous().cpu()
+        h.update(n.encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_bf16_step(rank: int = 0, world: int = 1) -> dict:
+    """One bf16 vqa step of the full-width flagship (seeded weights) on the
+    rank's share of the B DP_B batch (phase 7's inputs): the (global) loss
+    and gradient norm, the trainable tensors' digest after it and the
+    step's launches."""
+    deterministic_kernels()
+    model = build_model("bfloat16")
+    trainable = apply_freezing(model, model.cfg.pet)
+    batch = dp_share(make_train_batch(DP_B, model.cfg.backbone.vocab_size,
+                                      31), rank, world)
+    step = make_train_step(model, build_optimizer(trainable, lr=1e-3,
+                                                  total_steps=2),
+                           FLAGSHIP_TASKS)
+    reset_counts()
+    out = step(batch, torch.Generator(device="cuda").manual_seed(9),
+               FLAGSHIP_TASKS.index("vqa"))
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in read_counts("train").items() if n}
+    return {"loss": out["loss"].item(), "grad_norm": out["grad_norm"].item(),
+            "digest": params_digest(trainable), "launches": launched}
+
+
+def dp_fp32_cfg(dtype: str):
+    """The flagship with every BART dropout at 0.1 (phase 9 (c))."""
+    cfg = flagship_cfg(dtype)
+    return dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, dropout=0.1, attention_dropout=0.1,
+        activation_dropout=0.1))
+
+
+def dp_fp32_model():
+    model = build_model("float32", dp_fp32_cfg)
+    unzero(model)
+    trainable = apply_freezing(model, model.cfg.pet)
+    opt = build_optimizer(trainable, lr=1e-3, total_steps=4)
+    return model, trainable, opt, make_train_step(model, opt, FLAGSHIP_TASKS)
+
+
+def dp_fp32_reference(path: str) -> dict:
+    """Phase 9 (c)'s one-process run: 3 fp32 steps on the B DP_FP32_B
+    batch, each step's start (trainable tensors and optimizer state) and
+    end saved to ``path`` for the ranks; returns the per-step metrics and
+    the step's launches."""
+    model, trainable, opt, step = dp_fp32_model()
+    batch = make_train_batch(DP_FP32_B, model.cfg.backbone.vocab_size, 21)
+    starts, ends, metrics = [], [], []
+    reset_counts()
+    for i in range(3):
+        starts.append({"params": {n: t.cpu() for n, t in
+                                  snapshot(trainable).items()},
+                       "opt": {k: ({n: t.detach().to("cpu", copy=True)
+                                    for n, t in v.items()}
+                                   if isinstance(v, dict) else v)
+                               for k, v in opt.state_dict().items()}})
+        out = step(batch, torch.Generator(device="cuda").manual_seed(21 + i),
+                   FLAGSHIP_TASKS.index("vqa"))
+        metrics.append({"loss": out["loss"].item(),
+                        "grad_norm": out["grad_norm"].item()})
+        ends.append({n: t.cpu() for n, t in snapshot(trainable).items()})
+    launched = {k: n // 3 for k, n in read_counts("train").items() if n}
+    torch.save({"starts": starts, "ends": ends}, path)
+    return {"metrics": metrics, "launches": launched}
+
+
+def dp_fp32_steps(rank: int, world: int, path: str) -> dict:
+    """Phase 9 (c) on a rank: each of the 3 steps from the one-process
+    run's start, on the rank's half of its batch with the same dropout
+    seeds (folded to the rank's examples); per step the metrics and the
+    largest L2 ratio |update - one-process update| / |one-process update|
+    over the trainable tensors."""
+    ref = torch.load(path, map_location="cuda", weights_only=False)
+    model, trainable, opt, step = dp_fp32_model()
+    batch = dp_share(make_train_batch(DP_FP32_B,
+                                      model.cfg.backbone.vocab_size, 21),
+                     rank, world)
+    rows = []
+    for i, (start, end) in enumerate(zip(ref["starts"], ref["ends"])):
+        restore(trainable, start["params"])
+        opt.load_state_dict(start["opt"])
+        reset_counts()
+        out = step(batch, torch.Generator(device="cuda").manual_seed(21 + i),
+                   FLAGSHIP_TASKS.index("vqa"))
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in read_counts("train").items() if n}
+        ratio = max((p.detach() - end[n]).norm().item()
+                    / max((end[n] - start["params"][n]).norm().item(), 1e-30)
+                    for n, p in trainable.items())
+        rows.append({"loss": out["loss"].item(),
+                     "grad_norm": out["grad_norm"].item(), "ratio": ratio,
+                     "launches": launched})
+    return rows
+
+
+def dp_eval_rank(rank: int, world: int) -> list:
+    """Phase 9 (d) on a rank: fp32 beam 5 to length 20 on its DP_EVAL_B
+    rows of phase 4 (a)'s batch, the ranks' tokens merged in rank
+    order."""
+    from vlpet_tpu_torch.parallel.multihost import all_gather_objects
+
+    model = build_model("float32")
+    batch = dp_share(make_batch(DP_EVAL_B * world,
+                                model.cfg.backbone.vocab_size, seed=7),
+                     rank, world)
+    with torch.inference_mode():
+        toks = seq2seq_generate(model, **batch,
+                                ctx=PetContext(task="caption", task_idx=3),
+                                num_beams=5, max_length=20)
+    return torch.cat(all_gather_objects(toks.cpu()))
+
+
+def dp_world2(rank: int, world: int, path: str) -> dict:
+    """Phase 9 (b), (c) and (d) on one rank of world 2."""
+    out = {"bf16": dp_bf16_step(rank, world)}
+    torch.cuda.empty_cache()
+    out["fp32"] = dp_fp32_steps(rank, world, path)
+    torch.cuda.empty_cache()
+    out["tokens"] = dp_eval_rank(rank, world)
+    print(f"  rank {rank}/{world}: bf16 step launches "
+          f"{out['bf16']['launches']}; fp32 per-step launches "
+          f"{[r['launches'] for r in out['fp32']]}", flush=True)
+    return out
+
+
+def phase_data_parallel(card: str) -> None:
+    """(a) world 1 over NCCL: the bf16 B DP_B step bit for bit the
+    one-process step; (b) world 2 over gloo, B DP_B/2 a rank: the loss
+    within BF16_STEP_RTOL of (a)'s; (c) world 2, fp32, B DP_FP32_B, every
+    dropout 0.1: 3 steps, each from the one-process run's state, held by
+    phase 6c's per-step rule (TRAIN_METRIC_RTOL, PARAM_RTOL in L2); (d)
+    world 2 beam 5 at B DP_EVAL_B a rank: the merged tokens identical to
+    one process's. Every rank's launches a step equal one process's."""
+    from vlpet_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    want = dp_bf16_step()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fp32_steps.pt")
+        fp32 = dp_fp32_reference(path)
+        model = build_model("float32")
+        with torch.inference_mode():
+            tokens = seq2seq_generate(
+                model, **make_batch(DP_EVAL_B * 2,
+                                    model.cfg.backbone.vocab_size, seed=7),
+                ctx=PetContext(task="caption", task_idx=3), num_beams=5,
+                max_length=20).cpu()
+        del model
+        torch.cuda.empty_cache()
+        # both worlds at once: their ranks share the card, and phase 9
+        # times nothing
+        t1 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            world1 = pool.submit(run_ranks, dp_bf16_step, 1, device="cuda",
+                                 timeout=DP_TIMEOUT_S)
+            two = run_ranks(dp_world2, 2, path, device="cuda",
+                            backend="gloo", timeout=DP_TIMEOUT_S)
+            (one,) = world1.result()
+        t2 = time.perf_counter()
+    if (one["loss"], one["grad_norm"], one["digest"]) != (
+            want["loss"], want["grad_norm"], want["digest"]):
+        raise AssertionError(f"(a) world 1 over NCCL: loss {one['loss']!r} "
+                             f"vs {want['loss']!r}, grad norm "
+                             f"{one['grad_norm']!r} vs {want['grad_norm']!r}, "
+                             f"digests {one['digest'][:12]} vs "
+                             f"{want['digest'][:12]}")
+    for name, got in [("(a) world 1", one["launches"])] + [
+            (f"(b) rank {r}", res["bf16"]["launches"])
+            for r, res in enumerate(two)]:
+        if got != want["launches"]:
+            raise AssertionError(f"{name}: launches {got}, one process "
+                                 f"{want['launches']}")
+    print(f"  (a) world 1 over NCCL (torchrun-style env): bf16 B{DP_B} vqa "
+          f"step bit for bit the one-process step: loss {one['loss']:.6f}, "
+          f"grad norm {one['grad_norm']:.6f}, digest {one['digest'][:12]}; "
+          f"launches {one['launches']}", flush=True)
+    for r, res in enumerate(two):
+        b = res["bf16"]
+        rel = abs(b["loss"] - one["loss"]) / abs(one["loss"])
+        if not rel <= BF16_STEP_RTOL:
+            raise AssertionError(f"(b) rank {r}: loss {b['loss']!r} vs (a) "
+                                 f"{one['loss']!r}: {rel:.3e} relative")
+        for i, (row, ref) in enumerate(zip(res["fp32"], fp32["metrics"])):
+            for key in ("loss", "grad_norm"):
+                if not abs(row[key] - ref[key]) <= (TRAIN_METRIC_RTOL
+                                                    * abs(ref[key])):
+                    raise AssertionError(f"(c) rank {r} step {i} {key}: "
+                                         f"{row[key]!r} vs one process "
+                                         f"{ref[key]!r}")
+            if not row["ratio"] <= PARAM_RTOL:
+                raise AssertionError(f"(c) rank {r} step {i}: update ratio "
+                                     f"{row['ratio']:.3e} > {PARAM_RTOL}")
+            if row["launches"] != fp32["launches"]:
+                raise AssertionError(f"(c) rank {r} step {i}: launches "
+                                     f"{row['launches']}, one process "
+                                     f"{fp32['launches']}")
+        if not torch.equal(res["tokens"], tokens):
+            raise AssertionError(f"(d) rank {r}: merged beam-5 tokens differ "
+                                 f"from one process's")
+    b = two[0]["bf16"]
+    print(f"  (b) world 2 over gloo, B{DP_B // 2} a rank: bf16 loss "
+          f"{b['loss']:.6f} vs (a) {one['loss']:.6f} "
+          f"({abs(b['loss'] - one['loss']) / abs(one['loss']):.3e} relative, "
+          f"tol {BF16_STEP_RTOL}); grad norm {b['grad_norm']:.6f} vs "
+          f"{one['grad_norm']:.6f}", flush=True)
+    rows = "; ".join(f"{r['loss']:.7f}/{m['loss']:.7f} |g| "
+                     f"{r['grad_norm']:.6f}/{m['grad_norm']:.6f} ratio "
+                     f"{r['ratio']:.2e}"
+                     for r, m in zip(two[0]["fp32"], fp32["metrics"]))
+    print(f"  (c) world 2 fp32 B{DP_FP32_B} dropout 0.1 (residual, attention,"
+          f" activation), 3 steps each from the one-process state, loss and "
+          f"grad norm world 2/world 1 and the largest L2 update ratio: "
+          f"{rows}; launches a step {fp32['launches']}", flush=True)
+    print(f"  (d) world 2 beam 5 to length 20, B{DP_EVAL_B} a rank: merged "
+          f"tokens identical to one process's B{DP_EVAL_B * 2}; the two "
+          f"worlds' spawns {t2 - t1:.1f} s; phase 9 "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -7036,6 +7295,9 @@ def main() -> int:
           "bf16", flush=True)
     launched.update(phase_cli_classifier(card))
     print(f"  phase 8e: {time.perf_counter() - t0:.1f} s", flush=True)
+    header("phase 9: data parallelism on the one card (spawned ranks on "
+           "cuda:0)", flush=True)
+    phase_data_parallel(card)
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:

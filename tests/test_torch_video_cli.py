@@ -247,7 +247,7 @@ def test_device_cuda_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="torch.cuda is not available"):
         tst.main("tvqa", argv)
     with pytest.raises(NotImplementedError, match="not ported"):
-        tm.main(argv + ["--distributed"], device="cpu")
+        tm.main(argv + ["--mesh_model_axis", "2"], device="cpu")
     # --classifier builds the answer head, which the video steps leave unread
     trainer, history = tm.main(argv + ["--classifier", "--output",
                                        str(tmp_path / "cls")], device="cpu")

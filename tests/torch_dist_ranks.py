@@ -1,0 +1,268 @@
+"""The ranks of the port's data-parallel tests (test_torch_distributed.py,
+test_torch_distributed_eval.py), spawned by
+vlpet_tpu_torch.parallel.launch.run_ranks over gloo on the CPU.
+
+Every rank imports this module again, so it imports torch and the port
+only (no JAX: the tests compute the JAX references in their own process).
+Its helpers also compute the one-process runs the ranks are held to.
+"""
+
+import dataclasses
+import os
+import zlib
+
+import torch
+
+from vlpet_tpu_torch.config import BartConfig
+from vlpet_tpu_torch.data.datasets import (DatasetConfig, Loader,
+                                           TaskDataset, synthetic_task_data)
+from vlpet_tpu_torch.data.multitask import MultitaskLoader
+from vlpet_tpu_torch.data.tokenization import WhitespaceTokenizer
+from vlpet_tpu_torch.models.t5 import VLT5
+from vlpet_tpu_torch.models.vlbart import VLBart
+from vlpet_tpu_torch.parallel.multihost import host_shard
+from vlpet_tpu_torch.train.freezing import apply_freezing
+from vlpet_tpu_torch.train.optim import build_optimizer
+from vlpet_tpu_torch.train.steps import make_train_step
+from vlpet_tpu_torch.train.trainer import Trainer, check_task_order
+
+
+# --- the training step --------------------------------------------------
+
+def share(batch, rank: int, world: int):
+    """The rank's contiguous share of a global batch of numpy arrays."""
+    b = len(batch["input_ids"]) // world
+    return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def to_torch(batch):
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+            else torch.from_numpy(v) for k, v in batch.items()}
+
+
+def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1):
+    """``steps`` train steps of the model of ``cfg`` at ``state``, on this
+    process's share of ``batch`` (the whole batch without a process
+    group), dropout seeds from generator seed 0, the optimizer updating
+    every ``accumulation``-th step. Returns the per-step losses and
+    gradient norms and the trainable tensors at the end."""
+    rank, world = host_shard()
+    model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
+    model.load_state_dict(state)
+    trainable = apply_freezing(model, cfg.pet)
+    step = make_train_step(model, build_optimizer(trainable, **opt), tasks,
+                           device="cpu", accumulation_steps=accumulation)
+    generator = torch.Generator().manual_seed(0)
+    t = to_torch(share(batch, rank, world))
+    losses, norms = [], []
+    for _ in range(steps):
+        out = step(t, generator, tasks.index(task))
+        losses.append(float(out["loss"]))
+        norms.append(float(out["grad_norm"]))
+    return {"losses": losses, "norms": norms,
+            "params": {n: p.detach().clone() for n, p in trainable.items()}}
+
+
+def train_ranks(rank, world, cases):
+    """``run_steps`` of each case (a dict of its arguments), in order."""
+    return [run_steps(**case) for case in cases]
+
+
+# --- evaluation, checkpoints, the task order -----------------------------
+
+class StableTokenizer(WhitespaceTokenizer):
+    """The WhitespaceTokenizer with word ids from crc32, not from Python's
+    per-process str hash: every rank and the test's own process agree."""
+
+    def _tok2id(self, tok: str) -> int:
+        h = 5 + zlib.crc32(tok.encode()) % (self.vocab_size - 10)
+        while h in self._special:
+            h += 1
+        self._cache[h] = tok
+        return h
+
+
+EVAL_TASKS = ("vqa", "nlvr", "caption")
+
+
+def tiny_trainer(output_dir=None, **kw):
+    """A tiny BART (d 32, 2+2 layers, vocab 60) with VL-PET-large, fp32,
+    dropout 0, on the CPU; seeded, so every process builds the same."""
+    from vlpet_tpu_torch.config import VisConfig, VLModelConfig, vlpet_recipe
+
+    cfg = VLModelConfig(
+        backbone=BartConfig(vocab_size=60, d_model=32, encoder_layers=2,
+                            decoder_layers=2, encoder_attention_heads=4,
+                            decoder_attention_heads=4, encoder_ffn_dim=64,
+                            decoder_ffn_dim=64, max_position_embeddings=32,
+                            dropout=0.0),
+        vis=VisConfig(feat_dim=16, n_boxes=4),
+        pet=vlpet_recipe("large", r=8, num_heads=4, gate_dim=8,
+                         tasks=EVAL_TASKS))
+    return Trainer(cfg, EVAL_TASKS, tokenizer=StableTokenizer(vocab_size=60),
+                   output_dir=output_dir, verbose=False, device="cpu", **kw)
+
+
+def loader(task: str, n: int, batch_size: int, train: bool = False):
+    """This process's shard of ``n`` synthetic ``task`` examples, padded
+    to fixed lengths (so every shard's batch has the global batch's
+    shapes)."""
+    from vlpet_tpu_torch.cli.multitask import make_evaluator
+
+    shard, num_shards = host_shard()
+    examples, source = synthetic_task_data(task, n, n_boxes=4, feat_dim=16)
+    ds = TaskDataset(DatasetConfig(task=task, max_text_length=8,
+                                   gen_max_length=6, n_boxes=4, feat_dim=16,
+                                   pad_to_max=True),
+                     examples, source, StableTokenizer(vocab_size=60),
+                     mode="train" if train else "val")
+    return Loader(ds, batch_size, shuffle=train, drop_last=train,
+                  evaluator=make_evaluator(task, ds.examples), shard=shard,
+                  num_shards=num_shards, prefetch=0)
+
+
+def evaluate_all(trainer):
+    """Beam-5 caption and greedy vqa predictions, the nlvr scoring, and
+    the evaluators' scores, over 7 examples a task at batch 2 (shards of
+    4 and 3 at world 2)."""
+    cap, vqa, nlvr = (loader(t, 7, 2) for t in ("caption", "vqa", "nlvr"))
+    return {"caption": trainer.predict(cap, num_beams=5, max_length=6),
+            "vqa": trainer.predict(vqa, num_beams=1, max_length=6),
+            "nlvr": trainer.predict_nlvr(nlvr),
+            "scores": {ld.task: trainer.evaluate(ld, max_length=6)
+                       for ld in (loader("caption", 7, 2),
+                                  loader("vqa", 7, 2))}}
+
+
+def train_caption(trainer, epochs: int, batch_size: int):
+    """``trainer.train`` on this process's shard of 16 caption examples."""
+    mt = MultitaskLoader([loader("caption", 16, batch_size, train=True)])
+    trainer.train(mt, epochs=epochs, log_every=1000)
+    return {n: p.detach().clone() for n, p in trainer.trainable.items()}
+
+
+def eval_ranks(rank, world, out_dir):
+    """The evaluation, the first training epoch (checkpointed under
+    ``out_dir``) and a task order that differs on the last rank."""
+    res = {"eval": evaluate_all(tiny_trainer())}
+    trainer = tiny_trainer(output_dir=out_dir, lr=1e-2, total_steps=8)
+    res["lead"] = trainer.lead
+    res["epoch1"] = train_caption(trainer, epochs=1, batch_size=2)
+    order = ["vqa", "caption"] + (["vqa"] if rank == world - 1 else [])
+    try:
+        check_task_order(order)
+        res["order_check"] = None
+    except RuntimeError as e:
+        res["order_check"] = str(e)
+    return res
+
+
+# --- the four CLIs ---------------------------------------------------------
+
+_UNPATCHED = {}  # the functions _record_writes wraps, as first found
+TINY = dict(vocab_size=50265, d_model=32, encoder_layers=1, decoder_layers=1,
+            encoder_attention_heads=4, decoder_attention_heads=4,
+            encoder_ffn_dim=64, decoder_ffn_dim=64, max_position_embeddings=1024)
+
+
+def _tiny_backbone():
+    """The CLIs' configuration with the tiny BART backbone."""
+    import vlpet_tpu_torch.cli.multitask as tm
+    import vlpet_tpu_torch.cli.multitask_infer as tmi
+    import vlpet_tpu_torch.cli.multitask_video as tmv
+    import vlpet_tpu_torch.cli.param as tp
+    import vlpet_tpu_torch.cli.single_task as tst
+
+    def patched(args, tasks, vocab_size=None):
+        cfg = tp.build_model_config(args, tasks, vocab_size)
+        return dataclasses.replace(cfg, backbone=BartConfig(
+            **TINY, dropout=args.dropout))
+
+    for mod in (tm, tmi, tmv, tst):
+        mod.build_model_config = patched
+
+
+def _record_writes(rank):
+    """(the (task, question id) of every trained example, the writes of
+    this rank): rank 0's checkpoint and LAST.npz writes are counted,
+    another rank's raise."""
+    import vlpet_tpu_torch.train.trainer as tt
+    from vlpet_tpu_torch.train.checkpoint import CheckpointManager
+
+    seen, writes = [], []
+    step, save, npz = _UNPATCHED.setdefault("fns", (
+        Trainer.do_train_step, CheckpointManager.save, tt.save_params_npz))
+
+    def do_train_step(self, batch):
+        seen.extend((batch["task"], q) for q in batch["question_ids"])
+        return step(self, batch)
+
+    def guard(fn, what):
+        def write(*a, **kw):
+            if rank != 0:
+                raise AssertionError(f"rank {rank} wrote {what}")
+            writes.append(what)
+            return fn(*a, **kw)
+        return write
+
+    Trainer.do_train_step = do_train_step
+    CheckpointManager.save = guard(save, "checkpoint")
+    tt.save_params_npz = guard(npz, "LAST.npz")
+    return seen, writes
+
+
+CLI_FLAGS = ["--backbone", "facebook/bart-base", "--batch_size", "2",
+             "--valid_batch_size", "2", "--feat_dim", "8", "--n_boxes", "4",
+             "--synthetic_examples", "8", "--lr", "1e-3", "--epochs", "1",
+             "--gen_max_length", "4", "--num_beams", "2", "--dropout", "0.1",
+             "--use_adapter", "--use_single_adapter", "--no_encoder_adapter",
+             "--use_adapter_down_dim", "--use_encoder_adapter_down_multihead",
+             "--adapter_down_dim", "8",
+             "--encoder_adapter_multihead_num_head", "4",
+             "--unfreeze_encoder_layer_norms", "--no_decoder_adapter",
+             "--use_decoder_enc_attn_value_parallel_adapter_down_dim",
+             "--decoder_enc_attn_value_parallel_adapter_down_dim", "8",
+             "--use_encoder_adapter_gating_large_x_lowrank",
+             "--adapter_gating_down_dim", "8", "--distributed"]
+
+
+def cli_ranks(rank, world, out_dir):
+    """Each CLI with ``--distributed`` on synthetic data: multitask (vqa
+    and caption, one epoch, then multitask_infer on its LAST.npz),
+    multitask_video (tvqa) and single_task (vqa). Returns per run the
+    examples this rank trained on, its writes, the files of its output
+    directory and what the run returned."""
+    import vlpet_tpu_torch.cli.multitask as tm
+    import vlpet_tpu_torch.cli.multitask_infer as tmi
+    import vlpet_tpu_torch.cli.multitask_video as tmv
+    import vlpet_tpu_torch.cli.single_task as tst
+
+    _tiny_backbone()
+    out = {}
+
+    def run(name, fn, argv):
+        seen, writes = _record_writes(rank)
+        path = os.path.join(out_dir, name)
+        ret = fn(CLI_FLAGS + argv + ["--output", path])
+        trainer = ret[0] if isinstance(ret, tuple) else ret
+        out[name] = {"seen": seen, "writes": writes,
+                     "files": sorted(os.listdir(path))
+                     if os.path.isdir(path) else [],
+                     "logs": trainer.logger.jsonl is not None,
+                     "world": trainer.world, "step": trainer.step}
+
+    run("multitask", lambda a: tm.main(a, device="cpu"),
+        ["--tasks", "vqa,caption"])
+    run("multitask_infer", lambda a: tmi.main(a, device="cpu"),
+        ["--tasks", "vqa,caption", "--load_trained_model_path",
+         os.path.join(out_dir, "multitask", "LAST.npz")])
+    run("multitask_video", lambda a: tmv.main(a, device="cpu"),
+        ["--tasks", "tvqa"])
+    run("single_task", lambda a: tst.main("vqa", a, device="cpu"), [])
+    return out
+
+
+def eval_cli_ranks(rank, world, ckpt_dir, cli_dir):
+    """``eval_ranks`` then ``cli_ranks``, in one process group."""
+    return {"eval": eval_ranks(rank, world, ckpt_dir),
+            "cli": cli_ranks(rank, world, cli_dir)}

@@ -13,8 +13,10 @@ checkpoints, data pipeline and evaluators (``train/``, ``data/``,
 ``evalsuite/``), the image-text and video CLIs (``python -m
 vlpet_tpu_torch.cli.multitask``, ``cli.multitask_infer``,
 ``cli.multitask_video``, ``cli.single_task``), the CLIP trunks, the
-raw-image path and the feature extractor (``vision/``) and the HF / CLIP
-checkpoint importers (``models/hf_import.py``, ``vision/clip_import.py``).
+raw-image path and the feature extractor (``vision/``), the HF / CLIP
+checkpoint importers (``models/hf_import.py``, ``vision/clip_import.py``)
+and data parallelism, one process per card over torch.distributed
+(``parallel/``, ``--distributed``).
 Every Pallas
 kernel is a hand-written CUDA kernel for sm_90a (``csrc/``), built with
 nvcc at first use and bound through ctypes (``ops/_build.py``); each keeps

@@ -15,8 +15,16 @@ the train step (``--image_size``, ``--use_vis_adapter``, ``--clip_ckpt``);
 ``--backbone_ckpt`` loads a local HF BART / T5 state dict.
 ``--classifier`` trains the answer head on vqa (the vqa loaders carry the
 answer scores over ``load_ans2label``'s vocabulary, ``num_answers`` its
-size) and answers vqa by its argmax. Not ported, and raising
-NotImplementedError: ``--mesh_model_axis`` > 1 and ``--distributed``.
+size) and answers vqa by its argmax.
+``--distributed`` (or torchrun's environment) runs one process per card
+over torch.distributed (parallel/multihost.py): every process reads its
+own shard of each split, ``--batch_size`` is per process (the global
+batch is the world size times it), and rank 0 alone writes the output.
+``--mesh_model_axis`` > 1 (tensor parallelism) raises
+NotImplementedError.
+
+Run on N cards:  torchrun --nproc_per_node N -m vlpet_tpu_torch.cli.multitask
+--distributed <flags>
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from vlpet_tpu_torch.evalsuite import (
     NLVR2Evaluator,
     VQAEvaluator,
 )
+from vlpet_tpu_torch.parallel.multihost import (host_shard,
+                                                maybe_initialize_distributed)
 
 # per-task batch scaling (reference: multitask.py:682-695)
 BATCH_SCALE = {"vqa": 1.0, "gqa": 100 / 60, "nlvr": 20 / 60, "caption": 50 / 60}
@@ -180,11 +190,14 @@ def build_loaders(args, tasks: Tuple[str, ...], tokenizer, split: str,
                              seed=args.seed)
         bs = task_batch_size(task, args.batch_size if mode == "train"
                              else args.valid_batch_size)
-        # one process: the whole split (the multi-host shards of the JAX
-        # CLI are not ported)
+        # per-process disjoint shards (the reference's DistributedSampler
+        # role, caption_clip_data.py:372-377); the eval shards too, which
+        # Trainer.predict merges across the processes
+        shard, num_shards = host_shard()
         loaders.append(Loader(ds, bs, shuffle=(mode == "train"),
                               drop_last=(mode == "train"),
-                              evaluator=make_evaluator(task, ds.examples)))
+                              evaluator=make_evaluator(task, ds.examples),
+                              shard=shard, num_shards=num_shards))
     return loaders
 
 
@@ -195,8 +208,7 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported")
+    maybe_initialize_distributed(args)
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
     require_stable_word_ids(args, tokenizer)
@@ -237,7 +249,7 @@ def main(argv=None, device=None):
     if args.resume:
         t1 = time.time()
         step = trainer.restore()
-        if step is not None:
+        if step is not None and trainer.lead:
             print(f"resumed from step {step} in {time.time() - t1:.3f} s; "
                   f"state digest {trainer.state_digest()}")
 
@@ -249,14 +261,17 @@ def main(argv=None, device=None):
         for loader in val_loaders:
             scores = trainer.evaluate(loader, num_beams=args.num_beams,
                                       max_length=args.gen_max_length)
+            if not trainer.lead:
+                continue
             print(loader.task, scores)
             if loader.task == "caption":
                 print(f"[caption metric basis] {COCOCaptionEvaluator.BASIS}")
         return trainer
 
     history = trainer.train(mt, epochs=args.epochs, val_loaders=val_loaders)
-    print(f"saved at step {trainer.step}; state digest "
-          f"{trainer.state_digest()}")
+    if trainer.lead:
+        print(f"saved at step {trainer.step}; state digest "
+              f"{trainer.state_digest()}")
     return trainer, history
 
 

@@ -7,6 +7,11 @@ The BART encoder's gate activations are captured by forward hooks on the
 gate modules and written as ``{task}_{name}.npy`` under the names of the
 JAX dump (the flax ``sow`` at vlpet_tpu/models/bart.py:592); T5, which
 sows no gate there, dumps none here either.
+
+``--distributed`` (or torchrun's environment) evaluates on one process
+per card (parallel/multihost.py): each process predicts its shard of the
+split, the results are merged and rank 0 prints the whole split's
+scores; the gate dump runs on rank 0's first batch.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from vlpet_tpu_torch.cli.multitask import (build_loaders,
                                            require_stable_word_ids)
 from vlpet_tpu_torch.cli.param import build_model_config, parse_args
 from vlpet_tpu_torch.data.tokenization import effective_vocab_size, get_tokenizer
+from vlpet_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
 
 def gate_modules(model):
@@ -77,8 +83,7 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported")
+    maybe_initialize_distributed(args)
     args.test_only = True
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
@@ -96,12 +101,15 @@ def main(argv=None, device=None):
                       mesh_model_axis=args.mesh_model_axis,
                       device=args.device)
     if args.use_store_gate_large and args.store_gate_path:
-        for loader in val_loaders:
-            dump_gates(trainer, loader, args.store_gate_path)
+        if trainer.lead:
+            for loader in val_loaders:
+                dump_gates(trainer, loader, args.store_gate_path)
         return trainer
     for loader in val_loaders:
-        print(loader.task, trainer.evaluate(loader, num_beams=args.num_beams,
-                                            max_length=args.gen_max_length))
+        scores = trainer.evaluate(loader, num_beams=args.num_beams,
+                                  max_length=args.gen_max_length)
+        if trainer.lead:
+            print(loader.task, scores)
     return trainer
 
 

@@ -16,9 +16,13 @@ takes the default AdamW eps and betas whatever ``--adam_eps`` /
 read; ``--backbone_ckpt`` loads a local HF BART / T5 state dict. As in
 the JAX video CLI, ``--classifier`` builds the answer head (``num_answers``
 as configured) and nothing reads it: the video loaders carry no answer
-scores, so the steps take the LM loss and the evaluation generates. Not
-ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1 and
-``--distributed``.
+scores, so the steps take the LM loss and the evaluation generates.
+``--distributed`` (or torchrun's environment) runs one process per card
+over torch.distributed (parallel/multihost.py): every process reads its
+own shard of each split, ``--batch_size`` is per process (the global
+batch is the world size times it), and rank 0 alone writes the output.
+``--mesh_model_axis`` > 1 (tensor parallelism) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from vlpet_tpu_torch.data.multitask import MultitaskLoader
 from vlpet_tpu_torch.data.tokenization import (effective_vocab_size,
                                                get_tokenizer)
 from vlpet_tpu_torch.data.video import build_video_loader
+from vlpet_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
 VIDEO_TASKS = ("tvqa", "how2qa", "tvc", "yc2c")
 
@@ -42,8 +47,7 @@ def main(argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported")
+    maybe_initialize_distributed(args)
     args.feat_dim = 512  # CLIP-ViT frame features (reference: :738)
     tasks = tuple(t for t in args.tasks.split(",") if t) or VIDEO_TASKS
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
@@ -88,20 +92,22 @@ def run(args, tasks, tokenizer, cfg, train_loaders, val_loaders,
     if args.resume:
         t1 = time.time()
         step = trainer.restore()
-        if step is not None:
+        if step is not None and trainer.lead:
             print(f"resumed from step {step} in {time.time() - t1:.3f} s; "
                   f"state digest {trainer.state_digest()}")
 
     if args.infer_only or args.test_only:
         for loader in val_loaders:
-            print(loader.task, trainer.evaluate(loader,
-                                                num_beams=args.num_beams,
-                                                max_length=args.gen_max_length))
+            scores = trainer.evaluate(loader, num_beams=args.num_beams,
+                                      max_length=args.gen_max_length)
+            if trainer.lead:
+                print(loader.task, scores)
         return trainer
 
     history = trainer.train(mt, epochs=args.epochs, val_loaders=val_loaders)
-    print(f"saved at step {trainer.step}; state digest "
-          f"{trainer.state_digest()}")
+    if trainer.lead:
+        print(f"saved at step {trainer.step}; state digest "
+              f"{trainer.state_digest()}")
     return trainer, history
 
 

@@ -8,9 +8,10 @@ The port's copy of vlpet_tpu/cli/param.py, flag for flag, plus three flags
 of its own: ``--device`` (where the CLIs run: "cuda" by default, "cpu" on
 request, never a silent fallback) and ``--use_fused_ce`` /
 ``--use_fused_beam``, which set the VLModelConfig fields of the same names
-(C1/C2 and D2). Flags of the JAX runtime (``--pallas_attention``,
-``--mesh_model_axis``, the multi-host flags) are accepted; the trainer
-rejects what it does not run.
+(C1/C2 and D2). ``--distributed`` and its topology flags start one
+process per card over torch.distributed (parallel/multihost.py). Flags of
+the JAX runtime (``--pallas_attention``, ``--mesh_model_axis``) are
+accepted; the trainer rejects what it does not run.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add("--from_scratch", action="store_true")
     add("--run_name", type=str, default="")
 
-    # runtime (the torch-distributed flags are accepted for script
-    # compatibility; SPMD over the TPU mesh replaces them)
+    # runtime
     add("--multiGPU", action="store_const", default=False, const=True)
     add("--fp16", action="store_true")
     add("--bf16", action="store_true", help="bfloat16 compute")
@@ -59,14 +59,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     add("--use_fused_beam", action="store_true",
         help="beam self-attend with the cache-slot write (D2)")
     add("--distributed", action="store_true",
-        help="multi-host: jax.distributed.initialize() at entry "
-             "(parallel/multihost.py maybe_initialize_distributed)")
+        help="one process per card: torch.distributed.init_process_group "
+             "at entry (parallel/multihost.py maybe_initialize_distributed;"
+             " torchrun's environment also starts it); --batch_size is "
+             "per process")
     add("--coordinator_address", type=str, default=None,
-        help="multi-host coordinator host:port (else jax auto-detects)")
-    add("--num_processes", type=int, default=None)
-    add("--process_id", type=int, default=None)
+        help="rendezvous host:port (else MASTER_ADDR:MASTER_PORT, else "
+             "127.0.0.1:29500)")
+    add("--num_processes", type=int, default=None,
+        help="world size (else WORLD_SIZE, else 1)")
+    add("--process_id", type=int, default=None,
+        help="this process's rank (else RANK, else 0)")
     add("--num_workers", default=0, type=int)
-    add("--local_rank", type=int, default=-1)
+    add("--local_rank", type=int, default=-1,
+        help="this process's card where LOCAL_RANK is not set")
     add("--mesh_model_axis", type=int, default=1,
         help="tensor-parallel axis size of the device mesh")
     add("--pallas_attention", type=str, default="auto",

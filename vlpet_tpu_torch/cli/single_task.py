@@ -14,8 +14,12 @@ batches carry images that no trunk reads (the JAX entry point's behaviour;
 head with ``num_answers`` as configured, as the JAX entry point does (it
 does not size it to the answer vocabulary): on vqa the loaders carry the
 answer scores and the step trains the head, elsewhere nothing reads it.
-Not ported, and raising NotImplementedError: ``--mesh_model_axis`` > 1
-and ``--distributed``.
+``--distributed`` (or torchrun's environment) runs one process per card
+over torch.distributed (parallel/multihost.py): every process reads its
+own shard of each split, ``--batch_size`` is per process (the global
+batch is the world size times it), and rank 0 alone writes the output.
+``--mesh_model_axis`` > 1 (tensor parallelism) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from vlpet_tpu_torch.data.tokenization import (effective_vocab_size,
                                                get_tokenizer)
 from vlpet_tpu_torch.data.video import (VIDEO_CAP_TASKS, VIDEO_QA_TASKS,
                                         build_video_loader)
+from vlpet_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
 IMAGE_TASKS = ("vqa", "gqa", "nlvr", "caption")
 
@@ -42,8 +47,7 @@ def main(task: str, argv=None, device=None):
     args = parse_args(argv)
     if device is not None:
         args.device = str(device)
-    if args.distributed:
-        raise NotImplementedError("--distributed is not ported")
+    maybe_initialize_distributed(args)
     if task in IMAGE_TASKS and args.feature_type.startswith("raw_"):
         print(f"single_task {task}: --feature_type {args.feature_type} "
               f"images are not read here (as in the JAX entry point); "

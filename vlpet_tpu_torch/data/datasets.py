@@ -271,9 +271,15 @@ class Loader:
         self.epoch = epoch
 
     def __len__(self):
-        n = len(self.dataset) // self.num_shards
+        """Batches of this shard: under drop_last the full batches of the
+        smallest shard, the same count on every shard (a data-parallel
+        step needs every rank's batch); else every example of the shard
+        (ceil(shard size / batch size)), so that the merged eval shards
+        cover the split."""
         if self.drop_last:
+            n = len(self.dataset) // self.num_shards
             return n // self.batch_size
+        n = len(range(self.shard, len(self.dataset), self.num_shards))
         return -(-n // self.batch_size)
 
     def _produce(self) -> Iterator[Dict[str, Any]]:

@@ -21,6 +21,7 @@ import numpy as np
 from vlpet_tpu_torch.data.datasets import DatasetConfig, Loader, TaskDataset
 from vlpet_tpu_torch.data.features import DictFeatureSource, NpzVideoSource
 from vlpet_tpu_torch.evalsuite.video import TVCEvaluator, TVQAEvaluator
+from vlpet_tpu_torch.parallel.multihost import host_shard
 
 VIDEO_QA_TASKS = ("tvqa", "how2qa")
 VIDEO_CAP_TASKS = ("tvc", "yc2c")
@@ -119,11 +120,12 @@ def build_video_loader(task: str, args, tokenizer, split: str, mode: str,
             feat_dim=int(args.feat_dim), seed=args.seed)
     ds = TaskDataset(cfg, examples, source, tokenizer, mode=mode,
                      seed=args.seed)
-    # one process: the whole split (the multi-host shards of the JAX
-    # loader are not ported)
+    # per-process disjoint shards (the reference's DistributedSampler
+    # role); the eval shards too, which Trainer.predict merges
+    shard, num_shards = host_shard()
     return Loader(ds, args.batch_size if mode == "train" else args.valid_batch_size,
                   shuffle=(mode == "train"), drop_last=(mode == "train"),
-                  evaluator=evaluator)
+                  evaluator=evaluator, shard=shard, num_shards=num_shards)
 
 
 def synthetic_video_data(task: str, n: int, n_frames: int = 64,

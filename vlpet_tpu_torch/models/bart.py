@@ -116,18 +116,27 @@ def write_slot(cache: Cache, k: torch.Tensor, v: torch.Tensor,
         pos)
 
 
-def _seed(seeds: Optional[DropoutSeeds]) -> Optional[torch.Tensor]:
-    """The next dropout site's seed, or None when not dropping."""
-    return seeds.next() if seeds is not None else None
+def _seed(seeds: Optional[DropoutSeeds],
+          per_example: int) -> Optional[torch.Tensor]:
+    """The next dropout site's seed, folded to this process's examples
+    (``per_example``: the elements an example owns in the site's mask,
+    ``DropoutSeeds.next_for``), or None when not dropping."""
+    return seeds.next_for(per_example) if seeds is not None else None
 
 
-def _rate_seed(seeds: Optional[DropoutSeeds], rate: float):
+def _per_example(x: torch.Tensor) -> int:
+    """The elements an example owns in a batch-major x (B, ...)."""
+    return x.shape[1:].numel()
+
+
+def _rate_seed(seeds: Optional[DropoutSeeds], rate: float,
+               per_example: int):
     """(rate, seed) of a site that exists only where its rate is above 0
     (BART's attention and activation dropout): (0.0, None) off training
-    or at rate 0, else the rate and the next seed."""
+    or at rate 0, else the rate and the next seed (folded as ``_seed``)."""
     if seeds is None or rate <= 0.0:
         return 0.0, None
-    return rate, seeds.next()
+    return rate, seeds.next_for(per_example)
 
 
 def layer_sites(cfg: VLModelConfig, n_attention: int) -> int:
@@ -173,7 +182,8 @@ def run_layer(remat: str, fn, h: torch.Tensor,
     seed_t = seeds.take(n_sites) if seeds is not None else None
 
     def body(h: torch.Tensor, seed_t: Optional[torch.Tensor]):
-        own = DropoutSeeds.of(seed_t) if seed_t is not None else None
+        own = (DropoutSeeds.of(seed_t, seeds.example_base)
+               if seed_t is not None else None)
         out = fn(h, own)
         if own is not None and own.used != n_sites:
             raise RuntimeError(f"a layer took {own.used} dropout seeds, "
@@ -194,7 +204,7 @@ def _embedding_dropout(h: torch.Tensor, seeds: Optional[DropoutSeeds],
                        rate: float) -> torch.Tensor:
     """A stack's embedding dropout; its site takes a seed whenever the
     step draws seeds (a LoRA model draws them at BART dropout 0 too)."""
-    seed = _seed(seeds)
+    seed = _seed(seeds, _per_example(h))
     return hash_dropout(h, seed, rate) if seed is not None and rate else h
 
 
@@ -235,7 +245,9 @@ def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
     (``hash_dropout``): the plain chain always, as the JAX package leaves
     fused_ffn there (vlpet_tpu/models/bart.py:842-859)."""
     c = layer.cfg
-    rate, seed = _rate_seed(seeds, c.backbone.activation_dropout)
+    rate, seed = _rate_seed(seeds, c.backbone.activation_dropout,
+                            _per_example(x) // x.shape[-1]
+                            * layer.fc1.out_dim)
     ia3 = layer._modules.get("decoder_ff_ia3_mod")
     if ia3 is not None:
         h = get_activation(act)(layer.fc1(x))
@@ -363,8 +375,8 @@ class BartAttention(nn.Module):
         """A q/v projection; a LoRADense is routed by task and, in
         training, takes the next dropout seed (one site a call)."""
         if isinstance(mod, LoRADense):
-            return mod(h, ctx.task_idx,
-                       _seed(seeds) if mod.rate > 0.0 else None)
+            seed = _seed(seeds, _per_example(h)) if mod.rate > 0.0 else None
+            return mod(h, ctx.task_idx, seed)
         return mod(h)
 
     def _qkv(self, h: torch.Tensor, ctx: PetContext, qkv=None,
@@ -453,7 +465,8 @@ class BartAttention(nn.Module):
                                         attention_mask, attend)
                 return self.out_proj(out.reshape(B, L, -1)), cache
             m = attention_mask.float()
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
+                                    L * k.shape[1])
             return self.out_proj(attend(q, k, v, m, H, False, None, rate,
                                         seed)), cache
         q, k, v = self._qkv(hidden_states, ctx, qkv, seeds)
@@ -462,14 +475,16 @@ class BartAttention(nn.Module):
             v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
         if self.role == "enc_self":
             m = attention_mask.float()
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
+                                    L * k.shape[1])
             return self.out_proj(attend(q, k, v, m, H, False, None, rate,
                                         seed)), cache
         if cache is None:
             # teacher forcing: the triangle in-kernel, a zero padding mask
             m = torch.zeros((1, 1, 1, k.shape[1]), dtype=torch.float32,
                             device=q.device)
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout)
+            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
+                                    L * k.shape[1])
             return self.out_proj(attend(q, k, v, m, H, True, None, rate,
                                         seed)), cache
         q4 = q.reshape(B, 1, H, Dh)
@@ -636,14 +651,16 @@ class BartEncoderLayer(nn.Module):
                               seeds=seeds, prefix_kv=prefix_kv)
         h = self._hooks(h, residual, "attn", ctx,
                         block.self_attention if block is not None else None)
-        hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
+        hidden_states = self.self_attn_layer_norm(
+            h, residual, _seed(seeds, _per_example(h)))
 
         residual = hidden_states
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function,
                  seeds)
         h = self._hooks(h, residual, "ff", ctx,
                         block.feed_forward if block is not None else None)
-        hidden_states = self.final_layer_norm(h, residual, _seed(seeds))
+        hidden_states = self.final_layer_norm(
+            h, residual, _seed(seeds, _per_example(h)))
         if self.dtype != torch.float32:
             clamp = torch.finfo(self.dtype).max - 1000
             hidden_states = torch.clamp(hidden_states, -clamp, clamp)
@@ -805,7 +822,8 @@ class BartDecoderLayer(nn.Module):
         h, _ = self.self_attn(hidden_states, ctx, seeds=seeds,
                               prefix_kv=prefix_kv)
         h = self._adapt(h, "self_attention", ctx, residual)
-        hidden_states = self.self_attn_layer_norm(h, residual, _seed(seeds))
+        hidden_states = self.self_attn_layer_norm(
+            h, residual, _seed(seeds, _per_example(h)))
 
         if encoder_hidden_states is not None:
             residual = hidden_states
@@ -816,8 +834,8 @@ class BartDecoderLayer(nn.Module):
                 kv_states=self.kv_states(encoder_hidden_states, ctx),
                 seeds=seeds)
             h = self._adapt(h, "cross_attention", ctx, residual)
-            hidden_states = self.encoder_attn_layer_norm(h, residual,
-                                                         _seed(seeds))
+            hidden_states = self.encoder_attn_layer_norm(
+                h, residual, _seed(seeds, _per_example(h)))
             if prompt_len:
                 hidden_states = torch.cat([residual[:, :prompt_len],
                                            hidden_states[:, prompt_len:]], 1)
@@ -826,7 +844,8 @@ class BartDecoderLayer(nn.Module):
         h = _ffn(self, hidden_states, self.cfg.backbone.activation_function,
                  seeds)
         h = self._adapt(h, "feed_forward", ctx, residual)
-        return self.final_layer_norm(h, residual, _seed(seeds))
+        return self.final_layer_norm(h, residual,
+                                     _seed(seeds, _per_example(h)))
 
     def compute_cross_kv(self, encoder_hidden_states: torch.Tensor,
                          ctx: PetContext):
@@ -955,8 +974,10 @@ class JointEncoder(nn.Module):
                 vis_feats, boxes, shared_embedding, img_order_ids,
                 obj_order_ids)
             if sparse:
-                scores = sparse_scores(vis_embeds.shape[:2], sparse_generator,
-                                       h.device)
+                n, base = vis_embeds.shape[0], ctx.example_base
+                scores = sparse_scores(
+                    (ctx.global_batch or n, vis_embeds.shape[1]),
+                    sparse_generator, h.device)[base:base + n]
                 vis_embeds = sparse_sample(vis_embeds, v.n_boxes, scores)
             if v.share_vis_lang_layer_norm:
                 h = self.layernorm_embedding(torch.cat([h, vis_embeds], dim=1))

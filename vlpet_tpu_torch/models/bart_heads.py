@@ -61,14 +61,16 @@ class _TextHead(nn.Module):
     def _decode(self, input_ids, attention_mask, decoder_input_ids, ctx,
                 deterministic: bool, generator):
         """(decoder states, decoder input ids: the input by default)."""
+        ctx = ctx or PetContext()
         seeds = None
         if not deterministic and drops(self.cfg):
             seeds = DropoutSeeds(dropout_sites(self.cfg), generator,
                                  input_ids.device)
+            seeds.example_base = ctx.example_base
         if decoder_input_ids is None:
             decoder_input_ids = input_ids
         dec, _, _ = self.model(input_ids, attention_mask, decoder_input_ids,
-                               ctx=ctx or PetContext(), seeds=seeds)
+                               ctx=ctx, seeds=seeds)
         return dec, decoder_input_ids
 
 

@@ -75,9 +75,9 @@ import torch.nn as nn
 
 from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.bart import (NEG_INF, _seed, compute_dtype,
-                                         expand_mask, prompt_controller,
-                                         write_slot)
+from vlpet_tpu_torch.models.bart import (NEG_INF, _per_example, _seed,
+                                         compute_dtype, expand_mask,
+                                         prompt_controller, write_slot)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (LowRankVisualEmbedding,
@@ -434,7 +434,8 @@ class T5Block(nn.Module):
         """Residual-branch hash dropout (vlpet_tpu/models/t5.py:460)."""
         if seeds is None:
             return y
-        return hash_dropout(y, seeds.next(), self.cfg.backbone.dropout_rate)
+        return hash_dropout(y, seeds.next_for(_per_example(y)),
+                            self.cfg.backbone.dropout_rate)
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
                 mask: Optional[torch.Tensor] = None,
@@ -459,7 +460,7 @@ class T5Block(nn.Module):
         y = self.self_attn(self.self_attn_layer_norm(x), ctx, mask=mask,
                            bias=bias, causal=causal, cache=cache,
                            decode_pos=decode_pos, beam_anc=beam_anc,
-                           rate=rate, seed=_seed(seeds))
+                           rate=rate, seed=_seed(seeds, x.shape[1] ** 2))
         if not self.is_decoder:
             y = self.attn_hooks(y, x, ctx,
                                 block.self_attention if block else None)
@@ -469,17 +470,20 @@ class T5Block(nn.Module):
         if self.is_decoder and (encoder_hidden_states is not None
                                 or cross_kv is not None):
             x = h
+            S = (encoder_hidden_states if encoder_hidden_states is not None
+                 else cross_kv[0]).shape[1]
             y = self.cross_attn(self.cross_attn_layer_norm(x), ctx,
                                 mask=cross_mask, cross_kv=cross_kv,
                                 kv_states=encoder_hidden_states, rate=rate,
-                                seed=_seed(seeds))
+                                seed=_seed(seeds, x.shape[1] * S))
             y = self._adapt(y, "enc_attn_adapter", block, "cross_attention",
                             ctx)
             h = x + self._res_drop(y, seeds)
             if prompt_len:
                 h = torch.cat([x[:, :prompt_len], h[:, prompt_len:]], 1)
         x = h
-        y = self._ff(self.ff_layer_norm(x), rate, _seed(seeds))
+        y = self._ff(self.ff_layer_norm(x), rate,
+                     _seed(seeds, x.shape[1] * self.cfg.backbone.d_ff))
         if not self.is_decoder:
             y = self.ff_hooks(y, x, ctx, block.feed_forward if block else None)
         else:
@@ -571,14 +575,16 @@ class T5JointEncoder(nn.Module):
                 vis_feats, boxes, shared_embedding, img_order_ids,
                 obj_order_ids)
             if sparse:
-                scores = sparse_scores(vis_embeds.shape[:2], sparse_generator,
-                                       h.device)
+                n, base = vis_embeds.shape[0], ctx.example_base
+                scores = sparse_scores(
+                    (ctx.global_batch or n, vis_embeds.shape[1]),
+                    sparse_generator, h.device)[base:base + n]
                 vis_embeds = sparse_sample(vis_embeds, v.n_boxes, scores)
             h = torch.cat([h, vis_embeds], dim=1)
             mask = joint_attention_mask(attention_mask, vis_embeds.shape[1],
                                         vis_attention_mask)
         if seeds is not None:
-            h = hash_dropout(h, seeds.next(), rate)
+            h = hash_dropout(h, seeds.next_for(_per_example(h)), rate)
         # the (B, 1, 1, S) padding mask stays apart from the (1, H, S, S)
         # bias: text-text pairs get the T5 bias, pairs with a visual token 0
         pad_mask = expand_mask(mask, 1, dt).float()
@@ -596,7 +602,7 @@ class T5JointEncoder(nn.Module):
                     seeds=seeds)
         h = self.final_layer_norm(h)
         if seeds is not None:
-            h = hash_dropout(h, seeds.next(), rate)
+            h = hash_dropout(h, seeds.next_for(_per_example(h)), rate)
         return h, mask
 
 
@@ -691,7 +697,7 @@ class T5Decoder(nn.Module):
             P = prompt.shape[1]
             h = torch.cat([prompt, h], dim=1)
         if seeds is not None:
-            h = hash_dropout(h, seeds.next(), rate)
+            h = hash_dropout(h, seeds.next_for(_per_example(h)), rate)
         blocks = self.blocks()
         T = h.shape[1]
         bias = blocks[0].self_attn.compute_bias(T, T).float()
@@ -702,7 +708,7 @@ class T5Decoder(nn.Module):
                     cross_mask=cross_mask, seeds=seeds, prompt_len=P)
         h = self.final_layer_norm(h[:, P:] if P else h)
         if seeds is not None:
-            h = hash_dropout(h, seeds.next(), rate)
+            h = hash_dropout(h, seeds.next_for(_per_example(h)), rate)
         return h
 
     def compute_cross_kvs(self, encoder_hidden_states: torch.Tensor,
@@ -980,11 +986,12 @@ class VLT5(nn.Module):
         pass; a training one (``deterministic`` False) draws the step's
         dropout seeds, then ``vis.sparse_sample``'s scores, from
         ``generator``."""
+        ctx = self._ctx(ctx)
         seeds = None
         if not deterministic and self.cfg.backbone.dropout_rate > 0:
             seeds = DropoutSeeds(self.dropout_sites(), generator,
                                  input_ids.device)
-        ctx = self._ctx(ctx)
+            seeds.example_base = ctx.example_base
         task_embedding = self.model.task_embedding(ctx)
         enc, joint_mask = self.model.encoder(
             input_ids, attention_mask, self.model.shared,

@@ -66,7 +66,9 @@ def downsample_vis(vis_inputs: tuple, n_boxes: int, oned: bool = False) -> tuple
 def sparse_scores(shape, generator: Optional[torch.Generator],
                   device) -> torch.Tensor:
     """The (B, L) uniform scores of ``sparse_sample``, drawn from the
-    training step's generator."""
+    training step's generator. A data-parallel rank draws them for the
+    global batch and keeps its own rows (``PetContext.example_base``,
+    ``global_batch``), as one process on the whole batch draws them."""
     return torch.rand(tuple(shape), generator=generator,
                       device=generator.device if generator is not None
                       else device).to(device)

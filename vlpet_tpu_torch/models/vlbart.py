@@ -420,6 +420,7 @@ class VLBart(nn.Module):
         if not deterministic and drops(self.cfg):
             seeds = DropoutSeeds(self.dropout_sites(), generator,
                                  input_ids.device)
+            seeds.example_base = ctx.example_base
         dec, enc, joint_mask = self.model(
             input_ids, attention_mask, decoder_input_ids, vis_feats, boxes,
             img_order_ids, obj_order_ids, vis_attention_mask, ctx, seeds,

@@ -15,6 +15,14 @@ same function in native uint32.
 ``head_seed`` is vlpet_tpu/ops/attention.py:50 (the per-head seed of the
 attention kernels' dropout); ``attention_keep_mask`` is the probability
 mask of the attention kernels (vlpet_tpu/ops/attention.py:1001-1006).
+
+``fold_seed`` moves a site's mask along its flat index: the hash takes
+``idx * 2654435761 + seed`` mod 2**32, so ``o`` elements on the index are
+``o * 2654435761`` on the seed. A data-parallel rank whose examples start
+at ``example_base`` of the global batch folds ``example_base`` times the
+site's elements per example into each seed (``DropoutSeeds.next_for``) and
+draws, with unchanged kernels, the masks one process draws on the whole
+batch.
 """
 
 from __future__ import annotations
@@ -103,6 +111,19 @@ def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
     return torch.where(keep, x * scale, torch.zeros_like(x))
 
 
+def fold_seed(seed: torch.Tensor, offset: int) -> torch.Tensor:
+    """The (1,) int32 seed whose mask at flat index i is ``seed``'s at
+    i + ``offset`` (``keep_mask(shape, 0, fold_seed(s, r0 * D))`` equals
+    ``keep_mask(shape, r0, s)`` over (N, D)); the seed itself at offset 0,
+    with no launch. The uint32 result is kept as its int32 bit pattern, as
+    the kernels and ``_seed_u32`` read it."""
+    shift = (int(offset) * 2654435761) & _M32
+    if shift == 0:
+        return seed
+    v = (seed.to(torch.int64) + shift) & _M32
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
 def head_seed(seed, h: int) -> torch.Tensor:
     """Per-head seed of the attention dropout: (seed + h * 0x9E3779B9) mod
     2**32, as an int64 tensor holding the uint32."""
@@ -130,7 +151,13 @@ class DropoutSeeds:
     [0, 2**31 - 1) drawn from ``generator`` in ONE call, handed out in
     call order as (1,) views by ``next()`` (a kernel reads its seed by
     pointer, so no site syncs with the host). The model consumes them in a
-    fixed site order (``VLBart.dropout_sites``, ``VLT5.dropout_sites``)."""
+    fixed site order (``VLBart.dropout_sites``, ``VLT5.dropout_sites``).
+    ``example_base``: the first example of this process's batch within
+    the global batch of a data-parallel step (0 in one process; the model
+    sets it from ``PetContext.example_base``); every rank draws the same
+    seeds, and ``next_for`` folds them to its examples."""
+
+    example_base = 0
 
     def __init__(self, n: int, generator: Optional[torch.Generator],
                  device):
@@ -139,16 +166,26 @@ class DropoutSeeds:
         self.used = 0
 
     @classmethod
-    def of(cls, seeds: torch.Tensor) -> "DropoutSeeds":
+    def of(cls, seeds: torch.Tensor, example_base: int = 0
+           ) -> "DropoutSeeds":
         """The seeds of ``seeds`` (an int32 tensor) handed out from the
         first: a layer's own sites, replayed from the start by each call
         (a recomputed layer takes the seeds of its first run)."""
         out = cls.__new__(cls)
         out.seeds, out.used = seeds, 0
+        out.example_base = example_base
         return out
 
     def next(self) -> torch.Tensor:
         return self.take(1)
+
+    def next_for(self, per_example: int) -> torch.Tensor:
+        """``next()`` folded (``fold_seed``) by ``example_base`` times
+        ``per_example``, the elements one example owns in the site's mask
+        (L * D of a (B, L, D) activation, L * S of an attention's
+        probabilities, L * F of an FFN's hidden): every dropout site of
+        the models takes its seed here."""
+        return fold_seed(self.next(), self.example_base * per_example)
 
     def take(self, n: int) -> torch.Tensor:
         """The next ``n`` seeds as one (n,) view (``next()`` is n = 1)."""

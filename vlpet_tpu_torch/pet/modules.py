@@ -90,7 +90,11 @@ class PetContext:
     pair), which ``VLBart`` injects; and ``block_adapters``, the current
     layer's hypernet-generated adapter weights (pet/hypernet.py); ``zs``,
     where a list, collects the bottleneck activations of the adapters
-    whose spec has ``track_z``, in call order."""
+    whose spec has ``track_z``, in call order. ``example_base`` and
+    ``global_batch`` place a data-parallel rank's batch in the step's
+    global batch (its first example, the global row count; 0 and None in
+    one process): the dropout seeds fold by them (``DropoutSeeds``) and
+    ``vis.sparse_sample`` draws the global scores (``sparse_scores``)."""
 
     task: str = "default"
     task_idx: int = 0
@@ -98,6 +102,8 @@ class PetContext:
     phm_W: Any = None
     block_adapters: Any = None
     zs: Optional[List[torch.Tensor]] = None
+    example_base: int = 0
+    global_batch: Optional[int] = None
 
     def for_layer(self, block_adapters) -> "PetContext":
         return dataclasses.replace(self, block_adapters=block_adapters)

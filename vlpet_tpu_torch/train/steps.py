@@ -13,6 +13,20 @@ int32 seed per dropout site per step, in one call, in the fixed order of
 package derives its seeds by splitting a flax PRNG key; the port does not
 reproduce that split, so the two take the same masks only when the
 seeds are handed to both (the op-level tests do so).
+
+Data parallelism (one process per card, parallel/multihost.py): where a
+process group is up, each rank takes its contiguous share of the global
+batch, every rank's share of the same size (the train Loaders' drop_last
+shards give it), and the step equals one process on the concatenation
+of the ranks' batches. Each rank's loss is its numerator over the
+global denominator: the caption loss's token sum over the global count
+of valid tokens (one small all-reduce, started before the forward), every
+other term its own mean over the world size; the dropout seeds fold to
+the rank's examples (``PetContext.example_base``). The trainable
+gradients and the loss go into one fp32 bucket, summed by one
+all-reduce a step on the device; then the clip by the global norm and the
+update run on every rank alike, as in one process. (DDP's reducer hooks
+``.backward()``; this step takes ``torch.autograd.grad``.)
 """
 
 from __future__ import annotations
@@ -20,9 +34,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from vlpet_tpu_torch.device import Device, resolve_device
-from vlpet_tpu_torch.models.heads import classifier_bce_loss, task_loss
+from vlpet_tpu_torch.models.heads import (TASK_LOSSES, classifier_bce_loss,
+                                          task_loss)
+from vlpet_tpu_torch.parallel.multihost import host_shard
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.optim import HFAdamW, global_norm
 
@@ -70,6 +87,20 @@ def z_penalty(zs: Sequence[torch.Tensor]) -> torch.Tensor:
     return sum(z.float().square().mean() for z in zs) / len(zs)
 
 
+def all_reduce_grads(grads, loss: torch.Tensor):
+    """(summed gradients, summed loss) over the process group: the
+    gradients (fp32 views of one bucket) and the loss in one all-reduce
+    on the device."""
+    bucket = torch.cat([g.float().reshape(-1) for g in grads]
+                       + [loss.detach().float().reshape(1)])
+    dist.all_reduce(bucket)
+    out, off = [], 0
+    for g in grads:
+        out.append(bucket[off:off + g.numel()].view(g.shape))
+        off += g.numel()
+    return out, bucket[-1]
+
+
 def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                     lambda_z: float = 0.0, device: Device = "cuda",
                     accumulation_steps: int = 1) -> Callable:
@@ -95,30 +126,49 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
     adapter-activation L2 regularizer (vlpet_tpu/train/steps.py:79-98):
     lambda_z times the mean over the adapters that record their z
     (``track_z``, ``PetContext.zs``) of mean(z^2), in fp32; a model with
-    no such adapter adds nothing."""
+    no such adapter adds nothing. Under a process group (the module
+    docstring) "loss" and "grad_norm" are the global batch's, the same on
+    every rank, as the JAX step reports them under a mesh."""
     dev = resolve_device(device)
     bad = {p.device.type for p in model.parameters()} - {dev.type}
     if bad:
         raise ValueError(f"model parameters on {sorted(bad)}, step on "
                          f"{dev.type}")
     params = optimizer.params
+    parallel = dist.is_available() and dist.is_initialized()
+    rank, world = host_shard()
+
+    def share(x: torch.Tensor) -> torch.Tensor:
+        """A mean over this rank's equal share as its part of the global
+        mean."""
+        return x / world if world > 1 else x
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator],
                    task_idx: int) -> Dict[str, torch.Tensor]:
         task = tasks[task_idx]
+        b = batch["input_ids"].shape[0]
         ctx = PetContext(task=task, task_idx=task_idx,
-                         zs=[] if lambda_z > 0 else None)
+                         zs=[] if lambda_z > 0 else None,
+                         example_base=rank * b,
+                         global_batch=world * b if world > 1 else None)
+        classify = (batch.get("target") is not None
+                    and hasattr(model, "classify"))
+        valid = None  # the global count of valid caption tokens
+        if (parallel and not classify
+                and TASK_LOSSES.get(task, "qa") == "caption"):
+            valid = (batch["target_ids"] != -100).sum().float()
+            pending = dist.all_reduce(valid, async_op=True)
         # the raw-image model (no ``classify``) takes the LM loss whatever
         # the batch carries, as the JAX raw step does
-        if batch.get("target") is not None and hasattr(model, "classify"):
+        if classify:
             logits = model.classify(
                 batch["input_ids"], batch["attention_mask"],
                 batch.get("vis_feats"), batch.get("boxes"),
                 img_order_ids=batch.get("img_order_ids"),
                 obj_order_ids=batch.get("obj_order_ids"), ctx=ctx,
                 deterministic=False, generator=generator)
-            loss = classifier_bce_loss(logits, batch["target"])
+            loss = share(classifier_bce_loss(logits, batch["target"]))
         else:
             out = model(batch["input_ids"], batch["attention_mask"],
                         batch.get("vis_feats"), batch.get("boxes"),
@@ -127,15 +177,21 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                         img_order_ids=batch.get("img_order_ids"),
                         obj_order_ids=batch.get("obj_order_ids"),
                         vis_attention_mask=batch.get("vis_attention_mask"))
-            loss = task_loss(task, out["loss"], batch["target_ids"],
-                             batch.get("scores"))
+            if valid is not None:
+                pending.wait()
+                loss = out["loss"].sum() / valid.clamp(min=1.0)
+            else:
+                loss = share(task_loss(task, out["loss"], batch["target_ids"],
+                                       batch.get("scores")))
             if ctx.zs:
-                loss = loss + lambda_z * z_penalty(ctx.zs)
+                loss = loss + lambda_z * share(z_penalty(ctx.zs))
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         # a trainable parameter the task does not reach gets a zero
         # gradient, as jax.grad gives it
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
+        if parallel:
+            grads, loss = all_reduce_grads(grads, loss)
         if accumulator is None:
             grad_norm = optimizer.step(grads)
         else:

@@ -19,8 +19,15 @@ dict, raw mode only), then ``backbone_ckpt`` (an HF BART / T5 state dict),
 then the recipe's re-inits, then ``load``. Under ``cfg.classifier`` the
 vqa batches carry ``target`` (the answer scores): the step trains the
 answer head on the BCE and ``evaluate`` answers by ``predict_classifier``.
-Not ported, and raising NotImplementedError: ``mesh_model_axis`` > 1 and
-multi-process runs.
+
+Under a process group (parallel/multihost.py: one process per card) the
+step sums the ranks' gradients (train/steps.py) and the Trainer keeps the
+ranks in step: every rank restores the checkpoint, rank 0 alone logs and
+writes the checkpoints and LAST.npz (a barrier after each write), each
+epoch's task order is checked equal on every rank, and the predictions
+of the ranks' eval shards are merged (``all_gather_objects``), so every
+rank scores the whole split. Not ported, and raising
+NotImplementedError: ``mesh_model_axis`` > 1 (tensor parallelism).
 """
 
 from __future__ import annotations
@@ -39,6 +46,9 @@ from vlpet_tpu_torch.device import Device, deterministic_kernels, resolve_device
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
+from vlpet_tpu_torch.parallel.multihost import (all_gather_objects, barrier,
+                                                host_shard,
+                                                merge_predict_results)
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.checkpoint import (CheckpointManager,
                                               load_params_npz,
@@ -67,6 +77,28 @@ def data_rng_state(loader) -> Dict[str, Any]:
     return {ld.task: ld.dataset.rng.bit_generator.state
             for ld in _task_loaders(loader)
             if hasattr(getattr(ld, "dataset", None), "rng")}
+
+
+def check_task_order(epoch_tasks: List[str]) -> None:
+    """Raise unless every rank's epoch holds the same task order: a
+    mismatch would sum one task's gradients into another's. The order
+    depends only on the epoch and the per-task batch counts, which the
+    shards share (data/multitask.py); one gather of its digest an
+    epoch."""
+    digest = hashlib.sha256("\n".join(epoch_tasks).encode()).hexdigest()
+    digests = all_gather_objects(digest)
+    if len(set(digests)) > 1:
+        raise RuntimeError(f"the ranks' epochs differ in task order "
+                           f"(digests by rank: {digests})")
+
+
+def merged_dict(part: Dict) -> Dict:
+    """The union of every rank's ``part`` (their eval shards are
+    disjoint); ``part``'s items in one process."""
+    merged: Dict = {}
+    for p in all_gather_objects(part):
+        merged.update(p)
+    return merged
 
 
 def array_batch(batch: Dict[str, Any], device: torch.device
@@ -107,16 +139,20 @@ class Trainer:
                  vis_pooling_output: bool = False,
                  clip_ckpt: Optional[str] = None, device: Device = "cuda"):
         if mesh_model_axis > 1:
-            raise NotImplementedError("tensor parallelism (mesh_model_axis "
-                                      "> 1) is not ported")
+            raise NotImplementedError(
+                "tensor parallelism (mesh_model_axis > 1) is not ported: it "
+                "is the next slice after data parallelism (ROADMAP.md)")
         self.cfg = cfg
         self.tasks = tuple(tasks)
         self.tokenizer = tokenizer
         self.output_dir = output_dir
-        self.verbose = verbose
+        self.rank, self.world = host_shard()
+        self.lead = self.rank == 0  # the rank that logs and writes
+        self.verbose = verbose = verbose and self.lead
         self.device = dev = resolve_device(device)
         deterministic_kernels()
-        self.logger = MetricsLogger(output_dir, use_wandb=use_wandb,
+        self.logger = MetricsLogger(output_dir if self.lead else None,
+                                    use_wandb=use_wandb and self.lead,
                                     verbose=verbose)
 
         # --- params: seeded init (with the recipe's re-inits), the CLIP
@@ -221,7 +257,9 @@ class Trainer:
         the epochs and batches it already took are skipped, and the
         datasets' sampling RNGs take the states saved with the step. Each epoch's
         record also holds its host-clocked train seconds and steps and each
-        task's eval seconds."""
+        task's eval seconds. Under a process group every rank runs it on
+        its own train shard; the examples counted are the global
+        batch's."""
         history = {}
         step = self.step
         per_epoch = max(1, len(train_loader))
@@ -232,6 +270,8 @@ class Trainer:
             self._data_rng = None
         for epoch in range(step // per_epoch, epochs):
             train_loader.set_epoch(epoch)
+            if self.world > 1 and hasattr(train_loader, "epoch_tasks"):
+                check_task_order(train_loader.epoch_tasks)
             skip = step - epoch * per_epoch
             meter = LossMeter()
             t0 = time.time()
@@ -243,7 +283,7 @@ class Trainer:
                     continue
                 metrics = self.do_train_step(batch)
                 pending.append(metrics["loss"])
-                n_examples += len(batch["input_ids"])
+                n_examples += len(batch["input_ids"]) * self.world
                 n_steps += 1
                 step += 1
                 if step % log_every == 0:
@@ -280,16 +320,20 @@ class Trainer:
         if self.ckpt:
             self.save(step, train_loader)
         if self.output_dir:
-            save_params_npz(self.named_weights(),
-                            os.path.join(self.output_dir, "LAST.npz"),
-                            heads=attention_heads(self.model))
+            if self.lead:
+                save_params_npz(self.named_weights(),
+                                os.path.join(self.output_dir, "LAST.npz"),
+                                heads=attention_heads(self.model))
+            barrier()
         return history
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def predict(self, loader, num_beams: int = 1, max_length: int = 20
                 ) -> Dict[str, Any]:
-        """Generate predictions for a loader; returns quesid2ans (+raw)."""
+        """Generate predictions for a loader; returns quesid2ans (+raw).
+        Under a process group the loader is the rank's eval shard and the
+        ranks' results are merged (``merge_predict_results``)."""
         quesid2ans: Dict[Any, str] = {}
         predictions: List[str] = []
         targets: List = []
@@ -311,13 +355,23 @@ class Trainer:
             predictions.extend(texts)
             if "targets" in batch:
                 targets.extend(batch["targets"])
-            qids = batch.get("question_ids",
-                             range(offset, offset + len(texts)))
+            qids = batch.get("question_ids", self._fallback_ids(offset,
+                                                                len(texts)))
             offset += len(texts)
             for qid, text in zip(qids, texts):
                 quesid2ans[qid] = text.strip()
-        return {"quesid2ans": quesid2ans, "predictions": predictions,
-                "targets": targets}
+        res = {"quesid2ans": quesid2ans, "predictions": predictions,
+               "targets": targets}
+        if self.world > 1:
+            res = merge_predict_results(all_gather_objects(res))
+        return res
+
+    def _fallback_ids(self, offset: int, n: int) -> range:
+        """Ids of a batch without question ids: the examples' positions in
+        the unshuffled split, which a rank's strided shard (Loader: every
+        world-th example from its rank) gives as rank + i * world."""
+        return range(self.rank + offset * self.world,
+                     self.rank + (offset + n) * self.world, self.world)
 
     @torch.no_grad()
     def predict_classifier(self, loader, label2ans) -> Dict[str, Any]:
@@ -336,11 +390,11 @@ class Trainer:
                 obj_order_ids=arr.get("obj_order_ids"), ctx=ctx)
             ids = logits.argmax(-1).tolist()
             qids = batch.get("question_ids",
-                             range(offset, offset + len(ids)))
+                             self._fallback_ids(offset, len(ids)))
             offset += len(ids)
             for qid, i in zip(qids, ids):
                 quesid2ans[qid] = label2ans[int(i)]
-        return {"quesid2ans": quesid2ans}
+        return {"quesid2ans": merged_dict(quesid2ans)}
 
     def fixed_step_logits(self, batch: Dict[str, Any], task: str
                           ) -> torch.Tensor:
@@ -374,7 +428,7 @@ class Trainer:
             preds = (step[:, self.true_id] > step[:, self.false_id]).tolist()
             for qid, p in zip(batch["question_ids"], preds):
                 out[qid] = int(p)
-        return out
+        return merged_dict(out)
 
     def evaluate(self, loader, num_beams: Optional[int] = None,
                  max_length: Optional[int] = None) -> Dict[str, float]:
@@ -450,17 +504,27 @@ class Trainer:
 
     def save(self, step: int, train_loader=None):
         """Checkpoint ``state()`` at ``step``; with the train loader (at an
-        epoch's end) also its datasets' sampling RNG states."""
+        epoch's end) also its datasets' sampling RNG states, one dict a
+        rank (``data_rng``, in rank order). Under a process group every
+        rank calls it: the train state is the same on all, rank 0 writes
+        it, and the others wait for the write."""
         if self.ckpt:
-            state = self.state()
-            if train_loader is not None:
-                state["data_rng"] = data_rng_state(train_loader)
-            self.ckpt.save(step, state)
+            rngs = (all_gather_objects(data_rng_state(train_loader))
+                    if train_loader is not None else None)
+            if self.lead:
+                state = self.state()
+                if rngs is not None:
+                    state["data_rng"] = rngs
+                self.ckpt.save(step, state)
+            barrier()
 
     @torch.no_grad()
     def restore(self) -> Optional[int]:
         """Load the newest checkpoint in place; returns its step, or None
-        when there is none."""
+        when there is none. Every rank loads it, at any world size; the
+        datasets' sampling RNGs take this rank's saved states where the
+        checkpoint was written at this world size, else they start afresh
+        (rank 0 says so)."""
         if not self.ckpt:
             return None
         data = self.ckpt.restore(map_location=self.device)
@@ -474,7 +538,16 @@ class Trainer:
             acc.load_state_dict(data["accumulator"])
         self.generator.set_state(data["generator"].cpu())
         self.step = int(data["step"])
-        self._data_rng = data.get("data_rng")
+        rngs = data.get("data_rng")
+        if isinstance(rngs, dict):  # one process's, as written before ranks
+            rngs = [rngs]
+        self._data_rng = None
+        if rngs is not None and len(rngs) == self.world:
+            self._data_rng = rngs[self.rank]
+        elif rngs is not None and self.lead:
+            print(f"checkpoint written by {len(rngs)} processes, restored by "
+                  f"{self.world}: the train state is kept; the datasets' "
+                  f"sampling draws start afresh")
         return self.step
 
 
@@ -486,7 +559,8 @@ def predict_matching(trainer: Trainer, loader, task: str = "tvqa"
     row the true logit minus the false logit of
     ``Trainer.fixed_step_logits``, grouped by question. Row ids are
     "<question id>/<candidate>" (``data.video.expand_matching_examples``).
-    Returns {group_id: {candidate: true_score}}."""
+    Returns {group_id: {candidate: true_score}}, merged over the ranks'
+    eval shards under a process group."""
     if trainer.true_id is None:
         trainer.true_id = trainer.tokenizer(
             "true", add_special_tokens=False).input_ids[0]
@@ -500,4 +574,10 @@ def predict_matching(trainer: Trainer, loader, task: str = "tvqa"
         for qid, sc in zip(batch["question_ids"], scores):
             gid, cand = str(qid).rsplit("/", 1)
             groups.setdefault(gid, {})[cand] = float(sc)
+    if trainer.world > 1:  # a group's candidates may lie on several ranks
+        merged: Dict[str, Dict[str, float]] = {}
+        for part in all_gather_objects(groups):
+            for gid, cands in part.items():
+                merged.setdefault(gid, {}).update(cands)
+        groups = merged
     return groups
