@@ -54,7 +54,11 @@ extractor + CLI on features with --backbone_ckpt (resume) and the raw
 CLI with --clip_ckpt, 8e the CLI with --classifier (VL-PET-large.sh,
 one epoch, resume), in child processes of ROOT's chip_smoke; 9 the
 data-parallel ranks on the one card (world 1 over NCCL, world 2 over
-gloo: train steps against one process, the merged beam-5 tokens).
+gloo: train steps against one process, the merged beam-5 tokens); 10 the
+tensor-parallel ranks ((1, 2) and (1, 4) meshes over gloo: F1-F4 at a
+column base against their twins, train steps, tokens and launches
+against one process); 9+10 both, their ranks spawned at once, as the
+smoke runs them.
 ``--profile`` adds each bench run's device time and launches by kernel
 family, read for every tree by this tree's
 chip_smoke.profile_run. After each phase the card's peak allocated
@@ -72,7 +76,7 @@ import time
 from pathlib import Path
 
 # phase -> (chip_smoke function, what it takes: the report "rep", the
-# card's name "card", or nothing)
+# card's name "card", both ("rep card"), or nothing)
 PHASES = {"3": ("phase_kernels", "rep"),
           "3b": ("phase_train_kernels", "rep"),
           "3d": ("phase_t5_kernels", "rep"),
@@ -116,7 +120,9 @@ PHASES = {"3": ("phase_kernels", "rep"),
           "8c": ("phase_cli_video", "card"),
           "8d": ("phase_cli_raw", "card"),
           "8e": ("phase_cli_classifier", "card"),
-          "9": ("phase_data_parallel", "card")}
+          "9": ("phase_data_parallel", "card"),
+          "10": ("phase_tensor_parallel", "rep card"),
+          "9+10": ("phase_parallel", "rep card")}
 HERE = Path(__file__).resolve().parent
 
 
@@ -169,8 +175,8 @@ def main(argv) -> int:
             print(f"phase {p} of {root.name}", flush=True)
         rep = reports.setdefault(smoke.__name__, smoke.Report())
         torch.cuda.reset_peak_memory_stats()
-        getattr(smoke, name)(*{"card": (card,), "rep": (rep,)}.get(takes,
-                                                                   ()))
+        getattr(smoke, name)(*{"card": (card,), "rep": (rep,),
+                               "rep card": (rep, card)}.get(takes, ()))
         print(f"phase {p} of {root.name}: peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)

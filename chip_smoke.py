@@ -256,8 +256,8 @@ nonzero and no result line is printed):
   8. (run last) the image-text CLI, ``python -m vlpet_tpu_torch.cli.multitask``
      in a child process (``chip_smoke.py --cli-child``), with the flags of
      scripts/image-text/VL-PET-small.sh plus --bf16: batch 500 (valid
-     500), the four tasks, beam 5, 1000 synthetic examples a task, 10
-     epochs (110 optimizer steps), each epoch followed by the eval of all
+     500), the four tasks, beam 5, 1000 synthetic examples a task, one
+     epoch (11 optimizer steps), each epoch followed by the eval of all
      four tasks; then a second child with --resume restores the saved
      state (its digest bit for bit the first run's) and trains one epoch
      more. Every kernel of the path (A1, A6, F1, F2, L1, L2, D1, T1/T2,
@@ -266,7 +266,7 @@ nonzero and no result line is printed):
      ms/step and examples/s), each task's eval and the resume;
   8b. (after 8) the same CLI with the flags of
      scripts/image-text/single_prompt.sh plus --bf16: B 500, the four
-     tasks, 1000 synthetic examples a task, 2 epochs, each evaluated
+     tasks, 1000 synthetic examples a task, one epoch, evaluated
      (the cli_single_prompt main-path run: A6 on "fma" and the long
      backward, at nlvr's L = S = 142, must launch); data build, ms/step
      and each task's eval seconds.
@@ -428,8 +428,34 @@ nonzero and no result line is printed):
      identical to one process's B 8. Each rank's launches a step equal
      one process's (A1 18, A6 17, F1 12, F2 12, L1 30, L2 29). Two ranks
      sharing one card time nothing about multi-card speed.
+  10. tensor parallelism on the one card (``phase_tensor_parallel``):
+     the ranks of a (data, model) mesh spawned on cuda:0 over gloo, each
+     holding its heads and FFN hidden columns (parallel/mesh.py
+     shard_model). (a) (1, 2): the bf16 B 500 vqa step of the full-width
+     flagship, the loss within BF16_STEP_RTOL of one process's (the
+     tp_train run); (b) (1, 2), fp32 B 16 at every dropout 0.1, 2+2
+     layers at full width, 3 steps each from the one-process state by
+     phase 6c's rule, BART and gated T5 (F3 / F4 at the column base: the
+     tp_t5_gated_train run); (c) (1, 4), fp32 B 16, 2+2 layers (3 heads
+     and 768 hidden columns a rank), one step by the same rule; (d)
+     (1, 2), fp32 beam 5 with use_fused_beam and greedy, B 4 on both
+     ranks, 2+2 layers at full width: tokens identical to one process's
+     (tp_decode); (e) in this process, first and alone on the card (it
+     times), F1 / F2 (gelu, biases) and F3 / F4 (gelu_new) at a column
+     base, bf16, N 28000, D 768, rate 0.1: F1 / F2 at Fh 1536 and 768 of
+     3072 (and F1 at the beam rows N 2500), F3 / F4 at Fh 1024 and 512 of
+     the gated T5's 2048, against their plain twins, twice bitwise, the
+     masks bit for bit (picking weights), the Fh 1536 / 1024 cases timed
+     with their bound (the "+colbase" modes); (f) each rank's launches a
+     step equal one process's: (a)'s A1, A6, F1, F2, L1, L2 and a bf16
+     video step at S 604, B 50, 2+2 layers, the long backward's
+     (tp_video_train). (a)+(b), (d)+(f) and (c) are three process groups
+     spawned together, and together with phase 9's two worlds
+     (``phase_parallel``; each phase alone: ``phase_data_parallel``,
+     ``phase_tensor_parallel``). Nothing here times tensor-parallel
+     speed.
 Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
-8d and 8e prints its seconds; 9 prints its own.
+8d and 8e prints its seconds; 9 and 10 print their own.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
@@ -497,6 +523,7 @@ from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.ops import (_build, attention, cache_update, decode, ffn,
                                  fused_ce, fused_ln, plain_twins, topk)
 from vlpet_tpu_torch.ops.hashdrop import keep_mask
+from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh, shard_model
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.freezing import apply_freezing
 from vlpet_tpu_torch.train.optim import build_optimizer
@@ -640,6 +667,10 @@ TAIL_TRAIN = ("tail_vlpet_large", "tail_cls", TAIL_DROP, "tail_remat_full",
               "tail_remat_dots")
 TAIL_T5_TRAIN = ("tail_t5_vlpet_large", "tail_t5_cls")
 TAIL_ALL = TAIL_TRAIN + (CLI_CLS,)
+# tensor parallelism (phase 10): rank 0's runs at (1, 2) -- (a)'s bf16
+# step, (b)'s gated T5 step, (f)'s video step and (d)'s fused beam-5
+TP_TRAIN, TP_T5, TP_VIDEO, TP_DECODE = ("tp_train", "tp_t5_gated_train",
+                                        "tp_video_train", "tp_decode")
 KERNELS = {
     "fused_attention": ("vlpet_tpu_torch/csrc/attention.cu",
                         "vlpet_tpu/ops/attention.py:408",
@@ -647,18 +678,20 @@ KERNELS = {
                                                CLI) + PET_TRAIN + PET_EVAL
                         + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL
                         + ABL_TRAIN + ABL_EVAL + PF_TRAIN + PF_EVAL
-                        + TAIL_ALL),
+                        + TAIL_ALL + (TP_TRAIN, TP_VIDEO, TP_DECODE)),
     "fused_attention_bwd": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
                             "vlpet_tpu/ops/attention.py:1082",
                             TRAIN + (T5V_TRAIN, FULL_FT, CLI) + PET_TRAIN
                             + (CLI_PROMPT,) + VS_TRAIN
                             + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN
-                            + ABL_TRAIN + PF_TRAIN + TAIL_ALL),
+                            + ABL_TRAIN + PF_TRAIN + TAIL_ALL
+                            + (TP_TRAIN, TP_VIDEO)),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
                                  ("video_train", T5V_TRAIN, CLI_PROMPT)
-                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)),
+                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT,
+                                               TP_VIDEO)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
@@ -674,13 +707,14 @@ KERNELS = {
                              "vlpet_tpu/ops/fused_ln.py:251",
                              TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                              + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
-                             + RAW_TRAIN + ABL_TRAIN + PF_TRAIN + TAIL_ALL),
+                             + RAW_TRAIN + ABL_TRAIN + PF_TRAIN + TAIL_ALL
+                             + (TP_TRAIN, TP_VIDEO)),
     "fused_dropout_add_ln_bwd": ("vlpet_tpu_torch/csrc/fused_ln.cu",
                                  "vlpet_tpu/ops/fused_ln.py:270",
                                  TRAIN + (CLI,) + PET_TRAIN + (CLI_PROMPT,)
                                  + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT)
                                  + RAW_TRAIN + ABL_TRAIN + PF_TRAIN
-                                 + TAIL_ALL),
+                                 + TAIL_ALL + (TP_TRAIN, TP_VIDEO)),
     "beam_decode_attend": ("vlpet_tpu_torch/csrc/beam_attend.cu",
                            "vlpet_tpu/ops/decode.py:174",
                            DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL
@@ -689,7 +723,7 @@ KERNELS = {
     "topk_lse": ("vlpet_tpu_torch/csrc/topk.cu", "vlpet_tpu/ops/topk.py:159",
                  DECODE + T5 + (T5V_EVAL, CLI) + PET_EVAL + (CLI_PROMPT,)
                  + VS_EVAL_CLI + (RAW_EVAL, CLI_FEATURES, CLI_RAW)
-                 + ABL_EVAL + PF_EVAL),
+                 + ABL_EVAL + PF_EVAL + (TP_DECODE,)),
     "fused_gated_ffn": ("vlpet_tpu_torch/csrc/ffn.cu",
                         "vlpet_tpu/ops/ffn.py:334", ("t5_gated_eval",)),
     "fused_gated_ffn_bwd": ("vlpet_tpu_torch/csrc/ffn.cu",
@@ -698,11 +732,11 @@ KERNELS = {
                                        "vlpet_tpu/ops/attention.py:408",
                                        T5_TRAIN + (T5V_TRAIN, FULL_FT)
                                        + ABL_T5_TRAIN + PF_T5_TRAIN
-                                       + TAIL_T5_TRAIN),
+                                       + TAIL_T5_TRAIN + (TP_T5,)),
     "fused_attention_bwd +bias +dropout": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", T5_TRAIN + (T5V_TRAIN, FULL_FT)
-        + ABL_T5_TRAIN + PF_T5_TRAIN + TAIL_T5_TRAIN),
+        + ABL_T5_TRAIN + PF_T5_TRAIN + TAIL_T5_TRAIN + (TP_T5,)),
     "fused_attention_bwd +dbias": (
         "vlpet_tpu_torch/csrc/attention_bwd.cu",
         "vlpet_tpu/ops/attention.py:1082", (FULL_FT, BITFIT, T5V_BITFIT)
@@ -747,7 +781,20 @@ KERNELS = {
     "fused_linear_ce_bwd": ("vlpet_tpu_torch/csrc/fused_ce.cu",
                             "vlpet_tpu/ops/fused_ce.py:147", FUSED_CE),
     "beam_decode_attend_update": ("vlpet_tpu_torch/csrc/beam_attend.cu",
-                                  "vlpet_tpu/ops/decode.py:249", FUSED_BEAM),
+                                  "vlpet_tpu/ops/decode.py:249",
+                                  FUSED_BEAM + (TP_DECODE,)),
+    # the FFN kernels at a tensor-parallel rank's column base (phase 10 (e)
+    # times them; every FFN of a split model launches in this mode)
+    "fused_ffn +colbase": ("vlpet_tpu_torch/csrc/ffn.cu",
+                           "vlpet_tpu/ops/ffn.py:240",
+                           (TP_TRAIN, TP_VIDEO, TP_DECODE)),
+    "fused_ffn_bwd +colbase": ("vlpet_tpu_torch/csrc/ffn.cu",
+                               "vlpet_tpu/ops/ffn.py:195",
+                               (TP_TRAIN, TP_VIDEO)),
+    "fused_gated_ffn +colbase": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                 "vlpet_tpu/ops/ffn.py:334", (TP_T5,)),
+    "fused_gated_ffn_bwd +colbase": ("vlpet_tpu_torch/csrc/ffn.cu",
+                                     "vlpet_tpu/ops/ffn.py:354", (TP_T5,)),
     "cache_slot_update": ("vlpet_tpu_torch/csrc/cache_update.cu",
                           "vlpet_tpu/ops/cache_update.py:31",
                           DECODE + T5 + (CLI,) + PET_EVAL + (CLI_PROMPT,)
@@ -766,7 +813,11 @@ MODES = {"fused_attention +bias +dropout": "fused_attention",
          "fused_attention_bwd +dropout": "fused_attention_bwd",
          "fused_attention_bwd_long +dropout": "fused_attention_bwd_long",
          "fused_ffn gelu +dropout": "fused_ffn",
-         "fused_ffn_bwd gelu +dropout": "fused_ffn_bwd"}
+         "fused_ffn_bwd gelu +dropout": "fused_ffn_bwd",
+         "fused_ffn +colbase": "fused_ffn",
+         "fused_ffn_bwd +colbase": "fused_ffn_bwd",
+         "fused_gated_ffn +colbase": "fused_gated_ffn",
+         "fused_gated_ffn_bwd +colbase": "fused_gated_ffn_bwd"}
 # the run whose launch count the kernels' JSON record reports: the first of
 # these that launches the kernel
 MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
@@ -774,7 +825,8 @@ MAIN_PATH_ORDER = ("train", "decode", "video_train", "video_eval", "t5_eval",
     + FUSED_BEAM + (T5V_EVAL, T5V_TRAIN, FULL_FT, BITFIT, T5V_BITFIT, CLI) \
     + PET_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_TRAIN + VS_EVAL_CLI + RAW_ALL \
     + ABL_TRAIN + ABL_T5_TRAIN + ABL_EVAL + PF_TRAIN + PF_T5_TRAIN + PF_EVAL \
-    + TAIL_TRAIN + TAIL_T5_TRAIN + (TAIL_VIDEO_DROP, CLI_CLS)
+    + TAIL_TRAIN + TAIL_T5_TRAIN + (TAIL_VIDEO_DROP, CLI_CLS) \
+    + (TP_TRAIN, TP_T5, TP_VIDEO, TP_DECODE)
 # per main-path run: examples/s, and for a train run ms/step and peak GiB
 RUNS = {}
 
@@ -4360,13 +4412,13 @@ def phase_gate_parity() -> None:
 # phase 8: the image-text CLI at the VL-PET-small recipe. 1000 synthetic
 # examples a task (36 boxes of 2048-d fp32, 0.3 MB an image: about 1.5 GB a
 # split with NLVR's two images) give 11 optimizer steps an epoch at batch
-# 500 (vqa 2, gqa 1, nlvr 6, caption 2), so 2 epochs take 22 steps, each
-# epoch followed by the eval of all four tasks; the resumed run takes one
-# epoch more. (10 epochs until the smoke grew past 1000 s of its 1200:
-# the later epochs repeat the first's shapes.)
+# 500 (vqa 2, gqa 1, nlvr 6, caption 2), so an epoch takes 11 steps,
+# followed by the eval of all four tasks; the resumed run takes one epoch
+# more. (10 epochs until the smoke grew past 1000 s of its 1200, 2 until
+# phase 10 came: the later epochs repeat the first's shapes.)
 CLI_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "scripts", "image-text", "VL-PET-small.sh")
-CLI_EXAMPLES, CLI_EPOCHS, CLI_MIN_STEPS = 1000, 2, 20
+CLI_EXAMPLES, CLI_EPOCHS, CLI_MIN_STEPS = 1000, 1, 10
 CLI_TIMEOUT_S = 600
 
 
@@ -4491,7 +4543,8 @@ def phase_cli_rehearsal(card: str) -> dict:
               if "data_build_seconds" in r]
     train_s = sum(r["train_seconds"] for r in epochs)
     ex = sum(r["train_examples"] for r in epochs)
-    later = epochs[1:]
+    # the epochs after the first: the resumed run's when there is one
+    later = epochs[1:] or [r for r in recs2 if "train_seconds" in r]
     later_ms = (sum(r["train_seconds"] for r in later)
                 / sum(r["train_steps"] for r in later) * 1e3)
     last = epochs[-1]
@@ -4504,7 +4557,8 @@ def phase_cli_rehearsal(card: str) -> dict:
     print(f"  train: {steps} steps in {train_s:.2f} s host-clocked: "
           f"{train_s / steps * 1e3:.2f} ms/step, {ex / train_s:.2f} "
           f"examples/s over all epochs; {later_ms:.2f} ms/step after the "
-          f"first epoch; last epoch loss {last['train_loss']:.4f}",
+          f"first epoch (the resumed run's when it is the only one); last "
+          f"epoch loss {last['train_loss']:.4f}",
           flush=True)
     for t, xs in evals.items():
         scores = {k.split("/", 1)[1]: round(v, 4) for k, v in last.items()
@@ -4618,7 +4672,7 @@ def phase_pet_bench(card: str) -> dict:
     return launched
 
 
-PROMPT_EPOCHS = 2
+PROMPT_EPOCHS = 1  # 2 until phase 10 came: the second repeats the first
 
 
 def phase_cli_prompt(card: str) -> dict:
@@ -4667,7 +4721,7 @@ def phase_cli_prompt(card: str) -> dict:
               + ", ".join(f"{t} {r[f'{t}/eval_seconds']:.2f} s"
                           for t in FLAGSHIP_TASKS), flush=True)
     print(f"  train: {steps} steps, {train_s / steps * 1e3:.2f} ms/step, "
-          f"{ex / train_s:.2f} examples/s over both epochs; process "
+          f"{ex / train_s:.2f} examples/s over all epochs; process "
           f"{res['process_s']:.2f} s ({res['wall_s']:.2f} s in the CLI); "
           f"launches {({k: n for k, n in launched.items() if n})}",
           flush=True)
@@ -6882,16 +6936,20 @@ def params_digest(trainable) -> str:
     return h.hexdigest()
 
 
-def dp_bf16_step(rank: int = 0, world: int = 1) -> dict:
+def dp_bf16_step(rank: int = 0, world: int = 1, model_axis: int = 1,
+                 path: str = "train") -> dict:
     """One bf16 vqa step of the full-width flagship (seeded weights) on the
-    rank's share of the B DP_B batch (phase 7's inputs): the (global) loss
-    and gradient norm, the trainable tensors' digest after it and the
-    step's launches."""
+    rank's data shard of the B DP_B batch (phase 7's inputs) under a
+    (world / ``model_axis``, ``model_axis``) mesh: the (global) loss and
+    gradient norm, the trainable tensors' digest after it and the step's
+    launches (``path``'s kernels each launched)."""
     deterministic_kernels()
     model = build_model("bfloat16")
+    layout = build_mesh(MeshConfig(model=model_axis))
     trainable = apply_freezing(model, model.cfg.pet)
+    shard_model(model, layout)
     batch = dp_share(make_train_batch(DP_B, model.cfg.backbone.vocab_size,
-                                      31), rank, world)
+                                      31), layout.data_index, layout.data)
     step = make_train_step(model, build_optimizer(trainable, lr=1e-3,
                                                   total_steps=2),
                            FLAGSHIP_TASKS)
@@ -6899,7 +6957,7 @@ def dp_bf16_step(rank: int = 0, world: int = 1) -> dict:
     out = step(batch, torch.Generator(device="cuda").manual_seed(9),
                FLAGSHIP_TASKS.index("vqa"))
     torch.cuda.synchronize()
-    launched = {k: n for k, n in read_counts("train").items() if n}
+    launched = {k: n for k, n in read_counts(path).items() if n}
     return {"loss": out["loss"].item(), "grad_norm": out["grad_norm"].item(),
             "digest": params_digest(trainable), "launches": launched}
 
@@ -6912,24 +6970,33 @@ def dp_fp32_cfg(dtype: str):
         activation_dropout=0.1))
 
 
-def dp_fp32_model():
-    model = build_model("float32", dp_fp32_cfg)
+def dp_fp32_model(cfg_fn=dp_fp32_cfg, model_axis: int = 1):
+    """The fp32 model of ``cfg_fn`` (seeded, ``unzero``), its trainable
+    tensors, optimizer and step, placed on this rank's shard of a
+    (world / ``model_axis``, ``model_axis``) mesh; and the mesh."""
+    model = build_model("float32", cfg_fn)
     unzero(model)
+    layout = build_mesh(MeshConfig(model=model_axis))
     trainable = apply_freezing(model, model.cfg.pet)
+    shard_model(model, layout)
     opt = build_optimizer(trainable, lr=1e-3, total_steps=4)
-    return model, trainable, opt, make_train_step(model, opt, FLAGSHIP_TASKS)
+    return (model, trainable, opt,
+            make_train_step(model, opt, FLAGSHIP_TASKS), layout)
 
 
-def dp_fp32_reference(path: str) -> dict:
-    """Phase 9 (c)'s one-process run: 3 fp32 steps on the B DP_FP32_B
-    batch, each step's start (trainable tensors and optimizer state) and
-    end saved to ``path`` for the ranks; returns the per-step metrics and
-    the step's launches."""
-    model, trainable, opt, step = dp_fp32_model()
-    batch = make_train_batch(DP_FP32_B, model.cfg.backbone.vocab_size, 21)
+def dp_fp32_reference(path: str, cfg_fn=dp_fp32_cfg,
+                      batch_fn=make_train_batch, steps: int = 3,
+                      run: str = "train") -> dict:
+    """Phase 9 (c)'s one-process run (and phase 10 (b)'s and (c)'s, of
+    ``cfg_fn``): ``steps`` fp32 steps on the B DP_FP32_B batch of
+    ``batch_fn``, each step's start (trainable tensors and optimizer
+    state) and end saved to ``path`` for the ranks; returns the per-step
+    metrics and the step's launches (``run``'s kernels each launched)."""
+    model, trainable, opt, step, _ = dp_fp32_model(cfg_fn)
+    batch = batch_fn(DP_FP32_B, model.cfg.backbone.vocab_size, 21)
     starts, ends, metrics = [], [], []
     reset_counts()
-    for i in range(3):
+    for i in range(steps):
         starts.append({"params": {n: t.cpu() for n, t in
                                   snapshot(trainable).items()},
                        "opt": {k: ({n: t.detach().to("cpu", copy=True)
@@ -6941,22 +7008,25 @@ def dp_fp32_reference(path: str) -> dict:
         metrics.append({"loss": out["loss"].item(),
                         "grad_norm": out["grad_norm"].item()})
         ends.append({n: t.cpu() for n, t in snapshot(trainable).items()})
-    launched = {k: n // 3 for k, n in read_counts("train").items() if n}
+    launched = {k: n // steps for k, n in read_counts(run).items() if n}
     torch.save({"starts": starts, "ends": ends}, path)
     return {"metrics": metrics, "launches": launched}
 
 
-def dp_fp32_steps(rank: int, world: int, path: str) -> dict:
-    """Phase 9 (c) on a rank: each of the 3 steps from the one-process
-    run's start, on the rank's half of its batch with the same dropout
-    seeds (folded to the rank's examples); per step the metrics and the
-    largest L2 ratio |update - one-process update| / |one-process update|
-    over the trainable tensors."""
+def dp_fp32_steps(rank: int, world: int, path: str, cfg_fn=dp_fp32_cfg,
+                  batch_fn=make_train_batch, model_axis: int = 1,
+                  run: str = "train") -> dict:
+    """Phase 9 (c) on a rank (and phase 10 (b) and (c), of ``cfg_fn``
+    under a model axis): each step from the one-process run's start, on
+    the rank's data shard of its batch with the same dropout seeds
+    (folded to the shard's examples and the rank's heads and hidden
+    columns); per step the metrics and the largest L2 ratio |update -
+    one-process update| / |one-process update| over the trainable
+    tensors."""
     ref = torch.load(path, map_location="cuda", weights_only=False)
-    model, trainable, opt, step = dp_fp32_model()
-    batch = dp_share(make_train_batch(DP_FP32_B,
-                                      model.cfg.backbone.vocab_size, 21),
-                     rank, world)
+    model, trainable, opt, step, layout = dp_fp32_model(cfg_fn, model_axis)
+    batch = dp_share(batch_fn(DP_FP32_B, model.cfg.backbone.vocab_size, 21),
+                     layout.data_index, layout.data)
     rows = []
     for i, (start, end) in enumerate(zip(ref["starts"], ref["ends"])):
         restore(trainable, start["params"])
@@ -6965,7 +7035,7 @@ def dp_fp32_steps(rank: int, world: int, path: str) -> dict:
         out = step(batch, torch.Generator(device="cuda").manual_seed(21 + i),
                    FLAGSHIP_TASKS.index("vqa"))
         torch.cuda.synchronize()
-        launched = {k: n for k, n in read_counts("train").items() if n}
+        launched = {k: n for k, n in read_counts(run).items() if n}
         ratio = max((p.detach() - end[n]).norm().item()
                     / max((end[n] - start["params"][n]).norm().item(), 1e-30)
                     for n, p in trainable.items())
@@ -7005,40 +7075,38 @@ def dp_world2(rank: int, world: int, path: str) -> dict:
     return out
 
 
-def phase_data_parallel(card: str) -> None:
-    """(a) world 1 over NCCL: the bf16 B DP_B step bit for bit the
-    one-process step; (b) world 2 over gloo, B DP_B/2 a rank: the loss
-    within BF16_STEP_RTOL of (a)'s; (c) world 2, fp32, B DP_FP32_B, every
-    dropout 0.1: 3 steps, each from the one-process run's state, held by
-    phase 6c's per-step rule (TRAIN_METRIC_RTOL, PARAM_RTOL in L2); (d)
-    world 2 beam 5 at B DP_EVAL_B a rank: the merged tokens identical to
-    one process's. Every rank's launches a step equal one process's."""
+def dp_start(tmp: str, pool) -> dict:
+    """Phase 9's one-process runs, then its two worlds submitted to
+    ``pool`` (their ranks share the card; phase 9 times nothing)."""
     from vlpet_tpu_torch.parallel.launch import run_ranks
 
-    t0 = time.perf_counter()
-    want = dp_bf16_step()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "fp32_steps.pt")
-        fp32 = dp_fp32_reference(path)
-        model = build_model("float32")
-        with torch.inference_mode():
-            tokens = seq2seq_generate(
-                model, **make_batch(DP_EVAL_B * 2,
-                                    model.cfg.backbone.vocab_size, seed=7),
-                ctx=PetContext(task="caption", task_idx=3), num_beams=5,
-                max_length=20).cpu()
-        del model
-        torch.cuda.empty_cache()
-        # both worlds at once: their ranks share the card, and phase 9
-        # times nothing
-        t1 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            world1 = pool.submit(run_ranks, dp_bf16_step, 1, device="cuda",
-                                 timeout=DP_TIMEOUT_S)
-            two = run_ranks(dp_world2, 2, path, device="cuda",
-                            backend="gloo", timeout=DP_TIMEOUT_S)
-            (one,) = world1.result()
-        t2 = time.perf_counter()
+    dp = {"t0": time.perf_counter(), "want": dp_bf16_step(),
+          "path": os.path.join(tmp, "fp32_steps.pt")}
+    dp["fp32"] = dp_fp32_reference(dp["path"])
+    model = build_model("float32")
+    with torch.inference_mode():
+        dp["tokens"] = seq2seq_generate(
+            model, **make_batch(DP_EVAL_B * 2, model.cfg.backbone.vocab_size,
+                                seed=7),
+            ctx=PetContext(task="caption", task_idx=3), num_beams=5,
+            max_length=20).cpu()
+    del model
+    torch.cuda.empty_cache()
+    dp["t1"] = time.perf_counter()
+    dp["world1"] = pool.submit(run_ranks, dp_bf16_step, 1, device="cuda",
+                               timeout=DP_TIMEOUT_S)
+    dp["world2"] = pool.submit(run_ranks, dp_world2, 2, dp["path"],
+                               device="cuda", backend="gloo",
+                               timeout=DP_TIMEOUT_S)
+    return dp
+
+
+def dp_finish(dp: dict, card: str) -> None:
+    """Phase 9's checks on its worlds' results (``dp_start``)."""
+    (one,) = dp["world1"].result()
+    two = dp["world2"].result()
+    t2 = time.perf_counter()
+    want, fp32, tokens = dp["want"], dp["fp32"], dp["tokens"]
     if (one["loss"], one["grad_norm"], one["digest"]) != (
             want["loss"], want["grad_norm"], want["digest"]):
         raise AssertionError(f"(a) world 1 over NCCL: loss {one['loss']!r} "
@@ -7095,9 +7163,399 @@ def phase_data_parallel(card: str) -> None:
           f"{rows}; launches a step {fp32['launches']}", flush=True)
     print(f"  (d) world 2 beam 5 to length 20, B{DP_EVAL_B} a rank: merged "
           f"tokens identical to one process's B{DP_EVAL_B * 2}; the two "
-          f"worlds' spawns {t2 - t1:.1f} s; phase 9 "
-          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+          f"worlds' spawns {t2 - dp['t1']:.1f} s; phase 9 "
+          f"{time.perf_counter() - dp['t0']:.1f} s on {card}", flush=True)
 
+
+def phase_data_parallel(card: str) -> None:
+    """(a) world 1 over NCCL: the bf16 B DP_B step bit for bit the
+    one-process step; (b) world 2 over gloo, B DP_B/2 a rank: the loss
+    within BF16_STEP_RTOL of (a)'s; (c) world 2, fp32, B DP_FP32_B, every
+    dropout 0.1: 3 steps, each from the one-process run's state, held by
+    phase 6c's per-step rule (TRAIN_METRIC_RTOL, PARAM_RTOL in L2); (d)
+    world 2 beam 5 at B DP_EVAL_B a rank: the merged tokens identical to
+    one process's. Every rank's launches a step equal one process's."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(2) as pool:
+        dp_finish(dp_start(tmp, pool), card)
+
+
+# phase 10: tensor parallelism on the one card. Every rank is a process that
+# parallel/launch.py spawns on cuda:0; its model groups run over gloo (NCCL
+# refuses two ranks on one card), and every collective of the model axis
+# is an all_reduce (parallel/tensor.py). The model is built whole from its
+# seed and then sharded (parallel/mesh.py shard_model), so a rank's weights
+# are one process's, cut. Ranks sharing one card time nothing about
+# tensor-parallel speed.
+TP_LAYERS = 2  # (b) and (c): encoder and decoder layers each, full width
+TP_FFN_N = 28000  # (e): the BART encoder's training rows
+
+
+def tp_layers(cfg_fn):
+    """``cfg_fn`` cut to TP_LAYERS encoder and decoder layers."""
+    def cfg(dtype: str = "float32"):
+        c = cfg_fn(dtype)
+        one = (dict(num_layers=TP_LAYERS, num_decoder_layers=TP_LAYERS)
+               if c.is_t5 else dict(encoder_layers=TP_LAYERS,
+                                    decoder_layers=TP_LAYERS))
+        return dataclasses.replace(c, backbone=dataclasses.replace(
+            c.backbone, **one))
+    return cfg
+
+
+def tp_t5_gated_cfg(dtype: str):
+    """The gated T5 (t5-v1.1 gated-gelu, untied) at dropout 0.1."""
+    c = t5_gated_cfg(dtype)
+    return dataclasses.replace(c, backbone=dataclasses.replace(
+        c.backbone, dropout_rate=0.1))
+
+
+# (b)'s and (c)'s runs: (label, configuration, batch, steps, model axis, the
+# one-process run whose kernels it launches)
+TP_FP32 = (("bart", tp_layers(dp_fp32_cfg), make_train_batch, 3, 2, "train"),
+           ("t5 gated", tp_layers(tp_t5_gated_cfg), make_t5_train_batch, 3,
+            2, "t5_gated_train"),
+           ("bart", tp_layers(dp_fp32_cfg), make_train_batch, 1, 4,
+            "train"))
+
+
+def tp_tokens(model_axis: int = 1) -> dict:
+    """(d): fp32 beam 5 with use_fused_beam and greedy, to length 20, on
+    phase 4 (a)'s batch of DP_EVAL_B rows (every rank the whole batch: a
+    data axis of 1), TP_LAYERS layers at full width, and the fused beam
+    run's launches (the tp_decode run on a rank)."""
+    model = build_model("float32", tp_layers(with_flags(
+        flagship_cfg, use_fused_beam=True)))
+    shard_model(model, build_mesh(MeshConfig(model=model_axis)))
+    batch = make_batch(DP_EVAL_B, model.cfg.backbone.vocab_size, seed=7)
+    ctx = PetContext(task="caption", task_idx=3)
+    out = {}
+    with torch.inference_mode():
+        for beams in (5, 1):
+            reset_counts()
+            out[beams] = seq2seq_generate(model, **batch, ctx=ctx,
+                                          num_beams=beams,
+                                          max_length=20).cpu()
+            if beams == 5:
+                run = TP_DECODE if model_axis > 1 else FUSED_BEAM[0]
+                out["launches"] = {k: n for k, n in read_counts(run).items()
+                                   if n}
+    return out
+
+
+def tp_video_step(model_axis: int = 1) -> dict:
+    """(f): one bf16 tvqa step of the video model (S 604, B VIDEO_B,
+    phase 7b's inputs; TP_LAYERS layers at full width: the long backward
+    at the encoder's and the cross sites), its loss and launches (the
+    tp_video_train run on a rank)."""
+    deterministic_kernels()
+    model = build_model("bfloat16", tp_layers(video_cfg))
+    layout = build_mesh(MeshConfig(model=model_axis))
+    trainable = apply_freezing(model, model.cfg.pet)
+    shard_model(model, layout)
+    batch = make_video_train_batch(VIDEO_B, model.cfg.backbone.vocab_size,
+                                   33)
+    step = make_train_step(model, build_optimizer(trainable, lr=7e-4,
+                                                  total_steps=2),
+                           VIDEO_TASKS)
+    reset_counts()
+    out = step(batch, torch.Generator(device="cuda").manual_seed(9),
+               VIDEO_TASKS.index("tvqa"))
+    torch.cuda.synchronize()
+    run = TP_VIDEO if model_axis > 1 else "video_train"
+    return {"loss": out["loss"].item(),
+            "launches": {k: n for k, n in read_counts(run).items() if n}}
+
+
+def tp_world2_train(rank: int, world: int, paths) -> dict:
+    """(a) and (b) on one rank of the (1, 2) mesh."""
+    out = {"bf16": dp_bf16_step(rank, world, 2, TP_TRAIN)}
+    torch.cuda.empty_cache()
+    out["fp32"] = [dp_fp32_steps(rank, world, path, cfg_fn, batch_fn, 2,
+                                 TP_T5 if "t5" in label else run)
+                   for path, (label, cfg_fn, batch_fn, _, m, run)
+                   in zip(paths, TP_FP32) if m == 2]
+    print(f"  rank {rank}/{world} at (1, 2): bf16 step launches "
+          f"{out['bf16']['launches']}", flush=True)
+    return out
+
+
+def tp_world2_eval(rank: int, world: int) -> dict:
+    """(d) and (f) on one rank of another (1, 2) mesh."""
+    return {"tokens": tp_tokens(2), "video": tp_video_step(2)}
+
+
+def tp_world4(rank: int, world: int, path: str) -> list:
+    """(c) on one rank of the (1, 4) mesh."""
+    label, cfg_fn, batch_fn, _, m, run = TP_FP32[2]
+    return dp_fp32_steps(rank, world, path, cfg_fn, batch_fn, m, run)
+
+
+def tp_colbase_masks(seed: torch.Tensor, rate: float) -> None:
+    """(e)'s masks: F1 / F2 / F3 / F4 at a rank's column base draw, bit for
+    bit, those columns of the whole hidden's mask (ops/hashdrop.py
+    keep_mask with the column base and width): check_ffn_bf16_mask's,
+    check_ffn_bwd_bf16_mask's and check_gated_bf16_mask's picking
+    weights at the shard's first and last k = min(D, Fh) columns (the
+    rest of W picks nothing: y and dx are zero past k)."""
+    bf, D, N = torch.bfloat16, 768, TP_FFN_N
+    ones = torch.ones((N, D), device="cuda", dtype=bf)
+    x3 = torch.full((N, D), 3.0, device="cuda", dtype=bf)
+    z = torch.zeros(D, device="cuda")
+    for width, m, gated in ((3072, 2, False), (3072, 4, False),
+                            (2048, 2, True), (2048, 4, True)):
+        Fh = width // m
+        k = min(D, Fh)
+        base = (m - 1) * Fh  # the last rank's columns
+        cols = dict(col_base=base, width=width)
+        keep = keep_mask((N, Fh), 0, seed, rate, device="cuda", **cols)
+        for off in sorted({0, Fh - k}):
+            pick = torch.zeros((D, Fh), device="cuda", dtype=bf)
+            r = torch.arange(k, device="cuda")
+            pick[r, r + off] = 1.0              # (D, F): hidden -> D
+            spread = pick.t().contiguous()      # (F, D): D -> hidden
+            kept = keep[:, off:off + k]
+            name = f"N{N} F{Fh} of {width} at {base} off{off}"
+            if gated:
+                y = ffn.fused_gated_ffn(x3, spread, spread, pick, "gelu_new",
+                                        rate, seed, **cols)
+                _expect_zeros(f"fused_gated_ffn {name}", y[:, :k], kept,
+                              "bf16")
+                dx = ffn.fused_gated_ffn_bwd(x3, ones, spread, spread, pick,
+                                             "gelu_new", rate, seed, **cols)
+                _expect_zeros(f"fused_gated_ffn_bwd {name}", dx[:, :k], kept,
+                              "bf16")
+                continue
+            ones_b1 = torch.ones(Fh, device="cuda")
+            y = ffn.fused_ffn(ones, torch.zeros((Fh, D), device="cuda",
+                                                dtype=bf),
+                              ones_b1, pick, z, "relu", rate, seed, **cols)
+            _expect_zeros(f"fused_ffn {name}", y[:, :k], kept, "bf16")
+            dx, _, _ = ffn.fused_ffn_bwd(ones, ones, spread, ones_b1, pick,
+                                         "relu", rate, seed, **cols)
+            _expect_zeros(f"fused_ffn_bwd {name}", dx[:, :k], kept, "bf16")
+        del keep
+
+
+def tp_colbase_kernels(rep: Report) -> None:
+    """(e): F1 / F2 (gelu with biases, a zero b2 as the split path passes)
+    at Fh 1536 and 768 of BART's 3072 and F1 also at the beam rows N 2500
+    (split over the hidden), F3 / F4 (gelu_new) at Fh 1024 and 512 of the
+    gated T5's 2048, bf16, N TP_FFN_N, D 768, rate 0.1, each rank's column
+    base, against their plain twins (the backwards against autograd of
+    them), twice bitwise; the Fh 1536 and 1024 cases timed, with the
+    bound; then the masks bit for bit (``tp_colbase_masks``)."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    randn = randn_fn(g)
+    dtype, D, rate = torch.bfloat16, 768, 0.1
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    z = torch.zeros(D, device="cuda")
+    for width, m, N in ((3072, 2, TP_FFN_N), (3072, 4, TP_FFN_N),
+                        (3072, 2, 2500)):
+        Fh = width // m
+        cols = dict(col_base=(m - 1) * Fh, width=width)
+        w1 = randn(Fh, D, dtype=dtype, scale=0.02)
+        w2 = randn(D, Fh, dtype=dtype, scale=0.02)
+        b1 = randn(Fh, scale=0.02)
+        x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+        label = (f"bf16 N{N} D{D} F{Fh} of {width} at {cols['col_base']} "
+                 f"gelu rate {rate}")
+        timed = Fh == 1536 and N == TP_FFN_N
+
+        def f1():
+            return ffn.fused_ffn(x, w1, b1, w2, z, "gelu", rate, seed,
+                                 **cols)
+        rep.check("fused_ffn +colbase", label, f1,
+                  lambda: ffn.ffn_reference(x, w1, b1, w2, z, "gelu", rate,
+                                            seed, **cols), dtype,
+                  timed=timed, work=(2 * (2 * N * D + 2 * D * Fh)
+                                     + 4 * (Fh + D), 4 * N * D * Fh))
+        bitwise_repeat("fused_ffn +colbase", label, f1)
+        if N == TP_FFN_N:
+            def f2():
+                return ffn.fused_ffn_bwd(x, dy, w1, b1, w2, "gelu", rate,
+                                         seed, **cols)
+            rep.check("fused_ffn_bwd +colbase", label, f2,
+                      _grads_of(lambda a, c, d: ffn.ffn_reference(
+                          a, w1, c, w2, d, "gelu", rate, seed, **cols),
+                          (x, b1, z), dy),
+                      dtype, timed=timed, backward=True,
+                      work=(2 * (3 * N * D + 2 * D * Fh) + 4 * (2 * Fh + D),
+                            6 * N * D * Fh))
+            bitwise_repeat("fused_ffn_bwd +colbase", label, f2)
+        del x, dy
+    for width, m in ((2048, 2), (2048, 4)):
+        N, Fh = TP_FFN_N, width // m
+        cols = dict(col_base=(m - 1) * Fh, width=width)
+        w0, w1 = (randn(Fh, D, dtype=dtype, scale=0.02) for _ in range(2))
+        wo = randn(D, Fh, dtype=dtype, scale=0.02)
+        x, dy = randn(N, D, dtype=dtype), randn(N, D, dtype=dtype)
+        label = (f"bf16 N{N} D{D} F{Fh} of {width} at {cols['col_base']} "
+                 f"gelu_new rate {rate}")
+        timed = Fh == 1024
+
+        def f3():
+            return ffn.fused_gated_ffn(x, w0, w1, wo, "gelu_new", rate, seed,
+                                       **cols)
+
+        def f4():
+            return ffn.fused_gated_ffn_bwd(x, dy, w0, w1, wo, "gelu_new",
+                                           rate, seed, **cols)
+        rep.check("fused_gated_ffn +colbase", label, f3,
+                  lambda: ffn.gated_ffn_reference(x, w0, w1, wo, "gelu_new",
+                                                  rate, seed, **cols),
+                  dtype, timed=timed,
+                  work=(2 * (2 * N * D + 3 * D * Fh), 6 * N * D * Fh))
+        plain_f4 = _grads_of(lambda a: ffn.gated_ffn_reference(
+            a, w0, w1, wo, "gelu_new", rate, seed, **cols), (x,), dy)
+        rep.check("fused_gated_ffn_bwd +colbase", label, f4,
+                  lambda: plain_f4()[0], dtype, timed=timed, backward=True,
+                  work=(2 * (3 * N * D + 3 * D * Fh), 10 * N * D * Fh))
+        bitwise_repeat("fused_gated_ffn +colbase", label, f3)
+        bitwise_repeat("fused_gated_ffn_bwd +colbase", label,
+                       lambda: (f4(),))
+        del x, dy
+    tp_colbase_masks(seed, rate)
+
+
+def tp_start(tmp: str, pool) -> dict:
+    """Phase 10's one-process runs ((a)-(d), (f)), then its three meshes
+    submitted to ``pool``: (1, 2) for (a) and (b), another (1, 2) for (d)
+    and (f), (1, 4) for (c); every rank on the one card."""
+    from vlpet_tpu_torch.parallel.launch import run_ranks
+
+    tp = {"t0": time.perf_counter(), "want": dp_bf16_step(),
+          "paths": [os.path.join(tmp, f"tp_fp32_{i}.pt")
+                    for i in range(len(TP_FP32))]}
+    tp["refs"] = [dp_fp32_reference(path, cfg_fn, batch_fn, steps, run)
+                  for path, (_, cfg_fn, batch_fn, steps, _, run)
+                  in zip(tp["paths"], TP_FP32)]
+    tp["tokens"], tp["video"] = tp_tokens(), tp_video_step()
+    torch.cuda.empty_cache()
+    tp["t1"] = time.perf_counter()
+    kw = dict(device="cuda", backend="gloo", timeout=DP_TIMEOUT_S)
+    tp["train"] = pool.submit(run_ranks, tp_world2_train, 2, tp["paths"],
+                              **kw)
+    tp["eval"] = pool.submit(run_ranks, tp_world2_eval, 2, **kw)
+    tp["four"] = pool.submit(run_ranks, tp_world4, 4, tp["paths"][2], **kw)
+    return tp
+
+
+def tp_finish(tp: dict, card: str) -> dict:
+    """Phase 10's checks on its meshes' results (``tp_start``); returns
+    the main-path runs' launches (rank 0's)."""
+    train, evals, four = (tp[k].result() for k in ("train", "eval", "four"))
+    t3 = time.perf_counter()
+    want, refs, tokens, video = tp["want"], tp["refs"], tp["tokens"], tp["video"]
+    for r, (res, ev) in enumerate(zip(train, evals)):
+        b = res["bf16"]
+        rel = abs(b["loss"] - want["loss"]) / abs(want["loss"])
+        if not rel <= BF16_STEP_RTOL:
+            raise AssertionError(f"(a) rank {r}: loss {b['loss']!r} vs one "
+                                 f"process {want['loss']!r}: {rel:.3e}")
+        if b["digest"] != train[0]["bf16"]["digest"]:
+            raise AssertionError(f"(a) rank {r}: trainable tensors differ "
+                                 f"from rank 0's")
+        if b["launches"] != want["launches"]:
+            raise AssertionError(f"(f) rank {r}: bf16 step launches "
+                                 f"{b['launches']}, one process "
+                                 f"{want['launches']}")
+        if ev["video"]["launches"] != video["launches"]:
+            raise AssertionError(f"(f) rank {r}: video step launches "
+                                 f"{ev['video']['launches']}, one process "
+                                 f"{video['launches']}")
+        for beams in (5, 1):
+            if not torch.equal(ev["tokens"][beams], tokens[beams]):
+                raise AssertionError(f"(d) rank {r}: beam {beams} tokens "
+                                     f"differ from one process's")
+        if ev["tokens"]["launches"] != tokens["launches"]:
+            raise AssertionError(f"(d) rank {r}: fused beam-5 launches "
+                                 f"{ev['tokens']['launches']}, one process "
+                                 f"{tokens['launches']}")
+    fp32_rows = [(TP_FP32[i], refs[i], [res["fp32"][i] for res in train])
+                 for i in range(2)]
+    fp32_rows.append((TP_FP32[2], refs[2], four))
+    for (label, *_), ref, per_rank in fp32_rows:
+        for r, rows in enumerate(per_rank):
+            for i, (row, m) in enumerate(zip(rows, ref["metrics"])):
+                for key in ("loss", "grad_norm"):
+                    if not abs(row[key] - m[key]) <= (TRAIN_METRIC_RTOL
+                                                      * abs(m[key])):
+                        raise AssertionError(f"(b/c) {label} rank {r} step "
+                                             f"{i} {key}: {row[key]!r} vs "
+                                             f"one process {m[key]!r}")
+                if not row["ratio"] <= PARAM_RTOL:
+                    raise AssertionError(f"(b/c) {label} rank {r} step {i}: "
+                                         f"update ratio {row['ratio']:.3e}")
+                if row["launches"] != ref["launches"]:
+                    raise AssertionError(f"(f) {label} rank {r} step {i}: "
+                                         f"launches {row['launches']}, one "
+                                         f"process {ref['launches']}")
+    b = train[0]["bf16"]
+    print(f"  (a) (1, 2) over gloo: bf16 B{DP_B} vqa step loss "
+          f"{b['loss']:.6f} vs one process {want['loss']:.6f} "
+          f"({abs(b['loss'] - want['loss']) / abs(want['loss']):.3e} "
+          f"relative, tol {BF16_STEP_RTOL}); grad norm {b['grad_norm']:.6f} "
+          f"vs {want['grad_norm']:.6f}; both ranks' trainable tensors bit "
+          f"for bit", flush=True)
+    for (label, _, _, steps, m, _), ref, per_rank in fp32_rows:
+        rows = "; ".join(f"{r['loss']:.7f}/{x['loss']:.7f} |g| "
+                         f"{r['grad_norm']:.6f}/{x['grad_norm']:.6f} ratio "
+                         f"{r['ratio']:.2e}"
+                         for r, x in zip(per_rank[0], ref["metrics"]))
+        print(f"  ({'c' if m == 4 else 'b'}) {label} (1, {m}) fp32 "
+              f"B{DP_FP32_B} {TP_LAYERS}+{TP_LAYERS} layers, dropout 0.1, "
+              f"{steps} step(s) from the one-process state, loss and grad "
+              f"norm split/one and the largest L2 update ratio: {rows}; "
+              f"launches a step {ref['launches']}", flush=True)
+    print(f"  (d) (1, 2) fp32 beam 5 (use_fused_beam) and greedy to length "
+          f"20, B{DP_EVAL_B}, {TP_LAYERS}+{TP_LAYERS} layers: tokens "
+          f"identical to one process's; fused beam-5 launches "
+          f"{tokens['launches']}", flush=True)
+    print(f"  (f) launches a step equal one process's: bf16 step "
+          f"{want['launches']}; video S604 B{VIDEO_B} step, "
+          f"{TP_LAYERS}+{TP_LAYERS} layers (loss "
+          f"{evals[0]['video']['loss']:.6f} vs {video['loss']:.6f}) "
+          f"{video['launches']}", flush=True)
+    print(f"  phase 10: the one-process runs {tp['t1'] - tp['t0']:.1f} s, "
+          f"the three meshes' spawns {t3 - tp['t1']:.1f} s; "
+          f"{time.perf_counter() - tp['t0']:.1f} s after (e) on {card}",
+          flush=True)
+    return {TP_TRAIN: train[0]["bf16"]["launches"],
+            TP_T5: train[0]["fp32"][1][0]["launches"],
+            TP_VIDEO: evals[0]["video"]["launches"],
+            TP_DECODE: evals[0]["tokens"]["launches"]}
+
+
+def tp_kernels(rep: Report) -> None:
+    """(e), alone on the card (it times the kernels), with its seconds."""
+    t0 = time.perf_counter()
+    tp_colbase_kernels(rep)
+    print(f"  phase 10 (e): {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_tensor_parallel(rep: Report, card: str) -> dict:
+    """(a)-(f) of the module docstring's phase 10; returns the main-path
+    runs' launches (rank 0's)."""
+    tp_kernels(rep)
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(3) as pool:
+        return tp_finish(tp_start(tmp, pool), card)
+
+
+def phase_parallel(rep: Report, card: str) -> dict:
+    """Phases 9 and 10 with their ranks spawned at once: 10 (e) first,
+    alone on the card, then each phase's one-process runs, then the seven
+    process groups together (neither phase times its ranks), then each
+    phase's checks. Returns phase 10's ``launched``."""
+    tp_kernels(rep)
+    with tempfile.TemporaryDirectory() as tmp, \
+            concurrent.futures.ThreadPoolExecutor(5) as pool:
+        dp = dp_start(tmp, pool)
+        tp = tp_start(tmp, pool)
+        dp_finish(dp, card)
+        return tp_finish(tp, card)
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -7295,9 +7753,9 @@ def main() -> int:
           "bf16", flush=True)
     launched.update(phase_cli_classifier(card))
     print(f"  phase 8e: {time.perf_counter() - t0:.1f} s", flush=True)
-    header("phase 9: data parallelism on the one card (spawned ranks on "
-           "cuda:0)", flush=True)
-    phase_data_parallel(card)
+    header("phases 9 and 10: data and tensor parallelism on the one card "
+           "(spawned ranks on cuda:0, both phases' at once)", flush=True)
+    launched.update(phase_parallel(rep, card))
 
     missing = [k for k in KERNELS if k not in rep.timed]
     if missing:

@@ -35,6 +35,8 @@ import vlpet_tpu.cli.param as jparam
 import vlpet_tpu_torch.cli.param as tparam
 from chip_smoke import VIDEO_SCRIPTS, video_flags
 from test_torch_cli import GATE_FLAGS, TINY
+from vlpet_tpu_torch.models.vlbart import VLBart
+from vlpet_tpu_torch.parallel.mesh import Layout, shard_model
 
 TINY_VIDEO = {**TINY, "max_position_embeddings": 640}
 VIDEO_TASKS = ("tvqa", "how2qa", "tvc", "yc2c")
@@ -235,7 +237,7 @@ def test_test_only_evaluates(tmp_path, capsys):
     assert trainer.step == 0
 
 
-def test_device_cuda_raises_without_cuda(tmp_path, monkeypatch):
+def test_device_cuda_raises_without_cuda(tmp_path, monkeypatch, capsys):
     import vlpet_tpu_torch.cli.multitask_video as tm
     import vlpet_tpu_torch.cli.single_task as tst
 
@@ -246,8 +248,20 @@ def test_device_cuda_raises_without_cuda(tmp_path, monkeypatch):
         tm.main(argv)
     with pytest.raises(RuntimeError, match="torch.cuda is not available"):
         tst.main("tvqa", argv)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm.main(argv + ["--mesh_model_axis", "2"], device="cpu")
+    # one process: the model axis falls back to 1 (the JAX rule), said once
+    capsys.readouterr()
+    trainer, history = tm.main(argv + ["--mesh_model_axis", "2", "--output",
+                                       str(tmp_path / "tp")], device="cpu")
+    assert (trainer.layout.model, trainer.layout.data) == (1, 1)
+    assert np.isfinite(history[0]["train_loss"])
+    assert capsys.readouterr().out.count(
+        "mesh_model_axis 2 does not divide 1 process(es): the model axis "
+        "is 1") == 1
+    # a flag outside the tensor-parallel allowlist, under a 2-rank model axis
+    lora = dataclasses.replace(trainer.cfg, pet=dataclasses.replace(
+        trainer.cfg.pet, use_lora=True))
+    with pytest.raises(NotImplementedError, match="use_lora"):
+        shard_model(VLBart(lora, device="cpu"), Layout(model=2))
     # --classifier builds the answer head, which the video steps leave unread
     trainer, history = tm.main(argv + ["--classifier", "--output",
                                        str(tmp_path / "cls")], device="cpu")

@@ -1,5 +1,6 @@
-"""The ranks of the port's data-parallel tests (test_torch_distributed.py,
-test_torch_distributed_eval.py), spawned by
+"""The ranks of the port's data- and tensor-parallel tests
+(test_torch_distributed.py, test_torch_distributed_eval.py,
+test_torch_tensor_parallel.py, test_torch_tp_*.py), spawned by
 vlpet_tpu_torch.parallel.launch.run_ranks over gloo on the CPU.
 
 Every rank imports this module again, so it imports torch and the port
@@ -18,9 +19,12 @@ from vlpet_tpu_torch.data.datasets import (DatasetConfig, Loader,
                                            TaskDataset, synthetic_task_data)
 from vlpet_tpu_torch.data.multitask import MultitaskLoader
 from vlpet_tpu_torch.data.tokenization import WhitespaceTokenizer
+from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
-from vlpet_tpu_torch.parallel.multihost import host_shard
+from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh, shard_model
+from vlpet_tpu_torch.parallel.multihost import data_shard
+from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.freezing import apply_freezing
 from vlpet_tpu_torch.train.optim import build_optimizer
 from vlpet_tpu_torch.train.steps import make_train_step
@@ -40,16 +44,21 @@ def to_torch(batch):
             else torch.from_numpy(v) for k, v in batch.items()}
 
 
-def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1):
+def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1,
+              model_axis=1):
     """``steps`` train steps of the model of ``cfg`` at ``state``, on this
-    process's share of ``batch`` (the whole batch without a process
-    group), dropout seeds from generator seed 0, the optimizer updating
-    every ``accumulation``-th step. Returns the per-step losses and
-    gradient norms and the trainable tensors at the end."""
-    rank, world = host_shard()
+    process's data shard of ``batch`` (the whole batch without a process
+    group) under a (world / ``model_axis``, ``model_axis``) mesh, dropout
+    seeds from generator seed 0, the optimizer updating every
+    ``accumulation``-th step. Returns the per-step losses and gradient
+    norms, the trainable tensors at the end and the shapes of the
+    model's parameters on this rank."""
+    layout = build_mesh(MeshConfig(model=model_axis))
+    rank, world = layout.data_index, layout.data
     model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
     model.load_state_dict(state)
     trainable = apply_freezing(model, cfg.pet)
+    shard_model(model, layout)
     step = make_train_step(model, build_optimizer(trainable, **opt), tasks,
                            device="cpu", accumulation_steps=accumulation)
     generator = torch.Generator().manual_seed(0)
@@ -60,12 +69,36 @@ def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1):
         losses.append(float(out["loss"]))
         norms.append(float(out["grad_norm"]))
     return {"losses": losses, "norms": norms,
-            "params": {n: p.detach().clone() for n, p in trainable.items()}}
+            "params": {n: p.detach().clone() for n, p in trainable.items()},
+            "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}}
 
 
 def train_ranks(rank, world, cases):
     """``run_steps`` of each case (a dict of its arguments), in order."""
     return [run_steps(**case) for case in cases]
+
+
+def generate(cfg, state, batch, tasks, task, model_axis=1, max_length=8):
+    """Beam-5 and greedy tokens of the model of ``cfg`` at ``state`` on
+    this process's data shard of ``batch``, under a (world /
+    ``model_axis``, ``model_axis``) mesh."""
+    layout = build_mesh(MeshConfig(model=model_axis))
+    model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
+    model.load_state_dict(state)
+    shard_model(model, layout)
+    t = to_torch(share(batch, layout.data_index, layout.data))
+    keys = ("input_ids", "attention_mask", "vis_feats", "boxes")
+    ctx = PetContext(task=task, task_idx=tasks.index(task))
+    return {n: seq2seq_generate(model, **{k: t[k] for k in keys}, ctx=ctx,
+                                num_beams=n, max_length=max_length)
+            for n in (5, 1)}
+
+
+def tp_ranks(rank, world, train_cases, generate_cases=()):
+    """``run_steps`` of each train case, then ``generate`` of each
+    generation case."""
+    return {"train": [run_steps(**case) for case in train_cases],
+            "generate": [generate(**case) for case in generate_cases]}
 
 
 # --- evaluation, checkpoints, the task order -----------------------------
@@ -109,7 +142,7 @@ def loader(task: str, n: int, batch_size: int, train: bool = False):
     shapes)."""
     from vlpet_tpu_torch.cli.multitask import make_evaluator
 
-    shard, num_shards = host_shard()
+    shard, num_shards = data_shard()
     examples, source = synthetic_task_data(task, n, n_boxes=4, feat_dim=16)
     ds = TaskDataset(DatasetConfig(task=task, max_text_length=8,
                                    gen_max_length=6, n_boxes=4, feat_dim=16,
@@ -226,12 +259,13 @@ CLI_FLAGS = ["--backbone", "facebook/bart-base", "--batch_size", "2",
              "--adapter_gating_down_dim", "8", "--distributed"]
 
 
-def cli_ranks(rank, world, out_dir):
-    """Each CLI with ``--distributed`` on synthetic data: multitask (vqa
-    and caption, one epoch, then multitask_infer on its LAST.npz),
-    multitask_video (tvqa) and single_task (vqa). Returns per run the
-    examples this rank trained on, its writes, the files of its output
-    directory and what the run returned."""
+def cli_ranks(rank, world, out_dir, extra=()):
+    """Each CLI with ``--distributed`` (and the flags ``extra``) on
+    synthetic data: multitask (vqa and caption, one epoch, then
+    multitask_infer on its LAST.npz), multitask_video (tvqa) and
+    single_task (vqa). Returns per run the examples this rank trained on,
+    its writes, the files of its output directory and what the run
+    returned."""
     import vlpet_tpu_torch.cli.multitask as tm
     import vlpet_tpu_torch.cli.multitask_infer as tmi
     import vlpet_tpu_torch.cli.multitask_video as tmv
@@ -243,13 +277,16 @@ def cli_ranks(rank, world, out_dir):
     def run(name, fn, argv):
         seen, writes = _record_writes(rank)
         path = os.path.join(out_dir, name)
-        ret = fn(CLI_FLAGS + argv + ["--output", path])
+        ret = fn(CLI_FLAGS + list(extra) + argv + ["--output", path])
         trainer = ret[0] if isinstance(ret, tuple) else ret
         out[name] = {"seen": seen, "writes": writes,
                      "files": sorted(os.listdir(path))
                      if os.path.isdir(path) else [],
                      "logs": trainer.logger.jsonl is not None,
-                     "world": trainer.world, "step": trainer.step}
+                     "world": trainer.world, "step": trainer.step,
+                     "layout": (trainer.layout.data, trainer.layout.model),
+                     "shapes": {n: tuple(p.shape) for n, p
+                                in trainer.model.named_parameters()}}
 
     run("multitask", lambda a: tm.main(a, device="cpu"),
         ["--tasks", "vqa,caption"])
@@ -266,3 +303,32 @@ def eval_cli_ranks(rank, world, ckpt_dir, cli_dir):
     """``eval_ranks`` then ``cli_ranks``, in one process group."""
     return {"eval": eval_ranks(rank, world, ckpt_dir),
             "cli": cli_ranks(rank, world, cli_dir)}
+
+
+# --- tensor parallelism: checkpoints across layouts ------------------------
+
+def tp_checkpoint_ranks(rank, world, out_dir, model_axis, stage):
+    """Stage "save": the sharded evaluation, then one caption epoch at
+    batch 2 a data shard, checkpointed (and LAST.npz written) under
+    ``out_dir``. Stage "resume": restore that checkpoint under this
+    layout, load its LAST.npz into the sharded model, and train to the
+    end of the second epoch at batch 4 a data shard."""
+    from vlpet_tpu_torch.train.checkpoint import load_params_npz
+
+    if stage == "save":
+        res = {"eval": evaluate_all(tiny_trainer(mesh_model_axis=model_axis))}
+        trainer = tiny_trainer(output_dir=out_dir, lr=1e-2, total_steps=8,
+                               mesh_model_axis=model_axis)
+        res["params"] = train_caption(trainer, epochs=1, batch_size=2)
+    else:
+        trainer = tiny_trainer(output_dir=out_dir, lr=1e-2, total_steps=8,
+                               mesh_model_axis=model_axis)
+        res = {"restored": trainer.restore()}
+        _, res["npz_loaded"] = load_params_npz(
+            os.path.join(out_dir, "LAST.npz"), trainer.model)
+        res["params"] = train_caption(trainer, epochs=2, batch_size=4)
+    res.update(layout=(trainer.layout.data, trainer.layout.model),
+               step=trainer.step,
+               shapes={n: tuple(p.shape)
+                       for n, p in trainer.model.named_parameters()})
+    return res

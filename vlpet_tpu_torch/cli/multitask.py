@@ -20,11 +20,15 @@ size) and answers vqa by its argmax.
 over torch.distributed (parallel/multihost.py): every process reads its
 own shard of each split, ``--batch_size`` is per process (the global
 batch is the world size times it), and rank 0 alone writes the output.
-``--mesh_model_axis`` > 1 (tensor parallelism) raises
-NotImplementedError.
+``--mesh_model_axis`` M > 1 runs tensor parallelism as well
+(parallel/mesh.py): the processes form a (world / M, M) mesh, each model
+group of M processes splits the backbone's heads and FFN columns and
+reads one data shard (the global batch is world / M times
+``--batch_size``); an M that does not divide the world size falls back to
+1, as in the JAX package. Only the VL-PET recipes run split.
 
 Run on N cards:  torchrun --nproc_per_node N -m vlpet_tpu_torch.cli.multitask
---distributed <flags>
+--distributed [--mesh_model_axis M] <flags>
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ from vlpet_tpu_torch.evalsuite import (
     NLVR2Evaluator,
     VQAEvaluator,
 )
-from vlpet_tpu_torch.parallel.multihost import (host_shard,
+from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from vlpet_tpu_torch.parallel.multihost import (data_shard,
                                                 maybe_initialize_distributed)
 
 # per-task batch scaling (reference: multitask.py:682-695)
@@ -190,10 +195,10 @@ def build_loaders(args, tasks: Tuple[str, ...], tokenizer, split: str,
                              seed=args.seed)
         bs = task_batch_size(task, args.batch_size if mode == "train"
                              else args.valid_batch_size)
-        # per-process disjoint shards (the reference's DistributedSampler
-        # role, caption_clip_data.py:372-377); the eval shards too, which
-        # Trainer.predict merges across the processes
-        shard, num_shards = host_shard()
+        # per-data-shard disjoint shards (the reference's
+        # DistributedSampler role, caption_clip_data.py:372-377); the eval
+        # shards too, which Trainer.predict merges across the processes
+        shard, num_shards = data_shard()
         loaders.append(Loader(ds, bs, shuffle=(mode == "train"),
                               drop_last=(mode == "train"),
                               evaluator=make_evaluator(task, ds.examples),
@@ -209,6 +214,7 @@ def main(argv=None, device=None):
     if device is not None:
         args.device = str(device)
     maybe_initialize_distributed(args)
+    build_mesh(MeshConfig(model=args.mesh_model_axis))
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
     require_stable_word_ids(args, tokenizer)

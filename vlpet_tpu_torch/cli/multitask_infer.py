@@ -11,7 +11,9 @@ sows no gate there, dumps none here either.
 ``--distributed`` (or torchrun's environment) evaluates on one process
 per card (parallel/multihost.py): each process predicts its shard of the
 split, the results are merged and rank 0 prints the whole split's
-scores; the gate dump runs on rank 0's first batch.
+scores; the gate dump runs on rank 0's first batch (on its model group's
+ranks under ``--mesh_model_axis``, which split the backbone:
+parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from vlpet_tpu_torch.cli.multitask import (build_loaders,
                                            require_stable_word_ids)
 from vlpet_tpu_torch.cli.param import build_model_config, parse_args
 from vlpet_tpu_torch.data.tokenization import effective_vocab_size, get_tokenizer
+from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from vlpet_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
 
@@ -51,13 +54,15 @@ def gate_modules(model):
 
 
 @torch.no_grad()
-def dump_gates(trainer, loader, store_path: str):
+def dump_gates(trainer, loader, store_path: str, write: bool = True):
     """Run one batch through the model capturing the gate activations (the
-    reference's heatmap dump)."""
+    reference's heatmap dump); ``write`` False runs the forward only (a
+    model-axis peer of the writing rank)."""
     from vlpet_tpu_torch.pet.modules import PetContext
     from vlpet_tpu_torch.train.trainer import array_batch
 
-    os.makedirs(store_path, exist_ok=True)
+    if write:
+        os.makedirs(store_path, exist_ok=True)
     batch = next(iter(loader))
     arr = array_batch(batch, trainer.device)
     ctx = PetContext(task=loader.task, task_idx=trainer.task_idx(loader.task))
@@ -73,6 +78,8 @@ def dump_gates(trainer, loader, store_path: str):
     finally:
         for h in handles:
             h.remove()
+    if not write:
+        return
     for name, t in captured.items():
         np.save(os.path.join(store_path, f"{loader.task}_{name}.npy"),
                 t.float().cpu().numpy())
@@ -84,6 +91,7 @@ def main(argv=None, device=None):
     if device is not None:
         args.device = str(device)
     maybe_initialize_distributed(args)
+    build_mesh(MeshConfig(model=args.mesh_model_axis))
     args.test_only = True
     tasks = tuple(t for t in args.tasks.split(",") if t) or ("vqa",)
     tokenizer, added = get_tokenizer(args.backbone, args.tokenizer_path)
@@ -101,9 +109,11 @@ def main(argv=None, device=None):
                       mesh_model_axis=args.mesh_model_axis,
                       device=args.device)
     if args.use_store_gate_large and args.store_gate_path:
-        if trainer.lead:
+        # a split backbone's forward takes its whole model group
+        if trainer.lead or trainer.layout.model > 1:
             for loader in val_loaders:
-                dump_gates(trainer, loader, args.store_gate_path)
+                dump_gates(trainer, loader, args.store_gate_path,
+                           write=trainer.lead)
         return trainer
     for loader in val_loaders:
         scores = trainer.evaluate(loader, num_beams=args.num_beams,

@@ -9,9 +9,10 @@ of its own: ``--device`` (where the CLIs run: "cuda" by default, "cpu" on
 request, never a silent fallback) and ``--use_fused_ce`` /
 ``--use_fused_beam``, which set the VLModelConfig fields of the same names
 (C1/C2 and D2). ``--distributed`` and its topology flags start one
-process per card over torch.distributed (parallel/multihost.py). Flags of
-the JAX runtime (``--pallas_attention``, ``--mesh_model_axis``) are
-accepted; the trainer rejects what it does not run.
+process per card over torch.distributed (parallel/multihost.py), and
+``--mesh_model_axis`` splits the backbone over a model axis of that many
+processes (parallel/mesh.py). ``--pallas_attention`` (TPU kernel routing)
+is accepted and not read.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     add("--local_rank", type=int, default=-1,
         help="this process's card where LOCAL_RANK is not set")
     add("--mesh_model_axis", type=int, default=1,
-        help="tensor-parallel axis size of the device mesh")
+        help="tensor-parallel axis size of the process mesh (1 where it "
+             "does not divide the world size)")
     add("--pallas_attention", type=str, default="auto",
         choices=("auto", "on", "off"),
         help="fused Pallas attention (auto: on for TPU; T5 falls back "

@@ -18,8 +18,12 @@ answer scores and the step trains the head, elsewhere nothing reads it.
 over torch.distributed (parallel/multihost.py): every process reads its
 own shard of each split, ``--batch_size`` is per process (the global
 batch is the world size times it), and rank 0 alone writes the output.
-``--mesh_model_axis`` > 1 (tensor parallelism) raises
-NotImplementedError.
+``--mesh_model_axis`` M > 1 runs tensor parallelism as well
+(parallel/mesh.py): the processes form a (world / M, M) mesh, each model
+group of M processes splits the backbone's heads and FFN columns and
+reads one data shard (the global batch is world / M times
+``--batch_size``); an M that does not divide the world size falls back to
+1, as in the JAX package. Only the VL-PET recipes run split.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from vlpet_tpu_torch.data.tokenization import (effective_vocab_size,
                                                get_tokenizer)
 from vlpet_tpu_torch.data.video import (VIDEO_CAP_TASKS, VIDEO_QA_TASKS,
                                         build_video_loader)
+from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from vlpet_tpu_torch.parallel.multihost import maybe_initialize_distributed
 
 IMAGE_TASKS = ("vqa", "gqa", "nlvr", "caption")
@@ -48,6 +53,7 @@ def main(task: str, argv=None, device=None):
     if device is not None:
         args.device = str(device)
     maybe_initialize_distributed(args)
+    build_mesh(MeshConfig(model=args.mesh_model_axis))
     if task in IMAGE_TASKS and args.feature_type.startswith("raw_"):
         print(f"single_task {task}: --feature_type {args.feature_type} "
               f"images are not read here (as in the JAX entry point); "

@@ -173,9 +173,14 @@ def load_flax_params(module: torch.nn.Module, params: Mapping,
                      batch_stats: Optional[Mapping] = None,
                      vision: bool = False) -> torch.nn.Module:
     """Copy a flax parameter tree (and a CLIP trunk's batch statistics)
-    into ``module`` (cast to each tensor's dtype and device). Raises on
+    into ``module`` (cast to each tensor's dtype and device); a
+    tensor-parallel module (parallel/mesh.py shard_model) takes its
+    shards of the tree's whole tensors (``shard_state_dict``). Raises on
     unplaced leaves, unset parameters or buffers and shape mismatches."""
-    sd = flax_to_state_dict(params, batch_stats, vision)
+    from vlpet_tpu_torch.parallel.mesh import shard_state_dict
+
+    sd = shard_state_dict(flax_to_state_dict(params, batch_stats, vision),
+                          module)
     own = module.state_dict()
     unplaced = sorted(set(sd) - set(own))
     unset = sorted(set(own) - set(sd))

@@ -68,13 +68,24 @@ __device__ __forceinline__ float drop_elem(float v, uint32_t idx,
 
 // A kernel's dropout arguments: ``on`` = rate > 0, the (1,) int32 device
 // seed read by pointer (no host sync per site), thr = int(rate * 2^31),
-// scale = 1 / (1 - rate).
+// scale = 1 / (1 - rate); an FFN hidden's mask also takes the column base
+// of the kernel's hidden within the whole hidden and that whole width (a
+// tensor-parallel rank's column shard; 0 and F for the whole hidden).
 struct DropArgs {
   const int* seed;
   int on;
   uint32_t thr;
   float scale;
+  uint32_t col_base;
+  uint32_t width;
 };
+
+// The global flat index of hidden element (n, f) of an FFN's hidden
+// dropout: n * width + col_base + f.
+__device__ __forceinline__ uint32_t drop_index(const DropArgs& d, int n,
+                                               int f) {
+  return (uint32_t)n * d.width + d.col_base + (uint32_t)f;
+}
 
 __device__ __forceinline__ uint32_t seed_of(const DropArgs& d) {
   return d.on ? (uint32_t)d.seed[0] : 0u;

@@ -16,7 +16,9 @@
 // rounded to x's dtype before the dx product as the TPU kernel does.
 // Hidden dropout (T5 training): element (n, f) of the (N, F) hidden is
 // kept iff hash_bits(n * F + f, seed) >= thr (common.cuh; the global
-// index, so the 32-row blocks give the TPU's bits), applied in fp32 after
+// index, so the 32-row blocks give the TPU's bits; a tensor-parallel
+// rank's hidden, columns [c0, c0 + F) of a hidden W wide, hashes
+// n * W + c0 + f: common.cuh drop_index), applied in fp32 after
 // the activation and before the bf16 rounding; the backward regenerates
 // the mask on the hidden's cotangent. F4 recomputes h0 = x . W0^T and
 // h1 = x . W1^T, forms dg = dy . Wo, drops it, and folds
@@ -149,7 +151,17 @@
 // 1.2428 -> 0.5183 at N 3000, still 6-7x the bound at the encoder rows:
 // the weight stream holds it, as it holds F1, F3 and F4 (chip_phases.py
 // phase 3j, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+//
+// Three translation units, built in parallel: this file compiles F1's and
+// F3's entry points, the weight re-lays and the fp32 forwards
+// (VLPET_FFN_PART 0); ffn_f2.cu and ffn_f4.cu include it with
+// VLPET_FFN_PART 1 and 2 and compile F2's and F4's entry points alone (the
+// kernels in the anonymous namespace below are each TU's own).
 #include "common.cuh"
+
+#ifndef VLPET_FFN_PART
+#define VLPET_FFN_PART 0
+#endif
 
 using namespace vlpet;
 
@@ -580,7 +592,7 @@ __device__ __forceinline__ void fwd_tc(
             v1 = act_fn(h[j][2 * r + 1] + bb.y, act);
           }
           if (dr.on) {
-            const uint32_t idx = (uint32_t)(n0 + row) * (uint32_t)F + f;
+            const uint32_t idx = drop_index(dr, n0 + row, f);
             v0 = drop_elem(v0, idx, seed, dr.thr, dr.scale);
             v1 = drop_elem(v1, idx + 1u, seed, dr.thr, dr.scale);
           }
@@ -894,8 +906,7 @@ gated_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ dyt,
       for (int r = 0; r < 2; ++r) {
         float2 v = make_float2(h[nt][2 * r], h[nt][2 * r + 1]);
         if (dr.on) {
-          const uint32_t idx =
-              (uint32_t)(n0 + wr + g + 8 * r) * (uint32_t)F + f;
+          const uint32_t idx = drop_index(dr, n0 + wr + g + 8 * r, f);
           v.x = drop_elem(v.x, idx, seed, dr.thr, dr.scale);
           v.y = drop_elem(v.y, idx + 1u, seed, dr.thr, dr.scale);
         }
@@ -1175,8 +1186,7 @@ ffn_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ dyt,
       for (int r = 0; r < 2; ++r) {
         float2 v = make_float2(h[nt][2 * r], h[nt][2 * r + 1]);
         if (dr.on) {
-          const uint32_t idx =
-              (uint32_t)(n0 + wr + g + 8 * r) * (uint32_t)F + f;
+          const uint32_t idx = drop_index(dr, n0 + wr + g + 8 * r, f);
           v.x = drop_elem(v.x, idx, seed, dr.thr, dr.scale);
           v.y = drop_elem(v.y, idx + 1u, seed, dr.thr, dr.scale);
         }
@@ -1390,9 +1400,9 @@ ffn_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
     const float bb = b1[f0 + hc];
     float a0 = act_fn(h0 + bb, act), a1 = act_fn(h1 + bb, act);
     if (dr.on) {
-      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      const uint32_t i0 = drop_index(dr, n0 + hr, f0 + hc);
       a0 = drop_elem(a0, i0, seed, dr.thr, dr.scale);
-      a1 = drop_elem(a1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+      a1 = drop_elem(a1, i0 + 8u * dr.width, seed, dr.thr, dr.scale);
     }
     hs[hr * kFBF + hc] = a0;
     hs[(hr + 8) * kFBF + hc] = a1;
@@ -1469,9 +1479,9 @@ ffn_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
     }
     const float bb = b1[f0 + hc];
     if (dr.on) {
-      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      const uint32_t i0 = drop_index(dr, n0 + hr, f0 + hc);
       g0 = drop_elem(g0, i0, seed, dr.thr, dr.scale);
-      g1 = drop_elem(g1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+      g1 = drop_elem(g1, i0 + 8u * dr.width, seed, dr.thr, dr.scale);
     }
     ds[hr * kFBF + hc] = g0 * act_grad(h0 + bb, act);
     ds[(hr + 8) * kFBF + hc] = g1 * act_grad(h1 + bb, act);
@@ -1553,9 +1563,9 @@ gated_fwd_f32(const float* __restrict__ x, const float* __restrict__ w0,
     }
     float v0 = act_fn(a0, act) * g0, v1 = act_fn(a1, act) * g1;
     if (dr.on) {
-      const uint32_t i0 = (uint32_t)(n0 + hr) * (uint32_t)F + (f0 + hc);
+      const uint32_t i0 = drop_index(dr, n0 + hr, f0 + hc);
       v0 = drop_elem(v0, i0, seed, dr.thr, dr.scale);
-      v1 = drop_elem(v1, i0 + 8u * (uint32_t)F, seed, dr.thr, dr.scale);
+      v1 = drop_elem(v1, i0 + 8u * dr.width, seed, dr.thr, dr.scale);
     }
     hs[hr * kFBF + hc] = v0;
     hs[(hr + 8) * kFBF + hc] = v1;
@@ -1636,8 +1646,8 @@ gated_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
       const int r = hr + 8 * k;
       float gk = g[k];
       if (dr.on)
-        gk = drop_elem(gk, (uint32_t)(n0 + r) * (uint32_t)F + (f0 + hc), seed,
-                       dr.thr, dr.scale);
+        gk = drop_elem(gk, drop_index(dr, n0 + r, f0 + hc), seed, dr.thr,
+                       dr.scale);
       d0[r * kFBF + hc] = gk * b[k] * act_grad(a[k], act);
       d1[r * kFBF + hc] = gk * act_fn(a[k], act);
     }
@@ -1671,12 +1681,17 @@ gated_bwd_f32(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-inline DropArgs drop_args(const void* seed, int drop, int thr, float scale) {
-  return DropArgs{(const int*)seed, drop, (uint32_t)thr, scale};
+inline DropArgs drop_args(const void* seed, int drop, int thr, float scale,
+                          int col_base, int width) {
+  return DropArgs{(const int*)seed, drop, (uint32_t)thr, scale,
+                  (uint32_t)col_base, (uint32_t)width};
 }
 
-inline bool bad_drop(const void* seed, int drop, int thr) {
-  return drop && (seed == nullptr || thr < 0);
+// the hidden's columns [col_base, col_base + F) must lie in its width
+inline bool bad_drop(const void* seed, int drop, int thr, int F,
+                     int col_base, int width) {
+  return (drop && (seed == nullptr || thr < 0)) || col_base < 0 ||
+         width < F || col_base > width - F;
 }
 
 // what the bf16 tensor-core kernels take: D a multiple of 128 up to 1024,
@@ -1691,6 +1706,7 @@ inline bool bad_tc(int D, int F, int S, const void* part) {
 
 }  // namespace
 
+#if VLPET_FFN_PART == 0
 // W1 (F, D) and W2 (D, F) bf16 re-laid out into wt, 2 F D bf16
 // (ffn_w_tiles): what the bf16 F1 reads. D a multiple of 128, F of 64.
 extern "C" int vlpet_ffn_w_tiles(const void* w1, const void* w2, void* wt,
@@ -1714,11 +1730,13 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, const void* seed,
                              const void* wt, void* part, void* y, int N,
                              int D, int F, int S, int act, int is_bf16,
-                             int drop, int thr, float scale, void* stream) {
-  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                             int drop, int thr, float scale, int col_base,
+                             int width, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 ||
+      bad_drop(seed, drop, thr, F, col_base, width))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const DropArgs dr = drop_args(seed, drop, thr, scale);
+  const DropArgs dr = drop_args(seed, drop, thr, scale, col_base, width);
   if (is_bf16) {
     if (wt == nullptr || bad_tc(D, F, S, part))
       return (int)cudaErrorInvalidValue;
@@ -1743,7 +1761,9 @@ extern "C" int vlpet_ffn_fwd(const void* x, const void* w1, const void* b1,
       (const float*)b2, (float*)y, N, D, F, act, dr);
   return (int)cudaGetLastError();
 }
+#endif  // VLPET_FFN_PART == 0
 
+#if VLPET_FFN_PART == 1
 // dx (N, D) in x's dtype, db1 (F,) and db2 (D,) f32 of vlpet_ffn_fwd for dy
 // (N, D); partial: [G][F + D] f32 scratch, the per-block bias sums. bf16:
 // wt from vlpet_ffn_w_tiles (w1, w2 unused), dyt scratch of G 64 D bf16
@@ -1755,11 +1775,13 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
                              void* dx, void* partial, void* db1,
                              void* db2, int N, int D, int F, int G, int S,
                              int act, int is_bf16, int drop, int thr,
-                             float scale, void* stream) {
-  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                             float scale, int col_base, int width,
+                             void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 ||
+      bad_drop(seed, drop, thr, F, col_base, width))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const DropArgs dr = drop_args(seed, drop, thr, scale);
+  const DropArgs dr = drop_args(seed, drop, thr, scale, col_base, width);
   if (is_bf16) {
     if (dyt == nullptr || wt == nullptr || bad_tc(D, F, S, part) ||
         G != (N + kF1Rows - 1) / kF1Rows)
@@ -1790,7 +1812,9 @@ extern "C" int vlpet_ffn_bwd(const void* x, const void* dy, const void* w1,
       (const float*)partial, G, F, D, (float*)db1, (float*)db2);
   return (int)cudaGetLastError();
 }
+#endif  // VLPET_FFN_PART == 1
 
+#if VLPET_FFN_PART == 0
 // W0, W1 (F, D) and Wo (D, F) bf16 re-laid out: gt (gated_w_tiles, what
 // F3 reads and F4's up pieces) or bt (gated_bwd_tiles, the rest of F4's
 // weights), 3 F D bf16 each. D a multiple of 128, F of 64.
@@ -1831,11 +1855,13 @@ extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
                                    const void* seed, const void* gt,
                                    void* part, void* y, int N, int D, int F,
                                    int S, int act, int is_bf16, int drop,
-                                   int thr, float scale, void* stream) {
-  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                                   int thr, float scale, int col_base,
+                                   int width, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 ||
+      bad_drop(seed, drop, thr, F, col_base, width))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const DropArgs dr = drop_args(seed, drop, thr, scale);
+  const DropArgs dr = drop_args(seed, drop, thr, scale, col_base, width);
   if (is_bf16) {
     if (gt == nullptr || bad_tc(D, F, S, part))
       return (int)cudaErrorInvalidValue;
@@ -1860,7 +1886,9 @@ extern "C" int vlpet_gated_ffn_fwd(const void* x, const void* w0,
       (float*)y, N, D, F, act, dr);
   return (int)cudaGetLastError();
 }
+#endif  // VLPET_FFN_PART == 0
 
+#if VLPET_FFN_PART == 2
 // dx (N, D) of vlpet_gated_ffn_fwd for dy (N, D). bf16: gt and bt from
 // the re-lay entries (w0, w1, wo unused), dyt scratch of ceil(N / 64) 64 D
 // bf16 (dy re-laid out), S and part as the forward's; fp32: w0, w1, wo,
@@ -1871,11 +1899,13 @@ extern "C" int vlpet_gated_ffn_bwd(const void* x, const void* dy,
                                    void* dyt, const void* gt, const void* bt,
                                    void* part, void* dx, int N, int D, int F,
                                    int S, int act, int is_bf16, int drop,
-                                   int thr, float scale, void* stream) {
-  if (N < 1 || S < 1 || act < 0 || act > 2 || bad_drop(seed, drop, thr))
+                                   int thr, float scale, int col_base,
+                                   int width, void* stream) {
+  if (N < 1 || S < 1 || act < 0 || act > 2 ||
+      bad_drop(seed, drop, thr, F, col_base, width))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const DropArgs dr = drop_args(seed, drop, thr, scale);
+  const DropArgs dr = drop_args(seed, drop, thr, scale, col_base, width);
   if (is_bf16) {
     if (dyt == nullptr || gt == nullptr || bt == nullptr ||
         bad_tc(D, F, S, part))
@@ -1902,3 +1932,4 @@ extern "C" int vlpet_gated_ffn_bwd(const void* x, const void* dy,
       (const float*)wo, (float*)dx, N, D, F, act, dr);
   return (int)cudaGetLastError();
 }
+#endif  // VLPET_FFN_PART == 2

@@ -21,7 +21,7 @@ import numpy as np
 from vlpet_tpu_torch.data.datasets import DatasetConfig, Loader, TaskDataset
 from vlpet_tpu_torch.data.features import DictFeatureSource, NpzVideoSource
 from vlpet_tpu_torch.evalsuite.video import TVCEvaluator, TVQAEvaluator
-from vlpet_tpu_torch.parallel.multihost import host_shard
+from vlpet_tpu_torch.parallel.multihost import data_shard
 
 VIDEO_QA_TASKS = ("tvqa", "how2qa")
 VIDEO_CAP_TASKS = ("tvc", "yc2c")
@@ -120,9 +120,9 @@ def build_video_loader(task: str, args, tokenizer, split: str, mode: str,
             feat_dim=int(args.feat_dim), seed=args.seed)
     ds = TaskDataset(cfg, examples, source, tokenizer, mode=mode,
                      seed=args.seed)
-    # per-process disjoint shards (the reference's DistributedSampler
+    # per-data-shard disjoint shards (the reference's DistributedSampler
     # role); the eval shards too, which Trainer.predict merges
-    shard, num_shards = host_shard()
+    shard, num_shards = data_shard()
     return Loader(ds, args.batch_size if mode == "train" else args.valid_batch_size,
                   shuffle=(mode == "train"), drop_last=(mode == "train"),
                   evaluator=evaluator, shard=shard, num_shards=num_shards)

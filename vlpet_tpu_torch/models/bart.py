@@ -39,6 +39,15 @@ ops.decode.beam_decode_attend_update (D2, which also writes the cache
 slot), every other decode-step KV write through
 ops.cache_update.cache_slots_update (U1, K and V in one launch), each
 picked by ops.route (the plain twins inside ``ops.plain_twins()``).
+
+Tensor parallelism (parallel/mesh.py ``shard_model``): a sharded
+attention holds its rank's heads (``shard_``: q/k/v rows, out_proj's input
+columns; A1 / A6 / the long backward at H/M heads with the dropout seed
+moved by ``fold_heads``), a sharded layer its rank's FFN hidden columns
+(F1 / F2 at F/M columns with the hidden's column base and whole width, a
+zero b2); the replicated stream enters a shard through
+``copy_to_model`` and leaves it through ``reduce_from_model`` with the
+bias added once (parallel/tensor.py).
 """
 
 from __future__ import annotations
@@ -71,7 +80,10 @@ from vlpet_tpu_torch.ops.decode import (beam_cross_attend, beam_decode_attend,
 from vlpet_tpu_torch.ops.ffn import ffn_reference, fused_ffn
 from vlpet_tpu_torch.ops.fused_ln import (fused_dropout_add_ln,
                                           fused_dropout_add_ln_reference)
-from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
+from vlpet_tpu_torch.ops.hashdrop import (DropoutSeeds, fold_heads,
+                                          hash_dropout)
+from vlpet_tpu_torch.parallel.tensor import (ModelShard, copy_to_model,
+                                             end_of_shard, row_parallel)
 from vlpet_tpu_torch.pet.hypernet import (MetaLayersAdapterController,
                                           stack_hypernet)
 from vlpet_tpu_torch.pet.modules import (MULTIHEAD_ADAPTERS,
@@ -231,6 +243,22 @@ class ResidualDropoutLayerNorm(nn.Module):
         return fn(h, residual, self.scale, self.bias, seed, self.rate)
 
 
+def shard_ffn(layer: nn.Module, shard: ModelShard, ups: Tuple[str, ...],
+              down: str, buffers: Tuple[str, ...] = ()) -> None:
+    """Mark an FFN's owner as holding its rank's hidden columns: the up
+    projections ``ups`` keep their rows, ``down`` its input columns
+    (parallel/mesh.py shard_model has cut the weights), the hidden-wide
+    ``buffers`` their columns."""
+    local = shard.local(layer.ffn_width)
+    layer.tp = shard
+    for name in ups:
+        getattr(layer, name).out_dim = local
+    getattr(layer, down).in_dim = local
+    for name in buffers:
+        setattr(layer, name, getattr(layer, name).narrow(
+            -1, shard.base(layer.ffn_width), local).clone())
+
+
 def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
          seeds: Optional[DropoutSeeds] = None) -> torch.Tensor:
     """fc1 -> act -> (dropout) -> fc2 of a layer: through F1/F2 (or their
@@ -243,11 +271,14 @@ def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
     (``decoder_ff_ia3_mod``) scales the hidden between act and fc2, h * g
     (h + h * g under ``use_decoder_ff_ia3_add``), then drops it
     (``hash_dropout``): the plain chain always, as the JAX package leaves
-    fused_ffn there (vlpet_tpu/models/bart.py:842-859)."""
-    c = layer.cfg
+    fused_ffn there (vlpet_tpu/models/bart.py:842-859). A sharded layer
+    (``layer.tp``) runs its hidden columns: the kernels' mask at its
+    column base of the whole width, a zero b2, fc2's bias once after the
+    ranks' sum."""
+    c, tp = layer.cfg, layer.tp
     rate, seed = _rate_seed(seeds, c.backbone.activation_dropout,
                             _per_example(x) // x.shape[-1]
-                            * layer.fc1.out_dim)
+                            * layer.ffn_width)
     ia3 = layer._modules.get("decoder_ff_ia3_mod")
     if ia3 is not None:
         h = get_activation(act)(layer.fc1(x))
@@ -259,8 +290,14 @@ def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
     fn = (route(fused_ffn, ffn_reference)
           if c.use_fused_ffn and not c.pet.unfreeze_language_model
           else ffn_reference)
+    b2, cols = layer.fc2.bias, {}
+    if tp is not None:
+        x, b2 = copy_to_model(x, tp), torch.zeros_like(b2)
+        cols = dict(col_base=tp.base(layer.ffn_width), width=layer.ffn_width)
     y = fn(x.reshape(-1, x.shape[-1]), layer.fc1.weight, layer.fc1.bias,
-           layer.fc2.weight, layer.fc2.bias, act, rate, seed)
+           layer.fc2.weight, b2, act, rate, seed, **cols)
+    if tp is not None:
+        y = end_of_shard(y, layer.fc2.bias, tp)
     return y.reshape(x.shape)
 
 
@@ -268,7 +305,12 @@ class BartAttention(nn.Module):
     """Multi-head attention in one of three roles: 'enc_self' (full
     sequence), 'dec_self' (causal over the target sequence in training,
     incremental over the KV cache in decoding) and 'cross' (over the
-    encoder states, or over precomputed cross K/V in decoding)."""
+    encoder states, or over precomputed cross K/V in decoding).
+    ``num_heads`` is the heads this rank holds: all of them
+    (``whole_heads``) unless ``shard_`` gave it a model-axis shard
+    (``tp``)."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, cfg: VLModelConfig, embed_dim: int, num_heads: int,
                  role: str, device: Device = "cuda"):
@@ -276,6 +318,7 @@ class BartAttention(nn.Module):
         p = cfg.pet
         self.cfg, self.role = cfg, role
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.whole_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.scaling = self.head_dim ** -0.5
         dt = compute_dtype(cfg)
@@ -349,6 +392,41 @@ class BartAttention(nn.Module):
                                           **kw))
                     break
 
+    def shard_(self, shard: ModelShard) -> None:
+        """Hold this rank's heads of the model axis (parallel/mesh.py
+        shard_model has cut q/k/v's rows and out_proj's columns)."""
+        self.tp = shard
+        self.num_heads = shard.local(self.whole_heads)
+        inner = self.num_heads * self.head_dim
+        for name in ("q_proj", "k_proj", "v_proj"):
+            getattr(self, name).out_dim = inner
+        self.out_proj.in_dim = inner
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated input on its way into this rank's heads."""
+        return x if self.tp is None else copy_to_model(x, self.tp)
+
+    def _cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's head columns of a whole (B, S, H*Dh) tensor, behind
+        ``copy_to_model``."""
+        return self.tp.columns(x, self.whole_heads, self.head_dim)
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """out_proj: row-parallel on a sharded attention."""
+        if self.tp is None:
+            return self.out_proj(out)
+        return row_parallel(out, self.out_proj.weight, self.out_proj.bias,
+                            self.tp)
+
+    def _probs_seed(self, seeds: Optional[DropoutSeeds], per_example: int):
+        """(rate, seed) of the probabilities' dropout site; a sharded
+        attention's seed moved to its first head (``fold_heads``)."""
+        rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
+                                per_example)
+        if seed is not None and self.tp is not None:
+            seed = fold_heads(seed, self.tp.base(self.whole_heads))
+        return rate, seed
+
     @staticmethod
     def _multihead_vpa(p):
         """The multihead VPA's class (down, or pair), or None."""
@@ -390,7 +468,8 @@ class BartAttention(nn.Module):
             k = self.k_proj(h)
             return q, k, self._proj(self.v_proj, h, ctx, seeds)
         W, b = qkv if qkv is not None else self.fused_qkv()
-        q, k, v = F.linear(h.to(W.dtype), W, b).split(self.embed_dim, dim=-1)
+        q, k, v = F.linear(h.to(W.dtype), W, b).split(
+            self.num_heads * self.head_dim, dim=-1)
         return q * self.scaling, k.contiguous(), v.contiguous()
 
     def compute_cross_kv(self, kv_states: torch.Tensor, ctx: PetContext,
@@ -402,13 +481,22 @@ class BartAttention(nn.Module):
         / pair VPA (v + A(states)); then, under the residual connection, v
         times its gate where there is one, plus the states in v's dtype.
         Computed once per sequence: the training pass and the decode
-        precompute both come here."""
-        p, mods = self.cfg.pet, self._modules
-        k = self.k_proj(kv_states)
+        precompute both come here. On a sharded attention K/V hold the
+        rank's heads, and every whole term added into v (the VPA's output,
+        its gate, the residual states) gives v its head columns behind
+        ``copy_to_model``, so the VPA's gradient comes back whole."""
+        p, mods, tp = self.cfg.pet, self._modules, self.tp
+        kv_in = self._enter(kv_states)
+        k = self.k_proj(kv_in)
         if "attn_key_parallel_adapter" in mods:
             k = self.attn_key_parallel_adapter(kv_states, ctx, y=k)
-        v = self._proj(self.v_proj, kv_states, ctx, seeds)
-        if "attn_value_parallel_adapter" in mods:
+        v = self._proj(self.v_proj, kv_in, ctx, seeds)
+        if "attn_value_parallel_adapter" in mods and tp is not None:
+            # the adapter's output alone (plus a zero), then its columns
+            out = self.attn_value_parallel_adapter(kv_states, ctx,
+                                                   y=v.new_zeros(()))
+            v = v + self._cols(out)
+        elif "attn_value_parallel_adapter" in mods:
             v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
         elif "enc_attn_value_sequential_adapter" in mods:
             v = self.enc_attn_value_sequential_adapter(kv_states, ctx)
@@ -423,8 +511,10 @@ class BartAttention(nn.Module):
             gate = (mods.get("enc_attn_value_sequential_adapter_gating_large_x")
                     or mods.get("enc_attn_value_parallel_adapter_gating_large_x"))
             if gate is not None:
-                v = v * gate(kv_states)
-            v = kv_states.to(v.dtype) + v
+                g = gate(kv_states)
+                v = v * (g if tp is None else self._cols(g))
+            v = (kv_states if tp is None
+                 else self._cols(kv_states)).to(v.dtype) + v
         return k, v
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
@@ -454,39 +544,36 @@ class BartAttention(nn.Module):
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
+        x = self._enter(hidden_states)
         if self.role == "cross":
-            q = self._proj(self.q_proj, hidden_states, ctx,
-                           seeds) * self.scaling
+            q = self._proj(self.q_proj, x, ctx, seeds) * self.scaling
             if cross_kv is None:
                 cross_kv = self.compute_cross_kv(kv_states, ctx, seeds)
             k, v = cross_kv
             if k.shape[0] != B:  # beam-shared encoder K/V
                 out = beam_cross_attend(q.reshape(B * L, 1, H, Dh), k, v,
                                         attention_mask, attend)
-                return self.out_proj(out.reshape(B, L, -1)), cache
+                return self._out(out.reshape(B, L, -1)), cache
             m = attention_mask.float()
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
-                                    L * k.shape[1])
-            return self.out_proj(attend(q, k, v, m, H, False, None, rate,
-                                        seed)), cache
-        q, k, v = self._qkv(hidden_states, ctx, qkv, seeds)
+            rate, seed = self._probs_seed(seeds, L * k.shape[1])
+            return self._out(attend(q, k, v, m, H, False, None, rate,
+                                    seed)), cache
+        q, k, v = self._qkv(x, ctx, qkv, seeds)
         if prefix_kv is not None:
             k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
             v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
         if self.role == "enc_self":
             m = attention_mask.float()
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
-                                    L * k.shape[1])
-            return self.out_proj(attend(q, k, v, m, H, False, None, rate,
-                                        seed)), cache
+            rate, seed = self._probs_seed(seeds, L * k.shape[1])
+            return self._out(attend(q, k, v, m, H, False, None, rate,
+                                    seed)), cache
         if cache is None:
             # teacher forcing: the triangle in-kernel, a zero padding mask
             m = torch.zeros((1, 1, 1, k.shape[1]), dtype=torch.float32,
                             device=q.device)
-            rate, seed = _rate_seed(seeds, self.cfg.backbone.attention_dropout,
-                                    L * k.shape[1])
-            return self.out_proj(attend(q, k, v, m, H, True, None, rate,
-                                        seed)), cache
+            rate, seed = self._probs_seed(seeds, L * k.shape[1])
+            return self._out(attend(q, k, v, m, H, True, None, rate,
+                                    seed)), cache
         q4 = q.reshape(B, 1, H, Dh)
         if beam_anc is not None and self.cfg.use_fused_beam:
             # D2: attend over the slots before decode_pos plus the own new
@@ -494,14 +581,14 @@ class BartAttention(nn.Module):
             fn = route(beam_decode_attend_update,
                        beam_decode_attend_update_reference)
             out = fn(q4, cache["k"], cache["v"], k, v, beam_anc, decode_pos)
-            return self.out_proj(out), cache
+            return self._out(out), cache
         write_slot(cache, k, v, decode_pos)
         if beam_anc is not None:
             fn = route(beam_decode_attend, beam_decode_attend_reference)
             out = fn(q4, cache["k"], cache["v"], beam_anc, decode_pos)
         else:
             out = decode_attend(q4, cache["k"], cache["v"], attention_mask)
-        return self.out_proj(out), cache
+        return self._out(out), cache
 
 
 class BartEncoderLayer(nn.Module):
@@ -543,6 +630,12 @@ class BartEncoderLayer(nn.Module):
         ("use_encoder_adapter_gating_l2norm", None, None, False),
     )
 
+    tp: Optional[ModelShard] = None  # the FFN's hidden-column shard
+
+    def shard_(self, shard: ModelShard) -> None:
+        """Hold this rank's FFN hidden columns (``shard_ffn``)."""
+        shard_ffn(self, shard, ("fc1",), "fc2")
+
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         p, b = cfg.pet, cfg.backbone
@@ -556,6 +649,7 @@ class BartEncoderLayer(nn.Module):
             d, dt, b.dropout, device=device)
         self.fc1 = TaskDense(d, b.encoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.encoder_ffn_dim, d, **kw)
+        self.ffn_width = b.encoder_ffn_dim
         self.final_layer_norm = ResidualDropoutLayerNorm(d, dt, b.dropout,
                                                          device=device)
         self.serial = ((p.use_adapter or p.use_compacter or p.use_lradapter)
@@ -697,6 +791,12 @@ class BartDecoderLayer(nn.Module):
                 "feed_forward": ("ff_adapter", "decoder_ff_adapter",
                                  "ff_adapter_multihead")}
 
+    tp: Optional[ModelShard] = None  # the FFN's hidden-column shard
+
+    def shard_(self, shard: ModelShard) -> None:
+        """Hold this rank's FFN hidden columns (``shard_ffn``)."""
+        shard_ffn(self, shard, ("fc1",), "fc2")
+
     def __init__(self, cfg: VLModelConfig, device: Device = "cuda"):
         super().__init__()
         b = cfg.backbone
@@ -716,6 +816,7 @@ class BartDecoderLayer(nn.Module):
                                                          device=device)
         self.fc1 = TaskDense(d, b.decoder_ffn_dim, **kw)
         self.fc2 = TaskDense(b.decoder_ffn_dim, d, **kw)
+        self.ffn_width = b.decoder_ffn_dim
         p = cfg.pet
         ac = dict(phm_W_dims=shared_phm_W_dims(p, d), **kw)
         serial = ((p.use_adapter or p.use_compacter or p.use_lradapter)

@@ -38,13 +38,15 @@ def topk_lse(logits: torch.Tensor, k: int):
 
 def init_self_cache(cfg, batch_size: int, max_len: int,
                     dtype: torch.dtype = torch.float32,
-                    device: Device = "cuda"):
-    """Per-layer self-attention KV cache, time-major (L, B, H*Dh)."""
+                    device: Device = "cuda", model_axis: int = 1):
+    """Per-layer self-attention KV cache, time-major (L, B, H*Dh): of the
+    rank's H / ``model_axis`` heads under tensor parallelism."""
     b = cfg.backbone
     if cfg.is_t5:
         n_layers, inner = b.num_decoder_layers, b.num_heads * b.d_kv
     else:
         n_layers, inner = b.decoder_layers, b.d_model
+    inner //= model_axis
     device = resolve_device(device)
 
     def layer():
@@ -209,7 +211,9 @@ def seq2seq_generate(model, *, input_ids, attention_mask, vis_feats=None,
     dtype = compute_dtype(cfg)
     prefill = model.prefill_kvs(n, ctx)
     P = prefill[0][0].shape[1] if prefill is not None else 0
-    cache = init_self_cache(cfg, n, max_length + P, dtype, device)
+    tp = getattr(model, "tp", None)
+    cache = init_self_cache(cfg, n, max_length + P, dtype, device,
+                            model_axis=tp.size if tp is not None else 1)
     for layer, (k, v) in zip(cache, prefill or ()):
         layer["k"][:P] = k.transpose(0, 1).to(dtype)
         layer["v"][:P] = v.transpose(0, 1).to(dtype)

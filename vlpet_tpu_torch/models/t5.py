@@ -62,6 +62,13 @@ through ops.ffn.fused_gated_ffn (F3, backward F4), unless ``use_fused_ffn`` is o
 trains (the FFN kernels have no weight gradient). Parameter names are
 the flax tree's (``blocks_{i}``, ``shared``, ``lm_head``), so
 vlpet_tpu_torch.convert carries the weights across unchanged.
+
+Tensor parallelism (parallel/mesh.py ``shard_model``) as in models/bart.py:
+a sharded T5Attention holds its rank's heads (q/k/v rows, o's columns;
+the relative bias sliced to them where it is built; the VPA's output
+added to v's head columns behind ``copy_to_model``), a sharded T5Block its
+FFN hidden columns (F1 / F2 relu, F3 / F4 gated, at the hidden's column
+base and whole width), wo and o row-parallel.
 """
 
 from __future__ import annotations
@@ -77,7 +84,8 @@ from vlpet_tpu_torch.config import VLModelConfig
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.bart import (NEG_INF, _per_example, _seed,
                                          compute_dtype, expand_mask,
-                                         prompt_controller, write_slot)
+                                         prompt_controller, shard_ffn,
+                                         write_slot)
 from vlpet_tpu_torch.models.generate import topk_lse
 from vlpet_tpu_torch.models.norm import RMSNorm
 from vlpet_tpu_torch.models.visual import (LowRankVisualEmbedding,
@@ -102,7 +110,10 @@ from vlpet_tpu_torch.ops.fused_ce import (fused_linear_ce,
                                           fused_linear_ce_plain)
 from vlpet_tpu_torch.ops.ffn import (ffn_reference, fused_ffn,
                                      fused_gated_ffn, gated_ffn_reference)
-from vlpet_tpu_torch.ops.hashdrop import DropoutSeeds, hash_dropout
+from vlpet_tpu_torch.ops.hashdrop import (DropoutSeeds, fold_heads,
+                                          hash_dropout)
+from vlpet_tpu_torch.parallel.tensor import (ModelShard, copy_to_model,
+                                             end_of_shard, row_parallel)
 from vlpet_tpu_torch.pet.hypernet import (MetaLayersAdapterController,
                                           TaskEmbeddingController,
                                           stack_hypernet)
@@ -140,7 +151,11 @@ def relative_position_bucket(relative_position: torch.Tensor,
 class T5Attention(nn.Module):
     """T5 attention in one of three roles: 'enc_self', 'dec_self'
     (causal over the target sequence, or incremental over the KV cache)
-    and 'cross' (over the encoder states or precomputed cross K/V)."""
+    and 'cross' (over the encoder states or precomputed cross K/V).
+    ``num_heads``: the heads this rank holds (``whole_heads`` unless
+    ``shard_`` gave it a model-axis shard ``tp``)."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, cfg: VLModelConfig, role: str,
                  has_relative_attention_bias: bool = False,
@@ -149,6 +164,7 @@ class T5Attention(nn.Module):
         b, p = cfg.backbone, cfg.pet
         self.cfg, self.role = cfg, role
         self.num_heads, self.head_dim = b.num_heads, b.d_kv
+        self.whole_heads = b.num_heads
         self.dtype = dt = compute_dtype(cfg)
         inner = b.num_heads * b.d_kv
         kw = dict(use_bias=False, dtype=dt, device=device)
@@ -169,15 +185,38 @@ class T5Attention(nn.Module):
                 (b.relative_attention_num_buckets, b.num_heads),
                 device=resolve_device(device)))
 
+    def shard_(self, shard: ModelShard) -> None:
+        """Hold this rank's heads of the model axis (parallel/mesh.py
+        shard_model has cut q/k/v's rows and o's columns; the relative
+        bias stays whole)."""
+        self.tp = shard
+        self.num_heads = shard.local(self.whole_heads)
+        inner = self.num_heads * self.head_dim
+        for mod in (self.q, self.k, self.v):
+            mod.out_dim = inner
+        self.o.in_dim = inner
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else copy_to_model(x, self.tp)
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.o(out)
+        return row_parallel(out, self.o.weight, None, self.tp)
+
     def _bias(self, rel: torch.Tensor) -> torch.Tensor:
         """(1, H, *rel.shape) bias of relative positions ``rel`` (key minus
-        query), rounded to the compute dtype as the JAX module does."""
+        query), rounded to the compute dtype as the JAX module does; the
+        rank's heads of a sharded attention."""
         b = self.cfg.backbone
         buckets = relative_position_bucket(
             rel, bidirectional=self.role != "dec_self",
             num_buckets=b.relative_attention_num_buckets,
             max_distance=b.relative_attention_max_distance)
-        values = self.relative_attention_bias[buckets]  # (q, k, H)
+        table = self.relative_attention_bias
+        if self.tp is not None:
+            table = self.tp.columns(table, self.whole_heads)
+        values = table[buckets]  # (q, k, H)
         return values.permute(2, 0, 1)[None].to(self.dtype)
 
     def compute_bias(self, q_len: int, k_len: int) -> torch.Tensor:
@@ -193,10 +232,16 @@ class T5Attention(nn.Module):
 
     def compute_cross_kv(self, kv_states: torch.Tensor, ctx: PetContext):
         """Cross K/V (B, S, H*Dh), the VPA included (on the raw encoder
-        states): computed once per sequence."""
-        k = self.k(kv_states)
-        v = self.v(kv_states)
-        if self.has_vpa:
+        states): computed once per sequence. A sharded attention's VPA
+        output gives v its head columns behind ``copy_to_model``."""
+        kv_in = self._enter(kv_states)
+        k = self.k(kv_in)
+        v = self.v(kv_in)
+        if self.has_vpa and self.tp is not None:
+            out = self.attn_value_parallel_adapter(kv_states, ctx,
+                                                   y=v.new_zeros(()))
+            v = v + self.tp.columns(out, self.whole_heads, self.head_dim)
+        elif self.has_vpa:
             v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
         return k, v
 
@@ -214,28 +259,33 @@ class T5Attention(nn.Module):
         at a decode step the (1, H, 1, L_cache) row (beam) or row plus the
         causal mask (greedy). The decode cache is updated IN PLACE at slot
         ``decode_pos``. ``rate`` > 0 (training, whole sequences): dropout
-        of the probabilities, driven by ``seed``."""
+        of the probabilities, driven by ``seed`` (a sharded attention's
+        moved to its first head). The bias of a sharded attention holds its
+        heads (``_bias``)."""
         B, L, _ = hidden_states.shape
         H, Dh = self.num_heads, self.head_dim
         attend = route(fused_attention, fused_attention_reference)
-        q = self.q(hidden_states)  # no scaling (T5)
+        if seed is not None and self.tp is not None:
+            seed = fold_heads(seed, self.tp.base(self.whole_heads))
+        x = self._enter(hidden_states)
+        q = self.q(x)  # no scaling (T5)
         if self.role == "cross":
             k, v = (cross_kv if cross_kv is not None
                     else self.compute_cross_kv(kv_states, ctx))
             if k.shape[0] != B:  # beam-shared encoder K/V
                 out = beam_cross_attend(q.reshape(B * L, 1, H, Dh), k, v,
                                         mask, attend)
-                return self.o(out.reshape(B, L, -1))
-            return self.o(attend(q, k, v, mask.float(), H, False, None, rate,
-                                 seed))
-        k = self.k(hidden_states)
-        v = self.v(hidden_states)
+                return self._out(out.reshape(B, L, -1))
+            return self._out(attend(q, k, v, mask.float(), H, False, None,
+                                    rate, seed))
+        k = self.k(x)
+        v = self.v(x)
         if cache is None:
             if mask is None:  # teacher-forced decoder: no padding mask
                 mask = torch.zeros((1, 1, 1, L), dtype=torch.float32,
                                    device=q.device)
-            return self.o(attend(q, k, v, mask.float(), H, causal, bias, rate,
-                                 seed))
+            return self._out(attend(q, k, v, mask.float(), H, causal, bias,
+                                    rate, seed))
         q4 = q.reshape(B, 1, H, Dh)
         if beam_anc is not None and self.cfg.use_fused_beam:
             # D2 (vlpet_tpu/models/t5.py:196-211): the own row gets the
@@ -245,14 +295,14 @@ class T5Attention(nn.Module):
                        beam_decode_attend_update_reference)
             out = fn(q4, cache["k"], cache["v"], k, v, beam_anc, decode_pos,
                      bias[0, :, 0, decode_pos], bias)
-            return self.o(out)
+            return self._out(out)
         write_slot(cache, k, v, decode_pos)
         if beam_anc is not None:
             fn = route(beam_decode_attend, beam_decode_attend_reference)
             out = fn(q4, cache["k"], cache["v"], beam_anc, decode_pos, bias)
         else:
             out = decode_attend(q4, cache["k"], cache["v"], bias_row=bias)
-        return self.o(out)
+        return self._out(out)
 
 
 class T5EncoderHooks(nn.Module):
@@ -349,6 +399,8 @@ class T5Block(nn.Module):
     ``no_decoder_adapter``) and then the hyperformer adapter
     (``adapter_hypernet``), in the JAX order (:524-570)."""
 
+    tp: Optional[ModelShard] = None  # the FFN's hidden-column shard
+
     def __init__(self, cfg: VLModelConfig, is_decoder: bool = False,
                  has_relative_attention_bias: bool = False,
                  device: Device = "cuda"):
@@ -380,6 +432,7 @@ class T5Block(nn.Module):
                                  torch.zeros(b.d_model, device=dev),
                                  persistent=False)
         self.wo = TaskDense(b.d_ff, b.d_model, **kw)
+        self.ffn_width = b.d_ff
         p = cfg.pet
         if not is_decoder:
             self.attn_hooks = T5EncoderHooks(cfg, "attn", device)
@@ -398,23 +451,39 @@ class T5Block(nn.Module):
             if p.use_hyperformer:
                 self.adapter_hypernet = _meta_adapter(p, dt)
 
+    def shard_(self, shard: ModelShard) -> None:
+        """Hold this rank's FFN hidden columns (models/bart.py
+        ``shard_ffn``)."""
+        if self.gated:
+            shard_ffn(self, shard, ("wi_0", "wi_1"), "wo")
+        else:
+            shard_ffn(self, shard, ("wi",), "wo", buffers=("zero_b1",))
+
     def _ff(self, x: torch.Tensor, rate: float = 0.0,
             seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The FFN with its hidden dropout: the kernels (F1/F2 relu, F3/F4
         gated) unless ``use_fused_ffn`` is off or the language model trains
-        (the kernels give no weight gradient), as BART's ``_ffn``."""
-        c = self.cfg
+        (the kernels give no weight gradient), as BART's ``_ffn``; a
+        sharded block's hidden columns, wo row-parallel."""
+        c, tp = self.cfg, self.tp
         fused = c.use_fused_ffn and not c.pet.unfreeze_language_model
+        cols = {}
+        if tp is not None:
+            x = copy_to_model(x, tp)
+            cols = dict(col_base=tp.base(self.ffn_width),
+                        width=self.ffn_width)
         x2 = x.reshape(-1, x.shape[-1])
         if self.gated:
             fn = (route(fused_gated_ffn, gated_ffn_reference) if fused
                   else gated_ffn_reference)
             y = fn(x2, self.wi_0.weight, self.wi_1.weight, self.wo.weight,
-                   "gelu_new", rate, seed)
+                   "gelu_new", rate, seed, **cols)
         else:
             fn = route(fused_ffn, ffn_reference) if fused else ffn_reference
             y = fn(x2, self.wi.weight, self.zero_b1, self.wo.weight,
-                   self.zero_b2, "relu", rate, seed)
+                   self.zero_b2, "relu", rate, seed, **cols)
+        if tp is not None:
+            y = end_of_shard(y, None, tp)
         return y.reshape(x.shape)
 
     def _adapt(self, y: torch.Tensor, name: str, block, part: str,

@@ -50,24 +50,26 @@ _SIGNATURES = {
     # w1, w2, wt (F1's re-laid weights), D, F, stream
     "vlpet_ffn_w_tiles": [_P] * 3 + [_I] * 2 + [_P],
     # x, w1, b1, w2, b2, seed (or NULL), wt (bf16; NULL for fp32), partials
-    # (or NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, stream
-    "vlpet_ffn_fwd": [_P] * 9 + [_I] * 8 + [_F, _P],
+    # (or NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, the
+    # hidden's column base and whole width (ops/ffn.py), stream
+    "vlpet_ffn_fwd": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     # w0, w1, wo, F3's re-laid weights (gt) or F4's others (bt), D, F,
     # stream
     "vlpet_gated_w_tiles": [_P] * 4 + [_I] * 2 + [_P],
     "vlpet_gated_bwd_tiles": [_P] * 4 + [_I] * 2 + [_P],
     # x, w0, w1, wo, seed (or NULL), gt (bf16; NULL for fp32), partials (or
-    # NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, stream
-    "vlpet_gated_ffn_fwd": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # NULL), y, N, D, F, splits, act, is_bf16, drop, thr, scale, column
+    # base, width, stream
+    "vlpet_gated_ffn_fwd": [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     # x, dy, w0, w1, wo, seed (or NULL), dy re-laid (scratch), gt, bt (bf16;
     # NULL for fp32), partials (or NULL), dx, N, D, F, splits, act, is_bf16,
-    # drop, thr, scale, stream
-    "vlpet_gated_ffn_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # drop, thr, scale, column base, width, stream
+    "vlpet_gated_ffn_bwd": [_P] * 11 + [_I] * 8 + [_F, _I, _I, _P],
     # x, dy, w1, b1, w2, seed (or NULL), dy re-laid (scratch), wt (F1's
     # re-laid weights; both NULL for fp32), partials of dx (or NULL), dx,
     # bias partials, db1, db2, N, D, F, G, splits, act, is_bf16, drop, thr,
-    # scale, stream
-    "vlpet_ffn_bwd": [_P] * 13 + [_I] * 9 + [_F, _P],
+    # scale, column base, width, stream
+    "vlpet_ffn_bwd": [_P] * 13 + [_I] * 9 + [_F, _I, _I, _P],
     # h, res, gamma, beta, seed, y, N, D, drop, thr, scale, eps, is_bf16,
     # then the plan (ops/fused_ln.py ln_plan): stages, blocks; stream
     "vlpet_ln_fwd": [_P] * 6 + [_I] * 4 + [_F, _F] + [_I] * 3 + [_P],

@@ -26,6 +26,14 @@ element (n, f) of the (N, F) hidden is kept iff keep_mask((N, F), 0, seed,
 rate) (ops/hashdrop.py), applied in fp32 after the activation (after the
 gating product in the gated FFN) and regenerated in the backward, as the
 TPU kernels do (vlpet_tpu/ops/ffn.py:182-189, :343-347).
+
+Column shards (tensor parallelism): a rank that holds the hidden columns
+[col_base, col_base + F) of a hidden ``width`` wide passes both
+(``col_base``, ``width``; defaults 0 and F): element (n, f) is then kept
+iff keep_mask((N, F), 0, seed, rate, col_base=col_base, width=width), the
+whole hidden's mask at (n, col_base + f), in the kernels and the plain
+twins alike. The caller passes a zero b2 and adds the bias once after the
+ranks' partial outputs are summed.
 """
 
 from __future__ import annotations
@@ -49,12 +57,15 @@ _F1_CHUNK = 64   # hidden columns of an F1 chunk (kFc)
 _F1_MAX_DU = 6   # 128-column y pieces a bf16 F1 block (kF1MaxDu)
 
 
-def _drop_hidden(h: torch.Tensor, rate: float, seed) -> torch.Tensor:
+def _drop_hidden(h: torch.Tensor, rate: float, seed, col_base: int = 0,
+                 width=None) -> torch.Tensor:
     """The (N, F) hidden through the hash dropout in fp32, back in h's
-    dtype (the kernels round the dropped fp32 hidden)."""
+    dtype (the kernels round the dropped fp32 hidden); columns from
+    ``col_base`` of a hidden ``width`` wide."""
     if rate <= 0.0:
         return h
-    keep = keep_mask(h.shape, 0, seed, rate, device=h.device)
+    keep = keep_mask(h.shape, 0, seed, rate, device=h.device,
+                     col_base=col_base, width=width)
     hf = h.float()
     return torch.where(keep, hf * (1.0 / (1.0 - rate)),
                        torch.zeros_like(hf)).to(h.dtype)
@@ -62,17 +73,19 @@ def _drop_hidden(h: torch.Tensor, rate: float, seed) -> torch.Tensor:
 
 def ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor, act: str = "gelu",
-                  rate: float = 0.0, seed: torch.Tensor = None) -> torch.Tensor:
+                  rate: float = 0.0, seed: torch.Tensor = None,
+                  col_base: int = 0, width=None) -> torch.Tensor:
     """Plain fc1 -> act -> dropout -> fc2 in x's dtype (the JAX package's
-    unfused TaskDense path, with the kernels' hash mask); autograd
-    differentiates it."""
+    unfused TaskDense path, with the kernels' hash mask; a column shard's
+    at ``col_base`` of ``width``); autograd differentiates it."""
     fn = _ACTS[act][1]
     h = fn(F.linear(x, w1.to(x.dtype), b1.to(x.dtype)))
-    return F.linear(_drop_hidden(h, rate, seed), w2.to(x.dtype),
-                    b2.to(x.dtype))
+    return F.linear(_drop_hidden(h, rate, seed, col_base, width),
+                    w2.to(x.dtype), b2.to(x.dtype))
 
 
-def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None):
+def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None, col_base=0,
+           width=None):
     if act not in _ACTS:
         raise ValueError(f"fused_ffn: unsupported activation {act!r}")
     N, D = x.shape
@@ -81,6 +94,17 @@ def _check(x, w1, b1, w2, b2, act, rate=0.0, seed=None):
             or b2.shape != (D,):
         raise ValueError("fused_ffn: weight shapes do not match x")
     check_drop(rate, seed)
+    _check_cols(Fh, col_base, width)
+
+
+def _check_cols(Fh: int, col_base: int, width) -> int:
+    """The hidden's whole width: ``width`` (default Fh), which must hold
+    the columns [col_base, col_base + Fh)."""
+    width = Fh if width is None else int(width)
+    if col_base < 0 or col_base + Fh > width or width >= 2 ** 31:
+        raise ValueError(f"hidden columns [{col_base}, {col_base + Fh}) "
+                         f"outside a width of {width}")
+    return width
 
 
 def _kernel_inputs(x, weights, dy=None):
@@ -222,7 +246,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
+def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed, col_base=0, width=None):
     N, D = x.shape
     Fh = w1.shape[0]
     bf16 = _kernel_inputs(x, (w1, w2))
@@ -239,21 +263,23 @@ def _launch_fwd(x, w1, b1, w2, b2, act, rate, seed):
                   b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
                   _seed_arg(rate, seed), _ptr(wt), _ptr(part), y.data_ptr(),
                   N, D, Fh, S, _ACTS[act][0], int(bf16),
-                  *kernel_drop_args(rate))
+                  *kernel_drop_args(rate), col_base,
+                  _check_cols(Fh, col_base, width))
     fused_ffn.launches += 1
     return y
 
 
 def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                   b1: torch.Tensor, w2: torch.Tensor, act: str = "gelu",
-                  rate: float = 0.0, seed: torch.Tensor = None):
+                  rate: float = 0.0, seed: torch.Tensor = None,
+                  col_base: int = 0, width=None):
     """(dx in x's dtype, db1 fp32, db2 fp32) of fused_ffn for cotangent dy
     (cast to x's dtype, as the TPU backward does), the forward's dropout
-    mask regenerated from ``seed``: kernel F2 on CUDA tensors, autograd of
-    the plain version on CPU tensors."""
+    mask regenerated from ``seed`` (at ``col_base`` of ``width``): kernel
+    F2 on CUDA tensors, autograd of the plain version on CPU tensors."""
     N, D = x.shape
     Fh = w1.shape[0]
-    _check(x, w1, b1, w2, torch.empty(D), act, rate, seed)
+    _check(x, w1, b1, w2, torch.empty(D), act, rate, seed, col_base, width)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     dy = dy.to(x.dtype)
@@ -264,7 +290,7 @@ def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
             b1r = b1.detach().float().requires_grad_()
             b2r = torch.zeros(D, device=x.device, requires_grad=True)
             y = ffn_reference(xr, w1.detach(), b1r, w2.detach(), b2r, act,
-                              rate, seed)
+                              rate, seed, col_base, width)
             return torch.autograd.grad(y, (xr, b1r, b2r), dy)
     dy = dy.contiguous()
     bf16 = _kernel_inputs(x, (w1, w2), dy)
@@ -289,25 +315,28 @@ def fused_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
                   _ptr(dyt), _ptr(wt), _ptr(part), dx.data_ptr(),
                   partial.data_ptr(), db1.data_ptr(), db2.data_ptr(), N, D,
                   Fh, G, S, _ACTS[act][0], int(bf16),
-                  *kernel_drop_args(rate))
+                  *kernel_drop_args(rate), col_base,
+                  _check_cols(Fh, col_base, width))
     fused_ffn_bwd.launches += 1
     return dx, db1, db2
 
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, seed, act, rate):
+    def forward(ctx, x, w1, b1, w2, b2, seed, act, rate, col_base, width):
         ctx.save_for_backward(x, w1, b1, w2, seed)
         ctx.act, ctx.rate, ctx.b2_dtype = act, rate, b2.dtype
-        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed)
+        ctx.cols = (col_base, width)
+        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed, col_base,
+                           width)
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, w2, seed = ctx.saved_tensors
         dx, db1, db2 = fused_ffn_bwd(x, dy, w1, b1, w2, ctx.act, ctx.rate,
-                                     seed)
+                                     seed, *ctx.cols)
         return (dx, None, db1.to(b1.dtype), None, db2.to(ctx.b2_dtype), None,
-                None, None)
+                None, None, None, None)
 
 
 def _frozen(name, grad, *weights):
@@ -318,40 +347,46 @@ def _frozen(name, grad, *weights):
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, act: str = "gelu",
-              rate: float = 0.0, seed: torch.Tensor = None) -> torch.Tensor:
+              rate: float = 0.0, seed: torch.Tensor = None,
+              col_base: int = 0, width=None) -> torch.Tensor:
     """x (N, D); w1 (F, D); b1 (F,); w2 (D, F); b2 (D,) -> (N, D) in x's
     dtype, differentiable in x, b1 and b2; ``rate`` > 0 drops the hidden
-    (``seed`` a (1,) int32 tensor). The weight matrices are frozen: raises
+    (``seed`` a (1,) int32 tensor; a column shard's mask at ``col_base``
+    of ``width``). The weight matrices are frozen: raises
     when either requires a gradient while autograd is on. CPU tensors run
     the plain version; CUDA tensors launch F1 forward and F2 backward (bf16:
     D a multiple of 128 up to 1024, F a multiple of 64; fp32: D <= 1024, F
     a multiple of 32)."""
-    _check(x, w1, b1, w2, b2, act, rate, seed)
+    _check(x, w1, b1, w2, b2, act, rate, seed, col_base, width)
     grad = torch.is_grad_enabled()
     _frozen("fused_ffn", grad, w1, w2)
     ts = (x, w1, b1, w2, b2) + ((seed,) if seed is not None else ())
     if not _build.use_kernel(*ts):
-        return ffn_reference(x, w1, b1, w2, b2, act, rate, seed)
+        return ffn_reference(x, w1, b1, w2, b2, act, rate, seed, col_base,
+                             width)
     x = x.contiguous()
     if not (grad and (x.requires_grad or b1.requires_grad
                       or b2.requires_grad)):
-        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed)
-    return _FusedFFN.apply(x, w1, b1, w2, b2, seed, act, rate)
+        return _launch_fwd(x, w1, b1, w2, b2, act, rate, seed, col_base,
+                           width)
+    return _FusedFFN.apply(x, w1, b1, w2, b2, seed, act, rate, col_base,
+                           width)
 
 
 def gated_ffn_reference(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                         wo: torch.Tensor, act: str = "gelu_new",
-                        rate: float = 0.0,
-                        seed: torch.Tensor = None) -> torch.Tensor:
+                        rate: float = 0.0, seed: torch.Tensor = None,
+                        col_base: int = 0, width=None) -> torch.Tensor:
     """Plain act(x . W0^T) * (x . W1^T) -> dropout -> . Wo^T in x's dtype
     (the JAX package's unfused wi_0 / wi_1 / wo path,
-    vlpet_tpu/models/t5.py:500, with the kernels' hash mask); autograd
-    differentiates it."""
+    vlpet_tpu/models/t5.py:500, with the kernels' hash mask; a column
+    shard's at ``col_base`` of ``width``); autograd differentiates it."""
     h = _ACTS[act][1](F.linear(x, w0.to(x.dtype))) * F.linear(x, w1.to(x.dtype))
-    return F.linear(_drop_hidden(h, rate, seed), wo.to(x.dtype))
+    return F.linear(_drop_hidden(h, rate, seed, col_base, width),
+                    wo.to(x.dtype))
 
 
-def _check_gated(x, w0, w1, wo, act, rate, seed):
+def _check_gated(x, w0, w1, wo, act, rate, seed, col_base=0, width=None):
     if act not in _ACTS:
         raise ValueError(f"fused_gated_ffn: unsupported activation {act!r}")
     N, D = x.shape
@@ -359,9 +394,11 @@ def _check_gated(x, w0, w1, wo, act, rate, seed):
     if w0.shape != (Fh, D) or w1.shape != (Fh, D) or wo.shape != (D, Fh):
         raise ValueError("fused_gated_ffn: weight shapes do not match x")
     check_drop(rate, seed)
+    _check_cols(Fh, col_base, width)
 
 
-def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed):
+def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed, col_base=0,
+                      width=None):
     N, D = x.shape
     Fh = w0.shape[0]
     bf16 = _kernel_inputs(x, (w0, w1, wo))
@@ -375,7 +412,8 @@ def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed):
     _build.launch("vlpet_gated_ffn_fwd", x.data_ptr(), w0.data_ptr(),
                   w1.data_ptr(), wo.data_ptr(), _seed_arg(rate, seed),
                   _ptr(gt), _ptr(part), y.data_ptr(), N, D, Fh, S,
-                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate))
+                  _ACTS[act][0], int(bf16), *kernel_drop_args(rate), col_base,
+                  _check_cols(Fh, col_base, width))
     fused_gated_ffn.launches += 1
     return y
 
@@ -383,12 +421,13 @@ def _launch_gated_fwd(x, w0, w1, wo, act, rate, seed):
 def fused_gated_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w0: torch.Tensor,
                         w1: torch.Tensor, wo: torch.Tensor,
                         act: str = "gelu_new", rate: float = 0.0,
-                        seed: torch.Tensor = None) -> torch.Tensor:
+                        seed: torch.Tensor = None, col_base: int = 0,
+                        width=None) -> torch.Tensor:
     """dx (x's dtype) of fused_gated_ffn for cotangent dy (cast to x's
     dtype, as the TPU backward does), the forward's dropout mask
-    regenerated from ``seed``: kernel F4 on CUDA tensors, autograd of the
-    plain version on CPU tensors."""
-    _check_gated(x, w0, w1, wo, act, rate, seed)
+    regenerated from ``seed`` (at ``col_base`` of ``width``): kernel F4 on
+    CUDA tensors, autograd of the plain version on CPU tensors."""
+    _check_gated(x, w0, w1, wo, act, rate, seed, col_base, width)
     if dy.shape != x.shape:
         raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     dy = dy.to(x.dtype)
@@ -397,7 +436,7 @@ def fused_gated_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w0: torch.Tensor,
         with torch.enable_grad():
             xr = x.detach().requires_grad_()
             y = gated_ffn_reference(xr, w0.detach(), w1.detach(), wo.detach(),
-                                    act, rate, seed)
+                                    act, rate, seed, col_base, width)
             return torch.autograd.grad(y, xr, dy)[0]
     N, D = x.shape
     Fh = w0.shape[0]
@@ -418,45 +457,52 @@ def fused_gated_ffn_bwd(x: torch.Tensor, dy: torch.Tensor, w0: torch.Tensor,
                   w0.data_ptr(), w1.data_ptr(), wo.data_ptr(),
                   _seed_arg(rate, seed), _ptr(dyt), _ptr(gt), _ptr(bt),
                   _ptr(part), dx.data_ptr(), N, D, Fh, S, _ACTS[act][0],
-                  int(bf16), *kernel_drop_args(rate))
+                  int(bf16), *kernel_drop_args(rate), col_base,
+                  _check_cols(Fh, col_base, width))
     fused_gated_ffn_bwd.launches += 1
     return dx
 
 
 class _FusedGatedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w0, w1, wo, seed, act, rate):
+    def forward(ctx, x, w0, w1, wo, seed, act, rate, col_base, width):
         ctx.save_for_backward(x, w0, w1, wo, seed)
-        ctx.act, ctx.rate = act, rate
-        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed)
+        ctx.act, ctx.rate, ctx.cols = act, rate, (col_base, width)
+        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed, col_base,
+                                 width)
 
     @staticmethod
     def backward(ctx, dy):
         x, w0, w1, wo, seed = ctx.saved_tensors
-        dx = fused_gated_ffn_bwd(x, dy, w0, w1, wo, ctx.act, ctx.rate, seed)
-        return dx, None, None, None, None, None, None
+        dx = fused_gated_ffn_bwd(x, dy, w0, w1, wo, ctx.act, ctx.rate, seed,
+                                 *ctx.cols)
+        return dx, None, None, None, None, None, None, None, None
 
 
 def fused_gated_ffn(x: torch.Tensor, w0: torch.Tensor, w1: torch.Tensor,
                     wo: torch.Tensor, act: str = "gelu_new",
-                    rate: float = 0.0,
-                    seed: torch.Tensor = None) -> torch.Tensor:
+                    rate: float = 0.0, seed: torch.Tensor = None,
+                    col_base: int = 0, width=None) -> torch.Tensor:
     """x (N, D); w0, w1 (F, D); wo (D, F) -> (N, D) in x's dtype,
     differentiable in x; ``rate`` > 0 drops the gated hidden (``seed`` a
-    (1,) int32 tensor). The weights are frozen: raises when one requires a
+    (1,) int32 tensor; a column shard's mask at ``col_base`` of
+    ``width``). The weights are frozen: raises when one requires a
     gradient while autograd is on. CPU tensors run the plain version; CUDA
     tensors launch F3 forward and F4 backward (bf16: D a multiple of 128 up
     to 1024, F a multiple of 64; fp32: D <= 1024, F a multiple of 32)."""
-    _check_gated(x, w0, w1, wo, act, rate, seed)
+    _check_gated(x, w0, w1, wo, act, rate, seed, col_base, width)
     grad = torch.is_grad_enabled()
     _frozen("fused_gated_ffn", grad, w0, w1, wo)
     ts = (x, w0, w1, wo) + ((seed,) if seed is not None else ())
     if not _build.use_kernel(*ts):
-        return gated_ffn_reference(x, w0, w1, wo, act, rate, seed)
+        return gated_ffn_reference(x, w0, w1, wo, act, rate, seed, col_base,
+                                   width)
     x = x.contiguous()
     if not (grad and x.requires_grad):
-        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed)
-    return _FusedGatedFFN.apply(x, w0, w1, wo, seed, act, rate)
+        return _launch_gated_fwd(x, w0, w1, wo, act, rate, seed, col_base,
+                                 width)
+    return _FusedGatedFFN.apply(x, w0, w1, wo, seed, act, rate, col_base,
+                                width)
 
 
 fused_ffn.launches = 0

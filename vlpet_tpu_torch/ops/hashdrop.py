@@ -23,6 +23,13 @@ at ``example_base`` of the global batch folds ``example_base`` times the
 site's elements per example into each seed (``DropoutSeeds.next_for``) and
 draws, with unchanged kernels, the masks one process draws on the whole
 batch.
+
+Under tensor parallelism a rank holds a slice of a mask's columns: the
+attention's heads [h0, h0 + H/M) and the FFN hidden's columns [f0, f0 +
+F/M). ``head_seed`` is additive, so ``fold_heads`` moves a seed by h0
+heads; the FFN hidden's index n * F + f is no constant offset from the
+shard's n * (F/M) + f, so ``keep_mask`` (and the FFN kernels) take the
+shard's first column and the whole width.
 """
 
 from __future__ import annotations
@@ -58,11 +65,14 @@ def keep_threshold(rate: float) -> int:
 
 
 def keep_mask(shape: Sequence[int], row_base, seed, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, col_base: int = 0,
+              width: Optional[int] = None) -> torch.Tensor:
     """Boolean keep mask of ``shape``; element identity = global flat index
     where dim 0 is offset by ``row_base`` (uint32 arithmetic, as in
-    vlpet_tpu/ops/hashdrop.py:21). ``seed`` is an int or a one-element
-    integer tensor (its device is used unless ``device`` is given)."""
+    vlpet_tpu/ops/hashdrop.py:21) and the last dim by ``col_base`` within a
+    last dim ``width`` wide (default: the shape's own; a column shard of a
+    wider mask). ``seed`` is an int or a one-element integer tensor (its
+    device is used unless ``device`` is given)."""
     if device is None:
         device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
     shape = tuple(int(s) for s in shape)
@@ -74,9 +84,18 @@ def keep_mask(shape: Sequence[int], row_base, seed, rate: float,
         return torch.arange(shape[d], dtype=torch.int64,
                             device=device).reshape(view)
 
+    if col_base or width is not None:
+        width = shape[-1] if width is None else int(width)
+        if nd < 2 or col_base < 0 or col_base + shape[-1] > width:
+            raise ValueError(f"columns [{col_base}, {col_base + shape[-1]}) "
+                             f"of a {nd}-dim mask outside a width of {width}")
+    elif nd:
+        width = shape[-1]
     idx = (iota(0) + (int(row_base) & _M32)) & _M32
     for d in range(1, nd):
-        idx = (_mul32(idx, shape[d]) + iota(d)) & _M32
+        last = d == nd - 1
+        idx = (_mul32(idx, width if last else shape[d]) + iota(d)
+               + (col_base if last else 0)) & _M32
     z = (_mul32(idx, 2654435761) + _seed_u32(seed, device)) & _M32
     z = z ^ (z >> 16)
     z = _mul32(z, 0x7FEB352D)
@@ -117,7 +136,21 @@ def fold_seed(seed: torch.Tensor, offset: int) -> torch.Tensor:
     ``keep_mask(shape, r0, s)`` over (N, D)); the seed itself at offset 0,
     with no launch. The uint32 result is kept as its int32 bit pattern, as
     the kernels and ``_seed_u32`` read it."""
-    shift = (int(offset) * 2654435761) & _M32
+    return _shift_seed(seed, int(offset) * 2654435761)
+
+
+def fold_heads(seed: torch.Tensor, h0: int) -> torch.Tensor:
+    """The (1,) int32 seed whose head j draws ``seed``'s head h0 + j
+    (``head_seed`` is additive: seed + h * 0x9E3779B9): what a rank
+    holding the heads [h0, ...) of a tensor-parallel attention passes its
+    kernels. The seed itself at h0 = 0, with no launch."""
+    return _shift_seed(seed, int(h0) * 0x9E3779B9)
+
+
+def _shift_seed(seed: torch.Tensor, shift: int) -> torch.Tensor:
+    """(seed + shift) mod 2**32 as the int32 bit pattern the kernels and
+    ``_seed_u32`` read."""
+    shift &= _M32
     if shift == 0:
         return seed
     v = (seed.to(torch.int64) + shift) & _M32

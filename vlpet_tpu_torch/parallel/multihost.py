@@ -9,8 +9,11 @@ gathers the ranks' results. Here each process holds one card
 gradients (train/steps.py); evaluation merges the ranks' Python results
 through a gloo group on the CPU, so that pickles never ride on NCCL.
 
+Under tensor parallelism (parallel/mesh.py) the data shards are the data
+axis's, not the processes': ``data_shard`` and ``data_parts`` count them.
+
 Launch:  torchrun --nproc_per_node N -m vlpet_tpu_torch.cli.multitask
---distributed <flags>
+--distributed [--mesh_model_axis M] <flags>
 """
 
 from __future__ import annotations
@@ -86,6 +89,27 @@ def host_shard() -> tuple:
     if not dist.is_initialized():
         return 0, 1
     return dist.get_rank(), dist.get_world_size()
+
+
+def data_shard() -> tuple:
+    """(data index, data-axis size) of this process in the current mesh
+    (parallel/mesh.py): the Loader's (shard, num_shards) and the step's
+    place in the global batch. The ranks of one model group share a data
+    index, so they feed the same examples; ``host_shard`` without a
+    tensor-parallel mesh."""
+    from vlpet_tpu_torch.parallel.mesh import current_layout
+
+    layout = current_layout()
+    return layout.data_index, layout.data
+
+
+def data_parts(obj: Any) -> List[Any]:
+    """``all_gather_objects`` of one object a data shard: the objects of
+    model index 0 of each data group, in data order (the other model
+    ranks hold copies of their group's)."""
+    from vlpet_tpu_torch.parallel.mesh import current_layout
+
+    return all_gather_objects(obj)[::current_layout().model]
 
 
 def _object_group():

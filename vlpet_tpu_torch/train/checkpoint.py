@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from vlpet_tpu_torch.convert import flax_leaves, flax_to_state_dict
+from vlpet_tpu_torch.parallel.mesh import shard_state_dict
 
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
@@ -88,8 +89,10 @@ def load_params_npz(path: str, module: torch.nn.Module
     utils.py:63-71 load_state_dict semantics): the file's flax tree is
     converted to port names and layouts (``convert.flax_to_state_dict``),
     and every parameter whose name it holds with the same shape takes
-    the array (cast to its dtype); the rest keep their values. Returns
-    (module, count filled)."""
+    the array (cast to its dtype); the rest keep their values. A
+    tensor-parallel model (parallel/mesh.py shard_model) takes its
+    shards of the file's whole tensors. Returns (module, count
+    filled)."""
     data = np.load(path)
     tree: Dict[str, Any] = {}
     for key in data.files:
@@ -98,7 +101,7 @@ def load_params_npz(path: str, module: torch.nn.Module
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = data[key]
-    sd = flax_to_state_dict(tree)
+    sd = shard_state_dict(flax_to_state_dict(tree), module)
     loaded = 0
     for name, p in module.named_parameters():
         if name in sd and sd[name].shape == p.shape:

@@ -27,6 +27,11 @@ gradients and the loss go into one fp32 bucket, summed by one
 all-reduce a step on the device; then the clip by the global norm and the
 update run on every rank alike, as in one process. (DDP's reducer hooks
 ``.backward()``; this step takes ``torch.autograd.grad``.)
+
+Under tensor parallelism (parallel/mesh.py) every count above is the
+data axis's: a rank's share is its data index's, the all-reduces run over
+its data group, and the ranks of a model group -- which hold the whole
+trainable gradients already (parallel/tensor.py) -- take the same batch.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import torch.distributed as dist
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.heads import (TASK_LOSSES, classifier_bce_loss,
                                           task_loss)
-from vlpet_tpu_torch.parallel.multihost import host_shard
+from vlpet_tpu_torch.parallel.mesh import current_layout
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.optim import HFAdamW, global_norm
 
@@ -87,13 +92,13 @@ def z_penalty(zs: Sequence[torch.Tensor]) -> torch.Tensor:
     return sum(z.float().square().mean() for z in zs) / len(zs)
 
 
-def all_reduce_grads(grads, loss: torch.Tensor):
-    """(summed gradients, summed loss) over the process group: the
-    gradients (fp32 views of one bucket) and the loss in one all-reduce
-    on the device."""
+def all_reduce_grads(grads, loss: torch.Tensor, group=None):
+    """(summed gradients, summed loss) over ``group`` (the data group; the
+    default group when None): the gradients (fp32 views of one bucket)
+    and the loss in one all-reduce on the device."""
     bucket = torch.cat([g.float().reshape(-1) for g in grads]
                        + [loss.detach().float().reshape(1)])
-    dist.all_reduce(bucket)
+    dist.all_reduce(bucket, group=group)
     out, off = [], 0
     for g in grads:
         out.append(bucket[off:off + g.numel()].view(g.shape))
@@ -136,7 +141,8 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
                          f"{dev.type}")
     params = optimizer.params
     parallel = dist.is_available() and dist.is_initialized()
-    rank, world = host_shard()
+    layout = current_layout()
+    rank, world, group = layout.data_index, layout.data, layout.data_group
 
     def share(x: torch.Tensor) -> torch.Tensor:
         """A mean over this rank's equal share as its part of the global
@@ -158,7 +164,7 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         if (parallel and not classify
                 and TASK_LOSSES.get(task, "qa") == "caption"):
             valid = (batch["target_ids"] != -100).sum().float()
-            pending = dist.all_reduce(valid, async_op=True)
+            pending = dist.all_reduce(valid, group=group, async_op=True)
         # the raw-image model (no ``classify``) takes the LM loss whatever
         # the batch carries, as the JAX raw step does
         if classify:
@@ -191,7 +197,7 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         if parallel:
-            grads, loss = all_reduce_grads(grads, loss)
+            grads, loss = all_reduce_grads(grads, loss, group)
         if accumulator is None:
             grad_norm = optimizer.step(grads)
         else:

@@ -26,8 +26,17 @@ ranks in step: every rank restores the checkpoint, rank 0 alone logs and
 writes the checkpoints and LAST.npz (a barrier after each write), each
 epoch's task order is checked equal on every rank, and the predictions
 of the ranks' eval shards are merged (``all_gather_objects``), so every
-rank scores the whole split. Not ported, and raising
-NotImplementedError: ``mesh_model_axis`` > 1 (tensor parallelism).
+rank scores the whole split.
+
+``mesh_model_axis`` M > 1 (tensor parallelism, parallel/mesh.py): the
+processes form a (data, M) mesh -- a model axis that does not divide them
+falls back to 1, as in the JAX Trainer -- the model is built whole from
+its seed, imported and loaded, then each rank keeps its shard of the
+split families (``shard_model``). The data shards, the step's sums and
+the merged predictions count the data axis (one part a data index);
+LAST.npz holds whole tensors (``gather_state_dict``), and the checkpoints
+hold only replicated tensors, so a run resumes under any layout. Only the
+VL-PET recipes run split (``mesh.check_tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -46,8 +55,10 @@ from vlpet_tpu_torch.device import Device, deterministic_kernels, resolve_device
 from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
+from vlpet_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                           gather_state_dict, shard_model)
 from vlpet_tpu_torch.parallel.multihost import (all_gather_objects, barrier,
-                                                host_shard,
+                                                data_parts, host_shard,
                                                 merge_predict_results)
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.checkpoint import (CheckpointManager,
@@ -93,10 +104,10 @@ def check_task_order(epoch_tasks: List[str]) -> None:
 
 
 def merged_dict(part: Dict) -> Dict:
-    """The union of every rank's ``part`` (their eval shards are
+    """The union of every data shard's ``part`` (their eval shards are
     disjoint); ``part``'s items in one process."""
     merged: Dict = {}
-    for p in all_gather_objects(part):
+    for p in data_parts(part):
         merged.update(p)
     return merged
 
@@ -138,10 +149,6 @@ class Trainer:
                  vis_adapter_type: Optional[str] = None,
                  vis_pooling_output: bool = False,
                  clip_ckpt: Optional[str] = None, device: Device = "cuda"):
-        if mesh_model_axis > 1:
-            raise NotImplementedError(
-                "tensor parallelism (mesh_model_axis > 1) is not ported: it "
-                "is the next slice after data parallelism (ROADMAP.md)")
         self.cfg = cfg
         self.tasks = tuple(tasks)
         self.tokenizer = tokenizer
@@ -149,6 +156,17 @@ class Trainer:
         self.rank, self.world = host_shard()
         self.lead = self.rank == 0  # the rank that logs and writes
         self.verbose = verbose = verbose and self.lead
+        # the CLIs build the mesh before their Loaders, and say where the
+        # model axis falls back
+        self.layout = build_mesh(MeshConfig(model=mesh_model_axis),
+                                 verbose=False)
+        # this process's data shard: its eval shard, its batch's place
+        self.shard_index, self.shards = (self.layout.data_index,
+                                         self.layout.data)
+        if self.layout.model > 1 and raw_vis_backbone is not None:
+            raise NotImplementedError(
+                "tensor parallelism (mesh_model_axis > 1) of the raw-image "
+                "path waits for the next tensor-parallel slice")
         self.device = dev = resolve_device(device)
         deterministic_kernels()
         self.logger = MetricsLogger(output_dir if self.lead else None,
@@ -197,13 +215,14 @@ class Trainer:
             if verbose:
                 print(f"loaded {n} tensors from {load}")
 
-        # --- freezing + optimizer ------------------------------------------
+        # --- freezing, the model axis's placement, optimizer ---------------
         self.trainable = apply_freezing(self.model, cfg.pet)
-        self.report = trainable_report(self.model, cfg.pet)
+        self.report = trainable_report(self.model, cfg.pet)  # whole counts
         if verbose:
             r = self.report
             print(f"Trainable param percentage: {r['percentage']:.2f}% "
                   f"({r['trainable']}/{r['total']})")
+        shard_model(self.model, self.layout)
         self.optimizer = build_optimizer(
             self.trainable, lr=lr, total_steps=total_steps,
             warmup_ratio=warmup_ratio, weight_decay=weight_decay,
@@ -283,7 +302,7 @@ class Trainer:
                     continue
                 metrics = self.do_train_step(batch)
                 pending.append(metrics["loss"])
-                n_examples += len(batch["input_ids"]) * self.world
+                n_examples += len(batch["input_ids"]) * self.shards
                 n_steps += 1
                 step += 1
                 if step % log_every == 0:
@@ -320,8 +339,9 @@ class Trainer:
         if self.ckpt:
             self.save(step, train_loader)
         if self.output_dir:
+            named = gather_state_dict(self.named_weights(), self.model)
             if self.lead:
-                save_params_npz(self.named_weights(),
+                save_params_npz(named,
                                 os.path.join(self.output_dir, "LAST.npz"),
                                 heads=attention_heads(self.model))
             barrier()
@@ -333,7 +353,7 @@ class Trainer:
                 ) -> Dict[str, Any]:
         """Generate predictions for a loader; returns quesid2ans (+raw).
         Under a process group the loader is the rank's eval shard and the
-        ranks' results are merged (``merge_predict_results``)."""
+        data shards' results are merged (``merge_predict_results``)."""
         quesid2ans: Dict[Any, str] = {}
         predictions: List[str] = []
         targets: List = []
@@ -363,15 +383,17 @@ class Trainer:
         res = {"quesid2ans": quesid2ans, "predictions": predictions,
                "targets": targets}
         if self.world > 1:
-            res = merge_predict_results(all_gather_objects(res))
+            res = merge_predict_results(data_parts(res))
         return res
 
     def _fallback_ids(self, offset: int, n: int) -> range:
         """Ids of a batch without question ids: the examples' positions in
-        the unshuffled split, which a rank's strided shard (Loader: every
-        world-th example from its rank) gives as rank + i * world."""
-        return range(self.rank + offset * self.world,
-                     self.rank + (offset + n) * self.world, self.world)
+        the unshuffled split, which a data shard's strided share (Loader:
+        every shards-th example from its index) gives as index + i *
+        shards."""
+        i, n_shards = self.shard_index, self.shards
+        return range(i + offset * n_shards, i + (offset + n) * n_shards,
+                     n_shards)
 
     @torch.no_grad()
     def predict_classifier(self, loader, label2ans) -> Dict[str, Any]:
@@ -505,11 +527,12 @@ class Trainer:
     def save(self, step: int, train_loader=None):
         """Checkpoint ``state()`` at ``step``; with the train loader (at an
         epoch's end) also its datasets' sampling RNG states, one dict a
-        rank (``data_rng``, in rank order). Under a process group every
-        rank calls it: the train state is the same on all, rank 0 writes
-        it, and the others wait for the write."""
+        data shard (``data_rng``, in data order). Under a process group
+        every rank calls it: the train state (replicated tensors only) is
+        the same on all, rank 0 writes it, and the others wait for the
+        write."""
         if self.ckpt:
-            rngs = (all_gather_objects(data_rng_state(train_loader))
+            rngs = (data_parts(data_rng_state(train_loader))
                     if train_loader is not None else None)
             if self.lead:
                 state = self.state()
@@ -521,10 +544,10 @@ class Trainer:
     @torch.no_grad()
     def restore(self) -> Optional[int]:
         """Load the newest checkpoint in place; returns its step, or None
-        when there is none. Every rank loads it, at any world size; the
-        datasets' sampling RNGs take this rank's saved states where the
-        checkpoint was written at this world size, else they start afresh
-        (rank 0 says so)."""
+        when there is none. Every rank loads it, at any world size and
+        layout; the datasets' sampling RNGs take this data shard's saved
+        states where the checkpoint was written with as many data shards,
+        else they start afresh (rank 0 says so)."""
         if not self.ckpt:
             return None
         data = self.ckpt.restore(map_location=self.device)
@@ -542,11 +565,11 @@ class Trainer:
         if isinstance(rngs, dict):  # one process's, as written before ranks
             rngs = [rngs]
         self._data_rng = None
-        if rngs is not None and len(rngs) == self.world:
-            self._data_rng = rngs[self.rank]
+        if rngs is not None and len(rngs) == self.shards:
+            self._data_rng = rngs[self.shard_index]
         elif rngs is not None and self.lead:
-            print(f"checkpoint written by {len(rngs)} processes, restored by "
-                  f"{self.world}: the train state is kept; the datasets' "
+            print(f"checkpoint written by {len(rngs)} data shards, restored "
+                  f"by {self.shards}: the train state is kept; the datasets' "
                   f"sampling draws start afresh")
         return self.step
 
@@ -576,7 +599,7 @@ def predict_matching(trainer: Trainer, loader, task: str = "tvqa"
             groups.setdefault(gid, {})[cand] = float(sc)
     if trainer.world > 1:  # a group's candidates may lie on several ranks
         merged: Dict[str, Dict[str, float]] = {}
-        for part in all_gather_objects(groups):
+        for part in data_parts(groups):
             for gid, cands in part.items():
                 merged.setdefault(gid, {}).update(cands)
         groups = merged
