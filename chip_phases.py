@@ -56,8 +56,10 @@ one epoch, resume), in child processes of ROOT's chip_smoke; 9 the
 data-parallel ranks on the one card (world 1 over NCCL, world 2 over
 gloo: train steps against one process, the merged beam-5 tokens); 10 the
 tensor-parallel ranks ((1, 2) and (1, 4) meshes over gloo: F1-F4 at a
-column base against their twins, train steps, tokens and launches
-against one process); 9+10 both, their ranks spawned at once, as the
+column base against their twins, train steps -- the VL-PET recipes,
+LoRA, full fine-tuning and ten PET / model-level families -- tokens, a
+BitFit checkpoint resumed in one process, and launches against one
+process); 9+10 both, their ranks spawned at once, as the
 smoke runs them.
 ``--profile`` adds each bench run's device time and launches by kernel
 family, read for every tree by this tree's

@@ -449,11 +449,30 @@ nonzero and no result line is printed):
      with their bound (the "+colbase" modes); (f) each rank's launches a
      step equal one process's: (a)'s A1, A6, F1, F2, L1, L2 and a bf16
      video step at S 604, B 50, 2+2 layers, the long backward's
-     (tp_video_train). (a)+(b), (d)+(f) and (c) are three process groups
-     spawned together, and together with phase 9's two worlds
-     (``phase_parallel``; each phase alone: ``phase_data_parallel``,
-     ``phase_tensor_parallel``). Nothing here times tensor-parallel
-     speed.
+     (tp_video_train); (g) (1, 2), bf16 B 500 vqa at full width, one
+     step of single_lora.sh's recipe and one of full_finetuning.sh's from
+     one process's state: the loss within BF16_STEP_RTOL, the gathered
+     trainable tensors bit for bit the same on both ranks, each rank's
+     launches one process's (no F1 / F2 under full fine-tuning); (h)
+     (1, 2), fp32 B 16 at every dropout 0.1, 2+2 layers at full width, 3
+     steps of each ``TP_FAMILIES`` entry from the one-process state by
+     phase 6c's rule (a bias added to every key, whose true gradient is
+     zero, by phase 6's elementwise rule: ``zero_grad``) -- LoRA (its dropout 0.1), the attention prefixes,
+     the visual prefix, the cross and decoder-FFN IA3, the multihead VPA
+     with the key parallel adapter, BitFit and full fine-tuning with a
+     clip below every step's norm, the classifier, remat "full", the raw
+     path on its smallest trunk (RN50, B 4) -- each rank's launches one
+     process's; beam-5 and greedy tokens of the LoRA and prefix families
+     identical to one process's; (i) a BitFit Trainer at (1, 2), from
+     unzero-ed weights in a LAST.npz, writes a checkpoint after 2 steps (its split biases, moments and master
+     copies gathered whole); one process restores it (the state digest
+     the ranks'), takes 2 more steps and ends where an uninterrupted
+     one-process run ends, by phase 6c's rule. (a)+(b)+(g)+half of (h),
+     (d)+(f)+(h)'s other half+(i) and (c) are three process groups
+     spawned together, and together
+     with phase 9's two worlds (``phase_parallel``; each phase alone:
+     ``phase_data_parallel``, ``phase_tensor_parallel``). Nothing here
+     times tensor-parallel speed.
 Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
 8d and 8e prints its seconds; 9 and 10 print their own.
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
@@ -523,7 +542,9 @@ from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.ops import (_build, attention, cache_update, decode, ffn,
                                  fused_ce, fused_ln, plain_twins, topk)
 from vlpet_tpu_torch.ops.hashdrop import keep_mask
-from vlpet_tpu_torch.parallel.mesh import MeshConfig, build_mesh, shard_model
+from vlpet_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
+                                           gather_state_dict, shard_model,
+                                           shard_state_dict)
 from vlpet_tpu_torch.pet.modules import PetContext
 from vlpet_tpu_torch.train.freezing import apply_freezing
 from vlpet_tpu_torch.train.optim import build_optimizer
@@ -6937,14 +6958,15 @@ def params_digest(trainable) -> str:
 
 
 def dp_bf16_step(rank: int = 0, world: int = 1, model_axis: int = 1,
-                 path: str = "train") -> dict:
-    """One bf16 vqa step of the full-width flagship (seeded weights) on the
-    rank's data shard of the B DP_B batch (phase 7's inputs) under a
-    (world / ``model_axis``, ``model_axis``) mesh: the (global) loss and
-    gradient norm, the trainable tensors' digest after it and the step's
-    launches (``path``'s kernels each launched)."""
+                 path: str = "train", cfg_fn=flagship_cfg) -> dict:
+    """One bf16 vqa step of the full-width model of ``cfg_fn`` (the
+    flagship; seeded weights) on the rank's data shard of the B DP_B batch
+    (phase 7's inputs) under a (world / ``model_axis``, ``model_axis``)
+    mesh: the (global) loss and gradient norm, the digest of the
+    trainable tensors after it (gathered whole over the model group) and
+    the step's launches (``path``'s kernels each launched)."""
     deterministic_kernels()
-    model = build_model("bfloat16")
+    model = build_model("bfloat16", cfg_fn)
     layout = build_mesh(MeshConfig(model=model_axis))
     trainable = apply_freezing(model, model.cfg.pet)
     shard_model(model, layout)
@@ -6959,7 +6981,8 @@ def dp_bf16_step(rank: int = 0, world: int = 1, model_axis: int = 1,
     torch.cuda.synchronize()
     launched = {k: n for k, n in read_counts(path).items() if n}
     return {"loss": out["loss"].item(), "grad_norm": out["grad_norm"].item(),
-            "digest": params_digest(trainable), "launches": launched}
+            "digest": params_digest(gather_state_dict(trainable, model)),
+            "launches": launched}
 
 
 def dp_fp32_cfg(dtype: str):
@@ -6970,30 +6993,36 @@ def dp_fp32_cfg(dtype: str):
         activation_dropout=0.1))
 
 
-def dp_fp32_model(cfg_fn=dp_fp32_cfg, model_axis: int = 1):
-    """The fp32 model of ``cfg_fn`` (seeded, ``unzero``), its trainable
-    tensors, optimizer and step, placed on this rank's shard of a
-    (world / ``model_axis``, ``model_axis``) mesh; and the mesh."""
-    model = build_model("float32", cfg_fn)
+def dp_fp32_model(cfg_fn=dp_fp32_cfg, model_axis: int = 1,
+                  build=build_model, clip: float = 5.0):
+    """The fp32 model of ``cfg_fn`` (built by ``build``, seeded,
+    ``unzero``), its trainable tensors, optimizer (clip norm ``clip``) and
+    step, placed on this rank's shard of a (world / ``model_axis``,
+    ``model_axis``) mesh; and the mesh."""
+    model = build("float32", cfg_fn)
     unzero(model)
     layout = build_mesh(MeshConfig(model=model_axis))
     trainable = apply_freezing(model, model.cfg.pet)
     shard_model(model, layout)
-    opt = build_optimizer(trainable, lr=1e-3, total_steps=4)
+    opt = build_optimizer(trainable, lr=1e-3, total_steps=4,
+                          clip_grad_norm=clip)
     return (model, trainable, opt,
             make_train_step(model, opt, FLAGSHIP_TASKS), layout)
 
 
 def dp_fp32_reference(path: str, cfg_fn=dp_fp32_cfg,
                       batch_fn=make_train_batch, steps: int = 3,
-                      run: str = "train") -> dict:
-    """Phase 9 (c)'s one-process run (and phase 10 (b)'s and (c)'s, of
-    ``cfg_fn``): ``steps`` fp32 steps on the B DP_FP32_B batch of
-    ``batch_fn``, each step's start (trainable tensors and optimizer
-    state) and end saved to ``path`` for the ranks; returns the per-step
-    metrics and the step's launches (``run``'s kernels each launched)."""
-    model, trainable, opt, step, _ = dp_fp32_model(cfg_fn)
-    batch = batch_fn(DP_FP32_B, model.cfg.backbone.vocab_size, 21)
+                      run: str = "train", build=build_model,
+                      clip: float = 5.0, B: int = DP_FP32_B) -> dict:
+    """Phase 9 (c)'s one-process run (and phase 10 (b)'s, (c)'s and (h)'s,
+    of ``cfg_fn``, ``build`` and ``clip``: ``dp_fp32_model``): ``steps``
+    fp32 steps on the B ``B`` batch of ``batch_fn``, each step's start
+    (trainable tensors and optimizer state) and end saved to ``path`` for
+    the ranks; returns the per-step metrics and the step's launches
+    (``run``'s kernels each launched)."""
+    model, trainable, opt, step, _ = dp_fp32_model(cfg_fn, build=build,
+                                                   clip=clip)
+    batch = batch_fn(B, model.cfg.backbone.vocab_size, 21)
     starts, ends, metrics = [], [], []
     reset_counts()
     for i in range(steps):
@@ -7013,35 +7042,65 @@ def dp_fp32_reference(path: str, cfg_fn=dp_fp32_cfg,
     return {"metrics": metrics, "launches": launched}
 
 
+def zero_grad(name: str) -> bool:
+    """A trainable whose true gradient is zero: a bias added to every key
+    -- k_proj's (LoRA, BitFit and full fine-tuning train it), the key
+    parallel adapter's up projection's -- adds one constant to each
+    query's logits, and softmax ignores it."""
+    return name.endswith(("k_proj.bias",
+                          "attn_key_parallel_adapter.adapters.up_sampler.bias"))
+
+
 def dp_fp32_steps(rank: int, world: int, path: str, cfg_fn=dp_fp32_cfg,
                   batch_fn=make_train_batch, model_axis: int = 1,
-                  run: str = "train") -> dict:
-    """Phase 9 (c) on a rank (and phase 10 (b) and (c), of ``cfg_fn``
-    under a model axis): each step from the one-process run's start, on
-    the rank's data shard of its batch with the same dropout seeds
-    (folded to the shard's examples and the rank's heads and hidden
-    columns); per step the metrics and the largest L2 ratio |update -
-    one-process update| / |one-process update| over the trainable
-    tensors."""
+                  run: str = "train", build=build_model, clip: float = 5.0,
+                  B: int = DP_FP32_B) -> dict:
+    """Phase 9 (c) on a rank (and phase 10 (b), (c) and (h), of
+    ``cfg_fn``, ``build`` and ``clip`` under a model axis): each step from
+    the one-process run's start (the split trainables' and their
+    optimizer state's shards cut from it), on the rank's data shard of
+    its batch with the same dropout seeds (folded to the shard's examples
+    and the rank's heads and hidden columns); per step the metrics and
+    the largest L2 ratio |update - one-process update| / |one-process
+    update| over the trainable tensors, gathered whole, but those of
+    ``zero_grad``, held by phase 6's elementwise rule (inf where one
+    fails it)."""
     ref = torch.load(path, map_location="cuda", weights_only=False)
-    model, trainable, opt, step, layout = dp_fp32_model(cfg_fn, model_axis)
-    batch = dp_share(batch_fn(DP_FP32_B, model.cfg.backbone.vocab_size, 21),
+    model, trainable, opt, step, layout = dp_fp32_model(cfg_fn, model_axis,
+                                                        build, clip)
+    batch = dp_share(batch_fn(B, model.cfg.backbone.vocab_size, 21),
                      layout.data_index, layout.data)
     rows = []
     for i, (start, end) in enumerate(zip(ref["starts"], ref["ends"])):
-        restore(trainable, start["params"])
-        opt.load_state_dict(start["opt"])
+        restore(trainable, shard_state_dict(start["params"], model))
+        state = dict(start["opt"])
+        state.update({k: shard_state_dict(state[k], model)
+                      for k in ("mu", "nu", "master")})
+        opt.load_state_dict(state)
         reset_counts()
         out = step(batch, torch.Generator(device="cuda").manual_seed(21 + i),
                    FLAGSHIP_TASKS.index("vqa"))
         torch.cuda.synchronize()
         launched = {k: n for k, n in read_counts(run).items() if n}
-        ratio = max((p.detach() - end[n]).norm().item()
-                    / max((end[n] - start["params"][n]).norm().item(), 1e-30)
-                    for n, p in trainable.items())
+        whole = gather_state_dict({n: p.detach() for n, p in
+                                   trainable.items()}, model)
+        ratio = max([(p - end[n]).norm().item()
+                     / max((end[n] - start["params"][n]).norm().item(), 1e-30)
+                     for n, p in whole.items() if not zero_grad(n)],
+                    default=0.0)
+        noise = 0.0  # the zero_grad tensors' largest |diff| / tolerance
+        for n, p in whole.items():
+            # a tensor whose true gradient is zero: Adam's update is its
+            # rounding noise scaled up; phase 6's elementwise rule
+            if zero_grad(n):
+                tol = (PARAM_RTOL * end[n].abs()
+                       + PARAM_ATOL_SCALE * end[n].abs().max())
+                noise = max(noise, ((p - end[n]).abs() / tol).max().item())
+        if noise > 1.0:
+            ratio = float("inf")
         rows.append({"loss": out["loss"].item(),
                      "grad_norm": out["grad_norm"].item(), "ratio": ratio,
-                     "launches": launched})
+                     "noise": noise, "launches": launched})
     return rows
 
 
@@ -7267,28 +7326,275 @@ def tp_video_step(model_axis: int = 1) -> dict:
             "launches": {k: n for k, n in read_counts(run).items() if n}}
 
 
-def tp_world2_train(rank: int, world: int, paths) -> dict:
-    """(a) and (b) on one rank of the (1, 2) mesh."""
+def tp_world2_train(rank: int, world: int, paths, family_paths) -> dict:
+    """(a), (b), (g) and half of (h) on one rank of the (1, 2) mesh."""
     out = {"bf16": dp_bf16_step(rank, world, 2, TP_TRAIN)}
     torch.cuda.empty_cache()
     out["fp32"] = [dp_fp32_steps(rank, world, path, cfg_fn, batch_fn, 2,
                                  TP_T5 if "t5" in label else run)
                    for path, (label, cfg_fn, batch_fn, _, m, run)
                    in zip(paths, TP_FP32) if m == 2]
+    torch.cuda.empty_cache()
+    out["scripts"] = []
+    for _, script, run in TP_SCRIPTS:
+        out["scripts"].append(dp_bf16_step(rank, world, 2, run,
+                                           pet_cfg(script)))
+        torch.cuda.empty_cache()
+    out["families"] = tp_family_steps(rank, world, family_paths, 0)
     print(f"  rank {rank}/{world} at (1, 2): bf16 step launches "
           f"{out['bf16']['launches']}", flush=True)
     return out
 
 
-def tp_world2_eval(rank: int, world: int) -> dict:
-    """(d) and (f) on one rank of another (1, 2) mesh."""
-    return {"tokens": tp_tokens(2), "video": tp_video_step(2)}
+def tp_world2_eval(rank: int, world: int, family_paths, resume_dir) -> dict:
+    """(d), (f), the other half of (h) and (i) on one rank of another
+    (1, 2) mesh."""
+    out = {"tokens": tp_tokens(2), "video": tp_video_step(2)}
+    torch.cuda.empty_cache()
+    out["families"] = tp_family_steps(rank, world, family_paths, 1)
+    out["family_tokens"] = tp_family_tokens(2)
+    out["resume"] = tp_resume_split(resume_dir)
+    return out
 
 
 def tp_world4(rank: int, world: int, path: str) -> list:
     """(c) on one rank of the (1, 4) mesh."""
     label, cfg_fn, batch_fn, _, m, run = TP_FP32[2]
     return dp_fp32_steps(rank, world, path, cfg_fn, batch_fn, m, run)
+
+
+# (g): (label, the PET script, the main path whose kernels its bf16 step
+# launches) of the full-width bf16 steps at (1, 2)
+TP_SCRIPTS = (("LoRA", "single_lora", "pet_single_lora"),
+              ("full fine-tuning", "full_finetuning", "pet_full_finetuning"))
+# (h): BitFit's and full fine-tuning's clip norm, below every step's
+# gradient norm (the clip bites: a norm without the other rank's squares
+# would scale the update otherwise)
+TP_CLIP = 0.1
+
+
+def tp_family(cfg_fn):
+    """``cfg_fn`` at every BART dropout 0.1, TP_LAYERS layers each."""
+    def cfg(dtype: str = "float32"):
+        c = cfg_fn(dtype)
+        return dataclasses.replace(c, backbone=dataclasses.replace(
+            c.backbone, dropout=0.1, attention_dropout=0.1,
+            activation_dropout=0.1))
+    return tp_layers(cfg)
+
+
+def tp_mh_vpa_key(dtype: str):
+    """The multihead VPA with the key parallel adapter (phase 6j's
+    families 7 and 4 together)."""
+    return _with_fields(ablation_cfg("mh_vpa")(dtype),
+                        ABLATIONS["key_parallel"][1])
+
+
+def tp_raw_model(dtype: str, cfg_fn):
+    """RawInputVLModel of ``cfg_fn`` on the smallest published CLIP trunk
+    (RN50 at 224 px), seeded, under the Trainer's cuDNN settings."""
+    deterministic_kernels()
+    model = RawInputVLModel(cfg_fn(dtype), vis_backbone="RN50",
+                            image_size=RAW_IMAGE, vis_adapter_type=RAW_ADAPTER,
+                            device="cuda")
+    return model.init_weights(torch.Generator(device="cuda").manual_seed(1234))
+
+
+# (h): (label, its configuration before ``tp_family``, batch, clip norm,
+# the main path whose kernels its step launches, the function that builds
+# the model, the global batch)
+TP_FAMILIES = (
+    ("LoRA", lambda d: pet_cfg("single_lora")(d), make_train_batch, 5.0,
+     "pet_single_lora", build_model, DP_FP32_B),
+    ("attention prefix", lambda d: pf_cfg("prefix")(d), make_train_batch,
+     5.0, "pf_prefix", build_model, DP_FP32_B),
+    ("visual prefix", lambda d: pf_cfg("vis_prefix")(d), make_train_batch,
+     5.0, "pf_vis_prefix", build_model, DP_FP32_B),
+    ("IA3", lambda d: ablation_cfg("ia3")(d), make_train_batch, 5.0,
+     "abl_ia3", build_model, DP_FP32_B),
+    ("multihead VPA + key adapter", tp_mh_vpa_key, make_train_batch, 5.0,
+     "abl_mh_vpa", build_model, DP_FP32_B),
+    ("BitFit", lambda d: pet_cfg("bitfit")(d), make_train_batch, TP_CLIP,
+     "pet_bitfit", build_model, DP_FP32_B),
+    ("full fine-tuning", lambda d: pet_cfg("full_finetuning")(d),
+     make_train_batch, TP_CLIP, "pet_full_finetuning", build_model,
+     DP_FP32_B),
+    ("classifier", lambda d: tail_cfg("cls")(d), make_cls_batch, 5.0,
+     "tail_cls", build_model, DP_FP32_B),
+    ("remat full", lambda d: tail_cfg("remat_full")(d), make_train_batch, 5.0,
+     "tail_remat_full", build_model, DP_FP32_B),
+    ("raw RN50", lambda d: raw_cfg(d), make_raw_train_batch, 5.0, RAW_STEP,
+     tp_raw_model, 4),
+)
+# (h)'s token families: label -> the eval path whose kernels its beam-5
+# generation launches
+TP_TOKEN_FAMILIES = {"LoRA": "pet_single_lora_eval",
+                     "attention prefix": "pf_prefix_eval"}
+
+
+def tp_family_refs(paths) -> list:
+    """(h)'s one-process runs (``dp_fp32_reference``), one a family."""
+    out = []
+    for path, (_, cfg_fn, batch_fn, clip, run, build, B) in zip(
+            paths, TP_FAMILIES):
+        out.append(dp_fp32_reference(path, tp_family(cfg_fn), batch_fn, 3,
+                                     run, build, clip, B))
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_steps(rank: int, world: int, paths, first: int) -> dict:
+    """(h) on a rank of a (1, 2) mesh: every other family from ``first``
+    (the two (1, 2) meshes share them); {family index: its rows}."""
+    out = {}
+    for i in range(first, len(TP_FAMILIES), 2):
+        _, cfg_fn, batch_fn, clip, run, build, B = TP_FAMILIES[i]
+        out[i] = dp_fp32_steps(rank, world, paths[i], tp_family(cfg_fn),
+                               batch_fn, 2, run, build, clip, B)
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_family_tokens(model_axis: int = 1) -> dict:
+    """(h)'s tokens: fp32 beam 5 and greedy to length 20 of each
+    TP_TOKEN_FAMILIES entry, TP_LAYERS layers at full width, on phase 4
+    (a)'s batch of DP_EVAL_B rows; the beam-5 run's launches."""
+    out = {}
+    for label, run in TP_TOKEN_FAMILIES.items():
+        cfg_fn = next(f[1] for f in TP_FAMILIES if f[0] == label)
+        model = build_model("float32", tp_layers(cfg_fn))
+        shard_model(model, build_mesh(MeshConfig(model=model_axis)))
+        batch = make_batch(DP_EVAL_B, model.cfg.backbone.vocab_size, seed=7)
+        ctx = PetContext(task="caption", task_idx=3)
+        res = {}
+        with torch.inference_mode():
+            for beams in (5, 1):
+                reset_counts()
+                res[beams] = seq2seq_generate(model, **batch, ctx=ctx,
+                                              num_beams=beams,
+                                              max_length=20).cpu()
+                if beams == 5:
+                    res["launches"] = {k: n for k, n in
+                                       read_counts(run).items() if n}
+        out[label] = res
+    return out
+
+
+# (i): a BitFit Trainer's steps before its checkpoint and after it
+TP_RESUME_STEPS = (2, 2)
+
+
+def tp_resume_cfg(dtype: str = "float32"):
+    """(i)'s configuration: BitFit (bitfit.sh's recipe) at
+    ``tp_family``'s depth and dropout."""
+    return tp_family(lambda d: pet_cfg("bitfit")(d))(dtype)
+
+
+def tp_resume_weights(path: str) -> str:
+    """(i)'s starting weights, written to the LAST.npz ``path`` that every
+    Trainer of (i) loads: the model of ``tp_resume_cfg``, ``unzero``-ed
+    (the biases BitFit trains start off zero, as phase 6g's do)."""
+    from vlpet_tpu_torch.train.checkpoint import save_params_npz
+
+    model = build_model("float32", tp_resume_cfg)
+    unzero(model)
+    save_params_npz({n: p.detach() for n, p in model.named_parameters()},
+                    path)
+    return path
+
+
+def tp_resume_trainer(out_dir: str, model_axis: int, weights: str):
+    """(i)'s Trainer of ``tp_resume_cfg`` from the LAST.npz ``weights``:
+    fp32, clip TP_CLIP, writing under ``out_dir``."""
+    from vlpet_tpu_torch.train.trainer import Trainer
+
+    return Trainer(tp_resume_cfg(), FLAGSHIP_TASKS, lr=1e-3, total_steps=8,
+                   clip_grad_norm=TP_CLIP, output_dir=out_dir, load=weights,
+                   mesh_model_axis=model_axis, verbose=False, device="cuda")
+
+
+def tp_resume_steps(trainer, first: int, n: int) -> list:
+    """Steps ``first``..``first + n - 1`` of (i): vqa on the B DP_FP32_B
+    batch of seed 50 + i; per step the loss and gradient norm."""
+    rows = []
+    for i in range(first, first + n):
+        batch = make_train_batch(DP_FP32_B, trainer.cfg.backbone.vocab_size,
+                                 50 + i)
+        out = trainer.train_step(batch, trainer.generator,
+                                 FLAGSHIP_TASKS.index("vqa"))
+        trainer.step += 1
+        rows.append({"loss": out["loss"].item(),
+                     "grad_norm": out["grad_norm"].item()})
+    return rows
+
+
+def tp_resume_split(resume_dir: str) -> dict:
+    """(i) on a rank of the (1, 2) mesh: the first TP_RESUME_STEPS[0]
+    steps, the checkpoint under ``resume_dir``/split (rank 0 writes the
+    gathered state), its digest."""
+    trainer = tp_resume_trainer(os.path.join(resume_dir, "split"), 2,
+                                os.path.join(resume_dir, "weights.npz"))
+    rows = tp_resume_steps(trainer, 0, TP_RESUME_STEPS[0])
+    trainer.save(trainer.step)
+    return {"rows": rows, "digest": trainer.state_digest(),
+            "split": sum(p.shape != trainer.model.get_parameter(n).shape
+                         for n, p in gather_state_dict(
+                             trainer.trainable, trainer.model).items())}
+
+
+def tp_resume_check(out_dir: str, split: dict) -> str:
+    """(i) in this process: an uninterrupted one-process BitFit run of
+    both TP_RESUME_STEPS, then a one-process Trainer that restores the
+    split run's checkpoint (its state digest the ranks') and takes the
+    last steps; each step's loss and gradient norm within
+    TRAIN_METRIC_RTOL of the uninterrupted run's, the trainable tensors
+    at the end within PARAM_RTOL of its update (L2; ``zero_grad``'s by
+    phase 6's elementwise rule). Returns the line it prints."""
+    first, last = TP_RESUME_STEPS
+    weights = os.path.join(out_dir, "weights.npz")
+    straight = tp_resume_trainer(os.path.join(out_dir, "straight"), 1,
+                                 weights)
+    rows = tp_resume_steps(straight, 0, first)
+    mid = snapshot(straight.trainable)
+    rows += tp_resume_steps(straight, first, last)
+    resumed = tp_resume_trainer(os.path.join(out_dir, "split"), 1, weights)
+    if resumed.restore() != first:
+        raise AssertionError("(i) the split run's checkpoint did not restore "
+                             f"at step {first}")
+    digest = resumed.state_digest()
+    if digest != split["digest"]:
+        raise AssertionError(f"(i) restored state digest {digest[:12]} != "
+                             f"the split run's {split['digest'][:12]}")
+    got = tp_resume_steps(resumed, first, last)
+    for i, (row, ref) in enumerate(zip(split["rows"] + got, rows)):
+        for key in ("loss", "grad_norm"):
+            if not abs(row[key] - ref[key]) <= TRAIN_METRIC_RTOL * abs(
+                    ref[key]):
+                raise AssertionError(f"(i) step {i} {key}: {row[key]!r} vs "
+                                     f"uninterrupted {ref[key]!r}")
+        if row["grad_norm"] <= TP_CLIP:
+            raise AssertionError(f"(i) step {i}: grad norm "
+                                 f"{row['grad_norm']} under the clip")
+    end = snapshot(straight.trainable)
+    ratio = max((p.detach() - end[n]).norm().item()
+                / max((end[n] - mid[n]).norm().item(), 1e-30)
+                for n, p in resumed.trainable.items() if not zero_grad(n))
+    for n, p in resumed.trainable.items():
+        if zero_grad(n) and not ((p.detach() - end[n]).abs() <= PARAM_RTOL
+                                 * end[n].abs() + PARAM_ATOL_SCALE
+                                 * end[n].abs().max()).all():
+            raise AssertionError(f"(i) {n} outside phase 6's elementwise "
+                                 f"tolerance of the uninterrupted run's")
+    if not ratio <= PARAM_RTOL:
+        raise AssertionError(f"(i) resumed tensors {ratio:.3e} of the last "
+                             f"steps' update from the uninterrupted run's")
+    return (f"  (i) BitFit Trainer at (1, 2), {first} fp32 steps (clip "
+            f"{TP_CLIP}, norms {[round(r['grad_norm'], 4) for r in rows]}), "
+            f"checkpoint with {split['split']} split biases gathered whole; "
+            f"one process restored it (digest {digest[:12]} = the ranks'), "
+            f"{last} more steps: loss and grad norm within "
+            f"{TRAIN_METRIC_RTOL} of the uninterrupted run's, tensors "
+            f"{ratio:.2e} of the update apart")
 
 
 def tp_colbase_masks(seed: torch.Tensor, rate: float) -> None:
@@ -7420,9 +7726,10 @@ def tp_colbase_kernels(rep: Report) -> None:
 
 
 def tp_start(tmp: str, pool) -> dict:
-    """Phase 10's one-process runs ((a)-(d), (f)), then its three meshes
-    submitted to ``pool``: (1, 2) for (a) and (b), another (1, 2) for (d)
-    and (f), (1, 4) for (c); every rank on the one card."""
+    """Phase 10's one-process runs ((a)-(d), (f)-(h)), then its three
+    meshes submitted to ``pool``: (1, 2) for (a), (b) and (g), another
+    (1, 2) for (d), (f), (h) and (i), (1, 4) for (c); every rank on the
+    one card."""
     from vlpet_tpu_torch.parallel.launch import run_ranks
 
     tp = {"t0": time.perf_counter(), "want": dp_bf16_step(),
@@ -7433,11 +7740,24 @@ def tp_start(tmp: str, pool) -> dict:
                   in zip(tp["paths"], TP_FP32)]
     tp["tokens"], tp["video"] = tp_tokens(), tp_video_step()
     torch.cuda.empty_cache()
+    tp["scripts"] = []
+    for _, script, run in TP_SCRIPTS:
+        tp["scripts"].append(dp_bf16_step(path=run, cfg_fn=pet_cfg(script)))
+        torch.cuda.empty_cache()
+    tp["family_paths"] = [os.path.join(tmp, f"tp_family_{i}.pt")
+                          for i in range(len(TP_FAMILIES))]
+    tp["family_refs"] = tp_family_refs(tp["family_paths"])
+    tp["family_tokens"] = tp_family_tokens()
+    tp["resume_dir"] = os.path.join(tmp, "tp_resume")
+    os.makedirs(tp["resume_dir"])
+    tp_resume_weights(os.path.join(tp["resume_dir"], "weights.npz"))
+    torch.cuda.empty_cache()
     tp["t1"] = time.perf_counter()
     kw = dict(device="cuda", backend="gloo", timeout=DP_TIMEOUT_S)
     tp["train"] = pool.submit(run_ranks, tp_world2_train, 2, tp["paths"],
-                              **kw)
-    tp["eval"] = pool.submit(run_ranks, tp_world2_eval, 2, **kw)
+                              tp["family_paths"], **kw)
+    tp["eval"] = pool.submit(run_ranks, tp_world2_eval, 2,
+                             tp["family_paths"], tp["resume_dir"], **kw)
     tp["four"] = pool.submit(run_ranks, tp_world4, 4, tp["paths"][2], **kw)
     return tp
 
@@ -7518,6 +7838,7 @@ def tp_finish(tp: dict, card: str) -> dict:
           f"{TP_LAYERS}+{TP_LAYERS} layers (loss "
           f"{evals[0]['video']['loss']:.6f} vs {video['loss']:.6f}) "
           f"{video['launches']}", flush=True)
+    tp_finish_families(tp, train, evals)
     print(f"  phase 10: the one-process runs {tp['t1'] - tp['t0']:.1f} s, "
           f"the three meshes' spawns {t3 - tp['t1']:.1f} s; "
           f"{time.perf_counter() - tp['t0']:.1f} s after (e) on {card}",
@@ -7526,6 +7847,89 @@ def tp_finish(tp: dict, card: str) -> dict:
             TP_T5: train[0]["fp32"][1][0]["launches"],
             TP_VIDEO: evals[0]["video"]["launches"],
             TP_DECODE: evals[0]["tokens"]["launches"]}
+
+
+def tp_finish_families(tp: dict, train, evals) -> None:
+    """Phase 10's checks of (g), (h) and (i) (``tp_start``)."""
+    for (label, _, run), want, *per_rank in zip(
+            TP_SCRIPTS, tp["scripts"], *[r["scripts"] for r in train]):
+        for r, got in enumerate(per_rank):
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            if not rel <= BF16_STEP_RTOL:
+                raise AssertionError(f"(g) {label} rank {r}: loss "
+                                     f"{got['loss']!r} vs one process "
+                                     f"{want['loss']!r}: {rel:.3e}")
+            if got["digest"] != per_rank[0]["digest"]:
+                raise AssertionError(f"(g) {label} rank {r}: gathered "
+                                     f"trainable tensors differ from rank "
+                                     f"0's")
+            if got["launches"] != want["launches"]:
+                raise AssertionError(f"(g) {label} rank {r}: launches "
+                                     f"{got['launches']}, one process "
+                                     f"{want['launches']}")
+        got = per_rank[0]
+        print(f"  (g) {label} (1, 2) bf16 B{DP_B} vqa step: loss "
+              f"{got['loss']:.6f} vs one process {want['loss']:.6f} "
+              f"({abs(got['loss'] - want['loss']) / abs(want['loss']):.3e} "
+              f"relative), grad norm {got['grad_norm']:.6f} vs "
+              f"{want['grad_norm']:.6f}; gathered trainables bit for bit on "
+              f"both ranks; launches {want['launches']}", flush=True)
+    if any("fused_ffn" in k for k in tp["scripts"][1]["launches"]):
+        raise AssertionError("(g) full fine-tuning launched F1 / F2")
+    errors = []  # (h): every family's line first, then its faults
+    for i, ((label, _, _, clip, _, _, B), ref) in enumerate(
+            zip(TP_FAMILIES, tp["family_refs"])):
+        mesh = evals if i % 2 else train
+        for r, res in enumerate(mesh):
+            for k, (row, m) in enumerate(zip(res["families"][i],
+                                             ref["metrics"])):
+                for key in ("loss", "grad_norm"):
+                    if not abs(row[key] - m[key]) <= (TRAIN_METRIC_RTOL
+                                                      * abs(m[key])):
+                        errors.append(f"(h) {label} rank {r} step {k} "
+                                      f"{key}: {row[key]!r} vs one process "
+                                      f"{m[key]!r}")
+                if not row["ratio"] <= PARAM_RTOL:
+                    errors.append(f"(h) {label} rank {r} step {k}: update "
+                                  f"ratio {row['ratio']:.3e}")
+                if row["launches"] != ref["launches"]:
+                    errors.append(f"(h) {label} rank {r} step {k}: launches "
+                                  f"{row['launches']}, one process "
+                                  f"{ref['launches']}")
+                if clip < 5.0 and not m["grad_norm"] > clip:
+                    errors.append(f"(h) {label} step {k}: grad norm "
+                                  f"{m['grad_norm']} under the clip {clip}")
+        rows = "; ".join(f"{x['loss']:.7f}/{m['loss']:.7f} |g| "
+                         f"{x['grad_norm']:.6f}/{m['grad_norm']:.6f} ratio "
+                         f"{x['ratio']:.2e}"
+                         + (f" (key biases {x['noise']:.2f} of phase 6's "
+                            f"tolerance)" if x["noise"] else "")
+                         for x, m in zip(mesh[0]["families"][i],
+                                         ref["metrics"]))
+        print(f"  (h) {label} (1, 2) fp32 B{B} {TP_LAYERS}+{TP_LAYERS} "
+              f"layers, dropout 0.1{f', clip {clip}' if clip < 5.0 else ''}: "
+              f"{rows}; launches a step {ref['launches']}", flush=True)
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for label in TP_TOKEN_FAMILIES:
+        want = tp["family_tokens"][label]
+        for r, res in enumerate(evals):
+            got = res["family_tokens"][label]
+            for beams in (5, 1):
+                if not torch.equal(got[beams], want[beams]):
+                    raise AssertionError(f"(h) {label} rank {r}: beam "
+                                         f"{beams} tokens differ from one "
+                                         f"process's")
+            if got["launches"] != want["launches"]:
+                raise AssertionError(f"(h) {label} rank {r}: beam-5 launches "
+                                     f"{got['launches']}, one process "
+                                     f"{want['launches']}")
+        print(f"  (h) {label} (1, 2) fp32 beam 5 and greedy to length 20, "
+              f"B{DP_EVAL_B}: tokens identical to one process's; beam-5 "
+              f"launches {want['launches']}", flush=True)
+    if evals[1]["resume"]["digest"] != evals[0]["resume"]["digest"]:
+        raise AssertionError("(i) the ranks' state digests differ")
+    print(tp_resume_check(tp["resume_dir"], evals[0]["resume"]), flush=True)
 
 
 def tp_kernels(rep: Report) -> None:

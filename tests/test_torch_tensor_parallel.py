@@ -15,11 +15,15 @@ device.
   tensors bit for bit; each rank's q/k/v, out_proj, fc1 and fc2 1/M of
   the whole.
 * ``sharding_report``: every rule-matched family split at M 2 and 4, each
-  shard 1/M; ``shared`` whole by design; none silently whole; base-shape
-  divisibility for M 2 and 4 on both backbones.
-* The allowlist: the four VL-PET recipes (and the scripts' configs) pass
-  ``check_tensor_parallel``; every flag outside it raises
-  NotImplementedError under a model axis of 2.
+  shard 1/M; ``shared`` whole by design; none silently whole (LoRA's base
+  q / v split too; under BitFit the split biases say "split, trains");
+  base-shape divisibility for M 2 and 4 on both backbones.
+* ``check_tensor_parallel``: the four VL-PET recipes (and the scripts'
+  configs) pass; so do the flags once refused under a split (LoRA, the
+  prefixes, IA3, the multihead and key VPAs, BitFit, full fine-tuning,
+  the classifier, remat, the visual prefix), each sharded at M 2 with a
+  reason for every rule-matched parameter; ``scan_layers``, which one
+  process refuses, still raises.
 
 The weights are the JAX model's random init (std 0.2), carried to the
 port by convert.load_flax_params. The ranks (tests/torch_dist_ranks.py)
@@ -54,6 +58,7 @@ from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.parallel.launch import run_ranks
 from vlpet_tpu_torch.parallel.mesh import (Layout, check_tensor_parallel,
                                            shard_model, sharding_report)
+from vlpet_tpu_torch.train.freezing import apply_freezing
 
 torch.set_num_threads(2)  # several xdist workers share the host
 
@@ -161,10 +166,21 @@ def test_tp_step_matches_jax(bart, layout, task):
     assert n_split == 2 * 4 + 2 * 8 + 2 * 2 + 2 * 2  # 2 + 2 layers
 
 
-def _tiny(backbone: str, gated: bool = False):
+def _tiny(backbone: str, gated: bool = False, pet: str = ""):
+    """The tiny flagship (BART) or a tiny T5 with VL-PET-large; ``pet``
+    "lora" / "bitfit": BART with single_lora.sh's or bitfit.sh's flags
+    instead (BitFit's trainables marked by ``apply_freezing``)."""
     if backbone == "bart":
         jcfg, _ = _flagship_cfg(tiny=True)
-        return VLBart(port_cfg(jcfg), device="cpu")
+        cfg = port_cfg(jcfg)
+        if pet:
+            flags = (dict(use_lora=True, lora_dim=4, use_single_lora=True)
+                     if pet == "lora" else dict(unfreeze_bias=True))
+            cfg = dataclasses.replace(cfg, pet=pc.PetConfig(
+                tasks=cfg.pet.tasks, **flags))
+        model = VLBart(cfg, device="cpu")
+        apply_freezing(model, cfg.pet)
+        return model
     cfg = pc.VLModelConfig(
         backbone=pc.T5Config(vocab_size=80, d_model=32, d_kv=8, d_ff=64,
                              num_layers=2, num_decoder_layers=2, num_heads=4,
@@ -177,12 +193,16 @@ def _tiny(backbone: str, gated: bool = False):
 
 
 @pytest.mark.parametrize("model_axis", [2, 4])
-@pytest.mark.parametrize("backbone", ["bart", "t5", "t5_gated"])
+@pytest.mark.parametrize("backbone", ["bart", "t5", "t5_gated", "bart_lora",
+                                      "bart_bitfit"])
 def test_sharding_report_splits_every_family(backbone, model_axis):
     """Every rule-matched family splits, none silently whole, and
     shard_model leaves each split tensor 1/M of its whole size (on a
-    rank's Layout; shard_model runs no collective)."""
-    model = _tiny(backbone.split("_")[0], gated=backbone.endswith("gated"))
+    rank's Layout; shard_model runs no collective). LoRA's base q / v
+    split (its reason says so) and ``lora_A`` / ``lora_B`` stay whole;
+    BitFit's split biases say "split, trains"."""
+    model = _tiny(backbone.split("_")[0], gated=backbone.endswith("gated"),
+                  pet=backbone.partition("_")[2])
     whole = {n: p.shape for n, p in model.named_parameters()}
     report = sharding_report(model, model_axis)
     split = {n for n, dim, sharded, why in report if sharded}
@@ -190,12 +210,21 @@ def test_sharding_report_splits_every_family(backbone, model_axis):
     assert set(kept.values()) == {"whole by design"}
     assert all(re.search(r"(^|\.)(shared|lm_head\.weight)$", n) for n in kept)
     fams = ((r"\.(q|k|v|o)\.weight$", r"\.wi(_0|_1)?\.weight$",
-             r"\.wo\.weight$") if backbone != "bart" else
-            (r"\.(q_proj|k_proj|v_proj|out_proj)\.weight$",
-             r"\.(q_proj|k_proj|v_proj)\.bias$", r"fc1\.(weight|bias)$",
-             r"fc2\.weight$"))
+             r"\.wo\.weight$") if not backbone.startswith("bart") else
+            (r"\.(q_proj|k_proj|v_proj|out_proj)(\.base)?\.weight$",
+             r"\.(q_proj|k_proj|v_proj)(\.base)?\.bias$",
+             r"fc1\.(weight|bias)$", r"fc2\.weight$"))
     for fam in fams:
         assert any(re.search(fam, n) for n in split), fam
+    why = {n: w for n, _, _, w in report}
+    if backbone == "bart_lora":
+        for proj in ("q_proj", "v_proj"):
+            base = [n for n in split if f"{proj}.base." in n]
+            assert base and all("LoRA's base" in why[n] for n in base)
+        assert not any("lora_" in n for n in why)
+    if backbone == "bart_bitfit":
+        trains = {n for n in split if why[n].endswith(", trains")}
+        assert trains == {n for n in split if n.endswith("bias")} != set()
     assert not any(re.search(r"relative_attention_bias|out_proj\.bias|"
                              r"fc2\.bias|layer_norm|adapter|gating", n)
                    for n in split)
@@ -254,8 +283,13 @@ REFUSED = {
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED) + ["classifier", "remat",
-                                                    "vis_prefix"])
+                                                    "vis_prefix",
+                                                    "scan_layers"])
 def test_flags_outside_the_allowlist_raise(name):
+    """The flags once refused under a model axis > 1 (an allowlist) now run
+    split: each configuration passes ``check_tensor_parallel``, shards at
+    M 2, and ``sharding_report`` gives every rule-matched parameter a
+    reason. ``scan_layers``, which one process refuses, still raises."""
     jcfg, _ = _flagship_cfg(tiny=True)
     cfg = port_cfg(jcfg)
     if name in REFUSED:
@@ -268,9 +302,22 @@ def test_flags_outside_the_allowlist_raise(name):
         cfg = dataclasses.replace(cfg, vis=dataclasses.replace(
             cfg.vis, use_vis_prefix=True))
     elif name == "classifier":
-        cfg = dataclasses.replace(cfg, classifier=True)
+        cfg = dataclasses.replace(cfg, classifier=True, num_answers=3)
+    elif name == "scan_layers":
+        with pytest.raises(NotImplementedError, match="scan_layers"):
+            check_tensor_parallel(dataclasses.replace(cfg, scan_layers=True))
+        return
     else:
         cfg = dataclasses.replace(cfg, remat="full")
-    with pytest.raises(NotImplementedError, match="next tensor-parallel"):
-        check_tensor_parallel(cfg)
-    check_tensor_parallel(port_cfg(jcfg))  # the recipe itself runs
+    check_tensor_parallel(cfg)
+    model = VLBart(cfg, device="cpu")
+    apply_freezing(model, cfg.pet)
+    report = sharding_report(model, 2)
+    reasons = {why for _, _, _, why in report}
+    assert reasons and all(reasons)
+    assert reasons <= {"split", "split, trains", "whole by design",
+                       "split (LoRA's base rows; lora_B's columns in the "
+                       "forward)", "split (LoRA's base rows; lora_B's "
+                       "columns in the forward), trains"}, reasons
+    shard_model(model, Layout(data=1, model=2, model_index=1))
+    assert model.tp.size == 2

@@ -257,11 +257,13 @@ def test_device_cuda_raises_without_cuda(tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out.count(
         "mesh_model_axis 2 does not divide 1 process(es): the model axis "
         "is 1") == 1
-    # a flag outside the tensor-parallel allowlist, under a 2-rank model axis
+    # a flag once refused under a split (an allowlist), under a 2-rank
+    # model axis: it shards (LoRA's base q / v rows split)
     lora = dataclasses.replace(trainer.cfg, pet=dataclasses.replace(
         trainer.cfg.pet, use_lora=True))
-    with pytest.raises(NotImplementedError, match="use_lora"):
-        shard_model(VLBart(lora, device="cpu"), Layout(model=2))
+    model = shard_model(VLBart(lora, device="cpu"), Layout(model=2))
+    q = model.model.encoder.layers_0.self_attn.q_proj
+    assert q.base.weight.shape[0] * 2 == q.lora_B.shape[-1]
     # --classifier builds the answer head, which the video steps leave unread
     trainer, history = tm.main(argv + ["--classifier", "--output",
                                        str(tmp_path / "cls")], device="cpu")

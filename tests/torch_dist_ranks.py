@@ -44,23 +44,61 @@ def to_torch(batch):
             else torch.from_numpy(v) for k, v in batch.items()}
 
 
+def no_lora_dropout() -> None:
+    """LoRA dropout 0 in this process (the JAX LoRADense draws its mask
+    from jax.random: the JAX lockstep tests run LoRA without it)."""
+    from vlpet_tpu_torch.config import PetConfig
+
+    orig = PetConfig.lora_spec
+    if not getattr(orig, "no_dropout", False):
+        def spec(self):
+            return dataclasses.replace(orig(self), lora_dropout=0.0)
+
+        spec.no_dropout = True
+        PetConfig.lora_spec = spec
+
+
+TINY_RN = dict(layers=(1, 1, 1, 1), width=16, output_dim=32)
+
+
+def build_model(cfg, raw=None):
+    """The port's model of ``cfg`` on the CPU: VLBart / VLT5, or with
+    ``raw`` (RawInputVLModel's keyword arguments) the raw-image model, the
+    tiny CLIP ResNet "RN_tiny" registered as tests/test_torch_raw_path.py
+    registers it."""
+    if raw is None:
+        return (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
+    import vlpet_tpu_torch.vision.clip as tclip
+    from vlpet_tpu_torch.vision.vis_encoder import RawInputVLModel
+
+    tclip._RESNET_CONFIGS.setdefault("RN_tiny", TINY_RN)
+    return RawInputVLModel(cfg, device="cpu", **raw)
+
+
 def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1,
-              model_axis=1):
+              model_axis=1, lambda_z=0.0, lora_dropout0=False, raw=None):
     """``steps`` train steps of the model of ``cfg`` at ``state``, on this
     process's data shard of ``batch`` (the whole batch without a process
     group) under a (world / ``model_axis``, ``model_axis``) mesh, dropout
     seeds from generator seed 0, the optimizer updating every
-    ``accumulation``-th step. Returns the per-step losses and gradient
-    norms, the trainable tensors at the end and the shapes of the
+    ``accumulation``-th step (``lambda_z``: the z regularizer;
+    ``lora_dropout0``: LoRA at dropout 0; ``raw``: the raw-image model,
+    ``build_model``). Returns the per-step losses and gradient norms, the
+    trainable tensors at the end, gathered whole, and the shapes of the
     model's parameters on this rank."""
+    from vlpet_tpu_torch.parallel.mesh import gather_state_dict
+
+    if lora_dropout0:
+        no_lora_dropout()
     layout = build_mesh(MeshConfig(model=model_axis))
     rank, world = layout.data_index, layout.data
-    model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
+    model = build_model(cfg, raw)
     model.load_state_dict(state)
     trainable = apply_freezing(model, cfg.pet)
     shard_model(model, layout)
     step = make_train_step(model, build_optimizer(trainable, **opt), tasks,
-                           device="cpu", accumulation_steps=accumulation)
+                           lambda_z=lambda_z, device="cpu",
+                           accumulation_steps=accumulation)
     generator = torch.Generator().manual_seed(0)
     t = to_torch(share(batch, rank, world))
     losses, norms = [], []
@@ -68,8 +106,11 @@ def run_steps(cfg, state, batch, tasks, task, steps, opt, accumulation=1,
         out = step(t, generator, tasks.index(task))
         losses.append(float(out["loss"]))
         norms.append(float(out["grad_norm"]))
+    whole = gather_state_dict({n: p.detach() for n, p in trainable.items()},
+                              model)
     return {"losses": losses, "norms": norms,
-            "params": {n: p.detach().clone() for n, p in trainable.items()},
+            "params": {n: p.clone() for n, p in whole.items()},
+            "local": {n: tuple(p.shape) for n, p in trainable.items()},
             "shapes": {n: tuple(p.shape) for n, p in model.named_parameters()}}
 
 
@@ -78,19 +119,22 @@ def train_ranks(rank, world, cases):
     return [run_steps(**case) for case in cases]
 
 
-def generate(cfg, state, batch, tasks, task, model_axis=1, max_length=8):
+def generate(cfg, state, batch, tasks, task, model_axis=1, max_length=8,
+             lora_dropout0=False, raw=None):
     """Beam-5 and greedy tokens of the model of ``cfg`` at ``state`` on
     this process's data shard of ``batch``, under a (world /
     ``model_axis``, ``model_axis``) mesh."""
+    if lora_dropout0:
+        no_lora_dropout()
     layout = build_mesh(MeshConfig(model=model_axis))
-    model = (VLT5 if cfg.is_t5 else VLBart)(cfg, device="cpu")
+    model = build_model(cfg, raw)
     model.load_state_dict(state)
     shard_model(model, layout)
     t = to_torch(share(batch, layout.data_index, layout.data))
     keys = ("input_ids", "attention_mask", "vis_feats", "boxes")
     ctx = PetContext(task=task, task_idx=tasks.index(task))
-    return {n: seq2seq_generate(model, **{k: t[k] for k in keys}, ctx=ctx,
-                                num_beams=n, max_length=max_length)
+    return {n: seq2seq_generate(model, **{k: t[k] for k in keys if k in t},
+                                ctx=ctx, num_beams=n, max_length=max_length)
             for n in (5, 1)}
 
 
@@ -118,9 +162,10 @@ class StableTokenizer(WhitespaceTokenizer):
 EVAL_TASKS = ("vqa", "nlvr", "caption")
 
 
-def tiny_trainer(output_dir=None, **kw):
-    """A tiny BART (d 32, 2+2 layers, vocab 60) with VL-PET-large, fp32,
-    dropout 0, on the CPU; seeded, so every process builds the same."""
+def tiny_trainer(output_dir=None, pet=None, **kw):
+    """A tiny BART (d 32, 2+2 layers, vocab 60) with VL-PET-large (or the
+    PetConfig ``pet``), fp32, dropout 0, on the CPU; seeded, so every
+    process builds the same."""
     from vlpet_tpu_torch.config import VisConfig, VLModelConfig, vlpet_recipe
 
     cfg = VLModelConfig(
@@ -130,8 +175,8 @@ def tiny_trainer(output_dir=None, **kw):
                             decoder_ffn_dim=64, max_position_embeddings=32,
                             dropout=0.0),
         vis=VisConfig(feat_dim=16, n_boxes=4),
-        pet=vlpet_recipe("large", r=8, num_heads=4, gate_dim=8,
-                         tasks=EVAL_TASKS))
+        pet=pet or vlpet_recipe("large", r=8, num_heads=4, gate_dim=8,
+                                tasks=EVAL_TASKS))
     return Trainer(cfg, EVAL_TASKS, tokenizer=StableTokenizer(vocab_size=60),
                    output_dir=output_dir, verbose=False, device="cpu", **kw)
 
@@ -168,10 +213,16 @@ def evaluate_all(trainer):
 
 
 def train_caption(trainer, epochs: int, batch_size: int):
-    """``trainer.train`` on this process's shard of 16 caption examples."""
+    """``trainer.train`` on this process's shard of 16 caption examples;
+    the trainable tensors after it, whole (gathered over a model
+    group)."""
+    from vlpet_tpu_torch.parallel.mesh import gather_state_dict
+
     mt = MultitaskLoader([loader("caption", 16, batch_size, train=True)])
     trainer.train(mt, epochs=epochs, log_every=1000)
-    return {n: p.detach().clone() for n, p in trainer.trainable.items()}
+    whole = gather_state_dict({n: p.detach() for n, p in
+                               trainer.trainable.items()}, trainer.model)
+    return {n: p.clone() for n, p in whole.items()}
 
 
 def eval_ranks(rank, world, out_dir):
@@ -299,6 +350,37 @@ def cli_ranks(rank, world, out_dir, extra=()):
     return out
 
 
+def cli_scripts_ranks(rank, world, runs):
+    """``cli_script_ranks`` of each (output directory, argv) of ``runs``."""
+    return [cli_script_ranks(rank, world, d, argv) for d, argv in runs]
+
+
+def cli_script_ranks(rank, world, out_dir, argv):
+    """cli.multitask.main on ``argv`` (a script's flags with
+    ``--distributed`` and the tiny sizes; the tiny BART backbone): one
+    epoch with its evaluations, then ``--resume`` from its checkpoint.
+    Returns both runs' steps, layouts and state digests (collective: every
+    rank computes them), the first run's history keys and its trainable
+    tensors, gathered whole."""
+    import vlpet_tpu_torch.cli.multitask as tm
+    from vlpet_tpu_torch.parallel.mesh import gather_state_dict
+
+    _tiny_backbone()
+    argv = list(argv) + ["--output", os.path.join(out_dir, "run")]
+    trainer, history = tm.main(argv, device="cpu")
+    out = {"step": trainer.step, "digest": trainer.state_digest(),
+           "layout": (trainer.layout.data, trainer.layout.model),
+           "history": sorted(history[0]),
+           "trainable": gather_state_dict(
+               {n: p.detach() for n, p in trainer.trainable.items()},
+               trainer.model),
+           "local": {n: tuple(p.shape) for n, p in trainer.trainable.items()}}
+    again, history = tm.main(argv + ["--resume"], device="cpu")
+    out.update(resumed_step=again.step, resumed_history=history,
+               resumed_digest=again.state_digest())
+    return out
+
+
 def eval_cli_ranks(rank, world, ckpt_dir, cli_dir):
     """``eval_ranks`` then ``cli_ranks``, in one process group."""
     return {"eval": eval_ranks(rank, world, ckpt_dir),
@@ -307,23 +389,28 @@ def eval_cli_ranks(rank, world, ckpt_dir, cli_dir):
 
 # --- tensor parallelism: checkpoints across layouts ------------------------
 
-def tp_checkpoint_ranks(rank, world, out_dir, model_axis, stage):
+def tp_checkpoint_ranks(rank, world, out_dir, model_axis, stage, pet=None,
+                        clip=5.0):
     """Stage "save": the sharded evaluation, then one caption epoch at
     batch 2 a data shard, checkpointed (and LAST.npz written) under
     ``out_dir``. Stage "resume": restore that checkpoint under this
     layout, load its LAST.npz into the sharded model, and train to the
-    end of the second epoch at batch 4 a data shard."""
+    end of the second epoch at batch 4 a data shard. ``pet``: the recipe
+    (VL-PET-large without one; the sharded evaluation only then),
+    ``clip``: the clip norm."""
     from vlpet_tpu_torch.train.checkpoint import load_params_npz
 
+    kw = dict(output_dir=out_dir, lr=1e-2, total_steps=8, pet=pet,
+              clip_grad_norm=clip, mesh_model_axis=model_axis)
     if stage == "save":
-        res = {"eval": evaluate_all(tiny_trainer(mesh_model_axis=model_axis))}
-        trainer = tiny_trainer(output_dir=out_dir, lr=1e-2, total_steps=8,
-                               mesh_model_axis=model_axis)
+        res = ({"eval": evaluate_all(tiny_trainer(mesh_model_axis=model_axis))}
+               if pet is None else {})
+        trainer = tiny_trainer(**kw)
         res["params"] = train_caption(trainer, epochs=1, batch_size=2)
     else:
-        trainer = tiny_trainer(output_dir=out_dir, lr=1e-2, total_steps=8,
-                               mesh_model_axis=model_axis)
+        trainer = tiny_trainer(**kw)
         res = {"restored": trainer.restore()}
+        res["digest"] = trainer.state_digest()
         _, res["npz_loaded"] = load_params_npz(
             os.path.join(out_dir, "LAST.npz"), trainer.model)
         res["params"] = train_caption(trainer, epochs=2, batch_size=4)

@@ -255,9 +255,12 @@ def main(argv=None, device=None):
     if args.resume:
         t1 = time.time()
         step = trainer.restore()
-        if step is not None and trainer.lead:
-            print(f"resumed from step {step} in {time.time() - t1:.3f} s; "
-                  f"state digest {trainer.state_digest()}")
+        if step is not None:
+            t2 = time.time()
+            digest = trainer.state_digest()  # every rank: it gathers
+            if trainer.lead:
+                print(f"resumed from step {step} in {t2 - t1:.3f} s; "
+                      f"state digest {digest}")
 
     if args.infer_only or args.test_only:
         if args.load_trained_model_path:
@@ -275,9 +278,9 @@ def main(argv=None, device=None):
         return trainer
 
     history = trainer.train(mt, epochs=args.epochs, val_loaders=val_loaders)
+    digest = trainer.state_digest()  # every rank: it gathers
     if trainer.lead:
-        print(f"saved at step {trainer.step}; state digest "
-              f"{trainer.state_digest()}")
+        print(f"saved at step {trainer.step}; state digest {digest}")
     return trainer, history
 
 

@@ -47,7 +47,12 @@ moved by ``fold_heads``), a sharded layer its rank's FFN hidden columns
 (F1 / F2 at F/M columns with the hidden's column base and whole width, a
 zero b2); the replicated stream enters a shard through
 ``copy_to_model`` and leaves it through ``reduce_from_model`` with the
-bias added once (parallel/tensor.py).
+bias added once (parallel/tensor.py). A hook whose whole output lands in
+a split tensor gives the rank its head or hidden columns behind
+``copy_to_model`` (rule 1 of parallel/mesh.py): LoRA's ``lora_B``
+columns, the prefixes' K/V, the cross hooks' outputs, the decoder FFN's
+IA3 vector (whose layer takes the plain chain at the hidden's column
+base).
 """
 
 from __future__ import annotations
@@ -281,12 +286,21 @@ def _ffn(layer: nn.Module, x: torch.Tensor, act: str,
                             * layer.ffn_width)
     ia3 = layer._modules.get("decoder_ff_ia3_mod")
     if ia3 is not None:
+        g, cols = ia3(), {}
+        if tp is not None:
+            # rule 1 (parallel/mesh.py): the whole vector, the rank's hidden
+            # columns of it; the mask at the columns' base of the whole width
+            x, g = copy_to_model(x, tp), tp.columns(g, layer.ffn_width)
+            cols = dict(col_base=tp.base(layer.ffn_width),
+                        width=layer.ffn_width)
         h = get_activation(act)(layer.fc1(x))
-        g = ia3().to(h.dtype)
+        g = g.to(h.dtype)
         h = h + h * g if c.pet.use_decoder_ff_ia3_add else h * g
         if seed is not None:
-            h = hash_dropout(h, seed, rate)
-        return layer.fc2(h)
+            h = hash_dropout(h, seed, rate, **cols)
+        if tp is None:
+            return layer.fc2(h)
+        return row_parallel(h, layer.fc2.weight, layer.fc2.bias, tp)
     fn = (route(fused_ffn, ffn_reference)
           if c.use_fused_ffn and not c.pet.unfreeze_language_model
           else ffn_reference)
@@ -399,7 +413,11 @@ class BartAttention(nn.Module):
         self.num_heads = shard.local(self.whole_heads)
         inner = self.num_heads * self.head_dim
         for name in ("q_proj", "k_proj", "v_proj"):
-            getattr(self, name).out_dim = inner
+            dense = getattr(self, name)
+            if isinstance(dense, LoRADense):
+                dense.shard_(shard, self.whole_heads, self.head_dim)
+                dense = dense.base
+            dense.out_dim = inner
         self.out_proj.in_dim = inner
 
     def _enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -482,39 +500,41 @@ class BartAttention(nn.Module):
         times its gate where there is one, plus the states in v's dtype.
         Computed once per sequence: the training pass and the decode
         precompute both come here. On a sharded attention K/V hold the
-        rank's heads, and every whole term added into v (the VPA's output,
-        its gate, the residual states) gives v its head columns behind
-        ``copy_to_model``, so the VPA's gradient comes back whole."""
+        rank's heads, and every whole term of a hook (an adapter's output,
+        IA3's vector, the gate, the residual states) gives k or v its head
+        columns behind ``copy_to_model``, so the hook's gradient comes back
+        whole."""
         p, mods, tp = self.cfg.pet, self._modules, self.tp
+        # a split attention takes each hook's whole output, then its head
+        # columns (rule 1 of parallel/mesh.py): a parallel adapter's alone
+        # (plus a zero: the same sum as the adapter's own y + out), the
+        # sequential adapter's, IA3's vector, the multihead / pair VPA's
+        # delta
+        cols = (lambda t: t) if tp is None else self._cols
         kv_in = self._enter(kv_states)
         k = self.k_proj(kv_in)
         if "attn_key_parallel_adapter" in mods:
-            k = self.attn_key_parallel_adapter(kv_states, ctx, y=k)
+            k = k + cols(self.attn_key_parallel_adapter(kv_states, ctx,
+                                                        y=k.new_zeros(())))
         v = self._proj(self.v_proj, kv_in, ctx, seeds)
-        if "attn_value_parallel_adapter" in mods and tp is not None:
-            # the adapter's output alone (plus a zero), then its columns
-            out = self.attn_value_parallel_adapter(kv_states, ctx,
-                                                   y=v.new_zeros(()))
-            v = v + self._cols(out)
-        elif "attn_value_parallel_adapter" in mods:
-            v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
+        if "attn_value_parallel_adapter" in mods:
+            v = v + cols(self.attn_value_parallel_adapter(kv_states, ctx,
+                                                          y=v.new_zeros(())))
         elif "enc_attn_value_sequential_adapter" in mods:
-            v = self.enc_attn_value_sequential_adapter(kv_states, ctx)
+            v = cols(self.enc_attn_value_sequential_adapter(kv_states, ctx))
         elif "value_ia3" in mods:
             # the JAX product promotes a bf16 v to fp32; the port keeps v's
             # dtype, the attention's (the same values in fp32)
-            g = self.value_ia3().to(v.dtype)
+            g = cols(self.value_ia3()).to(v.dtype)
             v = v + v * g if p.use_decoder_enc_attn_value_ia3_add else v * g
         elif "attn_value_parallel_adapter_multihead" in mods:
-            v = v + self.attn_value_parallel_adapter_multihead(kv_states)
+            v = v + cols(self.attn_value_parallel_adapter_multihead(kv_states))
         if p.use_decoder_enc_attn_value_residual_connection:
             gate = (mods.get("enc_attn_value_sequential_adapter_gating_large_x")
                     or mods.get("enc_attn_value_parallel_adapter_gating_large_x"))
             if gate is not None:
-                g = gate(kv_states)
-                v = v * (g if tp is None else self._cols(g))
-            v = (kv_states if tp is None
-                 else self._cols(kv_states)).to(v.dtype) + v
+                v = v * cols(gate(kv_states))
+            v = cols(kv_states).to(v.dtype) + v
         return k, v
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,
@@ -534,7 +554,8 @@ class BartAttention(nn.Module):
         ``cross_kv`` projects ``kv_states`` (the encoder output). ``seeds``
         (training) feed LoRA's dropout. ``prefix_kv`` (B, P, H*Dh) each,
         on a self role over a whole sequence: prefix-tuning K/V before the
-        own (vlpet_tpu/models/bart.py:483-485); the encoder's mask then has
+        own (vlpet_tpu/models/bart.py:483-485; a sharded attention takes
+        their head columns); the encoder's mask then has
         the P columns already, and the causal triangle's offset S - L opens
         them to every query of the decoder. In training at
         ``attention_dropout`` > 0 the probabilities are dropped with the
@@ -560,8 +581,11 @@ class BartAttention(nn.Module):
                                     seed)), cache
         q, k, v = self._qkv(x, ctx, qkv, seeds)
         if prefix_kv is not None:
-            k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=1)
-            v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=1)
+            pk, pv = prefix_kv
+            if self.tp is not None:  # rule 1: the whole prefix's heads
+                pk, pv = self._cols(pk), self._cols(pv)
+            k = torch.cat([pk.to(k.dtype), k], dim=1)
+            v = torch.cat([pv.to(v.dtype), v], dim=1)
         if self.role == "enc_self":
             m = attention_mask.float()
             rate, seed = self._probs_seed(seeds, L * k.shape[1])
@@ -1247,10 +1271,15 @@ class BartDecoder(nn.Module):
         (vlpet_tpu/models/bart.py:1307 ``prefix_cache_init``), or the
         decoder input prompt's self-attention K/V from the reference's dry
         run (``compute_prompt_kvs``, :1316): the prompt at positions
-        0..P-1 through every layer without its cross block."""
+        0..P-1 through every layer without its cross block. A sharded
+        decoder's are its heads' (the caches' width)."""
         mods = self._modules
         if "decoder_prefix_embedding" in mods:
-            return self.decoder_prefix_embedding(batch_size)
+            kvs = self.decoder_prefix_embedding(batch_size)
+            attn = self.layers()[0].self_attn
+            if attn.tp is None:
+                return kvs
+            return tuple((attn._cols(k), attn._cols(v)) for k, v in kvs)
         if "prompt_modules" not in mods:
             return None
         dt = self.dtype

@@ -237,12 +237,11 @@ class T5Attention(nn.Module):
         kv_in = self._enter(kv_states)
         k = self.k(kv_in)
         v = self.v(kv_in)
-        if self.has_vpa and self.tp is not None:
+        if self.has_vpa:  # its output alone, plus a zero: y + out's sum
             out = self.attn_value_parallel_adapter(kv_states, ctx,
                                                    y=v.new_zeros(()))
-            v = v + self.tp.columns(out, self.whole_heads, self.head_dim)
-        elif self.has_vpa:
-            v = self.attn_value_parallel_adapter(kv_states, ctx, y=v)
+            v = v + (out if self.tp is None else self.tp.columns(
+                out, self.whole_heads, self.head_dim))
         return k, v
 
     def forward(self, hidden_states: torch.Tensor, ctx: PetContext,

@@ -121,11 +121,15 @@ def kernel_drop_args(rate: float):
     return int(rate > 0.0), keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def hash_dropout(x: torch.Tensor, seed, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed, rate: float, col_base: int = 0,
+                 width: Optional[int] = None) -> torch.Tensor:
     """Dropout from the hash mask over x's whole flat index
     (vlpet_tpu/ops/hashdrop.py:57): kept elements scaled by 1/(1-rate)
-    rounded to x's dtype, as the JAX function does."""
-    keep = keep_mask(x.shape, 0, seed, rate, device=x.device)
+    rounded to x's dtype, as the JAX function does. ``col_base`` /
+    ``width``: x is a column shard of a tensor ``width`` wide
+    (``keep_mask``)."""
+    keep = keep_mask(x.shape, 0, seed, rate, device=x.device,
+                     col_base=col_base, width=width)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros_like(x))
 

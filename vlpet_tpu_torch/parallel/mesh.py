@@ -23,18 +23,45 @@ Kept whole on every rank: ``shared`` (the embedding and the tied LM head)
 and an untied ``lm_head`` -- whole by design, where the JAX rules split
 d_model and GSPMD sums partial logits: the port's C1 / C2 and T1 stream
 the whole vocabulary against whole hidden rows, and BART's 50265 rows
-divide by neither 2 nor 4 -- T5's ``relative_attention_bias`` (sliced to
-the rank's heads where it is used), every LayerNorm / RMSNorm, every PET
-module and the optimizer's state. The results are one device's, as in
-the JAX package; only the placement differs.
+divide by neither 2 nor 4 -- the classifier's answer head (its fc1 / fc2
+match the FFN rules; it reads the whole decoder state), T5's
+``relative_attention_bias`` (sliced to the rank's heads where it is
+used), every LayerNorm / RMSNorm, every PET module and the CLIP trunk of
+the raw-image path (no name of it matches a rule, as in the JAX package).
+LoRA's ``q_proj.base`` / ``v_proj.base`` split like the other
+projections (a rule the JAX package lacks: GSPMD leaves them whole):
+q/k/v keep one shape on every path, and ``lora_B``, whole, gives the rank
+its head columns in the forward. The results are one device's, as in the
+JAX package; only the placement differs.
+
+Every configuration the port builds in one process runs split, by three
+rules:
+
+1. A hook whose output lands in a split tensor keeps its parameters whole
+   and computes its whole output (a prefix's K/V, an adapter's delta, an
+   IA3 vector) from replicated inputs; ``ModelShard.columns`` gives the
+   rank its head or hidden columns behind ``copy_to_model``, so the
+   hook's gradient comes back whole, the same on every rank.
+2. A trainable tensor that is itself split (BitFit's q/k/v and fc1
+   biases, the weights under ``unfreeze_language_model``) trains as its
+   shard: its gradient, Adam moments and master copy are the rank's
+   rows or columns; the clip norm sums the split tensors' squares over
+   the model group in fp32 and counts the replicated ones once
+   (train/optim.py); checkpoints gather them whole and restores cut them
+   again (``gather_state_dict`` / ``shard_state_dict``).
+3. Everything else -- adapters, gates, hypernets, prompts, the LM-head
+   adapter, the answer head, LayerNorms, the CLIP trunk -- lives on the
+   replicated stream: whole inputs, whole outputs, whole gradients, since
+   every consumer downstream enters a shard through ``copy_to_model``.
 
 A unit (an attention, an FFN) whose heads or hidden width the model axis
 does not divide stays whole, as ``param_shardings`` falls back to
-replication. Only the VL-PET recipes run split (``check_tensor_parallel``:
-an allowlist of flags); the model is built whole from its seed, loaded,
-then sharded (``shard_model``); checkpoints and LAST.npz hold whole
-tensors (``gather_state_dict``) and shard again after reading
-(``shard_state_dict``), so a run resumes under another layout.
+replication. ``check_tensor_parallel`` refuses what one process refuses
+(``scan_layers``, ``vis_use_transformer``, T5's unread flags); the model
+is built whole from its seed, loaded, then sharded (``shard_model``);
+checkpoints and LAST.npz hold whole tensors (``gather_state_dict``) and
+shard again after reading (``shard_state_dict``), so a run resumes under
+another layout.
 """
 
 from __future__ import annotations
@@ -131,11 +158,12 @@ def current_layout() -> Layout:
 
 # (param-name regex, the dim split, the unit it belongs to): torch weights
 # are (out, in) where flax kernels are (in, out), so each dim flips
+# (``.base``: LoRA's base projection, module docstring)
 _PARAM_RULES: Tuple[Tuple[str, int, str], ...] = (
     (r"(self_attn|encoder_attn|cross_attn)\.(q_proj|k_proj|v_proj|q|k|v)"
-     r"\.weight$", -2, "attn"),
-    (r"(self_attn|encoder_attn|cross_attn)\.(q_proj|k_proj|v_proj)\.bias$",
-     -1, "attn"),
+     r"(\.base)?\.weight$", -2, "attn"),
+    (r"(self_attn|encoder_attn|cross_attn)\.(q_proj|k_proj|v_proj)"
+     r"(\.base)?\.bias$", -1, "attn"),
     (r"(self_attn|encoder_attn|cross_attn)\.(out_proj|o)\.weight$", -1,
      "attn"),
     (r"(^|\.)fc1\.weight$|\.wi(_0|_1)?\.weight$", -2, "ffn"),
@@ -163,21 +191,24 @@ def _units(model: torch.nn.Module) -> Dict[str, Tuple[str, int]]:
 
 
 def _owner(name: str, units) -> Optional[str]:
-    mod = name.rsplit(".", 2)[0]  # <unit>.<dense>.<leaf>
+    mod = name.replace(".base.", ".").rsplit(".", 2)[0]  # <unit>.<dense>.<leaf>
     return mod if mod in units else None
 
 
 def param_plan(model: torch.nn.Module, model_axis: int
                ) -> List[Tuple[str, Optional[int], str]]:
     """Every rule-matched parameter of ``model`` (by its whole shapes) as
-    (name, the dim split or None, why): "split", "indivisible" (its unit's
-    heads or hidden width do not divide by the model axis; it stays
-    whole, as ``param_shardings`` falls back) or "whole by design"."""
+    (name, the dim split or None, why): "split" ("split, trains" where it
+    is trainable; LoRA's base says so), "indivisible" (its unit's heads or
+    hidden width do not divide by the model axis; it stays whole, as
+    ``param_shardings`` falls back) or "whole by design" (``shared``, an
+    untied ``lm_head``, a rule-matched name outside every attention and
+    FFN: the answer head's)."""
     units = _units(model)
     rules = [(re.compile(p), d) for p, d, _ in _PARAM_RULES]
     whole = [re.compile(p) for p in WHOLE_BY_DESIGN]
     out = []
-    for name, _ in model.named_parameters():
+    for name, param in model.named_parameters():
         if any(p.search(name) for p in whole):
             out.append((name, None, "whole by design"))
             continue
@@ -185,11 +216,30 @@ def param_plan(model: torch.nn.Module, model_axis: int
         if dim is None:
             continue
         unit = _owner(name, units)
-        if unit is None or units[unit][1] % model_axis:
+        if unit is None:
+            out.append((name, None, "whole by design"))
+        elif units[unit][1] % model_axis:
             out.append((name, None, "indivisible"))
         else:
-            out.append((name, dim, "split"))
+            why = "split"
+            if ".base." in name:
+                why += " (LoRA's base rows; lora_B's columns in the forward)"
+            out.append((name, dim, why + (", trains" if param.requires_grad
+                                          else "")))
     return out
+
+
+def split_plan(model: torch.nn.Module, model_axis: int) -> Dict[str, int]:
+    """The split parameters of ``param_plan``: {name: the dim split}."""
+    return {n: d for n, d, why in param_plan(model, model_axis)
+            if why.startswith("split")}
+
+
+def split_names(model: torch.nn.Module) -> frozenset:
+    """The names of a sharded model's split parameters (none unsharded)."""
+    shard = getattr(model, "tp", None)
+    return frozenset(split_plan(model, shard.size) if shard is not None
+                     else ())
 
 
 def sharding_report(model: torch.nn.Module, model_axis: int
@@ -202,58 +252,14 @@ def sharding_report(model: torch.nn.Module, model_axis: int
             for n, d, why in param_plan(model, model_axis)]
 
 
-# --- the recipes that run split ---------------------------------------------
-
-# the PetConfig fields that may differ from their defaults under a model
-# axis > 1: the VL-PET recipes (config.vlpet_recipe; scripts/*/VL-PET-*.sh
-# and T5-VL-PET-*.sh), whose trainable tensors are all replicated and whose
-# only hook on a split tensor is the cross-attention's VPA (with its gate
-# and residual)
-TP_PET_FIELDS = frozenset((
-    "tasks", "use_adapter", "use_single_adapter", "no_encoder_adapter",
-    "no_decoder_adapter", "use_adapter_down_dim", "adapter_down_dim",
-    "reduction_factor", "use_encoder_adapter_down_multihead",
-    "encoder_adapter_multihead_num_head", "unfreeze_encoder_layer_norms",
-    "use_decoder_enc_attn_value_parallel_adapter_down_dim",
-    "decoder_enc_attn_value_parallel_adapter_down_dim",
-    "use_encoder_adapter_gating_small_xy_cat",
-    "use_encoder_adapter_gating_middle_xy_add",
-    "use_encoder_adapter_gating_middle_ia3_add",
-    "use_encoder_adapter_gating_large_x_lowrank", "adapter_gating_down_dim",
-    "use_encoder_multihead_up_zero_init",
-    "use_encoder_gating_large_x_lowrank_up_zero_init",
-    "use_decoder_enc_vpa_up_zero_init", "use_encoder_gating_scaling",
-    "encoder_gating_scaling_factor",
-))
-# model-level fields, each at its default (the name's value), unless listed
-TP_MODEL_DEFAULTS = dict(classifier=False, remat="none", scan_layers=False)
-TP_VIS_DEFAULTS = dict(use_vis_prefix=False, vis_use_transformer=False)
-NEXT_SLICE = ("the next tensor-parallel slice (ROADMAP.md Queue 1): "
-              "LoRA, the attention prefixes, IA3, the multihead / pair / "
-              "key VPAs, BitFit and the trainable language model")
-
-
 def check_tensor_parallel(cfg) -> None:
-    """Raise NotImplementedError unless every flag of ``cfg`` lies in what
-    runs under a model axis > 1: the four VL-PET recipes on BART and T5
-    (relu and gated), BART's attention and activation dropout, T5's
-    dropout, ``use_fused_ffn``, ``use_fused_ce``, ``use_fused_beam``,
-    ``vis.sparse_sample``, image-text and video shapes. Any other PET flag
-    -- even one no test names -- raises, naming the next slice."""
-    from vlpet_tpu_torch.config import PetConfig
+    """Raise NotImplementedError where one process would: a model axis > 1
+    refuses nothing that the port builds (models/vlbart.py
+    ``check_supported``, models/t5.py ``check_t5_supported``)."""
+    from vlpet_tpu_torch.models.t5 import check_t5_supported
+    from vlpet_tpu_torch.models.vlbart import check_supported
 
-    default = PetConfig()
-    bad = [f.name for f in dataclasses.fields(PetConfig)
-           if f.name not in TP_PET_FIELDS
-           and getattr(cfg.pet, f.name) != getattr(default, f.name)]
-    bad += [k for k, v in TP_MODEL_DEFAULTS.items()
-            if getattr(cfg, k) != v]
-    bad += [f"vis.{k}" for k, v in TP_VIS_DEFAULTS.items()
-            if getattr(cfg.vis, k) != v]
-    if bad:
-        raise NotImplementedError(
-            f"tensor parallelism (mesh_model_axis > 1) runs the VL-PET "
-            f"recipes only; {', '.join(sorted(bad))} wait for {NEXT_SLICE}")
+    (check_t5_supported if cfg.is_t5 else check_supported)(cfg)
 
 
 # --- placing the model and its state dicts -------------------------------------
@@ -269,16 +275,15 @@ def shard_model(model: torch.nn.Module, layout: Layout) -> torch.nn.Module:
     place: every "split" parameter of ``param_plan`` keeps its rows or
     columns (a fresh tensor each), every split unit takes the shard
     (``tp``) and its local sizes. ``model.tp`` is the shard. A model axis
-    of 1 changes nothing. Raises NotImplementedError outside the recipes
-    of ``check_tensor_parallel``."""
+    of 1 changes nothing. Raises NotImplementedError where one process
+    would (``check_tensor_parallel``)."""
     if layout.model == 1:
         return model
     if getattr(model, "tp", None) is not None:
         raise ValueError("the model is sharded already")
     check_tensor_parallel(model.cfg)
     shard = layout.shard
-    plan = {n: d for n, d, why in param_plan(model, layout.model)
-            if why == "split"}
+    plan = split_plan(model, layout.model)
     for name, p in model.named_parameters():
         if name in plan:
             p.data = _narrow(p.data, plan[name], shard).clone()
@@ -298,8 +303,7 @@ def shard_state_dict(sd: Mapping[str, torch.Tensor], model: torch.nn.Module
     shard = getattr(model, "tp", None)
     if shard is None:
         return dict(sd)
-    plan = {n: d for n, d, why in param_plan(model, shard.size)
-            if why == "split"}
+    plan = split_plan(model, shard.size)
     return {n: (_narrow(t, plan[n], shard) if n in plan
                 and t.shape != model.get_parameter(n).shape else t)
             for n, t in sd.items()}
@@ -315,8 +319,7 @@ def gather_state_dict(named: Mapping[str, torch.Tensor],
     shard = getattr(model, "tp", None)
     if shard is None:
         return dict(named)
-    plan = {n: d for n, d, why in param_plan(model, shard.size)
-            if why == "split"}
+    plan = split_plan(model, shard.size)
     out = {}
     for n, t in named.items():
         if n not in plan:

@@ -42,6 +42,7 @@ from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.norm import LayerNorm
 from vlpet_tpu_torch.ops.activations import gelu, gelu_new
 from vlpet_tpu_torch.ops.hashdrop import hash_dropout
+from vlpet_tpu_torch.parallel.tensor import ModelShard, copy_to_model
 
 
 def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -739,7 +740,13 @@ class LoRADense(nn.Module):
     (or one task). The dropout is the hash mask of ops/hashdrop.py at
     ``rate`` (the spec's ``lora_dropout``), drawn only when a training call
     hands the layer its seed (one ``DropoutSeeds`` site a call); the JAX
-    layer draws it with jax.random."""
+    layer draws it with jax.random. Under tensor parallelism (``shard_``)
+    the base holds the rank's output rows (heads), ``lora_A`` and
+    ``lora_B`` stay whole, and the forward takes ``lora_B``'s columns of
+    the rank's heads: both enter the shard through ``copy_to_model``, so
+    their gradients come back whole on every rank."""
+
+    tp: Optional[ModelShard] = None
 
     def __init__(self, in_dim: int, out_dim: int, spec: LoraSpec,
                  use_bias: bool = True, dtype=torch.float32,
@@ -767,11 +774,20 @@ class LoRADense(nn.Module):
         uniform_(self.lora_A, -bound, bound, g)
         self.lora_B.zero_()
 
+    def shard_(self, shard: ModelShard, whole_heads: int,
+               head_dim: int) -> None:
+        """Take the rank's ``whole_heads`` / M heads of ``head_dim`` columns
+        (parallel/mesh.py shard_model has cut the base's rows)."""
+        self.tp, self.heads = shard, (whole_heads, head_dim)
+
     def forward(self, x: torch.Tensor, task_idx: int = 0,
                 seed: Optional[torch.Tensor] = None) -> torch.Tensor:
         base = self.base(x)
         a = _task(self.lora_A, self.shared, task_idx)
         b = _task(self.lora_B, self.shared, task_idx)
+        if self.tp is not None:
+            a = copy_to_model(a, self.tp)
+            b = self.tp.columns(b, *self.heads)
         xz = x
         if seed is not None and self.rate > 0.0:
             xz = hash_dropout(x, seed, self.rate)

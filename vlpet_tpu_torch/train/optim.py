@@ -17,9 +17,10 @@ parameters it is given.
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 
 def decay_mask(named_params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
@@ -38,11 +39,21 @@ def decay_mask(named_params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
     return {name: decide(name) for name in named_params}
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, split: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
     """optax.global_norm: the fp32 L2 norm over every gradient, as a
-    scalar tensor (no host sync)."""
-    return torch.stack([(g.float() * g.float()).sum()
-                        for g in grads]).sum().sqrt()
+    scalar tensor (no host sync). ``split`` marks the gradients that are
+    this rank's shards of tensors split over the model group ``group``
+    (tensor parallelism): their squares are summed over the group in fp32
+    (one all-reduce), the replicated ones' counted once, so every rank
+    gets the whole tensors' norm."""
+    squares = [(g.float() * g.float()).sum() for g in grads]
+    if not split or not any(split):
+        return torch.stack(squares).sum().sqrt()
+    part = torch.stack([s for s, m in zip(squares, split) if m]).sum()
+    dist.all_reduce(part, group=group)
+    return torch.stack([s for s, m in zip(squares, split) if not m]
+                       + [part]).sum().sqrt()
 
 
 def linear_warmup_schedule(lr: float, total_steps: int,
@@ -84,6 +95,19 @@ class HFAdamW:
                        for p in self.params]
         self.mu = [torch.zeros_like(m) for m in self.master]
         self.nu = [torch.zeros_like(m) for m in self.master]
+        self.split: Optional[List[bool]] = None  # ``shard_norm``
+        self.group = None
+
+    def shard_norm(self, split_names, group) -> None:
+        """Clip by the norm of the whole tensors where the parameters named
+        ``split_names`` are this rank's shards over the model group
+        ``group`` (``global_norm``)."""
+        self.split = [n in split_names for n in self.names]
+        self.group = group
+
+    def norm(self, grads) -> torch.Tensor:
+        """The global norm of ``grads`` (the parameters' order)."""
+        return global_norm(grads, self.split, self.group)
 
     def state_dict(self) -> Dict:
         """The optimizer state by parameter name: the update count, the
@@ -112,7 +136,7 @@ class HFAdamW:
     @torch.no_grad()
     def step(self, grads) -> torch.Tensor:
         grads = [g.float() for g in grads]
-        norm = global_norm(grads)
+        norm = self.norm(grads)
         if self.clip > 0:
             # optax.clip_by_global_norm: g / norm * clip where norm >= clip
             keep = norm < self.clip

@@ -31,7 +31,10 @@ update run on every rank alike, as in one process. (DDP's reducer hooks
 Under tensor parallelism (parallel/mesh.py) every count above is the
 data axis's: a rank's share is its data index's, the all-reduces run over
 its data group, and the ranks of a model group -- which hold the whole
-trainable gradients already (parallel/tensor.py) -- take the same batch.
+gradients of the replicated trainables already (parallel/tensor.py) --
+take the same batch. A trainable that is itself split (BitFit's q/k/v and
+fc1 biases, the weights of full fine-tuning) trains as the rank's shard,
+and the clip takes the whole tensors' norm (``HFAdamW.shard_norm``).
 """
 
 from __future__ import annotations
@@ -44,9 +47,9 @@ import torch.distributed as dist
 from vlpet_tpu_torch.device import Device, resolve_device
 from vlpet_tpu_torch.models.heads import (TASK_LOSSES, classifier_bce_loss,
                                           task_loss)
-from vlpet_tpu_torch.parallel.mesh import current_layout
+from vlpet_tpu_torch.parallel.mesh import current_layout, split_names
 from vlpet_tpu_torch.pet.modules import PetContext
-from vlpet_tpu_torch.train.optim import HFAdamW, global_norm
+from vlpet_tpu_torch.train.optim import HFAdamW
 
 
 class GradAccumulator:
@@ -140,6 +143,8 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         raise ValueError(f"model parameters on {sorted(bad)}, step on "
                          f"{dev.type}")
     params = optimizer.params
+    if getattr(model, "tp", None) is not None:
+        optimizer.shard_norm(split_names(model), model.tp.group)
     parallel = dist.is_available() and dist.is_initialized()
     layout = current_layout()
     rank, world, group = layout.data_index, layout.data, layout.data_group
@@ -201,7 +206,7 @@ def make_train_step(model, optimizer: HFAdamW, tasks: Sequence[str],
         if accumulator is None:
             grad_norm = optimizer.step(grads)
         else:
-            grad_norm = global_norm(grads)
+            grad_norm = optimizer.norm(grads)
             mean = accumulator.add(grads)
             if mean is not None:
                 optimizer.step(mean)

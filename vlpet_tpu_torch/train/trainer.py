@@ -34,9 +34,12 @@ falls back to 1, as in the JAX Trainer -- the model is built whole from
 its seed, imported and loaded, then each rank keeps its shard of the
 split families (``shard_model``). The data shards, the step's sums and
 the merged predictions count the data axis (one part a data index);
-LAST.npz holds whole tensors (``gather_state_dict``), and the checkpoints
-hold only replicated tensors, so a run resumes under any layout. Only the
-VL-PET recipes run split (``mesh.check_tensor_parallel``).
+LAST.npz and the checkpoints hold whole tensors (``gather_state_dict``:
+a trainable that is split -- BitFit's biases, full fine-tuning's weights
+-- with its optimizer state and accumulated gradient), and a restore cuts
+them to the rank's shards again, so a run resumes under any layout.
+Every configuration that one process runs runs split, the raw-image path
+included (its CLIP trunk whole on every rank).
 """
 
 from __future__ import annotations
@@ -56,7 +59,8 @@ from vlpet_tpu_torch.models.generate import seq2seq_generate
 from vlpet_tpu_torch.models.t5 import VLT5
 from vlpet_tpu_torch.models.vlbart import VLBart
 from vlpet_tpu_torch.parallel.mesh import (MeshConfig, build_mesh,
-                                           gather_state_dict, shard_model)
+                                           gather_state_dict, shard_model,
+                                           shard_state_dict)
 from vlpet_tpu_torch.parallel.multihost import (all_gather_objects, barrier,
                                                 data_parts, host_shard,
                                                 merge_predict_results)
@@ -163,10 +167,6 @@ class Trainer:
         # this process's data shard: its eval shard, its batch's place
         self.shard_index, self.shards = (self.layout.data_index,
                                          self.layout.data)
-        if self.layout.model > 1 and raw_vis_backbone is not None:
-            raise NotImplementedError(
-                "tensor parallelism (mesh_model_axis > 1) of the raw-image "
-                "path waits for the next tensor-parallel slice")
         self.device = dev = resolve_device(device)
         deterministic_kernels()
         self.logger = MetricsLogger(output_dir if self.lead else None,
@@ -493,17 +493,29 @@ class Trainer:
     def state(self) -> Dict[str, Any]:
         """The resumable state: the step, the trainable tensors, the
         optimizer's, the gradient accumulator's and the dropout
-        generator's."""
+        generator's. Under tensor parallelism the split trainables, their
+        moments, master copies and accumulated gradients are gathered
+        whole (``gather_state_dict``): collective over the model group,
+        so every rank calls it; each then holds the same state."""
+        def whole(named):
+            return gather_state_dict(named, self.model)
+
+        opt = self.optimizer.state_dict()
+        opt.update({k: whole(opt[k]) for k in ("mu", "nu", "master")})
         acc = self.train_step.accumulator
+        if acc is not None:
+            acc = acc.state_dict()
+            acc["acc"] = list(whole(dict(zip(self.optimizer.names,
+                                             acc["acc"]))).values())
         return {"step": self.step,
-                "params": dict(self.trainable),
-                "opt_state": self.optimizer.state_dict(),
-                "accumulator": acc.state_dict() if acc is not None else None,
+                "params": whole(dict(self.trainable)),
+                "opt_state": opt, "accumulator": acc,
                 "generator": self.generator.get_state()}
 
     def state_digest(self) -> str:
         """sha256 over the bytes of ``state()``, in a fixed order: two
-        trainers whose digests agree hold the same state bit for bit."""
+        trainers whose digests agree hold the same state bit for bit (the
+        whole state under tensor parallelism: every rank calls it)."""
         h = hashlib.sha256()
 
         def feed(x):
@@ -528,14 +540,14 @@ class Trainer:
         """Checkpoint ``state()`` at ``step``; with the train loader (at an
         epoch's end) also its datasets' sampling RNG states, one dict a
         data shard (``data_rng``, in data order). Under a process group
-        every rank calls it: the train state (replicated tensors only) is
-        the same on all, rank 0 writes it, and the others wait for the
-        write."""
+        every rank calls it: each gathers the whole train state
+        (``state``), the same on all, rank 0 writes it, and the others
+        wait for the write."""
         if self.ckpt:
             rngs = (data_parts(data_rng_state(train_loader))
                     if train_loader is not None else None)
+            state = self.state()
             if self.lead:
-                state = self.state()
                 if rngs is not None:
                     state["data_rng"] = rngs
                 self.ckpt.save(step, state)
@@ -547,18 +559,29 @@ class Trainer:
         when there is none. Every rank loads it, at any world size and
         layout; the datasets' sampling RNGs take this data shard's saved
         states where the checkpoint was written with as many data shards,
-        else they start afresh (rank 0 says so)."""
+        else they start afresh (rank 0 says so). The whole tensors are cut
+        to this rank's shards (``shard_state_dict``)."""
         if not self.ckpt:
             return None
         data = self.ckpt.restore(map_location=self.device)
         if data is None:
             return None
+
+        def mine(named):
+            return shard_state_dict(named, self.model)
+
+        params = mine(data["params"])
         for name, p in self.trainable.items():
-            p.copy_(data["params"][name])
-        self.optimizer.load_state_dict(data["opt_state"])
+            p.copy_(params[name])
+        opt = dict(data["opt_state"])
+        opt.update({k: mine(opt[k]) for k in ("mu", "nu", "master")})
+        self.optimizer.load_state_dict(opt)
         acc = self.train_step.accumulator
         if acc is not None:
-            acc.load_state_dict(data["accumulator"])
+            state = dict(data["accumulator"])
+            state["acc"] = list(mine(dict(zip(self.optimizer.names,
+                                              state["acc"]))).values())
+            acc.load_state_dict(state)
         self.generator.set_state(data["generator"].cpu())
         self.step = int(data["step"])
         rngs = data.get("data_rng")
