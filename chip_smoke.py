@@ -18,7 +18,8 @@ nonzero and no result line is printed):
      then, bf16, the image-text CLI's (phase 8) other shapes: attention at
      caption's B 416 (L = S = 76; decoder-self L 40, causal; cross L 40,
      S 76) and nlvr's B 166 (L = S = 102; cross L 10, S 102), where A6
-     takes its "fma" kernel past L, S 64 (bit for bit on a repeat), and
+     takes its wide tensor-core kernel past L, S 64 (bit for bit on a
+     repeat; the long backward timed on the same inputs beside it), and
      F1, F2, L1, L2 at gqa's N 46648 and caption's N 31616 rows;
   3c. the video path's long attention, bf16 and fp32, ragged padding
      masks: A1 forward (output and row logsumexp) and the long backward vs
@@ -243,7 +244,7 @@ nonzero and no result line is printed):
      decode differs from the plain model's), phase 4 (a)'s beam-5 and
      greedy tokens at B 8 to length 40, kernels vs plain, identical;
   7f. (run after 7e) each script's bf16 train step at B 500, vqa (S 56;
-     96 with the prompt, whose A6 takes its "fma" kernel), as phase 7
+     96 with the prompt, whose A6 takes its wide "tc" kernel), as phase 7
      (the pet_<script> main-path runs); then the beam-5 eval of the LoRA,
      prompt and hyperformer scripts at B 500 to length 40, as phase 5
      (the pet_<script>_eval runs);
@@ -251,8 +252,14 @@ nonzero and no result line is printed):
      baseline's sites (40 prompt tokens before the text): vqa B 500 L = S
      96 and cross L 10 x S 96, gqa B 833 L = S 96, caption B 416 L = S
      116 and cross L 40 x S 116, nlvr B 166 L = S 142 (the long backward)
-     and cross L 10 x S 142: vs the plain twin and its autograd, bitwise
-     on a repeat, with the route, SDPA's time and the bound;
+     and cross L 10 x S 142 (A6 "fma", past 128): vs the plain twin and
+     its autograd, bitwise on a repeat, with the route, SDPA's time and the
+     bound, and at each A6 "tc" site past 64 the long backward timed on
+     the same inputs; then A6's wide kernel in every mode
+     (``A6_WIDE_MODES``, bf16, B 300, rate 0.1: L = S 96 with the bias,
+     and with dbias; L 40 over S 116 with the bias and dbias; causal L =
+     S 76), bitwise on a repeat, and its dropout masks bit for bit at L
+     = S 96, L 40 over S 116 and causal L = S 76;
   8. (run last) the image-text CLI, ``python -m vlpet_tpu_torch.cli.multitask``
      in a child process (``chip_smoke.py --cli-child``), with the flags of
      scripts/image-text/VL-PET-small.sh plus --bf16: batch 500 (valid
@@ -267,8 +274,9 @@ nonzero and no result line is printed):
   8b. (after 8) the same CLI with the flags of
      scripts/image-text/single_prompt.sh plus --bf16: B 500, the four
      tasks, 1000 synthetic examples a task, one epoch, evaluated
-     (the cli_single_prompt main-path run: A6 on "fma" and the long
-     backward, at nlvr's L = S = 142, must launch); data build, ms/step
+     (the cli_single_prompt main-path run: A6 on "tc" at S 96 / 116, A6
+     on "fma" at nlvr's cross-attention over S 142 and the long backward
+     at nlvr's L = S = 142 must launch); data build, ms/step
      and each task's eval seconds.
   3o. (run after 3n) every kernel of the ten scripts/video-text/*.sh at
      the shapes they give it (B 50; QA text 600 and captions 77 tokens +
@@ -304,9 +312,10 @@ nonzero and no result line is printed):
   3p. (run after 3o) the raw-image path's kernel sites (the RN101 grid at
      224 px: 49 tokens after 20 text tokens, S 69; NLVR's two images S
      118; 448 px S 216), B 500, bf16, and fp32 for A1 and A6 at S 69: A1
-     and A6 or the long backward at the encoder (S 69 on A6 "fma", S 118
+     and A6 or the long backward at the encoder (S 69 on A6 "tc", S 118
      and 216 on the long backward) and cross (L 10, and the caption's L
-     40, over S 69 and 118: A6 "fma") sites, the beam cross-attention L 5
+     40, over S 69 and 118: A6 "tc", the long backward timed beside it)
+     sites, the beam cross-attention L 5
      over S 69; F1, F2, L1 and L2 at N 34500, 59000
      and 108000; D1, U1, T1 and T2 at the raw caption eval (B 500, beam 5
      to length 40): vs the plain twin, bf16 twice bitwise equal, with the
@@ -387,8 +396,9 @@ nonzero and no result line is printed):
   7k. (after 7j) each family's bf16 vqa step (B 500, T5-base B 300; 3
      steps after 1) beside VL-PET-large's on both backbones and its
      beam-5 caption eval (B 500 / 300, length 40; the pf_* runs): A6 on
-     "fma" where a prefix or prompt makes S 96, no C1 / C2 under the
-     LM-head adapter, the prefix eval's D1 and U1 launches a step equal to
+     "tc" everywhere (the wide kernel where a prefix or prompt makes S 96,
+     those steps held to the plain step), no C1 / C2 under the LM-head
+     adapter, the prefix eval's D1 and U1 launches a step equal to
      VL-PET-large's.
   6l. (after 6k) the last single-card paths, fp32, kernels vs plain:
      first A1 and A6 at rate 0.1 at BART's sites (B 500 bf16 and B 8
@@ -478,7 +488,7 @@ Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
-for bf16 at Dh 64 -- and, for A6, L, S <= 64; "fma" otherwise;
+for bf16 at Dh 64 -- and, for A6, L, S <= 128; "fma" otherwise;
 ops/fused_ln.py ln_plan for L1 and L2: "vec", 16-byte rows, or
 "scalar"), every bf16 bench run (5-5e, 7-7e) must launch A1, A6 and the
 long backward on "tc" only and L1 and L2 on "vec" only, and the kernels'
@@ -1242,7 +1252,7 @@ def phase_train_kernels(rep: Report) -> None:
 # The image-text CLI's (phase 8) train shapes that the B 500 sites above
 # miss, at the pooled 36 boxes: caption B 416 (500 * 50/60), L 40 + 36,
 # target 40; nlvr B 166 (500 * 20/60), L 30 + 2 * 36, target 10. A6 takes
-# its "fma" kernel past L, S 64. (site, B, L, S, causal)
+# its wide tensor-core kernel past L, S 64. (site, B, L, S, causal)
 CLI_ATTENTION_SITES = (("caption enc", 416, 76, 76, False),
                        ("caption dec-self", 416, 40, 40, True),
                        ("caption cross", 416, 40, 76, False),
@@ -1292,6 +1302,7 @@ def cli_train_sites(rep: Report) -> None:
         bitwise_repeat("fused_attention_bwd", label,
                        lambda: attention.fused_attention_bwd(
                            q, k, v, mask, do, H, causal))
+        long_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
     D, Fh = 768, 3072
     w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
                                                           scale=0.02)
@@ -2917,7 +2928,86 @@ def phase_prompt_sites(rep: Report) -> None:
         rep.check(key, label, kernel, plain_bwd, dtype, work=work,
                   library_fn=lib_bwd, backward=True)
         bitwise_repeat(key, label, kernel)
+        if key == "fused_attention_bwd":
+            long_beside(q, k, v, mask, do, H, False, label, rep.last[0])
         del plain_bwd, lib_bwd
+    a6_wide_modes(rep)
+
+
+def long_beside(q, k, v, mask, do, H: int, causal: bool, label: str,
+                a6_ms: float) -> None:
+    """At an A6 site past one 64-row tile (bf16), the long backward on the
+    same inputs -- from the output and row logsumexp of
+    ``fused_attention_fwd_lse`` -- timed beside A6's ``a6_ms``: which of
+    the two serves the site faster. A record only: ``backward_route``
+    gives the site to A6."""
+    L, S = q.shape[1], k.shape[1]
+    if max(L, S) <= 64 or (causal and S < L):
+        return
+    out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H, causal)
+    fwd_ms = cuda_ms(lambda: attention.fused_attention_fwd_lse(
+        q, k, v, mask, H, causal), TWIN_ITERS, warmup=1)
+    ms = cuda_ms(lambda: attention.fused_attention_bwd_long(
+        q, k, v, mask, out, lse, do, H, causal), 10)
+    print(f"  {'fused_attention_bwd_long':24s} {label:34s} on A6's inputs: "
+          f"{ms:.4f} ms (its forward with lse {fwd_ms:.4f}); A6 "
+          f"{a6_ms:.4f} ms: {'A6' if a6_ms <= ms else 'the long backward'} "
+          f"faster", flush=True)
+
+
+# A6's wide tensor-core kernel in every mode at former "fma" sites, bf16,
+# B 300 (the T5 baselines' batch), rate 0.1: (site, L, S, causal, bias,
+# bias_grad). Phase 3n's sites above hold the padding mask alone.
+A6_WIDE_MODES = (("prompt vqa enc", 96, 96, False, True, False),
+                 ("prompt vqa enc", 96, 96, False, True, True),
+                 ("prompt caption cross", 40, 116, False, True, True),
+                 ("caption enc", 76, 76, True, False, False))
+
+
+def a6_wide_modes(rep: Report) -> None:
+    """``A6_WIDE_MODES`` through ``grad_case`` (against autograd of the
+    plain forward with the same bias, dropout and triangle, dbias too,
+    twice bitwise equal, SDPA's autograd at rate 0 beside it), then the
+    wide kernel's dropout masks bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(26)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    for site, L, S, causal, has_bias, bias_grad in A6_WIDE_MODES:
+        grad_case(rep, g, torch.bfloat16, seed, f"wide {site}", 300, L, S,
+                  causal, has_bias, bias_grad, timed=False)
+    check_a6_wide_masks(seed)
+
+
+@torch.no_grad()
+def check_a6_wide_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
+    """The wide A6's bf16 dropout mask bit for bit against ops/hashdrop.py
+    at L = S 96, L 40 over S 116 and causal L = S 76 (B 64): with a one-hot
+    cotangent (do[i, d] = [i = off + d]) dv returns the dropped
+    probabilities of query rows off .. off + 64, at off 0 and L - 64."""
+    from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask
+
+    g = torch.Generator(device="cuda").manual_seed(27)
+    B, H, Dh = 64, 12, 64
+    inner = H * Dh
+    eye = torch.eye(Dh, device="cuda")
+    for L, S, causal in ((96, 96, False), (40, 116, False), (76, 76, True)):
+        q = (torch.randn((B, L, inner), generator=g, device="cuda")
+             * 0.1).bfloat16()
+        k = torch.randn((B, S, inner), generator=g, device="cuda").bfloat16()
+        mask = torch.zeros((1, 1, 1, S), device="cuda")
+        keep = attention_keep_mask(B, L, S, H, seed, rate, device="cuda")
+        if causal:
+            keep = keep & attention._causal_allowed(L, S, "cuda")
+        for off in sorted({0, max(L - Dh, 0)}):
+            rows = min(Dh, L - off)
+            onehot = torch.zeros((L, Dh), device="cuda")
+            onehot[off:off + rows, :rows] = eye[:rows, :rows]
+            do = onehot.repeat(1, H).expand(B, L, inner).contiguous()
+            _, _, dv = attention.fused_attention_bwd(
+                q, k, k, mask, do.bfloat16(), H, causal, rate=rate, seed=seed)
+            got = dv.float().view(B, S, H, Dh)[..., :rows].permute(0, 2, 3, 1)
+            _expect_zeros(f"fused_attention_bwd wide L{L} S{S} rows {off}+",
+                          got, keep[:, :, off:off + rows], "bf16")
 
 
 # phase 3o: the video scripts' sites. vlpet_tpu_torch/data/video.py pads
@@ -3017,6 +3107,8 @@ def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
               iters=5 if dtype == torch.float32 else 20)
     if dtype == torch.bfloat16:
         bitwise_repeat(key, label, kernel)
+        if key == "fused_attention_bwd":
+            long_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
     del plain_bwd, lib_bwd
 
 
@@ -4531,6 +4623,10 @@ def phase_cli_rehearsal(card: str) -> dict:
         out1, res1 = run_cli(flags + ["--epochs", str(CLI_EPOCHS)], "train")
         launched = res1["launches"]
         require_launched(CLI, launched)
+        if launched.get("fused_attention_bwd[fma]"):
+            raise AssertionError(f"{CLI}: A6 launched on fma "
+                                 f"{launched['fused_attention_bwd[fma]']} "
+                                 f"times; every bf16 site is L, S <= 128")
         saved_step, saved = _digest(out1, r"saved at step (\d+); state "
                                           r"digest ([0-9a-f]+)")
         with open(os.path.join(out_dir, "metrics.jsonl")) as f:
@@ -4667,8 +4763,9 @@ def phase_pet_parity() -> None:
 
 def phase_pet_bench(card: str) -> dict:
     """7f: each script's bf16 train step (B 500, vqa: S 56, 96 with the
-    prompt) as phase 7 (ms/step, examples/s, peak GiB, launches); the
-    prompt's A6 on its "fma" kernel (L = S = 96). Then the beam-5 eval (B
+    prompt) as phase 7 (ms/step, examples/s, peak GiB, launches), every
+    A6 launch on "tc" (the prompt's L = S = 96 on the wide kernel, its step
+    held to the plain step: ``step_vs_plain``). Then the beam-5 eval (B
     500 to length 40, caption) of the LoRA, prompt and hyperformer
     scripts, as phase 5."""
     launched = {}
@@ -4677,10 +4774,7 @@ def phase_pet_bench(card: str) -> dict:
         launched[path] = train_bench(card, pet_cfg(name), make_train_batch,
                                      500, 31, FLAGSHIP_TASKS, "vqa", 1e-3,
                                      path, f"{name} vqa",
-                                     tc_only=name != "single_prompt")
-        if name == "single_prompt" and not launched[path].get(
-                "fused_attention_bwd[fma]"):
-            raise AssertionError(f"{path}: A6 never took its fma kernel")
+                                     vs_plain=name == "single_prompt")
     for name in PET_EVAL_SCRIPTS:
         model = build_model("bfloat16", pet_cfg(name))
         path = f"pet_{name}_eval"
@@ -4701,9 +4795,11 @@ def phase_cli_prompt(card: str) -> dict:
     scripts/image-text/single_prompt.sh (``--downsample`` left out, as in
     phase 8) plus --bf16: batch 500, the four tasks, CLI_EXAMPLES
     synthetic examples a task, PROMPT_EPOCHS epochs, each evaluated. Every
-    kernel of the path must launch, A6 on its "fma" kernel and the long
-    backward (nlvr's encoder, L = S = 142) among them; prints the data
-    build, the host-clocked ms/step and each task's eval seconds."""
+    kernel of the path must launch, A6 on "tc" (S 96 / 116) and on "fma"
+    (nlvr's cross-attention over S 142, past the tensor-core kernels' 128)
+    and the long backward (nlvr's encoder, L = S = 142) among them; prints
+    the data build, the host-clocked ms/step and each task's eval
+    seconds."""
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = os.path.join(tmp, "run")
         flags = [f for f in pet_flags("single_prompt") if f != "--downsample"]
@@ -4715,8 +4811,10 @@ def phase_cli_prompt(card: str) -> dict:
             recs = [json.loads(ln) for ln in f]
     launched = res["launches"]
     require_launched(CLI_PROMPT, launched)
-    if not launched.get("fused_attention_bwd[fma]"):
-        raise AssertionError("single_prompt CLI: A6 never took its fma kernel")
+    for route in ("tc", "fma"):
+        if not launched.get(f"fused_attention_bwd[{route}]"):
+            raise AssertionError(f"single_prompt CLI: A6 never took its "
+                                 f"{route} kernel")
     epochs = [r for r in recs if "train_seconds" in r]
     if len(epochs) != PROMPT_EPOCHS:
         raise AssertionError(f"{len(epochs)} epochs")
@@ -5627,8 +5725,9 @@ def raw_train_bench(card: str, label: str, path, adapter: bool,
     warm-up steps, then 5 timed steps ending in one sync; ms/step,
     examples/s, peak GiB, and the trunk's share of the step (CUDA events
     around ``vis_forward``, summed over the timed steps, over the steps'
-    wall time). Returns the timed steps' launches (the ``path`` main-path
-    run when ``path`` is set)."""
+    wall time); where ``path`` is set, then one step kernels vs plain
+    (``step_vs_plain``). Returns the timed steps' launches (the ``path``
+    main-path run when ``path`` is set)."""
     with trainer_settings(autotuned):
         return _raw_train_bench(card, label, path, adapter, unfreeze, t5, B,
                                 lr)
@@ -5680,6 +5779,8 @@ def _raw_train_bench(card, label, path, adapter, unfreeze, t5, B, lr):
     if "--profile" in sys.argv and path:
         profile_run(lambda: step(batch, gen, 0)["loss"].item(), card,
                     f"{label} raw step")
+    if path:  # the main-path step: A6's wide kernel at S 69
+        step_vs_plain(f"bf16 B{B} {label}", step, trainable, batch, gen, 0)
     del model, opt, step, batch
     return launched
 
@@ -6329,8 +6430,9 @@ PET_FLAGS = {
     "t5_single_lradapter": ("single_lradapter", {}),
 }
 # the families whose A6 runs over S 96 (the 40 prefix or prompt slots
-# before the 56 joint tokens), past the tensor-core kernel's S 64: "fma"
-PF_A6_FMA = ("prefix", "t5_single_prompt")
+# before the 56 joint tokens): the wide tensor-core kernel, past one
+# 64-row tile
+PF_A6_WIDE = ("prefix", "t5_single_prompt")
 
 
 def _with_any(cfg, flags: dict):
@@ -6426,8 +6528,10 @@ def phase_pet_flag_bench(card: str) -> dict:
     """7k: per ``PET_FLAGS`` family a bf16 vqa train step as phase 7 (B
     500; T5-base B 300 as phase 7c), timed over 3 steps after 1, beside
     VL-PET-large's on both backbones; then each one's beam-5 caption eval
-    (B 500, T5 B 300, to length 40, as phase 5) and VL-PET-large's. The
-    families of ``PF_A6_FMA`` must launch A6 on "fma" (S 96); the LM-head
+    (B 500, T5 B 300, to length 40, as phase 5) and VL-PET-large's. Every
+    family's A6 launches on "tc", those of ``PF_A6_WIDE`` (S 96) too, and
+    their step is held to the plain step (``step_vs_plain``); the
+    LM-head
     adapter's step must launch no C1 / C2 under use_fused_ce; the prefix
     eval's D1 and U1 launches a decode step (a step is one T1 launch) must
     equal VL-PET-large's: the P prefilled slots change what D1 reads, not
@@ -6441,10 +6545,10 @@ def phase_pet_flag_bench(card: str) -> dict:
             card, pf_cfg(name), make_t5_train_batch if t5 else make_train_batch,
             300 if t5 else 500, 35 if t5 else 31, FLAGSHIP_TASKS, "vqa",
             T5_LR if t5 else 1e-3, path, f"{name} vqa",
-            tc_only=name not in PF_A6_FMA, warm=1, timed=3)
-        if name in PF_A6_FMA and not launched[path].get(
-                "fused_attention_bwd[fma]"):
-            raise AssertionError(f"{path}: A6 never took its fma kernel")
+            vs_plain=name in PF_A6_WIDE, warm=1, timed=3)
+        if name in PF_A6_WIDE and not launched[path].get(
+                "fused_attention_bwd[tc]"):
+            raise AssertionError(f"{path}: A6 never launched on tc")
     ce = {k: launched["pf_lm_head_adapter"][k]
           for k in ("fused_linear_ce", "fused_linear_ce_bwd")}
     if any(ce.values()):

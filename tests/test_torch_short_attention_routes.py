@@ -2,21 +2,27 @@
 refusals, on CPU.
 
 ops/attention.py picks A6's kernel by ``a6_route(L, S, Dh, dtype)``: "tc"
-(the tensor-core kernel of csrc/attention_bwd.cu) for bf16 at Dh 64 where
-L and S fit one 64-row tile -- every A6 site of the repo -- and "fma" (the
-FP32-FMA kernel) otherwise. On the card each bf16 kernel is held to its
-plain twin, so here the bf16 twins -- ``fused_attention_bwd`` and
-``fused_linear_ce_bwd`` through their CPU route -- are held to the JAX
+(the tensor-core kernels of csrc/attention_bwd.cu: one for a single 64-row
+tile, one for L or S past 64) for bf16 at Dh 64 with L, S <= 128 -- every
+bf16 A6 site of the repo but the video tvc cross sites at S 141 / 181 --
+and "fma" (the FP32-FMA kernel) otherwise. On the card each bf16 kernel is
+held to its plain twin, so here the bf16 twins -- ``fused_attention_bwd``
+and ``fused_linear_ce_bwd`` through their CPU route -- are held to the JAX
 package's TPU kernels in interpret mode, on bf16 inputs made with numpy
 from a seed:
 
 * A6 against ``_pallas_attention_bwd`` at a ragged L = S = 50 with a
-  batched padding mask, L 10 over S 56, and the causal L = S = 10, each
+  batched padding mask, L 10 over S 56, and the causal L = S = 10 (the
+  one-tile kernel's shapes), and at a ragged L = S = 96 with a batched
+  mask, L 40 over S 116 and a causal L = S = 76 (the wide kernel's), each
   with the relative bias, with dropout 0.1, and with ``bias_grad`` (dbias
   too). Tolerance 2e-2 * (1 + max|ref|), tests/test_torch_attention_routes.py's
   rule for gradients: the two round p and ds to bf16 at other places, and
   an element whose terms cancel carries the rounding of terms several times
-  its own size.
+  its own size. At the wide shapes, an emulation of the wide kernel's
+  arithmetic (row statistics from phase 1, p and ds recomputed from them
+  on the key side, p_drop and ds rounded to bf16 before the products) is
+  held to the same kernel by the same rule.
 * C2 against ``vlpet_tpu/ops/fused_ce.py:_run_bwd`` at N 61 (no multiple of
   any row block) and V 1000 (no multiple of 64), D 64; the same tolerance
   (the one-ulp flips of the g both round to bf16).
@@ -43,7 +49,12 @@ B, H, Dh = 3, 2, 16
 # L, S, causal, batched padding mask
 SHAPES = {"ragged50": (50, 50, False, True),
           "cross10x56": (10, 56, False, True),
-          "causal10": (10, 10, True, False)}
+          "causal10": (10, 10, True, False),
+          "ragged96": (96, 96, False, True),
+          "cross40x116": (40, 116, False, True),
+          "causal76": (76, 76, True, False)}
+# the shapes of the wide tensor-core kernel (L or S past 64)
+WIDE = ("ragged96", "cross40x116", "causal76")
 # bias, rate, bias_grad
 MODES = {"bias": (True, 0.0, False), "dropout": (False, RATE, False),
          "bias_grad": (True, RATE, True)}
@@ -59,12 +70,33 @@ def test_a6_route(L, S, dtype, Dh_, route):
     assert tatt.backward_route(L, S, Dh_, dtype) == "A6"
 
 
-@pytest.mark.parametrize("L, S", [(65, 65), (10, 65), (65, 10), (90, 90)])
-def test_a6_route_past_one_tile_is_fma(L, S):
-    """bf16 Dh 64 sites that A6 still serves but whose L or S passes 64
-    keep the FMA kernel."""
+@pytest.mark.parametrize("L, S, route", [
+    (65, 65, "tc"), (10, 65, "tc"), (65, 10, "tc"), (90, 90, "tc"),
+    (116, 116, "tc"), (40, 116, "tc"), (128, 10, "tc"), (40, 141, "fma"),
+    (10, 142, "fma"), (20, 181, "fma")])
+def test_a6_route_past_one_tile_is_fma(L, S, route):
+    """bf16 Dh 64 sites that A6 serves past one 64-row tile take the wide
+    tensor-core kernel up to L, S 128 and keep the FMA kernel past it (the
+    video tvc cross sites, the prompt's nlvr cross site)."""
     assert tatt.backward_route(L, S, 64, torch.bfloat16) == "A6"
-    assert tatt.a6_route(L, S, 64, torch.bfloat16) == "fma"
+    assert tatt.a6_route(L, S, 64, torch.bfloat16) == route
+
+
+def test_a6_route_is_tc_wherever_a6_serves_bf16_up_to_128():
+    """Every 1 <= L, S <= 128 that backward_route gives to A6 takes "tc" in
+    bf16 at Dh 64; fp32 and other widths keep "fma" there."""
+    served = 0
+    for L in range(1, 129):
+        for S in range(1, 129):
+            if tatt.backward_route(L, S, 64, torch.bfloat16) != "A6":
+                continue
+            served += 1
+            assert tatt.a6_route(L, S, 64, torch.bfloat16) == "tc", (L, S)
+            assert tatt.a6_route(L, S, 64, torch.float32) == "fma", (L, S)
+            assert tatt.a6_route(L, S, 32, torch.bfloat16) == "fma", (L, S)
+    # L = S = 118 and past it go to the long backward
+    assert 15000 < served < 128 * 128
+    assert tatt.backward_route(118, 118, 64, torch.bfloat16) == "long"
 
 
 def test_a6_route_rejects_other_dtypes():
@@ -131,6 +163,72 @@ def test_a6_bf16_twin_matches_pallas_interpret(shape, mode):
     if bias_grad:
         assert got[3].dtype == torch.float32 and got[3].shape == (1, H, L, S)
         _close(got[3], want[3], "dbias")
+
+
+def _wide_emulation(q, k, v, mask, do, causal, bias, rate, seed,
+                    bias_grad):
+    """The wide tensor-core kernel's arithmetic on bf16 torch tensors:
+    fp32 logits, per query row the max m, 1 / sum of 2^((a - m) log2 e)
+    and rowsum(dp p) (phase 1); p recomputed from those statistics, ds = p
+    (dp - rowsum) with the undropped p, p_drop and ds rounded to bf16 before
+    the dq, dk and dv products (fp32 sums); dbias = sum_b ds in fp32."""
+    from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask
+
+    Bq, L, inner = q.shape
+    S = k.shape[1]
+
+    def heads(t, n):
+        return t.float().reshape(Bq, n, H, Dh).transpose(1, 2)
+
+    qh, kh, vh, doh = heads(q, L), heads(k, S), heads(v, S), heads(do, L)
+    a = qh @ kh.transpose(-1, -2) + mask
+    if bias is not None:
+        a = a + bias
+    if causal:
+        a = torch.where(tatt._causal_allowed(L, S, "cpu"), a,
+                        torch.full((), -1e9))
+    m = a.amax(-1, keepdim=True)
+    e = torch.exp2((a - m) * 1.4426950408889634)
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    dp, pd = doh @ vh.transpose(-1, -2), p
+    if rate > 0.0:
+        keep = attention_keep_mask(Bq, L, S, H, seed, rate, device="cpu")
+        scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+        dp = torch.where(keep, dp * scale, torch.zeros(()))
+        pd = torch.where(keep, p * scale, torch.zeros(()))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds16 = ds.to(torch.bfloat16).float()
+    pd16 = pd.to(torch.bfloat16).float()
+
+    def back(x, n):
+        return x.transpose(1, 2).reshape(Bq, n, inner).to(torch.bfloat16)
+
+    grads = (back(ds16 @ kh, L), back(ds16.transpose(-1, -2) @ qh, S),
+             back(pd16.transpose(-1, -2) @ doh, S))
+    return grads + (ds.sum(0, keepdim=True),) if bias_grad else grads
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", WIDE)
+def test_a6_wide_kernel_arithmetic_matches_pallas_interpret(shape, mode):
+    from vlpet_tpu.ops.attention import _pallas_attention_bwd
+
+    L, S, causal, batched = SHAPES[shape]
+    has_bias, rate, bias_grad = MODES[mode]
+    q, k, v, mask, do, bias = _attention_inputs(L, S, batched, has_bias,
+                                                L * 7 + S)
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = map(_bf16, (q, k, v, do))
+    want = _pallas_attention_bwd(jq, jk, jv, jnp.asarray(mask), jdo, H,
+                                 causal, None if bias is None
+                                 else jnp.asarray(bias), rate,
+                                 jnp.asarray(SEED), bias_grad,
+                                 interpret=True)
+    got = _wide_emulation(tq, tk, tv, torch.from_numpy(mask), tdo, causal,
+                          None if bias is None else torch.from_numpy(bias),
+                          rate, torch.from_numpy(SEED), bias_grad)
+    assert len(got) == len(want)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close(g, w, name)
 
 
 def test_c2_bf16_twin_matches_pallas_interpret():

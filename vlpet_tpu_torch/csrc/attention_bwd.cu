@@ -41,9 +41,10 @@
 // and dv, which reduce over the query rows, are summed inside the block:
 // no atomics, and the result does not depend on scheduling. Two routes,
 // picked by the wrapper with ops/attention.py a6_route (a plain function of
-// L, S, Dh and dtype) and passed as ``tc``:
+// L, S, Dh and dtype) and passed as ``tc``; "tc" has two kernels, one for
+// a single 64-row tile and one for L or S past 64:
 //
-// "fma" (fp32; bf16 at Dh != 64 or L or S > 64): q, do, k, v staged in
+// "fma" (fp32; bf16 at Dh != 64 or L or S > 128): q, do, k, v staged in
 // shared memory as fp32 (k and v rows padded one float so the lane-per-key
 // dot products hit distinct banks) with the (L, S) p and dp/ds matrices;
 // the products on FP32 FMA. At the encoder site in bf16 it took ~2.0 ms,
@@ -52,7 +53,7 @@
 // store. The fp32 parity phases hold it to full fp32 arithmetic (no TF32),
 // so it stays, unchanged.
 //
-// "tc" (bf16, Dh 64, L, S <= 64: the image-text train sites at L, S <= 56),
+// "tc", L, S <= 64 (the image-text train sites at L, S <= 56),
 // attention_bwd_tc: mma.sync m16n8k16 (bf16 in, fp32 sums), 4 warps.
 // q, do, k, v go to bf16 64 x 72 tiles by 16-byte cp.async (zeros past L
 // and S), the bias (when given) to an fp32 tile. Warp w owns query rows
@@ -73,6 +74,49 @@
 // bf16 too), and exp is EX2 on log2(e)-scaled differences; the bf16 checks
 // hold it to 2e-2 (1 + max|plain|), the rule of every bf16 backward.
 // Resources (nvcc -Xptxas -v, sm_90a): 122-126 registers, no spills.
+//
+// "tc", L or S past 64 (up to 128: the CLI's caption L = S 76 and nlvr
+// S 102, the prompts' S 96 / 116, the raw path's S 69 / 118 cross sites,
+// the prefixes' S 96), attention_bwd_tc_wide. The FMA kernel staged 172,800
+// bytes a block at L = S = 96 (one block an SM, nothing to hide a block's
+// load -> compute -> store) and took 6-9x SDPA autograd's time there. PR
+// 9's layout grown to 128 rows would hold q, do, k, v and the (L, S)
+// p_drop and ds tiles: 143,872 bytes at 128 / 128, again one block an SM.
+// So this kernel stores no (L, S) tile (FlashAttention-2's split): q, do,
+// k, v in bf16 tiles of L and S rounded up to 16 rows (S to at least 64),
+// the mask, three fp32 statistics a query row (max, 1 / sum, rowsum(dp
+// p)) and, with the dropout, the row's keep bits: 56,832 bytes at 96 / 96
+// (58,368 with the dropout), 75,776 at 128 / 128. 4 warps, or 6 where
+// both L and S have 5 or 6 chunks of 16 (tw_threads); 168 registers
+// (launch bounds (192, 2)): 3 blocks of 4 warps or 2 of 6, 12 warps an
+// SM. Phase 1, warps own 16-row query chunks: s = q
+// k^T over the whole row (up to 128 keys: 64 fp32 fragment registers,
+// started from the bias, so the bias takes no registers of its own), the
+// softmax with quad reductions and EX2; dp is never held whole but
+// recomputed 16 keys at a time in two sweeps, the first for rowsum(dp p)
+// and the dropout's keep bits (hashed once, kept in a register a row and
+// in shared memory for phase 2), the second for ds, the dbias partial and
+// dq = ds k (ds as the A fragment). Phase 2, after one barrier, warps own
+// 16-key chunks and, a 16-query step at a time (a rolled loop), recompute
+// s^T = k q^T and dp^T = v do^T, form p, p_drop and ds from the row
+// statistics, and sum dv = p_drop^T do and dk = ds^T q with both as A
+// fragments (mma_a_from_c), the query steps in order. Eight products
+// instead of five: 10 L S Dh flops become 16 L S Dh, still far below the
+// bytes' time. What bounds it is latency: 12 warps an SM and each warp's
+// chain of ldmatrix -> mma -> softmax -> mma. Hence: phase 1's key loops
+// run their first four chunks without a branch (S padded to 64), so the
+// compiler schedules across them; phase 2's query loop is rolled, which
+// keeps it within 168 registers in the bias modes; 6 warps where both
+// sides have 5 or 6 chunks (tw_threads); and each block rotates which
+// warp takes the chunks that do not divide among its warps (warp w runs
+// on the SM's sub-partition w % 4), so that no sub-partition takes them
+// all. Rounding as PR 9's kernel;
+// exp(x - m) is EX2 of fma(x, log2 e, -m log2 e); phase 2's p is
+// recomputed from the same statistics, so dk and dq see the same ds up to
+// the fp32 order of the recomputed logits. A causally hidden logit is the
+// constant -1e9 and gets ds = 0 (the plain twin's gradient through
+// ``where``; it matters only in a row that sees no key).
+// Resources (nvcc -Xptxas -v, sm_90a): PERF.md §6, the A6 row.
 #include "common.cuh"
 
 using namespace vlpet;
@@ -226,7 +270,7 @@ dbias_reduce_kernel(const float* __restrict__ part, float* __restrict__ dbias,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core route (bf16, Dh 64, L, S <= 64; header).
+// The tensor-core route within one tile (bf16, Dh 64, L, S <= 64; header).
 
 constexpr int kTcThreads = 128;  // 4 warps, 16 query rows or 16 keys each
 constexpr int kBiasLd = kTcRows + 8;  // the fp32 bias tile's row stride
@@ -479,6 +523,395 @@ attention_bwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core route past one tile (bf16, Dh 64, L, S <= 128, L or S
+// > 64; header).
+
+constexpr int kTwMaxThreads = 192;  // 4 warps, or 6 (tw_threads)
+constexpr int kTwRows = 128;     // the largest L and S
+constexpr int kTwNt = kTwRows / 8;  // n8 key tiles of a full query row
+// phase 1's key loops run their first 4 chunks (64 keys, zeros past S)
+// without a branch, so their products and loads schedule freely
+constexpr int kTwMinChunks = 4;
+
+// The wide kernel's threads: 6 warps where both the query and the key
+// chunk counts are 5 or 6 (one chunk a warp: 2 blocks, 12 warps an SM),
+// else 4 (3 blocks, 12 warps; 7 or 8 chunks two a warp). With 4 warps, 5
+// chunks keep one warp at two while three wait at the barrier, 6 chunks
+// two; where one side has 4 chunks or fewer (L 10 or 56 over S 96), 6
+// warps would leave that side's phase with warps idle instead.
+inline int tw_threads(int L, int S) {
+  const int nq = (L + 15) / 16, nk = (S + 15) / 16;
+  return (nq == 5 || nq == 6) && (nk == 5 || nk == 6) ? 192 : 128;
+}
+
+// bf16 q, do (L rounded up to 16 rows), k, v (S rounded up) of stride
+// kTcLd, the mask, three fp32 statistics of each query row and, with the
+// dropout, each row's keep bits (4 words: 128 keys)
+__host__ __device__ constexpr size_t tw_smem(int Lp, int Sp, bool drop) {
+  return (size_t)2 * (Lp + Sp) * kTcLd * 2 + (size_t)(Sp + 3 * Lp) * 4 +
+         (drop ? (size_t)Lp * 16 : 0);
+}
+
+// rows 0 .. R of one head of x (N rows of stride ``inner`` elements) into
+// dst [R][kTcLd], zeros past N: 16-byte cp.async copies, not committed
+__device__ __forceinline__ void tw_load_rows(bf16* dst,
+                                             const bf16* __restrict__ x,
+                                             int R, int N, int inner) {
+  for (int i = threadIdx.x; i < R * (kTcD / 8); i += blockDim.x) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    const bool ok = r < N;
+    cp_async_16(dst + r * kTcLd + c, ok ? x + (size_t)r * inner + c : x,
+                ok ? 16 : 0);
+  }
+}
+
+// One block per (head, batch), shared memory sized to the site, 4 or 6
+// warps (tw_threads). Phase 1, the warps take the query chunks (16 rows
+// each) in turn: s = q k^T over the whole row (up to 128 keys, 64 fp32
+// registers) and the softmax in registers; then two sweeps of 16 keys
+// recompute dp = do v^T a chunk at a time (dp is never held whole): the
+// first forms rowsum(dp p) (and the dropout's keep bits, one register a
+// row), the second ds = p (dp - rowsum), the dbias partial and dq = ds k
+// with ds as the A fragment. Each row's max, 1 / sum, rowsum(dp p) and
+// keep bits go to shared memory. Phase 2, after one barrier, the warps
+// take the key chunks in turn: for each 16-query step a warp recomputes
+// s^T = k q^T and dp^T = v do^T, forms p and ds from the row statistics
+// (FlashAttention-2's split: no (L, S) tile is stored), and sums dv =
+// p_drop^T do and dk = ds^T q with p_drop^T and ds^T as A fragments, the
+// query steps in order.
+template <bool BIAS, bool DROP>
+__global__ void __launch_bounds__(kTwMaxThreads, 2)
+attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ bias,
+                      const int* __restrict__ seed_p,
+                      const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv,
+                      float* __restrict__ dbias_part, int L, int S, int H,
+                      int mask_batched, int causal, uint32_t thr,
+                      float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nq = (L + 15) >> 4, nk = (S + 15) >> 4;
+  const int Lp = nq * 16, Sp = max(nk, kTwMinChunks) * 16;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + Lp * kTcLd;  // dO
+  bf16* Ks = Gs + Lp * kTcLd;
+  bf16* Vs = Ks + Sp * kTcLd;
+  float* Ms = reinterpret_cast<float*>(Vs + Sp * kTcLd);  // [Sp]
+  float* Rm = Ms + Sp;  // [Lp] row max
+  float* Ri = Rm + Lp;  // [Lp] 1 / row sum, 0 past L
+  float* Rt = Ri + Lp;  // [Lp] rowsum(dp p), 0 past L
+  uint32_t* Kb = reinterpret_cast<uint32_t*>(Rt + Lp);  // [Lp][4], DROP
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int inner = H * kTcD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)b * L * inner + (size_t)h * kTcD;
+  const size_t koff = (size_t)b * S * inner + (size_t)h * kTcD;
+  const float* mb = mask + (mask_batched ? (size_t)b * S : 0);
+  const float* bh = BIAS ? bias + (size_t)h * L * S : nullptr;
+  const int past = S - L;  // the causal offset
+
+  tw_load_rows(Qs, q + qoff, Lp, L, inner);
+  tw_load_rows(Gs, dout + qoff, Lp, L, inner);
+  tw_load_rows(Ks, k + koff, Sp, S, inner);
+  tw_load_rows(Vs, v + koff, Sp, S, inner);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < Sp; i += blockDim.x)
+    Ms[i] = i < S ? mb[i] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  const uint32_t hseed = DROP ? head_seed((uint32_t)seed_p[0], h) : 0u;
+  // chunk c goes to warp (c + rot) % 4: warp w of every block runs on the
+  // SM's sub-partition w, so the blocks on an SM rotate which of them takes
+  // the extra chunks when the chunks do not divide by 4
+  const int nw = blockDim.x >> 5;
+  const int first = (warp + nw - (int)((blockIdx.x + blockIdx.y) % nw)) % nw;
+
+  // ---- phase 1: query rows; element (r, c) of n8 tile nt is query r0 + g
+  // + 8 r, key 8 nt + 2 t + c
+  for (int qc = first; qc < nq; qc += nw) {
+    const int r0 = qc * 16;
+    // the bias is the sums' starting value: no registers of its own
+    float s[kTwNt][4];
+#pragma unroll
+    for (int nt = 0; nt < kTwNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = r0 + g + 8 * (e >> 1), kj = nt * 8 + 2 * t + (e & 1);
+        s[nt][e] = BIAS && qi < L && kj < S ? bh[(size_t)qi * S + kj] : 0.f;
+      }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t qa[4];
+      tc_frag_a(qa, Qs, r0, kc, lane);
+#pragma unroll
+      for (int np = 0; np < kTwNt / 2; ++np) {
+        if (np >= kTwMinChunks && np >= nk) break;
+        uint32_t bk[4];
+        tc_frag_bt(bk, Ks, np * 16, kc, lane);
+        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
+      }
+    }
+    uint32_t irow[2], keep[2] = {0u, 0u};
+    float tsum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + g + 8 * r;
+      irow[r] = ((uint32_t)b * (uint32_t)L + (uint32_t)qi) * (uint32_t)S;
+      float m = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kTwNt; ++nt) {
+        if (nt >= 2 * kTwMinChunks && nt >= 2 * nk) break;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kj = nt * 8 + 2 * t + c;
+          float a = -INFINITY;
+          if (kj < S) {
+            a = s[nt][2 * r + c] + Ms[kj];
+            if (causal && kj > qi + past) a = -1e9f;
+          }
+          s[nt][2 * r + c] = a;
+          m = fmaxf(m, a);
+        }
+      }
+      m = quad_max(m);
+      float z = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kTwNt; ++nt) {
+        if (nt >= 2 * kTwMinChunks && nt >= 2 * nk) break;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float e = ex2(fmaf(s[nt][2 * r + c], kLog2e, -m * kLog2e));
+          s[nt][2 * r + c] = e;
+          z += e;
+        }
+      }
+      z = quad_sum(z);  // every lane: a row past L too
+      const float inv = qi < L ? 1.f / z : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kTwNt; ++nt) {
+        if (nt >= 2 * kTwMinChunks && nt >= 2 * nk) break;
+        s[nt][0 + 2 * r] *= inv;
+        s[nt][1 + 2 * r] *= inv;
+      }
+      if (t == 0) {
+        Rm[qi] = m;
+        Ri[qi] = inv;
+      }
+      tsum[r] = 0.f;
+    }
+    // sweep 1: rowsum(dp p), dp through the dropout (keep bit 2 nt + c of
+    // row r kept for sweep 2)
+#pragma unroll
+    for (int kk = 0; kk < kTwNt / 2; ++kk) {
+      if (kk >= kTwMinChunks && kk >= nk) break;
+      float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ga[4], bv[4];
+        tc_frag_a(ga, Gs, r0, kc, lane);
+        tc_frag_bt(bv, Vs, kk * 16, kc, lane);
+        mma_bf16(d[0], ga, bv[0], bv[1]);
+        mma_bf16(d[1], ga, bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int nt = 2 * kk + j;
+            float dd = d[j][2 * r + c];
+            if (DROP) {
+              const uint32_t kj = (uint32_t)(nt * 8 + 2 * t + c);
+              const bool kept = hash_bits(irow[r] + kj, hseed) >= thr;
+              keep[r] |= (uint32_t)kept << (2 * nt + c);
+              dd = kept ? dd * scale : 0.f;
+            }
+            tsum[r] = fmaf(dd, s[nt][2 * r + c], tsum[r]);
+          }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tsum[r] = quad_sum(tsum[r]);
+      const int qi = r0 + g + 8 * r;
+      if (t == 0) Rt[qi] = qi < L ? tsum[r] : 0.f;
+      if (DROP) {
+        // the row's keep bits for phase 2: byte w of keep[r] holds keys 32
+        // w + 8 (i / 2) + 2 t + i % 2, i = 0 .. 7; the quad ORs its bytes
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          uint32_t word = 0u;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            word |= ((keep[r] >> (8 * w + i)) & 1u)
+                    << (8 * (i >> 1) + 2 * t + (i & 1));
+          word |= __shfl_xor_sync(0xffffffffu, word, 1);
+          word |= __shfl_xor_sync(0xffffffffu, word, 2);
+          if (t == w) Kb[qi * 4 + w] = word;
+        }
+      }
+    }
+    // sweep 2: ds = p (dp - rowsum) (0 past L), its dbias partial, and
+    // dq = ds k
+    float aq[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aq[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTwNt / 2; ++kk) {
+      if (kk >= kTwMinChunks && kk >= nk) break;
+      float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ga[4], bv[4];
+        tc_frag_a(ga, Gs, r0, kc, lane);
+        tc_frag_bt(bv, Vs, kk * 16, kc, lane);
+        mma_bf16(d[0], ga, bv[0], bv[1]);
+        mma_bf16(d[1], ga, bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = r0 + g + 8 * r;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int nt = 2 * kk + j;
+            float dd = d[j][2 * r + c];
+            if (DROP) dd = (keep[r] >> (2 * nt + c)) & 1u ? dd * scale : 0.f;
+            // a causally hidden logit is the constant -1e9: no gradient
+            // (it matters only in a row that sees no key)
+            const bool live = qi < L && !(causal && nt * 8 + 2 * t + c >
+                                                        qi + past);
+            d[j][2 * r + c] = live ? s[nt][2 * r + c] * (dd - tsum[r]) : 0.f;
+          }
+          const int kj = (2 * kk + j) * 8 + 2 * t;
+          if (dbias_part != nullptr && qi < L) {
+            float* dst = dbias_part + (((size_t)b * H + h) * L + qi) * S + kj;
+            if (kj < S) dst[0] = d[j][2 * r];
+            if (kj + 1 < S) dst[1] = d[j][2 * r + 1];
+          }
+        }
+      uint32_t sa[4];
+      mma_a_from_c(sa, d[0], d[1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t bk[4];
+        tc_frag_b(bk, Ks, kk * 16, 2 * dd, lane);
+        mma_bf16(aq[2 * dd], sa, bk[0], bk[1]);
+        mma_bf16(aq[2 * dd + 1], sa, bk[2], bk[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + g + 8 * r;
+      if (qi >= L) continue;
+      bf16* dst = dq + qoff + (size_t)qi * inner;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8 + 2 * t) =
+            __floats2bfloat162_rn(aq[dt][2 * r], aq[dt][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // every row's statistics are in shared memory
+
+  // ---- phase 2: keys; element (r, c) of n8 tile j is key k0 + g + 8 r,
+  // query 16 jj + 8 j + 2 t + c
+  for (int kc2 = first; kc2 < nk; kc2 += nw) {
+    const int k0 = kc2 * 16;
+    const int kj[2] = {k0 + g, k0 + g + 8};
+    const float mk[2] = {Ms[kj[0]], Ms[kj[1]]};
+    float av[8][4], ak[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[i][e] = ak[i][e] = 0.f;
+#pragma unroll 1
+    for (int jj = 0; jj < nq; ++jj) {
+      float st[2][4], dt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = jj * 16 + 8 * j + 2 * t + (e & 1);
+          const int kr = kj[e >> 1];
+          st[j][e] = BIAS && qi < L && kr < S ? bh[(size_t)qi * S + kr] : 0.f;
+          dt[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ka[4], va[4], bq[4], bg[4];
+        tc_frag_a(ka, Ks, k0, kc, lane);
+        tc_frag_bt(bq, Qs, jj * 16, kc, lane);
+        mma_bf16(st[0], ka, bq[0], bq[1]);
+        mma_bf16(st[1], ka, bq[2], bq[3]);
+        tc_frag_a(va, Vs, k0, kc, lane);
+        tc_frag_bt(bg, Gs, jj * 16, kc, lane);
+        mma_bf16(dt[0], va, bg[0], bg[1]);
+        mma_bf16(dt[1], va, bg[2], bg[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = jj * 16 + 8 * j + 2 * t + c;
+          const float m = Rm[qi], inv = Ri[qi], ts = Rt[qi];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const bool in = qi < L && kj[r] < S;
+            const bool hid = causal && kj[r] > qi + past;
+            const float a = hid ? -1e9f : st[j][2 * r + c] + mk[r];
+            const float p = in ? ex2(fmaf(a, kLog2e, -m * kLog2e)) * inv : 0.f;
+            float dd = dt[j][2 * r + c], pd = p;
+            if (DROP) {
+              const bool kept =
+                  (Kb[qi * 4 + (kj[r] >> 5)] >> (kj[r] & 31)) & 1u;
+              dd = kept ? dd * scale : 0.f;
+              pd = kept ? p * scale : 0.f;
+            }
+            st[j][2 * r + c] = pd;
+            dt[j][2 * r + c] = hid ? 0.f : p * (dd - ts);
+          }
+        }
+      uint32_t pa[4], sa[4];
+      mma_a_from_c(pa, st[0], st[1]);
+      mma_a_from_c(sa, dt[0], dt[1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t bg[4], bq[4];
+        tc_frag_b(bg, Gs, jj * 16, 2 * dd, lane);
+        tc_frag_b(bq, Qs, jj * 16, 2 * dd, lane);
+        mma_bf16(av[2 * dd], pa, bg[0], bg[1]);
+        mma_bf16(av[2 * dd + 1], pa, bg[2], bg[3]);
+        mma_bf16(ak[2 * dd], sa, bq[0], bq[1]);
+        mma_bf16(ak[2 * dd + 1], sa, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kj[r] >= S) continue;
+      const size_t row = koff + (size_t)kj[r] * inner;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        const int d = dt * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
+            __floats2bfloat162_rn(ak[dt][2 * r], ak[dt][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
+            __floats2bfloat162_rn(av[dt][2 * r], av[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// PR 9's kernel where L and S fit one 64-row tile, else the wide one; the
+// two take the same arguments
 template <bool BIAS, bool DROP>
 int launch_tc_terms(const void* q, const void* k, const void* v,
                     const void* mask, const void* bias, const void* seed,
@@ -486,12 +919,17 @@ int launch_tc_terms(const void* q, const void* k, const void* v,
                     void* dbias_part, int B, int L, int S, int H,
                     int mask_batched, int causal, uint32_t thr, float scale,
                     cudaStream_t st) {
-  const size_t smem = tc_smem(BIAS);
+  const bool wide = L > kTcRows || S > kTcRows;
+  const size_t smem =
+      wide ? tw_smem((L + 15) / 16 * 16,
+                     max((S + 15) / 16, kTwMinChunks) * 16, DROP)
+           : tc_smem(BIAS);
+  decltype(&attention_bwd_tc<BIAS, DROP>) kernel =
+      wide ? &attention_bwd_tc_wide<BIAS, DROP> : &attention_bwd_tc<BIAS, DROP>;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bwd_tc<BIAS, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_tc<BIAS, DROP><<<dim3(H, B), kTcThreads, smem, st>>>(
+  kernel<<<dim3(H, B), wide ? tw_threads(L, S) : kTcThreads, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
       (const float*)bias, (const int*)seed, (const bf16*)dout, (bf16*)dq,
       (bf16*)dk, (bf16*)dv, (float*)dbias_part, L, S, H, mask_batched, causal,
@@ -559,7 +997,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 // dbias_part: fp32 scratch of B * H * L * S floats and dbias the (H, L, S)
 // fp32 output, both NULL for no bias gradient (they need a bias). tc: the
-// tensor-core route (bf16, Dh 64, L, S <= 64; ops/attention.py a6_route).
+// tensor-core route (bf16, Dh 64, L, S <= 128; ops/attention.py a6_route).
 extern "C" int vlpet_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    const void* bias, const void* seed,
@@ -573,7 +1011,7 @@ extern "C" int vlpet_attention_bwd(const void* q, const void* k,
       (drop && (seed == nullptr || thr < 0)) ||
       ((dbias != nullptr) != (dbias_part != nullptr)) ||
       (dbias != nullptr && bias == nullptr) ||
-      (tc && (!is_bf16 || Dh != kTcD || L > kTcRows || S > kTcRows)))
+      (tc && (!is_bf16 || Dh != kTcD || L > kTwRows || S > kTwRows)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (tc) {

@@ -28,8 +28,11 @@ kernels, which the fp32 parity runs hold to full fp32 arithmetic).
 ``fused_attention.launches_by_route`` and
 ``fused_attention_bwd_long.launches_by_route`` count the launches of each.
 A6's kernel is picked by ``a6_route(L, S, Dh, dtype)``: "tc" for bf16 at
-Dh 64 with L, S <= 64 (the B 500 train sites, L, S <= 56), "fma"
-otherwise (the image-text CLI's caption L 76 and nlvr S 102 in bf16);
+Dh 64 with L, S <= 128 (one kernel for a single 64-row tile, the B 500
+train sites; another past it, the CLI's caption L 76 and nlvr S 102, the
+prompts' and prefixes' S 96 / 116), "fma" for fp32, other widths and L or
+S past 128 (the prompt's nlvr cross site at S 142, the video tvc cross
+sites at S 141 / 181);
 ``fused_attention_bwd.launches_by_route`` counts them.
 
 T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
@@ -171,8 +174,9 @@ def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
 # the head width of the tensor-core kernels (every configuration of the
 # repo: BART-base and T5-base, d 768 over 12 heads)
 TC_HEAD_DIM = 64
-# the rows of the tensor-core kernels' tiles (csrc/common.cuh kTcRows)
-TC_ROWS = 64
+# the largest L and S of A6's tensor-core kernels (csrc/attention_bwd.cu
+# kTwRows)
+A6_TC_ROWS = 128
 
 
 def forward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
@@ -202,15 +206,16 @@ def _check_aligned(*named) -> None:
 
 def a6_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     """A6's kernel, a plain function of (L, S, Dh, dtype): "tc" (the
-    tensor-core kernel: bf16 products on mma.sync, p and ds in registers,
+    tensor-core kernels: bf16 products on mma.sync, p and ds in registers,
     bf16 tiles fed by cp.async, 16-byte aligned inputs) for bf16 at Dh 64
-    where a head's L and S fit one 64-row tile -- the image-text train
-    sites at L, S <= 56 -- else "fma" (the FP32-FMA kernel: fp32, other
-    widths, L or S past 64, as the CLI's caption L 76 and nlvr S 102)."""
+    with L, S <= 128 -- the image-text sites, the prompts' and prefixes'
+    S 96 / 116 -- else "fma" (the FP32-FMA kernel: fp32, other widths, L
+    or S past 128, as the prompt's nlvr cross-attention over S 142 and the
+    video tvc cross-attention over S 141 / 181)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
     return ("tc" if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM
-            and L <= TC_ROWS and S <= TC_ROWS else "fma")
+            and L <= A6_TC_ROWS and S <= A6_TC_ROWS else "fma")
 
 
 def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
