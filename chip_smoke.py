@@ -251,15 +251,20 @@ nonzero and no result line is printed):
   3n. (run after 3m) A1, and A6 or the long backward, bf16, at the prompt
      baseline's sites (40 prompt tokens before the text): vqa B 500 L = S
      96 and cross L 10 x S 96, gqa B 833 L = S 96, caption B 416 L = S
-     116 and cross L 40 x S 116, nlvr B 166 L = S 142 (the long backward)
-     and cross L 10 x S 142 (A6 "fma", past 128): vs the plain twin and
-     its autograd, bitwise on a repeat, with the route, SDPA's time and the
-     bound, and at each A6 "tc" site past 64 the long backward timed on
-     the same inputs; then A6's wide kernel in every mode
+     116 and cross L 40 x S 116, nlvr B 166 L = S 142 and cross L 10 x
+     S 142 (A6 past 128 rows; the long backward and "fma" until it): vs
+     the plain twin and its autograd, bitwise on a repeat, with the route,
+     SDPA's time and the bound, and at each A6 site past 64 the long
+     backward timed on the same inputs (past 128, the FMA kernel too where
+     it fits); then A6's kernels past one tile in every mode
      (``A6_WIDE_MODES``, bf16, B 300, rate 0.1: L = S 96 with the bias,
      and with dbias; L 40 over S 116 with the bias and dbias; causal L =
-     S 76), bitwise on a repeat, and its dropout masks bit for bit at L
-     = S 96, L 40 over S 116 and causal L = S 76;
+     S 76; L = S 142 with the bias and dbias; L 20 over S 181; causal L =
+     S 200 with the bias and dbias), bitwise on a repeat, and their
+     dropout masks bit for bit at L = S 96, L 40 over S 116, causal L = S
+     76, L = S 142, L 20 over S 181 and causal L = S 200; then A6 and
+     the long backward side by side at ``A6_ROUTE_GRID`` (B 64, L, S from
+     1 to 256), the record behind backward_route;
   8. (run last) the image-text CLI, ``python -m vlpet_tpu_torch.cli.multitask``
      in a child process (``chip_smoke.py --cli-child``), with the flags of
      scripts/image-text/VL-PET-small.sh plus --bf16: batch 500 (valid
@@ -274,15 +279,14 @@ nonzero and no result line is printed):
   8b. (after 8) the same CLI with the flags of
      scripts/image-text/single_prompt.sh plus --bf16: B 500, the four
      tasks, 1000 synthetic examples a task, one epoch, evaluated
-     (the cli_single_prompt main-path run: A6 on "tc" at S 96 / 116, A6
-     on "fma" at nlvr's cross-attention over S 142 and the long backward
-     at nlvr's L = S = 142 must launch); data build, ms/step
-     and each task's eval seconds.
+     (the cli_single_prompt main-path run: A6 on "tc" only, past 128
+     rows at nlvr's L = S = 142 and cross-attention over S 142 among its
+     launches); data build, ms/step and each task's eval seconds.
   3o. (run after 3n) every kernel of the ten scripts/video-text/*.sh at
      the shapes they give it (B 50; QA text 600 and captions 77 tokens +
      64 frames: S 664 and 141, 704 and 181 with the prompt; 20 targets),
-     bf16: A1 and the long backward or A6 (as backward_route picks: "fma"
-     at the caption cross sites L 20 over S 141 / 181) at the encoders,
+     bf16: A1 and the long backward or A6 (as backward_route picks: A6
+     past 128 rows at the caption sites, S 141 / 181) at the encoders,
      the decoder self-attention, the cross-attention and the decode cross
      sites (L 5 beam, L 1 greedy); fp32 A1 and the long backward at the
      tvqa encoder and cross sites; F1 / F2 and L1 / L2 at N 33200, 35200,
@@ -300,7 +304,7 @@ nonzero and no result line is printed):
      kernels vs plain, identical;
   7g. (run after 7f) each video script's bf16 train step at B 50 on tvqa
      (S 664, 704 with the prompt), as phase 7 (the video_<script> runs);
-     VL-PET-large's on tvc (S 141, A6 on "fma"); its greedy tvqa eval to
+     VL-PET-large's on tvc (S 141, A6 past 128 rows); its greedy tvqa eval to
      length 20 and beam-5 tvc eval to length 40 at B 50;
   8c. (after 8b) ``python -m vlpet_tpu_torch.cli.multitask_video`` with
      VL-PET-large.sh's flags + --bf16, B 50, the four tasks, 250 synthetic
@@ -312,10 +316,9 @@ nonzero and no result line is printed):
   3p. (run after 3o) the raw-image path's kernel sites (the RN101 grid at
      224 px: 49 tokens after 20 text tokens, S 69; NLVR's two images S
      118; 448 px S 216), B 500, bf16, and fp32 for A1 and A6 at S 69: A1
-     and A6 or the long backward at the encoder (S 69 on A6 "tc", S 118
-     and 216 on the long backward) and cross (L 10, and the caption's L
-     40, over S 69 and 118: A6 "tc", the long backward timed beside it)
-     sites, the beam cross-attention L 5
+     and A6 at the encoder (S 69, 118 and 216, past 128 rows) and cross
+     (L 10, and the caption's L 40, over S 69 and 118) sites, the long
+     backward timed beside it, the beam cross-attention L 5
      over S 69; F1, F2, L1 and L2 at N 34500, 59000
      and 108000; D1, U1, T1 and T2 at the raw caption eval (B 500, beam 5
      to length 40): vs the plain twin, bf16 twice bitwise equal, with the
@@ -488,7 +491,7 @@ Each of 3n, 3o, 3p, 6g, 6h, 6i, 6j, 6k, 6l, 7f, 7g, 7h, 7j, 7k, 7l, 8b, 8c,
 Routes: each kernel-vs-plain line of A1, A6, the long backward, L1 and
 L2 prints the route it launched (ops/attention.py forward_route for A1
 and the long backward, a6_route for A6: "tc", the tensor-core kernels,
-for bf16 at Dh 64 -- and, for A6, L, S <= 128; "fma" otherwise;
+for bf16 at Dh 64 -- and, for A6, L, S <= 256; "fma" otherwise;
 ops/fused_ln.py ln_plan for L1 and L2: "vec", 16-byte rows, or
 "scalar"), every bf16 bench run (5-5e, 7-7e) must launch A1, A6 and the
 long backward on "tc" only and L1 and L2 on "vec" only, and the kernels'
@@ -620,7 +623,7 @@ BITFIT, T5V_BITFIT = "t5_bitfit", "t5_video_bitfit"
 # the PET baselines' scripts (scripts/image-text/*.sh) on BART-base: phase
 # 7f's bf16 train steps (PET_TRAIN; full fine-tuning takes the plain FFN
 # chain) and beam-5 evals (PET_EVAL), and phase 8b's CLI run of the prompt
-# script (CLI_PROMPT, whose nlvr encoder takes the long backward)
+# script (CLI_PROMPT, whose nlvr sites take A6 past 128 rows)
 PET_SCRIPTS = ("single_adapter", "single_compacter", "single_lora",
                "single_prompt", "hyperformer", "bitfit", "full_finetuning")
 PET_TRAIN = tuple(f"pet_{n}" for n in PET_SCRIPTS)
@@ -630,8 +633,9 @@ PET_EVAL = ("pet_single_lora_eval", "pet_single_prompt_eval",
 CLI_PROMPT = "cli_single_prompt"
 # the ten video scripts (scripts/video-text/*.sh) on BART-base: phase 7g's
 # bf16 train steps at tvqa (S 664, 704 with the prompt; full fine-tuning
-# takes the plain FFN chain) and VL-PET-large's at tvc (S 141: A6 on "fma"
-# at the cross-attention), VL-PET-large's greedy tvqa and beam-5 tvc evals
+# takes the plain FFN chain) and VL-PET-large's at tvc (S 141: A6 past 128
+# rows at the encoder and cross-attention), VL-PET-large's greedy tvqa and
+# beam-5 tvc evals
 # (VS_QA_EVAL, VS_CAP_EVAL); phase 8c's CLI runs: cli.multitask_video with
 # VL-PET-large.sh's flags (CLI_VIDEO) and cli.single_task tvqa with
 # single_prompt.sh's (CLI_VIDEO_PROMPT, greedy eval only)
@@ -640,8 +644,8 @@ VIDEO_GATES = ("VL-PET-small", "VL-PET-middleX", "VL-PET-middleY",
 VIDEO_SCRIPTS = VIDEO_GATES + ("single_adapter", "single_compacter",
                                "single_lora", "single_prompt", "bitfit",
                                "full_finetuning")
-VS_TRAIN = tuple(f"video_{n}" for n in VIDEO_SCRIPTS) + (
-    "video_VL-PET-large_tvc",)
+VS_TVQA_TRAIN = tuple(f"video_{n}" for n in VIDEO_SCRIPTS)
+VS_TRAIN = VS_TVQA_TRAIN + ("video_VL-PET-large_tvc",)
 VS_FFN_TRAIN = tuple(p for p in VS_TRAIN if p != "video_full_finetuning")
 VS_QA_EVAL, VS_CAP_EVAL = ("video_VL-PET-large_tvqa_eval",
                            "video_VL-PET-large_tvc_eval")
@@ -717,12 +721,18 @@ KERNELS = {
                             + (CLI_VIDEO, CLI_VIDEO_PROMPT) + RAW_TRAIN
                             + ABL_TRAIN + PF_TRAIN + TAIL_ALL
                             + (TP_TRAIN, TP_VIDEO)),
+    # A6's tensor-core kernel past 128 rows (attention_bwd_tc_256): the
+    # prompt's nlvr sites (S 142), the video tvc sites (S 141), the raw
+    # 448 px encoder (S 216; phase 3p)
+    "fused_attention_bwd past 128": ("vlpet_tpu_torch/csrc/attention_bwd.cu",
+                                     "vlpet_tpu/ops/attention.py:1082",
+                                     (CLI_PROMPT, "video_VL-PET-large_tvc",
+                                      CLI_VIDEO)),
     "fused_attention_bwd_long": ("vlpet_tpu_torch/csrc/attention_bwd_long.cu",
                                  "vlpet_tpu/ops/attention.py:641, "
                                  "vlpet_tpu/ops/attention.py:918",
-                                 ("video_train", T5V_TRAIN, CLI_PROMPT)
-                                 + VS_TRAIN + (CLI_VIDEO, CLI_VIDEO_PROMPT,
-                                               TP_VIDEO)),
+                                 ("video_train", T5V_TRAIN) + VS_TVQA_TRAIN
+                                 + (CLI_VIDEO, CLI_VIDEO_PROMPT, TP_VIDEO)),
     "fused_ffn": ("vlpet_tpu_torch/csrc/ffn.cu", "vlpet_tpu/ops/ffn.py:240",
                   DECODE + TRAIN + ("t5_eval", T5V_EVAL, T5V_TRAIN, CLI)
                   + PET_FFN_TRAIN + PET_EVAL + (CLI_PROMPT,) + VS_FFN_TRAIN
@@ -833,6 +843,7 @@ KERNELS = {
                           + ABL_EVAL + PF_EVAL),
 }
 MODES = {"fused_attention +bias +dropout": "fused_attention",
+         "fused_attention_bwd past 128": "fused_attention_bwd.tc256",
          "fused_attention_bwd +bias +dropout": "fused_attention_bwd",
          "fused_attention_bwd +dbias": "fused_attention_bwd.dbias",
          "fused_attention_bwd_long +bias +dropout": "fused_attention_bwd_long",
@@ -1302,7 +1313,7 @@ def cli_train_sites(rep: Report) -> None:
         bitwise_repeat("fused_attention_bwd", label,
                        lambda: attention.fused_attention_bwd(
                            q, k, v, mask, do, H, causal))
-        long_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
+        routes_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
     D, Fh = 768, 3072
     w1, w2 = randn(Fh, D, dtype=dtype, scale=0.02), randn(D, Fh, dtype=dtype,
                                                           scale=0.02)
@@ -1929,7 +1940,9 @@ def grad_case(rep: Report, g, dtype, seed, site: str, B: int, L: int,
                 q, k, v, mask, out, lse, do, H, causal, bias, rate, seed,
                 bias_grad)
     else:
-        key = "fused_attention_bwd +dbias"
+        key = (a6_key(L, S) if dtype == torch.bfloat16
+               and max(L, S) > attention.A6_WIDE_ROWS
+               else "fused_attention_bwd +dbias")
 
         def kernel():
             return attention.fused_attention_bwd(q, k, v, mask, do, H, causal,
@@ -2886,7 +2899,9 @@ def phase_prompt_sites(rep: Report) -> None:
     backward, in bf16 at PROMPT_SITES with a ragged padding mask, against
     the plain twin and autograd of it (phase 3b's tolerances), each
     backward twice bitwise equal; the route taken, SDPA's time (and its
-    autograd's) and the bound on every line."""
+    autograd's) and the bound on every line, and beside A6 the routes it
+    replaced (``routes_beside``). The nlvr encoder's A6 is the timed case
+    of A6 past 128 rows."""
     g = torch.Generator(device="cuda").manual_seed(14)
     randn = randn_fn(g)
     dtype, e = torch.bfloat16, 2
@@ -2921,54 +2936,118 @@ def phase_prompt_sites(rep: Report) -> None:
                 return attention.fused_attention_bwd_long(q, k, v, mask, out,
                                                           lse, do, H)
         else:
-            key = "fused_attention_bwd"
+            key = a6_key(L, S)
 
             def kernel():
                 return attention.fused_attention_bwd(q, k, v, mask, do, H)
         rep.check(key, label, kernel, plain_bwd, dtype, work=work,
-                  library_fn=lib_bwd, backward=True)
+                  library_fn=lib_bwd, backward=True,
+                  timed=site == "nlvr enc")
         bitwise_repeat(key, label, kernel)
-        if key == "fused_attention_bwd":
-            long_beside(q, k, v, mask, do, H, False, label, rep.last[0])
+        if key != "fused_attention_bwd_long":
+            routes_beside(q, k, v, mask, do, H, False, label, rep.last[0])
         del plain_bwd, lib_bwd
     a6_wide_modes(rep)
+    a6_route_grid()
 
 
-def long_beside(q, k, v, mask, do, H: int, causal: bool, label: str,
-                a6_ms: float) -> None:
-    """At an A6 site past one 64-row tile (bf16), the long backward on the
-    same inputs -- from the output and row logsumexp of
-    ``fused_attention_fwd_lse`` -- timed beside A6's ``a6_ms``: which of
-    the two serves the site faster. A record only: ``backward_route``
-    gives the site to A6."""
+# bf16 shapes within A6's tensor-core limit (L, S <= 256) beyond the
+# paths' sites, B 64: the record behind ``backward_route`` giving A6 every
+# one of them (A6 faster than the long backward)
+A6_ROUTE_GRID = ((1, 256), (16, 256), (64, 256), (256, 16), (129, 129),
+                 (192, 192), (256, 256))
+
+
+def a6_route_grid() -> None:
+    """A6 at ``A6_ROUTE_GRID`` timed beside the long backward on the same
+    inputs (``routes_beside``), a padding mask alone."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    randn = randn_fn(g)
+    B, H, Dh = 64, 12, 64
+    inner = H * Dh
+    for L, S in A6_ROUTE_GRID:
+        mask = padding_mask(g, B, S)
+        q = randn(B, L, inner, dtype=torch.bfloat16, scale=Dh ** -0.5)
+        k, v, do = (randn(B, n, inner, dtype=torch.bfloat16)
+                    for n in (S, S, L))
+        a6_ms = cuda_ms(lambda: attention.fused_attention_bwd(q, k, v, mask,
+                                                              do, H))
+        routes_beside(q, k, v, mask, do, H, False,
+                      f"bf16 grid B{B} L{L} S{S}", a6_ms)
+
+
+def a6_key(L: int, S: int) -> str:
+    """The record entry of A6 at (L, S): past 128 rows its own."""
+    return ("fused_attention_bwd past 128"
+            if max(L, S) > attention.A6_WIDE_ROWS else "fused_attention_bwd")
+
+
+def a6_fma(q, k, v, mask, do, H: int, causal: bool):
+    """A6's FMA kernel on bf16 inputs, launched directly (no wrapper, no
+    launch count): the route of bf16 sites past 128 rows where its fp32
+    staging fits a block, until attention_bwd_tc_256. A record only."""
+    B, L, inner = q.shape
+    S = k.shape[1]
+    m = mask.reshape(mask.shape[0], S)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _build.launch("vlpet_attention_bwd", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), m.data_ptr(), None, None, do.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None, None, B,
+                  L, S, H, inner // H, int(m.shape[0] == B), int(causal), 1,
+                  0, 0, 0, 1.0)
+    return dq, dk, dv
+
+
+def routes_beside(q, k, v, mask, do, H: int, causal: bool, label: str,
+                  a6_ms: float) -> None:
+    """At an A6 site past one 64-row tile (bf16), the other routes on the
+    same inputs, timed beside A6's ``a6_ms``: the long backward, from the
+    output and row logsumexp of ``fused_attention_fwd_lse`` (that forward's
+    time and the plain forward's printed too: the long route pays both),
+    and past 128 rows, where the FMA kernel's fp32 staging fits a block
+    (``backward_route`` in fp32), that kernel (``a6_fma``). Which of A6 and
+    the long backward is faster. A record only: ``backward_route`` gives
+    the site to A6."""
     L, S = q.shape[1], k.shape[1]
     if max(L, S) <= 64 or (causal and S < L):
         return
     out, lse = attention.fused_attention_fwd_lse(q, k, v, mask, H, causal)
-    fwd_ms = cuda_ms(lambda: attention.fused_attention_fwd_lse(
+    lse_ms = cuda_ms(lambda: attention.fused_attention_fwd_lse(
+        q, k, v, mask, H, causal), TWIN_ITERS, warmup=1)
+    fwd_ms = cuda_ms(lambda: attention.fused_attention(
         q, k, v, mask, H, causal), TWIN_ITERS, warmup=1)
     ms = cuda_ms(lambda: attention.fused_attention_bwd_long(
         q, k, v, mask, out, lse, do, H, causal), 10)
+    fma = ""
+    if (max(L, S) > attention.A6_WIDE_ROWS
+            and attention.backward_route(L, S, 64, torch.float32) == "A6"):
+        fma_ms = cuda_ms(lambda: a6_fma(q, k, v, mask, do, H, causal), 10)
+        fma = f"; A6's FMA kernel {fma_ms:.4f} ms"
     print(f"  {'fused_attention_bwd_long':24s} {label:34s} on A6's inputs: "
-          f"{ms:.4f} ms (its forward with lse {fwd_ms:.4f}); A6 "
-          f"{a6_ms:.4f} ms: {'A6' if a6_ms <= ms else 'the long backward'} "
-          f"faster", flush=True)
+          f"{ms:.4f} ms (its forward with lse {lse_ms:.4f}, without "
+          f"{fwd_ms:.4f}){fma}; A6 {a6_ms:.4f} ms: "
+          f"{'A6' if a6_ms <= ms else 'the long backward'} faster",
+          flush=True)
 
 
-# A6's wide tensor-core kernel in every mode at former "fma" sites, bf16,
-# B 300 (the T5 baselines' batch), rate 0.1: (site, L, S, causal, bias,
-# bias_grad). Phase 3n's sites above hold the padding mask alone.
+# A6's tensor-core kernels past one tile in every mode at former "fma" and
+# "long" sites, bf16, B 300 (the T5 baselines' batch), rate 0.1: (site, L,
+# S, causal, bias, bias_grad); the last three past 128 rows. Phase 3n's
+# sites above hold the padding mask alone.
 A6_WIDE_MODES = (("prompt vqa enc", 96, 96, False, True, False),
                  ("prompt vqa enc", 96, 96, False, True, True),
                  ("prompt caption cross", 40, 116, False, True, True),
-                 ("caption enc", 76, 76, True, False, False))
+                 ("caption enc", 76, 76, True, False, False),
+                 ("prompt nlvr enc", 142, 142, False, True, True),
+                 ("prompt tvc cross", 20, 181, False, False, False),
+                 ("causal", 200, 200, True, True, True))
 
 
 def a6_wide_modes(rep: Report) -> None:
     """``A6_WIDE_MODES`` through ``grad_case`` (against autograd of the
     plain forward with the same bias, dropout and triangle, dbias too,
     twice bitwise equal, SDPA's autograd at rate 0 beside it), then the
-    wide kernel's dropout masks bit for bit."""
+    kernels' dropout masks bit for bit."""
     g = torch.Generator(device="cuda").manual_seed(26)
     seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda",
                          dtype=torch.int32)
@@ -2980,9 +3059,10 @@ def a6_wide_modes(rep: Report) -> None:
 
 @torch.no_grad()
 def check_a6_wide_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
-    """The wide A6's bf16 dropout mask bit for bit against ops/hashdrop.py
-    at L = S 96, L 40 over S 116 and causal L = S 76 (B 64): with a one-hot
-    cotangent (do[i, d] = [i = off + d]) dv returns the dropped
+    """A6's bf16 dropout mask bit for bit against ops/hashdrop.py at L =
+    S 96, L 40 over S 116 and causal L = S 76 (the wide kernel), L = S
+    142, L 20 over S 181 and causal L = S 200 (past 128 rows; B 64): with
+    a one-hot cotangent (do[i, d] = [i = off + d]) dv returns the dropped
     probabilities of query rows off .. off + 64, at off 0 and L - 64."""
     from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask
 
@@ -2990,7 +3070,9 @@ def check_a6_wide_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
     B, H, Dh = 64, 12, 64
     inner = H * Dh
     eye = torch.eye(Dh, device="cuda")
-    for L, S, causal in ((96, 96, False), (40, 116, False), (76, 76, True)):
+    for L, S, causal in ((96, 96, False), (40, 116, False), (76, 76, True),
+                         (142, 142, False), (20, 181, False),
+                         (200, 200, True)):
         q = (torch.randn((B, L, inner), generator=g, device="cuda")
              * 0.1).bfloat16()
         k = torch.randn((B, S, inner), generator=g, device="cuda").bfloat16()
@@ -3006,7 +3088,7 @@ def check_a6_wide_masks(seed: torch.Tensor, rate: float = 0.1) -> None:
             _, _, dv = attention.fused_attention_bwd(
                 q, k, k, mask, do.bfloat16(), H, causal, rate=rate, seed=seed)
             got = dv.float().view(B, S, H, Dh)[..., :rows].permute(0, 2, 3, 1)
-            _expect_zeros(f"fused_attention_bwd wide L{L} S{S} rows {off}+",
+            _expect_zeros(f"{a6_key(L, S)} L{L} S{S} rows {off}+",
                           got, keep[:, :, off:off + rows], "bf16")
 
 
@@ -3098,7 +3180,8 @@ def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
             return attention.fused_attention_bwd_long(q, k, v, mask, out, lse,
                                                       do, H, causal)
     else:
-        key = "fused_attention_bwd"
+        key = (a6_key(L, S) if dtype == torch.bfloat16
+               else "fused_attention_bwd")
 
         def kernel():
             return attention.fused_attention_bwd(q, k, v, mask, do, H, causal)
@@ -3107,8 +3190,8 @@ def attention_site(rep: Report, g, dtype, site: str, B: int, L: int, S: int,
               iters=5 if dtype == torch.float32 else 20)
     if dtype == torch.bfloat16:
         bitwise_repeat(key, label, kernel)
-        if key == "fused_attention_bwd":
-            long_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
+        if key != "fused_attention_bwd_long":
+            routes_beside(q, k, v, mask, do, H, causal, label, rep.last[0])
     del plain_bwd, lib_bwd
 
 
@@ -3337,10 +3420,13 @@ def wrappers():
 
 def counters():
     """name -> (wrapper, attribute) of every launch counter: each wrapper's
-    ``launches`` and the backwards' dbias mode counters."""
+    ``launches``, the backwards' dbias mode counters and A6's launches past
+    128 rows."""
     out = {k: (fn, "launches") for k, fn in wrappers().items()}
     for k in ("fused_attention_bwd", "fused_attention_bwd_long"):
         out[f"{k}.dbias"] = (wrappers()[k], "dbias_launches")
+    out["fused_attention_bwd.tc256"] = (attention.fused_attention_bwd,
+                                        "tc256_launches")
     return out
 
 
@@ -3395,7 +3481,7 @@ def require_launched(path: str, got: dict) -> None:
 
 
 def require_tc(path: str, launched: dict) -> None:
-    """A bf16 bench run (every Dh 64, each A6 site at L, S <= 64, every
+    """A bf16 bench run (every Dh 64, each A6 site at L, S <= 256, every
     LayerNorm row 16-byte aligned): A1, A6 and the long backward launched
     on the tensor-core route only, L1 and L2 on the vector route only."""
     off = {f"{k}[{second}]": launched[f"{k}[{second}]"]
@@ -3905,12 +3991,12 @@ def step_vs_plain(label: str, step, trainable, batch, gen, task_idx) -> None:
 
 def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
                 task: str, lr: float, path: str, label: str,
-                vs_plain: bool = False, tc_only: bool = True,
-                warm: int = 3, timed: int = 10, lambda_z: float = 0.0):
+                vs_plain: bool = False, warm: int = 3, timed: int = 10,
+                lambda_z: float = 0.0):
     """``warm`` warm-up steps, then ``timed`` timed steps ending in one
-    sync; the launches of the timed steps (the ``path`` main-path run).
-    With ``vs_plain``, then one step kernels vs plain (``step_vs_plain``);
-    ``tc_only`` requires the tensor-core routes (``require_tc``);
+    sync; the launches of the timed steps (the ``path`` main-path run),
+    every one on the tensor-core routes (``require_tc``). With
+    ``vs_plain``, then one step kernels vs plain (``step_vs_plain``);
     ``lambda_z`` is the z regularizer weight (train/steps.py)."""
     model = build_model("bfloat16", cfg_fn)
     trainable = apply_freezing(model, model.cfg.pet)
@@ -3930,8 +4016,7 @@ def train_bench(card: str, cfg_fn, batch_fn, B: int, seed: int, tasks,
     loss = out["loss"].item()  # the one sync
     wall = time.perf_counter() - t0
     launched = read_counts(path)
-    if tc_only:
-        require_tc(path, launched)
+    require_tc(path, launched)
     if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
         raise AssertionError(f"non-finite loss {loss} / grad norm")
     per_step = {k: n / timed for k, n in launched.items() if n}
@@ -4795,10 +4880,9 @@ def phase_cli_prompt(card: str) -> dict:
     scripts/image-text/single_prompt.sh (``--downsample`` left out, as in
     phase 8) plus --bf16: batch 500, the four tasks, CLI_EXAMPLES
     synthetic examples a task, PROMPT_EPOCHS epochs, each evaluated. Every
-    kernel of the path must launch, A6 on "tc" (S 96 / 116) and on "fma"
-    (nlvr's cross-attention over S 142, past the tensor-core kernels' 128)
-    and the long backward (nlvr's encoder, L = S = 142) among them; prints
-    the data build, the host-clocked ms/step and each task's eval
+    kernel of the path must launch, A6 on "tc" only, past 128 rows at
+    nlvr's encoder (L = S = 142) and cross-attention over S 142 among them;
+    prints the data build, the host-clocked ms/step and each task's eval
     seconds."""
     with tempfile.TemporaryDirectory() as tmp:
         out_dir = os.path.join(tmp, "run")
@@ -4811,10 +4895,9 @@ def phase_cli_prompt(card: str) -> dict:
             recs = [json.loads(ln) for ln in f]
     launched = res["launches"]
     require_launched(CLI_PROMPT, launched)
-    for route in ("tc", "fma"):
-        if not launched.get(f"fused_attention_bwd[{route}]"):
-            raise AssertionError(f"single_prompt CLI: A6 never took its "
-                                 f"{route} kernel")
+    if launched.get("fused_attention_bwd[fma]"):
+        raise AssertionError(f"single_prompt CLI: A6 launched on fma "
+                             f"{launched['fused_attention_bwd[fma]']} times")
     epochs = [r for r in recs if "train_seconds" in r]
     if len(epochs) != PROMPT_EPOCHS:
         raise AssertionError(f"{len(epochs)} epochs")
@@ -4971,7 +5054,8 @@ def phase_video_script_bench(card: str) -> dict:
     """7g: each video script's bf16 train step at B 50 on tvqa (S 664; 704
     with the prompt), 20 targets, as phase 7 (ms/step, examples/s, peak
     GiB, launches; the video_<script> main-path runs); VL-PET-large's on tvc
-    (S 141, whose cross-attention A6 takes on "fma"); then VL-PET-large's
+    (S 141: A6 past 128 rows at its encoder and cross-attention, every
+    launch on "tc"); then VL-PET-large's
     greedy tvqa eval to length 20 (weights at std 0.2) and beam-5 tvc eval
     to length 40 at B 50 (examples/s; VS_QA_EVAL, VS_CAP_EVAL)."""
     launched = {}
@@ -4986,9 +5070,7 @@ def phase_video_script_bench(card: str) -> dict:
     launched[path] = train_bench(
         card, video_script_cfg("VL-PET-large"), video_train_inputs(CAP_TEXT),
         VIDEO_B, 53, VIDEO_TASKS, "tvc", 7e-4, path,
-        "video VL-PET-large tvc S141", tc_only=False)
-    if not launched[path].get("fused_attention_bwd[fma]"):
-        raise AssertionError(f"{path}: A6 never took its fma kernel")
+        "video VL-PET-large tvc S141")
     # greedy at the init scale ends every row at the first step; at
     # phase 4 (b)'s std 0.2 it decodes to the full length (T2's launches
     # count the steps). Beam 5 runs its 39 steps at the init scale.
@@ -5187,9 +5269,9 @@ def make_raw_train_batch(B: int, vocab: int, seed: int, n_images: int = 1):
 
 def phase_raw_sites(rep: Report) -> None:
     """3p: the raw path's kernel sites, bf16, and fp32 for A1 and A6 at S
-    69 (RAW_ATTENTION_SITES: B 500, vqa S 69 with A6 on "fma" past L, S
-    64, NLVR S 118 and 448 px S 216 on the long backward, the cross sites
-    L 10 and the caption's L 40 over S 69 and 118 (A6 "fma"), the beam
+    69 (RAW_ATTENTION_SITES: B 500, vqa S 69, NLVR S 118 and 448 px S
+    216 on A6's tensor-core kernels, the cross sites L 10 and the
+    caption's L 40 over S 69 and 118, the beam
     cross-attention L 5 over S 69); F1, F2, L1 and L2 at the encoder rows
     (RAW_TRAIN_ROWS, N 34500 / 59000 / 108000); D1, U1, T1 and T2 at the
     raw caption eval (B 500, beam 5 to length 40). Each against its plain
@@ -5762,6 +5844,8 @@ def _raw_train_bench(card, label, path, adapter, unfreeze, t5, B, lr):
     wall = time.perf_counter() - t0
     launched = read_counts(path) if path else {
         k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    if path:
+        require_tc(path, launched)
     if not math.isfinite(loss) or not math.isfinite(out["grad_norm"].item()):
         raise AssertionError(f"{label}: non-finite loss {loss}")
     trunk_ms = sum(s.elapsed_time(e) for s, e in spans[-timed:])

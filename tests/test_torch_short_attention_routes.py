@@ -3,26 +3,32 @@ refusals, on CPU.
 
 ops/attention.py picks A6's kernel by ``a6_route(L, S, Dh, dtype)``: "tc"
 (the tensor-core kernels of csrc/attention_bwd.cu: one for a single 64-row
-tile, one for L or S past 64) for bf16 at Dh 64 with L, S <= 128 -- every
-bf16 A6 site of the repo but the video tvc cross sites at S 141 / 181 --
-and "fma" (the FP32-FMA kernel) otherwise. On the card each bf16 kernel is
-held to its plain twin, so here the bf16 twins -- ``fused_attention_bwd``
-and ``fused_linear_ce_bwd`` through their CPU route -- are held to the JAX
+tile, one for L or S past 64 up to 128, one past 128) for bf16 at Dh 64
+with L, S <= 256 -- every bf16 A6 site of the repo -- and "fma" (the
+FP32-FMA kernel) for fp32 and other widths. ``backward_route`` gives every
+bf16 Dh 64 site within 256 to A6 and the video sites (S 604, 704, 1024) to
+the long backward. On the card each bf16 kernel is held to its plain twin,
+so here the bf16 twins -- ``fused_attention_bwd`` and
+``fused_linear_ce_bwd`` through their CPU route -- are held to the JAX
 package's TPU kernels in interpret mode, on bf16 inputs made with numpy
 from a seed:
 
 * A6 against ``_pallas_attention_bwd`` at a ragged L = S = 50 with a
   batched padding mask, L 10 over S 56, and the causal L = S = 10 (the
-  one-tile kernel's shapes), and at a ragged L = S = 96 with a batched
-  mask, L 40 over S 116 and a causal L = S = 76 (the wide kernel's), each
-  with the relative bias, with dropout 0.1, and with ``bias_grad`` (dbias
-  too). Tolerance 2e-2 * (1 + max|ref|), tests/test_torch_attention_routes.py's
-  rule for gradients: the two round p and ds to bf16 at other places, and
-  an element whose terms cancel carries the rounding of terms several times
+  one-tile kernel's shapes), at a ragged L = S = 96 with a batched mask,
+  L 40 over S 116 and a causal L = S = 76 (the wide kernel's), and at a
+  ragged L = S = 142 with a batched mask, L 20 over S 181 and a causal
+  L = S = 200 (the kernel past 128 rows), each with the relative bias,
+  with dropout 0.1, and with ``bias_grad`` (dbias too). Tolerance 2e-2 *
+  (1 + max|ref|), tests/test_torch_attention_routes.py's rule for
+  gradients: the two round p and ds to bf16 at other places, and an
+  element whose terms cancel carries the rounding of terms several times
   its own size. At the wide shapes, an emulation of the wide kernel's
   arithmetic (row statistics from phase 1, p and ds recomputed from them
   on the key side, p_drop and ds rounded to bf16 before the products) is
-  held to the same kernel by the same rule.
+  held to the same kernel by the same rule; past 128 rows, an emulation
+  of that kernel's (the row statistics from one online sweep over 16-key
+  chunks: running max, rescaled sum and rescaled rowsum(dp e)).
 * C2 against ``vlpet_tpu/ops/fused_ce.py:_run_bwd`` at N 61 (no multiple of
   any row block) and V 1000 (no multiple of 64), D 64; the same tolerance
   (the one-ulp flips of the g both round to bf16).
@@ -52,9 +58,14 @@ SHAPES = {"ragged50": (50, 50, False, True),
           "causal10": (10, 10, True, False),
           "ragged96": (96, 96, False, True),
           "cross40x116": (40, 116, False, True),
-          "causal76": (76, 76, True, False)}
-# the shapes of the wide tensor-core kernel (L or S past 64)
+          "causal76": (76, 76, True, False),
+          "ragged142": (142, 142, False, True),
+          "cross20x181": (20, 181, False, True),
+          "causal200": (200, 200, True, False)}
+# the shapes of the wide tensor-core kernel (L or S past 64, up to 128)
 WIDE = ("ragged96", "cross40x116", "causal76")
+# the shapes of the tensor-core kernel past 128 rows
+PAST128 = ("ragged142", "cross20x181", "causal200")
 # bias, rate, bias_grad
 MODES = {"bias": (True, 0.0, False), "dropout": (False, RATE, False),
          "bias_grad": (True, RATE, True)}
@@ -72,31 +83,63 @@ def test_a6_route(L, S, dtype, Dh_, route):
 
 @pytest.mark.parametrize("L, S, route", [
     (65, 65, "tc"), (10, 65, "tc"), (65, 10, "tc"), (90, 90, "tc"),
-    (116, 116, "tc"), (40, 116, "tc"), (128, 10, "tc"), (40, 141, "fma"),
-    (10, 142, "fma"), (20, 181, "fma")])
+    (116, 116, "tc"), (40, 116, "tc"), (128, 10, "tc"), (40, 141, "tc"),
+    (10, 142, "tc"), (20, 181, "tc")])
 def test_a6_route_past_one_tile_is_fma(L, S, route):
-    """bf16 Dh 64 sites that A6 serves past one 64-row tile take the wide
-    tensor-core kernel up to L, S 128 and keep the FMA kernel past it (the
-    video tvc cross sites, the prompt's nlvr cross site)."""
+    """bf16 Dh 64 sites that A6 serves past one 64-row tile take a
+    tensor-core kernel: the wide one up to L, S 128, the one past 128 rows
+    beyond it (the video tvc cross sites, the prompt's nlvr cross site)."""
     assert tatt.backward_route(L, S, 64, torch.bfloat16) == "A6"
     assert tatt.a6_route(L, S, 64, torch.bfloat16) == route
 
 
 def test_a6_route_is_tc_wherever_a6_serves_bf16_up_to_128():
-    """Every 1 <= L, S <= 128 that backward_route gives to A6 takes "tc" in
-    bf16 at Dh 64; fp32 and other widths keep "fma" there."""
+    """Every 1 <= L, S <= 256 is given to A6 in bf16 at Dh 64 and takes
+    "tc" there; fp32 and other widths keep "fma" where A6 serves them; the
+    video sites stay on the long backward."""
     served = 0
-    for L in range(1, 129):
-        for S in range(1, 129):
+    for L in range(1, 257):
+        for S in range(1, 257):
             if tatt.backward_route(L, S, 64, torch.bfloat16) != "A6":
                 continue
             served += 1
             assert tatt.a6_route(L, S, 64, torch.bfloat16) == "tc", (L, S)
             assert tatt.a6_route(L, S, 64, torch.float32) == "fma", (L, S)
             assert tatt.a6_route(L, S, 32, torch.bfloat16) == "fma", (L, S)
-    # L = S = 118 and past it go to the long backward
-    assert 15000 < served < 128 * 128
-    assert tatt.backward_route(118, 118, 64, torch.bfloat16) == "long"
+    assert served == 256 * 256
+    assert tatt.backward_route(118, 118, 64, torch.bfloat16) == "A6"
+    for L, S in ((257, 257), (604, 604), (10, 604), (704, 704),
+                 (1024, 1024)):
+        assert tatt.backward_route(L, S, 64, torch.bfloat16) == "long"
+        assert tatt.a6_route(L, S, 64, torch.bfloat16) == "fma"
+    # fp32 and Dh 32 keep the FMA kernel's fp32-staging rule
+    assert tatt.backward_route(118, 118, 64, torch.float32) == "long"
+    assert tatt.backward_route(10, 142, 64, torch.float32) == "A6"
+    assert tatt.backward_route(100, 100, 32, torch.bfloat16) == "A6"
+    assert tatt.backward_route(142, 142, 32, torch.bfloat16) == "long"
+
+
+@pytest.mark.parametrize("L, S, past128", [
+    (10, 96, 0), (128, 128, 0), (10, 142, 1), (20, 181, 1), (216, 216, 1),
+    (256, 256, 1)])
+def test_a6_counts_its_launches_past_128_rows(monkeypatch, L, S, past128):
+    """On the card A6 launches its tensor-core route (tc = 1) at a bf16 Dh
+    64 site within 256 rows, and counts the launches past 128 rows apart
+    (the tensors lie on the CPU; the launcher is replaced by a recorder)."""
+    calls = []
+    monkeypatch.setattr(tatt._build, "use_kernel", lambda *t: True)
+    monkeypatch.setattr(tatt._build, "launch",
+                        lambda name, *args: calls.append((name, args)))
+    fn = tatt.fused_attention_bwd
+    before = fn.launches_by_route["tc"], fn.tc256_launches
+    q = torch.zeros(1, L, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, S, 64, dtype=torch.bfloat16)
+    fn(q, kv, kv, torch.zeros(1, 1, 1, S), q, 1)
+    (name, args), = calls
+    assert name == "vlpet_attention_bwd" and args[13:15] == (L, S)
+    assert args[20] == 1  # tc
+    assert (fn.launches_by_route["tc"] - before[0],
+            fn.tc256_launches - before[1]) == (1, past128)
 
 
 def test_a6_route_rejects_other_dtypes():
@@ -166,16 +209,21 @@ def test_a6_bf16_twin_matches_pallas_interpret(shape, mode):
 
 
 def _wide_emulation(q, k, v, mask, do, causal, bias, rate, seed,
-                    bias_grad):
+                    bias_grad, chunk=0):
     """The wide tensor-core kernel's arithmetic on bf16 torch tensors:
     fp32 logits, per query row the max m, 1 / sum of 2^((a - m) log2 e)
     and rowsum(dp p) (phase 1); p recomputed from those statistics, ds = p
     (dp - rowsum) with the undropped p, p_drop and ds rounded to bf16 before
-    the dq, dk and dv products (fp32 sums); dbias = sum_b ds in fp32."""
+    the dq, dk and dv products (fp32 sums); dbias = sum_b ds in fp32. With
+    ``chunk`` > 0, the kernel past 128 rows: the statistics from one online
+    sweep over ``chunk``-key pieces (running max m, sum z and t = sum of
+    dp e, both rescaled by 2^((m_old - m_new) log2 e) where m grows), then
+    rowsum(dp p) = t / z."""
     from vlpet_tpu_torch.ops.hashdrop import attention_keep_mask
 
     Bq, L, inner = q.shape
     S = k.shape[1]
+    log2e = 1.4426950408889634
 
     def heads(t, n):
         return t.float().reshape(Bq, n, H, Dh).transpose(1, 2)
@@ -187,16 +235,32 @@ def _wide_emulation(q, k, v, mask, do, causal, bias, rate, seed,
     if causal:
         a = torch.where(tatt._causal_allowed(L, S, "cpu"), a,
                         torch.full((), -1e9))
-    m = a.amax(-1, keepdim=True)
-    e = torch.exp2((a - m) * 1.4426950408889634)
-    p = e * (1.0 / e.sum(-1, keepdim=True))
-    dp, pd = doh @ vh.transpose(-1, -2), p
+    dp = doh @ vh.transpose(-1, -2)
     if rate > 0.0:
         keep = attention_keep_mask(Bq, L, S, H, seed, rate, device="cpu")
         scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
         dp = torch.where(keep, dp * scale, torch.zeros(()))
-        pd = torch.where(keep, p * scale, torch.zeros(()))
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if chunk:
+        m = torch.full(a.shape[:-1] + (1,), -1e30)
+        z, t = torch.zeros_like(m), torch.zeros_like(m)
+        for c0 in range(0, S, chunk):
+            ac, dc = a[..., c0:c0 + chunk], dp[..., c0:c0 + chunk]
+            mn = torch.maximum(m, ac.amax(-1, keepdim=True))
+            sc = torch.exp2((m - mn) * log2e)
+            e = torch.exp2((ac - mn) * log2e)
+            z = z * sc + e.sum(-1, keepdim=True)
+            t = t * sc + (dc * e).sum(-1, keepdim=True)
+            m = mn
+        inv = 1.0 / z
+        p = torch.exp2((a - m) * log2e) * inv
+        rowsum = t * inv
+    else:
+        m = a.amax(-1, keepdim=True)
+        e = torch.exp2((a - m) * log2e)
+        p = e * (1.0 / e.sum(-1, keepdim=True))
+        rowsum = (dp * p).sum(-1, keepdim=True)
+    pd = torch.where(keep, p * scale, torch.zeros(())) if rate > 0.0 else p
+    ds = p * (dp - rowsum)
     ds16 = ds.to(torch.bfloat16).float()
     pd16 = pd.to(torch.bfloat16).float()
 
@@ -208,9 +272,7 @@ def _wide_emulation(q, k, v, mask, do, causal, bias, rate, seed,
     return grads + (ds.sum(0, keepdim=True),) if bias_grad else grads
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape", WIDE)
-def test_a6_wide_kernel_arithmetic_matches_pallas_interpret(shape, mode):
+def _emulation_matches_pallas_interpret(shape, mode, chunk):
     from vlpet_tpu.ops.attention import _pallas_attention_bwd
 
     L, S, causal, batched = SHAPES[shape]
@@ -225,10 +287,24 @@ def test_a6_wide_kernel_arithmetic_matches_pallas_interpret(shape, mode):
                                  interpret=True)
     got = _wide_emulation(tq, tk, tv, torch.from_numpy(mask), tdo, causal,
                           None if bias is None else torch.from_numpy(bias),
-                          rate, torch.from_numpy(SEED), bias_grad)
+                          rate, torch.from_numpy(SEED), bias_grad, chunk)
     assert len(got) == len(want)
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         _close(g, w, name)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", WIDE)
+def test_a6_wide_kernel_arithmetic_matches_pallas_interpret(shape, mode):
+    _emulation_matches_pallas_interpret(shape, mode, chunk=0)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("shape", PAST128)
+def test_a6_past_128_kernel_arithmetic_matches_pallas_interpret(shape, mode):
+    """csrc/attention_bwd.cu attention_bwd_tc_256's statistics sweep goes
+    over 16-key chunks."""
+    _emulation_matches_pallas_interpret(shape, mode, chunk=16)
 
 
 def test_c2_bf16_twin_matches_pallas_interpret():

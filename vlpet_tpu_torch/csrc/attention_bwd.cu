@@ -41,10 +41,14 @@
 // and dv, which reduce over the query rows, are summed inside the block:
 // no atomics, and the result does not depend on scheduling. Two routes,
 // picked by the wrapper with ops/attention.py a6_route (a plain function of
-// L, S, Dh and dtype) and passed as ``tc``; "tc" has two kernels, one for
-// a single 64-row tile and one for L or S past 64:
+// L, S, Dh and dtype) and passed as ``tc``; "tc" has three kernels, one
+// for a single 64-row tile, one for L or S past 64 up to 128 and one past
+// 128 up to 256. ops/attention.py backward_route gives A6 every bf16 Dh 64
+// site with L, S <= 256 (the "tc" kernels stage no (L, S) matrix) and
+// other sites where the FMA kernel's fp32 staging fits a block; the rest
+// (S 604, 704, 1024) take the long backward (csrc/attention_bwd_long.cu):
 //
-// "fma" (fp32; bf16 at Dh != 64 or L or S > 128): q, do, k, v staged in
+// "fma" (fp32; bf16 at Dh != 64): q, do, k, v staged in
 // shared memory as fp32 (k and v rows padded one float so the lane-per-key
 // dot products hit distinct banks) with the (L, S) p and dp/ds matrices;
 // the products on FP32 FMA. At the encoder site in bf16 it took ~2.0 ms,
@@ -117,6 +121,46 @@
 // constant -1e9 and gets ds = 0 (the plain twin's gradient through
 // ``where``; it matters only in a row that sees no key).
 // Resources (nvcc -Xptxas -v, sm_90a): PERF.md §6, the A6 row.
+//
+// "tc", L or S past 128 (up to 256: the prompt's nlvr L = S 142 and cross
+// L 10 over S 142, the video tvc encoders L = S 141 / 181 and cross L 20
+// over S 141 / 181, the raw 448 px encoder L = S 216),
+// attention_bwd_tc_256. Until it, bf16 sites past 128 took the FMA kernel
+// where its fp32 staging fitted (the cross sites, 1.3-1.5x SDPA autograd's
+// time at tvc) and the long backward elsewhere (a forward with the row lse
+// and two tiled kernels). The wide kernel's design carried past 128 keys
+// meets two limits. Registers: a 16-row query chunk's whole row of s in C
+// fragments is 64 fp32 registers a thread at 128 keys, 128 at 256. So
+// phase 1 holds no row: sweep 1 goes over 16-key chunks for s and dp with
+// an online softmax -- each lane's running max m, sum z of exp(s - m) and
+// t of dp_drop exp(s - m), z and t rescaled by exp(m_old - m_new) where m
+// grows, the quad's partials merged at the end, rowsum(dp p) = t / z --
+// and hashes the dropout's keep bits once into shared memory; sweep 2
+// recomputes s and dp a chunk at a time for p, ds, the dbias partial and
+// dq = ds k. The other way, the forward's row lse with rowsum(dp p) =
+// rowsum(do o), saves sweep 1 (5 of the 9 products a (query, key) chunk
+// pair becomes 3) but makes the forward write the lse and the autograd
+// function keep the output at these sites; A6 here keeps its contract
+// instead: it recomputes from q, k, v and the mask and needs nothing
+// saved. Phase 2 is the wide kernel's (tw_key_phase). Shared memory: q,
+// do, k, v in bf16 at the wide kernel's 72-element stride, 147,456 bytes
+// at 256 / 256, plus the mask, the row statistics and the keep bits; the
+// block is sized to the site (L and S rounded up to 16), so the cross
+// sites (L 10-20: one or two query chunks) fit 3 blocks an SM and the
+// encoders up to ~190 rows 2. Warps: 12 an SM as in the wide kernel (4, 6
+// or 12 a block; t2_warps), 168 registers (launch bounds (384, 1)); a
+// block alone on its SM with more than 12 chunks (L or S past 192, the
+// 448 px encoder's 14) takes one warp a chunk up to 16, so that each phase
+// runs in one round instead of two, in a 128-register instance (launch
+// bounds (512, 1); its spills, PERF.md §6, cost less than the second
+// round at the 448 px encoder and the causal L = S 200 on an H100). At
+// the cross sites phase 1 is one or two
+// warps' chain over 9-12 key chunks and the other warps of the block wait
+// at the barrier; the three blocks an SM fill in for one another. Rounding
+// as the wide kernel's, but for the sums of sweep 1 (z and t rescaled in
+// fp32). What bounds it, as the wide kernel: latency, at 4-9x its bytes'
+// time on an H100 (PERF.md §6); the video sites' 600 blocks (B 50) are
+// one or two waves.
 #include "common.cuh"
 
 using namespace vlpet;
@@ -566,6 +610,111 @@ __device__ __forceinline__ void tw_load_rows(bf16* dst,
   }
 }
 
+// Phase 2 of the kernels past one tile: the warps take the 16-key chunks
+// in turn; element (r, c) of n8 tile j is key k0 + g + 8 r, query 16 jj +
+// 8 j + 2 t + c. For each 16-query step a warp recomputes s^T = k q^T and
+// dp^T = v do^T, forms p, p_drop and ds from the row statistics (max Rm,
+// 1 / sum Ri, rowsum(dp p) Rt; with the dropout, the keep bit of query i
+// and key j is bit j % 32 of Kb[i kw + j / 32]), and sums dv = p_drop^T do
+// and dk = ds^T q with p_drop^T and ds^T as A fragments, the query steps
+// in order. Needs every row's statistics in shared memory (a barrier).
+template <bool BIAS, bool DROP>
+__device__ __forceinline__ void tw_key_phase(
+    const bf16* Qs, const bf16* Gs, const bf16* Ks, const bf16* Vs,
+    const float* Ms, const float* Rm, const float* Ri, const float* Rt,
+    const uint32_t* Kb, int kw, const float* __restrict__ bh,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, size_t koff, int inner,
+    int L, int S, int nq, int nk, int first, int nw, int causal,
+    float scale) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int past = S - L;  // the causal offset
+  for (int kc2 = first; kc2 < nk; kc2 += nw) {
+    const int k0 = kc2 * 16;
+    const int kj[2] = {k0 + g, k0 + g + 8};
+    const float mk[2] = {Ms[kj[0]], Ms[kj[1]]};
+    float av[8][4], ak[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[i][e] = ak[i][e] = 0.f;
+#pragma unroll 1
+    for (int jj = 0; jj < nq; ++jj) {
+      float st[2][4], dt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = jj * 16 + 8 * j + 2 * t + (e & 1);
+          const int kr = kj[e >> 1];
+          st[j][e] = BIAS && qi < L && kr < S ? bh[(size_t)qi * S + kr] : 0.f;
+          dt[j][e] = 0.f;
+        }
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ka[4], va[4], bq[4], bg[4];
+        tc_frag_a(ka, Ks, k0, kc, lane);
+        tc_frag_bt(bq, Qs, jj * 16, kc, lane);
+        mma_bf16(st[0], ka, bq[0], bq[1]);
+        mma_bf16(st[1], ka, bq[2], bq[3]);
+        tc_frag_a(va, Vs, k0, kc, lane);
+        tc_frag_bt(bg, Gs, jj * 16, kc, lane);
+        mma_bf16(dt[0], va, bg[0], bg[1]);
+        mma_bf16(dt[1], va, bg[2], bg[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = jj * 16 + 8 * j + 2 * t + c;
+          const float m = Rm[qi], inv = Ri[qi], ts = Rt[qi];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const bool in = qi < L && kj[r] < S;
+            const bool hid = causal && kj[r] > qi + past;
+            const float a = hid ? -1e9f : st[j][2 * r + c] + mk[r];
+            const float p = in ? ex2(fmaf(a, kLog2e, -m * kLog2e)) * inv : 0.f;
+            float dd = dt[j][2 * r + c], pd = p;
+            if (DROP) {
+              const bool kept =
+                  (Kb[qi * kw + (kj[r] >> 5)] >> (kj[r] & 31)) & 1u;
+              dd = kept ? dd * scale : 0.f;
+              pd = kept ? p * scale : 0.f;
+            }
+            st[j][2 * r + c] = pd;
+            dt[j][2 * r + c] = hid ? 0.f : p * (dd - ts);
+          }
+        }
+      uint32_t pa[4], sa[4];
+      mma_a_from_c(pa, st[0], st[1]);
+      mma_a_from_c(sa, dt[0], dt[1]);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        uint32_t bg[4], bq[4];
+        tc_frag_b(bg, Gs, jj * 16, 2 * dd, lane);
+        tc_frag_b(bq, Qs, jj * 16, 2 * dd, lane);
+        mma_bf16(av[2 * dd], pa, bg[0], bg[1]);
+        mma_bf16(av[2 * dd + 1], pa, bg[2], bg[3]);
+        mma_bf16(ak[2 * dd], sa, bq[0], bq[1]);
+        mma_bf16(ak[2 * dd + 1], sa, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kj[r] >= S) continue;
+      const size_t row = koff + (size_t)kj[r] * inner;
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        const int d = dt * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
+            __floats2bfloat162_rn(ak[dt][2 * r], ak[dt][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
+            __floats2bfloat162_rn(av[dt][2 * r], av[dt][2 * r + 1]);
+      }
+    }
+  }
+}
+
 // One block per (head, batch), shared memory sized to the site, 4 or 6
 // warps (tw_threads). Phase 1, the warps take the query chunks (16 rows
 // each) in turn: s = q k^T over the whole row (up to 128 keys, 64 fp32
@@ -822,96 +971,291 @@ attention_bwd_tc_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();  // every row's statistics are in shared memory
 
-  // ---- phase 2: keys; element (r, c) of n8 tile j is key k0 + g + 8 r,
-  // query 16 jj + 8 j + 2 t + c
-  for (int kc2 = first; kc2 < nk; kc2 += nw) {
-    const int k0 = kc2 * 16;
-    const int kj[2] = {k0 + g, k0 + g + 8};
-    const float mk[2] = {Ms[kj[0]], Ms[kj[1]]};
-    float av[8][4], ak[8][4];
+  tw_key_phase<BIAS, DROP>(Qs, Gs, Ks, Vs, Ms, Rm, Ri, Rt, Kb, 4, bh, dk, dv,
+                           koff, inner, L, S, nq, nk, first, nw, causal,
+                           scale);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core route past 128 rows (bf16, Dh 64, L, S <= 256, L or S >
+// 128; header).
+
+constexpr int kT2Rows = 256;  // the largest L and S
+constexpr int kT2Warps = 12;  // warps an SM (the wide kernel's 12)
+constexpr int kT2AloneWarps = 16;  // a block alone on its SM: up to 16
+constexpr int kSmemPerSm = 233472;  // 228 KB of shared memory an SM
+constexpr int kSmemPerBlock = 1024;  // what the card reserves a block
+
+// bf16 q, do (L rounded up to 16 rows), k, v (S rounded up) of stride
+// kTcLd, the mask, three fp32 statistics of each query row and, with the
+// dropout, each row's keep bits (a 32-bit word per 32 keys)
+__host__ __device__ constexpr size_t t2_smem(int Lp, int Sp, bool drop) {
+  return (size_t)2 * (Lp + Sp) * kTcLd * 2 + (size_t)(Sp + 3 * Lp) * 4 +
+         (drop ? (size_t)Lp * ((Sp + 31) / 32) * 4 : 0);
+}
+
+// The warps of a block, one a chunk of the side with more chunks at most:
+// 12 warps an SM, as many blocks as the shared memory holds (3 at most:
+// the cross sites) with 12 / blocks warps each; a block alone on its SM
+// (L = S past ~190) with more than 12 chunks takes up to 16, so that each
+// phase runs in one round (the kernel's 128-register instance).
+inline int t2_warps(size_t smem, int nq, int nk) {
+  const int blocks = min(3, (int)(kSmemPerSm / (smem + kSmemPerBlock)));
+  const int chunks = max(nq, nk);
+  if (blocks <= 1 && chunks > kT2Warps) return min(kT2AloneWarps, chunks);
+  return min(kT2Warps / max(blocks, 1), chunks);
+}
+
+// s (started from the bias) = q k^T and dp = do v^T of query rows r0 ..
+// r0 + 16 and keys k0 .. k0 + 16, from the rows' A fragments qa, ga:
+// element (r, c) of n8 tile j is query r0 + g + 8 r, key k0 + 8 j + 2 t + c
+template <bool BIAS>
+__device__ __forceinline__ void t2_tile(float (&s)[2][4], float (&d)[2][4],
+                                        const uint32_t (&qa)[4][4],
+                                        const uint32_t (&ga)[4][4],
+                                        const bf16* Ks, const bf16* Vs,
+                                        const float* __restrict__ bh, int r0,
+                                        int k0, int L, int S, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = r0 + g + 8 * (e >> 1), kj = k0 + 8 * j + 2 * t + (e & 1);
+      s[j][e] = BIAS && qi < L && kj < S ? bh[(size_t)qi * S + kj] : 0.f;
+      d[j][e] = 0.f;
+    }
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    uint32_t bk[4], bv[4];
+    tc_frag_bt(bk, Ks, k0, kc, lane);
+    mma_bf16(s[0], qa[kc], bk[0], bk[1]);
+    mma_bf16(s[1], qa[kc], bk[2], bk[3]);
+    tc_frag_bt(bv, Vs, k0, kc, lane);
+    mma_bf16(d[0], ga[kc], bv[0], bv[1]);
+    mma_bf16(d[1], ga[kc], bv[2], bv[3]);
+  }
+}
+
+// One block per (head, batch), shared memory sized to the site, 4 to 16
+// warps (t2_warps; W, the most, sets the launch bounds). Phase 1, the
+// warps take the query chunks (16 rows each) in turn, a row never held
+// whole: sweep 1 goes over the 16-key chunks computing s and dp, keeping
+// each row's running max, its sum of exp(s - max) and its sum of dp
+// exp(s - max) (both rescaled where the max grows: an online softmax),
+// hashing the dropout's keep bits once into shared memory; sweep 2
+// recomputes s and dp chunk by chunk for p, ds = p (dp - rowsum(dp p)),
+// the dbias partial and dq = ds k (ds as the A fragment). Phase 2 is the
+// wide kernel's (tw_key_phase).
+template <bool BIAS, bool DROP, int W>
+__global__ void __launch_bounds__(32 * W, 1)
+attention_bwd_tc_256(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ seed_p,
+                     const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     float* __restrict__ dbias_part, int L, int S, int H,
+                     int mask_batched, int causal, uint32_t thr,
+                     float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nq = (L + 15) >> 4, nk = (S + 15) >> 4;
+  const int Lp = nq * 16, Sp = nk * 16, kw = (Sp + 31) / 32;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Gs = Qs + Lp * kTcLd;  // dO
+  bf16* Ks = Gs + Lp * kTcLd;
+  bf16* Vs = Ks + Sp * kTcLd;
+  float* Ms = reinterpret_cast<float*>(Vs + Sp * kTcLd);  // [Sp]
+  float* Rm = Ms + Sp;  // [Lp] row max
+  float* Ri = Rm + Lp;  // [Lp] 1 / row sum, 0 past L
+  float* Rt = Ri + Lp;  // [Lp] rowsum(dp p), 0 past L
+  uint32_t* Kb = reinterpret_cast<uint32_t*>(Rt + Lp);  // [Lp][kw], DROP
+  // the keep bits of query i, keys 16 c .. 16 c + 16: Kh[i 2 kw + c]
+  uint16_t* Kh = reinterpret_cast<uint16_t*>(Kb);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int inner = H * kTcD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t qoff = (size_t)b * L * inner + (size_t)h * kTcD;
+  const size_t koff = (size_t)b * S * inner + (size_t)h * kTcD;
+  const float* mb = mask + (mask_batched ? (size_t)b * S : 0);
+  const float* bh = BIAS ? bias + (size_t)h * L * S : nullptr;
+  const int past = S - L;  // the causal offset
+
+  tw_load_rows(Qs, q + qoff, Lp, L, inner);
+  tw_load_rows(Gs, dout + qoff, Lp, L, inner);
+  tw_load_rows(Ks, k + koff, Sp, S, inner);
+  tw_load_rows(Vs, v + koff, Sp, S, inner);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < Sp; i += blockDim.x)
+    Ms[i] = i < S ? mb[i] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  const uint32_t hseed = DROP ? head_seed((uint32_t)seed_p[0], h) : 0u;
+  // chunk c goes to warp (c + rot) % nw, as in the wide kernel
+  const int nw = blockDim.x >> 5;
+  const int first = (warp + nw - (int)((blockIdx.x + blockIdx.y) % nw)) % nw;
+
+  // ---- phase 1: query rows
+  for (int qc = first; qc < nq; qc += nw) {
+    const int r0 = qc * 16;
+    uint32_t qa[4][4], ga[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      tc_frag_a(qa[kc], Qs, r0, kc, lane);
+      tc_frag_a(ga[kc], Gs, r0, kc, lane);
+    }
+    const int qi[2] = {r0 + g, r0 + g + 8};
+    uint32_t irow[2];
+    // per lane (its 4 keys of a chunk): running max, sum of 2^((a - m)
+    // log2 e) and of dp times it; -1e30, not -inf, so that a rescale of
+    // two empty maxima is 2^0
+    float m[2] = {-1e30f, -1e30f}, z[2] = {0.f, 0.f}, tt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      irow[r] = ((uint32_t)b * (uint32_t)L + (uint32_t)qi[r]) * (uint32_t)S;
+    // sweep 1: the row statistics, online
+#pragma unroll 2
+    for (int kk = 0; kk < nk; ++kk) {
+      const int k0 = kk * 16;
+      float s[2][4], d[2][4];
+      t2_tile<BIAS>(s, d, qa, ga, Ks, Vs, bh, r0, k0, L, S, lane);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float cm = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kj = k0 + 8 * j + 2 * t + c;
+            float a = -INFINITY;
+            if (kj < S) {
+              a = s[j][2 * r + c] + Ms[kj];
+              if (causal && kj > qi[r] + past) a = -1e9f;
+            }
+            s[j][2 * r + c] = a;
+            cm = fmaxf(cm, a);
+          }
+        const float mn = fmaxf(m[r], cm);
+        const float sc = ex2((m[r] - mn) * kLog2e);
+        z[r] *= sc;
+        tt[r] *= sc;
+        m[r] = mn;
+        uint32_t bits = 0u;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float e = ex2(fmaf(s[j][2 * r + c], kLog2e, -mn * kLog2e));
+            float dd = d[j][2 * r + c];
+            if (DROP) {
+              const uint32_t kj = (uint32_t)(k0 + 8 * j + 2 * t + c);
+              const bool kept = hash_bits(irow[r] + kj, hseed) >= thr;
+              bits |= (uint32_t)kept << (8 * j + 2 * t + c);
+              dd = kept ? dd * scale : 0.f;
+            }
+            z[r] += e;
+            tt[r] = fmaf(dd, e, tt[r]);
+          }
+        if (DROP) {  // the quad's 16 bits of the row
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+          if (t == 0) Kh[qi[r] * 2 * kw + kk] = (uint16_t)bits;
+        }
+      }
+    }
+    // the quad's partial statistics to the row's: max, 1 / sum, rowsum(dp
+    // p) = sum(dp e) / sum(e), both 0 past L
+    float inv[2], ts[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mr = quad_max(m[r]);
+      const float sc = ex2((m[r] - mr) * kLog2e);
+      const float zr = quad_sum(z[r] * sc), tr = quad_sum(tt[r] * sc);
+      inv[r] = qi[r] < L ? 1.f / zr : 0.f;
+      ts[r] = tr * inv[r];
+      m[r] = mr;
+      if (t == 0) {
+        Rm[qi[r]] = mr;
+        Ri[qi[r]] = inv[r];
+        Rt[qi[r]] = ts[r];
+      }
+    }
+    if (DROP) __syncwarp();  // the quads' keep bits, read in sweep 2
+    // sweep 2: ds = p (dp - rowsum) (0 past L), its dbias partial, and
+    // dq = ds k
+    float aq[8][4];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) av[i][e] = ak[i][e] = 0.f;
-#pragma unroll 1
-    for (int jj = 0; jj < nq; ++jj) {
-      float st[2][4], dt[2][4];
+      for (int e = 0; e < 4; ++e) aq[i][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < nk; ++kk) {
+      const int k0 = kk * 16;
+      float s[2][4], d[2][4];
+      t2_tile<BIAS>(s, d, qa, ga, Ks, Vs, bh, r0, k0, L, S, lane);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t kept = DROP ? Kh[qi[r] * 2 * kw + kk] : 0u;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = jj * 16 + 8 * j + 2 * t + (e & 1);
-          const int kr = kj[e >> 1];
-          st[j][e] = BIAS && qi < L && kr < S ? bh[(size_t)qi * S + kr] : 0.f;
-          dt[j][e] = 0.f;
-        }
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t ka[4], va[4], bq[4], bg[4];
-        tc_frag_a(ka, Ks, k0, kc, lane);
-        tc_frag_bt(bq, Qs, jj * 16, kc, lane);
-        mma_bf16(st[0], ka, bq[0], bq[1]);
-        mma_bf16(st[1], ka, bq[2], bq[3]);
-        tc_frag_a(va, Vs, k0, kc, lane);
-        tc_frag_bt(bg, Gs, jj * 16, kc, lane);
-        mma_bf16(dt[0], va, bg[0], bg[1]);
-        mma_bf16(dt[1], va, bg[2], bg[3]);
-      }
+          for (int c = 0; c < 2; ++c) {
+            const int kj = k0 + 8 * j + 2 * t + c;
+            // a causally hidden logit is the constant -1e9: no gradient
+            // (it matters only in a row that sees no key)
+            const bool hid = causal && kj > qi[r] + past;
+            float a = -INFINITY;
+            if (kj < S) a = hid ? -1e9f : s[j][2 * r + c] + Ms[kj];
+            const float p = ex2(fmaf(a, kLog2e, -m[r] * kLog2e)) * inv[r];
+            float dd = d[j][2 * r + c];
+            if (DROP) dd = (kept >> (8 * j + 2 * t + c)) & 1u ? dd * scale
+                                                              : 0.f;
+            d[j][2 * r + c] = hid ? 0.f : p * (dd - ts[r]);
+          }
+        if (dbias_part != nullptr && qi[r] < L) {
+          float* dst =
+              dbias_part + (((size_t)b * H + h) * L + qi[r]) * S + k0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int qi = jj * 16 + 8 * j + 2 * t + c;
-          const float m = Rm[qi], inv = Ri[qi], ts = Rt[qi];
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const bool in = qi < L && kj[r] < S;
-            const bool hid = causal && kj[r] > qi + past;
-            const float a = hid ? -1e9f : st[j][2 * r + c] + mk[r];
-            const float p = in ? ex2(fmaf(a, kLog2e, -m * kLog2e)) * inv : 0.f;
-            float dd = dt[j][2 * r + c], pd = p;
-            if (DROP) {
-              const bool kept =
-                  (Kb[qi * 4 + (kj[r] >> 5)] >> (kj[r] & 31)) & 1u;
-              dd = kept ? dd * scale : 0.f;
-              pd = kept ? p * scale : 0.f;
-            }
-            st[j][2 * r + c] = pd;
-            dt[j][2 * r + c] = hid ? 0.f : p * (dd - ts);
+          for (int j = 0; j < 2; ++j) {
+            const int kj = k0 + 8 * j + 2 * t;
+            if (kj < S) dst[8 * j] = d[j][2 * r];
+            if (kj + 1 < S) dst[8 * j + 1] = d[j][2 * r + 1];
           }
         }
-      uint32_t pa[4], sa[4];
-      mma_a_from_c(pa, st[0], st[1]);
-      mma_a_from_c(sa, dt[0], dt[1]);
+      }
+      uint32_t sa[4];
+      mma_a_from_c(sa, d[0], d[1]);
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd) {
-        uint32_t bg[4], bq[4];
-        tc_frag_b(bg, Gs, jj * 16, 2 * dd, lane);
-        tc_frag_b(bq, Qs, jj * 16, 2 * dd, lane);
-        mma_bf16(av[2 * dd], pa, bg[0], bg[1]);
-        mma_bf16(av[2 * dd + 1], pa, bg[2], bg[3]);
-        mma_bf16(ak[2 * dd], sa, bq[0], bq[1]);
-        mma_bf16(ak[2 * dd + 1], sa, bq[2], bq[3]);
+        uint32_t bk[4];
+        tc_frag_b(bk, Ks, k0, 2 * dd, lane);
+        mma_bf16(aq[2 * dd], sa, bk[0], bk[1]);
+        mma_bf16(aq[2 * dd + 1], sa, bk[2], bk[3]);
       }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (kj[r] >= S) continue;
-      const size_t row = koff + (size_t)kj[r] * inner;
+      if (qi[r] >= L) continue;
+      bf16* dst = dq + qoff + (size_t)qi[r] * inner;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        const int d = dt * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
-            __floats2bfloat162_rn(ak[dt][2 * r], ak[dt][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
-            __floats2bfloat162_rn(av[dt][2 * r], av[dt][2 * r + 1]);
-      }
+      for (int dt = 0; dt < 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8 + 2 * t) =
+            __floats2bfloat162_rn(aq[dt][2 * r], aq[dt][2 * r + 1]);
     }
   }
+  __syncthreads();  // every row's statistics are in shared memory
+
+  // ---- phase 2: keys
+  tw_key_phase<BIAS, DROP>(Qs, Gs, Ks, Vs, Ms, Rm, Ri, Rt, Kb, kw, bh, dk,
+                           dv, koff, inner, L, S, nq, nk, first, nw, causal,
+                           scale);
 }
 
-// PR 9's kernel where L and S fit one 64-row tile, else the wide one; the
-// two take the same arguments
+// attention_bwd_tc where L and S fit one 64-row tile, the wide one up to
+// 128 rows, else attention_bwd_tc_256; the three take the same arguments
 template <bool BIAS, bool DROP>
 int launch_tc_terms(const void* q, const void* k, const void* v,
                     const void* mask, const void* bias, const void* seed,
@@ -919,17 +1263,25 @@ int launch_tc_terms(const void* q, const void* k, const void* v,
                     void* dbias_part, int B, int L, int S, int H,
                     int mask_batched, int causal, uint32_t thr, float scale,
                     cudaStream_t st) {
+  const int nq = (L + 15) / 16, nk = (S + 15) / 16;
   const bool wide = L > kTcRows || S > kTcRows;
+  const bool big = L > kTwRows || S > kTwRows;
   const size_t smem =
-      wide ? tw_smem((L + 15) / 16 * 16,
-                     max((S + 15) / 16, kTwMinChunks) * 16, DROP)
-           : tc_smem(BIAS);
+      big ? t2_smem(nq * 16, nk * 16, DROP)
+          : wide ? tw_smem(nq * 16, max(nk, kTwMinChunks) * 16, DROP)
+                 : tc_smem(BIAS);
+  const int t2w = big ? t2_warps(smem, nq, nk) : 0;
   decltype(&attention_bwd_tc<BIAS, DROP>) kernel =
-      wide ? &attention_bwd_tc_wide<BIAS, DROP> : &attention_bwd_tc<BIAS, DROP>;
+      big ? (t2w > kT2Warps ? &attention_bwd_tc_256<BIAS, DROP, kT2AloneWarps>
+                            : &attention_bwd_tc_256<BIAS, DROP, kT2Warps>)
+          : wide ? &attention_bwd_tc_wide<BIAS, DROP>
+                 : &attention_bwd_tc<BIAS, DROP>;
+  const int threads =
+      big ? 32 * t2w : wide ? tw_threads(L, S) : kTcThreads;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(H, B), wide ? tw_threads(L, S) : kTcThreads, smem, st>>>(
+  kernel<<<dim3(H, B), threads, smem, st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)mask,
       (const float*)bias, (const int*)seed, (const bf16*)dout, (bf16*)dq,
       (bf16*)dk, (bf16*)dv, (float*)dbias_part, L, S, H, mask_batched, causal,
@@ -997,7 +1349,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 // dbias_part: fp32 scratch of B * H * L * S floats and dbias the (H, L, S)
 // fp32 output, both NULL for no bias gradient (they need a bias). tc: the
-// tensor-core route (bf16, Dh 64, L, S <= 128; ops/attention.py a6_route).
+// tensor-core route (bf16, Dh 64, L, S <= 256; ops/attention.py a6_route).
 extern "C" int vlpet_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    const void* bias, const void* seed,
@@ -1011,7 +1363,7 @@ extern "C" int vlpet_attention_bwd(const void* q, const void* k,
       (drop && (seed == nullptr || thr < 0)) ||
       ((dbias != nullptr) != (dbias_part != nullptr)) ||
       (dbias != nullptr && bias == nullptr) ||
-      (tc && (!is_bf16 || Dh != kTcD || L > kTwRows || S > kTwRows)))
+      (tc && (!is_bf16 || Dh != kTcD || L > kT2Rows || S > kT2Rows)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (tc) {

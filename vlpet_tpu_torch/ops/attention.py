@@ -28,12 +28,13 @@ kernels, which the fp32 parity runs hold to full fp32 arithmetic).
 ``fused_attention.launches_by_route`` and
 ``fused_attention_bwd_long.launches_by_route`` count the launches of each.
 A6's kernel is picked by ``a6_route(L, S, Dh, dtype)``: "tc" for bf16 at
-Dh 64 with L, S <= 128 (one kernel for a single 64-row tile, the B 500
-train sites; another past it, the CLI's caption L 76 and nlvr S 102, the
-prompts' and prefixes' S 96 / 116), "fma" for fp32, other widths and L or
-S past 128 (the prompt's nlvr cross site at S 142, the video tvc cross
-sites at S 141 / 181);
-``fused_attention_bwd.launches_by_route`` counts them.
+Dh 64 with L, S <= 256 (one kernel for a single 64-row tile, the B 500
+train sites; one up to 128 rows, the CLI's caption L 76 and nlvr S 102,
+the prompts' and prefixes' S 96 / 116, the raw NLVR encoder's 118; one
+past 128, the prompt's nlvr S 142, the video tvc sites at S 141 / 181,
+the raw 448 px encoder's 216), "fma" for fp32 and other widths;
+``fused_attention_bwd.launches_by_route`` counts them, and
+``fused_attention_bwd.tc256_launches`` the launches past 128 rows.
 
 T5 terms: the relative bias rides as ``bias``, a batch-shared (1, H, L, S)
 fp32 term added to the logits after the mask (the (B, H, L, S) sum never
@@ -175,8 +176,10 @@ def fused_attention_bwd_long_reference(q, k, v, mask, out, lse, do,
 # repo: BART-base and T5-base, d 768 over 12 heads)
 TC_HEAD_DIM = 64
 # the largest L and S of A6's tensor-core kernels (csrc/attention_bwd.cu
-# kTwRows)
-A6_TC_ROWS = 128
+# kT2Rows), and of those up to 128 rows (kTwRows): past it, L or S,
+# attention_bwd_tc_256 serves
+A6_TC_ROWS = 256
+A6_WIDE_ROWS = 128
 
 
 def forward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
@@ -208,10 +211,9 @@ def a6_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
     """A6's kernel, a plain function of (L, S, Dh, dtype): "tc" (the
     tensor-core kernels: bf16 products on mma.sync, p and ds in registers,
     bf16 tiles fed by cp.async, 16-byte aligned inputs) for bf16 at Dh 64
-    with L, S <= 128 -- the image-text sites, the prompts' and prefixes'
-    S 96 / 116 -- else "fma" (the FP32-FMA kernel: fp32, other widths, L
-    or S past 128, as the prompt's nlvr cross-attention over S 142 and the
-    video tvc cross-attention over S 141 / 181)."""
+    with L, S <= 256 -- the image-text sites, the prompts' and prefixes'
+    S 96 / 116 / 142, the video tvc sites' S 141 / 181, the raw encoders'
+    118 / 216 -- else "fma" (the FP32-FMA kernel: fp32, other widths)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
     return ("tc" if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM
@@ -219,13 +221,17 @@ def a6_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
 
 
 def backward_route(L: int, S: int, Dh: int, dtype: torch.dtype) -> str:
-    """The backward kernel of an attention site: "A6" where its whole-head
-    block fits a block's shared memory -- q, do, k, v and the (L, S) p and
-    dp matrices, staged as fp32 for either input dtype -- else "long". The
-    image-text sites (L, S <= 56) take A6; the video sites (S 604, 1024)
-    the long backward."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"attention kernels take fp32 or bf16, not {dtype}")
+    """The backward kernel of an attention site: "A6" where A6's kernel
+    holds the whole head in a block, else "long". In bf16 at Dh 64 that is
+    where ``a6_route`` says "tc" (L, S <= 256: the tensor-core kernels
+    stage q, do, k, v in bf16 and no (L, S) matrix); elsewhere where the
+    FMA kernel's block fits a block's shared memory -- q, do, k, v and the
+    (L, S) p and dp matrices, staged as fp32. The image-text sites (L, S <=
+    56) take A6; the video sites (S 604, 704, 1024) the long backward."""
+    if a6_route(L, S, Dh, dtype) == "tc":
+        return "A6"
+    if dtype == torch.bfloat16 and Dh == TC_HEAD_DIM:
+        return "long"
     smem = 4 * (2 * L * Dh + 2 * S * (Dh + 1) + 2 * L * S)
     return "A6" if smem <= _SMEM_LIMIT else "long"
 
@@ -377,6 +383,8 @@ def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *kernel_drop_args(rate))
     fused_attention_bwd.launches += 1
     fused_attention_bwd.launches_by_route[route] += 1
+    if route == "tc" and max(L, S) > A6_WIDE_ROWS:
+        fused_attention_bwd.tc256_launches += 1
     if not bias_grad:
         return dq, dk, dv
     fused_attention_bwd.dbias_launches += 1
@@ -509,8 +517,10 @@ fused_attention_bwd_long.launches = 0
 # the same launches by forward_route: a run shows which kernels it took
 fused_attention.launches_by_route = {"tc": 0, "fma": 0}
 fused_attention_bwd_long.launches_by_route = {"tc": 0, "fma": 0}
-# A6's launches by a6_route
+# A6's launches by a6_route, and those on its tensor-core kernel past 128
+# rows (attention_bwd_tc_256)
 fused_attention_bwd.launches_by_route = {"tc": 0, "fma": 0}
+fused_attention_bwd.tc256_launches = 0
 # launches that also computed dbias (a mode of each backward, counted apart)
 fused_attention_bwd.dbias_launches = 0
 fused_attention_bwd_long.dbias_launches = 0
